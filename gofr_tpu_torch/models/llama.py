@@ -20,7 +20,9 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import (paged_decode_attention,
+from ..ops.paged_attention import (paged_chunk_attention,
+                                   paged_chunk_attention_plain,
+                                   paged_decode_attention,
                                    paged_decode_attention_plain)
 from ..ops.paged_kv import keep_index, pool_layer, pool_write
 from ..ops.rope import apply_rope, rope_frequencies
@@ -239,6 +241,67 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor,
         x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
         x = x + _mlp_block(x, lp, c)
     return _logits(params, c, x)[:, 0], k_pool, v_pool
+
+
+def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
+                              k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              tables: torch.Tensor, offsets: torch.Tensor,
+                              chunk_lengths: torch.Tensor,
+                              config: LlamaConfig, *,
+                              implementation: str = "auto"):
+    """One chunk of a chunked prefill straight against the paged pool.
+
+    tokens [B, S] start at absolute positions ``offsets`` [B] int32 per
+    row; pools [L, Hkv, Np, pg, hd] (head-major); tables [B, Mp] int32.
+    Each layer writes the chunk's K/V through the table — padding rows
+    (past ``chunk_lengths[b]``) and rows past the table's end map to the
+    OOB id and are dropped — then attends with the chunk kernel's
+    wrapper over the slot's history and the chunk's causal prefix. The
+    pools are updated in place. Returns (logits of each row's last valid
+    position [B, V] float32, k_pool, v_pool); a ``chunk_lengths[b] == 0``
+    row's logits are garbage the caller discards.
+    """
+    if implementation not in ("auto", "plain"):
+        raise ValueError(f"implementation must be 'auto' or 'plain', "
+                         f"got {implementation!r}")
+    c = config
+    b, s = tokens.shape
+    hd = c.head_dim
+    n_pages, pg = k_pool.shape[2], k_pool.shape[3]
+    mp = tables.shape[1]
+    inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
+                                device=tokens.device)
+    positions = offsets.long()[:, None] + torch.arange(
+        s, device=tokens.device)[None, :]                           # [B, S]
+    valid = torch.arange(s, device=tokens.device)[None, :] \
+        < chunk_lengths[:, None]
+    pids = torch.gather(tables, 1, (positions // pg).clamp(0, mp - 1))
+    pids = torch.where(valid & (positions < mp * pg), pids,
+                       torch.full_like(pids, n_pages))
+    offs = positions % pg
+    keep = keep_index(pids, n_pages)     # one sync per chunk, all layers
+    chunk_attn = (paged_chunk_attention if implementation == "auto"
+                  else paged_chunk_attention_plain)
+
+    x = params["embed"][tokens]                               # [B, S, D]
+    for li in range(c.n_layers):
+        lp = _layer(params, li)
+        h = rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q = _mm(h, lp["wq"]).reshape(b, s, c.n_heads, hd)
+        k = _mm(h, lp["wk"]).reshape(b, s, c.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        pool_write(k_pool, li, pids, offs, k, keep=keep)
+        pool_write(v_pool, li, pids, offs, v, keep=keep)
+        out = chunk_attn(q.contiguous(), pool_layer(k_pool, li),
+                         pool_layer(v_pool, li), tables, offsets,
+                         chunk_lengths)
+        x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"])
+        x = x + _mlp_block(x, lp, c)
+    last = (chunk_lengths.long() - 1).clamp(min=0)
+    rows = x[torch.arange(b, device=x.device), last]
+    return _logits(params, c, rows), k_pool, v_pool
 
 
 def make_pool(config: LlamaConfig, n_pages: int, page: int,

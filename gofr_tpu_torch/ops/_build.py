@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/gofr_tpu_torch/<name>-<hash>.so``
 (``-gencode arch=compute_90a,code=sm_90a``: Hopper, with the ``a``
 features), then loaded with ctypes. The file name carries a hash of
-the source and the flags, so an edited kernel rebuilds and an
-unchanged one is reused. Nothing here runs at import: the first call
+the source, the ``csrc/`` headers it includes (``mma_bf16.cuh``) and
+the flags, so an edited kernel or header rebuilds and an unchanged one
+is reused. Nothing here runs at import: the first call
 of a kernel's wrapper builds and loads it, and :func:`build_all`
 builds every kernel at once (one ``nvcc`` per source, all started
 together) for scripts that want the build out of the way.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gofr_tpu_torch"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_decode": "paged_decode.cu",
+    "paged_chunk": "paged_chunk.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,11 +66,32 @@ def nvcc() -> str:
                        "are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(path: Path, seen: dict[Path, bytes]) -> None:
+    """``path`` and every local ``#include "..."`` it reaches (resolved
+    beside the including file, as nvcc does), recursively, into
+    ``seen`` (file -> bytes)."""
+    if path in seen:
+        return
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in _LOCAL_INCLUDE.findall(text):
+        dep = (path.parent / inc.decode()).resolve()
+        if dep.is_file():
+            _sources_of(dep, seen)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library lives: the hash covers its source,
+    the local headers it includes, and the compiler flags."""
+    files: dict[Path, bytes] = {}
+    _sources_of((CSRC / SOURCES[name]).resolve(), files)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(files):
+        h.update(path.name.encode() + b"\0" + files[path])
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

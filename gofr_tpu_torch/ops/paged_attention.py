@@ -1,18 +1,23 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of ``gofr_tpu/ops/paged_attention.py``,
-decode path, bf16/f32 pools).
+"""Paged attention against the head-major KV pool: the CUDA kernels'
+wrappers and their plain PyTorch versions (counterpart of
+``gofr_tpu/ops/paged_attention.py``, decode and chunk paths, bf16/f32
+pools).
 
-Layouts (decode, one new token per slot):
-- ``q``        [B, Hq, hd]
+Layouts:
+- decode (one new token per slot): ``q`` [B, Hq, hd], ``lengths`` [B]
+  int32 = valid rows per slot AFTER this step's write, out [B, Hq, hd]
+- chunk (Sq new rows per slot, already written into the pool):
+  ``q`` [B, Sq, Hq, hd], ``history_lens`` / ``chunk_lens`` [B] int32,
+  out [B, Sq, Hq, hd]; row i of slot b sees pool rows
+  ``p <= history + i`` and ``p < history + chunk``
 - ``k_pool``   [Hkv, Np, pg, hd] — one layer of the head-major pool
 - ``tables``   [B, Mp] int32 — page ids, ``Np`` = unallocated
-- ``lengths``  [B] int32 — valid rows per slot AFTER this step's write
-- out          [B, Hq, hd]
 
-The kernel (``csrc/paged_decode.cu``) replaces the TPU kernel
-``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``; its source
-says what bounds it on the H100 and what the design does about it.
-The chunk and tree kernels of the JAX module are later slices.
+The kernels (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``) replace
+the TPU kernels ``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``
+and ``_paged_chunk_kernel``; each source says what bounds it on the
+H100 and what the design does about it. The tree-verify kernel is a
+later slice.
 """
 
 from __future__ import annotations
@@ -22,26 +27,36 @@ import ctypes
 import torch
 
 from . import _build
-from .attention import decode_attention
+from .attention import decode_attention, xla_attention
 from .paged_kv import slot_view
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
-#: query heads per KV head the kernel holds (4 warps x 4 heads)
+#: query heads per KV head the kernels hold (decode: 4 warps x 4 heads;
+#: chunk: 64 block rows = BQ positions x group, BQ >= 4)
 KERNEL_MAX_GROUP = 16
 
-_fn = None
+#: wrapper -> (library, C symbol, pointer arguments, int arguments);
+#: every C entry point ends with (float scale, void* stream)
+_KERNELS = {
+    "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 7),
+    "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 8),
+}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("paged_decode").gofr_paged_decode
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+def _kernel(wrapper: str):
+    """The ctypes function behind ``wrapper``, built and bound on first
+    use."""
+    fn = _fns.get(wrapper)
+    if fn is None:
+        lib, symbol, n_ptrs, n_ints = _KERNELS[wrapper]
+        fn = getattr(_build.load(lib), symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[wrapper] = fn
+    return fn
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -59,38 +74,68 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                        torch.zeros_like(out))
 
 
-def _check(q, k_pool, v_pool, tables, lengths):
-    b, hq, d = q.shape
+def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, tables: torch.Tensor,
+                                history_lens: torch.Tensor,
+                                chunk_lens: torch.Tensor, *,
+                                scale: float | None = None) -> torch.Tensor:
+    """The plain version: gather the dense slot views and run causal
+    attention offset by the history, bounded by ``history + chunk``.
+    Rows past ``chunk_lens[b]`` (padding, which the caller discards)
+    are zeros, as the kernel writes them — so a zero-length slot is
+    exact zeros, and kernel and plain version agree on every row."""
+    k_view = slot_view(k_pool, tables)
+    v_view = slot_view(v_pool, tables)
+    out = xla_attention(q, k_view, v_view, causal=True, q_offset=history_lens,
+                        kv_lengths=history_lens + chunk_lens, scale=scale)
+    rows = torch.arange(q.shape[1], device=q.device)
+    live = rows[None, :] < chunk_lens[:, None]
+    return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
+
+
+def _check(fn: str, q, k_pool, v_pool, tables, *lengths):
+    """What the kernels take: bf16 q and pools [Hkv, Np, pg, hd] with hd
+    in KERNEL_HEAD_DIMS and a group of at most KERNEL_MAX_GROUP query
+    heads per KV head; int32 [B, Mp] tables and [B] lengths; all
+    contiguous, on q's device, and 16-byte aligned (the kernels move
+    q, out and pool rows in 16-byte words)."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
             or k_pool.shape[3] != d:
-        raise ValueError(f"paged_decode_attention: pools must be "
-                         f"[Hkv, Np, pg, {d}], got {tuple(k_pool.shape)} / "
-                         f"{tuple(v_pool.shape)}")
+        raise ValueError(f"{fn}: pools must be [Hkv, Np, pg, {d}], got "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     hkv = k_pool.shape[0]
     if hq % hkv or hq // hkv > KERNEL_MAX_GROUP:
-        raise ValueError(f"paged_decode_attention: Hq={hq}, Hkv={hkv}: the "
-                         f"group must divide and be <= {KERNEL_MAX_GROUP}")
+        raise ValueError(f"{fn}: Hq={hq}, Hkv={hkv}: the group must divide "
+                         f"and be <= {KERNEL_MAX_GROUP}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head_dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise ValueError(f"{fn}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"paged_decode_attention: {name} must be "
-                            f"bfloat16, got {t.dtype}")
+            raise TypeError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
+                    ("tables", tables)) + tuple(
+                        (f"lengths[{i}]", n) for i, n in enumerate(lengths)):
         if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             f"contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
         if t.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} on "
-                             f"{t.device}, q on {q.device}")
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != b:
-        raise ValueError("paged_decode_attention: tables must be int32 "
-                         "[B, Mp]")
-    if lengths.dtype != torch.int32 or lengths.shape != (b,):
-        raise ValueError("paged_decode_attention: lengths must be int32 [B]")
+        raise ValueError(f"{fn}: tables must be int32 [B, Mp]")
+    for n in lengths:
+        if n.dtype != torch.int32 or n.shape != (b,):
+            raise ValueError(f"{fn}: lengths must be int32 [B]")
+
+
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """Launch wrapper ``fn``'s kernel on the current stream; raise if
+    the launch was refused."""
+    rc = _kernel(fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {rc}")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -110,23 +155,57 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
-    _check(q, k_pool, v_pool, tables, lengths)
+    _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths)
     b, hq, d = q.shape
     hkv, n_pages, pg, _ = k_pool.shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   b, hq, hkv, n_pages, pg, tables.shape[1], d, scale,
-                   stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"cudaError {rc}")
+    _launch("paged_decode_attention", q.device,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, hq, hkv, n_pages, pg, tables.shape[1], d, scale)
     paged_decode_attention.launches += 1
     return out
 
 
-#: kernel launches since the last reset (a plain integer; set it to 0
+def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          history_lens: torch.Tensor,
+                          chunk_lens: torch.Tensor, *,
+                          scale: float | None = None) -> torch.Tensor:
+    """Ragged chunk attention against one layer's paged pool: each slot
+    attends ``chunk_lens[b]`` new rows (already written at positions
+    ``[history, history + chunk)``) to its history and their causal
+    prefix. Rows past ``chunk_lens[b]`` come back as zeros.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    (bf16 q and pools, contiguous, hd in {64, 128}) or raise — there is
+    no fallback. A slot walks at most ``Mp`` pages, as the plain
+    version's ``[Mp*pg]`` view does.
+    """
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(q, k_pool, v_pool, tables,
+                                           history_lens, chunk_lens,
+                                           scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_chunk_attention: no kernel for device "
+                         f"{q.device}")
+    _check("paged_chunk_attention", q, k_pool, v_pool, tables, history_lens,
+           chunk_lens)
+    b, sq, hq, d = q.shape
+    hkv, n_pages, pg, _ = k_pool.shape
+    scale = float(scale if scale is not None else d ** -0.5)
+    out = torch.empty_like(q)     # the kernel writes every row
+    _launch("paged_chunk_attention", q.device,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), history_lens.data_ptr(), chunk_lens.data_ptr(),
+            out.data_ptr(), b, sq, hq, hkv, n_pages, pg, tables.shape[1], d,
+            scale)
+    paged_chunk_attention.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (plain integers; set one to 0
 #: to start counting)
 paged_decode_attention.launches = 0
+paged_chunk_attention.launches = 0

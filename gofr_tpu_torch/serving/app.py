@@ -11,7 +11,10 @@ OpenAI routes, no metrics port in this slice).
 Run: ``python -m gofr_tpu_torch.serving.app`` serves ``MODEL_PRESET``
 (default ``llama3_1b``, random weights from seed 0) on ``HTTP_HOST``
 (default 0.0.0.0) and ``HTTP_PORT`` (default 8000) on the CUDA device,
-with the engine ``serve_config`` gives.
+with the engine ``serve_config`` gives: prompts up to the widest bucket
+prefill through the flash kernel, longer ones and prefix-cache suffixes
+walk through the paged chunk kernel, and every token decodes through
+the paged decode kernel. The prefix cache is on, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -129,7 +132,9 @@ class ChatServer(ThreadingHTTPServer):
 
 def serve_config(model_config: LlamaConfig) -> EngineConfig:
     """The engine that ``chip_smoke.py`` measures: 8 slots of up to 2048
-    rows (fewer when the model's context is shorter) in 64-row pages."""
+    rows (fewer when the model's context is shorter) in 64-row pages,
+    prefill buckets up to 1024, the prefix cache on (a quarter of the
+    pool)."""
     return EngineConfig(max_batch=8, max_seq=min(2048, model_config.max_seq),
                         page_size=64, seed=0)
 

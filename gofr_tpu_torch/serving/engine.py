@@ -1,6 +1,6 @@
 """Continuous-batching inference engine on the paged KV pool
-(counterpart of ``gofr_tpu/serving/engine.py``, paged layout, first
-slice).
+(counterpart of ``gofr_tpu/serving/engine.py``, paged layout with the
+prefix cache and the chunk-with-history walk).
 
 - One **engine thread** owns every device call; ``submit()`` only
   queues, from any thread.
@@ -11,10 +11,27 @@ slice).
   so their K/V writes drop. One device call per group samples each
   row's first token and writes the prompt K/V into the page pool
   (``scatter_chunk``).
-- **Pages**: a host-side free list. A request is admitted only when the
-  pool can hold its whole life — ``min(prompt + max_new_tokens,
-  max_seq)`` rows — and its pages return on retire. When the pool is
-  dry the request waits for a retire; nothing is preempted.
+- **Chunk walk** (``_walk_chunks``): a prompt wider than every bucket,
+  and the suffix of a prompt whose prefix the cache held, run through
+  the chunk model function against the slot's history, ``[G, width]``
+  per call with G in {1, ``prefill_batch``} and width the smallest
+  bucket covering what is left (the widest when none does); pad rows
+  carry an all-OOB table, offset 0 and chunk length 0. At most
+  ``prefill_chunks_per_pass`` rounds run per loop iteration, so the
+  other slots decode between the chunks of a long prompt; the first
+  token is sampled from the final chunk.
+- **Pages**: a host-side free list with a reference count per page
+  (slots and the prefix cache each hold one). A request is admitted
+  only when the pool can hold its whole life — ``min(prompt +
+  max_new_tokens, max_seq)`` rows — and its references drop on retire.
+  When the pool is dry, cached prefixes are evicted (least recently
+  used first), then the request waits for a retire; nothing is
+  preempted.
+- **Prefix cache**: at retire, a request's page-aligned prompt prefix
+  stays pinned under its token ids (at most ``prefix_cache_pages``
+  pages). A later prompt that starts with a cached prefix (leaving at
+  least one token to compute) attaches those pages to its table and
+  walks only the rest.
 - **Decode passes** of ``decode_steps_per_pass`` (K) steps over the
   decoding slots: each step writes one K/V row per slot through its
   table, attends with the paged decode kernel and samples; sampled
@@ -22,11 +39,9 @@ slice).
   tokens once per pass. Slots retire on eos, on ``max_new_tokens`` or
   at the ``max_seq`` ceiling, exactly as the JAX engine counts them.
 
-Left out of this slice (see ROADMAP.md Queue A): chunked prefill of
-prompts longer than the widest bucket (they are clamped to their tail,
-as the JAX engine does without a chunk function), the prefix cache,
-speculation, preemption, int8 KV, decode windows, pipelining, and the
-SLO / events / integrity / observability planes.
+Left out (see ROADMAP.md Queue A): speculation, preemption and lazy
+page growth, int8 KV, decode windows, pipelining, and the SLO / events
+/ integrity / observability planes.
 """
 
 from __future__ import annotations
@@ -66,6 +81,11 @@ class GenRequest:
     #: every token id emitted for this request, the prefill's first
     #: token included
     generated: list[int] = field(default_factory=list)
+    #: prompt rows already in the cache: an attached prefix, then each
+    #: chunk of the walk
+    prefill_offset: int = 0
+    #: True while the prompt is walked chunk by chunk (no decode yet)
+    pending_prefill: bool = False
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event)
 
@@ -94,13 +114,25 @@ class EngineConfig:
     kv_pages: int | None = None
     #: waiting requests beyond this fail at submit; 0 = unbounded
     max_waiting: int = 0
+    #: chunk-walk rounds per loop iteration; unfinished walks resume
+    #: after a decode pass of the other slots
+    prefill_chunks_per_pass: int = 2
+    #: pin retired prompts' page-aligned prefixes for reattachment
+    prefix_cache: bool = True
+    #: pages the prefix cache may pin; None = a quarter of the pool
+    prefix_cache_pages: int | None = None
 
 
 class Engine:
-    """Continuous batching over a (prefill_fn, paged_decode_fn) pair.
+    """Continuous batching over a (prefill_fn, paged_chunk_fn,
+    paged_decode_fn) triple.
 
     prefill_fn(params, tokens [P, S], kv_lengths [P]) -> (logits [P, V],
         (k, v) each [L, P, S, Hkv, hd]) — e.g. ``llama_prefill_last``.
+    paged_chunk_fn(params, tokens [G, W], k_pool, v_pool, tables [G, Mp],
+        offsets [G], chunk_lengths [G]) -> (logits [G, V] at each row's
+        last valid position, k_pool, v_pool) — e.g.
+        ``llama_prefill_chunk_paged``; pools are updated in place.
     paged_decode_fn(params, tokens [B], k_pool, v_pool, tables [B, Mp],
         lengths [B]) -> (logits [B, V], k_pool, v_pool) — e.g.
         ``llama_decode_step_paged``; pools are updated in place.
@@ -112,7 +144,8 @@ class Engine:
 
     def __init__(self, params: Any, config: EngineConfig, *,
                  prefill_fn: Callable, paged_decode_fn: Callable,
-                 make_cache: Callable, device: str | torch.device,
+                 paged_chunk_fn: Callable, make_cache: Callable,
+                 device: str | torch.device,
                  vocab_size: int) -> None:
         cfg = config
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
@@ -124,6 +157,7 @@ class Engine:
         self.vocab_size = vocab_size
         self._prefill_fn = prefill_fn
         self._decode_fn = paged_decode_fn
+        self._chunk_fn = paged_chunk_fn
         # buckets wider than the cache could not be written back
         self._usable_buckets = tuple(sorted(
             b for b in cfg.prefill_buckets if b <= cfg.max_seq)) \
@@ -139,8 +173,22 @@ class Engine:
         self._tables = np.full((cfg.max_batch, self._pages_per_slot),
                                self._n_pages, np.int32)
         self._slot_pages = np.zeros(cfg.max_batch, np.int64)
+        #: references per page: each slot and each cache entry holding it
+        self._page_refs = np.zeros(self._n_pages, np.int32)
+        #: prompt prefix (token ids) -> its pages; insertion order is the
+        #: LRU order (a hit re-inserts)
+        self._prefix_cache: dict[tuple, list[int]] = {}
+        #: cached key lengths -> entry count: a probe tests only these
+        self._prefix_lens: dict[int, int] = {}
+        #: pins the cache holds (entries may share pages)
+        self._cached_pages = 0
+        self._prefix_budget = (cfg.prefix_cache_pages
+                               if cfg.prefix_cache_pages is not None
+                               else max(1, self._n_pages // 4))
         self.lengths = np.zeros(cfg.max_batch, np.int32)
         self.active: list[GenRequest | None] = [None] * cfg.max_batch
+        #: requests mid-walk, in admission order
+        self._walkers: list[GenRequest] = []
 
         self.seed = (cfg.seed if cfg.seed is not None
                      else int.from_bytes(os.urandom(4), "little"))
@@ -156,7 +204,8 @@ class Engine:
         self.total_generated = 0
         self.stats = {"prefill_calls": 0, "prefill_s": 0.0,
                       "decode_passes": 0, "decode_s": 0.0,
-                      "decode_tokens": 0}
+                      "decode_tokens": 0, "prefix_hits": 0,
+                      "prefix_evictions": 0}
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -200,11 +249,10 @@ class Engine:
     # -------------------------------------------------------------- submit
     def _clamp_prompt(self, tokens: list[int], max_new: int) -> list[int]:
         """Keep the tail of an over-long prompt, reserving room to
-        generate; the widest prefill bucket also bounds it (this slice
-        has no chunked prefill)."""
+        generate. The chunk walk takes prompts wider than every bucket,
+        so the cache is the only cap."""
         room = max(1, min(max_new, self.config.max_seq // 2))
         limit = max(1, self.config.max_seq - room - 1)
-        limit = min(limit, max(self._usable_buckets))
         return tokens[-limit:] if len(tokens) > limit else tokens
 
     def submit(self, prompt_tokens: list[int],
@@ -252,9 +300,12 @@ class Engine:
             with torch.no_grad():
                 while self._running:
                     self._admit()
-                    if any(r is not None for r in self.active):
+                    if self._walkers:
+                        self._walk_chunks()
+                    if any(r is not None and not r.pending_prefill
+                           for r in self.active):
                         self._decode_pass()
-                    else:
+                    elif not self._walkers:
                         with self._cv:
                             if self._running and not self._waiting:
                                 self._cv.wait(0.05)
@@ -273,6 +324,7 @@ class Engine:
             waiting, self._waiting = list(self._waiting), deque()
         for req in waiting:
             self._fail(req, reason)
+        self._walkers = []
         for i, req in enumerate(self.active):
             if req is not None:
                 self.active[i] = None
@@ -286,45 +338,148 @@ class Engine:
                    self.config.max_seq)
         return -(-rows // self.config.page_size)
 
-    def _alloc_pages(self, slot: int, n: int) -> None:
-        for i in range(n):
-            self._tables[slot, i] = self._free_pages.pop()
-        self._slot_pages[slot] = n
+    def _decref_page(self, page: int) -> None:
+        self._page_refs[page] -= 1
+        if self._page_refs[page] <= 0:
+            self._page_refs[page] = 0
+            self._free_pages.append(page)
+
+    def _evict_prefix_entries(self, pages_needed: int) -> None:
+        """Drop cache entries, least recently used first, until the free
+        list holds ``pages_needed`` pages or the cache is empty."""
+        while len(self._free_pages) < pages_needed and self._prefix_cache:
+            key = next(iter(self._prefix_cache))
+            pages = self._prefix_cache.pop(key)
+            self.stats["prefix_evictions"] += 1
+            count = self._prefix_lens[len(key)] - 1
+            if count:
+                self._prefix_lens[len(key)] = count
+            else:
+                del self._prefix_lens[len(key)]
+            self._cached_pages -= len(pages)
+            for page in pages:
+                self._decref_page(page)
+
+    def _alloc_pages(self, slot: int, need: int) -> bool:
+        """Grow ``slot``'s table to ``need`` pages, evicting cached
+        prefixes if the free list is short; False when even that does
+        not cover it."""
+        have = int(self._slot_pages[slot])
+        if need - have > len(self._free_pages):
+            self._evict_prefix_entries(need - have)
+        if need - have > len(self._free_pages):
+            return False
+        for i in range(have, need):
+            page = self._free_pages.pop()
+            self._tables[slot, i] = page
+            self._page_refs[page] = 1
+        self._slot_pages[slot] = max(have, need)
+        return True
 
     def _release_pages(self, slot: int) -> None:
-        n = int(self._slot_pages[slot])
-        self._free_pages.extend(int(p) for p in self._tables[slot, :n])
+        for i in range(int(self._slot_pages[slot])):
+            self._decref_page(int(self._tables[slot, i]))
         self._tables[slot, :] = self._n_pages
         self._slot_pages[slot] = 0
+
+    # ------------------------------------------------------ prefix cache
+    def _probe_prefix(self, prompt: list[int]) -> int:
+        """Rows covered by the longest cached prefix of ``prompt`` (0 =
+        miss), leaving at least one token to compute: the first sample
+        needs a position to come from."""
+        if not self.config.prefix_cache:
+            return 0
+        limit = len(prompt) - 1
+        for length in sorted(self._prefix_lens, reverse=True):
+            if length <= limit and tuple(prompt[:length]) in self._prefix_cache:
+                return length
+        return 0
+
+    def _attach_prefix(self, slot: int, prompt: list[int],
+                       covered: int) -> None:
+        """Point ``slot``'s table at the cached pages of
+        ``prompt[:covered]`` (one more reference each) and mark the
+        entry most recently used."""
+        key = tuple(prompt[:covered])
+        pages = self._prefix_cache.pop(key)
+        self._prefix_cache[key] = pages
+        for i, page in enumerate(pages):
+            self._tables[slot, i] = page
+            self._page_refs[page] += 1
+        self._slot_pages[slot] = len(pages)
+
+    def _register_prefix(self, slot: int, req: GenRequest) -> None:
+        """At retire: pin the page-aligned prompt prefix (leaving its
+        last token out, as a probe does), or the longest aligned part
+        of it that the budget still allows. Decode wrote only past the
+        prompt, so these pages hold exactly the prefix's K/V."""
+        if not self.config.prefix_cache:
+            return
+        pg = self.config.page_size
+        prompt = req.prompt_tokens
+        n = (len(prompt) - 1) // pg
+        if n < 1 or int(self._slot_pages[slot]) < n:
+            return
+        n = min(n, self._prefix_budget - self._cached_pages)
+        if n < 1:
+            return
+        key = tuple(prompt[:n * pg])
+        if key in self._prefix_cache:
+            return
+        pages = [int(self._tables[slot, i]) for i in range(n)]
+        for page in pages:
+            self._page_refs[page] += 1
+        self._prefix_cache[key] = pages
+        self._prefix_lens[n * pg] = self._prefix_lens.get(n * pg, 0) + 1
+        self._cached_pages += n
+
+    def _reserve(self, slot: int, req: GenRequest) -> bool:
+        """Give ``req`` the pages of its whole life in ``slot``: a
+        cached prefix of its prompt attaches, the rest comes from the
+        free list. False (and nothing held) when the pool cannot."""
+        covered = self._probe_prefix(req.prompt_tokens)
+        if covered:
+            self._attach_prefix(slot, req.prompt_tokens, covered)
+        if not self._alloc_pages(slot, self._pages_for(req)):
+            self._release_pages(slot)
+            return False
+        req.prefill_offset = covered
+        if covered:
+            self.stats["prefix_hits"] += 1
+        return True
 
     # ----------------------------------------------------------- admission
     def _admit(self) -> None:
         """Move waiting requests into free slots (FIFO) while the pool
-        can hold them, then prefill them in bucket groups."""
+        can hold them. A prompt with a cached prefix, or wider than
+        every bucket, joins the chunk walk; the rest prefill in bucket
+        groups."""
         free = [i for i, r in enumerate(self.active) if r is None]
         placed: list[GenRequest] = []
         refused: list[GenRequest] = []
         with self._cv:
             while free and self._waiting:
                 req = self._waiting[0]
-                need = self._pages_for(req)
-                if need > self._n_pages:
+                if self._pages_for(req) > self._n_pages:
                     refused.append(self._waiting.popleft())
                     continue
-                if need > len(self._free_pages):
+                if not self._reserve(free[0], req):
                     break            # pool dry: wait for a retire
                 self._waiting.popleft()
-                slot = free.pop(0)
-                self._alloc_pages(slot, need)
-                req.slot = slot
-                self.active[slot] = req
+                req.slot = free.pop(0)
+                self.active[req.slot] = req
                 placed.append(req)
         for req in refused:
             self._fail(req, "request exceeds kv pool")
+        widest = self._usable_buckets[-1]
         by_bucket: dict[int, list[GenRequest]] = {}
         for req in placed:
-            by_bucket.setdefault(self._bucket_for(len(req.prompt_tokens)),
-                                 []).append(req)
+            if req.prefill_offset or len(req.prompt_tokens) > widest:
+                req.pending_prefill = True
+                self._walkers.append(req)
+            else:
+                by_bucket.setdefault(self._bucket_for(len(req.prompt_tokens)),
+                                     []).append(req)
         p_max = max(1, self.config.prefill_batch)
         for bucket, group in by_bucket.items():
             for i in range(0, len(group), p_max):
@@ -385,15 +540,77 @@ class Engine:
         first = toks.cpu().numpy()
         self.stats["prefill_calls"] += 1
         self.stats["prefill_s"] += time.perf_counter() - t0
-        now = time.time()
         for row, req in enumerate(group):
-            token = int(first[row])
-            req.first_token_at = now
-            req.generated.append(token)
-            self.total_generated += 1
-            self.lengths[req.slot] = len(req.prompt_tokens)
-            if self._finished(req, token):
-                self._retire(req.slot)
+            self._first_token(req, int(first[row]))
+
+    def _first_token(self, req: GenRequest, token: int) -> None:
+        """The prompt is in the cache: emit the first sampled token and
+        open the slot for decode."""
+        req.pending_prefill = False
+        req.first_token_at = time.time()
+        req.generated.append(token)
+        self.total_generated += 1
+        self.lengths[req.slot] = len(req.prompt_tokens)
+        if self._finished(req, token):
+            self._retire(req.slot)
+
+    # ---------------------------------------------------------- chunk walk
+    def _walk_chunks(self) -> None:
+        """Up to ``prefill_chunks_per_pass`` rounds of the walk: each
+        round groups the walkers by the smallest bucket covering what is
+        left of their prompt (the widest when none does) and runs each
+        group of at most ``prefill_batch`` as one chunk call."""
+        widest = self._usable_buckets[-1]
+        p_max = max(1, self.config.prefill_batch)
+        for _ in range(max(1, int(self.config.prefill_chunks_per_pass))):
+            if not self._walkers:
+                return
+            by_width: dict[int, list[GenRequest]] = {}
+            for req in self._walkers:
+                left = len(req.prompt_tokens) - req.prefill_offset
+                width = next((b for b in self._usable_buckets if b >= left),
+                             widest)
+                by_width.setdefault(width, []).append(req)
+            for width, group in by_width.items():
+                for i in range(0, len(group), p_max):
+                    self._chunk_group(width, group[i:i + p_max])
+            self._walkers = [r for r in self._walkers if r.pending_prefill]
+
+    def _chunk_group(self, width: int, group: list[GenRequest]) -> None:
+        """One [G, width] chunk call, G = 1 for a lone walker, else
+        ``prefill_batch``; pad rows carry an all-OOB table, offset 0 and
+        chunk length 0. Walkers whose prompt this chunk completes take
+        their first token from it."""
+        g = 1 if len(group) == 1 else max(1, self.config.prefill_batch)
+        tokens = np.zeros((g, width), np.int64)
+        offsets = np.zeros(g, np.int32)
+        lens = np.zeros(g, np.int32)
+        tables = np.full((g, self._pages_per_slot), self._n_pages, np.int32)
+        for row, req in enumerate(group):
+            chunk = req.prompt_tokens[req.prefill_offset:
+                                      req.prefill_offset + width]
+            tokens[row, :len(chunk)] = chunk
+            offsets[row] = req.prefill_offset
+            lens[row] = len(chunk)
+            tables[row] = self._tables[req.slot]
+        dev = self.device
+        t0 = time.perf_counter()
+        temps, top_ps, top_ks = self._row_params(group, g)
+        logits, self.k_cache, self.v_cache = self._chunk_fn(
+            self.params, torch.from_numpy(tokens).to(dev), self.k_cache,
+            self.v_cache, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(offsets).to(dev), torch.from_numpy(lens).to(dev))
+        toks = sample_batch(logits, temps, top_ps, top_ks,
+                            generator=self._generator)
+        first = None
+        for row, req in enumerate(group):
+            req.prefill_offset += int(lens[row])
+            if req.prefill_offset >= len(req.prompt_tokens):
+                if first is None:
+                    first = toks.cpu().numpy()
+                self._first_token(req, int(first[row]))
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_s"] += time.perf_counter() - t0
 
     # -------------------------------------------------------------- decode
     def _finished(self, req: GenRequest, token: int) -> bool:
@@ -407,6 +624,7 @@ class Engine:
             return
         self.active[slot] = None
         self.lengths[slot] = 0
+        self._register_prefix(slot, req)
         self._release_pages(slot)
         req.finished_at = time.time()
         req.done.set()
@@ -415,9 +633,11 @@ class Engine:
         cfg = self.config
         steps = max(1, int(cfg.decode_steps_per_pass))
         for i, req in enumerate(self.active):
-            if req is not None and self.lengths[i] >= cfg.max_seq:
+            if req is not None and not req.pending_prefill \
+                    and self.lengths[i] >= cfg.max_seq:
                 self._retire(i)           # at the cache ceiling
-        rows = [i for i, r in enumerate(self.active) if r is not None]
+        rows = [i for i, r in enumerate(self.active)
+                if r is not None and not r.pending_prefill]
         if not rows:
             return
         reqs = [self.active[i] for i in rows]

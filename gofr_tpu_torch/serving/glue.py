@@ -9,7 +9,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, llama_decode_step_paged,
-                            llama_prefill_last, make_pool)
+                            llama_prefill_chunk_paged, llama_prefill_last,
+                            make_pool)
 from .engine import Engine, EngineConfig
 
 
@@ -17,9 +18,11 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                  engine_config: EngineConfig | None = None, *,
                  device: str | torch.device | None = None) -> Engine:
     """An engine serving ``params`` on ``device`` (default: CUDA, or
-    raise): prefill through ``llama_prefill_last`` (the flash kernel),
+    raise): bucketed prefill through ``llama_prefill_last`` (the flash
+    kernel), chunk walks — long prompts and prefix-cache suffixes —
+    through ``llama_prefill_chunk_paged`` (the paged chunk kernel),
     decode through ``llama_decode_step_paged`` (the paged decode
-    kernel) on a head-major pool allocated on the same device."""
+    kernel), on a head-major pool allocated on the same device."""
     dev = resolve_device(device)
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, the "
@@ -33,10 +36,16 @@ def llama_engine(params: Any, model_config: LlamaConfig,
         return llama_decode_step_paged(params, tokens, k_pool, v_pool,
                                        tables, lengths, c)
 
+    def paged_chunk_fn(params, tokens, k_pool, v_pool, tables, offsets,
+                       chunk_lengths):
+        return llama_prefill_chunk_paged(params, tokens, k_pool, v_pool,
+                                         tables, offsets, chunk_lengths, c)
+
     def make_cache(n_pages, page):
         return make_pool(c, n_pages, page, dev)
 
     return Engine(params, engine_config or EngineConfig(),
                   prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,
-                  make_cache=make_cache, device=dev,
+                  paged_chunk_fn=paged_chunk_fn, make_cache=make_cache,
+                  device=dev,
                   vocab_size=c.vocab_size)

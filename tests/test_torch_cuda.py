@@ -14,8 +14,9 @@ Tolerances, per element, as in ``chip_smoke.py``: ``|out - ref| <= ATOL
 + RTOL |ref|``, where both sides round their output to bf16 (RTOL =
 2^-7). Flash also rounds each softmax weight to bf16 before P·V while
 its sum stays float32, which moves the output by at most 2^-8 of the
-attention average of |V|: that term is added to its limit. Paged decode
-keeps P in float32.
+attention average of |V|: that term is added to its limit. The paged
+chunk kernel rounds P the same way and takes the same limit. Paged
+decode keeps P in float32.
 """
 
 import pytest
@@ -25,6 +26,7 @@ from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_plain)
 from gofr_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention, paged_chunk_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +108,45 @@ def test_paged_decode_kernel_matches_plain(dev, b, hq, hkv, d, pg, n_pages,
             assert out[i].abs().max().item() == 0.0   # exact zeros
 
 
+@pytest.mark.parametrize("sq,hq,hkv,d,pg,n_pages,hists,clens", [
+    # llama3_1b heads, 64-row pages, mid-page histories, a zero-length
+    # slot, Sq not a multiple of the 16-position tile
+    (100, 32, 8, 64, 64, 32, [0, 130, 64, 0], [100, 37, 1, 0]),
+    (1, 8, 2, 128, 16, 24, [0, 45, 16], [1, 1, 1]),        # Sq = 1, hd 128
+    (70, 4, 4, 128, 16, 40, [200, 3], [70, 66]),            # group 1
+    (33, 16, 1, 64, 64, 16, [513, 0], [33, 20]),            # group 16
+    (48, 8, 2, 64, 16, 48, [17, 300, 0], [48, 5, 0]),       # group 4, pg 16
+])
+def test_paged_chunk_kernel_matches_plain(dev, sq, hq, hkv, d, pg, n_pages,
+                                          hists, clens):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = len(hists)
+    mp = max(1, -(-max(h + c for h, c in zip(hists, clens)) // pg))
+    tables = torch.full((b, mp), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(1))
+    used = 0
+    for i, (h, c) in enumerate(zip(hists, clens)):
+        need = -(-(h + c) // pg)
+        tables[i, :need] = perm[used:used + need].to(torch.int32)
+        used += need
+    tables = tables.to(dev)
+    q = _randn(gen, dev, b, sq, hq, d)
+    kp, vp = (_randn(gen, dev, hkv, n_pages, pg, d) for _ in range(2))
+    hist = torch.tensor(hists, dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    before = paged_chunk_attention.launches
+    out = paged_chunk_attention(q, kp, vp, tables, hist, clen)
+    assert paged_chunk_attention.launches == before + 1
+    ref = paged_chunk_attention_plain(q, kp, vp, tables, hist, clen).float()
+    limit = (ATOL + RTOL * ref.abs() + P_ROUND * paged_chunk_attention_plain(
+        q, kp, vp.abs(), tables, hist, clen).float())
+    excess = ((out.float() - ref).abs() / limit).max().item()
+    assert excess <= 1.0, f"worst err / limit {excess}"
+    padding = torch.arange(sq, device=dev)[None, :] >= clen[:, None]
+    if padding.any():                  # padding rows and empty slots: zeros
+        assert out[padding].abs().max().item() == 0.0
+
+
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 64, device=dev)                  # float32
     with pytest.raises(TypeError, match="bfloat16"):
@@ -123,3 +164,11 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(qd.transpose(0, 1).contiguous().transpose(0, 1),
                                pool, pool, tables.int(), lengths)
+    qc = torch.zeros(2, 5, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lengths"):
+        paged_chunk_attention(qc, pool, pool, tables.int(), lengths,
+                              lengths.long())
+    with pytest.raises(ValueError, match="group"):
+        paged_chunk_attention(torch.zeros(2, 5, 17, 64, device=dev,
+                                          dtype=torch.bfloat16),
+                              pool, pool, tables.int(), lengths, lengths)

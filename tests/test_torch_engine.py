@@ -1,11 +1,16 @@
 """The port's engine against the JAX engine, and the port's HTTP app,
 on the CPU at the tiny config.
 
-Both engines serve the same converted weights on the paged layout (the
-JAX one with ``prefix_cache=False`` and ``paged_attention="xla"``, the
-native paged path this slice ports). Four concurrent greedy prompts,
-all within the widest usable bucket, must give identical tokens and an
-equal ``integrity.request_digest`` per request.
+Both engines serve the same converted weights on the paged layout.
+Without the prefix cache (the JAX one with ``paged_attention="xla"``),
+four concurrent greedy prompts within the widest bucket must give
+identical tokens and an equal ``integrity.request_digest`` per
+request. With it (the JAX one with ``paged_attention="interpret"``,
+its Pallas kernels interpreted, and a single 16-row bucket so that
+longer prompts walk in chunks), a second wave whose prompts share
+page-aligned prefixes with the first must also give equal
+``prefix_hits``. Page accounting and LRU eviction are checked on the
+port alone.
 """
 
 import json
@@ -37,14 +42,20 @@ def _prompts():
     return [rng.integers(0, 256, size=n).tolist() for n in (5, 20, 40, 70)]
 
 
-def _run(engine, prompts, params):
+def _run(engine, prompts, params, *waves):
+    """Serve ``prompts``, then each later wave once the one before it
+    has finished; all requests of all waves, in order."""
     engine.start()
+    reqs = []
     try:
-        reqs = [engine.submit(p, params) for p in prompts]
-        deadline = time.time() + 120
-        while time.time() < deadline and any(
-                r.finished_at is None and r.error is None for r in reqs):
-            time.sleep(0.005)
+        for wave in (prompts, *waves):
+            batch = [engine.submit(p, params) for p in wave]
+            deadline = time.time() + 120
+            while time.time() < deadline and any(
+                    r.finished_at is None and r.error is None
+                    for r in batch):
+                time.sleep(0.005)
+            reqs += batch
     finally:
         engine.stop()
     assert all(r.error is None for r in reqs), [r.error for r in reqs]
@@ -52,10 +63,24 @@ def _run(engine, prompts, params):
     return reqs
 
 
-def test_engine_greedy_matches_jax_engine():
+def _converted_tiny():
     jparams = jax_llama_init(jax.random.key(0), JaxLlamaConfig.tiny())
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               LlamaConfig.tiny(), "cpu")
+    return jparams, tparams
+
+
+def _assert_same_requests(got, want, n_new):
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert all(len(r.generated) == n_new for r in got)
+    for g, w in zip(got, want):
+        assert g.prompt_tokens == w.prompt_tokens
+        assert request_digest(g.prompt_tokens, g.params, g.generated) == \
+            request_digest(w.prompt_tokens, w.params, w.generated)
+
+
+def test_engine_greedy_matches_jax_engine():
+    jparams, tparams = _converted_tiny()
     prompts = _prompts()
     common = dict(max_batch=4, max_seq=128, page_size=16, seed=0,
                   decode_steps_per_pass=4)
@@ -65,20 +90,84 @@ def test_engine_greedy_matches_jax_engine():
                         paged_attention="xla", compile_cache_dir=None,
                         **common),
         implementation="xla")
-    teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(**common),
+    teng = llama_engine(tparams, LlamaConfig.tiny(),
+                        EngineConfig(prefix_cache=False, **common),
                         device="cpu")
     want = _run(jeng, prompts,
                 JaxSamplingParams(temperature=0.0, max_new_tokens=13))
     got = _run(teng, prompts,
                SamplingParams(temperature=0.0, max_new_tokens=13))
-    assert [r.generated for r in got] == [r.generated for r in want]
-    assert all(len(r.generated) == 13 for r in got)
-    for g, w in zip(got, want):
-        assert g.prompt_tokens == w.prompt_tokens
-        assert request_digest(g.prompt_tokens, g.params, g.generated) == \
-            request_digest(w.prompt_tokens, w.params, w.generated)
+    _assert_same_requests(got, want, 13)
     # every page went back to the free list
     assert sorted(teng._free_pages) == list(range(teng._n_pages))
+
+
+def _second_wave(first):
+    """Prompts that share page-aligned (16-row) prefixes with the first
+    wave's 20-, 40- and 70-token prompts (hits of 16, 32 and 64 rows),
+    and one that shares nothing."""
+    rng = np.random.default_rng(12)
+    tail = [rng.integers(0, 256, size=n).tolist() for n in (10, 12, 20, 30)]
+    return [first[1][:16] + tail[0], first[2][:35] + tail[1],
+            first[3][:66] + tail[2], tail[3]]
+
+
+def test_engine_prefix_cache_and_chunk_walk_match_jax_engine():
+    jparams, tparams = _converted_tiny()
+    first = _prompts()
+    second = _second_wave(first)
+    common = dict(max_batch=4, max_seq=128, page_size=16, seed=0,
+                  decode_steps_per_pass=4, prefill_batch=4,
+                  prefill_buckets=(16,), prefix_cache=True)
+    jeng = jax_llama_engine(
+        jparams, JaxLlamaConfig.tiny(),
+        JaxEngineConfig(kv_layout="paged", paged_attention="interpret",
+                        compile_cache_dir=None, **common),
+        implementation="xla")
+    teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(**common),
+                        device="cpu")
+    want = _run(jeng, first,
+                JaxSamplingParams(temperature=0.0, max_new_tokens=13),
+                second)
+    got = _run(teng, first,
+               SamplingParams(temperature=0.0, max_new_tokens=13), second)
+    _assert_same_requests(got, want, 13)
+    assert teng.stats["prefix_hits"] == jeng.stats["prefix_hits"] == 3
+    # every page is free or pinned by the cache, and each pinned page
+    # holds one reference per entry that lists it
+    pinned = [p for pages in teng._prefix_cache.values() for p in pages]
+    assert len(teng._free_pages) + len(set(pinned)) == teng._n_pages
+    assert sorted(set(teng._free_pages) | set(pinned)) == \
+        list(range(teng._n_pages))
+    refs = np.bincount(pinned, minlength=teng._n_pages)
+    np.testing.assert_array_equal(teng._page_refs, refs)
+
+
+def test_prefix_cache_evicts_least_recently_used_first():
+    # 10 pages of 8 rows, one slot: A and B each pin 2 pages; a hit on A
+    # makes B the least recently used, so the 7-page request C evicts B
+    # and A survives
+    teng = build_engine(LlamaConfig.tiny(), device="cpu",
+                        engine_config=EngineConfig(
+                            max_batch=1, max_seq=64, page_size=8,
+                            kv_pages=10, prefix_cache_pages=10, seed=0))
+    rng = np.random.default_rng(13)
+    a, b, c = (rng.integers(0, 256, size=n).tolist() for n in (17, 17, 50))
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=2)
+    teng.start()
+    try:
+        for prompt in (a, b, a[:16] + [1, 2, 3]):
+            assert teng.submit_sync(prompt, greedy, 60).error is None
+        assert teng.stats["prefix_hits"] == 1
+        assert list(teng._prefix_cache) == [tuple(b[:16]), tuple(a[:16])]
+        assert teng.submit_sync(c, greedy, 60).error is None
+    finally:
+        teng.stop()
+    assert teng.stats["prefix_evictions"] == 1
+    assert tuple(a[:16]) in teng._prefix_cache
+    assert tuple(b[:16]) not in teng._prefix_cache
+    pinned = {p for pages in teng._prefix_cache.values() for p in pages}
+    assert len(teng._free_pages) + len(pinned) == teng._n_pages
 
 
 def test_engine_waits_for_pages_when_the_pool_is_dry():

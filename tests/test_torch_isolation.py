@@ -10,7 +10,8 @@ import torch
 import gofr_tpu_torch
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.ops.flash_attention import flash_attention
-from gofr_tpu_torch.ops.paged_attention import paged_decode_attention
+from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                paged_decode_attention)
 from gofr_tpu_torch.serving.app import build_engine
 from gofr_tpu_torch.models.llama import LlamaConfig
 
@@ -62,7 +63,8 @@ def test_port_module_imports_nothing_forbidden(path):
 def test_the_scan_sees_every_module_and_catches_a_bad_import():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "flash_attention.py", "paged_attention.py",
-            "llama.py", "app.py", "_build.py"} <= names
+            "paged_kv.py", "llama.py", "glue.py", "app.py",
+            "_build.py"} <= names
     tree = ast.parse("try:\n    import triton\nexcept ImportError:\n"
                      "    pass\ndef f():\n    import triton.language\n")
     assert set(_module_level_imports(tree.body)) == {"triton"}
@@ -83,7 +85,7 @@ def test_cuda_entry_point_never_runs_on_the_cpu(monkeypatch):
         build_engine(LlamaConfig.tiny())          # default device: cuda
 
 
-@pytest.mark.parametrize("kernel", ["flash", "paged"])
+@pytest.mark.parametrize("kernel", ["flash", "paged", "chunk"])
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors(kernel):
     # a tensor on neither the CPU nor CUDA (the meta device) must raise,
     # not fall through to the plain version
@@ -94,9 +96,33 @@ def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors(kernel):
         with pytest.raises(ValueError, match="no kernel"):
             flash_attention(q, kv, kv)
     else:
-        q = torch.empty(2, 4, 64, dtype=torch.bfloat16, device=meta)
         pool = torch.empty(2, 3, 8, 64, dtype=torch.bfloat16, device=meta)
         tables = torch.empty(2, 2, dtype=torch.int32, device=meta)
         lengths = torch.empty(2, dtype=torch.int32, device=meta)
         with pytest.raises(ValueError, match="no kernel"):
-            paged_decode_attention(q, pool, pool, tables, lengths)
+            if kernel == "paged":
+                q = torch.empty(2, 4, 64, dtype=torch.bfloat16, device=meta)
+                paged_decode_attention(q, pool, pool, tables, lengths)
+            else:
+                q = torch.empty(2, 5, 4, 64, dtype=torch.bfloat16,
+                                device=meta)
+                paged_chunk_attention(q, pool, pool, tables, lengths,
+                                      lengths)
+
+
+def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
+                                                         monkeypatch):
+    # an edited header must give a new library name, or a stale .so
+    # built from the old header would be loaded
+    from gofr_tpu_torch.ops import _build
+    for name in ("paged_chunk.cu", "flash_attention.cu", "mma_bf16.cuh",
+                 "paged_decode.cu"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    header = tmp_path / "mma_bf16.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert after["paged_chunk"] != before["paged_chunk"]
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["paged_decode"] == before["paged_decode"]   # no include

@@ -6,7 +6,10 @@ The JAX weights (``llama_init(jax.random.key(0), tiny)``) go through
 must agree within atol 1e-4 (float32, a few ulps of the ~1e0 logits
 after two layers of differently ordered sums), and the greedy token
 sequences must be identical. The JAX side runs its plain paths here;
-the Pallas kernels are held against them in test_torch_ops.py.
+the Pallas kernels are held against them in test_torch_ops.py and
+test_torch_paged_chunk.py. The paged chunk step is held against JAX's
+with its chunk kernel interpreted (logits and both pools), and a
+two-chunk walk against the whole-prompt prefill.
 """
 
 import jax
@@ -94,3 +97,65 @@ def test_prefill_and_paged_decode_match_jax():
         tseq.append(ttok.tolist())
     assert tseq == jseq
     np.testing.assert_allclose(tkp.numpy(), np.asarray(jkp), atol=ATOL)
+
+
+def _history_pools(rng, n_layers, hkv, n_pages, pg, hd):
+    """Random pools: rows the chunk does not write stand for history."""
+    kp = rng.standard_normal((n_layers, hkv, n_pages, pg, hd)).astype(
+        np.float32)
+    vp = rng.standard_normal((n_layers, hkv, n_pages, pg, hd)).astype(
+        np.float32)
+    return kp, vp
+
+
+def test_prefill_chunk_paged_matches_jax_interpret():
+    # row 0: a fresh 12-token chunk; row 1: 9 tokens after a 21-row
+    # (mid-page) history; row 2: a pad row (offset 0, length 0, all-OOB
+    # table) whose writes must drop
+    jc, jparams, tc, tparams = _converted()
+    rng = np.random.default_rng(1)
+    pg, n_pages, mp, s = 8, 16, 5, 12
+    kp, vp = _history_pools(rng, 2, 2, n_pages, pg, 16)
+    tables = np.full((3, mp), n_pages, np.int32)
+    pages = rng.permutation(n_pages)
+    tables[0, :2], tables[1, :4] = pages[:2], pages[2:6]
+    offsets = np.array([0, 21, 0], np.int32)
+    lens = np.array([12, 9, 0], np.int32)
+    tokens = rng.integers(0, 256, size=(3, s)).astype(np.int32)
+
+    jl, jkp, jvp = jllama.llama_prefill_chunk_paged(
+        jparams, jnp.asarray(tokens), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(offsets), jnp.asarray(lens), jc,
+        implementation="interpret")
+    tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tl, tkp, tvp = tllama.llama_prefill_chunk_paged(
+        tparams, torch.from_numpy(tokens).long(), tkp, tvp,
+        torch.from_numpy(tables), torch.from_numpy(offsets),
+        torch.from_numpy(lens), tc)
+    np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], atol=ATOL)
+    np.testing.assert_allclose(tkp.numpy(), np.asarray(jkp), atol=ATOL)
+    np.testing.assert_allclose(tvp.numpy(), np.asarray(jvp), atol=ATOL)
+    # the chunk's rows landed; nothing else moved
+    written = tkp.numpy() != kp
+    assert written.any(axis=(0, 1, 4)).sum() == 12 + 9
+
+
+def test_two_chunk_walk_equals_whole_prompt_prefill():
+    jc, jparams, tc, tparams = _converted()
+    rng = np.random.default_rng(2)
+    n, first, pg = 40, 24, 8
+    prompt = torch.from_numpy(rng.integers(0, 256, size=(1, n))).long()
+    want, (k, _) = tllama.llama_prefill_last(
+        tparams, prompt, tc, kv_lengths=torch.tensor([n], dtype=torch.int32))
+    kp, vp = tllama.make_pool(tc, 6, pg, "cpu")
+    tables = torch.tensor([[3, 0, 5, 1, 4]], dtype=torch.int32)
+    for off, width in ((0, first), (first, n - first)):
+        got, kp, vp = tllama.llama_prefill_chunk_paged(
+            tparams, prompt[:, off:off + width], kp, vp, tables,
+            torch.tensor([off], dtype=torch.int32),
+            torch.tensor([width], dtype=torch.int32), tc)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    # the walk left the whole prompt's K in the slot's pages
+    view = kp[:, :, tables[0].long()].permute(0, 2, 3, 1, 4).reshape(
+        2, 5 * pg, 2, 16)[:, :n]
+    np.testing.assert_allclose(view.numpy(), k[:, 0].numpy(), atol=ATOL)
