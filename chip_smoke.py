@@ -6,16 +6,22 @@
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
 1. env     — the card (``nvidia-smi`` name and power limit), torch/CUDA.
-2. build   — builds the three CUDA kernels from ``gofr_tpu_torch/csrc/``
-             (one ``nvcc`` per source, in parallel) into ``build/``.
-3. kernels — each kernel (flash prefill, paged decode, paged chunk)
-             against its plain PyTorch version on the card, at the
-             serving path's shapes, bf16, ragged lengths; CUDA event
-             times (median of 25 after warm-up) of the kernel, the plain
-             version and one PyTorch library call of the same function,
-             and the roofline bound of the work. A planted fault (a
-             shortened length, a dropped or swapped page) must fail the
-             same check.
+2. build   — builds the CUDA kernels from ``gofr_tpu_torch/csrc/``
+             (three sources, one ``nvcc`` each, in parallel) into
+             ``build/``: flash prefill, paged decode, and the paged chunk
+             source, which holds both the chunk and the tree-verify
+             kernel.
+3. kernels — each of the four kernels (flash prefill, paged decode,
+             paged chunk, paged tree verify) against its plain PyTorch
+             version on the card, at the serving path's shapes, bf16,
+             ragged lengths; CUDA event times (median of 25 after
+             warm-up) of the kernel, the plain version and one PyTorch
+             library call of the same function, and the roofline bound
+             of the work. A planted fault (a shortened length, a dropped
+             or swapped page, causal masks in place of tree masks) must
+             fail the same check. The tree kernel must also leave every
+             node outside a poisoned sibling branch bit for bit
+             unchanged, and give the chunk kernel's output on a chain.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions on
@@ -25,11 +31,25 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              with and without history (a planted history fault must
              fail), and an 1800-token prompt walked in two chunks vs
              whole-prompt flash prefill.
+   model_spec — a ~400-token prompt, 6 sequential greedy decode
+             steps, then a 9-node draft tree (a decoy branch and the
+             chain of the decoded tokens) verified in tree mode through
+             the kernels and the plain versions: node logits agree, the
+             chain's logits are the decode steps', the resolve accepts
+             the chain as far as the decode margins allow, causal masks
+             move the logits, and one decode step after the accepted
+             path's rows are compacted gives the sequential logits.
 5. serve   — the port's HTTP app (``gofr_tpu_torch.serving.app``) on a
              free port: 4 concurrent greedy ``POST /chat`` requests, an
              1801-token prompt (walked in chunks, not clamped), then 3
              requests that hit the prefix cache; every kernel's launch
              counter, zeroed just before, must rise.
+6. serve_spec — 4 concurrent greedy ``/chat`` requests with repetitive
+             prompts, 64 new tokens each, through the plain engine and
+             then the speculative one (``serve_config(speculative=True,
+             spec_ngram=2)``); the tree kernel's counter, zeroed just
+             before the speculative run, must rise, and drafts must be
+             made.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -65,7 +85,7 @@ PEAK_HBM_BYTES = 3.35e12
 RTOL = 2.0 ** -7
 P_ROUND = 2.0 ** -8
 ATOL = 1e-3
-LOGITS_TOL = 0.1    # see phase_model
+LOGITS_TOL = 0.1    # see phase_model and phase_model_spec
 
 
 def emit(obj: dict) -> None:
@@ -370,6 +390,183 @@ def kernel_chunk(dev, gen) -> dict:
     return row
 
 
+def _tree_slots():
+    """The tree kernel's serving-shape case: per slot a history and a
+    draft tree from ``build_draft_tree`` (None: an empty slot), with the
+    chunk length each slot feeds."""
+    from gofr_tpu_torch.serving.spec import build_draft_tree
+    fresh = iter(range(1000, 2000))        # distinct draft tokens
+
+    def chain(n):
+        return [next(fresh) for _ in range(n)]
+
+    shared, first = chain(2), chain(1)
+    wide = build_draft_tree(1, [chain(4), chain(4)])        # 1 + 4 x 2
+    slots = [
+        (0, None, 0),                                        # empty slot
+        (1, build_draft_tree(1, [shared + chain(2), shared + chain(2)]),
+         None),                            # 2 branches, shared prefix
+        (63, build_draft_tree(1, [chain(2) for _ in range(4)]), None),
+        (64, build_draft_tree(1, [chain(4)]), None),         # a chain
+        (65, wide, 6),                     # a topological prefix
+        (1500, build_draft_tree(1, [chain(4), chain(4)]), None),
+        (300, build_draft_tree(1, []), None),                # lone root
+        (1000, build_draft_tree(1, [first + chain(3), first + chain(3)]),
+         None),
+    ]
+    return [(h, t, t.n_nodes if c is None and t is not None else (c or 0))
+            for h, t, c in slots]
+
+
+def _poison_fork(tree, clen):
+    """The last node (below ``clen``) whose parent has an earlier child:
+    the root of a sibling branch, or None for a chain."""
+    forks = [j for j in range(1, clen)
+             if any(tree.parents[i] == tree.parents[j] for i in range(1, j))]
+    return forks[-1] if forks else None
+
+
+def kernel_tree(dev, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_tree_attention,
+        paged_tree_attention_plain)
+    from gofr_tpu_torch.ops.paged_kv import slot_view
+    # the verify pass's shapes: 8 slots, width 16 (the pow-2 bucket of a
+    # 1 + 4 x 2 tree), llama3_1b heads, 64-row pages, tables of 32 pages
+    w, hq, hkv, d, pg, n_pages, mp = 16, 32, 8, 64, 64, 256, 32
+    slots = _tree_slots()
+    b = len(slots)
+    hists = [h for h, _, _ in slots]
+    clens = [c for _, _, c in slots]
+    masks = torch.ones(b, w, dtype=torch.int32)
+    for i, (_, tree, _) in enumerate(slots):
+        if tree is not None:
+            masks[i, :tree.n_nodes] = torch.tensor(tree.masks,
+                                                   dtype=torch.int32)
+    # planted fault: the causal chunk masks (row i sees rows 0..i)
+    causal = torch.cumsum(1 << torch.arange(w), 0).to(torch.int32)
+    causal = causal[None].expand(b, w).contiguous()
+    tables = torch.full((b, mp), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(4))
+    used = 0
+    for i, (h, c) in enumerate(zip(hists, clens)):
+        need = -(-(h + c) // pg)
+        tables[i, :need] = perm[used:used + need].to(torch.int32)
+        used += need
+    tables, masks, causal = tables.to(dev), masks.to(dev), causal.to(dev)
+    q = torch.randn(b, w, hq, d, generator=gen, device=dev).bfloat16()
+    kp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
+    vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
+    hist = torch.tensor(hists, dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tables, hist, clen)
+    out = paged_tree_attention(*args, masks)
+    ref = paged_tree_attention_plain(*args, masks)
+    # the kernel rounds P to bf16 as the chunk kernel does: same limit
+    p_term = P_ROUND * paged_tree_attention_plain(
+        q, kp, vp.abs(), tables, hist, clen, masks).float()
+    err, ratios = check(out, ref, p_term)
+    fault = paged_tree_attention(*args, causal)
+    _, fault_ratios = check(fault, ref, p_term)
+    branching = [i for i, (_, t, c) in enumerate(slots)
+                 if t is not None and _poison_fork(t, c) is not None]
+    empty_zero = out[0].abs().max().item() == 0.0
+    # chain check: a chain's masks are the causal ones, so the chunk
+    # kernel on the same inputs is the reference; with causal masks in
+    # every slot the two kernels run the same walk
+    chunk = paged_chunk_attention(*args)
+    _, chain_ratios = check(out[3:4], chunk[3:4].float(),
+                            p_term[3:4])
+    chain_bitwise = bool(torch.equal(out[3], chunk[3]))
+    causal_bitwise = bool(torch.equal(fault, chunk))
+    # invariance: poison each branching slot's last sibling branch (its
+    # K and V rows) with large finite values; every node that does not
+    # descend from it must come back bit for bit the same
+    kp2, vp2 = kp.clone(), vp.clone()
+    keep_rows = {}
+    tab = tables.cpu()
+    for i in branching:
+        tree, c = slots[i][1], clens[i]
+        fork = _poison_fork(tree, c)
+        for j in range(c):
+            pos = hists[i] + j
+            if (tree.masks[j] >> fork) & 1:
+                pid = int(tab[i, pos // pg])
+                kp2[:, pid, pos % pg] = 3e4
+                vp2[:, pid, pos % pg] = -3e4
+        keep_rows[i] = [j for j in range(c) if not (tree.masks[j] >> fork) & 1]
+    poisoned = paged_tree_attention(q, kp2, vp2, tables, hist, clen, masks)
+    unchanged = {i: bool(torch.equal(poisoned[i, rows], out[i, rows]))
+                 for i, rows in keep_rows.items()}
+    poison_finite = bool(torch.isfinite(poisoned.float()).all().item())
+    emit({"phase": "kernel_check", "name": "paged_tree_attention",
+          "max_abs_err": err, "atol": ATOL, "rtol": RTOL,
+          "p_round": P_ROUND, "worst_ratio_per_slot": ratios,
+          "planted_fault": "causal chunk masks in place of the tree masks",
+          "planted_fault_worst_ratio_per_slot": fault_ratios,
+          "branching_slots": branching,
+          "empty_slot_exact_zeros": empty_zero,
+          "chain_slot_vs_chunk_kernel_worst_ratio": chain_ratios[0],
+          "chain_slot_bitwise_equal_to_chunk_kernel": chain_bitwise,
+          "causal_masks_bitwise_equal_to_chunk_kernel": causal_bitwise,
+          "sibling_poison_non_descendants_bitwise_unchanged": unchanged,
+          "sibling_poison_output_finite": poison_finite})
+    if max(ratios) > 1.0 or not empty_zero or chain_ratios[0] > 1.0:
+        raise AssertionError(f"paged tree kernel vs plain: worst err/limit "
+                             f"per slot {ratios} > 1, chain vs chunk kernel "
+                             f"{chain_ratios}, empty slot zero {empty_zero}")
+    if any(fault_ratios[i] <= 1.0 for i in branching):
+        raise AssertionError(f"paged tree check passed a planted causal-"
+                             f"mask fault: {fault_ratios}")
+    if not all(unchanged.values()) or not poison_finite:
+        raise AssertionError(f"paged tree kernel: poisoning a sibling branch "
+                             f"moved other nodes: {unchanged}")
+    # library yardstick: SDPA on the gathered view, GQA expanded, the
+    # tree visibility as a boolean mask, all built outside the timed call
+    group = hq // hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = slot_view(kp, tables).repeat_interleave(group, dim=2) \
+        .transpose(1, 2).contiguous()
+    vt = slot_view(vp, tables).repeat_interleave(group, dim=2) \
+        .transpose(1, 2).contiguous()
+    pos = torch.arange(mp * pg, device=dev)[None, None, :]
+    rel = pos - hist[:, None, None]
+    bit = (masks[:, :, None] >> rel.clamp(0, 31)) & 1
+    mask = ((rel < 0) | ((rel < clen[:, None, None]) & (bit == 1)))[:, None]
+    ms = time_ms(lambda: paged_tree_attention(*args, masks))
+    plain_ms = time_ms(lambda: paged_tree_attention_plain(*args, masks))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    # flops: 4·hd per visible (node, position) per q head; node i of
+    # slot b sees the history and popcount(mask_i) tree rows.
+    # bytes: the live q rows once, all of out once, the K/V rows of
+    # history + chunk once, the table entries walked, both lengths, and
+    # the live nodes' masks.
+    m_cpu = masks.cpu().tolist()
+    visible = sum(h + bin(m_cpu[i][j] & 0xFFFFFFFF).count("1")
+                  for i, (h, c) in enumerate(zip(hists, clens))
+                  for j in range(c))
+    flops = 4.0 * d * hq * visible
+    kv_rows = [h + c for h, c in zip(hists, clens)]
+    nbytes = (sum(clens) * hq * d * 2 + b * w * hq * d * 2
+              + 2 * sum(kv_rows) * hkv * d * 2
+              + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b
+              + sum(clens) * 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = {"name": "paged_tree_attention", "route": "cuda",
+           "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
+           "replaces": "gofr_tpu/ops/paged_attention.py:614",
+           "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "kernel", "shape": "B=8 W=16 Hq=32 Hkv=8 hd=64 pg=64 "
+          "Np=256 Mp=32 bf16, histories 0/1/63/64/65/1500/300/1000, "
+          f"chunks {clens}, OOB-padded tables", "kernel_ms": ms, **row})
+    return row
+
+
 def phase_model(dev) -> None:
     """llama3_1b prefill + 3 paged decode steps, kernels vs plain, and
     once more with a planted fault.
@@ -566,6 +763,152 @@ def phase_model_chunk(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_model_spec(dev) -> None:
+    """llama3_1b speculative verify through ``llama_prefill_chunk_paged``
+    in tree mode, at full width.
+
+    A 400-token prompt is prefilled through flash and written to the
+    pool; its greedy token t0 is then fed to 6 sequential
+    ``llama_decode_step_paged`` steps, step k feeding t_k at position
+    400 + k and giving logits D_k, whose argmax is t_(k+1). On a fresh
+    copy of the pool a 9-node tree is verified: root t0, a decoy branch
+    of 4 wrong tokens (nodes 1-4), and the chain t1..t4 (nodes 5-8), in
+    the 16-wide bucket, through the kernels and through the plain
+    versions. Checks, each against LOGITS_TOL (``phase_model``'s
+    reasoning: the paths differ in attention rounding and GEMM shapes):
+    kernel vs plain node logits; root vs D_0 and chain node k vs D_k;
+    the resolve accepts the chain at least through every leading depth
+    whose decode margin (top-1 minus top-2 of D_(k-1)) exceeds
+    2 × LOGITS_TOL, where no rounding can flip the argmax; causal masks
+    in place of the tree masks (the chain then sees the decoy) move the
+    logits by more than LOGITS_TOL; and after ``pool_move_rows`` compacts
+    the accepted path (rows 400 + 5.. moved to 400 + 1..), one decode
+    step feeding the next sequential token gives that step's sequential
+    logits.
+    """
+    import torch
+    from gofr_tpu_torch.models.llama import (LlamaConfig,
+                                             llama_decode_step_paged,
+                                             llama_init,
+                                             llama_prefill_chunk_paged,
+                                             llama_prefill_last, make_pool)
+    from gofr_tpu_torch.ops.paged_kv import pool_move_rows, scatter_chunk
+    from gofr_tpu_torch.serving.engine import path_moves, resolve_tree
+    from gofr_tpu_torch.serving.spec import build_draft_tree
+
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    t0 = time.perf_counter()
+    n, pg, w = 400, 64, 16
+    mp = -(-(n + w) // pg)
+    tables = torch.arange(mp, dtype=torch.int32, device=dev)[None]
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    first, (k, v) = llama_prefill_last(
+        params, prompt, cfg,
+        kv_lengths=torch.tensor([n], dtype=torch.int32, device=dev))
+    kp, vp = make_pool(cfg, mp, pg, dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    full = torch.tensor([n], dtype=torch.int32, device=dev)
+    scatter_chunk(kp, tables, k, zero, full)
+    scatter_chunk(vp, tables, v, zero, full)
+    base_k, base_v = kp.clone(), vp.clone()
+    toks = [int(first.argmax())]
+    dec, margins = [], []
+    for step in range(6):
+        logits, kp, vp = llama_decode_step_paged(
+            params, torch.tensor([toks[-1]], device=dev), kp, vp, tables,
+            torch.tensor([n + step], dtype=torch.int32, device=dev), cfg)
+        top2 = logits[0].topk(2).values
+        dec.append(logits[0])
+        margins.append((top2[0] - top2[1]).item())
+        toks.append(int(logits.argmax()))
+    decoy = [(t + 1) % cfg.vocab_size for t in toks[1:5]]
+    tree = build_draft_tree(toks[0], [decoy, toks[1:5]])
+    chain_nodes = [0, 5, 6, 7, 8]
+    assert [tree.tokens[j] for j in chain_nodes] == toks[:5]
+
+    def padded(values, fill):
+        out = torch.full((1, w), fill, dtype=torch.int64)
+        out[0, :len(values)] = torch.tensor(values)
+        return out.to(dev)
+
+    tokens = padded(tree.tokens, 0)
+    depths = padded(tree.depths, 0)
+    parents = padded(tree.parents, 0)
+    masks = padded(tree.masks, 1).to(torch.int32)
+    causal = torch.cumsum(1 << torch.arange(w, device=dev), 0)
+    causal = causal.to(torch.int32)[None]
+    offsets = torch.tensor([n], dtype=torch.int32, device=dev)
+    lens = torch.tensor([tree.n_nodes], dtype=torch.int32, device=dev)
+    logits, pools = {}, {}
+    for run in ("auto", "plain", "fault"):
+        kpc, vpc = base_k.clone(), base_v.clone()
+        logits[run], kpc, vpc = llama_prefill_chunk_paged(
+            params, tokens, kpc, vpc, tables, offsets, lens, cfg,
+            implementation="plain" if run == "plain" else "auto",
+            return_all_logits=True, tree_depths=depths,
+            tree_masks=causal if run == "fault" else masks)
+        logits[run] = logits[run][0, :tree.n_nodes]
+        pools[run] = (kpc, vpc)
+    kernel_vs_plain = (logits["auto"] - logits["plain"]).abs().amax(1).tolist()
+    chain_vs_decode = [(logits["auto"][j] - dec[i]).abs().max().item()
+                       for i, j in enumerate(chain_nodes)]
+    fault = (logits["fault"] - logits["plain"]).abs().max().item()
+    zeros = torch.zeros(1, device=dev)
+    n_acc, bonus, path = resolve_tree(
+        logits["auto"][None], tokens[:, :tree.n_nodes],
+        parents[:, :tree.n_nodes], depths[:, :tree.n_nodes], lens, zeros,
+        torch.ones(1, device=dev), zeros.long())
+    accepted = int(n_acc[0])
+    sure = next((i for i in range(4) if margins[i] <= 2 * LOGITS_TOL), 4)
+    accepted_path = path[0, :accepted + 1].tolist()
+    kpc, vpc = pools["auto"]
+    src, dst = path_moves(offsets, path, n_acc, mp * pg)
+    pool_move_rows(kpc, tables, src, dst)
+    pool_move_rows(vpc, tables, src, dst)
+    after, _, _ = llama_decode_step_paged(
+        params, torch.tensor([toks[accepted + 1]], device=dev), kpc, vpc,
+        tables, torch.tensor([n + accepted + 1], dtype=torch.int32,
+                             device=dev), cfg)
+    compact_diff = (after[0] - dec[accepted + 1]).abs().max().item()
+    torch.cuda.synchronize()
+    finite = all(torch.isfinite(t).all().item()
+                 for t in (*logits.values(), *dec, after))
+    emit({"phase": "model_spec", "config": "llama3_1b bf16 random seed 0",
+          "prompt_tokens": n, "tree": "root + decoy branch (nodes 1-4) + "
+          "chain of the decoded tokens (nodes 5-8), width 16",
+          "decode_top2_margins": margins,
+          "kernel_vs_plain_max_abs_logits_diff_per_node": kernel_vs_plain,
+          "chain_node_vs_decode_step_diff": chain_vs_decode,
+          "accepted_depth": accepted, "depth_the_margins_guarantee": sure,
+          "accepted_path": accepted_path,
+          "bonus_is_next_decode_token": int(bonus[0]) == toks[accepted + 1],
+          "planted_fault_causal_masks_diff": fault,
+          "compacted_decode_vs_sequential_diff": compact_diff,
+          "tolerance": LOGITS_TOL, "finite": finite,
+          "seconds": time.perf_counter() - t0})
+    if not finite or max(kernel_vs_plain) > LOGITS_TOL \
+            or max(chain_vs_decode) > LOGITS_TOL:
+        raise AssertionError(f"model spec: kernel vs plain {kernel_vs_plain}, "
+                             f"chain vs decode {chain_vs_decode} (tolerance "
+                             f"{LOGITS_TOL}), finite={finite}")
+    if accepted < sure or accepted_path != chain_nodes[:accepted + 1]:
+        raise AssertionError(f"model spec: accepted depth {accepted} along "
+                             f"{accepted_path}, margins {margins} guarantee "
+                             f"{sure} along the chain")
+    if fault <= LOGITS_TOL:
+        raise AssertionError(f"model spec check passed a planted fault: "
+                             f"causal-mask logits diff {fault}")
+    if compact_diff > LOGITS_TOL:
+        raise AssertionError(f"model spec: decode after compaction differs "
+                             f"from the sequential step by {compact_diff}")
+    del params, logits, pools, kp, vp, base_k, base_v
+    torch.cuda.empty_cache()
+
+
 def _post(url: str, body: dict) -> tuple[int, dict]:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -675,6 +1018,115 @@ def phase_serve(dev, smi_line: str) -> dict:
     return launches
 
 
+def _common_prefix(a: list, b: list) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_serve_spec(dev, smi_line: str) -> int:
+    """4 concurrent greedy ``POST /chat`` requests, 64 new tokens each,
+    whose prompts repeat a short cycle of bytes (as ``bench.py``'s
+    speculative scenario repeats a token cycle), through the plain
+    engine ``app.serve_config`` gives and then through the speculative
+    one (``speculative=True, spec_ngram=2``, the other spec knobs at the
+    JAX engine's defaults: draft 4, branches 2, adaptive), same weights.
+    The tree kernel's launch counter is zeroed just before the
+    speculative run and read just after; it must rise, and drafts must
+    be made. Token agreement with the plain engine is printed, not
+    required: a bf16 near-tie between the verify and decode kernels can
+    flip an argmax (``model_spec`` prints the margins)."""
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.paged_attention import paged_tree_attention
+    from gofr_tpu_torch.serving.app import (build_engine, build_server,
+                                            serve_config)
+    cfg = LlamaConfig.llama3_1b()
+    cycles = ["the cat sat on the mat. ", "one two three four five six. ",
+              "abcd efgh abcd efgh ijkl ", "spec decode drafts from the "
+              "prompt; "]
+    prompts = [(c * 40)[:300] for c in cycles]
+    runs = {}
+    for name, overrides in (("plain", {}),
+                            ("spec", {"speculative": True,
+                                      "spec_ngram": 2})):
+        engine = build_engine(cfg, device=dev, seed=0,
+                              engine_config=serve_config(cfg, **overrides))
+        server = build_server(engine, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        engine.start()
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/chat"
+        got: list = [None] * len(prompts)
+
+        def ask(i):
+            got[i] = _post(url, {"prompt": prompts[i], "max_tokens": 64,
+                                 "temperature": 0})
+
+        try:
+            paged_tree_attention.launches = 0
+            t0 = time.perf_counter()
+            workers = [threading.Thread(target=ask, args=(i,))
+                       for i in range(len(prompts))]
+            for wk in workers:
+                wk.start()
+            for wk in workers:
+                wk.join(timeout=600)
+            wall = time.perf_counter() - t0
+            launches = paged_tree_attention.launches
+            stats = dict(engine.stats)
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+            thread.join(timeout=30)
+        if any(a is None or a[0] != 200 for a in got):
+            raise AssertionError(f"serve_spec {name}: not every answer was "
+                                 f"200: {got}")
+        tokens = [a[1]["data"]["tokens"] for a in got]
+        if [len(t) for t in tokens] != [64] * len(prompts):
+            raise AssertionError(f"serve_spec {name}: token counts "
+                                 f"{[len(t) for t in tokens]} != 64 each")
+        passes = stats["decode_passes"] + stats["spec_passes"]
+        runs[name] = {
+            "wall_s": wall, "tree_launches": launches,
+            "spec_passes": stats["spec_passes"],
+            "spec_drafted": stats["spec_drafted"],
+            "spec_accepted": stats["spec_accepted"],
+            "spec_rows": stats["spec_rows"],
+            "decode_passes": stats["decode_passes"],
+            "decode_tokens": stats["decode_tokens"],
+            "tokens_per_pass": stats["decode_tokens"] / max(1, passes),
+            "tokens_per_verify_row": ((stats["spec_accepted"]
+                                       + stats["spec_rows"])
+                                      / max(1, stats["spec_rows"])),
+            "decode_s": stats["decode_s"], "spec_s": stats["spec_s"],
+            "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+            "ttft_ms": [a[1]["data"]["usage"]["ttft_ms"] for a in got],
+            "tokens": tokens}
+        del engine
+        torch.cuda.empty_cache()
+    plain, spec = runs["plain"], runs["spec"]
+    agree = [_common_prefix(a, b)
+             for a, b in zip(spec["tokens"], plain["tokens"])]
+    emit({"phase": "serve_spec", "card": smi_line,
+          "config": "app.serve_config + speculative=True spec_ngram=2 "
+          "(draft 4, branches 2, adaptive)",
+          "prompts": "4 x 300 bytes, each a short cycle repeated",
+          "common_prefix_with_plain": agree,
+          **{f"{name}_{key}": val for name, run in runs.items()
+             for key, val in run.items() if key != "tokens"}})
+    if spec["tree_launches"] < 1 or spec["spec_drafted"] < 1:
+        raise AssertionError(f"serve_spec: tree kernel launches "
+                             f"{spec['tree_launches']}, drafted "
+                             f"{spec['spec_drafted']}: the speculative path "
+                             f"did not run")
+    return spec["tree_launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -690,10 +1142,12 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = [kernel_flash(dev, gen), kernel_paged(dev, gen),
-            kernel_chunk(dev, gen)]
+            kernel_chunk(dev, gen), kernel_tree(dev, gen)]
     phase_model(dev)
     phase_model_chunk(dev)
+    phase_model_spec(dev)
     launches = phase_serve(dev, smi_line)
+    launches["paged_tree_attention"] = phase_serve_spec(dev, smi_line)
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

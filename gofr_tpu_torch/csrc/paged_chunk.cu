@@ -1,20 +1,32 @@
-// Paged chunk attention for Hopper (sm_90a), bf16 pool.
+// Paged chunk and draft-tree verify attention for Hopper (sm_90a), bf16 pool.
 //
-// Replaces the Pallas TPU kernel gofr_tpu/ops/paged_attention.py
-// `_paged_chunk_kernel` (wrapper `paged_chunk_attention_pallas`), bf16
-// pool only (the int8 {q, s} pool is later work). It computes the same
-// function: slot b holds history[b] rows in the pool and has just
-// written chunk[b] new rows after them; chunk row i (absolute position
-// history + i) attends to every pool position p with
+// Replaces the Pallas TPU kernels gofr_tpu/ops/paged_attention.py
+// `_paged_chunk_kernel` (wrapper `paged_chunk_attention_pallas`) and
+// `_paged_tree_kernel` (wrapper `paged_tree_attention_pallas`), bf16 pool
+// only (the int8 {q, s} pool is later work). The two are one kernel body
+// templated on its visibility rule, with one C entry point each:
+//
+// chunk (gofr_paged_chunk): slot b holds history[b] rows in the pool and
+// has just written chunk[b] new rows after them; chunk row i (absolute
+// position history + i) attends to every pool position p with
 //   p <= history + i  and  p < history + chunk
-// read in place through the slot's block table from one layer's
+// tree (gofr_paged_tree): the chunk[b] <= 32 rows are the nodes of a
+// draft tree packed topologically (every parent index below its
+// child's); node i attends every history row and in-chunk row j iff
+// bit j of tree_masks[b, i] (its ancestor-or-self set) is set:
+//   rel = p - history;  rel < 0  or  (rel < chunk  and  mask >> rel & 1)
+// Because a node's ancestors all sit at lower rows, the chunk rule's
+// ragged walk bound still holds exactly: a block of query rows never
+// needs a position past history + min(end of its tile, chunk).
+//
+// Both read K/V in place through the slot's block table from one layer's
 // head-major pool [Hkv, Np, pg, hd], query head h reading KV head
 // h / group. Table ids are clamped to Np - 1, masked logits are
 // NEG_INF with p = 0 set explicitly, and the output divides by
 // max(l, 1e-30). Rows past chunk[b] are padding and are written as
 // zeros (so a zero-length slot is exact zeros, and no row is left
 // unwritten). A slot walks at most max_pages pages, as the plain
-// version's [Mp * pg] view does.
+// version's [Mp * pg] view does; positions past the table are masked.
 //
 // What bounds it on the H100. Per (slot, KV head) the work is
 // 4 * hd * group flops per visible (row, position) pair against the q
@@ -24,8 +36,9 @@
 // pairs per head group, ~1.6 GFLOP against ~1.5 MiB, about 1,000
 // flops per byte, above the card's ~295 balance point, so it is
 // bound by the tensor cores (989 TFLOP/s bf16); a short prefix-cache
-// suffix (a few rows over ~900 history rows) does ~25 flops per byte
-// and is bound by HBM (3.35 TB/s), reading the history once. So the
+// suffix (a few rows over ~900 history rows) and a tree verify (at
+// most 32 rows over the history) do ~25-130 flops per byte and are
+// bound by HBM (3.35 TB/s), reading the history once. So the
 // design puts both products on the tensor cores and reads each input
 // once per group of query heads:
 //   - one block of 4 warps per (tile of BQ query positions, KV head,
@@ -42,14 +55,18 @@
 //     Q fragments stay in registers, V is staged transposed with rows
 //     padded by 8 against bank conflicts, and the S fragment re-packs
 //     in registers as the A fragment of P V; online softmax state is
-//     float32 in registers.
+//     float32 in registers;
+//   - the visibility test is one device function (`visible`): each of a
+//     thread's two query rows carries its history, horizon and, for a
+//     tree, its 32-bit ancestor mask, loaded once per block row.
 // The q tiles of one slot re-read its history: the K/V of a slot at
 // 2048 rows is 4 MiB per layer, so the re-reads come from the 50 MB
-// L2, not HBM. The visibility test is one device function (`visible`)
-// so the draft-tree verify kernel changes a mask, not this walk.
+// L2, not HBM. A tree verify at Sq <= 64 / group is one q tile, so it
+// launches only B x Hkv blocks, which under-fills the 132 SMs at small
+// batch.
 // Not yet: cp.async / TMA double buffering of the next K/V tile, wgmma,
-// splitting long histories across blocks — the later work toward the
-// bound.
+// splitting long histories across blocks (split-KV, what a tree verify
+// at small batch needs most) — the later work toward the bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,19 +83,29 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_GROUP = 16;   // BQ = ROWS / group >= 4
 constexpr float NEG_INF = -1e30f;
 
-// One query row of a chunk: what it may see.
+// One query row of a chunk or tree: what it may see.
 struct RowView {
-  int q_pos;    // its absolute position, history + i; -1 for a padding row
-  int kv_end;   // positions at or past this are not visible
+  int q_pos;      // its absolute position, history + i; -1 for a padding row
+  int kv_end;     // positions at or past this are not visible (0: padding)
+  int hist;       // the slot's history length
+  unsigned mask;  // tree only: bit j set iff in-chunk row j is an ancestor
+                  // of this node or the node itself
 };
 
-// Position `pos` of the slot is visible to the row: its history and the
-// chunk's causal prefix up to and including itself.
+// Position `pos` of the slot is visible to the row. Chunk: its history
+// and the chunk's causal prefix up to and including itself. Tree: its
+// history and its ancestors (rel < chunk follows from pos < kv_end,
+// and chunk <= 32 keeps the shift in range).
+template <bool TREE>
 __device__ __forceinline__ bool visible(const RowView& r, int pos) {
+  if (TREE) {
+    const int rel = pos - r.hist;
+    return pos < r.kv_end && (rel < 0 || ((r.mask >> rel) & 1u));
+  }
   return pos <= r.q_pos && pos < r.kv_end;
 }
 
-template <int D>
+template <int D, bool TREE>
 __global__ void __launch_bounds__(NTHREADS)
 paged_chunk(const __nv_bfloat16* __restrict__ q,
             const __nv_bfloat16* __restrict__ k_pool,
@@ -86,6 +113,7 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
             const int* __restrict__ tables,
             const int* __restrict__ history,
             const int* __restrict__ chunk,
+            const int* __restrict__ tree_masks,   // [B, Sq]; unused for a chunk
             __nv_bfloat16* __restrict__ out,
             int Sq, int Hq, int Hkv, int n_pages, int page, int max_pages,
             float scale) {
@@ -153,8 +181,12 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const int r = wr + gid + 8 * t, qi = i0 + r / group;
-    rows[t].q_pos = (r < live_rows && qi < clen) ? hist + qi : -1;
-    rows[t].kv_end = kv_end;
+    const bool live = r < live_rows && qi < clen;
+    rows[t].q_pos = live ? hist + qi : -1;
+    rows[t].kv_end = live ? kv_end : 0;
+    rows[t].hist = hist;
+    rows[t].mask = (TREE && live)
+        ? static_cast<unsigned>(tree_masks[(size_t)b * Sq + qi]) : 0u;
   }
   // the last position any row of the tile can see, plus one
   const int kv_limit = min(hist + min(i0 + bq, clen), max_pages * page);
@@ -209,7 +241,7 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int pos = c0 + n * 8 + tig * 2 + (e & 1);
-        const float val = visible(rows[e >> 1], pos) ? s[n][e] * scale : NEG_INF;
+        const float val = visible<TREE>(rows[e >> 1], pos) ? s[n][e] * scale : NEG_INF;
         s[n][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -230,7 +262,7 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
         // p masked explicitly: a row with nothing visible yet has
         // s == m == NEG_INF, and exp(s - m) would be 1
         const int pos = c0 + n * 8 + tig * 2 + (e & 1);
-        const float p = visible(rows[e >> 1], pos) ? __expf(s[n][e] - m[e >> 1]) : 0.f;
+        const float p = visible<TREE>(rows[e >> 1], pos) ? __expf(s[n][e] - m[e >> 1]) : 0.f;
         s[n][e] = p;
         rs[e >> 1] += p;
       }
@@ -280,20 +312,42 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool TREE>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* history, const int* chunk, void* out,
-           int B, int Sq, int Hq, int Hkv, int n_pages, int page, int max_pages,
-           float scale, cudaStream_t s) {
+           const int* tables, const int* history, const int* chunk,
+           const int* tree_masks, void* out, int B, int Sq, int Hq, int Hkv,
+           int n_pages, int page, int max_pages, float scale, cudaStream_t s) {
   const int bq = ROWS / (Hq / Hkv);
   const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  paged_chunk<D><<<grid, dim3(NTHREADS), 0, s>>>(
+  paged_chunk<D, TREE><<<grid, dim3(NTHREADS), 0, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool), tables, history, chunk,
-      static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv, n_pages, page, max_pages,
-      scale);
+      tree_masks, static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv, n_pages,
+      page, max_pages, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool TREE>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const int* tables, const int* history, const int* chunk,
+             const int* tree_masks, void* out, int B, int Sq, int Hq, int Hkv,
+             int n_pages, int page, int max_pages, int D, float scale,
+             void* stream) {
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_GROUP ||
+      n_pages <= 0 || page <= 0 || max_pages <= 0 || B > 65535 || Hkv > 65535 ||
+      (TREE && Sq > 32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64, TREE>(q, k_pool, v_pool, tables, history, chunk,
+                            tree_masks, out, B, Sq, Hq, Hkv, n_pages, page,
+                            max_pages, scale, s);
+  if (D == 128)
+    return launch<128, TREE>(q, k_pool, v_pool, tables, history, chunk,
+                             tree_masks, out, B, Sq, Hq, Hkv, n_pages, page,
+                             max_pages, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -309,15 +363,21 @@ extern "C" int gofr_paged_chunk(const void* q, const void* k_pool,
                                 void* out, int B, int Sq, int Hq, int Hkv,
                                 int n_pages, int page, int max_pages, int D,
                                 float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_GROUP ||
-      n_pages <= 0 || page <= 0 || max_pages <= 0 || B > 65535 || Hkv > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k_pool, v_pool, tables, history, chunk, out, B, Sq,
-                      Hq, Hkv, n_pages, page, max_pages, scale, s);
-  if (D == 128)
-    return launch<128>(q, k_pool, v_pool, tables, history, chunk, out, B, Sq,
-                       Hq, Hkv, n_pages, page, max_pages, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k_pool, v_pool, tables, history, chunk, nullptr,
+                         out, B, Sq, Hq, Hkv, n_pages, page, max_pages, D,
+                         scale, stream);
+}
+
+// The same, for draft-tree verify: tree_masks int32 [B, Sq] packs each
+// node's ancestor-or-self set over the in-chunk node index; Sq <= 32.
+extern "C" int gofr_paged_tree(const void* q, const void* k_pool,
+                               const void* v_pool, const int* tables,
+                               const int* history, const int* chunk,
+                               const int* tree_masks, void* out, int B,
+                               int Sq, int Hq, int Hkv, int n_pages, int page,
+                               int max_pages, int D, float scale,
+                               void* stream) {
+  return dispatch<true>(q, k_pool, v_pool, tables, history, chunk, tree_masks,
+                        out, B, Sq, Hq, Hkv, n_pages, page, max_pages, D,
+                        scale, stream);
 }

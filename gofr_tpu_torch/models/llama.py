@@ -15,6 +15,7 @@ device — the path the kernels are held against.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 
 import torch
 
@@ -23,7 +24,9 @@ from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_chunk_attention_plain,
                                    paged_decode_attention,
-                                   paged_decode_attention_plain)
+                                   paged_decode_attention_plain,
+                                   paged_tree_attention,
+                                   paged_tree_attention_plain)
 from ..ops.paged_kv import keep_index, pool_layer, pool_write
 from ..ops.rope import apply_rope, rope_frequencies
 
@@ -248,7 +251,10 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
                               tables: torch.Tensor, offsets: torch.Tensor,
                               chunk_lengths: torch.Tensor,
                               config: LlamaConfig, *,
-                              implementation: str = "auto"):
+                              implementation: str = "auto",
+                              return_all_logits: bool = False,
+                              tree_depths: torch.Tensor | None = None,
+                              tree_masks: torch.Tensor | None = None):
     """One chunk of a chunked prefill straight against the paged pool.
 
     tokens [B, S] start at absolute positions ``offsets`` [B] int32 per
@@ -258,12 +264,21 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
     OOB id and are dropped — then attends with the chunk kernel's
     wrapper over the slot's history and the chunk's causal prefix. The
     pools are updated in place. Returns (logits of each row's last valid
-    position [B, V] float32, k_pool, v_pool); a ``chunk_lengths[b] == 0``
-    row's logits are garbage the caller discards.
+    position [B, V] float32 — or of every position [B, S, V] with
+    ``return_all_logits``, for speculative verify — k_pool, v_pool); a
+    ``chunk_lengths[b] == 0`` row's logits are garbage the caller
+    discards.
+
+    ``tree_depths`` / ``tree_masks`` [B, S] (both or neither) switch the
+    chunk into draft-tree verify mode: RoPE at ``offsets + tree_depths``,
+    K/V rows at the node index ``offsets + i``, attention through the
+    tree kernel's wrapper and each node's packed ancestor mask.
     """
     if implementation not in ("auto", "plain"):
         raise ValueError(f"implementation must be 'auto' or 'plain', "
                          f"got {implementation!r}")
+    if (tree_depths is None) != (tree_masks is None):
+        raise ValueError("tree_depths and tree_masks go together")
     c = config
     b, s = tokens.shape
     hd = c.head_dim
@@ -271,17 +286,24 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
     mp = tables.shape[1]
     inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
                                 device=tokens.device)
-    positions = offsets.long()[:, None] + torch.arange(
+    node_pos = offsets.long()[:, None] + torch.arange(
         s, device=tokens.device)[None, :]                           # [B, S]
+    positions = node_pos if tree_depths is None \
+        else offsets.long()[:, None] + tree_depths.long()
     valid = torch.arange(s, device=tokens.device)[None, :] \
         < chunk_lengths[:, None]
-    pids = torch.gather(tables, 1, (positions // pg).clamp(0, mp - 1))
-    pids = torch.where(valid & (positions < mp * pg), pids,
+    pids = torch.gather(tables, 1, (node_pos // pg).clamp(0, mp - 1))
+    pids = torch.where(valid & (node_pos < mp * pg), pids,
                        torch.full_like(pids, n_pages))
-    offs = positions % pg
+    offs = node_pos % pg
     keep = keep_index(pids, n_pages)     # one sync per chunk, all layers
-    chunk_attn = (paged_chunk_attention if implementation == "auto"
-                  else paged_chunk_attention_plain)
+    if tree_masks is None:
+        chunk_attn = (paged_chunk_attention if implementation == "auto"
+                      else paged_chunk_attention_plain)
+    else:
+        chunk_attn = partial(paged_tree_attention if implementation == "auto"
+                             else paged_tree_attention_plain,
+                             tree_masks=tree_masks)
 
     x = params["embed"][tokens]                               # [B, S, D]
     for li in range(c.n_layers):
@@ -299,6 +321,8 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
                          chunk_lengths)
         x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"])
         x = x + _mlp_block(x, lp, c)
+    if return_all_logits:
+        return _logits(params, c, x), k_pool, v_pool
     last = (chunk_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(b, device=x.device), last]
     return _logits(params, c, rows), k_pool, v_pool

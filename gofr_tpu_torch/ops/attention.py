@@ -64,6 +64,42 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   history_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                   tree_masks: torch.Tensor,
+                   scale: float | None = None) -> torch.Tensor:
+    """Draft-tree verify attention. q [B,Sq,Hq,D] holds Sq tree nodes
+    per slot (topological order, node 0 = root); k/v [B,Skv,Hkv,D] hold
+    the history followed by the tree nodes at rows
+    ``[history_lens, history_lens + chunk_lens)``. Node i attends every
+    history row plus exactly the in-tree rows whose bit is set in
+    ``tree_masks[b, i]`` (packed ancestor-or-self bits over the in-chunk
+    node index, so Sq <= 32). A row that sees nothing (padding with no
+    history) returns zeros, as the kernel's denominator clamp does."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if sq > 32:
+        raise ValueError(f"tree width {sq} exceeds the 32-node packed "
+                         f"ancestor bitmask")
+    group = hq // hkv
+    k = _repeat_kv(k, group)
+    v = _repeat_kv(v, group)
+    scale = scale if scale is not None else d ** -0.5
+
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    kv_pos = torch.arange(skv, device=q.device)[None, None, :]    # [1,1,Skv]
+    rel = kv_pos - history_lens[:, None, None].long()              # [B,1,Skv]
+    bit = (tree_masks[:, :, None].long() >> rel.clamp(0, 31)) & 1  # [B,Sq,Skv]
+    visible = (rel < 0) | ((rel < chunk_lens[:, None, None]) & (bit == 1))
+    logits = torch.where(visible[:, None], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
+    out = torch.where(visible.any(-1)[:, :, None, None], out,
+                      torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_lengths: torch.Tensor,
                      scale: float | None = None) -> torch.Tensor:

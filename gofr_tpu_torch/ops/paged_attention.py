@@ -1,7 +1,7 @@
 """Paged attention against the head-major KV pool: the CUDA kernels'
 wrappers and their plain PyTorch versions (counterpart of
-``gofr_tpu/ops/paged_attention.py``, decode and chunk paths, bf16/f32
-pools).
+``gofr_tpu/ops/paged_attention.py``, decode, chunk and tree-verify
+paths, bf16/f32 pools).
 
 Layouts:
 - decode (one new token per slot): ``q`` [B, Hq, hd], ``lengths`` [B]
@@ -10,14 +10,20 @@ Layouts:
   ``q`` [B, Sq, Hq, hd], ``history_lens`` / ``chunk_lens`` [B] int32,
   out [B, Sq, Hq, hd]; row i of slot b sees pool rows
   ``p <= history + i`` and ``p < history + chunk``
+- tree (Sq <= 32 draft-tree nodes per slot, packed topologically and
+  already written at ``[history, history + chunk)``): the chunk layout
+  plus ``tree_masks`` [B, Sq] int32; node i sees every pool row below
+  ``history`` and in-chunk row j iff ``j < chunk`` and bit j of
+  ``tree_masks[b, i]`` is set
 - ``k_pool``   [Hkv, Np, pg, hd] — one layer of the head-major pool
 - ``tables``   [B, Mp] int32 — page ids, ``Np`` = unallocated
 
 The kernels (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``) replace
-the TPU kernels ``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``
-and ``_paged_chunk_kernel``; each source says what bounds it on the
-H100 and what the design does about it. The tree-verify kernel is a
-later slice.
+the TPU kernels ``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``,
+``_paged_chunk_kernel`` and ``_paged_tree_kernel``; the chunk and tree
+kernels are one kernel body templated on its visibility rule, with one
+C entry point each. Each source says what bounds it on the H100 and
+what the design does about it.
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ import ctypes
 import torch
 
 from . import _build
-from .attention import decode_attention, xla_attention
+from .attention import decode_attention, tree_attention, xla_attention
 from .paged_kv import slot_view
 
+#: nodes a draft tree may hold: the ancestor masks are 32-bit
+MAX_TREE_WIDTH = 32
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
 #: query heads per KV head the kernels hold (decode: 4 warps x 4 heads;
@@ -41,6 +49,7 @@ KERNEL_MAX_GROUP = 16
 _KERNELS = {
     "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 7),
     "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 8),
+    "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 8),
 }
 _fns: dict = {}
 
@@ -88,6 +97,25 @@ def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     v_view = slot_view(v_pool, tables)
     out = xla_attention(q, k_view, v_view, causal=True, q_offset=history_lens,
                         kv_lengths=history_lens + chunk_lens, scale=scale)
+    rows = torch.arange(q.shape[1], device=q.device)
+    live = rows[None, :] < chunk_lens[:, None]
+    return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
+
+
+def paged_tree_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, tables: torch.Tensor,
+                               history_lens: torch.Tensor,
+                               chunk_lens: torch.Tensor,
+                               tree_masks: torch.Tensor, *,
+                               scale: float | None = None) -> torch.Tensor:
+    """The plain version: gather the dense slot views and run tree-masked
+    attention. Rows past ``chunk_lens[b]`` (padding) are zeros, as the
+    kernel writes them, so a zero-length slot is exact zeros."""
+    k_view = slot_view(k_pool, tables)
+    v_view = slot_view(v_pool, tables)
+    out = tree_attention(q, k_view, v_view, history_lens=history_lens,
+                         chunk_lens=chunk_lens, tree_masks=tree_masks,
+                         scale=scale)
     rows = torch.arange(q.shape[1], device=q.device)
     live = rows[None, :] < chunk_lens[:, None]
     return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
@@ -205,7 +233,54 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, tables: torch.Tensor,
+                         history_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                         tree_masks: torch.Tensor, *,
+                         scale: float | None = None) -> torch.Tensor:
+    """Draft-tree verify attention against one layer's paged pool: the
+    ``chunk_lens[b]`` nodes of slot b (written at ``[history, history +
+    chunk)`` in topological order, parent before child) each attend the
+    slot's history and the in-tree rows their ``tree_masks`` bits name.
+    Rows past ``chunk_lens[b]`` come back as zeros.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    (bf16 q and pools, contiguous, hd in {64, 128}, Sq <= 32, int32
+    masks) or raise — there is no fallback. A slot walks at most ``Mp``
+    pages, as the plain version's ``[Mp*pg]`` view does.
+    """
+    if q.device.type == "cpu":
+        return paged_tree_attention_plain(q, k_pool, v_pool, tables,
+                                          history_lens, chunk_lens,
+                                          tree_masks, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_tree_attention: no kernel for device "
+                         f"{q.device}")
+    _check("paged_tree_attention", q, k_pool, v_pool, tables, history_lens,
+           chunk_lens)
+    b, sq, hq, d = q.shape
+    if sq > MAX_TREE_WIDTH:
+        raise ValueError(f"paged_tree_attention: tree width {sq} exceeds "
+                         f"the {MAX_TREE_WIDTH}-node packed ancestor mask")
+    if tree_masks.dtype != torch.int32 or tree_masks.shape != (b, sq) \
+            or not tree_masks.is_contiguous() \
+            or tree_masks.device != q.device:
+        raise ValueError("paged_tree_attention: tree_masks must be "
+                         "contiguous int32 [B, Sq] on q's device")
+    hkv, n_pages, pg, _ = k_pool.shape
+    scale = float(scale if scale is not None else d ** -0.5)
+    out = torch.empty_like(q)     # the kernel writes every row
+    _launch("paged_tree_attention", q.device,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), history_lens.data_ptr(), chunk_lens.data_ptr(),
+            tree_masks.data_ptr(), out.data_ptr(), b, sq, hq, hkv, n_pages,
+            pg, tables.shape[1], d, scale)
+    paged_tree_attention.launches += 1
+    return out
+
+
 #: kernel launches since the last reset (plain integers; set one to 0
 #: to start counting)
 paged_decode_attention.launches = 0
 paged_chunk_attention.launches = 0
+paged_tree_attention.launches = 0

@@ -83,6 +83,35 @@ def scatter_chunk(pool: torch.Tensor, tables: torch.Tensor,
     return pool
 
 
+def pool_move_rows(pool: torch.Tensor, tables: torch.Tensor,
+                   src_pos: torch.Tensor, dst_pos: torch.Tensor) -> torch.Tensor:
+    """Move K/V rows between logical positions of each slot, over every
+    layer, in place: row ``src_pos[b, k]`` -> ``dst_pos[b, k]`` through
+    slot b's table (speculative verify compacts the accepted root-to-leaf
+    path out of the node-indexed rows with it). Every source row is
+    gathered before any row is written, so overlapping source and
+    destination sets are safe. A destination outside the slot's table
+    (the caller's "no move" sentinel) is dropped; its source may be
+    anything (ids are clamped on read)."""
+    n_pages, pg = pool.shape[2], pool.shape[3]
+    mp = tables.shape[1]
+
+    def coords(pos):
+        pids = torch.gather(tables, 1, (pos // pg).clamp(0, mp - 1))
+        pids = torch.where((pos >= 0) & (pos < mp * pg), pids,
+                           torch.full_like(pids, n_pages))
+        return pids.reshape(-1), (pos % pg).reshape(-1)
+
+    s_pids, s_offs = coords(src_pos)
+    d_pids, d_offs = coords(dst_pos)
+    keep = keep_index(d_pids, n_pages)
+    s_pids = s_pids.clamp(max=n_pages - 1).index_select(0, keep)
+    rows = pool[:, :, s_pids, s_offs.index_select(0, keep)]   # a copy
+    pool[:, :, d_pids.index_select(0, keep),
+         d_offs.index_select(0, keep)] = rows
+    return pool
+
+
 def slot_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """Gather one layer's pool [H, Np, pg, d] into the dense slot view
     [B, Mp*pg, H, d]. Out-of-range table ids clamp to the last page;

@@ -130,13 +130,15 @@ class ChatServer(ThreadingHTTPServer):
         self.request_timeout_s = request_timeout_s
 
 
-def serve_config(model_config: LlamaConfig) -> EngineConfig:
+def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
     """The engine that ``chip_smoke.py`` measures: 8 slots of up to 2048
     rows (fewer when the model's context is shorter) in 64-row pages,
     prefill buckets up to 1024, the prefix cache on (a quarter of the
-    pool)."""
-    return EngineConfig(max_batch=8, max_seq=min(2048, model_config.max_seq),
-                        page_size=64, seed=0)
+    pool); ``overrides`` set other ``EngineConfig`` fields (the smoke's
+    speculative cell: ``speculative=True, spec_ngram=2``)."""
+    return EngineConfig(**{"max_batch": 8,
+                           "max_seq": min(2048, model_config.max_seq),
+                           "page_size": 64, "seed": 0, **overrides})
 
 
 def build_engine(model_config: LlamaConfig, *,

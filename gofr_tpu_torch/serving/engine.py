@@ -1,6 +1,6 @@
 """Continuous-batching inference engine on the paged KV pool
 (counterpart of ``gofr_tpu/serving/engine.py``, paged layout with the
-prefix cache and the chunk-with-history walk).
+prefix cache, the chunk-with-history walk and speculative tree verify).
 
 - One **engine thread** owns every device call; ``submit()`` only
   queues, from any thread.
@@ -38,10 +38,25 @@ prefix cache and the chunk-with-history walk).
   tokens feed the next step on the device, and the host reads the K
   tokens once per pass. Slots retire on eos, on ``max_new_tokens`` or
   at the ``max_seq`` ceiling, exactly as the JAX engine counts them.
+- **Speculative tree verify** (``speculative``, off by default): before
+  each pass every greedy decoding slot drafts by prompt lookup (its
+  request's ``NgramIndex`` proposes up to ``spec_branches``
+  continuations of the stream's last ``spec_ngram`` tokens, trie-merged
+  into one ``DraftTree``; the ``SpecController`` prices the depth). When
+  every decoding slot drafted — or, in a mixed batch, every other pass —
+  one verify pass feeds each slot's tree (a lone root for a slot that
+  did not draft) through the paged tree kernel at a pow-2 width,
+  accepts the longest root-to-leaf path whose tokens the model predicts
+  greedily (``resolve_tree``), compacts that path's K/V rows
+  (``path_moves`` + ``pool_move_rows``) and emits the accepted tokens
+  plus one bonus token sampled at the deepest accepted node. A request
+  reserves ``spec_draft * spec_branches`` rows more than its life, so
+  every tree row lands in a page it owns.
 
-Left out (see ROADMAP.md Queue A): speculation, preemption and lazy
-page growth, int8 KV, decode windows, pipelining, and the SLO / events
-/ integrity / observability planes.
+Left out (see ROADMAP.md Queue A): preemption and lazy page growth, int8
+KV, decode windows, pipelining, and the SLO / events / integrity /
+observability / goodput / cost planes (so the speculative path keeps
+only the stats below).
 """
 
 from __future__ import annotations
@@ -56,8 +71,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..ops.paged_kv import scatter_chunk
+from ..ops.paged_kv import pool_move_rows, scatter_chunk
 from .sampling import sample_batch
+from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
+                   build_draft_tree)
 
 
 @dataclass
@@ -86,6 +103,8 @@ class GenRequest:
     prefill_offset: int = 0
     #: True while the prompt is walked chunk by chunk (no decode yet)
     pending_prefill: bool = False
+    #: prompt-lookup index over prompt + generated (speculation only)
+    spec_index: NgramIndex | None = None
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event)
 
@@ -121,11 +140,31 @@ class EngineConfig:
     prefix_cache: bool = True
     #: pages the prefix cache may pin; None = a quarter of the pool
     prefix_cache_pages: int | None = None
+    #: speculative decoding: draft by prompt lookup and verify a draft
+    #: tree in one pass; greedy outputs are those of plain decode, and
+    #: sampled slots never accept drafts (their bonus token samples with
+    #: their own params)
+    speculative: bool = False
+    #: max draft depth verified per pass
+    spec_draft: int = 4
+    #: n-gram width the prompt lookup matches on
+    spec_ngram: int = 3
+    #: continuations drafted per pass, trie-merged into one tree
+    #: (1 + spec_draft * spec_branches <= 32 nodes)
+    spec_branches: int = 2
+    #: price each slot's draft depth against fitted decode and verify
+    #: costs; False = always full depth
+    spec_adaptive: bool = True
+    #: accept-rate EWMA under which a slot stops drafting (re-probed
+    #: every spec_probe_interval passes)
+    spec_accept_floor: float = 0.1
+    #: passes between single-node probes of a disabled slot
+    spec_probe_interval: int = 32
 
 
 class Engine:
-    """Continuous batching over a (prefill_fn, paged_chunk_fn,
-    paged_decode_fn) triple.
+    """Continuous batching over (prefill_fn, paged_chunk_fn,
+    paged_decode_fn) and, for speculation, paged_verify_fn.
 
     prefill_fn(params, tokens [P, S], kv_lengths [P]) -> (logits [P, V],
         (k, v) each [L, P, S, Hkv, hd]) — e.g. ``llama_prefill_last``.
@@ -136,6 +175,11 @@ class Engine:
     paged_decode_fn(params, tokens [B], k_pool, v_pool, tables [B, Mp],
         lengths [B]) -> (logits [B, V], k_pool, v_pool) — e.g.
         ``llama_decode_step_paged``; pools are updated in place.
+    paged_verify_fn(params, tokens [B, W], k_pool, v_pool, tables [B, Mp],
+        offsets [B], chunk_lengths [B], tree_depths=[B, W],
+        tree_masks=[B, W]) -> (logits [B, W, V], k_pool, v_pool) — e.g.
+        ``llama_prefill_chunk_paged`` in tree mode with all logits;
+        needed only with ``speculative``.
     make_cache(n_pages, page) -> (k_pool, v_pool) [L, Hkv, Np, pg, hd].
     vocab_size: prompts holding a token id outside [0, vocab_size) fail
         at submit (an out-of-range embedding index would fault on the
@@ -145,12 +189,29 @@ class Engine:
     def __init__(self, params: Any, config: EngineConfig, *,
                  prefill_fn: Callable, paged_decode_fn: Callable,
                  paged_chunk_fn: Callable, make_cache: Callable,
-                 device: str | torch.device,
-                 vocab_size: int) -> None:
+                 device: str | torch.device, vocab_size: int,
+                 paged_verify_fn: Callable | None = None) -> None:
         cfg = config
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
             raise ValueError("page_size, max_batch >= 1 and max_seq >= 2 "
                              "required")
+        if cfg.spec_branches < 1:
+            raise ValueError(f"spec_branches must be >= 1, got "
+                             f"{cfg.spec_branches}")
+        if 1 + cfg.spec_draft * cfg.spec_branches > MAX_TREE_NODES:
+            raise ValueError(
+                f"1 + spec_draft * spec_branches = "
+                f"{1 + cfg.spec_draft * cfg.spec_branches} exceeds the "
+                f"{MAX_TREE_NODES}-node packed ancestor bitmask; shrink "
+                f"spec_draft or spec_branches")
+        if not 0.0 < cfg.spec_accept_floor < 1.0:
+            raise ValueError(f"spec_accept_floor must be in (0, 1), "
+                             f"got {cfg.spec_accept_floor}")
+        if cfg.spec_probe_interval < 1:
+            raise ValueError(f"spec_probe_interval must be >= 1, got "
+                             f"{cfg.spec_probe_interval}")
+        if cfg.speculative and paged_verify_fn is None:
+            raise ValueError("speculative needs a paged_verify_fn")
         self.params = params
         self.config = cfg
         self.device = torch.device(device)
@@ -158,6 +219,16 @@ class Engine:
         self._prefill_fn = prefill_fn
         self._decode_fn = paged_decode_fn
         self._chunk_fn = paged_chunk_fn
+        self._verify_fn = paged_verify_fn
+        #: mixed batches alternate verify and decode passes
+        self._spec_toggle = True
+        self._spec_ctrl = SpecController(
+            cfg.max_batch, draft=cfg.spec_draft, branches=cfg.spec_branches,
+            adaptive=cfg.spec_adaptive, accept_floor=cfg.spec_accept_floor,
+            probe_interval=cfg.spec_probe_interval)
+        #: request each controller slot's state belongs to: a new tenant
+        #: starts from a fresh accept-rate EWMA
+        self._spec_ctrl_owner: list = [None] * cfg.max_batch
         # buckets wider than the cache could not be written back
         self._usable_buckets = tuple(sorted(
             b for b in cfg.prefill_buckets if b <= cfg.max_seq)) \
@@ -205,7 +276,9 @@ class Engine:
         self.stats = {"prefill_calls": 0, "prefill_s": 0.0,
                       "decode_passes": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "prefix_hits": 0,
-                      "prefix_evictions": 0}
+                      "prefix_evictions": 0, "spec_passes": 0,
+                      "spec_s": 0.0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_rows": 0}
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -302,9 +375,8 @@ class Engine:
                     self._admit()
                     if self._walkers:
                         self._walk_chunks()
-                    if any(r is not None and not r.pending_prefill
-                           for r in self.active):
-                        self._decode_pass()
+                    if any(r is not None for r in self.active):
+                        self._step()
                     elif not self._walkers:
                         with self._cv:
                             if self._running and not self._waiting:
@@ -334,9 +406,16 @@ class Engine:
 
     # ------------------------------------------------------------- pages
     def _pages_for(self, req: GenRequest) -> int:
-        rows = min(len(req.prompt_tokens) + req.params.max_new_tokens,
-                   self.config.max_seq)
-        return -(-rows // self.config.page_size)
+        """Pages of a request's whole life. With speculation a verify
+        pass writes its tree's rows past the slot's length — up to
+        ``spec_draft * spec_branches`` rows beyond the last token the
+        budget allows — so those rows are reserved too, and every tree
+        row lands in a page the slot owns."""
+        cfg = self.config
+        spare = cfg.spec_draft * cfg.spec_branches if cfg.speculative else 0
+        rows = min(len(req.prompt_tokens) + req.params.max_new_tokens + spare,
+                   cfg.max_seq)
+        return -(-rows // cfg.page_size)
 
     def _decref_page(self, page: int) -> None:
         self._page_refs[page] -= 1
@@ -660,19 +739,248 @@ class Engine:
             sampled.append(toks)
             lens = lens + 1
         out = torch.stack(sampled).cpu().numpy()          # [K, n]
+        busy = time.perf_counter() - t0
         self.stats["decode_passes"] += 1
-        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_s"] += busy
         self._step_count += 1
         self.lengths[rows] += valid.astype(np.int32)
+        emitted = 0
         for j, (slot, req) in enumerate(zip(rows, reqs)):
             done = False
             for k in range(int(valid[j])):
                 token = int(out[k, j])
                 req.generated.append(token)
                 self.total_generated += 1
-                self.stats["decode_tokens"] += 1
+                emitted += 1
                 if self._finished(req, token):
                     done = True
                     break
             if done or valid[j] < steps:
                 self._retire(slot)
+        self.stats["decode_tokens"] += emitted
+        # the price an accepted draft token undercuts
+        self._spec_ctrl.note_decode(busy, emitted)
+
+    # --------------------------------------------------------- speculation
+    def _step(self) -> None:
+        """One pass over the decoding slots. With speculation, every
+        greedy slot drafts first; a verify pass runs when every
+        decoding slot drafted, and in a mixed batch every other time
+        (a verify pass advances a slot that did not draft by one token,
+        so it gets a full K-step decode pass in between), else a decode
+        pass."""
+        proposals: dict[int, Any] = {}
+        decoding = 0
+        if self.config.speculative:
+            for i, r in enumerate(self.active):
+                if r is None or r.pending_prefill:
+                    continue
+                decoding += 1
+                if r.params.temperature == 0.0:
+                    drafted = self._draft_proposals(r)
+                    if drafted:
+                        proposals[i] = drafted
+        if proposals and (len(proposals) == decoding or self._spec_toggle):
+            self._spec_toggle = False
+            self._spec_pass(proposals)
+        else:
+            self._spec_toggle = True
+            self._decode_pass()
+
+    def _draft_proposals(self, req: GenRequest):
+        """Prompt-lookup drafting on the request's incremental n-gram
+        index: the stream's final n-gram proposes up to
+        ``spec_branches`` distinct continuations (newest occurrences
+        first), trie-merged into one :class:`DraftTree`, at the depth
+        the controller prices for the slot. Returns a tree with at least
+        one draft node, or [] when this pass should not draft."""
+        cfg = self.config
+        slot = req.slot
+        ctrl = self._spec_ctrl
+        if self._spec_ctrl_owner[slot] is not req:
+            ctrl.reset_slot(slot)
+            self._spec_ctrl_owner[slot] = req
+        depth, branches = ctrl.plan(slot)
+        # the bonus token always lands, so at most remaining - 1 drafts
+        # can be kept
+        remaining = req.params.max_new_tokens - len(req.generated)
+        depth = min(depth, max(0, remaining - 1))
+        if depth <= 0 or branches <= 0:
+            return []
+        n = max(1, cfg.spec_ngram)
+        idx = req.spec_index
+        if idx is None or idx.n != n:
+            idx = NgramIndex(n)
+            idx.extend(req.prompt_tokens)
+            idx.prompt_len = len(req.prompt_tokens)
+            req.spec_index = idx
+        stream_len = idx.prompt_len + len(req.generated)
+        if idx.size < stream_len:
+            idx.extend(req.generated[idx.size - idx.prompt_len:])
+        chains = idx.propose(depth, branches)
+        if not chains:
+            return []
+        tree = build_draft_tree(
+            req.generated[-1], chains,
+            max_nodes=1 + cfg.spec_draft * cfg.spec_branches)
+        return tree if tree.n_draft else []
+
+    def _spec_pass(self, proposals: dict[int, DraftTree]) -> None:
+        """One tree-verify pass over every decoding slot (``proposals``:
+        slot -> its draft tree); a slot without a tree rides along as a
+        lone root node, which is exactly one decode step for it. Accepted tokens and the bonus token are
+        emitted host-side; the accepted path's K/V rows were compacted
+        on the device."""
+        cfg = self.config
+        for i, req in enumerate(self.active):
+            if req is not None and not req.pending_prefill \
+                    and self.lengths[i] >= cfg.max_seq:
+                self._retire(i)           # at the cache ceiling
+        rows = [i for i, r in enumerate(self.active)
+                if r is not None and not r.pending_prefill]
+        if not rows:
+            return
+        trees: dict[int, DraftTree] = {
+            i: tree for i, tree in proposals.items()
+            if self.active[i] is not None}
+        # pow-2 width buckets: the widest tree of the pass picks it
+        widest = max((t.n_nodes for t in trees.values()), default=1)
+        width = 2
+        while width < widest:
+            width *= 2
+        n = len(rows)
+        reqs = [self.active[i] for i in rows]
+        tokens = np.zeros((n, width), np.int64)
+        parents = np.zeros((n, width), np.int64)
+        depths = np.zeros((n, width), np.int64)
+        masks = np.ones((n, width), np.int64)
+        chunk_lens = np.ones(n, np.int32)
+        for j, (slot, req) in enumerate(zip(rows, reqs)):
+            tokens[j, 0] = req.generated[-1]
+            tree = trees.get(slot)
+            if tree is not None:
+                m = tree.n_nodes
+                tokens[j, :m] = tree.tokens
+                parents[j, :m] = tree.parents
+                depths[j, :m] = tree.depths
+                masks[j, :m] = tree.masks
+                chunk_lens[j] = m
+        dev = self.device
+        t0 = time.perf_counter()
+        temps, top_ps, top_ks = self._row_params(reqs, n)
+        tables = torch.from_numpy(self._tables[rows]).to(dev)
+        offsets = torch.from_numpy(self.lengths[rows].copy()).to(dev)
+        lens_t = torch.from_numpy(chunk_lens).to(dev)
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        parents_t = torch.from_numpy(parents).to(dev)
+        depths_t = torch.from_numpy(depths).to(dev)
+        # the 32-bit ancestor masks travel as int32 bit patterns
+        masks_t = torch.from_numpy(
+            masks.astype(np.uint32).view(np.int32)).to(dev)
+        logits, self.k_cache, self.v_cache = self._verify_fn(
+            self.params, tokens_t, self.k_cache, self.v_cache, tables,
+            offsets, lens_t, tree_depths=depths_t, tree_masks=masks_t)
+        n_acc, bonus, path = resolve_tree(
+            logits, tokens_t, parents_t, depths_t, lens_t, temps, top_ps,
+            top_ks, generator=self._generator)
+        src, dst = path_moves(offsets, path, n_acc, cfg.max_seq)
+        pool_move_rows(self.k_cache, tables, src, dst)
+        pool_move_rows(self.v_cache, tables, src, dst)
+        out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
+                        1).cpu().numpy()
+        dur = time.perf_counter() - t0
+        self.stats["spec_passes"] += 1
+        self.stats["spec_s"] += dur
+        self.stats["decode_s"] += dur
+        self._step_count += 1
+        emitted_total = 0
+        for j, (slot, req) in enumerate(zip(rows, reqs)):
+            tree = trees.get(slot)
+            n_drafted = tree.n_draft if tree is not None else 0
+            accepted = min(int(out[j, 0]), n_drafted)
+            if n_drafted:
+                self._spec_ctrl.note_result(slot, n_drafted, accepted)
+            self.stats["spec_accepted"] += accepted
+            self.stats["spec_drafted"] += n_drafted
+            self.stats["spec_rows"] += 1
+            # the accepted root-to-leaf path's tokens in depth order,
+            # then the bonus token sampled at the deepest accepted node
+            emitted = [tree.tokens[int(out[j, 2 + k])]
+                       for k in range(1, accepted + 1)] if tree else []
+            emitted.append(int(out[j, 1]))
+            ceiling = cfg.max_seq - int(self.lengths[slot])
+            done = False
+            kept = 0
+            for token in emitted:
+                if kept >= ceiling:
+                    done = True
+                    break
+                req.generated.append(token)
+                self.total_generated += 1
+                kept += 1
+                if self._finished(req, token):
+                    done = True
+                    break
+            emitted_total += kept
+            self.lengths[slot] += kept
+            if done or kept >= ceiling:
+                self._retire(slot)
+        self.stats["decode_tokens"] += emitted_total
+        self._spec_ctrl.note_verify(dur, n, width)
+
+
+def resolve_tree(logits: torch.Tensor, tokens: torch.Tensor,
+                 parents: torch.Tensor, depths: torch.Tensor,
+                 chunk_lens: torch.Tensor, temps: torch.Tensor,
+                 top_ps: torch.Tensor, top_ks: torch.Tensor, *,
+                 generator: torch.Generator | None = None):
+    """The longest accepted root-to-leaf path of each row's draft tree.
+
+    logits [B, W, V] of every node; tokens / parents / depths [B, W]
+    (topological packing, node 0 = the committed root); chunk_lens [B]
+    live nodes. Node j is accepted iff its parent is and its token is
+    the parent's greedy prediction (node 0 always is), so one forward
+    sweep over the width is exact. The deepest accepted node wins, ties
+    to the lowest index (``argmax`` returns the first maximum). Returns
+    (accepted depth [B], bonus token [B] sampled at the deepest accepted
+    node with the row's params, path [B, W]: ``path[b, k]`` is the node
+    at depth k of the accepted path, for k <= accepted[b])."""
+    b, w = tokens.shape
+    rows = torch.arange(b, device=tokens.device)
+    pred = logits.argmax(-1)                                     # [B, W]
+    acc = torch.zeros((b, w), dtype=torch.bool, device=tokens.device)
+    acc[:, 0] = True
+    for j in range(1, w):
+        pj = parents[:, j]
+        acc[:, j] = (acc[rows, pj] & (tokens[:, j] == pred[rows, pj])
+                     & (j < chunk_lens))
+    score = torch.where(acc, depths, torch.full_like(depths, -1))
+    best = score.argmax(1)
+    n_acc = depths[rows, best]
+    # root-first path by depth: walk parents w steps from the best node,
+    # writing each visited node at its own depth (the walk idles at the
+    # root once it gets there)
+    path = torch.zeros_like(tokens)
+    depth_idx = torch.arange(w, device=tokens.device)[None, :]
+    cur = best
+    for _ in range(w):
+        hit = depth_idx == depths[rows, cur][:, None]
+        path = torch.where(hit, cur[:, None], path)
+        cur = parents[rows, cur]
+    bonus = sample_batch(logits[rows, best], temps, top_ps, top_ks,
+                         generator=generator)
+    return n_acc, bonus, path
+
+
+def path_moves(offsets: torch.Tensor, path: torch.Tensor,
+               n_acc: torch.Tensor, max_seq: int):
+    """The K/V compaction plan of an accepted path: the node at depth k
+    was written at row ``offsets + path[k]`` and belongs at
+    ``offsets + k``. Depth 0 is the root, moved onto itself; depths past
+    the accepted one get the ``max_seq`` sentinel, which
+    :func:`pool_move_rows` drops. Returns (src, dst) [B, W]."""
+    k = torch.arange(path.shape[1], device=path.device)[None, :]
+    base = offsets.long()[:, None]
+    dst = torch.where(k <= n_acc[:, None], base + k,
+                      torch.full_like(path, max_seq))
+    return base + path, dst

@@ -21,8 +21,10 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     raise): bucketed prefill through ``llama_prefill_last`` (the flash
     kernel), chunk walks — long prompts and prefix-cache suffixes —
     through ``llama_prefill_chunk_paged`` (the paged chunk kernel),
-    decode through ``llama_decode_step_paged`` (the paged decode
-    kernel), on a head-major pool allocated on the same device."""
+    speculative tree verify through the same function's tree mode (the
+    paged tree kernel), decode through ``llama_decode_step_paged`` (the
+    paged decode kernel), on a head-major pool allocated on the same
+    device."""
     dev = resolve_device(device)
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, the "
@@ -41,11 +43,19 @@ def llama_engine(params: Any, model_config: LlamaConfig,
         return llama_prefill_chunk_paged(params, tokens, k_pool, v_pool,
                                          tables, offsets, chunk_lengths, c)
 
+    def paged_verify_fn(params, tokens, k_pool, v_pool, tables, offsets,
+                        chunk_lengths, tree_depths=None, tree_masks=None):
+        return llama_prefill_chunk_paged(
+            params, tokens, k_pool, v_pool, tables, offsets, chunk_lengths,
+            c, return_all_logits=True, tree_depths=tree_depths,
+            tree_masks=tree_masks)
+
     def make_cache(n_pages, page):
         return make_pool(c, n_pages, page, dev)
 
     return Engine(params, engine_config or EngineConfig(),
                   prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,
-                  paged_chunk_fn=paged_chunk_fn, make_cache=make_cache,
+                  paged_chunk_fn=paged_chunk_fn,
+                  paged_verify_fn=paged_verify_fn, make_cache=make_cache,
                   device=dev,
                   vocab_size=c.vocab_size)

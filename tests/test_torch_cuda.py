@@ -15,8 +15,8 @@ Tolerances, per element, as in ``chip_smoke.py``: ``|out - ref| <= ATOL
 2^-7). Flash also rounds each softmax weight to bf16 before P·V while
 its sum stays float32, which moves the output by at most 2^-8 of the
 attention average of |V|: that term is added to its limit. The paged
-chunk kernel rounds P the same way and takes the same limit. Paged
-decode keeps P in float32.
+chunk and tree kernels round P the same way and take the same limit.
+Paged decode keeps P in float32.
 """
 
 import pytest
@@ -27,7 +27,9 @@ from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_plain)
 from gofr_tpu_torch.ops.paged_attention import (
     paged_chunk_attention, paged_chunk_attention_plain,
-    paged_decode_attention, paged_decode_attention_plain)
+    paged_decode_attention, paged_decode_attention_plain,
+    paged_tree_attention, paged_tree_attention_plain)
+from gofr_tpu_torch.serving.spec import build_draft_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -147,6 +149,70 @@ def test_paged_chunk_kernel_matches_plain(dev, sq, hq, hkv, d, pg, n_pages,
         assert out[padding].abs().max().item() == 0.0
 
 
+def _tree_masks(width, n_slots, branches, seed):
+    """[n_slots, width] int32 ancestor masks of seeded draft trees that
+    fill ``width`` nodes (the last slot's tree is a chain), and each
+    tree's node count."""
+    gen = torch.Generator().manual_seed(seed)
+    masks = torch.ones(n_slots, width, dtype=torch.int32)
+    sizes = []
+    for i in range(n_slots):
+        b = 1 if i == n_slots - 1 else branches
+        depth = max(1, (width - 1) // b)
+        chains = [torch.randint(0, 9, (depth,), generator=gen).tolist()
+                  for _ in range(b)]
+        tree = build_draft_tree(7, chains, max_nodes=width)
+        masks[i, :tree.n_nodes] = torch.tensor(tree.masks, dtype=torch.int64
+                                               ).to(torch.int32)
+        sizes.append(tree.n_nodes)
+    return masks, sizes
+
+
+@pytest.mark.parametrize("width,hq,hkv,d,pg,branches,hists", [
+    # the serving shape: llama3_1b heads, 64-row pages, a 1 + 4 x 2 tree
+    # in the 16-wide bucket, mid-page and long histories, an empty slot
+    (16, 32, 8, 64, 64, 2, [0, 1, 63, 1000]),
+    (2, 8, 2, 128, 16, 1, [5, 0, 40]),           # width 2, hd 128
+    (32, 4, 4, 64, 16, 4, [17, 300]),            # width 32, group 1
+    (8, 16, 1, 64, 64, 3, [129, 0, 64]),         # group 16
+    (32, 8, 2, 128, 64, 2, [0, 70, 700]),        # width 32, hd 128
+])
+def test_paged_tree_kernel_matches_plain(dev, width, hq, hkv, d, pg, branches,
+                                         hists):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = len(hists)
+    masks, sizes = _tree_masks(width, b, branches, seed=width + hq)
+    # slot 0 with no history is left empty (chunk 0): exact zeros
+    clens = [0 if i == 0 and h == 0 else n
+             for i, (h, n) in enumerate(zip(hists, sizes))]
+    mp = max(1, -(-max(h + width for h in hists) // pg))
+    n_pages = b * mp + 2
+    tables = torch.full((b, mp), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(1))
+    used = 0
+    for i, (h, c) in enumerate(zip(hists, clens)):
+        need = -(-(h + c) // pg)
+        tables[i, :need] = perm[used:used + need].to(torch.int32)
+        used += need
+    tables, masks = tables.to(dev), masks.to(dev)
+    q = _randn(gen, dev, b, width, hq, d)
+    kp, vp = (_randn(gen, dev, hkv, n_pages, pg, d) for _ in range(2))
+    hist = torch.tensor(hists, dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    before = paged_tree_attention.launches
+    out = paged_tree_attention(q, kp, vp, tables, hist, clen, masks)
+    assert paged_tree_attention.launches == before + 1
+    ref = paged_tree_attention_plain(q, kp, vp, tables, hist, clen,
+                                     masks).float()
+    limit = (ATOL + RTOL * ref.abs() + P_ROUND * paged_tree_attention_plain(
+        q, kp, vp.abs(), tables, hist, clen, masks).float())
+    excess = ((out.float() - ref).abs() / limit).max().item()
+    assert excess <= 1.0, f"worst err / limit {excess}"
+    padding = torch.arange(width, device=dev)[None, :] >= clen[:, None]
+    if padding.any():                  # padding rows and empty slots: zeros
+        assert out[padding].abs().max().item() == 0.0
+
+
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 64, device=dev)                  # float32
     with pytest.raises(TypeError, match="bfloat16"):
@@ -172,3 +238,10 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         paged_chunk_attention(torch.zeros(2, 5, 17, 64, device=dev,
                                           dtype=torch.bfloat16),
                               pool, pool, tables.int(), lengths, lengths)
+    qt = torch.zeros(2, 33, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="32-node"):
+        paged_tree_attention(qt, pool, pool, tables.int(), lengths, lengths,
+                             torch.ones(2, 33, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="tree_masks"):
+        paged_tree_attention(qc, pool, pool, tables.int(), lengths, lengths,
+                             torch.ones(2, 5, dtype=torch.int64, device=dev))

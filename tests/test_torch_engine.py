@@ -9,8 +9,13 @@ request. With it (the JAX one with ``paged_attention="interpret"``,
 its Pallas kernels interpreted, and a single 16-row bucket so that
 longer prompts walk in chunks), a second wave whose prompts share
 page-aligned prefixes with the first must also give equal
-``prefix_hits``. Page accounting and LRU eviction are checked on the
-port alone.
+``prefix_hits``. With speculation (the JAX one with
+``paged_attention="interpret"``, ``spec_adaptive=False``), a repetitive
+prompt must give identical tokens, ``request_digest`` and spec counters,
+and a second wave identical tokens. Page accounting, LRU eviction, the
+speculative path's page reservation, oracle drafts, mixed greedy and
+sampled batches and speculative-vs-plain tokens are checked on the port
+alone.
 """
 
 import json
@@ -33,6 +38,7 @@ from gofr_tpu_torch.models.llama import LlamaConfig
 from gofr_tpu_torch.serving.app import build_engine, build_server
 from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
 from gofr_tpu_torch.serving.glue import llama_engine
+from gofr_tpu_torch.serving.spec import build_draft_tree
 
 torch.set_num_threads(2)
 
@@ -184,6 +190,181 @@ def test_engine_waits_for_pages_when_the_pool_is_dry():
     # an id outside the vocabulary fails at submit
     bad = teng.submit([300], SamplingParams(max_new_tokens=2))
     assert bad.error and bad.done.is_set()
+
+
+# a strongly repetitive prompt: prompt-lookup drafting engages on it
+PATTERN = [11, 22, 33, 44] * 12
+
+
+def _wait(reqs, timeout_s=120):
+    deadline = time.time() + timeout_s
+    while time.time() < deadline and any(
+            r.finished_at is None and r.error is None for r in reqs):
+        time.sleep(0.005)
+    assert all(r.error is None and r.finished_at is not None for r in reqs)
+
+
+def test_speculative_engine_matches_jax_engine():
+    jparams, tparams = _converted_tiny()
+    common = dict(max_batch=2, max_seq=128, page_size=16, seed=0,
+                  decode_steps_per_pass=4, prefix_cache=False,
+                  speculative=True, spec_adaptive=False, spec_ngram=1)
+    jeng = jax_llama_engine(
+        jparams, JaxLlamaConfig.tiny(),
+        JaxEngineConfig(kv_layout="paged", paged_attention="interpret",
+                        compile_cache_dir=None, **common),
+        implementation="xla")
+    teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(**common),
+                        device="cpu")
+    second = [[5, 6, 7] * 9, [40, 41, 42, 43, 44] * 6]
+    got = {}
+    for name, eng, params in (
+            ("jax", jeng, JaxSamplingParams(temperature=0.0,
+                                            max_new_tokens=24)),
+            ("port", teng, SamplingParams(temperature=0.0,
+                                          max_new_tokens=24))):
+        eng.start()
+        try:
+            one = [eng.submit(PATTERN, params)]
+            _wait(one)
+            counters = {k: eng.stats[k] for k in
+                        ("spec_passes", "spec_drafted", "spec_accepted")}
+            wave = [eng.submit(p, params) for p in second]
+            _wait(wave)
+        finally:
+            eng.stop()
+        got[name] = (one + wave, counters)
+    (want, jcount), (have, tcount) = got["jax"], got["port"]
+    _assert_same_requests(have, want, 24)
+    assert tcount == jcount
+    assert tcount["spec_drafted"] > 0 and tcount["spec_accepted"] > 0
+    assert sorted(teng._free_pages) == list(range(teng._n_pages))
+
+
+def _plain_and_spec(prompts, n_new, **spec_kw):
+    out = []
+    for spec in (False, True):
+        cfg = dict(max_batch=4, max_seq=128, page_size=16, seed=0,
+                   decode_steps_per_pass=4, prefix_cache=False)
+        if spec:
+            cfg.update(speculative=True, **spec_kw)
+        eng = build_engine(LlamaConfig.tiny(), device="cpu",
+                           engine_config=EngineConfig(**cfg))
+        reqs = _run(eng, prompts,
+                    SamplingParams(temperature=0.0, max_new_tokens=n_new))
+        out.append(([r.generated for r in reqs], eng))
+    return out
+
+
+def test_speculative_tokens_equal_plain_tokens():
+    # repetitive and random prompts, concurrent; adaptive controller on
+    # (default), 1-gram lookup and 4-branch trees so drafts engage often
+    rng = np.random.default_rng(14)
+    prompts = [PATTERN, [9, 8, 7, 6, 5] * 7, rng.integers(0, 256, 30).tolist(),
+               [3, 1, 4, 1, 5, 9, 2, 6] * 4]
+    (plain, _), (spec, eng) = _plain_and_spec(prompts, 21, spec_ngram=1,
+                                              spec_branches=4)
+    assert spec == plain
+    assert eng.stats["spec_passes"] > 0 and eng.stats["spec_drafted"] > 0
+    assert eng.stats["spec_rows"] >= eng.stats["spec_passes"]
+    assert sorted(eng._free_pages) == list(range(eng._n_pages))
+
+
+def _oracle(engine, futures, decoy=True):
+    """A drafting hook that proposes each request's true continuation
+    (at the depth the budget allows) plus, with ``decoy``, a wrong
+    branch of the same depth."""
+    def draft(req):
+        done = len(req.generated)
+        depth = min(engine.config.spec_draft,
+                    req.params.max_new_tokens - done - 1)
+        if depth <= 0:
+            return []
+        true = futures[tuple(req.prompt_tokens)][done:done + depth]
+        chains = [true] + ([[(t + 1) % 256 for t in true]] if decoy else [])
+        return build_draft_tree(req.generated[-1], chains)
+    return draft
+
+
+def test_oracle_draft_is_accepted_with_fewer_passes():
+    n = 24
+    (vanilla, _), = [_plain_and_spec([PATTERN], n)[0]]
+    eng = build_engine(LlamaConfig.tiny(), device="cpu",
+                       engine_config=EngineConfig(
+                           max_batch=2, max_seq=128, page_size=16, seed=0,
+                           speculative=True))
+    eng._draft_proposals = _oracle(eng, {tuple(PATTERN): vanilla[0]},
+                                   decoy=False)
+    reqs = _run(eng, [PATTERN], SamplingParams(temperature=0.0,
+                                               max_new_tokens=n))
+    assert reqs[0].generated == vanilla[0]
+    assert eng.stats["spec_accepted"] == eng.stats["spec_drafted"] > 0
+    # every pass lands spec_draft + 1 tokens
+    assert eng.stats["spec_passes"] <= 2 + n // (eng.config.spec_draft + 1)
+    assert eng.stats["decode_passes"] == 0
+
+
+def test_verify_rows_land_in_pages_the_slot_owns():
+    # 48-token prompts, 16 new tokens, 16-row pages: a life of exactly 4
+    # pages, but a 2-branch depth-4 tree near the end writes rows past
+    # prompt + max_new_tokens; the reservation adds spec_draft *
+    # spec_branches rows (5 pages each), and the 10-page pool holds both
+    # requests at once with no page to spare
+    prompts = [PATTERN, [50, 60, 70] * 16]
+    (vanilla, _), = [_plain_and_spec(prompts, 16)[0]]
+    eng = build_engine(LlamaConfig.tiny(), device="cpu",
+                       engine_config=EngineConfig(
+                           max_batch=2, max_seq=128, page_size=16, seed=0,
+                           kv_pages=10, prefix_cache=False, speculative=True))
+    eng._draft_proposals = _oracle(
+        eng, {tuple(p): v for p, v in zip(prompts, vanilla)})
+    verify, pg, seen = eng._verify_fn, 16, []
+
+    def checked(params, tokens, k_pool, v_pool, tables, offsets, lens,
+                **tree):
+        for row, (off, n) in enumerate(zip(offsets.tolist(), lens.tolist())):
+            for pos in range(off, off + n):
+                pid = int(tables[row, pos // pg])
+                seen.append(pos)
+                assert pid < eng._n_pages, f"row {pos} on an unallocated page"
+                assert pid not in eng._free_pages
+                assert eng._page_refs[pid] == 1
+                assert (eng._tables == pid).sum() == 1   # this slot's only
+        return verify(params, tokens, k_pool, v_pool, tables, offsets, lens,
+                      **tree)
+
+    eng._verify_fn = checked
+    reqs = _run(eng, prompts, SamplingParams(temperature=0.0,
+                                             max_new_tokens=16))
+    assert [r.generated for r in reqs] == vanilla
+    assert max(seen) >= 48 + 16         # past the 4 pages of a life
+    assert sorted(eng._free_pages) == list(range(eng._n_pages))
+
+
+def test_mixed_greedy_and_sampled_batch_keeps_budgets():
+    # a sampled request shares the batch with a drafting greedy one:
+    # verify and decode passes alternate, both finish with exact
+    # budgets, and the greedy one matches plain decode
+    (vanilla, _), = [_plain_and_spec([PATTERN], 16)[0]]
+    eng = build_engine(LlamaConfig.tiny(), device="cpu",
+                       engine_config=EngineConfig(
+                           max_batch=2, max_seq=128, page_size=16, seed=0,
+                           decode_steps_per_pass=4, prefix_cache=False,
+                           speculative=True, spec_ngram=1))
+    eng.start()
+    try:
+        greedy = eng.submit(PATTERN, SamplingParams(temperature=0.0,
+                                                    max_new_tokens=16))
+        sampled = eng.submit(np.random.default_rng(1).integers(
+            3, 200, size=20).tolist(), SamplingParams(temperature=0.9,
+                                                       max_new_tokens=16))
+        _wait([greedy, sampled])
+    finally:
+        eng.stop()
+    assert greedy.generated == vanilla[0]
+    assert len(sampled.generated) == 16
+    assert eng.stats["spec_passes"] > 0 and eng.stats["decode_passes"] > 0
+    assert sorted(eng._free_pages) == list(range(eng._n_pages))
 
 
 def _http(url, body=None):

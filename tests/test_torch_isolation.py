@@ -11,7 +11,8 @@ import gofr_tpu_torch
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.ops.flash_attention import flash_attention
 from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
-                                                paged_decode_attention)
+                                                paged_decode_attention,
+                                                paged_tree_attention)
 from gofr_tpu_torch.serving.app import build_engine
 from gofr_tpu_torch.models.llama import LlamaConfig
 
@@ -64,7 +65,7 @@ def test_the_scan_sees_every_module_and_catches_a_bad_import():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "flash_attention.py", "paged_attention.py",
             "paged_kv.py", "llama.py", "glue.py", "app.py",
-            "_build.py"} <= names
+            "_build.py", "spec.py"} <= names
     tree = ast.parse("try:\n    import triton\nexcept ImportError:\n"
                      "    pass\ndef f():\n    import triton.language\n")
     assert set(_module_level_imports(tree.body)) == {"triton"}
@@ -85,7 +86,7 @@ def test_cuda_entry_point_never_runs_on_the_cpu(monkeypatch):
         build_engine(LlamaConfig.tiny())          # default device: cuda
 
 
-@pytest.mark.parametrize("kernel", ["flash", "paged", "chunk"])
+@pytest.mark.parametrize("kernel", ["flash", "paged", "chunk", "tree"])
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors(kernel):
     # a tensor on neither the CPU nor CUDA (the meta device) must raise,
     # not fall through to the plain version
@@ -103,11 +104,17 @@ def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors(kernel):
             if kernel == "paged":
                 q = torch.empty(2, 4, 64, dtype=torch.bfloat16, device=meta)
                 paged_decode_attention(q, pool, pool, tables, lengths)
-            else:
+            elif kernel == "chunk":
                 q = torch.empty(2, 5, 4, 64, dtype=torch.bfloat16,
                                 device=meta)
                 paged_chunk_attention(q, pool, pool, tables, lengths,
                                       lengths)
+            else:
+                q = torch.empty(2, 5, 4, 64, dtype=torch.bfloat16,
+                                device=meta)
+                masks = torch.empty(2, 5, dtype=torch.int32, device=meta)
+                paged_tree_attention(q, pool, pool, tables, lengths, lengths,
+                                     masks)
 
 
 def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,

@@ -159,3 +159,61 @@ def test_two_chunk_walk_equals_whole_prompt_prefill():
     view = kp[:, :, tables[0].long()].permute(0, 2, 3, 1, 4).reshape(
         2, 5 * pg, 2, 16)[:, :n]
     np.testing.assert_allclose(view.numpy(), k[:, 0].numpy(), atol=ATOL)
+
+
+def test_prefill_chunk_paged_tree_mode_matches_jax_interpret():
+    # speculative verify: row 0 verifies a 2-branch tree after a
+    # mid-page 21-row history, row 1 a chain after 8 rows, row 2 a lone
+    # root at position 0 (a slot that did not draft); width 8, all
+    # logits returned, tree kernel interpreted on the JAX side
+    from gofr_tpu_torch.serving.spec import build_draft_tree
+    jc, jparams, tc, tparams = _converted()
+    rng = np.random.default_rng(3)
+    pg, n_pages, mp, s = 8, 16, 5, 8
+    kp, vp = _history_pools(rng, 2, 2, n_pages, pg, 16)
+    trees = [build_draft_tree(5, [[1, 2, 3], [1, 7, 8, 9]]),
+             build_draft_tree(6, [[4, 4, 4, 4]]),
+             build_draft_tree(9, [])]
+    tables = np.full((3, mp), n_pages, np.int32)
+    pages = rng.permutation(n_pages)
+    tables[0, :4], tables[1, :2], tables[2, :1] = pages[:4], pages[4:6], \
+        pages[6:7]
+    offsets = np.array([21, 8, 0], np.int32)
+    lens = np.array([t.n_nodes for t in trees], np.int32)
+    tokens = np.zeros((3, s), np.int32)
+    depths = np.zeros((3, s), np.int32)
+    masks = np.ones((3, s), np.int32)
+    for i, t in enumerate(trees):
+        tokens[i, :t.n_nodes] = t.tokens
+        depths[i, :t.n_nodes] = t.depths
+        masks[i, :t.n_nodes] = t.masks
+
+    jl, jkp, jvp = jllama.llama_prefill_chunk_paged(
+        jparams, jnp.asarray(tokens), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(offsets), jnp.asarray(lens), jc,
+        implementation="interpret", return_all_logits=True,
+        tree_depths=jnp.asarray(depths), tree_masks=jnp.asarray(masks))
+    tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tl, tkp, tvp = tllama.llama_prefill_chunk_paged(
+        tparams, torch.from_numpy(tokens).long(), tkp, tvp,
+        torch.from_numpy(tables), torch.from_numpy(offsets),
+        torch.from_numpy(lens), tc, return_all_logits=True,
+        tree_depths=torch.from_numpy(depths), tree_masks=torch.from_numpy(masks))
+    assert tl.shape == (3, s, 256)
+    live = np.arange(s)[None, :] < lens[:, None]
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                               atol=ATOL)
+    np.testing.assert_allclose(tkp.numpy(), np.asarray(jkp), atol=ATOL)
+    np.testing.assert_allclose(tvp.numpy(), np.asarray(jvp), atol=ATOL)
+    # one K/V row per node landed at offsets + node index; nothing else
+    written = tkp.numpy() != kp
+    assert written.any(axis=(0, 1, 4)).sum() == lens.sum()
+    # a chain in tree mode is the chunk step
+    chain = slice(1, 2)
+    cl, _, _ = tllama.llama_prefill_chunk_paged(
+        tparams, torch.from_numpy(tokens[chain]).long(),
+        torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy()),
+        torch.from_numpy(tables[chain]), torch.from_numpy(offsets[chain]),
+        torch.from_numpy(lens[chain]), tc, return_all_logits=True)
+    np.testing.assert_allclose(cl.numpy()[0, :5], tl.numpy()[1, :5],
+                               atol=ATOL)
