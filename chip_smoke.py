@@ -14,14 +14,19 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 3. kernels — each of the four kernels (flash prefill, paged decode,
              paged chunk, paged tree verify) against its plain PyTorch
              version on the card, at the serving path's shapes, bf16,
-             ragged lengths; CUDA event times (median of 25 after
-             warm-up) of the kernel, the plain version and one PyTorch
-             library call of the same function, and the roofline bound
-             of the work. A planted fault (a shortened length, a dropped
-             or swapped page, causal masks in place of tree masks) must
-             fail the same check. The tree kernel must also leave every
-             node outside a poisoned sibling branch bit for bit
-             unchanged, and give the chunk kernel's output on a chain.
+             ragged lengths; then the int8 branch of each paged kernel on
+             ``quantize_pool`` of the same pools, against the plain
+             version over the dequantized view: seven rows. CUDA event
+             times (median of 25 after warm-up) of the kernel, the plain
+             version and one PyTorch library call of the same function
+             (for int8, SDPA on the view dequantized beforehand, untimed),
+             and the roofline bound of the work. A planted fault (a
+             shortened length, a dropped or swapped page, causal masks in
+             place of tree masks, and for int8 the V scales shifted one
+             row within each page) must fail the same check. The tree
+             kernel must also leave every node outside a poisoned sibling
+             branch bit for bit unchanged, and give the chunk kernel's
+             output on a chain, in both forms.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions on
@@ -39,17 +44,29 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the chain as far as the decode margins allow, causal masks
              move the logits, and one decode step after the accepted
              path's rows are compacted gives the sequential logits.
+   model_int8 — one int8 pool: flash prefill written quantized, 3 decode
+             steps, a chunk after that history and one tree verify,
+             through the int8 kernels and through the plain versions;
+             logits must agree (the int8-vs-bf16 pool difference is
+             printed, not gated).
 5. serve   — the port's HTTP app (``gofr_tpu_torch.serving.app``) on a
              free port: 4 concurrent greedy ``POST /chat`` requests, an
              1801-token prompt (walked in chunks, not clamped), then 3
              requests that hit the prefix cache; every kernel's launch
              counter, zeroed just before, must rise.
+   serve_int8 — the same three waves through ``serve_config(kv_dtype=
+             "int8")`` at the bf16 pool's byte budget: at least 1.8x its
+             pages in no more bytes, every answer 200, the int8 decode
+             and chunk counters (zeroed just before) must rise and the
+             bf16 ones stay 0; TTFT, decode tokens/s and each answer's
+             common prefix with the bf16 answers are printed.
 6. serve_spec — 4 concurrent greedy ``/chat`` requests with repetitive
-             prompts, 64 new tokens each, through the plain engine and
-             then the speculative one (``serve_config(speculative=True,
-             spec_ngram=2)``); the tree kernel's counter, zeroed just
-             before the speculative run, must rise, and drafts must be
-             made.
+             prompts, 64 new tokens each, through the plain engine, the
+             speculative one (``serve_config(speculative=True,
+             spec_ngram=2)``) and the speculative one on an int8 pool;
+             the tree kernel's counter for the run's pool form, zeroed
+             just before each speculative run, must rise, and drafts
+             must be made.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -221,12 +238,48 @@ def kernel_flash(dev, gen) -> dict:
     return row
 
 
-def kernel_paged(dev, gen) -> dict:
-    import torch
-    import torch.nn.functional as F
-    from gofr_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+def _abs_pool(pool):
+    """|pool| for either form: a quantized pool keeps its (positive)
+    scales and takes |codes|."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"].abs(), "s": pool["s"]}
+    return pool.abs()
+
+
+def _view_bf16(pool, tables):
+    """The gathered slot view in bf16 (an int8 pool dequantized first):
+    what the library yardstick reads, built outside its timed call."""
     from gofr_tpu_torch.ops.paged_kv import slot_view
+    return slot_view(pool, tables).bfloat16()
+
+
+def _shift_v_scales(pool):
+    """The planted scale fault: each page's V scales moved down one row
+    (row r takes row r - 1's scale, row 0 the last row's)."""
+    import torch
+    return {"q": pool["q"], "s": torch.roll(pool["s"], 1, dims=2)}
+
+
+def _kv_bytes(rows: int, hkv: int, d: int, quantized: bool) -> int:
+    """Bytes of the K and V rows a kernel must read: 2 bf16 bytes per
+    element, or 1 per code plus a float32 scale per row."""
+    return 2 * rows * hkv * ((d + 4) if quantized else 2 * d)
+
+
+def _int8_fields(quantized: bool, name: str, replaces: tuple, shape: str):
+    """(row name, replaced TPU kernel or branch, shape note) for one pool
+    form; ``replaces`` holds the kernel's line and its int8 branch's."""
+    if not quantized:
+        return name, replaces[0], shape + " bf16"
+    return (name + "_int8", replaces[1],
+            shape + " int8 {q, s} = quantize_pool of the bf16 pools")
+
+
+def kernel_paged(dev, gen) -> list:
+    """The paged decode kernel, on a bf16 pool and on ``quantize_pool``
+    of the same pool: one row each."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import quantize_pool
     b, hq, hkv, d, pg, n_pages = 8, 32, 8, 64, 64, 256
     lens_l = [0, 1, 63, 64, 65, 1500, 300, 1000]
     mp = -(-max(lens_l) // pg)
@@ -242,6 +295,26 @@ def kernel_paged(dev, gen) -> dict:
     q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
     kp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
+    return [_paged_row(q, kp, vp, tables, lens, pg),
+            _paged_row(q, quantize_pool(kp), quantize_pool(vp), tables, lens,
+                       pg)]
+
+
+def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    quantized = isinstance(kp, dict)
+    b, hq, d = q.shape
+    hkv, mp = (kp["q"] if quantized else kp).shape[0], tables.shape[1]
+    lens_l = lens.tolist()
+    name, replaces, shape = _int8_fields(
+        quantized, "paged_decode_attention",
+        ("gofr_tpu/ops/paged_attention.py:134",
+         "gofr_tpu/ops/paged_attention.py:138"),
+        "B=8 Hq=32 Hkv=8 hd=64 pg=64 Np=256, lengths "
+        "0/1/63/64/65/1500/300/1000, OOB-padded tables,")
     out = paged_decode_attention(q, kp, vp, tables, lens)
     ref = paged_decode_attention_plain(q, kp, vp, tables, lens)
     err, ratios = check(out, ref)
@@ -250,24 +323,36 @@ def kernel_paged(dev, gen) -> dict:
     cut = torch.where(lens > pg, lens - lens % pg, lens)
     fault = paged_decode_attention(q, kp, vp, tables, cut)
     _, fault_ratios = check(fault, ref)
-    emit({"phase": "kernel_check", "name": "paged_decode_attention",
+    faults = {"tail_page": fault_ratios}
+    if quantized:
+        # planted scale fault: V scales shifted one row within each page
+        shifted = paged_decode_attention(q, kp, _shift_v_scales(vp), tables,
+                                         lens)
+        faults["v_scales_shifted"] = check(shifted, ref)[1]
+    emit({"phase": "kernel_check", "name": name,
           "max_abs_err": err, "atol": ATOL, "rtol": RTOL,
           "worst_ratio_per_slot": ratios,
-          "planted_fault_worst_ratio_per_slot": fault_ratios})
+          **{f"planted_fault_{k}_worst_ratio_per_slot": v
+             for k, v in faults.items()}})
     if max(ratios) > 1.0 or out[0].abs().max().item() != 0.0:
-        raise AssertionError(f"paged decode kernel vs plain: worst "
-                             f"err/limit per slot {ratios} > 1, or the "
-                             f"zero-length slot is not exactly zero")
-    if any(r <= 1.0 for a, b, r in zip(lens.tolist(), cut.tolist(),
-                                       fault_ratios) if a != b):
-        raise AssertionError(f"paged decode check passed a planted tail-"
-                             f"page fault: {fault_ratios}")
-    # library yardstick: SDPA on the gathered view, GQA expanded
-    view_k = slot_view(kp, tables).repeat_interleave(hq // hkv, dim=2)
-    view_v = slot_view(vp, tables).repeat_interleave(hq // hkv, dim=2)
+        raise AssertionError(f"{name} kernel vs plain: worst err/limit per "
+                             f"slot {ratios} > 1, or the zero-length slot is "
+                             f"not exactly zero")
+    if any(r <= 1.0 for a, b_, r in zip(lens_l, cut.tolist(), fault_ratios)
+           if a != b_):
+        raise AssertionError(f"{name} check passed a planted tail-page "
+                             f"fault: {fault_ratios}")
+    if quantized and any(r <= 1.0 for n, r in zip(
+            lens_l, faults["v_scales_shifted"]) if n):
+        raise AssertionError(f"{name} check passed a planted V-scale fault: "
+                             f"{faults['v_scales_shifted']}")
+    # library yardstick: SDPA on the gathered view (an int8 pool
+    # dequantized beforehand, untimed), GQA expanded
+    view_k = _view_bf16(kp, tables).repeat_interleave(hq // hkv, dim=2)
+    view_v = _view_bf16(vp, tables).repeat_interleave(hq // hkv, dim=2)
     kt = view_k.transpose(1, 2).contiguous()
     vt = view_v.transpose(1, 2).contiguous()
-    mask = (torch.arange(mp * pg, device=dev)[None, :]
+    mask = (torch.arange(mp * pg, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     ms = time_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens))
@@ -275,30 +360,32 @@ def kernel_paged(dev, gen) -> dict:
         q, kp, vp, tables, lens))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kt, vt, attn_mask=mask))
-    # bytes: K and V rows below each length (2·len·hd·2 per KV head), q,
-    # out, the table entries walked, lengths; flops: 4·hd per row per q head
-    nbytes = (sum(2 * n * hkv * d * 2 for n in lens_l) + 2 * b * hq * d * 2
+    # bytes: K and V rows below each length (bf16: 2·len·hd·2 per KV
+    # head; int8: 2·len·(hd + 4)), q, out, the table entries walked,
+    # lengths; flops: 4·hd per row per q head
+    nbytes = (sum(_kv_bytes(n, hkv, d, quantized) for n in lens_l)
+              + 2 * b * hq * d * 2
               + sum(-(-n // pg) for n in lens_l) * 4 + 4 * b)
     flops = sum(4.0 * n * hq * d for n in lens_l)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": "paged_decode_attention", "route": "cuda",
+    row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_decode.cu",
-           "replaces": "gofr_tpu/ops/paged_attention.py:134",
+           "replaces": replaces,
            "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
-    emit({"phase": "kernel", "shape": "B=8 Hq=32 Hkv=8 hd=64 pg=64 Np=256 "
-          "bf16, lengths 0/1/63/64/65/1500/300/1000, OOB-padded tables",
-          "kernel_ms": ms, **row})
+    if quantized:
+        row["library_note"] = ("SDPA on the gathered view dequantized to "
+                               "bf16 beforehand (dequantization not timed)")
+    emit({"phase": "kernel", "shape": shape, "kernel_ms": ms, **row})
     return row
 
 
-def kernel_chunk(dev, gen) -> dict:
+def kernel_chunk(dev, gen) -> list:
+    """The paged chunk kernel, on a bf16 pool and on ``quantize_pool``
+    of the same pool: one row each."""
     import torch
-    import torch.nn.functional as F
-    from gofr_tpu_torch.ops.paged_attention import (
-        paged_chunk_attention, paged_chunk_attention_plain)
-    from gofr_tpu_torch.ops.paged_kv import slot_view
+    from gofr_tpu_torch.ops.paged_kv import quantize_pool
     # the serve path's shapes: llama3_1b heads, 64-row pages, tables of
     # max_seq 2048 / 64 = 32 pages padded with the OOB id, a 1024-row
     # chunk (the widest bucket); (history, chunk) per slot: a fresh
@@ -326,41 +413,73 @@ def kernel_chunk(dev, gen) -> dict:
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    return [_chunk_row(q, kp, vp, tables, bad, hist, clen, pg),
+            _chunk_row(q, quantize_pool(kp), quantize_pool(vp), tables, bad,
+                       hist, clen, pg)]
+
+
+def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_chunk_attention_plain)
+    quantized = isinstance(kp, dict)
+    b, sq, hq, d = q.shape
+    hkv, mp = (kp["q"] if quantized else kp).shape[0], tables.shape[1]
+    hists, clens = hist.tolist(), clen.tolist()
+    name, replaces, shape = _int8_fields(
+        quantized, "paged_chunk_attention",
+        ("gofr_tpu/ops/paged_attention.py:357",
+         "gofr_tpu/ops/paged_attention.py:362"),
+        "B=4 Sq=1024 Hq=32 Hkv=8 hd=64 pg=64 Np=128 Mp=32, (history, chunk) "
+        "(0, 1024) (1024, 777) (896, 6) (0, 0), OOB-padded tables,")
     args = (q, kp, vp, tables, hist, clen)
     out = paged_chunk_attention(*args)
     ref = paged_chunk_attention_plain(*args)
-    # the kernel rounds P to bf16 as flash does: same per-element limit
+    # the kernel rounds P (times the V row scale, for int8) to bf16 as
+    # flash does: same per-element limit, over the dequantized |V|
     p_term = P_ROUND * paged_chunk_attention_plain(
-        q, kp, vp.abs(), tables, hist, clen).float()
+        q, kp, _abs_pool(vp), tables, hist, clen).float()
     err, ratios = check(out, ref, p_term)
     fault = paged_chunk_attention(q, kp, vp, bad, hist, clen)
-    _, fault_ratios = check(fault, ref, p_term)
-    padding = torch.arange(sq, device=dev)[None, :] >= clen[:, None]
+    faults = {"history_page": check(fault, ref, p_term)[1]}
+    if quantized:
+        shifted = paged_chunk_attention(q, kp, _shift_v_scales(vp), tables,
+                                        hist, clen)
+        faults["v_scales_shifted"] = check(shifted, ref, p_term)[1]
+    padding = torch.arange(sq, device=q.device)[None, :] >= clen[:, None]
     pad_finite = bool(torch.isfinite(out[padding].float()).all().item())
     empty_zero = out[3].abs().max().item() == 0.0
-    emit({"phase": "kernel_check", "name": "paged_chunk_attention",
+    emit({"phase": "kernel_check", "name": name,
           "max_abs_err": err, "atol": ATOL, "rtol": RTOL,
           "p_round": P_ROUND, "worst_ratio_per_slot": ratios,
-          "planted_fault_worst_ratio_per_slot": fault_ratios,
+          **{f"planted_fault_{k}_worst_ratio_per_slot": v
+             for k, v in faults.items()},
           "padding_rows_finite": pad_finite,
           "empty_slot_exact_zeros": empty_zero})
     if max(ratios) > 1.0 or not pad_finite or not empty_zero:
-        raise AssertionError(f"paged chunk kernel vs plain: worst err/limit "
+        raise AssertionError(f"{name} kernel vs plain: worst err/limit "
                              f"per slot {ratios} > 1, padding finite "
                              f"{pad_finite}, empty slot zero {empty_zero}")
-    if any(r <= 1.0 for h, r in zip(hists, fault_ratios) if h):
-        raise AssertionError(f"paged chunk check passed a planted history-"
-                             f"page fault: {fault_ratios}")
-    # library yardstick: SDPA on the gathered view, GQA expanded and the
-    # same visibility as a boolean mask, all built outside the timed call
+    if any(r <= 1.0 for h, r in zip(hists, faults["history_page"]) if h):
+        raise AssertionError(f"{name} check passed a planted history-page "
+                             f"fault: {faults['history_page']}")
+    if quantized and any(r <= 1.0 for c, r in zip(
+            clens, faults["v_scales_shifted"]) if c):
+        raise AssertionError(f"{name} check passed a planted V-scale fault: "
+                             f"{faults['v_scales_shifted']}")
+    # library yardstick: SDPA on the gathered view (an int8 pool
+    # dequantized beforehand), GQA expanded and the same visibility as a
+    # boolean mask, all built outside the timed call
     group = hq // hkv
     qt = q.transpose(1, 2).contiguous()
-    kt = slot_view(kp, tables).repeat_interleave(group, dim=2) \
+    kt = _view_bf16(kp, tables).repeat_interleave(group, dim=2) \
         .transpose(1, 2).contiguous()
-    vt = slot_view(vp, tables).repeat_interleave(group, dim=2) \
+    vt = _view_bf16(vp, tables).repeat_interleave(group, dim=2) \
         .transpose(1, 2).contiguous()
-    pos = torch.arange(mp * pg, device=dev)[None, None, :]
-    q_pos = (hist[:, None] + torch.arange(sq, device=dev)[None, :])[:, :, None]
+    pos = torch.arange(mp * pg, device=q.device)[None, None, :]
+    q_pos = (hist[:, None]
+             + torch.arange(sq, device=q.device)[None, :])[:, :, None]
     mask = ((pos <= q_pos) & (pos < (hist + clen)[:, None, None]))[:, None]
     ms = time_ms(lambda: paged_chunk_attention(*args))
     plain_ms = time_ms(lambda: paged_chunk_attention_plain(*args))
@@ -375,18 +494,19 @@ def kernel_chunk(dev, gen) -> dict:
     flops = 4.0 * d * hq * visible
     kv_rows = [min(h + c, mp * pg) for h, c in zip(hists, clens)]
     nbytes = (sum(clens) * hq * d * 2 + b * sq * hq * d * 2
-              + 2 * sum(kv_rows) * hkv * d * 2
+              + sum(_kv_bytes(n, hkv, d, quantized) for n in kv_rows)
               + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": "paged_chunk_attention", "route": "cuda",
+    row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
-           "replaces": "gofr_tpu/ops/paged_attention.py:357",
+           "replaces": replaces,
            "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
-    emit({"phase": "kernel", "shape": "B=4 Sq=1024 Hq=32 Hkv=8 hd=64 pg=64 "
-          "Np=128 Mp=32 bf16, (history, chunk) (0, 1024) (1024, 777) "
-          "(896, 6) (0, 0), OOB-padded tables", "kernel_ms": ms, **row})
+    if quantized:
+        row["library_note"] = ("SDPA on the gathered view dequantized to "
+                               "bf16 beforehand (dequantization not timed)")
+    emit({"phase": "kernel", "shape": shape, "kernel_ms": ms, **row})
     return row
 
 
@@ -426,13 +546,11 @@ def _poison_fork(tree, clen):
     return forks[-1] if forks else None
 
 
-def kernel_tree(dev, gen) -> dict:
+def kernel_tree(dev, gen) -> list:
+    """The paged tree kernel, on a bf16 pool and on ``quantize_pool`` of
+    the same pool: one row each."""
     import torch
-    import torch.nn.functional as F
-    from gofr_tpu_torch.ops.paged_attention import (
-        paged_chunk_attention, paged_tree_attention,
-        paged_tree_attention_plain)
-    from gofr_tpu_torch.ops.paged_kv import slot_view
+    from gofr_tpu_torch.ops.paged_kv import quantize_pool
     # the verify pass's shapes: 8 slots, width 16 (the pow-2 bucket of a
     # 1 + 4 x 2 tree), llama3_1b heads, 64-row pages, tables of 32 pages
     w, hq, hkv, d, pg, n_pages, mp = 16, 32, 8, 64, 64, 256, 32
@@ -461,15 +579,59 @@ def kernel_tree(dev, gen) -> dict:
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    case = (tables, hist, clen, masks, causal, slots, pg)
+    return [_tree_row(q, kp, vp, *case),
+            _tree_row(q, quantize_pool(kp), quantize_pool(vp), *case)]
+
+
+def _poisoned(pool, rows, value: float):
+    """A copy of ``pool`` whose (page, offset) ``rows`` hold ``value`` in
+    every element (an int8 pool: codes ±127 at scale |value| / 127)."""
+    import torch
+    if isinstance(pool, dict):
+        out = {k: t.clone() for k, t in pool.items()}
+        for pid, off in rows:
+            out["q"][:, pid, off] = 127 if value > 0 else -127
+            out["s"][:, pid, off] = abs(value) / 127.0
+        return out
+    out = pool.clone()
+    for pid, off in rows:
+        out[:, pid, off] = torch.tensor(value, dtype=out.dtype)
+    return out
+
+
+def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
+              pg) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_tree_attention,
+        paged_tree_attention_plain)
+    quantized = isinstance(kp, dict)
+    b, w, hq, d = q.shape
+    hkv, mp = (kp["q"] if quantized else kp).shape[0], tables.shape[1]
+    hists, clens = hist.tolist(), clen.tolist()
+    name, replaces, shape = _int8_fields(
+        quantized, "paged_tree_attention",
+        ("gofr_tpu/ops/paged_attention.py:614",
+         "gofr_tpu/ops/paged_attention.py:619"),
+        "B=8 W=16 Hq=32 Hkv=8 hd=64 pg=64 Np=256 Mp=32, histories "
+        f"0/1/63/64/65/1500/300/1000, chunks {clens}, OOB-padded tables,")
     args = (q, kp, vp, tables, hist, clen)
     out = paged_tree_attention(*args, masks)
     ref = paged_tree_attention_plain(*args, masks)
-    # the kernel rounds P to bf16 as the chunk kernel does: same limit
+    # the kernel rounds P (times the V row scale, for int8) to bf16 as
+    # the chunk kernel does: same limit, over the dequantized |V|
     p_term = P_ROUND * paged_tree_attention_plain(
-        q, kp, vp.abs(), tables, hist, clen, masks).float()
+        q, kp, _abs_pool(vp), tables, hist, clen, masks).float()
     err, ratios = check(out, ref, p_term)
     fault = paged_tree_attention(*args, causal)
-    _, fault_ratios = check(fault, ref, p_term)
+    fault_ratios = check(fault, ref, p_term)[1]
+    shifted_ratios = None
+    if quantized:
+        shifted = paged_tree_attention(q, kp, _shift_v_scales(vp), tables,
+                                       hist, clen, masks)
+        shifted_ratios = check(shifted, ref, p_term)[1]
     branching = [i for i, (_, t, c) in enumerate(slots)
                  if t is not None and _poison_fork(t, c) is not None]
     empty_zero = out[0].abs().max().item() == 0.0
@@ -484,7 +646,7 @@ def kernel_tree(dev, gen) -> dict:
     # invariance: poison each branching slot's last sibling branch (its
     # K and V rows) with large finite values; every node that does not
     # descend from it must come back bit for bit the same
-    kp2, vp2 = kp.clone(), vp.clone()
+    poison_rows = []
     keep_rows = {}
     tab = tables.cpu()
     for i in branching:
@@ -493,19 +655,21 @@ def kernel_tree(dev, gen) -> dict:
         for j in range(c):
             pos = hists[i] + j
             if (tree.masks[j] >> fork) & 1:
-                pid = int(tab[i, pos // pg])
-                kp2[:, pid, pos % pg] = 3e4
-                vp2[:, pid, pos % pg] = -3e4
+                poison_rows.append((int(tab[i, pos // pg]), pos % pg))
         keep_rows[i] = [j for j in range(c) if not (tree.masks[j] >> fork) & 1]
-    poisoned = paged_tree_attention(q, kp2, vp2, tables, hist, clen, masks)
+    poisoned = paged_tree_attention(q, _poisoned(kp, poison_rows, 3e4),
+                                    _poisoned(vp, poison_rows, -3e4), tables,
+                                    hist, clen, masks)
     unchanged = {i: bool(torch.equal(poisoned[i, rows], out[i, rows]))
                  for i, rows in keep_rows.items()}
     poison_finite = bool(torch.isfinite(poisoned.float()).all().item())
-    emit({"phase": "kernel_check", "name": "paged_tree_attention",
+    emit({"phase": "kernel_check", "name": name,
           "max_abs_err": err, "atol": ATOL, "rtol": RTOL,
           "p_round": P_ROUND, "worst_ratio_per_slot": ratios,
           "planted_fault": "causal chunk masks in place of the tree masks",
           "planted_fault_worst_ratio_per_slot": fault_ratios,
+          **({"planted_fault_v_scales_shifted_worst_ratio_per_slot":
+              shifted_ratios} if quantized else {}),
           "branching_slots": branching,
           "empty_slot_exact_zeros": empty_zero,
           "chain_slot_vs_chunk_kernel_worst_ratio": chain_ratios[0],
@@ -514,24 +678,29 @@ def kernel_tree(dev, gen) -> dict:
           "sibling_poison_non_descendants_bitwise_unchanged": unchanged,
           "sibling_poison_output_finite": poison_finite})
     if max(ratios) > 1.0 or not empty_zero or chain_ratios[0] > 1.0:
-        raise AssertionError(f"paged tree kernel vs plain: worst err/limit "
+        raise AssertionError(f"{name} kernel vs plain: worst err/limit "
                              f"per slot {ratios} > 1, chain vs chunk kernel "
                              f"{chain_ratios}, empty slot zero {empty_zero}")
     if any(fault_ratios[i] <= 1.0 for i in branching):
-        raise AssertionError(f"paged tree check passed a planted causal-"
-                             f"mask fault: {fault_ratios}")
+        raise AssertionError(f"{name} check passed a planted causal-mask "
+                             f"fault: {fault_ratios}")
+    if quantized and any(r <= 1.0 for c, r in zip(clens, shifted_ratios)
+                         if c):
+        raise AssertionError(f"{name} check passed a planted V-scale fault: "
+                             f"{shifted_ratios}")
     if not all(unchanged.values()) or not poison_finite:
-        raise AssertionError(f"paged tree kernel: poisoning a sibling branch "
-                             f"moved other nodes: {unchanged}")
-    # library yardstick: SDPA on the gathered view, GQA expanded, the
-    # tree visibility as a boolean mask, all built outside the timed call
+        raise AssertionError(f"{name}: poisoning a sibling branch moved "
+                             f"other nodes: {unchanged}")
+    # library yardstick: SDPA on the gathered view (an int8 pool
+    # dequantized beforehand), GQA expanded, the tree visibility as a
+    # boolean mask, all built outside the timed call
     group = hq // hkv
     qt = q.transpose(1, 2).contiguous()
-    kt = slot_view(kp, tables).repeat_interleave(group, dim=2) \
+    kt = _view_bf16(kp, tables).repeat_interleave(group, dim=2) \
         .transpose(1, 2).contiguous()
-    vt = slot_view(vp, tables).repeat_interleave(group, dim=2) \
+    vt = _view_bf16(vp, tables).repeat_interleave(group, dim=2) \
         .transpose(1, 2).contiguous()
-    pos = torch.arange(mp * pg, device=dev)[None, None, :]
+    pos = torch.arange(mp * pg, device=q.device)[None, None, :]
     rel = pos - hist[:, None, None]
     bit = (masks[:, :, None] >> rel.clamp(0, 31)) & 1
     mask = ((rel < 0) | ((rel < clen[:, None, None]) & (bit == 1)))[:, None]
@@ -551,19 +720,20 @@ def kernel_tree(dev, gen) -> dict:
     flops = 4.0 * d * hq * visible
     kv_rows = [h + c for h, c in zip(hists, clens)]
     nbytes = (sum(clens) * hq * d * 2 + b * w * hq * d * 2
-              + 2 * sum(kv_rows) * hkv * d * 2
+              + sum(_kv_bytes(n, hkv, d, quantized) for n in kv_rows)
               + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b
               + sum(clens) * 4)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": "paged_tree_attention", "route": "cuda",
+    row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
-           "replaces": "gofr_tpu/ops/paged_attention.py:614",
+           "replaces": replaces,
            "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
-    emit({"phase": "kernel", "shape": "B=8 W=16 Hq=32 Hkv=8 hd=64 pg=64 "
-          "Np=256 Mp=32 bf16, histories 0/1/63/64/65/1500/300/1000, "
-          f"chunks {clens}, OOB-padded tables", "kernel_ms": ms, **row})
+    if quantized:
+        row["library_note"] = ("SDPA on the gathered view dequantized to "
+                               "bf16 beforehand (dequantization not timed)")
+    emit({"phase": "kernel", "shape": shape, "kernel_ms": ms, **row})
     return row
 
 
@@ -909,6 +1079,125 @@ def phase_model_spec(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_model_int8(dev) -> None:
+    """llama3_1b on one int8 pool, kernels vs plain, at full width.
+
+    Two prompts (256 and 100 tokens) through flash prefill, whose K/V
+    the pool stores quantized (``scatter_chunk``); 3 decode steps; a
+    32-token chunk after that history; and one verify of a 9-node draft
+    tree (root + two 4-token branches) after the chunk, in the 16-wide
+    bucket. Each call runs through the kernels (their int8 branches) and
+    through the plain versions, each path on its own pool; both decode
+    the kernel path's greedy tokens. Logits must agree within LOGITS_TOL
+    (``phase_model``'s reasoning: the two paths read the same codes and
+    scales and differ in the kernels' bf16 rounding of P and the order
+    of sums). The same calls through the kernels on a bf16 pool give the
+    int8-vs-bf16 pool difference, recorded and not gated: it is the
+    quantization's, not a kernel's.
+    """
+    import torch
+    from gofr_tpu_torch.models.llama import (LlamaConfig,
+                                             llama_decode_step_paged,
+                                             llama_init,
+                                             llama_prefill_chunk_paged,
+                                             llama_prefill_last, make_pool)
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention,
+                                                    paged_tree_attention)
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk
+    from gofr_tpu_torch.serving.spec import build_draft_tree
+
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    t0 = time.perf_counter()
+    p, s, pg, c, w = 2, 256, 64, 32, 16
+    tokens = torch.randint(0, cfg.vocab_size, (p, s), generator=gen,
+                           device=dev)
+    chunk_tokens = torch.randint(0, cfg.vocab_size, (p, c), generator=gen,
+                                 device=dev)
+    lens = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+    mp = -(-(s + 3 + c + w) // pg)
+    tables = torch.arange(p * mp, dtype=torch.int32,
+                          device=dev).reshape(p, mp)
+    draft = torch.randint(0, cfg.vocab_size, (8,), generator=gen,
+                          device=dev).tolist()
+    tree = build_draft_tree(7, [draft[:4], draft[4:]])
+
+    def padded(values, fill, dtype=torch.int64):
+        out = torch.full((p, w), fill, dtype=dtype)
+        out[:, :len(values)] = torch.tensor(values, dtype=dtype)
+        return out.to(dev)
+
+    tree_tokens, depths = padded(tree.tokens, 0), padded(tree.depths, 0)
+    masks = padded(tree.masks, 1, torch.int32)
+    kernels = (paged_decode_attention, paged_chunk_attention,
+               paged_tree_attention)
+    before = {f.__name__: (f.launches, f.launches_int8) for f in kernels}
+    results: dict = {}
+    step_tokens: list = []
+    for run in ("auto", "plain", "bf16_pool"):
+        impl = "plain" if run == "plain" else "auto"
+        logits, (k, v) = llama_prefill_last(params, tokens, cfg,
+                                            kv_lengths=lens,
+                                            implementation=impl)
+        kp, vp = make_pool(cfg, p * mp, pg, dev,
+                           "bf16" if run == "bf16_pool" else "int8")
+        zeros = torch.zeros_like(lens)
+        scatter_chunk(kp, tables, k, zeros, lens)
+        scatter_chunk(vp, tables, v, zeros, lens)
+        results[run] = {"prefill": logits}
+        cur = lens.clone()
+        for step in range(3):
+            if run == "auto":
+                step_tokens.append(logits.argmax(-1))
+            logits, kp, vp = llama_decode_step_paged(
+                params, step_tokens[step], kp, vp, tables, cur, cfg,
+                implementation=impl)
+            results[run][f"decode_{step}"] = logits
+            cur = cur + 1
+        logits, kp, vp = llama_prefill_chunk_paged(
+            params, chunk_tokens, kp, vp, tables, cur,
+            torch.full_like(cur, c), cfg, implementation=impl)
+        results[run]["chunk"] = logits
+        cur = cur + c
+        logits, kp, vp = llama_prefill_chunk_paged(
+            params, tree_tokens, kp, vp, tables, cur,
+            torch.full_like(cur, tree.n_nodes), cfg, implementation=impl,
+            return_all_logits=True, tree_depths=depths, tree_masks=masks)
+        results[run]["tree"] = logits[:, :tree.n_nodes]
+    torch.cuda.synchronize()
+    launched = {f.__name__: [f.launches - before[f.__name__][0],
+                             f.launches_int8 - before[f.__name__][1]]
+                for f in kernels}
+
+    def diffs(run):
+        return {key: (results[run][key] - results["plain"][key]).abs().max()
+                .item() for key in results["plain"]}
+
+    errs, pool_diff = diffs("auto"), diffs("bf16_pool")
+    finite = all(torch.isfinite(t).all().item()
+                 for r in results.values() for t in r.values())
+    emit({"phase": "model_int8", "config": "llama3_1b bf16 weights random "
+          "seed 0, int8 KV pool", "prefill": "P=2 S=256 kv_lengths 256/100",
+          "then": "3 decode steps, a 32-token chunk, a 9-node tree verify",
+          "kernel_vs_plain_max_abs_logits_diff": errs,
+          "int8_vs_bf16_pool_max_abs_logits_diff_not_gated": pool_diff,
+          "launches_bf16_int8_per_kernel": launched,
+          "tolerance": LOGITS_TOL, "finite": finite,
+          "seconds": time.perf_counter() - t0})
+    if not finite or max(errs.values()) > LOGITS_TOL:
+        raise AssertionError(f"model_int8 kernels vs plain: logits diff "
+                             f"{errs} (tolerance {LOGITS_TOL}), "
+                             f"finite={finite}")
+    if any(n_int8 < 1 for _, n_int8 in launched.values()):
+        raise AssertionError(f"model_int8: an int8 kernel never launched: "
+                             f"{launched}")
+    del params, results
+    torch.cuda.empty_cache()
+
+
 def _post(url: str, body: dict) -> tuple[int, dict]:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -916,10 +1205,21 @@ def _post(url: str, body: dict) -> tuple[int, dict]:
         return resp.status, json.loads(resp.read())
 
 
-def phase_serve(dev, smi_line: str) -> dict:
+def _pool_bytes(engine) -> int:
+    """Device bytes of an engine's K and V pools, every leaf."""
+    leaves = []
+    for pool in (engine.k_cache, engine.v_cache):
+        leaves += list(pool.values()) if isinstance(pool, dict) else [pool]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     """The port's app on a free port, serving ``app.serve_config`` (8
     slots, max_seq 2048, 64-row pages, buckets to 1024, prefix cache
-    on). Three waves of greedy ``POST /chat``, 32 new tokens each:
+    on); with ``bf16`` (the bf16 run's result) the same through
+    ``serve_config(kv_dtype="int8")``, the ``serve_int8`` cell, at the
+    default budget: the bf16 pool's bytes. Three waves of greedy ``POST
+    /chat``, 32 new tokens each:
 
     1. the four concurrent prompts of 21 / 151 / 401 / 901 tokens (flash
        group prefill, then paged decode);
@@ -929,18 +1229,33 @@ def phase_serve(dev, smi_line: str) -> dict:
        wave-1 prompt or the long one (896, 384 and 1792 cached rows):
        prefix-cache hits that walk only their suffix.
 
-    Every kernel's launch counter is zeroed before wave 1 and read after
-    wave 3; each must have risen."""
+    The launch counters of the run's kernels (flash, and paged decode
+    and chunk for the pool's form) are zeroed before wave 1 and read
+    after wave 3; each must have risen, and the paged counters of the
+    other form must not have. The int8 run also needs at least 1.8x the
+    bf16 pool's pages in no more bytes, and records each answer's common
+    prefix with the bf16 run's (not gated: a random model has near-ties,
+    and the int8 pool moves the logits by more than their gaps)."""
     import torch
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention)
-    from gofr_tpu_torch.serving.app import build_engine, build_server
-    kernels = {"flash_attention": flash_attention,
-               "paged_decode_attention": paged_decode_attention,
-               "paged_chunk_attention": paged_chunk_attention}
-    engine = build_engine(LlamaConfig.llama3_1b(), device=dev, seed=0)
+    from gofr_tpu_torch.serving.app import (build_engine, build_server,
+                                            serve_config)
+    kv_dtype = "bf16" if bf16 is None else "int8"
+    phase = "serve" if bf16 is None else "serve_int8"
+    suffix, other = ("", "_int8") if bf16 is None else ("_int8", "")
+    # the run's kernels, and the paged ones of the other pool form
+    own = {"flash_attention": (flash_attention, "launches")}
+    others = {}
+    for fn in (paged_decode_attention, paged_chunk_attention):
+        own[fn.__name__ + suffix] = (fn, "launches" + suffix)
+        others[fn.__name__ + other] = (fn, "launches" + other)
+    cfg = LlamaConfig.llama3_1b()
+    engine = build_engine(cfg, device=dev, seed=0,
+                          engine_config=serve_config(cfg, kv_dtype=kv_dtype))
+    pages, pool_bytes = engine._n_pages, _pool_bytes(engine)
     server = build_server(engine, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     engine.start()
@@ -965,8 +1280,8 @@ def phase_serve(dev, smi_line: str) -> dict:
                              "temperature": 0})
 
     try:
-        for fn in kernels.values():
-            fn.launches = 0
+        for fn, attr in (*own.values(), *others.values()):
+            setattr(fn, attr, 0)
         for wave in waves:
             got: list = [None] * len(wave)
             t0 = time.perf_counter()
@@ -978,7 +1293,9 @@ def phase_serve(dev, smi_line: str) -> dict:
                 w.join(timeout=600)
             walls.append(time.perf_counter() - t0)
             answers += got
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in own.items()}
+        other_launches = {name: getattr(fn, attr)
+                          for name, (fn, attr) in others.items()}
         stats = dict(engine.stats)
     finally:
         server.shutdown()
@@ -986,36 +1303,54 @@ def phase_serve(dev, smi_line: str) -> dict:
         engine.stop()
         thread.join(timeout=30)
     if any(a is None or a[0] != 200 for a in answers):
-        raise AssertionError(f"serve: not every answer was 200: {answers}")
+        raise AssertionError(f"{phase}: not every answer was 200: {answers}")
     usage = [a[1]["data"]["usage"] for a in answers]
-    n_tokens = [len(a[1]["data"]["tokens"]) for a in answers]
+    tokens = [a[1]["data"]["tokens"] for a in answers]
+    n_tokens = [len(t) for t in tokens]
     if n_tokens != [32] * len(answers):
-        raise AssertionError(f"serve: token counts {n_tokens} != 32 each")
+        raise AssertionError(f"{phase}: token counts {n_tokens} != 32 each")
     if usage[4]["prompt_tokens"] != len(long_prompt) + 1:
-        raise AssertionError(f"serve: the long prompt was cut to "
+        raise AssertionError(f"{phase}: the long prompt was cut to "
                              f"{usage[4]['prompt_tokens']} tokens")
     if stats["prefix_hits"] < len(waves[2]):
-        raise AssertionError(f"serve: {stats['prefix_hits']} prefix hits for "
-                             f"{len(waves[2])} sharing requests")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"serve: a kernel never launched: {launches}")
+        raise AssertionError(f"{phase}: {stats['prefix_hits']} prefix hits "
+                             f"for {len(waves[2])} sharing requests")
+    if min(launches.values()) < 1 or any(other_launches.values()):
+        raise AssertionError(f"{phase}: a kernel of the {kv_dtype} pool "
+                             f"never launched ({launches}), or one of the "
+                             f"other form did ({other_launches})")
     ttft = [u["ttft_ms"] for u in usage]
-    emit({"phase": "serve", "card": smi_line, "requests": len(answers),
-          "waves": [len(w) for w in waves], "wall_s_per_wave": walls,
-          "prompt_tokens": [u["prompt_tokens"] for u in usage],
-          "completion_tokens": n_tokens, "ttft_ms": ttft,
-          "prefix_hit_ttft_ms_vs_twin": [[ttft[5 + i], ttft[t]]
-                                         for i, t in enumerate(twins)],
-          "prefix_hits": stats["prefix_hits"],
-          "prefix_evictions": stats["prefix_evictions"],
-          "decode_tokens": stats["decode_tokens"],
-          "decode_s": stats["decode_s"],
-          "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
-          "prefill_calls": stats["prefill_calls"],
-          "prefill_s": stats["prefill_s"], "launches": launches})
+    out = {"phase": phase, "card": smi_line, "kv_dtype": kv_dtype,
+           "pool_pages": pages, "pool_bytes": pool_bytes,
+           "requests": len(answers),
+           "waves": [len(w) for w in waves], "wall_s_per_wave": walls,
+           "prompt_tokens": [u["prompt_tokens"] for u in usage],
+           "completion_tokens": n_tokens, "ttft_ms": ttft,
+           "prefix_hit_ttft_ms_vs_twin": [[ttft[5 + i], ttft[t]]
+                                          for i, t in enumerate(twins)],
+           "prefix_hits": stats["prefix_hits"],
+           "prefix_evictions": stats["prefix_evictions"],
+           "decode_tokens": stats["decode_tokens"],
+           "decode_s": stats["decode_s"],
+           "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+           "prefill_calls": stats["prefill_calls"],
+           "prefill_s": stats["prefill_s"], "launches": launches,
+           "launches_of_the_other_pool_form": other_launches}
+    if bf16 is not None:
+        out["pages_vs_bf16_pool"] = pages / bf16["pool_pages"]
+        out["bytes_vs_bf16_pool"] = pool_bytes / bf16["pool_bytes"]
+        out["common_prefix_with_bf16_answers"] = [
+            _common_prefix(a, b) for a, b in zip(tokens, bf16["tokens"])]
+    emit(out)
+    if bf16 is not None and (pages < 1.8 * bf16["pool_pages"]
+                             or pool_bytes > bf16["pool_bytes"]):
+        raise AssertionError(f"serve_int8: {pages} pages in {pool_bytes} "
+                             f"bytes against the bf16 pool's "
+                             f"{bf16['pool_pages']} in {bf16['pool_bytes']}")
     del engine
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "tokens": tokens, "pool_pages": pages,
+            "pool_bytes": pool_bytes}
 
 
 def _common_prefix(a: list, b: list) -> int:
@@ -1027,18 +1362,20 @@ def _common_prefix(a: list, b: list) -> int:
     return n
 
 
-def phase_serve_spec(dev, smi_line: str) -> int:
+def phase_serve_spec(dev, smi_line: str) -> dict:
     """4 concurrent greedy ``POST /chat`` requests, 64 new tokens each,
     whose prompts repeat a short cycle of bytes (as ``bench.py``'s
     speculative scenario repeats a token cycle), through the plain
-    engine ``app.serve_config`` gives and then through the speculative
-    one (``speculative=True, spec_ngram=2``, the other spec knobs at the
-    JAX engine's defaults: draft 4, branches 2, adaptive), same weights.
-    The tree kernel's launch counter is zeroed just before the
-    speculative run and read just after; it must rise, and drafts must
-    be made. Token agreement with the plain engine is printed, not
-    required: a bf16 near-tie between the verify and decode kernels can
-    flip an argmax (``model_spec`` prints the margins)."""
+    engine ``app.serve_config`` gives, then through the speculative one
+    (``speculative=True, spec_ngram=2``, the other spec knobs at the JAX
+    engine's defaults: draft 4, branches 2, adaptive), then through the
+    speculative one on an int8 pool (``kv_dtype="int8"``), same weights.
+    The tree kernel's launch counter for the run's pool form is zeroed
+    just before each run and read just after; in both speculative runs
+    it must rise, and drafts must be made. Token agreement with the
+    plain engine is printed, not required: a bf16 near-tie between the
+    verify and decode kernels can flip an argmax (``model_spec`` prints
+    the margins)."""
     import torch
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.paged_attention import paged_tree_attention
@@ -1050,9 +1387,10 @@ def phase_serve_spec(dev, smi_line: str) -> int:
               "prompt; "]
     prompts = [(c * 40)[:300] for c in cycles]
     runs = {}
-    for name, overrides in (("plain", {}),
-                            ("spec", {"speculative": True,
-                                      "spec_ngram": 2})):
+    spec = {"speculative": True, "spec_ngram": 2}
+    for name, overrides in (("plain", {}), ("spec", spec),
+                            ("spec_int8", {**spec, "kv_dtype": "int8"})):
+        counter = "launches_int8" if name == "spec_int8" else "launches"
         engine = build_engine(cfg, device=dev, seed=0,
                               engine_config=serve_config(cfg, **overrides))
         server = build_server(engine, port=0)
@@ -1067,7 +1405,7 @@ def phase_serve_spec(dev, smi_line: str) -> int:
                                  "temperature": 0})
 
         try:
-            paged_tree_attention.launches = 0
+            setattr(paged_tree_attention, counter, 0)
             t0 = time.perf_counter()
             workers = [threading.Thread(target=ask, args=(i,))
                        for i in range(len(prompts))]
@@ -1076,7 +1414,7 @@ def phase_serve_spec(dev, smi_line: str) -> int:
             for wk in workers:
                 wk.join(timeout=600)
             wall = time.perf_counter() - t0
-            launches = paged_tree_attention.launches
+            launches = getattr(paged_tree_attention, counter)
             stats = dict(engine.stats)
         finally:
             server.shutdown()
@@ -1109,22 +1447,26 @@ def phase_serve_spec(dev, smi_line: str) -> int:
             "tokens": tokens}
         del engine
         torch.cuda.empty_cache()
-    plain, spec = runs["plain"], runs["spec"]
-    agree = [_common_prefix(a, b)
-             for a, b in zip(spec["tokens"], plain["tokens"])]
+    plain = runs["plain"]
     emit({"phase": "serve_spec", "card": smi_line,
           "config": "app.serve_config + speculative=True spec_ngram=2 "
-          "(draft 4, branches 2, adaptive)",
+          "(draft 4, branches 2, adaptive); spec_int8: + kv_dtype=int8",
           "prompts": "4 x 300 bytes, each a short cycle repeated",
-          "common_prefix_with_plain": agree,
+          **{f"{name}_common_prefix_with_plain": [
+              _common_prefix(a, b)
+              for a, b in zip(runs[name]["tokens"], plain["tokens"])]
+             for name in ("spec", "spec_int8")},
           **{f"{name}_{key}": val for name, run in runs.items()
              for key, val in run.items() if key != "tokens"}})
-    if spec["tree_launches"] < 1 or spec["spec_drafted"] < 1:
-        raise AssertionError(f"serve_spec: tree kernel launches "
-                             f"{spec['tree_launches']}, drafted "
-                             f"{spec['spec_drafted']}: the speculative path "
-                             f"did not run")
-    return spec["tree_launches"]
+    for name in ("spec", "spec_int8"):
+        if runs[name]["tree_launches"] < 1 or runs[name]["spec_drafted"] < 1:
+            raise AssertionError(
+                f"serve_spec {name}: tree kernel launches "
+                f"{runs[name]['tree_launches']}, drafted "
+                f"{runs[name]['spec_drafted']}: the speculative path did "
+                f"not run")
+    return {"paged_tree_attention": runs["spec"]["tree_launches"],
+            "paged_tree_attention_int8": runs["spec_int8"]["tree_launches"]}
 
 
 def main() -> int:
@@ -1141,13 +1483,19 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows = [kernel_flash(dev, gen), kernel_paged(dev, gen),
-            kernel_chunk(dev, gen), kernel_tree(dev, gen)]
+    # each paged kernel's check gives its bf16 row, then its int8 row
+    paged = [kernel_paged(dev, gen), kernel_chunk(dev, gen),
+             kernel_tree(dev, gen)]
+    rows = [kernel_flash(dev, gen)] + [r[0] for r in paged] \
+        + [r[1] for r in paged]
     phase_model(dev)
     phase_model_chunk(dev)
     phase_model_spec(dev)
-    launches = phase_serve(dev, smi_line)
-    launches["paged_tree_attention"] = phase_serve_spec(dev, smi_line)
+    phase_model_int8(dev)
+    serve = phase_serve(dev, smi_line)
+    serve_int8 = phase_serve(dev, smi_line, bf16=serve)
+    launches = {**serve_int8["launches"], **serve["launches"],
+                **phase_serve_spec(dev, smi_line)}
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

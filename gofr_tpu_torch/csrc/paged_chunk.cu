@@ -1,10 +1,13 @@
-// Paged chunk and draft-tree verify attention for Hopper (sm_90a), bf16 pool.
+// Paged chunk and draft-tree verify attention for Hopper (sm_90a), bf16
+// and int8 pools.
 //
 // Replaces the Pallas TPU kernels gofr_tpu/ops/paged_attention.py
 // `_paged_chunk_kernel` (wrapper `paged_chunk_attention_pallas`) and
-// `_paged_tree_kernel` (wrapper `paged_tree_attention_pallas`), bf16 pool
-// only (the int8 {q, s} pool is later work). The two are one kernel body
-// templated on its visibility rule, with one C entry point each:
+// `_paged_tree_kernel` (wrapper `paged_tree_attention_pallas`), both
+// branches of each: a bf16 pool, and the quantized {q: int8, s: f32
+// [.., 1]} pool (`quantized=True`, C entries gofr_paged_chunk_i8 and
+// gofr_paged_tree_i8). The two are one kernel body templated on its
+// visibility rule (and on the pool's form), with one C entry point each:
 //
 // chunk (gofr_paged_chunk): slot b holds history[b] rows in the pool and
 // has just written chunk[b] new rows after them; chunk row i (absolute
@@ -64,6 +67,28 @@
 // L2, not HBM. A tree verify at Sq <= 64 / group is one q tile, so it
 // launches only B x Hkv blocks, which under-fills the 132 SMs at small
 // batch.
+//
+// The int8 pool. A row stands for codes * scale, one float32 scale per
+// row, and the function is the TPU kernel's: k = codes * s_k and v =
+// codes * s_v in float32, then both products. Its bound is the same
+// kind, with hd + 4 bytes per row per side instead of 2 * hd (about
+// 0.53x the bytes at hd 64), so the short suffixes and tree verifies
+// that HBM bounds move about half the bytes. The design keeps the bf16
+// tensor-core path and folds the scales out of both products instead
+// of dequantizing into bf16, which would round every c * s to 8 bits of
+// mantissa (an error neither the float32 plain version nor the TPU
+// kernel has):
+//   - |code| <= 127 < 2^8, so a code converts to bf16 exactly; a tile's
+//     codes (one 16-byte load = 16 codes) go into the same `ks` / `vt`
+//     shared tiles as bf16 K and V, and mma.sync runs unchanged;
+//   - S[i, j] = s_k[j] * sum_d q[i, d] c_k[j, d]: each S column is
+//     multiplied by scale * s_k[pos] where the bf16 kernel multiplies
+//     by scale; P V packs p * s_v[pos] into the A fragment, while l
+//     sums the unscaled p;
+//   - each tile's 64 K and 64 V scales are staged in shared memory from
+//     the same clamped page id and offset as the codes; positions past
+//     the walk limit get codes 0 and scale 0, so a masked position adds
+//     0 * 0 and never 0 * a garbage scale (0 * inf = NaN).
 // Not yet: cp.async / TMA double buffering of the next K/V tile, wgmma,
 // splitting long histories across blocks (split-KV, what a tree verify
 // at small batch needs most) — the later work toward the bound.
@@ -71,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -92,6 +119,12 @@ struct RowView {
                   // of this node or the node itself
 };
 
+// Code e (0..15) of a 16-byte load of int8 codes, as a float (exact).
+__device__ __forceinline__ float code(const uint4& w, int e) {
+  const uint32_t word = e < 4 ? w.x : e < 8 ? w.y : e < 12 ? w.z : w.w;
+  return static_cast<float>(static_cast<int8_t>(word >> (8 * (e & 3))));
+}
+
 // Position `pos` of the slot is visible to the row. Chunk: its history
 // and the chunk's causal prefix up to and including itself. Tree: its
 // history and its ancestors (rel < chunk follows from pos < kv_end,
@@ -105,11 +138,15 @@ __device__ __forceinline__ bool visible(const RowView& r, int pos) {
   return pos <= r.q_pos && pos < r.kv_end;
 }
 
-template <int D, bool TREE>
+// Q8: the pages are int8 codes with a float32 scale per row
+// (k_scales / v_scales [Hkv, Np, page, 1]); else bf16, scales unused.
+template <int D, bool TREE, bool Q8>
 __global__ void __launch_bounds__(NTHREADS)
 paged_chunk(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k_pool,
-            const __nv_bfloat16* __restrict__ v_pool,
+            const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ k_pool,
+            const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ v_pool,
+            const float* __restrict__ k_scales,
+            const float* __restrict__ v_scales,
             const int* __restrict__ tables,
             const int* __restrict__ history,
             const int* __restrict__ chunk,
@@ -117,15 +154,20 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
             __nv_bfloat16* __restrict__ out,
             int Sq, int Hq, int Hkv, int n_pages, int page, int max_pages,
             float scale) {
+  using T = std::conditional_t<Q8, int8_t, __nv_bfloat16>;
   constexpr int KP = D + 8;    // padded row stride of the Q/K tile
   constexpr int VP = BK + 8;   // padded row stride of the transposed V tile
-  constexpr int CPR = D / 8;   // 16-byte chunks per row
+  constexpr int CPR = D / 8;   // 16-byte chunks per bf16 row
+  constexpr int EPL = 16 / sizeof(T);          // pool elements per 16-byte load
+  constexpr int LPR = D / EPL;                 // 16-byte loads per pool row
   constexpr int KC = D / 16;   // k-steps of Q K^T
   constexpr int NS = BK / 8;   // n-tiles of S
   constexpr int NO = D / 8;    // n-tiles of O
   static_assert(ROWS == BK, "the Q tile is staged through the K buffer");
   __shared__ __align__(16) __nv_bfloat16 ks[BK * KP];
   __shared__ __align__(16) __nv_bfloat16 vt[D * VP];
+  // Q8: the tile's row scales (0 past the walk limit)
+  __shared__ float kss[Q8 ? BK : 1], vss[Q8 ? BK : 1];
 
   const int qt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int group = Hq / Hkv;
@@ -199,25 +241,51 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
   float l[2] = {0.f, 0.f};
 
   const size_t page_elems = (size_t)page * D;
-  const __nv_bfloat16* kh = k_pool + (size_t)hk * n_pages * page_elems;
-  const __nv_bfloat16* vh = v_pool + (size_t)hk * n_pages * page_elems;
+  const T* kh = k_pool + (size_t)hk * n_pages * page_elems;
+  const T* vh = v_pool + (size_t)hk * n_pages * page_elems;
   const int* table = tables + (size_t)b * max_pages;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int c0 = j * BK;
-    for (int i = tid; i < BK * CPR; i += NTHREADS) {
-      const int r = i / CPR, c = i % CPR, pos = c0 + r;
+    for (int i = tid; i < BK * LPR; i += NTHREADS) {
+      const int r = i / LPR, c = i % LPR, pos = c0 + r;
       uint4 kval = zero, vval = zero;
       if (pos < kv_limit) {
         const int pid = min(max(table[pos / page], 0), n_pages - 1);
-        const size_t off = (size_t)pid * page_elems + (size_t)(pos % page) * D + c * 8;
+        const size_t off = (size_t)pid * page_elems + (size_t)(pos % page) * D + c * EPL;
         kval = *reinterpret_cast<const uint4*>(kh + off);
         vval = *reinterpret_cast<const uint4*>(vh + off);
       }
-      *reinterpret_cast<uint4*>(&ks[r * KP + c * 8]) = kval;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vval);
+      if (Q8) {
+        // 16 codes -> 16 exact bf16 values: two 16-byte K stores, 16 V
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c * 8 + e) * VP + r] = ve[e];
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint4*>(&ks[r * KP + c * 16 + 8 * h]) = make_uint4(
+              pack_bf16x2(code(kval, 8 * h), code(kval, 8 * h + 1)),
+              pack_bf16x2(code(kval, 8 * h + 2), code(kval, 8 * h + 3)),
+              pack_bf16x2(code(kval, 8 * h + 4), code(kval, 8 * h + 5)),
+              pack_bf16x2(code(kval, 8 * h + 6), code(kval, 8 * h + 7)));
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          vt[(c * 16 + e) * VP + r] = __float2bfloat16_rn(code(vval, e));
+      } else {
+        *reinterpret_cast<uint4*>(&ks[r * KP + c * 8]) = kval;
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vval);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vt[(c * 8 + e) * VP + r] = ve[e];
+      }
+    }
+    if (Q8 && tid < BK) {
+      const int pos = c0 + tid;
+      float ksv = 0.f, vsv = 0.f;
+      if (pos < kv_limit) {
+        const int pid = min(max(table[pos / page], 0), n_pages - 1);
+        const size_t srow = ((size_t)hk * n_pages + pid) * page + pos % page;
+        ksv = k_scales[srow];
+        vsv = v_scales[srow];
+      }
+      kss[tid] = ksv;
+      vss[tid] = vsv;
     }
     __syncthreads();
 
@@ -240,8 +308,9 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NS; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int pos = c0 + n * 8 + tig * 2 + (e & 1);
-        const float val = visible<TREE>(rows[e >> 1], pos) ? s[n][e] * scale : NEG_INF;
+        const int col = n * 8 + tig * 2 + (e & 1), pos = c0 + col;
+        const float sc = Q8 ? scale * kss[col] : scale;
+        const float val = visible<TREE>(rows[e >> 1], pos) ? s[n][e] * sc : NEG_INF;
         s[n][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -261,9 +330,11 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         // p masked explicitly: a row with nothing visible yet has
         // s == m == NEG_INF, and exp(s - m) would be 1
-        const int pos = c0 + n * 8 + tig * 2 + (e & 1);
+        // the A fragment of P V takes column col of S: it carries
+        // p * s_v[col] for an int8 tile, while l sums p
+        const int col = n * 8 + tig * 2 + (e & 1), pos = c0 + col;
         const float p = visible<TREE>(rows[e >> 1], pos) ? __expf(s[n][e] - m[e >> 1]) : 0.f;
-        s[n][e] = p;
+        s[n][e] = Q8 ? p * vss[col] : p;
         rs[e >> 1] += p;
       }
     }
@@ -312,41 +383,42 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool TREE>
+template <int D, bool TREE, bool Q8>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* history, const int* chunk,
-           const int* tree_masks, void* out, int B, int Sq, int Hq, int Hkv,
-           int n_pages, int page, int max_pages, float scale, cudaStream_t s) {
+           const float* k_scales, const float* v_scales, const int* tables,
+           const int* history, const int* chunk, const int* tree_masks,
+           void* out, int B, int Sq, int Hq, int Hkv, int n_pages, int page,
+           int max_pages, float scale, cudaStream_t s) {
+  using T = std::conditional_t<Q8, int8_t, __nv_bfloat16>;
   const int bq = ROWS / (Hq / Hkv);
   const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  paged_chunk<D, TREE><<<grid, dim3(NTHREADS), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), tables, history, chunk,
-      tree_masks, static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv, n_pages,
-      page, max_pages, scale);
+  paged_chunk<D, TREE, Q8><<<grid, dim3(NTHREADS), 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), k_scales, v_scales, tables, history,
+      chunk, tree_masks, static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv,
+      n_pages, page, max_pages, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool TREE>
+template <bool TREE, bool Q8>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             const int* tables, const int* history, const int* chunk,
-             const int* tree_masks, void* out, int B, int Sq, int Hq, int Hkv,
-             int n_pages, int page, int max_pages, int D, float scale,
-             void* stream) {
+             const float* k_scales, const float* v_scales, const int* tables,
+             const int* history, const int* chunk, const int* tree_masks,
+             void* out, int B, int Sq, int Hq, int Hkv, int n_pages, int page,
+             int max_pages, int D, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_GROUP ||
       n_pages <= 0 || page <= 0 || max_pages <= 0 || B > 65535 || Hkv > 65535 ||
       (TREE && Sq > 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64, TREE>(q, k_pool, v_pool, tables, history, chunk,
-                            tree_masks, out, B, Sq, Hq, Hkv, n_pages, page,
-                            max_pages, scale, s);
+    return launch<64, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
+                                history, chunk, tree_masks, out, B, Sq, Hq,
+                                Hkv, n_pages, page, max_pages, scale, s);
   if (D == 128)
-    return launch<128, TREE>(q, k_pool, v_pool, tables, history, chunk,
-                             tree_masks, out, B, Sq, Hq, Hkv, n_pages, page,
-                             max_pages, scale, s);
+    return launch<128, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
+                                 history, chunk, tree_masks, out, B, Sq, Hq,
+                                 Hkv, n_pages, page, max_pages, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -363,9 +435,9 @@ extern "C" int gofr_paged_chunk(const void* q, const void* k_pool,
                                 void* out, int B, int Sq, int Hq, int Hkv,
                                 int n_pages, int page, int max_pages, int D,
                                 float scale, void* stream) {
-  return dispatch<false>(q, k_pool, v_pool, tables, history, chunk, nullptr,
-                         out, B, Sq, Hq, Hkv, n_pages, page, max_pages, D,
-                         scale, stream);
+  return dispatch<false, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                                history, chunk, nullptr, out, B, Sq, Hq, Hkv,
+                                n_pages, page, max_pages, D, scale, stream);
 }
 
 // The same, for draft-tree verify: tree_masks int32 [B, Sq] packs each
@@ -377,7 +449,35 @@ extern "C" int gofr_paged_tree(const void* q, const void* k_pool,
                                int Sq, int Hq, int Hkv, int n_pages, int page,
                                int max_pages, int D, float scale,
                                void* stream) {
-  return dispatch<true>(q, k_pool, v_pool, tables, history, chunk, tree_masks,
-                        out, B, Sq, Hq, Hkv, n_pages, page, max_pages, D,
-                        scale, stream);
+  return dispatch<true, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                               history, chunk, tree_masks, out, B, Sq, Hq,
+                               Hkv, n_pages, page, max_pages, D, scale, stream);
+}
+
+// The chunk and tree entries over an int8 pool: k_codes / v_codes int8
+// [Hkv, Np, page, D] (16-byte aligned), k_scales / v_scales float32
+// [Hkv, Np, page, 1].
+extern "C" int gofr_paged_chunk_i8(const void* q, const void* k_codes,
+                                   const void* v_codes, const float* k_scales,
+                                   const float* v_scales, const int* tables,
+                                   const int* history, const int* chunk,
+                                   void* out, int B, int Sq, int Hq, int Hkv,
+                                   int n_pages, int page, int max_pages, int D,
+                                   float scale, void* stream) {
+  return dispatch<false, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
+                               history, chunk, nullptr, out, B, Sq, Hq, Hkv,
+                               n_pages, page, max_pages, D, scale, stream);
+}
+
+extern "C" int gofr_paged_tree_i8(const void* q, const void* k_codes,
+                                  const void* v_codes, const float* k_scales,
+                                  const float* v_scales, const int* tables,
+                                  const int* history, const int* chunk,
+                                  const int* tree_masks, void* out, int B,
+                                  int Sq, int Hq, int Hkv, int n_pages,
+                                  int page, int max_pages, int D, float scale,
+                                  void* stream) {
+  return dispatch<true, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
+                              history, chunk, tree_masks, out, B, Sq, Hq, Hkv,
+                              n_pages, page, max_pages, D, scale, stream);
 }

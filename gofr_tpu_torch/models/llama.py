@@ -27,7 +27,8 @@ from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention_plain,
                                    paged_tree_attention,
                                    paged_tree_attention_plain)
-from ..ops.paged_kv import keep_index, pool_layer, pool_write
+from ..ops.paged_kv import (KV_DTYPES, keep_index, pool_layer, pool_shape,
+                            pool_write, quantize_rows)
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -195,15 +196,14 @@ def llama_prefill_last(params: dict, tokens: torch.Tensor,
     return _logits(params, config, rows), kv
 
 
-def llama_decode_step_paged(params: dict, tokens: torch.Tensor,
-                            k_pool: torch.Tensor, v_pool: torch.Tensor,
-                            tables: torch.Tensor, lengths: torch.Tensor,
+def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
+                            v_pool, tables: torch.Tensor, lengths: torch.Tensor,
                             config: LlamaConfig, *,
                             implementation: str = "auto"):
     """One decode step straight against the paged KV pool.
 
-    tokens [B]; pools [L, Hkv, Np, pg, hd] (head-major); tables [B, Mp]
-    int32; lengths [B] int32 = rows already cached (the new token lands
+    tokens [B]; pools [L, Hkv, Np, pg, hd] (head-major; plain, or the
+    quantized ``{q, s}`` form, written quantized); tables [B, Mp] int32; lengths [B] int32 = rows already cached (the new token lands
     at that position). Each layer writes its new K/V row through the
     table — a row at or past the table's end, or on an unallocated page,
     is dropped — then attends over ``lengths + 1`` rows. The pools are
@@ -212,7 +212,7 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor,
     c = config
     b = tokens.shape[0]
     hd = c.head_dim
-    n_pages, pg = k_pool.shape[2], k_pool.shape[3]
+    n_pages, pg = pool_shape(k_pool)[2:4]
     mp = tables.shape[1]
     inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
                                 device=tokens.device)
@@ -246,9 +246,9 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor,
     return _logits(params, c, x)[:, 0], k_pool, v_pool
 
 
-def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
-                              k_pool: torch.Tensor, v_pool: torch.Tensor,
-                              tables: torch.Tensor, offsets: torch.Tensor,
+def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
+                              v_pool, tables: torch.Tensor,
+                              offsets: torch.Tensor,
                               chunk_lengths: torch.Tensor,
                               config: LlamaConfig, *,
                               implementation: str = "auto",
@@ -258,7 +258,8 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
     """One chunk of a chunked prefill straight against the paged pool.
 
     tokens [B, S] start at absolute positions ``offsets`` [B] int32 per
-    row; pools [L, Hkv, Np, pg, hd] (head-major); tables [B, Mp] int32.
+    row; pools [L, Hkv, Np, pg, hd] (head-major; plain or quantized, as
+    in ``llama_decode_step_paged``); tables [B, Mp] int32.
     Each layer writes the chunk's K/V through the table — padding rows
     (past ``chunk_lengths[b]``) and rows past the table's end map to the
     OOB id and are dropped — then attends with the chunk kernel's
@@ -282,7 +283,7 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
     c = config
     b, s = tokens.shape
     hd = c.head_dim
-    n_pages, pg = k_pool.shape[2], k_pool.shape[3]
+    n_pages, pg = pool_shape(k_pool)[2:4]
     mp = tables.shape[1]
     inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
                                 device=tokens.device)
@@ -329,9 +330,22 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor,
 
 
 def make_pool(config: LlamaConfig, n_pages: int, page: int,
-              device: str | torch.device):
-    """A zeroed head-major K and V pool pair [L, Hkv, Np, pg, hd]."""
+              device: str | torch.device, kv_dtype: str = "bf16"):
+    """A zeroed head-major K and V pool pair [L, Hkv, Np, pg, hd]: in
+    the model's dtype for ``"bf16"``, or for ``"int8"`` the quantized
+    form of those zeros (codes 0, scales ``1e-8 / 127``), as the JAX
+    engine's ``_alloc_pool`` lays it out."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
+                         f"{kv_dtype!r}")
     c = config
     shape = (c.n_layers, c.n_kv_heads, n_pages, page, c.head_dim)
-    return (torch.zeros(shape, dtype=c.dtype, device=device),
-            torch.zeros(shape, dtype=c.dtype, device=device))
+    if kv_dtype == "bf16":
+        return tuple(torch.zeros(shape, dtype=c.dtype, device=device)
+                     for _ in range(2))
+    # quantize_pool of zeros, built without the zeros: every row's scale
+    # is a zero row's
+    _, scale = quantize_rows(torch.zeros(1, device=device))
+    return tuple({"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "s": scale.expand(*shape[:-1], 1).contiguous()}
+                 for _ in range(2))

@@ -1,7 +1,7 @@
 """Paged attention against the head-major KV pool: the CUDA kernels'
 wrappers and their plain PyTorch versions (counterpart of
 ``gofr_tpu/ops/paged_attention.py``, decode, chunk and tree-verify
-paths, bf16/f32 pools).
+paths, over plain bf16/f32 pools and int8 ``{"q", "s"}`` pools).
 
 Layouts:
 - decode (one new token per slot): ``q`` [B, Hq, hd], ``lengths`` [B]
@@ -15,15 +15,21 @@ Layouts:
   plus ``tree_masks`` [B, Sq] int32; node i sees every pool row below
   ``history`` and in-chunk row j iff ``j < chunk`` and bit j of
   ``tree_masks[b, i]`` is set
-- ``k_pool``   [Hkv, Np, pg, hd] — one layer of the head-major pool
+- ``k_pool``   [Hkv, Np, pg, hd] — one layer of the head-major pool, or
+  the quantized layer ``{"q": int8 [Hkv, Np, pg, hd], "s": float32
+  [Hkv, Np, pg, 1]}`` (``paged_kv.pool_layer`` gives either)
 - ``tables``   [B, Mp] int32 — page ids, ``Np`` = unallocated
 
 The kernels (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``) replace
 the TPU kernels ``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``,
-``_paged_chunk_kernel`` and ``_paged_tree_kernel``; the chunk and tree
-kernels are one kernel body templated on its visibility rule, with one
-C entry point each. Each source says what bounds it on the H100 and
-what the design does about it.
+``_paged_chunk_kernel`` and ``_paged_tree_kernel``, both of their
+branches: each source instantiates its kernel for bf16 pages and for
+int8 pages with their row scales, with one C entry point per kernel and
+form (``_i8`` for int8). The chunk and tree kernels are one kernel body
+templated on its visibility rule. Each source says what bounds it on
+the H100 and what the design does about it. The plain versions compute
+over the dequantizing ``paged_kv.slot_view`` (float32 ``codes *
+scales``), as the JAX package's ``_slot_view`` does.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 
 from . import _build
 from .attention import decode_attention, tree_attention, xla_attention
-from .paged_kv import slot_view
+from .paged_kv import is_quantized_pool, slot_view
 
 #: nodes a draft tree may hold: the ancestor masks are 32-bit
 MAX_TREE_WIDTH = 32
@@ -44,34 +50,42 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: chunk: 64 block rows = BQ positions x group, BQ >= 4)
 KERNEL_MAX_GROUP = 16
 
-#: wrapper -> (library, C symbol, pointer arguments, int arguments);
-#: every C entry point ends with (float scale, void* stream)
+#: kernel (wrapper name, ``_int8`` for a quantized pool) -> (library, C
+#: symbol, pointer arguments, int arguments); every C entry point ends
+#: with (float scale, void* stream), and an ``_i8`` one takes the K and
+#: V scale pointers right after the K and V codes
 _KERNELS = {
     "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 7),
+    "paged_decode_attention_int8": ("paged_decode", "gofr_paged_decode_i8",
+                                    8, 7),
     "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 8),
+    "paged_chunk_attention_int8": ("paged_chunk", "gofr_paged_chunk_i8",
+                                   9, 8),
     "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 8),
+    "paged_tree_attention_int8": ("paged_chunk", "gofr_paged_tree_i8",
+                                  10, 8),
 }
 _fns: dict = {}
 
 
-def _kernel(wrapper: str):
-    """The ctypes function behind ``wrapper``, built and bound on first
+def _kernel(name: str):
+    """The ctypes function of kernel ``name``, built and bound on first
     use."""
-    fn = _fns.get(wrapper)
+    fn = _fns.get(name)
     if fn is None:
-        lib, symbol, n_ptrs, n_ints = _KERNELS[wrapper]
+        lib, symbol, n_ptrs, n_ints = _KERNELS[name]
         fn = getattr(_build.load(lib), symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fns[wrapper] = fn
+        _fns[name] = fn
     return fn
 
 
-def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                                 v_pool: torch.Tensor, tables: torch.Tensor,
-                                 lengths: torch.Tensor, *,
-                                 scale: float | None = None) -> torch.Tensor:
+def paged_decode_attention_plain(q: torch.Tensor, k_pool, v_pool,
+                                 tables: torch.Tensor, lengths: torch.Tensor,
+                                 *, scale: float | None = None
+                                 ) -> torch.Tensor:
     """The plain version: gather the dense slot views, run masked
     decode attention, and give zero-length slots exact zeros (the
     kernel's ``max(l, 1e-30)`` denominator does the same)."""
@@ -83,8 +97,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                        torch.zeros_like(out))
 
 
-def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                                v_pool: torch.Tensor, tables: torch.Tensor,
+def paged_chunk_attention_plain(q: torch.Tensor, k_pool, v_pool,
+                                tables: torch.Tensor,
                                 history_lens: torch.Tensor,
                                 chunk_lens: torch.Tensor, *,
                                 scale: float | None = None) -> torch.Tensor:
@@ -102,8 +116,8 @@ def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
 
 
-def paged_tree_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                               v_pool: torch.Tensor, tables: torch.Tensor,
+def paged_tree_attention_plain(q: torch.Tensor, k_pool, v_pool,
+                               tables: torch.Tensor,
                                history_lens: torch.Tensor,
                                chunk_lens: torch.Tensor,
                                tree_masks: torch.Tensor, *,
@@ -121,31 +135,53 @@ def paged_tree_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
 
 
-def _check(fn: str, q, k_pool, v_pool, tables, *lengths):
-    """What the kernels take: bf16 q and pools [Hkv, Np, pg, hd] with hd
-    in KERNEL_HEAD_DIMS and a group of at most KERNEL_MAX_GROUP query
-    heads per KV head; int32 [B, Mp] tables and [B] lengths; all
-    contiguous, on q's device, and 16-byte aligned (the kernels move
-    q, out and pool rows in 16-byte words)."""
+def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
+    """What the kernels take: bf16 q; pools [Hkv, Np, pg, hd], both
+    bf16, or both quantized (int8 codes and float32 [Hkv, Np, pg, 1]
+    scales), with hd in KERNEL_HEAD_DIMS and a group of at most
+    KERNEL_MAX_GROUP query heads per KV head; int32 [B, Mp] tables and
+    [B] lengths; all contiguous and on q's device. q, out and pool rows
+    move in 16-byte words, so q and the pages (bf16 or codes) must be
+    16-byte aligned, and scales 4-byte aligned. Returns the pool tensors
+    in the kernel's argument order: (K, V), or (K codes, V codes, K
+    scales, V scales)."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
-            or k_pool.shape[3] != d:
+    quantized = is_quantized_pool(k_pool)
+    if quantized != is_quantized_pool(v_pool):
+        raise ValueError(f"{fn}: k_pool and v_pool must both be plain or "
+                         f"both quantized")
+    if quantized:
+        pools = [k_pool["q"], v_pool["q"], k_pool["s"], v_pool["s"]]
+        page_dtype, page_names = torch.int8, ("k_pool codes", "v_pool codes")
+    else:
+        pools = [k_pool, v_pool]
+        page_dtype, page_names = torch.bfloat16, ("k_pool", "v_pool")
+    kp, vp = pools[:2]
+    if kp.dim() != 4 or kp.shape != vp.shape or kp.shape[3] != d:
         raise ValueError(f"{fn}: pools must be [Hkv, Np, pg, {d}], got "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    hkv = k_pool.shape[0]
+                         f"{tuple(kp.shape)} / {tuple(vp.shape)}")
+    hkv = kp.shape[0]
     if hq % hkv or hq // hkv > KERNEL_MAX_GROUP:
         raise ValueError(f"{fn}: Hq={hq}, Hkv={hkv}: the group must divide "
                          f"and be <= {KERNEL_MAX_GROUP}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{fn}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables)) + tuple(
-                        (f"lengths[{i}]", n) for i, n in enumerate(lengths)):
+    named = [("q", q, torch.bfloat16, 16), (page_names[0], kp, page_dtype, 16),
+             (page_names[1], vp, page_dtype, 16)]
+    if quantized:
+        for name, t in (("k_pool scales", pools[2]),
+                        ("v_pool scales", pools[3])):
+            if t.shape != (*kp.shape[:3], 1):
+                raise ValueError(f"{fn}: {name} must be [Hkv, Np, pg, 1], "
+                                 f"got {tuple(t.shape)}")
+            named.append((name, t, torch.float32, 4))
+    for name, t, dtype, align in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        if t.data_ptr() % align:
+            raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
+    for name, t in [(n, t) for n, t, _, _ in named] + [("tables", tables)] \
+            + [(f"lengths[{i}]", n) for i, n in enumerate(lengths)]:
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
         if t.device != q.device:
@@ -156,26 +192,34 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths):
     for n in lengths:
         if n.dtype != torch.int32 or n.shape != (b,):
             raise ValueError(f"{fn}: lengths must be int32 [B]")
+    return pools
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
-    """Launch wrapper ``fn``'s kernel on the current stream; raise if
-    the launch was refused."""
-    rc = _kernel(fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+def _launch(wrapper, pools: list, q: torch.Tensor, *args) -> None:
+    """Launch ``wrapper``'s kernel for the pools' form on the current
+    stream (q, the pools, then ``args``), raise if the launch was
+    refused, and count it: ``wrapper.launches`` for bf16 pools,
+    ``wrapper.launches_int8`` for quantized ones."""
+    quantized = len(pools) == 4
+    name = wrapper.__name__ + ("_int8" if quantized else "")
+    rc = _kernel(name)(q.data_ptr(), *(t.data_ptr() for t in pools), *args,
+                       torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    counter = "launches_int8" if quantized else "launches"
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
-def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                           v_pool: torch.Tensor, tables: torch.Tensor,
-                           lengths: torch.Tensor, *,
+def paged_decode_attention(q: torch.Tensor, k_pool, v_pool,
+                           tables: torch.Tensor, lengths: torch.Tensor, *,
                            scale: float | None = None) -> torch.Tensor:
     """One decode step's attention against one layer's paged pool.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    (bf16 q and pools, contiguous, hd in {64, 128}) or raise — there is
-    no fallback. A slot walks at most ``Mp`` pages, as the plain
-    version's ``[Mp*pg]`` view does.
+    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
+    contiguous; hd in {64, 128}) or raise — there is no fallback. A slot
+    walks at most ``Mp`` pages, as the plain version's ``[Mp*pg]`` view
+    does.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables,
@@ -183,22 +227,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
-    _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths)
+    pools = _check("paged_decode_attention", q, k_pool, v_pool, tables,
+                   lengths)
     b, hq, d = q.shape
-    hkv, n_pages, pg, _ = k_pool.shape
+    hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
-    _launch("paged_decode_attention", q.device,
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, hkv, n_pages, pg, tables.shape[1], d, scale)
-    paged_decode_attention.launches += 1
+    _launch(paged_decode_attention, pools, q, tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), b, hq, hkv, n_pages, pg,
+            tables.shape[1], d, scale)
     return out
 
 
-def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                          v_pool: torch.Tensor, tables: torch.Tensor,
-                          history_lens: torch.Tensor,
+def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
+                          tables: torch.Tensor, history_lens: torch.Tensor,
                           chunk_lens: torch.Tensor, *,
                           scale: float | None = None) -> torch.Tensor:
     """Ragged chunk attention against one layer's paged pool: each slot
@@ -207,9 +249,10 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     prefix. Rows past ``chunk_lens[b]`` come back as zeros.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    (bf16 q and pools, contiguous, hd in {64, 128}) or raise — there is
-    no fallback. A slot walks at most ``Mp`` pages, as the plain
-    version's ``[Mp*pg]`` view does.
+    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
+    contiguous; hd in {64, 128}) or raise — there is no fallback. A slot
+    walks at most ``Mp`` pages, as the plain version's ``[Mp*pg]`` view
+    does.
     """
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, k_pool, v_pool, tables,
@@ -218,24 +261,21 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: no kernel for device "
                          f"{q.device}")
-    _check("paged_chunk_attention", q, k_pool, v_pool, tables, history_lens,
-           chunk_lens)
+    pools = _check("paged_chunk_attention", q, k_pool, v_pool, tables,
+                   history_lens, chunk_lens)
     b, sq, hq, d = q.shape
-    hkv, n_pages, pg, _ = k_pool.shape
+    hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
-    _launch("paged_chunk_attention", q.device,
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), history_lens.data_ptr(), chunk_lens.data_ptr(),
-            out.data_ptr(), b, sq, hq, hkv, n_pages, pg, tables.shape[1], d,
-            scale)
-    paged_chunk_attention.launches += 1
+    _launch(paged_chunk_attention, pools, q, tables.data_ptr(),
+            history_lens.data_ptr(), chunk_lens.data_ptr(), out.data_ptr(),
+            b, sq, hq, hkv, n_pages, pg, tables.shape[1], d, scale)
     return out
 
 
-def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                         v_pool: torch.Tensor, tables: torch.Tensor,
-                         history_lens: torch.Tensor, chunk_lens: torch.Tensor,
+def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
+                         tables: torch.Tensor, history_lens: torch.Tensor,
+                         chunk_lens: torch.Tensor,
                          tree_masks: torch.Tensor, *,
                          scale: float | None = None) -> torch.Tensor:
     """Draft-tree verify attention against one layer's paged pool: the
@@ -245,9 +285,10 @@ def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Rows past ``chunk_lens[b]`` come back as zeros.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    (bf16 q and pools, contiguous, hd in {64, 128}, Sq <= 32, int32
-    masks) or raise — there is no fallback. A slot walks at most ``Mp``
-    pages, as the plain version's ``[Mp*pg]`` view does.
+    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
+    contiguous; hd in {64, 128}; Sq <= 32; int32 masks) or raise — there
+    is no fallback. A slot walks at most ``Mp`` pages, as the plain
+    version's ``[Mp*pg]`` view does.
     """
     if q.device.type == "cpu":
         return paged_tree_attention_plain(q, k_pool, v_pool, tables,
@@ -256,8 +297,8 @@ def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_tree_attention: no kernel for device "
                          f"{q.device}")
-    _check("paged_tree_attention", q, k_pool, v_pool, tables, history_lens,
-           chunk_lens)
+    pools = _check("paged_tree_attention", q, k_pool, v_pool, tables,
+                   history_lens, chunk_lens)
     b, sq, hq, d = q.shape
     if sq > MAX_TREE_WIDTH:
         raise ValueError(f"paged_tree_attention: tree width {sq} exceeds "
@@ -267,20 +308,20 @@ def paged_tree_attention(q: torch.Tensor, k_pool: torch.Tensor,
             or tree_masks.device != q.device:
         raise ValueError("paged_tree_attention: tree_masks must be "
                          "contiguous int32 [B, Sq] on q's device")
-    hkv, n_pages, pg, _ = k_pool.shape
+    hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
-    _launch("paged_tree_attention", q.device,
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), history_lens.data_ptr(), chunk_lens.data_ptr(),
+    _launch(paged_tree_attention, pools, q, tables.data_ptr(),
+            history_lens.data_ptr(), chunk_lens.data_ptr(),
             tree_masks.data_ptr(), out.data_ptr(), b, sq, hq, hkv, n_pages,
             pg, tables.shape[1], d, scale)
-    paged_tree_attention.launches += 1
     return out
 
 
-#: kernel launches since the last reset (plain integers; set one to 0
-#: to start counting)
-paged_decode_attention.launches = 0
-paged_chunk_attention.launches = 0
-paged_tree_attention.launches = 0
+#: kernel launches since the last reset, per pool form (plain integers;
+#: set one to 0 to start counting)
+for _wrapper in (paged_decode_attention, paged_chunk_attention,
+                 paged_tree_attention):
+    _wrapper.launches = 0           # bf16 pools
+    _wrapper.launches_int8 = 0      # int8 {q, s} pools
+del _wrapper

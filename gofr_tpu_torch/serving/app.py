@@ -135,7 +135,9 @@ def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
     rows (fewer when the model's context is shorter) in 64-row pages,
     prefill buckets up to 1024, the prefix cache on (a quarter of the
     pool); ``overrides`` set other ``EngineConfig`` fields (the smoke's
-    speculative cell: ``speculative=True, spec_ngram=2``)."""
+    speculative cell: ``speculative=True, spec_ngram=2``; its int8 cell:
+    ``kv_dtype="int8"``, the same bytes of pool as about twice the
+    pages)."""
     return EngineConfig(**{"max_batch": 8,
                            "max_seq": min(2048, model_config.max_seq),
                            "page_size": 64, "seed": 0, **overrides})

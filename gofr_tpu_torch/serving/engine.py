@@ -52,9 +52,15 @@ prefix cache, the chunk-with-history walk and speculative tree verify).
   plus one bonus token sampled at the deepest accepted node. A request
   reserves ``spec_draft * spec_branches`` rows more than its life, so
   every tree row lands in a page it owns.
+- **KV pool form** (``kv_dtype``): the model's dtype (``"bf16"``), or
+  ``"int8"``: codes plus one float32 scale per row, quantized on every
+  write and read by the int8 branches of the paged kernels. The pool is
+  sized by bytes, as in the JAX engine: ``kv_pool_bytes``, or by default
+  what ``kv_pages`` (or the full capacity) costs in the model's dtype,
+  so an int8 pool holds about twice the pages in the same memory.
 
-Left out (see ROADMAP.md Queue A): preemption and lazy page growth, int8
-KV, decode windows, pipelining, and the SLO / events / integrity /
+Left out (see ROADMAP.md Queue A): preemption and lazy page growth,
+decode windows, pipelining, and the SLO / events / integrity /
 observability / goodput / cost planes (so the speculative path keeps
 only the stats below).
 """
@@ -71,7 +77,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..ops.paged_kv import pool_move_rows, scatter_chunk
+from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
+                            scatter_chunk)
 from .sampling import sample_batch
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
                    build_draft_tree)
@@ -131,6 +138,14 @@ class EngineConfig:
     page_size: int = 64
     #: pool size in pages; None = max_batch x ceil(max_seq / page_size)
     kv_pages: int | None = None
+    #: KV page storage: "bf16" = the model's dtype; "int8" = int8 codes
+    #: plus one float32 scale per row (hd + 4 bytes a row and head
+    #: instead of 2 hd at bf16), quantized on write
+    kv_dtype: str = "bf16"
+    #: the pool's byte budget, K and V together; None = ``kv_pages`` (or
+    #: the full capacity) at the model dtype's page cost, so an int8
+    #: pool at the default budget holds about twice the pages
+    kv_pool_bytes: int | None = None
     #: waiting requests beyond this fail at submit; 0 = unbounded
     max_waiting: int = 0
     #: chunk-walk rounds per loop iteration; unfinished walks resume
@@ -180,7 +195,9 @@ class Engine:
         tree_masks=[B, W]) -> (logits [B, W, V], k_pool, v_pool) — e.g.
         ``llama_prefill_chunk_paged`` in tree mode with all logits;
         needed only with ``speculative``.
-    make_cache(n_pages, page) -> (k_pool, v_pool) [L, Hkv, Np, pg, hd].
+    make_cache(n_pages, page, kv_dtype) -> (k_pool, v_pool) [L, Hkv, Np,
+        pg, hd], plain for "bf16", ``{q, s}`` dicts for "int8" (e.g.
+        ``make_pool``).
     vocab_size: prompts holding a token id outside [0, vocab_size) fail
         at submit (an out-of-range embedding index would fault on the
         device and take the engine thread down).
@@ -212,6 +229,9 @@ class Engine:
                              f"{cfg.spec_probe_interval}")
         if cfg.speculative and paged_verify_fn is None:
             raise ValueError("speculative needs a paged_verify_fn")
+        if cfg.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
+                             f"{cfg.kv_dtype!r}")
         self.params = params
         self.config = cfg
         self.device = torch.device(device)
@@ -236,9 +256,12 @@ class Engine:
 
         pg = cfg.page_size
         self._pages_per_slot = -(-cfg.max_seq // pg)
-        self._n_pages = (cfg.kv_pages if cfg.kv_pages is not None
-                         else cfg.max_batch * self._pages_per_slot)
-        self.k_cache, self.v_cache = make_cache(self._n_pages, pg)
+        self._make_cache = make_cache
+        self._n_pages = self._sized_pool_pages(
+            pg, cfg.kv_pages if cfg.kv_pages is not None
+            else cfg.max_batch * self._pages_per_slot)
+        self.k_cache, self.v_cache = make_cache(self._n_pages, pg,
+                                                cfg.kv_dtype)
         self._free_pages = list(range(self._n_pages))
         #: per-slot ordered page ids; the OOB id n_pages = unallocated
         self._tables = np.full((cfg.max_batch, self._pages_per_slot),
@@ -279,6 +302,24 @@ class Engine:
                       "prefix_evictions": 0, "spec_passes": 0,
                       "spec_s": 0.0, "spec_drafted": 0,
                       "spec_accepted": 0, "spec_rows": 0}
+
+    def _sized_pool_pages(self, page: int, base_pages: int) -> int:
+        """The pool's page count from its byte budget: ``kv_pool_bytes``
+        when set, else ``base_pages`` at the model dtype's page cost,
+        divided by the configured form's page cost (K + V, scales
+        included). The bf16 default with no budget is ``base_pages``
+        exactly."""
+        cfg = self.config
+        if cfg.kv_dtype == "bf16" and cfg.kv_pool_bytes is None:
+            return max(1, int(base_pages))
+
+        def page_bytes(kv_dtype):
+            k_probe, _ = self._make_cache(1, page, kv_dtype)
+            return 2 * page * pool_row_bytes(k_probe)
+
+        budget = (cfg.kv_pool_bytes if cfg.kv_pool_bytes is not None
+                  else base_pages * page_bytes("bf16"))
+        return max(1, int(budget) // page_bytes(cfg.kv_dtype))
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:

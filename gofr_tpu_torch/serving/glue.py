@@ -24,7 +24,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     speculative tree verify through the same function's tree mode (the
     paged tree kernel), decode through ``llama_decode_step_paged`` (the
     paged decode kernel), on a head-major pool allocated on the same
-    device."""
+    device in the engine config's ``kv_dtype`` (int8 pools go through
+    the kernels' int8 branches)."""
     dev = resolve_device(device)
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, the "
@@ -50,8 +51,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
             c, return_all_logits=True, tree_depths=tree_depths,
             tree_masks=tree_masks)
 
-    def make_cache(n_pages, page):
-        return make_pool(c, n_pages, page, dev)
+    def make_cache(n_pages, page, kv_dtype):
+        return make_pool(c, n_pages, page, dev, kv_dtype)
 
     return Engine(params, engine_config or EngineConfig(),
                   prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,

@@ -6,8 +6,9 @@
 Drives the port's two device calls of the serving path at the
 Llama-3.2-1B shape (``LlamaConfig.llama3_1b()``, random bf16 weights,
 seed 0): one paged decode step (``llama_decode_step_paged`` + sampling)
-at the batches and lengths the chip smoke serves, and one group prefill
-(``llama_prefill_last``) per bucket width. For each it prints one JSON
+at the batches and lengths the chip smoke serves, on a bf16 pool and on
+an int8 one (``quantize_pool`` of the same random pool), and one group
+prefill (``llama_prefill_last``) per bucket width. For each it prints one JSON
 line with
 
 - ``wall_ms``: host clock around the call, synchronised (median of 20
@@ -43,6 +44,7 @@ from gofr_tpu_torch.models.llama import (LlamaConfig,  # noqa: E402
                                          llama_decode_step_paged,
                                          llama_init, llama_prefill_last,
                                          make_pool)
+from gofr_tpu_torch.ops.paged_kv import quantize_pool  # noqa: E402
 from gofr_tpu_torch.serving.sampling import sample_batch  # noqa: E402
 
 
@@ -101,12 +103,15 @@ def _wall_ms(fn, warmup: int, iters: int) -> float:
     return statistics.median(times)
 
 
-def decode_case(params, cfg, dev, lens_l: list[int], pg: int = 64) -> dict:
+def decode_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
+                pg: int = 64) -> dict:
     b = len(lens_l)
     mp = -(-(max(lens_l) + 64) // pg)
     kp, vp = make_pool(cfg, b * mp, pg, dev)
     kp.normal_()
     vp.normal_()
+    if kv_dtype == "int8":
+        kp, vp = quantize_pool(kp), quantize_pool(vp)
     tables = torch.arange(b * mp, dtype=torch.int32, device=dev).reshape(b, mp)
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     toks = torch.zeros(b, dtype=torch.int64, device=dev)
@@ -118,8 +123,8 @@ def decode_case(params, cfg, dev, lens_l: list[int], pg: int = 64) -> dict:
                                                lens, cfg)
         sample_batch(logits, temps, top_ps)
 
-    out = {"case": "decode_step", "batch": b, "lengths": lens_l,
-           "wall_ms": _wall_ms(step, 5, 20)}
+    out = {"case": "decode_step", "kv_dtype": kv_dtype, "batch": b,
+           "lengths": lens_l, "wall_ms": _wall_ms(step, 5, 20)}
     out.update(_profile(step, 10))
     return out
 
@@ -158,8 +163,9 @@ def main() -> int:
     results = []
     with torch.no_grad():
         for lens in ([21, 151, 401, 901], [1000] * 8):
-            results.append(decode_case(params, cfg, dev, lens))
-            print(json.dumps(results[-1]), flush=True)
+            for kv_dtype in ("bf16", "int8"):
+                results.append(decode_case(params, cfg, dev, lens, kv_dtype))
+                print(json.dumps(results[-1]), flush=True)
         for p, s in ((1, 32), (1, 1024), (4, 512)):
             results.append(prefill_case(params, cfg, dev, p, s))
             print(json.dumps(results[-1]), flush=True)

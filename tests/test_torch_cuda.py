@@ -17,6 +17,12 @@ its sum stays float32, which moves the output by at most 2^-8 of the
 attention average of |V|: that term is added to its limit. The paged
 chunk and tree kernels round P the same way and take the same limit.
 Paged decode keeps P in float32.
+
+The paged kernels' int8 branches run the same cases on
+``paged_kv.quantize_pool`` of the same random bf16 pools, against the
+plain versions over the dequantized (float32) pool, with the same
+limits: for chunk and tree the P-rounding term is taken over the
+dequantized |V| (P V carries p times the row scale, rounded to bf16).
 """
 
 import pytest
@@ -29,6 +35,7 @@ from gofr_tpu_torch.ops.paged_attention import (
     paged_chunk_attention, paged_chunk_attention_plain,
     paged_decode_attention, paged_decode_attention_plain,
     paged_tree_attention, paged_tree_attention_plain)
+from gofr_tpu_torch.ops.paged_kv import quantize_pool
 from gofr_tpu_torch.serving.spec import build_draft_tree
 
 pytestmark = pytest.mark.cuda
@@ -87,13 +94,23 @@ def _paged_case(gen, dev, b, hq, hkv, d, pg, n_pages, lens):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("b,hq,hkv,d,pg,n_pages,lens", [
+DECODE_CASES = [
     (3, 4, 1, 64, 16, 20, [0, 5, 40]),                  # len 0, group 4
     (4, 32, 8, 64, 64, 64, [1, 64, 65, 700]),           # llama3_1b heads
     (2, 8, 2, 128, 32, 16, [33, 100]),                  # head_dim 128
     (2, 16, 1, 64, 64, 8, [129, 3]),                    # group 16
     (3, 8, 8, 64, 16, 24, [16, 17, 0]),                 # group 1
-])
+]
+
+
+def _abs_pool(pool):
+    """|pool| for either form (codes keep their scales)."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"].abs(), "s": pool["s"]}
+    return pool.abs()
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,pg,n_pages,lens", DECODE_CASES)
 def test_paged_decode_kernel_matches_plain(dev, b, hq, hkv, d, pg, n_pages,
                                            lens):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -110,7 +127,27 @@ def test_paged_decode_kernel_matches_plain(dev, b, hq, hkv, d, pg, n_pages,
             assert out[i].abs().max().item() == 0.0   # exact zeros
 
 
-@pytest.mark.parametrize("sq,hq,hkv,d,pg,n_pages,hists,clens", [
+@pytest.mark.parametrize("b,hq,hkv,d,pg,n_pages,lens", DECODE_CASES)
+def test_paged_decode_int8_kernel_matches_plain(dev, b, hq, hkv, d, pg,
+                                                n_pages, lens):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, kp, vp, tables, lengths = _paged_case(gen, dev, b, hq, hkv, d, pg,
+                                             n_pages, lens)
+    kq, vq = quantize_pool(kp), quantize_pool(vp)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_int8)
+    out = paged_decode_attention(q, kq, vq, tables, lengths)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (before[0], before[1] + 1)
+    ref = paged_decode_attention_plain(q, kq, vq, tables, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=RTOL)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert out[i].abs().max().item() == 0.0   # exact zeros
+
+
+CHUNK_CASES = [
     # llama3_1b heads, 64-row pages, mid-page histories, a zero-length
     # slot, Sq not a multiple of the 16-position tile
     (100, 32, 8, 64, 64, 32, [0, 130, 64, 0], [100, 37, 1, 0]),
@@ -118,9 +155,10 @@ def test_paged_decode_kernel_matches_plain(dev, b, hq, hkv, d, pg, n_pages,
     (70, 4, 4, 128, 16, 40, [200, 3], [70, 66]),            # group 1
     (33, 16, 1, 64, 64, 16, [513, 0], [33, 20]),            # group 16
     (48, 8, 2, 64, 16, 48, [17, 300, 0], [48, 5, 0]),       # group 4, pg 16
-])
-def test_paged_chunk_kernel_matches_plain(dev, sq, hq, hkv, d, pg, n_pages,
-                                          hists, clens):
+]
+
+
+def _chunk_case(dev, sq, hq, hkv, d, pg, n_pages, hists, clens):
     gen = torch.Generator(device=dev).manual_seed(0)
     b = len(hists)
     mp = max(1, -(-max(h + c for h, c in zip(hists, clens)) // pg))
@@ -136,17 +174,46 @@ def test_paged_chunk_kernel_matches_plain(dev, sq, hq, hkv, d, pg, n_pages,
     kp, vp = (_randn(gen, dev, hkv, n_pages, pg, d) for _ in range(2))
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, hist, clen
+
+
+def _assert_chunk_like(out, plain, q, kp, vp, rest, clen):
+    """Kernel output within the P-rounding limit of the plain version
+    (``plain(q, k, v, *rest)``), and zeros on padding rows."""
+    ref = plain(q, kp, vp, *rest).float()
+    limit = (ATOL + RTOL * ref.abs()
+             + P_ROUND * plain(q, kp, _abs_pool(vp), *rest).float())
+    excess = ((out.float() - ref).abs() / limit).max().item()
+    assert excess <= 1.0, f"worst err / limit {excess}"
+    padding = torch.arange(q.shape[1], device=q.device)[None, :] \
+        >= clen[:, None]
+    if padding.any():                  # padding rows and empty slots: zeros
+        assert out[padding].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("sq,hq,hkv,d,pg,n_pages,hists,clens", CHUNK_CASES)
+def test_paged_chunk_kernel_matches_plain(dev, sq, hq, hkv, d, pg, n_pages,
+                                          hists, clens):
+    q, kp, vp, tables, hist, clen = _chunk_case(dev, sq, hq, hkv, d, pg,
+                                                n_pages, hists, clens)
     before = paged_chunk_attention.launches
     out = paged_chunk_attention(q, kp, vp, tables, hist, clen)
     assert paged_chunk_attention.launches == before + 1
-    ref = paged_chunk_attention_plain(q, kp, vp, tables, hist, clen).float()
-    limit = (ATOL + RTOL * ref.abs() + P_ROUND * paged_chunk_attention_plain(
-        q, kp, vp.abs(), tables, hist, clen).float())
-    excess = ((out.float() - ref).abs() / limit).max().item()
-    assert excess <= 1.0, f"worst err / limit {excess}"
-    padding = torch.arange(sq, device=dev)[None, :] >= clen[:, None]
-    if padding.any():                  # padding rows and empty slots: zeros
-        assert out[padding].abs().max().item() == 0.0
+    _assert_chunk_like(out, paged_chunk_attention_plain, q, kp, vp,
+                       (tables, hist, clen), clen)
+
+
+@pytest.mark.parametrize("sq,hq,hkv,d,pg,n_pages,hists,clens", CHUNK_CASES)
+def test_paged_chunk_int8_kernel_matches_plain(dev, sq, hq, hkv, d, pg,
+                                               n_pages, hists, clens):
+    q, kp, vp, tables, hist, clen = _chunk_case(dev, sq, hq, hkv, d, pg,
+                                                n_pages, hists, clens)
+    kq, vq = quantize_pool(kp), quantize_pool(vp)
+    before = paged_chunk_attention.launches_int8
+    out = paged_chunk_attention(q, kq, vq, tables, hist, clen)
+    assert paged_chunk_attention.launches_int8 == before + 1
+    _assert_chunk_like(out, paged_chunk_attention_plain, q, kq, vq,
+                       (tables, hist, clen), clen)
 
 
 def _tree_masks(width, n_slots, branches, seed):
@@ -168,7 +235,7 @@ def _tree_masks(width, n_slots, branches, seed):
     return masks, sizes
 
 
-@pytest.mark.parametrize("width,hq,hkv,d,pg,branches,hists", [
+TREE_CASES = [
     # the serving shape: llama3_1b heads, 64-row pages, a 1 + 4 x 2 tree
     # in the 16-wide bucket, mid-page and long histories, an empty slot
     (16, 32, 8, 64, 64, 2, [0, 1, 63, 1000]),
@@ -176,9 +243,10 @@ def _tree_masks(width, n_slots, branches, seed):
     (32, 4, 4, 64, 16, 4, [17, 300]),            # width 32, group 1
     (8, 16, 1, 64, 64, 3, [129, 0, 64]),         # group 16
     (32, 8, 2, 128, 64, 2, [0, 70, 700]),        # width 32, hd 128
-])
-def test_paged_tree_kernel_matches_plain(dev, width, hq, hkv, d, pg, branches,
-                                         hists):
+]
+
+
+def _tree_case(dev, width, hq, hkv, d, pg, branches, hists):
     gen = torch.Generator(device=dev).manual_seed(0)
     b = len(hists)
     masks, sizes = _tree_masks(width, b, branches, seed=width + hq)
@@ -199,18 +267,32 @@ def test_paged_tree_kernel_matches_plain(dev, width, hq, hkv, d, pg, branches,
     kp, vp = (_randn(gen, dev, hkv, n_pages, pg, d) for _ in range(2))
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, hist, clen, masks
+
+
+@pytest.mark.parametrize("width,hq,hkv,d,pg,branches,hists", TREE_CASES)
+def test_paged_tree_kernel_matches_plain(dev, width, hq, hkv, d, pg, branches,
+                                         hists):
+    q, kp, vp, tables, hist, clen, masks = _tree_case(
+        dev, width, hq, hkv, d, pg, branches, hists)
     before = paged_tree_attention.launches
     out = paged_tree_attention(q, kp, vp, tables, hist, clen, masks)
     assert paged_tree_attention.launches == before + 1
-    ref = paged_tree_attention_plain(q, kp, vp, tables, hist, clen,
-                                     masks).float()
-    limit = (ATOL + RTOL * ref.abs() + P_ROUND * paged_tree_attention_plain(
-        q, kp, vp.abs(), tables, hist, clen, masks).float())
-    excess = ((out.float() - ref).abs() / limit).max().item()
-    assert excess <= 1.0, f"worst err / limit {excess}"
-    padding = torch.arange(width, device=dev)[None, :] >= clen[:, None]
-    if padding.any():                  # padding rows and empty slots: zeros
-        assert out[padding].abs().max().item() == 0.0
+    _assert_chunk_like(out, paged_tree_attention_plain, q, kp, vp,
+                       (tables, hist, clen, masks), clen)
+
+
+@pytest.mark.parametrize("width,hq,hkv,d,pg,branches,hists", TREE_CASES)
+def test_paged_tree_int8_kernel_matches_plain(dev, width, hq, hkv, d, pg,
+                                              branches, hists):
+    q, kp, vp, tables, hist, clen, masks = _tree_case(
+        dev, width, hq, hkv, d, pg, branches, hists)
+    kq, vq = quantize_pool(kp), quantize_pool(vp)
+    before = paged_tree_attention.launches_int8
+    out = paged_tree_attention(q, kq, vq, tables, hist, clen, masks)
+    assert paged_tree_attention.launches_int8 == before + 1
+    _assert_chunk_like(out, paged_tree_attention_plain, q, kq, vq,
+                       (tables, hist, clen, masks), clen)
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -245,3 +327,29 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="tree_masks"):
         paged_tree_attention(qc, pool, pool, tables.int(), lengths, lengths,
                              torch.ones(2, 5, dtype=torch.int64, device=dev))
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    qd = torch.zeros(2, 4, 64, device=dev, dtype=torch.bfloat16)
+    pool = torch.zeros(1, 3, 8, 64, device=dev, dtype=torch.bfloat16)
+    quant = quantize_pool(pool)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="plain or both quantized"):
+        paged_decode_attention(qd, quant, pool, tables, lengths)
+    with pytest.raises(TypeError, match="float32"):
+        paged_decode_attention(qd, quant, {"q": quant["q"],
+                                           "s": quant["s"].double()},
+                               tables, lengths)
+    with pytest.raises(ValueError, match=r"\[Hkv, Np, pg, 1\]"):
+        paged_decode_attention(qd, quant, {"q": quant["q"],
+                                           "s": quant["s"][..., 0]},
+                               tables, lengths)
+    with pytest.raises(TypeError, match="int8"):
+        paged_decode_attention(qd, quant, {"q": quant["q"].to(torch.uint8),
+                                           "s": quant["s"]}, tables, lengths)
+    qc = torch.zeros(2, 5, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.ones(1, 3, 8, 2, device=dev)[..., :1]
+        paged_chunk_attention(qc, quant, {"q": quant["q"], "s": strided},
+                              tables, lengths, lengths)
