@@ -17,16 +17,23 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              ragged lengths; then the int8 branch of each paged kernel on
              ``quantize_pool`` of the same pools, against the plain
              version over the dequantized view: seven rows. CUDA event
-             times (median of 25 after warm-up) of the kernel, the plain
-             version and one PyTorch library call of the same function
-             (for int8, SDPA on the view dequantized beforehand, untimed),
-             and the roofline bound of the work. A planted fault (a
+             times (median of 25 after warm-up, ``ms``: the call, its
+             Python wrapper included) of the kernel, the plain version
+             and one PyTorch library call of the same function (for
+             int8, SDPA on the view dequantized beforehand, untimed);
+             ``torch.profiler`` device times of the kernel and of all of
+             the library call's kernels (``device_ms``,
+             ``library_device_ms``); the roofline bound of the work, and
+             the split count S the wrapper chose. A planted fault (a
              shortened length, a dropped or swapped page, causal masks in
              place of tree masks, and for int8 the V scales shifted one
              row within each page) must fail the same check. The tree
              kernel must also leave every node outside a poisoned sibling
              branch bit for bit unchanged, and give the chunk kernel's
-             output on a chain, in both forms.
+             output bit for bit on a chain and under causal masks, in
+             both forms. Then the same checks and times for one request
+             (B=1, S=8): decode over 2047 rows, a tree verify over 1900
+             history rows, both forms (their own kernel lines).
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions on
@@ -110,7 +117,9 @@ def emit(obj: dict) -> None:
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
-    """Median CUDA-event time of one call of ``fn``."""
+    """Median CUDA-event time of one call of ``fn``: the call's time,
+    its Python wrapper and launch included (the card is idle when each
+    call starts)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -125,6 +134,40 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, warmup: int = 3, iters: int = 25) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels (and copies) it ran on the card, from ``torch.profiler`` over
+    ``iters`` calls after warm-up — the median per call when every call
+    ran the same number of them, else the mean. Host time is left out.
+    A trace that holds no device event at all (the profiler drops one now
+    and then) is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device time in "
+                             "three traces")
+    if len(spans) % iters:
+        return sum(end - start for start, end in spans) / iters / 1e3
+    k = len(spans) // iters
+    return statistics.median(
+        sum(end - start for start, end in spans[i:i + k])
+        for i in range(0, len(spans), k)) / 1e3
 
 
 def check(out, ref, extra=0.0) -> tuple[float, list]:
@@ -218,6 +261,9 @@ def kernel_flash(dev, gen) -> dict:
                                                      kv_lengths=lens))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, kv_lengths=lens))
+    library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
     # flops: 2 products x 2 flops x D per visible (row, col) per q head;
     # row r of batch b sees min(r + 1, kv_len) columns.
     # bytes: q and out once, the K/V rows below kv_len once, lengths.
@@ -230,9 +276,10 @@ def kernel_flash(dev, gen) -> dict:
     row = {"name": "flash_attention", "route": "cuda",
            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
            "replaces": "gofr_tpu/ops/flash_attention.py:33",
-           "max_abs_err": err, "ms": ms,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_device_ms": library_dev_ms}
     emit({"phase": "kernel", "shape": "P=4 S=512 Hq=32 Hkv=8 D=64 bf16, "
           "kv_lengths 1/200/511/512", "kernel_ms": ms, **row})
     return row
@@ -275,16 +322,17 @@ def _int8_fields(quantized: bool, name: str, replaces: tuple, shape: str):
             shape + " int8 {q, s} = quantize_pool of the bf16 pools")
 
 
-def kernel_paged(dev, gen) -> list:
+def kernel_paged(dev, gen, lens_l: list, seed: int, shape: str) -> list:
     """The paged decode kernel, on a bf16 pool and on ``quantize_pool``
-    of the same pool: one row each."""
+    of the same pool: one row each. Llama-3.2-1B heads, 64-row pages,
+    256 pages, tables as wide as the longest slot (OOB-padded)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
-    b, hq, hkv, d, pg, n_pages = 8, 32, 8, 64, 64, 256
-    lens_l = [0, 1, 63, 64, 65, 1500, 300, 1000]
+    b, hq, hkv, d, pg, n_pages = len(lens_l), 32, 8, 64, 64, 256
     mp = -(-max(lens_l) // pg)
     tables = torch.full((b, mp), n_pages, dtype=torch.int32)
-    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(2))
+    perm = torch.randperm(n_pages,
+                          generator=torch.Generator().manual_seed(seed))
     used = 0
     for i, n in enumerate(lens_l):
         need = -(-n // pg)
@@ -295,16 +343,16 @@ def kernel_paged(dev, gen) -> list:
     q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
     kp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
-    return [_paged_row(q, kp, vp, tables, lens, pg),
+    return [_paged_row(q, kp, vp, tables, lens, pg, shape),
             _paged_row(q, quantize_pool(kp), quantize_pool(vp), tables, lens,
-                       pg)]
+                       pg, shape)]
 
 
-def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
+def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        kv_splits, paged_decode_attention, paged_decode_attention_plain)
     quantized = isinstance(kp, dict)
     b, hq, d = q.shape
     hkv, mp = (kp["q"] if quantized else kp).shape[0], tables.shape[1]
@@ -312,9 +360,7 @@ def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
     name, replaces, shape = _int8_fields(
         quantized, "paged_decode_attention",
         ("gofr_tpu/ops/paged_attention.py:134",
-         "gofr_tpu/ops/paged_attention.py:138"),
-        "B=8 Hq=32 Hkv=8 hd=64 pg=64 Np=256, lengths "
-        "0/1/63/64/65/1500/300/1000, OOB-padded tables,")
+         "gofr_tpu/ops/paged_attention.py:138"), shape)
     out = paged_decode_attention(q, kp, vp, tables, lens)
     ref = paged_decode_attention_plain(q, kp, vp, tables, lens)
     err, ratios = check(out, ref)
@@ -334,9 +380,11 @@ def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
           "worst_ratio_per_slot": ratios,
           **{f"planted_fault_{k}_worst_ratio_per_slot": v
              for k, v in faults.items()}})
-    if max(ratios) > 1.0 or out[0].abs().max().item() != 0.0:
+    empty_zero = all(out[i].abs().max().item() == 0.0
+                     for i, n in enumerate(lens_l) if n == 0)
+    if max(ratios) > 1.0 or not empty_zero:
         raise AssertionError(f"{name} kernel vs plain: worst err/limit per "
-                             f"slot {ratios} > 1, or the zero-length slot is "
+                             f"slot {ratios} > 1, or a zero-length slot is "
                              f"not exactly zero")
     if any(r <= 1.0 for a, b_, r in zip(lens_l, cut.tolist(), fault_ratios)
            if a != b_):
@@ -360,6 +408,10 @@ def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
         q, kp, vp, tables, lens))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kt, vt, attn_mask=mask))
+    dev_ms = device_ms(lambda: paged_decode_attention(q, kp, vp, tables,
+                                                      lens))
+    library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q4, kt, vt, attn_mask=mask))
     # bytes: K and V rows below each length (bf16: 2·len·hd·2 per KV
     # head; int8: 2·len·(hd + 4)), q, out, the table entries walked,
     # lengths; flops: 4·hd per row per q head
@@ -371,9 +423,11 @@ def _paged_row(q, kp, vp, tables, lens, pg) -> dict:
     row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_decode.cu",
            "replaces": replaces,
-           "max_abs_err": err, "ms": ms,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_device_ms": library_dev_ms,
+           "splits": kv_splits("decode", b, 1, hq, hkv, mp, pg)}
     if quantized:
         row["library_note"] = ("SDPA on the gathered view dequantized to "
                                "bf16 beforehand (dequantization not timed)")
@@ -422,7 +476,7 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.paged_attention import (
-        paged_chunk_attention, paged_chunk_attention_plain)
+        kv_splits, paged_chunk_attention, paged_chunk_attention_plain)
     quantized = isinstance(kp, dict)
     b, sq, hq, d = q.shape
     hkv, mp = (kp["q"] if quantized else kp).shape[0], tables.shape[1]
@@ -485,6 +539,9 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
     plain_ms = time_ms(lambda: paged_chunk_attention_plain(*args))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
+    dev_ms = device_ms(lambda: paged_chunk_attention(*args))
+    library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
     # flops: 4·hd per visible (row, position) per q head; chunk row i of
     # slot b sees history + i + 1 positions (within the table).
     # bytes: the q rows of each chunk once, all of out once, the K/V rows
@@ -500,9 +557,11 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
     row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
            "replaces": replaces,
-           "max_abs_err": err, "ms": ms,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_device_ms": library_dev_ms,
+           "splits": kv_splits("chunk", b, sq, hq, hkv, mp, pg)}
     if quantized:
         row["library_note"] = ("SDPA on the gathered view dequantized to "
                                "bf16 beforehand (dequantization not timed)")
@@ -538,6 +597,15 @@ def _tree_slots():
             for h, t, c in slots]
 
 
+def _tree_slot_b1():
+    """One request's verify over a long history: a 1 + 4 x 2 draft tree
+    after 1900 history rows."""
+    from gofr_tpu_torch.serving.spec import build_draft_tree
+    tree = build_draft_tree(1, [list(range(1000, 1004)),
+                                list(range(1004, 1008))])
+    return [(1900, tree, tree.n_nodes)]
+
+
 def _poison_fork(tree, clen):
     """The last node (below ``clen``) whose parent has an earlier child:
     the root of a sibling branch, or None for a chain."""
@@ -546,15 +614,16 @@ def _poison_fork(tree, clen):
     return forks[-1] if forks else None
 
 
-def kernel_tree(dev, gen) -> list:
+def kernel_tree(dev, gen, slots: list, seed: int, shape: str,
+                chain_slot: int | None) -> list:
     """The paged tree kernel, on a bf16 pool and on ``quantize_pool`` of
-    the same pool: one row each."""
+    the same pool: one row each. ``chain_slot``: a slot whose tree is a
+    chain, held bit for bit against the chunk kernel."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
-    # the verify pass's shapes: 8 slots, width 16 (the pow-2 bucket of a
-    # 1 + 4 x 2 tree), llama3_1b heads, 64-row pages, tables of 32 pages
+    # the verify pass's shapes: width 16 (the pow-2 bucket of a 1 + 4 x 2
+    # tree), llama3_1b heads, 64-row pages, tables of 32 pages
     w, hq, hkv, d, pg, n_pages, mp = 16, 32, 8, 64, 64, 256, 32
-    slots = _tree_slots()
     b = len(slots)
     hists = [h for h, _, _ in slots]
     clens = [c for _, _, c in slots]
@@ -567,7 +636,8 @@ def kernel_tree(dev, gen) -> list:
     causal = torch.cumsum(1 << torch.arange(w), 0).to(torch.int32)
     causal = causal[None].expand(b, w).contiguous()
     tables = torch.full((b, mp), n_pages, dtype=torch.int32)
-    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(4))
+    perm = torch.randperm(n_pages,
+                          generator=torch.Generator().manual_seed(seed))
     used = 0
     for i, (h, c) in enumerate(zip(hists, clens)):
         need = -(-(h + c) // pg)
@@ -579,7 +649,7 @@ def kernel_tree(dev, gen) -> list:
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
-    case = (tables, hist, clen, masks, causal, slots, pg)
+    case = (tables, hist, clen, masks, causal, slots, pg, shape, chain_slot)
     return [_tree_row(q, kp, vp, *case),
             _tree_row(q, quantize_pool(kp), quantize_pool(vp), *case)]
 
@@ -600,12 +670,12 @@ def _poisoned(pool, rows, value: float):
     return out
 
 
-def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
-              pg) -> dict:
+def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots, pg,
+              shape, chain_slot) -> dict:
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.paged_attention import (
-        paged_chunk_attention, paged_tree_attention,
+        kv_splits, paged_chunk_attention, paged_tree_attention,
         paged_tree_attention_plain)
     quantized = isinstance(kp, dict)
     b, w, hq, d = q.shape
@@ -615,8 +685,7 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
         quantized, "paged_tree_attention",
         ("gofr_tpu/ops/paged_attention.py:614",
          "gofr_tpu/ops/paged_attention.py:619"),
-        "B=8 W=16 Hq=32 Hkv=8 hd=64 pg=64 Np=256 Mp=32, histories "
-        f"0/1/63/64/65/1500/300/1000, chunks {clens}, OOB-padded tables,")
+        f"{shape}, chunks {clens}, OOB-padded tables,")
     args = (q, kp, vp, tables, hist, clen)
     out = paged_tree_attention(*args, masks)
     ref = paged_tree_attention_plain(*args, masks)
@@ -634,15 +703,19 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
         shifted_ratios = check(shifted, ref, p_term)[1]
     branching = [i for i, (_, t, c) in enumerate(slots)
                  if t is not None and _poison_fork(t, c) is not None]
-    empty_zero = out[0].abs().max().item() == 0.0
+    empty_zero = all(out[i].abs().max().item() == 0.0
+                     for i, c in enumerate(clens) if c == 0)
     # chain check: a chain's masks are the causal ones, so the chunk
     # kernel on the same inputs is the reference; with causal masks in
-    # every slot the two kernels run the same walk
+    # every slot the two kernels run the same walk (the same splits)
     chunk = paged_chunk_attention(*args)
-    _, chain_ratios = check(out[3:4], chunk[3:4].float(),
-                            p_term[3:4])
-    chain_bitwise = bool(torch.equal(out[3], chunk[3]))
     causal_bitwise = bool(torch.equal(fault, chunk))
+    chain_ratios, chain_bitwise = [0.0], True
+    if chain_slot is not None:
+        i = chain_slot
+        _, chain_ratios = check(out[i:i + 1], chunk[i:i + 1].float(),
+                                p_term[i:i + 1])
+        chain_bitwise = bool(torch.equal(out[i], chunk[i]))
     # invariance: poison each branching slot's last sibling branch (its
     # K and V rows) with large finite values; every node that does not
     # descend from it must come back bit for bit the same
@@ -691,6 +764,10 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
     if not all(unchanged.values()) or not poison_finite:
         raise AssertionError(f"{name}: poisoning a sibling branch moved "
                              f"other nodes: {unchanged}")
+    if not chain_bitwise or not causal_bitwise:
+        raise AssertionError(f"{name}: not bit for bit the chunk kernel "
+                             f"(chain slot {chain_bitwise}, causal masks "
+                             f"{causal_bitwise})")
     # library yardstick: SDPA on the gathered view (an int8 pool
     # dequantized beforehand), GQA expanded, the tree visibility as a
     # boolean mask, all built outside the timed call
@@ -707,6 +784,9 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
     ms = time_ms(lambda: paged_tree_attention(*args, masks))
     plain_ms = time_ms(lambda: paged_tree_attention_plain(*args, masks))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    dev_ms = device_ms(lambda: paged_tree_attention(*args, masks))
+    library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     # flops: 4·hd per visible (node, position) per q head; node i of
     # slot b sees the history and popcount(mask_i) tree rows.
@@ -727,9 +807,11 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots,
     row = {"name": name, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
            "replaces": replaces,
-           "max_abs_err": err, "ms": ms,
+           "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library_device_ms": library_dev_ms,
+           "splits": kv_splits("tree", b, w, hq, hkv, mp, pg)}
     if quantized:
         row["library_note"] = ("SDPA on the gathered view dequantized to "
                                "bf16 beforehand (dequantization not timed)")
@@ -1484,10 +1566,23 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     # each paged kernel's check gives its bf16 row, then its int8 row
-    paged = [kernel_paged(dev, gen), kernel_chunk(dev, gen),
-             kernel_tree(dev, gen)]
+    paged = [kernel_paged(dev, gen, [0, 1, 63, 64, 65, 1500, 300, 1000], 2,
+                          "B=8 Hq=32 Hkv=8 hd=64 pg=64 Np=256, lengths "
+                          "0/1/63/64/65/1500/300/1000, OOB-padded tables,"),
+             kernel_chunk(dev, gen),
+             kernel_tree(dev, gen, _tree_slots(), 4,
+                         "B=8 W=16 Hq=32 Hkv=8 hd=64 pg=64 Np=256 Mp=32, "
+                         "histories 0/1/63/64/65/1500/300/1000", 3)]
     rows = [kernel_flash(dev, gen)] + [r[0] for r in paged] \
         + [r[1] for r in paged]
+    # single-request latency, where split-KV matters most: one slot of
+    # 2047 rows in decode, one verify over 1900 history rows; printed as
+    # their own kernel lines, checked as the rows above
+    kernel_paged(dev, gen, [2047], 5, "B=1 Hq=32 Hkv=8 hd=64 pg=64 Np=256, "
+                 "length 2047 (one request),")
+    kernel_tree(dev, gen, _tree_slot_b1(), 6,
+                "B=1 W=16 Hq=32 Hkv=8 hd=64 pg=64 Np=256 Mp=32, history "
+                "1900 (one request)", None)
     phase_model(dev)
     phase_model_chunk(dev)
     phase_model_spec(dev)
@@ -1499,7 +1594,8 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

@@ -44,29 +44,50 @@
 // bound by HBM (3.35 TB/s), reading the history once. So the
 // design puts both products on the tensor cores and reads each input
 // once per group of query heads:
-//   - one block of 4 warps per (tile of BQ query positions, KV head,
-//     slot); the tile's BQ x group query rows are packed into the 64
-//     rows of the block (BQ = 64 / group: 16 positions x 4 heads for
+//   - one block of 4 warps per (split, tile of BQ query positions, KV
+//     head, slot); the tile's BQ x group query rows are packed into the
+//     64 rows of the block (BQ = 64 / group: 16 positions x 4 heads for
 //     Llama-3.2-1B), so every K/V row brought on chip serves all the
 //     query heads of its KV head, as the decode kernel does;
-//   - the block loads its own table entries and walks 64-row K/V tiles
-//     only up to history + min(end of its tile, chunk), the last
-//     position any of its rows can see; a tile wholly past chunk[b]
-//     writes zeros and exits without reading the pool;
+//   - split-KV: the block walks 64-row K/V tiles up to history +
+//     min(end of its tile, chunk), the last position any of its rows
+//     can see, and with S splits (grid x = q tiles x S) split s takes
+//     its share of those tiles. The wrapper picks S from the shapes
+//     alone (ops/paged_attention.kv_splits: about two waves of blocks
+//     on 132 SMs, S = 1 when the grid is already that large, as at a
+//     1024-row chunk). The S splits of a q tile are one thread-block
+//     cluster; each leaves its float32 (m, l, o) per row in shared
+//     memory, and after a cluster barrier every split merges a share of
+//     the rows from all S partials through distributed shared memory,
+//     in split order, as the decode kernel does. So a tree verify at
+//     small batch (one q tile per slot) spreads its long histories over
+//     S blocks, and the chunk and tree modes, seeing the same shapes,
+//     take the same S and the same walk. With S = 1 the arithmetic is
+//     the unsplit kernel's, bit for bit;
+//   - a tile wholly past chunk[b] writes zeros and exits without reading
+//     the pool (uniform over its cluster: all its splits share the tile);
+//   - K and V tiles are staged row-major with 16-byte cp.async, double
+//     buffered: tile j + 1 is in flight while tile j is multiplied, and
+//     the table entries of tile j + 2 are read before tile j's math; a
+//     position past the walk limit is zero-filled by the copy itself;
 //   - Q K^T and P V run on mma.sync m16n8k16 (bf16 in, f32 accumulate)
 //     with the fragment layouts of flash_attention.cu (mma_bf16.cuh):
-//     Q fragments stay in registers, V is staged transposed with rows
-//     padded by 8 against bank conflicts, and the S fragment re-packs
-//     in registers as the A fragment of P V; online softmax state is
-//     float32 in registers;
+//     Q fragments stay in registers, K is read as B fragments from its
+//     row-major tile, P V's B fragments come from the row-major V tile
+//     through ldmatrix.x4.trans (rows padded by 8 against bank
+//     conflicts), and the S fragment re-packs in registers as the A
+//     fragment of P V; online softmax state is float32 in registers;
 //   - the visibility test is one device function (`visible`): each of a
 //     thread's two query rows carries its history, horizon and, for a
-//     tree, its 32-bit ancestor mask, loaded once per block row.
+//     tree, its 32-bit ancestor mask, loaded once per block row. A
+//     thread tests its 32 elements of a tile once, into a bit mask that
+//     both softmax passes read; a tile wholly below the history is seen
+//     in full by every live row and skips the test.
 // The q tiles of one slot re-read its history: the K/V of a slot at
 // 2048 rows is 4 MiB per layer, so the re-reads come from the 50 MB
-// L2, not HBM. A tree verify at Sq <= 64 / group is one q tile, so it
-// launches only B x Hkv blocks, which under-fills the 132 SMs at small
-// batch.
+// L2, not HBM. What bounds it now: at a 1024-row chunk, the mma.sync
+// issue rate (no wgmma yet); at a tree verify, a split's few dependent
+// tiles and the cluster merge.
 //
 // The int8 pool. A row stands for codes * scale, one float32 scale per
 // row, and the function is the TPU kernel's: k = codes * s_k and v =
@@ -78,21 +99,19 @@
 // of dequantizing into bf16, which would round every c * s to 8 bits of
 // mantissa (an error neither the float32 plain version nor the TPU
 // kernel has):
-//   - |code| <= 127 < 2^8, so a code converts to bf16 exactly; a tile's
-//     codes (one 16-byte load = 16 codes) go into the same `ks` / `vt`
-//     shared tiles as bf16 K and V, and mma.sync runs unchanged;
+//   - the raw codes are staged (cp.async, double buffered) and widened
+//     in one pass into bf16 K and V tiles: |code| <= 127 < 2^8, so a
+//     code converts to bf16 exactly, and mma.sync runs unchanged;
 //   - S[i, j] = s_k[j] * sum_d q[i, d] c_k[j, d]: each S column is
 //     multiplied by scale * s_k[pos] where the bf16 kernel multiplies
 //     by scale; P V packs p * s_v[pos] into the A fragment, while l
 //     sums the unscaled p;
-//   - each tile's 64 K and 64 V scales are staged in shared memory from
-//     the same clamped page id and offset as the codes; positions past
-//     the walk limit get codes 0 and scale 0, so a masked position adds
-//     0 * 0 and never 0 * a garbage scale (0 * inf = NaN).
-// Not yet: cp.async / TMA double buffering of the next K/V tile, wgmma,
-// splitting long histories across blocks (split-KV, what a tree verify
-// at small batch needs most) — the later work toward the bound.
+//   - each tile's 64 K and 64 V scales are staged beside the codes from
+//     the same clamped page id and offset; positions past the walk
+//     limit get codes 0 and scale 0, so a masked position adds 0 * 0
+//     and never 0 * a garbage scale (0 * inf = NaN).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,6 +119,9 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "paged_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -119,10 +141,18 @@ struct RowView {
                   // of this node or the node itself
 };
 
-// Code e (0..15) of a 16-byte load of int8 codes, as a float (exact).
-__device__ __forceinline__ float code(const uint4& w, int e) {
-  const uint32_t word = e < 4 ? w.x : e < 8 ? w.y : e < 12 ? w.z : w.w;
-  return static_cast<float>(static_cast<int8_t>(word >> (8 * (e & 3))));
+// 16 int8 codes (one 16-byte word) -> 16 bf16 values, exactly: |code| <=
+// 127 < 2^8 fits bf16's 8-bit significand. lo holds codes 0-7, hi 8-15.
+__device__ __forceinline__ void widen_codes(const uint4& w, uint4& lo,
+                                            uint4& hi) {
+  lo = make_uint4(pack_bf16x2(code(w, 0), code(w, 1)),
+                  pack_bf16x2(code(w, 2), code(w, 3)),
+                  pack_bf16x2(code(w, 4), code(w, 5)),
+                  pack_bf16x2(code(w, 6), code(w, 7)));
+  hi = make_uint4(pack_bf16x2(code(w, 8), code(w, 9)),
+                  pack_bf16x2(code(w, 10), code(w, 11)),
+                  pack_bf16x2(code(w, 12), code(w, 13)),
+                  pack_bf16x2(code(w, 14), code(w, 15)));
 }
 
 // Position `pos` of the slot is visible to the row. Chunk: its history
@@ -138,10 +168,29 @@ __device__ __forceinline__ bool visible(const RowView& r, int pos) {
   return pos <= r.q_pos && pos < r.kv_end;
 }
 
+// Shared-memory plan (byte offsets), shared by the kernel and its
+// launcher. bf16: K and V tiles [2 stages][BK][KP]. int8: raw code tiles
+// [2 stages][K|V][BK * D], one widened bf16 K/V pair [K|V][BK][KP], and
+// the row scales [2 stages][K|V][BK]. The Q tile is staged through the
+// second stage's K tile (int8: the widened K tile) before the walk, and
+// the merge's partials [ROWS][D + 8] + m, l [ROWS] reuse the start of
+// the area after it.
+template <int D, bool Q8>
+struct Plan {
+  static constexpr int KP = D + 8;              // padded bf16 row stride
+  static constexpr size_t TILE = (size_t)BK * KP * 2;   // bytes, one side
+  static constexpr size_t RAW = (size_t)BK * D;         // bytes, one side
+  static constexpr size_t WIDE = Q8 ? 4 * RAW : 0;      // bf16 tiles start
+  static constexpr size_t SCALES = Q8 ? WIDE + 2 * TILE : 0;
+  static constexpr size_t STAGED = Q8 ? SCALES + 4 * BK * 4 : 4 * TILE;
+  static constexpr size_t MERGE = (size_t)ROWS * (D + 8) * 4 + 2 * ROWS * 4;
+  static constexpr size_t TOTAL = STAGED > MERGE ? STAGED : MERGE;
+};
+
 // Q8: the pages are int8 codes with a float32 scale per row
 // (k_scales / v_scales [Hkv, Np, page, 1]); else bf16, scales unused.
 template <int D, bool TREE, bool Q8>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 paged_chunk(const __nv_bfloat16* __restrict__ q,
             const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ k_pool,
             const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ v_pool,
@@ -153,23 +202,30 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
             const int* __restrict__ tree_masks,   // [B, Sq]; unused for a chunk
             __nv_bfloat16* __restrict__ out,
             int Sq, int Hq, int Hkv, int n_pages, int page, int max_pages,
-            float scale) {
+            int n_splits, float scale) {
   using T = std::conditional_t<Q8, int8_t, __nv_bfloat16>;
-  constexpr int KP = D + 8;    // padded row stride of the Q/K tile
-  constexpr int VP = BK + 8;   // padded row stride of the transposed V tile
+  using P = Plan<D, Q8>;
+  constexpr int KP = P::KP;
   constexpr int CPR = D / 8;   // 16-byte chunks per bf16 row
   constexpr int EPL = 16 / sizeof(T);          // pool elements per 16-byte load
   constexpr int LPR = D / EPL;                 // 16-byte loads per pool row
+  constexpr int PER = BK * LPR / NTHREADS;     // loads per thread per side per tile
+  constexpr int NPID = PER + (Q8 ? 1 : 0);     // table entries a thread reads per tile
   constexpr int KC = D / 16;   // k-steps of Q K^T
   constexpr int NS = BK / 8;   // n-tiles of S
   constexpr int NO = D / 8;    // n-tiles of O
-  static_assert(ROWS == BK, "the Q tile is staged through the K buffer");
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * VP];
-  // Q8: the tile's row scales (0 past the walk limit)
-  __shared__ float kss[Q8 ? BK : 1], vss[Q8 ? BK : 1];
+  static_assert(ROWS == BK, "the Q tile is staged through a K tile");
+  static_assert(NTHREADS == 2 * BK, "one thread per K or V row scale");
+  static_assert(NO % 2 == 0, "ldmatrix.x4 covers two n-tiles of O");
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage s of a bf16 pool: K at tile(2 s), V at tile(2 s + 1)
+  __nv_bfloat16* const tiles = reinterpret_cast<__nv_bfloat16*>(smem + P::WIDE);
+  int8_t* const raw = reinterpret_cast<int8_t*>(smem);                // Q8
+  float* const scl = reinterpret_cast<float*>(smem + P::SCALES);      // Q8
+  auto tile = [&](int i) { return tiles + (size_t)i * BK * KP; };
 
-  const int qt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x % n_splits, qt = blockIdx.x / n_splits;
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int group = Hq / Hkv;
   const int bq = ROWS / group;          // query positions per block
   const int live_rows = bq * group;     // block rows holding a query row
@@ -187,33 +243,94 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ob = out + head0;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  if (i0 >= clen) {   // the whole tile is padding
-    for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
-      const int r = i / CPR, c = i % CPR, qi = i0 + r / group;
-      if (r < live_rows && qi < Sq)
-        *reinterpret_cast<uint4*>(ob + (size_t)qi * q_rs + (r % group) * D + c * 8) = zero;
+  if (i0 >= clen) {   // the whole tile is padding (every split of it)
+    if (split == 0) {
+      for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
+        const int r = i / CPR, c = i % CPR, qi = i0 + r / group;
+        if (r < live_rows && qi < Sq)
+          *reinterpret_cast<uint4*>(ob + (size_t)qi * q_rs + (r % group) * D + c * 8) = zero;
+      }
     }
     return;
   }
 
-  // stage the Q tile through the K buffer, keep its A fragments
+  // the last position any row of the tile can see, plus one, and this
+  // split's share of the 64-row tiles below it
+  const int kv_limit = min(hist + min(i0 + bq, clen), max_pages * page);
+  const int n_tiles = (kv_limit + BK - 1) / BK;
+  const int per = (n_tiles + n_splits - 1) / n_splits;
+  const int j0 = min(split * per, n_tiles), j1 = min(j0 + per, n_tiles);
+
+  const size_t page_elems = (size_t)page * D;
+  const T* kh = k_pool + (size_t)hk * n_pages * page_elems;
+  const T* vh = v_pool + (size_t)hk * n_pages * page_elems;
+  const int* table = tables + (size_t)b * max_pages;
+
+  // the table ids of this thread's rows of the tile at c0 (-1: past the
+  // walk limit): load k covers row (tid + k NTHREADS) / LPR, and for
+  // int8 entry PER is the row of this thread's scale, tid % BK
+  auto lookup = [&](int c0, int* pid) {
+#pragma unroll
+    for (int k = 0; k < NPID; ++k) {
+      const int r = k < PER ? (tid + k * NTHREADS) / LPR : tid % BK;
+      const int pos = c0 + r;
+      pid[k] = pos < kv_limit ? min(max(table[pos / page], 0), n_pages - 1) : -1;
+    }
+  };
+  // issue the copies of the tile at c0 into stage st
+  auto issue = [&](int c0, const int* pid, int st) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * NTHREADS, r = i / LPR, c = i % LPR, pos = c0 + r;
+      const size_t off = pid[k] >= 0
+          ? (size_t)pid[k] * page_elems + (size_t)(pos % page) * D + c * EPL : 0;
+      const int n = pid[k] >= 0 ? 16 : 0;
+      if (Q8) {
+        cp_async16(raw + (2 * st) * P::RAW + r * D + c * 16, kh + off, n);
+        cp_async16(raw + (2 * st + 1) * P::RAW + r * D + c * 16, vh + off, n);
+      } else {
+        cp_async16(tile(2 * st) + r * KP + c * 8, kh + off, n);
+        cp_async16(tile(2 * st + 1) + r * KP + c * 8, vh + off, n);
+      }
+    }
+    if (Q8) {
+      const int r = tid % BK, side = tid / BK, pos = c0 + r;
+      const int pid_s = pid[PER];
+      const size_t srow = pid_s >= 0
+          ? ((size_t)hk * n_pages + pid_s) * page + pos % page : 0;
+      cp_async4(scl + (2 * st + side) * BK + r,
+                (side ? v_scales : k_scales) + srow, pid_s >= 0 ? 4 : 0);
+    }
+  };
+
+  // stage the Q tile (padding rows as zeros), and the walk's first tile
+  __nv_bfloat16* const qtile = Q8 ? tile(0) : tile(2);
   for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
     const int r = i / CPR, c = i % CPR, qi = i0 + r / group;
-    uint4 val = zero;
-    if (r < live_rows && qi < clen)
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)qi * q_rs + (r % group) * D + c * 8);
-    *reinterpret_cast<uint4*>(&ks[r * KP + c * 8]) = val;
+    const bool live = r < live_rows && qi < clen;
+    cp_async16(qtile + r * KP + c * 8,
+               live ? qb + (size_t)qi * q_rs + (r % group) * D + c * 8 : qb,
+               live ? 16 : 0);
   }
+  cp_async_commit();
+  int pid[NPID];
+  if (j0 < j1) {
+    lookup(j0 * BK, pid);
+    issue(j0 * BK, pid, 0);
+    if (j0 + 1 < j1) lookup((j0 + 1) * BK, pid);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();   // the Q tile
   __syncthreads();
   const int wr = warp * 16;
   uint32_t qa[KC][4];
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
     const int col = kc * 16 + tig * 2;
-    qa[kc][0] = ld_u32(&ks[(wr + gid) * KP + col]);
-    qa[kc][1] = ld_u32(&ks[(wr + gid + 8) * KP + col]);
-    qa[kc][2] = ld_u32(&ks[(wr + gid) * KP + col + 8]);
-    qa[kc][3] = ld_u32(&ks[(wr + gid + 8) * KP + col + 8]);
+    qa[kc][0] = ld_u32(&qtile[(wr + gid) * KP + col]);
+    qa[kc][1] = ld_u32(&qtile[(wr + gid + 8) * KP + col]);
+    qa[kc][2] = ld_u32(&qtile[(wr + gid) * KP + col + 8]);
+    qa[kc][3] = ld_u32(&qtile[(wr + gid + 8) * KP + col + 8]);
   }
   __syncthreads();
 
@@ -230,9 +347,6 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
     rows[t].mask = (TREE && live)
         ? static_cast<unsigned>(tree_masks[(size_t)b * Sq + qi]) : 0u;
   }
-  // the last position any row of the tile can see, plus one
-  const int kv_limit = min(hist + min(i0 + bq, clen), max_pages * page);
-  const int n_tiles = (kv_limit + BK - 1) / BK;
 
   float o[NO][4];
 #pragma unroll
@@ -240,54 +354,41 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
 
-  const size_t page_elems = (size_t)page * D;
-  const T* kh = k_pool + (size_t)hk * n_pages * page_elems;
-  const T* vh = v_pool + (size_t)hk * n_pages * page_elems;
-  const int* table = tables + (size_t)b * max_pages;
-
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    if (j + 1 < j1) {
+      issue((j + 1) * BK, pid, st ^ 1);
+      if (j + 2 < j1) lookup((j + 2) * BK, pid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile j staged by every thread
     const int c0 = j * BK;
-    for (int i = tid; i < BK * LPR; i += NTHREADS) {
-      const int r = i / LPR, c = i % LPR, pos = c0 + r;
-      uint4 kval = zero, vval = zero;
-      if (pos < kv_limit) {
-        const int pid = min(max(table[pos / page], 0), n_pages - 1);
-        const size_t off = (size_t)pid * page_elems + (size_t)(pos % page) * D + c * EPL;
-        kval = *reinterpret_cast<const uint4*>(kh + off);
-        vval = *reinterpret_cast<const uint4*>(vh + off);
+    const __nv_bfloat16* ks;
+    const __nv_bfloat16* vs;
+    const float* kss = scl + (2 * st) * BK;
+    const float* vss = kss + BK;
+    if (Q8) {
+      // widen the raw codes once: 16 codes -> two 16-byte bf16 stores
+      const int8_t* kr = raw + (2 * st) * P::RAW;
+      const int8_t* vr = kr + P::RAW;
+      for (int i = tid; i < BK * D / 16; i += NTHREADS) {
+        const int r = i / (D / 16), c = 16 * (i % (D / 16));
+        uint4 lo, hi;
+        widen_codes(*reinterpret_cast<const uint4*>(kr + 16 * i), lo, hi);
+        *reinterpret_cast<uint4*>(tile(0) + r * KP + c) = lo;
+        *reinterpret_cast<uint4*>(tile(0) + r * KP + c + 8) = hi;
+        widen_codes(*reinterpret_cast<const uint4*>(vr + 16 * i), lo, hi);
+        *reinterpret_cast<uint4*>(tile(1) + r * KP + c) = lo;
+        *reinterpret_cast<uint4*>(tile(1) + r * KP + c + 8) = hi;
       }
-      if (Q8) {
-        // 16 codes -> 16 exact bf16 values: two 16-byte K stores, 16 V
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint4*>(&ks[r * KP + c * 16 + 8 * h]) = make_uint4(
-              pack_bf16x2(code(kval, 8 * h), code(kval, 8 * h + 1)),
-              pack_bf16x2(code(kval, 8 * h + 2), code(kval, 8 * h + 3)),
-              pack_bf16x2(code(kval, 8 * h + 4), code(kval, 8 * h + 5)),
-              pack_bf16x2(code(kval, 8 * h + 6), code(kval, 8 * h + 7)));
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          vt[(c * 16 + e) * VP + r] = __float2bfloat16_rn(code(vval, e));
-      } else {
-        *reinterpret_cast<uint4*>(&ks[r * KP + c * 8]) = kval;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vval);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) vt[(c * 8 + e) * VP + r] = ve[e];
-      }
+      __syncthreads();
+      ks = tile(0);
+      vs = tile(1);
+    } else {
+      ks = tile(2 * st);
+      vs = tile(2 * st + 1);
     }
-    if (Q8 && tid < BK) {
-      const int pos = c0 + tid;
-      float ksv = 0.f, vsv = 0.f;
-      if (pos < kv_limit) {
-        const int pid = min(max(table[pos / page], 0), n_pages - 1);
-        const size_t srow = ((size_t)hk * n_pages + pid) * page + pos % page;
-        ksv = k_scales[srow];
-        vsv = v_scales[srow];
-      }
-      kss[tid] = ksv;
-      vss[tid] = vsv;
-    }
-    __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 positions
     float s[NS][4];
@@ -302,15 +403,31 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
       }
     }
 
+    // which of this thread's 32 S elements its rows see: bit 4 n + e.
+    // A tile wholly below the history and the horizon is seen in full
+    // by every live row, in both modes (the same bits either way)
+    uint32_t vis = 0;
+    if (c0 + BK <= min(hist, kv_end)) {
+      vis = (rows[0].q_pos >= 0 ? 0x33333333u : 0u)
+          | (rows[1].q_pos >= 0 ? 0xccccccccu : 0u);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (visible<TREE>(rows[e >> 1], c0 + n * 8 + tig * 2 + (e & 1)))
+            vis |= 1u << (4 * n + e);
+    }
+
     // mask, then the online-softmax update
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tig * 2 + (e & 1), pos = c0 + col;
+        const int col = n * 8 + tig * 2 + (e & 1);
         const float sc = Q8 ? scale * kss[col] : scale;
-        const float val = visible<TREE>(rows[e >> 1], pos) ? s[n][e] * sc : NEG_INF;
+        const float val = (vis >> (4 * n + e)) & 1u ? s[n][e] * sc : NEG_INF;
         s[n][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -332,8 +449,8 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
         // s == m == NEG_INF, and exp(s - m) would be 1
         // the A fragment of P V takes column col of S: it carries
         // p * s_v[col] for an int8 tile, while l sums p
-        const int col = n * 8 + tig * 2 + (e & 1), pos = c0 + col;
-        const float p = visible<TREE>(rows[e >> 1], pos) ? __expf(s[n][e] - m[e >> 1]) : 0.f;
+        const int col = n * 8 + tig * 2 + (e & 1);
+        const float p = (vis >> (4 * n + e)) & 1u ? __expf(s[n][e] - m[e >> 1]) : 0.f;
         s[n][e] = Q8 ? p * vss[col] : p;
         rs[e >> 1] += p;
       }
@@ -348,7 +465,9 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
 
-    // O += P V: the S fragments re-packed as A fragments
+    // O += P V: the S fragments re-packed as A fragments; the B
+    // fragments of two n-tiles per ldmatrix.x4.trans from the row-major
+    // V tile (lane l addresses kv row 16 kk + l % 16, columns 8 (n + l / 16))
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
@@ -357,30 +476,88 @@ paged_chunk(const __nv_bfloat16* __restrict__ q,
       pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vr = &vt[(n * 8 + gid) * VP + kk * 16 + tig * 2];
-        mma_16816(o[n], pa, ld_u32(vr), ld_u32(vr + 8));
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, &vs[(kk * 16 + (lane & 15)) * KP + (n + (lane >> 4)) * 8]);
+        mma_16816(o[n], pa, vb[0], vb[1]);
+        mma_16816(o[n + 1], pa, vb[2], vb[3]);
       }
     }
-    __syncthreads();
+    __syncthreads();   // stage st (and the widened tiles) free again
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     l[t] += __shfl_xor_sync(0xffffffffu, l[t], 1);
     l[t] += __shfl_xor_sync(0xffffffffu, l[t], 2);
-    const int r = wr + gid + 8 * t, qi = i0 + r / group;
-    if (r >= live_rows || qi >= Sq) continue;
-    // padding rows (q_pos -1) write zeros; a live row divides by max(l, 1e-30)
-    const float inv = rows[t].q_pos >= 0 ? 1.f / fmaxf(l[t], 1e-30f) : 0.f;
-    __nv_bfloat16* orow = ob + (size_t)qi * q_rs + (r % group) * D;
+  }
+  if (n_splits == 1) {
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int d = n * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(orow + d) =
-          pack_bf16x2(o[n][2 * t] * inv, o[n][2 * t + 1] * inv);
+    for (int t = 0; t < 2; ++t) {
+      const int r = wr + gid + 8 * t, qi = i0 + r / group;
+      if (r >= live_rows || qi >= Sq) continue;
+      // padding rows (q_pos -1) write zeros; a live row divides by max(l, 1e-30)
+      const float inv = rows[t].q_pos >= 0 ? 1.f / fmaxf(l[t], 1e-30f) : 0.f;
+      __nv_bfloat16* orow = ob + (size_t)qi * q_rs + (r % group) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = n * 8 + tig * 2;
+        *reinterpret_cast<uint32_t*>(orow + d) =
+            pack_bf16x2(o[n][2 * t] * inv, o[n][2 * t + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // split-KV: leave this split's partial (o unnormalized, m, l per row)
+  // in shared memory, then merge the S partials of the q tile in split
+  // order; split r writes every S-th group of NTHREADS column pairs
+  __syncthreads();   // every warp is done with the staged tiles
+  constexpr int OP = D + 8;   // padded float row stride of the partial o
+  float* const po = reinterpret_cast<float*>(smem);
+  float* const pm = po + ROWS * OP;
+  float* const pl = pm + ROWS;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int r = wr + gid + 8 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(po + r * OP + n * 8 + tig * 2) =
+          make_float2(o[n][2 * t], o[n][2 * t + 1]);
+    if (tig == 0) {
+      pm[r] = m[t];
+      pl[r] = l[t];
     }
   }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();   // every split's partial is in its shared memory
+  const int rank = (int)cluster.block_rank();
+  for (int e = rank * NTHREADS + tid; e < ROWS * (D / 2); e += n_splits * NTHREADS) {
+    const int r = e / (D / 2), d = 2 * (e % (D / 2)), qi = i0 + r / group;
+    if (r >= live_rows || qi >= Sq) continue;
+    float o0 = 0.f, o1 = 0.f;
+    if (qi < clen) {   // a padding row writes zeros
+      float M = NEG_INF;
+      for (int sp = 0; sp < n_splits; ++sp)
+        M = fmaxf(M, cluster.map_shared_rank(pm, sp)[r]);
+      float L = 0.f;
+      for (int sp = 0; sp < n_splits; ++sp) {
+        const float w = __expf(cluster.map_shared_rank(pm, sp)[r] - M);
+        L += w * cluster.map_shared_rank(pl, sp)[r];
+        const float2 part = *reinterpret_cast<const float2*>(
+            cluster.map_shared_rank(po, sp) + r * OP + d);
+        o0 += w * part.x;
+        o1 += w * part.y;
+      }
+      const float inv = 1.f / fmaxf(L, 1e-30f);
+      o0 *= inv;
+      o1 *= inv;
+    }
+    *reinterpret_cast<uint32_t*>(ob + (size_t)qi * q_rs + (r % group) * D + d) =
+        pack_bf16x2(o0, o1);
+  }
+  cluster.sync();   // no split leaves while another still reads it
 }
 
 template <int D, bool TREE, bool Q8>
@@ -388,16 +565,16 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const float* k_scales, const float* v_scales, const int* tables,
            const int* history, const int* chunk, const int* tree_masks,
            void* out, int B, int Sq, int Hq, int Hkv, int n_pages, int page,
-           int max_pages, float scale, cudaStream_t s) {
+           int max_pages, int n_splits, float scale, cudaStream_t s) {
   using T = std::conditional_t<Q8, int8_t, __nv_bfloat16>;
   const int bq = ROWS / (Hq / Hkv);
-  const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  paged_chunk<D, TREE, Q8><<<grid, dim3(NTHREADS), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
+  const dim3 grid((Sq + bq - 1) / bq * n_splits, Hkv, B);
+  return launch_split(
+      paged_chunk<D, TREE, Q8>, grid, NTHREADS, Plan<D, Q8>::TOTAL, n_splits,
+      s, static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), k_scales, v_scales, tables, history,
       chunk, tree_masks, static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv,
-      n_pages, page, max_pages, scale);
-  return (int)cudaGetLastError();
+      n_pages, page, max_pages, n_splits, scale);
 }
 
 template <bool TREE, bool Q8>
@@ -405,20 +582,22 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const float* k_scales, const float* v_scales, const int* tables,
              const int* history, const int* chunk, const int* tree_masks,
              void* out, int B, int Sq, int Hq, int Hkv, int n_pages, int page,
-             int max_pages, int D, float scale, void* stream) {
+             int max_pages, int D, int n_splits, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_GROUP ||
       n_pages <= 0 || page <= 0 || max_pages <= 0 || B > 65535 || Hkv > 65535 ||
-      (TREE && Sq > 32))
+      (TREE && Sq > 32) || n_splits < 1 || n_splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
                                 history, chunk, tree_masks, out, B, Sq, Hq,
-                                Hkv, n_pages, page, max_pages, scale, s);
+                                Hkv, n_pages, page, max_pages, n_splits,
+                                scale, s);
   if (D == 128)
     return launch<128, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
                                  history, chunk, tree_masks, out, B, Sq, Hq,
-                                 Hkv, n_pages, page, max_pages, scale, s);
+                                 Hkv, n_pages, page, max_pages, n_splits,
+                                 scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -426,18 +605,20 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 
 // C interface (bound with ctypes). q [B, Sq, Hq, D], pools [Hkv, Np, page,
 // D] (one layer, contiguous), tables int32 [B, max_pages], history and
-// chunk int32 [B], out [B, Sq, Hq, D]; all 16-byte aligned. Returns the
-// launch's cudaError_t (0 = launched), or cudaErrorInvalidValue for a
-// shape the kernel does not take.
+// chunk int32 [B], out [B, Sq, Hq, D]; all 16-byte aligned; n_splits
+// (1-8) blocks share each q tile's walk. Returns the launch's
+// cudaError_t (0 = launched), or cudaErrorInvalidValue for a shape the
+// kernel does not take.
 extern "C" int gofr_paged_chunk(const void* q, const void* k_pool,
                                 const void* v_pool, const int* tables,
                                 const int* history, const int* chunk,
                                 void* out, int B, int Sq, int Hq, int Hkv,
                                 int n_pages, int page, int max_pages, int D,
-                                float scale, void* stream) {
+                                int n_splits, float scale, void* stream) {
   return dispatch<false, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
                                 history, chunk, nullptr, out, B, Sq, Hq, Hkv,
-                                n_pages, page, max_pages, D, scale, stream);
+                                n_pages, page, max_pages, D, n_splits, scale,
+                                stream);
 }
 
 // The same, for draft-tree verify: tree_masks int32 [B, Sq] packs each
@@ -447,11 +628,12 @@ extern "C" int gofr_paged_tree(const void* q, const void* k_pool,
                                const int* history, const int* chunk,
                                const int* tree_masks, void* out, int B,
                                int Sq, int Hq, int Hkv, int n_pages, int page,
-                               int max_pages, int D, float scale,
+                               int max_pages, int D, int n_splits, float scale,
                                void* stream) {
   return dispatch<true, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
                                history, chunk, tree_masks, out, B, Sq, Hq,
-                               Hkv, n_pages, page, max_pages, D, scale, stream);
+                               Hkv, n_pages, page, max_pages, D, n_splits,
+                               scale, stream);
 }
 
 // The chunk and tree entries over an int8 pool: k_codes / v_codes int8
@@ -463,10 +645,11 @@ extern "C" int gofr_paged_chunk_i8(const void* q, const void* k_codes,
                                    const int* history, const int* chunk,
                                    void* out, int B, int Sq, int Hq, int Hkv,
                                    int n_pages, int page, int max_pages, int D,
-                                   float scale, void* stream) {
+                                   int n_splits, float scale, void* stream) {
   return dispatch<false, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
                                history, chunk, nullptr, out, B, Sq, Hq, Hkv,
-                               n_pages, page, max_pages, D, scale, stream);
+                               n_pages, page, max_pages, D, n_splits, scale,
+                               stream);
 }
 
 extern "C" int gofr_paged_tree_i8(const void* q, const void* k_codes,
@@ -475,9 +658,10 @@ extern "C" int gofr_paged_tree_i8(const void* q, const void* k_codes,
                                   const int* history, const int* chunk,
                                   const int* tree_masks, void* out, int B,
                                   int Sq, int Hq, int Hkv, int n_pages,
-                                  int page, int max_pages, int D, float scale,
-                                  void* stream) {
+                                  int page, int max_pages, int D,
+                                  int n_splits, float scale, void* stream) {
   return dispatch<true, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
                               history, chunk, tree_masks, out, B, Sq, Hq, Hkv,
-                              n_pages, page, max_pages, D, scale, stream);
+                              n_pages, page, max_pages, D, n_splits, scale,
+                              stream);
 }

@@ -30,6 +30,12 @@ templated on its visibility rule. Each source says what bounds it on
 the H100 and what the design does about it. The plain versions compute
 over the dequantizing ``paged_kv.slot_view`` (float32 ``codes *
 scales``), as the JAX package's ``_slot_view`` does.
+
+Split-KV: each kernel spreads a work item's walk (a slot's pages for
+decode, a q tile's 64-row K/V tiles for chunk and tree) over S blocks
+that form one thread-block cluster and merge their partial softmax
+states on the card. :func:`kv_splits` picks S from the shapes alone, so
+no length is read on the host.
 """
 
 from __future__ import annotations
@@ -50,20 +56,32 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: chunk: 64 block rows = BQ positions x group, BQ >= 4)
 KERNEL_MAX_GROUP = 16
 
+#: split-KV sizing: the grid should fill about SPLIT_WAVES waves of
+#: blocks on the H100's SPLIT_SMS SMs; a cluster holds at most
+#: MAX_SPLITS blocks (the portable cluster size)
+SPLIT_SMS = 132
+SPLIT_WAVES = 2
+MAX_SPLITS = 8
+#: the chunk kernel's block rows (BQ positions x group heads) and K/V
+#: tile rows (csrc/paged_chunk.cu ROWS, BK)
+CHUNK_ROWS = 64
+CHUNK_KV_TILE = 64
+
 #: kernel (wrapper name, ``_int8`` for a quantized pool) -> (library, C
 #: symbol, pointer arguments, int arguments); every C entry point ends
-#: with (float scale, void* stream), and an ``_i8`` one takes the K and
-#: V scale pointers right after the K and V codes
+#: with (int n_splits, float scale, void* stream) — n_splits counted in
+#: the ints —, and an ``_i8`` one takes the K and V scale pointers right
+#: after the K and V codes
 _KERNELS = {
-    "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 7),
+    "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 8),
     "paged_decode_attention_int8": ("paged_decode", "gofr_paged_decode_i8",
-                                    8, 7),
-    "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 8),
+                                    8, 8),
+    "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 9),
     "paged_chunk_attention_int8": ("paged_chunk", "gofr_paged_chunk_i8",
-                                   9, 8),
-    "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 8),
+                                   9, 9),
+    "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 9),
     "paged_tree_attention_int8": ("paged_chunk", "gofr_paged_tree_i8",
-                                  10, 8),
+                                  10, 9),
 }
 _fns: dict = {}
 
@@ -80,6 +98,35 @@ def _kernel(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def kv_splits(mode: str, batch: int, sq: int, hq: int, hkv: int,
+              max_pages: int, page: int) -> int:
+    """S, the number of blocks that share each work item's K/V walk, from
+    the launch's shapes alone (the lengths stay on the card).
+
+    ``mode`` is ``"decode"`` (work items: B x Hkv, walked in pages) or
+    ``"chunk"`` / ``"tree"`` (one rule: B x Hkv x the q tiles of
+    ``CHUNK_ROWS // group`` positions, walked in ``CHUNK_KV_TILE``-row
+    tiles), ``max_pages`` the tables' width. S is the largest power of
+    two up to MAX_SPLITS that keeps the grid within SPLIT_WAVES waves on
+    SPLIT_SMS SMs and S no larger than the units a walk can have: 1 when
+    the grid already fills that (a 1024-row chunk), 4 for decode or a
+    tree verify at 8 slots of Llama-3.2-1B's 8 KV heads, 8 at 1 slot.
+    """
+    if mode == "decode":
+        blocks, units = batch * hkv, max_pages
+    elif mode in ("chunk", "tree"):
+        q_tiles = -(-sq // (CHUNK_ROWS // (hq // hkv)))
+        blocks = batch * hkv * q_tiles
+        units = -(-max_pages * page // CHUNK_KV_TILE)
+    else:
+        raise ValueError(f"kv_splits: unknown mode {mode!r}")
+    s = 1
+    while (2 * s <= MAX_SPLITS and 2 * s <= units
+           and 2 * s * blocks <= SPLIT_WAVES * SPLIT_SMS):
+        s *= 2
+    return s
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool, v_pool,
@@ -135,6 +182,15 @@ def paged_tree_attention_plain(q: torch.Tensor, k_pool, v_pool,
     return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
 
 
+def _check_placed(fn: str, name: str, t, q) -> None:
+    """``t`` is contiguous and on q's device (compared by index: the
+    kernels only see CUDA tensors)."""
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+    if t.get_device() != q.get_device():
+        raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
+
+
 def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     """What the kernels take: bf16 q; pools [Hkv, Np, pg, hd], both
     bf16, or both quantized (int8 codes and float32 [Hkv, Np, pg, 1]
@@ -142,9 +198,9 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     KERNEL_MAX_GROUP query heads per KV head; int32 [B, Mp] tables and
     [B] lengths; all contiguous and on q's device. q, out and pool rows
     move in 16-byte words, so q and the pages (bf16 or codes) must be
-    16-byte aligned, and scales 4-byte aligned. Returns the pool tensors
-    in the kernel's argument order: (K, V), or (K codes, V codes, K
-    scales, V scales)."""
+    16-byte aligned (float32 scales are 4-byte aligned by construction).
+    Returns the pool tensors in the kernel's argument order: (K, V), or
+    (K codes, V codes, K scales, V scales)."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     quantized = is_quantized_pool(k_pool)
     if quantized != is_quantized_pool(v_pool):
@@ -157,7 +213,7 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
         pools = [k_pool, v_pool]
         page_dtype, page_names = torch.bfloat16, ("k_pool", "v_pool")
     kp, vp = pools[:2]
-    if kp.dim() != 4 or kp.shape != vp.shape or kp.shape[3] != d:
+    if kp.ndim != 4 or kp.shape != vp.shape or kp.shape[3] != d:
         raise ValueError(f"{fn}: pools must be [Hkv, Np, pg, {d}], got "
                          f"{tuple(kp.shape)} / {tuple(vp.shape)}")
     hkv = kp.shape[0]
@@ -169,36 +225,36 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     named = [("q", q, torch.bfloat16, 16), (page_names[0], kp, page_dtype, 16),
              (page_names[1], vp, page_dtype, 16)]
     if quantized:
+        want = (*kp.shape[:3], 1)
         for name, t in (("k_pool scales", pools[2]),
                         ("v_pool scales", pools[3])):
-            if t.shape != (*kp.shape[:3], 1):
+            if t.shape != want:
                 raise ValueError(f"{fn}: {name} must be [Hkv, Np, pg, 1], "
                                  f"got {tuple(t.shape)}")
-            named.append((name, t, torch.float32, 4))
+            # a float32 tensor is 4-byte aligned by construction
+            named.append((name, t, torch.float32, None))
     for name, t, dtype, align in named:
         if t.dtype != dtype:
             raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
-        if t.data_ptr() % align:
+        if align and t.data_ptr() % align:
             raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
-    for name, t in [(n, t) for n, t, _, _ in named] + [("tables", tables)] \
-            + [(f"lengths[{i}]", n) for i, n in enumerate(lengths)]:
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
-    if tables.dtype != torch.int32 or tables.dim() != 2 \
+        _check_placed(fn, name, t, q)
+    if tables.dtype != torch.int32 or tables.ndim != 2 \
             or tables.shape[0] != b:
         raise ValueError(f"{fn}: tables must be int32 [B, Mp]")
+    _check_placed(fn, "tables", tables, q)
     for n in lengths:
         if n.dtype != torch.int32 or n.shape != (b,):
             raise ValueError(f"{fn}: lengths must be int32 [B]")
+        _check_placed(fn, "lengths", n, q)
     return pools
 
 
 def _launch(wrapper, pools: list, q: torch.Tensor, *args) -> None:
     """Launch ``wrapper``'s kernel for the pools' form on the current
     stream (q, the pools, then ``args``), raise if the launch was
-    refused, and count it: ``wrapper.launches`` for bf16 pools,
+    refused (a cluster that does not fit is never retried unsplit), and
+    count it: ``wrapper.launches`` for bf16 pools,
     ``wrapper.launches_int8`` for quantized ones."""
     quantized = len(pools) == 4
     name = wrapper.__name__ + ("_int8" if quantized else "")
@@ -233,9 +289,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool, v_pool,
     hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
+    mp = tables.shape[1]
     _launch(paged_decode_attention, pools, q, tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), b, hq, hkv, n_pages, pg,
-            tables.shape[1], d, scale)
+            mp, d, kv_splits("decode", b, 1, hq, hkv, mp, pg), scale)
     return out
 
 
@@ -267,9 +324,11 @@ def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
     hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
+    mp = tables.shape[1]
     _launch(paged_chunk_attention, pools, q, tables.data_ptr(),
             history_lens.data_ptr(), chunk_lens.data_ptr(), out.data_ptr(),
-            b, sq, hq, hkv, n_pages, pg, tables.shape[1], d, scale)
+            b, sq, hq, hkv, n_pages, pg, mp, d,
+            kv_splits("chunk", b, sq, hq, hkv, mp, pg), scale)
     return out
 
 
@@ -311,10 +370,11 @@ def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
     hkv, n_pages, pg, _ = pools[0].shape
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
+    mp = tables.shape[1]
     _launch(paged_tree_attention, pools, q, tables.data_ptr(),
             history_lens.data_ptr(), chunk_lens.data_ptr(),
             tree_masks.data_ptr(), out.data_ptr(), b, sq, hq, hkv, n_pages,
-            pg, tables.shape[1], d, scale)
+            pg, mp, d, kv_splits("tree", b, sq, hq, hkv, mp, pg), scale)
     return out
 
 

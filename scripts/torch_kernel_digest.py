@@ -1,36 +1,60 @@
 #!/usr/bin/env python3
-"""SHA-256 of each bf16 kernel's output on seeded inputs, for the port
-at ``--root`` (default: this checkout). Run it on two checkouts on the
-same card to show that a change leaves the bf16 kernels bit for bit as
-they were:
+"""SHA-256 of each kernel's output on seeded inputs, for the port at
+``--root`` (default: this checkout), and with ``--time`` each kernel's
+device time. Run it on two checkouts on the same card, in one command,
+to show which kernels a change leaves bit for bit as they were and what
+it does to their times:
 
-    python scripts/torch_kernel_digest.py --root <parent checkout>
-    python scripts/torch_kernel_digest.py
+    python scripts/torch_kernel_digest.py --time --root <parent checkout>
+    python scripts/torch_kernel_digest.py --time
 
 Shapes: the smoke's (``chip_smoke.py``) flash, paged decode, paged chunk
-and paged tree cases, with seeded random inputs. Prints one JSON line,
-kernel name -> digest. Needs a CUDA device.
+and paged tree cases, with seeded random inputs; the paged kernels on a
+bf16 pool and on ``quantize_pool`` of it (``_int8``). Prints one JSON
+line, kernel name -> digest; with ``--time`` a second one, kernel name
+-> median device ms per call (``chip_smoke.device_ms``: ``torch.profiler``
+over 25 calls after warm-up, host time left out), headed by the card's
+``nvidia-smi`` name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
+import subprocess
 import sys
 from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    """This checkout's ``chip_smoke.py`` (its timer), loaded by path so
+    that a ``--root`` checkout's copy never stands in for it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--time", action="store_true",
+                    help="also print each kernel's device time")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    device_ms = _smoke().device_ms if args.time else None
     sys.path.insert(0, str(root))
     import torch
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention,
                                                     paged_tree_attention)
+    from gofr_tpu_torch.ops.paged_kv import quantize_pool
     if not torch.cuda.is_available():
         print("torch_kernel_digest: needs a CUDA device", file=sys.stderr)
         return 2
@@ -52,30 +76,50 @@ def main() -> int:
     def ints(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
-    outs = {}
+    calls = {}      # kernel name -> a call of it on its inputs
     q, k, v = randn(4, 512, 32, 64), randn(4, 512, 8, 64), randn(4, 512, 8, 64)
-    outs["flash_attention"] = flash_attention(q, k, v,
-                                              kv_lengths=ints([1, 200, 511, 512]))
+    lens = ints([1, 200, 511, 512])
+    calls["flash_attention"] = lambda: flash_attention(q, k, v,
+                                                       kv_lengths=lens)
     kp, vp = randn(8, 256, 64, 64), randn(8, 256, 64, 64)
-    lens = [0, 1, 63, 64, 65, 1500, 300, 1000]
-    outs["paged_decode_attention"] = paged_decode_attention(
-        randn(8, 32, 64), kp, vp, table(lens, 64, 256, 24), ints(lens))
+    pools = {"": (kp, vp), "_int8": (quantize_pool(kp), quantize_pool(vp))}
+    d_lens = [0, 1, 63, 64, 65, 1500, 300, 1000]
+    d_q, d_tab, d_len = randn(8, 32, 64), table(d_lens, 64, 256, 24), \
+        ints(d_lens)
     hists, clens = [0, 1024, 896, 0], [1024, 777, 6, 0]
-    outs["paged_chunk_attention"] = paged_chunk_attention(
-        randn(4, 1024, 32, 64), kp, vp,
-        table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
-        ints(hists), ints(clens))
+    c_q = randn(4, 1024, 32, 64)
+    c_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
+              ints(hists), ints(clens))
     hists, clens = [0, 1, 63, 64, 65, 1500, 300, 1000], [0, 7, 9, 5, 6, 9, 1, 8]
     masks = torch.randint(0, 2 ** 31 - 1, (8, 16), generator=gen, device=dev,
                           dtype=torch.int32) | 1
-    outs["paged_tree_attention"] = paged_tree_attention(
-        randn(8, 16, 32, 64), kp, vp,
-        table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
-        ints(hists), ints(clens), masks)
+    t_q = randn(8, 16, 32, 64)
+    t_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
+              ints(hists), ints(clens), masks)
+    for suffix, (kpool, vpool) in pools.items():
+        calls["paged_decode_attention" + suffix] = \
+            lambda kpool=kpool, vpool=vpool: paged_decode_attention(
+                d_q, kpool, vpool, d_tab, d_len)
+        calls["paged_chunk_attention" + suffix] = \
+            lambda kpool=kpool, vpool=vpool: paged_chunk_attention(
+                c_q, kpool, vpool, *c_args)
+        calls["paged_tree_attention" + suffix] = \
+            lambda kpool=kpool, vpool=vpool: paged_tree_attention(
+                t_q, kpool, vpool, *t_args)
+    outs = {name: call() for name, call in calls.items()}
     torch.cuda.synchronize()
     print(json.dumps({"root": str(root), **{
         name: hashlib.sha256(out.cpu().view(torch.int16).numpy().tobytes())
-        .hexdigest() for name, out in outs.items()}}))
+        .hexdigest() for name, out in outs.items()}}), flush=True)
+    if device_ms is not None:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"root": str(root), "card": card,
+                          "device_ms": {name: device_ms(call)
+                                        for name, call in calls.items()}}),
+              flush=True)
     return 0
 
 

@@ -18,6 +18,14 @@ attention average of |V|: that term is added to its limit. The paged
 chunk and tree kernels round P the same way and take the same limit.
 Paged decode keeps P in float32.
 
+Every paged case also runs the split-KV path the wrapper picks
+(``kv_splits``: S blocks per walk, merged in a thread-block cluster);
+the cases marked "S = 8" put the longest walks on 8 splits, with empty
+splits, zero-length slots, page-aligned lengths and a tree whose slot
+has no history. Separate tests hold the merge to determinism and the
+tree kernel on causal masks bit for bit to the chunk kernel at a split
+shape.
+
 The paged kernels' int8 branches run the same cases on
 ``paged_kv.quantize_pool`` of the same random bf16 pools, against the
 plain versions over the dequantized (float32) pool, with the same
@@ -29,10 +37,11 @@ import pytest
 import torch
 
 from gofr_tpu_torch.device import resolve_device
+from gofr_tpu_torch.ops import paged_attention
 from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_plain)
 from gofr_tpu_torch.ops.paged_attention import (
-    paged_chunk_attention, paged_chunk_attention_plain,
+    kv_splits, paged_chunk_attention, paged_chunk_attention_plain,
     paged_decode_attention, paged_decode_attention_plain,
     paged_tree_attention, paged_tree_attention_plain)
 from gofr_tpu_torch.ops.paged_kv import quantize_pool
@@ -100,6 +109,12 @@ DECODE_CASES = [
     (2, 8, 2, 128, 32, 16, [33, 100]),                  # head_dim 128
     (2, 16, 1, 64, 64, 8, [129, 3]),                    # group 16
     (3, 8, 8, 64, 16, 24, [16, 17, 0]),                 # group 1
+    (1, 32, 8, 64, 64, 40, [2000]),                     # one request, S = 8
+    # S = 8: splits with no page (3 rows, and length 0), a page-aligned
+    # length, and a 32-page walk
+    (4, 32, 8, 64, 64, 48, [2000, 3, 0, 64]),
+    (2, 8, 2, 128, 32, 80, [1024, 640]),                # hd 128, aligned, S = 8
+    (3, 16, 1, 64, 16, 140, [1500, 16, 17]),            # group 16, pg 16, S = 8
 ]
 
 
@@ -243,6 +258,12 @@ TREE_CASES = [
     (32, 4, 4, 64, 16, 4, [17, 300]),            # width 32, group 1
     (8, 16, 1, 64, 64, 3, [129, 0, 64]),         # group 16
     (32, 8, 2, 128, 64, 2, [0, 70, 700]),        # width 32, hd 128
+    # S = 8: a 1900-row history beside a slot with no history (its nodes
+    # see only their in-tree ancestors), one request alone, and hd 128 at
+    # 16-row pages
+    (16, 32, 8, 64, 64, 2, [1900, 0]),
+    (16, 32, 8, 64, 64, 2, [1900]),
+    (32, 8, 2, 128, 16, 4, [700, 0, 1900]),
 ]
 
 
@@ -293,6 +314,58 @@ def test_paged_tree_int8_kernel_matches_plain(dev, width, hq, hkv, d, pg,
     assert paged_tree_attention.launches_int8 == before + 1
     _assert_chunk_like(out, paged_tree_attention_plain, q, kq, vq,
                        (tables, hist, clen, masks), clen)
+
+
+def _pools(kp, vp, form):
+    return (kp, vp) if form == "bf16" else (quantize_pool(kp),
+                                             quantize_pool(vp))
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_split_merge_is_deterministic_and_agrees_unsplit(dev, form,
+                                                         monkeypatch):
+    """At a split shape two runs are bit for bit equal (the merge sums in
+    split order), and the unsplit kernel (S forced to 1) agrees within
+    the kernels' limit; at the chunk serving shape S is 1 and the kernel
+    is bit for bit itself."""
+    q, kp, vp, tables, lengths = _paged_case(
+        torch.Generator(device=dev).manual_seed(0), dev, 2, 32, 8, 64, 64,
+        48, [2000, 700])
+    kp, vp = _pools(kp, vp, form)
+    assert kv_splits("decode", 2, 1, 32, 8, tables.shape[1], 64) == 8
+    split = paged_decode_attention(q, kp, vp, tables, lengths)
+    assert torch.equal(split, paged_decode_attention(q, kp, vp, tables,
+                                                     lengths))
+    ref = paged_decode_attention_plain(q, kp, vp, tables, lengths).float()
+    with monkeypatch.context() as m:
+        m.setattr(paged_attention, "kv_splits", lambda *a: 1)
+        unsplit = paged_decode_attention(q, kp, vp, tables, lengths)
+    for out in (split, unsplit):
+        torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+    q, kp, vp, tables, hist, clen = _chunk_case(
+        dev, 1024, 32, 8, 64, 64, 128, [0, 1024, 896, 0], [1024, 777, 6, 0])
+    kp, vp = _pools(kp, vp, form)
+    assert kv_splits("chunk", 4, 1024, 32, 8, tables.shape[1], 64) == 1
+    out = paged_chunk_attention(q, kp, vp, tables, hist, clen)
+    assert torch.equal(out, paged_chunk_attention(q, kp, vp, tables, hist,
+                                                  clen))
+    _assert_chunk_like(out, paged_chunk_attention_plain, q, kp, vp,
+                       (tables, hist, clen), clen)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_tree_on_causal_masks_is_the_chunk_kernel_at_a_split_shape(dev,
+                                                                   form):
+    q, kp, vp, tables, hist, clen, _ = _tree_case(
+        dev, 16, 32, 8, 64, 64, 2, [1900, 700])
+    kp, vp = _pools(kp, vp, form)
+    assert kv_splits("tree", 2, 16, 32, 8, tables.shape[1], 64) == 8
+    causal = torch.cumsum(1 << torch.arange(16, device=dev), 0)
+    causal = causal.to(torch.int32)[None].expand(2, 16).contiguous()
+    tree = paged_tree_attention(q, kp, vp, tables, hist, clen, causal)
+    assert torch.equal(tree, paged_chunk_attention(q, kp, vp, tables, hist,
+                                                   clen))
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
