@@ -16,7 +16,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              version on the card, at the serving path's shapes, bf16,
              ragged lengths; then the int8 branch of each paged kernel on
              ``quantize_pool`` of the same pools, against the plain
-             version over the dequantized view: seven rows. CUDA event
+             version over the dequantized view: seven rows; then flash
+             at wave 1's widest bucket (one 1024-row prompt, kv_lengths
+             901) and the chunk kernel at GQA group 3 (Hq 12, Hkv 4): nine
+             rows. CUDA event
              times (median of 25 after warm-up, ``ms``: the call, its
              Python wrapper included) of the kernel, the plain version
              and one PyTorch library call of the same function (for
@@ -25,9 +28,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the library call's kernels (``device_ms``,
              ``library_device_ms``); the roofline bound of the work, and
              the split count S the wrapper chose. A planted fault (a
-             shortened length, a dropped or swapped page, causal masks in
-             place of tree masks, and for int8 the V scales shifted one
-             row within each page) must fail the same check. The tree
+             shortened length, V rows read one position late, a dropped
+             or swapped page, causal masks in place of tree masks, and
+             for int8 the V scales shifted one row within each page) must
+             fail the same check. The tree
              kernel must also leave every node outside a poisoned sibling
              branch bit for bit unchanged, and give the chunk kernel's
              output bit for bit on a chain and under causal masks, in
@@ -210,22 +214,32 @@ def phase_build() -> None:
           "per_kernel_s": secs, "ptxas": _build.build_logs})
 
 
-def _flash_case(dev, gen):
+def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512)):
     import torch
-    p, s, hq, hkv, d = 4, 512, 32, 8, 64
+    hq, hkv, d = 32, 8, 64
     q = torch.randn(p, s, hq, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
-    lens = torch.tensor([1, 200, 511, 512], dtype=torch.int32, device=dev)
+    lens = torch.tensor(list(lens), dtype=torch.int32, device=dev)
     return q, k, v, lens
 
 
-def kernel_flash(dev, gen) -> dict:
+def kernel_flash(dev, gen, wide: bool = False) -> dict:
+    """The flash kernel at the smoke's P = 4, S = 512 case, or (``wide``)
+    at wave 1's widest bucket: one prompt, S = 1024, kv_lengths 901."""
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_plain)
-    q, k, v, lens = _flash_case(dev, gen)
+    if wide:
+        q, k, v, lens = _flash_case(dev, gen, 1, 1024, (901,))
+        name, shape = ("flash_attention_s1024",
+                       "P=1 S=1024 Hq=32 Hkv=8 D=64 bf16, kv_lengths 901 "
+                       "(wave 1's widest bucket)")
+    else:
+        q, k, v, lens = _flash_case(dev, gen)
+        name, shape = ("flash_attention", "P=4 S=512 Hq=32 Hkv=8 D=64 bf16, "
+                       "kv_lengths 1/200/511/512")
     p, s, hq, d = q.shape
     hkv = k.shape[2]
     out = flash_attention(q, k, v, kv_lengths=lens)
@@ -233,20 +247,28 @@ def kernel_flash(dev, gen) -> dict:
     p_term = P_ROUND * flash_attention_plain(q, k, v.abs(),
                                              kv_lengths=lens).float()
     err, ratios = check(out, ref, p_term)
-    # planted fault: every kv_len above 1 short by one column (for the
-    # 512-long row only its last query row sees the change)
-    fault = flash_attention(q, k, v, kv_lengths=(lens - 1).clamp(min=1))
+    if wide:
+        # planted fault: V read one row late (row j takes row j - 1's V)
+        fault = flash_attention(q, k, torch.roll(v, 1, dims=1),
+                                kv_lengths=lens)
+        fault_name = "v_rows_shifted"
+    else:
+        # planted fault: every kv_len above 1 short by one column (for the
+        # 512-long row only its last query row sees the change)
+        fault = flash_attention(q, k, v, kv_lengths=(lens - 1).clamp(min=1))
+        fault_name = "kv_len_short"
     _, fault_ratios = check(fault, ref, p_term)
-    emit({"phase": "kernel_check", "name": "flash_attention",
+    emit({"phase": "kernel_check", "name": name,
           "max_abs_err": err, "atol": ATOL, "rtol": RTOL,
           "p_round": P_ROUND,
           "worst_ratio_per_row": ratios,
+          "planted_fault": fault_name,
           "planted_fault_worst_ratio_per_row": fault_ratios})
     if max(ratios) > 1.0:
-        raise AssertionError(f"flash kernel vs plain: worst err/limit per "
+        raise AssertionError(f"{name} kernel vs plain: worst err/limit per "
                              f"row {ratios} > 1")
     if any(r <= 1.0 for n, r in zip(lens.tolist(), fault_ratios) if n > 1):
-        raise AssertionError(f"flash check passed a planted fault: "
+        raise AssertionError(f"{name} check passed a planted fault: "
                              f"{fault_ratios}")
     # the library yardstick: SDPA with GQA expanded and the same mask,
     # built outside the timed call
@@ -273,15 +295,14 @@ def kernel_flash(dev, gen) -> dict:
     nbytes = (2 * p * s * hq * d * 2 + 2 * sum(min(n, s) for n in lens_l)
               * hkv * d * 2 + 4 * p)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": "flash_attention", "route": "cuda",
+    row = {"name": name, "wrapper": "flash_attention", "route": "cuda",
            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
            "replaces": "gofr_tpu/ops/flash_attention.py:33",
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library_device_ms": library_dev_ms}
-    emit({"phase": "kernel", "shape": "P=4 S=512 Hq=32 Hkv=8 D=64 bf16, "
-          "kv_lengths 1/200/511/512", "kernel_ms": ms, **row})
+    emit({"phase": "kernel", "shape": shape, "kernel_ms": ms, **row})
     return row
 
 
@@ -435,9 +456,11 @@ def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
     return row
 
 
-def kernel_chunk(dev, gen) -> list:
+def kernel_chunk(dev, gen, group3: bool = False) -> list:
     """The paged chunk kernel, on a bf16 pool and on ``quantize_pool``
-    of the same pool: one row each."""
+    of the same pool: one row each; with ``group3`` one bf16 row at GQA
+    group 3 (12 query heads over 4 KV heads: 21-position tiles of 63
+    live rows in the 64-row block)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
     # the serve path's shapes: llama3_1b heads, 64-row pages, tables of
@@ -446,6 +469,8 @@ def kernel_chunk(dev, gen) -> list:
     # prompt, the second chunk of an 1801-token walk, a prefix-cache
     # suffix of 6 rows after 896 cached rows, an empty pad row
     sq, hq, hkv, d, pg, n_pages, mp = 1024, 32, 8, 64, 64, 128, 32
+    if group3:
+        hq, hkv = 12, 4
     hists, clens = [0, 1024, 896, 0], [1024, 777, 6, 0]
     b = len(hists)
     tables = torch.full((b, mp), n_pages, dtype=torch.int32)
@@ -467,6 +492,8 @@ def kernel_chunk(dev, gen) -> list:
     vp = torch.randn(hkv, n_pages, pg, d, generator=gen, device=dev).bfloat16()
     hist = torch.tensor(hists, dtype=torch.int32, device=dev)
     clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    if group3:
+        return [_chunk_row(q, kp, vp, tables, bad, hist, clen, pg)]
     return [_chunk_row(q, kp, vp, tables, bad, hist, clen, pg),
             _chunk_row(q, quantize_pool(kp), quantize_pool(vp), tables, bad,
                        hist, clen, pg)]
@@ -485,8 +512,11 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
         quantized, "paged_chunk_attention",
         ("gofr_tpu/ops/paged_attention.py:357",
          "gofr_tpu/ops/paged_attention.py:362"),
-        "B=4 Sq=1024 Hq=32 Hkv=8 hd=64 pg=64 Np=128 Mp=32, (history, chunk) "
-        "(0, 1024) (1024, 777) (896, 6) (0, 0), OOB-padded tables,")
+        f"B=4 Sq=1024 Hq={hq} Hkv={hkv} hd=64 pg=64 Np=128 Mp=32, (history, "
+        "chunk) (0, 1024) (1024, 777) (896, 6) (0, 0), OOB-padded tables,")
+    wrapper = name
+    if hq // hkv != 4:
+        name = f"{name}_group{hq // hkv}"
     args = (q, kp, vp, tables, hist, clen)
     out = paged_chunk_attention(*args)
     ref = paged_chunk_attention_plain(*args)
@@ -554,7 +584,7 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
               + sum(_kv_bytes(n, hkv, d, quantized) for n in kv_rows)
               + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": name, "route": "cuda",
+    row = {"name": name, "wrapper": wrapper, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
            "replaces": replaces,
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -1575,6 +1605,9 @@ def main() -> int:
                          "histories 0/1/63/64/65/1500/300/1000", 3)]
     rows = [kernel_flash(dev, gen)] + [r[0] for r in paged] \
         + [r[1] for r in paged]
+    # wave 1's widest prefill bucket, and the chunk kernel at GQA group 3
+    rows += [kernel_flash(dev, gen, wide=True),
+             kernel_chunk(dev, gen, group3=True)[0]]
     # single-request latency, where split-KV matters most: one slot of
     # 2047 rows in decode, one verify over 1900 history rows; printed as
     # their own kernel lines, checked as the rows above
@@ -1592,7 +1625,7 @@ def main() -> int:
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line)}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[row.get("wrapper", row["name"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")

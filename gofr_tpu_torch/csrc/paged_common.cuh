@@ -1,4 +1,5 @@
-// Helpers the paged decode and chunk/tree kernels share: an int8 code's
+// Helpers the paged decode and chunk/tree kernels share (the flash
+// kernel takes its cp.async and launch helpers too): an int8 code's
 // value, asynchronous global -> shared copies (cp.async), and the launch
 // of a split-KV grid whose splits of one work item form a thread-block
 // cluster.

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/gofr_tpu_torch/<name>-<hash>.so``
 (``-gencode arch=compute_90a,code=sm_90a``: Hopper, with the ``a``
 features), then loaded with ctypes. The file name carries a hash of
-the source, the ``csrc/`` headers it includes (``mma_bf16.cuh``) and
-the flags, so an edited kernel or header rebuilds and an unchanged one
-is reused. Nothing here runs at import: the first call
+the source, the ``csrc/`` headers it includes (``wgmma_attn.cuh``,
+``paged_common.cuh``) and the flags, so an edited kernel or header
+rebuilds and an unchanged one is reused. Nothing here runs at import: the first call
 of a kernel's wrapper builds and loads it, and :func:`build_all`
 builds every kernel at once (one ``nvcc`` per source, all started
 together) for scripts that want the build out of the way.

@@ -250,6 +250,14 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     return pools
 
 
+def _check_page(wrapper, page: int) -> None:
+    """The chunk and tree kernels address a page's rows with shifts: the
+    page size must be a power of two (the engine's are)."""
+    if page & (page - 1):
+        raise ValueError(f"{wrapper.__name__}: page size {page} is not a "
+                         f"power of two")
+
+
 def _launch(wrapper, pools: list, q: torch.Tensor, *args) -> None:
     """Launch ``wrapper``'s kernel for the pools' form on the current
     stream (q, the pools, then ``args``), raise if the launch was
@@ -307,9 +315,9 @@ def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
     for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
-    contiguous; hd in {64, 128}) or raise — there is no fallback. A slot
-    walks at most ``Mp`` pages, as the plain version's ``[Mp*pg]`` view
-    does.
+    contiguous; hd in {64, 128}; a power-of-two page size) or raise —
+    there is no fallback. A slot walks at most ``Mp`` pages, as the plain
+    version's ``[Mp*pg]`` view does.
     """
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, k_pool, v_pool, tables,
@@ -322,6 +330,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
                    history_lens, chunk_lens)
     b, sq, hq, d = q.shape
     hkv, n_pages, pg, _ = pools[0].shape
+    _check_page(paged_chunk_attention, pg)
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
     mp = tables.shape[1]
@@ -345,9 +354,9 @@ def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
     for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
-    contiguous; hd in {64, 128}; Sq <= 32; int32 masks) or raise — there
-    is no fallback. A slot walks at most ``Mp`` pages, as the plain
-    version's ``[Mp*pg]`` view does.
+    contiguous; hd in {64, 128}; a power-of-two page size; Sq <= 32; int32
+    masks) or raise — there is no fallback. A slot walks at most ``Mp``
+    pages, as the plain version's ``[Mp*pg]`` view does.
     """
     if q.device.type == "cpu":
         return paged_tree_attention_plain(q, k_pool, v_pool, tables,
@@ -368,6 +377,7 @@ def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
         raise ValueError("paged_tree_attention: tree_masks must be "
                          "contiguous int32 [B, Sq] on q's device")
     hkv, n_pages, pg, _ = pools[0].shape
+    _check_page(paged_tree_attention, pg)
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)     # the kernel writes every row
     mp = tables.shape[1]

@@ -861,9 +861,13 @@ class Engine:
         chains = idx.propose(depth, branches)
         if not chains:
             return []
+        # the verify pass writes the tree's rows at lengths .. lengths +
+        # n_nodes - 1: near the cache ceiling the tree is cut (in its
+        # topological order) so that every row lands below max_seq
+        room = cfg.max_seq - int(self.lengths[slot])
         tree = build_draft_tree(
             req.generated[-1], chains,
-            max_nodes=1 + cfg.spec_draft * cfg.spec_branches)
+            max_nodes=min(1 + cfg.spec_draft * cfg.spec_branches, room))
         return tree if tree.n_draft else []
 
     def _spec_pass(self, proposals: dict[int, DraftTree]) -> None:

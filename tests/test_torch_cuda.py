@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes beyond the serving path's: head_dim 128, GQA groups 1 to
-16, page sizes 16 to 64, lengths that are not a multiple of a tile or a
+16 (3 among them: 63 live rows in a 64-row tile), page sizes 16 to 64, lengths that are not a multiple of a tile or a
 page, zero-length slots and OOB-padded tables.
 
 These tests need a CUDA device (a CUDA kernel has no CPU mode) and skip
@@ -71,6 +71,8 @@ def _randn(gen, dev, *shape):
     (3, 200, 8, 2, 128, [1, 130, 200]),        # head_dim 128, kv_len 1
     (1, 1024, 32, 8, 64, [1000]),              # widest bucket, llama3_1b heads
     (2, 33, 16, 1, 64, [33, 5]),               # group 16 (MQA)
+    (2, 150, 12, 4, 64, [150, 77]),            # group 3
+    (1, 100, 12, 4, 128, [90]),                # group 3, head_dim 128
 ])
 def test_flash_kernel_matches_plain(dev, p, s, hq, hkv, d, lens):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -115,6 +117,8 @@ DECODE_CASES = [
     (4, 32, 8, 64, 64, 48, [2000, 3, 0, 64]),
     (2, 8, 2, 128, 32, 80, [1024, 640]),                # hd 128, aligned, S = 8
     (3, 16, 1, 64, 16, 140, [1500, 16, 17]),            # group 16, pg 16, S = 8
+    (3, 12, 4, 64, 16, 40, [0, 33, 300]),               # group 3
+    (2, 12, 4, 128, 64, 80, [2000, 5]),                 # group 3, hd 128, S = 8
 ]
 
 
@@ -170,6 +174,13 @@ CHUNK_CASES = [
     (70, 4, 4, 128, 16, 40, [200, 3], [70, 66]),            # group 1
     (33, 16, 1, 64, 64, 16, [513, 0], [33, 20]),            # group 16
     (48, 8, 2, 64, 16, 48, [17, 300, 0], [48, 5, 0]),       # group 4, pg 16
+    # group 3: 21-position tiles of 63 live rows, the last tile partial
+    (50, 12, 4, 64, 64, 32, [0, 130, 64], [50, 37, 1]),
+    (30, 12, 4, 128, 16, 60, [100, 0], [30, 21]),           # group 3, hd 128
+    (200, 16, 4, 128, 64, 48, [300, 0], [200, 150]),        # hd 128, long
+    # pg 16: a 64-row K/V tile spans 4 pages, and the first q tile's walk
+    # limit (history 37 + 16 positions = 53) ends mid-tile and mid-page
+    (40, 8, 2, 64, 16, 64, [37, 5], [40, 19]),
 ]
 
 
@@ -264,6 +275,8 @@ TREE_CASES = [
     (16, 32, 8, 64, 64, 2, [1900, 0]),
     (16, 32, 8, 64, 64, 2, [1900]),
     (32, 8, 2, 128, 16, 4, [700, 0, 1900]),
+    (16, 12, 4, 64, 64, 2, [0, 45, 700]),        # group 3
+    (16, 12, 4, 128, 16, 2, [33, 0, 1000]),      # group 3, hd 128, pg 16
 ]
 
 
@@ -393,6 +406,9 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         paged_chunk_attention(torch.zeros(2, 5, 17, 64, device=dev,
                                           dtype=torch.bfloat16),
                               pool, pool, tables.int(), lengths, lengths)
+    odd = torch.zeros(1, 3, 24, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="power of two"):
+        paged_chunk_attention(qc, odd, odd, tables.int(), lengths, lengths)
     qt = torch.zeros(2, 33, 4, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="32-node"):
         paged_tree_attention(qt, pool, pool, tables.int(), lengths, lengths,

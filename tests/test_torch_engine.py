@@ -241,6 +241,48 @@ def test_speculative_engine_matches_jax_engine():
     assert sorted(teng._free_pages) == list(range(teng._n_pages))
 
 
+def test_speculative_engine_at_the_cache_ceiling_matches_jax_plain_decode():
+    # 31 prompt tokens (the 48-token pattern, clamped to leave half of
+    # max_seq = 64 to generate) and a 40-token budget: the request runs
+    # into the ceiling after 34 tokens, and 9-node draft trees (depth 4,
+    # 2 branches) reach it; every verify pass must keep its tree's rows
+    # below max_seq, and the greedy tokens must be plain decode's
+    jparams, tparams = _converted_tiny()
+    common = dict(max_batch=2, max_seq=64, page_size=16, seed=0,
+                  decode_steps_per_pass=4, prefix_cache=False)
+    jeng = jax_llama_engine(
+        jparams, JaxLlamaConfig.tiny(),
+        JaxEngineConfig(kv_layout="paged", paged_attention="interpret",
+                        compile_cache_dir=None, **common),
+        implementation="xla")
+    teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(
+        speculative=True, spec_adaptive=False, spec_ngram=1, **common),
+        device="cpu")
+    verify, rows_end = teng._verify_fn, []
+
+    def checked(params, tokens, k_pool, v_pool, tables, offsets, lens,
+                **tree):
+        for off, n in zip(offsets.tolist(), lens.tolist()):
+            rows_end.append(off + n)
+            assert off + n <= teng.config.max_seq, \
+                f"tree rows {off}..{off + n - 1} pass max_seq"
+        return verify(params, tokens, k_pool, v_pool, tables, offsets, lens,
+                      **tree)
+
+    teng._verify_fn = checked
+    prompts = [PATTERN, [5, 6, 7] * 16]
+    want = _run(jeng, prompts,
+                JaxSamplingParams(temperature=0.0, max_new_tokens=40))
+    got = _run(teng, prompts,
+               SamplingParams(temperature=0.0, max_new_tokens=40))
+    assert [r.generated for r in got] == [r.generated for r in want]
+    # the last token is sampled from the row at max_seq - 1, never stored
+    assert all(len(r.prompt_tokens) + len(r.generated) == 65 for r in got)
+    assert teng.stats["spec_drafted"] > 0
+    assert max(rows_end) == teng.config.max_seq   # a tree reached it
+    assert sorted(teng._free_pages) == list(range(teng._n_pages))
+
+
 def _plain_and_spec(prompts, n_new, **spec_kw):
     out = []
     for spec in (False, True):

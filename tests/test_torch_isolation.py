@@ -122,12 +122,12 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     # an edited header must give a new library name, or a stale .so
     # built from the old header would be loaded
     from gofr_tpu_torch.ops import _build
-    for name in ("paged_chunk.cu", "flash_attention.cu", "mma_bf16.cuh",
-                 "paged_decode.cu"):
+    for name in ("paged_chunk.cu", "flash_attention.cu", "wgmma_attn.cuh",
+                 "paged_common.cuh", "paged_decode.cu"):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build.library_path(n) for n in _build.SOURCES}
-    header = tmp_path / "mma_bf16.cuh"
+    header = tmp_path / "wgmma_attn.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert after["paged_chunk"] != before["paged_chunk"]
