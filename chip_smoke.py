@@ -7,10 +7,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 
 1. env     — the card (``nvidia-smi`` name and power limit), torch/CUDA.
 2. build   — builds the CUDA kernels from ``gofr_tpu_torch/csrc/``
-             (three sources, one ``nvcc`` each, in parallel) into
-             ``build/``: flash prefill, paged decode, and the paged chunk
+             (four sources, one ``nvcc`` each, in parallel) into
+             ``build/``: flash prefill, paged decode, the paged chunk
              source, which holds both the chunk and the tree-verify
-             kernel.
+             kernel, and the KV row write.
 3. kernels — each of the four kernels (flash prefill, paged decode,
              paged chunk, paged tree verify) against its plain PyTorch
              version on the card, at the serving path's shapes, bf16,
@@ -37,7 +37,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              output bit for bit on a chain and under causal masks, in
              both forms. Then the same checks and times for one request
              (B=1, S=8): decode over 2047 rows, a tree verify over 1900
-             history rows, both forms (their own kernel lines).
+             history rows, both forms (their own kernel lines). Then the
+             KV write kernel (``kv_write``, both forms) at a decode
+             step's 8 rows on the serve pool, 3 of them out of range:
+             its pools must equal the plain version's bit for bit, and
+             a planted fault (bf16 rows one offset late, int8 V scales
+             shifted one row) must not: eleven rows.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions on
@@ -60,11 +65,21 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              through the int8 kernels and through the plain versions;
              logits must agree (the int8-vs-bf16 pool difference is
              printed, not gated).
+   decode_graph — the compiled decode dispatch at ``llama3_1b`` on
+             ``serve_config``, K = 8, M = 1 and 2, bf16 and int8 pools, a
+             greedy and a mixed batch: the graph's replay against the
+             uncaptured pass on the same state and cloned pools, bit for
+             bit; a replay fed stale tables (a planted fault) must not
+             agree; replay and uncaptured ms per dispatch.
 5. serve   — the port's HTTP app (``gofr_tpu_torch.serving.app``) on a
              free port: 4 concurrent greedy ``POST /chat`` requests, an
              1801-token prompt (walked in chunks, not clamped), then 3
              requests that hit the prefix cache; every kernel's launch
-             counter, zeroed just before, must rise.
+             counter, zeroed just before, must rise (the KV write
+             kernel's too). Every serve run prints the dispatch
+             counters: graph captures and replays, capture seconds,
+             scheduler syncs and host-to-device transfers, and decode
+             tokens/s without the captures.
    serve_int8 — the same three waves through ``serve_config(kv_dtype=
              "int8")`` at the bf16 pool's byte budget: at least 1.8x its
              pages in no more bytes, every answer 200, the int8 decode
@@ -86,6 +101,7 @@ result when CUDA is absent or the package is not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -849,6 +865,105 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots, pg,
     return row
 
 
+def kernel_kv_write(dev, gen) -> list:
+    """The KV write kernel at a decode step's shape on the serve pool
+    (16 layers, Hkv 8, hd 64, 256 pages of 64 rows): 8 rows, 5 of them
+    in range and 3 dropped (page ids Np, Np and -1, as idle and
+    mid-walk slots give), into layer 7; one row per pool form. The
+    kernel's pools must equal its plain version's bit for bit (int8
+    codes and scales too). Planted faults: the bf16 rows written one
+    offset late, and for int8 the kernel's V scales shifted one row
+    within each page; each must fail the same check. No single library
+    call writes and quantizes paged rows: ``library_ms`` is null."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
+                                             quantize_pool)
+    n_layers, hkv, d, n_pages, pg, li = 16, 8, 64, 256, 64, 7
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    pids = torch.tensor([17, 3, n_pages, 200, -1, 64, n_pages, 9],
+                        dtype=torch.int32, device=dev)
+    offs = torch.tensor([0, 63, 5, 21, 7, 40, 2, 33], dtype=torch.int32,
+                        device=dev)
+    n, live = len(pids), int(((pids >= 0) & (pids < n_pages)).sum())
+    k_rows = torch.randn(n, hkv, d, generator=gen, device=dev).bfloat16()
+    v_rows = torch.randn(n, hkv, d, generator=gen, device=dev).bfloat16()
+
+    def clone(pool):
+        return ({k: t.clone() for k, t in pool.items()}
+                if isinstance(pool, dict) else pool.clone())
+
+    def leaves(pool):
+        return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+
+    def diff(got, want):
+        """(max |got - want| over every leaf, leaves bit-equal)."""
+        pairs = list(zip(leaves(got[0]) + leaves(got[1]),
+                         leaves(want[0]) + leaves(want[1])))
+        return (max((g.float() - w.float()).abs().max().item()
+                    for g, w in pairs),
+                all(torch.equal(g, w) for g, w in pairs))
+
+    rows = []
+    for quantized in (False, True):
+        kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
+                  else (k_pool, v_pool))
+        name = "kv_write_int8" if quantized else "kv_write"
+        want = kv_write_plain(clone(kp), clone(vp), li, pids, offs, k_rows,
+                              v_rows)
+        got = kv_write(clone(kp), clone(vp), li, pids, offs, k_rows, v_rows)
+        torch.cuda.synchronize()
+        err, equal = diff(got, want)
+        if quantized:
+            fault_name = "v_scales_shifted"
+            fault = (got[0], {"q": got[1]["q"],
+                              "s": torch.roll(got[1]["s"], 1, dims=3)})
+        else:
+            fault_name = "rows_one_offset_late"
+            fault = kv_write(clone(kp), clone(vp), li, pids,
+                             (offs + 1) % pg, k_rows, v_rows)
+        fault_err, fault_equal = diff(fault, want)
+        emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
+              "bit_equal": equal, "planted_fault": fault_name,
+              "planted_fault_max_abs_err": fault_err,
+              "planted_fault_bit_equal": fault_equal})
+        if not equal:
+            raise AssertionError(f"{name}: kernel pools differ from the "
+                                 f"plain version's (max abs {err})")
+        if fault_equal:
+            raise AssertionError(f"{name} check passed a planted fault "
+                                 f"({fault_name})")
+        dst = (clone(kp), clone(vp))
+        ms = time_ms(lambda: kv_write(*dst, li, pids, offs, k_rows, v_rows))
+        plain_ms = time_ms(lambda: kv_write_plain(*dst, li, pids, offs,
+                                                  k_rows, v_rows))
+        dev_ms = device_ms(lambda: kv_write(*dst, li, pids, offs, k_rows,
+                                            v_rows))
+        # bytes: the live K and V rows read once and written once (int8:
+        # hd codes and a float32 scale a row and head), the ids read
+        row_bytes = hkv * ((d + 4) if quantized else 2 * d)
+        nbytes = 2 * live * hkv * d * 2 + 2 * live * row_bytes + 8 * n
+        bound_ms, bound_by = bound(0.0, nbytes)
+        row = {"name": name, "route": "cuda",
+               "source": "gofr_tpu_torch/csrc/kv_write.cu",
+               "replaces": "gofr_tpu/ops/paged_kv.py:124",
+               "replaces_note": "pool_write: XLA's scatter (.at[].set, "
+                                "mode='drop', quantize_rows for int8), "
+                                "not a pallas_call",
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None,
+               "library_device_ms": None,
+               "library_note": "no single library call"}
+        emit({"phase": "kernel", "shape": f"N={n} rows ({live} in range) "
+              f"L={n_layers} Hkv={hkv} hd={d} Np={n_pages} pg={pg}, layer "
+              f"{li}, " + ("int8 {q, s}" if quantized else "bf16"),
+              "kernel_ms": ms, **row})
+        rows.append(row)
+    return rows
+
+
 def phase_model(dev) -> None:
     """llama3_1b prefill + 3 paged decode steps, kernels vs plain, and
     once more with a planted fault.
@@ -1310,6 +1425,138 @@ def phase_model_int8(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_decode_graph(dev, smi_line: str) -> None:
+    """The compiled decode dispatch at ``llama3_1b`` on ``serve_config``
+    (8 slots, 64-row pages, 256 bf16 / 481 int8 pages), K = 8, M = 1 and
+    M = 2, each pool form: one engine each, driven on this thread. Four
+    greedy prompts (21 / 151 / 401 / 901 random tokens, seed 0) are
+    prefilled and one dispatch runs (the first captures); then the
+    next dispatch is replayed and, on the same state and cloned pools,
+    run uncaptured (``DecodeGraph.body``, the eager loop at max_batch
+    rows): tokens, state buffers and both pools must agree bit for bit.
+    Then two sampled prompts (temperature 0.8, top-p 0.9, top-k 40) join
+    and the same check runs on the mixed batch (the sampled graph, noise
+    from the engine's generator, same state). Planted fault: the replay
+    fed a stale tables buffer (two slots' rows swapped, as a missed
+    upload after an admission would leave it) must not agree. Printed:
+    ms per dispatch of the replay and of the uncaptured pass (CUDA
+    events, host included), launches per dispatch, captures."""
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.decode_graph import _counts
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    rng = torch.Generator().manual_seed(0)
+    greedy_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                      .tolist() for n in (21, 151, 401, 901)]
+    sampled_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                       .tolist() for n in (64, 300)]
+
+    def pools_of(engine):
+        out = []
+        for pool in (engine.k_cache, engine.v_cache):
+            out += [pool["q"], pool["s"]] if isinstance(pool, dict) \
+                else [pool]
+        return out
+
+    def check(engine, batch):
+        graph = engine._decode_graph
+        greedy = batch == "greedy"
+        engine._decode_pass()            # a real dispatch (captures once)
+        saved = graph.save()
+        pools = [t.clone() for t in pools_of(engine)]
+
+        def rewind():
+            graph.restore(saved)
+            for live, old in zip(pools_of(engine), pools):
+                live.copy_(old)
+
+        graph.body(engine.k_cache, engine.v_cache, greedy)
+        want = graph.save()
+        want_pools = [t.clone() for t in pools_of(engine)]
+        rewind()
+        before = _counts()
+        graph.run(engine.k_cache, engine.v_cache, greedy)
+        launched = {f"{fn.__name__}.{attr}": n - before[(fn, attr)]
+                    for (fn, attr), n in _counts().items()
+                    if n != before[(fn, attr)]}
+        got = graph.save()
+
+        def agrees(state, pool_leaves):
+            return (all(torch.equal(state[k], want[k]) for k in want
+                        if k != "generator")
+                    and all(torch.equal(a, b) for a, b in
+                            zip(pool_leaves, want_pools)))
+
+        equal = agrees(got, pools_of(engine))
+        rewind()                         # the planted fault: stale tables
+        graph.tables.copy_(saved["tables"][[1, 0, *range(2, len(
+            saved["tables"]))]])
+        graph.run(engine.k_cache, engine.v_cache, greedy)
+        fault_equal = agrees(graph.save(), pools_of(engine))
+        rewind()
+        replay_ms = time_ms(lambda: graph.run(engine.k_cache,
+                                              engine.v_cache, greedy),
+                            warmup=2, iters=10)
+        rewind()
+        eager_ms = time_ms(lambda: graph.body(engine.k_cache,
+                                              engine.v_cache, greedy),
+                           warmup=1, iters=5)
+        rewind()
+        return {"batch": batch, "bit_equal": equal,
+                "planted_fault_stale_tables_bit_equal": fault_equal,
+                "replay_ms_per_dispatch": replay_ms,
+                "uncaptured_ms_per_dispatch": eager_ms,
+                "launches_per_replay": launched,
+                "graph_captures": graph.captures,
+                "graph_capture_s": graph.capture_s}
+
+    cases = []
+    t0 = time.perf_counter()
+    for kv_dtype in ("bf16", "int8"):
+        for m in (1, 2):
+            engine = llama_engine(params, cfg, serve_config(
+                cfg, kv_dtype=kv_dtype, decode_passes_per_dispatch=m),
+                device=dev)
+            for batch, prompts, sp in (
+                    ("greedy", greedy_prompts,
+                     SamplingParams(temperature=0.0, max_new_tokens=512)),
+                    ("mixed", sampled_prompts,
+                     SamplingParams(temperature=0.8, top_p=0.9, top_k=40,
+                                    max_new_tokens=512))):
+                reqs = [engine.submit(p, sp) for p in prompts]
+                engine._admit()
+                if any(r.error or r.pending_prefill for r in reqs):
+                    raise AssertionError(f"decode_graph: admission failed "
+                                         f"{[r.error for r in reqs]}")
+                case = check(engine, batch)
+                case.update(kv_dtype=kv_dtype, decode_passes_per_dispatch=m,
+                            steps_per_dispatch=engine._tokens_per_pass)
+                emit({"phase": "decode_graph_case", **case})
+                cases.append(case)
+            del engine
+            gc.collect()             # its graphs go now, not mid-capture
+            torch.cuda.empty_cache()
+    emit({"phase": "decode_graph", "card": smi_line,
+          "config": "llama3_1b bf16 random seed 0, app.serve_config, K=8",
+          "cases": len(cases), "seconds": time.perf_counter() - t0})
+    bad = [c for c in cases if not c["bit_equal"]]
+    if bad:
+        raise AssertionError(f"decode_graph: replay differs from the "
+                             f"uncaptured pass: {bad}")
+    missed = [c for c in cases if c["planted_fault_stale_tables_bit_equal"]]
+    if missed:
+        raise AssertionError(f"decode_graph check passed a planted fault "
+                             f"(stale tables): {missed}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _post(url: str, body: dict) -> tuple[int, dict]:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1353,6 +1600,7 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import kv_write
     from gofr_tpu_torch.serving.app import (build_engine, build_server,
                                             serve_config)
     kv_dtype = "bf16" if bf16 is None else "int8"
@@ -1361,7 +1609,7 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     # the run's kernels, and the paged ones of the other pool form
     own = {"flash_attention": (flash_attention, "launches")}
     others = {}
-    for fn in (paged_decode_attention, paged_chunk_attention):
+    for fn in (paged_decode_attention, paged_chunk_attention, kv_write):
         own[fn.__name__ + suffix] = (fn, "launches" + suffix)
         others[fn.__name__ + other] = (fn, "launches" + other)
     cfg = LlamaConfig.llama3_1b()
@@ -1445,6 +1693,7 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
            "decode_tokens": stats["decode_tokens"],
            "decode_s": stats["decode_s"],
            "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+           **_graph_stats(stats),
            "prefill_calls": stats["prefill_calls"],
            "prefill_s": stats["prefill_s"], "launches": launches,
            "launches_of_the_other_pool_form": other_launches}
@@ -1463,6 +1712,17 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "tokens": tokens, "pool_pages": pages,
             "pool_bytes": pool_bytes}
+
+
+def _graph_stats(stats: dict) -> dict:
+    """The compiled decode dispatch's counters, and decode tokens/s with
+    the one-off graph captures left out of ``decode_s``."""
+    keys = ("graph_captures", "graph_replays", "graph_capture_s",
+            "sched_syncs", "h2d_transfers")
+    out = {k: stats[k] for k in keys}
+    out["decode_tokens_per_s_without_capture"] = stats["decode_tokens"] / (
+        stats["decode_s"] - stats["graph_capture_s"])
+    return out
 
 
 def _common_prefix(a: list, b: list) -> int:
@@ -1555,6 +1815,7 @@ def phase_serve_spec(dev, smi_line: str) -> dict:
                                       / max(1, stats["spec_rows"])),
             "decode_s": stats["decode_s"], "spec_s": stats["spec_s"],
             "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+            **_graph_stats(stats),
             "ttft_ms": [a[1]["data"]["usage"]["ttft_ms"] for a in got],
             "tokens": tokens}
         del engine
@@ -1608,6 +1869,9 @@ def main() -> int:
     # wave 1's widest prefill bucket, and the chunk kernel at GQA group 3
     rows += [kernel_flash(dev, gen, wide=True),
              kernel_chunk(dev, gen, group3=True)[0]]
+    # the KV write kernel, both pool forms (its own generator: the rows
+    # below draw the same inputs as before it was added)
+    rows += kernel_kv_write(dev, torch.Generator(device=dev).manual_seed(7))
     # single-request latency, where split-KV matters most: one slot of
     # 2047 rows in decode, one verify over 1900 history rows; printed as
     # their own kernel lines, checked as the rows above
@@ -1620,6 +1884,7 @@ def main() -> int:
     phase_model_chunk(dev)
     phase_model_spec(dev)
     phase_model_int8(dev)
+    phase_decode_graph(dev, smi_line)
     serve = phase_serve(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],

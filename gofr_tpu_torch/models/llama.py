@@ -15,7 +15,7 @@ device — the path the kernels are held against.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
@@ -27,8 +27,8 @@ from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention_plain,
                                    paged_tree_attention,
                                    paged_tree_attention_plain)
-from ..ops.paged_kv import (KV_DTYPES, keep_index, pool_layer, pool_shape,
-                            pool_write, quantize_rows)
+from ..ops.paged_kv import (KV_DTYPES, keep_index, kv_write, pool_layer,
+                            pool_shape, quantize_rows)
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -110,6 +110,21 @@ def llama_init(config: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def _inv_freq(c: LlamaConfig, device: torch.device) -> torch.Tensor:
+    """The config's inverse RoPE frequencies on ``device``: a constant,
+    built once and not inside every step (a CUDA graph of the decode
+    step then holds no set-up work). Callers only read it."""
+    return _rope_table(c.head_dim, c.rope_theta,
+                       tuple(sorted((c.rope_scaling or {}).items())),
+                       torch.device(device))
+
+
+@lru_cache(maxsize=16)
+def _rope_table(head_dim, theta, scaling, device) -> torch.Tensor:
+    return rope_frequencies(head_dim, theta, dict(scaling) or None,
+                            device=device)
+
+
 def _layer(params: dict, li: int) -> dict:
     return {name: w[li] for name, w in params["layers"].items()}
 
@@ -166,8 +181,7 @@ def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
     """Embedding + every block -> (hidden [B, S, D], (k, v) each
     [L, B, S, Hkv, hd])."""
     b, s = tokens.shape
-    inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
-                                device=tokens.device)
+    inv_freq = _inv_freq(c, tokens.device)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = params["embed"][tokens]
     ks, vs = [], []
@@ -199,31 +213,37 @@ def llama_prefill_last(params: dict, tokens: torch.Tensor,
 def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
                             v_pool, tables: torch.Tensor, lengths: torch.Tensor,
                             config: LlamaConfig, *,
-                            implementation: str = "auto"):
+                            implementation: str = "auto",
+                            active: torch.Tensor | None = None):
     """One decode step straight against the paged KV pool.
 
     tokens [B]; pools [L, Hkv, Np, pg, hd] (head-major; plain, or the
     quantized ``{q, s}`` form, written quantized); tables [B, Mp] int32; lengths [B] int32 = rows already cached (the new token lands
     at that position). Each layer writes its new K/V row through the
     table — a row at or past the table's end, or on an unallocated page,
-    is dropped — then attends over ``lengths + 1`` rows. The pools are
-    updated in place. Returns (logits [B, V] float32, k_pool, v_pool).
+    or of a row whose ``active`` [B] bool entry is False, is dropped —
+    then attends over ``lengths + 1`` rows. The pools are updated in
+    place. On CUDA the step holds no host sync (the write kernel drops
+    rows on the card), so it can be captured in a CUDA graph. Returns
+    (logits [B, V] float32, k_pool, v_pool).
     """
     c = config
     b = tokens.shape[0]
     hd = c.head_dim
     n_pages, pg = pool_shape(k_pool)[2:4]
     mp = tables.shape[1]
-    inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
-                                device=tokens.device)
+    inv_freq = _inv_freq(c, tokens.device)
     positions = lengths[:, None]
     lens_long = lengths.long()
     pids = torch.gather(tables, 1,
                         (lens_long // pg).clamp(max=mp - 1)[:, None])[:, 0]
-    pids = torch.where(lens_long < mp * pg, pids,
-                       torch.full_like(pids, n_pages))
-    offs = lens_long % pg
-    keep = keep_index(pids, n_pages)     # one sync per step, all layers
+    inside = lens_long < mp * pg
+    if active is not None:
+        inside = inside & active
+    pids = torch.where(inside, pids, torch.full_like(pids, n_pages))
+    offs = lengths % pg
+    # the plain write selects its rows with one host sync per step
+    keep = keep_index(pids, n_pages) if tokens.device.type == "cpu" else None
     attend = lengths + 1
     decode_attn = (paged_decode_attention if implementation == "auto"
                    else paged_decode_attention_plain)
@@ -237,8 +257,7 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
         v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        pool_write(k_pool, li, pids, offs, k[:, 0], keep=keep)
-        pool_write(v_pool, li, pids, offs, v[:, 0], keep=keep)
+        kv_write(k_pool, v_pool, li, pids, offs, k[:, 0], v[:, 0], keep=keep)
         out = decode_attn(q[:, 0].contiguous(), pool_layer(k_pool, li),
                           pool_layer(v_pool, li), tables, attend)
         x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
@@ -285,8 +304,7 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     hd = c.head_dim
     n_pages, pg = pool_shape(k_pool)[2:4]
     mp = tables.shape[1]
-    inv_freq = rope_frequencies(c.head_dim, c.rope_theta, c.rope_scaling,
-                                device=tokens.device)
+    inv_freq = _inv_freq(c, tokens.device)
     node_pos = offsets.long()[:, None] + torch.arange(
         s, device=tokens.device)[None, :]                           # [B, S]
     positions = node_pos if tree_depths is None \
@@ -296,8 +314,8 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     pids = torch.gather(tables, 1, (node_pos // pg).clamp(0, mp - 1))
     pids = torch.where(valid & (node_pos < mp * pg), pids,
                        torch.full_like(pids, n_pages))
-    offs = node_pos % pg
-    keep = keep_index(pids, n_pages)     # one sync per chunk, all layers
+    offs = (node_pos % pg).to(torch.int32)
+    keep = keep_index(pids, n_pages) if tokens.device.type == "cpu" else None
     if tree_masks is None:
         chunk_attn = (paged_chunk_attention if implementation == "auto"
                       else paged_chunk_attention_plain)
@@ -315,8 +333,7 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
         v = _mm(h, lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        pool_write(k_pool, li, pids, offs, k, keep=keep)
-        pool_write(v_pool, li, pids, offs, v, keep=keep)
+        kv_write(k_pool, v_pool, li, pids, offs, k, v, keep=keep)
         out = chunk_attn(q.contiguous(), pool_layer(k_pool, li),
                          pool_layer(v_pool, li), tables, offsets,
                          chunk_lengths)

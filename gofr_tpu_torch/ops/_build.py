@@ -38,6 +38,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_decode": "paged_decode.cu",
     "paged_chunk": "paged_chunk.cu",
+    "kv_write": "kv_write.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

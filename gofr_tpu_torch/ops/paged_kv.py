@@ -20,11 +20,22 @@ narrow codes plus one scale per written row, ``max(amax, 1e-8) / 127``
 writer quantizes on write, through the same in-range selection for both
 leaves; :func:`pool_move_rows` moves codes and scales as they are, and
 :func:`slot_view` dequantizes in float32, as the kernels do.
+
+The model steps' per-layer row write, :func:`kv_write` (and
+:func:`pool_write` on CUDA tensors), launches the hand-written kernel
+``csrc/kv_write.cu``: K and V in one launch, out-of-range rows dropped
+on the card and int8 rows quantized there, so a decode step holds no
+host sync and can be captured in a CUDA graph. CPU tensors take the
+plain versions below, which select the in-range rows first.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _build
 
 #: a pool is either a plain tensor or a dict with these two leaves
 QUANT_KEYS = ("q", "s")
@@ -44,7 +55,11 @@ def quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     even and clipped to ±127. Zero rows give all-zero codes, so fresh
     pages dequantize to exact zeros."""
     rf = rows.float()
-    scale = rf.abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
+    amax = rf.abs().amax(-1, keepdim=True).clamp(min=1e-8)
+    # a tensor divisor: PyTorch's CUDA kernels divide by a Python scalar
+    # as a product with its reciprocal, one bit off the IEEE quotient
+    # that the CPU, the JAX package and csrc/kv_write.cu compute
+    scale = amax / torch.full_like(amax, 127.0)
     codes = torch.round(rf / scale).clamp(-127, 127).to(torch.int8)
     return codes, scale
 
@@ -112,16 +127,156 @@ def pool_write(pool, li: int, pids: torch.Tensor, offs: torch.Tensor,
     """Write ``rows`` into layer ``li`` at (page, offset) coordinates,
     in place. ``pids``/``offs`` are [B] (decode) or [B, S] (chunk);
     ``rows`` is [*pids.shape, H, d]. Entries whose page id is out of
-    range are dropped. Rows are cast to the pool dtype, or quantized."""
+    range are dropped. Rows are cast to the pool dtype, or quantized.
+
+    CUDA tensors launch the ``kv_write`` kernel (K only; bf16 rows) or
+    raise. CPU tensors run the plain version: the in-range rows are
+    selected (``keep``, computed here unless given) and written."""
+    if rows.device.type != "cpu":
+        _kv_write_kernel(pool, None, li, pids, offs, rows, None)
+        return pool
     if keep is None:
         keep = keep_index(pids, pool_shape(pool)[2])
+    _write_kept(pool, li, pids, offs, rows, keep)
+    return pool
+
+
+def _write_kept(pool, li, pids, offs, rows, keep) -> None:
+    """The plain write: the rows at flat indices ``keep`` (in range)."""
     n = pids.numel()
     p = pids.reshape(-1).index_select(0, keep)
     o = offs.reshape(-1).index_select(0, keep)
     r = rows.reshape(n, *rows.shape[-2:]).index_select(0, keep)
     _set_rows(pool_layer(pool, li), (slice(None), p, o),
               r.transpose(0, 1))                        # [H, n, d]
-    return pool
+
+
+def kv_write_plain(k_pool, v_pool, li: int, pids: torch.Tensor,
+                   offs: torch.Tensor, k_rows: torch.Tensor,
+                   v_rows: torch.Tensor, keep: torch.Tensor | None = None):
+    """The plain version of :func:`kv_write`, on any device: both rows
+    through :func:`pool_write`'s CPU code, with one in-range selection
+    (one host sync on CUDA)."""
+    if keep is None:
+        keep = keep_index(pids, pool_shape(k_pool)[2])
+    _write_kept(k_pool, li, pids, offs, k_rows, keep)
+    _write_kept(v_pool, li, pids, offs, v_rows, keep)
+    return k_pool, v_pool
+
+
+def kv_write(k_pool, v_pool, li: int, pids: torch.Tensor,
+             offs: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+             keep: torch.Tensor | None = None):
+    """Write one layer's new K and V rows, in place: row n of ``k_rows``
+    / ``v_rows`` ([*pids.shape, Hkv, hd]) lands in layer ``li`` at page
+    ``pids[n]``, offset ``offs[n]``; a row whose page id is outside
+    ``[0, Np)`` is dropped. Returns (k_pool, v_pool).
+
+    CUDA tensors launch the kernel for the pools' form (bf16 rows; bf16
+    pools, or int8 ``{q, s}`` pools quantized on the card bit for bit as
+    :func:`quantize_rows` does) — one launch, no host sync — or raise:
+    there is no fallback. CPU tensors run :func:`kv_write_plain`
+    (``keep``, the in-range indices, may be passed in to share one
+    selection across layers)."""
+    if k_rows.device.type == "cpu":
+        return kv_write_plain(k_pool, v_pool, li, pids, offs, k_rows,
+                              v_rows, keep)
+    _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_rows, v_rows)
+    return k_pool, v_pool
+
+
+#: C entry by pool form: (symbol, pool pointer arguments); every entry
+#: takes (k_rows, v_rows, pids, offs, <pools>, N, Hkv, Np, pg, hd, stream)
+_KV_WRITE = {False: ("gofr_kv_write", 2), True: ("gofr_kv_write_i8", 4)}
+_kv_fns: dict = {}
+
+
+def _kv_kernel(quantized: bool):
+    fn = _kv_fns.get(quantized)
+    if fn is None:
+        symbol, n_pools = _KV_WRITE[quantized]
+        fn = getattr(_build.load("kv_write"), symbol)
+        fn.argtypes = [ctypes.c_void_p] * (4 + n_pools) + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kv_fns[quantized] = fn
+    return fn
+
+
+def _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_rows, v_rows) -> None:
+    """Check what the kernel takes, launch it on the current stream (V
+    absent: ``v_pool`` and ``v_rows`` None), raise if the launch was
+    refused, and count it: ``kv_write.launches`` for bf16 pools,
+    ``kv_write.launches_int8`` for quantized ones."""
+    if k_rows.device.type != "cuda":
+        raise ValueError(f"kv_write: no kernel for device {k_rows.device}")
+    quantized = is_quantized_pool(k_pool)
+    pools = [k_pool] if v_pool is None else [k_pool, v_pool]
+    if any(is_quantized_pool(p) != quantized for p in pools):
+        raise ValueError("kv_write: k_pool and v_pool must both be plain or "
+                         "both quantized")
+    n_layers, hkv, n_pages, pg, d = pool_shape(k_pool)
+    if not 0 <= li < n_layers:
+        raise ValueError(f"kv_write: layer {li} outside [0, {n_layers})")
+    n = pids.numel()
+    if offs.numel() != n:
+        raise ValueError("kv_write: pids and offs must hold one entry per row")
+    rows = [k_rows] if v_rows is None else [k_rows, v_rows]
+    rows = [r.reshape(n, *r.shape[-2:]) for r in rows]
+    leaves = []
+    for pool in pools:
+        leaves += ([pool["q"], pool["s"]] if quantized else [pool])
+    for r in rows:
+        if r.dtype != torch.bfloat16 or tuple(r.shape) != (n, hkv, d):
+            raise ValueError(f"kv_write: rows must be bfloat16 "
+                             f"[*pids.shape, {hkv}, {d}], got {r.dtype} "
+                             f"{tuple(r.shape)}")
+    for t in rows + leaves + [pids, offs]:
+        if t.device != k_rows.device:
+            raise ValueError(f"kv_write: a tensor on {t.device}, the rows "
+                             f"on {k_rows.device}")
+    for pool in pools:
+        want = (n_layers, hkv, n_pages, pg, d)
+        if pool_shape(pool) != want:
+            raise ValueError(f"kv_write: pools must both be {want}")
+        if quantized:
+            if pool["q"].dtype != torch.int8 or pool["s"].dtype != \
+                    torch.float32 or pool["s"].shape != (*want[:4], 1):
+                raise TypeError("kv_write: a quantized pool is int8 codes "
+                                "and float32 [L, Hkv, Np, pg, 1] scales")
+        elif pool.dtype != torch.bfloat16:
+            raise TypeError(f"kv_write: pools must be bfloat16, got "
+                            f"{pool.dtype}")
+    if not all(t.is_contiguous() for t in leaves):
+        raise ValueError("kv_write: pools must be contiguous")
+    rows = [r.contiguous() for r in rows]
+    pids = pids.reshape(-1).to(torch.int32).contiguous()
+    offs = offs.reshape(-1).to(torch.int32).contiguous()
+    layer = [t[li] for t in leaves]
+    if v_pool is None:
+        # K only: the V row and pool arguments are null
+        layer = ([layer[0], None, layer[1], None] if quantized
+                 else [layer[0], None])
+        rows.append(None)
+    elif quantized:                 # (k codes, v codes, k scales, v scales)
+        layer = [layer[0], layer[2], layer[1], layer[3]]
+    ptr = [None if t is None else t.data_ptr() for t in rows + [pids, offs]
+           + layer]
+    rc = _kv_kernel(quantized)(
+        *ptr, n, hkv, n_pages, pg, d,
+        torch.cuda.current_stream(k_rows.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kv_write{'_int8' if quantized else ''} kernel "
+                           f"launch failed: cudaError {rc}")
+    if n:
+        counter = "launches_int8" if quantized else "launches"
+        setattr(kv_write, counter, getattr(kv_write, counter) + 1)
+
+
+#: kernel launches since the last reset, per pool form (plain integers;
+#: set one to 0 to start counting); pool_write's CUDA path counts here
+kv_write.launches = 0           # bf16 pools
+kv_write.launches_int8 = 0      # int8 {q, s} pools
 
 
 def scatter_chunk(pool, tables: torch.Tensor, slab: torch.Tensor,

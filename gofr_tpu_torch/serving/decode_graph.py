@@ -1,0 +1,247 @@
+"""The compiled decode dispatch: device-resident decode state and T = K x
+M decode steps per dispatch, replayed as one CUDA graph (counterpart of
+the JAX engine's ``_fused_decode`` / ``_decode_sample`` /
+``_advance_lengths`` and of its device-resident scheduler arrays,
+``_sync_decode_state`` / ``_tables_arg``:
+``gofr_tpu/serving/engine.py:708-791``, ``:3199-3268``).
+
+Row = slot: every buffer holds ``rows`` (the engine's ``max_batch``)
+rows, whether a slot decodes, walks its prompt or is idle, so the state
+stays on the device across admissions. The static buffers:
+
+- ``tokens`` / ``use_prev`` / ``prev``: each row's input token is
+  ``where(use_prev, prev, tokens)``, as JAX's ``toks_in``: a row that
+  decoded in the last dispatch takes that dispatch's last token on the
+  device, a fresh one the token the host wrote;
+- ``lengths`` (rows in the cache), ``active`` (the rows that decode);
+- ``temps`` / ``top_ps`` / ``top_ks``: sampling params;
+- ``tables`` [rows, Mp]: block tables;
+- ``out`` [T, rows]: the dispatch's sampled tokens.
+
+The host rewrites them (:meth:`DecodeGraph.upload`, a ``copy_`` from a
+pinned host tensor per buffer) only when the scheduler changed them;
+between such events a dispatch uploads nothing. Inside the pass, lengths
+advance by one per step, and at its end active rows' lengths advance by
+T, clamped at ``max_seq`` (as ``_advance_lengths``), ``prev`` takes the
+last step's tokens and ``use_prev`` the active mask. Inactive rows never
+write the pool: the step forces their page ids out of range with
+``active``, and the write kernel drops them.
+
+On CUDA, :meth:`DecodeGraph.run` replays one ``torch.cuda.CUDAGraph``
+per value of ``all_greedy`` (an all-greedy batch skips the sampler's
+candidate search and draws no noise), captured at first use after one
+warm-up run on a side stream, all graphs in one memory pool. There is
+no eager path on the card: capture or replay raise, they do not fall
+back. The pools and the params are captured by address; a replay checks
+that they are still the tensors it captured. The sampled graph registers
+the engine's generator, so each replay draws fresh noise from it. On the
+CPU the same pass runs on the same buffers, uncaptured.
+
+Launch counters: a kernel wrapper counts when Python calls it, which a
+replay does not do. The counts made during a capture are taken back off
+(the capture launched nothing) and added again on every replay.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import (paged_chunk_attention,
+                                   paged_decode_attention,
+                                   paged_tree_attention)
+from ..ops.paged_kv import kv_write
+from .sampling import sample_batch
+
+#: the kernel wrappers whose launch counters a replay carries on
+COUNTED = (flash_attention, paged_decode_attention, paged_chunk_attention,
+           paged_tree_attention, kv_write)
+_COUNTERS = ("launches", "launches_int8")
+
+#: the buffers the host writes, with their dtypes
+STATE = {"tokens": torch.int64, "use_prev": torch.bool,
+         "lengths": torch.int32, "active": torch.bool,
+         "temps": torch.float32, "top_ps": torch.float32,
+         "top_ks": torch.int64, "tables": torch.int32}
+
+
+def _counts() -> dict:
+    return {(fn, attr): getattr(fn, attr) for fn in COUNTED
+            for attr in _COUNTERS if hasattr(fn, attr)}
+
+
+def _leaves(tree) -> list:
+    """The tensors of a params dict or a pool (plain, or ``{q, s}``)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _addresses(*trees) -> tuple:
+    return tuple(t.data_ptr() for tree in trees for t in _leaves(tree))
+
+
+class DecodeGraph:
+    """T decode steps over ``rows`` slots on static device buffers.
+
+    step_fn(params, tokens [rows] int64, k_pool, v_pool, tables [rows,
+        Mp], lengths [rows] int32, active=[rows] bool) -> (logits [rows,
+        V], k_pool, v_pool), updating the pools in place (e.g.
+        ``llama_decode_step_paged``).
+    """
+
+    def __init__(self, step_fn: Callable, params, *, rows: int,
+                 max_pages: int, n_pages: int, steps: int, max_seq: int,
+                 device: str | torch.device,
+                 generator: torch.Generator | None = None) -> None:
+        self.step_fn = step_fn
+        self.params = params
+        self.steps = steps
+        self.max_seq = max_seq
+        self.device = torch.device(device)
+        self.generator = generator
+        dev, pin = self.device, self.device.type == "cuda"
+        shapes = {"tables": (rows, max_pages)}
+        fills = {"top_ps": 1, "tables": n_pages}
+        for name, dtype in STATE.items():
+            setattr(self, name, torch.full(shapes.get(name, (rows,)),
+                                           fills.get(name, 0), dtype=dtype,
+                                           device=dev))
+        self.prev = torch.zeros(rows, dtype=torch.int64, device=dev)
+        self.out = torch.zeros((steps, rows), dtype=torch.int64, device=dev)
+        #: pinned host staging, one tensor per host-written buffer
+        self._host = {name: torch.empty_like(getattr(self, name),
+                                             device="cpu", pin_memory=pin)
+                      for name in STATE}
+        self._out_host = torch.empty_like(self.out, device="cpu",
+                                          pin_memory=pin)
+        self._uploaded = torch.cuda.Event() if pin else None
+        self._graphs: dict[bool, torch.cuda.CUDAGraph] = {}
+        self._graph_launches: dict[bool, dict] = {}
+        self._mempool = None
+        self._captured = None           # addresses of params and pools
+        self.captures = 0
+        self.replays = 0
+        #: seconds spent capturing (warm-up run included)
+        self.capture_s = 0.0
+
+    # ------------------------------------------------------------ state
+    def upload(self, **arrays: np.ndarray) -> int:
+        """Copy host arrays into the named buffers, in place (a graph
+        reads them by address); returns the host-to-device transfers
+        made (one per buffer)."""
+        if self._uploaded is not None:
+            # the staging tensors are rewritten only once the last
+            # uploads out of them have landed
+            self._uploaded.synchronize()
+        for name, value in arrays.items():
+            host = self._host[name]
+            host.numpy()[...] = value
+            getattr(self, name).copy_(host, non_blocking=True)
+        if self._uploaded is not None:
+            self._uploaded.record()
+        return len(arrays)
+
+    def save(self) -> dict:
+        """A copy of every buffer and of the generator's state."""
+        saved = {name: getattr(self, name).clone()
+                 for name in (*STATE, "prev", "out")}
+        if self.generator is not None:
+            saved["generator"] = self.generator.get_state()
+        return saved
+
+    def restore(self, saved: dict) -> None:
+        """Put back what :meth:`save` copied, in place."""
+        for name, value in saved.items():
+            if name == "generator":
+                self.generator.set_state(value)
+            else:
+                getattr(self, name).copy_(value)
+
+    # ------------------------------------------------------------- pass
+    def body(self, k_pool, v_pool, all_greedy: bool) -> None:
+        """The pass itself, on the static buffers: T steps, each feeding
+        its sampled tokens to the next, then the state advance. What a
+        graph holds; on the CPU, what :meth:`run` calls."""
+        toks = torch.where(self.use_prev, self.prev, self.tokens)
+        lens = self.lengths
+        sampled = []
+        for _ in range(self.steps):
+            logits = self.step_fn(self.params, toks, k_pool, v_pool,
+                                  self.tables, lens, active=self.active)[0]
+            toks = sample_batch(logits, self.temps, self.top_ps, self.top_ks,
+                                generator=self.generator,
+                                all_greedy=all_greedy).long()
+            sampled.append(toks)
+            lens = lens + 1
+        self.out.copy_(torch.stack(sampled))
+        self.prev.copy_(toks)
+        self.use_prev.copy_(self.active)
+        self.lengths.copy_(torch.where(
+            self.active, (self.lengths + self.steps).clamp(max=self.max_seq),
+            self.lengths))
+
+    def run(self, k_pool, v_pool, all_greedy: bool) -> np.ndarray:
+        """One dispatch: the captured graph's replay on CUDA (captured
+        now if this is its first use), the uncaptured pass on the CPU.
+        Returns the sampled tokens [T, rows]."""
+        if self.device.type == "cpu":
+            self.body(k_pool, v_pool, all_greedy)
+            return self.out.numpy().copy()
+        graph = self._graphs.get(all_greedy)
+        if graph is None:
+            graph = self._capture(k_pool, v_pool, all_greedy)
+        if _addresses(self.params, k_pool, v_pool) != self._captured:
+            raise RuntimeError("decode graph: the params or KV pools are not "
+                               "the tensors the graph captured (reallocated "
+                               "or reassigned since)")
+        graph.replay()
+        self.replays += 1
+        for (fn, attr), n in self._graph_launches[all_greedy].items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+        self._out_host.copy_(self.out)
+        return self._out_host.numpy().copy()
+
+    def _capture(self, k_pool, v_pool, all_greedy: bool):
+        """Capture the pass for ``all_greedy``. One warm-up run on a side
+        stream first, so lazy set-up (library handles, kernel builds,
+        workspaces) happens outside the capture; its effect on the state
+        buffers and the generator is undone, and the KV rows it wrote are
+        written again by the pass before anything reads them."""
+        t0 = time.perf_counter()
+        addresses = _addresses(self.params, k_pool, v_pool)
+        if self._captured is None:
+            self._captured = addresses
+        elif addresses != self._captured:
+            raise RuntimeError("decode graph: the params or KV pools are not "
+                               "the tensors the first graph captured")
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        saved = self.save()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.body(k_pool, v_pool, all_greedy)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.restore(saved)
+        graph = torch.cuda.CUDAGraph()
+        if not all_greedy and self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = _counts()
+        with torch.cuda.graph(graph, pool=self._mempool,
+                              capture_error_mode="thread_local"):
+            self.body(k_pool, v_pool, all_greedy)
+        after = _counts()
+        launched = {key: after[key] - before[key] for key in after
+                    if after[key] != before[key]}
+        for (fn, attr), n in launched.items():   # the capture ran nothing
+            setattr(fn, attr, getattr(fn, attr) - n)
+        self._graph_launches[all_greedy] = launched
+        self._graphs[all_greedy] = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return graph

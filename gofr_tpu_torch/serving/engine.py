@@ -32,12 +32,21 @@ prefix cache, the chunk-with-history walk and speculative tree verify).
   pages). A later prompt that starts with a cached prefix (leaving at
   least one token to compute) attaches those pages to its table and
   walks only the rest.
-- **Decode passes** of ``decode_steps_per_pass`` (K) steps over the
-  decoding slots: each step writes one K/V row per slot through its
-  table, attends with the paged decode kernel and samples; sampled
-  tokens feed the next step on the device, and the host reads the K
-  tokens once per pass. Slots retire on eos, on ``max_new_tokens`` or
-  at the ``max_seq`` ceiling, exactly as the JAX engine counts them.
+- **Decode dispatches** of T = ``decode_steps_per_pass`` (K) x
+  ``decode_passes_per_dispatch`` (M) steps over every slot (row = slot,
+  ``max_batch`` rows; ``decode_graph.DecodeGraph``): each step writes
+  one K/V row per decoding slot through its table (other rows' writes
+  are dropped on the card), attends with the paged decode kernel and
+  samples; sampled tokens feed the next step on the device, and the
+  host reads the T tokens once per dispatch. The per-slot state lives
+  on the device and is uploaded only when an event changes it
+  (admission, a first token, a retirement, a speculative pass, a table
+  change: ``stats["sched_syncs"]``, ``stats["h2d_transfers"]``); on CUDA
+  a dispatch is one CUDA graph replay (``stats["graph_captures"]``,
+  ``stats["graph_replays"]``; the first dispatch of each kind captures,
+  and ``decode_s`` includes ``stats["graph_capture_s"]``). Slots retire
+  on eos, on ``max_new_tokens`` or at the ``max_seq`` ceiling, exactly
+  as the JAX engine counts them.
 - **Speculative tree verify** (``speculative``, off by default): before
   each pass every greedy decoding slot drafts by prompt lookup (its
   request's ``NgramIndex`` proposes up to ``spec_branches``
@@ -60,9 +69,9 @@ prefix cache, the chunk-with-history walk and speculative tree verify).
   so an int8 pool holds about twice the pages in the same memory.
 
 Left out (see ROADMAP.md Queue A): preemption and lazy page growth,
-decode windows, pipelining, and the SLO / events / integrity /
-observability / goodput / cost planes (so the speculative path keeps
-only the stats below).
+decode windows, pipelined dispatch/collect, and the SLO / events /
+integrity / observability / goodput / cost planes (so the speculative
+path keeps only the stats below).
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ import torch
 
 from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
                             scatter_chunk)
+from .decode_graph import DecodeGraph
 from .sampling import sample_batch
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
                    build_draft_tree)
@@ -129,8 +139,16 @@ class EngineConfig:
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024)
     #: waiting requests prefilled per device call (largest group)
     prefill_batch: int = 8
-    #: decode steps per pass: the host reads tokens once per K steps
+    #: decode steps per pass (K)
     decode_steps_per_pass: int = 8
+    #: K-step passes per decode dispatch (M): one dispatch (one CUDA
+    #: graph replay) runs K x M steps with on-device token feedback and
+    #: length advance, and the host reads the K x M tokens once.
+    #: Admission, retirement and drafting happen between dispatches, so
+    #: a large M trades scheduling granularity (and steps wasted past a
+    #: finishing request's budget) for fewer dispatches; greedy tokens
+    #: do not depend on it
+    decode_passes_per_dispatch: int = 1
     eos_id: int = -1            # -1: never stop on eos
     #: sampling seed; None draws one from os.urandom
     seed: int | None = None
@@ -188,8 +206,9 @@ class Engine:
         last valid position, k_pool, v_pool) — e.g.
         ``llama_prefill_chunk_paged``; pools are updated in place.
     paged_decode_fn(params, tokens [B], k_pool, v_pool, tables [B, Mp],
-        lengths [B]) -> (logits [B, V], k_pool, v_pool) — e.g.
-        ``llama_decode_step_paged``; pools are updated in place.
+        lengths [B], active=[B] bool) -> (logits [B, V], k_pool, v_pool)
+        — e.g. ``llama_decode_step_paged``; pools are updated in place,
+        rows whose ``active`` is False write nothing; B = ``max_batch``.
     paged_verify_fn(params, tokens [B, W], k_pool, v_pool, tables [B, Mp],
         offsets [B], chunk_lengths [B], tree_depths=[B, W],
         tree_masks=[B, W]) -> (logits [B, W, V], k_pool, v_pool) — e.g.
@@ -212,6 +231,9 @@ class Engine:
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
             raise ValueError("page_size, max_batch >= 1 and max_seq >= 2 "
                              "required")
+        if cfg.decode_steps_per_pass < 1 or cfg.decode_passes_per_dispatch < 1:
+            raise ValueError("decode_steps_per_pass and "
+                             "decode_passes_per_dispatch must be >= 1")
         if cfg.spec_branches < 1:
             raise ValueError(f"spec_branches must be >= 1, got "
                              f"{cfg.spec_branches}")
@@ -288,6 +310,20 @@ class Engine:
                      else int.from_bytes(os.urandom(4), "little"))
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
+        #: T = K x M steps per decode dispatch, over every slot
+        self._tokens_per_pass = (cfg.decode_steps_per_pass
+                                 * cfg.decode_passes_per_dispatch)
+        self._decode_graph = DecodeGraph(
+            paged_decode_fn, params, rows=cfg.max_batch,
+            max_pages=self._pages_per_slot, n_pages=self._n_pages,
+            steps=self._tokens_per_pass, max_seq=cfg.max_seq,
+            device=self.device, generator=self._generator)
+        #: the device copies of the scheduler arrays / tables are stale
+        self._sched_dirty = True
+        self._tables_dirty = True
+        #: the request each row decoded for in the last dispatch: its
+        #: last token is on the device (``use_prev``)
+        self._dev_last_reqs: list = [None] * cfg.max_batch
 
         self._waiting: deque[GenRequest] = deque()
         self._cv = threading.Condition()
@@ -301,7 +337,10 @@ class Engine:
                       "decode_tokens": 0, "prefix_hits": 0,
                       "prefix_evictions": 0, "spec_passes": 0,
                       "spec_s": 0.0, "spec_drafted": 0,
-                      "spec_accepted": 0, "spec_rows": 0}
+                      "spec_accepted": 0, "spec_rows": 0,
+                      "sched_syncs": 0, "h2d_transfers": 0,
+                      "graph_captures": 0, "graph_replays": 0,
+                      "graph_capture_s": 0.0}
 
     def _sized_pool_pages(self, page: int, base_pages: int) -> int:
         """The pool's page count from its byte budget: ``kv_pool_bytes``
@@ -438,6 +477,7 @@ class Engine:
         for req in waiting:
             self._fail(req, reason)
         self._walkers = []
+        self._sched_dirty = True
         for i, req in enumerate(self.active):
             if req is not None:
                 self.active[i] = None
@@ -494,6 +534,7 @@ class Engine:
             self._tables[slot, i] = page
             self._page_refs[page] = 1
         self._slot_pages[slot] = max(have, need)
+        self._tables_dirty = True
         return True
 
     def _release_pages(self, slot: int) -> None:
@@ -501,6 +542,7 @@ class Engine:
             self._decref_page(int(self._tables[slot, i]))
         self._tables[slot, :] = self._n_pages
         self._slot_pages[slot] = 0
+        self._tables_dirty = True
 
     # ------------------------------------------------------ prefix cache
     def _probe_prefix(self, prompt: list[int]) -> int:
@@ -527,6 +569,7 @@ class Engine:
             self._tables[slot, i] = page
             self._page_refs[page] += 1
         self._slot_pages[slot] = len(pages)
+        self._tables_dirty = True
 
     def _register_prefix(self, slot: int, req: GenRequest) -> None:
         """At retire: pin the page-aligned prompt prefix (leaving its
@@ -653,7 +696,8 @@ class Engine:
         temps, top_ps, top_ks = self._row_params(group, p)
         logits, (k, v) = self._prefill_fn(self.params, tokens_t, kv_len_t)
         toks = sample_batch(logits, temps, top_ps, top_ks,
-                            generator=self._generator)
+                            generator=self._generator,
+                            all_greedy=_all_greedy(group))
         offsets = torch.zeros_like(kv_len_t)
         scatter_chunk(self.k_cache, tables_t, k, offsets, kv_len_t)
         scatter_chunk(self.v_cache, tables_t, v, offsets, kv_len_t)
@@ -667,6 +711,7 @@ class Engine:
         """The prompt is in the cache: emit the first sampled token and
         open the slot for decode."""
         req.pending_prefill = False
+        self._sched_dirty = True
         req.first_token_at = time.time()
         req.generated.append(token)
         self.total_generated += 1
@@ -721,7 +766,8 @@ class Engine:
             self.v_cache, torch.from_numpy(tables).to(dev),
             torch.from_numpy(offsets).to(dev), torch.from_numpy(lens).to(dev))
         toks = sample_batch(logits, temps, top_ps, top_ks,
-                            generator=self._generator)
+                            generator=self._generator,
+                            all_greedy=_all_greedy(group))
         first = None
         for row, req in enumerate(group):
             req.prefill_offset += int(lens[row])
@@ -744,14 +790,55 @@ class Engine:
             return
         self.active[slot] = None
         self.lengths[slot] = 0
+        self._sched_dirty = True
         self._register_prefix(slot, req)
         self._release_pages(slot)
         req.finished_at = time.time()
         req.done.set()
 
+    def _sync_decode_state(self) -> None:
+        """Rebuild and upload the per-slot arrays the decode dispatch
+        reads, row = slot. Called only when an event set
+        ``_sched_dirty``; steady-state dispatches reuse the device
+        copies, which the dispatch itself advances. A row that decoded
+        for the same request in the last dispatch takes its last token
+        from the device (``use_prev``); idle and mid-walk rows are
+        inactive, with length 0."""
+        cfg = self.config
+        b = cfg.max_batch
+        arrays = {"tokens": np.zeros(b, np.int64),
+                  "use_prev": np.zeros(b, bool),
+                  "lengths": np.zeros(b, np.int32),
+                  "active": np.zeros(b, bool),
+                  "temps": np.zeros(b, np.float32),
+                  "top_ps": np.ones(b, np.float32),
+                  "top_ks": np.zeros(b, np.int64)}
+        for i, req in enumerate(self.active):
+            if req is None or req.pending_prefill:
+                continue
+            arrays["active"][i] = True
+            arrays["lengths"][i] = self.lengths[i]
+            if self._dev_last_reqs[i] is req:
+                arrays["use_prev"][i] = True
+            else:
+                arrays["tokens"][i] = req.generated[-1]
+            arrays["temps"][i] = req.params.temperature
+            arrays["top_ps"][i] = req.params.top_p
+            arrays["top_ks"][i] = req.params.top_k
+        self.stats["h2d_transfers"] += self._decode_graph.upload(**arrays)
+        self.stats["sched_syncs"] += 1
+        self._sched_dirty = False
+
+    def _sync_tables(self) -> None:
+        """Upload the block tables, only when a page was allocated,
+        released or attached since the last upload."""
+        self.stats["h2d_transfers"] += self._decode_graph.upload(
+            tables=self._tables)
+        self._tables_dirty = False
+
     def _decode_pass(self) -> None:
         cfg = self.config
-        steps = max(1, int(cfg.decode_steps_per_pass))
+        steps = self._tokens_per_pass
         for i, req in enumerate(self.active):
             if req is not None and not req.pending_prefill \
                     and self.lengths[i] >= cfg.max_seq:
@@ -764,32 +851,28 @@ class Engine:
         # steps whose write would land at or past max_seq are garbage
         # (their K/V writes drop): only the valid prefix is emitted
         valid = np.minimum(steps, cfg.max_seq - self.lengths[rows])
-        dev = self.device
         t0 = time.perf_counter()
-        toks = torch.tensor([r.generated[-1] for r in reqs],
-                            dtype=torch.int64, device=dev)
-        lens = torch.from_numpy(self.lengths[rows].copy()).to(dev)
-        tables = torch.from_numpy(self._tables[rows]).to(dev)
-        temps, top_ps, top_ks = self._row_params(reqs, len(rows))
-        sampled = []
-        for _ in range(steps):
-            logits, self.k_cache, self.v_cache = self._decode_fn(
-                self.params, toks, self.k_cache, self.v_cache, tables, lens)
-            toks = sample_batch(logits, temps, top_ps, top_ks,
-                                generator=self._generator).long()
-            sampled.append(toks)
-            lens = lens + 1
-        out = torch.stack(sampled).cpu().numpy()          # [K, n]
+        if self._sched_dirty:
+            self._sync_decode_state()
+        if self._tables_dirty:
+            self._sync_tables()
+        graph = self._decode_graph
+        out = graph.run(self.k_cache, self.v_cache, _all_greedy(reqs))
         busy = time.perf_counter() - t0
         self.stats["decode_passes"] += 1
         self.stats["decode_s"] += busy
+        self.stats["graph_captures"] = graph.captures
+        self.stats["graph_replays"] = graph.replays
+        self.stats["graph_capture_s"] = graph.capture_s
         self._step_count += 1
+        self._dev_last_reqs = [r if r is not None and not r.pending_prefill
+                               else None for r in self.active]
         self.lengths[rows] += valid.astype(np.int32)
         emitted = 0
         for j, (slot, req) in enumerate(zip(rows, reqs)):
             done = False
             for k in range(int(valid[j])):
-                token = int(out[k, j])
+                token = int(out[k, slot])
                 req.generated.append(token)
                 self.total_generated += 1
                 emitted += 1
@@ -934,6 +1017,9 @@ class Engine:
         out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
                         1).cpu().numpy()
         dur = time.perf_counter() - t0
+        # the verify emitted tokens the decode state has not seen
+        self._sched_dirty = True
+        self._dev_last_reqs = [None] * cfg.max_batch
         self.stats["spec_passes"] += 1
         self.stats["spec_s"] += dur
         self.stats["decode_s"] += dur
@@ -972,6 +1058,12 @@ class Engine:
                 self._retire(slot)
         self.stats["decode_tokens"] += emitted_total
         self._spec_ctrl.note_verify(dur, n, width)
+
+
+def _all_greedy(reqs) -> bool:
+    """True when every request decodes greedily (the sampler then skips
+    its candidate search), decided on the host from their params."""
+    return all(r.params.temperature <= 0.0 for r in reqs)
 
 
 def resolve_tree(logits: torch.Tensor, tokens: torch.Tensor,

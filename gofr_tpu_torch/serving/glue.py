@@ -23,7 +23,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     through ``llama_prefill_chunk_paged`` (the paged chunk kernel),
     speculative tree verify through the same function's tree mode (the
     paged tree kernel), decode through ``llama_decode_step_paged`` (the
-    paged decode kernel), on a head-major pool allocated on the same
+    paged decode kernel and the KV write kernel, T steps a dispatch
+    replayed as one CUDA graph), on a head-major pool allocated on the same
     device in the engine config's ``kv_dtype`` (int8 pools go through
     the kernels' int8 branches)."""
     dev = resolve_device(device)
@@ -35,9 +36,10 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     def prefill_fn(params, tokens, kv_lengths):
         return llama_prefill_last(params, tokens, c, kv_lengths=kv_lengths)
 
-    def paged_decode_fn(params, tokens, k_pool, v_pool, tables, lengths):
+    def paged_decode_fn(params, tokens, k_pool, v_pool, tables, lengths,
+                        active=None):
         return llama_decode_step_paged(params, tokens, k_pool, v_pool,
-                                       tables, lengths, c)
+                                       tables, lengths, c, active=active)
 
     def paged_chunk_fn(params, tokens, k_pool, v_pool, tables, offsets,
                        chunk_lengths):

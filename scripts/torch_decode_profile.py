@@ -3,13 +3,16 @@
 
     python3 scripts/torch_decode_profile.py [--out FILE]
 
-Drives the port's two device calls of the serving path at the
-Llama-3.2-1B shape (``LlamaConfig.llama3_1b()``, random bf16 weights,
-seed 0): one paged decode step (``llama_decode_step_paged`` + sampling)
-at the batches and lengths the chip smoke serves, on a bf16 pool and on
-an int8 one (``quantize_pool`` of the same random pool), and one group
-prefill (``llama_prefill_last``) per bucket width. For each it prints one JSON
-line with
+Drives the port's device calls of the serving path at the Llama-3.2-1B
+shape (``LlamaConfig.llama3_1b()``, random bf16 weights, seed 0): one
+eager paged decode step (``llama_decode_step_paged`` + sampling) at the
+batches and lengths the chip smoke serves, on a bf16 pool and on an int8
+one (``quantize_pool`` of the same random pool); the same step as the
+engine dispatches it, T = 8 steps replayed as one CUDA graph
+(``serving/decode_graph.DecodeGraph``, greedy, lengths advancing on the
+card), at the same shapes (``case: "decode_graph"``, every number also
+given per step); and one group prefill (``llama_prefill_last``) per
+bucket width. For each it prints one JSON line with
 
 - ``wall_ms``: host clock around the call, synchronised (median of 20
   decode steps / 5 prefills after warm-up);
@@ -17,7 +20,9 @@ line with
   from ``torch.profiler`` over the traced calls, and ``idle_share`` =
   1 - busy / wall: how far the host holds the card back;
 - ``launches``: kernels per call, and the top kernels by device time,
-  grouped as attention kernels (this repository's), GEMMs and the rest.
+  grouped as attention kernels (this repository's), GEMMs and the rest;
+- ``api_calls``: CUDA API calls (``cuda*``, ``cu*``) the host made per call
+  (kernel launches, graph launches, copies, syncs), by name.
 
 The card's name and power limit (``nvidia-smi``) lead the output. The
 whole result is also written to ``--out`` (default
@@ -45,12 +50,15 @@ from gofr_tpu_torch.models.llama import (LlamaConfig,  # noqa: E402
                                          llama_init, llama_prefill_last,
                                          make_pool)
 from gofr_tpu_torch.ops.paged_kv import quantize_pool  # noqa: E402
+from gofr_tpu_torch.serving.decode_graph import DecodeGraph  # noqa: E402
 from gofr_tpu_torch.serving.sampling import sample_batch  # noqa: E402
 
 
 def _kind(name: str) -> str:
     if "flash_fwd" in name or "paged_decode" in name:
         return "attention_kernels"
+    if "kv_write" in name:
+        return "kv_write"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90")):
         return "gemm"
@@ -69,9 +77,11 @@ def _profile(fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = {}
+    kernels, api = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.key.startswith("cu"):
+                api[evt.key] = evt.count / calls
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -85,6 +95,7 @@ def _profile(fn, calls: int) -> dict:
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "launches": sum(n for _, n in kernels.values()),
+            "api_calls": sum(api.values()), "api_calls_by_name": api,
             "busy_ms_by_kind": by_kind,
             "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
                             for n, (ms, c) in top]}
@@ -129,6 +140,55 @@ def decode_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
     return out
 
 
+def graph_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
+               steps: int = 8, pg: int = 64) -> dict:
+    """The decode dispatch as the engine runs it: ``steps`` greedy steps
+    replayed as one CUDA graph, all rows active, lengths advancing on the
+    card (the pool has room for every dispatch of the run)."""
+    b = len(lens_l)
+    dispatches = 3 + 20 + 10 + 1
+    mp = -(-(max(lens_l) + steps * dispatches + 64) // pg)
+    kp, vp = make_pool(cfg, b * mp, pg, dev)
+    kp.normal_()
+    vp.normal_()
+    if kv_dtype == "int8":
+        kp, vp = quantize_pool(kp), quantize_pool(vp)
+
+    def step(params, toks, k_pool, v_pool, tables, lengths, active=None):
+        return llama_decode_step_paged(params, toks, k_pool, v_pool, tables,
+                                       lengths, cfg, active=active)
+
+    graph = DecodeGraph(step, params, rows=b, max_pages=mp, n_pages=b * mp,
+                        steps=steps, max_seq=mp * pg, device=dev)
+    graph.upload(lengths=lens_l, active=[True] * b,
+                 tables=[[i * mp + j for j in range(mp)] for i in range(b)])
+
+    def dispatch():
+        graph.run(kp, vp, True)
+
+    dispatch()                       # the capture
+    wall = _wall_ms(dispatch, 3, 20)
+    out = {"case": "decode_graph", "kv_dtype": kv_dtype, "batch": b,
+           "lengths": lens_l, "steps_per_dispatch": steps,
+           "wall_ms": wall}
+    prof = _profile(dispatch, 10)
+    out.update(prof)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    dispatch()
+    end.record()
+    end.synchronize()
+    out["event_ms_per_dispatch"] = start.elapsed_time(end)
+    out["per_step"] = {
+        "wall_ms": wall / steps,
+        "traced_wall_ms": prof["traced_wall_ms"] / steps,
+        "device_busy_ms": prof["device_busy_ms"] / steps,
+        "launches": prof["launches"] / steps,
+        "api_calls": prof["api_calls"] / steps,
+        "idle_share": prof["idle_share"]}
+    return out
+
+
 def prefill_case(params, cfg, dev, p: int, s: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -164,8 +224,9 @@ def main() -> int:
     with torch.no_grad():
         for lens in ([21, 151, 401, 901], [1000] * 8):
             for kv_dtype in ("bf16", "int8"):
-                results.append(decode_case(params, cfg, dev, lens, kv_dtype))
-                print(json.dumps(results[-1]), flush=True)
+                for case in (decode_case, graph_case):
+                    results.append(case(params, cfg, dev, lens, kv_dtype))
+                    print(json.dumps(results[-1]), flush=True)
         for p, s in ((1, 32), (1, 1024), (4, 512)):
             results.append(prefill_case(params, cfg, dev, p, s))
             print(json.dumps(results[-1]), flush=True)

@@ -31,6 +31,14 @@ The paged kernels' int8 branches run the same cases on
 plain versions over the dequantized (float32) pool, with the same
 limits: for chunk and tree the P-rounding term is taken over the
 dequantized |V| (P V carries p times the row scale, rounded to bf16).
+
+The KV write kernel (``kv_write``, and ``pool_write`` on CUDA) must give
+its plain version's pools bit for bit, in both forms (int8 codes and
+scales included), dropping out-of-range and -1 page ids. The compiled
+decode dispatch (``serving/decode_graph.py``) must give, on a small
+bf16 model at ``max_batch`` rows, the uncaptured pass's tokens, state
+and pools bit for bit, for an all-greedy batch and a mixed one, on both
+pool forms; and a replay on a pool that is not the captured one raises.
 """
 
 import pytest
@@ -44,7 +52,11 @@ from gofr_tpu_torch.ops.paged_attention import (
     kv_splits, paged_chunk_attention, paged_chunk_attention_plain,
     paged_decode_attention, paged_decode_attention_plain,
     paged_tree_attention, paged_tree_attention_plain)
-from gofr_tpu_torch.ops.paged_kv import quantize_pool
+from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
+                                         pool_write, quantize_pool)
+from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
+from gofr_tpu_torch.serving.glue import llama_engine
 from gofr_tpu_torch.serving.spec import build_draft_tree
 
 pytestmark = pytest.mark.cuda
@@ -442,3 +454,136 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         strided = torch.ones(1, 3, 8, 2, device=dev)[..., :1]
         paged_chunk_attention(qc, quant, {"q": quant["q"], "s": strided},
                               tables, lengths, lengths)
+
+
+def _leaves(pool):
+    return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+
+
+def _clone(pool):
+    if isinstance(pool, dict):
+        return {k: t.clone() for k, t in pool.items()}
+    return pool.clone()
+
+
+def _assert_pools_equal(got, want):
+    for g, w in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(g, w)
+
+
+# (Hq, Hkv, hd): GQA groups 1, 3 and 4 (the write sees only Hkv and hd)
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 64), (12, 4, 64), (32, 8, 64),
+                                      (8, 8, 128), (12, 4, 128),
+                                      (32, 8, 128)])
+@pytest.mark.parametrize("rows", [(8,), (4, 16)])      # decode N = B, chunk
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_kv_write_kernel_matches_plain(dev, hq, hkv, d, rows, form):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_layers, n_pages, pg = 2, 12, 16
+    n = 1
+    for r in rows:
+        n *= r
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool = _randn(gen, dev, *shape)
+    v_pool = _randn(gen, dev, *shape)
+    if form == "int8":
+        k_pool, v_pool = quantize_pool(k_pool), quantize_pool(v_pool)
+    # distinct (page, offset) targets; a quarter of the rows out of range
+    # (Np, Np + 3 and -1), which must be dropped
+    flat = torch.randperm(n_pages * pg, generator=torch.Generator()
+                          .manual_seed(n))[:n]
+    pids, offs = (flat // pg).int(), (flat % pg).int()
+    pids[::4] = torch.tensor([n_pages, -1, n_pages + 3],
+                             dtype=torch.int32).repeat(n)[:len(pids[::4])]
+    pids, offs = pids.reshape(rows).to(dev), offs.reshape(rows).to(dev)
+    k_rows = _randn(gen, dev, *rows, hkv, d) * 3
+    v_rows = _randn(gen, dev, *rows, hkv, d) / 5
+    want_k, want_v = kv_write_plain(_clone(k_pool), _clone(v_pool), 1, pids,
+                                    offs, k_rows, v_rows)
+    before = kv_write.launches_int8 if form == "int8" else kv_write.launches
+    got_k, got_v = kv_write(_clone(k_pool), _clone(v_pool), 1, pids, offs,
+                            k_rows, v_rows)
+    torch.cuda.synchronize()
+    after = kv_write.launches_int8 if form == "int8" else kv_write.launches
+    assert after == before + 1
+    _assert_pools_equal(got_k, want_k)
+    _assert_pools_equal(got_v, want_v)
+    # K alone through pool_write's CUDA path
+    _assert_pools_equal(pool_write(_clone(k_pool), 1, pids, offs, k_rows),
+                        want_k)
+    # the in-range rows landed and nothing else moved
+    changed = (_leaves(got_v)[0] != _leaves(v_pool)[0]).any(-1).any(1)[1]
+    assert 0 < int(changed.sum()) <= int(((pids >= 0)
+                                         & (pids < n_pages)).sum())
+    for g, w in zip(_leaves(got_k), _leaves(k_pool)):
+        assert torch.equal(g[0], w[0])                  # the other layer
+
+
+def test_kv_write_raises_on_what_the_kernel_does_not_take(dev):
+    pool = torch.zeros(2, 2, 4, 8, 64, device=dev, dtype=torch.bfloat16)
+    pids = torch.zeros(3, dtype=torch.int32, device=dev)
+    rows = torch.zeros(3, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kv_write(pool, pool, 0, pids, pids, rows.float(), rows.float())
+    with pytest.raises(ValueError, match="plain or both quantized"):
+        kv_write(pool, quantize_pool(pool), 0, pids, pids, rows, rows)
+    with pytest.raises(ValueError, match="layer"):
+        kv_write(pool, pool, 2, pids, pids, rows, rows)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kv_write(pool.float(), pool.float(), 0, pids, pids, rows, rows)
+
+
+def _graph_engine(dev, form, m):
+    """A 2-layer bf16 model (hd 64) behind an engine of 4 slots, K = 4
+    and ``m`` passes a dispatch, on a pool of the given form."""
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_dim=512, max_seq=256)
+    params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return llama_engine(params, cfg, EngineConfig(
+        max_batch=4, max_seq=256, page_size=16, decode_steps_per_pass=4,
+        decode_passes_per_dispatch=m, kv_dtype=form, seed=0), device=dev)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("temps", [(0.0, 0.0, 0.0), (0.0, 0.9, 0.0)])
+def test_decode_graph_replay_equals_the_uncaptured_pass(dev, form, temps):
+    eng = _graph_engine(dev, form, 2)
+    rng = torch.Generator().manual_seed(3)
+    reqs = [eng.submit(torch.randint(0, 512, (n,), generator=rng).tolist(),
+                       SamplingParams(temperature=t, top_p=0.9, top_k=20,
+                                      max_new_tokens=200))
+            for n, t in zip((5, 40, 17), temps)]           # one idle row
+    eng._admit()
+    assert all(r.error is None and not r.pending_prefill for r in reqs)
+    eng._decode_pass()                   # captures, then replays
+    graph, greedy = eng._decode_graph, max(temps) == 0.0
+    assert graph.captures == 1 and graph.replays == 1
+    saved, pools = graph.save(), (_clone(eng.k_cache), _clone(eng.v_cache))
+    graph.body(eng.k_cache, eng.v_cache, greedy)
+    want = graph.save()
+    want_pools = (_clone(eng.k_cache), _clone(eng.v_cache))
+    graph.restore(saved)
+    for live, old in zip((eng.k_cache, eng.v_cache), pools):
+        for a, b in zip(_leaves(live), _leaves(old)):
+            a.copy_(b)
+    graph.run(eng.k_cache, eng.v_cache, greedy)
+    torch.cuda.synchronize()
+    got = graph.save()
+    for name, value in want.items():
+        if name != "generator":
+            assert torch.equal(got[name], value), name
+    _assert_pools_equal(eng.k_cache, want_pools[0])
+    _assert_pools_equal(eng.v_cache, want_pools[1])
+    if not greedy:   # the replay drew fresh noise from the generator
+        assert torch.equal(got["generator"], want["generator"])
+
+
+def test_decode_graph_replay_on_a_reassigned_pool_raises(dev):
+    eng = _graph_engine(dev, "bf16", 1)
+    eng.submit([1, 2, 3], SamplingParams(temperature=0.0,
+                                         max_new_tokens=50))
+    eng._admit()
+    eng._decode_pass()
+    eng.k_cache = eng.k_cache.clone()
+    with pytest.raises(RuntimeError, match="captured"):
+        eng._decode_pass()

@@ -123,7 +123,7 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     # built from the old header would be loaded
     from gofr_tpu_torch.ops import _build
     for name in ("paged_chunk.cu", "flash_attention.cu", "wgmma_attn.cuh",
-                 "paged_common.cuh", "paged_decode.cu"):
+                 "paged_common.cuh", "paged_decode.cu", "kv_write.cu"):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build.library_path(n) for n in _build.SOURCES}
@@ -133,3 +133,4 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     assert after["paged_chunk"] != before["paged_chunk"]
     assert after["flash_attention"] != before["flash_attention"]
     assert after["paged_decode"] == before["paged_decode"]   # no include
+    assert after["kv_write"] == before["kv_write"]           # no include
