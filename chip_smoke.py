@@ -42,11 +42,17 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              step's 8 rows on the serve pool, 3 of them out of range:
              its pools must equal the plain version's bit for bit, and
              a planted fault (bf16 rows one offset late, int8 V scales
-             shifted one row) must not: eleven rows.
+             shifted one row) must not; and at the group prefill's slab
+             through ``scatter_chunk_kv`` (P = 8 in the 512-row bucket:
+             6 x 301 rows, 2 dummy rows on all-OOB tables), both forms,
+             bit for bit against ``scatter_chunk_kv_plain`` with rows
+             written one offset late as the planted fault: thirteen
+             rows.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
-             steps through the kernels and through the plain versions on
-             the same inputs; logits must agree, and a planted fault in
+             steps through the kernels and through the plain versions
+             (the prompt's and each step's K/V writes included) on the
+             same inputs; logits must agree, and a planted fault in
              the decode kernel's lengths must not. Then
              ``llama_prefill_chunk_paged``: kernels vs plain on a chunk
              with and without history (a planted history fault must
@@ -93,6 +99,17 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the tree kernel's counter for the run's pool form, zeroed
              just before each speculative run, must rise, and drafts
              must be made.
+7. serve_preempt — the scheduling core: 8 greedy requests (6 x 301 +
+             2 x 901 prompt tokens, 256 new each) queued before
+             ``start()`` after ``engine.warmup``, on an ample and a dry
+             pool (``kv_pages=64``) at pipeline depth 0 and 1, and on an
+             ample and a dry-sized int8 pool: completion, preemption on
+             the dry bf16 pool, tokens bit-equal to the ample depth-0
+             run of the pool form up to each request's first
+             preemption, balanced page books, no capture while serving,
+             the counters rising; three planted faults must each fail a
+             check. Also one 8 x 301 group prefill's host-blocked ms with
+             the sync-free and the plain K/V write.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -964,6 +981,116 @@ def kernel_kv_write(dev, gen) -> list:
     return rows
 
 
+def kernel_kv_write_prefill(dev, gen) -> list:
+    """The KV write kernel at the group prefill's shape, through the
+    wrapper the engine calls there (``scatter_chunk_kv``: one launch per
+    layer, K and V together): serve_preempt's first group, 6 prompts of
+    301 tokens in the 512-row bucket at P = 8, so 2 dummy rows of length
+    1 on all-OOB tables; each prompt's table holds its 5 pages (prompt +
+    1 rows) and OOB past them. Slabs [16, 8, 512, 8, 64] bf16 into the
+    serve pool (16 layers, Hkv 8, 256 pages of 64 rows), one row per pool
+    form. The kernel's pools must equal ``scatter_chunk_kv_plain``'s bit
+    for bit (int8 codes and scales too); planted fault: the kernel's
+    rows written one offset late, which must fail the same check."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (quantize_pool, scatter_chunk_kv,
+                                             scatter_chunk_kv_plain)
+    n_layers, hkv, d, n_pages, pg = 16, 8, 64, 256, 64
+    p, bucket, n_prompt, n_real = 8, 512, 301, 6
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    per = -(-(n_prompt + 1) // pg)
+    pages = torch.randperm(n_pages, generator=gen, device=dev)
+    tables = torch.full((p, 32), n_pages, dtype=torch.int32, device=dev)
+    for r in range(n_real):
+        tables[r, :per] = pages[r * per:(r + 1) * per]
+    lens = torch.tensor([n_prompt] * n_real + [1] * (p - n_real),
+                        dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(lens)
+    slab = (n_layers, p, bucket, hkv, d)
+    k_slab = torch.randn(slab, generator=gen, device=dev).bfloat16()
+    v_slab = torch.randn(slab, generator=gen, device=dev).bfloat16()
+    live = n_real * n_prompt
+
+    def clone(pool):
+        return ({k: t.clone() for k, t in pool.items()}
+                if isinstance(pool, dict) else pool.clone())
+
+    def leaves(pool):
+        return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+
+    def diff(got, want):
+        """(max |got - want| over every leaf, leaves bit-equal)."""
+        pairs = list(zip(leaves(got[0]) + leaves(got[1]),
+                         leaves(want[0]) + leaves(want[1])))
+        return (max((g.float() - w.float()).abs().max().item()
+                    for g, w in pairs),
+                all(torch.equal(g, w) for g, w in pairs))
+
+    rows = []
+    for quantized in (False, True):
+        kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
+                  else (k_pool, v_pool))
+        wrapper = "kv_write_int8" if quantized else "kv_write"
+        name = "kv_write_prefill" + ("_int8" if quantized else "")
+        args = (tables, k_slab, v_slab)
+        want = scatter_chunk_kv_plain(clone(kp), clone(vp), *args, zeros,
+                                      lens)
+        got = scatter_chunk_kv(clone(kp), clone(vp), *args, zeros, lens)
+        fault = scatter_chunk_kv(clone(kp), clone(vp), *args, zeros + 1,
+                                 lens)
+        torch.cuda.synchronize()
+        err, equal = diff(got, want)
+        fault_err, fault_equal = diff(fault, want)
+        emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
+              "bit_equal": equal, "planted_fault": "rows_one_offset_late",
+              "planted_fault_max_abs_err": fault_err,
+              "planted_fault_bit_equal": fault_equal})
+        if not equal:
+            raise AssertionError(f"{name}: kernel pools differ from the "
+                                 f"plain version's (max abs {err})")
+        if fault_equal:
+            raise AssertionError(f"{name} check passed a planted fault "
+                                 f"(rows_one_offset_late)")
+        del got, fault, want
+        dst = (clone(kp), clone(vp))
+        ms = time_ms(lambda: scatter_chunk_kv(*dst, *args, zeros, lens))
+        plain_ms = time_ms(lambda: scatter_chunk_kv_plain(*dst, *args, zeros,
+                                                          lens))
+        dev_ms = device_ms(lambda: scatter_chunk_kv(*dst, *args, zeros,
+                                                    lens))
+        # bytes per layer: the live K and V rows read once and written
+        # once (int8: hd codes and a float32 scale a row and head), the
+        # ids read
+        row_bytes = hkv * ((d + 4) if quantized else 2 * d)
+        nbytes = n_layers * (2 * live * hkv * d * 2 + 2 * live * row_bytes
+                             + 8 * p * bucket)
+        bound_ms, bound_by = bound(0.0, nbytes)
+        row = {"name": name, "wrapper": wrapper, "route": "cuda",
+               "source": "gofr_tpu_torch/csrc/kv_write.cu",
+               "replaces": "gofr_tpu/ops/paged_kv.py:191",
+               "replaces_note": "scatter_chunk: XLA's scatter (.at[].set, "
+                                "mode='drop', quantize_rows for int8), "
+                                "not a pallas_call",
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None,
+               "library_device_ms": None,
+               "library_note": "no single library call"}
+        emit({"phase": "kernel", "shape": f"scatter_chunk_kv, {n_layers} "
+              f"launches: slab [{n_layers}, {p}, {bucket}, {hkv}, {d}], "
+              f"{n_real} x {n_prompt} rows in range, {p - n_real} dummy "
+              f"rows on all-OOB tables, Np={n_pages} pg={pg}, "
+              + ("int8 {q, s}" if quantized else "bf16"),
+              "kernel_ms": ms, **row})
+        rows.append(row)
+        del dst
+    del k_slab, v_slab, k_pool, v_pool
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model(dev) -> None:
     """llama3_1b prefill + 3 paged decode steps, kernels vs plain, and
     once more with a planted fault.
@@ -987,7 +1114,8 @@ def phase_model(dev) -> None:
                                              llama_init, llama_prefill_last,
                                              make_pool)
     from gofr_tpu_torch.ops.paged_attention import paged_decode_attention
-    from gofr_tpu_torch.ops.paged_kv import scatter_chunk
+    from gofr_tpu_torch.ops.paged_kv import (scatter_chunk_kv,
+                                             scatter_chunk_kv_plain)
 
     def short_by_one(q, k_pool, v_pool, tables, lengths):
         return paged_decode_attention(q, k_pool, v_pool, tables, lengths - 1)
@@ -1013,8 +1141,8 @@ def phase_model(dev) -> None:
                                             implementation=impl)
         kp, vp = make_pool(cfg, p * mp, pg, dev)
         zeros = torch.zeros_like(lens)
-        scatter_chunk(kp, tables, k, zeros, lens)
-        scatter_chunk(vp, tables, v, zeros, lens)
+        (scatter_chunk_kv_plain if impl == "plain" else scatter_chunk_kv)(
+            kp, vp, tables, k, v, zeros, lens)
         results[run] = [logits]
         cur = lens.clone()
         for step in range(3):
@@ -1079,7 +1207,7 @@ def phase_model_chunk(dev) -> None:
                                              llama_prefill_chunk_paged,
                                              llama_prefill_last, make_pool)
     from gofr_tpu_torch.ops.paged_attention import paged_chunk_attention
-    from gofr_tpu_torch.ops.paged_kv import scatter_chunk
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv_plain
 
     def history_short_by_one(q, k_pool, v_pool, tables, history, chunk):
         return paged_chunk_attention(q, k_pool, v_pool, tables,
@@ -1101,8 +1229,7 @@ def phase_model_chunk(dev) -> None:
     kp0, vp0 = make_pool(cfg, 2 * mp, pg, dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     full = torch.tensor([hist_len], dtype=torch.int32, device=dev)
-    scatter_chunk(kp0, tables[1:], k, zero, full)
-    scatter_chunk(vp0, tables[1:], v, zero, full)
+    scatter_chunk_kv_plain(kp0, vp0, tables[1:], k, v, zero, full)
     tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
                            device=dev)
     offsets = torch.tensor([0, hist_len], dtype=torch.int32, device=dev)
@@ -1189,7 +1316,8 @@ def phase_model_spec(dev) -> None:
                                              llama_init,
                                              llama_prefill_chunk_paged,
                                              llama_prefill_last, make_pool)
-    from gofr_tpu_torch.ops.paged_kv import pool_move_rows, scatter_chunk
+    from gofr_tpu_torch.ops.paged_kv import (pool_move_rows,
+                                             scatter_chunk_kv_plain)
     from gofr_tpu_torch.serving.engine import path_moves, resolve_tree
     from gofr_tpu_torch.serving.spec import build_draft_tree
 
@@ -1209,8 +1337,7 @@ def phase_model_spec(dev) -> None:
     kp, vp = make_pool(cfg, mp, pg, dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     full = torch.tensor([n], dtype=torch.int32, device=dev)
-    scatter_chunk(kp, tables, k, zero, full)
-    scatter_chunk(vp, tables, v, zero, full)
+    scatter_chunk_kv_plain(kp, vp, tables, k, v, zero, full)
     base_k, base_v = kp.clone(), vp.clone()
     toks = [int(first.argmax())]
     dec, margins = [], []
@@ -1310,7 +1437,7 @@ def phase_model_int8(dev) -> None:
     """llama3_1b on one int8 pool, kernels vs plain, at full width.
 
     Two prompts (256 and 100 tokens) through flash prefill, whose K/V
-    the pool stores quantized (``scatter_chunk``); 3 decode steps; a
+    the pool stores quantized (``scatter_chunk_kv``); 3 decode steps; a
     32-token chunk after that history; and one verify of a 9-node draft
     tree (root + two 4-token branches) after the chunk, in the 16-wide
     bucket. Each call runs through the kernels (their int8 branches) and
@@ -1331,7 +1458,8 @@ def phase_model_int8(dev) -> None:
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention,
                                                     paged_tree_attention)
-    from gofr_tpu_torch.ops.paged_kv import scatter_chunk
+    from gofr_tpu_torch.ops.paged_kv import (scatter_chunk_kv,
+                                             scatter_chunk_kv_plain)
     from gofr_tpu_torch.serving.spec import build_draft_tree
 
     cfg = LlamaConfig.llama3_1b()
@@ -1372,8 +1500,8 @@ def phase_model_int8(dev) -> None:
         kp, vp = make_pool(cfg, p * mp, pg, dev,
                            "bf16" if run == "bf16_pool" else "int8")
         zeros = torch.zeros_like(lens)
-        scatter_chunk(kp, tables, k, zeros, lens)
-        scatter_chunk(vp, tables, v, zeros, lens)
+        (scatter_chunk_kv_plain if impl == "plain" else scatter_chunk_kv)(
+            kp, vp, tables, k, v, zeros, lens)
         results[run] = {"prefill": logits}
         cur = lens.clone()
         for step in range(3):
@@ -1467,7 +1595,14 @@ def phase_decode_graph(dev, smi_line: str) -> None:
     def check(engine, batch):
         graph = engine._decode_graph
         greedy = batch == "greedy"
-        engine._decode_pass()            # a real dispatch (captures once)
+        engine._decode_step()            # a real dispatch (captures once)
+        # pages for the dispatch under test, as the next dispatch's
+        # growth would allocate them
+        for i, req in enumerate(engine.active):
+            if req is not None:
+                engine._alloc_pages(i, int(engine.lengths[i])
+                                    + engine._tokens_per_pass)
+        engine._sync_tables()
         saved = graph.save()
         pools = [t.clone() for t in pools_of(engine)]
 
@@ -1842,6 +1977,330 @@ def phase_serve_spec(dev, smi_line: str) -> dict:
             "paged_tree_attention_int8": runs["spec_int8"]["tree_launches"]}
 
 
+def _prefill_host_ms(engine, prompts, scatter) -> dict:
+    """One group prefill through ``engine._prefill_group`` with the
+    module's ``scatter_chunk_kv`` set to ``scatter``: the host ms until the
+    call returns (the launch) and until the card is done (CUDA
+    synchronize), each the median of three after one warm-up; the
+    requests are collected and retired after each call."""
+    import torch
+    from gofr_tpu_torch.serving import engine as engine_mod
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    bucket = engine._bucket_for(max(len(p) for p in prompts))
+    kept = engine_mod.scatter_chunk_kv
+    engine_mod.scatter_chunk_kv = scatter
+    host, done = [], []
+    try:
+        for _ in range(4):
+            reqs = [engine.submit(p, SamplingParams(temperature=0.0,
+                                                    max_new_tokens=4))
+                    for p in prompts]
+            group = list(engine._waiting)
+            engine._waiting.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._prefill_group(bucket, group)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            done.append((time.perf_counter() - t0) * 1e3)
+            engine._collect_prefills()
+            for req in reqs:
+                engine._retire(req.slot)
+    finally:
+        engine_mod.scatter_chunk_kv = kept
+    return {"host_ms": statistics.median(host[1:]),
+            "card_done_ms": statistics.median(done[1:])}
+
+
+def _books(engine) -> bool:
+    """Every page free or pinned by the prefix cache, one reference per
+    cache entry listing it, no slot holding a page."""
+    import numpy as np
+    pinned = [p for pages in engine._prefix_cache.values() for p in pages]
+    free = engine._free_pages
+    return (len(free) == len(set(free))
+            and len(free) + len(set(pinned)) == engine._n_pages
+            and bool((engine._slot_pages == 0).all())
+            and np.array_equal(engine._page_refs, np.bincount(
+                pinned, minlength=engine._n_pages)))
+
+
+def phase_serve_preempt(dev, smi_line: str) -> dict:
+    """The engine's scheduling core at ``llama3_1b`` on ``serve_config``:
+    8 greedy requests of 256 new tokens (prompts 6 x 301 then 2 x 901
+    random tokens, seed 8), all queued before ``start()`` so that they
+    share one admission batch, after ``engine.warmup(prompt_lens=(301,
+    901))``. Runs: *ample* (the default pool, 256 pages) at
+    ``pipeline_depth`` 0 and 1; *dry* (``kv_pages=64``, 128 MiB of bf16
+    pool: the prompts take 6·5 + 2·15 = 60 pages, whole lives 92, so
+    decode growth must preempt) at depth 0 and 1; *dry int8*
+    (``kv_dtype="int8"`` at the dry pool's bytes, ~120 pages), which
+    should preempt nothing. Checks per run: every request ends with 256
+    tokens and no error; every first token (fresh or recomputed) comes
+    from a prefill of the original prompt followed by every token the
+    request had emitted (a wrapper on ``_first_token``); the pool's
+    books balance afterwards; no graph is captured while serving; the
+    flash, decode and ``kv_write`` counters, zeroed just before, rise;
+    requests never preempted equal the tokens of the ample depth-0 run
+    of their pool form (an *ample int8* run, the default int8 pool, is
+    the int8 reference) bit for bit (decode rows are independent at a
+    fixed ``max_batch`` shape, and the split count comes from shapes
+    alone) and preempted ones do up to their first preemption (recorded
+    by a wrapper on ``_preempt``); ample depth 1 equals depth 0; the dry
+    bf16 runs preempt at least once; the dry int8 run preempts nothing. Then
+    three planted faults on the dry pool must each fail a check: a
+    ``_preempt`` that recomputes from the original prompt only, a
+    ``_release_pages`` that skips preempted victims (their pages leak),
+    and a dispatch that forgets which request each row decoded for (so
+    a resync feeds a stale token while a pass is in flight). Before the
+    runs: one 8 x 301-token group prefill's host-blocked ms with the
+    sync-free ``scatter_chunk_kv`` and with ``scatter_chunk_kv_plain``
+    (its ``keep_index`` sync, what the prefill did before). Printed per run:
+    preemptions, requeues, decode tokens/s, ``dispatch_s``,
+    ``collect_s``, each request's TTFT, launches, warmup seconds."""
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, scatter_chunk_kv,
+                                             scatter_chunk_kv_plain)
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    rng = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+               .tolist() for n in [301] * 6 + [901] * 2]
+    n_new = 256
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=n_new)
+    t0 = time.perf_counter()
+
+    probe = llama_engine(params, cfg, serve_config(cfg), device=dev)
+    prefill_ms = {}
+    for name, fn in (("plain", scatter_chunk_kv_plain),
+                     ("kernel", scatter_chunk_kv),
+                     ("kernel_again", scatter_chunk_kv),
+                     ("plain_again", scatter_chunk_kv_plain)):
+        prefill_ms[name] = _prefill_host_ms(probe, prompts[:6] + prompts[:2],
+                                            fn)
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def serve(name, plant=None, **overrides):
+        engine = llama_engine(params, cfg, serve_config(cfg, **overrides),
+                              device=dev)
+        first_preempt: dict = {}
+        bad_stream: list = []
+        inner_preempt, inner_first = engine._preempt, engine._first_token
+
+        def preempt(slot):
+            req = engine.active[slot]
+            if req is not None:
+                first_preempt.setdefault(id(req), len(req.generated))
+            inner_preempt(slot)
+
+        def first_token(req, token):
+            if req.prompt_tokens != original[id(req)] + req.generated:
+                bad_stream.append(reqs.index(req))
+            inner_first(req, token)
+
+        engine._preempt, engine._first_token = preempt, first_token
+        if plant is not None:
+            plant(engine)
+        warm_s = engine.warmup(prompt_lens=(301, 901))
+        captures = engine._decode_graph.captures
+        reqs = [engine.submit(p, greedy) for p in prompts]
+        original = {id(r): list(r.prompt_tokens) for r in reqs}
+        counters = [(flash_attention, "launches"), (paged_chunk_attention,
+                    "launches"), (paged_decode_attention, "launches"),
+                    (kv_write, "launches"), (paged_chunk_attention,
+                    "launches_int8"), (paged_decode_attention,
+                    "launches_int8"), (kv_write, "launches_int8")]
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        start = time.perf_counter()
+        engine.start()
+        progress, last = -1, time.perf_counter()
+        try:
+            while not all(r.done.is_set() for r in reqs):
+                if engine.total_generated != progress:
+                    progress, last = engine.total_generated, time.perf_counter()
+                elif time.perf_counter() - last > 30:
+                    break                    # stalled: fail what is left
+                time.sleep(0.01)
+            wall = time.perf_counter() - start
+        finally:
+            engine.stop()
+        launches = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                    for fn, attr in counters}
+        stats = engine.stats
+        run = {"run": name, "kv_dtype": engine.config.kv_dtype,
+               "pipeline_depth": engine.config.pipeline_depth,
+               "pool_pages": engine._n_pages,
+               "pool_bytes": _pool_bytes(engine), "wall_s": wall,
+               "warmup_s": warm_s,
+               "captures_while_serving": engine._decode_graph.captures
+               - captures,
+               "preemptions": stats["preemptions"],
+               "requeues": stats["requeues"],
+               "preempted_requests": sorted(
+                   reqs.index(r) for r in reqs if id(r) in first_preempt),
+               "first_preemption_at": [first_preempt.get(id(r))
+                                       for r in reqs],
+               "decode_tokens": stats["decode_tokens"],
+               "decode_s": stats["decode_s"],
+               "decode_tokens_per_s": stats["decode_tokens"]
+               / stats["decode_s"],
+               "dispatch_s": stats["dispatch_s"],
+               "collect_s": stats["collect_s"],
+               "decode_passes": stats["decode_passes"],
+               "prefill_calls": stats["prefill_calls"],
+               "prefill_s": stats["prefill_s"],
+               "prefix_hits": stats["prefix_hits"],
+               "prefix_evictions": stats["prefix_evictions"],
+               "ttft_ms": [r.ttft_ms for r in reqs],
+               "errors": [r.error for r in reqs if r.error],
+               "n_tokens": [len(r.generated) for r in reqs],
+               "stream_faults": bad_stream, "books_balance": _books(engine),
+               "launches": launches}
+        tokens = [list(r.generated) for r in reqs]
+        del engine, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run, tokens
+
+    def failed_checks(run, tokens, ample):
+        suffix = "_int8" if run["kv_dtype"] == "int8" else ""
+        out = []
+        if run["errors"] or run["n_tokens"] != [n_new] * len(prompts):
+            out.append("complete")
+        if run["stream_faults"]:
+            out.append("recompute_prompt")
+        if not run["books_balance"]:
+            out.append("books")
+        if run["captures_while_serving"]:
+            out.append("no_capture_while_serving")
+        if min(run["launches"][k] for k in (
+                "flash_attention.launches",
+                f"paged_decode_attention.launches{suffix}",
+                f"kv_write.launches{suffix}")) < 1:
+            out.append("launches")
+        if ample is not None:
+            for i, (got, want) in enumerate(zip(tokens, ample)):
+                n = run["first_preemption_at"][i]
+                if n is None:
+                    n = len(want)            # never preempted: every token
+                if got[:n] != want[:n]:
+                    out.append(f"tokens_{i}")
+        return out
+
+    runs, toks = {}, {}
+    for name, overrides in (
+            ("ample_d0", {"pipeline_depth": 0}),
+            ("ample_d1", {"pipeline_depth": 1}),
+            ("dry_d0", {"pipeline_depth": 0, "kv_pages": 64}),
+            ("dry_d1", {"pipeline_depth": 1, "kv_pages": 64})):
+        runs[name], toks[name] = serve(name, **overrides)
+    runs["ample_int8"], toks["ample_int8"] = serve(
+        "ample_int8", pipeline_depth=0, kv_dtype="int8")
+    dry_bytes = runs["dry_d0"]["pool_bytes"]
+    runs["dry_int8"], toks["dry_int8"] = serve(
+        "dry_int8", pipeline_depth=0, kv_dtype="int8",
+        kv_pool_bytes=dry_bytes)
+    # each run against the ample depth-0 run of its pool form
+    refs = {"bf16": "ample_d0", "int8": "ample_int8"}
+    failed = {name: failed_checks(run, toks[name], None
+                                  if name == refs[run["kv_dtype"]]
+                                  else toks[refs[run["kv_dtype"]]])
+              for name, run in runs.items()}
+    for name in ("dry_d0", "dry_d1"):
+        if runs[name]["preemptions"] < 1:
+            failed[name].append("preempted")
+    if runs["dry_int8"]["preemptions"]:
+        failed["dry_int8"].append("int8_preempts_nothing")
+
+    def prompt_only(engine):
+        inner = engine._preempt
+
+        def preempt(slot):
+            req = engine.active[slot]
+            inner(slot)
+            if req is not None:
+                req.prompt_tokens = req.prompt_tokens[
+                    :len(req.prompt_tokens) - len(req.generated)]
+        engine._preempt = preempt
+
+    def leak_victims(engine):
+        inner = engine._preempt
+
+        def forget(slot):        # the table forgets, the references stay
+            engine._tables[slot, :] = engine._n_pages
+            engine._slot_pages[slot] = 0
+
+        def preempt(slot):
+            engine._release_pages = forget
+            try:
+                inner(slot)
+            finally:
+                del engine._release_pages
+        engine._preempt = preempt
+
+    def stale_feed(engine):
+        inner = engine._decode_dispatch
+
+        def dispatch():
+            inner()
+            engine._dev_last_reqs = [None] * engine.config.max_batch
+        engine._decode_dispatch = dispatch
+
+    planted = {}
+    for name, plant in (("preempt_recomputes_original_prompt", prompt_only),
+                        ("release_pages_skips_victims", leak_victims),
+                        ("dispatch_forgets_device_tokens", stale_feed)):
+        run, tokens = serve(name, plant, pipeline_depth=1, kv_pages=64)
+        planted[name] = {"failed_checks": failed_checks(
+            run, tokens, toks["ample_d0"]), "preemptions": run["preemptions"],
+            "n_tokens": run["n_tokens"], "books_balance": run["books_balance"]}
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_preempt", "card": smi_line,
+          "config": "llama3_1b bf16 random seed 0, app.serve_config, "
+          "8 greedy requests (6 x 301 + 2 x 901 prompt tokens, seed 8), "
+          "256 new tokens each, queued before start(), warmup(prompt_lens="
+          "(301, 901))",
+          "prefill_group_8x301_ms": prefill_ms,
+          "tokens_per_s_depth1_over_depth0_ample":
+              runs["ample_d1"]["decode_tokens_per_s"]
+              / runs["ample_d0"]["decode_tokens_per_s"],
+          "int8_vs_bf16_dry": {
+              "pages": [runs["dry_int8"]["pool_pages"],
+                        runs["dry_d0"]["pool_pages"]],
+              "preemptions": [runs["dry_int8"]["preemptions"],
+                              runs["dry_d0"]["preemptions"]]},
+          "failed_checks": failed, "planted": planted,
+          "seconds": time.perf_counter() - t0})
+    for run in runs.values():
+        emit({"phase": "serve_preempt_run", "card": smi_line, **run})
+    bad = {name: f for name, f in failed.items() if f}
+    if bad:
+        raise AssertionError(f"serve_preempt: checks failed: {bad}")
+    missed = [name for name, p in planted.items() if not p["failed_checks"]]
+    if missed:
+        raise AssertionError(f"serve_preempt: planted faults passed every "
+                             f"check: {missed}")
+    launches = {}
+    for run in runs.values():
+        for key, n in run["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1872,6 +2331,8 @@ def main() -> int:
     # the KV write kernel, both pool forms (its own generator: the rows
     # below draw the same inputs as before it was added)
     rows += kernel_kv_write(dev, torch.Generator(device=dev).manual_seed(7))
+    rows += kernel_kv_write_prefill(dev,
+                                    torch.Generator(device=dev).manual_seed(9))
     # single-request latency, where split-KV matters most: one slot of
     # 2047 rows in decode, one verify over 1900 history rows; printed as
     # their own kernel lines, checked as the rows above
@@ -1889,6 +2350,7 @@ def main() -> int:
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line)}
+    phase_serve_preempt(dev, smi_line)
     for row in rows:
         row["launches"] = launches[row.get("wrapper", row["name"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

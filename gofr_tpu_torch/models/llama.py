@@ -8,8 +8,9 @@ bf16 params/activations, float32 norms/softmax/logits.
 
 ``implementation``: ``"auto"`` routes attention through the kernel
 wrappers (the CUDA kernels for CUDA tensors, their plain versions for
-CPU tensors); ``"plain"`` forces the plain PyTorch versions on any
-device — the path the kernels are held against.
+CPU tensors); ``"plain"`` forces the plain PyTorch versions of the
+attention and of the paged K/V write on any device — the path the
+kernels are held against.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention_plain,
                                    paged_tree_attention,
                                    paged_tree_attention_plain)
-from ..ops.paged_kv import (KV_DTYPES, keep_index, kv_write, pool_layer,
-                            pool_shape, quantize_rows)
+from ..ops.paged_kv import (KV_DTYPES, keep_index, kv_write, kv_write_plain,
+                            pool_layer, pool_shape, quantize_rows)
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -210,6 +211,17 @@ def llama_prefill_last(params: dict, tokens: torch.Tensor,
     return _logits(params, config, rows), kv
 
 
+def _writer(implementation: str, tokens: torch.Tensor, pids: torch.Tensor,
+            n_pages: int):
+    """(the per-layer K/V write, its ``keep``): the kernel's wrapper for
+    ``"auto"`` on CUDA (no host sync; ``keep`` None), else the plain
+    version, which selects its rows once (one host sync on CUDA) for
+    every layer."""
+    if implementation == "auto" and tokens.device.type != "cpu":
+        return kv_write, None
+    return kv_write_plain, keep_index(pids, n_pages)
+
+
 def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
                             v_pool, tables: torch.Tensor, lengths: torch.Tensor,
                             config: LlamaConfig, *,
@@ -242,8 +254,7 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
         inside = inside & active
     pids = torch.where(inside, pids, torch.full_like(pids, n_pages))
     offs = lengths % pg
-    # the plain write selects its rows with one host sync per step
-    keep = keep_index(pids, n_pages) if tokens.device.type == "cpu" else None
+    write, keep = _writer(implementation, tokens, pids, n_pages)
     attend = lengths + 1
     decode_attn = (paged_decode_attention if implementation == "auto"
                    else paged_decode_attention_plain)
@@ -257,7 +268,7 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
         v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        kv_write(k_pool, v_pool, li, pids, offs, k[:, 0], v[:, 0], keep=keep)
+        write(k_pool, v_pool, li, pids, offs, k[:, 0], v[:, 0], keep=keep)
         out = decode_attn(q[:, 0].contiguous(), pool_layer(k_pool, li),
                           pool_layer(v_pool, li), tables, attend)
         x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
@@ -315,7 +326,7 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     pids = torch.where(valid & (node_pos < mp * pg), pids,
                        torch.full_like(pids, n_pages))
     offs = (node_pos % pg).to(torch.int32)
-    keep = keep_index(pids, n_pages) if tokens.device.type == "cpu" else None
+    write, keep = _writer(implementation, tokens, pids, n_pages)
     if tree_masks is None:
         chunk_attn = (paged_chunk_attention if implementation == "auto"
                       else paged_chunk_attention_plain)
@@ -333,7 +344,7 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
         v = _mm(h, lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        kv_write(k_pool, v_pool, li, pids, offs, k, v, keep=keep)
+        write(k_pool, v_pool, li, pids, offs, k, v, keep=keep)
         out = chunk_attn(q.contiguous(), pool_layer(k_pool, li),
                          pool_layer(v_pool, li), tables, offsets,
                          chunk_lengths)

@@ -22,11 +22,13 @@ leaves; :func:`pool_move_rows` moves codes and scales as they are, and
 :func:`slot_view` dequantizes in float32, as the kernels do.
 
 The model steps' per-layer row write, :func:`kv_write` (and
-:func:`pool_write` on CUDA tensors), launches the hand-written kernel
-``csrc/kv_write.cu``: K and V in one launch, out-of-range rows dropped
-on the card and int8 rows quantized there, so a decode step holds no
-host sync and can be captured in a CUDA graph. CPU tensors take the
-plain versions below, which select the in-range rows first.
+:func:`pool_write`, :func:`scatter_chunk` and the prefill's
+:func:`scatter_chunk_kv` on CUDA tensors), launches the hand-written kernel ``csrc/kv_write.cu``: K and
+V in one launch, out-of-range rows dropped on the card and int8 rows
+quantized there, so a decode step holds no host sync and can be
+captured in a CUDA graph, and a prefill returns before the card is
+done. CPU tensors take the plain versions below, which select the
+in-range rows first.
 """
 
 from __future__ import annotations
@@ -279,31 +281,98 @@ kv_write.launches = 0           # bf16 pools
 kv_write.launches_int8 = 0      # int8 {q, s} pools
 
 
+def _chunk_coords(pool, tables: torch.Tensor, offsets: torch.Tensor,
+                  chunk_lens: torch.Tensor, width: int):
+    """(page ids, offsets) [P, S] of a chunk slab's rows, on the device:
+    positions past ``chunk_lens``, past the table, or whose table entry
+    is the OOB id get the OOB page id ``Np``."""
+    n_pages, pg = pool_shape(pool)[2:4]
+    mp = tables.shape[1]
+    ar = torch.arange(width, device=tables.device)
+    pos = offsets[:, None] + ar[None, :]                          # [P, S]
+    valid = ar[None, :] < chunk_lens[:, None]
+    pids = torch.gather(tables, 1, (pos // pg).clamp(0, mp - 1))
+    pids = torch.where(valid & (pos < mp * pg), pids,
+                       torch.full_like(pids, n_pages))
+    return pids, pos % pg
+
+
+def _scatter_kept(pool, pids, offs, slab, keep) -> None:
+    """The plain write of a slab [L, P, S, H, d]: the rows at flat
+    indices ``keep`` (in range) of every layer."""
+    p = pids.reshape(-1).index_select(0, keep)
+    o = offs.reshape(-1).index_select(0, keep)
+    n_layers, n_rows = slab.shape[0], slab.shape[1] * slab.shape[2]
+    rows = slab.reshape(n_layers, n_rows, *slab.shape[3:]).index_select(1, keep)
+    _set_rows(pool, (slice(None), slice(None), p, o),
+              rows.transpose(1, 2))                     # [L, H, n, d]
+
+
+def scatter_chunk_plain(pool, tables: torch.Tensor, slab: torch.Tensor,
+                        offsets: torch.Tensor, chunk_lens: torch.Tensor):
+    """The plain version of :func:`scatter_chunk`, on any device: the
+    in-range rows are selected (``keep_index``, one host sync on CUDA)
+    and written by index."""
+    pids, offs = _chunk_coords(pool, tables, offsets, chunk_lens,
+                               slab.shape[2])
+    _scatter_kept(pool, pids, offs, slab, keep_index(pids, pool_shape(pool)[2]))
+    return pool
+
+
 def scatter_chunk(pool, tables: torch.Tensor, slab: torch.Tensor,
                   offsets: torch.Tensor, chunk_lens: torch.Tensor):
     """Write a chunk slab [L, P, S, H, d] whose row b covers logical
     positions ``[offsets[b], offsets[b] + chunk_lens[b])`` into the pool
     (in place), touching only the pages the chunk spans: positions past
     ``chunk_lens``, past the table, or whose table entry is the OOB id
-    are dropped."""
-    n_pages, pg = pool_shape(pool)[2:4]
-    mp = tables.shape[1]
-    s = slab.shape[2]
-    ar = torch.arange(s, device=tables.device)
-    pos = offsets[:, None] + ar[None, :]                          # [P, S]
-    valid = ar[None, :] < chunk_lens[:, None]
-    pids = torch.gather(tables, 1, (pos // pg).clamp(0, mp - 1))
-    pids = torch.where(valid & (pos < mp * pg), pids,
-                       torch.full_like(pids, n_pages))
-    offs = pos % pg
-    keep = keep_index(pids, n_pages)
-    p = pids.reshape(-1).index_select(0, keep)
-    o = offs.reshape(-1).index_select(0, keep)
-    n_layers, n_rows = slab.shape[0], slab.shape[1] * s
-    rows = slab.reshape(n_layers, n_rows, *slab.shape[3:]).index_select(1, keep)
-    _set_rows(pool, (slice(None), slice(None), p, o),
-              rows.transpose(1, 2))                     # [L, H, n, d]
+    are dropped. One pool, as JAX's ``scatter_chunk``; the engine writes
+    K and V together through :func:`scatter_chunk_kv`.
+
+    CUDA tensors launch the ``kv_write`` kernel once per layer (K only,
+    bf16 rows). CPU tensors run :func:`scatter_chunk_plain`."""
+    if slab.device.type == "cpu":
+        return scatter_chunk_plain(pool, tables, slab, offsets, chunk_lens)
+    pids, offs = _chunk_coords(pool, tables, offsets, chunk_lens,
+                               slab.shape[2])
+    for li in range(slab.shape[0]):
+        _kv_write_kernel(pool, None, li, pids, offs, slab[li], None)
     return pool
+
+
+def scatter_chunk_kv_plain(k_pool, v_pool, tables: torch.Tensor,
+                           k_slab: torch.Tensor, v_slab: torch.Tensor,
+                           offsets: torch.Tensor, chunk_lens: torch.Tensor):
+    """The plain version of :func:`scatter_chunk_kv`, on any device: one
+    in-range selection (one host sync on CUDA) for both pools."""
+    pids, offs = _chunk_coords(k_pool, tables, offsets, chunk_lens,
+                               k_slab.shape[2])
+    keep = keep_index(pids, pool_shape(k_pool)[2])
+    _scatter_kept(k_pool, pids, offs, k_slab, keep)
+    _scatter_kept(v_pool, pids, offs, v_slab, keep)
+    return k_pool, v_pool
+
+
+def scatter_chunk_kv(k_pool, v_pool, tables: torch.Tensor,
+                     k_slab: torch.Tensor, v_slab: torch.Tensor,
+                     offsets: torch.Tensor, chunk_lens: torch.Tensor):
+    """:func:`scatter_chunk` of a K slab and a V slab [L, P, S, Hkv, hd]
+    into their pools, in place. Returns (k_pool, v_pool).
+
+    CUDA tensors launch the ``kv_write`` kernel once per layer for K and
+    V together (bf16 rows; counted in ``kv_write.launches`` /
+    ``launches_int8``): the page ids and offsets are derived once on the
+    device and the kernel drops the out-of-range rows, so the call holds
+    no host sync and returns before the card has written. CPU tensors
+    run :func:`scatter_chunk_kv_plain`."""
+    if k_slab.device.type == "cpu":
+        return scatter_chunk_kv_plain(k_pool, v_pool, tables, k_slab, v_slab,
+                                      offsets, chunk_lens)
+    pids, offs = _chunk_coords(k_pool, tables, offsets, chunk_lens,
+                               k_slab.shape[2])
+    for li in range(k_slab.shape[0]):
+        _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_slab[li],
+                         v_slab[li])
+    return k_pool, v_pool
 
 
 def pool_move_rows(pool, tables: torch.Tensor, src_pos: torch.Tensor,

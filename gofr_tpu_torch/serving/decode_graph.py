@@ -27,15 +27,26 @@ last step's tokens and ``use_prev`` the active mask. Inactive rows never
 write the pool: the step forces their page ids out of range with
 ``active``, and the write kernel drops them.
 
-On CUDA, :meth:`DecodeGraph.run` replays one ``torch.cuda.CUDAGraph``
+On CUDA, :meth:`DecodeGraph.launch` replays one ``torch.cuda.CUDAGraph``
 per value of ``all_greedy`` (an all-greedy batch skips the sampler's
-candidate search and draws no noise), captured at first use after one
-warm-up run on a side stream, all graphs in one memory pool. There is
-no eager path on the card: capture or replay raise, they do not fall
-back. The pools and the params are captured by address; a replay checks
-that they are still the tensors it captured. The sampled graph registers
-the engine's generator, so each replay draws fresh noise from it. On the
-CPU the same pass runs on the same buffers, uncaptured.
+candidate search and draws no noise), captured at first use (or ahead of
+traffic by :meth:`DecodeGraph.warm`) after one warm-up run on a side
+stream, all graphs in one memory pool. There is no eager path on the
+card: capture or replay raise, they do not fall back. The pools and the
+params are captured by address; a replay checks that they are still the
+tensors it captured. The sampled graph registers the engine's
+generator, so each replay draws fresh noise from it. On the CPU the same
+pass runs on the same buffers, uncaptured.
+
+Dispatch and collect are split, so the host can schedule while a pass
+runs: ``launch`` replays and queues ``out`` into the next buffer of a
+ring of pinned host buffers (``non_blocking``) behind a CUDA event, and
+returns a handle; ``collect`` waits on the handle's event and returns
+the tokens. A ring buffer is written again only after its handle was
+collected (or discarded): ``launch`` raises rather than overwrite one.
+Every device write is on the current stream, the uploads included, so a
+pass in flight that writes pages a later collect frees is ordered before
+any later write to them.
 
 Launch counters: a kernel wrapper counts when Python calls it, which a
 replay does not do. The counts made during a capture are taken back off
@@ -97,7 +108,8 @@ class DecodeGraph:
     def __init__(self, step_fn: Callable, params, *, rows: int,
                  max_pages: int, n_pages: int, steps: int, max_seq: int,
                  device: str | torch.device,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 ring: int = 2) -> None:
         self.step_fn = step_fn
         self.params = params
         self.steps = steps
@@ -117,8 +129,15 @@ class DecodeGraph:
         self._host = {name: torch.empty_like(getattr(self, name),
                                              device="cpu", pin_memory=pin)
                       for name in STATE}
-        self._out_host = torch.empty_like(self.out, device="cpu",
-                                          pin_memory=pin)
+        #: pinned host buffers the dispatches' tokens land in, in turn
+        self._ring = [torch.empty_like(self.out, device="cpu",
+                                       pin_memory=pin)
+                      for _ in range(max(2, ring))]
+        self._ring_events = [torch.cuda.Event() if pin else None
+                             for _ in self._ring]
+        #: ring buffers whose dispatch has not been collected yet
+        self._ring_busy = [False] * len(self._ring)
+        self._ring_next = 0
         self._uploaded = torch.cuda.Event() if pin else None
         self._graphs: dict[bool, torch.cuda.CUDAGraph] = {}
         self._graph_launches: dict[bool, dict] = {}
@@ -166,7 +185,7 @@ class DecodeGraph:
     def body(self, k_pool, v_pool, all_greedy: bool) -> None:
         """The pass itself, on the static buffers: T steps, each feeding
         its sampled tokens to the next, then the state advance. What a
-        graph holds; on the CPU, what :meth:`run` calls."""
+        graph holds; on the CPU, what :meth:`launch` calls."""
         toks = torch.where(self.use_prev, self.prev, self.tokens)
         lens = self.lengths
         sampled = []
@@ -185,26 +204,75 @@ class DecodeGraph:
             self.active, (self.lengths + self.steps).clamp(max=self.max_seq),
             self.lengths))
 
-    def run(self, k_pool, v_pool, all_greedy: bool) -> np.ndarray:
-        """One dispatch: the captured graph's replay on CUDA (captured
-        now if this is its first use), the uncaptured pass on the CPU.
-        Returns the sampled tokens [T, rows]."""
+    def launch(self, k_pool, v_pool, all_greedy: bool) -> int:
+        """Start one dispatch and return its handle without waiting: the
+        captured graph's replay on CUDA (captured now if this is its
+        first use), the uncaptured pass on the CPU; either way ``out``
+        goes on to the next ring buffer. Raises if that buffer's last
+        dispatch was neither collected nor discarded."""
+        handle = self._ring_next
+        if self._ring_busy[handle]:
+            raise RuntimeError(
+                f"decode graph: ring buffer {handle} of {len(self._ring)} "
+                f"still holds an uncollected dispatch; collect it before "
+                f"launching another")
+        host = self._ring[handle]
         if self.device.type == "cpu":
             self.body(k_pool, v_pool, all_greedy)
-            return self.out.numpy().copy()
-        graph = self._graphs.get(all_greedy)
-        if graph is None:
-            graph = self._capture(k_pool, v_pool, all_greedy)
-        if _addresses(self.params, k_pool, v_pool) != self._captured:
-            raise RuntimeError("decode graph: the params or KV pools are not "
-                               "the tensors the graph captured (reallocated "
-                               "or reassigned since)")
-        graph.replay()
-        self.replays += 1
-        for (fn, attr), n in self._graph_launches[all_greedy].items():
-            setattr(fn, attr, getattr(fn, attr) + n)
-        self._out_host.copy_(self.out)
-        return self._out_host.numpy().copy()
+            host.copy_(self.out)
+        else:
+            graph = self._graphs.get(all_greedy)
+            if graph is None:
+                graph = self._capture(k_pool, v_pool, all_greedy)
+            if _addresses(self.params, k_pool, v_pool) != self._captured:
+                raise RuntimeError("decode graph: the params or KV pools "
+                                   "are not the tensors the graph captured "
+                                   "(reallocated or reassigned since)")
+            graph.replay()
+            self.replays += 1
+            for (fn, attr), n in self._graph_launches[all_greedy].items():
+                setattr(fn, attr, getattr(fn, attr) + n)
+            host.copy_(self.out, non_blocking=True)
+            self._ring_events[handle].record()
+        self._ring_busy[handle] = True
+        self._ring_next = (handle + 1) % len(self._ring)
+        return handle
+
+    def collect(self, handle: int) -> np.ndarray:
+        """Wait for the dispatch ``handle`` and return its sampled tokens
+        [T, rows]; its ring buffer is free again."""
+        if not self._ring_busy[handle]:
+            raise RuntimeError(f"decode graph: ring buffer {handle} holds "
+                               f"no dispatch to collect")
+        if self._ring_events[handle] is not None:
+            self._ring_events[handle].synchronize()
+        out = self._ring[handle].numpy().copy()
+        self._ring_busy[handle] = False
+        return out
+
+    def discard(self, handle: int) -> None:
+        """Give up a dispatch's tokens unread: its ring buffer is free
+        again (the copy still in flight lands before any later one)."""
+        self._ring_busy[handle] = False
+
+    def run(self, k_pool, v_pool, all_greedy: bool) -> np.ndarray:
+        """One dispatch, waited for: :meth:`launch` then
+        :meth:`collect`. Returns the sampled tokens [T, rows]."""
+        return self.collect(self.launch(k_pool, v_pool, all_greedy))
+
+    def warm(self, k_pool, v_pool) -> None:
+        """Make both passes ready ahead of traffic with every row
+        inactive (so every K/V write drops): on CUDA capture the greedy
+        and the sampled graph, on the CPU run each pass once. The state
+        buffers and the generator are left as they were."""
+        saved = self.save()
+        self.active.zero_()
+        for all_greedy in (True, False):
+            if self.device.type == "cpu":
+                self.body(k_pool, v_pool, all_greedy)
+            elif all_greedy not in self._graphs:
+                self._capture(k_pool, v_pool, all_greedy)
+        self.restore(saved)
 
     def _capture(self, k_pool, v_pool, all_greedy: bool):
         """Capture the pass for ``all_greedy``. One warm-up run on a side

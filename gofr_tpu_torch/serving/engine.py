@@ -1,32 +1,46 @@
 """Continuous-batching inference engine on the paged KV pool
 (counterpart of ``gofr_tpu/serving/engine.py``, paged layout with the
-prefix cache, the chunk-with-history walk and speculative tree verify).
+prefix cache, the chunk-with-history walk, speculative tree verify, lazy
+page growth with preemption-by-recompute and pipelined decode).
 
 - One **engine thread** owns every device call; ``submit()`` only
-  queues, from any thread.
+  queues, from any thread. Each loop iteration admits (requeued work
+  first, then ``free - needing_slots`` waiting requests), runs one
+  decode step or speculative pass, and collects the batch prefills in
+  flight; when idle, and on ``stop``, it drains whatever is in flight
+  (those tokens are real, so they are emitted before anything fails).
 - **Bucketed group prefill**: waiting prompts are grouped by the
   smallest prefill bucket that holds them and prefilled ``[P, bucket]``
   at a time, P the smallest power of two (or ``prefill_batch``) that
   fits the group; dummy rows carry length 1 and an all-OOB block table,
   so their K/V writes drop. One device call per group samples each
   row's first token and writes the prompt K/V into the page pool
-  (``scatter_chunk``).
+  (``scatter_chunk_kv``). The first tokens travel to pinned host memory
+  behind an event and are emitted by ``_collect_prefills`` (records
+  whose request was preempted or re-admitted since, by
+  ``prefill_epoch``, are dropped); below the pipelining threshold that
+  happens at admission.
 - **Chunk walk** (``_walk_chunks``): a prompt wider than every bucket,
-  and the suffix of a prompt whose prefix the cache held, run through
-  the chunk model function against the slot's history, ``[G, width]``
-  per call with G in {1, ``prefill_batch``} and width the smallest
-  bucket covering what is left (the widest when none does); pad rows
-  carry an all-OOB table, offset 0 and chunk length 0. At most
-  ``prefill_chunks_per_pass`` rounds run per loop iteration, so the
-  other slots decode between the chunks of a long prompt; the first
-  token is sampled from the final chunk.
+  the suffix of a prompt whose prefix the cache held and a preempted
+  request's recompute run through the chunk model function against the
+  slot's history, ``[G, width]`` per call with G in {1,
+  ``prefill_batch``} and width the smallest bucket covering what is left
+  (the widest when none does); pad rows carry an all-OOB table, offset
+  0 and chunk length 0. At most ``prefill_chunks_per_pass`` rounds run
+  per admission; an unfinished walker goes back to the requeued lane
+  and resumes in the slot it holds, so the other slots decode between
+  the chunks of a long prompt. The walk is synchronous.
 - **Pages**: a host-side free list with a reference count per page
-  (slots and the prefix cache each hold one). A request is admitted
-  only when the pool can hold its whole life — ``min(prompt +
-  max_new_tokens, max_seq)`` rows — and its references drop on retire.
-  When the pool is dry, cached prefixes are evicted (least recently
-  used first), then the request waits for a retire; nothing is
-  preempted.
+  (slots and the prefix cache each hold one). A slot's table grows
+  lazily, in rows: prompt + 1 at the group prefill, each chunk's rows in
+  the walk, ``len + T`` rows before each decode dispatch (oldest request
+  first) and every fed tree row before a verify pass. When the free
+  list runs short, cached prefixes are evicted (least recently used
+  first), then the newest request younger than the one growing is
+  preempted (``_ensure_headroom``): its pages go back, and it re-enters
+  the requeued lane with prompt + generated as its new prompt, to be
+  recomputed (``_preempt``). A prompt is refused only when it can never
+  fit the pool.
 - **Prefix cache**: at retire, a request's page-aligned prompt prefix
   stays pinned under its token ids (at most ``prefix_cache_pages``
   pages). A later prompt that starts with a cached prefix (leaving at
@@ -37,41 +51,49 @@ prefix cache, the chunk-with-history walk and speculative tree verify).
   ``max_batch`` rows; ``decode_graph.DecodeGraph``): each step writes
   one K/V row per decoding slot through its table (other rows' writes
   are dropped on the card), attends with the paged decode kernel and
-  samples; sampled tokens feed the next step on the device, and the
-  host reads the T tokens once per dispatch. The per-slot state lives
-  on the device and is uploaded only when an event changes it
-  (admission, a first token, a retirement, a speculative pass, a table
-  change: ``stats["sched_syncs"]``, ``stats["h2d_transfers"]``); on CUDA
-  a dispatch is one CUDA graph replay (``stats["graph_captures"]``,
-  ``stats["graph_replays"]``; the first dispatch of each kind captures,
-  and ``decode_s`` includes ``stats["graph_capture_s"]``). Slots retire
-  on eos, on ``max_new_tokens`` or at the ``max_seq`` ceiling, exactly
-  as the JAX engine counts them.
+  samples; sampled tokens feed the next step on the device. The
+  per-slot state lives on the device and is uploaded only when an event
+  changes it (``stats["sched_syncs"]``, ``stats["h2d_transfers"]``); on
+  CUDA a dispatch is one CUDA graph replay (``stats["graph_captures"]``,
+  ``stats["graph_replays"]``; ``warmup`` captures both graphs ahead of
+  traffic, else the first dispatch of each kind does). Dispatch and
+  collect are split (``_decode_dispatch`` / ``_decode_collect``): up to
+  ``pipeline_depth`` dispatches stay in flight while the host emits the
+  previous one's tokens. Lengths advance at dispatch; a row whose
+  request was retired or preempted since its dispatch is discarded at
+  collect. Slots retire on eos, on ``max_new_tokens``, at the
+  ``max_seq`` ceiling or when cancelled, exactly as the JAX engine
+  counts them.
 - **Speculative tree verify** (``speculative``, off by default): before
   each pass every greedy decoding slot drafts by prompt lookup (its
   request's ``NgramIndex`` proposes up to ``spec_branches``
   continuations of the stream's last ``spec_ngram`` tokens, trie-merged
   into one ``DraftTree``; the ``SpecController`` prices the depth). When
   every decoding slot drafted — or, in a mixed batch, every other pass —
-  one verify pass feeds each slot's tree (a lone root for a slot that
-  did not draft) through the paged tree kernel at a pow-2 width,
-  accepts the longest root-to-leaf path whose tokens the model predicts
-  greedily (``resolve_tree``), compacts that path's K/V rows
-  (``path_moves`` + ``pool_move_rows``) and emits the accepted tokens
-  plus one bonus token sampled at the deepest accepted node. A request
-  reserves ``spec_draft * spec_branches`` rows more than its life, so
-  every tree row lands in a page it owns.
+  the decode pipeline is drained and one verify pass feeds each slot's
+  tree (a lone root for a slot that did not draft) through the paged
+  tree kernel at a pow-2 width, accepts the longest root-to-leaf path
+  whose tokens the model predicts greedily (``resolve_tree``), compacts
+  that path's K/V rows (``path_moves`` + ``pool_move_rows``) and emits
+  the accepted tokens plus one bonus token sampled at the deepest
+  accepted node. Every tree row lands in a page its slot owns: the
+  pass grows each slot's table to cover its tree first.
 - **KV pool form** (``kv_dtype``): the model's dtype (``"bf16"``), or
   ``"int8"``: codes plus one float32 scale per row, quantized on every
   write and read by the int8 branches of the paged kernels. The pool is
   sized by bytes, as in the JAX engine: ``kv_pool_bytes``, or by default
   what ``kv_pages`` (or the full capacity) costs in the model's dtype,
   so an int8 pool holds about twice the pages in the same memory.
+- **Lifecycle**: ``warmup`` (before ``start``) runs every prefill shape,
+  optionally the walk's, both decode graphs and the verify widths on
+  all-OOB tables, leaving pools, free list, lengths and generator as
+  they were; ``cancel`` abandons a request; ``drain`` refuses new
+  submits, lets the queued and in-flight work finish, then stops.
 
-Left out (see ROADMAP.md Queue A): preemption and lazy page growth,
-decode windows, pipelined dispatch/collect, and the SLO / events /
-integrity / observability / goodput / cost planes (so the speculative
-path keeps only the stats below).
+Left out (see ROADMAP.md Queue A): decode windows, the scheduler's
+lanes and starvation preemption, and the SLO / events / integrity /
+observability / goodput / cost planes (so the engine keeps only the
+stats below).
 """
 
 from __future__ import annotations
@@ -87,7 +109,7 @@ import numpy as np
 import torch
 
 from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
-                            scatter_chunk)
+                            scatter_chunk_kv)
 from .decode_graph import DecodeGraph
 from .sampling import sample_batch
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
@@ -118,8 +140,20 @@ class GenRequest:
     #: prompt rows already in the cache: an attached prefix, then each
     #: chunk of the walk
     prefill_offset: int = 0
-    #: True while the prompt is walked chunk by chunk (no decode yet)
+    #: True while the slot holds the request but must not decode yet:
+    #: mid chunk walk, or a batch prefill whose first token is in flight
     pending_prefill: bool = False
+    #: admission order, given once and kept across preemption: the
+    #: newest request is the one preempted
+    admit_order: int = -1
+    #: bumped per batch-prefill dispatch, walk admission and preemption,
+    #: so that a stale first token never lands on a requeued request
+    prefill_epoch: int = 0
+    #: the caller gave up: dropped at admission, retired at the next
+    #: dispatch (its tokens in flight are discarded)
+    cancelled: bool = False
+    #: generated tokens a preemption already appended to the prompt
+    folded: int = 0
     #: prompt-lookup index over prompt + generated (speculation only)
     spec_index: NgramIndex | None = None
     error: str | None = None
@@ -154,7 +188,8 @@ class EngineConfig:
     seed: int | None = None
     #: rows per KV page
     page_size: int = 64
-    #: pool size in pages; None = max_batch x ceil(max_seq / page_size)
+    #: pool size in pages; None = max_batch x ceil(max_seq / page_size);
+    #: fewer overcommit the pool, and the engine preempts when it runs dry
     kv_pages: int | None = None
     #: KV page storage: "bf16" = the model's dtype; "int8" = int8 codes
     #: plus one float32 scale per row (hd + 4 bytes a row and head
@@ -165,9 +200,10 @@ class EngineConfig:
     #: pool at the default budget holds about twice the pages
     kv_pool_bytes: int | None = None
     #: waiting requests beyond this fail at submit; 0 = unbounded
+    #: (preempted and mid-walk requests bypass it)
     max_waiting: int = 0
-    #: chunk-walk rounds per loop iteration; unfinished walks resume
-    #: after a decode pass of the other slots
+    #: chunk-walk rounds per admission; unfinished walks resume after a
+    #: decode pass of the other slots
     prefill_chunks_per_pass: int = 2
     #: pin retired prompts' page-aligned prefixes for reattachment
     prefix_cache: bool = True
@@ -193,6 +229,15 @@ class EngineConfig:
     spec_accept_floor: float = 0.1
     #: passes between single-node probes of a disabled slot
     spec_probe_interval: int = 32
+    #: decode dispatches left uncollected after each step: 1 overlaps
+    #: the host's token readout, emission and admission with the next
+    #: dispatch on the card, at the price of one pass per retirement
+    #: that its slot rides out and first tokens one pass late. None =
+    #: adaptive: 1 while at least ``pipeline_min_slots`` slots decode,
+    #: else 0
+    pipeline_depth: int | None = None
+    #: decoding slots from which the adaptive depth pipelines
+    pipeline_min_slots: int = 8
 
 
 class Engine:
@@ -301,10 +346,11 @@ class Engine:
         self._prefix_budget = (cfg.prefix_cache_pages
                                if cfg.prefix_cache_pages is not None
                                else max(1, self._n_pages // 4))
+        #: rows each slot holds in the cache, advanced at dispatch
         self.lengths = np.zeros(cfg.max_batch, np.int32)
         self.active: list[GenRequest | None] = [None] * cfg.max_batch
-        #: requests mid-walk, in admission order
-        self._walkers: list[GenRequest] = []
+        #: next admission order number
+        self._admit_seq = 0
 
         self.seed = (cfg.seed if cfg.seed is not None
                      else int.from_bytes(os.urandom(4), "little"))
@@ -313,29 +359,52 @@ class Engine:
         #: T = K x M steps per decode dispatch, over every slot
         self._tokens_per_pass = (cfg.decode_steps_per_pass
                                  * cfg.decode_passes_per_dispatch)
+        depth = (cfg.pipeline_depth if cfg.pipeline_depth is not None
+                 else 1)
         self._decode_graph = DecodeGraph(
             paged_decode_fn, params, rows=cfg.max_batch,
             max_pages=self._pages_per_slot, n_pages=self._n_pages,
             steps=self._tokens_per_pass, max_seq=cfg.max_seq,
-            device=self.device, generator=self._generator)
+            device=self.device, generator=self._generator,
+            ring=max(2, depth + 1))
         #: the device copies of the scheduler arrays / tables are stale
         self._sched_dirty = True
         self._tables_dirty = True
         #: the request each row decoded for in the last dispatch: its
         #: last token is on the device (``use_prev``)
         self._dev_last_reqs: list = [None] * cfg.max_batch
+        #: decode dispatches in flight, oldest first
+        self._pending: deque[dict] = deque()
+        #: batch prefills whose first tokens are in flight
+        self._pending_prefills: deque[dict] = deque()
+        #: ends of the last collected decode / prefill spans: decode_s
+        #: and prefill_s sum the union of the spans, not each span
+        self._decode_busy_until = 0.0
+        self._prefill_busy_until = 0.0
 
         self._waiting: deque[GenRequest] = deque()
+        #: admitted work that bounced back (preempted, pool busy, a walk
+        #: between its chunks): goes ahead of the waiting queue, past
+        #: ``max_waiting``
+        self._requeued: list[GenRequest] = []
+        self._requeued_set: set[int] = set()
         self._cv = threading.Condition()
         self._running = False
+        #: drain(): admission closed while the work in flight finishes
+        self._draining = False
+        #: requests taken from the queues by the engine thread and not
+        #: yet placed
+        self._admitting = False
         self._thread: threading.Thread | None = None
         self._failed: str | None = None
         self._step_count = 0
         self.total_generated = 0
         self.stats = {"prefill_calls": 0, "prefill_s": 0.0,
                       "decode_passes": 0, "decode_s": 0.0,
+                      "dispatch_s": 0.0, "collect_s": 0.0,
                       "decode_tokens": 0, "prefix_hits": 0,
-                      "prefix_evictions": 0, "spec_passes": 0,
+                      "prefix_evictions": 0, "preemptions": 0,
+                      "requeues": 0, "spec_passes": 0,
                       "spec_s": 0.0, "spec_drafted": 0,
                       "spec_accepted": 0, "spec_rows": 0,
                       "sched_syncs": 0, "h2d_transfers": 0,
@@ -373,8 +442,9 @@ class Engine:
         self._thread.start()
 
     def stop(self, join_timeout_s: float = 30.0) -> None:
-        """Stop the thread; queued and active requests fail with
-        "engine stopped"."""
+        """Stop the thread once its iteration ends (a pass in flight is
+        collected and its tokens emitted first); queued and active
+        requests fail with "engine stopped"."""
         with self._cv:
             self._running = False
             self._cv.notify_all()
@@ -385,6 +455,120 @@ class Engine:
                 raise RuntimeError("engine thread did not stop within "
                                    f"{join_timeout_s} s")
         self._fail_all("engine stopped")
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown: refuse new submits, let queued, requeued
+        and in-flight work run to completion, then ``stop()``. True when
+        everything retired within ``timeout_s``; False when the deadline
+        cut stragglers off (they fail with "engine stopped")."""
+        deadline = time.time() + timeout_s
+        self._draining = True
+        try:
+            drained = False
+            while True:
+                with self._cv:
+                    waiting = len(self._waiting)
+                if (not waiting and not self._admitting
+                        and not self._requeued and not self._pending
+                        and not self._pending_prefills
+                        and all(r is None for r in self.active)):
+                    drained = True
+                    break
+                if not self._running or time.time() >= deadline:
+                    break
+                time.sleep(0.01)
+            self.stop(join_timeout_s=max(1.0, deadline - time.time()))
+            return drained
+        finally:
+            self._draining = False
+
+    def cancel(self, req: GenRequest) -> None:
+        """Abandon a request (its caller is gone): a waiting request is
+        dropped at admission, an active slot retires at the next
+        dispatch and its tokens in flight are discarded."""
+        req.cancelled = True
+
+    def warmup(self, prompt_lens: tuple = (1,), decode: bool = True,
+               chunked: bool = False) -> float:
+        """Run the serving shapes once ahead of traffic, before
+        ``start()``: the group prefill at every group size of each bucket
+        covering ``prompt_lens``; with ``chunked`` the walk's chunk calls
+        at every bucket width for groups 1 and ``prefill_batch``; with
+        ``decode`` both decode graphs (greedy and sampled), captured on
+        CUDA with every row inactive, so no serving dispatch captures;
+        with speculation the verify pass at each power-of-two width.
+        Every table is all-OOB, so every K/V write drops: the pools, the
+        free list, ``lengths`` and the generator's state are as they
+        were. Returns the seconds it took."""
+        if self._running:
+            raise RuntimeError("warmup runs before start()")
+        cfg = self.config
+        t0 = time.perf_counter()
+        generator = self._generator.get_state()
+
+        def oob(rows):
+            return self._upload(np.full((rows, self._pages_per_slot),
+                                        self._n_pages, np.int32))
+
+        def row_params(rows):
+            return (self._upload(np.zeros(rows, np.float32)),
+                    self._upload(np.ones(rows, np.float32)),
+                    self._upload(np.zeros(rows, np.int64)))
+
+        with torch.no_grad():
+            for bucket in sorted({self._bucket_for(int(n))
+                                  for n in prompt_lens}):
+                for g in self._group_sizes():
+                    kv_len = self._upload(np.ones(g, np.int32))
+                    logits, (k, v) = self._prefill_fn(
+                        self.params, self._upload(np.zeros((g, bucket),
+                                                           np.int64)),
+                        kv_len)
+                    for greedy in (True, False):
+                        sample_batch(logits, *row_params(g),
+                                     generator=self._generator,
+                                     all_greedy=greedy)
+                    zeros = torch.zeros_like(kv_len)
+                    tables = oob(g)
+                    scatter_chunk_kv(self.k_cache, self.v_cache, tables, k,
+                                     v, zeros, kv_len)
+            if chunked:
+                for width in self._usable_buckets:
+                    for g in sorted({1, max(1, cfg.prefill_batch)}):
+                        zeros = self._upload(np.zeros(g, np.int32))
+                        self._chunk_fn(
+                            self.params,
+                            self._upload(np.zeros((g, width), np.int64)),
+                            self.k_cache, self.v_cache, oob(g), zeros, zeros)
+            if decode:
+                self._decode_graph.warm(self.k_cache, self.v_cache)
+            if cfg.speculative:
+                b, width = cfg.max_batch, 2
+                while True:
+                    zeros = np.zeros((b, width), np.int64)
+                    tokens, depths = self._upload(zeros), self._upload(zeros)
+                    tables = oob(b)
+                    offsets = self._upload(np.zeros(b, np.int32))
+                    lens = self._upload(np.ones(b, np.int32))
+                    logits, _, _ = self._verify_fn(
+                        self.params, tokens, self.k_cache, self.v_cache,
+                        tables, offsets, lens, tree_depths=depths,
+                        tree_masks=self._upload(np.ones((b, width),
+                                                        np.int32)))
+                    n_acc, _, path = resolve_tree(
+                        logits, tokens, depths, depths, lens, *row_params(b),
+                        generator=self._generator)
+                    src, dst = path_moves(offsets, path, n_acc, cfg.max_seq)
+                    pool_move_rows(self.k_cache, tables, src, dst)
+                    pool_move_rows(self.v_cache, tables, src, dst)
+                    if width >= 1 + cfg.spec_draft * cfg.spec_branches:
+                        break
+                    width *= 2
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._generator.set_state(generator)
+        self._note_graph_stats()
+        return time.perf_counter() - t0
 
     def health_check(self) -> dict:
         status = "DOWN" if (self._failed or not self._running) else "UP"
@@ -427,6 +611,8 @@ class Engine:
         with self._cv:
             if self._failed:
                 reason = f"engine crashed: {self._failed}"
+            elif self._draining:
+                reason = "engine draining for shutdown"
             elif self.config.max_waiting and \
                     len(self._waiting) >= self.config.max_waiting:
                 reason = "engine overloaded: waiting queue full"
@@ -453,18 +639,73 @@ class Engine:
             with torch.no_grad():
                 while self._running:
                     self._admit()
-                    if self._walkers:
-                        self._walk_chunks()
                     if any(r is not None for r in self.active):
                         self._step()
-                    elif not self._walkers:
-                        with self._cv:
-                            if self._running and not self._waiting:
-                                self._cv.wait(0.05)
+                    else:
+                        # nothing active: settle any pass in flight so
+                        # its last tokens reach their requests
+                        self._drain_pending()
+                    self._collect_prefills()
+                # a clean stop with work in flight: those tokens are
+                # real, so they are emitted before anything is failed
+                self._drain_pending()
+                self._collect_prefills()
         except Exception as exc:  # noqa: BLE001 — boundary: fail loudly
             self._failed = f"{type(exc).__name__}: {exc}"
             self._running = False
             self._fail_all(f"engine crashed: {self._failed}")
+
+    def _admit(self) -> None:
+        """One admission round: the requeued lane goes first (mid-walk
+        resumes keep their slot and take no free one), then up to
+        ``free - needing_slots`` requests from the waiting queue, waiting
+        up to 50 ms for one when the engine is idle. Cancelled requests
+        are dropped here; the rest go to ``_admit_batch``."""
+        free = sum(1 for r in self.active if r is None)
+        if free == 0 and not self._requeued:
+            return
+        busy = free < self.config.max_batch
+        try:
+            batch = self._requeued
+            # set before the lane empties, so drain() never sees the
+            # requests nowhere
+            self._admitting = bool(batch)
+            self._requeued = []
+            self._requeued_set.clear()
+            needing_slots = sum(
+                1 for r in batch
+                if not (r.pending_prefill and r.slot >= 0
+                        and self.active[r.slot] is r))
+            take = free - needing_slots
+            if take > 0:
+                batch += self._pop_waiting(
+                    take, 0.0 if (busy or batch) else 0.05)
+            live = []
+            for r in batch:
+                if not r.cancelled:
+                    live.append(r)
+                elif (r.pending_prefill and r.slot >= 0
+                      and self.active[r.slot] is r):
+                    self._retire(r.slot)          # mid walk: free the slot
+                elif r.finished_at is None:
+                    r.finished_at = time.time()
+                    r.done.set()
+            if live:
+                self._admit_batch(live)
+        finally:
+            self._admitting = False
+
+    def _pop_waiting(self, n: int, wait_s: float) -> list[GenRequest]:
+        """Up to ``n`` waiting requests, first in first out, waiting up
+        to ``wait_s`` for the first one."""
+        with self._cv:
+            if not self._waiting and wait_s > 0 and self._running:
+                self._cv.wait(wait_s)
+            popped = [self._waiting.popleft()
+                      for _ in range(min(n, len(self._waiting)))]
+            if popped:
+                self._admitting = True
+            return popped
 
     def _fail(self, req: GenRequest, error: str) -> None:
         req.error = error
@@ -474,9 +715,14 @@ class Engine:
     def _fail_all(self, reason: str) -> None:
         with self._cv:
             waiting, self._waiting = list(self._waiting), deque()
-        for req in waiting:
-            self._fail(req, reason)
-        self._walkers = []
+        requeued, self._requeued = self._requeued, []
+        self._requeued_set.clear()
+        # records of work that will not be collected: their ring
+        # buffers and first tokens are dropped
+        while self._pending:
+            self._decode_graph.discard(self._pending.popleft()["handle"])
+        self._pending_prefills.clear()
+        self._dev_last_reqs = [None] * self.config.max_batch
         self._sched_dirty = True
         for i, req in enumerate(self.active):
             if req is not None:
@@ -484,20 +730,11 @@ class Engine:
                 self._release_pages(i)
                 self.lengths[i] = 0
                 self._fail(req, reason)
+        for req in waiting + requeued:
+            if req.finished_at is None:
+                self._fail(req, reason)
 
     # ------------------------------------------------------------- pages
-    def _pages_for(self, req: GenRequest) -> int:
-        """Pages of a request's whole life. With speculation a verify
-        pass writes its tree's rows past the slot's length — up to
-        ``spec_draft * spec_branches`` rows beyond the last token the
-        budget allows — so those rows are reserved too, and every tree
-        row lands in a page the slot owns."""
-        cfg = self.config
-        spare = cfg.spec_draft * cfg.spec_branches if cfg.speculative else 0
-        rows = min(len(req.prompt_tokens) + req.params.max_new_tokens + spare,
-                   cfg.max_seq)
-        return -(-rows // cfg.page_size)
-
     def _decref_page(self, page: int) -> None:
         self._page_refs[page] -= 1
         if self._page_refs[page] <= 0:
@@ -520,11 +757,15 @@ class Engine:
             for page in pages:
                 self._decref_page(page)
 
-    def _alloc_pages(self, slot: int, need: int) -> bool:
-        """Grow ``slot``'s table to ``need`` pages, evicting cached
-        prefixes if the free list is short; False when even that does
-        not cover it."""
+    def _alloc_pages(self, slot: int, rows: int) -> bool:
+        """Grow ``slot``'s table to cover ``rows`` logical rows (at most
+        ``max_seq``'s pages), evicting cached prefixes if the free list
+        is short; False when even that does not cover it (the caller
+        preempts or requeues)."""
+        need = min(-(-rows // self.config.page_size), self._pages_per_slot)
         have = int(self._slot_pages[slot])
+        if need <= have:
+            return True
         if need - have > len(self._free_pages):
             self._evict_prefix_entries(need - have)
         if need - have > len(self._free_pages):
@@ -533,16 +774,75 @@ class Engine:
             page = self._free_pages.pop()
             self._tables[slot, i] = page
             self._page_refs[page] = 1
-        self._slot_pages[slot] = max(have, need)
+        self._slot_pages[slot] = need
         self._tables_dirty = True
         return True
 
     def _release_pages(self, slot: int) -> None:
-        for i in range(int(self._slot_pages[slot])):
+        n = int(self._slot_pages[slot])
+        if n:
+            self._tables_dirty = True
+        for i in range(n):
             self._decref_page(int(self._tables[slot, i]))
         self._tables[slot, :] = self._n_pages
         self._slot_pages[slot] = 0
-        self._tables_dirty = True
+
+    def _ensure_headroom(self, slot: int, rows: int) -> bool:
+        """Allocate ``slot``'s pages for ``rows`` rows, preempting the
+        newest request younger than its own as often as needed: an older
+        request, closer to completion, is never evicted for a newer one.
+        False when no younger victim is left and the pool still cannot
+        cover it (the caller preempts ``slot`` itself)."""
+        mine = self.active[slot].admit_order
+        while not self._alloc_pages(slot, rows):
+            victims = [i for i, r in enumerate(self.active)
+                       if r is not None and i != slot
+                       and r.admit_order > mine]
+            if not victims:
+                return False
+            self._preempt(max(victims,
+                              key=lambda i: self.active[i].admit_order))
+        return True
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``'s request and keep it alive: its pages go back
+        now, and it re-enters the requeued lane with its original prompt
+        + every token it emitted as its prompt, whose prefill recomputes
+        its K/V at the same positions and samples its next token
+        (preemption by recompute).
+        Its device-token lineage and any batch prefill in flight for it
+        (``prefill_epoch``) are cut off."""
+        req = self.active[slot]
+        if req is None:
+            return
+        self.stats["preemptions"] += 1
+        self._dev_last_reqs[slot] = None
+        self._sched_dirty = True
+        req.pending_prefill = False
+        req.prefill_epoch += 1
+        self.active[slot] = None
+        self.lengths[slot] = 0
+        self._release_pages(slot)
+        # the continuation is what the cache held: the prompt and every
+        # token emitted, each once (an earlier preemption folded some in
+        # already; the JAX engine appends them all again, ROADMAP Queue C)
+        # — at most max_seq rows, and the walk takes any width, so
+        # nothing is cut in practice
+        req.prompt_tokens = (list(req.prompt_tokens)
+                             + list(req.generated[req.folded:]))
+        req.folded = len(req.generated)
+        if len(req.prompt_tokens) > self.config.max_seq:
+            req.prompt_tokens = req.prompt_tokens[-self.config.max_seq:]
+        # the chunks walked are gone with the pages: a cached prefix may
+        # attach again at re-admission
+        req.prefill_offset = 0
+        self._requeue(req)
+
+    def _requeue(self, req: GenRequest) -> None:
+        if id(req) not in self._requeued_set:
+            self._requeued_set.add(id(req))
+            self._requeued.append(req)
+            self.stats["requeues"] += 1
 
     # ------------------------------------------------------ prefix cache
     def _probe_prefix(self, prompt: list[int]) -> int:
@@ -570,6 +870,7 @@ class Engine:
             self._page_refs[page] += 1
         self._slot_pages[slot] = len(pages)
         self._tables_dirty = True
+        self.stats["prefix_hits"] += 1
 
     def _register_prefix(self, slot: int, req: GenRequest) -> None:
         """At retire: pin the page-aligned prompt prefix (leaving its
@@ -596,57 +897,77 @@ class Engine:
         self._prefix_lens[n * pg] = self._prefix_lens.get(n * pg, 0) + 1
         self._cached_pages += n
 
-    def _reserve(self, slot: int, req: GenRequest) -> bool:
-        """Give ``req`` the pages of its whole life in ``slot``: a
-        cached prefix of its prompt attaches, the rest comes from the
-        free list. False (and nothing held) when the pool cannot."""
-        covered = self._probe_prefix(req.prompt_tokens)
-        if covered:
-            self._attach_prefix(slot, req.prompt_tokens, covered)
-        if not self._alloc_pages(slot, self._pages_for(req)):
-            self._release_pages(slot)
-            return False
-        req.prefill_offset = covered
-        if covered:
-            self.stats["prefix_hits"] += 1
-        return True
-
     # ----------------------------------------------------------- admission
-    def _admit(self) -> None:
-        """Move waiting requests into free slots (FIFO) while the pool
-        can hold them. A prompt with a cached prefix, or wider than
-        every bucket, joins the chunk walk; the rest prefill in bucket
-        groups."""
-        free = [i for i, r in enumerate(self.active) if r is None]
-        placed: list[GenRequest] = []
-        refused: list[GenRequest] = []
-        with self._cv:
-            while free and self._waiting:
-                req = self._waiting[0]
-                if self._pages_for(req) > self._n_pages:
-                    refused.append(self._waiting.popleft())
-                    continue
-                if not self._reserve(free[0], req):
-                    break            # pool dry: wait for a retire
-                self._waiting.popleft()
-                req.slot = free.pop(0)
-                self.active[req.slot] = req
-                placed.append(req)
-        for req in refused:
-            self._fail(req, "request exceeds kv pool")
-        widest = self._usable_buckets[-1]
+    def _free_slot(self) -> int:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return -1
+
+    def _admit_batch(self, reqs: list[GenRequest]) -> None:
+        """Place a burst: walkers resume in the slot they hold (or a new
+        one, from scratch, when theirs was taken back); a prompt with a
+        cached prefix attaches it and walks its suffix; a prompt wider
+        than every bucket walks; the rest prefill in bucket groups of at
+        most ``prefill_batch``. A request that finds no slot goes back
+        to the requeued lane."""
         by_bucket: dict[int, list[GenRequest]] = {}
-        for req in placed:
-            if req.prefill_offset or len(req.prompt_tokens) > widest:
-                req.pending_prefill = True
-                self._walkers.append(req)
-            else:
-                by_bucket.setdefault(self._bucket_for(len(req.prompt_tokens)),
-                                     []).append(req)
+        walkers: list[tuple[GenRequest, int]] = []
+        widest = self._usable_buckets[-1]
+
+        def reserve_for_walk(req: GenRequest, slot: int) -> None:
+            # hold the slot now: the walkers go after the bucket groups,
+            # which must not be handed it
+            self.active[slot] = req
+            req.slot = slot
+            walkers.append((req, slot))
+
+        for req in reqs:
+            if req.finished_at is not None:
+                continue                     # failed or retired since
+            if (not req.pending_prefill and req.slot >= 0
+                    and self.active[req.slot] is req):
+                continue                     # already serving
+            if req.pending_prefill:          # resuming a walk
+                if req.slot >= 0 and self.active[req.slot] is req:
+                    walkers.append((req, req.slot))
+                else:                        # its slot was taken back
+                    slot = self._free_slot()
+                    if slot < 0:
+                        self._requeue(req)
+                    else:
+                        reserve_for_walk(req, slot)
+                continue
+            if req.prefill_offset == 0:
+                covered = self._probe_prefix(req.prompt_tokens)
+                if covered:
+                    slot = self._free_slot()
+                    if slot < 0:
+                        self._requeue(req)
+                    else:
+                        self._attach_prefix(slot, req.prompt_tokens, covered)
+                        req.prefill_offset = covered
+                        reserve_for_walk(req, slot)
+                    continue
+            if len(req.prompt_tokens) > widest:
+                slot = self._free_slot()
+                if slot < 0:
+                    self._requeue(req)
+                else:
+                    reserve_for_walk(req, slot)
+                continue
+            by_bucket.setdefault(self._bucket_for(len(req.prompt_tokens)),
+                                 []).append(req)
         p_max = max(1, self.config.prefill_batch)
         for bucket, group in by_bucket.items():
             for i in range(0, len(group), p_max):
                 self._prefill_group(bucket, group[i:i + p_max])
+        if walkers:
+            self._walk_chunks(walkers)
+        # below the pipelining threshold TTFT is the scarce resource:
+        # take the first tokens now, not after the next decode pass
+        if self._pending_prefills and self._pipeline_depth() == 0:
+            self._collect_prefills()
 
     def _bucket_for(self, n: int) -> int:
         for b in self._usable_buckets:
@@ -664,6 +985,16 @@ class Engine:
             g *= 2
         return tuple(sizes) + (cap,)
 
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On CUDA it goes through
+        pinned memory without blocking the host (the pinned block is not
+        reused before its copy has run), so the call that follows does
+        not wait for the work in flight on the card."""
+        tensor = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return tensor
+        return tensor.pin_memory().to(self.device, non_blocking=True)
+
     def _row_params(self, reqs: list, n: int):
         temps = np.zeros(n, np.float32)
         top_ps = np.ones(n, np.float32)
@@ -672,47 +1003,122 @@ class Engine:
             temps[row] = req.params.temperature
             top_ps[row] = req.params.top_p
             top_ks[row] = req.params.top_k
-        dev = self.device
-        return (torch.from_numpy(temps).to(dev),
-                torch.from_numpy(top_ps).to(dev),
-                torch.from_numpy(top_ks).to(dev))
+        return self._upload(temps), self._upload(top_ps), self._upload(top_ks)
 
-    def _prefill_group(self, bucket: int, group: list[GenRequest]) -> None:
-        p = next(g for g in self._group_sizes() if g >= len(group))
+    def _prefill_group(self, bucket: int, chunk: list[GenRequest]) -> None:
+        """Place each request of ``chunk`` in a free slot with pages for
+        prompt + 1 rows (requeued when no slot or no pages are free;
+        failed when the prompt can never fit the pool) and launch one
+        ``[P, bucket]`` prefill for them: sample, write the K/V and send
+        the first tokens to pinned host memory behind an event. The
+        launch returns before the card is done; ``_collect_prefills``
+        emits the tokens."""
+        cfg = self.config
+        placed: list[GenRequest] = []
+        for req in chunk:
+            slot = self._free_slot()
+            if slot < 0:
+                self._requeue(req)
+                continue
+            if -(-(len(req.prompt_tokens) + 1) // cfg.page_size) \
+                    > self._n_pages:
+                self._fail(req, "prompt exceeds kv pool")
+                continue
+            if not self._alloc_pages(slot, len(req.prompt_tokens) + 1):
+                self._requeue(req)           # pool busy: wait for retires
+                continue
+            if req.admit_order < 0:
+                req.admit_order = self._admit_seq
+                self._admit_seq += 1
+            req.slot = slot
+            self._dev_last_reqs[slot] = None
+            self.active[slot] = req
+            placed.append(req)
+        if not placed:
+            return
+        p = next(g for g in self._group_sizes() if g >= len(placed))
         tokens = np.zeros((p, bucket), np.int64)
         kv_len = np.ones(p, np.int32)            # dummy rows: length 1
         tables = np.full((p, self._pages_per_slot), self._n_pages,
                          np.int32)               # dummy rows: all OOB
-        for row, req in enumerate(group):
+        for row, req in enumerate(placed):
             n = len(req.prompt_tokens)
             tokens[row, :n] = req.prompt_tokens
             kv_len[row] = n
             tables[row] = self._tables[req.slot]
-        dev = self.device
         t0 = time.perf_counter()
-        tokens_t = torch.from_numpy(tokens).to(dev)
-        kv_len_t = torch.from_numpy(kv_len).to(dev)
-        tables_t = torch.from_numpy(tables).to(dev)
-        temps, top_ps, top_ks = self._row_params(group, p)
-        logits, (k, v) = self._prefill_fn(self.params, tokens_t, kv_len_t)
+        kv_len_t = self._upload(kv_len)
+        tables_t = self._upload(tables)
+        temps, top_ps, top_ks = self._row_params(placed, p)
+        logits, (k, v) = self._prefill_fn(self.params, self._upload(tokens),
+                                          kv_len_t)
         toks = sample_batch(logits, temps, top_ps, top_ks,
                             generator=self._generator,
-                            all_greedy=_all_greedy(group))
+                            all_greedy=_all_greedy(placed))
         offsets = torch.zeros_like(kv_len_t)
-        scatter_chunk(self.k_cache, tables_t, k, offsets, kv_len_t)
-        scatter_chunk(self.v_cache, tables_t, v, offsets, kv_len_t)
-        first = toks.cpu().numpy()
+        scatter_chunk_kv(self.k_cache, self.v_cache, tables_t, k, v, offsets,
+                         kv_len_t)
+        first, ready = self._to_host(toks)
         self.stats["prefill_calls"] += 1
-        self.stats["prefill_s"] += time.perf_counter() - t0
-        for row, req in enumerate(group):
-            self._first_token(req, int(first[row]))
+        self._sched_dirty = True                 # the slots go pending
+        for req in placed:
+            req.pending_prefill = True
+            req.prefill_epoch += 1
+        self._pending_prefills.append({
+            "toks": first, "ready": ready, "placed": placed,
+            "slots": [r.slot for r in placed],
+            "epochs": [r.prefill_epoch for r in placed], "t0": t0})
+
+    def _to_host(self, tensor: torch.Tensor):
+        """(host copy, event): on CUDA a copy into pinned memory queued
+        behind the work that makes ``tensor``, and the event after it;
+        on the CPU the tensor itself and None."""
+        if self.device.type != "cuda":
+            return tensor, None
+        host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                           pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    def _collect_prefills(self) -> None:
+        """Emit the first tokens of the batch prefills in flight and open
+        their slots for decode. A row whose request was preempted,
+        re-admitted or retired since its dispatch (epoch or slot
+        changed) is dropped: its current life owns its own prefill."""
+        if self._pending_prefills:
+            self._sched_dirty = True
+        while self._pending_prefills:
+            rec = self._pending_prefills.popleft()
+            if rec["ready"] is not None:
+                rec["ready"].synchronize()
+            first = rec["toks"].numpy()
+            self._note_prefill_span(rec["t0"])
+            for row, (req, slot, epoch) in enumerate(
+                    zip(rec["placed"], rec["slots"], rec["epochs"])):
+                if (req.prefill_epoch != epoch
+                        or self.active[slot] is not req
+                        or req.finished_at is not None):
+                    continue
+                self._first_token(req, int(first[row]))
+
+    def _note_prefill_span(self, start: float) -> None:
+        """``prefill_s`` sums the union of the prefill spans (launch to
+        collect): two groups collected after the same pass cover nearly
+        one interval."""
+        end = time.perf_counter()
+        self.stats["prefill_s"] += end - max(start, self._prefill_busy_until)
+        self._prefill_busy_until = end
 
     def _first_token(self, req: GenRequest, token: int) -> None:
         """The prompt is in the cache: emit the first sampled token and
-        open the slot for decode."""
+        open the slot for decode. A recompute after preemption keeps its
+        request's first TTFT."""
         req.pending_prefill = False
         self._sched_dirty = True
-        req.first_token_at = time.time()
+        if req.first_token_at is None:
+            req.first_token_at = time.time()
         req.generated.append(token)
         self.total_generated += 1
         self.lengths[req.slot] = len(req.prompt_tokens)
@@ -720,28 +1126,90 @@ class Engine:
             self._retire(req.slot)
 
     # ---------------------------------------------------------- chunk walk
-    def _walk_chunks(self) -> None:
-        """Up to ``prefill_chunks_per_pass`` rounds of the walk: each
-        round groups the walkers by the smallest bucket covering what is
-        left of their prompt (the widest when none does) and runs each
-        group of at most ``prefill_batch`` as one chunk call."""
+    def _walk_chunks(self, pairs: list) -> None:
+        """Walk the prompts of ``pairs`` (request, slot) chunk by chunk:
+        up to ``prefill_chunks_per_pass`` rounds, each grouping the live
+        walkers by the smallest bucket covering what is left of their
+        prompt (the widest when none does) into chunk calls of at most
+        ``prefill_batch``. Before each chunk the slot's table grows to
+        cover it, preempting younger requests if the pool is dry; a
+        walker that cannot be covered gives its pages back and restarts
+        from offset 0 later. Unfinished walkers go back to the requeued
+        lane."""
+        cfg = self.config
         widest = self._usable_buckets[-1]
-        p_max = max(1, self.config.prefill_batch)
-        for _ in range(max(1, int(self.config.prefill_chunks_per_pass))):
-            if not self._walkers:
-                return
+        p_max = max(1, cfg.prefill_batch)
+        walkers: list[GenRequest] = []
+        if pairs:
+            self._sched_dirty = True
+        for req, slot in pairs:
+            if -(-(len(req.prompt_tokens) + 1) // cfg.page_size) \
+                    > self._n_pages:
+                # an attached prefix must not stay in the slot's table
+                self._release_pages(slot)
+                if self.active[slot] is req:
+                    self.active[slot] = None
+                req.prefill_offset = 0
+                self._fail(req, "prompt exceeds kv pool")
+                continue
+            self._dev_last_reqs[slot] = None
+            req.prefill_epoch += 1
+            self.active[slot] = req
+            req.slot = slot
+            req.pending_prefill = True
+            if req.admit_order < 0:
+                req.admit_order = self._admit_seq
+                self._admit_seq += 1
+            walkers.append(req)
+        if not walkers:
+            return
+
+        def owns_slot(r: GenRequest) -> bool:
+            return (r.finished_at is None and r.slot >= 0
+                    and self.active[r.slot] is r)
+
+        start = time.perf_counter()
+        for _ in range(max(1, int(cfg.prefill_chunks_per_pass))):
+            live = [r for r in walkers if owns_slot(r)
+                    and r.prefill_offset < len(r.prompt_tokens)]
+            if not live:
+                break
             by_width: dict[int, list[GenRequest]] = {}
-            for req in self._walkers:
-                left = len(req.prompt_tokens) - req.prefill_offset
+            for r in live:
+                left = len(r.prompt_tokens) - r.prefill_offset
                 width = next((b for b in self._usable_buckets if b >= left),
                              widest)
-                by_width.setdefault(width, []).append(req)
+                by_width.setdefault(width, []).append(r)
             for width, group in by_width.items():
                 for i in range(0, len(group), p_max):
-                    self._chunk_group(width, group[i:i + p_max])
-            self._walkers = [r for r in self._walkers if r.pending_prefill]
+                    ready = []
+                    for r in group[i:i + p_max]:
+                        if not owns_slot(r):
+                            continue         # a peer's headroom preempted it
+                        chunk = min(width, len(r.prompt_tokens)
+                                    - r.prefill_offset)
+                        rows = min(r.prefill_offset + chunk + 1, cfg.max_seq)
+                        if not self._ensure_headroom(r.slot, rows):
+                            # the pool cannot hold this walk even after
+                            # preempting younger requests: restart it
+                            # from scratch once pages free up
+                            self._release_pages(r.slot)
+                            self._dev_last_reqs[r.slot] = None
+                            self.active[r.slot] = None
+                            r.prefill_offset = 0
+                            self._requeue(r)
+                            continue
+                        ready.append(r)
+                    ready = [r for r in ready if owns_slot(r)]
+                    if ready:
+                        self._chunk_call(width, ready)
+        self._note_prefill_span(start)
+        for r in walkers:                    # more chunks next round
+            if owns_slot(r) and r.pending_prefill \
+                    and r.prefill_offset < len(r.prompt_tokens):
+                self._requeue(r)
 
-    def _chunk_group(self, width: int, group: list[GenRequest]) -> None:
+    def _chunk_call(self, width: int, group: list[GenRequest]) -> None:
         """One [G, width] chunk call, G = 1 for a lone walker, else
         ``prefill_batch``; pad rows carry an all-OOB table, offset 0 and
         chunk length 0. Walkers whose prompt this chunk completes take
@@ -758,25 +1226,21 @@ class Engine:
             offsets[row] = req.prefill_offset
             lens[row] = len(chunk)
             tables[row] = self._tables[req.slot]
-        dev = self.device
-        t0 = time.perf_counter()
         temps, top_ps, top_ks = self._row_params(group, g)
         logits, self.k_cache, self.v_cache = self._chunk_fn(
-            self.params, torch.from_numpy(tokens).to(dev), self.k_cache,
-            self.v_cache, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(offsets).to(dev), torch.from_numpy(lens).to(dev))
+            self.params, self._upload(tokens), self.k_cache, self.v_cache,
+            self._upload(tables), self._upload(offsets), self._upload(lens))
         toks = sample_batch(logits, temps, top_ps, top_ks,
                             generator=self._generator,
                             all_greedy=_all_greedy(group))
+        self.stats["prefill_calls"] += 1
         first = None
         for row, req in enumerate(group):
             req.prefill_offset += int(lens[row])
             if req.prefill_offset >= len(req.prompt_tokens):
-                if first is None:
+                if first is None:            # the walk's collect
                     first = toks.cpu().numpy()
                 self._first_token(req, int(first[row]))
-        self.stats["prefill_calls"] += 1
-        self.stats["prefill_s"] += time.perf_counter() - t0
 
     # -------------------------------------------------------------- decode
     def _finished(self, req: GenRequest, token: int) -> bool:
@@ -788,13 +1252,63 @@ class Engine:
         req = self.active[slot]
         if req is None:
             return
+        self._dev_last_reqs[slot] = None
+        self._sched_dirty = True
         self.active[slot] = None
         self.lengths[slot] = 0
-        self._sched_dirty = True
-        self._register_prefix(slot, req)
+        if req.error is None and not req.cancelled:
+            self._register_prefix(slot, req)
         self._release_pages(slot)
         req.finished_at = time.time()
         req.done.set()
+
+    def _retire_unservable(self) -> None:
+        """The sweep before a decode or verify pass: cancelled slots and
+        slots at the ``max_seq`` ceiling leave first. Lengths advance at
+        dispatch, so a pass in flight may still hold a ceiling slot's
+        last tokens: it is collected before the slot is declared
+        spent."""
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            if req.cancelled:
+                self._retire(i)
+            elif self.lengths[i] >= self.config.max_seq:
+                if any(rec["mask"][i] and rec["reqs"][i] is req
+                       for rec in self._pending):
+                    self._drain_pending()
+                if (self.active[i] is req
+                        and self.lengths[i] >= self.config.max_seq):
+                    self._retire(i)
+
+    def _pipeline_depth(self) -> int:
+        """Dispatches to leave in flight now: ``pipeline_depth``, or
+        adaptively 1 while at least ``pipeline_min_slots`` slots decode
+        (where the overlap pays for the pass a retirement wastes), else
+        0."""
+        cfg = self.config
+        if cfg.pipeline_depth is not None:
+            return max(0, int(cfg.pipeline_depth))
+        decoding = sum(1 for r in self.active
+                       if r is not None and not r.pending_prefill)
+        return 1 if decoding >= cfg.pipeline_min_slots else 0
+
+    def _decode_step(self) -> None:
+        """Dispatch one decode pass, then collect until at most the
+        pipeline depth stays in flight; with nothing to dispatch (every
+        slot walking), collect everything."""
+        before = len(self._pending)
+        self._decode_dispatch()
+        if len(self._pending) == before:
+            self._drain_pending()
+        else:
+            depth = self._pipeline_depth()
+            while len(self._pending) > depth:
+                self._decode_collect()
+
+    def _drain_pending(self) -> None:
+        while self._pending:
+            self._decode_collect()
 
     def _sync_decode_state(self) -> None:
         """Rebuild and upload the per-slot arrays the decode dispatch
@@ -836,52 +1350,91 @@ class Engine:
             tables=self._tables)
         self._tables_dirty = False
 
-    def _decode_pass(self) -> None:
+    def _note_graph_stats(self) -> None:
+        graph = self._decode_graph
+        self.stats["graph_captures"] = graph.captures
+        self.stats["graph_replays"] = graph.replays
+        self.stats["graph_capture_s"] = graph.capture_s
+
+    def _decode_dispatch(self) -> None:
+        """Launch one decode dispatch without waiting for it: sweep the
+        unservable slots, grow every decoding slot's table to ``len + T``
+        rows oldest request first (preempting the newest when the pool
+        runs dry), upload the state and tables if an event dirtied them,
+        advance the host's ``lengths`` by each row's valid steps, and
+        queue a record of the pass for ``_decode_collect``."""
         cfg = self.config
         steps = self._tokens_per_pass
-        for i, req in enumerate(self.active):
-            if req is not None and not req.pending_prefill \
-                    and self.lengths[i] >= cfg.max_seq:
-                self._retire(i)           # at the cache ceiling
-        rows = [i for i, r in enumerate(self.active)
-                if r is not None and not r.pending_prefill]
-        if not rows:
+        self._retire_unservable()
+        order = sorted((i for i, r in enumerate(self.active) if r is not None),
+                       key=lambda i: self.active[i].admit_order)
+        for i in order:
+            req = self.active[i]
+            if req is None or req.pending_prefill:
+                continue       # preempted just now, or walking its prompt
+            rows = min(int(self.lengths[i]) + steps, cfg.max_seq)
+            if not self._ensure_headroom(i, rows):
+                self._preempt(i)     # the pool cannot hold even this one
+        host0 = time.perf_counter()
+        mask = np.array([r is not None and not r.pending_prefill
+                         for r in self.active])
+        if not mask.any():
             return
-        reqs = [self.active[i] for i in rows]
-        # steps whose write would land at or past max_seq are garbage
-        # (their K/V writes drop): only the valid prefix is emitted
-        valid = np.minimum(steps, cfg.max_seq - self.lengths[rows])
-        t0 = time.perf_counter()
         if self._sched_dirty:
             self._sync_decode_state()
         if self._tables_dirty:
             self._sync_tables()
-        graph = self._decode_graph
-        out = graph.run(self.k_cache, self.v_cache, _all_greedy(reqs))
-        busy = time.perf_counter() - t0
+        reqs = list(self.active)
+        # steps whose write would land at or past max_seq are garbage
+        # (their K/V writes drop): only the valid prefix is emitted
+        valid = np.where(mask, np.minimum(steps, cfg.max_seq - self.lengths),
+                         0).astype(np.int32)
+        self.lengths += valid
+        start = time.perf_counter()
+        handle = self._decode_graph.launch(
+            self.k_cache, self.v_cache,
+            _all_greedy([r for r, m in zip(reqs, mask) if m]))
+        self._note_graph_stats()
+        self._dev_last_reqs = [r if m else None for r, m in zip(reqs, mask)]
+        disp = time.perf_counter() - host0
+        self._pending.append({"handle": handle, "reqs": reqs, "mask": mask,
+                              "valid": valid, "t0": start})
+        self.stats["dispatch_s"] += disp
+
+    def _decode_collect(self) -> None:
+        """Wait for the oldest dispatch in flight, emit its tokens and
+        retire the slots it finished. A row whose request was retired or
+        preempted since its dispatch decoded garbage: it is discarded."""
+        if not self._pending:
+            return
+        rec = self._pending.popleft()
+        out = self._decode_graph.collect(rec["handle"])
+        end = time.perf_counter()
+        busy = end - max(rec["t0"], self._decode_busy_until)
+        self._decode_busy_until = end
         self.stats["decode_passes"] += 1
         self.stats["decode_s"] += busy
-        self.stats["graph_captures"] = graph.captures
-        self.stats["graph_replays"] = graph.replays
-        self.stats["graph_capture_s"] = graph.capture_s
         self._step_count += 1
-        self._dev_last_reqs = [r if r is not None and not r.pending_prefill
-                               else None for r in self.active]
-        self.lengths[rows] += valid.astype(np.int32)
+        steps = self._tokens_per_pass
         emitted = 0
-        for j, (slot, req) in enumerate(zip(rows, reqs)):
+        for i, req in enumerate(rec["reqs"]):
+            if req is None or not rec["mask"][i]:
+                continue
+            if self.active[i] is not req or req.finished_at is not None:
+                continue                     # retired or preempted since
             done = False
-            for k in range(int(valid[j])):
-                token = int(out[k, slot])
+            for k in range(int(rec["valid"][i])):
+                token = int(out[k, i])
                 req.generated.append(token)
                 self.total_generated += 1
                 emitted += 1
                 if self._finished(req, token):
                     done = True
                     break
-            if done or valid[j] < steps:
-                self._retire(slot)
+            if done or rec["valid"][i] < steps:
+                self._retire(i)
         self.stats["decode_tokens"] += emitted
+        self.stats["collect_s"] += time.perf_counter() - end
         # the price an accepted draft token undercuts
         self._spec_ctrl.note_decode(busy, emitted)
 
@@ -892,12 +1445,12 @@ class Engine:
         decoding slot drafted, and in a mixed batch every other time
         (a verify pass advances a slot that did not draft by one token,
         so it gets a full K-step decode pass in between), else a decode
-        pass."""
+        step."""
         proposals: dict[int, Any] = {}
         decoding = 0
         if self.config.speculative:
             for i, r in enumerate(self.active):
-                if r is None or r.pending_prefill:
+                if r is None or r.pending_prefill or r.cancelled:
                     continue
                 decoding += 1
                 if r.params.temperature == 0.0:
@@ -909,7 +1462,7 @@ class Engine:
             self._spec_pass(proposals)
         else:
             self._spec_toggle = True
-            self._decode_pass()
+            self._decode_step()
 
     def _draft_proposals(self, req: GenRequest):
         """Prompt-lookup drafting on the request's incremental n-gram
@@ -933,7 +1486,10 @@ class Engine:
             return []
         n = max(1, cfg.spec_ngram)
         idx = req.spec_index
-        if idx is None or idx.n != n:
+        if (idx is None or idx.n != n
+                or idx.prompt_len != len(req.prompt_tokens)):
+            # first drafting pass, or a preemption folded the generated
+            # tokens into the prompt: rebuild
             idx = NgramIndex(n)
             idx.extend(req.prompt_tokens)
             idx.prompt_len = len(req.prompt_tokens)
@@ -956,26 +1512,41 @@ class Engine:
     def _spec_pass(self, proposals: dict[int, DraftTree]) -> None:
         """One tree-verify pass over every decoding slot (``proposals``:
         slot -> its draft tree); a slot without a tree rides along as a
-        lone root node, which is exactly one decode step for it. Accepted tokens and the bonus token are
-        emitted host-side; the accepted path's K/V rows were compacted
-        on the device."""
+        lone root node, which is exactly one decode step for it. The
+        decode pipeline is drained first (verify feeds each row's last
+        token from the host), and each slot's table grows to cover its
+        tree, preempting the newest requests if the pool is dry.
+        Accepted tokens and the bonus token are emitted host-side; the
+        accepted path's K/V rows were compacted on the device."""
         cfg = self.config
-        for i, req in enumerate(self.active):
-            if req is not None and not req.pending_prefill \
-                    and self.lengths[i] >= cfg.max_seq:
-                self._retire(i)           # at the cache ceiling
-        rows = [i for i, r in enumerate(self.active)
-                if r is not None and not r.pending_prefill]
-        if not rows:
-            return
+        self._drain_pending()
+        self._dev_last_reqs = [None] * cfg.max_batch
+        self._sched_dirty = True
+        self._retire_unservable()
         trees: dict[int, DraftTree] = {
             i: tree for i, tree in proposals.items()
-            if self.active[i] is not None}
+            if self.active[i] is not None
+            and not self.active[i].pending_prefill}
         # pow-2 width buckets: the widest tree of the pass picks it
         widest = max((t.n_nodes for t in trees.values()), default=1)
         width = 2
         while width < widest:
             width *= 2
+        # headroom for every fed row: draft nodes write cache rows too,
+        # and an earlier row's headroom may preempt a later one
+        for i, req in enumerate(self.active):
+            if req is None or req.pending_prefill:
+                continue
+            tree = trees.get(i)
+            fed = min(int(self.lengths[i])
+                      + (tree.n_nodes if tree is not None else 1),
+                      cfg.max_seq)
+            if self.active[i] is req and not self._ensure_headroom(i, fed):
+                self._preempt(i)
+        rows = [i for i, r in enumerate(self.active)
+                if r is not None and not r.pending_prefill]
+        if not rows:
+            return
         n = len(rows)
         reqs = [self.active[i] for i in rows]
         tokens = np.zeros((n, width), np.int64)
@@ -993,18 +1564,16 @@ class Engine:
                 depths[j, :m] = tree.depths
                 masks[j, :m] = tree.masks
                 chunk_lens[j] = m
-        dev = self.device
         t0 = time.perf_counter()
         temps, top_ps, top_ks = self._row_params(reqs, n)
-        tables = torch.from_numpy(self._tables[rows]).to(dev)
-        offsets = torch.from_numpy(self.lengths[rows].copy()).to(dev)
-        lens_t = torch.from_numpy(chunk_lens).to(dev)
-        tokens_t = torch.from_numpy(tokens).to(dev)
-        parents_t = torch.from_numpy(parents).to(dev)
-        depths_t = torch.from_numpy(depths).to(dev)
+        tables = self._upload(self._tables[rows])
+        offsets = self._upload(self.lengths[rows].copy())
+        lens_t = self._upload(chunk_lens)
+        tokens_t = self._upload(tokens)
+        parents_t = self._upload(parents)
+        depths_t = self._upload(depths)
         # the 32-bit ancestor masks travel as int32 bit patterns
-        masks_t = torch.from_numpy(
-            masks.astype(np.uint32).view(np.int32)).to(dev)
+        masks_t = self._upload(masks.astype(np.uint32).view(np.int32))
         logits, self.k_cache, self.v_cache = self._verify_fn(
             self.params, tokens_t, self.k_cache, self.v_cache, tables,
             offsets, lens_t, tree_depths=depths_t, tree_masks=masks_t)
@@ -1017,9 +1586,6 @@ class Engine:
         out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
                         1).cpu().numpy()
         dur = time.perf_counter() - t0
-        # the verify emitted tokens the decode state has not seen
-        self._sched_dirty = True
-        self._dev_last_reqs = [None] * cfg.max_batch
         self.stats["spec_passes"] += 1
         self.stats["spec_s"] += dur
         self.stats["decode_s"] += dur

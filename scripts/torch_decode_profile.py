@@ -11,8 +11,12 @@ one (``quantize_pool`` of the same random pool); the same step as the
 engine dispatches it, T = 8 steps replayed as one CUDA graph
 (``serving/decode_graph.DecodeGraph``, greedy, lengths advancing on the
 card), at the same shapes (``case: "decode_graph"``, every number also
-given per step); and one group prefill (``llama_prefill_last``) per
-bucket width. For each it prints one JSON line with
+given per step), also pipelined as the engine runs it at depth 1 (each
+dispatch launched before the one before it is collected:
+``pipelined_wall_ms``) and with the host time of one ``launch`` call
+(``launch_host_ms``); and one group prefill (``llama_prefill_last``) per
+bucket width, with the host time until the call returns, unsynchronised
+(``host_ms``). For each it prints one JSON line with
 
 - ``wall_ms``: host clock around the call, synchronised (median of 20
   decode steps / 5 prefills after warm-up);
@@ -146,7 +150,7 @@ def graph_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
     replayed as one CUDA graph, all rows active, lengths advancing on the
     card (the pool has room for every dispatch of the run)."""
     b = len(lens_l)
-    dispatches = 3 + 20 + 10 + 1
+    dispatches = 3 + 20 + 10 + 1 + 3 * 20 + 1 + 12
     mp = -(-(max(lens_l) + steps * dispatches + 64) // pg)
     kp, vp = make_pool(cfg, b * mp, pg, dev)
     kp.normal_()
@@ -179,13 +183,37 @@ def graph_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
     end.record()
     end.synchronize()
     out["event_ms_per_dispatch"] = start.elapsed_time(end)
+
+    def pipelined(n: int = 20) -> float:
+        """ms per dispatch with one dispatch always in flight."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = graph.launch(kp, vp, True)
+        for _ in range(n - 1):
+            following = graph.launch(kp, vp, True)
+            graph.collect(handle)
+            handle = following
+        graph.collect(handle)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out["pipelined_wall_ms"] = statistics.median(pipelined()
+                                                 for _ in range(3))
+    launch = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = graph.launch(kp, vp, True)
+        launch.append((time.perf_counter() - t0) * 1e3)
+        graph.collect(handle)
+    out["launch_host_ms"] = statistics.median(launch[2:])
     out["per_step"] = {
         "wall_ms": wall / steps,
         "traced_wall_ms": prof["traced_wall_ms"] / steps,
         "device_busy_ms": prof["device_busy_ms"] / steps,
         "launches": prof["launches"] / steps,
         "api_calls": prof["api_calls"] / steps,
-        "idle_share": prof["idle_share"]}
+        "idle_share": prof["idle_share"],
+        "pipelined_wall_ms": out["pipelined_wall_ms"] / steps}
     return out
 
 
@@ -201,6 +229,14 @@ def prefill_case(params, cfg, dev, p: int, s: int) -> dict:
 
     out = {"case": "prefill", "group": p, "bucket": s,
            "wall_ms": _wall_ms(call, 2, 5)}
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["host_ms"] = statistics.median(host[1:])
     out.update(_profile(call, 3))
     return out
 
@@ -227,7 +263,7 @@ def main() -> int:
                 for case in (decode_case, graph_case):
                     results.append(case(params, cfg, dev, lens, kv_dtype))
                     print(json.dumps(results[-1]), flush=True)
-        for p, s in ((1, 32), (1, 1024), (4, 512)):
+        for p, s in ((1, 32), (1, 1024), (4, 512), (8, 512)):
             results.append(prefill_case(params, cfg, dev, p, s))
             print(json.dumps(results[-1]), flush=True)
     out = Path(args.out)

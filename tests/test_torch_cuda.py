@@ -54,7 +54,10 @@ from gofr_tpu_torch.ops.paged_attention import (
     paged_tree_attention, paged_tree_attention_plain)
 from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
 from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
-                                         pool_write, quantize_pool)
+                                         pool_write, quantize_pool,
+                                         scatter_chunk, scatter_chunk_kv,
+                                         scatter_chunk_kv_plain,
+                                         scatter_chunk_plain)
 from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
 from gofr_tpu_torch.serving.glue import llama_engine
 from gofr_tpu_torch.serving.spec import build_draft_tree
@@ -533,7 +536,48 @@ def test_kv_write_raises_on_what_the_kernel_does_not_take(dev):
         kv_write(pool.float(), pool.float(), 0, pids, pids, rows, rows)
 
 
-def _graph_engine(dev, form, m):
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_scatter_chunk_kernel_matches_plain(dev, form):
+    # a group prefill's slab [L, P, S, Hkv, hd]: row 0 full, row 1 ragged,
+    # row 2 a padded row (length 1, all-OOB table), row 3 a walk chunk at
+    # an offset whose table ends in OOB pages, so rows past its pages drop;
+    # K and V in one launch a layer (the engine's form), and K alone
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n_layers, hkv, d, n_pages, pg, mp = 3, 4, 64, 24, 16, 6
+    shape = (n_layers, hkv, n_pages, pg, d)
+    pool, v_pool = _randn(gen, dev, *shape), _randn(gen, dev, *shape)
+    if form == "int8":
+        pool, v_pool = quantize_pool(pool), quantize_pool(v_pool)
+    p, width = 4, 64
+    tables = torch.full((p, mp), n_pages, dtype=torch.int32)
+    tables[0, :4] = torch.tensor([3, 7, 1, 20])
+    tables[1, :3] = torch.tensor([0, 5, 9])
+    tables[3, :4] = torch.tensor([11, 2, 14, 17])      # 4 of 6 pages held
+    tables = tables.to(dev)
+    offsets = torch.tensor([0, 0, 0, 40], dtype=torch.int32, device=dev)
+    lens = torch.tensor([64, 37, 1, 64], dtype=torch.int32, device=dev)
+    slab = _randn(gen, dev, n_layers, p, width, hkv, d) * 2
+    v_slab = _randn(gen, dev, n_layers, p, width, hkv, d) * 2
+    args = (tables, slab, v_slab, offsets, lens)
+    want = scatter_chunk_kv_plain(_clone(pool), _clone(v_pool), *args)
+    before = kv_write.launches_int8 if form == "int8" else kv_write.launches
+    got = scatter_chunk_kv(_clone(pool), _clone(v_pool), *args)
+    torch.cuda.synchronize()
+    after = kv_write.launches_int8 if form == "int8" else kv_write.launches
+    assert after == before + n_layers                  # one launch a layer
+    for g, w in zip(got, want):
+        _assert_pools_equal(g, w)
+    one = scatter_chunk(_clone(pool), tables, slab, offsets, lens)
+    _assert_pools_equal(one, scatter_chunk_plain(_clone(pool), tables, slab,
+                                                 offsets, lens))
+    _assert_pools_equal(one, want[0])
+    # rows landed, and the padded row's and the OOB pages' rows did not
+    for g, before_pool in zip(got, (pool, v_pool)):
+        changed = (_leaves(g)[0] != _leaves(before_pool)[0]).any(-1).any(1)[0]
+        assert int(changed.sum()) == 64 + 37 + 24   # row 3: positions 40-63
+
+def _graph_engine(dev, form, m, **cfg_kw):
     """A 2-layer bf16 model (hd 64) behind an engine of 4 slots, K = 4
     and ``m`` passes a dispatch, on a pool of the given form."""
     cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
@@ -541,7 +585,18 @@ def _graph_engine(dev, form, m):
     params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     return llama_engine(params, cfg, EngineConfig(
         max_batch=4, max_seq=256, page_size=16, decode_steps_per_pass=4,
-        decode_passes_per_dispatch=m, kv_dtype=form, seed=0), device=dev)
+        decode_passes_per_dispatch=m, kv_dtype=form, seed=0, **cfg_kw),
+        device=dev)
+
+
+def _grow(eng, dispatches=1):
+    """Pages for the next ``dispatches`` dispatches of every slot, as the
+    engine's growth before each would allocate them, uploaded."""
+    for i, req in enumerate(eng.active):
+        if req is not None:
+            eng._alloc_pages(i, int(eng.lengths[i])
+                             + dispatches * eng._tokens_per_pass)
+    eng._sync_tables()
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8"])
@@ -555,7 +610,8 @@ def test_decode_graph_replay_equals_the_uncaptured_pass(dev, form, temps):
             for n, t in zip((5, 40, 17), temps)]           # one idle row
     eng._admit()
     assert all(r.error is None and not r.pending_prefill for r in reqs)
-    eng._decode_pass()                   # captures, then replays
+    eng._decode_step()                   # captures, then replays
+    _grow(eng)
     graph, greedy = eng._decode_graph, max(temps) == 0.0
     assert graph.captures == 1 and graph.replays == 1
     saved, pools = graph.save(), (_clone(eng.k_cache), _clone(eng.v_cache))
@@ -583,7 +639,61 @@ def test_decode_graph_replay_on_a_reassigned_pool_raises(dev):
     eng.submit([1, 2, 3], SamplingParams(temperature=0.0,
                                          max_new_tokens=50))
     eng._admit()
-    eng._decode_pass()
+    eng._decode_step()
     eng.k_cache = eng.k_cache.clone()
     with pytest.raises(RuntimeError, match="captured"):
-        eng._decode_pass()
+        eng._decode_step()
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_pipelined_ring_equals_sequential_runs(dev, form):
+    # depth 1: two dispatches in flight, collected in order, against the
+    # same two dispatches run one after the other from the same state
+    eng = _graph_engine(dev, form, 1, pipeline_depth=1)
+    rng = torch.Generator().manual_seed(4)
+    for n, t in zip((5, 40, 17), (0.0, 0.9, 0.0)):
+        eng.submit(torch.randint(0, 512, (n,), generator=rng).tolist(),
+                   SamplingParams(temperature=t, top_p=0.9, top_k=20,
+                                  max_new_tokens=200))
+    eng._admit()
+    eng._collect_prefills()
+    eng._decode_step()                   # captures; one dispatch in flight
+    eng._drain_pending()
+    _grow(eng, dispatches=2)
+    graph = eng._decode_graph
+    saved, pools = graph.save(), (_clone(eng.k_cache), _clone(eng.v_cache))
+    want = [graph.run(eng.k_cache, eng.v_cache, False) for _ in range(2)]
+    want_state = graph.save()
+    want_pools = (_clone(eng.k_cache), _clone(eng.v_cache))
+    graph.restore(saved)
+    for live, old in zip((eng.k_cache, eng.v_cache), pools):
+        for a, b in zip(_leaves(live), _leaves(old)):
+            a.copy_(b)
+    handles = [graph.launch(eng.k_cache, eng.v_cache, False)
+               for _ in range(2)]
+    got = [graph.collect(h) for h in handles]
+    for g, w in zip(got, want):
+        assert (g == w).all()
+    for name, value in want_state.items():
+        assert torch.equal(graph.save()[name], value), name
+    _assert_pools_equal(eng.k_cache, want_pools[0])
+    _assert_pools_equal(eng.v_cache, want_pools[1])
+
+
+def test_launch_into_an_uncollected_ring_buffer_raises(dev):
+    eng = _graph_engine(dev, "bf16", 1, pipeline_depth=1)
+    eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_new_tokens=50))
+    eng._admit()
+    eng._collect_prefills()
+    eng._sync_decode_state()
+    _grow(eng, dispatches=3)
+    graph = eng._decode_graph
+    first = graph.launch(eng.k_cache, eng.v_cache, True)
+    graph.launch(eng.k_cache, eng.v_cache, True)
+    replays = graph.replays
+    with pytest.raises(RuntimeError, match="uncollected"):
+        graph.launch(eng.k_cache, eng.v_cache, True)
+    assert graph.replays == replays       # refused before it replayed
+    tokens = graph.collect(first)
+    assert graph.launch(eng.k_cache, eng.v_cache, True) == first
+    assert tokens.shape == (4, 4)

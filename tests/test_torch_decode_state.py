@@ -83,7 +83,7 @@ def test_steady_state_decode_uploads_nothing(monkeypatch):
     eng = _engine(max_batch=4, max_seq=256, decode_steps_per_pass=4)
     reqs = _admit(eng, [[1 + i, 2, 3] for i in range(3)], temperature=0.0,
                   max_new_tokens=200)
-    eng._decode_pass()            # the admitted state goes up once
+    eng._decode_step()            # the admitted state goes up once
     assert eng.stats["sched_syncs"] == 1
     transfers, syncs = eng.stats["h2d_transfers"], eng.stats["sched_syncs"]
 
@@ -92,7 +92,7 @@ def test_steady_state_decode_uploads_nothing(monkeypatch):
 
     monkeypatch.setattr(DecodeGraph, "upload", refuse)
     for _ in range(3):
-        eng._decode_pass()
+        eng._decode_step()
     assert eng.stats["h2d_transfers"] == transfers
     assert eng.stats["sched_syncs"] == syncs
     assert all(len(r.generated) == 1 + 4 * 4 for r in reqs)
@@ -105,12 +105,12 @@ def test_admission_event_triggers_exactly_one_resync():
     eng = _engine(max_batch=4, max_seq=256, decode_steps_per_pass=4)
     _admit(eng, [[7, 8, 9]], temperature=0.0, max_new_tokens=200)
     for _ in range(3):
-        eng._decode_pass()
+        eng._decode_step()
     syncs = eng.stats["sched_syncs"]
     new = _admit(eng, [[4, 5, 6]], temperature=0.0, max_new_tokens=200)
-    eng._decode_pass()            # admission -> one resync
+    eng._decode_step()            # admission -> one resync
     assert eng.stats["sched_syncs"] == syncs + 1
-    eng._decode_pass()            # the fresh row feeds back on the device
+    eng._decode_step()            # the fresh row feeds back on the device
     assert eng.stats["sched_syncs"] == syncs + 1
     assert len(new[0].generated) == 1 + 2 * 4
 
@@ -195,14 +195,13 @@ def test_mid_walk_slot_pages_are_untouched_by_a_decode_dispatch(kv_dtype):
         rng.integers(0, 256, 60).tolist()
     greedy = dict(temperature=0.0, max_new_tokens=30)
     decoding, = _admit(eng, [short], **greedy)
-    walker, = _admit(eng, [long_], **greedy)
+    walker, = _admit(eng, [long_], **greedy)     # one 16-row chunk
     assert walker.pending_prefill and not decoding.pending_prefill
-    eng._walk_chunks()            # one 16-row chunk of the walk
-    assert walker.pending_prefill and walker.prefill_offset == 16
+    assert walker.prefill_offset == 16
     table = eng._tables[walker.slot].copy()
     before = [_slot_pages(p, table) for p in (eng.k_cache, eng.v_cache)]
     n0 = len(decoding.generated)
-    eng._decode_pass()
+    eng._decode_step()
     assert len(decoding.generated) == n0 + 8
     after = [_slot_pages(p, table) for p in (eng.k_cache, eng.v_cache)]
     for b_pool, a_pool in zip(before, after):
@@ -210,9 +209,9 @@ def test_mid_walk_slot_pages_are_untouched_by_a_decode_dispatch(kv_dtype):
             assert torch.equal(a, b)
     # the walk then finishes and the walker decodes to its budget
     while walker.pending_prefill:
-        eng._walk_chunks()
+        eng._admit()              # the walk resumes from the requeued lane
     while eng.active[walker.slot] is not None:
-        eng._decode_pass()
+        eng._decode_step()
     assert len(walker.generated) == 30
 
 

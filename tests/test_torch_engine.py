@@ -12,8 +12,9 @@ page-aligned prefixes with the first must also give equal
 ``prefix_hits``. With speculation (the JAX one with
 ``paged_attention="interpret"``, ``spec_adaptive=False``), a repetitive
 prompt must give identical tokens, ``request_digest`` and spec counters,
-and a second wave identical tokens. Page accounting, LRU eviction, the
-speculative path's page reservation, oracle drafts, mixed greedy and
+and a second wave identical tokens. On a 3-page pool both engines must
+preempt and recompute alike. Page accounting, LRU eviction, the
+speculative path's page growth, oracle drafts, mixed greedy and
 sampled batches and speculative-vs-plain tokens are checked on the port
 alone.
 """
@@ -176,17 +177,47 @@ def test_prefix_cache_evicts_least_recently_used_first():
     assert len(teng._free_pages) + len(pinned) == teng._n_pages
 
 
-def test_engine_waits_for_pages_when_the_pool_is_dry():
-    # 3 pages of 8 rows: each request needs 2, so the second waits for
-    # the first to retire instead of being preempted or failed
-    teng = build_engine(LlamaConfig.tiny(), device="cpu",
-                        engine_config=EngineConfig(max_batch=2, max_seq=64,
-                                                   page_size=8, kv_pages=3,
-                                                   seed=0))
-    reqs = _run(teng, [[1, 2, 3], [4, 5, 6]],
-                SamplingParams(temperature=0.0, max_new_tokens=9))
-    assert [len(r.generated) for r in reqs] == [9, 9]
-    assert reqs[1].first_token_at >= reqs[0].finished_at
+def _serve_queued(engine, prompts, params):
+    """Queue every prompt, then start: one admission batch, so that
+    page growth and preemption happen at the same points in both
+    engines."""
+    reqs = [engine.submit(p, params) for p in prompts]
+    engine.start()
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline and any(
+                r.finished_at is None and r.error is None for r in reqs):
+            time.sleep(0.005)
+    finally:
+        engine.stop()
+    assert all(r.error is None for r in reqs), [r.error for r in reqs]
+    return reqs
+
+
+def test_engine_preempts_like_the_jax_engine_when_the_pool_is_dry():
+    # 3 pages of 8 rows: both 3-token prompts are admitted with one page
+    # each, and the first 8-step dispatch needs two each, so the younger
+    # request is preempted and recomputed from prompt + generated, as in
+    # the JAX engine: same tokens, digests, preemptions and requeues
+    jparams, tparams = _converted_tiny()
+    common = dict(max_batch=2, max_seq=64, page_size=8, kv_pages=3, seed=0)
+    jeng = jax_llama_engine(
+        jparams, JaxLlamaConfig.tiny(),
+        JaxEngineConfig(kv_layout="paged", paged_attention="xla",
+                        compile_cache_dir=None, **common),
+        implementation="xla")
+    teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(**common),
+                        device="cpu")
+    prompts = [[1, 2, 3], [4, 5, 6]]
+    want = _serve_queued(jeng, prompts,
+                         JaxSamplingParams(temperature=0.0, max_new_tokens=9))
+    got = _serve_queued(teng, prompts,
+                        SamplingParams(temperature=0.0, max_new_tokens=9))
+    _assert_same_requests(got, want, 9)
+    for key in ("preemptions", "requeues"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["preemptions"] > 0
+    assert got[1].prompt_tokens[:3] == [4, 5, 6]   # recomputed with its tokens
     # an id outside the vocabulary fails at submit
     bad = teng.submit([300], SamplingParams(max_new_tokens=2))
     assert bad.error and bad.done.is_set()
@@ -349,9 +380,9 @@ def test_oracle_draft_is_accepted_with_fewer_passes():
 def test_verify_rows_land_in_pages_the_slot_owns():
     # 48-token prompts, 16 new tokens, 16-row pages: a life of exactly 4
     # pages, but a 2-branch depth-4 tree near the end writes rows past
-    # prompt + max_new_tokens; the reservation adds spec_draft *
-    # spec_branches rows (5 pages each), and the 10-page pool holds both
-    # requests at once with no page to spare
+    # prompt + max_new_tokens; each verify pass grows the slot's table
+    # over every fed tree row first (5 pages each at the end), and the
+    # 10-page pool holds both requests at once with no page to spare
     prompts = [PATTERN, [50, 60, 70] * 16]
     (vanilla, _), = [_plain_and_spec(prompts, 16)[0]]
     eng = build_engine(LlamaConfig.tiny(), device="cpu",

@@ -6,8 +6,9 @@ scales}`` with JAX's keys, so pools convert leaf by leaf through numpy.
 - ``quantize_rows`` gives JAX's codes and scales bit for bit (zero rows
   included), and ``quantize_pool`` / ``pool_shape`` / ``pool_row_bytes``
   agree with JAX's.
-- ``pool_write``, ``scatter_chunk`` and ``pool_move_rows`` on int8
-  pools give JAX's pools leaf for leaf, exactly, with out-of-range
+- ``pool_write``, ``scatter_chunk`` (and ``scatter_chunk_kv``, both
+  pools at once) and ``pool_move_rows`` on int8 pools give JAX's pools
+  leaf for leaf, exactly, with out-of-range
   writes dropped; ``make_pool(..., "int8")`` is ``quantize_pool`` of
   zeros, and an unknown ``kv_dtype`` raises.
 - The three paged attentions on quantized pools (CPU tensors: their
@@ -170,6 +171,29 @@ def test_scatter_chunk_matches_jax_and_drops_oob():
                             torch.from_numpy(slab), torch.from_numpy(offsets),
                             torch.from_numpy(lens))
     _assert_pool_equal(got, want)
+
+
+def test_scatter_chunk_kv_is_jax_scatter_chunk_on_each_pool():
+    # the engine's form: K and V slabs into their pools through one
+    # in-range selection; each pool equals JAX's scatter_chunk of its slab
+    jk, jv = _quant_pools(4), _quant_pools(7)
+    rng = np.random.default_rng(6)
+    tables = np.array([[2, 5], [0, 3], [6, 6]], np.int32)
+    offsets = np.array([3, 14, 0], np.int32)
+    lens = np.array([10, 4, 0], np.int32)
+    k_slab, v_slab = (rng.standard_normal((2, 3, 12, 2, 16)).astype(np.float32)
+                      for _ in range(2))
+    wants = [jkv.scatter_chunk(jp, jnp.asarray(tables), jnp.asarray(slab),
+                               jnp.asarray(offsets), jnp.asarray(lens))
+             for jp, slab in ((jk, k_slab), (jv, v_slab))]
+    got = tkv.scatter_chunk_kv(_to_torch(jk), _to_torch(jv),
+                               torch.from_numpy(tables),
+                               torch.from_numpy(k_slab),
+                               torch.from_numpy(v_slab),
+                               torch.from_numpy(offsets),
+                               torch.from_numpy(lens))
+    for g, w in zip(got, wants):
+        _assert_pool_equal(g, w)
 
 
 def test_pool_move_rows_moves_raw_codes_and_scales_like_jax():
