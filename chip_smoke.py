@@ -7,10 +7,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 
 1. env     — the card (``nvidia-smi`` name and power limit), torch/CUDA.
 2. build   — builds the CUDA kernels from ``gofr_tpu_torch/csrc/``
-             (four sources, one ``nvcc`` each, in parallel) into
+             (five sources, one ``nvcc`` each, in parallel) into
              ``build/``: flash prefill, paged decode, the paged chunk
              source, which holds both the chunk and the tree-verify
-             kernel, and the KV row write.
+             kernel, the KV row write and the weight-dequantizing GEMM.
 3. kernels — each of the four kernels (flash prefill, paged decode,
              paged chunk, paged tree verify) against its plain PyTorch
              version on the card, at the serving path's shapes, bf16,
@@ -47,7 +47,17 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              6 x 301 rows, 2 dummy rows on all-OOB tables), both forms,
              bit for bit against ``scatter_chunk_kv_plain`` with rows
              written one offset late as the planted fault: thirteen
-             rows.
+             rows. Then the weight-dequantizing GEMM (``wq_gemm``, int8
+             and int4 codes) at llama3_1b's products — wq, wk, w1, w2
+             in their ``[K, N]`` layout and the tied head ``[N, K]`` —
+             at M = 1, 8 and 128 against its plain version (the float32
+             head within float32 summation error; scales shifted one
+             channel, swapped int4 nibbles and the head rounded to bf16
+             as planted faults), beside cuBLAS bf16 on the weights dequantized
+             beforehand; the M = 8 rows join the kernels line. The
+             ``wq_gemm_route`` line: the kernel against the plain route
+             at w1's shape over M = 16..512, and which route each
+             product of the serving path takes.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions
@@ -71,6 +81,14 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              through the int8 kernels and through the plain versions;
              logits must agree (the int8-vs-bf16 pool difference is
              printed, not gated).
+   model_wq — llama3_1b with int8, then int4 weights: prefill, a
+             decode step and a chunk through the kernels against the
+             plain path (every quantized product dequantized), within
+             LOGITS_TOL; the decode step's 113 products all through
+             ``wq_gemm`` and none dequantized; scales shifted one channel
+             as the planted fault; the decode graph's replay bit for bit
+             against its uncaptured pass, 8 x 113 ``wq_gemm`` launches a
+             replay.
    decode_graph — the compiled decode dispatch at ``llama3_1b`` on
              ``serve_config``, K = 8, M = 1 and 2, bf16 and int8 pools, a
              greedy and a mixed batch: the graph's replay against the
@@ -99,6 +117,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the tree kernel's counter for the run's pool form, zeroed
              just before each speculative run, must rise, and drafts
              must be made.
+   serve_wq — the serve waves with int8, then int4 weights on the
+             bf16 pool, after ``engine.warmup()``: ``wq_gemm``'s counter
+             must rise; weight bytes; then one decode dispatch's device
+             ms with bf16, int8 and int4 weights.
 7. serve_preempt — the scheduling core: 8 greedy requests (6 x 301 +
              2 x 901 prompt tokens, 256 new each) queued before
              ``start()`` after ``engine.warmup``, on an ample and a dry
@@ -110,6 +132,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the counters rising; three planted faults must each fail a
              check. Also one 8 x 301 group prefill's host-blocked ms with
              the sync-free and the plain K/V write.
+8. checkpoint — the seed-0 llama3_1b weights written as a sharded HF
+             checkpoint with a ``tokenizer.json`` in a temporary
+             directory, the app booted from it (``MODEL_PATH``,
+             ``MODEL_QUANT=int8``), one greedy ``POST /chat``: its tokens
+             bit for bit the in-memory int8 engine's, its prompt counted
+             by the BPE tokenizer.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -146,6 +174,12 @@ PEAK_HBM_BYTES = 3.35e12
 RTOL = 2.0 ** -7
 P_ROUND = 2.0 ** -8
 ATOL = 1e-3
+# The float32-out rows (the LM head of wq_gemm): both sides sum the same
+# bf16 products in float32 and scale by the same float32 scale, so they
+# differ by summation order only (measured worst 5.3e-6 abs at |ref| <~ 5
+# on the H100); a head rounded to bf16 anywhere (<= 2^-9 relative) fails.
+RTOL_F32 = 2.0 ** -12
+ATOL_F32 = 1e-4
 LOGITS_TOL = 0.1    # see phase_model and phase_model_spec
 
 
@@ -173,15 +207,28 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, warmup: int = 3, iters: int = 25) -> float:
+def device_ms(fn, warmup: int = 3, iters: int = 25,
+              cold: bool = False) -> float:
     """Device time of one call of ``fn``: the summed durations of the
     kernels (and copies) it ran on the card, from ``torch.profiler`` over
     ``iters`` calls after warm-up — the median per call when every call
     ran the same number of them, else the mean. Host time is left out.
     A trace that holds no device event at all (the profiler drops one now
-    and then) is taken again, up to three times."""
+    and then) is taken again, up to three times. ``cold``: a 64 MiB
+    buffer is zeroed before each call, so the call finds the 50 MB L2
+    cache holding none of its inputs, as a decode step finds each
+    layer's weights; the zeroing kernel is left out of the sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(2 ** 24, dtype=torch.int32, device="cuda") \
+        if cold else None
+    skip: set = set()
+    if cold:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        skip = {e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -189,11 +236,14 @@ def device_ms(fn, warmup: int = 3, iters: int = 25) -> float:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if cold:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.name not in skip)
         if spans:
             break
     else:
@@ -207,12 +257,12 @@ def device_ms(fn, warmup: int = 3, iters: int = 25) -> float:
         for i in range(0, len(spans), k)) / 1e3
 
 
-def check(out, ref, extra=0.0) -> tuple[float, list]:
+def check(out, ref, extra=0.0, atol=ATOL, rtol=RTOL) -> tuple[float, list]:
     """Max abs err, and per leading index (batch row or slot) the worst
-    |out - ref| / (ATOL + RTOL |ref| + extra): above 1 fails."""
+    |out - ref| / (atol + rtol |ref| + extra): above 1 fails."""
     ref = ref.float()
     diff = (out.float() - ref).abs()
-    ratio = diff / (ATOL + RTOL * ref.abs() + extra)
+    ratio = diff / (atol + rtol * ref.abs() + extra)
     return diff.max().item(), ratio.flatten(1).amax(1).tolist()
 
 
@@ -1091,6 +1141,189 @@ def kernel_kv_write_prefill(dev, gen) -> list:
     return rows
 
 
+#: llama3_1b's quantized products at the kernel's tile: (name, K, N,
+#: trans); the tied head reads the [V, D] embedding codes as x @ E^T
+WQ_PRODUCTS = (("wq", 2048, 2048, False), ("wk", 2048, 512, False),
+               ("w1", 2048, 8192, False), ("w2", 8192, 2048, False),
+               ("head", 2048, 128256, True))
+#: rows of a product: one request, the decode step (max_batch) and the
+#: tree verify (8 rows x the 16-node width bucket)
+WQ_ROWS = (1, 8, 128)
+
+
+def _wq_weight(dev, gen, k, n, trans, form):
+    """A random llama3_1b-like matrix quantized on the card: [K, N]
+    N(0, 1/K) reduced over K, or the [N, K] embedding N(0, 0.02^2)
+    reduced over K (per-row scales), as ``quantize_llama_*`` lays them
+    out."""
+    import torch
+    from gofr_tpu_torch.ops.quant import quantize_int4, quantize_int8
+    qfn = quantize_int8 if form == "int8" else quantize_int4
+    if trans:
+        w = (torch.randn(n, k, generator=gen, device=dev) * 0.02).bfloat16()
+        return qfn(w, axis=1)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).bfloat16()
+    return qfn(w, axis=0)
+
+
+def _wq_fault(w, form):
+    """Planted faults: the scales shifted by one channel; for int4 also
+    every byte's two nibbles swapped (codes read in the wrong order)."""
+    import torch
+    out = {"scales_shifted_one_channel": {
+        "q": w["q"], "s": torch.roll(w["s"].reshape(-1), 1).reshape(
+            w["s"].shape).contiguous()}}
+    if form == "int4":
+        q = w["q"]
+        out["int4_nibbles_swapped"] = {"q": ((q >> 4) | (q << 4)),
+                                       "s": w["s"]}
+    return out
+
+
+def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
+    """The weight-dequantizing GEMM (``ops/quant.wq_gemm``, both C
+    entries) at llama3_1b's shapes: wq 2048->2048, wk 2048->512, w1
+    2048->8192, w2 8192->2048 ([K, N] codes, bf16 out) and the tied head
+    2048->128256 ([N, K] codes, float32 out), each at M = 1, 8 and 128
+    rows, int8 and int4 codes, x ~ N(0, 1) bf16. Each against its plain
+    version (``wq_gemm_plain``: the codes dequantized into a scratch,
+    one product, the scale) on the same inputs: the bf16 outputs within
+    ATOL + 2 RTOL |ref| (they are rounded twice on each side, the
+    product, then the product times the scale, and a one-ulp difference
+    of the first rounding can become two ulps of the second), the
+    float32 head within ATOL_F32 + RTOL_F32 |ref|. Planted faults: the
+    scales shifted by one channel, for int4 every byte's nibbles
+    swapped, and for the head its output rounded to bf16; each must fail
+    the same check. Times: ``ms`` (CUDA events, the wrapper included),
+    ``device_ms`` (profiler, L2 cold: the weights come from HBM, as each
+    layer's do in a decode step), the plain version's ms, the library
+    yardstick — cuBLAS bf16 (``torch.matmul``, float32 out for the
+    head) on the weights dequantized beforehand, untimed — and, for
+    int8, ``torch._weight_int8pack_mm`` where the card's torch runs it.
+    Bound: the codes, scales, x and y over the HBM rate (and the
+    products over the bf16 peak). Then M_MAX: the kernel and the
+    plain route at w1's shape over M = 16..512, and the route each
+    product of the serving path takes. Returns the M = 8 rows (the
+    decode step), for the kernels line."""
+    import torch
+    from gofr_tpu_torch.ops.quant import (M_MAX, codes_of, route_of,
+                                          wq_gemm, wq_gemm_plain,
+                                          wq_splits)
+    rows = []
+    for form in ("int8", "int4"):
+        for name, k, n, trans in WQ_PRODUCTS:
+            w = _wq_weight(dev, gen, k, n, trans, form)
+            f32 = torch.float32 if trans else None
+            codes = codes_of(w).to(torch.bfloat16)
+            deq = codes * w["s"].to(torch.bfloat16)     # the yardstick's
+            deq = deq.t() if trans else deq
+            faults = _wq_fault(w, form)
+            for m in WQ_ROWS:
+                x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+                out = wq_gemm(x, w, trans=trans, out_dtype=f32)
+                ref = wq_gemm_plain(x, w, trans=trans, out_dtype=f32)
+                torch.cuda.synchronize()
+                tol = ({"atol": ATOL_F32, "rtol": RTOL_F32} if trans else
+                       {"extra": RTOL * ref.float().abs()})
+                err, ratios = check(out, ref, **tol)
+                fault_ratio = {}
+                for fname, bad in faults.items():
+                    fout = wq_gemm(x, bad, trans=trans, out_dtype=f32)
+                    fault_ratio[fname] = max(check(fout, ref, **tol)[1])
+                if trans:
+                    fault_ratio["head_rounded_to_bf16"] = max(check(
+                        out.bfloat16(), ref, **tol)[1])
+                tag = f"wq_gemm_{form}_{name}_m{m}"
+                emit({"phase": "kernel_check", "name": tag,
+                      "max_abs_err": err, "max_ratio": max(ratios),
+                      "atol": ATOL_F32 if trans else ATOL,
+                      "rtol": RTOL_F32 if trans else 2 * RTOL,
+                      "planted_fault_max_ratio": fault_ratio})
+                if max(ratios) > 1.0:
+                    raise AssertionError(f"{tag}: kernel vs plain ratio "
+                                         f"{max(ratios)} > 1 (max abs {err})")
+                passed = [f for f, r in fault_ratio.items() if r <= 1.0]
+                if passed:
+                    raise AssertionError(f"{tag} check passed a planted "
+                                         f"fault: {passed}")
+                ms = time_ms(lambda: wq_gemm(x, w, trans=trans,
+                                             out_dtype=f32))
+                dev_ms = device_ms(lambda: wq_gemm(x, w, trans=trans,
+                                                   out_dtype=f32), cold=True)
+                plain_ms = time_ms(lambda: wq_gemm_plain(
+                    x, w, trans=trans, out_dtype=f32), iters=10)
+                if trans:
+                    def lib():
+                        return torch.mm(x, deq, out_dtype=torch.float32)
+                else:
+                    def lib():
+                        return torch.matmul(x, deq)
+                lib_ms = time_ms(lib)
+                lib_dev_ms = device_ms(lib, cold=True)
+                pack_ms = pack_note = None
+                if form == "int8":
+                    try:
+                        wt = w["q"] if trans else w["q"].t().contiguous()
+                        sc = w["s"].reshape(-1).to(torch.bfloat16)
+                        torch._weight_int8pack_mm(x, wt, sc)
+                        torch.cuda.synchronize()
+                        pack_ms = time_ms(
+                            lambda: torch._weight_int8pack_mm(x, wt, sc))
+                    except (RuntimeError, NotImplementedError) as exc:
+                        pack_note = str(exc).splitlines()[0][:160]
+                nbytes = (w["q"].numel() + 4 * n + 2 * m * k
+                          + m * n * (4 if trans else 2))
+                bound_ms, bound_by = bound(2.0 * m * n * k, nbytes)
+                row = {"name": f"wq_gemm_{form}_{name}" if m == 8 else tag,
+                       "wrapper": "wq_gemm" + ("_int4" if form == "int4"
+                                               else ""),
+                       "route": "cuda",
+                       "source": "gofr_tpu_torch/csrc/wq_gemm.cu",
+                       "replaces": "gofr_tpu/ops/quant.py:86",
+                       "replaces_note": "qmatmul / qmatmul_t: XLA's matmul "
+                                        "with the upcast fused into its "
+                                        "operand read, not a pallas_call",
+                       "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms,
+                       "library_device_ms": lib_dev_ms,
+                       "library_note": "cuBLAS bf16 on the weights "
+                                       "dequantized beforehand, untimed",
+                       "int8pack_ms": pack_ms}
+                emit({"phase": "kernel", "card": smi_line,
+                      "shape": f"{name} K={k} N={n} M={m} {form} "
+                               f"{'[N, K]' if trans else '[K, N]'} codes, "
+                               f"S={wq_splits(m, n, k, trans=trans, int4=form == 'int4')}",
+                      "int8pack_note": pack_note, **row})
+                if m == 8:
+                    rows.append(row)
+            del w, codes, deq, faults
+            torch.cuda.empty_cache()
+    # M_MAX: the kernel against the plain route at w1's shape
+    sweep = []
+    for form in ("int8", "int4"):
+        w = _wq_weight(dev, gen, 2048, 8192, False, form)
+        for m in (16, 32, 64, 128, 256, 512):
+            x = torch.randn(m, 2048, generator=gen, device=dev).bfloat16()
+            sweep.append({
+                "form": form, "m": m,
+                "kernel_device_ms": device_ms(lambda: wq_gemm(x, w),
+                                              cold=True),
+                "plain_device_ms": device_ms(lambda: wq_gemm_plain(x, w),
+                                             cold=True)})
+        del w
+    routes = {f"{what} M={m}": {p[0]: route_of(m, head=p[3])
+                                for p in WQ_PRODUCTS}
+              for what, m in (("decode step", 8), ("tree verify", 128),
+                              ("group prefill 4 x 512", 2048),
+                              ("chunk walk 1 x 1024", 1024))}
+    routes["group prefill's head, M = P"] = route_of(8, head=True)
+    emit({"phase": "wq_gemm_route", "card": smi_line, "m_max": M_MAX,
+          "w1_sweep": sweep, "routes": routes})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model(dev) -> None:
     """llama3_1b prefill + 3 paged decode steps, kernels vs plain, and
     once more with a planted fault.
@@ -1553,6 +1786,429 @@ def phase_model_int8(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_model_wq(dev, smi_line: str) -> None:
+    """llama3_1b with int8 and then int4 weights (``quantize_llama_*`` of
+    the seed-0 bf16 weights), at full width, kernels vs plain.
+
+    Two prompts (256 and 100 tokens) through ``llama_prefill_last``, one
+    ``llama_decode_step_paged`` and one 64-token chunk after that
+    history (``llama_prefill_chunk_paged``), once with
+    ``implementation="auto"`` (the attention kernels, and the quantized
+    products through ``wq_gemm`` wherever the M rule sends them: every
+    decode product, the chunk's 128-row products and every head) and
+    once with ``"plain"`` (every quantized product dequantized into a
+    scratch, then ``torch.matmul``), each on its own bf16 pool; both
+    decode the kernel path's greedy token. Logits must agree within
+    LOGITS_TOL: the two paths read the same codes and scales and differ
+    in the order of float32 sums and in the attention kernels' rounding.
+    The decode step must launch ``wq_gemm`` 7 x 16 + 1 times (every
+    backbone product and the head) and run the plain version none; the
+    planted fault (``wq_gemm`` handed scales shifted by one channel) must
+    move the decode logits by more than LOGITS_TOL. Then the decode graph
+    (``serve_config``, K = 8) with the quantized weights: replay vs the
+    uncaptured pass bit for bit, the stale-tables fault must not agree,
+    and the graph's launches per replay hold 8 x 113 ``wq_gemm``."""
+    from unittest import mock
+
+    import torch
+    from gofr_tpu_torch.models.llama import (LlamaConfig,
+                                             llama_decode_step_paged,
+                                             llama_init,
+                                             llama_prefill_chunk_paged,
+                                             llama_prefill_last, make_pool)
+    from gofr_tpu_torch.ops import quant as quant_module
+    from gofr_tpu_torch.ops.paged_kv import (scatter_chunk_kv,
+                                             scatter_chunk_kv_plain)
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    p, s, pg, c = 2, 256, 64, 64
+    tokens = torch.randint(0, cfg.vocab_size, (p, s), generator=gen,
+                           device=dev)
+    chunk_tokens = torch.randint(0, cfg.vocab_size, (p, c), generator=gen,
+                                 device=dev)
+    lens = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+    mp = -(-(s + 1 + c) // pg)
+    tables = torch.arange(p * mp, dtype=torch.int32,
+                          device=dev).reshape(p, mp)
+    wq_gemm, plain_fn = quant_module.wq_gemm, quant_module.wq_gemm_plain
+    per_step = 7 * cfg.n_layers + 1
+    t0 = time.perf_counter()
+    for form in ("int8", "int4"):
+        counter = "launches_int4" if form == "int4" else "launches"
+        qparams = getattr(quant_module, f"quantize_llama_{form}")(params)
+        plain_calls = []
+
+        def counted_plain(*a, **kw):
+            plain_calls.append(1)
+            return plain_fn(*a, **kw)
+
+        def shifted(x, w, **kw):
+            bad = {"q": w["q"], "s": torch.roll(w["s"].reshape(-1), 1)
+                   .reshape(w["s"].shape).contiguous()}
+            return wq_gemm(x, bad, **kw)
+
+        # the wrapper counts on the module's ``wq_gemm``: the stand-in
+        # carries the counters while it is patched in
+        shifted.launches = shifted.launches_int4 = 0
+
+        results: dict = {}
+        step_token = None
+        decode_launches = decode_plain = None
+        for run in ("auto", "plain", "fault"):
+            impl = "plain" if run == "plain" else "auto"
+            logits, (k, v) = llama_prefill_last(qparams, tokens, cfg,
+                                                kv_lengths=lens,
+                                                implementation=impl)
+            kp, vp = make_pool(cfg, p * mp, pg, dev)
+            (scatter_chunk_kv_plain if impl == "plain" else scatter_chunk_kv)(
+                kp, vp, tables, k, v, torch.zeros_like(lens), lens)
+            if step_token is None:
+                step_token = logits.argmax(-1)
+            setattr(wq_gemm, counter, 0)
+            plain_calls.clear()
+            with mock.patch.object(quant_module, "wq_gemm_plain",
+                                   counted_plain), \
+                    mock.patch.object(quant_module, "wq_gemm",
+                                      shifted if run == "fault"
+                                      else wq_gemm):
+                step, kp, vp = llama_decode_step_paged(
+                    qparams, step_token, kp, vp, tables, lens, cfg,
+                    implementation=impl)
+                if run == "auto":
+                    torch.cuda.synchronize()
+                    decode_launches = getattr(wq_gemm, counter)
+                    decode_plain = len(plain_calls)
+                chunk, kp, vp = llama_prefill_chunk_paged(
+                    qparams, chunk_tokens, kp, vp, tables, lens + 1,
+                    torch.full_like(lens, c), cfg, implementation=impl)
+            results[run] = [logits, step, chunk]
+        torch.cuda.synchronize()
+
+        def diffs(run):
+            return [(a - b).abs().max().item()
+                    for a, b in zip(results[run], results["plain"])]
+
+        errs, fault = diffs("auto"), diffs("fault")
+        finite = all(torch.isfinite(t).all().item()
+                     for ts in results.values() for t in ts)
+        engine = llama_engine(params, cfg, serve_config(cfg), device=dev,
+                              quantize=form)
+        rng = torch.Generator().manual_seed(0)
+        reqs = [engine.submit(torch.randint(0, cfg.vocab_size, (n,),
+                                            generator=rng).tolist(),
+                              SamplingParams(temperature=0.0,
+                                             max_new_tokens=512))
+                for n in (21, 151, 401, 901)]
+        engine._admit()
+        if any(r.error or r.pending_prefill for r in reqs):
+            raise AssertionError(f"model_wq: admission failed "
+                                 f"{[r.error for r in reqs]}")
+        case = _graph_case(engine, "greedy")
+        replay_wq = case["launches_per_replay"].get(f"wq_gemm.{counter}", 0)
+        emit({"phase": "model_wq", "card": smi_line, "form": form,
+              "config": "llama3_1b random seed 0, weights quantized on the "
+                        "card", "prefill": "P=2 S=256 kv_lengths 256/100",
+              "decode_steps": 1, "chunk": f"P=2 x {c} after the history",
+              "max_abs_logits_diff_prefill_decode_chunk": errs,
+              "tolerance": LOGITS_TOL, "finite": finite,
+              "decode_step_wq_gemm_launches": decode_launches,
+              "decode_step_plain_products": decode_plain,
+              "planted_fault": "scales_shifted_one_channel",
+              "planted_fault_diff_prefill_decode_chunk": fault,
+              "weight_bytes": quant_module.quantized_bytes(qparams),
+              "graph": case, "graph_wq_gemm_per_replay": replay_wq,
+              "seconds": time.perf_counter() - t0})
+        if not finite or max(errs) > LOGITS_TOL:
+            raise AssertionError(f"model_wq {form}: logits diff {errs} "
+                                 f"(tolerance {LOGITS_TOL}), finite={finite}")
+        if decode_launches != per_step or decode_plain:
+            raise AssertionError(f"model_wq {form}: the decode step ran "
+                                 f"{decode_launches} wq_gemm launches (want "
+                                 f"{per_step}) and {decode_plain} plain "
+                                 f"products (want 0)")
+        if fault[1] <= LOGITS_TOL:
+            raise AssertionError(f"model_wq {form} passed a planted fault: "
+                                 f"decode diff {fault[1]}")
+        if not case["bit_equal"] or case["planted_fault_stale_tables_bit_equal"]:
+            raise AssertionError(f"model_wq {form}: graph replay vs "
+                                 f"uncaptured: {case}")
+        steps = engine._tokens_per_pass
+        if replay_wq != steps * per_step:
+            raise AssertionError(f"model_wq {form}: {replay_wq} wq_gemm "
+                                 f"launches a replay, want {steps} x "
+                                 f"{per_step}")
+        del engine, qparams, results
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+def _dispatch_device_ms(engine, prompts) -> dict:
+    """Device ms of one decode dispatch (a graph replay of T steps over
+    every slot) of ``engine`` with ``prompts`` admitted greedily, and
+    the host ms of the same replay with its readout (CUDA events)."""
+    import torch
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    reqs = [engine.submit(pr, SamplingParams(temperature=0.0,
+                                             max_new_tokens=1024))
+            for pr in prompts]
+    engine._admit()
+    if any(r.error or r.pending_prefill for r in reqs):
+        raise AssertionError(f"dispatch: admission failed "
+                             f"{[r.error for r in reqs]}")
+    engine._decode_step()                # captures
+    for i, req in enumerate(engine.active):
+        if req is not None:              # rows for the timed dispatches
+            engine._alloc_pages(i, int(engine.lengths[i])
+                                + 40 * engine._tokens_per_pass)
+    engine._sync_tables()
+    graph = engine._decode_graph
+
+    def replay():
+        graph.run(engine.k_cache, engine.v_cache, True)
+
+    out = {"steps_per_dispatch": engine._tokens_per_pass,
+           "device_ms": device_ms(replay, warmup=2, iters=10),
+           "ms": time_ms(replay, warmup=1, iters=10)}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_serve_wq(dev, smi_line: str) -> dict:
+    """The ``serve`` cell's three waves with weight-only quantized
+    weights on the bf16 pool: ``phase_serve(quantize="int8")``, then
+    ``"int4"``, each after ``engine.warmup()``. Then one decode
+    dispatch's device ms at the serve engine's shape (4 greedy slots of
+    21 / 151 / 401 / 901 random prompt tokens, K = 8) for bf16, int8 and
+    int4 weights, in one process, and the weight bytes of each. Returns
+    the two runs' ``wq_gemm`` launch counts."""
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.ops.quant import (quantize_llama_int4,
+                                          quantize_llama_int8,
+                                          quantized_bytes)
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.glue import llama_engine
+    # only the wq_gemm counts: the attention and kv_write rows keep those
+    # of the bf16 serve run, zeroed just before it
+    launches = {}
+    for form in ("int8", "int4"):
+        own = phase_serve(dev, smi_line, quantize=form)["launches"]
+        launches.update({k: v for k, v in own.items()
+                         if k.startswith("wq_gemm")})
+    cfg = LlamaConfig.llama3_1b()
+    params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+               .tolist() for n in (21, 151, 401, 901)]
+    dispatch = {}
+    for form in ("bf16", "int8", "int4"):
+        tree = {"bf16": params, "int8": quantize_llama_int8(params),
+                "int4": quantize_llama_int4(params)}[form]
+        engine = llama_engine(tree, cfg, serve_config(cfg), device=dev)
+        dispatch[form] = {**_dispatch_device_ms(engine, prompts),
+                          "weight_bytes": quantized_bytes(tree)}
+        del engine, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_wq_dispatch", "card": smi_line,
+          "config": "llama3_1b random seed 0, app.serve_config, 4 greedy "
+                    "slots 21/151/401/901", "dispatch": dispatch})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: a byte-level BPE tokenizer.json for the checkpoint phase: the 256
+#: bytes, a few English merges, the Llama-3 specials
+_MERGES = ("Ġ t", "h e", "Ġt he", "Ġ a", "i n", "e r", "o n", "Ġ s", "r e",
+           "a t", "e n", "Ġ c", "o r", "Ġ w", "Ġ p", "a n", "Ġ b", "Ġ f")
+
+
+def _write_tokenizer(path) -> None:
+    from gofr_tpu_torch.serving.tokenizer import _byte_level_table
+    chars = {b: ch for ch, b in _byte_level_table().items()}
+    vocab = {chars[b]: b for b in range(256)}
+    for m, pair in enumerate(_MERGES):
+        vocab[pair.replace(" ", "")] = 256 + m
+    added = [{"id": 128000, "content": "<|begin_of_text|>"},
+             {"id": 128001, "content": "<|end_of_text|>"}]
+    Path(path).write_text(json.dumps({
+        "model": {"type": "BPE", "vocab": vocab, "merges": list(_MERGES)},
+        "added_tokens": added}))
+
+
+def phase_checkpoint(dev, smi_line: str) -> None:
+    """Real-checkpoint serving end to end: the seed-0 llama3_1b bf16
+    weights written as an HF checkpoint (``save_llama_checkpoint``, two
+    shards and their index) with a ``tokenizer.json`` this script writes,
+    in a temporary directory; the app's engine booted from it as
+    ``python -m gofr_tpu_torch.serving.app`` boots it (``app_engine``
+    with ``MODEL_PATH``, ``MODEL_QUANT=int8``, ``MODEL_MAX_SEQ=2048``:
+    quantize on load) behind the HTTP server, and one greedy ``POST
+    /chat``. Its tokens must equal, bit for bit, those of the in-memory
+    engine (``llama_engine(..., quantize="int8")`` on the same weights
+    and the same engine config) on the same prompt ids, and
+    ``usage.prompt_tokens`` must be the BPE count (fewer than the byte
+    tokenizer's)."""
+    import tempfile
+
+    import torch
+    from gofr_tpu_torch.models.hf_checkpoint import save_llama_checkpoint
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serving.app import (app_engine, build_server,
+                                            serve_config)
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    cfg = LlamaConfig.llama3_1b()
+    params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompt = ("the quick brown fox jumps over the lazy dog; a paged cache "
+              "keeps every token in place while the server answers")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_llama_checkpoint(params, cfg, tmp, shards=2)
+        _write_tokenizer(Path(tmp) / "tokenizer.json")
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        write_s = time.perf_counter() - t0
+        engine, tokenizer, _ = app_engine(
+            {"MODEL_PATH": tmp, "MODEL_QUANT": "int8",
+             "MODEL_MAX_SEQ": "2048"}, device=dev)
+        load_s = time.perf_counter() - t0 - write_s
+    server = build_server(engine, tokenizer, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    engine.start()
+    thread.start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}"
+                             f"/chat", {"prompt": prompt, "max_tokens": 32,
+                                        "temperature": 0})
+        config = engine.config
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = tokenizer.encode(prompt)
+    twin = llama_engine(params, cfg, serve_config(
+        cfg, max_seq=2048, eos_id=tokenizer.eos_id), device=dev,
+        quantize="int8")
+    twin.start()
+    try:
+        req = twin.submit_sync(ids, SamplingParams(temperature=0.0,
+                                                   max_new_tokens=32), 600)
+    finally:
+        twin.stop()
+    got = body["data"]["tokens"] if status == 200 else None
+    usage = body["data"]["usage"] if status == 200 else {}
+    emit({"phase": "checkpoint", "card": smi_line,
+          "config": "llama3_1b bf16 random seed 0 as an HF checkpoint, two "
+                    "shards, MODEL_QUANT=int8 MODEL_MAX_SEQ=2048",
+          "files": files, "write_s": write_s, "load_s": load_s,
+          "status": status, "engine_max_seq": config.max_seq,
+          "eos_id": config.eos_id, "prompt_bytes": len(prompt.encode()),
+          "prompt_tokens": usage.get("prompt_tokens"),
+          "tokens": got, "in_memory_tokens": list(req.generated),
+          "bit_equal": got == list(req.generated)})
+    if status != 200 or req.error:
+        raise AssertionError(f"checkpoint: status {status}, in-memory "
+                             f"error {req.error}")
+    if got != list(req.generated):
+        raise AssertionError("checkpoint: the app's tokens differ from the "
+                             "in-memory int8 engine's")
+    if usage["prompt_tokens"] != len(ids) or \
+            usage["prompt_tokens"] >= len(prompt.encode()):
+        raise AssertionError(f"checkpoint: prompt_tokens "
+                             f"{usage['prompt_tokens']}: the BPE tokenizer "
+                             f"is not live")
+    del twin, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pools_of(engine) -> list:
+    out = []
+    for pool in (engine.k_cache, engine.v_cache):
+        out += [pool["q"], pool["s"]] if isinstance(pool, dict) \
+            else [pool]
+    return out
+
+
+def _graph_case(engine, batch: str) -> dict:
+    """One decode dispatch of ``engine`` (its requests admitted) replayed
+    and, on the same state and cloned pools, run uncaptured: whether the
+    two agree bit for bit, whether a replay fed stale tables (the planted
+    fault) does, ms per dispatch of each, launches per replay."""
+    import torch
+    from gofr_tpu_torch.serving.decode_graph import _counts
+    graph = engine._decode_graph
+    greedy = batch == "greedy"
+    engine._decode_step()            # a real dispatch (captures once)
+    # pages for the dispatch under test, as the next dispatch's
+    # growth would allocate them
+    for i, req in enumerate(engine.active):
+        if req is not None:
+            engine._alloc_pages(i, int(engine.lengths[i])
+                                + engine._tokens_per_pass)
+    engine._sync_tables()
+    saved = graph.save()
+    pools = [t.clone() for t in _pools_of(engine)]
+
+    def rewind():
+        graph.restore(saved)
+        for live, old in zip(_pools_of(engine), pools):
+            live.copy_(old)
+
+    graph.body(engine.k_cache, engine.v_cache, greedy)
+    want = graph.save()
+    want_pools = [t.clone() for t in _pools_of(engine)]
+    rewind()
+    before = _counts()
+    graph.run(engine.k_cache, engine.v_cache, greedy)
+    launched = {f"{fn.__name__}.{attr}": n - before[(fn, attr)]
+                for (fn, attr), n in _counts().items()
+                if n != before[(fn, attr)]}
+    got = graph.save()
+
+    def agrees(state, pool_leaves):
+        return (all(torch.equal(state[k], want[k]) for k in want
+                    if k != "generator")
+                and all(torch.equal(a, b) for a, b in
+                        zip(pool_leaves, want_pools)))
+
+    equal = agrees(got, _pools_of(engine))
+    rewind()                         # the planted fault: stale tables
+    graph.tables.copy_(saved["tables"][[1, 0, *range(2, len(
+        saved["tables"]))]])
+    graph.run(engine.k_cache, engine.v_cache, greedy)
+    fault_equal = agrees(graph.save(), _pools_of(engine))
+    rewind()
+    replay_ms = time_ms(lambda: graph.run(engine.k_cache,
+                                          engine.v_cache, greedy),
+                        warmup=2, iters=10)
+    rewind()
+    eager_ms = time_ms(lambda: graph.body(engine.k_cache,
+                                          engine.v_cache, greedy),
+                       warmup=1, iters=5)
+    rewind()
+    return {"batch": batch, "bit_equal": equal,
+            "planted_fault_stale_tables_bit_equal": fault_equal,
+            "replay_ms_per_dispatch": replay_ms,
+            "uncaptured_ms_per_dispatch": eager_ms,
+            "launches_per_replay": launched,
+            "graph_captures": graph.captures,
+            "graph_capture_s": graph.capture_s}
+
+
 def phase_decode_graph(dev, smi_line: str) -> None:
     """The compiled decode dispatch at ``llama3_1b`` on ``serve_config``
     (8 slots, 64-row pages, 256 bf16 / 481 int8 pages), K = 8, M = 1 and
@@ -1572,7 +2228,6 @@ def phase_decode_graph(dev, smi_line: str) -> None:
     import torch
     from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
     from gofr_tpu_torch.serving.app import serve_config
-    from gofr_tpu_torch.serving.decode_graph import _counts
     from gofr_tpu_torch.serving.engine import SamplingParams
     from gofr_tpu_torch.serving.glue import llama_engine
     cfg = LlamaConfig.llama3_1b()
@@ -1584,72 +2239,6 @@ def phase_decode_graph(dev, smi_line: str) -> None:
                       .tolist() for n in (21, 151, 401, 901)]
     sampled_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
                        .tolist() for n in (64, 300)]
-
-    def pools_of(engine):
-        out = []
-        for pool in (engine.k_cache, engine.v_cache):
-            out += [pool["q"], pool["s"]] if isinstance(pool, dict) \
-                else [pool]
-        return out
-
-    def check(engine, batch):
-        graph = engine._decode_graph
-        greedy = batch == "greedy"
-        engine._decode_step()            # a real dispatch (captures once)
-        # pages for the dispatch under test, as the next dispatch's
-        # growth would allocate them
-        for i, req in enumerate(engine.active):
-            if req is not None:
-                engine._alloc_pages(i, int(engine.lengths[i])
-                                    + engine._tokens_per_pass)
-        engine._sync_tables()
-        saved = graph.save()
-        pools = [t.clone() for t in pools_of(engine)]
-
-        def rewind():
-            graph.restore(saved)
-            for live, old in zip(pools_of(engine), pools):
-                live.copy_(old)
-
-        graph.body(engine.k_cache, engine.v_cache, greedy)
-        want = graph.save()
-        want_pools = [t.clone() for t in pools_of(engine)]
-        rewind()
-        before = _counts()
-        graph.run(engine.k_cache, engine.v_cache, greedy)
-        launched = {f"{fn.__name__}.{attr}": n - before[(fn, attr)]
-                    for (fn, attr), n in _counts().items()
-                    if n != before[(fn, attr)]}
-        got = graph.save()
-
-        def agrees(state, pool_leaves):
-            return (all(torch.equal(state[k], want[k]) for k in want
-                        if k != "generator")
-                    and all(torch.equal(a, b) for a, b in
-                            zip(pool_leaves, want_pools)))
-
-        equal = agrees(got, pools_of(engine))
-        rewind()                         # the planted fault: stale tables
-        graph.tables.copy_(saved["tables"][[1, 0, *range(2, len(
-            saved["tables"]))]])
-        graph.run(engine.k_cache, engine.v_cache, greedy)
-        fault_equal = agrees(graph.save(), pools_of(engine))
-        rewind()
-        replay_ms = time_ms(lambda: graph.run(engine.k_cache,
-                                              engine.v_cache, greedy),
-                            warmup=2, iters=10)
-        rewind()
-        eager_ms = time_ms(lambda: graph.body(engine.k_cache,
-                                              engine.v_cache, greedy),
-                           warmup=1, iters=5)
-        rewind()
-        return {"batch": batch, "bit_equal": equal,
-                "planted_fault_stale_tables_bit_equal": fault_equal,
-                "replay_ms_per_dispatch": replay_ms,
-                "uncaptured_ms_per_dispatch": eager_ms,
-                "launches_per_replay": launched,
-                "graph_captures": graph.captures,
-                "graph_capture_s": graph.capture_s}
 
     cases = []
     t0 = time.perf_counter()
@@ -1669,7 +2258,7 @@ def phase_decode_graph(dev, smi_line: str) -> None:
                 if any(r.error or r.pending_prefill for r in reqs):
                     raise AssertionError(f"decode_graph: admission failed "
                                          f"{[r.error for r in reqs]}")
-                case = check(engine, batch)
+                case = _graph_case(engine, batch)
                 case.update(kv_dtype=kv_dtype, decode_passes_per_dispatch=m,
                             steps_per_dispatch=engine._tokens_per_pass)
                 emit({"phase": "decode_graph_case", **case})
@@ -1707,7 +2296,8 @@ def _pool_bytes(engine) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
-def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
+def phase_serve(dev, smi_line: str, bf16: dict | None = None,
+                quantize: str | None = None) -> dict:
     """The port's app on a free port, serving ``app.serve_config`` (8
     slots, max_seq 2048, 64-row pages, buckets to 1024, prefix cache
     on); with ``bf16`` (the bf16 run's result) the same through
@@ -1729,17 +2319,25 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     other form must not have. The int8 run also needs at least 1.8x the
     bf16 pool's pages in no more bytes, and records each answer's common
     prefix with the bf16 run's (not gated: a random model has near-ties,
-    and the int8 pool moves the logits by more than their gaps)."""
+    and the int8 pool moves the logits by more than their gaps).
+
+    With ``quantize`` ("int8" / "int4") the same waves serve weight-only
+    quantized weights on the bf16 pool, the ``serve_wq`` cell, after
+    ``engine.warmup()`` (the graphs captured before traffic):
+    ``wq_gemm``'s counter of the form must rise too, and the weight bytes
+    (``quantized_bytes``) are printed."""
     import torch
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention)
     from gofr_tpu_torch.ops.paged_kv import kv_write
+    from gofr_tpu_torch.ops.quant import quantized_bytes, wq_gemm
     from gofr_tpu_torch.serving.app import (build_engine, build_server,
                                             serve_config)
     kv_dtype = "bf16" if bf16 is None else "int8"
-    phase = "serve" if bf16 is None else "serve_int8"
+    phase = ("serve" if bf16 is None else "serve_int8") if quantize is None \
+        else f"serve_wq_{quantize}"
     suffix, other = ("", "_int8") if bf16 is None else ("_int8", "")
     # the run's kernels, and the paged ones of the other pool form
     own = {"flash_attention": (flash_attention, "launches")}
@@ -1747,10 +2345,17 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
     for fn in (paged_decode_attention, paged_chunk_attention, kv_write):
         own[fn.__name__ + suffix] = (fn, "launches" + suffix)
         others[fn.__name__ + other] = (fn, "launches" + other)
+    if quantize is not None:
+        wq_attr = "launches_int4" if quantize == "int4" else "launches"
+        own["wq_gemm" + ("_int4" if quantize == "int4" else "")] = (
+            wq_gemm, wq_attr)
     cfg = LlamaConfig.llama3_1b()
     engine = build_engine(cfg, device=dev, seed=0,
-                          engine_config=serve_config(cfg, kv_dtype=kv_dtype))
+                          engine_config=serve_config(cfg, kv_dtype=kv_dtype),
+                          quantize=quantize)
     pages, pool_bytes = engine._n_pages, _pool_bytes(engine)
+    warmup_s = engine.warmup() if quantize is not None else None
+    warm_capture_s = engine.stats["graph_capture_s"]
     server = build_server(engine, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     engine.start()
@@ -1828,10 +2433,13 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
            "decode_tokens": stats["decode_tokens"],
            "decode_s": stats["decode_s"],
            "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
-           **_graph_stats(stats),
+           **_graph_stats(stats, warm_capture_s),
            "prefill_calls": stats["prefill_calls"],
            "prefill_s": stats["prefill_s"], "launches": launches,
            "launches_of_the_other_pool_form": other_launches}
+    if quantize is not None:
+        out.update(quantize=quantize, warmup_s=warmup_s,
+                   weight_bytes=quantized_bytes(engine.params))
     if bf16 is not None:
         out["pages_vs_bf16_pool"] = pages / bf16["pool_pages"]
         out["bytes_vs_bf16_pool"] = pool_bytes / bf16["pool_bytes"]
@@ -1849,14 +2457,16 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None) -> dict:
             "pool_bytes": pool_bytes}
 
 
-def _graph_stats(stats: dict) -> dict:
+def _graph_stats(stats: dict, warm_capture_s: float = 0.0) -> dict:
     """The compiled decode dispatch's counters, and decode tokens/s with
-    the one-off graph captures left out of ``decode_s``."""
+    the one-off graph captures left out of ``decode_s`` (those made
+    while serving: ``warm_capture_s`` of them came before, in
+    ``warmup``)."""
     keys = ("graph_captures", "graph_replays", "graph_capture_s",
             "sched_syncs", "h2d_transfers")
     out = {k: stats[k] for k in keys}
     out["decode_tokens_per_s_without_capture"] = stats["decode_tokens"] / (
-        stats["decode_s"] - stats["graph_capture_s"])
+        stats["decode_s"] - stats["graph_capture_s"] + warm_capture_s)
     return out
 
 
@@ -2341,16 +2951,22 @@ def main() -> int:
     kernel_tree(dev, gen, _tree_slot_b1(), 6,
                 "B=1 W=16 Hq=32 Hkv=8 hd=64 pg=64 Np=256 Mp=32, history "
                 "1900 (one request)", None)
+    # the weight-dequantizing GEMM at llama3_1b's products, both forms
+    rows += kernel_wq_gemm(dev, torch.Generator(device=dev).manual_seed(11),
+                           smi_line)
     phase_model(dev)
     phase_model_chunk(dev)
     phase_model_spec(dev)
     phase_model_int8(dev)
+    phase_model_wq(dev, smi_line)
     phase_decode_graph(dev, smi_line)
     serve = phase_serve(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
-                **phase_serve_spec(dev, smi_line)}
+                **phase_serve_spec(dev, smi_line),
+                **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
+    phase_checkpoint(dev, smi_line)
     for row in rows:
         row["launches"] = launches[row.get("wrapper", row["name"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

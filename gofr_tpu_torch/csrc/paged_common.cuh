@@ -36,6 +36,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 8 bytes
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
 // 4 bytes (a row scale)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {

@@ -6,6 +6,12 @@ The input is the JAX pytree read as numpy arrays (e.g.
 ``gofr_tpu/models/llama.py:llama_init``. The layout is kept as it is —
 matrices stay ``[in, out]`` — so the port's products read ``x @ w``
 exactly as the JAX ones do.
+
+A quantized tree (``quantize_llama_int8`` / ``_int4``) holds ``{"q",
+"s"}`` leaves at any level; they stay quantized: int8 codes as ``int8``,
+JAX's int4 codes (a numpy array of the 4-bit ``int4`` dtype) packed two
+per byte as the port stores them (``ops/quant.pack_int4``), scales as
+float32. Every other leaf is a float tensor in ``config.dtype``.
 """
 
 from __future__ import annotations
@@ -13,25 +19,42 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quant import is_quantized, pack_int4
 from .llama import LlamaConfig
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
-    # every leaf is floating point; bf16 leaves (an ml_dtypes numpy
-    # type torch cannot read) widen to float32 exactly on the way
+    # bf16 leaves (a numpy type torch cannot read) widen to float32
+    # exactly on the way
     arr = np.ascontiguousarray(np.asarray(a).astype(np.float32))
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def _codes(a, device) -> torch.Tensor:
+    """int8 codes as they are; 4-bit codes (the dtype is named ``int4``:
+    the test process's ml_dtypes type, which numpy casts to int8
+    exactly) packed."""
+    a = np.asarray(a)
+    codes = torch.from_numpy(np.ascontiguousarray(a.astype(np.int8)))
+    if a.dtype.name == "int4":
+        codes = pack_int4(codes)
+    elif a.dtype != np.int8:
+        raise TypeError(f"params_from_jax: quantized codes must be int8 or "
+                        f"int4, got {a.dtype}")
+    return codes.to(device)
+
+
+def _convert(value, dtype: torch.dtype, device):
+    if is_quantized(value):
+        return {"q": _codes(value["q"], device),
+                "s": _tensor(value["s"], torch.float32, device)}
+    if isinstance(value, dict):
+        return {k: _convert(v, dtype, device) for k, v in value.items()}
+    return _tensor(value, dtype, device)
+
+
 def params_from_jax(np_params: dict, config: LlamaConfig,
                     device: str | torch.device) -> dict:
-    """numpy JAX pytree -> the port's parameter dict on ``device`` in
-    ``config.dtype``."""
-    out = {}
-    for name, value in np_params.items():
-        if isinstance(value, dict):
-            out[name] = {k: _tensor(v, config.dtype, device)
-                         for k, v in value.items()}
-        else:
-            out[name] = _tensor(value, config.dtype, device)
-    return out
+    """numpy JAX pytree -> the port's parameter dict on ``device``:
+    float leaves in ``config.dtype``, quantized leaves kept quantized."""
+    return _convert(np_params, config.dtype, device)

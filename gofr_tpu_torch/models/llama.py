@@ -4,13 +4,18 @@ Parameters are a plain dict with the JAX package's structure: stacked
 per-layer weights under ``"layers"`` (leading ``L`` axis), matrices in
 ``[in, out]`` layout so every product reads ``x @ w``. Layers run as a
 Python loop over the stacked weights (``layers[name][li]`` is a view).
-bf16 params/activations, float32 norms/softmax/logits.
+bf16 params/activations, float32 norms/softmax/logits. Every matrix
+product and the embedding gather go through ``ops/quant.py``
+(``qmatmul`` / ``qmatmul_t`` / ``qgather``), so a tree quantized by
+``quantize_llama_int8`` / ``_int4`` (``{"q", "s"}`` leaves) runs the same
+functions: on CUDA its decode-sized products and every LM head through
+the weight-dequantizing GEMM kernel ``csrc/wq_gemm.cu``.
 
 ``implementation``: ``"auto"`` routes attention through the kernel
 wrappers (the CUDA kernels for CUDA tensors, their plain versions for
 CPU tensors); ``"plain"`` forces the plain PyTorch versions of the
-attention and of the paged K/V write on any device — the path the
-kernels are held against.
+attention, of the paged K/V write and of the quantized products on any
+device — the path the kernels are held against.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_tree_attention_plain)
 from ..ops.paged_kv import (KV_DTYPES, keep_index, kv_write, kv_write_plain,
                             pool_layer, pool_shape, quantize_rows)
+from ..ops.quant import is_quantized, qgather, qmatmul, qmatmul_t
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -127,13 +133,19 @@ def _rope_table(head_dim, theta, scaling, device) -> torch.Tensor:
 
 
 def _layer(params: dict, li: int) -> dict:
-    return {name: w[li] for name, w in params["layers"].items()}
+    """Layer ``li``'s weights: views of the stacked leaves (a quantized
+    leaf's codes and scales each sliced)."""
+    return {name: ({"q": w["q"][li], "s": w["s"][li]} if is_quantized(w)
+                   else w[li])
+            for name, w in params["layers"].items()}
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in the weights' dtype (bf16 in serving: float32
-    accumulation inside the GEMM, bf16 out)."""
-    return torch.matmul(x.to(w.dtype), w)
+def _mm(x: torch.Tensor, w, implementation: str = "auto") -> torch.Tensor:
+    """x @ w: plain weights in their dtype (bf16 in serving: float32
+    accumulation inside the GEMM, bf16 out), quantized ones through
+    ``qmatmul`` (the scale after the product; ``"plain"`` forces its
+    plain version)."""
+    return qmatmul(x, w, plain=implementation == "plain")
 
 
 # --------------------------------------------------------------- forward
@@ -144,37 +156,37 @@ def _attn_block(x, lp, c: LlamaConfig, inv_freq, positions, kv_lengths,
     b, s, _ = x.shape
     hd = c.head_dim
     h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-    q = _mm(h, lp["wq"]).reshape(b, s, c.n_heads, hd)
-    k = _mm(h, lp["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = _mm(h, lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
+    k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
+    v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     out = attention(q, k, v, causal=True, kv_lengths=kv_lengths,
                     implementation=implementation)
-    return _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"]), k, v
+    return (_mm(out.reshape(b, s, c.n_heads * hd), lp["wo"], implementation),
+            k, v)
 
 
-def _mlp_block(x, lp, c: LlamaConfig):
+def _mlp_block(x, lp, c: LlamaConfig, implementation: str = "auto"):
     h = rms_norm(x, lp["ffn_norm"], c.norm_eps)
-    gate = torch.nn.functional.silu(_mm(h, lp["w1"]).float())
-    return _mm((gate * _mm(h, lp["w3"]).float()).to(x.dtype), lp["w2"])
+    gate = torch.nn.functional.silu(_mm(h, lp["w1"], implementation).float())
+    up = _mm(h, lp["w3"], implementation).float()
+    return _mm((gate * up).to(x.dtype), lp["w2"], implementation)
 
 
-def _logits(params, c: LlamaConfig, x):
+def _logits(params, c: LlamaConfig, x, implementation: str = "auto"):
     """Final norm + LM head, float32 logits. The tied head is
     ``x @ embed.T``; on CUDA a bf16 head runs as a bf16 GEMM with a
     float32 output (float32 accumulation, as the JAX head's
-    ``preferred_element_type``)."""
+    ``preferred_element_type``), a quantized one through the kernel with
+    a float32 output and scale."""
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    w = params["embed"].t() if c.tie_embeddings else params["lm_head"]
-    x = x.to(w.dtype)
-    if w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    if x.is_cuda:
-        lead = x.shape[:-1]
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*lead, -1)
-    return torch.matmul(x.float(), w.float())
+    plain = implementation == "plain"
+    if c.tie_embeddings:
+        return qmatmul_t(x, params["embed"], out_dtype=torch.float32,
+                         plain=plain)
+    return qmatmul(x, params["lm_head"], out_dtype=torch.float32,
+                   plain=plain)
 
 
 def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
@@ -184,14 +196,14 @@ def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
     b, s = tokens.shape
     inv_freq = _inv_freq(c, tokens.device)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = params["embed"][tokens]
+    x = qgather(params["embed"], tokens, c.dtype)
     ks, vs = [], []
     for li in range(c.n_layers):
         lp = _layer(params, li)
         attn_out, k, v = _attn_block(x, lp, c, inv_freq, positions,
                                      kv_lengths, implementation)
         x = x + attn_out
-        x = x + _mlp_block(x, lp, c)
+        x = x + _mlp_block(x, lp, c, implementation)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
@@ -208,7 +220,7 @@ def llama_prefill_last(params: dict, tokens: torch.Tensor,
     x, kv = _backbone(params, tokens, config, kv_lengths, implementation)
     last = (kv_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(params, config, rows), kv
+    return _logits(params, config, rows, implementation), kv
 
 
 def _writer(implementation: str, tokens: torch.Tensor, pids: torch.Tensor,
@@ -259,21 +271,22 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
     decode_attn = (paged_decode_attention if implementation == "auto"
                    else paged_decode_attention_plain)
 
-    x = params["embed"][tokens][:, None, :]                  # [B, 1, D]
+    x = qgather(params["embed"], tokens, c.dtype)[:, None, :]   # [B, 1, D]
     for li in range(c.n_layers):
         lp = _layer(params, li)
         h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q = _mm(h, lp["wq"]).reshape(b, 1, c.n_heads, hd)
-        k = _mm(h, lp["wk"]).reshape(b, 1, c.n_kv_heads, hd)
-        v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
+        q = _mm(h, lp["wq"], implementation).reshape(b, 1, c.n_heads, hd)
+        k = _mm(h, lp["wk"], implementation).reshape(b, 1, c.n_kv_heads, hd)
+        v = _mm(h, lp["wv"], implementation).reshape(b, 1, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         write(k_pool, v_pool, li, pids, offs, k[:, 0], v[:, 0], keep=keep)
         out = decode_attn(q[:, 0].contiguous(), pool_layer(k_pool, li),
                           pool_layer(v_pool, li), tables, attend)
-        x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
-        x = x + _mlp_block(x, lp, c)
-    return _logits(params, c, x)[:, 0], k_pool, v_pool
+        x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"],
+                    implementation)
+        x = x + _mlp_block(x, lp, c, implementation)
+    return _logits(params, c, x, implementation)[:, 0], k_pool, v_pool
 
 
 def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
@@ -335,26 +348,27 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
                              else paged_tree_attention_plain,
                              tree_masks=tree_masks)
 
-    x = params["embed"][tokens]                               # [B, S, D]
+    x = qgather(params["embed"], tokens, c.dtype)               # [B, S, D]
     for li in range(c.n_layers):
         lp = _layer(params, li)
         h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q = _mm(h, lp["wq"]).reshape(b, s, c.n_heads, hd)
-        k = _mm(h, lp["wk"]).reshape(b, s, c.n_kv_heads, hd)
-        v = _mm(h, lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
+        q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
+        k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
+        v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         write(k_pool, v_pool, li, pids, offs, k, v, keep=keep)
         out = chunk_attn(q.contiguous(), pool_layer(k_pool, li),
                          pool_layer(v_pool, li), tables, offsets,
                          chunk_lengths)
-        x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"])
-        x = x + _mlp_block(x, lp, c)
+        x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"],
+                    implementation)
+        x = x + _mlp_block(x, lp, c, implementation)
     if return_all_logits:
-        return _logits(params, c, x), k_pool, v_pool
+        return _logits(params, c, x, implementation), k_pool, v_pool
     last = (chunk_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(b, device=x.device), last]
-    return _logits(params, c, rows), k_pool, v_pool
+    return _logits(params, c, rows, implementation), k_pool, v_pool
 
 
 def make_pool(config: LlamaConfig, n_pages: int, page: int,

@@ -39,6 +39,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "paged_chunk": "paged_chunk.cu",
     "kv_write": "kv_write.cu",
+    "wq_gemm": "wq_gemm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,29 +8,46 @@ OpenAI routes, no metrics port in this slice).
 "top_p"?, "top_k"?}`` and answers ``{"data": {"text", "tokens",
 "usage": {...}}}``; errors answer ``{"error": {"message"}}``.
 
-Run: ``python -m gofr_tpu_torch.serving.app`` serves ``MODEL_PRESET``
-(default ``llama3_1b``, random weights from seed 0) on ``HTTP_HOST``
-(default 0.0.0.0) and ``HTTP_PORT`` (default 8000) on the CUDA device,
-with the engine ``serve_config`` gives: prompts up to the widest bucket
-prefill through the flash kernel, longer ones and prefix-cache suffixes
-walk through the paged chunk kernel, and every token decodes through
-the paged decode kernel. The prefix cache is on, as in the JAX engine.
+Run: ``python -m gofr_tpu_torch.serving.app`` on ``HTTP_HOST`` (default
+0.0.0.0) and ``HTTP_PORT`` (default 8000) on the CUDA device, with the
+model chosen as ``examples/model-serving/main.py`` chooses it
+(:func:`app_engine`):
+
+- ``MODEL_PATH``: a local Hugging Face Llama directory (``config.json``,
+  ``model.safetensors`` or its sharded index, optionally
+  ``tokenizer.json``, which switches on the BPE tokenizer and its
+  end-of-text id); ``MODEL_MAX_SEQ`` (default 8192) caps its context,
+  ``MODEL_DTYPE`` overrides its dtype;
+- else ``MODEL_PRESET`` (default ``llama3_1b``), random weights from
+  seed 0, with the byte tokenizer;
+- ``MODEL_QUANT=int8|int4`` quantizes the weights in either case (on
+  load for a checkpoint): their decode products and every LM head then
+  run through the weight-dequantizing GEMM kernel.
+
+Prompts up to the widest bucket prefill through the flash kernel,
+longer ones and prefix-cache suffixes walk through the paged chunk
+kernel, and every token decodes through the paged decode kernel. The
+prefix cache is on, as in the JAX engine.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections.abc import Mapping
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Any
 
 import torch
 
 from ..device import resolve_device
+from ..models.hf_checkpoint import (load_llama_checkpoint,
+                                    resolve_serving_dtype)
 from ..models.llama import LlamaConfig, llama_init
 from .engine import Engine, EngineConfig, SamplingParams
 from .glue import llama_engine
-from .tokenizer import ByteTokenizer
+from .tokenizer import BPETokenizer, ByteTokenizer
 
 
 class _HTTPError(Exception):
@@ -145,16 +162,60 @@ def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
 
 def build_engine(model_config: LlamaConfig, *,
                  device: str | torch.device | None = None, seed: int = 0,
-                 engine_config: EngineConfig | None = None) -> Engine:
+                 engine_config: EngineConfig | None = None,
+                 quantize: str | None = None) -> Engine:
     """An engine for ``model_config`` with random weights drawn from
-    ``seed`` on ``device`` (default: CUDA, or raise); ``engine_config``
-    defaults to ``serve_config(model_config)``."""
+    ``seed`` on ``device`` (default: CUDA, or raise), quantized with
+    ``quantize`` (None, "int8", "int4"); ``engine_config`` defaults to
+    ``serve_config(model_config)``."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     params = llama_init(model_config, generator, dev)
     engine_config = engine_config or serve_config(model_config)
-    return llama_engine(params, model_config, engine_config, device=dev)
+    return llama_engine(params, model_config, engine_config, device=dev,
+                        quantize=quantize)
+
+
+def app_engine(env: Mapping[str, str], *,
+               device: str | torch.device | None = None
+               ) -> tuple[Engine, Any, str]:
+    """(engine, tokenizer, model name) from the environment surface of
+    ``examples/model-serving/main.py``, on ``device`` (default: CUDA, or
+    raise). ``MODEL_PATH``: a local HF Llama checkpoint directory, its
+    weights quantized on load with ``MODEL_QUANT`` (``int8`` / ``int4``),
+    its context capped at ``MODEL_MAX_SEQ`` (default 8192), its dtype
+    ``MODEL_DTYPE``, served by ``serve_config`` with that context; a
+    ``tokenizer.json`` beside the weights gives the BPE tokenizer, and
+    the engine stops at its end-of-text id (without one the byte
+    tokenizer serves and nothing stops early: its eos id would alias an
+    ordinary vocabulary id). Else ``MODEL_PRESET`` (default
+    ``llama3_1b``), random weights from seed 0, the byte tokenizer,
+    ``MODEL_QUANT`` honoured the same way."""
+    quantize = env.get("MODEL_QUANT", "") or None
+    model_path = env.get("MODEL_PATH", "")
+    if model_path:
+        dev = resolve_device(device)
+        dtype_name = env.get("MODEL_DTYPE", "")
+        params, model_config = load_llama_checkpoint(
+            model_path, quantize=quantize,
+            max_seq=int(env.get("MODEL_MAX_SEQ", "8192")),
+            dtype=resolve_serving_dtype(dtype_name) if dtype_name else None,
+            device=dev)
+        tokenizer: Any = ByteTokenizer()
+        eos_id = -1
+        tok_json = Path(model_path) / "tokenizer.json"
+        if tok_json.is_file():
+            tokenizer = BPETokenizer.from_hf_json(tok_json)
+            eos_id = tokenizer.eos_id
+        config = serve_config(model_config, max_seq=model_config.max_seq,
+                              eos_id=eos_id)
+        return (llama_engine(params, model_config, config, device=dev),
+                tokenizer, Path(model_path).name)
+    preset = env.get("MODEL_PRESET", "llama3_1b")
+    engine = build_engine(getattr(LlamaConfig, preset)(), device=device,
+                          quantize=quantize)
+    return engine, ByteTokenizer(), preset
 
 
 def build_server(engine: Engine, tokenizer: Any = None,
@@ -165,12 +226,12 @@ def build_server(engine: Engine, tokenizer: Any = None,
 
 def main() -> None:
     env = os.environ
-    preset = env.get("MODEL_PRESET", "llama3_1b")
-    engine = build_engine(getattr(LlamaConfig, preset)())
-    server = build_server(engine, host=env.get("HTTP_HOST", "0.0.0.0"),
+    engine, tokenizer, name = app_engine(env)
+    server = build_server(engine, tokenizer,
+                          host=env.get("HTTP_HOST", "0.0.0.0"),
                           port=int(env.get("HTTP_PORT", "8000")))
     engine.start()
-    print(f"serving {preset} on http://{server.server_address[0]}:"
+    print(f"serving {name} on http://{server.server_address[0]}:"
           f"{server.server_address[1]} (POST /chat)", flush=True)
     try:
         server.serve_forever()

@@ -11,12 +11,15 @@ from ..device import resolve_device
 from ..models.llama import (LlamaConfig, llama_decode_step_paged,
                             llama_prefill_chunk_paged, llama_prefill_last,
                             make_pool)
+from ..ops.quant import (M_MAX, is_quantized, quantize_llama_int4,
+                         quantize_llama_int8)
 from .engine import Engine, EngineConfig
 
 
 def llama_engine(params: Any, model_config: LlamaConfig,
                  engine_config: EngineConfig | None = None, *,
-                 device: str | torch.device | None = None) -> Engine:
+                 device: str | torch.device | None = None,
+                 quantize: str | None = None) -> Engine:
     """An engine serving ``params`` on ``device`` (default: CUDA, or
     raise): bucketed prefill through ``llama_prefill_last`` (the flash
     kernel), chunk walks — long prompts and prefix-cache suffixes —
@@ -26,11 +29,36 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     paged decode kernel and the KV write kernel, T steps a dispatch
     replayed as one CUDA graph), on a head-major pool allocated on the same
     device in the engine config's ``kv_dtype`` (int8 pools go through
-    the kernels' int8 branches)."""
+    the kernels' int8 branches).
+
+    ``quantize="int8"`` / ``"int4"``: weight-only quantization of
+    ``params`` (``ops/quant.py``, on the engine's device) before
+    serving; the model functions take the ``{q, s}`` leaves as they
+    come, so a tree quantized beforehand (``load_llama_checkpoint(...,
+    quantize=)``) serves with ``quantize=None``. With quantized weights
+    the decode step's and the tree verify's products must fit the
+    weight-dequantizing kernel (:func:`kernel_rows` <= ``M_MAX``), or
+    this raises."""
+    if quantize is not None and quantize not in ("int8", "int4"):
+        raise ValueError(f"quantize must be None, 'int8' or "
+                         f"'int4', got {quantize!r}")
     dev = resolve_device(device)
-    if params["embed"].device != dev:
-        raise ValueError(f"params live on {params['embed'].device}, the "
+    embed = params["embed"]
+    where = (embed["q"] if is_quantized(embed) else embed).device
+    if where != dev:
+        raise ValueError(f"params live on {where}, the "
                          f"engine was asked to run on {dev}")
+    engine_config = engine_config or EngineConfig()
+    rows = kernel_rows(engine_config)
+    if (quantize is not None or is_quantized(params["layers"]["wq"])) \
+            and rows > M_MAX:
+        raise ValueError(
+            f"quantized weights: the decode step or tree verify products "
+            f"have {rows} rows, above the weight-dequantizing kernel's "
+            f"M_MAX = {M_MAX}; lower max_batch, spec_draft or spec_branches")
+    if quantize is not None:
+        params = (quantize_llama_int8(params) if quantize == "int8"
+                  else quantize_llama_int4(params))
     c = model_config
 
     def prefill_fn(params, tokens, kv_lengths):
@@ -56,9 +84,20 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     def make_cache(n_pages, page, kv_dtype):
         return make_pool(c, n_pages, page, dev, kv_dtype)
 
-    return Engine(params, engine_config or EngineConfig(),
+    return Engine(params, engine_config,
                   prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,
                   paged_chunk_fn=paged_chunk_fn,
                   paged_verify_fn=paged_verify_fn, make_cache=make_cache,
                   device=dev,
                   vocab_size=c.vocab_size)
+
+
+def kernel_rows(config: EngineConfig) -> int:
+    """The most rows a backbone product has in a decode step
+    (``max_batch``) or, with speculation, in a tree verify pass
+    (``max_batch`` x the power-of-two width that holds the widest tree,
+    at least 2, as the engine buckets it)."""
+    if not config.speculative:
+        return config.max_batch
+    nodes = 1 + config.spec_draft * config.spec_branches
+    return config.max_batch * (1 << max(1, (nodes - 1).bit_length()))

@@ -39,6 +39,15 @@ decode dispatch (``serving/decode_graph.py``) must give, on a small
 bf16 model at ``max_batch`` rows, the uncaptured pass's tokens, state
 and pools bit for bit, for an all-greedy batch and a mixed one, on both
 pool forms; and a replay on a pool that is not the captured one raises.
+
+The weight-dequantizing GEMM (``ops/quant.wq_gemm``, int8 and packed
+int4 codes, ``[K, N]`` and ``[N, K]`` layouts, rows 1 to 128, ragged N
+for the ``[N, K]`` head) must agree with its plain version within ATOL +
+2 RTOL |ref| for the bf16 output (rounded twice on each side: the
+product, then the product times the scale) and ATOL + RTOL |ref| for
+the float32 head, give the same bits on a second call, and raise on
+what it does not take; and the decode graph's replay must equal the
+uncaptured pass bit for bit with int8 and int4 weights.
 """
 
 import pytest
@@ -58,6 +67,7 @@ from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
                                          scatter_chunk, scatter_chunk_kv,
                                          scatter_chunk_kv_plain,
                                          scatter_chunk_plain)
+from gofr_tpu_torch.ops import quant
 from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
 from gofr_tpu_torch.serving.glue import llama_engine
 from gofr_tpu_torch.serving.spec import build_draft_tree
@@ -67,6 +77,10 @@ pytestmark = pytest.mark.cuda
 RTOL = 2.0 ** -7
 P_ROUND = 2.0 ** -8
 ATOL = 1e-3
+# float32 outputs (the LM head): both sides sum the same bf16 products in
+# float32, so they differ by summation order only, far below bf16's 2^-9
+RTOL_F32 = 2.0 ** -12
+ATOL_F32 = 1e-4
 
 
 @pytest.fixture
@@ -577,16 +591,18 @@ def test_scatter_chunk_kernel_matches_plain(dev, form):
         changed = (_leaves(g)[0] != _leaves(before_pool)[0]).any(-1).any(1)[0]
         assert int(changed.sum()) == 64 + 37 + 24   # row 3: positions 40-63
 
-def _graph_engine(dev, form, m, **cfg_kw):
+def _graph_engine(dev, form, m, quantize=None, tie=False, **cfg_kw):
     """A 2-layer bf16 model (hd 64) behind an engine of 4 slots, K = 4
-    and ``m`` passes a dispatch, on a pool of the given form."""
+    and ``m`` passes a dispatch, on a pool of the given form, its
+    weights quantized with ``quantize``."""
     cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
-                      n_kv_heads=2, ffn_dim=512, max_seq=256)
+                      n_kv_heads=2, ffn_dim=512, max_seq=256,
+                      tie_embeddings=tie)
     params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     return llama_engine(params, cfg, EngineConfig(
         max_batch=4, max_seq=256, page_size=16, decode_steps_per_pass=4,
         decode_passes_per_dispatch=m, kv_dtype=form, seed=0, **cfg_kw),
-        device=dev)
+        device=dev, quantize=quantize)
 
 
 def _grow(eng, dispatches=1):
@@ -602,7 +618,19 @@ def _grow(eng, dispatches=1):
 @pytest.mark.parametrize("form", ["bf16", "int8"])
 @pytest.mark.parametrize("temps", [(0.0, 0.0, 0.0), (0.0, 0.9, 0.0)])
 def test_decode_graph_replay_equals_the_uncaptured_pass(dev, form, temps):
-    eng = _graph_engine(dev, form, 2)
+    _replay_equals_uncaptured(_graph_engine(dev, form, 2), temps)
+
+
+@pytest.mark.parametrize("quantize,tie", [("int8", False), ("int4", True)])
+def test_decode_graph_replay_with_quantized_weights(dev, quantize, tie):
+    before = quant.wq_gemm.launches + quant.wq_gemm.launches_int4
+    _replay_equals_uncaptured(
+        _graph_engine(dev, "bf16", 2, quantize=quantize, tie=tie),
+        (0.0, 0.0, 0.0))
+    assert quant.wq_gemm.launches + quant.wq_gemm.launches_int4 > before
+
+
+def _replay_equals_uncaptured(eng, temps):
     rng = torch.Generator().manual_seed(3)
     reqs = [eng.submit(torch.randint(0, 512, (n,), generator=rng).tolist(),
                        SamplingParams(temperature=t, top_p=0.9, top_k=20,
@@ -697,3 +725,57 @@ def test_launch_into_an_uncollected_ring_buffer_raises(dev):
     tokens = graph.collect(first)
     assert graph.launch(eng.k_cache, eng.v_cache, True) == first
     assert tokens.shape == (4, 4)
+
+
+#: (layout, K, N) of the weight-dequantizing GEMM's cases: [K, N] layer
+#: matrices (N a multiple of 16) and [N, K] heads with a ragged N
+WQ_CASES = [(False, 64, 16), (False, 256, 48), (False, 2048, 512),
+            (False, 8192, 2048), (True, 128, 40), (True, 256, 8),
+            (True, 2048, 1000)]
+
+
+def _wq_pair(dev, gen, form, trans, k, n):
+    qfn = quant.quantize_int8 if form == "int8" else quant.quantize_int4
+    if trans:
+        return qfn(_randn(gen, dev, n, k), axis=1)
+    return qfn(_randn(gen, dev, k, n), axis=0)
+
+
+@pytest.mark.parametrize("form", ["int8", "int4"])
+@pytest.mark.parametrize("trans,k,n", WQ_CASES)
+def test_wq_gemm_kernel_matches_plain(dev, form, trans, k, n):
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    w = _wq_pair(dev, gen, form, trans, k, n)
+    out_dtype = torch.float32 if trans else None
+    for m in (1, 3, 16, 17, 40, 128):
+        x = _randn(gen, dev, m, k)
+        got = quant.wq_gemm(x, w, trans=trans, out_dtype=out_dtype)
+        want = quant.wq_gemm_plain(x, w, trans=trans, out_dtype=out_dtype)
+        assert got.dtype == want.dtype and got.shape == (m, n)
+        if trans:
+            limit = ATOL_F32 + RTOL_F32 * want.abs()
+            # a head rounded to bf16 (its accumulator or its output) fails
+            rounded = got.bfloat16().float()
+            assert not ((rounded - want).abs() <= limit).all(), m
+        else:
+            limit = ATOL + 2 * RTOL * want.float().abs()
+        assert ((got.float() - want.float()).abs() <= limit).all(), m
+        again = quant.wq_gemm(x, w, trans=trans, out_dtype=out_dtype)
+        assert torch.equal(got, again)            # deterministic merge
+
+
+def test_wq_gemm_raises_on_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = _wq_pair(dev, gen, "int8", False, 64, 32)
+    x = _randn(gen, dev, 4, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        quant.wq_gemm(x.float(), w)
+    with pytest.raises(ValueError, match="contract"):
+        quant.wq_gemm(_randn(gen, dev, 4, 48), w)
+    with pytest.raises(ValueError, match="multiple"):
+        quant.wq_gemm(_randn(gen, dev, 4, 40),
+                      _wq_pair(dev, gen, "int8", False, 40, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.wq_gemm(_randn(gen, dev, 64, 8).t(), w)
+    with pytest.raises(TypeError, match="scales"):
+        quant.wq_gemm(x, {"q": w["q"], "s": w["s"].half()})

@@ -13,6 +13,7 @@ from gofr_tpu_torch.ops.flash_attention import flash_attention
 from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                 paged_decode_attention,
                                                 paged_tree_attention)
+from gofr_tpu_torch.ops.quant import quantize_int8, wq_gemm
 from gofr_tpu_torch.serving.app import build_engine
 from gofr_tpu_torch.models.llama import LlamaConfig
 
@@ -23,7 +24,9 @@ REPO = PKG.parent
 #: the port's modules plus the scripts that drive it on the card
 PORT_FILES = sorted(PKG.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py"]
-FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "gofr_tpu")
+#: ml_dtypes: the card's machine has none, and the port reads bf16 bytes
+#: without it
+FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "gofr_tpu", "ml_dtypes")
 FORBIDDEN_AT_MODULE_LEVEL = FORBIDDEN_ANYWHERE + ("triton",)
 
 
@@ -65,7 +68,8 @@ def test_the_scan_sees_every_module_and_catches_a_bad_import():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "flash_attention.py", "paged_attention.py",
             "paged_kv.py", "llama.py", "glue.py", "app.py",
-            "_build.py", "spec.py"} <= names
+            "_build.py", "spec.py", "quant.py", "hf_checkpoint.py",
+            "tokenizer.py"} <= names
     tree = ast.parse("try:\n    import triton\nexcept ImportError:\n"
                      "    pass\ndef f():\n    import triton.language\n")
     assert set(_module_level_imports(tree.body)) == {"triton"}
@@ -86,12 +90,17 @@ def test_cuda_entry_point_never_runs_on_the_cpu(monkeypatch):
         build_engine(LlamaConfig.tiny())          # default device: cuda
 
 
-@pytest.mark.parametrize("kernel", ["flash", "paged", "chunk", "tree"])
+@pytest.mark.parametrize("kernel", ["flash", "paged", "chunk", "tree", "wq"])
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors(kernel):
     # a tensor on neither the CPU nor CUDA (the meta device) must raise,
     # not fall through to the plain version
     meta = torch.device("meta")
-    if kernel == "flash":
+    if kernel == "wq":
+        w = quantize_int8(torch.randn(64, 32), axis=0)
+        w = {"q": w["q"].to(meta), "s": w["s"].to(meta)}
+        with pytest.raises(ValueError, match="no kernel"):
+            wq_gemm(torch.empty(4, 64, dtype=torch.bfloat16, device=meta), w)
+    elif kernel == "flash":
         q = torch.empty(1, 8, 2, 64, dtype=torch.bfloat16, device=meta)
         kv = torch.empty(1, 8, 1, 64, dtype=torch.bfloat16, device=meta)
         with pytest.raises(ValueError, match="no kernel"):
@@ -123,7 +132,8 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     # built from the old header would be loaded
     from gofr_tpu_torch.ops import _build
     for name in ("paged_chunk.cu", "flash_attention.cu", "wgmma_attn.cuh",
-                 "paged_common.cuh", "paged_decode.cu", "kv_write.cu"):
+                 "paged_common.cuh", "paged_decode.cu", "kv_write.cu",
+                 "wq_gemm.cu"):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build.library_path(n) for n in _build.SOURCES}
@@ -134,3 +144,4 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     assert after["flash_attention"] != before["flash_attention"]
     assert after["paged_decode"] == before["paged_decode"]   # no include
     assert after["kv_write"] == before["kv_write"]           # no include
+    assert after["wq_gemm"] == before["wq_gemm"]   # paged_common.cuh only
