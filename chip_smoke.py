@@ -49,14 +49,16 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              written one offset late as the planted fault: thirteen
              rows. Then the weight-dequantizing GEMM (``wq_gemm``, int8
              and int4 codes) at llama3_1b's products — wq, wk, w1, w2
-             in their ``[K, N]`` layout and the tied head ``[N, K]`` —
-             at M = 1, 8 and 128 against its plain version (the float32
-             head within float32 summation error; scales shifted one
-             channel, swapped int4 nibbles and the head rounded to bf16
-             as planted faults), beside cuBLAS bf16 on the weights dequantized
-             beforehand; the M = 8 rows join the kernels line. The
+             and the tied head, every matrix in the one ``[N, K]``
+             layout — at M = 1, 8 and 128 against its plain version
+             (the float32 head within float32 summation error; two
+             calls bit-equal; scales shifted one channel, codes
+             k-permuted, the square wq's codes transposed, swapped int4
+             nibbles and the head rounded to bf16 as planted faults),
+             beside cuBLAS bf16 on the weights dequantized beforehand;
+             the M = 8 rows join the kernels line. The
              ``wq_gemm_route`` line: the kernel against the plain route
-             at w1's shape over M = 16..512, and which route each
+             at w1's shape over M = 16..2048, and which route each
              product of the serving path takes.
 4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
@@ -217,33 +219,34 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
     and then) is taken again, up to three times. ``cold``: a 64 MiB
     buffer is zeroed before each call, so the call finds the 50 MB L2
     cache holding none of its inputs, as a decode step finds each
-    layer's weights; the zeroing kernel is left out of the sum."""
+    layer's weights; the zeroing kernel is left out of the sum. Its name
+    comes from the same trace (one zeroing, synchronised, before the
+    calls: the trace's first device event), since a trace of its own
+    may come back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(2 ** 24, dtype=torch.int32, device="cuda") \
         if cold else None
-    skip: set = set()
-    if cold:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush.zero_()
-            torch.cuda.synchronize()
-        skip = {e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            if cold:
+                flush.zero_()
+                torch.cuda.synchronize()
             for _ in range(iters):
                 if cold:
                     flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.name not in skip)
+        events = sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        skip = {events[0][2]} if cold and events else set()
+        spans = [(start, end) for start, end, name in events
+                 if name not in skip]
         if spans:
             break
     else:
@@ -1141,8 +1144,8 @@ def kernel_kv_write_prefill(dev, gen) -> list:
     return rows
 
 
-#: llama3_1b's quantized products at the kernel's tile: (name, K, N,
-#: trans); the tied head reads the [V, D] embedding codes as x @ E^T
+#: llama3_1b's quantized products, every matrix stored [N, K]: (name,
+#: K, N, head); the tied head reads the [V, D] embedding codes
 WQ_PRODUCTS = (("wq", 2048, 2048, False), ("wk", 2048, 512, False),
                ("w1", 2048, 8192, False), ("w2", 8192, 2048, False),
                ("head", 2048, 128256, True))
@@ -1151,30 +1154,37 @@ WQ_PRODUCTS = (("wq", 2048, 2048, False), ("wk", 2048, 512, False),
 WQ_ROWS = (1, 8, 128)
 
 
-def _wq_weight(dev, gen, k, n, trans, form):
-    """A random llama3_1b-like matrix quantized on the card: [K, N]
-    N(0, 1/K) reduced over K, or the [N, K] embedding N(0, 0.02^2)
-    reduced over K (per-row scales), as ``quantize_llama_*`` lays them
-    out."""
+def _wq_weight(dev, gen, k, n, head, form):
+    """A random llama3_1b-like matrix quantized on the card, [N, K]
+    reduced over K (per-output-channel scales), as ``quantize_llama_*``
+    lays out every quantized matrix: N(0, 1/K) for the layer matrices,
+    N(0, 0.02^2) for the embedding read as the head."""
     import torch
     from gofr_tpu_torch.ops.quant import quantize_int4, quantize_int8
     qfn = quantize_int8 if form == "int8" else quantize_int4
-    if trans:
-        w = (torch.randn(n, k, generator=gen, device=dev) * 0.02).bfloat16()
-        return qfn(w, axis=1)
-    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).bfloat16()
-    return qfn(w, axis=0)
+    std = 0.02 if head else k ** -0.5
+    w = (torch.randn(n, k, generator=gen, device=dev) * std).bfloat16()
+    return qfn(w, axis=1)
 
 
 def _wq_fault(w, form):
-    """Planted faults: the scales shifted by one channel; for int4 also
-    every byte's two nibbles swapped (codes read in the wrong order)."""
+    """Planted faults: the scales shifted by one channel; the codes
+    k-permuted (the two 8-byte halves of every 16-byte piece of a row
+    swapped: k 2t and 2t + 8 of an mma step exchanged for int8, k-steps
+    exchanged for int4); for a square matrix its codes transposed
+    (``[K, N]`` read as ``[N, K]``); for int4 every byte's two nibbles
+    swapped (codes read in the wrong order)."""
     import torch
+    q = w["q"]
     out = {"scales_shifted_one_channel": {
-        "q": w["q"], "s": torch.roll(w["s"].reshape(-1), 1).reshape(
-            w["s"].shape).contiguous()}}
+        "q": q, "s": torch.roll(w["s"].reshape(-1), 1).reshape(
+            w["s"].shape).contiguous()},
+        "codes_k_permuted": {
+            "q": q.reshape(q.shape[0], -1, 2, 8).flip(2).reshape(
+                q.shape).contiguous(), "s": w["s"]}}
+    if form == "int8" and q.shape[0] == q.shape[1]:
+        out["codes_transposed"] = {"q": q.t().contiguous(), "s": w["s"]}
     if form == "int4":
-        q = w["q"]
         out["int4_nibbles_swapped"] = {"q": ((q >> 4) | (q << 4)),
                                        "s": w["s"]}
     return out
@@ -1182,77 +1192,81 @@ def _wq_fault(w, form):
 
 def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
     """The weight-dequantizing GEMM (``ops/quant.wq_gemm``, both C
-    entries) at llama3_1b's shapes: wq 2048->2048, wk 2048->512, w1
-    2048->8192, w2 8192->2048 ([K, N] codes, bf16 out) and the tied head
-    2048->128256 ([N, K] codes, float32 out), each at M = 1, 8 and 128
-    rows, int8 and int4 codes, x ~ N(0, 1) bf16. Each against its plain
-    version (``wq_gemm_plain``: the codes dequantized into a scratch,
-    one product, the scale) on the same inputs: the bf16 outputs within
-    ATOL + 2 RTOL |ref| (they are rounded twice on each side, the
-    product, then the product times the scale, and a one-ulp difference
-    of the first rounding can become two ulps of the second), the
-    float32 head within ATOL_F32 + RTOL_F32 |ref|. Planted faults: the
-    scales shifted by one channel, for int4 every byte's nibbles
-    swapped, and for the head its output rounded to bf16; each must fail
-    the same check. Times: ``ms`` (CUDA events, the wrapper included),
-    ``device_ms`` (profiler, L2 cold: the weights come from HBM, as each
-    layer's do in a decode step), the plain version's ms, the library
-    yardstick — cuBLAS bf16 (``torch.matmul``, float32 out for the
-    head) on the weights dequantized beforehand, untimed — and, for
-    int8, ``torch._weight_int8pack_mm`` where the card's torch runs it.
-    Bound: the codes, scales, x and y over the HBM rate (and the
-    products over the bf16 peak). Then M_MAX: the kernel and the
-    plain route at w1's shape over M = 16..512, and the route each
-    product of the serving path takes. Returns the M = 8 rows (the
-    decode step), for the kernels line."""
+    entries) at llama3_1b's shapes, every matrix in the one ``[N, K]``
+    layout: wq 2048->2048, wk 2048->512, w1 2048->8192, w2 8192->2048
+    (bf16 out) and the tied head 2048->128256 (float32 out), each at
+    M = 1, 8 and 128 rows, int8 and int4 codes, x ~ N(0, 1) bf16. Each
+    against its plain version (``wq_gemm_plain``: the codes dequantized
+    into a scratch, one product, the scale) on the same inputs: the bf16
+    outputs within ATOL + 2 RTOL |ref| (they are rounded twice on each
+    side, the product, then the product times the scale, and a one-ulp
+    difference of the first rounding can become two ulps of the second),
+    the float32 head within ATOL_F32 + RTOL_F32 |ref|. Planted faults
+    (``_wq_fault``): scales shifted, codes k-permuted, the square wq's
+    codes transposed, int4 nibbles swapped, and for the head its output
+    rounded to bf16; each must fail the same check. Times: ``ms`` (CUDA
+    events, the wrapper included), ``device_ms`` (profiler, L2 cold: the
+    weights come from HBM, as each layer's do in a decode step), the
+    plain version's ms, the library yardstick — cuBLAS bf16
+    (``torch.matmul``, float32 out for the head) on the weights
+    dequantized beforehand, untimed — and, for int8,
+    ``torch._weight_int8pack_mm`` where the card's torch runs it. Bound:
+    the codes, scales, x and y over the HBM rate (and the products over
+    the bf16 peak). Then M_MAX: the kernel and the plain route at w1's
+    shape over M = 16..2048, and the route each product of the serving
+    path takes. Returns the M = 8 rows (the decode step), for the
+    kernels line."""
     import torch
     from gofr_tpu_torch.ops.quant import (M_MAX, codes_of, route_of,
                                           wq_gemm, wq_gemm_plain,
-                                          wq_splits)
+                                          wq_groups, wq_splits)
     rows = []
     for form in ("int8", "int4"):
-        for name, k, n, trans in WQ_PRODUCTS:
-            w = _wq_weight(dev, gen, k, n, trans, form)
-            f32 = torch.float32 if trans else None
-            codes = codes_of(w).to(torch.bfloat16)
-            deq = codes * w["s"].to(torch.bfloat16)     # the yardstick's
-            deq = deq.t() if trans else deq
+        for name, k, n, head in WQ_PRODUCTS:
+            w = _wq_weight(dev, gen, k, n, head, form)
+            f32 = torch.float32 if head else None
+            # the yardstick's weight, [K, N]
+            deq = (codes_of(w).to(torch.bfloat16)
+                   * w["s"].to(torch.bfloat16)).t()
             faults = _wq_fault(w, form)
             for m in WQ_ROWS:
                 x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
-                out = wq_gemm(x, w, trans=trans, out_dtype=f32)
-                ref = wq_gemm_plain(x, w, trans=trans, out_dtype=f32)
+                out = wq_gemm(x, w, out_dtype=f32)
+                ref = wq_gemm_plain(x, w, out_dtype=f32)
                 torch.cuda.synchronize()
-                tol = ({"atol": ATOL_F32, "rtol": RTOL_F32} if trans else
+                tol = ({"atol": ATOL_F32, "rtol": RTOL_F32} if head else
                        {"extra": RTOL * ref.float().abs()})
                 err, ratios = check(out, ref, **tol)
+                again = wq_gemm(x, w, out_dtype=f32)
                 fault_ratio = {}
                 for fname, bad in faults.items():
-                    fout = wq_gemm(x, bad, trans=trans, out_dtype=f32)
+                    fout = wq_gemm(x, bad, out_dtype=f32)
                     fault_ratio[fname] = max(check(fout, ref, **tol)[1])
-                if trans:
+                if head:
                     fault_ratio["head_rounded_to_bf16"] = max(check(
                         out.bfloat16(), ref, **tol)[1])
                 tag = f"wq_gemm_{form}_{name}_m{m}"
                 emit({"phase": "kernel_check", "name": tag,
                       "max_abs_err": err, "max_ratio": max(ratios),
-                      "atol": ATOL_F32 if trans else ATOL,
-                      "rtol": RTOL_F32 if trans else 2 * RTOL,
+                      "atol": ATOL_F32 if head else ATOL,
+                      "rtol": RTOL_F32 if head else 2 * RTOL,
+                      "second_call_bit_equal": bool(torch.equal(out, again)),
                       "planted_fault_max_ratio": fault_ratio})
                 if max(ratios) > 1.0:
                     raise AssertionError(f"{tag}: kernel vs plain ratio "
                                          f"{max(ratios)} > 1 (max abs {err})")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{tag}: two calls differ")
                 passed = [f for f, r in fault_ratio.items() if r <= 1.0]
                 if passed:
                     raise AssertionError(f"{tag} check passed a planted "
                                          f"fault: {passed}")
-                ms = time_ms(lambda: wq_gemm(x, w, trans=trans,
-                                             out_dtype=f32))
-                dev_ms = device_ms(lambda: wq_gemm(x, w, trans=trans,
-                                                   out_dtype=f32), cold=True)
+                ms = time_ms(lambda: wq_gemm(x, w, out_dtype=f32))
+                dev_ms = device_ms(lambda: wq_gemm(x, w, out_dtype=f32),
+                                   cold=True)
                 plain_ms = time_ms(lambda: wq_gemm_plain(
-                    x, w, trans=trans, out_dtype=f32), iters=10)
-                if trans:
+                    x, w, out_dtype=f32), iters=10)
+                if head:
                     def lib():
                         return torch.mm(x, deq, out_dtype=torch.float32)
                 else:
@@ -1263,16 +1277,15 @@ def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
                 pack_ms = pack_note = None
                 if form == "int8":
                     try:
-                        wt = w["q"] if trans else w["q"].t().contiguous()
                         sc = w["s"].reshape(-1).to(torch.bfloat16)
-                        torch._weight_int8pack_mm(x, wt, sc)
+                        torch._weight_int8pack_mm(x, w["q"], sc)
                         torch.cuda.synchronize()
                         pack_ms = time_ms(
-                            lambda: torch._weight_int8pack_mm(x, wt, sc))
+                            lambda: torch._weight_int8pack_mm(x, w["q"], sc))
                     except (RuntimeError, NotImplementedError) as exc:
                         pack_note = str(exc).splitlines()[0][:160]
                 nbytes = (w["q"].numel() + 4 * n + 2 * m * k
-                          + m * n * (4 if trans else 2))
+                          + m * n * (4 if head else 2))
                 bound_ms, bound_by = bound(2.0 * m * n * k, nbytes)
                 row = {"name": f"wq_gemm_{form}_{name}" if m == 8 else tag,
                        "wrapper": "wq_gemm" + ("_int4" if form == "int4"
@@ -1290,20 +1303,22 @@ def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
                        "library_note": "cuBLAS bf16 on the weights "
                                        "dequantized beforehand, untimed",
                        "int8pack_ms": pack_ms}
+                groups = wq_groups(m, n)
+                splits = wq_splits(m, n, k, int4=form == "int4",
+                                   groups=groups)
                 emit({"phase": "kernel", "card": smi_line,
-                      "shape": f"{name} K={k} N={n} M={m} {form} "
-                               f"{'[N, K]' if trans else '[K, N]'} codes, "
-                               f"S={wq_splits(m, n, k, trans=trans, int4=form == 'int4')}",
+                      "shape": f"{name} K={k} N={n} M={m} {form} [N, K] "
+                               f"codes, G={groups} S={splits}",
                       "int8pack_note": pack_note, **row})
                 if m == 8:
                     rows.append(row)
-            del w, codes, deq, faults
+            del w, deq, faults
             torch.cuda.empty_cache()
     # M_MAX: the kernel against the plain route at w1's shape
     sweep = []
     for form in ("int8", "int4"):
         w = _wq_weight(dev, gen, 2048, 8192, False, form)
-        for m in (16, 32, 64, 128, 256, 512):
+        for m in (16, 32, 64, 128, 256, 512, 1024, 2048):
             x = torch.randn(m, 2048, generator=gen, device=dev).bfloat16()
             sweep.append({
                 "form": form, "m": m,
@@ -1315,6 +1330,7 @@ def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
     routes = {f"{what} M={m}": {p[0]: route_of(m, head=p[3])
                                 for p in WQ_PRODUCTS}
               for what, m in (("decode step", 8), ("tree verify", 128),
+                              ("group prefill 2 x 256", 512),
                               ("group prefill 4 x 512", 2048),
                               ("chunk walk 1 x 1024", 1024))}
     routes["group prefill's head, M = P"] = route_of(8, head=True)
@@ -1795,7 +1811,8 @@ def phase_model_wq(dev, smi_line: str) -> None:
     history (``llama_prefill_chunk_paged``), once with
     ``implementation="auto"`` (the attention kernels, and the quantized
     products through ``wq_gemm`` wherever the M rule sends them: every
-    decode product, the chunk's 128-row products and every head) and
+    decode product, the prefill's 512-row and the chunk's 128-row
+    products and every head) and
     once with ``"plain"`` (every quantized product dequantized into a
     scratch, then ``torch.matmul``), each on its own bf16 pool; both
     decode the kernel path's greedy token. Logits must agree within

@@ -8,10 +8,15 @@ matrices stay ``[in, out]`` — so the port's products read ``x @ w``
 exactly as the JAX ones do.
 
 A quantized tree (``quantize_llama_int8`` / ``_int4``) holds ``{"q",
-"s"}`` leaves at any level; they stay quantized: int8 codes as ``int8``,
-JAX's int4 codes (a numpy array of the 4-bit ``int4`` dtype) packed two
-per byte as the port stores them (``ops/quant.pack_int4``), scales as
-float32. Every other leaf is a float tensor in ``config.dtype``.
+"s"}`` leaves; they stay quantized, in the port's ``[N, K]`` layout
+(``ops/quant.py``): JAX's layer matrices ``[L, in, out]`` (scales ``[L,
+1, out]``) and an untied head ``[D, V]`` (``[1, V]``) are transposed to
+``[L, out, in]`` / ``[V, D]`` with their scales to match, before any
+int4 packing; the embedding ``[V, D]`` is already output-major. int8
+codes stay ``int8``, JAX's int4 codes (a numpy array of the 4-bit
+``int4`` dtype) are packed two per byte along K
+(``ops/quant.pack_int4``), scales are float32. Every other leaf is a
+float tensor in ``config.dtype``.
 """
 
 from __future__ import annotations
@@ -30,12 +35,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-def _codes(a, device) -> torch.Tensor:
+def _codes(a, device, transpose: bool) -> torch.Tensor:
     """int8 codes as they are; 4-bit codes (the dtype is named ``int4``:
     the test process's ml_dtypes type, which numpy casts to int8
-    exactly) packed."""
+    exactly) packed; the last two axes swapped first if asked."""
     a = np.asarray(a)
-    codes = torch.from_numpy(np.ascontiguousarray(a.astype(np.int8)))
+    codes = a.astype(np.int8)
+    if transpose:
+        codes = np.swapaxes(codes, -1, -2)
+    codes = torch.from_numpy(np.ascontiguousarray(codes))
     if a.dtype.name == "int4":
         codes = pack_int4(codes)
     elif a.dtype != np.int8:
@@ -44,12 +52,18 @@ def _codes(a, device) -> torch.Tensor:
     return codes.to(device)
 
 
-def _convert(value, dtype: torch.dtype, device):
+def _convert(value, dtype: torch.dtype, device, transpose: bool = False):
     if is_quantized(value):
-        return {"q": _codes(value["q"], device),
-                "s": _tensor(value["s"], torch.float32, device)}
+        s = np.asarray(value["s"])
+        if transpose:   # [.., 1, out] -> [.., out, 1]
+            s = np.swapaxes(s, -1, -2)
+        return {"q": _codes(value["q"], device, transpose),
+                "s": _tensor(s, torch.float32, device)}
     if isinstance(value, dict):
-        return {k: _convert(v, dtype, device) for k, v in value.items()}
+        # JAX's quantized layer matrices and untied head are [in, out]
+        return {k: _convert(v, dtype, device,
+                            k in ("layers", "lm_head") or transpose)
+                for k, v in value.items()}
     return _tensor(value, dtype, device)
 
 

@@ -9,7 +9,8 @@
   viewed as ``torch.bfloat16``, and written back the same way;
 * :func:`load_llama_checkpoint` — HF names and ``[out, in]`` layouts
   (``model.layers.{i}.self_attn.q_proj.weight``) onto the port's stacked
-  ``[L, in, out]`` tree, ``config.json`` for the architecture and the
+  tree (``[L, in, out]`` plain, ``[L, out, in]`` quantized),
+  ``config.json`` for the architecture and the
   ``model.safetensors.index.json`` weight map for sharded checkpoints,
   tensor by tensor onto the device, with optional int8 / int4
   quantize-on-load (``ops/quant.py``);
@@ -111,12 +112,14 @@ def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor],
 
 # ------------------------------------------------------------ llama map
 #
-# HF linear layers store [out_features, in_features]; the port's products
-# run x @ w with stacked [L, in, out] weights, so every projection
-# transposes on the way through.
+# HF linear layers store [out_features, in_features]. The port's plain
+# products run x @ w with stacked [L, in, out] weights, so an unquantized
+# load transposes every projection on the way through; its quantized
+# matrices are stored [L, out, in] (ops/quant.py), so a quantized load
+# takes HF's layout as it is.
 
 _LAYER_MAP = (
-    # (tree key, HF suffix, transpose)
+    # (tree key, HF suffix, transpose when unquantized)
     ("attn_norm", "input_layernorm.weight", False),
     ("wq", "self_attn.q_proj.weight", True),
     ("wk", "self_attn.k_proj.weight", True),
@@ -261,10 +264,11 @@ def load_llama_checkpoint(directory: str | Path, *,
 
     def stack(key: str, suffix: str, transpose: bool):
         stacked = torch.stack([on_device(f"model.layers.{i}.{suffix}",
-                                         transpose)
+                                         transpose and qfn is None)
                                for i in range(c.n_layers)])
-        # [L, in, out]: reduce the contraction axis; norm gains stay exact
-        return to(stacked, None if key.endswith("_norm") else 1)
+        # quantized [L, out, in]: reduce the contraction axis; norm gains
+        # stay exact
+        return to(stacked, None if key.endswith("_norm") else 2)
 
     params: dict = {
         # embed [V, D]: per-row scales serve the gather AND the tied head
@@ -273,8 +277,8 @@ def load_llama_checkpoint(directory: str | Path, *,
                    for key, suffix, tr in _LAYER_MAP},
         "final_norm": on_device("model.norm.weight"),
     }
-    if not c.tie_embeddings:
-        params["lm_head"] = to(on_device("lm_head.weight", True), 0)
+    if not c.tie_embeddings:   # [V, D] quantized, [D, V] plain
+        params["lm_head"] = to(on_device("lm_head.weight", qfn is None), 1)
     return params, config
 
 

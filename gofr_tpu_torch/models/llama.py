@@ -1,11 +1,13 @@
 """Llama-3-family decoder (counterpart of ``gofr_tpu/models/llama.py``).
 
 Parameters are a plain dict with the JAX package's structure: stacked
-per-layer weights under ``"layers"`` (leading ``L`` axis), matrices in
-``[in, out]`` layout so every product reads ``x @ w``. Layers run as a
-Python loop over the stacked weights (``layers[name][li]`` is a view).
-bf16 params/activations, float32 norms/softmax/logits. Every matrix
-product and the embedding gather go through ``ops/quant.py``
+per-layer weights under ``"layers"`` (leading ``L`` axis), plain matrices
+in ``[in, out]`` layout so their products read ``x @ w``; quantized
+matrices (``{"q", "s"}`` leaves) are stored ``[out, in]`` and read
+``x @ w.T``. Layers run as a Python loop over the stacked weights
+(``layers[name][li]`` is a view). bf16 params/activations, float32
+norms/softmax/logits. Every matrix product and the embedding gather go
+through ``ops/quant.py``
 (``qmatmul`` / ``qmatmul_t`` / ``qgather``), so a tree quantized by
 ``quantize_llama_int8`` / ``_int4`` (``{"q", "s"}`` leaves) runs the same
 functions: on CUDA its decode-sized products and every LM head through
@@ -141,11 +143,13 @@ def _layer(params: dict, li: int) -> dict:
 
 
 def _mm(x: torch.Tensor, w, implementation: str = "auto") -> torch.Tensor:
-    """x @ w: plain weights in their dtype (bf16 in serving: float32
-    accumulation inside the GEMM, bf16 out), quantized ones through
-    ``qmatmul`` (the scale after the product; ``"plain"`` forces its
-    plain version)."""
-    return qmatmul(x, w, plain=implementation == "plain")
+    """x @ w: plain ``[in, out]`` weights in their dtype (bf16 in
+    serving: float32 accumulation inside the GEMM, bf16 out), quantized
+    ``[out, in]`` ones through ``qmatmul_t`` (the scale after the
+    product; ``"plain"`` forces its plain version)."""
+    if is_quantized(w):
+        return qmatmul_t(x, w, plain=implementation == "plain")
+    return qmatmul(x, w)
 
 
 # --------------------------------------------------------------- forward
@@ -176,17 +180,16 @@ def _mlp_block(x, lp, c: LlamaConfig, implementation: str = "auto"):
 
 def _logits(params, c: LlamaConfig, x, implementation: str = "auto"):
     """Final norm + LM head, float32 logits. The tied head is
-    ``x @ embed.T``; on CUDA a bf16 head runs as a bf16 GEMM with a
-    float32 output (float32 accumulation, as the JAX head's
-    ``preferred_element_type``), a quantized one through the kernel with
-    a float32 output and scale."""
+    ``x @ embed.T``, a quantized head (``[V, D]``, tied or not) too; on
+    CUDA a bf16 head runs as a bf16 GEMM with a float32 output (float32
+    accumulation, as the JAX head's ``preferred_element_type``), a
+    quantized one through the kernel with a float32 output and scale."""
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     plain = implementation == "plain"
-    if c.tie_embeddings:
-        return qmatmul_t(x, params["embed"], out_dtype=torch.float32,
-                         plain=plain)
-    return qmatmul(x, params["lm_head"], out_dtype=torch.float32,
-                   plain=plain)
+    head = params["embed"] if c.tie_embeddings else params["lm_head"]
+    if c.tie_embeddings or is_quantized(head):   # [V, D]
+        return qmatmul_t(x, head, out_dtype=torch.float32, plain=plain)
+    return qmatmul(x, head, out_dtype=torch.float32)
 
 
 def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,

@@ -5,23 +5,30 @@ GEMM kernel ``csrc/wq_gemm.cu``.
 A quantized matrix is the dict ``{"q": codes, "s": float32 scales}``
 with the JAX package's keys. Scales are per output channel: max-abs over
 the contraction axis over 127 (int8) or 8 (int4, the full two's
-complement range [-8, 7]), so ``x @ q * s`` applies the scale after the
-product. Layer matrices ``[L, in, out]`` carry scales ``[L, 1, out]``,
-the embedding ``[V, D]`` per-row scales ``[V, 1]`` (they serve the
-gather and, tied, the LM head), an untied head ``[D, V]`` scales
-``[1, V]``.
+complement range [-8, 7]), so the scale applies after the product.
 
-Storage: int8 codes are an ``int8`` tensor of the weight's shape. int4
-codes are **packed two per byte along the last axis** into a ``uint8``
+One layout. In the port's trees every quantized matrix is stored
+output-major, ``[N, K]`` (output channels by the contraction, the
+contraction contiguous): layer matrices ``[L, out, in]`` with scales
+``[L, out, 1]``, an untied head ``[V, D]`` with ``[V, 1]``, the
+embedding ``[V, D]`` with per-row scales ``[V, 1]`` (they serve the
+gather and, tied, the LM head). ``quantize_llama_int8`` / ``_int4``
+transpose each layer matrix and an untied head (plain leaves keep JAX's
+``[in, out]``) before they quantize, reducing ``in``, so the codes are
+JAX's codes transposed bit for bit. Every quantized product is
+``x @ W^T`` (:func:`qmatmul_t`), one kernel layout for all of them.
+:func:`quantize_int8` / :func:`quantize_int4` keep JAX's contract on one
+matrix (codes in the weight's shape), and :func:`qmatmul` of a quantized
+``[K, N]`` matrix stays JAX's function on CPU tensors — on CUDA it
+raises, naming the ``[N, K]`` layout.
+
+Storage: int8 codes are an ``int8`` tensor. int4 codes are **packed two
+per byte along the last axis** (K in the port's trees) into a ``uint8``
 tensor whose last axis is half the weight's: byte ``c`` holds element
 ``2c`` in its low nibble and ``2c + 1`` in its high nibble, each a
 4-bit two's-complement value (sign-extended on unpack). The dtype of
-``q`` tells the two forms apart. The last axis is the one the kernel
-reads contiguously in both of its layouts (the output channels of a
-``[K, N]`` layer matrix, the contraction axis of the ``[N, K]`` tied
-head), so a 16-byte load holds 32 codes of one row.
-:func:`quantized_bytes` counts what is stored: half a byte per int4
-code, one per int8 code, four per scale.
+``q`` tells the two forms apart. :func:`quantized_bytes` counts what is
+stored: half a byte per int4 code, one per int8 code, four per scale.
 
 Products route by the number of rows M (a fixed rule, not a fallback):
 on CUDA the kernel takes every product with ``M <= M_MAX`` (the decode
@@ -48,10 +55,13 @@ import torch
 
 from . import _build
 
-#: the kernel takes backbone products of at most this many rows: the
-#: decode step (max_batch = 8) and the tree verify (8 rows x a 16-node
-#: width bucket); wider products dequantize and call torch.matmul
-M_MAX = 128
+#: the kernel takes backbone products of at most this many rows — the
+#: decode step (max_batch = 8), the tree verify (8 rows x a 16-node
+#: width bucket) and group prefills of up to 512 tokens; wider products
+#: dequantize and call torch.matmul. The crossing measured on the H100
+#: at w1's shape (scripts/torch_wq_gemm_bench.py --sweep): int8 between
+#: 512 and 1024 rows (int4 past 2048)
+M_MAX = 512
 #: the scale's divisor per form
 _QMAX = {"int8": 127.0, "int4": 8.0}
 
@@ -135,62 +145,68 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def wq_gemm_plain(x: torch.Tensor, w: dict, *, trans: bool = False,
-                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The plain version of :func:`wq_gemm`, on any device: the codes
-    dequantized into a scratch in ``x``'s dtype, one product, then the
-    scale — JAX's ``qmatmul`` (``trans=False``) / ``qmatmul_t``
-    (``trans=True``, the ``[N, K]`` tied head). ``out_dtype`` float32:
-    a float32 product times the float32 scale; else the product in
-    ``x``'s dtype times the scale cast to it."""
-    codes = codes_of(w).to(x.dtype)
-    if trans:
-        codes = codes.t()
-    s = w["s"].reshape(-1) if trans else w["s"]
+def _scaled_product(x: torch.Tensor, codes: torch.Tensor, s: torch.Tensor,
+                    out_dtype: torch.dtype | None) -> torch.Tensor:
+    """(x @ codes) * s for int8 codes [K, N] and scales [N]: the codes
+    widened to ``x``'s dtype, one product, then the scale — a float32
+    product times the float32 scale for ``out_dtype`` float32, else the
+    product in ``x``'s dtype times the scale cast to it (JAX's
+    ``qmatmul``)."""
+    codes = codes.to(x.dtype)
     if out_dtype == torch.float32:
-        return _matmul_f32(x, codes) * s.float().reshape(-1)
+        return _matmul_f32(x, codes) * s.float()
     y = torch.matmul(x, codes)
     return y * s.to(y.dtype)
 
 
-def qmatmul(x: torch.Tensor, w: Any, *, out_dtype: torch.dtype | None = None,
-            plain: bool = False) -> torch.Tensor:
-    """x @ w for plain or quantized ``w`` ([K, N]; scale applied after
-    the product). ``out_dtype=torch.float32`` is the LM head's product:
-    float32 out, and on CUDA always the kernel. ``plain`` takes the
-    plain version on any device (the reference the kernel is held
-    against)."""
+def wq_gemm_plain(x: torch.Tensor, w: dict, *,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The plain version of :func:`wq_gemm`, on any device: the ``[N,
+    K]`` codes dequantized into a scratch in ``x``'s dtype, one product
+    with their transpose, then the scale — JAX's ``qmatmul_t``."""
+    return _scaled_product(x, codes_of(w).t(), w["s"].reshape(-1), out_dtype)
+
+
+def qmatmul(x: torch.Tensor, w: Any, *,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x @ w for a plain ``w`` ([K, N]); ``out_dtype=torch.float32`` is
+    a bf16 LM head's product (float32 out). A quantized ``[K, N]``
+    matrix is JAX's layout, which the port's trees do not hold: CPU
+    tensors get JAX's ``qmatmul``, CUDA ones raise (the kernel reads
+    ``[N, K]`` codes through :func:`qmatmul_t`)."""
     if not is_quantized(w):
         if out_dtype == torch.float32:
             return _matmul_f32(x, w)
         return torch.matmul(x.to(w.dtype), w)
-    return _route(x, w, False, out_dtype, plain)
+    if x.device.type != "cpu":
+        raise ValueError(
+            f"qmatmul: a quantized [K, N] matrix on {x.device}: the "
+            "port stores quantized matrices [N, K] (quantize_llama_*, "
+            "params_from_jax, load_llama_checkpoint) and multiplies them "
+            "with qmatmul_t")
+    return _scaled_product(x, codes_of(w), w["s"].reshape(-1), out_dtype)
 
 
 def qmatmul_t(x: torch.Tensor, w: Any, *,
               out_dtype: torch.dtype | None = None,
               plain: bool = False) -> torch.Tensor:
-    """x @ w.T for plain or quantized ``w`` ([N, K]) — the tied
-    embedding's LM head: the table's per-row scales [V, 1] are the
-    head's per-output-channel scales."""
+    """x @ w.T for plain or quantized ``w`` ([N, K], scales [N, 1]) —
+    every quantized product of the port: layer matrices, an untied head,
+    the tied embedding's head. ``out_dtype=torch.float32`` is the LM
+    head's product: float32 out, and on CUDA always the kernel.
+    ``plain`` takes the plain version on any device (the reference the
+    kernel is held against)."""
     if not is_quantized(w):
         if out_dtype == torch.float32:
             return _matmul_f32(x, w.t())
         return torch.matmul(x.to(w.dtype), w.t())
-    return _route(x, w, True, out_dtype, plain)
-
-
-def _route(x, w, trans, out_dtype, plain):
-    """The M rule: the kernel for CUDA products of at most ``M_MAX``
-    rows and for every head; the plain version for CPU tensors, for the
-    wide backbone products, and when asked for."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if plain or x.device.type == "cpu" or route_of(
             x2.shape[0], head=out_dtype == torch.float32) != "wq_gemm":
-        y = wq_gemm_plain(x2, w, trans=trans, out_dtype=out_dtype)
+        y = wq_gemm_plain(x2, w, out_dtype=out_dtype)
     else:
-        y = wq_gemm(x2, w, trans=trans, out_dtype=out_dtype)
+        y = wq_gemm(x2, w, out_dtype=out_dtype)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -225,20 +241,23 @@ def quantized_bytes(tree: Any) -> int:
 def _quantize_llama(params: dict, qfn) -> dict:
     out: dict = {"final_norm": params["final_norm"]}
     out["layers"] = {
-        # [L, in, out]: reduce axis 1 -> scales [L, 1, out]
-        name: w if name.endswith("_norm") else qfn(w, axis=1)
+        # [L, in, out] -> [L, out, in], reduce in -> scales [L, out, 1]
+        name: w if name.endswith("_norm")
+        else qfn(w.transpose(1, 2).contiguous(), axis=2)
         for name, w in params["layers"].items()}
     # embed [V, D]: per-row scales serve the gather AND the tied head
     out["embed"] = qfn(params["embed"], axis=1)
-    if "lm_head" in params:  # [D, V]: reduce axis 0
-        out["lm_head"] = qfn(params["lm_head"], axis=0)
+    if "lm_head" in params:  # [D, V] -> [V, D], reduce D
+        out["lm_head"] = qfn(params["lm_head"].t().contiguous(), axis=1)
     return out
 
 
 def quantize_llama_int8(params: dict) -> dict:
-    """Quantize a Llama tree: the seven per-layer matrices ([L, in,
-    out], reduce ``in``), the embedding (per row) and an untied head;
-    norm gains pass through untouched."""
+    """Quantize a Llama tree into the port's ``[N, K]`` layout: the
+    seven per-layer matrices (``[L, in, out]`` stored ``[L, out, in]``,
+    reduce ``in``), the embedding (per row) and an untied head (``[D,
+    V]`` stored ``[V, D]``); norm gains pass through untouched. The
+    codes and scales are JAX's ``quantize_llama_int8``'s transposed."""
     return _quantize_llama(params, quantize_int8)
 
 
@@ -249,15 +268,14 @@ def quantize_llama_int4(params: dict) -> dict:
 
 # ------------------------------------------------------------ the kernel
 
-#: C entry by code form; each takes (x, q, s, y, M, N, K, trans,
-#: out_f32, n_splits, stream)
+#: C entry by code form; each takes (x, q, s, y, M, N, K, out_f32,
+#: n_splits, groups, stream)
 _SYMBOLS = {False: "gofr_wq_gemm_i8", True: "gofr_wq_gemm_i4"}
 _fns: dict = {}
-#: the C source's tile: output columns per block, per layout
-BLOCK_N = {False: 128, True: 32}
-#: contraction depth one warp step covers, per (trans, int4)
-STEP_K = {(False, False): 16, (False, True): 16, (True, False): 64,
-          (True, True): 128}
+#: the C source's tile: output channels a consumer warpgroup (wgmma's
+#: M), and the contraction one stage covers (128 code bytes a channel)
+BLOCK_N = 64
+STAGE_K = {False: 128, True: 256}
 #: the most splits of the contraction a cluster takes (the portable size)
 MAX_SPLITS = 8
 _SMS = 132
@@ -274,28 +292,38 @@ def _kernel(int4: bool):
     return fn
 
 
-def row_tiles(m: int, trans: bool) -> tuple[int, int]:
-    """(16-row tiles a block holds, blocks along M): the ``[K, N]``
-    layout holds one tile, the ``[N, K]`` head up to two."""
-    mt = 2 if trans and m > 16 else 1
-    return mt, -(-m // (16 * mt))
+def row_tile(m: int) -> int:
+    """Rows of x a block holds (wgmma's N): M rounded up to 8, 16, 32
+    or 64, else tiles of 128."""
+    return next((r for r in (8, 16, 32, 64) if m <= r), 128)
 
 
-def wq_splits(m: int, n: int, k: int, *, trans: bool, int4: bool) -> int:
+def wq_groups(m: int, n: int) -> int:
+    """Consumer warpgroups a block, 64 output channels each, sharing the
+    block's x tile: two where the x tile is 64 rows or more and the
+    product has output channels for two waves of blocks (the LM head),
+    which halves the x tiles read from L2; else one."""
+    return 2 if row_tile(m) >= 64 and -(-n // BLOCK_N) >= 2 * _SMS else 1
+
+
+def wq_splits(m: int, n: int, k: int, *, int4: bool,
+              groups: int = 1) -> int:
     """S, the blocks of one thread-block cluster that split the
-    contraction (shapes only): doubled from 1 while the grid holds fewer
-    blocks than an H100 has SMs and every warp of every split keeps at
-    least one step of the contraction (past one block per SM a split
-    adds merge work, not bandwidth)."""
-    blocks = -(-n // BLOCK_N[trans]) * row_tiles(m, trans)[1]
-    steps = k // STEP_K[(trans, int4)]
+    contraction (shapes only): doubled from 1 while the doubled grid
+    still fits the card's SMs — half of them for x tiles of 64 rows or
+    more, whose blocks each fill an SM's shared memory and whose merge
+    moves 32 KB partial tiles — and every split keeps a stage of the
+    contraction (past that a split adds merge work, not bandwidth)."""
+    blocks = -(-n // (BLOCK_N * groups)) * -(-m // row_tile(m))
+    target = _SMS // 2 if row_tile(m) >= 64 else _SMS
+    steps = -(-k // STAGE_K[int4])
     s = 1
-    while s < MAX_SPLITS and blocks * s < _SMS and steps >= 4 * 2 * s:
+    while s < MAX_SPLITS and blocks * 2 * s <= target and steps >= 2 * s:
         s *= 2
     return s
 
 
-def _check(x, w, trans, out_dtype):
+def _check(x, w, out_dtype):
     if x.device.type != "cuda":
         raise ValueError(f"wq_gemm: no kernel for device {x.device}")
     q, s = w["q"], w["s"]
@@ -309,17 +337,13 @@ def _check(x, w, trans, out_dtype):
     if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise TypeError(f"wq_gemm: out_dtype must be bfloat16 or float32, "
                         f"got {out_dtype}")
-    rows, cols = q.shape
-    if int4:
-        cols *= 2
-    n, k = (rows, cols) if trans else (cols, rows)
+    n, k = q.shape[0], q.shape[1] * (2 if int4 else 1)
     if x.shape[1] != k:
         raise ValueError(f"wq_gemm: x {tuple(x.shape)} does not contract "
-                         f"with codes {tuple(q.shape)} (trans={trans})")
-    step = STEP_K[(trans, int4)]
-    if k % step or (not trans and n % 16):
-        raise ValueError(f"wq_gemm: K={k} must be a multiple of {step}"
-                         + ("" if trans else f" and N={n} of 16"))
+                         f"with [N, K] codes {tuple(q.shape)}")
+    step = 32 if int4 else 16
+    if k % step:
+        raise ValueError(f"wq_gemm: K={k} must be a multiple of {step}")
     if s.dtype != torch.float32 or s.numel() != n:
         raise TypeError(f"wq_gemm: scales must be {n} float32 values, got "
                         f"{s.dtype} {tuple(s.shape)}")
@@ -333,33 +357,34 @@ def _check(x, w, trans, out_dtype):
     return int4, n, k
 
 
-def wq_gemm(x: torch.Tensor, w: dict, *, trans: bool = False,
+def wq_gemm(x: torch.Tensor, w: dict, *,
             out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """y [M, N] = (x [M, K] @ dequant(q)) * s through the kernel.
+    """y [M, N] = (x [M, K] @ dequant(q)^T) * s through the kernel.
 
-    ``w`` is a quantized 2-D leaf: codes ``[K, N]`` (``trans=False``:
-    layer matrices, the untied head) or ``[N, K]`` (``trans=True``: the
-    tied head), int8 or packed int4 (uint8, last axis halved), and N
-    float32 scales. x is bf16. ``out_dtype`` float32 gives
-    ``acc * s`` (the head); else bf16 ``bf16(bf16(acc) * bf16(s))``, the
-    plain version's two roundings. CPU tensors run
-    :func:`wq_gemm_plain`; CUDA tensors launch the kernel on the current
-    stream (no host sync, no allocation beyond the output, so a CUDA
-    graph can hold it) or raise — there is no fallback. Counts
-    ``wq_gemm.launches`` (int8) / ``wq_gemm.launches_int4``."""
+    ``w`` is a quantized 2-D leaf in the port's layout: codes ``[N, K]``
+    (a layer matrix, an untied head, the tied embedding), int8 or packed
+    int4 (uint8, K halved), and N float32 scales. x is bf16.
+    ``out_dtype`` float32 gives ``acc * s`` (the head); else bf16
+    ``bf16(bf16(acc) * bf16(s))``, the plain version's two roundings.
+    CPU tensors run :func:`wq_gemm_plain`; CUDA tensors launch the
+    kernel on the current stream (no host sync, no allocation beyond the
+    output, so a CUDA graph can hold it) or raise — there is no
+    fallback. Counts ``wq_gemm.launches`` (int8) /
+    ``wq_gemm.launches_int4``."""
     if x.device.type == "cpu":
-        return wq_gemm_plain(x, w, trans=trans, out_dtype=out_dtype)
-    int4, n, k = _check(x, w, trans, out_dtype)
+        return wq_gemm_plain(x, w, out_dtype=out_dtype)
+    int4, n, k = _check(x, w, out_dtype)
     m = x.shape[0]
     f32 = out_dtype == torch.float32
     y = torch.empty(m, n, device=x.device,
                     dtype=torch.float32 if f32 else torch.bfloat16)
     if m == 0:
         return y
-    splits = wq_splits(m, n, k, trans=trans, int4=int4)
+    groups = wq_groups(m, n)
+    splits = wq_splits(m, n, k, int4=int4, groups=groups)
     rc = _kernel(int4)(
         x.data_ptr(), w["q"].data_ptr(), w["s"].data_ptr(), y.data_ptr(),
-        m, n, k, int(trans), int(f32), splits,
+        m, n, k, int(f32), splits, groups,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wq_gemm{'_int4' if int4 else ''} kernel launch "

@@ -41,13 +41,15 @@ and pools bit for bit, for an all-greedy batch and a mixed one, on both
 pool forms; and a replay on a pool that is not the captured one raises.
 
 The weight-dequantizing GEMM (``ops/quant.wq_gemm``, int8 and packed
-int4 codes, ``[K, N]`` and ``[N, K]`` layouts, rows 1 to 128, ragged N
-for the ``[N, K]`` head) must agree with its plain version within ATOL +
-2 RTOL |ref| for the bf16 output (rounded twice on each side: the
-product, then the product times the scale) and ATOL + RTOL |ref| for
-the float32 head, give the same bits on a second call, and raise on
-what it does not take; and the decode graph's replay must equal the
-uncaptured pass bit for bit with int8 and int4 weights.
+int4 codes in the one ``[N, K]`` layout: every llama3_1b product and
+ragged N and K, rows 1 to 200, M not a multiple of 8 among them) must
+agree with its plain version within ATOL + 2 RTOL |ref| for the bf16
+output (rounded twice on each side: the product, then the product times
+the scale) and ATOL + RTOL |ref| for the float32 head, give the same
+bits on a second call, fail with its codes read transposed, and raise
+on what it does not take (JAX's ``[K, N]`` layout included); and the
+decode graph's replay must equal the uncaptured pass bit for bit with
+int8 and int4 weights.
 """
 
 import pytest
@@ -727,32 +729,32 @@ def test_launch_into_an_uncollected_ring_buffer_raises(dev):
     assert tokens.shape == (4, 4)
 
 
-#: (layout, K, N) of the weight-dequantizing GEMM's cases: [K, N] layer
-#: matrices (N a multiple of 16) and [N, K] heads with a ragged N
-WQ_CASES = [(False, 64, 16), (False, 256, 48), (False, 2048, 512),
-            (False, 8192, 2048), (True, 128, 40), (True, 256, 8),
-            (True, 2048, 1000)]
+#: (K, N, head) of the weight-dequantizing GEMM's cases, every matrix
+#: [N, K]: llama3_1b's products (wq, wk, w1, w2, the head) and ragged
+#: ones (N not a multiple of the 64-channel tile, K not of a stage)
+WQ_CASES = [(2048, 2048, False), (2048, 512, False), (2048, 8192, False),
+            (8192, 2048, False), (2048, 128256, True), (2048, 1000, False),
+            (224, 136, False), (128, 40, True), (256, 8, True)]
+WQ_ROWS = (1, 3, 8, 16, 17, 40, 64, 128, 200)
 
 
-def _wq_pair(dev, gen, form, trans, k, n):
+def _wq_pair(dev, gen, form, k, n):
     qfn = quant.quantize_int8 if form == "int8" else quant.quantize_int4
-    if trans:
-        return qfn(_randn(gen, dev, n, k), axis=1)
-    return qfn(_randn(gen, dev, k, n), axis=0)
+    return qfn(_randn(gen, dev, n, k), axis=1)
 
 
 @pytest.mark.parametrize("form", ["int8", "int4"])
-@pytest.mark.parametrize("trans,k,n", WQ_CASES)
-def test_wq_gemm_kernel_matches_plain(dev, form, trans, k, n):
+@pytest.mark.parametrize("k,n,head", WQ_CASES)
+def test_wq_gemm_kernel_matches_plain(dev, form, k, n, head):
     gen = torch.Generator(device=dev).manual_seed(k + n)
-    w = _wq_pair(dev, gen, form, trans, k, n)
-    out_dtype = torch.float32 if trans else None
-    for m in (1, 3, 16, 17, 40, 128):
+    w = _wq_pair(dev, gen, form, k, n)
+    out_dtype = torch.float32 if head else None
+    for m in WQ_ROWS:
         x = _randn(gen, dev, m, k)
-        got = quant.wq_gemm(x, w, trans=trans, out_dtype=out_dtype)
-        want = quant.wq_gemm_plain(x, w, trans=trans, out_dtype=out_dtype)
+        got = quant.wq_gemm(x, w, out_dtype=out_dtype)
+        want = quant.wq_gemm_plain(x, w, out_dtype=out_dtype)
         assert got.dtype == want.dtype and got.shape == (m, n)
-        if trans:
+        if head:
             limit = ATOL_F32 + RTOL_F32 * want.abs()
             # a head rounded to bf16 (its accumulator or its output) fails
             rounded = got.bfloat16().float()
@@ -760,13 +762,19 @@ def test_wq_gemm_kernel_matches_plain(dev, form, trans, k, n):
         else:
             limit = ATOL + 2 * RTOL * want.float().abs()
         assert ((got.float() - want.float()).abs() <= limit).all(), m
-        again = quant.wq_gemm(x, w, trans=trans, out_dtype=out_dtype)
+        again = quant.wq_gemm(x, w, out_dtype=out_dtype)
         assert torch.equal(got, again)            # deterministic merge
+        if form == "int8" and k == n and m in (8, 128):
+            # the codes read transposed ([K, N] taken for [N, K]) fail
+            bad = {"q": w["q"].t().contiguous(), "s": w["s"]}
+            wrong = quant.wq_gemm(x, bad, out_dtype=out_dtype)
+            assert not ((wrong.float() - want.float()).abs()
+                        <= limit).all(), m
 
 
 def test_wq_gemm_raises_on_what_the_kernel_does_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
-    w = _wq_pair(dev, gen, "int8", False, 64, 32)
+    w = _wq_pair(dev, gen, "int8", 64, 32)               # [N 32, K 64]
     x = _randn(gen, dev, 4, 64)
     with pytest.raises(TypeError, match="bfloat16"):
         quant.wq_gemm(x.float(), w)
@@ -774,8 +782,12 @@ def test_wq_gemm_raises_on_what_the_kernel_does_not_take(dev):
         quant.wq_gemm(_randn(gen, dev, 4, 48), w)
     with pytest.raises(ValueError, match="multiple"):
         quant.wq_gemm(_randn(gen, dev, 4, 40),
-                      _wq_pair(dev, gen, "int8", False, 40, 32))
+                      _wq_pair(dev, gen, "int8", 40, 32))
     with pytest.raises(ValueError, match="contiguous"):
         quant.wq_gemm(_randn(gen, dev, 64, 8).t(), w)
     with pytest.raises(TypeError, match="scales"):
         quant.wq_gemm(x, {"q": w["q"], "s": w["s"].half()})
+    # a quantized [K, N] leaf is JAX's layout: no product on the card
+    with pytest.raises(ValueError, match=r"\[N, K\]"):
+        quant.qmatmul(x, quant.quantize_int8(_randn(gen, dev, 64, 32),
+                                             axis=0))

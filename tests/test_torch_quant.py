@@ -6,7 +6,13 @@ against the JAX package's (``gofr_tpu/ops/quant.py``), on the CPU.
   int4 codes round-trip through the two-per-byte packing.
 - ``qmatmul`` / ``qmatmul_t`` / ``qgather`` agree with JAX's: float32
   within atol 1e-5 (the same products summed in another order), the
-  gather bit for bit (the same two exact operands and one rounding).
+  gather bit for bit (the same two exact operands and one rounding);
+  ``qmatmul_t`` of the port's ``[N, K]`` leaf gives JAX's ``qmatmul`` of
+  the ``[K, N]`` one, and ``qmatmul`` of a quantized leaf raises on a
+  tensor that is not on the CPU.
+- ``quantize_llama_*`` lays every quantized matrix out ``[N, K]``: the
+  codes are JAX's transposed bit for bit (int4 packed along K), the
+  scales JAX's transposed.
 - ``quantized_bytes`` counts what JAX's counts, int4 at half a byte.
 - ``params_from_jax`` carries JAX's quantized trees leaf for leaf as
   the port's own quantizer lays them out.
@@ -22,6 +28,7 @@ because the tensors lie on the CPU.
 """
 
 import time
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -138,10 +145,83 @@ def test_qmatmul_qmatmul_t_and_qgather_match_jax(form):
         assert got.dtype == dtype
         np.testing.assert_array_equal(
             got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # the port's [N, K] layout: x @ W^T gives JAX's x @ W
+    tn = qt(torch.from_numpy(w.T.copy()), axis=1)
+    np.testing.assert_allclose(tq.qmatmul_t(tx, tn).numpy(),
+                               np.asarray(jq.qmatmul(jnp.asarray(x), jw)),
+                               atol=1e-5)
     # the wrapper on CPU tensors is its plain version
     torch.testing.assert_close(
-        tq.wq_gemm(tx.reshape(-1, 64), tw),
-        tq.wq_gemm_plain(tx.reshape(-1, 64), tw), rtol=0, atol=0)
+        tq.wq_gemm(tx.reshape(-1, 64), tn),
+        tq.wq_gemm_plain(tx.reshape(-1, 64), tn), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("device", ["cuda", "meta"])
+def test_qmatmul_of_a_quantized_leaf_raises_off_the_cpu(device):
+    """A quantized [K, N] matrix off the CPU is a layout the port's trees
+    do not hold: qmatmul names the [N, K] one and never dequantizes."""
+    w = tq.quantize_int8(torch.randn(64, 48), axis=0)
+    x = torch.empty(5, 64, dtype=torch.bfloat16, device="meta")
+    if device == "cuda":   # a stand-in: only its device is read
+        x = mock.Mock(device=torch.device("cuda", 0))
+    with mock.patch.object(tq, "_scaled_product",
+                           side_effect=AssertionError("dequantized")), \
+            mock.patch.object(tq, "codes_of",
+                              side_effect=AssertionError("dequantized")):
+        with pytest.raises(ValueError, match=r"\[N, K\].*qmatmul_t"):
+            tq.qmatmul(x, w)
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (8, 2048, 2048, (1, 4)), (8, 512, 2048, (1, 8)), (8, 8192, 2048, (1, 1)),
+    (8, 2048, 8192, (1, 4)), (8, 128256, 2048, (1, 1)),
+    (128, 2048, 2048, (1, 2)), (128, 512, 2048, (1, 8)),
+    (128, 8192, 2048, (1, 1)), (128, 2048, 8192, (1, 2)),
+    (128, 128256, 2048, (2, 1)), (512, 2048, 2048, (1, 1))])
+def test_wq_tile_rules_follow_the_shapes(m, n, k, want):
+    """The kernel's warpgroups a block and cluster splits come from the
+    shapes alone (llama3_1b's products at the decode step's 8 rows, the
+    verify's 128 and a 512-row prefill), the same for both code
+    forms."""
+    groups = tq.wq_groups(m, n)
+    for int4 in (False, True):
+        assert (groups, tq.wq_splits(m, n, k, int4=int4, groups=groups)) \
+            == want
+    assert tq.row_tile(m) == {8: 8, 128: 128, 512: 128}[m]
+
+
+def _swap(a):
+    return np.swapaxes(np.asarray(a), -1, -2)
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
+def test_quantize_llama_is_jax_transposed_bit_for_bit(form, tie):
+    jc, jparams, tc, tparams = _converted(tie)
+    jtree = getattr(jq, f"quantize_llama_{form}")(jparams)
+    ttree = getattr(tq, f"quantize_llama_{form}")(tparams)
+    pairs = [(f"layers/{k}", jtree["layers"][k], ttree["layers"][k], True)
+             for k in ttree["layers"] if tq.is_quantized(ttree["layers"][k])]
+    pairs.append(("embed", jtree["embed"], ttree["embed"], False))
+    if not tie:
+        pairs.append(("lm_head", jtree["lm_head"], ttree["lm_head"], True))
+    assert len(pairs) == 7 + 1 + (not tie)
+    for name, j, t, transposed in pairs:
+        want_q = _jax_codes(j["q"])
+        want_s = np.asarray(j["s"])
+        if transposed:   # [.., in, out] -> [.., out, in]
+            want_q, want_s = _swap(want_q), _swap(want_s)
+        np.testing.assert_array_equal(tq.codes_of(t).numpy(), want_q,
+                                      err_msg=name)
+        np.testing.assert_array_equal(t["s"].numpy(), want_s, err_msg=name)
+        assert t["s"].shape[-1] == 1, name       # per output channel
+        assert t["q"].is_contiguous(), name
+        if form == "int4":   # packed two a byte along K, the last axis
+            assert t["q"].dtype == torch.uint8, name
+            assert t["q"].shape[-1] * 2 == want_q.shape[-1], name
+            torch.testing.assert_close(
+                t["q"], tq.pack_int4(torch.from_numpy(want_q.copy())),
+                rtol=0, atol=0, msg=name)
 
 
 def test_quantized_bytes_matches_jax():
@@ -198,7 +278,8 @@ def test_params_from_jax_carries_quantized_trees(form, tie):
                                    msg=name)
     code_dtype = torch.int8 if form == "int8" else torch.uint8
     assert gl["/embed/q"].dtype == code_dtype
-    assert gl["/layers/wq/s"].shape == (2, 1, 64)
+    assert gl["/layers/wq/q"].shape[:2] == (2, 64)   # [L, out, in]
+    assert gl["/layers/wq/s"].shape == (2, 64, 1)
     assert gl["/layers/attn_norm"].dtype == torch.float32
 
 
@@ -338,14 +419,14 @@ def test_engine_with_quantized_weights_matches_jax_engine(form, extra):
 
 
 @pytest.mark.parametrize("extra,rows", [
-    ({"max_batch": 129}, 129),
-    ({"max_batch": 16, "speculative": True}, 256),
-    ({"max_batch": 8, "speculative": True, "spec_draft": 8}, 256)])
+    ({"max_batch": 513}, 513),
+    ({"max_batch": 64, "speculative": True}, 1024),
+    ({"max_batch": 32, "speculative": True, "spec_draft": 8}, 1024)])
 def test_llama_engine_rejects_products_wider_than_the_kernel(extra, rows):
     """Quantized weights: a decode step or verify pass wider than M_MAX
     rows would send its products down the dequantizing route, so the
-    engine is refused (quantized here or beforehand); the serving
-    configuration's 8 slots x a 16-node bucket fit exactly."""
+    engine is refused (quantized here or beforehand); 32 slots x a
+    16-node bucket fit exactly."""
     _, _, tc, tparams = _converted(False)
     cfg = EngineConfig(max_seq=128, page_size=16, **extra)
     assert kernel_rows(cfg) == rows
@@ -353,11 +434,12 @@ def test_llama_engine_rejects_products_wider_than_the_kernel(extra, rows):
                            (None, tq.quantize_llama_int4(tparams))):
         with pytest.raises(ValueError, match=f"have {rows} rows, above "
                                              f"the weight-dequantizing "
-                                             f"kernel's M_MAX = 128"):
+                                             f"kernel's M_MAX = "
+                                             f"{tq.M_MAX}"):
             llama_engine(tree, tc, cfg, device="cpu", quantize=quantize)
-    fits = EngineConfig(max_seq=128, page_size=16, max_batch=8,
+    fits = EngineConfig(max_seq=128, page_size=16, max_batch=32,
                         speculative=True)
-    assert kernel_rows(fits) == tq.M_MAX
+    assert kernel_rows(fits) == tq.M_MAX == 512
     assert tq.is_quantized(llama_engine(tparams, tc, fits, device="cpu",
                                         quantize="int8").params["embed"])
 
