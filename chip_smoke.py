@@ -38,16 +38,29 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              both forms. Then the same checks and times for one request
              (B=1, S=8): decode over 2047 rows, a tree verify over 1900
              history rows, both forms (their own kernel lines). Then the
-             KV write kernel (``kv_write``, both forms) at a decode
-             step's 8 rows on the serve pool, 3 of them out of range:
-             its pools must equal the plain version's bit for bit, and
-             a planted fault (bf16 rows one offset late, int8 V scales
-             shifted one row) must not; and at the group prefill's slab
-             through ``scatter_chunk_kv`` (P = 8 in the 512-row bucket:
-             6 x 301 rows, 2 dummy rows on all-OOB tables), both forms,
-             bit for bit against ``scatter_chunk_kv_plain`` with rows
-             written one offset late as the planted fault: thirteen
-             rows. Then the weight-dequantizing GEMM (``wq_gemm``, int8
+             KV write kernel's three entries, both forms: the per-layer
+             write (``kv_write``, off the main path since the fused
+             entry took the steps' write) at a decode step's 8 rows on
+             the serve pool, 3 of them out of range: its pools must
+             equal the plain version's bit for bit, and a planted fault
+             (bf16 rows one offset late, int8 V scales shifted one row)
+             must not; the slab write at the group prefill's slab
+             through ``scatter_chunk_kv``, one launch for every layer (P
+             = 8 in the 512-row bucket: 6 x 301 rows, 2 dummy rows on
+             all-OOB tables), bit for bit against
+             ``scatter_chunk_kv_plain`` with rows written one offset
+             late as the planted fault; and the fused RoPE + K/V write
+             (``rope_kv_write``) at the decode step's 8 rows (positions
+             0-2047) and at a verify's 8 x 16 tree nodes (RoPE at the
+             depth, rows at the node index, Llama-3.2 ``rope_scaling``),
+             rotated q and pools bit for bit against
+             ``rope_kv_write_plain``, with positions one late, the
+             rotate-half sign flipped and, for int8, the amax taken
+             before the bf16 rounding as planted faults; beside each,
+             ``index_copy_`` of the in-range rows as the nearest library
+             path, and for the fused rows the unfused ``apply_rope`` x 2
+             + ``kv_write``: seventeen rows. Then the
+             weight-dequantizing GEMM (``wq_gemm``, int8
              and int4 codes) at llama3_1b's products — wq, wk, w1, w2
              and the tied head, every matrix in the one ``[N, K]``
              layout — at M = 1, 8 and 128 against its plain version
@@ -96,13 +109,17 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              greedy and a mixed batch: the graph's replay against the
              uncaptured pass on the same state and cloned pools, bit for
              bit; a replay fed stale tables (a planted fault) must not
-             agree; replay and uncaptured ms per dispatch.
+             agree; every replay writes through ``rope_kv_write`` once a
+             layer and step and never through ``kv_write``; replay and
+             uncaptured ms per dispatch, launches per replay.
 5. serve   — the port's HTTP app (``gofr_tpu_torch.serving.app``) on a
              free port: 4 concurrent greedy ``POST /chat`` requests, an
              1801-token prompt (walked in chunks, not clamped), then 3
              requests that hit the prefix cache; every kernel's launch
-             counter, zeroed just before, must rise (the KV write
-             kernel's too). Every serve run prints the dispatch
+             counter, zeroed just before, must rise (the fused RoPE +
+             K/V write's and the prefill slab write's too), and the
+             per-layer ``kv_write`` must stay at 0. Every serve run
+             prints the dispatch
              counters: graph captures and replays, capture seconds,
              scheduler syncs and host-to-device transfers, and decode
              tokens/s without the captures.
@@ -210,7 +227,7 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
 
 
 def device_ms(fn, warmup: int = 3, iters: int = 25,
-              cold: bool = False) -> float:
+              cold: bool = False, only: str | None = None) -> float:
     """Device time of one call of ``fn``: the summed durations of the
     kernels (and copies) it ran on the card, from ``torch.profiler`` over
     ``iters`` calls after warm-up — the median per call when every call
@@ -222,7 +239,8 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
     layer's weights; the zeroing kernel is left out of the sum. Its name
     comes from the same trace (one zeroing, synchronised, before the
     calls: the trace's first device event), since a trace of its own
-    may come back empty."""
+    may come back empty. ``only``: sum only the kernels whose name holds
+    it (one of the call's kernels, without the small ones around it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(2 ** 24, dtype=torch.int32, device="cuda") \
@@ -246,7 +264,7 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
                         if e.device_type == torch.autograd.DeviceType.CUDA)
         skip = {events[0][2]} if cold and events else set()
         spans = [(start, end) for start, end, name in events
-                 if name not in skip]
+                 if name not in skip and (only is None or only in name)]
         if spans:
             break
     else:
@@ -935,16 +953,78 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots, pg,
     return row
 
 
+def _clone_pool(pool):
+    return ({k: t.clone() for k, t in pool.items()}
+            if isinstance(pool, dict) else pool.clone())
+
+
+def _pool_leaves(pool) -> list:
+    return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
+
+
+def _pools_diff(got, want) -> tuple[float, bool]:
+    """(max |got - want| over every leaf of both pools, bit-equal)."""
+    import torch
+    pairs = list(zip(_pool_leaves(got[0]) + _pool_leaves(got[1]),
+                     _pool_leaves(want[0]) + _pool_leaves(want[1])))
+    return (max((g.float() - w.float()).abs().max().item()
+                for g, w in pairs),
+            all(torch.equal(g, w) for g, w in pairs))
+
+
+def _library_write(k_pool, v_pool, pids, offs, k_rows, v_rows, li=None):
+    """The nearest library path of a K/V row write (no single PyTorch
+    call selects, quantizes and scatters paged rows): the in-range rows
+    selected, and for an int8 pool quantized, beforehand and untimed, then
+    one ``index_copy_`` per pool leaf into its ``[.., Hkv, Np·pg, w]``
+    view, of layer ``li`` (rows [N, Hkv, hd]) or with ``li`` None of
+    every layer (a slab [L, P, S, Hkv, hd]). Returns the timed call."""
+    from gofr_tpu_torch.ops.paged_kv import (is_quantized_pool, keep_index,
+                                             pool_shape, quantize_rows)
+    n_layers, hkv, n_pages, pg, d = pool_shape(k_pool)
+    keep = keep_index(pids, n_pages, offs, pg)
+    idx = (pids.reshape(-1)[keep].long() * pg
+           + offs.reshape(-1)[keep].long())
+    copies = []
+    for pool, rows in ((k_pool, k_rows), (v_pool, v_rows)):
+        if li is None:                                  # [L, Hkv, n, hd]
+            sel = rows.reshape(n_layers, -1, hkv, d)[:, keep].transpose(1, 2)
+        else:                                           # [Hkv, n, hd]
+            sel = rows.reshape(-1, hkv, d)[keep].transpose(0, 1)
+        srcs = quantize_rows(sel) if is_quantized_pool(pool) else (sel,)
+        for leaf, src in zip(_pool_leaves(pool), srcs):
+            view = leaf if li is None else leaf[li]
+            copies.append((view.reshape(*view.shape[:-3], n_pages * pg,
+                                        view.shape[-1]),
+                           src.to(leaf.dtype).contiguous()))
+    dim = 1 if li is not None else 2
+
+    def call():
+        for view, src in copies:
+            view.index_copy_(dim, idx, src)
+    return call
+
+
+def _write_bytes(n_layers, live, hkv, d, quantized) -> int:
+    """Bytes a K/V write must move: the live K and V rows read once and
+    written once (int8: hd codes and a float32 scale a row and head)."""
+    row_bytes = hkv * ((d + 4) if quantized else 2 * d)
+    return n_layers * 2 * live * (hkv * d * 2 + row_bytes)
+
+
 def kernel_kv_write(dev, gen) -> list:
-    """The KV write kernel at a decode step's shape on the serve pool
-    (16 layers, Hkv 8, hd 64, 256 pages of 64 rows): 8 rows, 5 of them
-    in range and 3 dropped (page ids Np, Np and -1, as idle and
-    mid-walk slots give), into layer 7; one row per pool form. The
-    kernel's pools must equal its plain version's bit for bit (int8
-    codes and scales too). Planted faults: the bf16 rows written one
-    offset late, and for int8 the kernel's V scales shifted one row
-    within each page; each must fail the same check. No single library
-    call writes and quantizes paged rows: ``library_ms`` is null."""
+    """The per-layer KV write entry at a decode step's shape on the serve
+    pool (16 layers, Hkv 8, hd 64, 256 pages of 64 rows): 8 rows, 5 of
+    them in range and 3 dropped (page ids Np, Np and -1), into layer 7;
+    one row per pool form. Since the fused RoPE entry took the model
+    steps' write, the main path no longer launches this entry
+    (``pool_write`` and ``scatter_chunk`` still do): its rows stay as the
+    entry's check and yardstick. The kernel's pools must equal its plain
+    version's bit for bit (int8 codes and scales too). Planted faults:
+    the bf16 rows written one offset late, and for int8 the kernel's V
+    scales shifted one row within each page; each must fail the same
+    check. ``library_ms``: the nearest library path, ``index_copy_`` of
+    the in-range rows (selected, quantized, beforehand)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
                                              quantize_pool)
@@ -960,72 +1040,67 @@ def kernel_kv_write(dev, gen) -> list:
     k_rows = torch.randn(n, hkv, d, generator=gen, device=dev).bfloat16()
     v_rows = torch.randn(n, hkv, d, generator=gen, device=dev).bfloat16()
 
-    def clone(pool):
-        return ({k: t.clone() for k, t in pool.items()}
-                if isinstance(pool, dict) else pool.clone())
-
-    def leaves(pool):
-        return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
-
-    def diff(got, want):
-        """(max |got - want| over every leaf, leaves bit-equal)."""
-        pairs = list(zip(leaves(got[0]) + leaves(got[1]),
-                         leaves(want[0]) + leaves(want[1])))
-        return (max((g.float() - w.float()).abs().max().item()
-                    for g, w in pairs),
-                all(torch.equal(g, w) for g, w in pairs))
-
     rows = []
     for quantized in (False, True):
         kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
                   else (k_pool, v_pool))
         name = "kv_write_int8" if quantized else "kv_write"
-        want = kv_write_plain(clone(kp), clone(vp), li, pids, offs, k_rows,
-                              v_rows)
-        got = kv_write(clone(kp), clone(vp), li, pids, offs, k_rows, v_rows)
+        want = kv_write_plain(_clone_pool(kp), _clone_pool(vp), li, pids,
+                              offs, k_rows, v_rows)
+        got = kv_write(_clone_pool(kp), _clone_pool(vp), li, pids, offs,
+                       k_rows, v_rows)
+        lib = (_clone_pool(kp), _clone_pool(vp))
+        _library_write(*lib, pids, offs, k_rows, v_rows, li)()
         torch.cuda.synchronize()
-        err, equal = diff(got, want)
+        err, equal = _pools_diff(got, want)
         if quantized:
             fault_name = "v_scales_shifted"
             fault = (got[0], {"q": got[1]["q"],
                               "s": torch.roll(got[1]["s"], 1, dims=3)})
         else:
             fault_name = "rows_one_offset_late"
-            fault = kv_write(clone(kp), clone(vp), li, pids,
+            fault = kv_write(_clone_pool(kp), _clone_pool(vp), li, pids,
                              (offs + 1) % pg, k_rows, v_rows)
-        fault_err, fault_equal = diff(fault, want)
+        fault_err, fault_equal = _pools_diff(fault, want)
         emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
               "bit_equal": equal, "planted_fault": fault_name,
               "planted_fault_max_abs_err": fault_err,
-              "planted_fault_bit_equal": fault_equal})
+              "planted_fault_bit_equal": fault_equal,
+              "library_path_bit_equal": _pools_diff(lib, want)[1]})
         if not equal:
             raise AssertionError(f"{name}: kernel pools differ from the "
                                  f"plain version's (max abs {err})")
         if fault_equal:
             raise AssertionError(f"{name} check passed a planted fault "
                                  f"({fault_name})")
-        dst = (clone(kp), clone(vp))
+        dst = (_clone_pool(kp), _clone_pool(vp))
+        library = _library_write(*dst, pids, offs, k_rows, v_rows, li)
         ms = time_ms(lambda: kv_write(*dst, li, pids, offs, k_rows, v_rows))
         plain_ms = time_ms(lambda: kv_write_plain(*dst, li, pids, offs,
                                                   k_rows, v_rows))
+        lib_ms = time_ms(library)
         dev_ms = device_ms(lambda: kv_write(*dst, li, pids, offs, k_rows,
                                             v_rows))
-        # bytes: the live K and V rows read once and written once (int8:
-        # hd codes and a float32 scale a row and head), the ids read
-        row_bytes = hkv * ((d + 4) if quantized else 2 * d)
-        nbytes = 2 * live * hkv * d * 2 + 2 * live * row_bytes + 8 * n
-        bound_ms, bound_by = bound(0.0, nbytes)
+        lib_dev_ms = device_ms(library)
+        bound_ms, bound_by = bound(0.0, _write_bytes(1, live, hkv, d,
+                                                     quantized) + 8 * n)
         row = {"name": name, "route": "cuda",
                "source": "gofr_tpu_torch/csrc/kv_write.cu",
                "replaces": "gofr_tpu/ops/paged_kv.py:124",
                "replaces_note": "pool_write: XLA's scatter (.at[].set, "
                                 "mode='drop', quantize_rows for int8), "
                                 "not a pallas_call",
+               "main_path": "no: pool_write and scatter_chunk only, "
+                            "the model steps write through rope_kv_write",
                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None,
-               "library_device_ms": None,
-               "library_note": "no single library call"}
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms,
+               "library_note": "no single library call; nearest path: "
+                               "index_copy_ of the in-range K and V rows "
+                               "(selected" + (", quantized" if quantized
+                                              else "")
+                               + " beforehand, untimed)"}
         emit({"phase": "kernel", "shape": f"N={n} rows ({live} in range) "
               f"L={n_layers} Hkv={hkv} hd={d} Np={n_pages} pg={pg}, layer "
               f"{li}, " + ("int8 {q, s}" if quantized else "bf16"),
@@ -1034,19 +1109,208 @@ def kernel_kv_write(dev, gen) -> list:
     return rows
 
 
-def kernel_kv_write_prefill(dev, gen) -> list:
-    """The KV write kernel at the group prefill's shape, through the
-    wrapper the engine calls there (``scatter_chunk_kv``: one launch per
-    layer, K and V together): serve_preempt's first group, 6 prompts of
-    301 tokens in the 512-row bucket at P = 8, so 2 dummy rows of length
-    1 on all-OOB tables; each prompt's table holds its 5 pages (prompt +
-    1 rows) and OOB past them. Slabs [16, 8, 512, 8, 64] bf16 into the
-    serve pool (16 layers, Hkv 8, 256 pages of 64 rows), one row per pool
-    form. The kernel's pools must equal ``scatter_chunk_kv_plain``'s bit
-    for bit (int8 codes and scales too); planted fault: the kernel's
-    rows written one offset late, which must fail the same check."""
+#: Llama-3.2's rope_scaling (its checkpoints' config.json)
+LLAMA32_SCALING = {"factor": 32.0, "low_freq_factor": 1.0,
+                   "high_freq_factor": 4.0, "original_max_position": 8192}
+
+
+def _verify_coords(dev, gen, n_pages, pg):
+    """A speculative verify's rows on the serve pool: 8 slots x 16 tree
+    nodes, histories 0/1/63/64/65/1500/300/1000 rows; slot 6 verifies 9
+    nodes (the rest padding) and slot 7 is idle (all-OOB table). Node i
+    of slot b is RoPE'd at ``history + depth[i]`` and written at row
+    ``history + i`` through the slot's table, as
+    ``llama_prefill_chunk_paged`` computes them in tree mode. Returns
+    (positions, page ids, offsets), each int32 [8, 16]."""
     import torch
-    from gofr_tpu_torch.ops.paged_kv import (quantize_pool, scatter_chunk_kv,
+    b, w, mp = 8, 16, 32
+    hist = torch.tensor([0, 1, 63, 64, 65, 1500, 300, 1000], device=dev)
+    clen = torch.tensor([16] * 6 + [9, 0], device=dev)
+    depth = torch.tensor([0, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 5, 5, 6, 6, 7],
+                         device=dev)
+    tables = torch.full((b, mp), n_pages, dtype=torch.int32, device=dev)
+    pages = torch.randperm(n_pages, generator=gen, device=dev).int()
+    used = 0
+    for i in range(b - 1):
+        need = -(-(int(hist[i]) + w) // pg)
+        tables[i, :need] = pages[used:used + need]
+        used += need
+    node = hist[:, None] + torch.arange(w, device=dev)[None, :]
+    valid = torch.arange(w, device=dev)[None, :] < clen[:, None]
+    pids = torch.gather(tables, 1, (node // pg).clamp(0, mp - 1))
+    pids = torch.where(valid & (node < mp * pg), pids,
+                       torch.full_like(pids, n_pages))
+    return ((hist[:, None] + depth[None, :]).int(), pids.int(),
+            (node % pg).int())
+
+
+def kernel_rope_kv_write(dev, gen, verify: bool) -> list:
+    """The fused RoPE + K/V write entry (``rope_kv_write``) at the shape
+    the main path gives it, on the serve pool (16 layers, Hkv 8, hd 64,
+    256 pages of 64 rows, Hq 32), layer 7, one row per pool form: a
+    decode step (``verify`` False: kernel_kv_write's 8 rows, 3 dropped,
+    at positions 0-2047, plain RoPE) or a speculative verify (8 slots x
+    16 nodes, RoPE at the node's depth and the row at its index, one slot
+    padded, one idle; Llama-3.2's ``rope_scaling``). The rotated q and
+    both pools (int8 codes and scales too) must equal
+    ``rope_kv_write_plain``'s bit for bit. Planted faults, each must fail
+    the same check: the positions one late, the rotate-half sign flipped
+    (the kernel fed ``-inv_freq``: cos is even, sin odd), and for int8 the
+    amax taken before the bf16 rounding (the plain pools with each K
+    row's scale from the float32 rotation's amax, its codes from the
+    rounded values under that scale). Times: the kernel, the plain
+    version, the unfused path (``apply_rope`` x 2 + the ``kv_write``
+    kernel, ``unfused_path_*``) and, as ``library_ms``, ``index_copy_`` of
+    the rotated rows (RoPE, selection and quantize beforehand,
+    untimed)."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (keep_index, kv_write,
+                                             quantize_pool, rope_kv_write,
+                                             rope_kv_write_plain)
+    from gofr_tpu_torch.ops.rope import apply_rope, rope_frequencies
+    n_layers, hq, hkv, d, n_pages, pg, li = 16, 32, 8, 64, 256, 64, 7
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    if verify:
+        positions, pids, offs = _verify_coords(dev, gen, n_pages, pg)
+        scaling, lead = LLAMA32_SCALING, (8, 16)
+    else:
+        positions = torch.tensor([0, 2047, 1500, 63, 64, 901, 7, 1024],
+                                 dtype=torch.int32, device=dev)
+        pids = torch.tensor([17, 3, n_pages, 200, -1, 64, n_pages, 9],
+                            dtype=torch.int32, device=dev)
+        offs = positions % pg
+        scaling, lead = None, (8,)
+    inv_freq = rope_frequencies(d, 500000.0, scaling, device=dev)
+    n = pids.numel()
+    live = int(((pids >= 0) & (pids < n_pages)).sum())
+    q, k, v = (torch.randn(*lead, h, d, generator=gen, device=dev)
+               .bfloat16() for h in (hq, hkv, hkv))
+
+    def run(fn, kp, vp, pos=positions, inv=inv_freq):
+        pools = (_clone_pool(kp), _clone_pool(vp))
+        q_rot = fn(q, k, v, pos, inv, *pools, li, pids, offs)
+        torch.cuda.synchronize()
+        return q_rot, pools
+
+    def unfused_path(kp, vp):
+        kv_write(kp, vp, li, pids, offs, apply_rope(k, positions, inv_freq),
+                 v)
+        return apply_rope(q, positions, inv_freq)
+
+    rows = []
+    for quantized in (False, True):
+        kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
+                  else (k_pool, v_pool))
+        form = "_int8" if quantized else ""
+        name = "rope_kv_write" + ("_verify" if verify else "") + form
+        want_q, want = run(rope_kv_write_plain, kp, vp)
+        got_q, got = run(rope_kv_write, kp, vp)
+        err, equal = _pools_diff(got, want)
+        err = max(err, (got_q.float() - want_q.float()).abs().max().item())
+        equal = equal and torch.equal(got_q, want_q)
+        faults = {"positions_one_late": run(rope_kv_write, kp, vp,
+                                            positions + 1),
+                  "rotate_half_sign_flipped": run(rope_kv_write, kp, vp,
+                                                  inv=-inv_freq)}
+        if quantized:
+            # the K rows' scales from the float32 rotation's amax, their
+            # codes from the bf16-rounded values under those scales
+            rot = apply_rope(k.float(), positions, inv_freq)
+            amax = rot.abs().amax(-1, keepdim=True).clamp(min=1e-8)
+            scale = amax / torch.full_like(amax, 127.0)
+            codes = torch.round(rot.bfloat16().float() / scale).clamp(
+                -127, 127).to(torch.int8)
+            pools = (_clone_pool(want[0]), _clone_pool(want[1]))
+            keep = keep_index(pids, n_pages, offs, pg)
+            at = (slice(None), pids.reshape(-1)[keep].long(),
+                  offs.reshape(-1)[keep].long())
+            for leaf, val in ((pools[0]["q"], codes), (pools[0]["s"], scale)):
+                leaf[li][at] = val.reshape(n, hkv, -1)[keep].transpose(0, 1)
+            faults["amax_before_bf16_rounding"] = (want_q, pools)
+        fault_equal = {f: torch.equal(fq, want_q) and _pools_diff(fp, want)[1]
+                       for f, (fq, fp) in faults.items()}
+        emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
+              "bit_equal": equal, "planted_faults_bit_equal": fault_equal})
+        if not equal:
+            raise AssertionError(f"{name}: the kernel's q or pools differ "
+                                 f"from the plain version's (max abs {err})")
+        if any(fault_equal.values()):
+            raise AssertionError(f"{name} check passed a planted fault: "
+                                 f"{fault_equal}")
+        dst = (_clone_pool(kp), _clone_pool(vp))
+        k_rot = apply_rope(k, positions, inv_freq)
+        library = _library_write(*dst, pids, offs, k_rot, v, li)
+        args = (q, k, v, positions, inv_freq, *dst, li, pids, offs)
+        ms = time_ms(lambda: rope_kv_write(*args))
+        plain_ms = time_ms(lambda: rope_kv_write_plain(*args))
+        unfused_ms = time_ms(lambda: unfused_path(*dst))
+        lib_ms = time_ms(library)
+        dev_ms = device_ms(lambda: rope_kv_write(*args))
+        unfused_dev_ms = device_ms(lambda: unfused_path(*dst))
+        lib_dev_ms = device_ms(library)
+        # bytes: q read and written, the live K and V rows read and
+        # written, positions / ids / offsets and the frequency table read
+        nbytes = (2 * n * hq * d * 2 + _write_bytes(1, live, hkv, d,
+                                                    quantized)
+                  + 12 * n + 4 * d // 2)
+        bound_ms, bound_by = bound(0.0, nbytes)
+        row = {"name": name, "wrapper": "rope_kv_write" + form,
+               "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_write.cu",
+               "replaces": "gofr_tpu/ops/paged_kv.py:124",
+               "replaces_note": "apply_rope (gofr_tpu/ops/rope.py:37) on q "
+                                "and k and pool_write of K and V, fused by "
+                                "XLA into the jitted step at "
+                                + ("gofr_tpu/models/llama.py:518-521"
+                                   if verify else
+                                   "gofr_tpu/models/llama.py:336-339")
+                                + "; not a pallas_call",
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms,
+               "library_note": "no single library call; nearest path: "
+                               "index_copy_ of the rotated in-range K and V "
+                               "rows (RoPE, selection" + (", quantize"
+                                                         if quantized else "")
+                               + " beforehand, untimed)",
+               "unfused_path_ms": unfused_ms,
+               "unfused_path_device_ms": unfused_dev_ms,
+               "unfused_path_note": "apply_rope on q and k (13 launches "
+                                    "each) + the per-layer kv_write "
+                                    "kernel: the steps' write before the "
+                                    "fused entry"}
+        shape_note = (f"verify: 8 slots x 16 nodes, RoPE at history + depth, "
+                      f"rows at history + i, {live} of {n} rows in range, "
+                      f"Llama-3.2 rope_scaling" if verify else
+                      f"decode: N={n} rows ({live} in range), positions "
+                      f"0-2047")
+        emit({"phase": "kernel", "shape": f"{shape_note}, Hq={hq} Hkv={hkv} "
+              f"hd={d} L={n_layers} Np={n_pages} pg={pg}, layer {li}, "
+              + ("int8 {q, s}" if quantized else "bf16"),
+              "kernel_ms": ms, **row})
+        rows.append(row)
+    return rows
+
+
+def kernel_kv_write_prefill(dev, gen) -> list:
+    """The slab entry of the KV write kernel at the group prefill's
+    shape, through the wrapper the engine calls there
+    (``scatter_chunk_kv``: one launch for every layer, K and V together):
+    serve_preempt's first group, 6 prompts of 301 tokens in the 512-row
+    bucket at P = 8, so 2 dummy rows of length 1 on all-OOB tables; each
+    prompt's table holds its 5 pages (prompt + 1 rows) and OOB past them.
+    Slabs [16, 8, 512, 8, 64] bf16 into the serve pool (16 layers, Hkv 8,
+    256 pages of 64 rows), one row per pool form. The kernel's pools must
+    equal ``scatter_chunk_kv_plain``'s bit for bit (int8 codes and scales
+    too); planted fault: the kernel's rows written one offset late, which
+    must fail the same check. ``library_ms``: the nearest library path,
+    ``index_copy_`` of every layer's in-range rows into each pool leaf
+    (selection and quantize beforehand, untimed)."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (_chunk_coords, quantize_pool,
+                                             scatter_chunk_kv,
                                              scatter_chunk_kv_plain)
     n_layers, hkv, d, n_pages, pg = 16, 8, 64, 256, 64
     p, bucket, n_prompt, n_real = 8, 512, 301, 6
@@ -1065,61 +1329,54 @@ def kernel_kv_write_prefill(dev, gen) -> list:
     k_slab = torch.randn(slab, generator=gen, device=dev).bfloat16()
     v_slab = torch.randn(slab, generator=gen, device=dev).bfloat16()
     live = n_real * n_prompt
-
-    def clone(pool):
-        return ({k: t.clone() for k, t in pool.items()}
-                if isinstance(pool, dict) else pool.clone())
-
-    def leaves(pool):
-        return [pool["q"], pool["s"]] if isinstance(pool, dict) else [pool]
-
-    def diff(got, want):
-        """(max |got - want| over every leaf, leaves bit-equal)."""
-        pairs = list(zip(leaves(got[0]) + leaves(got[1]),
-                         leaves(want[0]) + leaves(want[1])))
-        return (max((g.float() - w.float()).abs().max().item()
-                    for g, w in pairs),
-                all(torch.equal(g, w) for g, w in pairs))
+    pids, offs = _chunk_coords(k_pool, tables, zeros, lens, bucket)
 
     rows = []
     for quantized in (False, True):
         kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
                   else (k_pool, v_pool))
-        wrapper = "kv_write_int8" if quantized else "kv_write"
+        wrapper = "scatter_chunk_kv" + ("_int8" if quantized else "")
         name = "kv_write_prefill" + ("_int8" if quantized else "")
         args = (tables, k_slab, v_slab)
-        want = scatter_chunk_kv_plain(clone(kp), clone(vp), *args, zeros,
-                                      lens)
-        got = scatter_chunk_kv(clone(kp), clone(vp), *args, zeros, lens)
-        fault = scatter_chunk_kv(clone(kp), clone(vp), *args, zeros + 1,
-                                 lens)
+        want = scatter_chunk_kv_plain(_clone_pool(kp), _clone_pool(vp), *args,
+                                      zeros, lens)
+        got = scatter_chunk_kv(_clone_pool(kp), _clone_pool(vp), *args, zeros,
+                               lens)
+        fault = scatter_chunk_kv(_clone_pool(kp), _clone_pool(vp), *args,
+                                 zeros + 1, lens)
+        lib = (_clone_pool(kp), _clone_pool(vp))
+        _library_write(*lib, pids, offs, k_slab, v_slab)()
         torch.cuda.synchronize()
-        err, equal = diff(got, want)
-        fault_err, fault_equal = diff(fault, want)
+        err, equal = _pools_diff(got, want)
+        fault_err, fault_equal = _pools_diff(fault, want)
         emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
               "bit_equal": equal, "planted_fault": "rows_one_offset_late",
               "planted_fault_max_abs_err": fault_err,
-              "planted_fault_bit_equal": fault_equal})
+              "planted_fault_bit_equal": fault_equal,
+              "library_path_bit_equal": _pools_diff(lib, want)[1]})
         if not equal:
             raise AssertionError(f"{name}: kernel pools differ from the "
                                  f"plain version's (max abs {err})")
         if fault_equal:
             raise AssertionError(f"{name} check passed a planted fault "
                                  f"(rows_one_offset_late)")
-        del got, fault, want
-        dst = (clone(kp), clone(vp))
+        del got, fault, want, lib
+        dst = (_clone_pool(kp), _clone_pool(vp))
+        library = _library_write(*dst, pids, offs, k_slab, v_slab)
         ms = time_ms(lambda: scatter_chunk_kv(*dst, *args, zeros, lens))
         plain_ms = time_ms(lambda: scatter_chunk_kv_plain(*dst, *args, zeros,
                                                           lens))
+        lib_ms = time_ms(library)
         dev_ms = device_ms(lambda: scatter_chunk_kv(*dst, *args, zeros,
                                                     lens))
-        # bytes per layer: the live K and V rows read once and written
-        # once (int8: hd codes and a float32 scale a row and head), the
-        # ids read
-        row_bytes = hkv * ((d + 4) if quantized else 2 * d)
-        nbytes = n_layers * (2 * live * hkv * d * 2 + 2 * live * row_bytes
-                             + 8 * p * bucket)
-        bound_ms, bound_by = bound(0.0, nbytes)
+        kernel_dev_ms = device_ms(lambda: scatter_chunk_kv(*dst, *args,
+                                                           zeros, lens),
+                                  only="kv_write_slab")
+        lib_dev_ms = device_ms(library)
+        # the live rows of every layer, and the ids read once
+        bound_ms, bound_by = bound(0.0, _write_bytes(n_layers, live, hkv, d,
+                                                     quantized)
+                                   + 8 * p * bucket)
         row = {"name": name, "wrapper": wrapper, "route": "cuda",
                "source": "gofr_tpu_torch/csrc/kv_write.cu",
                "replaces": "gofr_tpu/ops/paged_kv.py:191",
@@ -1127,18 +1384,27 @@ def kernel_kv_write_prefill(dev, gen) -> list:
                                 "mode='drop', quantize_rows for int8), "
                                 "not a pallas_call",
                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "kernel_device_ms": kernel_dev_ms,
+               "device_ms_note": "device_ms: the call's kernels, the page "
+                                 "ids and offsets (_chunk_coords) "
+                                 "included; kernel_device_ms: the slab "
+                                 "kernel alone",
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None,
-               "library_device_ms": None,
-               "library_note": "no single library call"}
-        emit({"phase": "kernel", "shape": f"scatter_chunk_kv, {n_layers} "
-              f"launches: slab [{n_layers}, {p}, {bucket}, {hkv}, {d}], "
-              f"{n_real} x {n_prompt} rows in range, {p - n_real} dummy "
-              f"rows on all-OOB tables, Np={n_pages} pg={pg}, "
-              + ("int8 {q, s}" if quantized else "bf16"),
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms,
+               "library_note": "no single library call; nearest path: "
+                               "index_copy_ of every layer's in-range K "
+                               "and V rows into each pool leaf (selection"
+                               + (", quantize" if quantized else "")
+                               + " beforehand, untimed)"}
+        emit({"phase": "kernel", "shape": f"scatter_chunk_kv, 1 launch for "
+              f"all {n_layers} layers: slab [{n_layers}, {p}, {bucket}, "
+              f"{hkv}, {d}], {n_real} x {n_prompt} rows in range, "
+              f"{p - n_real} dummy rows on all-OOB tables, Np={n_pages} "
+              f"pg={pg}, " + ("int8 {q, s}" if quantized else "bf16"),
               "kernel_ms": ms, **row})
         rows.append(row)
-        del dst
+        del dst, library
     del k_slab, v_slab, k_pool, v_pool
     torch.cuda.empty_cache()
     return rows
@@ -2294,6 +2560,16 @@ def phase_decode_graph(dev, smi_line: str) -> None:
     if missed:
         raise AssertionError(f"decode_graph check passed a planted fault "
                              f"(stale tables): {missed}")
+    # every step's new rows went through the fused write, once a layer
+    unfused = [c for c in cases if c["launches_per_replay"].get(
+        "rope_kv_write.launches" + ("_int8" if c["kv_dtype"] == "int8"
+                                    else "")) != cfg.n_layers
+        * c["steps_per_dispatch"] or any(k.startswith("kv_write.")
+                                         for k in c["launches_per_replay"])]
+    if unfused:
+        raise AssertionError(f"decode_graph: a replay did not write through "
+                             f"rope_kv_write once a layer and step: "
+                             f"{unfused}")
     del params
     torch.cuda.empty_cache()
 
@@ -2348,7 +2624,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention)
-    from gofr_tpu_torch.ops.paged_kv import kv_write
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, rope_kv_write,
+                                             scatter_chunk_kv)
     from gofr_tpu_torch.ops.quant import quantized_bytes, wq_gemm
     from gofr_tpu_torch.serving.app import (build_engine, build_server,
                                             serve_config)
@@ -2359,9 +2636,13 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
     # the run's kernels, and the paged ones of the other pool form
     own = {"flash_attention": (flash_attention, "launches")}
     others = {}
-    for fn in (paged_decode_attention, paged_chunk_attention, kv_write):
+    for fn in (paged_decode_attention, paged_chunk_attention, rope_kv_write,
+               scatter_chunk_kv):
         own[fn.__name__ + suffix] = (fn, "launches" + suffix)
         others[fn.__name__ + other] = (fn, "launches" + other)
+    # the per-layer write entry: the fused one took the model steps' write
+    off_path = {"kv_write": (kv_write, "launches"),
+                "kv_write_int8": (kv_write, "launches_int8")}
     if quantize is not None:
         wq_attr = "launches_int4" if quantize == "int4" else "launches"
         own["wq_gemm" + ("_int4" if quantize == "int4" else "")] = (
@@ -2397,7 +2678,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
                              "temperature": 0})
 
     try:
-        for fn, attr in (*own.values(), *others.values()):
+        for fn, attr in (*own.values(), *others.values(),
+                         *off_path.values()):
             setattr(fn, attr, 0)
         for wave in waves:
             got: list = [None] * len(wave)
@@ -2413,6 +2695,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
         launches = {name: getattr(fn, attr) for name, (fn, attr) in own.items()}
         other_launches = {name: getattr(fn, attr)
                           for name, (fn, attr) in others.items()}
+        off_path_launches = {name: getattr(fn, attr)
+                             for name, (fn, attr) in off_path.items()}
         stats = dict(engine.stats)
     finally:
         server.shutdown()
@@ -2432,10 +2716,12 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
     if stats["prefix_hits"] < len(waves[2]):
         raise AssertionError(f"{phase}: {stats['prefix_hits']} prefix hits "
                              f"for {len(waves[2])} sharing requests")
-    if min(launches.values()) < 1 or any(other_launches.values()):
+    if min(launches.values()) < 1 or any(other_launches.values()) \
+            or any(off_path_launches.values()):
         raise AssertionError(f"{phase}: a kernel of the {kv_dtype} pool "
                              f"never launched ({launches}), or one of the "
-                             f"other form did ({other_launches})")
+                             f"other form did ({other_launches}), or the "
+                             f"per-layer write did ({off_path_launches})")
     ttft = [u["ttft_ms"] for u in usage]
     out = {"phase": phase, "card": smi_line, "kv_dtype": kv_dtype,
            "pool_pages": pages, "pool_bytes": pool_bytes,
@@ -2453,7 +2739,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
            **_graph_stats(stats, warm_capture_s),
            "prefill_calls": stats["prefill_calls"],
            "prefill_s": stats["prefill_s"], "launches": launches,
-           "launches_of_the_other_pool_form": other_launches}
+           "launches_of_the_other_pool_form": other_launches,
+           "launches_off_the_main_path": off_path_launches}
     if quantize is not None:
         out.update(quantize=quantize, warmup_s=warmup_s,
                    weight_bytes=quantized_bytes(engine.params))
@@ -2470,8 +2757,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
                              f"{bf16['pool_pages']} in {bf16['pool_bytes']}")
     del engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "tokens": tokens, "pool_pages": pages,
-            "pool_bytes": pool_bytes}
+    return {"launches": {**off_path_launches, **launches}, "tokens": tokens,
+            "pool_pages": pages, "pool_bytes": pool_bytes}
 
 
 def _graph_stats(stats: dict, warm_capture_s: float = 0.0) -> dict:
@@ -2667,7 +2954,9 @@ def phase_serve_preempt(dev, smi_line: str) -> dict:
     from a prefill of the original prompt followed by every token the
     request had emitted (a wrapper on ``_first_token``); the pool's
     books balance afterwards; no graph is captured while serving; the
-    flash, decode and ``kv_write`` counters, zeroed just before, rise;
+    flash, decode, fused write (``rope_kv_write``) and slab write
+    (``scatter_chunk_kv``) counters, zeroed just before, rise, and the
+    per-layer ``kv_write`` stays at 0;
     requests never preempted equal the tokens of the ample depth-0 run
     of their pool form (an *ample int8* run, the default int8 pool, is
     the int8 reference) bit for bit (decode rows are independent at a
@@ -2691,7 +2980,8 @@ def phase_serve_preempt(dev, smi_line: str) -> dict:
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
                                                     paged_decode_attention)
-    from gofr_tpu_torch.ops.paged_kv import (kv_write, scatter_chunk_kv,
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, rope_kv_write,
+                                             scatter_chunk_kv,
                                              scatter_chunk_kv_plain)
     from gofr_tpu_torch.serving.app import serve_config
     from gofr_tpu_torch.serving.engine import SamplingParams
@@ -2744,11 +3034,10 @@ def phase_serve_preempt(dev, smi_line: str) -> dict:
         captures = engine._decode_graph.captures
         reqs = [engine.submit(p, greedy) for p in prompts]
         original = {id(r): list(r.prompt_tokens) for r in reqs}
-        counters = [(flash_attention, "launches"), (paged_chunk_attention,
-                    "launches"), (paged_decode_attention, "launches"),
-                    (kv_write, "launches"), (paged_chunk_attention,
-                    "launches_int8"), (paged_decode_attention,
-                    "launches_int8"), (kv_write, "launches_int8")]
+        counters = [(flash_attention, "launches")] + [
+            (fn, attr) for attr in ("launches", "launches_int8")
+            for fn in (paged_chunk_attention, paged_decode_attention,
+                       rope_kv_write, scatter_chunk_kv, kv_write)]
         for fn, attr in counters:
             setattr(fn, attr, 0)
         start = time.perf_counter()
@@ -2816,8 +3105,12 @@ def phase_serve_preempt(dev, smi_line: str) -> dict:
         if min(run["launches"][k] for k in (
                 "flash_attention.launches",
                 f"paged_decode_attention.launches{suffix}",
-                f"kv_write.launches{suffix}")) < 1:
+                f"rope_kv_write.launches{suffix}",
+                f"scatter_chunk_kv.launches{suffix}")) < 1:
             out.append("launches")
+        if run["launches"]["kv_write.launches"] \
+                or run["launches"]["kv_write.launches_int8"]:
+            out.append("per_layer_write_off_path")
         if ample is not None:
             for i, (got, want) in enumerate(zip(tokens, ample)):
                 n = run["first_preemption_at"][i]
@@ -2960,6 +3253,10 @@ def main() -> int:
     rows += kernel_kv_write(dev, torch.Generator(device=dev).manual_seed(7))
     rows += kernel_kv_write_prefill(dev,
                                     torch.Generator(device=dev).manual_seed(9))
+    # the fused RoPE + K/V write at a decode step's and a verify's shape
+    for seed, verify in ((13, False), (14, True)):
+        rows += kernel_rope_kv_write(
+            dev, torch.Generator(device=dev).manual_seed(seed), verify)
     # single-request latency, where split-KV matters most: one slot of
     # 2047 rows in decode, one verify over 1900 history rows; printed as
     # their own kernel lines, checked as the rows above
@@ -2989,7 +3286,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    # where a row has them: the kernel's own device time beside its
+    # call's, the unfused path, whether the main path runs it
+    extra = ("kernel_device_ms", "unfused_path_ms", "unfused_path_device_ms",
+             "main_path")
+    emit({"kernels": [{k: row[k] for k in keys + extra if k in row}
+                      for row in rows]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                  "count": env["count"]}})

@@ -1,39 +1,78 @@
-// KV row write for Hopper (sm_90a): one layer's new K and V rows into
-// the head-major page pool, bf16 or int8 codes with a float32 scale per
-// row.
+// KV row writes for Hopper (sm_90a) into the head-major page pool, bf16
+// or int8 codes with a float32 scale per row. Three entries:
 //
-// Replaces no Pallas kernel. On the TPU the write is XLA's scatter,
-// fused into the jitted decode step: gofr_tpu/ops/paged_kv.py
-// `pool_write`, `pool.at[li, :, pids, offs].set(rows, mode="drop")`,
-// with `quantize_rows` in front of it for the int8 pool. It computes the
-// same function: row n (K and V, each [Hkv, hd] bf16) lands at page
-// pids[n], offset offs[n] of every KV head of the layer [Hkv, Np, pg,
-// hd]; a row whose page id is outside [0, Np) (or whose offset is
-// outside [0, pg)) is dropped, here on the card, so the caller needs no
-// host sync to select the rows in range (what the eager PyTorch version
-// does with `nonzero`, and what a CUDA graph cannot hold). For the int8
-// pool each row is quantized on the way: scale = max(amax, 1e-8) / 127
-// with an IEEE division (__fdiv_rn), codes rint(x / scale) (round half
-// to even, IEEE division) clipped to +-127 -- bit for bit the codes and
-// scales of ops/paged_kv.py:quantize_rows, and so of the JAX package's.
+// - gofr_kv_write / _i8: one layer's new K and V rows as they are
+//   (`pool_write` and the K-only `scatter_chunk` write through it);
+// - gofr_rope_kv_write / _i8: the decode and chunk/verify steps' new
+//   token: RoPE on q and k, the rotated q out, and K and V into the pool,
+//   one launch a layer;
+// - gofr_kv_write_slab / _i8: a prefill's K and V slabs for every layer
+//   at once, one launch a prefill.
 //
-// What bounds it on the H100: bytes, and at decode sizes the launch.
-// A decode step writes B x Hkv x hd x 2 values per layer (8 KiB at B =
-// 8 for Llama-3.2-1B): far below a microsecond of HBM time, so the
-// design only keeps the write to ONE launch per layer for K and V
-// together, where the eager version took about ten launches per layer
-// for a bf16 pool and about thirty for an int8 one (the index selects
-// and puts, and the quantize's abs, amax, clamp, divide, round, clip
-// and cast, for K and for V) plus a host sync per step. One block per
-// (row, KV head): warp 0 writes the K row, warp 1 the V row; for int8
-// the warp reduces the row's amax with shuffles and every lane writes
-// its codes.
+// Replaces no Pallas kernel. On the TPU the write is XLA's scatter, fused
+// into the jitted step together with the RoPE in front of it
+// (gofr_tpu/models/llama.py:336-339 decode, :518-521 chunk):
+// gofr_tpu/ops/paged_kv.py `pool_write`, `pool.at[li, :, pids,
+// offs].set(rows, mode="drop")`, and `scatter_chunk` for the prefill,
+// with `quantize_rows` in front for the int8 pool. Row n (K and V, each
+// [Hkv, hd] bf16) lands at page pids[n], offset offs[n] of every KV head
+// of the layer [Hkv, Np, pg, hd]; a row whose page id is outside [0, Np)
+// (or whose offset is outside [0, pg)) is dropped, here on the card, so
+// the caller needs no host sync to select the rows in range (what the
+// eager PyTorch version does with `nonzero`, and what a CUDA graph cannot
+// hold). For the int8 pool each row is quantized on the way: scale =
+// max(amax, 1e-8) / 127 with an IEEE division (__fdiv_rn), codes rint(x /
+// scale) (round half to even, IEEE division) clipped to +-127 -- bit for
+// bit the codes and scales of ops/paged_kv.py:quantize_rows, and so of
+// the JAX package's.
+//
+// What bounds it on the H100: bytes, and at decode sizes the launch. A
+// decode step writes B x Hkv x hd x 2 values a layer (8 KiB at B = 8 for
+// Llama-3.2-1B): far below a microsecond of HBM time, so a write is only
+// worth its launch when it takes the work around it. The eager RoPE
+// (ops/rope.py:apply_rope) is 13 launches for q and 13 for k a layer; the
+// rotated k goes nowhere but the pool and the rotated q straight into the
+// attention kernel, so the fused entry does both rotations and the write
+// in one launch (26 fewer a layer, 416 a Llama-3.2-1B decode step). Its
+// arithmetic is the plain version's, operation for operation, so the two
+// agree bit for bit: angle = float(pos) * inv_freq[i] (__fmul_rn),
+// precise cosf / sinf, x1 cos - x2 sin and x2 cos + x1 sin with every
+// product and sum rounded on its own (__fmul_rn / __fsub_rn / __fadd_rn:
+// no FMA contraction; PyTorch rounds each in its own kernel), rounded to
+// bf16 nearest-even; an int8 K row takes its amax over those bf16 values.
+// One block per (row, group of 8 heads of q, k and v), one warp a head;
+// the row's cos / sin are computed once per block into shared memory.
+// At hd 64 lane l holds elements l and l + 32, exactly rotate-half's
+// pair, so no shuffle moves data; hd 128 gives a lane two pairs.
+//
+// The prefill slab is [L, P, S, Hkv, hd] with P x S rows, most of them
+// padding or dummy prompts (56 % at a group of 8 x 512 with 6 x 301
+// real). The slab entry makes one launch for every layer: a grid sized
+// to the card, each warp walking (row, layer) units with a stride, so a
+// dropped row costs a warp two index loads and no block exists only to
+// exit; a unit's K and V head rows move as 16-byte vectors (8 lanes a
+// head row at hd 64), int8 rows reducing their amax over those lanes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// --------------------------------------------------- quantize, shared
+
+// scale = max(amax, 1e-8) / 127 and the code of x under it: the
+// arithmetic of quantize_rows, IEEE division and round half to even
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+}
+
+__device__ __forceinline__ int8_t code_of(float x, float scale) {
+  const float c = rintf(__fdiv_rn(x, scale));
+  return static_cast<int8_t>(fminf(fmaxf(c, -127.0f), 127.0f));
+}
+
+// ------------------------------------------------------ per-layer write
 
 template <bool QUANT>
 __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ k_rows,
@@ -65,12 +104,10 @@ __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ k_rows,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+    const float scale = row_scale(amax);
     int8_t* out = static_cast<int8_t*>(dst) + dst_row * D;
-    for (int i = lane; i < D; i += 32) {
-      const float c = rintf(__fdiv_rn(__bfloat162float(row[i]), scale));
-      out[i] = static_cast<int8_t>(fminf(fmaxf(c, -127.0f), 127.0f));
-    }
+    for (int i = lane; i < D; i += 32)
+      out[i] = code_of(__bfloat162float(row[i]), scale);
     if (lane == 0) (warp == 0 ? k_scales : v_scales)[dst_row] = scale;
   }
 }
@@ -86,6 +123,264 @@ int launch(const void* k_rows, const void* v_rows, const int* pids,
       static_cast<const __nv_bfloat16*>(k_rows),
       static_cast<const __nv_bfloat16*>(v_rows), pids, offs, k_dst, v_dst,
       k_scales, v_scales, Hkv, n_pages, page, D);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------- fused RoPE + write
+
+constexpr int kRopeWarps = 8;  // heads a block: one warp each
+
+// (x1 cos - x2 sin, x2 cos + x1 sin), each product and sum rounded on
+// its own as PyTorch's elementwise kernels round them
+__device__ __forceinline__ void rotate(float x1, float x2, float c, float s,
+                                       float& o1, float& o2) {
+  o1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
+  o2 = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Grid (N, ceil((Hq + 2 Hkv) / kRopeWarps)); warp w of block (n, g) takes
+// head j = g kRopeWarps + w of row n: q heads first, then k, then v.
+// Lane l holds pair p's elements (i, i + D/2), i = 32 p + l.
+template <bool QUANT, int D>
+__global__ void __launch_bounds__(kRopeWarps * 32)
+    rope_kv_write_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int* __restrict__ positions,
+                         const float* __restrict__ inv_freq,
+                         const int* __restrict__ pids,
+                         const int* __restrict__ offs,
+                         __nv_bfloat16* __restrict__ q_out, void* k_dst,
+                         void* v_dst, float* k_scales, float* v_scales,
+                         int Hq, int Hkv, int n_pages, int page) {
+  constexpr int HALF = D / 2;
+  constexpr int PAIRS = HALF / 32;
+  __shared__ float s_cos[HALF], s_sin[HALF];
+  const int n = blockIdx.x;
+  const int first = blockIdx.y * kRopeWarps;
+  const int pid = pids[n];
+  const int off = offs[n];
+  const bool keep = pid >= 0 && pid < n_pages && off >= 0 && off < page;
+  if (!keep && first >= Hq) return;  // only K/V heads of a dropped row
+  if (threadIdx.x < HALF) {
+    const float angle =
+        __fmul_rn(static_cast<float>(positions[n]), inv_freq[threadIdx.x]);
+    s_cos[threadIdx.x] = cosf(angle);
+    s_sin[threadIdx.x] = sinf(angle);
+  }
+  __syncthreads();
+  const int j = first + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (j >= Hq + 2 * Hkv) return;
+  if (j < Hq) {  // q: rotated, out as bf16
+    const size_t base = ((size_t)n * Hq + j) * D;
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      const int i = 32 * p + lane;
+      float o1, o2;
+      rotate(__bfloat162float(q[base + i]),
+             __bfloat162float(q[base + i + HALF]), s_cos[i], s_sin[i], o1,
+             o2);
+      q_out[base + i] = __float2bfloat16_rn(o1);
+      q_out[base + i + HALF] = __float2bfloat16_rn(o2);
+    }
+    return;
+  }
+  if (!keep) return;
+  const bool is_k = j < Hq + Hkv;
+  const int h = j - Hq - (is_k ? 0 : Hkv);
+  const __nv_bfloat16* row = (is_k ? k : v) + ((size_t)n * Hkv + h) * D;
+  float x[2 * PAIRS];  // the row's values as the pool gets them (bf16)
+#pragma unroll
+  for (int p = 0; p < PAIRS; ++p) {
+    const int i = 32 * p + lane;
+    x[2 * p] = __bfloat162float(row[i]);
+    x[2 * p + 1] = __bfloat162float(row[i + HALF]);
+    if (is_k) {
+      float o1, o2;
+      rotate(x[2 * p], x[2 * p + 1], s_cos[i], s_sin[i], o1, o2);
+      x[2 * p] = bf16_round(o1);
+      x[2 * p + 1] = bf16_round(o2);
+    }
+  }
+  const size_t dst_row = ((size_t)h * n_pages + pid) * page + off;
+  if constexpr (!QUANT) {
+    __nv_bfloat16* out =
+        static_cast<__nv_bfloat16*>(is_k ? k_dst : v_dst) + dst_row * D;
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      out[32 * p + lane] = __float2bfloat16_rn(x[2 * p]);
+      out[32 * p + lane + HALF] = __float2bfloat16_rn(x[2 * p + 1]);
+    }
+  } else {
+    float amax = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 2 * PAIRS; ++e) amax = fmaxf(amax, fabsf(x[e]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = row_scale(amax);
+    int8_t* out = static_cast<int8_t*>(is_k ? k_dst : v_dst) + dst_row * D;
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      out[32 * p + lane] = code_of(x[2 * p], scale);
+      out[32 * p + lane + HALF] = code_of(x[2 * p + 1], scale);
+    }
+    if (lane == 0) (is_k ? k_scales : v_scales)[dst_row] = scale;
+  }
+}
+
+template <bool QUANT>
+int launch_rope(const void* q, const void* k, const void* v,
+                const int* positions, const float* inv_freq, const int* pids,
+                const int* offs, void* q_out, void* k_dst, void* v_dst,
+                float* k_scales, float* v_scales, int N, int Hq, int Hkv,
+                int n_pages, int page, int D, void* stream) {
+  if (N <= 0) return 0;
+  const dim3 grid(N, (Hq + 2 * Hkv + kRopeWarps - 1) / kRopeWarps);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(q_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    rope_kv_write_kernel<QUANT, 64><<<grid, kRopeWarps * 32, 0, s>>>(
+        qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
+        k_scales, v_scales, Hq, Hkv, n_pages, page);
+  } else if (D == 128) {
+    rope_kv_write_kernel<QUANT, 128><<<grid, kRopeWarps * 32, 0, s>>>(
+        qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
+        k_scales, v_scales, Hq, Hkv, n_pages, page);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- prefill slab, all layers
+
+constexpr int kSlabWarps = 8;
+constexpr int kSlabBlocksPerSM = 8;
+
+// 8 bf16 of a 16-byte vector as floats
+__device__ __forceinline__ void unpack8(const uint4& w, float* x) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(
+        &words[i]);
+    x[2 * i] = __low2float(pair);
+    x[2 * i + 1] = __high2float(pair);
+  }
+}
+
+// A unit is (row r, layer l): K and V of every head, 2 Hkv head rows of
+// LPR 16-byte vectors (LPR = D / 8 lanes a head row). Vector c < Hkv LPR
+// is K's, the rest V's; both slabs hold a row's [Hkv, D] block
+// contiguously, so a warp's loads are contiguous, and its stores are
+// whole head rows.
+template <bool QUANT, int LPR>
+__global__ void __launch_bounds__(kSlabWarps * 32)
+    kv_write_slab_kernel(const __nv_bfloat16* __restrict__ k_slab,
+                         const __nv_bfloat16* __restrict__ v_slab,
+                         const int* __restrict__ pids,
+                         const int* __restrict__ offs, void* k_dst,
+                         void* v_dst, float* k_scales, float* v_scales,
+                         int L, int R, int Hkv, int n_pages, int page) {
+  const int lane = threadIdx.x & 31;
+  const int per_side = Hkv * LPR;      // vectors of one [Hkv, D] block
+  const long long units = (long long)R * L;
+  const long long stride = (long long)gridDim.x * kSlabWarps;
+  for (long long u = (long long)blockIdx.x * kSlabWarps + (threadIdx.x >> 5);
+       u < units; u += stride) {
+    const int r = (int)(u / L);
+    const int l = (int)(u - (long long)r * L);
+    const int pid = __ldg(pids + r);
+    const int off = __ldg(offs + r);
+    if (pid < 0 || pid >= n_pages || off < 0 || off >= page) continue;
+    const size_t src = ((size_t)l * R + r) * per_side;   // in vectors
+    for (int c0 = 0; c0 < 2 * per_side; c0 += 32) {
+      const int c = c0 + lane;
+      const bool live = c < 2 * per_side;   // whole head rows: LPR | 32
+      const bool is_k = c < per_side;
+      const int cc = is_k ? c : c - per_side;
+      const int h = cc / LPR;
+      const int part = cc - h * LPR;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (live)
+        w = __ldg(reinterpret_cast<const uint4*>(is_k ? k_slab : v_slab) +
+                  src + cc);
+      const size_t dst_row =
+          (((size_t)l * Hkv + h) * n_pages + pid) * page + off;
+      if constexpr (!QUANT) {
+        if (live)
+          reinterpret_cast<uint4*>(is_k ? k_dst : v_dst)[dst_row * LPR +
+                                                         part] = w;
+      } else {
+        float x[8];
+        unpack8(w, x);
+        float amax = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(x[e]));
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+        const float scale = row_scale(amax);
+        if (live) {
+          uint32_t packed[2] = {0, 0};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            packed[e >> 2] |= (uint32_t)(uint8_t)code_of(x[e], scale)
+                              << (8 * (e & 3));
+          reinterpret_cast<uint2*>(is_k ? k_dst : v_dst)[dst_row * LPR +
+                                                         part] =
+              make_uint2(packed[0], packed[1]);
+          if (part == 0) (is_k ? k_scales : v_scales)[dst_row] = scale;
+        }
+      }
+    }
+  }
+}
+
+template <bool QUANT>
+int launch_slab(const void* k_slab, const void* v_slab, const int* pids,
+                const int* offs, void* k_dst, void* v_dst, float* k_scales,
+                float* v_scales, int L, int R, int Hkv, int n_pages,
+                int page, int D, void* stream) {
+  if (L <= 0 || R <= 0) return 0;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)R * L;
+  const long long want = (units + kSlabWarps - 1) / kSlabWarps;
+  const int blocks =
+      (int)(want < (long long)sms * kSlabBlocksPerSM
+                ? want
+                : (long long)sms * kSlabBlocksPerSM);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k_slab);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v_slab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GOFR_SLAB(LPR)                                                   \
+  kv_write_slab_kernel<QUANT, LPR><<<blocks, kSlabWarps * 32, 0, s>>>(   \
+      kb, vb, pids, offs, k_dst, v_dst, k_scales, v_scales, L, R, Hkv,   \
+      n_pages, page)
+  switch (D) {
+    case 8: GOFR_SLAB(1); break;
+    case 16: GOFR_SLAB(2); break;
+    case 32: GOFR_SLAB(4); break;
+    case 64: GOFR_SLAB(8); break;
+    case 128: GOFR_SLAB(16); break;
+    case 256: GOFR_SLAB(32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GOFR_SLAB
   return (int)cudaGetLastError();
 }
 
@@ -111,4 +406,60 @@ extern "C" int gofr_kv_write_i8(const void* k_rows, const void* v_rows,
                                 int page, int D, void* stream) {
   return launch<true>(k_rows, v_rows, pids, offs, k_codes, v_codes, k_scales,
                       v_scales, N, Hkv, n_pages, page, D, stream);
+}
+
+// RoPE at positions[n] (int32 [N]) with inv_freq (float32 [D/2]) on q
+// (bf16 [N, Hq, D]) into q_out (bf16 [N, Hq, D]) and on k (bf16 [N, Hkv,
+// D]), then the rotated k and v (bf16 [N, Hkv, D]) into one layer's bf16
+// pools [Hkv, n_pages, page, D] at (pids[n], offs[n]), int32 [N]; D is 64
+// or 128. Returns the launch's cudaError_t (0 = launched).
+extern "C" int gofr_rope_kv_write(const void* q, const void* k, const void* v,
+                                  const int* positions, const float* inv_freq,
+                                  const int* pids, const int* offs,
+                                  void* q_out, void* k_pool, void* v_pool,
+                                  int N, int Hq, int Hkv, int n_pages,
+                                  int page, int D, void* stream) {
+  return launch_rope<false>(q, k, v, positions, inv_freq, pids, offs, q_out,
+                            k_pool, v_pool, nullptr, nullptr, N, Hq, Hkv,
+                            n_pages, page, D, stream);
+}
+
+// The same into an int8 layer: codes int8 [Hkv, n_pages, page, D], scales
+// float32 [Hkv, n_pages, page, 1]; the rotated K row is rounded to bf16
+// before its amax is taken, as the plain version quantizes it.
+extern "C" int gofr_rope_kv_write_i8(
+    const void* q, const void* k, const void* v, const int* positions,
+    const float* inv_freq, const int* pids, const int* offs, void* q_out,
+    void* k_codes, void* v_codes, float* k_scales, float* v_scales, int N,
+    int Hq, int Hkv, int n_pages, int page, int D, void* stream) {
+  return launch_rope<true>(q, k, v, positions, inv_freq, pids, offs, q_out,
+                           k_codes, v_codes, k_scales, v_scales, N, Hq, Hkv,
+                           n_pages, page, D, stream);
+}
+
+// A prefill's K and V slabs, bf16 [L, R, Hkv, D] (R = P x S rows, row r
+// at (pids[r], offs[r]), int32 [R]), into the whole bf16 pools [L, Hkv,
+// n_pages, page, D], every layer in one launch; D is 8 to 256, a power of
+// two, and every pointer 16-byte aligned.
+extern "C" int gofr_kv_write_slab(const void* k_slab, const void* v_slab,
+                                  const int* pids, const int* offs,
+                                  void* k_pool, void* v_pool, int L, int R,
+                                  int Hkv, int n_pages, int page, int D,
+                                  void* stream) {
+  return launch_slab<false>(k_slab, v_slab, pids, offs, k_pool, v_pool,
+                            nullptr, nullptr, L, R, Hkv, n_pages, page, D,
+                            stream);
+}
+
+// The same into int8 pools: codes [L, Hkv, n_pages, page, D], scales
+// float32 [L, Hkv, n_pages, page, 1].
+extern "C" int gofr_kv_write_slab_i8(const void* k_slab, const void* v_slab,
+                                     const int* pids, const int* offs,
+                                     void* k_codes, void* v_codes,
+                                     float* k_scales, float* v_scales, int L,
+                                     int R, int Hkv, int n_pages, int page,
+                                     int D, void* stream) {
+  return launch_slab<true>(k_slab, v_slab, pids, offs, k_codes, v_codes,
+                           k_scales, v_scales, L, R, Hkv, n_pages, page, D,
+                           stream);
 }

@@ -35,8 +35,9 @@ from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention_plain,
                                    paged_tree_attention,
                                    paged_tree_attention_plain)
-from ..ops.paged_kv import (KV_DTYPES, keep_index, kv_write, kv_write_plain,
-                            pool_layer, pool_shape, quantize_rows)
+from ..ops.paged_kv import (KV_DTYPES, keep_index, pool_layer, pool_shape,
+                            quantize_rows, rope_kv_write,
+                            rope_kv_write_plain)
 from ..ops.quant import is_quantized, qgather, qmatmul, qmatmul_t
 from ..ops.rope import apply_rope, rope_frequencies
 
@@ -228,13 +229,14 @@ def llama_prefill_last(params: dict, tokens: torch.Tensor,
 
 def _writer(implementation: str, tokens: torch.Tensor, pids: torch.Tensor,
             n_pages: int):
-    """(the per-layer K/V write, its ``keep``): the kernel's wrapper for
-    ``"auto"`` on CUDA (no host sync; ``keep`` None), else the plain
-    version, which selects its rows once (one host sync on CUDA) for
-    every layer."""
+    """(the per-layer RoPE + K/V write, its ``keep``): the fused kernel's
+    wrapper for ``"auto"`` on CUDA (one launch a layer, no host sync;
+    ``keep`` None), else the plain version (``apply_rope`` on q and k,
+    then the plain write), which selects its rows once (one host sync on
+    CUDA) for every layer."""
     if implementation == "auto" and tokens.device.type != "cpu":
-        return kv_write, None
-    return kv_write_plain, keep_index(pids, n_pages)
+        return rope_kv_write, None
+    return rope_kv_write_plain, keep_index(pids, n_pages)
 
 
 def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
@@ -281,9 +283,8 @@ def llama_decode_step_paged(params: dict, tokens: torch.Tensor, k_pool,
         q = _mm(h, lp["wq"], implementation).reshape(b, 1, c.n_heads, hd)
         k = _mm(h, lp["wk"], implementation).reshape(b, 1, c.n_kv_heads, hd)
         v = _mm(h, lp["wv"], implementation).reshape(b, 1, c.n_kv_heads, hd)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
-        write(k_pool, v_pool, li, pids, offs, k[:, 0], v[:, 0], keep=keep)
+        q = write(q, k, v, positions, inv_freq, k_pool, v_pool, li, pids,
+                  offs, keep=keep)
         out = decode_attn(q[:, 0].contiguous(), pool_layer(k_pool, li),
                           pool_layer(v_pool, li), tables, attend)
         x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"],
@@ -334,8 +335,11 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     inv_freq = _inv_freq(c, tokens.device)
     node_pos = offsets.long()[:, None] + torch.arange(
         s, device=tokens.device)[None, :]                           # [B, S]
-    positions = node_pos if tree_depths is None \
-        else offsets.long()[:, None] + tree_depths.long()
+    # RoPE positions (a tree node at its depth) apart from the rows the
+    # K/V land on (the node index); int32, as the write kernel takes them
+    positions = (node_pos if tree_depths is None
+                 else offsets.long()[:, None] + tree_depths.long()
+                 ).to(torch.int32)
     valid = torch.arange(s, device=tokens.device)[None, :] \
         < chunk_lengths[:, None]
     pids = torch.gather(tables, 1, (node_pos // pg).clamp(0, mp - 1))
@@ -358,9 +362,8 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
         q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
         k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
         v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
-        write(k_pool, v_pool, li, pids, offs, k, v, keep=keep)
+        q = write(q, k, v, positions, inv_freq, k_pool, v_pool, li, pids,
+                  offs, keep=keep)
         out = chunk_attn(q.contiguous(), pool_layer(k_pool, li),
                          pool_layer(v_pool, li), tables, offsets,
                          chunk_lengths)

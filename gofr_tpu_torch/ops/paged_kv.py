@@ -21,14 +21,22 @@ writer quantizes on write, through the same in-range selection for both
 leaves; :func:`pool_move_rows` moves codes and scales as they are, and
 :func:`slot_view` dequantizes in float32, as the kernels do.
 
-The model steps' per-layer row write, :func:`kv_write` (and
-:func:`pool_write`, :func:`scatter_chunk` and the prefill's
-:func:`scatter_chunk_kv` on CUDA tensors), launches the hand-written kernel ``csrc/kv_write.cu``: K and
-V in one launch, out-of-range rows dropped on the card and int8 rows
+The writers launch the hand-written kernels of ``csrc/kv_write.cu`` on
+CUDA tensors, out-of-range rows dropped on the card and int8 rows
 quantized there, so a decode step holds no host sync and can be
 captured in a CUDA graph, and a prefill returns before the card is
-done. CPU tensors take the plain versions below, which select the
-in-range rows first.
+done:
+
+- :func:`rope_kv_write`, the model steps' per-layer write: RoPE on the
+  new token's q and k, the rotated q out, K and V into the pool, one
+  launch a layer;
+- :func:`scatter_chunk_kv`, the prefill's write: the K and V slabs of
+  every layer in one launch;
+- :func:`kv_write` (and :func:`pool_write`, :func:`scatter_chunk`): one
+  layer's K and V rows, as they are.
+
+CPU tensors take the plain versions below, which select the in-range
+rows first.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import ctypes
 import torch
 
 from . import _build
+from .rope import apply_rope
 
 #: a pool is either a plain tensor or a dict with these two leaves
 QUANT_KEYS = ("q", "s")
@@ -104,13 +113,20 @@ def pool_layer(pool, li: int):
     return pool[li]
 
 
-def keep_index(pids: torch.Tensor, n_pages: int) -> torch.Tensor:
+def keep_index(pids: torch.Tensor, n_pages: int,
+               offs: torch.Tensor | None = None,
+               page: int | None = None) -> torch.Tensor:
     """Flat indices of the entries of ``pids`` that name a real page
-    (``0 <= pid < n_pages``). One host sync on CUDA; a caller writing
-    several layers with the same ids computes it once and passes it as
-    ``keep`` to :func:`pool_write`."""
+    (``0 <= pid < n_pages``) and, with ``offs`` and ``page``, a real row
+    of it (``0 <= off < page``), as the kernels select them. One host
+    sync on CUDA; a caller writing several layers with the same ids
+    computes it once and passes it as ``keep`` to :func:`pool_write`."""
     flat = pids.reshape(-1)
-    return torch.nonzero((flat >= 0) & (flat < n_pages)).reshape(-1)
+    ok = (flat >= 0) & (flat < n_pages)
+    if offs is not None:
+        o = offs.reshape(-1)
+        ok &= (o >= 0) & (o < page)
+    return torch.nonzero(ok).reshape(-1)
 
 
 def _set_rows(dst, index: tuple, rows: torch.Tensor) -> None:
@@ -138,7 +154,8 @@ def pool_write(pool, li: int, pids: torch.Tensor, offs: torch.Tensor,
         _kv_write_kernel(pool, None, li, pids, offs, rows, None)
         return pool
     if keep is None:
-        keep = keep_index(pids, pool_shape(pool)[2])
+        keep = keep_index(pids, pool_shape(pool)[2], offs,
+                          pool_shape(pool)[3])
     _write_kept(pool, li, pids, offs, rows, keep)
     return pool
 
@@ -160,7 +177,8 @@ def kv_write_plain(k_pool, v_pool, li: int, pids: torch.Tensor,
     through :func:`pool_write`'s CPU code, with one in-range selection
     (one host sync on CUDA)."""
     if keep is None:
-        keep = keep_index(pids, pool_shape(k_pool)[2])
+        keep = keep_index(pids, pool_shape(k_pool)[2], offs,
+                          pool_shape(k_pool)[3])
     _write_kept(k_pool, li, pids, offs, k_rows, keep)
     _write_kept(v_pool, li, pids, offs, v_rows, keep)
     return k_pool, v_pool
@@ -172,7 +190,8 @@ def kv_write(k_pool, v_pool, li: int, pids: torch.Tensor,
     """Write one layer's new K and V rows, in place: row n of ``k_rows``
     / ``v_rows`` ([*pids.shape, Hkv, hd]) lands in layer ``li`` at page
     ``pids[n]``, offset ``offs[n]``; a row whose page id is outside
-    ``[0, Np)`` is dropped. Returns (k_pool, v_pool).
+    ``[0, Np)`` (or whose offset is outside ``[0, pg)``) is dropped.
+    Returns (k_pool, v_pool).
 
     CUDA tensors launch the kernel for the pools' form (bf16 rows; bf16
     pools, or int8 ``{q, s}`` pools quantized on the card bit for bit as
@@ -187,22 +206,98 @@ def kv_write(k_pool, v_pool, li: int, pids: torch.Tensor,
     return k_pool, v_pool
 
 
-#: C entry by pool form: (symbol, pool pointer arguments); every entry
-#: takes (k_rows, v_rows, pids, offs, <pools>, N, Hkv, Np, pg, hd, stream)
-_KV_WRITE = {False: ("gofr_kv_write", 2), True: ("gofr_kv_write_i8", 4)}
+#: C entries of ``csrc/kv_write.cu``: symbol -> (pointer arguments,
+#: int arguments) before the stream
+_ENTRIES = {"gofr_kv_write": (6, 5), "gofr_kv_write_i8": (8, 5),
+            "gofr_rope_kv_write": (10, 6), "gofr_rope_kv_write_i8": (12, 6),
+            "gofr_kv_write_slab": (6, 6), "gofr_kv_write_slab_i8": (8, 6)}
 _kv_fns: dict = {}
 
 
-def _kv_kernel(quantized: bool):
-    fn = _kv_fns.get(quantized)
+def _launch(name: str, symbol: str, tensors: list, ints: tuple,
+            device: torch.device) -> None:
+    """Call C entry ``symbol`` with the tensors' addresses (None: a null
+    pointer), ``ints`` and the current stream; raise if the launch was
+    refused."""
+    fn = _kv_fns.get(symbol)
     if fn is None:
-        symbol, n_pools = _KV_WRITE[quantized]
+        n_ptr, n_int = _ENTRIES[symbol]
         fn = getattr(_build.load("kv_write"), symbol)
-        fn.argtypes = [ctypes.c_void_p] * (4 + n_pools) + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _kv_fns[quantized] = fn
-    return fn
+        _kv_fns[symbol] = fn
+    rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _check_pools(name: str, k_pool, v_pool, device: torch.device):
+    """(quantized, [L, Hkv, Np, pg, hd], the leaves in the C entries'
+    order: (k, v) or (k codes, v codes, k scales, v scales), None for an
+    absent V pool), or raise on what the kernels do not take."""
+    quantized = is_quantized_pool(k_pool)
+    pools = [k_pool] if v_pool is None else [k_pool, v_pool]
+    if any(is_quantized_pool(p) != quantized for p in pools):
+        raise ValueError(f"{name}: k_pool and v_pool must both be plain or "
+                         f"both quantized")
+    shape = pool_shape(k_pool)
+    for pool in pools:
+        if pool_shape(pool) != shape:
+            raise ValueError(f"{name}: pools must both be {shape}")
+        if quantized:
+            if pool["q"].dtype != torch.int8 or pool["s"].dtype != \
+                    torch.float32 or pool["s"].shape != (*shape[:4], 1):
+                raise TypeError(f"{name}: a quantized pool is int8 codes "
+                                f"and float32 [L, Hkv, Np, pg, 1] scales")
+        elif pool.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: pools must be bfloat16, got "
+                            f"{pool.dtype}")
+    if quantized:
+        leaves = [k_pool["q"], None if v_pool is None else v_pool["q"],
+                  k_pool["s"], None if v_pool is None else v_pool["s"]]
+    else:
+        leaves = [k_pool, v_pool]
+    for t in leaves:
+        if t is not None and t.device != device:
+            raise ValueError(f"{name}: a pool on {t.device}, the rows on "
+                             f"{device}")
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: pools must be contiguous")
+    return quantized, shape, leaves
+
+
+def _check_rows(name: str, rows: torch.Tensor, n: int, heads: int, d: int,
+                device: torch.device) -> torch.Tensor:
+    """``rows`` [*pids.shape, heads, d] bf16 on ``device`` as a contiguous
+    [n, heads, d], or raise."""
+    if rows.dtype != torch.bfloat16 or tuple(rows.shape[-2:]) != (heads, d) \
+            or rows.numel() != n * heads * d:
+        raise ValueError(f"{name}: rows must be bfloat16 [*pids.shape, "
+                         f"{heads}, {d}], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if rows.device != device:
+        raise ValueError(f"{name}: a tensor on {rows.device}, the rows on "
+                         f"{device}")
+    return rows.reshape(n, heads, d).contiguous()
+
+
+def _index(name: str, t: torch.Tensor, n: int,
+           device: torch.device) -> torch.Tensor:
+    """An index tensor of ``n`` entries as contiguous int32 [n]."""
+    if t.numel() != n:
+        raise ValueError(f"{name}: pids, offs (and positions) must hold one "
+                         f"entry per row")
+    if t.device != device:
+        raise ValueError(f"{name}: a tensor on {t.device}, the rows on "
+                         f"{device}")
+    return t.reshape(-1).to(torch.int32).contiguous()
+
+
+def _count(fn, quantized: bool) -> None:
+    counter = "launches_int8" if quantized else "launches"
+    setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_rows, v_rows) -> None:
@@ -212,73 +307,96 @@ def _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_rows, v_rows) -> None:
     ``kv_write.launches_int8`` for quantized ones."""
     if k_rows.device.type != "cuda":
         raise ValueError(f"kv_write: no kernel for device {k_rows.device}")
-    quantized = is_quantized_pool(k_pool)
-    pools = [k_pool] if v_pool is None else [k_pool, v_pool]
-    if any(is_quantized_pool(p) != quantized for p in pools):
-        raise ValueError("kv_write: k_pool and v_pool must both be plain or "
-                         "both quantized")
-    n_layers, hkv, n_pages, pg, d = pool_shape(k_pool)
+    dev = k_rows.device
+    quantized, (n_layers, hkv, n_pages, pg, d), leaves = _check_pools(
+        "kv_write", k_pool, v_pool, dev)
     if not 0 <= li < n_layers:
         raise ValueError(f"kv_write: layer {li} outside [0, {n_layers})")
     n = pids.numel()
-    if offs.numel() != n:
-        raise ValueError("kv_write: pids and offs must hold one entry per row")
-    rows = [k_rows] if v_rows is None else [k_rows, v_rows]
-    rows = [r.reshape(n, *r.shape[-2:]) for r in rows]
-    leaves = []
-    for pool in pools:
-        leaves += ([pool["q"], pool["s"]] if quantized else [pool])
-    for r in rows:
-        if r.dtype != torch.bfloat16 or tuple(r.shape) != (n, hkv, d):
-            raise ValueError(f"kv_write: rows must be bfloat16 "
-                             f"[*pids.shape, {hkv}, {d}], got {r.dtype} "
-                             f"{tuple(r.shape)}")
-    for t in rows + leaves + [pids, offs]:
-        if t.device != k_rows.device:
-            raise ValueError(f"kv_write: a tensor on {t.device}, the rows "
-                             f"on {k_rows.device}")
-    for pool in pools:
-        want = (n_layers, hkv, n_pages, pg, d)
-        if pool_shape(pool) != want:
-            raise ValueError(f"kv_write: pools must both be {want}")
-        if quantized:
-            if pool["q"].dtype != torch.int8 or pool["s"].dtype != \
-                    torch.float32 or pool["s"].shape != (*want[:4], 1):
-                raise TypeError("kv_write: a quantized pool is int8 codes "
-                                "and float32 [L, Hkv, Np, pg, 1] scales")
-        elif pool.dtype != torch.bfloat16:
-            raise TypeError(f"kv_write: pools must be bfloat16, got "
-                            f"{pool.dtype}")
-    if not all(t.is_contiguous() for t in leaves):
-        raise ValueError("kv_write: pools must be contiguous")
-    rows = [r.contiguous() for r in rows]
-    pids = pids.reshape(-1).to(torch.int32).contiguous()
-    offs = offs.reshape(-1).to(torch.int32).contiguous()
-    layer = [t[li] for t in leaves]
-    if v_pool is None:
-        # K only: the V row and pool arguments are null
-        layer = ([layer[0], None, layer[1], None] if quantized
-                 else [layer[0], None])
-        rows.append(None)
-    elif quantized:                 # (k codes, v codes, k scales, v scales)
-        layer = [layer[0], layer[2], layer[1], layer[3]]
-    ptr = [None if t is None else t.data_ptr() for t in rows + [pids, offs]
-           + layer]
-    rc = _kv_kernel(quantized)(
-        *ptr, n, hkv, n_pages, pg, d,
-        torch.cuda.current_stream(k_rows.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"kv_write{'_int8' if quantized else ''} kernel "
-                           f"launch failed: cudaError {rc}")
+    rows = [None if r is None else _check_rows("kv_write", r, n, hkv, d, dev)
+            for r in (k_rows, v_rows)]
+    idx = [_index("kv_write", t, n, dev) for t in (pids, offs)]
+    layer = [None if t is None else t[li] for t in leaves]
+    _launch("kv_write" + ("_int8" if quantized else ""),
+            "gofr_kv_write" + ("_i8" if quantized else ""),
+            rows + idx + layer, (n, hkv, n_pages, pg, d), dev)
     if n:
-        counter = "launches_int8" if quantized else "launches"
-        setattr(kv_write, counter, getattr(kv_write, counter) + 1)
+        _count(kv_write, quantized)
 
 
 #: kernel launches since the last reset, per pool form (plain integers;
-#: set one to 0 to start counting); pool_write's CUDA path counts here
+#: set one to 0 to start counting); pool_write's and scatter_chunk's CUDA
+#: paths count here
 kv_write.launches = 0           # bf16 pools
 kv_write.launches_int8 = 0      # int8 {q, s} pools
+
+
+def rope_kv_write_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        positions: torch.Tensor, inv_freq: torch.Tensor,
+                        k_pool, v_pool, li: int, pids: torch.Tensor,
+                        offs: torch.Tensor,
+                        keep: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of :func:`rope_kv_write`, on any device:
+    ``apply_rope`` on q and on k, then :func:`kv_write_plain` of the
+    rotated k and of v (``keep`` as there)."""
+    q_rot = apply_rope(q, positions, inv_freq)
+    kv_write_plain(k_pool, v_pool, li, pids, offs,
+                   apply_rope(k, positions, inv_freq), v, keep)
+    return q_rot
+
+
+def rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, inv_freq: torch.Tensor, k_pool,
+                  v_pool, li: int, pids: torch.Tensor, offs: torch.Tensor,
+                  keep: torch.Tensor | None = None) -> torch.Tensor:
+    """A step's new rows through RoPE into the pool, in place: q [*lead,
+    Hq, hd] and k [*lead, Hkv, hd] rotated by ``positions`` [*lead]
+    (``apply_rope`` with ``inv_freq`` [hd / 2]), the rotated k and v
+    [*lead, Hkv, hd] written into layer ``li`` at (``pids``, ``offs``)
+    [*lead] as :func:`kv_write` writes them (a row whose page id is
+    outside ``[0, Np)`` dropped). Returns the rotated q [*lead, Hq, hd].
+    The RoPE position and the write coordinates are separate: a tree
+    verify rotates node i at its depth and writes it at row i.
+
+    CUDA tensors launch the fused kernel for the pools' form (bf16 q, k,
+    v; hd 64 or 128; one launch, no host sync), bit for bit
+    :func:`rope_kv_write_plain`, or raise: there is no fallback. CPU
+    tensors run :func:`rope_kv_write_plain` (``keep``, the in-range
+    indices, may be passed in to share one selection across layers)."""
+    if q.device.type == "cpu":
+        return rope_kv_write_plain(q, k, v, positions, inv_freq, k_pool,
+                                   v_pool, li, pids, offs, keep)
+    name = "rope_kv_write"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    dev = q.device
+    quantized, (n_layers, hkv, n_pages, pg, d), leaves = _check_pools(
+        name, k_pool, v_pool, dev)
+    if not 0 <= li < n_layers:
+        raise ValueError(f"{name}: layer {li} outside [0, {n_layers})")
+    if d not in (64, 128):
+        raise ValueError(f"{name}: head_dim {d}; the kernel takes 64 or 128")
+    n, hq = pids.numel(), q.shape[-2]
+    rows = [_check_rows(name, t, n, heads, d, dev)
+            for t, heads in ((q, hq), (k, hkv), (v, hkv))]
+    idx = [_index(name, t, n, dev) for t in (positions, pids, offs)]
+    if inv_freq.dtype != torch.float32 or tuple(inv_freq.shape) != (d // 2,) \
+            or inv_freq.device != dev:
+        raise ValueError(f"{name}: inv_freq must be float32 [{d // 2}] on "
+                         f"{dev}")
+    q_rot = torch.empty_like(rows[0])
+    _launch(name + ("_int8" if quantized else ""),
+            "gofr_rope_kv_write" + ("_i8" if quantized else ""),
+            rows + [idx[0], inv_freq.contiguous(), idx[1], idx[2], q_rot]
+            + [t[li] for t in leaves], (n, hq, hkv, n_pages, pg, d), dev)
+    if n:
+        _count(rope_kv_write, quantized)
+    return q_rot.reshape(q.shape)
+
+
+#: fused kernel launches since the last reset, per pool form
+rope_kv_write.launches = 0
+rope_kv_write.launches_int8 = 0
 
 
 def _chunk_coords(pool, tables: torch.Tensor, offsets: torch.Tensor,
@@ -358,8 +476,8 @@ def scatter_chunk_kv(k_pool, v_pool, tables: torch.Tensor,
     """:func:`scatter_chunk` of a K slab and a V slab [L, P, S, Hkv, hd]
     into their pools, in place. Returns (k_pool, v_pool).
 
-    CUDA tensors launch the ``kv_write`` kernel once per layer for K and
-    V together (bf16 rows; counted in ``kv_write.launches`` /
+    CUDA tensors launch the slab kernel once for every layer, K and V
+    together (bf16 slabs; counted in ``scatter_chunk_kv.launches`` /
     ``launches_int8``): the page ids and offsets are derived once on the
     device and the kernel drops the out-of-range rows, so the call holds
     no host sync and returns before the card has written. CPU tensors
@@ -367,12 +485,39 @@ def scatter_chunk_kv(k_pool, v_pool, tables: torch.Tensor,
     if k_slab.device.type == "cpu":
         return scatter_chunk_kv_plain(k_pool, v_pool, tables, k_slab, v_slab,
                                       offsets, chunk_lens)
+    name = "scatter_chunk_kv"
+    if k_slab.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {k_slab.device}")
+    dev = k_slab.device
+    quantized, (n_layers, hkv, n_pages, pg, d), leaves = _check_pools(
+        name, k_pool, v_pool, dev)
+    if not 8 <= d <= 256 or d & (d - 1):
+        raise ValueError(f"{name}: head_dim {d}; the kernel takes a power "
+                         f"of two from 8 to 256")
+    if k_slab.dim() != 5 or k_slab.shape[0] != n_layers:
+        raise ValueError(f"{name}: slabs must be [{n_layers}, P, S, {hkv}, "
+                         f"{d}], got {tuple(k_slab.shape)}")
+    n = k_slab.shape[1] * k_slab.shape[2]
     pids, offs = _chunk_coords(k_pool, tables, offsets, chunk_lens,
                                k_slab.shape[2])
-    for li in range(k_slab.shape[0]):
-        _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_slab[li],
-                         v_slab[li])
+    slabs = [_check_rows(name, t, n_layers * n, hkv, d, dev)
+             for t in (k_slab, v_slab)]
+    if tuple(v_slab.shape) != tuple(k_slab.shape):
+        raise ValueError(f"{name}: K and V slabs differ in shape")
+    if any(t.data_ptr() % 16 for t in slabs + leaves):
+        raise ValueError(f"{name}: slabs and pools must be 16-byte aligned")
+    _launch(name + ("_int8" if quantized else ""),
+            "gofr_kv_write_slab" + ("_i8" if quantized else ""),
+            slabs + [_index(name, t, n, dev) for t in (pids, offs)] + leaves,
+            (n_layers, n, hkv, n_pages, pg, d), dev)
+    if n and n_layers:
+        _count(scatter_chunk_kv, quantized)
     return k_pool, v_pool
+
+
+#: slab kernel launches since the last reset, per pool form
+scatter_chunk_kv.launches = 0
+scatter_chunk_kv.launches_int8 = 0
 
 
 def pool_move_rows(pool, tables: torch.Tensor, src_pos: torch.Tensor,

@@ -118,6 +118,9 @@ class _Handler(BaseHTTPRequestHandler):
         prompt_tokens = server.tokenizer.encode(prompt)
         req = server.engine.submit(prompt_tokens, params)
         if not req.done.wait(server.request_timeout_s):
+            # the caller is gone: free the slot instead of decoding to
+            # max_tokens for nobody (gofr_tpu/serving/handlers.py cancels)
+            server.engine.cancel(req)
             raise _HTTPError(504, "generation timed out")
         if req.error:
             raise _HTTPError(503, req.error)

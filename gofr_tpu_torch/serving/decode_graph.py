@@ -65,13 +65,13 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention,
                                    paged_tree_attention)
-from ..ops.paged_kv import kv_write
+from ..ops.paged_kv import kv_write, rope_kv_write
 from ..ops.quant import wq_gemm
 from .sampling import sample_batch
 
 #: the kernel wrappers whose launch counters a replay carries on
 COUNTED = (flash_attention, paged_decode_attention, paged_chunk_attention,
-           paged_tree_attention, kv_write, wq_gemm)
+           paged_tree_attention, kv_write, rope_kv_write, wq_gemm)
 _COUNTERS = ("launches", "launches_int8", "launches_int4")
 
 #: the buffers the host writes, with their dtypes

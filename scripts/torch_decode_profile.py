@@ -23,8 +23,12 @@ bucket width, with the host time until the call returns, unsynchronised
 - ``device_busy_ms``: summed device time of the kernels the call ran,
   from ``torch.profiler`` over the traced calls, and ``idle_share`` =
   1 - busy / wall: how far the host holds the card back;
-- ``launches``: kernels per call, and the top kernels by device time,
-  grouped as attention kernels (this repository's), GEMMs and the rest;
+- ``launches``: kernels per call (in a graph case also per decode step,
+  ``per_step``), and the device time and launches grouped as attention
+  kernels (this repository's), the K/V write kernels (``kv_write``: the
+  per-layer, slab and fused RoPE + write entries of ``csrc/kv_write.cu``),
+  GEMMs and the rest (``busy_ms_by_kind``, ``launches_by_kind``), with
+  the top kernels by device time;
 - ``api_calls``: CUDA API calls (``cuda*``, ``cu*``) the host made per call
   (kernel launches, graph launches, copies, syncs), by name.
 
@@ -61,8 +65,8 @@ from gofr_tpu_torch.serving.sampling import sample_batch  # noqa: E402
 def _kind(name: str) -> str:
     if "flash_fwd" in name or "paged_decode" in name:
         return "attention_kernels"
-    if "kv_write" in name:
-        return "kv_write"
+    if "kv_write" in name:      # kv_write_kernel, rope_kv_write_kernel,
+        return "kv_write"       # kv_write_slab_kernel
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90")):
         return "gemm"
@@ -93,14 +97,17 @@ def _profile(fn, calls: int) -> dict:
         kernels[evt.key] = (dev_us / 1e3 / calls, evt.count / calls)
     busy = sum(ms for ms, _ in kernels.values())
     by_kind: dict[str, float] = {}
-    for name, (ms, _) in kernels.items():
+    launches_by_kind: dict[str, float] = {}
+    for name, (ms, n) in kernels.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
+        launches_by_kind[_kind(name)] = launches_by_kind.get(
+            _kind(name), 0.0) + n
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "launches": sum(n for _, n in kernels.values()),
             "api_calls": sum(api.values()), "api_calls_by_name": api,
-            "busy_ms_by_kind": by_kind,
+            "busy_ms_by_kind": by_kind, "launches_by_kind": launches_by_kind,
             "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
                             for n, (ms, c) in top]}
 
@@ -211,6 +218,8 @@ def graph_case(params, cfg, dev, lens_l: list[int], kv_dtype: str,
         "traced_wall_ms": prof["traced_wall_ms"] / steps,
         "device_busy_ms": prof["device_busy_ms"] / steps,
         "launches": prof["launches"] / steps,
+        "launches_by_kind": {kind: n / steps for kind, n
+                             in prof["launches_by_kind"].items()},
         "api_calls": prof["api_calls"] / steps,
         "idle_share": prof["idle_share"],
         "pipelined_wall_ms": out["pipelined_wall_ms"] / steps}

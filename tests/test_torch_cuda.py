@@ -34,7 +34,14 @@ dequantized |V| (P V carries p times the row scale, rounded to bf16).
 
 The KV write kernel (``kv_write``, and ``pool_write`` on CUDA) must give
 its plain version's pools bit for bit, in both forms (int8 codes and
-scales included), dropping out-of-range and -1 page ids. The compiled
+scales included), dropping out-of-range and -1 page ids; so must its
+fused RoPE entry (``rope_kv_write``: the rotated q too, decode, chunk
+and tree positions apart from the write coordinates, hd 64 and 128,
+``rope_scaling`` off and on, one launch a call; positions shifted by one
+and the rotation's sign flipped must not agree) and its slab entry
+(``scatter_chunk_kv``: every layer in one launch, hd 32 to 256). A
+decode step launches the fused entry once a layer and the per-layer
+write never. The compiled
 decode dispatch (``serving/decode_graph.py``) must give, on a small
 bf16 model at ``max_batch`` rows, the uncaptured pass's tokens, state
 and pools bit for bit, for an all-greedy batch and a mixed one, on both
@@ -66,9 +73,11 @@ from gofr_tpu_torch.ops.paged_attention import (
 from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
 from gofr_tpu_torch.ops.paged_kv import (kv_write, kv_write_plain,
                                          pool_write, quantize_pool,
+                                         rope_kv_write, rope_kv_write_plain,
                                          scatter_chunk, scatter_chunk_kv,
                                          scatter_chunk_kv_plain,
                                          scatter_chunk_plain)
+from gofr_tpu_torch.ops.rope import rope_frequencies
 from gofr_tpu_torch.ops import quant
 from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
 from gofr_tpu_torch.serving.glue import llama_engine
@@ -577,14 +586,16 @@ def test_scatter_chunk_kernel_matches_plain(dev, form):
     v_slab = _randn(gen, dev, n_layers, p, width, hkv, d) * 2
     args = (tables, slab, v_slab, offsets, lens)
     want = scatter_chunk_kv_plain(_clone(pool), _clone(v_pool), *args)
-    before = kv_write.launches_int8 if form == "int8" else kv_write.launches
+    attr = "launches_int8" if form == "int8" else "launches"
+    before = getattr(scatter_chunk_kv, attr)
     got = scatter_chunk_kv(_clone(pool), _clone(v_pool), *args)
     torch.cuda.synchronize()
-    after = kv_write.launches_int8 if form == "int8" else kv_write.launches
-    assert after == before + n_layers                  # one launch a layer
+    assert getattr(scatter_chunk_kv, attr) == before + 1   # every layer
     for g, w in zip(got, want):
         _assert_pools_equal(g, w)
+    before = getattr(kv_write, attr)
     one = scatter_chunk(_clone(pool), tables, slab, offsets, lens)
+    assert getattr(kv_write, attr) == before + n_layers    # K: one a layer
     _assert_pools_equal(one, scatter_chunk_plain(_clone(pool), tables, slab,
                                                  offsets, lens))
     _assert_pools_equal(one, want[0])
@@ -592,6 +603,148 @@ def test_scatter_chunk_kernel_matches_plain(dev, form):
     for g, before_pool in zip(got, (pool, v_pool)):
         changed = (_leaves(g)[0] != _leaves(before_pool)[0]).any(-1).any(1)[0]
         assert int(changed.sum()) == 64 + 37 + 24   # row 3: positions 40-63
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_kv_write_slab_kernel_matches_plain_at_other_head_dims(dev, d, form):
+    # two KV heads (one 16-byte vector row block shorter than a warp at d
+    # 32), a slot crossing pages, a ragged one, a dummy row
+    gen = torch.Generator(device=dev).manual_seed(d)
+    n_layers, hkv, n_pages, pg = 3, 2, 10, 16
+    shape = (n_layers, hkv, n_pages, pg, d)
+    pools = [_randn(gen, dev, *shape) for _ in range(2)]
+    if form == "int8":
+        pools = [quantize_pool(p) for p in pools]
+    tables = torch.tensor([[4, 1, 7], [0, 9, n_pages],
+                           [n_pages] * 3], dtype=torch.int32, device=dev)
+    offsets = torch.tensor([5, 0, 0], dtype=torch.int32, device=dev)
+    lens = torch.tensor([40, 21, 1], dtype=torch.int32, device=dev)
+    slabs = [_randn(gen, dev, n_layers, 3, 48, hkv, d) * 4 for _ in range(2)]
+    args = (tables, *slabs, offsets, lens)
+    want = scatter_chunk_kv_plain(*[_clone(p) for p in pools], *args)
+    got = scatter_chunk_kv(*[_clone(p) for p in pools], *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_pools_equal(g, w)
+
+
+#: Llama-3.2's rope_scaling (its checkpoints' config.json)
+LLAMA32_SCALING = {"factor": 32.0, "low_freq_factor": 1.0,
+                   "high_freq_factor": 4.0, "original_max_position": 8192}
+
+
+def _rope_case(dev, gen, mode, hq, hkv, d, n_pages, pg):
+    """(q, k, v, positions, pids, offs) of one fused write: decode, 8
+    rows at positions up to 8191; chunk, 4 x 16 rows at ``offset + i``;
+    tree, the same rows RoPE'd at ``offset + depth``. The write
+    coordinates are distinct (page, offset) draws; a quarter of the rows
+    is dropped (page ids Np, -1 and Np + 3), and one more by an offset
+    past the page."""
+    lead = (8,) if mode == "decode" else (4, 16)
+    n = 1
+    for r in lead:
+        n *= r
+    cpu = torch.Generator().manual_seed(n + len(mode))
+    if mode == "decode":
+        positions = torch.randint(0, 8192, lead, generator=cpu)
+    else:
+        base = torch.randint(0, 8000, (4, 1), generator=cpu)
+        step = (torch.arange(16) if mode == "chunk"
+                else torch.tensor([0, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 5, 5, 6,
+                                   6, 7]))
+        positions = base + step[None, :]
+    flat = torch.randperm(n_pages * pg, generator=cpu)[:n]
+    pids, offs = (flat // pg).int(), (flat % pg).int()
+    pids[::4] = torch.tensor([n_pages, -1, n_pages + 3],
+                             dtype=torch.int32).repeat(n)[:len(pids[::4])]
+    offs[1] = pg + 1
+    q, k, v = (_randn(gen, dev, *lead, h, d) * 2 for h in (hq, hkv, hkv))
+    return (q, k, v, positions.int().to(dev), pids.reshape(lead).to(dev),
+            offs.reshape(lead).to(dev))
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 64), (12, 4, 64), (8, 8, 128),
+                                      (32, 8, 128)])
+@pytest.mark.parametrize("mode", ["decode", "chunk", "tree"])
+@pytest.mark.parametrize("scaling", [None, LLAMA32_SCALING],
+                         ids=["plain_rope", "llama32_scaling"])
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_rope_kv_write_kernel_matches_plain(dev, hq, hkv, d, mode, scaling,
+                                            form):
+    gen = torch.Generator(device=dev).manual_seed(d + hq)
+    n_layers, n_pages, pg, li = 2, 12, 16, 1
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool, v_pool = _randn(gen, dev, *shape), _randn(gen, dev, *shape)
+    if form == "int8":
+        k_pool, v_pool = quantize_pool(k_pool), quantize_pool(v_pool)
+    q, k, v, positions, pids, offs = _rope_case(dev, gen, mode, hq, hkv, d,
+                                                n_pages, pg)
+    inv_freq = rope_frequencies(d, 500000.0, scaling, device=dev)
+
+    def run(fn, pos=positions, inv=inv_freq):
+        kp, vp = _clone(k_pool), _clone(v_pool)
+        q_rot = fn(q, k, v, pos, inv, kp, vp, li, pids, offs)
+        torch.cuda.synchronize()
+        return q_rot, kp, vp
+
+    want = run(rope_kv_write_plain)
+    attr = "launches_int8" if form == "int8" else "launches"
+    before = (getattr(rope_kv_write, attr), getattr(kv_write, attr))
+    got = run(rope_kv_write)
+    assert (getattr(rope_kv_write, attr),
+            getattr(kv_write, attr)) == (before[0] + 1, before[1])
+    assert got[0].shape == q.shape and got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0], want[0])
+    _assert_pools_equal(got[1], want[1])
+    _assert_pools_equal(got[2], want[2])
+    # the in-range rows landed, the dropped ones did not
+    live = int(((pids >= 0) & (pids < n_pages) & (offs < pg)).sum())
+    changed = (_leaves(got[2])[0] != _leaves(v_pool)[0]).any(-1).any(1)[li]
+    assert 0 < int(changed.sum()) == live
+    # planted faults: positions one late, the rotation's sign flipped
+    for pos, inv in ((positions + 1, inv_freq), (positions, -inv_freq)):
+        fault = run(rope_kv_write, pos, inv)
+        assert not torch.equal(fault[0], want[0])
+        assert not all(torch.equal(a, b) for a, b in
+                       zip(_leaves(fault[1]), _leaves(want[1])))
+
+
+def test_rope_kv_write_raises_on_what_the_kernel_does_not_take(dev):
+    pool = torch.zeros(2, 2, 4, 8, 64, device=dev, dtype=torch.bfloat16)
+    ids = torch.zeros(3, dtype=torch.int32, device=dev)
+    q = torch.zeros(3, 4, 64, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(3, 2, 64, device=dev, dtype=torch.bfloat16)
+    inv = rope_frequencies(64, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rope_kv_write(q.float(), kv, kv, ids, inv, pool, pool, 0, ids, ids)
+    with pytest.raises(ValueError, match="64 or 128"):
+        wide = torch.zeros(2, 2, 4, 8, 96, device=dev, dtype=torch.bfloat16)
+        rope_kv_write(q, kv, kv, ids, inv, wide, wide, 0, ids, ids)
+    with pytest.raises(ValueError, match="inv_freq"):
+        rope_kv_write(q, kv, kv, ids, inv[:16], pool, pool, 0, ids, ids)
+    with pytest.raises(ValueError, match="one entry per row"):
+        rope_kv_write(q, kv, kv, ids[:2], inv, pool, pool, 0, ids, ids)
+    with pytest.raises(ValueError, match="layer"):
+        rope_kv_write(q, kv, kv, ids, inv, pool, pool, 2, ids, ids)
+    with pytest.raises(ValueError, match="plain or both quantized"):
+        rope_kv_write(q, kv, kv, ids, inv, pool, quantize_pool(pool), 0, ids,
+                      ids)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_decode_step_writes_through_the_fused_kernel_only(dev, form):
+    # a replay of K = 4 steps over a 2-layer model: 8 fused launches, no
+    # per-layer write
+    eng = _graph_engine(dev, form, 1)
+    eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_new_tokens=50))
+    eng._admit()
+    eng._decode_step()                   # captures, then replays
+    attr = "launches_int8" if form == "int8" else "launches"
+    before = (getattr(rope_kv_write, attr), getattr(kv_write, attr))
+    eng._decode_step()
+    assert (getattr(rope_kv_write, attr) - before[0],
+            getattr(kv_write, attr) - before[1]) == (2 * 4, 0)
+
 
 def _graph_engine(dev, form, m, quantize=None, tie=False, **cfg_kw):
     """A 2-layer bf16 model (hd 64) behind an engine of 4 slots, K = 4

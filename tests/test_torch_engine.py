@@ -22,6 +22,7 @@ alone.
 import json
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import jax
@@ -476,3 +477,57 @@ def test_app_serves_chat_and_health_on_cpu():
         engine.stop()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_timed_out_chat_is_cancelled_and_frees_its_slot():
+    # the engine loop is not started: the test admits the request by hand
+    # while the handler waits, so it holds a slot and pages when its wait
+    # times out; the 504 must cancel it, and the next dispatch retire it
+    # with its pages back on the free list, not decode it to max_tokens
+    engine = build_engine(LlamaConfig.tiny().scaled(vocab_size=260),
+                          device="cpu", engine_config=EngineConfig(
+                              max_batch=2, max_seq=128, seed=0))
+    server = build_server(engine, port=0)
+    server.request_timeout_s = 3.0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/chat"
+    answer = {}
+
+    def ask():
+        try:
+            answer["ok"] = _http(url, {"prompt": "hello there",
+                                       "max_tokens": 64, "temperature": 0})
+        except urllib.error.HTTPError as exc:
+            answer["status"] = exc.code
+            answer["body"] = json.loads(exc.read())
+
+    client = threading.Thread(target=ask)
+    try:
+        client.start()
+        deadline = time.time() + 30
+        while not engine._waiting and time.time() < deadline:
+            time.sleep(0.005)
+        req = engine._waiting[0]
+        engine._admit()                  # prefilled: a slot, pages, 1 token
+        assert not answer, "the handler answered before its timeout"
+        assert engine.active[req.slot] is req
+        assert engine._slot_pages[req.slot] > 0 and req.generated
+        client.join(timeout=30)
+        assert answer.get("status") == 504, answer
+        assert answer["body"]["error"]["message"] == "generation timed out"
+        assert req.cancelled and not req.done.is_set()
+        engine._decode_step()            # the sweep retires the slot
+        assert req.done.is_set() and req.finished_at is not None
+        assert all(r is None for r in engine.active)
+        assert len(req.generated) == 1  # nothing decoded after the 504
+        # the books balance: every page free, none held or referenced (a
+        # cancelled request registers no prefix)
+        assert sorted(engine._free_pages) == list(range(engine._n_pages))
+        assert not engine._slot_pages.any() and not engine._page_refs.any()
+        assert not engine._prefix_cache
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        client.join(timeout=10)
