@@ -125,7 +125,7 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              tokens/s without the captures.
    serve_int8 — the same three waves through ``serve_config(kv_dtype=
              "int8")`` at the bf16 pool's byte budget: at least 1.8x its
-             pages in no more bytes, every answer 200, the int8 decode
+             pages in no more bytes, every answer 201, the int8 decode
              and chunk counters (zeroed just before) must rise and the
              bf16 ones stay 0; TTFT, decode tokens/s and each answer's
              common prefix with the bf16 answers are printed.
@@ -2391,8 +2391,8 @@ def phase_checkpoint(dev, smi_line: str) -> None:
                                                    max_new_tokens=32), 600)
     finally:
         twin.stop()
-    got = body["data"]["tokens"] if status == 200 else None
-    usage = body["data"]["usage"] if status == 200 else {}
+    got = body["data"]["tokens"] if status == 201 else None
+    usage = body["data"]["usage"] if status == 201 else {}
     emit({"phase": "checkpoint", "card": smi_line,
           "config": "llama3_1b bf16 random seed 0 as an HF checkpoint, two "
                     "shards, MODEL_QUANT=int8 MODEL_MAX_SEQ=2048",
@@ -2402,7 +2402,7 @@ def phase_checkpoint(dev, smi_line: str) -> None:
           "prompt_tokens": usage.get("prompt_tokens"),
           "tokens": got, "in_memory_tokens": list(req.generated),
           "bit_equal": got == list(req.generated)})
-    if status != 200 or req.error:
+    if status != 201 or req.error:
         raise AssertionError(f"checkpoint: status {status}, in-memory "
                              f"error {req.error}")
     if got != list(req.generated):
@@ -2703,8 +2703,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
         server.server_close()
         engine.stop()
         thread.join(timeout=30)
-    if any(a is None or a[0] != 200 for a in answers):
-        raise AssertionError(f"{phase}: not every answer was 200: {answers}")
+    if any(a is None or a[0] != 201 for a in answers):
+        raise AssertionError(f"{phase}: not every answer was 201: {answers}")
     usage = [a[1]["data"]["usage"] for a in answers]
     tokens = [a[1]["data"]["tokens"] for a in answers]
     n_tokens = [len(t) for t in tokens]
@@ -2783,6 +2783,681 @@ def _common_prefix(a: list, b: list) -> int:
     return n
 
 
+class _PrintableTokenizer:
+    """The byte tokenizer's encoding, and a decoding that gives every id
+    one printable ASCII character (``chr(33 + id % 94)``): a random
+    model's ids lie mostly past the byte range, which the byte tokenizer
+    decodes to nothing, so its text would be near empty. Here each token
+    is one character, and text, deltas and stop sequences are checked
+    character for character."""
+
+    def __init__(self) -> None:
+        from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+        self._bytes = ByteTokenizer()
+
+    def encode(self, text: str) -> list:
+        return self._bytes.encode(text)
+
+    def decode(self, ids) -> str:
+        return "".join(chr(33 + int(i) % 94) for i in ids)
+
+
+def _http_json(port: int, method: str, path: str, body=None):
+    """(status, headers with lower-case names, JSON body) of one request."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                json.loads(resp.read()))
+    finally:
+        conn.close()
+
+
+def _content(event) -> str | None:
+    """The text an SSE event carries: a ``/chat`` frame's token text, a
+    chat chunk's content delta, a completion chunk's text (None for the
+    role chunk, a terminal chunk, an error and ``[DONE]``)."""
+    if not isinstance(event, dict):
+        return None
+    if "token" in event:
+        return event["text"]
+    choice = (event.get("choices") or [{}])[0]
+    if choice.get("finish_reason") is not None:
+        return None
+    if "delta" in choice:
+        return choice["delta"].get("content")
+    return choice.get("text") or None
+
+
+def _open_post(port: int, path: str, body: dict):
+    """A raw socket that has sent one POST (no reply read yet)."""
+    import socket
+    data = json.dumps(body).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+    sock.sendall(b"POST %s HTTP/1.1\r\nHost: localhost\r\nContent-Type: "
+                 b"application/json\r\nContent-Length: %d\r\nConnection: "
+                 b"close\r\n\r\n%s" % (path.encode(), len(data), data))
+    return sock
+
+
+def _sse_call(port: int, path: str, body: dict,
+              close_after: int | None = None) -> dict:
+    """One POST read off a raw socket, chunk by chunk: status, headers,
+    each SSE event with its arrival time (s after the request was sent),
+    whether the terminating zero-length chunk came. With ``close_after``
+    the client closes its socket once that many events carried text
+    (``closed_at``: ``time.perf_counter()`` then); ``sent_at``: the wall
+    clock when the request left, as ``GenRequest.submitted_at`` reads
+    it."""
+    t0 = time.perf_counter()
+    out = {"events": [], "terminal": False, "closed_at": None,
+           "sent_at": time.time()}
+    sock = _open_post(port, path, body)
+    reader = sock.makefile("rb")
+    try:
+        out["status"] = int(reader.readline().split()[1])
+        headers = {}
+        while True:
+            line = reader.readline()
+            if line in (b"\r\n", b""):
+                break
+            key, _, value = line.decode().partition(":")
+            headers[key.strip().lower()] = value.strip()
+        out["headers"] = headers
+        if "content-length" in headers:
+            out["body"] = json.loads(reader.read(
+                int(headers["content-length"])))
+            return out
+        buf, texts = b"", 0
+        while True:
+            size_line = reader.readline()
+            if not size_line:
+                break                     # closed without the zero chunk
+            size = int(size_line.strip(), 16)
+            if size == 0:
+                reader.readline()
+                out["terminal"] = True
+                break
+            buf += reader.read(size)
+            reader.read(2)
+            now = time.perf_counter() - t0
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                payload = block.decode()[len("data: "):]
+                event = payload if payload == "[DONE]" else json.loads(payload)
+                out["events"].append((now, event))
+                texts += _content(event) is not None
+            if close_after is not None and texts >= close_after:
+                out["closed_at"] = time.perf_counter()
+                break
+    finally:
+        reader.close()
+        sock.close()
+    return out
+
+
+def _frame_faults(tokens: list, frames: list, decode) -> list:
+    """``/chat`` stream frames against the unary answer's tokens."""
+    out = []
+    if [f["token"] for f in frames] != tokens:
+        out.append("frame_tokens")
+    if any(f["text"] != decode([f["token"]]) for f in frames):
+        out.append("frame_text")
+    return out
+
+
+def _form_faults(sse: dict, chat: bool) -> list:
+    """A well-formed OpenAI stream: 200, the role chunk first (chat),
+    exactly one terminal chunk just before ``[DONE]``, ``[DONE]`` last,
+    the zero-length chunk after it."""
+    events = [e for _, e in sse["events"]]
+    out = []
+    if sse.get("status") != 200:
+        out.append("status")
+    if chat and not (events and isinstance(events[0], dict)
+                     and events[0]["choices"][0]["delta"]
+                     == {"role": "assistant"}):
+        out.append("role_first")
+    finals = [i for i, e in enumerate(events)
+              if isinstance(e, dict) and "choices" in e
+              and e["choices"][0]["finish_reason"] is not None]
+    if finals != [len(events) - 2]:
+        out.append("one_terminal_chunk")
+    if not events or events[-1] != "[DONE]":
+        out.append("done_last")
+    if not sse["terminal"]:
+        out.append("zero_chunk")
+    return out
+
+
+def _delta_faults(tokens: list, sse: dict, decode, n_new: int) -> list:
+    """A ``/v1/completions`` stream: its deltas, joined, are the text of
+    ``tokens`` (``n_new`` of them), its terminal chunk says "length",
+    and it is well formed."""
+    events = [e for _, e in sse["events"]]
+    out = []
+    if "".join(t for t in map(_content, events) if t is not None) \
+            != decode(tokens):
+        out.append("delta_text")
+    finals = [e["choices"][0]["finish_reason"] for e in events
+              if isinstance(e, dict) and "choices" in e
+              and e["choices"][0]["finish_reason"] is not None]
+    if finals != ["length"] or len(tokens) != n_new:
+        out.append("finish_length")
+    return out + _form_faults(sse, chat=False)
+
+
+def _stop_faults(answer: tuple, full: str, stop: str, max_tokens: int) -> list:
+    """A unary completion with ``stop``: finish "stop", the text of the
+    stopless answer ``full`` cut before the match, fewer tokens."""
+    status, _, body = answer
+    if status != 201:
+        return ["status"]
+    out = []
+    choice = body["choices"][0]
+    if choice["finish_reason"] != "stop":
+        out.append("finish_stop")
+    if choice["text"] != full[:full.find(stop)] or stop in choice["text"]:
+        out.append("text_cut_at_stop")
+    if not body["usage"]["completion_tokens"] < max_tokens:
+        out.append("completion_below_max")
+    return out
+
+
+def _watch_slots(engine, limit_s: float, since: float) -> list:
+    """(seconds since ``since``, busy slots) samples, until no slot is
+    busy or ``limit_s`` has passed."""
+    samples = []
+    while True:
+        busy = sum(r is not None for r in engine.active)
+        samples.append((time.perf_counter() - since, busy))
+        if busy == 0 or samples[-1][0] > limit_s:
+            return samples
+        time.sleep(0.002)
+
+
+def _freed_faults(samples: list, limit_s: float) -> list:
+    """Some sample within ``limit_s`` saw every slot free."""
+    if not any(t <= limit_s and busy == 0 for t, busy in samples):
+        return [f"slots_free_within_{limit_s}s"]
+    return []
+
+
+def _queued_faults(req, cancel_s: float) -> list:
+    """A request whose client left while it waited: cancelled within
+    2 s, and never given a slot or a token."""
+    out = []
+    if not req.cancelled or cancel_s > 2.0:
+        out.append("cancelled_within_2s")
+    if req.slot != -1 or req.generated or req.admit_order != -1:
+        out.append("never_slotted")
+    return out
+
+
+def _refusal_faults(answer: tuple, status: int, err_type: str) -> list:
+    """A typed refusal: its status, a whole-second ``Retry-After`` of at
+    least 1, the OpenAI error type in ``details``."""
+    got, headers, body = answer
+    out = []
+    if got != status:
+        out.append("status")
+    if not headers.get("retry-after", "").isdigit() \
+            or int(headers["retry-after"]) < 1:
+        out.append("retry_after")
+    if ((body.get("error") or {}).get("details") or {}).get("type") \
+            != err_type:
+        out.append("error_type")
+    return out
+
+
+def _starve_faults(run: dict, calm: dict) -> list:
+    """The starvation run against the run without preemption: one
+    preemption on both counters, every request complete, the victim's
+    tokens equal up to its preemption point, the others' all."""
+    out = []
+    if run["scheduler_preemptions"] < 1 or run["engine_preemptions"] < 1:
+        out.append("preempted")
+    if run["errors"] or run["n_tokens"] != calm["n_tokens"]:
+        out.append("complete")
+    for i, (got, want) in enumerate(zip(run["tokens"], calm["tokens"])):
+        n = run["folded"][i] or len(want)
+        if got[:n] != want[:n]:
+            out.append(f"tokens_{i}")
+    return out
+
+
+def _counter_faults(launches: dict) -> list:
+    out = [f"{k}_launched" for k, n in launches.items()
+           if k != "kv_write" and n < 1]
+    if launches["kv_write"]:
+        out.append("kv_write_off_path")
+    return out
+
+
+def phase_serve_stream(dev, smi_line: str, cfg=None) -> None:
+    """The serving surface on the card: the port's app with ``/chat`` and
+    the OpenAI routes installed as ``app.main`` installs them, on
+    ``cfg`` (default ``llama3_1b``; random weights, seed 0) and
+    ``serve_config`` with the prefix cache off: a hit walks a repeated
+    prompt's suffix through the chunk kernel, whose bf16 logits may flip
+    a near-tie, and (a) holds three answers to one prompt to one path.
+    Prompts use the byte tokenizer; every id decodes to one printable
+    character (``_PrintableTokenizer``). Greedy throughout.
+
+    (a) prompts of 21, 401 and 1801 tokens (the last walked through the
+        chunk kernel), 32 new tokens, one request at a time: the unary
+        ``/chat`` answers 201; its tokens are the ``/chat`` stream's frame
+        tokens bit for bit, each frame's text ``decode([token])``, then
+        ``[DONE]``; the ``/v1/completions`` stream's deltas joined are
+        ``decode(tokens)``, its finish "length".
+    (b) four concurrent ``/v1/chat/completions`` streams (serve's wave-1
+        prompt lengths 21 / 151 / 401 / 901 after the chat template):
+        well formed (role chunk first, one terminal chunk, ``[DONE]``
+        last, the zero-length chunk); client TTFT (the first content
+        event) beside the engine's, the gaps between content events p50 /
+        p99, decode tokens/s; then the same wave as unary ``/chat``, and
+        the streamed / unary ratio of decode tokens/s.
+    (c) ``/v1/completions`` with a 3-character stop that first occurs in
+        (a)'s 401-token text past its 10th character: finish "stop", the
+        text cut before the match, fewer tokens than ``max_tokens``, no
+        slot busy within 0.5 s.
+    (d) a chat stream of ``max_tokens`` 1024 whose client closes after 3
+        content events: no slot busy within 2 s, fewer than 128 tokens
+        decoded; a ``/chat`` stream queued behind 8 busy slots whose
+        client leaves: cancelled within 2 s, never given a slot.
+    (e) an engine with ``max_waiting=1`` on the same weights, the batch
+        full and one request waiting: ``/v1/completions`` answers 503
+        ``server_error`` with ``Retry-After``; under ``RateLimit(rps=
+        0.5)`` the second of two rapid requests 429 ``rate_limit_error``
+        with ``Retry-After``.
+    (f) 8 background requests (301-token prompts, 1536 new tokens), then
+        one interactive one once all 8 decode, on ``serve_config`` with
+        ``SchedulerConfig(starvation_s=0.25)`` and with starvation
+        preemption off (``starvation_s=0``): with it, a preemption on the
+        scheduler's and the engine's counters, every request complete,
+        the victim's tokens equal to the run without it up to its
+        preemption point, the others' all of them; the interactive TTFT
+        of both runs.
+    (g) the launch counters, zeroed before (a) and read after (f): flash,
+        paged decode, paged chunk, ``rope_kv_write`` and the slab write
+        (``scatter_chunk_kv``) rise, the per-layer ``kv_write`` stays 0.
+
+    Each check is also shown a planted fault and must reject it."""
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, rope_kv_write,
+                                             scatter_chunk_kv)
+    from gofr_tpu_torch.serving.app import (build_engine, build_server,
+                                            serve_config)
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    from gofr_tpu_torch.serving.openai_compat import install_openai_routes
+    from gofr_tpu_torch.serving.scheduler import RateLimit, SchedulerConfig
+    cfg = cfg or LlamaConfig.llama3_1b()
+    t_phase = time.perf_counter()
+    counters = {"flash_attention": (flash_attention, "launches"),
+                "paged_decode_attention": (paged_decode_attention,
+                                           "launches"),
+                "paged_chunk_attention": (paged_chunk_attention, "launches"),
+                "rope_kv_write": (rope_kv_write, "launches"),
+                "scatter_chunk_kv": (scatter_chunk_kv, "launches"),
+                "kv_write": (kv_write, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    tok = _PrintableTokenizer()
+    greedy = {"temperature": 0}
+    failed: dict = {}
+    planted: dict = {}
+    out: dict = {"phase": "serve_stream", "card": smi_line}
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+
+    def judge(name, faults, planted_faults):
+        failed[name], planted[name] = faults, planted_faults
+
+    def serving(engine):
+        """The app over ``engine`` on a free port, submits recorded."""
+        server = build_server(engine, tok, port=0)
+        install_openai_routes(server, engine, tok, model="llama3_1b")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        made, inner = [], engine.submit
+
+        def submit(*args, **kwargs):
+            made.append(inner(*args, **kwargs))
+            return made[-1]
+
+        engine.submit = submit
+        return server, thread, server.server_address[1], made
+
+    def fill_slots(engine, n_new):
+        """Every slot busy with a long request, admitted one at a time."""
+        held = []
+        for _ in range(engine.config.max_batch):
+            held.append(engine.submit([1, 2, 3], SamplingParams(
+                temperature=0.0, max_new_tokens=n_new)))
+            deadline = time.time() + 60
+            while time.time() < deadline and not held[-1].generated:
+                time.sleep(0.002)
+        return held
+
+    engine = build_engine(cfg, device=dev, seed=0, engine_config=serve_config(
+        cfg, prefix_cache=False))
+    params = engine.params
+    server, thread, port, made = serving(engine)
+    engine.start()
+    try:
+        # (a) one request at a time, three routes per prompt
+        texts, rows = {}, []
+        for n in (21, 401, 1801):
+            prompt = ((story * 30) if n > 1024 else (words * 20))[:n - 1]
+            body = {"prompt": prompt, "max_tokens": 32, **greedy}
+            unary = _http_json(port, "POST", "/chat", body)
+            tokens = unary[2]["data"]["tokens"] if unary[0] == 201 else []
+            chat_sse = _sse_call(port, "/chat", {**body, "stream": True})
+            frames = [e for _, e in chat_sse["events"]
+                      if isinstance(e, dict) and "token" in e]
+            comp = _sse_call(port, "/v1/completions",
+                             {**body, "stream": True})
+            faults = ([] if unary[0] == 201 else ["chat_201"]) \
+                + _frame_faults(tokens, frames, tok.decode) \
+                + _delta_faults(tokens, comp, tok.decode, 32)
+            if not (chat_sse["terminal"] and chat_sse["events"]
+                    and chat_sse["events"][-1][1] == "[DONE]"):
+                faults.append("chat_stream_done")
+            skipped = dict(comp, events=comp["events"][:3]
+                           + comp["events"][4:])
+            judge(f"a_{n}", faults,
+                  _frame_faults(tokens, frames[:5] + frames[6:], tok.decode)
+                  + _delta_faults(tokens, skipped, tok.decode, 32))
+            texts[n] = (prompt, tok.decode(tokens))
+            rows.append({"prompt_tokens": len(tok.encode(prompt)),
+                         "tokens": len(tokens), "frames": len(frames),
+                         "completion_events": len(comp["events"])})
+        out["a"] = rows
+
+        # (b) a concurrent wave of chat streams, then the same as /chat
+        lengths = (21, 151, 401, 901)
+
+        def wave(kind):
+            got = [None] * len(lengths)
+            made.clear()
+            stats0 = dict(engine.stats)
+
+            def one(i):
+                if kind == "stream":
+                    # "user: " + content + "\nassistant:" and bos
+                    got[i] = _sse_call(port, "/v1/chat/completions", {
+                        "messages": [{"role": "user", "content":
+                                      (words * 20)[:lengths[i] - 18]}],
+                        "max_tokens": 32, "stream": True, **greedy})
+                else:
+                    got[i] = _http_json(port, "POST", "/chat", {
+                        "prompt": (words * 20)[:lengths[i] - 1],
+                        "max_tokens": 32, **greedy})
+
+            workers = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(lengths))]
+            t0 = time.perf_counter()
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=600)
+            wall = time.perf_counter() - t0
+            tps = ((engine.stats["decode_tokens"] - stats0["decode_tokens"])
+                   / (engine.stats["decode_s"] - stats0["decode_s"]))
+            return got, {len(r.prompt_tokens): r for r in made}, wall, tps
+
+        streams, by_len, stream_wall, stream_tps = wave("stream")
+        unaries, _, unary_wall, unary_tps = wave("unary")
+        faults, gaps, client_ttft = [], [], []
+        for sse in streams:
+            faults += _form_faults(sse, chat=True)
+            times = [t for t, e in sse["events"] if _content(e) is not None]
+            gaps += [b - a for a, b in zip(times, times[1:])]
+            client_ttft.append(times[0] * 1e3 if times else None)
+        engine_ttft = [by_len[n].ttft_ms if n in by_len else None
+                       for n in lengths]
+        # the client's TTFT = the request's way in (connection, parse,
+        # tokenize, submit) + the engine's TTFT + the token's way out
+        way_in = [(by_len[n].submitted_at - sse["sent_at"]) * 1e3
+                  if n in by_len else None
+                  for n, sse in zip(lengths, streams)]
+        if sorted(by_len) != list(lengths):
+            faults.append("prompt_lengths")
+        if any(u[0] != 201 for u in unaries):
+            faults.append("unary_201")
+        cut = dict(streams[0], terminal=False,
+                   events=streams[0]["events"][:-1])
+        judge("b_well_formed", faults, _form_faults(cut, chat=True))
+        out["b"] = {
+            "client_ttft_ms": client_ttft, "engine_ttft_ms": engine_ttft,
+            "client_minus_engine_ttft_ms": [
+                c - e if c is not None and e is not None else None
+                for c, e in zip(client_ttft, engine_ttft)],
+            "way_in_ms": way_in,
+            "gap_ms_p50": float(np.percentile(gaps, 50)) * 1e3,
+            "gap_ms_p99": float(np.percentile(gaps, 99)) * 1e3,
+            "gap_ms_max": max(gaps) * 1e3, "gaps": len(gaps),
+            "stream_wall_s": stream_wall, "unary_wall_s": unary_wall,
+            "stream_decode_tokens_per_s": stream_tps,
+            "unary_decode_tokens_per_s": unary_tps,
+            "stream_over_unary": stream_tps / unary_tps}
+
+        # (c) a stop sequence that first occurs in one of (a)'s texts
+        # past its 10th character (the 401-token one first)
+        prompt, full, k = next(
+            ((prompt, full, k) for prompt, full in (
+                texts[401], texts[21], texts[1801])
+             for k in range(10, 29) if full.find(full[k:k + 3]) == k),
+            (None, None, None))
+        if k is None:
+            raise AssertionError(f"serve_stream: no 3-character piece of "
+                                 f"(a)'s texts first occurs past the 10th "
+                                 f"character: {texts}")
+        stop = full[k:k + 3]
+        answer = _http_json(port, "POST", "/v1/completions", {
+            "prompt": prompt, "max_tokens": 32, "stop": stop, **greedy})
+        samples = _watch_slots(engine, 0.5, time.perf_counter())
+        carried = (answer[0], answer[1], {**answer[2], "choices": [
+            {**answer[2]["choices"][0], "text": full}]}) \
+            if answer[0] == 201 else answer
+        judge("c_stop", _stop_faults(answer, full, stop, 32)
+              + _freed_faults(samples, 0.5),
+              _stop_faults(carried, full, stop, 32)
+              + _freed_faults([(0.5, 1)], 0.5))
+        out["c"] = {"stop": stop, "stop_at_char": k,
+                    "prompt_tokens": len(tok.encode(prompt)),
+                    "completion_tokens": (answer[2].get("usage") or {}).get(
+                        "completion_tokens"),
+                    "slots_free_after_s": samples[-1][0]}
+
+        # (d) a client that leaves mid-stream, one that leaves queued
+        made.clear()
+        sse = _sse_call(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "tell a long story"}],
+            "max_tokens": 1024, "stream": True, **greedy}, close_after=3)
+        req = made[0]
+        at_close = len(req.generated)
+        samples = _watch_slots(engine, 2.0, sse["closed_at"])
+        faults = _freed_faults(samples, 2.0)
+        if not req.cancelled or len(req.generated) >= 128:
+            faults.append("cancelled_far_below_1024")
+        judge("d_mid_stream", faults, _freed_faults([(2.0, 1)], 2.0))
+        out["d"] = {"tokens_when_client_closed": at_close,
+                    "tokens_final": len(req.generated),
+                    "decoded_after_third_event": len(req.generated) - 3,
+                    "slots_free_after_s": samples[-1][0]}
+        blockers = fill_slots(engine, 1024)
+        made.clear()
+        sock = _open_post(port, "/chat", {"prompt": "queued",
+                                          "max_tokens": 8, "stream": True})
+        deadline = time.time() + 60
+        while time.time() < deadline and not made:
+            time.sleep(0.002)
+        queued = made[0]
+        sock.close()
+        closed = time.perf_counter()
+        while time.perf_counter() - closed < 2.0 and not queued.cancelled:
+            time.sleep(0.002)
+        cancel_s = time.perf_counter() - closed
+        busy = sum(b.finished_at is None for b in blockers)
+        for b in blockers:
+            engine.cancel(b)
+        queued.done.wait(60)
+
+        class _Slotted:              # the same request, given a slot
+            cancelled, slot, generated, admit_order = True, 0, [7], 0
+
+        judge("d_queued", _queued_faults(queued, cancel_s)
+              + ([] if busy == len(blockers) else ["slots_busy_meanwhile"]),
+              _queued_faults(_Slotted, cancel_s))
+        out["d"].update(queued_cancelled_after_s=cancel_s,
+                        blockers_busy_at_check=busy)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    del engine, made
+    gc.collect()
+
+    # (e) typed refusals on an engine with max_waiting=1
+    engine = llama_engine(params, cfg, serve_config(
+        cfg, prefix_cache=False, max_waiting=1), device=dev)
+    server, thread, port, _ = serving(engine)
+    engine.start()
+    try:
+        blockers = fill_slots(engine, 1024)
+        held = {}
+        waiter = threading.Thread(target=lambda: held.update(
+            answer=_http_json(port, "POST", "/chat", {
+                "prompt": "waits", "max_tokens": 4, **greedy})))
+        waiter.start()
+        deadline = time.time() + 60
+        while time.time() < deadline and engine.waiting.qsize() < 1:
+            time.sleep(0.002)
+        full_q = _http_json(port, "POST", "/v1/completions", {
+            "prompt": "refused", "max_tokens": 4, **greedy})
+        for b in blockers:
+            engine.cancel(b)
+        waiter.join(timeout=60)
+        engine.waiting.reconfigure(SchedulerConfig(
+            rate_limits={"*": RateLimit(rps=0.5)}))
+        body = {"prompt": "rapid", "max_tokens": 4, **greedy}
+        first = _http_json(port, "POST", "/v1/completions", body)
+        second = _http_json(port, "POST", "/v1/completions", body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    faults = _refusal_faults(full_q, 503, "server_error")
+    if held.get("answer", (0,))[0] != 201:
+        faults.append("waiter_201")
+    judge("e_queue_full", faults,
+          _refusal_faults(held.get("answer", (201, {}, {})), 503,
+                          "server_error"))
+    judge("e_rate_limited",
+          _refusal_faults(second, 429, "rate_limit_error")
+          + ([] if first[0] == 201 else ["first_201"]),
+          _refusal_faults((429, {}, second[2]), 429, "rate_limit_error"))
+    out["e"] = {"queue_full": [full_q[0], full_q[1].get("retry-after"),
+                               full_q[2].get("error")],
+                "rate_limited": [second[0], second[1].get("retry-after"),
+                                 second[2].get("error")]}
+    del engine
+    gc.collect()
+
+    # (f) starvation preemption, on and off
+    rng = np.random.default_rng(8)
+    bg_prompts = [rng.integers(0, cfg.vocab_size, 301).tolist()
+                  for _ in range(8)]
+    fg_prompt = rng.integers(0, cfg.vocab_size, 21).tolist()
+
+    def starve(starvation_s):
+        engine = llama_engine(params, cfg, serve_config(
+            cfg, scheduler=SchedulerConfig(starvation_s=starvation_s)),
+            device=dev)
+        bg = [engine.submit(p, SamplingParams(temperature=0.0,
+                                              max_new_tokens=1536),
+                            lane="background") for p in bg_prompts]
+        engine.start()
+        try:
+            deadline = time.time() + 120
+            while time.time() < deadline and not all(r.generated for r in bg):
+                time.sleep(0.002)
+            fg = engine.submit(fg_prompt, SamplingParams(
+                temperature=0.0, max_new_tokens=32))
+            reqs = bg + [fg]
+            while time.time() < deadline and not all(
+                    r.done.is_set() for r in reqs):
+                time.sleep(0.01)
+        finally:
+            engine.stop()
+        run = {"starvation_s": starvation_s,
+               "scheduler_preemptions": engine.waiting.counters[
+                   "preemptions"],
+               "engine_preemptions": engine.stats["preemptions"],
+               "interactive_ttft_ms": fg.ttft_ms,
+               "victims": [i for i, r in enumerate(reqs) if r.folded],
+               "folded": [r.folded for r in reqs],
+               "errors": [r.error for r in reqs if r.error],
+               "n_tokens": [len(r.generated) for r in reqs],
+               "tokens": [list(r.generated) for r in reqs],
+               "decode_tokens_per_s": engine.stats["decode_tokens"]
+               / engine.stats["decode_s"]}
+        del engine
+        gc.collect()
+        return run
+
+    calm = starve(0.0)
+    run = starve(0.25)
+    victim = (run["victims"] or [0])[0]
+    bent = dict(run, tokens=[list(t) for t in run["tokens"]])
+    bent["tokens"][victim][max(0, run["folded"][victim] - 1)] += 1
+    judge("f_starvation", _starve_faults(run, calm)
+          + (["calm_run_preempted"] if calm["engine_preemptions"] else []),
+          _starve_faults(bent, calm))
+    n = run["folded"][victim]
+    out["f"] = {k: [run[k], calm[k]] for k in (
+        "scheduler_preemptions", "engine_preemptions",
+        "interactive_ttft_ms", "victims", "n_tokens",
+        "decode_tokens_per_s")}
+    out["f"]["victim_tokens_at_preemption"] = n
+    out["f"]["victim_tokens_equal_after_preemption"] = \
+        run["tokens"][victim][n:] == calm["tokens"][victim][n:]
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # (g) the kernels this phase launched
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    judge("g_launches", _counter_faults(launches),
+          _counter_faults({**launches, "paged_chunk_attention": 0}))
+    out.update(launches=launches, failed_checks=failed,
+               planted={k: v for k, v in planted.items()},
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    bad = {k: v for k, v in failed.items() if v}
+    if bad:
+        raise AssertionError(f"serve_stream: checks failed: {bad}")
+    missed = [k for k, v in planted.items() if not v]
+    if missed:
+        raise AssertionError(f"serve_stream: planted faults passed every "
+                             f"check: {missed}")
+
+
 def phase_serve_spec(dev, smi_line: str) -> dict:
     """4 concurrent greedy ``POST /chat`` requests, 64 new tokens each,
     whose prompts repeat a short cycle of bytes (as ``bench.py``'s
@@ -2842,9 +3517,9 @@ def phase_serve_spec(dev, smi_line: str) -> dict:
             server.server_close()
             engine.stop()
             thread.join(timeout=30)
-        if any(a is None or a[0] != 200 for a in got):
+        if any(a is None or a[0] != 201 for a in got):
             raise AssertionError(f"serve_spec {name}: not every answer was "
-                                 f"200: {got}")
+                                 f"201: {got}")
         tokens = [a[1]["data"]["tokens"] for a in got]
         if [len(t) for t in tokens] != [64] * len(prompts):
             raise AssertionError(f"serve_spec {name}: token counts "
@@ -2909,8 +3584,7 @@ def _prefill_host_ms(engine, prompts, scatter) -> dict:
             reqs = [engine.submit(p, SamplingParams(temperature=0.0,
                                                     max_new_tokens=4))
                     for p in prompts]
-            group = list(engine._waiting)
-            engine._waiting.clear()
+            group = engine.waiting.pop_batch(len(reqs), first_wait_s=0.0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             engine._prefill_group(bucket, group)
@@ -3275,6 +3949,7 @@ def main() -> int:
     phase_model_wq(dev, smi_line)
     phase_decode_graph(dev, smi_line)
     serve = phase_serve(dev, smi_line)
+    phase_serve_stream(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line),

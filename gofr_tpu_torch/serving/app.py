@@ -1,12 +1,29 @@
-"""HTTP front end of the port: ``POST /chat`` and ``GET
-/.well-known/health`` on the standard library's threading HTTP server
-(counterpart of ``gofr_tpu/app.py:serve_model`` with
-``gofr_tpu/serving/handlers.py:make_chat_handler``; no streaming, no
-OpenAI routes, no metrics port in this slice).
+"""HTTP front end of the port on the standard library's threading HTTP
+server (counterpart of ``gofr_tpu/app.py:serve_model`` with the
+framework's router and responder): ``POST /chat``
+(``handlers.make_chat_handler``), the OpenAI routes
+(``openai_compat.install_openai_routes``: ``POST /v1/chat/completions``,
+``POST /v1/completions``, ``GET /v1/models``) and ``GET
+/.well-known/health``; no metrics port in this slice.
 
-``POST /chat`` takes ``{"prompt", "max_tokens"?, "temperature"?,
-"top_p"?, "top_k"?}`` and answers ``{"data": {"text", "tokens",
-"usage": {...}}}``; errors answer ``{"error": {"message"}}``.
+:class:`ChatServer` holds a route table (``post(path, fn)`` /
+``get(path, fn)``, the counterpart of ``app.post`` / ``app.get``); a
+handler takes a :class:`Context` and answers as the framework's
+responder does: a plain value as ``{"data": ...}`` (201 for a POST, 200
+for a GET), a ``Raw`` as a bare JSON body (same statuses), a ``Stream``
+as ``text/event-stream`` with ``Cache-Control: no-cache`` in chunked
+transfer encoding, an ``HTTPError`` as ``{"error": {"message",
+"details"?}}`` with its status and headers, any other exception as 500
+``internal server error``. A stream cut short (its iterator raised, or
+the client left) never gets the terminating zero-length chunk, so the
+client sees the truncation. A client that leaves cancels its request:
+before every chunk, and while a handler waits for a token, the server
+checks the socket (readable with nothing to read: closed), and a write
+that fails closes the stream's iterator too. ``tenant_of(headers)``
+gives the accounting label a request carries into the scheduler and
+``usage`` (default: None for every request); ``request_timeout_s``
+bounds a unary answer (then the request is cancelled and the answer is
+504).
 
 Run: ``python -m gofr_tpu_torch.serving.app`` on ``HTTP_HOST`` (default
 0.0.0.0) and ``HTTP_PORT`` (default 8000) on the CUDA device, with the
@@ -32,12 +49,17 @@ prefix cache is on, as in the JAX engine.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
-from collections.abc import Mapping
+import select
+import socket
+import traceback
+from collections.abc import Callable, Mapping
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any
+from urllib.parse import urlsplit
 
 import torch
 
@@ -45,31 +67,58 @@ from ..device import resolve_device
 from ..models.hf_checkpoint import (load_llama_checkpoint,
                                     resolve_serving_dtype)
 from ..models.llama import LlamaConfig, llama_init
-from .engine import Engine, EngineConfig, SamplingParams
+from .engine import Engine, EngineConfig
 from .glue import llama_engine
+from .handlers import make_chat_handler
+from .openai_compat import install_openai_routes
+from .responses import ClientGone, HTTPError, Raw, Stream
 from .tokenizer import BPETokenizer, ByteTokenizer
 
+#: a client's connection errors: it is gone
+_GONE = (BrokenPipeError, ConnectionResetError, ConnectionAbortedError)
+#: an iterator's end
+_END = object()
 
-class _HTTPError(Exception):
-    def __init__(self, status: int, message: str) -> None:
-        super().__init__(message)
-        self.status = status
 
-
-def _sampling_params(body: dict) -> SamplingParams:
+def _peer_gone(sock: socket.socket) -> bool:
+    """True when the client closed its end: the socket reads as
+    readable with nothing to read (or errors)."""
     try:
-        params = SamplingParams(
-            temperature=float(body.get("temperature", 0.7)),
-            top_p=float(body.get("top_p", 1.0)),
-            top_k=int(body.get("top_k", 0)),
-            max_new_tokens=int(body.get("max_tokens",
-                                        body.get("max_new_tokens", 128))))
-    except (TypeError, ValueError) as exc:
-        raise _HTTPError(400, "invalid temperature/top_p/top_k/max_tokens") \
-            from exc
-    if not 1 <= params.max_new_tokens <= 4096:
-        raise _HTTPError(400, "max_tokens must be in [1, 4096]")
-    return params
+        readable, _, _ = select.select([sock], [], [], 0)
+        return bool(readable) and sock.recv(1, socket.MSG_PEEK) == b""
+    except (OSError, ValueError):
+        return True
+
+
+class Context:
+    """One request as a handler sees it."""
+
+    def __init__(self, handler: "_Handler", body: bytes) -> None:
+        self._handler = handler
+        self.server: ChatServer = handler.server
+        self.headers = handler.headers
+        self.body = body
+
+    def bind(self) -> Any:
+        """The JSON body ({} when empty); a 400 when it is not JSON."""
+        if not self.body:
+            return {}
+        try:
+            return json.loads(self.body)
+        except json.JSONDecodeError as exc:
+            raise HTTPError(f"invalid JSON body: {exc}",
+                            status_code=400) from exc
+
+    @property
+    def tenant(self) -> str | None:
+        return self.server.tenant_of(self.headers)
+
+    @property
+    def request_timeout_s(self) -> float:
+        return self.server.request_timeout_s
+
+    def client_gone(self) -> bool:
+        return _peer_gone(self._handler.connection)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -79,75 +128,140 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt: str, *args: Any) -> None:
         pass  # quiet: one line per request would swamp the smoke output
 
-    def _send(self, status: int, payload: dict) -> None:
+    def _send_json(self, status: int, payload: Any,
+                   headers: Mapping[str, str] | None = None) -> None:
         body = json.dumps(payload).encode()
-        self.send_response(status)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        try:
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for key, value in (headers or {}).items():
+                self.send_header(key, value)
+            self.end_headers()
+            self.wfile.write(body)
+        except _GONE:
+            self.close_connection = True
+
+    def _send_error(self, exc: HTTPError) -> None:
+        error: dict[str, Any] = {"message": str(exc)}
+        if exc.details is not None:
+            error["details"] = exc.details
+        self._send_json(exc.status_code, {"error": error}, exc.headers)
+
+    def _send_stream(self, stream: Stream) -> None:
+        """Chunked transfer of ``stream``'s chunks; the zero-length
+        terminating chunk only when its iterator ran to its end. Before
+        every chunk the client is checked; when it is gone, or a write
+        fails, or the iterator raises, the iterator is closed (which
+        cancels the request it streams) and the connection dropped."""
+        chunks = iter(stream.iterator)
+        completed = False
+        try:
+            # the first chunk before the head: a generator that has run
+            # runs its cleanup when closed, one that has not does not
+            first = next(chunks, _END)
+            self.send_response(200)
+            self.send_header("Content-Type", stream.content_type)
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for chunk in (chunks if first is _END
+                          else itertools.chain([first], chunks)):
+                if _peer_gone(self.connection):
+                    break
+                if isinstance(chunk, str):
+                    chunk = chunk.encode()
+                if chunk:
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(chunk), chunk))
+            else:
+                completed = True
+                self.wfile.write(b"0\r\n\r\n")
+        except _GONE:
+            completed = False            # even the terminating chunk failed
+        except Exception:  # noqa: BLE001 — the stream failed mid-flight
+            traceback.print_exc()
+        finally:
+            if not completed:
+                self.close_connection = True
+                close = getattr(chunks, "close", None)
+                if close is not None:
+                    close()
+
+    def _dispatch(self, method: str) -> None:
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            length = -1
+        if length < 0:
+            self.close_connection = True
+            self._send_json(400, {"error": {"message": "bad content-length"}})
+            return
+        body = self.rfile.read(length) if length else b""
+        path = urlsplit(self.path).path
+        routes = self.server.routes
+        fn = routes.get((method, path))
+        if fn is None:
+            if any(p == path for _, p in routes):
+                self._send_json(405, {"error": {
+                    "message": "method not allowed"}})
+            else:
+                self._send_json(404, {"error": {
+                    "message": "route not registered"}})
+            return
+        try:
+            result = fn(Context(self, body))
+        except ClientGone:
+            self.close_connection = True
+            return
+        except HTTPError as exc:
+            self._send_error(exc)
+            return
+        except Exception:  # noqa: BLE001 — panic recovery: a 500
+            traceback.print_exc()
+            self._send_json(500, {"error": {
+                "message": "internal server error"}})
+            return
+        if isinstance(result, Stream):
+            self._send_stream(result)
+            return
+        status = 201 if method == "POST" else 200
+        self._send_json(status, result.data if isinstance(result, Raw)
+                        else {"data": result})
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's naming
-        if self.path != "/.well-known/health":
-            self._send(404, {"error": {"message": "not found"}})
+        if urlsplit(self.path).path == "/.well-known/health":
+            health = self.server.engine.health_check()
+            self._send_json(200 if health["status"] == "UP" else 503,
+                            {"data": health})
             return
-        health = self.server.engine.health_check()
-        self._send(200 if health["status"] == "UP" else 503,
-                   {"data": health})
+        self._dispatch("GET")
 
     def do_POST(self) -> None:  # noqa: N802 — http.server's naming
-        if self.path != "/chat":
-            self._send(404, {"error": {"message": "not found"}})
-            return
-        try:
-            self._send(200, {"data": self._chat()})
-        except _HTTPError as exc:
-            self._send(exc.status, {"error": {"message": str(exc)}})
-
-    def _chat(self) -> dict:
-        length = int(self.headers.get("Content-Length") or 0)
-        try:
-            body = json.loads(self.rfile.read(length) or b"{}")
-        except json.JSONDecodeError as exc:
-            raise _HTTPError(400, "body is not JSON") from exc
-        prompt = body.get("prompt") if isinstance(body, dict) else None
-        if not prompt or not isinstance(prompt, str):
-            raise _HTTPError(400, "missing parameter: prompt")
-        params = _sampling_params(body)
-        server = self.server
-        prompt_tokens = server.tokenizer.encode(prompt)
-        req = server.engine.submit(prompt_tokens, params)
-        if not req.done.wait(server.request_timeout_s):
-            # the caller is gone: free the slot instead of decoding to
-            # max_tokens for nobody (gofr_tpu/serving/handlers.py cancels)
-            server.engine.cancel(req)
-            raise _HTTPError(504, "generation timed out")
-        if req.error:
-            raise _HTTPError(503, req.error)
-        tokens = list(req.generated)
-        tpot_ms = None
-        if req.first_token_at and req.finished_at and len(tokens) > 1:
-            tpot_ms = ((req.finished_at - req.first_token_at) * 1000.0
-                       / (len(tokens) - 1))
-        return {"text": server.tokenizer.decode(tokens),
-                "tokens": tokens,
-                "usage": {"prompt_tokens": len(prompt_tokens),
-                          "completion_tokens": len(tokens),
-                          "ttft_ms": req.ttft_ms,
-                          "tpot_ms": tpot_ms}}
+        self._dispatch("POST")
 
 
 class ChatServer(ThreadingHTTPServer):
-    """Threading HTTP server bound to an engine and a tokenizer."""
+    """Threading HTTP server bound to an engine (its health route), with
+    a route table (``post`` / ``get``); ``tenant_of(headers)`` labels
+    each request (None: no tenant)."""
 
     daemon_threads = True
 
-    def __init__(self, address: tuple, engine: Engine, tokenizer: Any,
-                 request_timeout_s: float = 600.0) -> None:
+    def __init__(self, address: tuple, engine: Engine,
+                 request_timeout_s: float = 600.0,
+                 tenant_of: Callable[[Any], str | None] | None = None
+                 ) -> None:
         super().__init__(address, _Handler)
         self.engine = engine
-        self.tokenizer = tokenizer
         self.request_timeout_s = request_timeout_s
+        self.tenant_of = tenant_of or (lambda headers: None)
+        self.routes: dict[tuple[str, str], Callable] = {}
+
+    def post(self, path: str, fn: Callable) -> None:
+        self.routes[("POST", path)] = fn
+
+    def get(self, path: str, fn: Callable) -> None:
+        self.routes[("GET", path)] = fn
 
 
 def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
@@ -222,9 +336,16 @@ def app_engine(env: Mapping[str, str], *,
 
 
 def build_server(engine: Engine, tokenizer: Any = None,
-                 host: str = "127.0.0.1", port: int = 0) -> ChatServer:
-    """Bind (port 0 = any free port); call ``serve_forever()`` on it."""
-    return ChatServer((host, port), engine, tokenizer or ByteTokenizer())
+                 host: str = "127.0.0.1", port: int = 0, *,
+                 tenant_of: Callable[[Any], str | None] | None = None
+                 ) -> ChatServer:
+    """Bind (port 0 = any free port) with ``POST /chat`` installed; call
+    ``serve_forever()`` on it. ``install_openai_routes(server, ...)``
+    adds the OpenAI routes."""
+    tokenizer = tokenizer or ByteTokenizer()
+    server = ChatServer((host, port), engine, tenant_of=tenant_of)
+    server.post("/chat", make_chat_handler(engine, tokenizer))
+    return server
 
 
 def main() -> None:
@@ -233,9 +354,11 @@ def main() -> None:
     server = build_server(engine, tokenizer,
                           host=env.get("HTTP_HOST", "0.0.0.0"),
                           port=int(env.get("HTTP_PORT", "8000")))
+    install_openai_routes(server, engine, tokenizer, model=name)
     engine.start()
     print(f"serving {name} on http://{server.server_address[0]}:"
-          f"{server.server_address[1]} (POST /chat)", flush=True)
+          f"{server.server_address[1]} (POST /chat, /v1/chat/completions, "
+          f"/v1/completions; GET /v1/models)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

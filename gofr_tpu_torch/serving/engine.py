@@ -84,21 +84,35 @@ page growth with preemption-by-recompute and pipelined decode).
   sized by bytes, as in the JAX engine: ``kv_pool_bytes``, or by default
   what ``kv_pages`` (or the full capacity) costs in the model's dtype,
   so an int8 pool holds about twice the pages in the same memory.
+- **Admission** (``scheduler``, :mod:`.scheduler`): waiting requests
+  sit in a :class:`Scheduler` (tenant sub-queues, an interactive and a
+  background lane, per-tenant rate limits, ``max_waiting`` as its
+  capacity); a refusal fails the request at ``submit`` with a typed
+  ``reject``. With the batch full and an interactive request waiting
+  past ``starvation_s``, the newest background slot is preempted and
+  its request handed back to the scheduler (``readmit``).
+- **Per-token channel**: each request's ``out_queue`` receives every
+  token id where it is appended to ``generated``, then one ``None``
+  where the request ends (retired, failed or dropped cancelled);
+  ``stream_request`` iterates it. Tokens a collect discards never reach
+  it.
 - **Lifecycle**: ``warmup`` (before ``start``) runs every prefill shape,
   optionally the walk's, both decode graphs and the verify widths on
   all-OOB tables, leaving pools, free list, lengths and generator as
   they were; ``cancel`` abandons a request; ``drain`` refuses new
   submits, lets the queued and in-flight work finish, then stops.
 
-Left out (see ROADMAP.md Queue A): decode windows, the scheduler's
-lanes and starvation preemption, and the SLO / events / integrity /
-observability / goodput / cost planes (so the engine keeps only the
-stats below).
+Left out (see ROADMAP.md Queue A): decode windows and the SLO / events
+/ integrity / observability / goodput / cost planes (so the engine
+keeps only the stats below, and the scheduler has no usage ledger or
+SLO tracker: its shares are the in-flight debt alone and it never
+sheds).
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import time
 from collections import deque
@@ -112,6 +126,7 @@ from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
                             scatter_chunk_kv)
 from .decode_graph import DecodeGraph
 from .sampling import sample_batch
+from .scheduler import Scheduler, SchedulerConfig
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
                    build_draft_tree)
 
@@ -156,8 +171,24 @@ class GenRequest:
     folded: int = 0
     #: prompt-lookup index over prompt + generated (speculation only)
     spec_index: NgramIndex | None = None
+    #: the caller's accounting label (None: "anonymous" to the scheduler)
+    tenant: str | None = None
+    #: scheduler lane, "interactive" or "background"
+    lane: str = "interactive"
+    #: the scheduler's typed refusal, when admission refused the request
+    reject: Any = None
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event)
+    #: every token id as it is appended to ``generated``, then one None
+    #: when the request ends; a ``SimpleQueue``, so the engine thread
+    #: never blocks on it
+    out_queue: queue.SimpleQueue = field(default_factory=queue.SimpleQueue)
+
+    def _end(self) -> None:
+        """Set ``done`` and close the channel, once."""
+        if not self.done.is_set():
+            self.done.set()
+            self.out_queue.put(None)
 
     @property
     def ttft_ms(self) -> float | None:
@@ -202,6 +233,9 @@ class EngineConfig:
     #: waiting requests beyond this fail at submit; 0 = unbounded
     #: (preempted and mid-walk requests bypass it)
     max_waiting: int = 0
+    #: admission policy of the waiting queue (tenants, lanes, rate
+    #: limits, starvation preemption); None = ``SchedulerConfig()``
+    scheduler: SchedulerConfig | None = None
     #: chunk-walk rounds per admission; unfinished walks resume after a
     #: decode pass of the other slots
     prefill_chunks_per_pass: int = 2
@@ -382,13 +416,16 @@ class Engine:
         self._decode_busy_until = 0.0
         self._prefill_busy_until = 0.0
 
-        self._waiting: deque[GenRequest] = deque()
+        #: the waiting queue: single-tenant traffic leaves it in arrival
+        #: order
+        self.waiting = Scheduler(
+            cfg.scheduler if cfg.scheduler is not None else SchedulerConfig(),
+            cfg.max_waiting)
         #: admitted work that bounced back (preempted, pool busy, a walk
         #: between its chunks): goes ahead of the waiting queue, past
         #: ``max_waiting``
         self._requeued: list[GenRequest] = []
         self._requeued_set: set[int] = set()
-        self._cv = threading.Condition()
         self._running = False
         #: drain(): admission closed while the work in flight finishes
         self._draining = False
@@ -436,6 +473,7 @@ class Engine:
             return
         if self._failed:
             raise RuntimeError(f"engine crashed: {self._failed}")
+        self.waiting.reopen()
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="gofr-torch-engine")
@@ -445,9 +483,7 @@ class Engine:
         """Stop the thread once its iteration ends (a pass in flight is
         collected and its tokens emitted first); queued and active
         requests fail with "engine stopped"."""
-        with self._cv:
-            self._running = False
-            self._cv.notify_all()
+        self._running = False
         thread, self._thread = self._thread, None
         if thread is not None:
             thread.join(timeout=join_timeout_s)
@@ -466,9 +502,7 @@ class Engine:
         try:
             drained = False
             while True:
-                with self._cv:
-                    waiting = len(self._waiting)
-                if (not waiting and not self._admitting
+                if (not self.waiting.qsize() and not self._admitting
                         and not self._requeued and not self._pending
                         and not self._pending_prefills
                         and all(r is None for r in self.active)):
@@ -572,11 +606,9 @@ class Engine:
 
     def health_check(self) -> dict:
         status = "DOWN" if (self._failed or not self._running) else "UP"
-        with self._cv:
-            waiting = len(self._waiting)
         out = {"status": status,
                "active_slots": sum(r is not None for r in self.active),
-               "waiting": waiting,
+               "waiting": self.waiting.qsize(),
                "steps": self._step_count,
                "total_generated": self.total_generated}
         if self._failed:
@@ -593,14 +625,20 @@ class Engine:
         return tokens[-limit:] if len(tokens) > limit else tokens
 
     def submit(self, prompt_tokens: list[int],
-               params: SamplingParams | None = None) -> GenRequest:
-        """Queue a request from any thread. Its ``done`` event is set
-        when it retires or fails (``error`` set)."""
+               params: SamplingParams | None = None, *,
+               tenant: str | None = None,
+               lane: str = "interactive") -> GenRequest:
+        """Queue a request from any thread, for ``tenant`` (an
+        accounting label; None = anonymous) in the scheduler's ``lane``
+        ("interactive" or "background"). Its ``done`` event is set and
+        its ``out_queue`` closed when it retires or fails (``error``
+        set; a refused admission also stamps the scheduler's typed
+        ``reject``)."""
         params = params or SamplingParams()
         req = GenRequest(
             prompt_tokens=self._clamp_prompt(list(prompt_tokens),
                                              params.max_new_tokens),
-            params=params)
+            params=params, tenant=tenant, lane=lane)
         if not req.prompt_tokens:
             self._fail(req, "empty prompt")
             return req
@@ -608,20 +646,15 @@ class Engine:
             self._fail(req, f"prompt token outside the vocabulary "
                             f"[0, {self.vocab_size})")
             return req
-        with self._cv:
-            if self._failed:
-                reason = f"engine crashed: {self._failed}"
-            elif self._draining:
-                reason = "engine draining for shutdown"
-            elif self.config.max_waiting and \
-                    len(self._waiting) >= self.config.max_waiting:
-                reason = "engine overloaded: waiting queue full"
-            else:
-                reason = None
-                self._waiting.append(req)
-                self._cv.notify()
-        if reason:
-            self._fail(req, reason)
+        if self._failed:
+            self._fail(req, f"engine crashed: {self._failed}")
+        elif self._draining:
+            self._fail(req, "engine draining for shutdown")
+        elif not self.waiting.put(req):
+            # a policy refusal (queue full, rate limited) stamps a typed
+            # reject; a closed queue (stopped engine) stamps none
+            self._fail(req, req.reject.message if req.reject is not None
+                       else "engine not accepting requests")
         return req
 
     def submit_sync(self, prompt_tokens: list[int],
@@ -632,6 +665,28 @@ class Engine:
         if not req.done.wait(timeout_s):
             raise TimeoutError(f"request not finished within {timeout_s} s")
         return req
+
+    def stream_request(self, req: GenRequest,
+                       timeout_s: float | None = None):
+        """The token ids of a submitted request as the engine emits
+        them, ending when the request ends (then check ``req.error``).
+        With ``timeout_s``, a wait that outlasts it yields ``None`` (no
+        token yet) and the stream goes on: the caller may look around
+        (is its client still there?) and keep iterating. Closing the
+        generator before the end cancels the request."""
+        try:
+            while True:
+                try:
+                    token = req.out_queue.get(timeout=timeout_s)
+                except queue.Empty:
+                    yield None
+                    continue
+                if token is None:
+                    return
+                yield token
+        finally:
+            if req.finished_at is None:
+                self.cancel(req)
 
     # ---------------------------------------------------------------- loop
     def _loop(self) -> None:
@@ -663,7 +718,11 @@ class Engine:
         are dropped here; the rest go to ``_admit_batch``."""
         free = sum(1 for r in self.active if r is None)
         if free == 0 and not self._requeued:
-            return
+            # a full batch: an interactive request starving behind
+            # background work may take the newest background slot
+            if not self._sched_starvation_preempt():
+                return
+            free = sum(1 for r in self.active if r is None)
         busy = free < self.config.max_batch
         try:
             batch = self._requeued
@@ -689,32 +748,61 @@ class Engine:
                     self._retire(r.slot)          # mid walk: free the slot
                 elif r.finished_at is None:
                     r.finished_at = time.time()
-                    r.done.set()
+                    r._end()
             if live:
                 self._admit_batch(live)
         finally:
             self._admitting = False
 
     def _pop_waiting(self, n: int, wait_s: float) -> list[GenRequest]:
-        """Up to ``n`` waiting requests, first in first out, waiting up
-        to ``wait_s`` for the first one."""
-        with self._cv:
-            if not self._waiting and wait_s > 0 and self._running:
-                self._cv.wait(wait_s)
-            popped = [self._waiting.popleft()
-                      for _ in range(min(n, len(self._waiting)))]
-            if popped:
-                self._admitting = True
-            return popped
+        """Up to ``n`` waiting requests in the scheduler's order, waiting
+        up to ``wait_s`` for the first one."""
+        if self.waiting.qsize():
+            # set before the queue empties, so drain() never sees the
+            # requests nowhere
+            self._admitting = True
+        popped = self.waiting.pop_batch(
+            n, first_wait_s=wait_s if self._running else 0.0) or []
+        if popped:
+            self._admitting = True
+        return popped
+
+    def _sched_starvation_preempt(self) -> bool:
+        """With the batch full: when the scheduler reports an
+        interactive request starving (``starvation_s``, rate-capped by
+        ``preempt_min_interval_s``), preempt the newest decoding
+        background slot by recompute and hand its request back to the
+        scheduler at the head of its lane (``readmit``), not to the
+        requeued lane, which would give it the freed slot straight
+        back. True when a slot was freed."""
+        sched = self.waiting
+        if not sched.starving_interactive():
+            return False
+        victims = [i for i, r in enumerate(self.active)
+                   if r is not None and not r.pending_prefill
+                   and not r.cancelled and r.lane == "background"]
+        if not victims:
+            return False
+        slot = max(victims, key=lambda i: (self.active[i].admit_order,
+                                           self.active[i].submitted_at))
+        req = self.active[slot]
+        self._preempt(slot)
+        if id(req) in self._requeued_set:
+            self._requeued_set.discard(id(req))
+            self._requeued = [r for r in self._requeued if r is not req]
+            sched.readmit(req)
+        sched.note_preempted()
+        return True
 
     def _fail(self, req: GenRequest, error: str) -> None:
         req.error = error
         req.finished_at = time.time()
-        req.done.set()
+        req._end()
 
     def _fail_all(self, reason: str) -> None:
-        with self._cv:
-            waiting, self._waiting = list(self._waiting), deque()
+        # the queue closes (submits fail) until start() reopens it
+        self.waiting.close()
+        waiting = self.waiting.pop_batch(1 << 16, first_wait_s=0.0) or []
         requeued, self._requeued = self._requeued, []
         self._requeued_set.clear()
         # records of work that will not be collected: their ring
@@ -1120,6 +1208,7 @@ class Engine:
         if req.first_token_at is None:
             req.first_token_at = time.time()
         req.generated.append(token)
+        req.out_queue.put(token)
         self.total_generated += 1
         self.lengths[req.slot] = len(req.prompt_tokens)
         if self._finished(req, token):
@@ -1260,7 +1349,7 @@ class Engine:
             self._register_prefix(slot, req)
         self._release_pages(slot)
         req.finished_at = time.time()
-        req.done.set()
+        req._end()
 
     def _retire_unservable(self) -> None:
         """The sweep before a decode or verify pass: cancelled slots and
@@ -1426,6 +1515,7 @@ class Engine:
             for k in range(int(rec["valid"][i])):
                 token = int(out[k, i])
                 req.generated.append(token)
+                req.out_queue.put(token)
                 self.total_generated += 1
                 emitted += 1
                 if self._finished(req, token):
@@ -1613,6 +1703,7 @@ class Engine:
                     done = True
                     break
                 req.generated.append(token)
+                req.out_queue.put(token)
                 self.total_generated += 1
                 kept += 1
                 if self._finished(req, token):

@@ -465,7 +465,7 @@ def test_app_serves_chat_and_health_on_cpu():
         status, out = _http(base + "/chat", {"prompt": "hello there",
                                              "max_tokens": 5,
                                              "temperature": 0})
-        assert status == 200
+        assert status == 201
         data = out["data"]
         assert len(data["tokens"]) == 5
         assert data["usage"]["prompt_tokens"] == len("hello there") + 1
@@ -506,10 +506,10 @@ def test_timed_out_chat_is_cancelled_and_frees_its_slot():
     try:
         client.start()
         deadline = time.time() + 30
-        while not engine._waiting and time.time() < deadline:
+        while not engine.waiting.qsize() and time.time() < deadline:
             time.sleep(0.005)
-        req = engine._waiting[0]
         engine._admit()                  # prefilled: a slot, pages, 1 token
+        req = next(r for r in engine.active if r is not None)
         assert not answer, "the handler answered before its timeout"
         assert engine.active[req.slot] is req
         assert engine._slot_pages[req.slot] > 0 and req.generated
