@@ -129,6 +129,19 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              and chunk counters (zeroed just before) must rise and the
              bf16 ones stay 0; TTFT, decode tokens/s and each answer's
              common prefix with the bf16 answers are printed.
+   serve_obs — the accounting and integrity planes through the app
+             (``phase_serve_obs``' docstring): (a) serve's waves with the
+             planes off and on, each wave admitted as one batch: equal
+             digests, scheduler syncs, uploads, captures and launches;
+             (b) goodput conserved, padding as the pass records imply, a
+             bubble; (c) golden probes sealed from the planes-off engine,
+             none mismatching, and one episode under ``logit_corrupt``;
+             (d) one cost-drift episode under ``cost_skew``, none
+             without, ``/debug/costs`` listing every signature run; (e)
+             ``pass_stall``: DEGRADED then UP, one watchdog episode;
+             (f) ``/metrics`` holding every JAX engine series, the e2e
+             count, the MFU gauge = tokens/s x flops per token / peak.
+             Every check rejects a planted fault.
 6. serve_spec — 4 concurrent greedy ``/chat`` requests with repetitive
              prompts, 64 new tokens each, through the plain engine, the
              speculative one (``serve_config(speculative=True,
@@ -3458,6 +3471,640 @@ def phase_serve_stream(dev, smi_line: str, cfg=None) -> None:
                              f"check: {missed}")
 
 
+#: every series ``gofr_tpu/serving/engine.py:attach_metrics`` registers
+#: (the port names ``app_tpu_execute_seconds`` ``app_gpu_execute_seconds``;
+#: ``tests/test_torch_obs_engine.py`` holds the port's app to the JAX
+#: engine's own registration on the CPU)
+JAX_ENGINE_METRICS = (
+    "app_chat_e2e_seconds", "app_chat_queue_seconds",
+    "app_chat_tpot_seconds", "app_chat_ttft_seconds",
+    "app_engine_active_slots", "app_engine_batch_occupancy",
+    "app_engine_cost_drift", "app_engine_goodput_ratio",
+    "app_engine_h2d_transfers", "app_engine_host_rss_bytes_watermark",
+    "app_engine_integrity_failures", "app_engine_kv_bytes_watermark",
+    "app_engine_kv_pages_watermark", "app_engine_kv_pool_fragmentation",
+    "app_engine_kv_pool_utilization", "app_engine_kv_rows_watermark",
+    "app_engine_mfu", "app_engine_preemptions",
+    "app_engine_prefix_cache_entries", "app_engine_prefix_cache_pages",
+    "app_engine_prefix_evictions", "app_engine_prefix_pages_watermark",
+    "app_engine_recompiles", "app_engine_requests_recovered",
+    "app_engine_requeues", "app_engine_restarts",
+    "app_engine_spec_accept_rate", "app_engine_spec_accepted",
+    "app_engine_spec_drafted", "app_engine_stalls",
+    "app_engine_tokens_per_second", "app_engine_waiting",
+    "app_engine_waste_seconds", "app_events_dropped", "app_events_total",
+    "app_replay_divergence", "app_sched_lane_depth", "app_sched_preemptions",
+    "app_sched_rejections", "app_sched_shed_active", "app_sched_tenant_share",
+    "app_slo_burn_rate", "app_slo_error_budget_remaining",
+    "app_tenant_completion_tokens", "app_tenant_device_seconds",
+    "app_tenant_e2e_seconds", "app_tenant_prompt_tokens",
+    "app_tenant_queue_seconds", "app_tenant_requests",
+    "app_tenant_waste_seconds", "app_tpu_execute_seconds")
+#: the planes off: no recorder, goodput, sentinel, costs, digests,
+#: events, watchdog
+PLANES_OFF = dict(flight_recorder_size=0, goodput=False,
+                  recompile_sentinel=False, cost_model=False,
+                  integrity=False, events=False, watchdog_interval_s=0,
+                  stall_threshold_s=0)
+
+
+def _digest_faults(got: dict, want: dict) -> list:
+    """Prompts whose digest differs between two runs, or is missing."""
+    if set(got) != set(want):
+        return ["prompt_sets_differ"]
+    return [f"digest_{len(p)}" for p in want if got[p] != want[p]]
+
+
+def _counter_match_faults(a: dict, b: dict) -> list:
+    return [f"{k}: {a[k]} != {b[k]}" for k in a if a[k] != b[k]]
+
+
+def _goodput_faults(state: dict, passes: list, max_batch: int) -> list:
+    """Conservation to 1e-9 relative, padding as the pass records imply
+    (empty decode rows over max_batch, a group's dummy rows over its
+    size, times the pass's recorded busy seconds), a bubble."""
+    faults = []
+    busy, useful, waste = state["busy_s"], state["useful_s"], state["waste_s"]
+    if abs(useful + sum(waste.values()) - busy) > 1e-9 * busy:
+        faults.append("conservation")
+    padding = 0.0
+    for rec in passes:
+        if rec["kind"] == "decode":
+            padding += (max_batch - rec["occupancy"]) / max_batch * rec["dur"]
+        elif rec["kind"] in ("prefill", "prefill_chunk"):
+            group = int(rec["sig"].split("/")[2])
+            padding += (group - rec["rows"]) / group * rec["dur"]
+    if abs(padding - waste["padding"]) > 1e-6 * max(1, len(passes)):
+        faults.append(f"padding {waste['padding']} != {padding}")
+    if not waste["bubble"] > 0:
+        faults.append("no_bubble")
+    return faults
+
+
+def _probe_faults(run: dict) -> list:
+    """At least 4 probes, none mismatched, their time re-priced."""
+    faults = []
+    probes, integ = run["integrity"]["probes"], run["integrity"]
+    if probes["run"] < 4:
+        faults.append(f"probes_run {probes['run']}")
+    if probes["mismatch"] or integ["episodes"]:
+        faults.append(f"mismatch {probes['mismatch']}")
+    # a probe's device time leaves useful, at most all of it (the meter
+    # moves no more than useful holds)
+    waste = run["goodput_raw"]["waste_s"]["integrity_probe"]
+    if not 0 < waste <= integ["probe_device_s"] + 1e-6:
+        faults.append(f"repriced {waste} vs {integ['probe_device_s']}")
+    return faults
+
+
+def _episode_faults(run: dict, users: dict) -> list:
+    """Exactly one mismatch episode: one warn ``obs.integrity`` event,
+    the failure counter at 1, the user requests' digests unchanged."""
+    faults = []
+    if run["integrity"]["episodes"] != 1:
+        faults.append(f"episodes {run['integrity']['episodes']}")
+    if run["integrity_warns"] != 1:
+        faults.append(f"warn_events {run['integrity_warns']}")
+    if run["integrity_failures_metric"] != 1:
+        faults.append(f"counter {run['integrity_failures_metric']}")
+    return faults + _digest_faults(run["digests"], users)
+
+
+def _drift_faults(run: dict) -> list:
+    """One drift episode on ``decode/0``: one ``obs.cost_drift`` event,
+    ``app_engine_cost_drift{kind="decode"}`` at 1, none elsewhere."""
+    faults = []
+    sig = run["costs"]["signatures"].get("decode/0", {})
+    if sig.get("drift_episodes") != 1 or run["costs"]["drift_episodes"] != 1:
+        faults.append(f"episodes {run['costs']['drift_episodes']}")
+    if run["drift_events"] != 1:
+        faults.append(f"events {run['drift_events']}")
+    if run["drift_metric"] != 1:
+        faults.append(f"counter {run['drift_metric']}")
+    return faults
+
+
+def _stall_faults(samples: list, run: dict) -> list:
+    """DEGRADED (HTTP 200, with ``stalled_for_s``) during the stall, one
+    watchdog episode (``fleet.stall`` event, ``app_engine_stalls`` 1),
+    UP after it."""
+    faults = []
+    degraded = [s for s in samples if s[1] == "DEGRADED"]
+    if not degraded or not all(s[0] == 200 and s[2] for s in degraded):
+        faults.append("no_degraded")
+    if run["stall_events"] != 1 or run["stalls_metric"] != 1:
+        faults.append(f"stalls {run['stall_events']}/{run['stalls_metric']}")
+    if run["health_after"] != "UP":
+        faults.append(f"after {run['health_after']}")
+    return faults
+
+
+def _up_faults(samples: list) -> list:
+    bad = sorted({s[1] for s in samples if s[1] != "UP"})
+    return [f"health {bad}"] if bad or not samples else []
+
+
+def _metrics_faults(text: str, names, e2e: int, mfu: tuple,
+                    basis: tuple) -> list:
+    """Every JAX engine series (under the rename) on ``/metrics``,
+    ``app_chat_e2e_seconds_count`` = the served requests, and an MFU
+    sample > 0 that equals tokens/s x flops per token / peak (the
+    gauges' rounding: tokens/s to 0.01, MFU to 1e-6)."""
+    faults = []
+    helped = {ln.split()[2] for ln in text.splitlines()
+              if ln.startswith("# HELP ")}
+    want = {("app_gpu_execute_seconds" if n == "app_tpu_execute_seconds"
+             else n) for n in names}
+    if want - helped:
+        faults.append(f"missing {sorted(want - helped)}")
+    counts = [ln for ln in text.splitlines()
+              if ln.startswith("app_chat_e2e_seconds_count")]
+    if counts != [f"app_chat_e2e_seconds_count {e2e}"]:
+        faults.append(f"e2e {counts}")
+    value, tps = mfu
+    flops, peak = basis
+    if not value > 0 or abs(value - tps * flops / peak) > \
+            0.005 * flops / peak + 1e-6:
+        faults.append(f"mfu {value} vs {tps} x {flops} / {peak}")
+    return faults
+
+
+def phase_serve_obs(dev, smi_line: str, cfg=None) -> None:
+    """The accounting and integrity planes on the card, through the
+    port's app on ``cfg`` (default ``llama3_1b``; random weights, seed
+    0) and ``serve_config``, greedy, over ``serve``'s three waves
+    (``POST /chat``). Every engine is warmed up first (the decode graphs
+    captured, the recompile sentinel sealed, the MFU basis fixed) and
+    admits each wave as one batch: its pops wait until the whole wave
+    is queued, so two runs batch alike.
+
+    (a) two engines in one process, the planes off (no recorder,
+        goodput, sentinel, cost model, digests, events, watchdog,
+        metrics or SLO) and on (``build_server``: all of them): every
+        request's digest equal (the off run's from ``request_digest``,
+        the on run's stamped by the engine), and equal
+        ``sched_syncs``, ``h2d_transfers``, ``graph_captures`` and
+        launches per kernel; decode tokens/s of both (recorded).
+        Planted: one token of one request changed.
+    (b) the on run's goodput: useful + waste = busy to 1e-9 relative,
+        padding as the recorder's passes imply, a bubble (depth 0 at
+        four slots, work waiting). Planted: the padding seconds dropped.
+    (c) a golden set sealed in a temp dir from 4 greedy prompts (33-60
+        tokens, one page: no prefix entry) served alone on the planes-off
+        engine; the waves again with probes every 4 collected passes
+        until 4 ran: none mismatches, their device time re-priced to
+        ``integrity_probe``. The same with ``logit_corrupt`` on the
+        probes' tenant: exactly one episode (one warn ``obs.integrity``
+        event, ``app_engine_integrity_failures{kind="probe_mismatch"}``
+        1), the user requests' digests those of (a). Each check is shown
+        the other run.
+    (d) the same runs with ``cost_baseline_passes=4``; the faulted one
+        also skews ``decode/0``'s 8th observation by 1 s: exactly one
+        drift episode, one ``obs.cost_drift`` event,
+        ``app_engine_cost_drift{kind="decode"}`` 1; the clean one must
+        fail that check. The on run's ``GET /debug/costs`` lists every
+        signature its passes recorded (decode, prefill, chunk), and (e)'s
+        speculative run's lists its verify signatures.
+    (e) a speculative engine (``spec_ngram=2``, fixed depth) with
+        ``pass_stall:seconds=2``, ``stall_threshold_s=0.5``,
+        ``watchdog_interval_s=0.1``, two requests queued before
+        ``start()``: ``/.well-known/health`` answers 200 DEGRADED with
+        ``stalled_for_s``, one ``fleet.stall`` event (the JAX engine's
+        kind; its ``engine.stall`` span needs a tracer the port has not
+        got yet), ``app_engine_stalls`` 1, UP after the stall; the on
+        run of (a) stays UP throughout. Each check is shown the other
+        run's samples.
+    (f) the on run's ``/metrics`` (its own server): every series the
+        JAX engine registers, ``app_chat_e2e_seconds_count`` = the
+        requests served, and ``app_engine_mfu`` > 0 equal to
+        ``app_engine_tokens_per_second`` x flops per token / peak
+        (sampled while serving). Planted: a name the port does not
+        serve, one request more, twice the peak. Recorded: the decode
+        dispatch's MFU on device time, the useful tokens' flops (4 rows
+        x T steps) over its CUDA-event ms x peak."""
+    import tempfile
+
+    import torch
+    from gofr_tpu_torch.models.llama import (LlamaConfig, llama_decode_flops,
+                                             llama_init)
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, rope_kv_write,
+                                             scatter_chunk_kv)
+    from gofr_tpu_torch.serving.app import (ChatServer, build_metrics_server,
+                                            build_server, serve_config)
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    from gofr_tpu_torch.serving.handlers import make_chat_handler
+    from gofr_tpu_torch.serving.integrity import GoldenSet, request_digest
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    cfg = cfg or LlamaConfig.llama3_1b()
+    t_phase = time.perf_counter()
+    counters = {"flash_attention": (flash_attention, "launches"),
+                "paged_decode_attention": (paged_decode_attention,
+                                           "launches"),
+                "paged_chunk_attention": (paged_chunk_attention, "launches"),
+                "rope_kv_write": (rope_kv_write, "launches"),
+                "scatter_chunk_kv": (scatter_chunk_kv, "launches"),
+                "kv_write": (kv_write, "launches")}
+    tok = ByteTokenizer()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    failed: dict = {}
+    planted: dict = {}
+    out: dict = {"phase": "serve_obs", "card": smi_line}
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+    long_prompt = (story * 30)[:1800]
+    waves = [[(words * 20)[:n] for n in (20, 150, 400, 900)], [long_prompt],
+             [(words * 20)[:900] + " but the question at the end is new",
+              (words * 20)[:400] + " and this ending differs",
+              long_prompt[:1795] + " until a new ending"]]
+    n_requests = sum(len(w) for w in waves)
+    golden_prompts = [[(37 * i + 11 * n) % cfg.vocab_size for i in range(n)]
+                      for n in (33, 40, 48, 60)]
+    golden_params = SamplingParams(temperature=0.0, max_new_tokens=16)
+
+    def judge(name, faults, planted_faults):
+        failed[name], planted[name] = faults, planted_faults
+
+    def make(**kw):
+        engine = llama_engine(params, cfg, serve_config(cfg, **kw),
+                              device=dev)
+        if not kw.get("speculative"):
+            engine.warmup(prompt_lens=(20, 60, 150, 400, 900),
+                          chunked=True)
+        return engine
+
+    def serve(engine, planes: bool, until=None, queued_before=0):
+        """The app over ``engine``; the waves through ``POST /chat``,
+        each admitted as one batch; then ``until(engine)``. Returns the
+        run's record."""
+        if planes:
+            server = build_server(engine, tok, port=0, name="llama3_1b")
+            metrics_server = build_metrics_server(server.metrics, port=0)
+        else:
+            server = ChatServer(("127.0.0.1", 0), engine)
+            server.post("/chat", make_chat_handler(engine, tok))
+            metrics_server = None
+        made, inner = [], engine.submit
+        gate = {"need": 0, "made": 0}
+
+        def submit(prompt, *args, **kwargs):
+            req = inner(prompt, *args, **kwargs)
+            made.append((list(prompt), req))
+            return req
+
+        inner_pop = engine._pop_waiting
+
+        def pop(n, wait_s):
+            # never blocks inside the queue: a pop waiting there would
+            # take a wave's first request alone
+            if len(made) - gate["made"] >= gate["need"]:
+                popped = inner_pop(n, 0.0)
+                if popped:
+                    return popped
+            time.sleep(0.001)
+            return []
+
+        engine.submit, engine._pop_waiting = submit, pop
+        servers = [s for s in (server, metrics_server) if s is not None]
+        threads = [threading.Thread(target=s.serve_forever, daemon=True)
+                   for s in servers]
+        for t in threads:
+            t.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        samples, mfu_samples, stop_sampling = [], [], threading.Event()
+
+        def sample():
+            gauges = server.metrics if planes else None
+            while not stop_sampling.wait(0.01):
+                samples.append((200, engine.health_check()["status"], None))
+                if gauges is not None:
+                    # tokens/s is set before MFU: a pair read between two
+                    # equal tokens/s reads belongs to one update
+                    tps = gauges.get("app_engine_tokens_per_second").get()
+                    mfu = gauges.get("app_engine_mfu").get()
+                    if tps == gauges.get(
+                            "app_engine_tokens_per_second").get():
+                        mfu_samples.append((mfu, tps))
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        stats0 = dict(engine.stats)
+        engine.start()
+        sampler.start()
+        answers = []
+        try:
+            for wave in waves:
+                gate["need"], gate["made"] = len(wave), len(made)
+                got: list = [None] * len(wave)
+
+                def ask(prompt, i):
+                    got[i] = _http_json(server.server_address[1], "POST",
+                                        "/chat", {"prompt": prompt,
+                                                  "max_tokens": 32,
+                                                  "temperature": 0})[::2]
+
+                workers = [threading.Thread(target=ask, args=(p, i))
+                           for i, p in enumerate(wave)]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(timeout=600)
+                answers += got
+            # probes tick on collected passes: an idle engine runs none,
+            # so a filler request (not a user's: its digest is not
+            # compared) keeps passes coming until ``until`` holds
+            deadline = time.time() + 60
+            while until is not None and not until(engine) \
+                    and time.time() < deadline:
+                if engine.integrity.inflight:
+                    time.sleep(0.01)         # a probe runs its own passes
+                    continue
+                inner(tok.encode(waves[0][0]),
+                      SamplingParams(temperature=0.0,
+                                     max_new_tokens=32)).done.wait(30)
+            stop_sampling.set()
+            sampler.join(timeout=10)
+            launches = {name: getattr(fn, attr)
+                        for name, (fn, attr) in counters.items()}
+            record = {"answers": answers, "samples": samples,
+                      "mfu_samples": mfu_samples, "launches": launches,
+                      "stats": {k: engine.stats[k] - stats0.get(k, 0)
+                                if isinstance(engine.stats[k], (int, float))
+                                else engine.stats[k] for k in engine.stats}}
+            if planes:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:"
+                        f"{metrics_server.server_address[1]}/metrics",
+                        timeout=30) as resp:
+                    record["metrics_text"] = resp.read().decode()
+                with urllib.request.urlopen(url + "/debug/costs",
+                                            timeout=30) as resp:
+                    record["debug_costs"] = json.loads(
+                        resp.read())["data"]["llama3_1b"]
+                metrics = server.metrics
+                record.update(
+                    integrity_failures_metric=metrics.get(
+                        "app_engine_integrity_failures").get(
+                            kind="probe_mismatch"),
+                    drift_metric=metrics.get("app_engine_cost_drift").get(
+                        kind="decode"))
+        finally:
+            stop_sampling.set()
+            for s in servers:
+                s.shutdown()
+                s.server_close()
+            engine.stop()
+            engine.submit, engine._pop_waiting = inner, inner_pop
+        users = [(p, r) for p, r in made if not r.probe]
+        record["digests"] = {
+            tuple(p): (r.digest if planes else request_digest(
+                r.prompt_tokens, r.params, r.generated)) for p, r in users}
+        record["requests"] = users
+        s = record["stats"]
+        record["decode_tokens_per_s"] = s["decode_tokens"] / s["decode_s"]
+        if planes:
+            events = engine.events.snapshot()
+            gp = engine.goodput
+            record.update(
+                goodput=engine.goodput.state(),
+                goodput_raw={"busy_s": gp.busy_s, "useful_s": gp.useful_s,
+                             "waste_s": dict(gp.waste_s)},
+                passes=engine.recorder.snapshot()["passes"],
+                integrity=engine.integrity.state(),
+                costs=engine.costs.state(),
+                integrity_warns=sum(e["kind"] == "obs.integrity"
+                                    and e["severity"] == "warn"
+                                    for e in events),
+                drift_events=sum(e["kind"] == "obs.cost_drift"
+                                 for e in events))
+        if any(a is None or a[0] != 201 for a in answers):
+            raise AssertionError(f"serve_obs: not every answer was 201: "
+                                 f"{answers}")
+        return record
+
+    # (a) the planes off, then on; the golden set sealed on the off engine
+    engine = make(**PLANES_OFF)
+    off = serve(engine, planes=False)
+    golden = []
+    engine.waiting.reopen()
+    engine.start()
+    try:
+        for prompt in golden_prompts:
+            req = engine.submit(prompt, golden_params)
+            req.done.wait(60)
+            golden.append({"prompt_tokens": prompt, "digest": request_digest(
+                req.prompt_tokens, req.params, req.generated),
+                "params": {"temperature": 0.0, "top_p": 1.0, "top_k": 0,
+                           "max_new_tokens": 16}})
+    finally:
+        engine.stop()
+    # the decode dispatch's MFU on device time, wave 1's prompts
+    engine.waiting.reopen()
+    dispatch = _dispatch_device_ms(engine, [tok.encode(p) for p in waves[0]])
+    tmp = tempfile.mkdtemp(prefix="gofr_golden_")
+    golden_path = str(Path(tmp) / "golden.jsonl")
+    GoldenSet.seal(golden).save(golden_path)
+    del engine
+    gc.collect()
+    engine = make()
+    on = serve(engine, planes=True)
+    flops = engine._flops_per_token
+    peak = engine._peak_flops
+    del engine
+    gc.collect()
+    keys = ("sched_syncs", "h2d_transfers", "graph_captures")
+    first_prompt, first = on["requests"][0]
+    bent = dict(on["digests"])
+    bent[tuple(first_prompt)] = request_digest(
+        first.prompt_tokens, first.params,
+        first.generated[:-1] + [first.generated[-1] ^ 1])
+    judge("a_digests", _digest_faults(on["digests"], off["digests"]),
+          _digest_faults(bent, off["digests"]))
+    judge("a_counters",
+          _counter_match_faults({k: on["stats"][k] for k in keys},
+                                {k: off["stats"][k] for k in keys})
+          + _counter_match_faults(on["launches"], off["launches"]),
+          _counter_match_faults(
+              {**on["launches"],
+               "rope_kv_write": on["launches"]["rope_kv_write"] + 16},
+              off["launches"]))
+    out["a"] = {"decode_tokens_per_s_planes_off":
+                off["decode_tokens_per_s"],
+                "decode_tokens_per_s_planes_on": on["decode_tokens_per_s"],
+                "ratio": on["decode_tokens_per_s"]
+                / off["decode_tokens_per_s"],
+                "counters_off": {k: off["stats"][k] for k in keys},
+                "counters_on": {k: on["stats"][k] for k in keys},
+                "launches": on["launches"],
+                "recompiles": on["stats"]["recompiles"]}
+
+    # (b) goodput conservation and padding
+    raw = on["goodput_raw"]
+    dropped = dict(raw, waste_s={**raw["waste_s"], "padding": 0.0})
+    judge("b_goodput", _goodput_faults(raw, on["passes"], 8),
+          _goodput_faults(dropped, on["passes"], 8))
+    out["b"] = {"goodput": {k: on["goodput"][k] for k in (
+        "busy_s", "useful_s", "waste_s", "goodput_ratio", "passes")},
+        "passes_recorded": len(on["passes"])}
+
+    # (c) + (d): probes and drift, clean and faulted
+    def probed(faults=None):
+        engine = make(integrity_golden_path=golden_path,
+                      integrity_probe_passes=4, cost_baseline_passes=4,
+                      faults=faults)
+        try:
+            return serve(engine, planes=True, until=lambda e:
+                         e.integrity.probes["run"] >= 4
+                         and not e.integrity.inflight)
+        finally:
+            del engine
+            gc.collect()
+
+    clean = probed()
+    faulty = probed("logit_corrupt:request=_integrity;"
+                    "cost_skew:request=decode/0,at=8,seconds=1.0")
+    judge("c_probes", _probe_faults(clean), _probe_faults(faulty))
+    judge("c_episode", _episode_faults(faulty, on["digests"]),
+          _episode_faults(clean, on["digests"]))
+    judge("c_users_unchanged", _digest_faults(clean["digests"],
+                                              on["digests"]),
+          _digest_faults(clean["digests"],
+                         {**on["digests"], tuple(first_prompt): "0" * 32}))
+    judge("d_drift", _drift_faults(faulty), _drift_faults(clean))
+    recorded = {rec["sig"] for rec in on["passes"]}
+    listed = set(on["debug_costs"]["costs"]["signatures"])
+    kinds = {sig.split("/")[0] for sig in listed}
+
+    def cost_listing_faults(listed, kinds):
+        return ([f"unlisted {sorted(recorded - listed)}"]
+                if recorded - listed else []) + \
+            ([f"kinds {sorted(kinds)}"]
+             if not {"decode", "prefill", "chunk"} <= kinds else [])
+
+    judge("d_debug_costs", cost_listing_faults(listed, kinds),
+          cost_listing_faults(listed - {"decode/0"}, kinds - {"chunk"}))
+    out["c"] = {k: {"probes": r["integrity"]["probes"],
+                    "episodes": r["integrity"]["episodes"],
+                    "probe_device_s": r["integrity"]["probe_device_s"],
+                    "integrity_probe_waste_s":
+                    r["goodput"]["waste_s"]["integrity_probe"],
+                    "integrity_warn_events": r["integrity_warns"]}
+                for k, r in (("clean", clean), ("faulted", faulty))}
+    out["d"] = {k: {"drift_episodes": r["costs"]["drift_episodes"],
+                    "decode_baseline_s": r["costs"]["signatures"].get(
+                        "decode/0", {}).get("baseline_s"),
+                    "drift_events": r["drift_events"]}
+                for k, r in (("clean", clean), ("faulted", faulty))}
+    out["d"]["signatures_listed"] = sorted(listed)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # (e) the stall watchdog, on a speculative engine
+    engine = make(speculative=True, spec_ngram=2, spec_adaptive=False,
+                  faults="pass_stall:seconds=2", stall_threshold_s=0.5,
+                  watchdog_interval_s=0.1)
+    server = build_server(engine, tok, port=0, name="llama3_1b")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stall_answers: list = [None, None]
+
+    def ask_stalled(i):
+        stall_answers[i] = _post(base + "/chat", {
+            "prompt": (words * 6)[:300 + 50 * i], "max_tokens": 48,
+            "temperature": 0})
+
+    workers = [threading.Thread(target=ask_stalled, args=(i,))
+               for i in range(2)]
+    stall_samples = []
+    try:
+        for w in workers:
+            w.start()
+        deadline = time.time() + 30
+        while engine.waiting.qsize() < 2 and time.time() < deadline:
+            time.sleep(0.005)
+        engine.start()
+        deadline = time.time() + 3.0
+        while time.time() < deadline:
+            status, body = _http_json(server.server_address[1], "GET",
+                                      "/.well-known/health")[::2]
+            stall_samples.append((status, body["data"]["status"],
+                                  body["data"].get("stalled_for_s")))
+            time.sleep(0.05)
+        for w in workers:
+            w.join(timeout=120)
+        with urllib.request.urlopen(base + "/debug/costs",
+                                    timeout=30) as resp:
+            spec_sigs = sorted(json.loads(resp.read())["data"]["llama3_1b"]
+                               ["costs"]["signatures"])
+        stall_run = {
+            "stall_events": sum(e["kind"] == "fleet.stall"
+                                for e in engine.events.snapshot()),
+            "stalls_metric": server.metrics.get("app_engine_stalls").get(),
+            "health_after": engine.health_check()["status"]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    if any(a is None or a[0] != 201 for a in stall_answers):
+        raise AssertionError(f"serve_obs: a stalled request failed: "
+                             f"{stall_answers}")
+    judge("e_stall", _stall_faults(stall_samples, stall_run),
+          _stall_faults(on["samples"], stall_run))
+    judge("e_unstalled_up", _up_faults(on["samples"]),
+          _up_faults(stall_samples))
+    judge("e_verify_listed",
+          [] if any(s.startswith("spec_verify/") for s in spec_sigs)
+          else ["no_verify_signature"],
+          [] if any(s.startswith("spec_verify/") for s in
+                    recorded) else ["no_verify_signature"])
+    out["e"] = {"degraded_samples": sum(s[1] == "DEGRADED"
+                                        for s in stall_samples),
+                "max_stalled_for_s": max((s[2] or 0.0)
+                                         for s in stall_samples),
+                **stall_run, "verify_signatures": [
+                    s for s in spec_sigs if s.startswith("spec_verify/")]}
+    del engine
+    gc.collect()
+
+    # (f) /metrics
+    best = max(on["mfu_samples"], default=(0.0, 0.0))
+    judge("f_metrics",
+          _metrics_faults(on["metrics_text"], JAX_ENGINE_METRICS,
+                          n_requests, best, (flops, peak)),
+          _metrics_faults(on["metrics_text"], JAX_ENGINE_METRICS
+                          + ("app_engine_not_served",), n_requests, best,
+                          (flops, peak))
+          + _metrics_faults(on["metrics_text"], JAX_ENGINE_METRICS,
+                            n_requests + 1, best, (flops, peak))
+          + _metrics_faults(on["metrics_text"], JAX_ENGINE_METRICS,
+                            n_requests, best, (flops, 2 * peak)))
+    steps = dispatch["steps_per_dispatch"]
+    out["f"] = {"mfu": best[0], "tokens_per_s": best[1],
+                "flops_per_token": flops, "peak_flops": peak,
+                "dispatch_ms": dispatch["ms"],
+                "dispatch_device_mfu": len(waves[0]) * steps * flops
+                / (dispatch["ms"] / 1e3 * peak) if peak else None}
+    out.update(failed_checks=failed, planted=planted,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    bad = {k: v for k, v in failed.items() if v}
+    if bad:
+        raise AssertionError(f"serve_obs: checks failed: {bad}")
+    missed = [k for k, v in planted.items() if not v]
+    if missed:
+        raise AssertionError(f"serve_obs: planted faults passed every "
+                             f"check: {missed}")
+
+
 def phase_serve_spec(dev, smi_line: str) -> dict:
     """4 concurrent greedy ``POST /chat`` requests, 64 new tokens each,
     whose prompts repeat a short cycle of bytes (as ``bench.py``'s
@@ -3950,6 +4597,7 @@ def main() -> int:
     phase_decode_graph(dev, smi_line)
     serve = phase_serve(dev, smi_line)
     phase_serve_stream(dev, smi_line)
+    phase_serve_obs(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line),

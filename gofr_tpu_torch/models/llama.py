@@ -213,6 +213,28 @@ def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
     return x, (torch.stack(ks), torch.stack(vs))
 
 
+def llama_decode_flops(config: LlamaConfig, context: int) -> float:
+    """Floating-point operations of one decoded token (2 a
+    multiply-add), the engine's MFU basis:
+
+        2 * (L * (D*Hq*hd + 2*D*Hkv*hd + Hq*hd*D + 3*D*F) + D*V)
+        + 4 * L * Hq * hd * context
+
+    the products (q, k, v, o; w1, w3, w2; the LM head, tied or not: one
+    ``D x V`` product either way) and attention's two products over
+    ``context`` rows for every query head. Norms, RoPE, softmax and
+    sampling are left out, as a compiler's cost analysis leaves out
+    elementwise work."""
+    c = config
+    hd = c.head_dim
+    products = c.n_layers * (c.dim * c.n_heads * hd
+                             + 2 * c.dim * c.n_kv_heads * hd
+                             + c.n_heads * hd * c.dim
+                             + 3 * c.dim * c.ffn_dim) \
+        + c.dim * c.vocab_size
+    return float(2 * products + 4 * c.n_layers * c.n_heads * hd * context)
+
+
 def llama_prefill_last(params: dict, tokens: torch.Tensor,
                        config: LlamaConfig, *, kv_lengths: torch.Tensor,
                        implementation: str = "auto"):

@@ -3,8 +3,17 @@ server (counterpart of ``gofr_tpu/app.py:serve_model`` with the
 framework's router and responder): ``POST /chat``
 (``handlers.make_chat_handler``), the OpenAI routes
 (``openai_compat.install_openai_routes``: ``POST /v1/chat/completions``,
-``POST /v1/completions``, ``GET /v1/models``) and ``GET
-/.well-known/health``; no metrics port in this slice.
+``POST /v1/completions``, ``GET /v1/models``), ``GET
+/.well-known/health`` (200 while UP or DEGRADED, 503 when DOWN, as the
+JAX app's engine health reads), the ``/debug/*`` routes
+(:mod:`.debug`), and ``GET /metrics`` on a server of its own
+(:func:`build_metrics_server`, ``METRICS_PORT``, default 2121).
+:func:`build_server` wires the engine as ``serve_model`` does: the
+metrics manager (``attach_metrics``: the engine's series, the usage
+ledger's, the scheduler's, the event ledger's), a default
+``SLOTracker(SLOConfig())`` on the engine's event ledger (the
+scheduler's ``slo_source``, so burn-rate shedding is live), and the
+logger.
 
 :class:`ChatServer` holds a route table (``post(path, fn)`` /
 ``get(path, fn)``, the counterpart of ``app.post`` / ``app.get``); a
@@ -26,7 +35,8 @@ bounds a unary answer (then the request is cancelled and the answer is
 504).
 
 Run: ``python -m gofr_tpu_torch.serving.app`` on ``HTTP_HOST`` (default
-0.0.0.0) and ``HTTP_PORT`` (default 8000) on the CUDA device, with the
+0.0.0.0) and ``HTTP_PORT`` (default 8000), ``/metrics`` on
+``METRICS_PORT`` (default 2121), on the CUDA device, with the
 model chosen as ``examples/model-serving/main.py`` chooses it
 (:func:`app_engine`):
 
@@ -54,24 +64,30 @@ import json
 import os
 import select
 import socket
+import threading
+import time
 import traceback
 from collections.abc import Callable, Mapping
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 import torch
 
 from ..device import resolve_device
+from ..metrics import Manager
 from ..models.hf_checkpoint import (load_llama_checkpoint,
                                     resolve_serving_dtype)
 from ..models.llama import LlamaConfig, llama_init
+from .debug import install_debug_routes
 from .engine import Engine, EngineConfig
 from .glue import llama_engine
 from .handlers import make_chat_handler
+from .logger import Logger
+from .observability import SLOConfig, SLOTracker
 from .openai_compat import install_openai_routes
-from .responses import ClientGone, HTTPError, Raw, Stream
+from .responses import ClientGone, File, HTTPError, Raw, Stream
 from .tokenizer import BPETokenizer, ByteTokenizer
 
 #: a client's connection errors: it is gone
@@ -98,6 +114,12 @@ class Context:
         self.server: ChatServer = handler.server
         self.headers = handler.headers
         self.body = body
+
+    def param(self, name: str) -> str | None:
+        """The first value of query parameter ``name``, or None."""
+        values = parse_qs(urlsplit(self._handler.path).query,
+                          keep_blank_values=True).get(name)
+        return values[0] if values else None
 
     def bind(self) -> Any:
         """The JSON body ({} when empty); a 400 when it is not JSON."""
@@ -130,10 +152,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send_json(self, status: int, payload: Any,
                    headers: Mapping[str, str] | None = None) -> None:
-        body = json.dumps(payload).encode()
+        self._send_bytes(status, json.dumps(payload).encode(),
+                         "application/json", headers)
+
+    def _send_bytes(self, status: int, body: bytes, content_type: str,
+                    headers: Mapping[str, str] | None = None) -> None:
         try:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             for key, value in (headers or {}).items():
                 self.send_header(key, value)
@@ -224,6 +250,9 @@ class _Handler(BaseHTTPRequestHandler):
         if isinstance(result, Stream):
             self._send_stream(result)
             return
+        if isinstance(result, File):
+            self._send_bytes(200, result.content, result.content_type)
+            return
         status = 201 if method == "POST" else 200
         self._send_json(status, result.data if isinstance(result, Raw)
                         else {"data": result})
@@ -231,7 +260,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802 — http.server's naming
         if urlsplit(self.path).path == "/.well-known/health":
             health = self.server.engine.health_check()
-            self._send_json(200 if health["status"] == "UP" else 503,
+            self._send_json(503 if health["status"] == "DOWN" else 200,
                             {"data": health})
             return
         self._dispatch("GET")
@@ -256,6 +285,8 @@ class ChatServer(ThreadingHTTPServer):
         self.request_timeout_s = request_timeout_s
         self.tenant_of = tenant_of or (lambda headers: None)
         self.routes: dict[tuple[str, str], Callable] = {}
+        #: the metrics manager ``build_server`` attached to the engine
+        self.metrics: Manager | None = None
 
     def post(self, path: str, fn: Callable) -> None:
         self.routes[("POST", path)] = fn
@@ -337,33 +368,124 @@ def app_engine(env: Mapping[str, str], *,
 
 def build_server(engine: Engine, tokenizer: Any = None,
                  host: str = "127.0.0.1", port: int = 0, *,
-                 tenant_of: Callable[[Any], str | None] | None = None
-                 ) -> ChatServer:
-    """Bind (port 0 = any free port) with ``POST /chat`` installed; call
-    ``serve_forever()`` on it. ``install_openai_routes(server, ...)``
-    adds the OpenAI routes."""
+                 tenant_of: Callable[[Any], str | None] | None = None,
+                 metrics: Manager | None = None,
+                 logger: Logger | None = None,
+                 slo: SLOConfig | None = None,
+                 name: str = "model") -> ChatServer:
+    """Bind (port 0 = any free port) with ``POST /chat`` and the debug
+    routes of model ``name`` installed; call ``serve_forever()`` on it.
+    ``install_openai_routes(server, ...)`` adds the OpenAI routes.
+
+    The engine is wired as ``serve_model`` wires it: ``attach_metrics``
+    on ``metrics`` (a new manager when None; ``server.metrics``, for
+    :func:`build_metrics_server`), the logger (a JSON-lines one when
+    None) where the engine and scheduler have none, and an SLO tracker
+    (``slo`` or the default objectives) where the engine has none, on
+    the engine's event ledger."""
     tokenizer = tokenizer or ByteTokenizer()
+    metrics = metrics if metrics is not None else Manager()
+    logger = logger if logger is not None else Logger()
+    engine.attach_metrics(metrics)
+    if engine.logger is None:
+        engine.logger = logger
+    if engine.waiting.logger is None:
+        engine.waiting.logger = logger
+    if engine.slo is None:
+        engine.slo = SLOTracker(slo or SLOConfig(), metrics=metrics,
+                                logger=logger)
+        engine.slo.events = engine.events
     server = ChatServer((host, port), engine, tenant_of=tenant_of)
+    server.metrics = metrics
     server.post("/chat", make_chat_handler(engine, tokenizer))
+    install_debug_routes(server, engine, name)
     return server
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    server: "MetricsServer"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt: str, *args: Any) -> None:
+        pass
+
+    def do_GET(self) -> None:  # noqa: N802 — http.server's naming
+        path = urlsplit(self.path).path
+        metrics = self.server.metrics
+        if path == "/metrics":
+            metrics.set_gauge("app_uptime_seconds",
+                              round(time.time() - self.server.started_at, 1))
+            # a scraper that asks for OpenMetrics gets the exemplars
+            if "application/openmetrics-text" in (
+                    self.headers.get("Accept") or ""):
+                body = metrics.render_openmetrics().encode()
+                ctype = ("application/openmetrics-text; version=1.0.0; "
+                         "charset=utf-8")
+            else:
+                body = metrics.render_prometheus().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            status = 200
+        elif path == "/.well-known/alive":
+            status, body, ctype = 200, b'{"status": "UP"}', "application/json"
+        else:
+            status, body, ctype = 404, b"not found", "text/plain"
+        try:
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        except _GONE:
+            self.close_connection = True
+
+
+class MetricsServer(ThreadingHTTPServer):
+    """The metrics port: ``GET /metrics`` (Prometheus text, or
+    OpenMetrics when the scraper's ``Accept`` asks for it) and ``GET
+    /.well-known/alive``."""
+
+    daemon_threads = True
+
+    def __init__(self, address: tuple, metrics: Manager) -> None:
+        super().__init__(address, _MetricsHandler)
+        self.metrics = metrics
+        self.started_at = time.time()
+        if metrics.get("app_uptime_seconds") is None:
+            metrics.new_gauge("app_uptime_seconds", "seconds since boot")
+
+
+def build_metrics_server(metrics: Manager, host: str = "127.0.0.1",
+                         port: int = 0) -> MetricsServer:
+    """Bind the metrics port (0 = any free port); call
+    ``serve_forever()`` on it."""
+    return MetricsServer((host, port), metrics)
 
 
 def main() -> None:
     env = os.environ
     engine, tokenizer, name = app_engine(env)
-    server = build_server(engine, tokenizer,
-                          host=env.get("HTTP_HOST", "0.0.0.0"),
-                          port=int(env.get("HTTP_PORT", "8000")))
+    host = env.get("HTTP_HOST", "0.0.0.0")
+    server = build_server(engine, tokenizer, host=host,
+                          port=int(env.get("HTTP_PORT", "8000")), name=name)
     install_openai_routes(server, engine, tokenizer, model=name)
+    metrics_server = build_metrics_server(
+        server.metrics, host=host, port=int(env.get("METRICS_PORT", "2121")))
+    metrics_thread = threading.Thread(target=metrics_server.serve_forever,
+                                      daemon=True)
+    metrics_thread.start()
     engine.start()
     print(f"serving {name} on http://{server.server_address[0]}:"
           f"{server.server_address[1]} (POST /chat, /v1/chat/completions, "
-          f"/v1/completions; GET /v1/models)", flush=True)
+          f"/v1/completions; GET /v1/models, /debug/*), metrics on "
+          f"http://{metrics_server.server_address[0]}:"
+          f"{metrics_server.server_address[1]}/metrics", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        metrics_server.shutdown()
+        metrics_server.server_close()
         server.server_close()
         engine.stop()
 

@@ -102,11 +102,31 @@ page growth with preemption-by-recompute and pipelined decode).
   they were; ``cancel`` abandons a request; ``drain`` refuses new
   submits, lets the queued and in-flight work finish, then stops.
 
-Left out (see ROADMAP.md Queue A): decode windows and the SLO / events
-/ integrity / observability / goodput / cost planes (so the engine
-keeps only the stats below, and the scheduler has no usage ledger or
-SLO tracker: its shares are the in-flight debt alone and it never
-sheds).
+- **Accounting and integrity planes** (host arithmetic over the spans
+  and tokens the collects already hold, as in the JAX engine; none adds
+  a device sync or an upload): every collect feeds the flight recorder
+  (``recorder``), the goodput ledger (``goodput``: useful vs padding /
+  preempt_recompute / spec_rejected / bubble / integrity_probe, useful
+  + waste == busy), the pass-cost model (``costs``, per dispatch
+  signature, with its drift sentinel) and the recompile sentinel
+  (``sentinel``, sealed by ``warmup``); memory high-water marks
+  (``watermarks``); every request ends in ``_finalize_obs`` exactly
+  once (latency histograms, the usage ledger, the SLO verdict and the
+  scheduler's burn column, the output digest ``req.digest`` and golden
+  probe judgement of the integrity plane, the recorder's request log);
+  golden probes run on the background lane every
+  ``integrity_probe_passes`` collected passes; actions land on the
+  event ledger (``events``); seven fault sites (``faults``, the
+  ``GOFR_FAULTS`` syntax); a stall watchdog flips health to DEGRADED;
+  ``attach_metrics`` registers the JAX engine's series (its
+  ``app_tpu_execute_seconds`` is ``app_gpu_execute_seconds`` here) and
+  the loop publishes its gauges every 0.25 s, the MFU gauge from the
+  model's flops per token (``warmup``) over the card's peak.
+
+Left out (see ROADMAP.md Queue A): decode windows, the restart
+supervisor (a loop exception is terminal, as in the JAX engine without
+a ``restart_policy``), incident bundles, workload capture and replay,
+the profiler, and request spans.
 """
 
 from __future__ import annotations
@@ -124,9 +144,16 @@ import torch
 
 from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
                             scatter_chunk_kv)
+from .costmodel import CostModel
 from .decode_graph import DecodeGraph
+from .events import resolve_ledger
+from .faults import NO_FAULTS, resolve_plan
+from .integrity import GoldenSet, IntegrityPlane
+from .observability import (FlightRecorder, GoodputMeter, RecompileSentinel,
+                            StallWatchdog, UsageLedger, WatermarkTracker,
+                            device_peak_flops, request_summary)
 from .sampling import sample_batch
-from .scheduler import Scheduler, SchedulerConfig
+from .scheduler import SchedReject, Scheduler, SchedulerConfig
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
                    build_draft_tree)
 
@@ -177,6 +204,27 @@ class GenRequest:
     lane: str = "interactive"
     #: the scheduler's typed refusal, when admission refused the request
     reject: Any = None
+    #: first slot assignment: the end of the queue wait
+    admitted_at: float | None = None
+    #: lifecycle events (name, t0, t1, attrs), at most 64: the flight
+    #: recorder's request log
+    events: list = field(default_factory=list)
+    #: ``_finalize_obs`` ran (it runs once: retire, fail or cancel)
+    _obs_done: bool = False
+    #: this request's share of every pass's busy span, summed at collect
+    device_s: float = 0.0
+    #: the part of ``device_s`` that re-prefilled K/V this request had
+    #: computed once (preemption by recompute)
+    waste_recompute_s: float = 0.0
+    #: the part of ``device_s`` spent on this request's rejected drafts
+    waste_spec_s: float = 0.0
+    #: output fingerprint (``integrity.request_digest``), stamped at the
+    #: end
+    digest: str | None = None
+    #: golden-probe id when this request is an integrity probe
+    probe: str = ""
+    #: the sealed digest a probe must reproduce
+    probe_expected: str = ""
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event)
     #: every token id as it is appended to ``generated``, then one None
@@ -272,6 +320,51 @@ class EngineConfig:
     pipeline_depth: int | None = None
     #: decoding slots from which the adaptive depth pipelines
     pipeline_min_slots: int = 8
+    #: flight recorder: per-pass records kept in a ring (``/debug/engine``,
+    #: ``health_check()``, dumped on a crash or stall); 0 disables
+    flight_recorder_size: int = 256
+    #: retired requests' summaries kept beside the pass ring
+    flight_recorder_requests: int = 32
+    #: goodput accounting (useful vs waste causes, conserved against
+    #: busy time) and memory high-water marks
+    goodput: bool = True
+    #: after ``warmup`` seals the shapes it ran, a dispatch of a shape it
+    #: never ran bumps ``app_engine_recompiles`` and WARNs once
+    recompile_sentinel: bool = True
+    #: pass-cost model per dispatch signature, with its drift sentinel
+    cost_model: bool = True
+    #: EWMA weight of the per-signature cost mean and variance
+    cost_alpha: float = 0.2
+    #: serving passes per signature before its drift baseline seals
+    cost_baseline_passes: int = 32
+    #: a drift episode opens when a signature's EWMA exceeds both
+    #: baseline x ratio and baseline + sigma x baseline std
+    cost_drift_ratio: float = 2.0
+    cost_drift_sigma: float = 6.0
+    #: output fingerprint of every request, golden probes
+    integrity: bool = True
+    #: golden corpus (``gofr-golden`` JSONL, ``GoldenSet``); None = no
+    #: probes (the fingerprints need none)
+    integrity_golden_path: str | None = None
+    #: golden entries loaded at most
+    integrity_golden_max: int = 8
+    #: one golden probe on the background lane every N collected passes;
+    #: 0 disables probing
+    integrity_probe_passes: int = 0
+    #: consecutive clean probes that close a mismatch episode
+    integrity_rearm_probes: int = 2
+    #: fault plan (``faults.FaultPlan`` or its string); None = the
+    #: ``GOFR_FAULTS`` environment variable (unset: no faults)
+    faults: Any = None
+    #: event ledger: an ``EventLedgerConfig``, an ``EventLedger``,
+    #: True / False, or None = the default ledger unless ``GOFR_EVENTS``
+    #: is 0 / false / off
+    events: Any = None
+    #: with work in flight, a loop that has not begun an iteration for
+    #: this long is DEGRADED; 0 disables
+    stall_threshold_s: float = 120.0
+    #: the stall watchdog's polling interval; 0 disables the watchdog
+    watchdog_interval_s: float = 5.0
 
 
 class Engine:
@@ -299,13 +392,21 @@ class Engine:
     vocab_size: prompts holding a token id outside [0, vocab_size) fail
         at submit (an out-of-range embedding index would fault on the
         device and take the engine thread down).
+    flops_per_token(context) -> float: the model's flops for one decoded
+        token attending over ``context`` rows (e.g. ``llama_decode_flops``);
+        ``warmup`` fixes the MFU basis from it. None: the MFU gauge stays
+        0.
+    metrics: a ``metrics.Manager`` (``attach_metrics``); logger: a
+        ``logger.Logger`` for the WARNs and the flight recorder's dumps.
     """
 
     def __init__(self, params: Any, config: EngineConfig, *,
                  prefill_fn: Callable, paged_decode_fn: Callable,
                  paged_chunk_fn: Callable, make_cache: Callable,
                  device: str | torch.device, vocab_size: int,
-                 paged_verify_fn: Callable | None = None) -> None:
+                 paged_verify_fn: Callable | None = None,
+                 flops_per_token: Callable[[int], float] | None = None,
+                 metrics: Any = None, logger: Any = None) -> None:
         cfg = config
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
             raise ValueError("page_size, max_batch >= 1 and max_seq >= 2 "
@@ -416,11 +517,66 @@ class Engine:
         self._decode_busy_until = 0.0
         self._prefill_busy_until = 0.0
 
+        self.metrics = metrics
+        self.logger = logger
+        self._flops_fn = flops_per_token
+        #: MFU basis, fixed by ``warmup``: None keeps the gauge at 0
+        self._flops_per_token: float | None = None
+        self._peak_flops: float | None = None
+        self.recorder = FlightRecorder(cfg.flight_recorder_size,
+                                       cfg.flight_recorder_requests)
+        self.goodput = GoodputMeter(cfg.goodput)
+        self.watermarks = WatermarkTracker(cfg.goodput)
+        self.sentinel = RecompileSentinel(cfg.recompile_sentinel)
+        self.costs = CostModel(cfg.cost_model, alpha=cfg.cost_alpha,
+                               baseline_passes=cfg.cost_baseline_passes,
+                               drift_ratio=cfg.cost_drift_ratio,
+                               drift_sigma=cfg.cost_drift_sigma)
+        golden = None
+        if cfg.integrity and cfg.integrity_golden_path:
+            # a missing or corrupt corpus fails here, not mid-incident
+            golden = GoldenSet.load(cfg.integrity_golden_path,
+                                    limit=cfg.integrity_golden_max)
+            # probes skip submit's checks: a token outside the
+            # vocabulary would fault on the card
+            bad = [e.id for e in golden.entries
+                   if not all(0 <= t < vocab_size for t in e.prompt_tokens)]
+            if bad:
+                raise ValueError(f"golden entries {bad} hold token ids "
+                                 f"outside the vocabulary [0, {vocab_size})")
+        self.integrity = IntegrityPlane(
+            cfg.integrity, golden=golden,
+            probe_passes=cfg.integrity_probe_passes,
+            rearm_probes=cfg.integrity_rearm_probes)
+        #: per-tenant usage, fed at the end of every request
+        self.usage_ledger = UsageLedger()
+        #: SLO burn-rate tracker; the app attaches one (None = off)
+        self.slo = None
+        self.faults = resolve_plan(cfg.faults)
+        self.events = resolve_ledger(cfg.events, metrics=metrics)
+        if self.faults is not NO_FAULTS:
+            self.faults.events = self.events
+        self.watermarks.events = self.events
+        #: the loop's heartbeat: set at the top of every iteration
+        self._last_beat = time.time()
+        self._watchdog: StallWatchdog | None = None
+        self._gauge_wall = time.time()
+        self._gauge_tokens = 0
+        #: waste seconds already published as counter deltas
+        self._waste_published: dict[str, float] = {}
+        #: device bytes of the K and V pools, every leaf
+        self._kv_bytes_total = sum(
+            t.numel() * t.element_size()
+            for pool in (self.k_cache, self.v_cache)
+            for t in (pool.values() if isinstance(pool, dict) else (pool,)))
+
         #: the waiting queue: single-tenant traffic leaves it in arrival
         #: order
         self.waiting = Scheduler(
             cfg.scheduler if cfg.scheduler is not None else SchedulerConfig(),
-            cfg.max_waiting)
+            cfg.max_waiting, ledger=self.usage_ledger,
+            slo_source=lambda: self.slo, metrics=metrics, logger=logger)
+        self.waiting.events = self.events
         #: admitted work that bounced back (preempted, pool busy, a walk
         #: between its chunks): goes ahead of the waiting queue, past
         #: ``max_waiting``
@@ -446,7 +602,11 @@ class Engine:
                       "spec_accepted": 0, "spec_rows": 0,
                       "sched_syncs": 0, "h2d_transfers": 0,
                       "graph_captures": 0, "graph_replays": 0,
-                      "graph_capture_s": 0.0}
+                      "graph_capture_s": 0.0, "stalls": 0,
+                      "recompiles": 0, "cost_drifts": 0,
+                      "integrity_failures": 0}
+        if metrics is not None:
+            self.attach_metrics(metrics)
 
     def _sized_pool_pages(self, page: int, base_pages: int) -> int:
         """The pool's page count from its byte budget: ``kv_pool_bytes``
@@ -468,21 +628,29 @@ class Engine:
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:
-        """Start the engine thread."""
+        """Start the engine thread, and the stall watchdog."""
         if self._running:
             return
         if self._failed:
             raise RuntimeError(f"engine crashed: {self._failed}")
         self.waiting.reopen()
+        self._last_beat = time.time()
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="gofr-torch-engine")
         self._thread.start()
+        if self.config.watchdog_interval_s > 0 and self._watchdog is None:
+            self._watchdog = StallWatchdog(
+                self, interval_s=self.config.watchdog_interval_s)
+            self._watchdog.start()
 
     def stop(self, join_timeout_s: float = 30.0) -> None:
-        """Stop the thread once its iteration ends (a pass in flight is
-        collected and its tokens emitted first); queued and active
-        requests fail with "engine stopped"."""
+        """Stop the watchdog, then the thread once its iteration ends (a
+        pass in flight is collected and its tokens emitted first);
+        queued and active requests fail with "engine stopped"."""
+        watchdog, self._watchdog = self._watchdog, None
+        if watchdog is not None:
+            watchdog.stop()
         self._running = False
         thread, self._thread = self._thread, None
         if thread is not None:
@@ -499,6 +667,8 @@ class Engine:
         cut stragglers off (they fail with "engine stopped")."""
         deadline = time.time() + timeout_s
         self._draining = True
+        self.events.emit("engine.drain", cause="admission closed",
+                         timeout_s=timeout_s)
         try:
             drained = False
             while True:
@@ -533,7 +703,11 @@ class Engine:
         with speculation the verify pass at each power-of-two width.
         Every table is all-OOB, so every K/V write drops: the pools, the
         free list, ``lengths`` and the generator's state are as they
-        were. Returns the seconds it took."""
+        were. Every shape it runs is observed by the recompile sentinel,
+        which it seals; with ``decode`` it fixes the MFU basis: the
+        model's flops per token at the decode graph's context (a slot's
+        whole table, ``pages_per_slot x page_size`` rows) and the card's
+        peak. Returns the seconds it took."""
         if self._running:
             raise RuntimeError("warmup runs before start()")
         cfg = self.config
@@ -553,6 +727,7 @@ class Engine:
             for bucket in sorted({self._bucket_for(int(n))
                                   for n in prompt_lens}):
                 for g in self._group_sizes():
+                    self.sentinel.observe(self._sig("prefill", bucket, g))
                     kv_len = self._upload(np.ones(g, np.int32))
                     logits, (k, v) = self._prefill_fn(
                         self.params, self._upload(np.zeros((g, bucket),
@@ -569,16 +744,25 @@ class Engine:
             if chunked:
                 for width in self._usable_buckets:
                     for g in sorted({1, max(1, cfg.prefill_batch)}):
+                        self.sentinel.observe(
+                            self._sig("chunk", width, g, None))
                         zeros = self._upload(np.zeros(g, np.int32))
                         self._chunk_fn(
                             self.params,
                             self._upload(np.zeros((g, width), np.int64)),
                             self.k_cache, self.v_cache, oob(g), zeros, zeros)
             if decode:
+                self.sentinel.observe(self._sig("decode", 0))
                 self._decode_graph.warm(self.k_cache, self.v_cache)
+                if self._flops_fn is not None:
+                    # the decode graph attends over a slot's whole table
+                    self._flops_per_token = float(self._flops_fn(
+                        self._pages_per_slot * cfg.page_size))
+                self._peak_flops = device_peak_flops(self.device)
             if cfg.speculative:
                 b, width = cfg.max_batch, 2
                 while True:
+                    self.sentinel.observe(self._sig("spec_verify", width))
                     zeros = np.zeros((b, width), np.int64)
                     tokens, depths = self._upload(zeros), self._upload(zeros)
                     tables = oob(b)
@@ -602,18 +786,208 @@ class Engine:
             torch.cuda.synchronize(self.device)
         self._generator.set_state(generator)
         self._note_graph_stats()
+        self.sentinel.seal()
         return time.perf_counter() - t0
 
     def health_check(self) -> dict:
+        """UP, DOWN (stopped or crashed), or DEGRADED: work in flight and
+        no loop iteration begun for ``stall_threshold_s``
+        (``stalled_for_s``)."""
         status = "DOWN" if (self._failed or not self._running) else "UP"
-        out = {"status": status,
-               "active_slots": sum(r is not None for r in self.active),
-               "waiting": self.waiting.qsize(),
-               "steps": self._step_count,
+        active = sum(r is not None for r in self.active)
+        waiting = self.waiting.qsize()
+        out = {"status": status, "active_slots": active,
+               "waiting": waiting, "steps": self._step_count,
                "total_generated": self.total_generated}
+        threshold = self.config.stall_threshold_s
+        stalled_for = time.time() - self._last_beat
+        if (status == "UP" and threshold > 0 and (active or waiting)
+                and stalled_for > threshold):
+            out["status"] = "DEGRADED"
+            out["stalled_for_s"] = round(stalled_for, 1)
+        if self.stats.get("stalls"):
+            out["stalls"] = self.stats["stalls"]
         if self._failed:
             out["error"] = self._failed
+        if self.recorder.enabled:
+            out["flight"] = self.recorder.summary()
         return out
+
+    def attach_metrics(self, metrics: Any) -> None:
+        """Point the engine at a metrics manager, registering the JAX
+        engine's series where absent (with its descriptions and
+        buckets; ``app_tpu_execute_seconds`` is
+        ``app_gpu_execute_seconds`` here), and hand it to the usage
+        ledger, the SLO tracker, the scheduler and the event ledger.
+        The restart and replay counters stay at 0 until the port has
+        those paths."""
+        self.metrics = metrics
+        for name, desc in (
+            ("app_engine_active_slots", "occupied decode slots"),
+            ("app_engine_waiting", "requests queued for admission"),
+            ("app_engine_kv_pool_utilization",
+             "fraction of KV capacity in use (slots + prefix cache)"),
+            ("app_engine_kv_pool_fragmentation",
+             "fraction of allocated KV page capacity holding no rows"),
+            ("app_engine_prefix_cache_entries",
+             "prefix-cache entries pinned"),
+            ("app_engine_prefix_cache_pages",
+             "page references pinned by the prefix cache"),
+            ("app_engine_tokens_per_second",
+             "generated tokens per second (quarter-second window)"),
+            ("app_engine_mfu",
+             "decode-path model FLOPs utilization (model FLOPs per "
+             "token x tokens/s over the card's peak; 0 when the peak or "
+             "the model's cost is unknown)"),
+            ("app_engine_goodput_ratio",
+             "useful device time over total busy device time "
+             "(1 - waste; see app_engine_waste_seconds for the causes)"),
+            ("app_engine_kv_pages_watermark",
+             "high-water mark of KV pool pages in use (paged layout)"),
+            ("app_engine_kv_rows_watermark",
+             "high-water mark of live KV rows (slot layout)"),
+            ("app_engine_prefix_pages_watermark",
+             "high-water mark of page references pinned by the prefix "
+             "cache"),
+            ("app_engine_kv_bytes_watermark",
+             "high-water mark of KV-pool HBM bytes held by in-use "
+             "pages/rows (scale leaves included for int8 pools)"),
+            ("app_engine_host_rss_bytes_watermark",
+             "host process RSS high-water mark (ru_maxrss)"),
+            ("app_engine_spec_accept_rate",
+             "lifetime speculative draft acceptance rate "
+             "(accepted/drafted; 1.0 before any drafting)"),
+        ):
+            if metrics.get(name) is None:
+                metrics.new_gauge(name, desc)
+        for name, desc in (
+            ("app_engine_h2d_transfers",
+             "host->device scheduler-state uploads by the decode "
+             "path (event-driven; zero per steady-state pass)"),
+            ("app_engine_preemptions",
+             "requests preempted (vLLM-style recompute requeue)"),
+            ("app_engine_prefix_evictions",
+             "prefix-cache entries evicted under pool pressure"),
+            ("app_engine_requeues",
+             "admitted work bounced back to the requeue list "
+             "(chunk-walk pacing, slot races, preemption)"),
+            ("app_engine_spec_drafted",
+             "draft tokens offered to speculative verify"),
+            ("app_engine_spec_accepted",
+             "draft tokens accepted by speculative verify"),
+            ("app_engine_stalls",
+             "stall episodes escalated by the watchdog (work in "
+             "flight, no pass for stall_threshold_s)"),
+            ("app_replay_divergence",
+             "replayed requests whose token stream diverged from the "
+             "recorded completion (serving/replay.py)"),
+            ("app_tenant_requests",
+             "retired requests by tenant and status (ok/error/"
+             "cancelled)"),
+            ("app_tenant_prompt_tokens", "prompt tokens by tenant"),
+            ("app_tenant_completion_tokens",
+             "generated tokens by tenant"),
+            ("app_tenant_device_seconds",
+             "device busy time attributed to each tenant (per-request "
+             "share of every pass's busy span)"),
+            ("app_tenant_waste_seconds",
+             "per-tenant attributable waste device time by cause "
+             "(preempt_recompute, spec_rejected)"),
+            ("app_engine_waste_seconds",
+             "busy device time classified as waste, by cause (padding/"
+             "preempt_recompute/spec_rejected/bubble); useful + waste "
+             "== busy is conserved"),
+            ("app_engine_recompiles",
+             "post-warmup dispatches of a shape warmup never ran, "
+             "detected by the dispatch-shape sentinel"),
+            ("app_engine_cost_drift",
+             "pass-cost drift episodes by dispatch kind: a signature's "
+             "cost EWMA departed its sealed baseline past the "
+             "configured ratio/sigma thresholds (serving/costmodel.py)"),
+            ("app_engine_integrity_failures",
+             "golden canary probe digest mismatch episodes by kind: "
+             "this host produced output whose fingerprint departed the "
+             "sealed golden digest (serving/integrity.py)"),
+            ("app_engine_restarts",
+             "engine loop restarts by the in-thread crash-recovery "
+             "supervisor (EngineConfig.restart_policy)"),
+            ("app_engine_requests_recovered",
+             "pre-first-token requests salvaged into the recovery "
+             "buffer and replayed across an engine restart"),
+        ):
+            if metrics.get(name) is None:
+                metrics.new_counter(name, desc)
+        for name, desc in (
+            ("app_slo_burn_rate",
+             "error-budget burn rate by window (1 = spending the "
+             "budget at exactly the sustainable pace)"),
+            ("app_slo_error_budget_remaining",
+             "fraction of the availability error budget left over "
+             "SLOConfig.budget_window_s"),
+            ("app_sched_lane_depth",
+             "queued requests per scheduler lane (interactive/"
+             "background)"),
+            ("app_sched_tenant_share",
+             "per-tenant fraction of windowed device time "
+             "(the fair-share dequeue signal)"),
+            ("app_sched_shed_active",
+             "1 while a burn-rate shed episode is active"),
+        ):
+            if metrics.get(name) is None:
+                metrics.new_gauge(name, desc)
+        for name, desc in (
+            ("app_sched_rejections",
+             "admission refusals by cause (queue_full/rate_limited/"
+             "shed) and tenant"),
+            ("app_sched_preemptions",
+             "scheduler-initiated background preemptions to unstarve "
+             "the interactive lane (priced by the preempt_recompute "
+             "goodput ledger)"),
+            ("app_events_total",
+             "event-ledger records by kind (serving/events.py)"),
+            ("app_events_dropped",
+             "event-ledger ring evictions by kind — a truncated "
+             "timeline is visible, never silent"),
+        ):
+            if metrics.get(name) is None:
+                metrics.new_counter(name, desc)
+        ttft_buckets = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.15,
+                        0.25, 0.5, 1, 2, 5)
+        for name, desc, buckets in (
+            ("app_chat_ttft_seconds", "time to first token",
+             ttft_buckets),
+            ("app_chat_queue_seconds",
+             "submit -> first slot assignment (admission queue wait)",
+             ttft_buckets),
+            ("app_chat_e2e_seconds", "submit -> finish wall time",
+             (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60)),
+            ("app_chat_tpot_seconds",
+             "per-request mean inter-token latency (time per output "
+             "token past the first)",
+             (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+              0.25, 0.5, 1)),
+            ("app_engine_batch_occupancy",
+             "active decode slots per pass",
+             (1, 2, 4, 8, 16, 32, 64, 128, 256)),
+            ("app_gpu_execute_seconds", "device execute wall time",
+             (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+              0.25, 0.5, 1, 5)),
+            ("app_tenant_queue_seconds",
+             "admission queue wait by tenant", ttft_buckets),
+            ("app_tenant_e2e_seconds",
+             "submit -> finish wall time by tenant",
+             (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60)),
+        ):
+            if metrics.get(name) is None:
+                metrics.new_histogram(name, desc, buckets=buckets)
+        if self.usage_ledger.metrics is None:
+            self.usage_ledger.metrics = metrics
+        if self.slo is not None and self.slo.metrics is None:
+            self.slo.metrics = metrics
+        if self.waiting.metrics is None:
+            self.waiting.metrics = metrics
+        if self.events.enabled and self.events.metrics is None:
+            self.events.metrics = metrics
 
     # -------------------------------------------------------------- submit
     def _clamp_prompt(self, tokens: list[int], max_new: int) -> list[int]:
@@ -646,7 +1020,14 @@ class Engine:
             self._fail(req, f"prompt token outside the vocabulary "
                             f"[0, {self.vocab_size})")
             return req
-        if self._failed:
+        if self.faults is not NO_FAULTS and self.faults.trip(
+                "page_exhaustion", request_id=req.tenant):
+            # injected KV-pool exhaustion: a typed, retryable refusal;
+            # the engine serves on
+            self._refuse(req, "kv_exhausted",
+                         "kv page pool exhausted; retry shortly",
+                         retry_after_s=1.0)
+        elif self._failed:
             self._fail(req, f"engine crashed: {self._failed}")
         elif self._draining:
             self._fail(req, "engine draining for shutdown")
@@ -693,6 +1074,13 @@ class Engine:
         try:
             with torch.no_grad():
                 while self._running:
+                    self._last_beat = time.time()
+                    if self.faults is not NO_FAULTS:
+                        # armed only with a plan: a raise ends the loop
+                        # below, a stall or latency sleeps here
+                        self.faults.trip("pass_raise")
+                        self.faults.trip("pass_stall")
+                        self.faults.trip("pass_latency")
                     self._admit()
                     if any(r is not None for r in self.active):
                         self._step()
@@ -701,14 +1089,27 @@ class Engine:
                         # its last tokens reach their requests
                         self._drain_pending()
                     self._collect_prefills()
+                    self._update_gauges()
                 # a clean stop with work in flight: those tokens are
                 # real, so they are emitted before anything is failed
                 self._drain_pending()
                 self._collect_prefills()
         except Exception as exc:  # noqa: BLE001 — boundary: fail loudly
-            self._failed = f"{type(exc).__name__}: {exc}"
-            self._running = False
-            self._fail_all(f"engine crashed: {self._failed}")
+            self._crash(exc)
+
+    def _crash(self, exc: BaseException) -> None:
+        """The loop threw: health goes DOWN, every request in flight or
+        queued fails, submits are refused; the crash is recorded as an
+        ``engine.crash`` event and logged with the flight recorder's
+        ring."""
+        self._failed = f"{type(exc).__name__}: {exc}"
+        self._running = False
+        self.events.emit("engine.crash", severity="error",
+                         cause=self._failed, restarts=0)
+        if self.logger is not None:
+            self.logger.error(f"engine loop crashed: {exc!r}")
+            self.recorder.dump(self.logger, reason=self._failed)
+        self._fail_all(f"engine crashed: {self._failed}")
 
     def _admit(self) -> None:
         """One admission round: the requeued lane goes first (mid-walk
@@ -748,6 +1149,7 @@ class Engine:
                     self._retire(r.slot)          # mid walk: free the slot
                 elif r.finished_at is None:
                     r.finished_at = time.time()
+                    self._finalize_obs(r)
                     r._end()
             if live:
                 self._admit_batch(live)
@@ -797,7 +1199,18 @@ class Engine:
     def _fail(self, req: GenRequest, error: str) -> None:
         req.error = error
         req.finished_at = time.time()
+        self._finalize_obs(req)
         req._end()
+
+    def _refuse(self, req: GenRequest, code: str, detail: str, *,
+                retry_after_s: float = 1.0) -> None:
+        """Fail ``req`` with a typed reject, the scheduler's
+        :class:`SchedReject` shape (the handlers answer 503 with
+        ``Retry-After`` and ``details.code``); a typed reject stays out
+        of the SLO burn."""
+        req.reject = SchedReject(code=code, tenant=req.tenant,
+                                 retry_after_s=retry_after_s, detail=detail)
+        self._fail(req, req.reject.message)
 
     def _fail_all(self, reason: str) -> None:
         # the queue closes (submits fail) until start() reopens it
@@ -836,6 +1249,8 @@ class Engine:
             key = next(iter(self._prefix_cache))
             pages = self._prefix_cache.pop(key)
             self.stats["prefix_evictions"] += 1
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_engine_prefix_evictions")
             count = self._prefix_lens[len(key)] - 1
             if count:
                 self._prefix_lens[len(key)] = count
@@ -904,6 +1319,8 @@ class Engine:
         if req is None:
             return
         self.stats["preemptions"] += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_engine_preemptions")
         self._dev_last_reqs[slot] = None
         self._sched_dirty = True
         req.pending_prefill = False
@@ -931,6 +1348,8 @@ class Engine:
             self._requeued_set.add(id(req))
             self._requeued.append(req)
             self.stats["requeues"] += 1
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_engine_requeues")
 
     # ------------------------------------------------------ prefix cache
     def _probe_prefix(self, prompt: list[int]) -> int:
@@ -1121,10 +1540,12 @@ class Engine:
             req.slot = slot
             self._dev_last_reqs[slot] = None
             self.active[slot] = req
+            self._note_admitted(req)
             placed.append(req)
         if not placed:
             return
         p = next(g for g in self._group_sizes() if g >= len(placed))
+        self._note_dispatch_shape("prefill", bucket, p)
         tokens = np.zeros((p, bucket), np.int64)
         kv_len = np.ones(p, np.int32)            # dummy rows: length 1
         tables = np.full((p, self._pages_per_slot), self._n_pages,
@@ -1135,6 +1556,8 @@ class Engine:
             kv_len[row] = n
             tables[row] = self._tables[req.slot]
         t0 = time.perf_counter()
+        self.goodput.note_dispatch(t0)
+        wall0 = time.time()
         kv_len_t = self._upload(kv_len)
         tables_t = self._upload(tables)
         temps, top_ps, top_ks = self._row_params(placed, p)
@@ -1155,7 +1578,8 @@ class Engine:
         self._pending_prefills.append({
             "toks": first, "ready": ready, "placed": placed,
             "slots": [r.slot for r in placed],
-            "epochs": [r.prefill_epoch for r in placed], "t0": t0})
+            "epochs": [r.prefill_epoch for r in placed], "t0": t0,
+            "wall0": wall0, "bucket": bucket, "group": p})
 
     def _to_host(self, tensor: torch.Tensor):
         """(host copy, event): on CUDA a copy into pinned memory queued
@@ -1183,13 +1607,45 @@ class Engine:
                 rec["ready"].synchronize()
             first = rec["toks"].numpy()
             self._note_prefill_span(rec["t0"])
+            now = time.time()
+            pass_dur = time.perf_counter() - rec["t0"]
+            pass_share = pass_dur / len(rec["placed"])
+            group, bucket = rec["group"], rec["bucket"]
+            sig = self._sig_str("prefill", bucket, group)
+            if self.recorder.enabled:
+                self.recorder.record_pass(
+                    "prefill", rows=len(rec["placed"]), bucket=bucket,
+                    sig=sig, dur=round(pass_dur, 6),
+                    occupancy=sum(r is not None for r in self.active),
+                    queue_depth=self.waiting.qsize())
+            fresh_rows = recompute_rows = 0
             for row, (req, slot, epoch) in enumerate(
                     zip(rec["placed"], rec["slots"], rec["epochs"])):
                 if (req.prefill_epoch != epoch
                         or self.active[slot] is not req
                         or req.finished_at is not None):
+                    # preempted, retired or re-admitted since: the row's
+                    # compute is thrown away
+                    recompute_rows += 1
                     continue
+                req.device_s += pass_share
+                if req.first_token_at is not None:
+                    # a recompute after preemption: this K/V was
+                    # computed once already
+                    recompute_rows += 1
+                    req.waste_recompute_s += pass_share
+                else:
+                    fresh_rows += 1
+                self._req_event(req, "prefill", rec["wall0"], now,
+                                {"bucket": bucket,
+                                 "rows": len(rec["placed"])})
                 self._first_token(req, int(first[row]))
+            self.goodput.add_prefill("prefill", pass_dur, group, fresh_rows,
+                                     recompute_rows)
+            self._note_pass_cost("prefill", sig, pass_dur, rows=group,
+                                 tokens=group * bucket)
+            self._update_kv_watermarks()
+        self._note_device_idle()
 
     def _note_prefill_span(self, start: float) -> None:
         """``prefill_s`` sums the union of the prefill spans (launch to
@@ -1205,8 +1661,15 @@ class Engine:
         request's first TTFT."""
         req.pending_prefill = False
         self._sched_dirty = True
+        if self.faults is not NO_FAULTS and \
+                self.faults.trip("logit_corrupt", req.tenant):
+            token = self._corrupt_token(token)
         if req.first_token_at is None:
-            req.first_token_at = time.time()
+            now = time.time()
+            req.first_token_at = now
+            if self.metrics is not None:
+                self.metrics.record_histogram("app_chat_ttft_seconds",
+                                              now - req.submitted_at)
         req.generated.append(token)
         req.out_queue.put(token)
         self.total_generated += 1
@@ -1246,6 +1709,7 @@ class Engine:
             self.active[slot] = req
             req.slot = slot
             req.pending_prefill = True
+            self._note_admitted(req)
             if req.admit_order < 0:
                 req.admit_order = self._admit_seq
                 self._admit_seq += 1
@@ -1293,6 +1757,8 @@ class Engine:
                     if ready:
                         self._chunk_call(width, ready)
         self._note_prefill_span(start)
+        self._update_kv_watermarks()
+        self._note_device_idle()
         for r in walkers:                    # more chunks next round
             if owns_slot(r) and r.pending_prefill \
                     and r.prefill_offset < len(r.prompt_tokens):
@@ -1315,6 +1781,10 @@ class Engine:
             offsets[row] = req.prefill_offset
             lens[row] = len(chunk)
             tables[row] = self._tables[req.slot]
+        self._note_dispatch_shape("chunk", width, g, None)
+        c0 = time.perf_counter()
+        self.goodput.note_dispatch(c0)
+        w0 = time.time()
         temps, top_ps, top_ks = self._row_params(group, g)
         logits, self.k_cache, self.v_cache = self._chunk_fn(
             self.params, self._upload(tokens), self.k_cache, self.v_cache,
@@ -1323,6 +1793,30 @@ class Engine:
                             generator=self._generator,
                             all_greedy=_all_greedy(group))
         self.stats["prefill_calls"] += 1
+        # the host span of the launch, as the JAX engine bills a chunk
+        # dispatch (its first tokens' readout below is not in it)
+        c_dur = time.perf_counter() - c0
+        sig = self._sig_str("chunk", width, g, None)
+        if self.recorder.enabled:
+            self.recorder.record_pass(
+                "prefill_chunk", rows=len(group), width=width, sig=sig,
+                dur=round(c_dur, 6), queue_depth=self.waiting.qsize())
+        # a walker whose first token is out already re-prefills K/V it
+        # computed once (preemption recompute); pad rows are padding
+        recomp = sum(1 for r in group if r.first_token_at is not None)
+        self.goodput.add_prefill("prefill_chunk", c_dur, g,
+                                 len(group) - recomp, recomp)
+        self._note_pass_cost("chunk", sig, c_dur, rows=len(group),
+                             tokens=g * width)
+        w1 = time.time()
+        share = c_dur / len(group)
+        for row, req in enumerate(group):
+            req.device_s += share
+            if req.first_token_at is not None:
+                req.waste_recompute_s += share
+            self._req_event(req, "prefill", w0, w1,
+                            {"bucket": width,
+                             "offset": int(req.prefill_offset)})
         first = None
         for row, req in enumerate(group):
             req.prefill_offset += int(lens[row])
@@ -1349,6 +1843,7 @@ class Engine:
             self._register_prefix(slot, req)
         self._release_pages(slot)
         req.finished_at = time.time()
+        self._finalize_obs(req)
         req._end()
 
     def _retire_unservable(self) -> None:
@@ -1428,16 +1923,22 @@ class Engine:
             arrays["temps"][i] = req.params.temperature
             arrays["top_ps"][i] = req.params.top_p
             arrays["top_ks"][i] = req.params.top_k
-        self.stats["h2d_transfers"] += self._decode_graph.upload(**arrays)
+        self._note_uploads(self._decode_graph.upload(**arrays))
         self.stats["sched_syncs"] += 1
         self._sched_dirty = False
 
     def _sync_tables(self) -> None:
         """Upload the block tables, only when a page was allocated,
         released or attached since the last upload."""
-        self.stats["h2d_transfers"] += self._decode_graph.upload(
-            tables=self._tables)
+        self._note_uploads(self._decode_graph.upload(tables=self._tables))
         self._tables_dirty = False
+
+    def _note_uploads(self, n: int) -> None:
+        """Host-to-device uploads by the decode path (event-driven: none
+        in a steady-state pass)."""
+        self.stats["h2d_transfers"] += n
+        if self.metrics is not None and n:
+            self.metrics.add_counter("app_engine_h2d_transfers", float(n))
 
     def _note_graph_stats(self) -> None:
         graph = self._decode_graph
@@ -1454,6 +1955,7 @@ class Engine:
         queue a record of the pass for ``_decode_collect``."""
         cfg = self.config
         steps = self._tokens_per_pass
+        h2d0 = self.stats["h2d_transfers"]
         self._retire_unservable()
         order = sorted((i for i, r in enumerate(self.active) if r is not None),
                        key=lambda i: self.active[i].admit_order)
@@ -1474,12 +1976,14 @@ class Engine:
         if self._tables_dirty:
             self._sync_tables()
         reqs = list(self.active)
+        self._note_dispatch_shape("decode", 0)
         # steps whose write would land at or past max_seq are garbage
         # (their K/V writes drop): only the valid prefix is emitted
         valid = np.where(mask, np.minimum(steps, cfg.max_seq - self.lengths),
                          0).astype(np.int32)
         self.lengths += valid
         start = time.perf_counter()
+        self.goodput.note_dispatch(start)
         handle = self._decode_graph.launch(
             self.k_cache, self.v_cache,
             _all_greedy([r for r, m in zip(reqs, mask) if m]))
@@ -1487,7 +1991,8 @@ class Engine:
         self._dev_last_reqs = [r if m else None for r, m in zip(reqs, mask)]
         disp = time.perf_counter() - host0
         self._pending.append({"handle": handle, "reqs": reqs, "mask": mask,
-                              "valid": valid, "t0": start})
+                              "valid": valid, "t0": start, "disp": disp,
+                              "h2d": self.stats["h2d_transfers"] - h2d0})
         self.stats["dispatch_s"] += disp
 
     def _decode_collect(self) -> None:
@@ -1496,6 +2001,9 @@ class Engine:
         preempted since its dispatch decoded garbage: it is discarded."""
         if not self._pending:
             return
+        if self.faults is not NO_FAULTS:
+            # a pass is in flight: its tokens are lost with the engine
+            self.faults.trip("nan_logits")
         rec = self._pending.popleft()
         out = self._decode_graph.collect(rec["handle"])
         end = time.perf_counter()
@@ -1503,17 +2011,31 @@ class Engine:
         self._decode_busy_until = end
         self.stats["decode_passes"] += 1
         self.stats["decode_s"] += busy
+        occupancy = int(rec["mask"].sum())
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_gpu_execute_seconds", busy)
+            self.metrics.record_histogram("app_engine_batch_occupancy",
+                                          float(occupancy))
         self._step_count += 1
+        # the pass's peak, before its retires free pages
+        self._update_kv_watermarks()
         steps = self._tokens_per_pass
         emitted = 0
+        credited = 0                         # rows whose request kept it
+        share = busy / occupancy if occupancy else 0.0
         for i, req in enumerate(rec["reqs"]):
             if req is None or not rec["mask"][i]:
                 continue
             if self.active[i] is not req or req.finished_at is not None:
                 continue                     # retired or preempted since
+            req.device_s += share
+            credited += 1
             done = False
             for k in range(int(rec["valid"][i])):
                 token = int(out[k, i])
+                if self.faults is not NO_FAULTS and \
+                        self.faults.trip("logit_corrupt", req.tenant):
+                    token = self._corrupt_token(token)
                 req.generated.append(token)
                 req.out_queue.put(token)
                 self.total_generated += 1
@@ -1524,9 +2046,24 @@ class Engine:
             if done or rec["valid"][i] < steps:
                 self._retire(i)
         self.stats["decode_tokens"] += emitted
-        self.stats["collect_s"] += time.perf_counter() - end
+        collect = time.perf_counter() - end
+        self.stats["collect_s"] += collect
+        # rows that kept the pass are useful; empty slots, walking slots
+        # and requests retired since the dispatch are padding
+        self.goodput.add_decode(busy, credited, self.config.max_batch)
         # the price an accepted draft token undercuts
         self._spec_ctrl.note_decode(busy, emitted)
+        sig = self._sig_str("decode", 0)
+        self._note_pass_cost("decode", sig, busy, rows=credited,
+                             tokens=emitted)
+        if self.recorder.enabled:
+            self.recorder.record_pass(
+                "decode", dur=round(busy, 6),
+                dispatch_s=round(rec["disp"], 6),
+                collect_s=round(collect, 6), occupancy=occupancy,
+                sig=sig, queue_depth=self.waiting.qsize(), tokens=emitted,
+                h2d=rec["h2d"], preemptions=self.stats["preemptions"])
+        self._note_device_idle()
 
     # --------------------------------------------------------- speculation
     def _step(self) -> None:
@@ -1654,7 +2191,10 @@ class Engine:
                 depths[j, :m] = tree.depths
                 masks[j, :m] = tree.masks
                 chunk_lens[j] = m
+        self._note_dispatch_shape("spec_verify", width)
         t0 = time.perf_counter()
+        self.goodput.note_dispatch(t0)
+        w0 = time.time()
         temps, top_ps, top_ks = self._row_params(reqs, n)
         tables = self._upload(self._tables[rows])
         offsets = self._upload(self.lengths[rows].copy())
@@ -1676,17 +2216,34 @@ class Engine:
         out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
                         1).cpu().numpy()
         dur = time.perf_counter() - t0
+        w1 = time.time()
         self.stats["spec_passes"] += 1
         self.stats["spec_s"] += dur
         self.stats["decode_s"] += dur
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_gpu_execute_seconds", dur)
         self._step_count += 1
         emitted_total = 0
+        pass_drafted = pass_accepted = 0
+        row_stats: list[tuple[int, int]] = []      # (drafted, accepted)
+        share = dur / n
         for j, (slot, req) in enumerate(zip(rows, reqs)):
+            req.device_s += share
             tree = trees.get(slot)
             n_drafted = tree.n_draft if tree is not None else 0
             accepted = min(int(out[j, 0]), n_drafted)
             if n_drafted:
+                # the rejected drafts' part of this row's time, billed to
+                # the request that drafted them
+                req.waste_spec_s += share * (n_drafted - accepted) \
+                    / (1 + n_drafted)
                 self._spec_ctrl.note_result(slot, n_drafted, accepted)
+                self._req_event(req, "spec_verify", w0, w1,
+                                {"drafted": n_drafted,
+                                 "accepted": accepted})
+            row_stats.append((n_drafted, accepted))
+            pass_drafted += n_drafted
+            pass_accepted += accepted
             self.stats["spec_accepted"] += accepted
             self.stats["spec_drafted"] += n_drafted
             self.stats["spec_rows"] += 1
@@ -1702,6 +2259,9 @@ class Engine:
                 if kept >= ceiling:
                     done = True
                     break
+                if self.faults is not NO_FAULTS and \
+                        self.faults.trip("logit_corrupt", req.tenant):
+                    token = self._corrupt_token(token)
                 req.generated.append(token)
                 req.out_queue.put(token)
                 self.total_generated += 1
@@ -1714,7 +2274,316 @@ class Engine:
             if done or kept >= ceiling:
                 self._retire(slot)
         self.stats["decode_tokens"] += emitted_total
+        if self.metrics is not None and pass_drafted:
+            self.metrics.add_counter("app_engine_spec_drafted",
+                                     float(pass_drafted))
+            self.metrics.add_counter("app_engine_spec_accepted",
+                                     float(pass_accepted))
+        # the pass runs the decoding rows only: no pad rows to price
+        self.goodput.add_spec(dur, n, row_stats)
         self._spec_ctrl.note_verify(dur, n, width)
+        sig = self._sig_str("spec_verify", width)
+        self._note_pass_cost("spec_verify", sig, dur, rows=n,
+                             tokens=pass_accepted + n)
+        self._update_kv_watermarks()
+        if self.recorder.enabled:
+            self.recorder.record_pass(
+                "spec_verify", rows=n, drafted=pass_drafted,
+                accepted=pass_accepted, dur=round(dur, 6), occupancy=n,
+                sig=sig, queue_depth=self.waiting.qsize())
+        self._note_device_idle()
+
+    # ------------------------------------------------------ observability
+    def _sig(self, *parts: Any) -> tuple:
+        """A dispatch's shape signature; a non-default ``kv_dtype`` is
+        folded in (the JAX engine's rule, so signatures read alike)."""
+        if self.config.kv_dtype != "bf16":
+            return (*parts, self.config.kv_dtype)
+        return parts
+
+    def _sig_str(self, *parts: Any) -> str:
+        """The signature as the cost table, the pass records and
+        ``/debug/costs`` key it: ``decode/0``, ``prefill/64/1``,
+        ``chunk/1024/1/None``, ``spec_verify/8``."""
+        return "/".join(str(p) for p in self._sig(*parts))
+
+    def _note_dispatch_shape(self, *parts: Any) -> None:
+        """The recompile sentinel at every dispatch: a shape the sealed
+        warmup never ran is counted and WARNed once."""
+        sig = self._sig(*parts)
+        if not self.sentinel.dispatch(sig):
+            return
+        text = "/".join(str(p) for p in sig)
+        self.stats["recompiles"] += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_engine_recompiles")
+        if self.logger is not None:
+            self.logger.warn("unexpected post-warmup dispatch shape: "
+                             "warmup never ran it", signature=text)
+        self.events.emit("obs.recompile", severity="warn", signature=text)
+
+    def _note_pass_cost(self, kind: str, sig: str, dur: float, *,
+                        rows: int = 0, tokens: int = 0) -> None:
+        """Feed one collected pass to the cost model with the duration
+        the goodput ledger billed; the golden-probe cadence ticks here
+        too. A drift episode's entry is counted, WARNed and recorded as
+        an ``obs.cost_drift`` event."""
+        probe = self.integrity.note_pass()
+        if probe is not None:
+            self._launch_probe(probe)
+        if not self.costs.enabled:
+            return
+        skew = 0.0
+        if self.faults is not NO_FAULTS \
+                and self.faults.trip("cost_skew", sig):
+            # drift induction: the observed duration only, no sleep
+            skew = self.faults.payload("cost_skew")
+        drift = self.costs.observe(kind, sig, dur, rows=rows, tokens=tokens,
+                                   skew_s=skew)
+        if drift is None:
+            return
+        self.stats["cost_drifts"] += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_engine_cost_drift",
+                                           kind=kind)
+        if self.logger is not None:
+            self.logger.warn("pass cost drifted off its sealed baseline",
+                             signature=sig, ewma_s=drift["ewma_s"],
+                             baseline_s=drift["baseline_s"],
+                             ratio=drift["ratio"])
+        self.events.emit("obs.cost_drift", severity="warn", signature=sig,
+                         pass_kind=kind, ratio=drift["ratio"],
+                         ewma_s=drift["ewma_s"],
+                         baseline_s=drift["baseline_s"])
+
+    def cost_state(self) -> dict:
+        """The ``GET /debug/costs`` payload."""
+        return {"costs": self.costs.state()}
+
+    def integrity_state(self) -> dict:
+        """The ``GET /debug/integrity`` payload."""
+        return self.integrity.state()
+
+    def efficiency_state(self) -> dict:
+        """The ``GET /debug/efficiency`` payload: goodput, watermarks,
+        the recompile sentinel, speculation and the cost table."""
+        self._update_watermarks()
+        cap_tokens = self._n_pages * self.config.page_size
+        return {"goodput": self.goodput.state(),
+                "watermarks": self.watermarks.state(),
+                "recompiles": self.sentinel.state(),
+                "spec": self._spec_ctrl.state(),
+                "costs": self.costs.state(),
+                "kv_bytes": self._kv_bytes_total,
+                "kv_bytes_per_token": round(
+                    self._kv_bytes_total / max(1, cap_tokens), 3)}
+
+    def _launch_probe(self, entry) -> None:
+        """Submit one golden probe through admission on the background
+        lane (it yields to interactive traffic and rides the path users
+        ride), tenant ``_integrity``; a refused probe frees the cadence."""
+        p = entry.params
+        params = SamplingParams(temperature=p["temperature"],
+                                top_p=p["top_p"], top_k=p["top_k"],
+                                max_new_tokens=p["max_new_tokens"])
+        req = GenRequest(
+            prompt_tokens=self._clamp_prompt(list(entry.prompt_tokens),
+                                             params.max_new_tokens),
+            params=params, tenant="_integrity", lane="background")
+        req.probe = entry.id
+        req.probe_expected = entry.digest
+        if self._draining or not self.waiting.put(req):
+            self.integrity.probe_aborted()
+
+    def _note_integrity(self, req: GenRequest) -> None:
+        """Stamp the request's digest; for a golden probe, re-price its
+        device time to ``integrity_probe`` waste and record its result
+        (an ``obs.integrity`` event); a mismatch episode's entry is
+        counted and WARNed."""
+        mismatch = self.integrity.fold(req)
+        if req.probe:
+            self.goodput.reprice_probe(req.device_s)
+            self.integrity.probe_device_s += req.device_s
+            rec = self.integrity.last.get(req.probe)
+            if rec is not None and req.error is None and not req.cancelled:
+                self.events.emit(
+                    "obs.integrity", severity="info" if rec["ok"] else "warn",
+                    golden_id=req.probe, digest=rec["digest"],
+                    expected=req.probe_expected, ok=rec["ok"],
+                    seq=rec["seq"])
+        if mismatch is None:
+            return
+        self.stats["integrity_failures"] += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_engine_integrity_failures",
+                                           kind="probe_mismatch")
+        if self.logger is not None:
+            self.logger.warn(
+                "golden probe digest mismatch: this host's greedy output "
+                "diverged from its sealed expectation",
+                golden_id=mismatch["golden_id"], digest=mismatch["digest"],
+                expected=mismatch["expected"])
+
+    def _corrupt_token(self, token: int) -> int:
+        """``logit_corrupt``'s effect: the sampled token replaced, never
+        by ``eos_id``, so stream lengths stay and only digests move."""
+        alt = token ^ 1
+        if alt == self.config.eos_id:
+            alt = token ^ 2
+        return alt
+
+    def _note_device_idle(self) -> None:
+        """A collect finished with nothing in flight: the card is idle
+        from here; whether work waits decides if the gap to the next
+        dispatch is a bubble."""
+        if not self.goodput.enabled or self._pending \
+                or self._pending_prefills:
+            return
+        backlog = (bool(self._requeued) or self.waiting.qsize() > 0
+                   or any(r is not None and not r.pending_prefill
+                          for r in self.active))
+        self.goodput.note_pass_end(time.perf_counter(), backlog)
+
+    def _req_event(self, req: GenRequest, name: str, t0: float, t1: float,
+                   attrs: dict | None = None) -> None:
+        if len(req.events) < 64:
+            req.events.append((name, t0, t1, attrs or {}))
+
+    def _note_admitted(self, req: GenRequest) -> None:
+        """The first slot assignment ends the queue wait (a recompute
+        keeps the first one)."""
+        if req.admitted_at is None:
+            now = time.time()
+            req.admitted_at = now
+            if self.metrics is not None:
+                self.metrics.record_histogram("app_chat_queue_seconds",
+                                              now - req.submitted_at)
+
+    def _finalize_obs(self, req: GenRequest) -> None:
+        """A request's end, exactly once (retire, fail or cancel): the
+        latency histograms, the usage ledger, the SLO verdict (typed
+        refusals, cancels and probes stay out of it) and the scheduler's
+        burn column, the digest and probe judgement, the recorder's
+        request log."""
+        if req._obs_done:
+            return
+        req._obs_done = True
+        end = req.finished_at or time.time()
+        n = len(req.generated)
+        ttft_s = (req.first_token_at - req.submitted_at
+                  if req.first_token_at is not None else None)
+        tpot_s = ((end - req.first_token_at) / (n - 1)
+                  if req.first_token_at is not None and n > 1 else None)
+        e2e_s = end - req.submitted_at
+        if self.metrics is not None and req.error is None \
+                and not req.cancelled:
+            self.metrics.record_histogram("app_chat_e2e_seconds", e2e_s)
+            if tpot_s is not None:
+                self.metrics.record_histogram("app_chat_tpot_seconds",
+                                              tpot_s)
+        status = ("cancelled" if req.cancelled
+                  else "error" if req.error is not None else "ok")
+        queue_s = (req.admitted_at - req.submitted_at
+                   if req.admitted_at is not None else 0.0)
+        self.usage_ledger.record(
+            tenant=req.tenant or "anonymous", status=status,
+            prompt_tokens=len(req.prompt_tokens), completion_tokens=n,
+            queue_s=queue_s, e2e_s=e2e_s, device_s=req.device_s,
+            waste_recompute_s=req.waste_recompute_s,
+            waste_spec_s=req.waste_spec_s, t=end)
+        if self.slo is not None and not req.cancelled \
+                and req.reject is None and not req.probe:
+            good = self.slo.judge(error=req.error, ttft_s=ttft_s,
+                                  tpot_s=tpot_s, e2e_s=e2e_s)
+            self.slo.record(good, t=end)
+            self.waiting.note_retire(req.tenant, good, t=end)
+        if self.integrity.enabled:
+            self._note_integrity(req)
+        if self.recorder.enabled:
+            self.recorder.record_request(request_summary(req))
+
+    def _update_kv_watermarks(self) -> None:
+        """KV high-water marks at the collects (a burst's peak is caught
+        before its slots retire): O(1) page counts."""
+        wm = self.watermarks
+        if not wm.enabled:
+            return
+        used = self._n_pages - len(self._free_pages)
+        wm.update("kv_pages", float(used))
+        wm.update("prefix_pages", float(self._cached_pages))
+        wm.update("kv_bytes", used * self._kv_bytes_total / self._n_pages)
+
+    def _update_watermarks(self) -> None:
+        if self.watermarks.enabled:
+            self._update_kv_watermarks()
+            self.watermarks.update_rss()
+
+    def _update_gauges(self) -> None:
+        """Every loop iteration: slots and queue; every 0.25 s the
+        derived gauges (tokens/s, MFU, goodput ratio and waste deltas,
+        watermarks, the pool, the scheduler's). Host arithmetic over
+        counters the loop keeps."""
+        m = self.metrics
+        if m is not None:
+            m.set_gauge("app_engine_active_slots",
+                        float(sum(r is not None for r in self.active)))
+            m.set_gauge("app_engine_waiting", float(self.waiting.qsize()))
+        now = time.time()
+        dt = now - self._gauge_wall
+        if dt < 0.25:
+            return
+        self._update_watermarks()
+        tps = (self.total_generated - self._gauge_tokens) / dt
+        self._gauge_wall = now
+        self._gauge_tokens = self.total_generated
+        if m is None:
+            return
+        m.set_gauge("app_engine_tokens_per_second", round(tps, 2))
+        gp = self.goodput
+        if gp.enabled and gp.busy_s > 0:
+            m.set_gauge("app_engine_goodput_ratio",
+                        round(gp.useful_s / gp.busy_s, 6))
+            for cause, total in gp.waste_s.items():
+                delta = total - self._waste_published.get(cause, 0.0)
+                if delta > 0:          # counters take deltas of the totals
+                    m.add_counter("app_engine_waste_seconds", delta,
+                                  cause=cause)
+                    self._waste_published[cause] = total
+        wm = self.watermarks
+        if wm.enabled:
+            for mark, gauge in (
+                    ("kv_pages", "app_engine_kv_pages_watermark"),
+                    ("kv_bytes", "app_engine_kv_bytes_watermark"),
+                    ("prefix_pages", "app_engine_prefix_pages_watermark"),
+                    ("host_rss_bytes",
+                     "app_engine_host_rss_bytes_watermark")):
+                value = wm.get(mark)
+                if value is not None:
+                    m.set_gauge(gauge, value)
+        mfu = (tps * self._flops_per_token / self._peak_flops
+               if self._flops_per_token and self._peak_flops else 0.0)
+        m.set_gauge("app_engine_mfu", round(mfu, 6))
+        if self.config.speculative:
+            m.set_gauge("app_engine_spec_accept_rate",
+                        round(self._spec_ctrl.accept_rate(), 6))
+        self.waiting.publish_gauges(m)
+        cfg = self.config
+        used = self._n_pages - len(self._free_pages)
+        m.set_gauge("app_engine_kv_pool_utilization",
+                    round(used / self._n_pages, 4))
+        # allocated page capacity holding no live rows (walking slots
+        # report their walk's progress)
+        cap_rows = int(self._slot_pages.sum()) * cfg.page_size
+        live = int(self.lengths.sum()) + sum(
+            r.prefill_offset for r in self.active
+            if r is not None and r.pending_prefill)
+        frag = 1.0 - live / cap_rows if cap_rows else 0.0
+        m.set_gauge("app_engine_kv_pool_fragmentation",
+                    round(min(1.0, max(0.0, frag)), 4))
+        m.set_gauge("app_engine_prefix_cache_entries",
+                    float(len(self._prefix_cache)))
+        m.set_gauge("app_engine_prefix_cache_pages",
+                    float(self._cached_pages))
 
 
 def _all_greedy(reqs) -> bool:

@@ -3,12 +3,14 @@
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
 
 from ..device import resolve_device
-from ..models.llama import (LlamaConfig, llama_decode_step_paged,
+from ..models.llama import (LlamaConfig, llama_decode_flops,
+                            llama_decode_step_paged,
                             llama_prefill_chunk_paged, llama_prefill_last,
                             make_pool)
 from ..ops.quant import (M_MAX, is_quantized, quantize_llama_int4,
@@ -88,8 +90,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                   prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,
                   paged_chunk_fn=paged_chunk_fn,
                   paged_verify_fn=paged_verify_fn, make_cache=make_cache,
-                  device=dev,
-                  vocab_size=c.vocab_size)
+                  device=dev, vocab_size=c.vocab_size,
+                  flops_per_token=partial(llama_decode_flops, c))
 
 
 def kernel_rows(config: EngineConfig) -> int:

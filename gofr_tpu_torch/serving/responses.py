@@ -4,6 +4,7 @@
 
 A handler returns a plain value (enveloped as ``{"data": ...}``, 201
 for a POST, 200 for a GET), a :class:`Raw` (a bare JSON body, same
+statuses), a :class:`File` (bytes with their content type, same
 statuses) or a :class:`Stream` (an iterator of server-sent-event
 chunks, sent chunked); it raises an :class:`HTTPError`, which answers
 ``{"error": {"message", "details"?}}`` with its status and headers.
@@ -46,6 +47,14 @@ class ErrorMissingParam(HTTPError):
                          "is required")
 
 
+class ErrorEntityNotFound(HTTPError):
+    status_code = 404
+
+    def __init__(self, name: str = "entity", value: str = "") -> None:
+        super().__init__(f"No entity found with {name}: {value}" if value
+                         else f"No entity found: {name}")
+
+
 class ErrorServiceUnavailable(HTTPError):
     status_code = 503
 
@@ -59,6 +68,14 @@ class Raw:
     """A JSON body without the ``{"data": ...}`` envelope."""
 
     data: Any
+
+
+@dataclass
+class File:
+    """Bytes with their content type (``/debug/events``' JSONL)."""
+
+    content: bytes
+    content_type: str = "application/octet-stream"
 
 
 @dataclass

@@ -23,10 +23,11 @@ the engine calls, with four policies configured by
    ``capacity`` bounds the queue (``queue_full``, 503).
 4. **Burn-rate shedding** driven by an SLO tracker (``slo_source``).
 
-The usage ledger, the SLO tracker and the metrics sink are hooks the
-port's engine leaves ``None`` for now: shares then come from the
-in-flight debt alone and shedding never trips. The event sink is a
-local no-op (``NO_EVENTS``).
+The engine builds it with its usage ledger (the windowed device-time
+shares) and ``slo_source`` (its SLO tracker, which the app attaches);
+``attach_metrics`` gives it the metrics sink and the engine its event
+ledger. A scheduler built without them takes its shares from the
+in-flight debt alone, never sheds and records nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
+from .events import NO_EVENTS
+
 
 INTERACTIVE = "interactive"
 BACKGROUND = "background"
@@ -48,17 +51,6 @@ LANES = (INTERACTIVE, BACKGROUND)
 QUEUE_FULL = "queue_full"
 RATE_LIMITED = "rate_limited"
 SHED = "shed"
-
-
-class _NoEvents:
-    """The event sink of a scheduler that records nothing (the port has
-    no event ledger yet): every ``emit`` is dropped."""
-
-    def emit(self, kind: str, **fields: Any) -> None:
-        pass
-
-
-NO_EVENTS = _NoEvents()
 
 
 @dataclass

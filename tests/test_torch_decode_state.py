@@ -153,6 +153,8 @@ def test_multi_pass_greedy_identical_and_matches_jax(kv_dtype):
     for g, w in zip(four, want):
         assert request_digest(g.prompt_tokens, g.params, g.generated) == \
             request_digest(w.prompt_tokens, w.params, w.generated)
+        # the digest each engine stamped itself at the request's end
+        assert g.digest is not None and g.digest == w.digest
     assert sorted(eng4._free_pages) == list(range(eng4._n_pages))
 
 

@@ -85,6 +85,8 @@ def _assert_same_requests(got, want, n_new):
         assert g.prompt_tokens == w.prompt_tokens
         assert request_digest(g.prompt_tokens, g.params, g.generated) == \
             request_digest(w.prompt_tokens, w.params, w.generated)
+        # the digest each engine stamped itself at the request's end
+        assert g.digest is not None and g.digest == w.digest
 
 
 def test_engine_greedy_matches_jax_engine():

@@ -69,7 +69,9 @@ def test_the_scan_sees_every_module_and_catches_a_bad_import():
     assert {"engine.py", "flash_attention.py", "paged_attention.py",
             "paged_kv.py", "llama.py", "glue.py", "app.py",
             "_build.py", "spec.py", "quant.py", "hf_checkpoint.py",
-            "tokenizer.py"} <= names
+            "tokenizer.py", "metrics.py", "faults.py", "events.py",
+            "observability.py", "costmodel.py", "integrity.py",
+            "logger.py", "debug.py"} <= names
     tree = ast.parse("try:\n    import triton\nexcept ImportError:\n"
                      "    pass\ndef f():\n    import triton.language\n")
     assert set(_module_level_imports(tree.body)) == {"triton"}
