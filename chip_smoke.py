@@ -142,6 +142,21 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              (f) ``/metrics`` holding every JAX engine series, the e2e
              count, the MFU gauge = tokens/s x flops per token / peak.
              Every check rejects a planted fault.
+   serve_recover — the recovery and forensics planes through the app
+             (``phase_serve_recover``' docstring): (a) a group prefill
+             that raises once fails only its group; (b) ``pass_raise``
+             with walkers before their first token and a decode dispatch
+             in flight: they recover with the clean run's digests, no
+             capture, allocation or launch per replay moves; mid-stream
+             requests answer a typed 503 ``engine_restart``; (c) the
+             budget spent: DOWN, a ``restart_budget`` incident bundle,
+             ``engine_down``; (d) one trace from the HTTP span to
+             ``engine.retire``, ``X-Trace-Id``, the exemplar; (e) a
+             captured workload replayed with 0 divergences, and located
+             ones under ``logit_corrupt``; (f) ``torch.profiler`` captures
+             naming the kernels of replayed graphs, refused, auto-stopped
+             and forced, tokens/s with the profiler armed and off. Every
+             check rejects a planted fault.
 6. serve_spec — 4 concurrent greedy ``/chat`` requests with repetitive
              prompts, 64 new tokens each, through the plain engine, the
              speculative one (``serve_config(speculative=True,
@@ -3670,8 +3685,9 @@ def phase_serve_obs(dev, smi_line: str, cfg=None) -> None:
         ``watchdog_interval_s=0.1``, two requests queued before
         ``start()``: ``/.well-known/health`` answers 200 DEGRADED with
         ``stalled_for_s``, one ``fleet.stall`` event (the JAX engine's
-        kind; its ``engine.stall`` span needs a tracer the port has not
-        got yet), ``app_engine_stalls`` 1, UP after the stall; the on
+        kind; the ``engine.stall`` span goes to the server's tracer,
+        checked on the CPU in ``tests/test_torch_tracing.py``),
+        ``app_engine_stalls`` 1, UP after the stall; the on
         run of (a) stays UP throughout. Each check is shown the other
         run's samples.
     (f) the on run's ``/metrics`` (its own server): every series the
@@ -4103,6 +4119,735 @@ def phase_serve_obs(dev, smi_line: str, cfg=None) -> None:
     if missed:
         raise AssertionError(f"serve_obs: planted faults passed every "
                              f"check: {missed}")
+
+
+class _GatedApp:
+    """One engine behind the port's app (``build_server``) and its
+    metrics port. Every request the handlers submit is kept as (prompt
+    ids, ``GenRequest``), and the engine's queue pop is gated: it takes
+    requests only when the count submitted since ``mark()`` is one of
+    the stops (or past the last), so a wave is admitted as one batch, as
+    in ``serve_obs``."""
+
+    def __init__(self, engine, tok, env=None, tracer=None) -> None:
+        from gofr_tpu_torch.serving.app import (build_metrics_server,
+                                                build_server)
+        from gofr_tpu_torch.serving.openai_compat import install_openai_routes
+        self.engine = engine
+        self.server = build_server(engine, tok, port=0, name="llama3_1b",
+                                   env=env or {}, tracer=tracer)
+        install_openai_routes(self.server, engine, tok, model="llama3_1b")
+        self.metrics_server = build_metrics_server(self.server.metrics,
+                                                   port=0)
+        self.port = self.server.server_address[1]
+        self.made: list = []
+        self._base, self.stops = 0, {0}
+        self._inner_submit, self._inner_pop = engine.submit, engine._pop_waiting
+
+        def submit(prompt, *args, **kwargs):
+            req = self._inner_submit(prompt, *args, **kwargs)
+            self.made.append((list(prompt), req))
+            return req
+
+        def pop(n, wait_s):
+            count = len(self.made) - self._base
+            if count in self.stops or count > max(self.stops):
+                popped = self._inner_pop(n, 0.0)
+                if popped:
+                    return popped
+            time.sleep(0.001)
+            return []
+
+        engine.submit, engine._pop_waiting = submit, pop
+        self._threads = [threading.Thread(target=s.serve_forever, daemon=True)
+                         for s in (self.server, self.metrics_server)]
+        for t in self._threads:
+            t.start()
+
+    def mark(self, stops) -> None:
+        self._base, self.stops = len(self.made), set(stops)
+
+    def ask(self, asks, *, before_start: bool = False) -> list:
+        """Send ``asks`` ((path, body, stream) each) at once and return
+        their answers in order: ``(status, headers, body)`` for a unary
+        one, ``_sse_call``'s record for a stream. With ``before_start``
+        every request is queued before the engine starts."""
+        self.mark({len(asks)})
+        if before_start:
+            # a stopped engine refuses submits until start() reopens it
+            self.engine.waiting.reopen()
+        got: list = [None] * len(asks)
+
+        def call(i, path, body, stream):
+            got[i] = (_sse_call(self.port, path, body) if stream
+                      else _http_json(self.port, "POST", path, body))
+
+        workers = [threading.Thread(target=call, args=(i, *a))
+                   for i, a in enumerate(asks)]
+        for w in workers:
+            w.start()
+        if before_start:
+            deadline = time.time() + 60
+            while self.engine.waiting.qsize() < len(asks) \
+                    and time.time() < deadline:
+                time.sleep(0.002)
+            self.engine.start()
+        for w in workers:
+            w.join(timeout=600)
+        return got
+
+    def close(self) -> None:
+        for s in (self.server, self.metrics_server):
+            s.shutdown()
+            s.server_close()
+        self.engine.stop()
+        self.engine.submit, self.engine._pop_waiting = (self._inner_submit,
+                                                        self._inner_pop)
+
+
+def _recovered_faults(run: dict, clean: dict) -> list:
+    """(b): every walker recovered and its digest the clean run's, the
+    decoder failed typed, one restart (a ring buffer of the decode graph
+    left busy by the dispatch in flight would have failed the next
+    launch: a second restart), nothing recaptured or reallocated."""
+    faults = []
+    if run["recovered"] != run["walkers"]:
+        faults.append(f"recovered {run['recovered']}")
+    if run["restarts_metric"] != 1 or run["recovered_metric"] != \
+            run["walkers"]:
+        faults.append(f"counters {run['restarts_metric']}/"
+                      f"{run['recovered_metric']}")
+    faults += _digest_faults(run["digests"], clean["digests"])
+    if run["decoder"] != (503, "engine_restart", "1"):
+        faults.append(f"decoder {run['decoder']}")
+    for key in ("graph_captures", "memory_allocated", "launches_per_replay"):
+        if run[key] != clean[key]:
+            faults.append(f"{key} {run[key]} != {clean[key]}")
+    return faults
+
+
+def _midstream_faults(answers: list) -> list:
+    """(b): unary answers 503 + Retry-After + ``engine_restart``; a
+    stream's 200, then the typed error event, no ``[DONE]``."""
+    faults = []
+    for i, answer in enumerate(answers):
+        if isinstance(answer, dict):              # a stream
+            events = [e for _, e in answer["events"]]
+            last = events[-1] if events else None
+            if answer["status"] != 200 or not isinstance(last, dict) \
+                    or (last.get("details") or {}).get("code") \
+                    != "engine_restart" or "[DONE]" in events:
+                faults.append(f"stream_{i}")
+        else:
+            status, headers, body = answer
+            details = (body.get("error") or {}).get("details") or {}
+            if status != 503 or headers.get("retry-after") != "1" \
+                    or details.get("code") not in ("engine_restart", None) \
+                    or (details.get("code") is None
+                        and details.get("type") != "server_error"):
+                faults.append(f"unary_{i} {status} {details}")
+    return faults
+
+
+def _budget_faults(run: dict) -> list:
+    """(c): DOWN, the restarts the budget allowed, a ``restart_budget``
+    bundle served at ``?id=``, and the next submit a typed
+    ``engine_down`` 503 with ``Retry-After``."""
+    faults = []
+    if run["health"] != "DOWN":
+        faults.append(f"health {run['health']}")
+    if run["bundle_reason"] != "restart_budget" or run["bundle_status"] \
+            != 200:
+        faults.append(f"bundle {run['bundle_status']} "
+                      f"{run['bundle_reason']}")
+    if run["next"] != (503, "1", "engine_down"):
+        faults.append(f"next {run['next']}")
+    if run["unknown_id_status"] != 404:
+        faults.append(f"unknown id {run['unknown_id_status']}")
+    return faults
+
+
+def _span_faults(run: dict, trace_id: str) -> list:
+    """(d): the answer's ``X-Trace-Id`` is the caller's trace, whose
+    spans run HTTP -> ``engine.request`` -> queue, prefill, decode,
+    retire; the trace id is an exemplar on ``/metrics``."""
+    faults = []
+    if run["x_trace_id"] != trace_id:
+        faults.append(f"x_trace_id {run['x_trace_id']}")
+    tree = run["tree"]
+    if tree.get("http_parent") != run["inbound_parent"]:
+        faults.append("http_parent")
+    if not tree.get("request_under_http"):
+        faults.append("engine_request_parent")
+    children = tree.get("children", [])
+    if not children or children[0] != "engine.queue" \
+            or children[-2:] != ["engine.decode", "engine.retire"] \
+            or "engine.prefill" not in children:
+        faults.append(f"children {children}")
+    if f'trace_id="{trace_id}"' not in run["openmetrics"]:
+        faults.append("no_exemplar")
+    return faults
+
+
+def _replay_faults(report: dict, want_divergent: bool) -> list:
+    """(e): a clean replay has 0 divergent requests of all compared; a
+    corrupted one at least one, located (index, first divergent token),
+    and ``app_replay_divergence`` above 0."""
+    if not want_divergent:
+        return ([] if report["divergent"] == 0 and report["compared"] > 0
+                else [f"divergent {report['divergent']} of "
+                      f"{report['compared']}"])
+    located = [d for d in report["divergences"] if d["kind"] == "token"
+               and "first_divergent_token" in d and "index" in d]
+    faults = [] if located else ["nothing located"]
+    if not report.get("metric", 0) > 0:
+        faults.append(f"metric {report.get('metric')}")
+    return faults
+
+
+def _trace_kernel_names(path: str) -> set:
+    """The kernel names of a Chrome trace written by ``ProfilerCapture``,
+    without their parameter lists and namespaces."""
+    if not Path(path).exists():
+        return set()
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    names = set()
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "").replace("void ", "", 1)
+            name = name.replace("(anonymous namespace)::", "")
+            names.add(name.split("(", 1)[0])
+    return names
+
+
+def _profile_faults(run: dict) -> list:
+    """(f): the trace names the decode and the chunk kernel (and the
+    fused K/V write), a second start is refused, ``max_capture_s``
+    stopped a capture, ``force`` recovered a leaked one, a start under
+    another ``torch.profiler`` session is refused, digests with the
+    capture on are the clean run's, decode tokens/s with the capture code
+    armed and off >= 0.98 x the engine without it."""
+    faults = []
+    names = run["kernel_names"]
+    for want in ("paged_decode", "paged_chunk", "rope_kv_write"):
+        if not any(want in n for n in names):
+            faults.append(f"no {want} kernel in the trace")
+    if run["second_start"].get("ok") is not False:
+        faults.append("second start accepted")
+    if run["auto_stop"] != {"running": False, "auto_stops": 1}:
+        faults.append(f"auto_stop {run['auto_stop']}")
+    if run["forced"].get("recovered") is not True or run["leaked_stop"].get(
+            "ok") is not False:
+        faults.append(f"force {run['leaked_stop']} {run['forced']}")
+    if run["under_other_profiler"].get("ok") is not False:
+        faults.append("started under another torch.profiler session")
+    faults += _digest_faults(run["digests"], run["clean_digests"])
+    if not run["tokens_per_s_ratio"] >= 0.98:
+        faults.append(f"tokens/s ratio {run['tokens_per_s_ratio']}")
+    return faults
+
+
+def phase_serve_recover(dev, smi_line: str, cfg=None) -> None:
+    """The recovery and forensics planes on the card, through the port's
+    app on ``cfg`` (default ``llama3_1b``; random weights, seed 0), greedy,
+    ``serve_config`` (engine A, warmed up) unless said otherwise. Each
+    wave is admitted as one batch (a gate on the queue's pop), so two
+    runs batch alike. Every check is shown a planted fault in the same
+    run and must reject it.
+
+    (a) Containment: serve's waves 1-3 clean (captured as a workload,
+        for (e)); then the group prefill's call raising once: wave 1
+        answers one 500 (the failing group: each wave-1 prompt has a
+        bucket of its own) and three 201s whose digests are the clean
+        run's, and wave 2's digest is the clean run's. Planted: a
+        containment that also failed a bystander.
+    (b) Restart within budget, engine B (``prefill_buckets=(8,)``, one
+        chunk round an admission, ``pipeline_depth=1``, a
+        ``RestartPolicy``): a 3-token decoder and wave 1's four prompts
+        (3 to 113 chunks each) queued before ``start()``; the decoder's
+        first token comes at the end of the first iteration and its
+        decode dispatch is in flight at depth 1 when ``pass_raise:at=3``
+        fires at the top of the third, while no walker has a first token:
+        the four walkers recover (``recovered``, replayed from offset 0)
+        with the clean run's digests, the decoder answers 503
+        ``engine_restart`` with ``Retry-After``, ``app_engine_restarts``
+        1, ``app_engine_requests_recovered`` 4; ``graph_captures``,
+        ``torch.cuda.memory_allocated()`` and the launches per replay
+        as after the clean run. Planted: a recovered request replayed
+        with its last prompt token dropped.
+        Then on A, wave 1 as two unary ``/chat``, one SSE ``/chat`` and
+        one ``/v1/completions`` queued before ``start()`` and
+        ``pass_raise:at=2`` (after every first token): 503 with
+        ``Retry-After`` and ``engine_restart`` on the unary ones, the
+        stream's error event typed, no ``[DONE]``. Planted: the clean
+        run's 201s.
+    (c) Budget spent on A (``pass_raise:times=0``, two restarts left):
+        DOWN, a ``restart_budget`` bundle at ``/debug/incidents?id=``
+        (an unknown id 404), the next ``/chat`` a 503 ``engine_down``
+        with ``Retry-After``. Planted: (b)'s within-budget state.
+    (d) Spans: one ``/chat`` with a ``traceparent``: ``X-Trace-Id`` is its
+        trace, the HTTP span is the caller's child, ``engine.request``
+        the HTTP span's, and under it ``engine.queue``, the prefill
+        spans, ``engine.decode`` and ``engine.retire``; the trace id is an
+        exemplar on ``/metrics`` in OpenMetrics. Planted: the same checks
+        on a garbage ``traceparent``, which must start a fresh trace.
+    (e) Workload: (a)'s capture replayed on A at speed 1.0 (gated at the
+        waves' sizes): 0 divergent requests; again under
+        ``logit_corrupt``: at least one, located, and
+        ``app_replay_divergence`` > 0. Each check is shown the other
+        replay.
+    (f) Profiler (``PROFILER_ENABLED=1``): start, wave 2, stop: the
+        Chrome trace names the paged decode, paged chunk and fused K/V
+        write kernels; a second start is refused; a start while this
+        script's own ``torch.profiler`` session runs is refused; a
+        capture with ``max_capture_s`` 0.5 stops itself; a leaked one
+        only ``force`` recovers; digests with the capture on are the
+        clean run's; decode tokens/s of A (profiler routes and
+        autoprofiler armed, no capture) >= 0.98 x engine C's (no
+        profiler code: ``autoprof=False``, no routes), best of three
+        interleaved runs each, 4 x 256 greedy tokens. Planted: the idle
+        auto-stopped capture's trace, the first start's answer, a status
+        read before the timer, a plain stop of the leak, one bent
+        digest, A's tokens/s x 0.9."""
+    import tempfile
+
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.engine import RestartPolicy
+    from gofr_tpu_torch.serving.faults import FaultPlan
+    from gofr_tpu_torch.serving.glue import llama_engine
+    from gofr_tpu_torch.serving.integrity import request_digest
+    from gofr_tpu_torch.serving.replay import parse_workload, replay_workload
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    from gofr_tpu_torch.tracing import InMemoryExporter, Tracer
+    cfg = cfg or LlamaConfig.llama3_1b()
+    cuda = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    failed: dict = {}
+    planted: dict = {}
+    out: dict = {"phase": "serve_recover", "card": smi_line}
+    tmp = Path(tempfile.mkdtemp(prefix="gofr_recover_"))
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+    long_prompt = (story * 30)[:1800]
+    waves = [[(words * 20)[:n] for n in (20, 150, 400, 900)], [long_prompt],
+             [(words * 20)[:900] + " but the question at the end is new",
+              (words * 20)[:400] + " and this ending differs",
+              long_prompt[:1795] + " until a new ending"]]
+
+    def judge(name, faults, planted_faults):
+        failed[name], planted[name] = faults, planted_faults
+
+    def chat(prompt, max_tokens=32, **extra):
+        return ("/chat", {"prompt": prompt, "max_tokens": max_tokens,
+                          "temperature": 0, **extra}, False)
+
+    def memory() -> int:
+        if cuda:
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def digests(app, since):
+        return {tuple(p): r.digest for p, r in app.made[since:]
+                if r.error is None}
+
+    def make(**kw):
+        engine = llama_engine(params, cfg, serve_config(cfg, **kw),
+                              device=dev)
+        engine.warmup(prompt_lens=(16, 20, 60, 150, 400, 900), chunked=True)
+        return engine
+
+    # ------------------------------------------------ A: clean + capture
+    tracer_spans = InMemoryExporter()
+    a_engine = make(workload_capture=True)
+    a = _GatedApp(a_engine, tok, tracer=Tracer(exporter=tracer_spans),
+                  env={"PROFILER_ENABLED": "1",
+                       "PROFILER_DIR": str(tmp / "profiles")})
+    try:
+        a_engine.start()
+        clean_answers = []
+        for wave in waves:
+            clean_answers += a.ask([chat(p) for p in wave])
+        a_engine.stop()
+        if any(x[0] != 201 for x in clean_answers):
+            raise AssertionError(f"serve_recover: a clean answer was not "
+                                 f"201: {clean_answers}")
+        clean = digests(a, 0)
+        workload_text = a_engine.workload.to_jsonl()
+        a_engine.workload.stop()
+
+        # (a) the group prefill's call raises once
+        inner = a_engine._prefill_fn
+        left = {"n": 1}
+
+        def failing_prefill(*args, **kwargs):
+            if left["n"]:
+                left["n"] -= 1
+                raise RuntimeError("planted prefill fault")
+            return inner(*args, **kwargs)
+
+        a_engine._prefill_fn = failing_prefill
+        since = len(a.made)
+        a_engine.start()
+        contained = a.ask([chat(p) for p in waves[0]])
+        contained += a.ask([chat(waves[1][0])])
+        a_engine.stop()
+        a_engine._prefill_fn = inner
+        statuses = [x[0] for x in contained]
+        got = digests(a, since)
+
+        def containment_faults(statuses, got):
+            faults = []
+            if sorted(statuses[:4]) != [201, 201, 201, 500] \
+                    or statuses[4] != 201:
+                faults.append(f"statuses {statuses}")
+            faults += [f"digest_{len(p)}" for p in got if got[p] != clean[p]]
+            if len(got) != 4:
+                faults.append(f"{len(got)} answered")
+            return faults
+
+        bystander = dict(got)
+        bystander.pop(next(iter(bystander)))
+        judge("a_containment", containment_faults(statuses, got),
+              containment_faults(
+                  [500 if s == 201 and i == statuses.index(201) else s
+                   for i, s in enumerate(statuses)], bystander))
+        out["a"] = {"statuses": statuses,
+                    "failed_error": [x[2]["error"]["message"]
+                                     for x in contained if x[0] == 500]}
+
+        # (d) spans
+        trace_id, parent = "4bf92f3577b34da6a3ce929d0e0e4736", \
+            "00f067aa0ba902b7"
+        a_engine.start()
+
+        def traced(header):
+            status, headers, _ = _http_traced(a.port, waves[0][0], header)
+            x_trace = headers.get("x-trace-id")
+            deadline = time.time() + 10
+            spans = []
+            while time.time() < deadline:
+                spans = [s for s in tracer_spans.spans
+                         if s.trace_id == x_trace]
+                if any(s.name == "POST /chat" for s in spans):
+                    break
+                time.sleep(0.01)
+            http = next((s for s in spans if s.name == "POST /chat"), None)
+            root = next((s for s in spans if s.name == "engine.request"),
+                        None)
+            tree = {}
+            if http is not None and root is not None:
+                tree = {"http_parent": http.parent_id,
+                        "request_under_http": root.parent_id == http.span_id,
+                        "children": [s.name for s in spans
+                                     if s.parent_id == root.span_id]}
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:"
+                    f"{a.metrics_server.server_address[1]}/metrics",
+                    headers={"Accept": "application/openmetrics-text"}),
+                    timeout=30) as resp:
+                openmetrics = resp.read().decode()
+            return {"status": status, "x_trace_id": x_trace, "tree": tree,
+                    "inbound_parent": parent, "openmetrics": openmetrics}
+
+        a.mark({1})
+        good = traced(f"00-{trace_id}-{parent}-01")
+        a.mark({1})
+        garbage = traced("00-garbage-header-01")
+        a_engine.stop()
+        judge("d_spans", _span_faults(good, trace_id),
+              _span_faults(garbage, trace_id))
+        fresh = garbage["tree"].get("http_parent") is None and \
+            garbage["x_trace_id"] not in (None, trace_id)
+        judge("d_garbage_starts_a_fresh_trace",
+              [] if fresh else ["garbage joined a trace"],
+              [] if good["tree"].get("http_parent") is None
+              else ["parented"])
+        out["d"] = {"x_trace_id": good["x_trace_id"],
+                    "children": good["tree"].get("children"),
+                    "garbage_trace_id": garbage["x_trace_id"],
+                    "spans_exported": len(tracer_spans.spans)}
+
+        # (e) replay the capture, clean and under logit_corrupt
+        workload = parse_workload(workload_text)
+        reports = {}
+        for name, plan in (("clean", ""), ("corrupt",
+                                           "logit_corrupt:at=40,times=3")):
+            a_engine.faults = FaultPlan.parse(plan)
+            a.mark({4, 5, 8})
+            metric0 = a.server.metrics.get("app_replay_divergence").get()
+            t0 = time.perf_counter()
+            report = replay_workload(a_engine, workload, speed=1.0,
+                                     timeout_s=300)
+            a_engine.stop()
+            report["metric"] = a.server.metrics.get(
+                "app_replay_divergence").get() - metric0
+            report["seconds"] = time.perf_counter() - t0
+            reports[name] = report
+        a_engine.faults = FaultPlan.parse("")
+        judge("e_replay_clean", _replay_faults(reports["clean"], False),
+              _replay_faults(reports["corrupt"], False))
+        judge("e_replay_located", _replay_faults(reports["corrupt"], True),
+              _replay_faults(reports["clean"], True))
+        out["e"] = {k: {key: r[key] for key in (
+            "requests", "compared", "divergent", "divergences", "mode",
+            "wall_s", "metric", "digest_divergence")}
+            for k, r in reports.items()}
+
+        # (f) decode tokens/s, before any capture moves A's pass costs:
+        # A (profile routes and autoprofiler armed, no capture) against C
+        c_engine = make(autoprof=False)
+        c = _GatedApp(c_engine, tok)
+        decode_asks = [chat(p, max_tokens=256) for p in waves[0]]
+        rates = {"a": [], "c": []}
+        try:
+            for side in ("c", "a", "a", "c", "c", "a"):
+                app = a if side == "a" else c
+                eng = app.engine
+                s0 = dict(eng.stats)
+                eng.start()
+                app.ask(decode_asks)
+                eng.stop()
+                rates[side].append(
+                    (eng.stats["decode_tokens"] - s0["decode_tokens"])
+                    / (eng.stats["decode_s"] - s0["decode_s"]))
+        finally:
+            c.close()
+            del c_engine
+        ratio = max(rates["a"]) / max(rates["c"])
+        autoprof_before = a_engine.autoprof.state()["captures"]
+
+        # (f) the profiler
+        prof = a.server.profiler
+        prof_run: dict = {"tokens_per_s_ratio": ratio}
+        a_engine.start()
+        a.mark({0})
+        prof_run["first_start"] = _http_json(a.port, "POST",
+                                             "/debug/profile/start", {})[2]
+        prof_run["second_start"] = _http_json(a.port, "POST",
+                                              "/debug/profile/start", {})[2]
+        since = len(a.made)
+        profiled = a.ask([chat(waves[1][0])])
+        stopped = _http_json(a.port, "POST", "/debug/profile/stop", {})[2]
+        prof_run["digests"] = digests(a, since)
+        prof_run["clean_digests"] = {k: v for k, v in clean.items()
+                                     if k in prof_run["digests"]}
+        trace_path = Path(stopped["data"]["dir"] or "") / "trace.json"
+        prof_run["kernel_names"] = sorted(
+            n for n in _trace_kernel_names(str(trace_path))
+            if any(k in n for k in ("paged", "rope_kv", "flash", "kv_write")))
+        prof_run["trace_mb"] = (trace_path.stat().st_size / 2 ** 20
+                                if trace_path.exists() else None)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            prof_run["under_other_profiler"] = _http_json(
+                a.port, "POST", "/debug/profile/start", {})[2]["data"]
+        timed = _http_json(a.port, "POST", "/debug/profile/start",
+                           {"max_capture_s": 0.5})[2]["data"]
+        early = prof.status()
+        deadline = time.time() + 20
+        while prof.status()["running"] and time.time() < deadline:
+            time.sleep(0.02)
+        late = prof.status()
+        prof_run["auto_stop"] = {"running": late["running"],
+                                 "auto_stops": late["auto_stops"]}
+        idle_names = _trace_kernel_names(str(Path(timed.get("dir") or "")
+                                             / "trace.json"))
+        prof.start()
+        prof._active_dir = None              # a failed stop lost the state
+        prof_run["leaked_stop"] = _http_json(
+            a.port, "POST", "/debug/profile/stop", {})[2]["data"]
+        prof_run["forced"] = _http_json(
+            a.port, "POST", "/debug/profile/stop", {"force": True})[2]["data"]
+        a_engine.stop()
+        prof_run["second_start"] = prof_run["second_start"]["data"]
+        prof_run["first_start"] = prof_run["first_start"]["data"]
+        if profiled[0][0] != 201:
+            raise AssertionError(f"serve_recover: the profiled request "
+                                 f"failed: {profiled}")
+
+        bent = dict(prof_run["digests"])
+        first_key = next(iter(bent))
+        bent[first_key] = "0" * 32
+        judge("f_profiler", _profile_faults(prof_run), _profile_faults(
+            {**prof_run, "kernel_names": sorted(idle_names),
+             "second_start": prof_run["first_start"],
+             "auto_stop": {"running": early["running"],
+                           "auto_stops": early["auto_stops"]},
+             "leaked_stop": prof_run["forced"],
+             "forced": prof_run["leaked_stop"],
+             "under_other_profiler": prof_run["first_start"],
+             "digests": bent, "tokens_per_s_ratio": ratio * 0.9}))
+        out["f"] = {"kernel_names": prof_run["kernel_names"],
+                    "trace_mb": prof_run["trace_mb"],
+                    "second_start": prof_run["second_start"],
+                    "under_other_profiler":
+                    prof_run["under_other_profiler"],
+                    "auto_stop": prof_run["auto_stop"],
+                    "forced": prof_run["forced"],
+                    "decode_tokens_per_s_profiler_armed": rates["a"],
+                    "decode_tokens_per_s_no_profiler": rates["c"],
+                    "ratio_best_of_three": ratio,
+                    "autoprof_captures_through_rates": autoprof_before,
+                    "autoprof": a_engine.autoprof.state(),
+                    "drift_episodes": a_engine.costs.state()[
+                        "drift_episodes"]}
+
+        # (b) on A, after every first token: typed answers
+        a_engine.faults = FaultPlan.parse("pass_raise:at=2")
+        a_engine.config.restart_policy = RestartPolicy(max_restarts=3,
+                                                       backoff_s=0.05)
+        mid = a.ask([chat(waves[0][0], 64), chat(waves[0][1], 64),
+                     ("/chat", {"prompt": waves[0][2], "max_tokens": 64,
+                                "temperature": 0, "stream": True}, True),
+                     ("/v1/completions", {"prompt": waves[0][3],
+                                          "max_tokens": 64,
+                                          "temperature": 0}, False)],
+                    before_start=True)
+        a_engine.stop()
+        judge("b_midstream_typed", _midstream_faults(mid),
+              _midstream_faults(clean_answers[:4]))
+        out["b_midstream"] = [
+            (x["status"], (x["events"][-1][1] if x["events"] else None))
+            if isinstance(x, dict) else (x[0], x[1].get("retry-after"),
+                                         x[2].get("error"))
+            for x in mid]
+
+        # (c) the budget spent
+        a_engine.faults = FaultPlan.parse("pass_raise:times=0")
+        a_engine.config.restart_policy = RestartPolicy(
+            max_restarts=a_engine._restarts + 2, backoff_s=0.05)
+        a.mark({1})
+        a_engine.start()
+        deadline = time.time() + 30
+        while a_engine.health_check()["status"] != "DOWN" \
+                and time.time() < deadline:
+            time.sleep(0.01)
+        status, _, listing = _http_json(a.port, "GET", "/debug/incidents")
+        bundles = listing["data"]["llama3_1b"]["incidents"]
+        budget = [b for b in bundles if b["reason"] == "restart_budget"]
+        bundle_status, _, bundle = _http_json(
+            a.port, "GET", f"/debug/incidents?id={budget[-1]['id']}") \
+            if budget else (None, None, {"data": {}})
+        next_status, next_headers, next_body = _http_json(
+            a.port, "POST", "/chat", chat("after the crash")[1])
+        budget_run = {
+            "health": a_engine.health_check()["status"],
+            "restarts": a_engine._restarts,
+            "bundle_status": bundle_status,
+            "bundle_reason": bundle["data"].get("reason"),
+            "bundle_events": [e["kind"] for e in
+                              bundle["data"].get("timeline", [])][-6:],
+            "next": (next_status, next_headers.get("retry-after"),
+                     ((next_body.get("error") or {}).get("details") or {})
+                     .get("code")),
+            "unknown_id_status": _http_json(
+                a.port, "GET", "/debug/incidents?id=nope")[0]}
+    finally:
+        a.close()
+    del a_engine
+    gc.collect()
+
+    # (b) engine B: walkers with no first token, a decode in flight
+    b_engine = make(prefill_buckets=(8,), prefill_chunks_per_pass=1,
+                    pipeline_depth=1)
+    b = _GatedApp(b_engine, tok)
+    asks = [chat("go", 64)] + [chat(p) for p in waves[0]]
+    decoder = tok.encode("go")
+    runs = {}
+    try:
+        for name, plan in (("clean", ""), ("faulted", "pass_raise:at=3")):
+            b_engine.faults = FaultPlan.parse(plan)
+            b_engine.config.restart_policy = RestartPolicy(max_restarts=3,
+                                                           backoff_s=0.05)
+            m_restarts = b.server.metrics.get("app_engine_restarts").get()
+            m_recovered = b.server.metrics.get(
+                "app_engine_requests_recovered").get()
+            since = len(b.made)
+            answers = b.ask(asks, before_start=True)
+            b_engine.stop()
+            walkers = [(p, r) for p, r in b.made[since:] if p != decoder]
+            runs[name] = {
+                "walkers": 4,
+                "recovered": sum(r.recovered for _, r in walkers),
+                "restarts_metric": b.server.metrics.get(
+                    "app_engine_restarts").get() - m_restarts,
+                "recovered_metric": b.server.metrics.get(
+                    "app_engine_requests_recovered").get() - m_recovered,
+                "digests": {tuple(p): r.digest for p, r in walkers},
+                "requests": [r for _, r in walkers],
+                "decoder": (answers[0][0], ((answers[0][2].get("error")
+                                             or {}).get("details") or {})
+                            .get("code"), answers[0][1].get("retry-after")),
+                "walker_statuses": [x[0] for x in answers[1:]],
+                "graph_captures": b_engine.stats["graph_captures"],
+                "memory_allocated": memory(),
+                "launches_per_replay": {
+                    str(g): {f"{fn.__name__}.{attr}": n
+                             for (fn, attr), n in launched.items()}
+                    for g, launched in
+                    b_engine._decode_graph._graph_launches.items()}}
+    finally:
+        b.close()
+    del b_engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    faulted, clean_b = runs["faulted"], runs["clean"]
+    if faulted["walker_statuses"] != [201] * 4:
+        raise AssertionError(f"serve_recover: a recovered request was not "
+                             f"answered: {faulted['walker_statuses']}")
+    dropped = dict(faulted)
+    req = faulted["requests"][-1]
+    dropped["digests"] = {**faulted["digests"], tuple(req.prompt_tokens):
+                          request_digest(req.prompt_tokens[:-1], req.params,
+                                         req.generated)}
+    judge("b_restart_recovers", _recovered_faults(faulted, clean_b),
+          _recovered_faults(dropped, clean_b))
+    out["b"] = {k: {key: r[key] for key in (
+        "recovered", "restarts_metric", "recovered_metric", "decoder",
+        "walker_statuses", "graph_captures", "memory_allocated",
+        "launches_per_replay")} for k, r in runs.items()}
+    judge("c_budget_spent", _budget_faults(budget_run),
+          _budget_faults({**budget_run, "health": "UP",
+                          "bundle_reason": None, "next": (201, None, None)}))
+    out["c"] = budget_run
+    out.update(failed_checks=failed, planted=planted,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    bad = {k: v for k, v in failed.items() if v}
+    if bad:
+        raise AssertionError(f"serve_recover: checks failed: {bad}")
+    missed = [k for k, v in planted.items() if not v]
+    if missed:
+        raise AssertionError(f"serve_recover: planted faults passed every "
+                             f"check: {missed}")
+
+
+def _http_traced(port: int, prompt: str, traceparent: str):
+    """``POST /chat`` with a ``traceparent`` header: (status, headers with
+    lower-case names, JSON body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/chat",
+                     body=json.dumps({"prompt": prompt, "max_tokens": 8,
+                                      "temperature": 0}),
+                     headers={"Content-Type": "application/json",
+                              "traceparent": traceparent})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                json.loads(resp.read()))
+    finally:
+        conn.close()
 
 
 def phase_serve_spec(dev, smi_line: str) -> dict:
@@ -4598,6 +5343,7 @@ def main() -> int:
     serve = phase_serve(dev, smi_line)
     phase_serve_stream(dev, smi_line)
     phase_serve_obs(dev, smi_line)
+    phase_serve_recover(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line),

@@ -32,7 +32,11 @@ that fails closes the stream's iterator too. ``tenant_of(headers)``
 gives the accounting label a request carries into the scheduler and
 ``usage`` (default: None for every request); ``request_timeout_s``
 bounds a unary answer (then the request is cancelled and the answer is
-504).
+504). Every request runs inside one span of the server's tracer (as the
+JAX app's tracer middleware: a child of an inbound ``traceparent``,
+else a fresh trace; ``http.status`` set, an error status on a 5xx), and
+every answer carries ``X-Trace-Id``; the engine's ``engine.*`` spans of
+the request join that trace.
 
 Run: ``python -m gofr_tpu_torch.serving.app`` on ``HTTP_HOST`` (default
 0.0.0.0) and ``HTTP_PORT`` (default 8000), ``/metrics`` on
@@ -50,6 +54,10 @@ model chosen as ``examples/model-serving/main.py`` chooses it
 - ``MODEL_QUANT=int8|int4`` quantizes the weights in either case (on
   load for a checkpoint): their decode products and every LM head then
   run through the weight-dequantizing GEMM kernel.
+
+``PROFILER_ENABLED=1`` adds ``/debug/profile/start|stop`` and ``GET
+/debug/profile`` (``torch.profiler`` captures into ``PROFILER_DIR``,
+default ``gofr_tpu_profiles`` under the temporary directory).
 
 Prompts up to the widest bucket prefill through the flash kernel,
 longer ones and prefix-cache suffixes walk through the paged chunk
@@ -77,6 +85,7 @@ import torch
 
 from ..device import resolve_device
 from ..metrics import Manager
+from ..tracing import Tracer
 from ..models.hf_checkpoint import (load_llama_checkpoint,
                                     resolve_serving_dtype)
 from ..models.llama import LlamaConfig, llama_init
@@ -155,12 +164,20 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_bytes(status, json.dumps(payload).encode(),
                          "application/json", headers)
 
+    def _trace_headers(self) -> None:
+        """``X-Trace-Id`` of the request's span, on every answer."""
+        span = getattr(self, "_span", None)
+        if span is not None:
+            self.send_header("X-Trace-Id", span.trace_id)
+
     def _send_bytes(self, status: int, body: bytes, content_type: str,
                     headers: Mapping[str, str] | None = None) -> None:
+        self._status = status
         try:
             self.send_response(status)
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
+            self._trace_headers()
             for key, value in (headers or {}).items():
                 self.send_header(key, value)
             self.end_headers()
@@ -186,10 +203,12 @@ class _Handler(BaseHTTPRequestHandler):
             # the first chunk before the head: a generator that has run
             # runs its cleanup when closed, one that has not does not
             first = next(chunks, _END)
+            self._status = 200
             self.send_response(200)
             self.send_header("Content-Type", stream.content_type)
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Transfer-Encoding", "chunked")
+            self._trace_headers()
             self.end_headers()
             for chunk in (chunks if first is _END
                           else itertools.chain([first], chunks)):
@@ -257,36 +276,60 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(status, result.data if isinstance(result, Raw)
                         else {"data": result})
 
+    def _traced(self, method: str) -> None:
+        """Answer the request inside its span (``http.status`` set, an
+        error status on a 5xx), ended once the answer is sent."""
+        self._status = None
+        span = self.server.tracer.start_span(
+            f"{method} {urlsplit(self.path).path}",
+            traceparent=self.headers.get("traceparent"))
+        self._span = span
+        try:
+            if method == "GET" and \
+                    urlsplit(self.path).path == "/.well-known/health":
+                health = self.server.engine.health_check()
+                self._send_json(503 if health["status"] == "DOWN" else 200,
+                                {"data": health})
+            else:
+                self._dispatch(method)
+        finally:
+            if self._status is not None:
+                span.set_attribute("http.status", self._status)
+                if self._status >= 500:
+                    span.set_status(f"ERROR: {self._status}")
+            span.end()
+            self._span = None
+
     def do_GET(self) -> None:  # noqa: N802 — http.server's naming
-        if urlsplit(self.path).path == "/.well-known/health":
-            health = self.server.engine.health_check()
-            self._send_json(503 if health["status"] == "DOWN" else 200,
-                            {"data": health})
-            return
-        self._dispatch("GET")
+        self._traced("GET")
 
     def do_POST(self) -> None:  # noqa: N802 — http.server's naming
-        self._dispatch("POST")
+        self._traced("POST")
 
 
 class ChatServer(ThreadingHTTPServer):
     """Threading HTTP server bound to an engine (its health route), with
     a route table (``post`` / ``get``); ``tenant_of(headers)`` labels
-    each request (None: no tenant)."""
+    each request (None: no tenant); ``tracer`` spans each request (None:
+    a tracer that exports nothing, so answers still carry
+    ``X-Trace-Id``)."""
 
     daemon_threads = True
 
     def __init__(self, address: tuple, engine: Engine,
                  request_timeout_s: float = 600.0,
-                 tenant_of: Callable[[Any], str | None] | None = None
-                 ) -> None:
+                 tenant_of: Callable[[Any], str | None] | None = None,
+                 tracer: Tracer | None = None) -> None:
         super().__init__(address, _Handler)
         self.engine = engine
         self.request_timeout_s = request_timeout_s
         self.tenant_of = tenant_of or (lambda headers: None)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.routes: dict[tuple[str, str], Callable] = {}
         #: the metrics manager ``build_server`` attached to the engine
         self.metrics: Manager | None = None
+        #: the ``ProfilerCapture`` behind ``/debug/profile/*``, when on
+        self.profiler = None
 
     def post(self, path: str, fn: Callable) -> None:
         self.routes[("POST", path)] = fn
@@ -366,39 +409,64 @@ def app_engine(env: Mapping[str, str], *,
     return engine, ByteTokenizer(), preset
 
 
+def _env_bool(env: Mapping[str, str], key: str) -> bool:
+    return env.get(key, "").strip().lower() in ("1", "true", "yes", "on")
+
+
 def build_server(engine: Engine, tokenizer: Any = None,
                  host: str = "127.0.0.1", port: int = 0, *,
                  tenant_of: Callable[[Any], str | None] | None = None,
                  metrics: Manager | None = None,
                  logger: Logger | None = None,
                  slo: SLOConfig | None = None,
+                 tracer: Tracer | None = None,
+                 env: Mapping[str, str] | None = None,
                  name: str = "model") -> ChatServer:
     """Bind (port 0 = any free port) with ``POST /chat`` and the debug
     routes of model ``name`` installed; call ``serve_forever()`` on it.
     ``install_openai_routes(server, ...)`` adds the OpenAI routes.
+    ``env`` (default ``os.environ``): ``PROFILER_ENABLED`` adds the
+    profile routes, capturing into ``PROFILER_DIR``.
 
     The engine is wired as ``serve_model`` wires it: ``attach_metrics``
     on ``metrics`` (a new manager when None; ``server.metrics``, for
     :func:`build_metrics_server`), the logger (a JSON-lines one when
-    None) where the engine and scheduler have none, and an SLO tracker
-    (``slo`` or the default objectives) where the engine has none, on
-    the engine's event ledger."""
+    None) where the engine and scheduler have none, the server's tracer
+    where the engine has none, and an SLO tracker (``slo`` or the
+    default objectives) where the engine has none, on the engine's event
+    ledger, whose fast burn arms the autoprofiler and opens a
+    ``fast_burn`` incident bundle."""
     tokenizer = tokenizer or ByteTokenizer()
     metrics = metrics if metrics is not None else Manager()
     logger = logger if logger is not None else Logger()
+    env = os.environ if env is None else env
     engine.attach_metrics(metrics)
     if engine.logger is None:
         engine.logger = logger
     if engine.waiting.logger is None:
         engine.waiting.logger = logger
+    server = ChatServer((host, port), engine, tenant_of=tenant_of,
+                        tracer=tracer or engine.tracer)
+    if engine.tracer is None:
+        engine.tracer = server.tracer
     if engine.slo is None:
         engine.slo = SLOTracker(slo or SLOConfig(), metrics=metrics,
                                 logger=logger)
         engine.slo.events = engine.events
-    server = ChatServer((host, port), engine, tenant_of=tenant_of)
+    if engine.slo.on_fast_burn is None:
+        def on_fast_burn() -> None:
+            # armed before the bundle opens, so it names the capture
+            capture = engine.autoprof.arm("fast_burn",
+                                          "SLO error-budget fast burn")
+            engine.incidents.trigger(
+                "fast_burn", cause="SLO error-budget fast burn",
+                attrs={"autoprof_dir": (capture or {}).get("dir")})
+        engine.slo.on_fast_burn = on_fast_burn
     server.metrics = metrics
     server.post("/chat", make_chat_handler(engine, tokenizer))
-    install_debug_routes(server, engine, name)
+    install_debug_routes(server, engine, name,
+                         profiler=_env_bool(env, "PROFILER_ENABLED"),
+                         profile_dir=env.get("PROFILER_DIR") or None)
     return server
 
 
@@ -487,7 +555,7 @@ def main() -> None:
         metrics_server.shutdown()
         metrics_server.server_close()
         server.server_close()
-        engine.stop()
+        engine.close()
 
 
 if __name__ == "__main__":

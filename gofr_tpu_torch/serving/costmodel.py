@@ -1,7 +1,6 @@
 """The pass-cost observatory: a per-dispatch-signature online cost
-model and its drift sentinel (the port's copy of
-``gofr_tpu/serving/costmodel.py``, without the anomaly-triggered
-profiler).
+model, its drift sentinel and the anomaly-triggered profiler (the port's
+copy of ``gofr_tpu/serving/costmodel.py``).
 
 Every dispatch is fingerprinted by its shape signature (the recompile
 sentinel's: prefill ``bucket/group``, chunk ``width/G/window``, decode
@@ -21,12 +20,22 @@ exactly once per episode (the engine turns it into one
 bump). Decisions are count-driven compares over observed durations, so
 fault-injected runs are deterministic.
 
-Surfaces: ``GET /debug/costs``, a ``costs`` block in
-``/debug/efficiency``, and :meth:`CostModel.by_kind` for a bench.
+**Anomaly-triggered profiling**: :class:`AutoProfiler` starts a bounded
+``torch.profiler`` capture (``observability.ProfilerCapture``) when a
+drift episode opens, the SLO burns fast or goodput falls under its
+floor, and stops it after a pass budget or an age; arms are debounced,
+and ``GOFR_AUTOPROF=0`` is the kill switch.
+
+Surfaces: ``GET /debug/costs`` (the table and the autoprofiler's
+state), a ``costs`` block in ``/debug/efficiency``, and
+:meth:`CostModel.by_kind` for a bench.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
 from typing import Any
 
 #: bounded per-signature table — the shape space is tiny by design
@@ -191,6 +200,23 @@ class CostModel:
                 "drift_ratio": self.drift_ratio,
                 "drift_sigma": self.drift_sigma}
 
+    def table(self) -> dict | None:
+        """Compact per-signature digest for workload headers: kind, pass
+        count, mean seconds, µs per token, drifting. None while empty."""
+        if not self.enabled or not self._sigs:
+            return None
+        out = {}
+        for sig, rec in self._sigs.items():
+            entry: dict[str, Any] = {"kind": rec.kind, "n": rec.n,
+                                     "mean_s": round(rec.sum_s / rec.n, 6)}
+            if rec.tokens:
+                entry["us_per_token"] = round(
+                    rec.sum_s / rec.tokens * 1e6, 3)
+            if rec.drifting:
+                entry["drifting"] = True
+            out[sig] = entry
+        return out
+
     def by_kind(self) -> dict:
         """``{kind: us_per_token}`` aggregate — the bench headline hook
         (report-only ``cost_<kind>_us_per_token`` keys)."""
@@ -201,3 +227,132 @@ class CostModel:
             toks[rec.kind] = toks.get(rec.kind, 0) + rec.tokens
         return {k: round(busy[k] / toks[k] * 1e6, 3)
                 for k in busy if toks.get(k)}
+
+
+# -------------------------------------------------- anomaly profiling
+def _autoprof_killed() -> bool:
+    """``GOFR_AUTOPROF=0`` kill switch, read at arm time so it can be
+    flipped on a live process."""
+    return os.environ.get("GOFR_AUTOPROF", "").strip().lower() \
+        in ("0", "false", "no", "off")
+
+
+class AutoProfiler:
+    """Single-flight anomaly-triggered profiler controller.
+
+    ``arm(reason, cause)`` starts a bounded ``ProfilerCapture`` when an
+    anomaly fires (cost drift, SLO fast burn, goodput-floor breach); the
+    capture stops after ``passes`` collected passes (``note_pass``, at
+    the engine's collect boundary) or ``max_capture_s`` (checked at
+    collect, with the capture's own timer as the idle engine's
+    backstop). Arms are debounced (``debounce_s``), refused while a
+    capture is in flight, and killed by ``GOFR_AUTOPROF=0``. The finished
+    artifact (path + trigger) stays in ``last_artifact`` for
+    ``/debug/costs`` and incident bundles."""
+
+    def __init__(self, capture: Any = None, *, enabled: bool = True,
+                 passes: int = 64, max_capture_s: float = 30.0,
+                 debounce_s: float = 300.0, logger: Any = None,
+                 clock=time.time) -> None:
+        self.capture = capture
+        self.enabled = bool(enabled) and capture is not None
+        self.passes = max(1, int(passes))
+        self.max_capture_s = max(0.1, float(max_capture_s))
+        self.debounce_s = max(0.0, float(debounce_s))
+        self.logger = logger
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._armed: dict | None = None
+        self._last_arm: float | None = None
+        self.captures = 0
+        self.debounced = 0
+        self.suppressed = 0
+        self.last_artifact: dict | None = None
+
+    def arm(self, reason: str, cause: str = "") -> dict | None:
+        """Start a capture for an anomaly; returns ``{"dir", "reason"}``
+        or None when suppressed (disabled, killed, in flight, debounced,
+        or the capture's start refused)."""
+        if not self.enabled:
+            return None
+        if _autoprof_killed():
+            with self._lock:
+                self.suppressed += 1
+            return None
+        now = self.clock()
+        with self._lock:
+            if self._armed is not None:
+                self.suppressed += 1
+                return None
+            if self._last_arm is not None \
+                    and now - self._last_arm < self.debounce_s:
+                self.debounced += 1
+                return None
+            res = self.capture.start(max_capture_s=self.max_capture_s)
+            if not res.get("ok"):
+                self.suppressed += 1
+                return None
+            self._armed = {"reason": reason, "cause": cause,
+                           "dir": res.get("dir"),
+                           "remaining": self.passes, "started": now}
+            self._last_arm = now
+        if self.logger is not None:
+            self.logger.warn(
+                "anomaly-triggered profiler capture armed",
+                reason=reason, cause=cause, dir=res.get("dir"),
+                passes=self.passes)
+        return {"dir": res.get("dir"), "reason": reason}
+
+    def note_pass(self) -> None:
+        """Collect-boundary tick: one attribute check when idle; an armed
+        capture counts down and stops on its pass budget or age."""
+        armed = self._armed
+        if armed is None:
+            return
+        armed["remaining"] -= 1
+        if armed["remaining"] <= 0 \
+                or self.clock() - armed["started"] >= self.max_capture_s:
+            self.finish()
+
+    def finish(self) -> None:
+        """Stop the armed capture now, if any, and keep its artifact (the
+        engine calls it when it stops: a process holds one
+        ``torch.profiler`` session)."""
+        with self._lock:
+            armed, self._armed = self._armed, None
+            if armed is None:
+                return
+            res = self.capture.stop()
+            # the capture's own timer may have stopped it first: the
+            # artifact was still written
+            ok = bool(res.get("ok")) \
+                or "no capture running" in str(res.get("error", ""))
+            self.captures += 1
+            self.last_artifact = {
+                "dir": armed["dir"], "reason": armed["reason"],
+                "cause": armed["cause"],
+                "passes": self.passes - max(0, armed["remaining"]),
+                "ok": ok,
+            }
+            if res.get("duration_s") is not None:
+                self.last_artifact["duration_s"] = res["duration_s"]
+        if self.logger is not None:
+            self.logger.info(
+                f"anomaly-triggered profiler capture finished: "
+                f"{armed['dir']}", reason=armed["reason"], ok=ok)
+
+    def state(self) -> dict:
+        armed = self._armed
+        return {"enabled": self.enabled,
+                "kill_switch": _autoprof_killed(),
+                "armed": None if armed is None else {
+                    "reason": armed["reason"], "cause": armed["cause"],
+                    "dir": armed["dir"],
+                    "remaining": armed["remaining"]},
+                "captures": self.captures,
+                "debounced": self.debounced,
+                "suppressed": self.suppressed,
+                "last_artifact": self.last_artifact,
+                "passes": self.passes,
+                "max_capture_s": self.max_capture_s,
+                "debounce_s": self.debounce_s}

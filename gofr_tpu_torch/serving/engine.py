@@ -123,10 +123,32 @@ page growth with preemption-by-recompute and pipelined decode).
   the loop publishes its gauges every 0.25 s, the MFU gauge from the
   model's flops per token (``warmup``) over the card's peak.
 
-Left out (see ROADMAP.md Queue A): decode windows, the restart
-supervisor (a loop exception is terminal, as in the JAX engine without
-a ``restart_policy``), incident bundles, workload capture and replay,
-the profiler, and request spans.
+- **Recovery** (as in the JAX engine): a failed group prefill, prefill
+  collect or chunk call fails only the requests of that pass (``prefill
+  failed``) and the engine serves on. With a ``restart_policy`` a loop
+  exception goes to the in-thread supervisor (``_recover``): a request
+  with no first token yet is replayed from its prompt through the
+  requeued lane (``recovered``, its re-prefill priced as
+  ``preempt_recompute``), a mid-stream one fails with a typed
+  ``engine_restart`` reject, a cancelled one closes; the runtime state is
+  rebuilt on the resident weights, pools and captured graphs
+  (``_reset_runtime_state``: the dispatches in flight discarded, the
+  card synchronised, a pristine allocator, every device-resident state
+  buffer marked for upload; the pools are never reallocated, since the
+  decode graphs hold their addresses), and the loop resumes after a
+  deterministic backoff, up to ``max_restarts``; past it (or on a
+  sticky CUDA error) the crash is terminal and opens a
+  ``restart_budget`` incident bundle. A submit into a stopped or
+  crashed engine is refused with a typed ``engine_down`` reject.
+- **Forensics**: incident bundles (``incidents``) on a restart budget
+  overrun, a cost drift, a golden-probe mismatch and an SLO fast burn;
+  workload capture (``workload``, the ``gofr-workload`` file that
+  ``serving/replay.py`` drives back through an engine); the request's
+  ``engine.*`` spans through ``tracer`` at its end, exemplar trace ids
+  on the latency histograms; the anomaly-triggered ``torch.profiler``
+  capture (``autoprof``).
+
+Left out (see ROADMAP.md Queue A): decode windows.
 """
 
 from __future__ import annotations
@@ -144,14 +166,17 @@ import torch
 
 from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
                             scatter_chunk_kv)
-from .costmodel import CostModel
+from ..tracing import _traceparent_sampled, extract_traceparent
+from .costmodel import AutoProfiler, CostModel
 from .decode_graph import DecodeGraph
-from .events import resolve_ledger
+from .events import IncidentDetector, resolve_ledger
 from .faults import NO_FAULTS, resolve_plan
 from .integrity import GoldenSet, IntegrityPlane
-from .observability import (FlightRecorder, GoodputMeter, RecompileSentinel,
-                            StallWatchdog, UsageLedger, WatermarkTracker,
-                            device_peak_flops, request_summary)
+from .observability import (FlightRecorder, GoodputMeter, ProfilerCapture,
+                            RecompileSentinel, StallWatchdog, UsageLedger,
+                            WatermarkTracker, WorkloadRecorder,
+                            device_peak_flops, emit_engine_spans,
+                            request_summary)
 from .sampling import sample_batch
 from .scheduler import SchedReject, Scheduler, SchedulerConfig
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
@@ -221,6 +246,13 @@ class GenRequest:
     #: output fingerprint (``integrity.request_digest``), stamped at the
     #: end
     digest: str | None = None
+    #: (trace_id, parent_span_id) of the submitter's sampled trace: the
+    #: ``engine.*`` spans assemble under it at the end
+    trace: Any = None
+    #: salvaged across an engine restart before its first token: its
+    #: replayed prefill recomputes K/V it paid for once
+    #: (``preempt_recompute``)
+    recovered: bool = False
     #: golden-probe id when this request is an integrity probe
     probe: str = ""
     #: the sealed digest a probe must reproduce
@@ -243,6 +275,29 @@ class GenRequest:
         if self.first_token_at is None:
             return None
         return (self.first_token_at - self.submitted_at) * 1000.0
+
+
+@dataclass
+class RestartPolicy:
+    """The in-thread supervisor's budget: on a loop exception the engine
+    salvages what it safely can (``Engine._recover``), rebuilds its
+    runtime state on the resident weights, pools and graphs, sleeps a
+    deterministic exponential backoff and resumes, up to
+    ``max_restarts`` times; after that the crash is terminal."""
+    max_restarts: int = 3       # lifetime restart budget; 0 = disabled
+    backoff_s: float = 0.05     # sleep before restart #1
+    backoff_mult: float = 2.0   # growth per successive restart
+    max_backoff_s: float = 5.0  # backoff ceiling
+
+    def backoff_for(self, attempt: int) -> float:
+        """Deterministic backoff before restart ``attempt`` (1-based)."""
+        return min(self.max_backoff_s,
+                   self.backoff_s * self.backoff_mult ** max(0, attempt - 1))
+
+
+class DeviceLost(RuntimeError):
+    """The card reports an error on synchronisation: a CUDA error is
+    sticky, so no restart can serve on this context."""
 
 
 @dataclass
@@ -365,6 +420,34 @@ class EngineConfig:
     stall_threshold_s: float = 120.0
     #: the stall watchdog's polling interval; 0 disables the watchdog
     watchdog_interval_s: float = 5.0
+    #: workload capture from construction: every ended request lands in
+    #: the capture ring (``GET /debug/workload``); ``POST
+    #: /debug/workload/start`` arms it at run time regardless
+    workload_capture: bool = False
+    #: records the capture ring keeps (the oldest drop, counted); 0
+    #: disables the recorder
+    workload_capture_requests: int = 4096
+    #: captured prompt and completion ids become salted hashes (lengths
+    #: kept): shippable, not replayable
+    capture_redact: bool = False
+    #: anomaly-triggered profiling: a cost drift, an SLO fast burn or a
+    #: goodput-floor breach starts a ``torch.profiler`` capture that
+    #: stops after ``autoprof_passes`` collected passes or
+    #: ``autoprof_max_capture_s``; arms are debounced, and
+    #: ``GOFR_AUTOPROF=0`` is the kill switch
+    autoprof: bool = True
+    autoprof_passes: int = 64
+    autoprof_max_capture_s: float = 30.0
+    autoprof_debounce_s: float = 300.0
+    #: goodput ratio under which the autoprofiler arms (checked with the
+    #: gauges once 1 s of busy time is in); 0 disables the floor
+    autoprof_goodput_floor: float = 0.0
+    #: where its captures land; None = ``gofr_tpu_profiles`` under the
+    #: process's temporary directory
+    autoprof_dir: str | None = None
+    #: crash recovery: a ``RestartPolicy`` arms the supervisor; None keeps
+    #: every loop exception terminal (health DOWN)
+    restart_policy: RestartPolicy | None = None
 
 
 class Engine:
@@ -397,7 +480,9 @@ class Engine:
         ``warmup`` fixes the MFU basis from it. None: the MFU gauge stays
         0.
     metrics: a ``metrics.Manager`` (``attach_metrics``); logger: a
-        ``logger.Logger`` for the WARNs and the flight recorder's dumps.
+        ``logger.Logger`` for the WARNs and the flight recorder's dumps;
+        tracer: a ``tracing.Tracer`` for the requests' ``engine.*`` spans
+        and the watchdog's ``engine.stall`` span (None: no spans).
     """
 
     def __init__(self, params: Any, config: EngineConfig, *,
@@ -406,7 +491,8 @@ class Engine:
                  device: str | torch.device, vocab_size: int,
                  paged_verify_fn: Callable | None = None,
                  flops_per_token: Callable[[int], float] | None = None,
-                 metrics: Any = None, logger: Any = None) -> None:
+                 metrics: Any = None, logger: Any = None,
+                 tracer: Any = None) -> None:
         cfg = config
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
             raise ValueError("page_size, max_batch >= 1 and max_seq >= 2 "
@@ -519,6 +605,7 @@ class Engine:
 
         self.metrics = metrics
         self.logger = logger
+        self.tracer = tracer
         self._flops_fn = flops_per_token
         #: MFU basis, fixed by ``warmup``: None keeps the gauge at 0
         self._flops_per_token: float | None = None
@@ -548,6 +635,25 @@ class Engine:
             cfg.integrity, golden=golden,
             probe_passes=cfg.integrity_probe_passes,
             rearm_probes=cfg.integrity_rearm_probes)
+        #: anomaly-triggered profiling: drift, fast burn and the goodput
+        #: floor arm one bounded capture at a time
+        capture = (ProfilerCapture(base_dir=cfg.autoprof_dir, logger=logger)
+                   if cfg.autoprof else None)
+        self.autoprof = AutoProfiler(
+            capture, enabled=cfg.autoprof, passes=cfg.autoprof_passes,
+            max_capture_s=cfg.autoprof_max_capture_s,
+            debounce_s=cfg.autoprof_debounce_s, logger=logger)
+        #: the capture ring of ended requests, stamped with the resolved
+        #: seed so a replay engine can be built with it
+        self.workload = WorkloadRecorder(cfg.workload_capture_requests,
+                                         redact=cfg.capture_redact,
+                                         engine_seed=self.seed)
+        if self.goodput.enabled:
+            self.workload.goodput_source = self.goodput.summary
+        if self.costs.enabled:
+            self.workload.cost_source = self.costs.table
+        if cfg.workload_capture:
+            self.workload.start()
         #: per-tenant usage, fed at the end of every request
         self.usage_ledger = UsageLedger()
         #: SLO burn-rate tracker; the app attaches one (None = off)
@@ -557,6 +663,27 @@ class Engine:
         if self.faults is not NO_FAULTS:
             self.faults.events = self.events
         self.watermarks.events = self.events
+        #: incident bundles, each with the timeline around its trigger
+        #: and these state blocks
+        self.incidents = IncidentDetector(self.events.config,
+                                          ledger=self.events, logger=logger)
+        self.incidents.sources.update({
+            "slo": lambda: self.slo.state() if self.slo is not None
+            else None,
+            "scheduler": lambda: self.waiting.state(),
+            "goodput": self.goodput.state,
+            "watermarks": self.watermarks.state,
+            "recorder": self.recorder.snapshot,
+            "config": self.config_digest,
+            "costs": self.cost_state,
+            "integrity": self.integrity_state,
+        })
+        #: the supervisor's state: restarts made, the last crash
+        self._restarts = 0
+        self._last_crash: str | None = None
+        #: the terminal teardown ran (``_shutdown_cleanup``): a start
+        #: rebuilds the runtime state first
+        self._cleaned = False
         #: the loop's heartbeat: set at the top of every iteration
         self._last_beat = time.time()
         self._watchdog: StallWatchdog | None = None
@@ -628,11 +755,16 @@ class Engine:
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:
-        """Start the engine thread, and the stall watchdog."""
+        """Start (or restart) the engine thread, and the stall watchdog.
+        After a stop or a terminal crash the runtime state is rebuilt
+        first (``_reset_runtime_state``) on the resident weights, pools
+        and captured graphs, and the queue reopens."""
         if self._running:
             return
-        if self._failed:
-            raise RuntimeError(f"engine crashed: {self._failed}")
+        if self._cleaned:
+            self._reset_runtime_state()
+            self._cleaned = False
+            self._failed = None
         self.waiting.reopen()
         self._last_beat = time.time()
         self._running = True
@@ -658,7 +790,12 @@ class Engine:
             if thread.is_alive():
                 raise RuntimeError("engine thread did not stop within "
                                    f"{join_timeout_s} s")
-        self._fail_all("engine stopped")
+        if not self._cleaned:
+            self._shutdown_cleanup("engine stopped")
+
+    def close(self) -> None:
+        """The app's shutdown: stop without waiting long for a pass."""
+        self.stop(join_timeout_s=2.0)
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful shutdown: refuse new submits, let queued, requeued
@@ -792,7 +929,8 @@ class Engine:
     def health_check(self) -> dict:
         """UP, DOWN (stopped or crashed), or DEGRADED: work in flight and
         no loop iteration begun for ``stall_threshold_s``
-        (``stalled_for_s``)."""
+        (``stalled_for_s``); ``restarts`` and ``last_crash`` once the
+        supervisor restarted the loop."""
         status = "DOWN" if (self._failed or not self._running) else "UP"
         active = sum(r is not None for r in self.active)
         waiting = self.waiting.qsize()
@@ -807,10 +945,27 @@ class Engine:
             out["stalled_for_s"] = round(stalled_for, 1)
         if self.stats.get("stalls"):
             out["stalls"] = self.stats["stalls"]
+        if self._restarts:
+            out["restarts"] = self._restarts
+        if self._last_crash:
+            out["last_crash"] = self._last_crash
         if self._failed:
             out["error"] = self._failed
         if self.recorder.enabled:
             out["flight"] = self.recorder.summary()
+        return out
+
+    def config_digest(self) -> dict:
+        """JSON-safe summary of the engine's config for incident bundles:
+        plain scalars as they are, anything else as its repr; and the
+        resolved seed."""
+        from dataclasses import fields
+        out = {}
+        for f in fields(self.config):
+            value = getattr(self.config, f.name)
+            out[f.name] = value if isinstance(
+                value, (bool, int, float, str, type(None))) else repr(value)
+        out["resolved_seed"] = self.seed
         return out
 
     def attach_metrics(self, metrics: Any) -> None:
@@ -818,9 +973,7 @@ class Engine:
         engine's series where absent (with its descriptions and
         buckets; ``app_tpu_execute_seconds`` is
         ``app_gpu_execute_seconds`` here), and hand it to the usage
-        ledger, the SLO tracker, the scheduler and the event ledger.
-        The restart and replay counters stay at 0 until the port has
-        those paths."""
+        ledger, the SLO tracker, the scheduler and the event ledger."""
         self.metrics = metrics
         for name, desc in (
             ("app_engine_active_slots", "occupied decode slots"),
@@ -1000,19 +1153,32 @@ class Engine:
 
     def submit(self, prompt_tokens: list[int],
                params: SamplingParams | None = None, *,
+               traceparent: str | None = None,
                tenant: str | None = None,
                lane: str = "interactive") -> GenRequest:
         """Queue a request from any thread, for ``tenant`` (an
         accounting label; None = anonymous) in the scheduler's ``lane``
         ("interactive" or "background"). Its ``done`` event is set and
         its ``out_queue`` closed when it retires or fails (``error``
-        set; a refused admission also stamps the scheduler's typed
-        ``reject``)."""
+        set; a refused admission also stamps a typed ``reject``: the
+        scheduler's, ``kv_exhausted``, ``draining``, or ``engine_down``
+        when the engine is stopped or crashed). With a tracer, the
+        request joins the caller's trace: the span active on this
+        thread, else a sampled ``traceparent``."""
         params = params or SamplingParams()
         req = GenRequest(
             prompt_tokens=self._clamp_prompt(list(prompt_tokens),
                                              params.max_new_tokens),
             params=params, tenant=tenant, lane=lane)
+        if self.tracer is not None:
+            parent = self.tracer.current_span()
+            if parent is not None:
+                if parent.sampled:
+                    req.trace = (parent.trace_id, parent.span_id)
+            elif traceparent:
+                remote = extract_traceparent(traceparent)
+                if remote is not None and _traceparent_sampled(traceparent):
+                    req.trace = remote
         if not req.prompt_tokens:
             self._fail(req, "empty prompt")
             return req
@@ -1027,15 +1193,27 @@ class Engine:
             self._refuse(req, "kv_exhausted",
                          "kv page pool exhausted; retry shortly",
                          retry_after_s=1.0)
-        elif self._failed:
-            self._fail(req, f"engine crashed: {self._failed}")
         elif self._draining:
-            self._fail(req, "engine draining for shutdown")
+            self._refuse(req, "draining",
+                         "engine draining for shutdown; retry against "
+                         "another replica", retry_after_s=5.0)
         elif not self.waiting.put(req):
             # a policy refusal (queue full, rate limited) stamps a typed
-            # reject; a closed queue (stopped engine) stamps none
-            self._fail(req, req.reject.message if req.reject is not None
-                       else "engine not accepting requests")
+            # reject; a closed queue (a stopped or crashed engine) gets
+            # the lifecycle's own code
+            if req.reject is not None and self._running:
+                self._fail(req, req.reject.message)
+            elif self._running:
+                self._fail(req, "engine overloaded: waiting queue full")
+            else:
+                policy = self.config.restart_policy
+                retry = (policy.backoff_for(self._restarts + 1)
+                         if policy is not None else 1.0)
+                self._refuse(
+                    req, "engine_down", "engine not accepting requests"
+                    + (f" (last crash: {self._last_crash})"
+                       if self._last_crash else ""),
+                    retry_after_s=max(1.0, retry))
         return req
 
     def submit_sync(self, prompt_tokens: list[int],
@@ -1094,22 +1272,119 @@ class Engine:
                 # real, so they are emitted before anything is failed
                 self._drain_pending()
                 self._collect_prefills()
-        except Exception as exc:  # noqa: BLE001 — boundary: fail loudly
-            self._crash(exc)
+        except Exception as exc:  # noqa: BLE001 — boundary: contain it
+            if self._recover(exc):
+                # rebuilt on the resident weights, pools and graphs: serve
+                # on, the recovered requests first (the recursion is
+                # bounded by the restart budget)
+                self._loop()
+            else:
+                self._crash(exc)
+
+    def _recover(self, exc: BaseException) -> bool:
+        """The in-thread supervisor: with a ``restart_policy`` and budget
+        left, salvage what can be salvaged, rebuild the runtime state,
+        sleep the policy's backoff and return True so ``_loop`` resumes.
+        False (the crash is terminal): no policy, the engine was
+        stopping, the budget is spent, or the card reports a sticky
+        error; the last two open a ``restart_budget`` incident bundle.
+
+        Salvage (no token is ever emitted twice): a request with no
+        first token yet replays from its prompt through the requeued
+        lane (``recovered``); a mid-stream one fails with a typed
+        ``engine_restart`` reject (503 + Retry-After); a cancelled one
+        closes."""
+        policy = self.config.restart_policy
+        if policy is None or not self._running:
+            return False
+        if self._restarts >= policy.max_restarts:
+            self.incidents.trigger(
+                "restart_budget",
+                cause=f"{self._restarts} restarts >= budget "
+                      f"{policy.max_restarts}; last crash: "
+                      f"{type(exc).__name__}: {exc}")
+            return False
+        try:
+            # before any slot is touched: a dead context must not spend
+            # the budget on restarts that cannot serve
+            self._reset_runtime_state()
+        except DeviceLost as lost:
+            self.incidents.trigger(
+                "restart_budget",
+                cause=f"restart refused: {lost}; last crash: "
+                      f"{type(exc).__name__}: {exc}")
+            return False
+        self._restarts += 1
+        self._last_crash = f"{type(exc).__name__}: {exc}"
+        backoff = policy.backoff_for(self._restarts)
+        if self.logger is not None:
+            self.logger.error(
+                f"engine loop crashed ({self._last_crash}); restarting "
+                f"{self._restarts}/{policy.max_restarts} after "
+                f"{backoff:.2f}s backoff")
+            self.recorder.dump(self.logger, reason=self._last_crash)
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_engine_restarts")
+        self.events.emit("engine.restart", severity="error",
+                         cause=self._last_crash, restart=self._restarts,
+                         max_restarts=policy.max_restarts,
+                         backoff_s=round(backoff, 3))
+        recovered = 0
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.active[i] = None
+            if req.finished_at is not None:
+                continue
+            if req.cancelled:
+                req.finished_at = time.time()
+                self._finalize_obs(req)
+                req._end()
+            elif req.first_token_at is None:
+                req.pending_prefill = False
+                req.prefill_epoch += 1
+                req.prefill_offset = 0
+                req.slot = -1
+                req.recovered = True
+                self._requeue(req)
+                recovered += 1
+            else:
+                req.reject = SchedReject(
+                    code="engine_restart", tenant=req.tenant,
+                    retry_after_s=max(1.0, backoff),
+                    detail="engine restarted mid-stream; the partial "
+                           "output is stale — retry the request")
+                self._fail(req, req.reject.message)
+        if recovered:
+            if self.metrics is not None:
+                self.metrics.add_counter("app_engine_requests_recovered",
+                                         float(recovered))
+            if self.logger is not None:
+                self.logger.warn(f"recovery buffer: {recovered} request(s) "
+                                 "replay after restart")
+        deadline = time.time() + backoff
+        while self._running and time.time() < deadline:
+            # a stop() during the backoff resumes the loop, which then
+            # exits through the clean path
+            time.sleep(min(0.05, max(0.0, deadline - time.time())))
+        self._last_beat = time.time()
+        self.events.emit("engine.recovery", cause=self._last_crash,
+                         restart=self._restarts, recovered=recovered)
+        return True
 
     def _crash(self, exc: BaseException) -> None:
-        """The loop threw: health goes DOWN, every request in flight or
-        queued fails, submits are refused; the crash is recorded as an
-        ``engine.crash`` event and logged with the flight recorder's
-        ring."""
+        """The loop threw and no restart follows: health goes DOWN, every
+        request in flight or queued fails, submits are refused; the
+        crash is recorded as an ``engine.crash`` event and logged with
+        the flight recorder's ring."""
         self._failed = f"{type(exc).__name__}: {exc}"
         self._running = False
         self.events.emit("engine.crash", severity="error",
-                         cause=self._failed, restarts=0)
+                         cause=self._failed, restarts=self._restarts)
         if self.logger is not None:
             self.logger.error(f"engine loop crashed: {exc!r}")
             self.recorder.dump(self.logger, reason=self._failed)
-        self._fail_all(f"engine crashed: {self._failed}")
+        self._shutdown_cleanup(f"engine crashed: {self._failed}")
 
     def _admit(self) -> None:
         """One admission round: the requeued lane goes first (mid-walk
@@ -1212,19 +1487,19 @@ class Engine:
                                  retry_after_s=retry_after_s, detail=detail)
         self._fail(req, req.reject.message)
 
-    def _fail_all(self, reason: str) -> None:
-        # the queue closes (submits fail) until start() reopens it
+    def _shutdown_cleanup(self, reason: str) -> None:
+        """Terminal teardown (a stop, or a crash without a restart): the
+        queue closes (submits are refused until ``start()``), every
+        queued, requeued and active request fails with ``reason``, and an
+        armed autoprofiler capture stops (the process holds one
+        ``torch.profiler`` session, and no pass would count it down)."""
+        self._cleaned = True
+        self.autoprof.finish()
         self.waiting.close()
         waiting = self.waiting.pop_batch(1 << 16, first_wait_s=0.0) or []
         requeued, self._requeued = self._requeued, []
         self._requeued_set.clear()
-        # records of work that will not be collected: their ring
-        # buffers and first tokens are dropped
-        while self._pending:
-            self._decode_graph.discard(self._pending.popleft()["handle"])
-        self._pending_prefills.clear()
-        self._dev_last_reqs = [None] * self.config.max_batch
-        self._sched_dirty = True
+        self._discard_in_flight()
         for i, req in enumerate(self.active):
             if req is not None:
                 self.active[i] = None
@@ -1234,6 +1509,85 @@ class Engine:
         for req in waiting + requeued:
             if req.finished_at is None:
                 self._fail(req, reason)
+
+    def _discard_in_flight(self) -> None:
+        """Drop the records of work that will not be collected: each
+        decode dispatch's ring buffer is freed (``DecodeGraph.discard``),
+        the prefills' first tokens are dropped, and every device-resident
+        state buffer (rows, the last tokens' lineage, the tables) is
+        marked for upload."""
+        while self._pending:
+            self._decode_graph.discard(self._pending.popleft()["handle"])
+        self._pending_prefills.clear()
+        self._dev_last_reqs = [None] * self.config.max_batch
+        self._sched_dirty = True
+        self._tables_dirty = True
+
+    def _reset_runtime_state(self) -> None:
+        """Stand the runtime back up on the resident weights, pools and
+        captured graphs (``start()`` after a stop, and the supervisor):
+        nothing in flight, a pristine page allocator (the prefix cache
+        empty), every slot's length 0, each slot's speculation state
+        void. The pools are never reallocated: the captured decode
+        graphs write them by address.
+
+        Unlike the JAX engine it synchronises the card after discarding
+        the dispatches in flight and before any page is handed out again,
+        so nothing still running writes a page its next owner holds. A
+        sync that raises means a sticky CUDA error (every later call on
+        this context fails too): it raises :class:`DeviceLost`."""
+        self._discard_in_flight()
+        self._decode_busy_until = 0.0
+        self._prefill_busy_until = 0.0
+        if self.device.type == "cuda":
+            try:
+                torch.cuda.synchronize(self.device)
+            except Exception as exc:  # noqa: BLE001 — reported as lost
+                raise DeviceLost(f"CUDA context unusable: {exc}") from exc
+        self._reset_pages()
+        self.lengths[:] = 0
+        self._spec_ctrl_owner = [None] * self.config.max_batch
+
+    def _reset_pages(self) -> None:
+        """Every page free, every table out of range, the prefix cache
+        empty."""
+        self._free_pages = list(range(self._n_pages))
+        self._tables[:] = self._n_pages
+        self._slot_pages[:] = 0
+        self._page_refs[:] = 0
+        self._prefix_cache.clear()
+        self._prefix_lens.clear()
+        self._cached_pages = 0
+        self._tables_dirty = True
+
+    def _kv_lost(self) -> bool:
+        """True when a failed call left the card unusable (a sticky CUDA
+        error: every slot's K/V is unreadable). Torch pools are written
+        in place and never consumed by a call, unlike the JAX engine's
+        donated caches, so a failure that left the card healthy lost
+        nothing but its own rows."""
+        if self.device.type != "cuda":
+            return False
+        try:
+            torch.cuda.synchronize(self.device)
+            return False
+        except Exception:  # noqa: BLE001 — the answer is "lost"
+            return True
+
+    def _recover_lost_cache(self, exc: BaseException) -> None:
+        """After a failed prefill: if the cache went with it
+        (``_kv_lost``), fail every active stream honestly and reset the
+        allocator (the pools stay: the decode graphs hold their
+        addresses); the next device call then reaches the supervisor."""
+        if not self._kv_lost():
+            return
+        for i, other in enumerate(self.active):
+            if other is not None:
+                self.active[i] = None
+                self._fail(other, f"kv cache lost to failed prefill: {exc}")
+        self.lengths[:] = 0
+        self._sched_dirty = True
+        self._reset_pages()
 
     # ------------------------------------------------------------- pages
     def _decref_page(self, page: int) -> None:
@@ -1558,18 +1912,28 @@ class Engine:
         t0 = time.perf_counter()
         self.goodput.note_dispatch(t0)
         wall0 = time.time()
-        kv_len_t = self._upload(kv_len)
-        tables_t = self._upload(tables)
-        temps, top_ps, top_ks = self._row_params(placed, p)
-        logits, (k, v) = self._prefill_fn(self.params, self._upload(tokens),
-                                          kv_len_t)
-        toks = sample_batch(logits, temps, top_ps, top_ks,
-                            generator=self._generator,
-                            all_greedy=_all_greedy(placed))
-        offsets = torch.zeros_like(kv_len_t)
-        scatter_chunk_kv(self.k_cache, self.v_cache, tables_t, k, v, offsets,
-                         kv_len_t)
-        first, ready = self._to_host(toks)
+        try:
+            kv_len_t = self._upload(kv_len)
+            tables_t = self._upload(tables)
+            temps, top_ps, top_ks = self._row_params(placed, p)
+            logits, (k, v) = self._prefill_fn(
+                self.params, self._upload(tokens), kv_len_t)
+            toks = sample_batch(logits, temps, top_ps, top_ks,
+                                generator=self._generator,
+                                all_greedy=_all_greedy(placed))
+            offsets = torch.zeros_like(kv_len_t)
+            scatter_chunk_kv(self.k_cache, self.v_cache, tables_t, k, v,
+                             offsets, kv_len_t)
+            first, ready = self._to_host(toks)
+        except Exception as exc:  # noqa: BLE001 — fail this group only
+            for req in placed:
+                self.active[req.slot] = None
+                self._release_pages(req.slot)
+                self._fail(req, str(exc))
+            if self.logger is not None:
+                self.logger.error(f"prefill failed: {exc!r}")
+            self._recover_lost_cache(exc)
+            return
         self.stats["prefill_calls"] += 1
         self._sched_dirty = True                 # the slots go pending
         for req in placed:
@@ -1603,9 +1967,25 @@ class Engine:
             self._sched_dirty = True
         while self._pending_prefills:
             rec = self._pending_prefills.popleft()
-            if rec["ready"] is not None:
-                rec["ready"].synchronize()
-            first = rec["toks"].numpy()
+            try:
+                if rec["ready"] is not None:
+                    rec["ready"].synchronize()
+                first = rec["toks"].numpy()
+            except Exception as exc:  # noqa: BLE001 — fail this group only
+                for req, slot, epoch in zip(rec["placed"], rec["slots"],
+                                            rec["epochs"]):
+                    if req.prefill_epoch != epoch:
+                        continue             # re-dispatched since
+                    req.pending_prefill = False
+                    if self.active[slot] is req:
+                        self.active[slot] = None
+                        self._release_pages(slot)
+                    if req.finished_at is None:
+                        self._fail(req, str(exc))
+                if self.logger is not None:
+                    self.logger.error(f"prefill failed: {exc!r}")
+                self._recover_lost_cache(exc)
+                continue
             self._note_prefill_span(rec["t0"])
             now = time.time()
             pass_dur = time.perf_counter() - rec["t0"]
@@ -1629,9 +2009,9 @@ class Engine:
                     recompute_rows += 1
                     continue
                 req.device_s += pass_share
-                if req.first_token_at is not None:
-                    # a recompute after preemption: this K/V was
-                    # computed once already
+                if req.first_token_at is not None or req.recovered:
+                    # a recompute after a preemption or a restart: this
+                    # K/V was computed once already
                     recompute_rows += 1
                     req.waste_recompute_s += pass_share
                 else:
@@ -1668,8 +2048,9 @@ class Engine:
             now = time.time()
             req.first_token_at = now
             if self.metrics is not None:
-                self.metrics.record_histogram("app_chat_ttft_seconds",
-                                              now - req.submitted_at)
+                self.metrics.record_histogram(
+                    "app_chat_ttft_seconds", now - req.submitted_at,
+                    exemplar_trace_id=req.trace[0] if req.trace else None)
         req.generated.append(token)
         req.out_queue.put(token)
         self.total_generated += 1
@@ -1722,40 +2103,58 @@ class Engine:
                     and self.active[r.slot] is r)
 
         start = time.perf_counter()
-        for _ in range(max(1, int(cfg.prefill_chunks_per_pass))):
-            live = [r for r in walkers if owns_slot(r)
-                    and r.prefill_offset < len(r.prompt_tokens)]
-            if not live:
-                break
-            by_width: dict[int, list[GenRequest]] = {}
-            for r in live:
-                left = len(r.prompt_tokens) - r.prefill_offset
-                width = next((b for b in self._usable_buckets if b >= left),
-                             widest)
-                by_width.setdefault(width, []).append(r)
-            for width, group in by_width.items():
-                for i in range(0, len(group), p_max):
-                    ready = []
-                    for r in group[i:i + p_max]:
-                        if not owns_slot(r):
-                            continue         # a peer's headroom preempted it
-                        chunk = min(width, len(r.prompt_tokens)
-                                    - r.prefill_offset)
-                        rows = min(r.prefill_offset + chunk + 1, cfg.max_seq)
-                        if not self._ensure_headroom(r.slot, rows):
-                            # the pool cannot hold this walk even after
-                            # preempting younger requests: restart it
-                            # from scratch once pages free up
-                            self._release_pages(r.slot)
-                            self._dev_last_reqs[r.slot] = None
-                            self.active[r.slot] = None
-                            r.prefill_offset = 0
-                            self._requeue(r)
-                            continue
-                        ready.append(r)
-                    ready = [r for r in ready if owns_slot(r)]
-                    if ready:
-                        self._chunk_call(width, ready)
+        dispatched: list[GenRequest] = []
+        try:
+            for _ in range(max(1, int(cfg.prefill_chunks_per_pass))):
+                live = [r for r in walkers if owns_slot(r)
+                        and r.prefill_offset < len(r.prompt_tokens)]
+                if not live:
+                    break
+                by_width: dict[int, list[GenRequest]] = {}
+                for r in live:
+                    left = len(r.prompt_tokens) - r.prefill_offset
+                    width = next((b for b in self._usable_buckets
+                                  if b >= left), widest)
+                    by_width.setdefault(width, []).append(r)
+                for width, group in by_width.items():
+                    for i in range(0, len(group), p_max):
+                        ready = []
+                        for r in group[i:i + p_max]:
+                            if not owns_slot(r):
+                                continue     # a peer's headroom preempted it
+                            chunk = min(width, len(r.prompt_tokens)
+                                        - r.prefill_offset)
+                            rows = min(r.prefill_offset + chunk + 1,
+                                       cfg.max_seq)
+                            if not self._ensure_headroom(r.slot, rows):
+                                # the pool cannot hold this walk even
+                                # after preempting younger requests:
+                                # restart it from scratch once pages free
+                                self._release_pages(r.slot)
+                                self._dev_last_reqs[r.slot] = None
+                                self.active[r.slot] = None
+                                r.prefill_offset = 0
+                                self._requeue(r)
+                                continue
+                            ready.append(r)
+                        ready = [r for r in ready if owns_slot(r)]
+                        if ready:
+                            dispatched = ready
+                            self._chunk_call(width, ready)
+                            dispatched = []
+        except Exception as exc:  # noqa: BLE001 — fail this call only
+            # the rows of the failing call fail; walkers outside it keep
+            # their state and requeue below
+            for r in (dispatched or [w for w in walkers if owns_slot(w)
+                                     and w.pending_prefill]):
+                if r.slot >= 0 and self.active[r.slot] is r:
+                    self.active[r.slot] = None
+                    self._release_pages(r.slot)
+                r.pending_prefill = False
+                self._fail(r, str(exc))
+            if self.logger is not None:
+                self.logger.error(f"chunked prefill failed: {exc!r}")
+            self._recover_lost_cache(exc)
         self._note_prefill_span(start)
         self._update_kv_watermarks()
         self._note_device_idle()
@@ -1801,9 +2200,11 @@ class Engine:
             self.recorder.record_pass(
                 "prefill_chunk", rows=len(group), width=width, sig=sig,
                 dur=round(c_dur, 6), queue_depth=self.waiting.qsize())
-        # a walker whose first token is out already re-prefills K/V it
-        # computed once (preemption recompute); pad rows are padding
-        recomp = sum(1 for r in group if r.first_token_at is not None)
+        # a walker whose first token is out already, or that a restart
+        # salvaged, re-prefills K/V it computed once (recompute); pad
+        # rows are padding
+        recomp = sum(1 for r in group
+                     if r.first_token_at is not None or r.recovered)
         self.goodput.add_prefill("prefill_chunk", c_dur, g,
                                  len(group) - recomp, recomp)
         self._note_pass_cost("chunk", sig, c_dur, rows=len(group),
@@ -1812,7 +2213,7 @@ class Engine:
         share = c_dur / len(group)
         for row, req in enumerate(group):
             req.device_s += share
-            if req.first_token_at is not None:
+            if req.first_token_at is not None or req.recovered:
                 req.waste_recompute_s += share
             self._req_event(req, "prefill", w0, w1,
                             {"bucket": width,
@@ -2325,9 +2726,12 @@ class Engine:
     def _note_pass_cost(self, kind: str, sig: str, dur: float, *,
                         rows: int = 0, tokens: int = 0) -> None:
         """Feed one collected pass to the cost model with the duration
-        the goodput ledger billed; the golden-probe cadence ticks here
-        too. A drift episode's entry is counted, WARNed and recorded as
-        an ``obs.cost_drift`` event."""
+        the goodput ledger billed; the autoprofiler's pass budget and the
+        golden-probe cadence tick here too. A drift episode's entry is
+        counted, WARNed, recorded as an ``obs.cost_drift`` event, arms the
+        autoprofiler and opens a ``cost_drift`` incident bundle naming
+        the capture's directory."""
+        self.autoprof.note_pass()
         probe = self.integrity.note_pass()
         if probe is not None:
             self._launch_probe(probe)
@@ -2355,10 +2759,16 @@ class Engine:
                          pass_kind=kind, ratio=drift["ratio"],
                          ewma_s=drift["ewma_s"],
                          baseline_s=drift["baseline_s"])
+        capture = self.autoprof.arm("cost_drift", f"pass cost drift: {sig}")
+        self.incidents.trigger(
+            "cost_drift", cause=f"pass cost drift: {sig}",
+            attrs={**drift, "autoprof_dir": (capture or {}).get("dir")})
 
     def cost_state(self) -> dict:
-        """The ``GET /debug/costs`` payload."""
-        return {"costs": self.costs.state()}
+        """The ``GET /debug/costs`` payload: the cost table and the
+        autoprofiler's state (also an incident-bundle source)."""
+        return {"costs": self.costs.state(),
+                "autoprof": self.autoprof.state()}
 
     def integrity_state(self) -> dict:
         """The ``GET /debug/integrity`` payload."""
@@ -2399,7 +2809,7 @@ class Engine:
         """Stamp the request's digest; for a golden probe, re-price its
         device time to ``integrity_probe`` waste and record its result
         (an ``obs.integrity`` event); a mismatch episode's entry is
-        counted and WARNed."""
+        counted, WARNed and opens an ``integrity`` incident bundle."""
         mismatch = self.integrity.fold(req)
         if req.probe:
             self.goodput.reprice_probe(req.device_s)
@@ -2423,6 +2833,10 @@ class Engine:
                 "diverged from its sealed expectation",
                 golden_id=mismatch["golden_id"], digest=mismatch["digest"],
                 expected=mismatch["expected"])
+        self.incidents.trigger(
+            "integrity",
+            cause=f"golden probe digest mismatch: {mismatch['golden_id']}",
+            attrs=dict(mismatch))
 
     def _corrupt_token(self, token: int) -> int:
         """``logit_corrupt``'s effect: the sampled token replaced, never
@@ -2456,19 +2870,22 @@ class Engine:
             now = time.time()
             req.admitted_at = now
             if self.metrics is not None:
-                self.metrics.record_histogram("app_chat_queue_seconds",
-                                              now - req.submitted_at)
+                self.metrics.record_histogram(
+                    "app_chat_queue_seconds", now - req.submitted_at,
+                    exemplar_trace_id=req.trace[0] if req.trace else None)
 
     def _finalize_obs(self, req: GenRequest) -> None:
         """A request's end, exactly once (retire, fail or cancel): the
-        latency histograms, the usage ledger, the SLO verdict (typed
-        refusals, cancels and probes stay out of it) and the scheduler's
-        burn column, the digest and probe judgement, the recorder's
-        request log."""
+        latency histograms (with the request's trace id as exemplar), the
+        usage ledger, the SLO verdict (typed refusals, cancels and probes
+        stay out of it) and the scheduler's burn column, the digest and
+        probe judgement, the recorder's request log, the workload
+        capture (probes stay out of it) and the ``engine.*`` spans."""
         if req._obs_done:
             return
         req._obs_done = True
         end = req.finished_at or time.time()
+        exemplar = req.trace[0] if req.trace else None
         n = len(req.generated)
         ttft_s = (req.first_token_at - req.submitted_at
                   if req.first_token_at is not None else None)
@@ -2477,10 +2894,12 @@ class Engine:
         e2e_s = end - req.submitted_at
         if self.metrics is not None and req.error is None \
                 and not req.cancelled:
-            self.metrics.record_histogram("app_chat_e2e_seconds", e2e_s)
+            self.metrics.record_histogram("app_chat_e2e_seconds", e2e_s,
+                                          exemplar_trace_id=exemplar)
             if tpot_s is not None:
                 self.metrics.record_histogram("app_chat_tpot_seconds",
-                                              tpot_s)
+                                              tpot_s,
+                                              exemplar_trace_id=exemplar)
         status = ("cancelled" if req.cancelled
                   else "error" if req.error is not None else "ok")
         queue_s = (req.admitted_at - req.submitted_at
@@ -2501,6 +2920,13 @@ class Engine:
             self._note_integrity(req)
         if self.recorder.enabled:
             self.recorder.record_request(request_summary(req))
+        if self.workload.capturing and not req.probe:
+            self.workload.record(req)
+        if self.tracer is not None and req.trace is not None:
+            try:
+                emit_engine_spans(self.tracer, req)
+            except Exception:  # noqa: BLE001 — tracing never ends a stream
+                pass
 
     def _update_kv_watermarks(self) -> None:
         """KV high-water marks at the collects (a burst's peak is caught
@@ -2541,8 +2967,16 @@ class Engine:
         m.set_gauge("app_engine_tokens_per_second", round(tps, 2))
         gp = self.goodput
         if gp.enabled and gp.busy_s > 0:
-            m.set_gauge("app_engine_goodput_ratio",
-                        round(gp.useful_s / gp.busy_s, 6))
+            ratio = gp.useful_s / gp.busy_s
+            m.set_gauge("app_engine_goodput_ratio", round(ratio, 6))
+            # a goodput-floor breach arms a bounded capture (off at the
+            # default floor 0; the 1 s guard keeps a cold engine's first
+            # noisy ratio from tripping it)
+            floor = self.config.autoprof_goodput_floor
+            if floor > 0.0 and gp.busy_s > 1.0 and ratio < floor:
+                self.autoprof.arm(
+                    "goodput_floor",
+                    f"goodput ratio {ratio:.3f} below floor {floor:.3f}")
             for cause, total in gp.waste_s.items():
                 delta = total - self._waste_published.get(cause, 0.0)
                 if delta > 0:          # counters take deltas of the totals

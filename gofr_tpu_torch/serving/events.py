@@ -22,8 +22,18 @@ Serialization: JSONL with a one-line header ``{"format": "gofr-events",
 "version": 1, ...}``; :func:`parse_events` refuses unknown formats and
 versions.
 
+:class:`IncidentDetector` turns a condition an operator will be asked
+about (an SLO fast burn, a restart budget overrun, a pass-cost drift, a
+golden-probe mismatch) into a **bundle**: the event timeline around the
+trigger, the engine's state blocks (SLO, scheduler, goodput,
+watermarks, flight recorder, config, costs, integrity) and the
+checkout's git identity, kept in a bounded in-memory spool (optionally
+mirrored to disk) and served at ``GET /debug/incidents``.
+:func:`event_timeline_diff` compares two timelines kind by kind for a
+workload replay.
+
 Left out: the fleet merger (``FleetEventMerger``, the heartbeat
-``digest``) and the incident bundles (``IncidentDetector``).
+``digest``).
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import json
 import os
 import threading
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from dataclasses import dataclass
 
 #: header contract, mirroring WORKLOAD_FORMAT/WORKLOAD_VERSION
@@ -73,11 +83,22 @@ KINDS = frozenset({
 
 @dataclass
 class EventLedgerConfig:
-    """Knobs for the ledger."""
+    """Knobs for the ledger and the incident spool."""
 
     #: fixed ring bound; beyond it the oldest event rotates out and is
     #: counted in the per-kind drop counter. 0 disables the ledger.
     capacity: int = 4096
+    #: incident bundles capture the timeline this far around the
+    #: trigger (seconds)
+    incident_window_s: float = 60.0
+    #: one bundle per reason per this many seconds: a flapping
+    #: condition must not fill the spool with near-identical bundles
+    incident_debounce_s: float = 30.0
+    #: bundles kept in memory (and on disk when ``spool_dir`` is set);
+    #: the oldest is pruned beyond it
+    spool_max: int = 8
+    #: optional on-disk mirror of the bundles; None keeps them in memory
+    spool_dir: str | None = None
 
 
 class EventLedger:
@@ -258,8 +279,271 @@ def parse_events(text: str) -> tuple[dict, list[dict]]:
     return header, events
 
 
+# ------------------------------------------------------------- incidents
+def _git_digest(start: str | None = None) -> dict:
+    """The checkout's identity for bundles, read straight from ``.git``
+    (no subprocess) at the package's root or above it in ``start``, never
+    further up. Unknown -> Nones, never a guess."""
+    path = start or os.path.dirname(os.path.abspath(__file__))
+    for _ in range(3):
+        git = os.path.join(path, ".git")
+        if os.path.isdir(git):
+            try:
+                with open(os.path.join(git, "HEAD"),
+                          encoding="utf-8") as fh:
+                    head = fh.read().strip()
+                if not head.startswith("ref:"):
+                    return {"commit": head, "ref": None}
+                ref = head.partition(":")[2].strip()
+                ref_path = os.path.join(git, *ref.split("/"))
+                if os.path.exists(ref_path):
+                    with open(ref_path, encoding="utf-8") as fh:
+                        return {"commit": fh.read().strip(), "ref": ref}
+                packed = os.path.join(git, "packed-refs")
+                if os.path.exists(packed):
+                    with open(packed, encoding="utf-8") as fh:
+                        for line in fh:
+                            if line.strip().endswith(" " + ref) or \
+                                    line.strip().endswith("\t" + ref):
+                                return {"commit": line.split()[0],
+                                        "ref": ref}
+                return {"commit": None, "ref": ref}
+            except OSError:
+                return {"commit": None, "ref": None}
+        parent = os.path.dirname(path)
+        if parent == path:
+            break
+        path = parent
+    return {"commit": None, "ref": None}
+
+
+class IncidentDetector:
+    """Snapshots a diagnostic bundle when the engine does something an
+    operator will be asked about: an SLO **fast_burn** trip, a
+    crash-restart budget overrun (**restart_budget**), a dispatch
+    signature's pass cost departing its sealed baseline
+    (**cost_drift**; the trigger's attrs carry the autoprofiler's
+    capture directory), or a golden probe whose digest departed its
+    sealed one (**integrity**). ``failover`` and
+    ``integrity_divergence`` are the fleet's reasons: accepted, never
+    raised by the port.
+
+    A bundle is assembled from zero-arg ``sources`` (a broken source
+    contributes its error string, never aborts the capture) and the
+    event timeline around the trigger. It opens with the pre-trigger
+    half of the window and is **sealed** with the post-trigger half on
+    the first read after ``ts + window``."""
+
+    REASONS = ("fast_burn", "failover", "restart_budget", "cost_drift",
+               "integrity", "integrity_divergence")
+
+    def __init__(self, config: EventLedgerConfig | None = None, *,
+                 ledger: EventLedger | None = None, host: str = "",
+                 logger=None, clock=time.time) -> None:
+        self.config = config if config is not None else EventLedgerConfig()
+        self.ledger = ledger if ledger is not None else NO_EVENTS
+        self.host = host
+        self.logger = logger
+        self.clock = clock
+        #: name -> zero-arg callable returning a JSON-able state block
+        self.sources: dict = {}
+        #: optional callable(since, until) -> timeline; None = the
+        #: ledger's own snapshot
+        self.timeline_source = None
+        self._lock = threading.Lock()
+        self._last: dict[str, float] = {}
+        self._bundles: OrderedDict[str, dict] = OrderedDict()
+        self._count = 0
+        self.debounced: dict[str, int] = {}
+        if self.config.spool_dir:
+            try:
+                os.makedirs(self.config.spool_dir, exist_ok=True)
+            except OSError:
+                pass
+
+    # ---------------------------------------------------------- trigger
+    def trigger(self, reason: str, *, cause: str | None = None,
+                trace_id: str | None = None, epoch=None,
+                attrs: dict | None = None) -> dict | None:
+        """Open one incident bundle; returns its metadata, or None when
+        the per-reason debounce suppressed it."""
+        if reason not in self.REASONS:
+            raise ValueError(f"unknown incident reason {reason!r}; "
+                             f"known: {', '.join(self.REASONS)}")
+        now = self.clock()
+        with self._lock:
+            last = self._last.get(reason)
+            if last is not None and \
+                    now - last < self.config.incident_debounce_s:
+                self.debounced[reason] = self.debounced.get(reason, 0) + 1
+                return None
+            self._last[reason] = now
+            self._count += 1
+            incident_id = f"{self.host or 'local'}-{self._count:04d}-" \
+                          f"{reason}"
+        bundle = self._capture(incident_id, reason, now, cause, trace_id,
+                               epoch, attrs)
+        with self._lock:
+            self._bundles[incident_id] = bundle
+            evicted = []
+            while len(self._bundles) > max(1, self.config.spool_max):
+                old_id, _ = self._bundles.popitem(last=False)
+                evicted.append(old_id)
+        self._spool(bundle)
+        for old_id in evicted:
+            self._unspool(old_id)
+        self.ledger.emit("incident.open", severity="error", cause=reason,
+                         trace_id=trace_id, epoch=epoch,
+                         incident_id=incident_id)
+        if self.logger is not None:
+            self.logger.warn(
+                f"incident bundle {incident_id} opened: {reason}"
+                + (f" ({cause})" if cause else ""),
+                incident_id=incident_id, reason=reason)
+        return self._meta(bundle)
+
+    def _capture(self, incident_id, reason, now, cause, trace_id, epoch,
+                 attrs) -> dict:
+        window = max(0.0, float(self.config.incident_window_s))
+        state = {}
+        for name, source in sorted(self.sources.items()):
+            try:
+                state[name] = source()
+            except Exception as exc:  # a broken source must not abort
+                state[name] = {"error": f"{type(exc).__name__}: {exc}"}
+        return {
+            "format": "gofr-incident", "version": 1,
+            "id": incident_id, "ts": now, "host": self.host,
+            "reason": reason, "cause": cause, "trace_id": trace_id,
+            "epoch": epoch, "attrs": attrs or {},
+            "window_s": window, "sealed": window == 0.0,
+            "timeline": self._timeline(now - window, now),
+            "state": state, "git": _git_digest(),
+            "ledger": self.ledger.state(),
+        }
+
+    def _timeline(self, since, until) -> list[dict]:
+        source = self.timeline_source
+        if source is not None:
+            try:
+                return source(since, until)
+            except Exception:
+                pass  # fall through to the local view
+        return [e for e in self.ledger.snapshot(since=since)
+                if float(e.get("ts", 0.0)) <= until]
+
+    def _seal_locked(self, bundle: dict) -> None:
+        """Top up the post-trigger half of the timeline on read; sealed
+        once the window has fully elapsed."""
+        if bundle.get("sealed"):
+            return
+        now = self.clock()
+        until = min(now, bundle["ts"] + bundle["window_s"])
+        tail = [e for e in self._timeline(bundle["ts"], until)
+                if (e.get("seq"), e.get("host")) not in
+                {(x.get("seq"), x.get("host")) for x in bundle["timeline"]}]
+        bundle["timeline"] = bundle["timeline"] + tail
+        if now >= bundle["ts"] + bundle["window_s"]:
+            bundle["sealed"] = True
+        self._spool(bundle)
+
+    # ------------------------------------------------------------ spool
+    def _path(self, incident_id: str) -> str | None:
+        if not self.config.spool_dir:
+            return None
+        return os.path.join(self.config.spool_dir,
+                            f"incident-{incident_id}.json")
+
+    def _spool(self, bundle: dict) -> None:
+        path = self._path(bundle["id"])
+        if path is None:
+            return
+        try:
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump(bundle, fh, sort_keys=True, default=str)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # the in-memory spool is the source of truth
+
+    def _unspool(self, incident_id: str) -> None:
+        path = self._path(incident_id)
+        if path is None:
+            return
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------- read
+    @staticmethod
+    def _meta(bundle: dict) -> dict:
+        return {"id": bundle["id"], "ts": bundle["ts"],
+                "host": bundle["host"], "reason": bundle["reason"],
+                "cause": bundle["cause"], "trace_id": bundle["trace_id"],
+                "sealed": bundle["sealed"],
+                "events": len(bundle["timeline"])}
+
+    def list(self) -> list[dict]:
+        """Newest-last metadata for ``GET /debug/incidents``."""
+        with self._lock:
+            for bundle in self._bundles.values():
+                self._seal_locked(bundle)
+            return [self._meta(b) for b in self._bundles.values()]
+
+    def get(self, incident_id: str) -> dict | None:
+        with self._lock:
+            bundle = self._bundles.get(incident_id)
+            if bundle is None:
+                return None
+            self._seal_locked(bundle)
+            return json.loads(json.dumps(bundle, default=str))
+
+    def state(self) -> dict:
+        with self._lock:
+            return {"spooled": len(self._bundles),
+                    "spool_max": self.config.spool_max,
+                    "spool_dir": self.config.spool_dir,
+                    "debounced": dict(self.debounced),
+                    "last_trigger": dict(self._last)}
+
+
+# ---------------------------------------------------------- replay diff
+def event_timeline_diff(recorded: list[dict],
+                        replayed: list[dict]) -> dict:
+    """Compare two event timelines: which kinds appeared or disappeared,
+    whose counts moved, and where the kind order first diverges.
+    Timestamps are ignored (a replay runs at another wall clock;
+    causality is the contract)."""
+    rec_counts = Counter(e.get("kind") for e in recorded)
+    rep_counts = Counter(e.get("kind") for e in replayed)
+    missing = sorted(set(rec_counts) - set(rep_counts))
+    extra = sorted(set(rep_counts) - set(rec_counts))
+    counts = {kind: {"recorded": rec_counts.get(kind, 0),
+                     "replayed": rep_counts.get(kind, 0)}
+              for kind in sorted(set(rec_counts) | set(rep_counts))
+              if rec_counts.get(kind, 0) != rep_counts.get(kind, 0)}
+    rec_kinds = [e.get("kind") for e in recorded]
+    rep_kinds = [e.get("kind") for e in replayed]
+    first = None
+    for i, (a, b) in enumerate(zip(rec_kinds, rep_kinds)):
+        if a != b:
+            first = {"index": i, "recorded": a, "replayed": b}
+            break
+    if first is None and len(rec_kinds) != len(rep_kinds):
+        i = min(len(rec_kinds), len(rep_kinds))
+        first = {"index": i,
+                 "recorded": rec_kinds[i] if i < len(rec_kinds) else None,
+                 "replayed": rep_kinds[i] if i < len(rep_kinds) else None}
+    return {"diverged": bool(missing or extra or counts or first),
+            "recorded_events": len(recorded),
+            "replayed_events": len(replayed),
+            "kinds_missing": missing, "kinds_extra": extra,
+            "count_divergence": counts, "order_divergence": first}
+
+
 __all__ = [
     "EVENTS_FORMAT", "EVENTS_VERSION", "KINDS", "SEVERITIES",
-    "EventLedger", "EventLedgerConfig", "NO_EVENTS", "parse_events",
-    "resolve_ledger",
+    "EventLedger", "EventLedgerConfig", "IncidentDetector", "NO_EVENTS",
+    "event_timeline_diff", "parse_events", "resolve_ledger",
 ]

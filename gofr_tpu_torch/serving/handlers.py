@@ -10,7 +10,10 @@ newlines when there is no prompt. A unary request answers ``201
 {"token", "text"}``, then ``data: [DONE]``, or ``data: {"error": ...}``
 and no ``[DONE]`` when generation failed. A refused admission answers
 503 (429 for a rate limit) with ``Retry-After`` and ``details``; a
-failure during generation answers 500.
+failure during generation answers 500, except a typed one (the engine
+restarted mid-stream: ``engine_restart``), which answers 503 with
+``Retry-After`` and ``details`` as a refusal does, and on a stream adds
+those ``details`` to the error event.
 
 Handlers run on the HTTP server's threads and talk to the engine only
 through ``submit`` and the request's channel; ``ctx`` (``app.Context``)
@@ -37,19 +40,27 @@ from .scheduler import retry_after_header
 POLL_S = 0.05
 
 
+def reject_details(req: GenRequest) -> dict:
+    """``{code, tenant, retry_after_s}`` of a typed reject."""
+    rej = req.reject
+    return {"code": rej.code, "tenant": rej.tenant,
+            "retry_after_s": round(rej.retry_after_s, 3)}
+
+
 def admission_error(req: GenRequest) -> HTTPError:
-    """The HTTP error of a refused submission: the scheduler's typed
-    reject gives 429 for a rate limit and 503 otherwise, both with
-    ``Retry-After`` and ``details`` ``{code, tenant, retry_after_s}``;
-    an untyped refusal (a stopped or crashed engine) a plain 503."""
+    """The HTTP error of a refused submission (or of a typed failure
+    later, ``engine_restart``): a typed reject gives 429 for a rate limit
+    and 503 otherwise (queue full, shed, ``kv_exhausted``, ``draining``,
+    ``engine_down``, ``engine_restart``), both with ``Retry-After`` and
+    ``details`` ``{code, tenant, retry_after_s}``; an untyped one a plain
+    503."""
     rej = req.reject
     if rej is None:
         return ErrorServiceUnavailable(req.error)
-    details = {"code": rej.code, "tenant": rej.tenant,
-               "retry_after_s": round(rej.retry_after_s, 3)}
     cls = (ErrorTooManyRequests if rej.code == "rate_limited"
            else ErrorServiceUnavailable)
-    return cls(req.error, details=details, headers=retry_after_header(rej))
+    return cls(req.error, details=reject_details(req),
+               headers=retry_after_header(rej))
 
 
 def live_tokens(ctx: Any, engine: Engine, req: GenRequest,
@@ -96,7 +107,11 @@ def make_chat_handler(engine: Engine, tokenizer: Any):
 
         prompt_tokens = tokenizer.encode(prompt)
         tenant = ctx.tenant
-        req = engine.submit(prompt_tokens, params, tenant=tenant)
+        # the server's span is active on this thread, so the engine takes
+        # its parent from there; the raw header is the fallback
+        req = engine.submit(prompt_tokens, params,
+                            traceparent=ctx.headers.get("traceparent"),
+                            tenant=tenant)
         if req.error:
             # failed at once: admission refused it
             raise admission_error(req)
@@ -114,8 +129,10 @@ def make_chat_handler(engine: Engine, tokenizer: Any):
                              "text": tokenizer.decode([token])}) + "\n\n")
                     if req.error:
                         # the truncation must show: no [DONE]
-                        yield "data: " + json.dumps({"error": req.error}) \
-                            + "\n\n"
+                        event = {"error": req.error}
+                        if req.reject is not None:
+                            event["details"] = reject_details(req)
+                        yield "data: " + json.dumps(event) + "\n\n"
                     else:
                         yield "data: [DONE]\n\n"
             return Stream(sse())
@@ -124,6 +141,8 @@ def make_chat_handler(engine: Engine, tokenizer: Any):
                                  ctx.request_timeout_s)) as live:
             tokens = list(live)
         if req.error:
+            if req.reject is not None:
+                raise admission_error(req)
             raise HTTPError(f"generation failed: {req.error}",
                             status_code=500)
         tpot_ms = None

@@ -1,9 +1,9 @@
 """A small logger with the JAX package's call shape
-(``gofr_tpu/logging/logger.py``): ``warn / error(message, **fields)``,
-one JSON object a line, ``{"level", "time", "message", **fields}``, on
-stderr. The engine's WARNs (recompiles, cost drift, probe mismatches)
-and errors (a crash, a stall, with the flight recorder's dump) go
-through it.
+(``gofr_tpu/logging/logger.py``): ``info / warn / error(message,
+**fields)``, one JSON object a line, ``{"level", "time", "message",
+**fields}``, on stderr. The engine's WARNs (recompiles, cost drift,
+probe mismatches, incident bundles) and errors (a crash, a restart, a
+stall, with the flight recorder's dump) go through it.
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ class Logger:
         with self._lock:
             out.write(json.dumps(record, default=str) + "\n")
             out.flush()
+
+    def info(self, message: Any, **fields: Any) -> None:
+        self._log("INFO", message, fields)
 
     def warn(self, message: Any, **fields: Any) -> None:
         self._log("WARN", message, fields)

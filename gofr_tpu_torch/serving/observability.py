@@ -1,8 +1,10 @@
 """Serving-path observability (the port's copy of
 ``gofr_tpu/serving/observability.py``): the flight recorder, goodput
-accounting, memory watermarks, the recompile sentinel, tenant usage
-metering, SLO burn-rate tracking, the stall watchdog, and the card's
-peak rate for the MFU gauge.
+accounting, memory watermarks, the recompile sentinel, workload capture
+(the replayable ``gofr-workload`` file), the engine's request spans,
+tenant usage metering, SLO burn-rate tracking, the stall watchdog, the
+card's peak rate for the MFU gauge, and on-demand profiler captures on
+``torch.profiler``.
 
 Everything here is host-side bookkeeping over timestamps and counters
 the engine already collects: no device sync, no host-to-device copy, no
@@ -11,18 +13,21 @@ append-only ``deque`` (appends are atomic under the GIL), request
 summaries are assembled once a request retires, and the MFU gauge is
 host arithmetic over a flops-per-token figure fixed in ``warmup``.
 
-Left out: the workload recorder, engine span assembly and profiler
-capture (the next slice), the fleet summary, and the TPU peak table and
-XLA cost analysis (their counterpart is :func:`device_peak_flops` and
-the engine's model-config flops).
+Left out: the fleet summary, and the TPU peak table and XLA cost
+analysis (their counterpart is :func:`device_peak_flops` and the
+engine's model-config flops).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
+import tempfile
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any
 
@@ -424,6 +429,215 @@ class RecompileSentinel:
                 "known_shapes": len(self._seen)}
 
 
+# ------------------------------------------------- workload capture
+#
+# Versioned workload-file format (JSONL): the first line is a header
+# object, every following line one retired request. The replay module
+# (serving/replay.py) refuses unknown formats and versions, so the
+# header is the compatibility contract; its keys and the records' are
+# the JAX package's, so a workload captured on one package replays on
+# the other.
+WORKLOAD_FORMAT = "gofr-workload"
+WORKLOAD_VERSION = 1
+
+
+def salted_token_hash(tokens: Any, salt: str) -> str:
+    """Stable redaction digest of a token-id sequence. The salt is drawn
+    per recorder (never serialized), so captured hashes cannot be
+    dictionary-attacked against a known tokenizer, while two requests
+    with the same prompt in one capture still collide."""
+    body = ",".join(str(int(t)) for t in tokens)
+    return hashlib.sha256(f"{salt}:{body}".encode()).hexdigest()[:24]
+
+
+class WorkloadRecorder:
+    """Bounded ring of per-request workload records: the traffic, as the
+    :class:`FlightRecorder` keeps the passes. Served as a versioned JSONL
+    file at ``GET /debug/workload``, armed and disarmed by ``POST
+    /debug/workload/start|stop`` or ``EngineConfig.workload_capture``.
+
+    A record is assembled once per request at its end
+    (``Engine._finalize_obs``) from fields the request carries: arrival
+    time, prompt ids, sampling params, the engine's resolved seed,
+    tenant, and the outcome (completion ids, TTFT / TPOT / e2e, status,
+    digest). ``redact=True`` stores salted hashes and lengths instead of
+    the ids: shippable, not replayable (``replay_workload`` refuses it).
+    """
+
+    def __init__(self, size: int = 4096, *, redact: bool = False,
+                 engine_seed: int | None = None) -> None:
+        self.enabled = size > 0
+        self.size = max(0, int(size))
+        self.redact = bool(redact)
+        self.engine_seed = engine_seed
+        self.capturing = False
+        self.started_at: float | None = None
+        self._salt = os.urandom(8).hex()
+        self._records: deque = deque(maxlen=max(1, self.size))
+        self._seq = 0
+        self._dropped = 0
+        #: optional () -> GoodputMeter.summary: the header then carries
+        #: the capture's waste digest
+        self.goodput_source: Any = None
+        #: optional () -> CostModel.table: the header then carries the
+        #: capture's per-signature cost table
+        self.cost_source: Any = None
+
+    # ------------------------------------------------------------ control
+    def start(self, redact: bool | None = None) -> dict:
+        """Arm capture with a fresh ring (a capture is one workload)."""
+        if not self.enabled:
+            return self.status()
+        if redact is not None:
+            self.redact = bool(redact)
+        self._records.clear()
+        self._seq = 0
+        self._dropped = 0
+        self.started_at = time.time()
+        self.capturing = True
+        return self.status()
+
+    def stop(self) -> dict:
+        self.capturing = False
+        return self.status()
+
+    def status(self) -> dict:
+        return {"enabled": self.enabled, "capturing": self.capturing,
+                "redact": self.redact, "size": self.size,
+                "records": len(self._records), "recorded": self._seq,
+                "dropped": self._dropped, "started_at": self.started_at}
+
+    # ------------------------------------------------------------ writer
+    def record(self, req: Any) -> None:
+        """One ended request -> one record (an append to a bounded deque
+        on the engine thread)."""
+        if not (self.enabled and self.capturing):
+            return
+        self._seq += 1
+        if len(self._records) == self._records.maxlen:
+            self._dropped += 1
+        p = req.params
+        status = ("cancelled" if req.cancelled
+                  else "error" if req.error is not None else "ok")
+        end = req.finished_at
+        n = len(req.generated)
+        tpot_ms = None
+        if req.first_token_at is not None and end is not None and n > 1:
+            tpot_ms = (end - req.first_token_at) * 1000.0 / (n - 1)
+        rec: dict = {
+            "t": req.submitted_at,
+            "tenant": getattr(req, "tenant", None),
+            # every request shares the engine's resolved seed; recorded
+            # per request so the format survives a per-request generator
+            "seed": self.engine_seed,
+            "params": {"temperature": p.temperature, "top_p": p.top_p,
+                       "top_k": p.top_k,
+                       "max_new_tokens": p.max_new_tokens},
+            "status": status,
+        }
+        if self.redact:
+            rec["prompt_hash"] = salted_token_hash(req.prompt_tokens,
+                                                   self._salt)
+            rec["prompt_len"] = len(req.prompt_tokens)
+            rec["completion_hash"] = salted_token_hash(req.generated,
+                                                       self._salt)
+            rec["completion_len"] = n
+        else:
+            rec["prompt_tokens"] = list(req.prompt_tokens)
+            rec["completion_tokens"] = list(req.generated)
+        if getattr(req, "digest", None):
+            rec["digest"] = req.digest
+        if req.error is not None:
+            rec["error"] = str(req.error)[:200]
+        if req.ttft_ms is not None:
+            rec["ttft_ms"] = round(req.ttft_ms, 3)
+        if tpot_ms is not None:
+            rec["tpot_ms"] = round(tpot_ms, 3)
+        if end is not None:
+            rec["e2e_ms"] = round((end - req.submitted_at) * 1000.0, 3)
+        self._records.append(rec)
+
+    # ------------------------------------------------------------ readers
+    def header(self) -> dict:
+        out = {"format": WORKLOAD_FORMAT, "version": WORKLOAD_VERSION,
+               "redacted": self.redact, "engine_seed": self.engine_seed,
+               "started_at": self.started_at, "recorded": self._seq,
+               "dropped": self._dropped}
+        if self.goodput_source is not None:
+            try:
+                g = self.goodput_source()
+                if g and g.get("busy_s"):
+                    out["goodput"] = g
+            except Exception:
+                pass
+        if self.cost_source is not None:
+            try:
+                costs = self.cost_source()
+                if costs:
+                    out["costs"] = costs
+            except Exception:
+                pass
+        return out
+
+    def snapshot(self, n: int | None = None) -> dict:
+        records = list(self._records)
+        if n is not None and n > 0:
+            records = records[-n:]
+        return {"header": self.header(), "records": records}
+
+    def to_jsonl(self, n: int | None = None) -> str:
+        """The ``GET /debug/workload`` body: the header line, then one
+        line per record in the ring's (retire) order."""
+        snap = self.snapshot(n)
+        lines = [json.dumps(snap["header"])]
+        lines.extend(json.dumps(rec) for rec in snap["records"])
+        return "\n".join(lines) + "\n"
+
+
+def emit_engine_spans(tracer: Any, req: Any) -> None:
+    """Assemble a finished request's ``engine.*`` spans and export them
+    through ``tracer``, once, from host timestamps the request already
+    holds: ``engine.request`` (the parent: the caller's span or inbound
+    ``traceparent``, ``req.trace`` = (trace_id, parent_span_id)), then
+    ``engine.queue``, one span per lifecycle event (``engine.prefill``
+    per group prefill or chunk), ``engine.decode`` and
+    ``engine.retire``."""
+    trace = getattr(req, "trace", None)
+    if tracer is None or trace is None:
+        return
+    trace_id, parent_id = trace
+    end = req.finished_at or time.time()
+    status = "OK" if req.error is None else f"ERROR: {req.error}"
+    attrs = {"prompt_tokens": len(req.prompt_tokens),
+             "generated_tokens": len(req.generated),
+             "slot": req.slot, "cancelled": req.cancelled}
+    if getattr(req, "tenant", None):
+        attrs["tenant"] = req.tenant
+    root = tracer.emit_span(
+        "engine.request", trace_id=trace_id, parent_id=parent_id,
+        start_time=req.submitted_at, end_time=end, status=status,
+        attributes=attrs)
+    admit = req.admitted_at or req.first_token_at or end
+    tracer.emit_span("engine.queue", trace_id=trace_id,
+                     parent_id=root.span_id, start_time=req.submitted_at,
+                     end_time=admit)
+    for name, t0, t1, ev_attrs in req.events:
+        tracer.emit_span(f"engine.{name}", trace_id=trace_id,
+                         parent_id=root.span_id, start_time=t0,
+                         end_time=t1, attributes=ev_attrs)
+    if req.first_token_at is not None:
+        n = len(req.generated)
+        tpot = ((end - req.first_token_at) / (n - 1)) if n > 1 else None
+        tracer.emit_span(
+            "engine.decode", trace_id=trace_id, parent_id=root.span_id,
+            start_time=req.first_token_at, end_time=end,
+            attributes={"tokens": n,
+                        "tpot_s": round(tpot, 6) if tpot else None})
+    tracer.emit_span("engine.retire", trace_id=trace_id,
+                     parent_id=root.span_id, start_time=end, end_time=end,
+                     attributes={"error": req.error or ""})
+
+
 # ----------------------------------------------------- usage metering
 def parse_window(spec: str | None) -> float | None:
     """``"5m"``/``"1h"``/``"30s"``/``"300"`` -> seconds; None/'' -> None
@@ -625,6 +839,9 @@ class SLOTracker:
         self.logger = logger
         #: EventLedger fast-burn episodes are recorded on (app wiring)
         self.events = NO_EVENTS
+        #: optional zero-arg hook fired once per fast-burn episode: the
+        #: app's incident trigger rides here
+        self.on_fast_burn = None
         self._lock = threading.Lock()
         horizons = tuple(sorted(set(
             tuple(self.config.windows) + (self.config.budget_window_s,))))
@@ -754,6 +971,12 @@ class SLOTracker:
                 burn_rate=state["fast_burn"]["burn_rate"],
                 window=state["fast_burn"]["window"],
                 budget_remaining=state["budget"]["remaining"])
+            hook = self.on_fast_burn
+            if hook is not None:
+                try:
+                    hook()
+                except Exception:  # noqa: BLE001 — never fail a retire
+                    pass
         elif not tripped:
             self._escalated = False  # episode over; re-arm
 
@@ -769,9 +992,9 @@ class StallWatchdog:
     - dumps the flight recorder through the engine's logger (the last
       passes before the hang are the post-mortem),
     - bumps ``stats["stalls"]`` and the ``app_engine_stalls`` counter,
-    - records a ``fleet.stall`` event (the JAX engine also emits an
-      ``engine.stall`` span through its tracer; the port has no tracer
-      yet).
+    - emits an ``engine.stall`` span through the engine's tracer, when
+      it has one,
+    - records a ``fleet.stall`` event.
 
     Everything runs on this thread against host-side state; the loop is
     never touched. It re-arms when the engine recovers, so a flapping
@@ -829,6 +1052,12 @@ class StallWatchdog:
                              reason=f"stall: no pass for {stalled_for}s")
         if engine.metrics is not None:
             engine.metrics.increment_counter("app_engine_stalls")
+        tracer = getattr(engine, "tracer", None)
+        if tracer is not None:
+            tracer.start_span("engine.stall", attributes={
+                "stalled_for_s": stalled_for,
+                "active_slots": health.get("active_slots"),
+                "waiting": health.get("waiting")}).end()
         engine.events.emit(
             "fleet.stall", severity="error",
             cause="no pass completed",
@@ -857,3 +1086,197 @@ def device_peak_flops(device: torch.device | str | None = None
     name = torch.cuda.get_device_name(dev)
     return next((peak for key, peak in GPU_PEAK_FLOPS.items()
                  if key in name), None)
+
+
+# -------------------------------------------------------------- profiler
+#: where captures land unless told otherwise: ``gofr_tpu_profiles`` under
+#: the process's temporary directory (``TMPDIR``)
+DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(),
+                                   "gofr_tpu_profiles")
+
+#: the capture running in this process, if any: torch.profiler keeps one
+#: device trace per process, so every :class:`ProfilerCapture` shares it
+_ACTIVE_CAPTURE: dict = {"dir": None}
+_ACTIVE_LOCK = threading.Lock()
+
+
+def _torch_profiler_running() -> bool:
+    """True while some ``torch.profiler`` session runs in this process
+    (torch's process-wide flag, set by every profile's start); False when
+    this torch has no such flag."""
+    from torch.autograd import profiler as autograd_profiler
+    return bool(getattr(autograd_profiler, "_is_profiler_enabled", False))
+
+
+class ProfilerCapture:
+    """On-demand ``torch.profiler`` capture with single-flight semantics
+    (the counterpart of the JAX package's wrapper of
+    ``jax.profiler.start_trace`` / ``stop_trace``): the state machine
+    behind ``POST /debug/profile/start`` and ``/debug/profile/stop`` and
+    the engine's autoprofiler. A start while a capture runs (this one,
+    another instance's, or any ``torch.profiler`` session of the process)
+    is refused with ``{"ok": False}``; a stop without a start reports
+    cleanly. The trace covers the card's kernels (graph replays
+    included) and this process's host ops, and is written as a Chrome
+    trace, ``trace.json``, in the capture's directory at stop.
+
+    Every start and stop runs on one owner thread of the instance:
+    torch's profiler state is per thread, so a capture started on one
+    HTTP request thread must be stopped on the same thread, whichever
+    request or timer asks.
+
+    A capture started with ``max_capture_s`` (per start, or the
+    constructor's default) is stopped by a daemon timer at that age.
+    ``stop(force=True)`` recovers a leaked capture: it stops the
+    underlying profiler even when this state machine thinks nothing
+    runs, and swallows the stop's error, so the next start works."""
+
+    def __init__(self, base_dir: str | None = None, logger: Any = None,
+                 max_capture_s: float = 0.0) -> None:
+        self.base_dir = base_dir or DEFAULT_PROFILE_DIR
+        self.logger = logger
+        #: default auto-stop age of every capture; 0 = unbounded
+        self.max_capture_s = max(0.0, float(max_capture_s))
+        self._lock = threading.Lock()
+        self._active_dir: str | None = None
+        self._started_at: float | None = None
+        self._timer: threading.Timer | None = None
+        self._profile: Any = None
+        self._owner: ThreadPoolExecutor | None = None
+        self.auto_stops = 0
+
+    def _on_owner(self, fn):
+        """Run ``fn`` on the owner thread and return its result."""
+        if self._owner is None:
+            self._owner = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gofr-profiler")
+        return self._owner.submit(fn).result()
+
+    @staticmethod
+    def _new_profile():
+        """A profile of the card's kernels and the host ops of every
+        thread (the engine's, the HTTP handlers'), where this torch can
+        record other threads than the one that starts it."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+            config = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            config = None
+        return profile(activities=activities, experimental_config=config)
+
+    def start(self, trace_dir: str | None = None, *,
+              max_capture_s: float | None = None) -> dict:
+        with self._lock:
+            if self._active_dir is not None:
+                return {"ok": False, "error": "capture already running",
+                        "dir": self._active_dir}
+            path = trace_dir or os.path.join(
+                self.base_dir, time.strftime("%Y%m%d-%H%M%S")
+                + f"-{os.urandom(2).hex()}")
+            with _ACTIVE_LOCK:
+                if _ACTIVE_CAPTURE["dir"] is not None:
+                    return {"ok": False, "error": "capture already running",
+                            "dir": _ACTIVE_CAPTURE["dir"]}
+                if _torch_profiler_running():
+                    return {"ok": False, "error": "a torch.profiler session "
+                            "is already running in this process"}
+                try:
+                    os.makedirs(path, exist_ok=True)
+                    prof = self._new_profile()
+                    self._on_owner(prof.start)
+                except Exception as exc:
+                    return {"ok": False,
+                            "error": f"{type(exc).__name__}: {exc}"}
+                _ACTIVE_CAPTURE["dir"] = path
+            self._profile = prof
+            self._active_dir = path
+            self._started_at = time.time()
+            cap = self.max_capture_s if max_capture_s is None \
+                else max(0.0, float(max_capture_s))
+            if cap > 0:
+                self._timer = threading.Timer(cap, self._expire, (path,))
+                self._timer.daemon = True
+                self._timer.start()
+            if self.logger is not None:
+                self.logger.info(f"profiler capture started: {path}")
+            return {"ok": True, "dir": path}
+
+    def _expire(self, path: str) -> None:
+        """The timer's body: stop the capture only if it is still the one
+        the timer was armed for."""
+        with self._lock:
+            if self._active_dir != path:
+                return
+            self.auto_stops += 1
+        result = self.stop()
+        if self.logger is not None and result.get("ok"):
+            self.logger.warn(
+                f"profiler capture auto-stopped at max_capture_s: {path}")
+
+    def _stop_profile(self, prof, path: str | None) -> None:
+        """On the owner thread: stop ``prof`` and write its trace."""
+        prof.stop()
+        if path is not None:
+            prof.export_chrome_trace(os.path.join(path, "trace.json"))
+
+    def stop(self, force: bool = False) -> dict:
+        with self._lock:
+            timer, self._timer = self._timer, None
+            if timer is not None:
+                timer.cancel()
+            if self._active_dir is None:
+                if not force:
+                    return {"ok": False, "error": "no capture running"}
+                # a leaked capture (a failed stop cleared the state while
+                # the profile kept running): stop it, so the state
+                # machine and torch agree again
+                prof, self._profile = self._profile, None
+                if prof is not None:
+                    try:
+                        self._on_owner(prof.stop)
+                    except Exception:
+                        pass
+                with _ACTIVE_LOCK:
+                    _ACTIVE_CAPTURE["dir"] = None
+                if self.logger is not None:
+                    self.logger.warn(
+                        "profiler force-stop: recovered a leaked capture")
+                return {"ok": True, "recovered": True, "dir": None}
+            path, started = self._active_dir, self._started_at
+            prof = self._profile
+            try:
+                self._on_owner(lambda: self._stop_profile(prof, path))
+            except Exception as exc:
+                self._active_dir = self._started_at = None
+                if not force:
+                    # the profile stays held as leaked: stop(force=True)
+                    # recovers it
+                    return {"ok": False, "dir": path,
+                            "error": f"{type(exc).__name__}: {exc}"}
+                if self.logger is not None:
+                    self.logger.warn(f"profiler force-stop swallowed: {exc!r}")
+                self._release(path)
+                return {"ok": True, "recovered": True, "dir": path,
+                        "error": f"{type(exc).__name__}: {exc}"}
+            # running until the trace is written
+            self._active_dir = self._started_at = None
+            self._release(path)
+            if self.logger is not None:
+                self.logger.info(f"profiler capture stopped: {path}")
+            return {"ok": True, "dir": path,
+                    "duration_s": round(time.time() - started, 3)
+                    if started else None}
+
+    def _release(self, path: str) -> None:
+        self._profile = None
+        with _ACTIVE_LOCK:
+            if _ACTIVE_CAPTURE["dir"] == path:
+                _ACTIVE_CAPTURE["dir"] = None
+
+    def status(self) -> dict:
+        return {"running": self._active_dir is not None,
+                "dir": self._active_dir, "auto_stops": self.auto_stops}

@@ -18,7 +18,9 @@ a stop sequence or end in a split character), a terminal chunk with
 ``finish_reason``, then ``data: [DONE]``; a failure sends an ``error``
 event and no ``[DONE]``. Errors: ``invalid_request_error`` 400,
 ``rate_limit_error`` 429 and ``server_error`` 503 with ``Retry-After``
-for refused admissions, ``server_error`` 500 for a failed generation.
+for refused admissions and for a typed failure during generation (the
+engine restarted mid-stream), ``server_error`` 500 for any other failed
+generation.
 """
 
 from __future__ import annotations
@@ -44,6 +46,20 @@ class _OpenAIError(HTTPError):
                  param: str | None = None) -> None:
         super().__init__(message, status_code=status,
                          details={"type": err_type, "param": param})
+
+
+def _typed_error(req: GenRequest) -> _OpenAIError:
+    """A refused or typed-failed request: ``rate_limit_error`` 429 for a
+    rate limit, else ``server_error`` 503, with ``Retry-After`` when the
+    reject is typed."""
+    rej = req.reject
+    limited = rej is not None and rej.code == "rate_limited"
+    err = _OpenAIError(req.error, status=429 if limited else 503,
+                       err_type="rate_limit_error" if limited
+                       else "server_error")
+    if rej is not None:
+        err.headers.update(retry_after_header(rej))
+    return err
 
 
 def _content_text(content: Any) -> str:
@@ -164,19 +180,11 @@ class OpenAIRoutes:
         params = _params_from(body)
         stops = _stops_from(body)
         prompt_tokens = self.tokenizer.encode(prompt)
-        req = self.engine.submit(prompt_tokens, params, tenant=ctx.tenant)
+        req = self.engine.submit(prompt_tokens, params,
+                                 traceparent=ctx.headers.get("traceparent"),
+                                 tenant=ctx.tenant)
         if req.error:
-            rej = req.reject
-            if rej is not None:
-                limited = rej.code == "rate_limited"
-                err = _OpenAIError(
-                    req.error, status=429 if limited else 503,
-                    err_type="rate_limit_error" if limited
-                    else "server_error")
-                err.headers.update(retry_after_header(rej))
-                raise err
-            raise _OpenAIError(req.error, status=503,
-                               err_type="server_error")
+            raise _typed_error(req)
         oid = ("chatcmpl-" if chat else "cmpl-") + secrets.token_hex(12)
         created = int(time.time())
         if body.get("stream"):
@@ -196,6 +204,8 @@ class OpenAIRoutes:
                     if stopped:
                         break
         if req.error:
+            if req.reject is not None:
+                raise _typed_error(req)
             raise _OpenAIError(f"generation failed: {req.error}",
                                status=500, err_type="server_error")
         text, hit = _cut_at_stop(self.tokenizer.decode(tokens), stops)

@@ -194,7 +194,9 @@ def test_a_failed_request_ends_its_stream_and_a_refused_one_at_once(weights):
     assert req.error == "engine crashed: RuntimeError: planted decode fault"
     assert _drained(req) == []
     refused = eng.submit([1, 2], SamplingParams(max_new_tokens=4))
-    assert refused.error.startswith("engine crashed")
+    # the JAX engine's typed refusal of a crashed engine
+    assert refused.error == "engine not accepting requests"
+    assert refused.reject.code == "engine_down"
     assert list(eng.stream_request(refused)) == []
     assert not refused.cancelled
 
