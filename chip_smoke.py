@@ -185,6 +185,24 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              ``MODEL_QUANT=int8``), one greedy ``POST /chat``: its tokens
              bit for bit the in-memory int8 engine's, its prompt counted
              by the BPE tokenizer.
+9. serve_moe — the Mixtral-style MoE family (``moe_engine``) at
+             Mixtral-8x7B width, 8 of its 32 layers, random bf16 weights,
+             through the app on the slot layout, the paged layout's dense
+             view (bf16, and int8 with decode windows 512 / 1024) and the
+             slot layout with those windows: four waves (serve's wave 1,
+             the 1801-token prompt clamped to the widest bucket, a
+             101-token and a 1001-token prompt), checks (a)-(f) with their
+             planted faults (``phase_serve_moe``' docstring): slot = view
+             bit for bit, windows = the full graph, the int8 pool through
+             the slab kernel, flash vs plain logits at D = 128, graphs and
+             uploads, a restart keeping graphs and memory. Also the
+             decode step's MoE-MLP share, the view's gather and
+             write-back ms and the peak memory. Its flash and slab
+             launches are the D = 128 kernel rows' (``flash_attention_
+             d128``, ``kv_write_view_d128`` / ``_int8``: the flash kernel
+             at Mixtral's heads, P 4, S 512, and the slab write of a
+             decode dispatch's view write-back, both forms, each with its
+             planted fault, among the kernel rows above).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -346,9 +364,9 @@ def phase_build() -> None:
           "per_kernel_s": secs, "ptxas": _build.build_logs})
 
 
-def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512)):
+def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512), d=64):
     import torch
-    hq, hkv, d = 32, 8, 64
+    hq, hkv = 32, 8
     q = torch.randn(p, s, hq, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
@@ -356,9 +374,12 @@ def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512)):
     return q, k, v, lens
 
 
-def kernel_flash(dev, gen, wide: bool = False) -> dict:
+def kernel_flash(dev, gen, wide: bool = False, d128: bool = False) -> dict:
     """The flash kernel at the smoke's P = 4, S = 512 case, or (``wide``)
-    at wave 1's widest bucket: one prompt, S = 1024, kv_lengths 901."""
+    at wave 1's widest bucket: one prompt, S = 1024, kv_lengths 901; or
+    (``d128``) the P = 4, S = 512 case at Mixtral's head_dim 128, the
+    kernel's D = 128 instantiation that ``serve_moe`` launches (its
+    launches are read from that phase)."""
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -368,6 +389,11 @@ def kernel_flash(dev, gen, wide: bool = False) -> dict:
         name, shape = ("flash_attention_s1024",
                        "P=1 S=1024 Hq=32 Hkv=8 D=64 bf16, kv_lengths 901 "
                        "(wave 1's widest bucket)")
+    elif d128:
+        q, k, v, lens = _flash_case(dev, gen, d=128)
+        name, shape = ("flash_attention_d128",
+                       "P=4 S=512 Hq=32 Hkv=8 D=128 bf16, kv_lengths "
+                       "1/200/511/512 (Mixtral-8x7B's heads)")
     else:
         q, k, v, lens = _flash_case(dev, gen)
         name, shape = ("flash_attention", "P=4 S=512 Hq=32 Hkv=8 D=64 bf16, "
@@ -430,6 +456,7 @@ def kernel_flash(dev, gen, wide: bool = False) -> dict:
     row = {"name": name, "wrapper": "flash_attention", "route": "cuda",
            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
            "replaces": "gofr_tpu/ops/flash_attention.py:33",
+           **({"launches_from": "serve_moe"} if d128 else {}),
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
@@ -1434,6 +1461,116 @@ def kernel_kv_write_prefill(dev, gen) -> list:
         rows.append(row)
         del dst, library
     del k_slab, v_slab, k_pool, v_pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_kv_write_view(dev, gen) -> list:
+    """The slab entry of the KV write kernel at head_dim 128, at the
+    dense view's write-back in ``serve_moe`` (``scatter_decode_kv``, one
+    launch for every layer, K and V together): the T = 8 rows a decode
+    dispatch appended to each of 8 slots of a [8 layers, 8 slots, 2048
+    rows, Hkv 8, 128] view, into the pool of 256 pages of 64 rows. Slot
+    lengths 0 / 1 / 63 / 64 / 900 / 1000 / 2044 (4 of its rows past the
+    view, dropped) / 2048 (parked at ``max_seq``: every row dropped), the
+    last slot's table all out of range. One row per pool form, bit for
+    bit against the plain writer (``scatter_chunk_kv_plain`` of the same
+    rows); planted fault: the rows written one offset late.
+    ``library_ms``: ``index_copy_`` of the in-range rows, as the other
+    write rows."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (_appended, _chunk_coords,
+                                             quantize_pool, scatter_chunk_kv,
+                                             scatter_chunk_kv_plain,
+                                             scatter_decode_kv)
+    n_layers, hkv, d, n_pages, pg, b, steps, width = 8, 8, 128, 256, 64, \
+        8, 8, 2048
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    mp = width // pg
+    tables = torch.randperm(n_pages, generator=gen, device=dev).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = n_pages                          # an idle slot
+    lengths = torch.tensor([0, 1, 63, 64, 900, 1000, 2044, 2048],
+                           dtype=torch.int32, device=dev)
+    view = (n_layers, b, width, hkv, d)
+    k_view = torch.randn(view, generator=gen, device=dev).bfloat16()
+    v_view = torch.randn(view, generator=gen, device=dev).bfloat16()
+    k_rows, keep = _appended(k_view, lengths, steps)
+    v_rows, _ = _appended(v_view, lengths, steps)
+    pids, offs = _chunk_coords(k_pool, tables, lengths, keep, steps)
+    live = int(((pids < n_pages).sum()).item())
+    rows = []
+    for quantized in (False, True):
+        kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
+                  else (k_pool, v_pool))
+        wrapper = "scatter_chunk_kv" + ("_int8" if quantized else "")
+        name = "kv_write_view_d128" + ("_int8" if quantized else "")
+        want = scatter_chunk_kv_plain(_clone_pool(kp), _clone_pool(vp),
+                                      tables, k_rows, v_rows, lengths, keep)
+        got = scatter_decode_kv(_clone_pool(kp), _clone_pool(vp), tables,
+                                k_view, v_view, lengths, steps)
+        fault = scatter_chunk_kv(_clone_pool(kp), _clone_pool(vp), tables,
+                                 k_rows, v_rows, lengths + 1, keep)
+        torch.cuda.synchronize()
+        err, equal = _pools_diff(got, want)
+        fault_err, fault_equal = _pools_diff(fault, want)
+        emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
+              "bit_equal": equal, "planted_fault": "rows_one_offset_late",
+              "planted_fault_max_abs_err": fault_err,
+              "planted_fault_bit_equal": fault_equal})
+        if not equal:
+            raise AssertionError(f"{name}: kernel pools differ from the "
+                                 f"plain version's (max abs {err})")
+        if fault_equal:
+            raise AssertionError(f"{name} check passed a planted fault "
+                                 f"(rows_one_offset_late)")
+        del got, fault, want
+        dst = (_clone_pool(kp), _clone_pool(vp))
+        library = _library_write(*dst, pids, offs, k_rows, v_rows)
+        args = (tables, k_view, v_view, lengths, steps)
+        ms = time_ms(lambda: scatter_decode_kv(*dst, *args))
+        plain_ms = time_ms(lambda: scatter_chunk_kv_plain(
+            *dst, tables, k_rows, v_rows, lengths, keep))
+        lib_ms = time_ms(library)
+        dev_ms = device_ms(lambda: scatter_decode_kv(*dst, *args))
+        kernel_dev_ms = device_ms(lambda: scatter_decode_kv(*dst, *args),
+                                  only="kv_write_slab")
+        lib_dev_ms = device_ms(library)
+        bound_ms, bound_by = bound(0.0, _write_bytes(n_layers, live, hkv, d,
+                                                     quantized)
+                                   + 8 * b * steps)
+        row = {"name": name, "wrapper": wrapper, "route": "cuda",
+               "source": "gofr_tpu_torch/csrc/kv_write.cu",
+               "replaces": "gofr_tpu/ops/paged_kv.py:216",
+               "replaces_note": "scatter_decode: XLA's scatter (.at[].set, "
+                                "mode='drop', quantize_rows for int8), "
+                                "not a pallas_call",
+               "launches_from": "serve_moe",
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "kernel_device_ms": kernel_dev_ms,
+               "device_ms_note": "device_ms: the call's kernels, the "
+                                 "appended rows' gather and the page ids "
+                                 "included; kernel_device_ms: the slab "
+                                 "kernel alone",
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms,
+               "library_note": "no single library call; nearest path: "
+                               "index_copy_ of every layer's in-range K "
+                               "and V rows into each pool leaf (selection"
+                               + (", quantize" if quantized else "")
+                               + " beforehand, untimed)"}
+        emit({"phase": "kernel", "shape": f"scatter_decode_kv, 1 launch for "
+              f"all {n_layers} layers: {b} slots x {steps} rows of a "
+              f"[{n_layers}, {b}, {width}, {hkv}, {d}] view, {live} rows in "
+              f"range, Np={n_pages} pg={pg}, "
+              + ("int8 {q, s}" if quantized else "bf16"),
+              "kernel_ms": ms, **row})
+        rows.append(row)
+        del dst, library
+    del k_view, v_view, k_pool, v_pool
     torch.cuda.empty_cache()
     return rows
 
@@ -5287,6 +5424,529 @@ def phase_serve_preempt(dev, smi_line: str) -> dict:
     return launches
 
 
+def _moe_waves() -> list:
+    """serve_moe's waves: serve's wave 1 (4 prompts, one a bucket), the
+    1801-token prompt (clamped to the widest bucket: the family has no
+    chunk walk), a 101-token prompt alone (it decodes inside the 512-row
+    window) and a 1001-token prompt: one letter 512 times, then seeded
+    random letters. A random model's attention averages the values of
+    its rows, and over the repeated phrases of the other prompts any
+    window's average looks alike; over this one a 512-row window sees
+    one row's value, the whole prompt another average."""
+    import random
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+    rng = random.Random(7)
+    letters = "a" * 511 + "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ")
+                                  for _ in range(489))
+    return [[(words * 20)[:n] for n in (20, 150, 400, 900)],
+            [(story * 30)[:1800]], [(story * 2)[:100]], [letters]]
+
+
+MOE_WAVES = _moe_waves()
+MOE_NEW = 32
+MOE_WINDOWS = (512, 1024)
+
+
+def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
+             engine=None, **overrides) -> dict:
+    """Serve ``waves`` (each one concurrent batch of greedy ``POST
+    /chat``, 32 new tokens) through the app over ``moe_engine`` on
+    ``serve_config`` + ``overrides``, warmed up first (its decode graphs
+    captured); or through ``engine`` when given (already warm, left
+    running for the caller to stop). Returns the answers, the
+    counters, the dispatch records of the run and its engine."""
+    import torch
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv
+    from gofr_tpu_torch.serving.app import build_server, serve_config
+    from gofr_tpu_torch.serving.glue import moe_engine
+    t0 = time.perf_counter()
+    own = engine is None
+    warmup_s = None
+    if own:
+        engine = moe_engine(params, cfg, serve_config(
+            cfg, autoprof=False, **overrides), device=dev)
+        warmup_s = engine.warmup()
+    captures_warm = engine.stats["graph_captures"]
+    before = engine.recorder.snapshot()
+    seq0, requests0 = before["passes_recorded"], len(before["requests"])
+    server = build_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    counters = {"flash_attention": (flash_attention, "launches"),
+                "scatter_chunk_kv": (scatter_chunk_kv, "launches"),
+                "scatter_chunk_kv_int8": (scatter_chunk_kv, "launches_int8")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    windows0 = dict(engine._decode_graph.passes_by_window)
+    engine.start()
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/chat"
+    answers: list = []
+    walls = []
+
+    def ask(prompt, out, i):
+        try:
+            out[i] = _post(url, {"prompt": prompt, "max_tokens": MOE_NEW,
+                                 "temperature": 0})
+        except urllib.error.HTTPError as exc:     # a typed refusal
+            out[i] = (exc.code, {})
+
+    try:
+        for wave in waves:
+            got: list = [None] * len(wave)
+            w0 = time.perf_counter()
+            workers = [threading.Thread(target=ask, args=(p, got, i))
+                       for i, p in enumerate(wave)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=600)
+            walls.append(time.perf_counter() - w0)
+            answers += got
+        torch.cuda.synchronize()
+        launches = {k: getattr(fn, attr) for k, (fn, attr)
+                    in counters.items()}
+        stats = dict(engine.stats)
+        after = engine.recorder.snapshot()
+        passes = [p for p in after["passes"] if p["seq"] > seq0]
+        served = [r["prompt_tokens"] for r in after["requests"][requests0:]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        if own:
+            engine.stop()
+        thread.join(timeout=30)
+    ok = [a is not None and a[0] == 201 for a in answers]
+    usage = [a[1]["data"]["usage"] if good else None
+             for a, good in zip(answers, ok)]
+    tokens = [a[1]["data"]["tokens"] if good else None
+              for a, good in zip(answers, ok)]
+    windows = {str(w): n - windows0.get(w, 0) for w, n in
+               engine._decode_graph.passes_by_window.items()}
+    out = {"phase": "serve_moe", "run": name, "card": smi_line,
+           "config": {k: overrides[k] for k in sorted(overrides)},
+           "answers_201": sum(ok), "requests": len(answers),
+           "prompt_tokens": [u and u["prompt_tokens"] for u in usage],
+           "engine_prompt_tokens": sorted(served),
+           "completion_tokens": [t and len(t) for t in tokens],
+           "ttft_ms": [u and u["ttft_ms"] for u in usage],
+           "wall_s_per_wave": walls,
+           "decode_tokens_per_s": (stats["decode_tokens"]
+                                   / max(stats["decode_s"], 1e-9)),
+           "decode_passes": stats["decode_passes"],
+           "passes_by_window": windows, "warmup_s": warmup_s,
+           "graph_captures_after_warmup": captures_warm,
+           "graph_captures": stats["graph_captures"],
+           "sched_syncs": stats["sched_syncs"],
+           "h2d_transfers": stats["h2d_transfers"],
+           "launches": launches, "run_wall_s": time.perf_counter() - t0}
+    emit(out)
+    return {**out, "tokens": tokens, "passes": passes, "engine": engine}
+
+
+def _same_tokens(run, ref, answers=None) -> list:
+    """[] when ``run`` gave ``ref``'s tokens (those of ``ref``'s answers
+    at the indices ``answers``, the waves ``run`` served; None: all),
+    else where they differ."""
+    got = run["tokens"]
+    want = ref["tokens"] if answers is None else [ref["tokens"][i]
+                                                  for i in answers]
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        return [f"tokens differ from {ref['run']} at answers {bad}"]
+    return []
+
+
+def _complete_faults(run) -> list:
+    """Every answer 201 with 32 tokens; the 1801-token prompt (counted
+    1801 by the tokenizer, in the answer's usage) served as its last
+    1024 tokens: the widest bucket."""
+    out = []
+    if run["answers_201"] != run["requests"]:
+        out.append(f"{run['requests'] - run['answers_201']} answers not 201")
+    elif run["completion_tokens"] != [MOE_NEW] * run["requests"]:
+        out.append(f"completion tokens {run['completion_tokens']}")
+    if 1801 in run["prompt_tokens"] and (
+            max(run["engine_prompt_tokens"]) != 1024):
+        out.append(f"the engine served prompts of "
+                   f"{run['engine_prompt_tokens']} tokens: the 1801-token "
+                   f"one was not clamped to the widest bucket's 1024")
+    return out
+
+
+def _window_faults(run, ref) -> list:
+    """(b) the windowed run's tokens are the full graph's, and its 512,
+    1024 and full graphs were each replayed."""
+    out = _same_tokens(run, ref)
+    used = run["passes_by_window"]
+    if not all(used.get(str(w), 0) > 0 for w in (*MOE_WINDOWS, 0)):
+        out.append(f"not every window graph was replayed: {used}")
+    return out
+
+
+def _int8_faults(run) -> list:
+    """(c) the int8 pool completes every request, and its prefill and
+    write-back went through the slab kernel's int8 entry only."""
+    out = _complete_faults(run)
+    if run["launches"]["scatter_chunk_kv_int8"] < 1 or \
+            run["launches"]["scatter_chunk_kv"]:
+        out.append(f"slab launches {run['launches']}: the int8 counter "
+                   f"must rise, the bf16 one stay 0")
+    return out
+
+
+def _graph_faults(run, n_windows: int, paged: bool) -> list:
+    """(e) one captured graph per window and the full one, for greedy
+    and sampled batches, all in warmup; none while serving; and no state
+    upload in a steady-state dispatch: a decode pass whose occupancy is
+    the previous decode pass's, with no prefill collected between. On the
+    paged layout such a pass may carry one table upload (a slot's table
+    grew a page, an event of its own); a state sync is 7 uploads."""
+    out = []
+    want = 2 * (1 + n_windows)
+    if run["graph_captures_after_warmup"] != want:
+        out.append(f"{run['graph_captures_after_warmup']} graphs captured "
+                   f"in warmup, not {want}")
+    if run["graph_captures"] != run["graph_captures_after_warmup"]:
+        out.append(f"{run['graph_captures'] - run['graph_captures_after_warmup']}"
+                   f" captures while serving")
+    steady, uploads, last = 0, [], None
+    for rec in run["passes"]:
+        if rec.get("kind") != "decode":
+            last = None
+            continue
+        if last is not None and rec.get("occupancy") == last:
+            steady += 1
+            if rec.get("h2d", 0) > (1 if paged else 0):
+                uploads.append(rec["h2d"])
+        last = rec.get("occupancy")
+    run["steady_passes"], run["steady_uploads"] = steady, uploads
+    if not steady or uploads:
+        out.append(f"{steady} steady-state dispatches, uploads {uploads}")
+    return out
+
+
+def _moe_restart(engine, params, cfg, dev, smi_line, name: str) -> list:
+    """(f) a restart on the slot layout (``pass_raise`` at the loop's
+    third turn, a restart policy, the 101-token wave served through it,
+    then once more after it) keeps the captured graphs and the device
+    memory: ``graph_captures``, ``torch.cuda.memory_allocated()`` and the
+    caches' addresses equal before and after, one restart, the wave
+    after it answered 201. Returns the faults found."""
+    import torch
+    from gofr_tpu_torch.serving.engine import RestartPolicy
+    from gofr_tpu_torch.serving.faults import FaultPlan
+    engine.faults = FaultPlan.parse("pass_raise:at=3")
+    engine.faults.events = engine.events
+    engine.config.restart_policy = RestartPolicy(backoff_s=0.01)
+    engine._restarts = 0
+    if name.startswith("planted"):
+        # the fault the check is for: a restart that reallocates the
+        # caches (as JAX's does when a donated pass consumed them), so
+        # the captured graphs no longer hold them
+        reset = engine._reset_runtime_state
+
+        def reallocating():
+            reset()
+            engine.k_cache = engine.k_cache.clone()
+            engine.v_cache = engine.v_cache.clone()
+
+        engine._reset_runtime_state = reallocating
+
+    def state():
+        torch.cuda.synchronize()
+        return {"graph_captures": engine._decode_graph.captures,
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "caches": [engine.k_cache.data_ptr(),
+                           engine.v_cache.data_ptr()]}
+
+    before = state()
+    engine.waiting.reopen()
+    run = _moe_run(params, cfg, dev, smi_line, name,
+                   waves=MOE_WAVES[2:3] * 2, engine=engine)
+    engine.stop()
+    after = state()
+    emit({"phase": "serve_moe", "run": name, "card": smi_line,
+          "restarts": engine._restarts, "before": before, "after": after,
+          "answers_201": run["answers_201"]})
+    out = [f"{k}: {before[k]} -> {after[k]}" for k in before
+           if before[k] != after[k]]
+    if engine._restarts != 1:
+        out.append(f"{engine._restarts} restarts, not 1")
+    if run["completion_tokens"][-1] != MOE_NEW:
+        out.append("the wave after the restart was not answered")
+    return out
+
+
+def _moe_split(engine, params, cfg, dev) -> dict:
+    """One decode step's device ms on the slot layout's caches (8 slots
+    at lengths up to 2000), and the part of it spent in the MoE MLP: the
+    eight layers' ``_moe_mlp`` (the ffn norm, the router, every expert's
+    float32 products and the combine) on [8, 1, 4096] rows."""
+    import torch
+    from gofr_tpu_torch.models.llama import _layer
+    from gofr_tpu_torch.models.moe import _moe_mlp, moe_decode_step
+    b = 8
+    tokens = torch.arange(1, b + 1, device=dev)
+    lengths = torch.tensor([21, 151, 401, 901, 1000, 1500, 1999, 64],
+                           dtype=torch.int32, device=dev)
+    x = torch.randn(b, 1, cfg.dim, device=dev).bfloat16()
+    layers = [_layer(params, li) for li in range(cfg.n_layers)]
+
+    def step():
+        moe_decode_step(params, tokens, engine.k_cache, engine.v_cache,
+                        lengths, cfg)
+
+    def moe_mlps():
+        for lp in layers:
+            _moe_mlp(x, lp, cfg)
+
+    total = device_ms(step, warmup=1, iters=5)
+    mlp = device_ms(moe_mlps, warmup=1, iters=5)
+    # the MoE MLP's kernels by device ms, one pass over the 8 layers
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        moe_mlps()
+        torch.cuda.synchronize()
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:80]
+            by_kernel[name] = by_kernel.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    return {"decode_step_device_ms": total,
+            "moe_mlp_device_ms": mlp,
+            "rest_device_ms": total - mlp,
+            "moe_mlp_share": mlp / total,
+            "moe_mlp_kernels_ms": dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:6]),
+            "decode_step_ms": time_ms(step, warmup=1, iters=5)}
+
+
+def _view_split(engine, dev) -> dict:
+    """The dense view's gather (K and V) and write-back device ms per
+    decode dispatch, at the full 2048-row view of 8 slots."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import gather_view, scatter_decode_kv
+    tables = torch.arange(8 * 32, dtype=torch.int32,
+                          device=dev).reshape(8, 32) % engine._n_pages
+    lengths = torch.tensor([21, 151, 401, 901, 1000, 1500, 1999, 64],
+                           dtype=torch.int32, device=dev)
+    kp, vp = engine.k_cache, engine.v_cache
+    dtype = engine._view_dtype
+    views = [gather_view(kp, tables, dtype), gather_view(vp, tables, dtype)]
+    steps = engine._tokens_per_pass
+    return {"view_gather_device_ms": device_ms(
+                lambda: (gather_view(kp, tables, dtype),
+                         gather_view(vp, tables, dtype)), warmup=1, iters=5),
+            "view_scatter_device_ms": device_ms(
+                lambda: scatter_decode_kv(kp, vp, tables, *views, lengths,
+                                          steps), warmup=1, iters=5)}
+
+
+def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
+    """The Mixtral-style MoE family on the engine's dense-cache paths:
+    ``MoEConfig.mixtral_8x7b()`` at 8 of its 32 layers (32 layers are
+    93.4 GB of bf16 weights, above the card's 80 GB), random bf16
+    weights from seed 0, served by ``build_server(moe_engine(...))`` on
+    ``serve_config`` (8 slots, max_seq 2048, 64-row pages, buckets to
+    1024; the autoprofiler off), each engine warmed up first. Runs: the
+    slot layout; the paged layout through the view, bf16 pool; the
+    paged layout with an int8 pool and decode windows (512, 1024); the
+    slot layout with those windows. Each serves ``MOE_WAVES``: wave 1 (4
+    concurrent prompts of 21 / 151 / 401 / 901 tokens), the 1801-token
+    prompt (clamped to 1024 tokens), a 101-token one and a 1001-token one
+    of one letter and random ones, 32 new tokens each. Checks, each with a planted
+    fault that must fail it:
+
+    (a) slot and bf16 view give bit-equal tokens (plant: a view engine
+        whose write-back lands one row late);
+    (b) the windowed slot run gives the full graph's tokens and replays
+        each window graph (plant: the dispatch forced to the 512 window
+        for the 1001-token prompt);
+    (c) the int8 pool completes every request through the slab kernel's
+        int8 entry (plant: the bf16 view run's counters);
+    (d) ``moe_prefill_last`` logits with the flash kernel within
+        LOGITS_TOL of ``implementation="plain"`` (P = 2, S = 1024,
+        kv_lengths 1024 / 901; plant: V rows read one late);
+    (e) 2 x (windows + 1) graphs captured in warmup and none while
+        serving, and no state upload in a steady-state dispatch (plant:
+        the scheduler state marked dirty before every dispatch);
+    (f) a ``pass_raise`` restart on the slot layout leaves
+        ``graph_captures``, ``torch.cuda.memory_allocated()`` and the
+        caches' addresses as they were (plant: a restart that
+        reallocates the caches, which the captured graphs then refuse).
+
+    Prints TTFT and decode tokens/s per run, a decode step's device ms
+    split into the MoE MLP and the rest, the view's gather and
+    write-back device ms per dispatch, ``max_memory_allocated`` and the
+    phase's wall. Returns the launches of the D = 128 kernel rows: the
+    flash kernel's and the slab kernel's (both forms) over the four
+    runs. ``cfg`` replaces the model (a CPU rehearsal: ``MoEConfig.tiny()
+    .scaled(vocab_size=260, max_seq=2048)``)."""
+    from unittest import mock
+
+    import torch
+    from gofr_tpu_torch.models.moe import MoEConfig, moe_init, moe_prefill_last
+    from gofr_tpu_torch.ops import flash_attention as flash_module
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+    from gofr_tpu_torch.serving import decode_graph as graph_module
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or MoEConfig.mixtral_8x7b().scaled(n_layers=8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = moe_init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    weight_bytes = quantized_bytes(params)
+    init_s = time.perf_counter() - t_phase
+
+    # (d) the flash kernel at D = 128 inside the model, against plain
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                           device=dev)
+    lens = torch.tensor([1024, 901], dtype=torch.int32, device=dev)
+    real_flash = flash_module.flash_attention
+
+    def v_late(q, k, v, **kw):
+        return real_flash(q, k, torch.roll(v, 1, dims=1), **kw)
+
+    # the wrapper counts on its module's name, which the patch rebinds
+    v_late.launches = 0
+
+    logits = {impl: moe_prefill_last(params, tokens, cfg, kv_lengths=lens,
+                                     implementation=impl)[0]
+              for impl in ("auto", "plain")}
+    with mock.patch.object(flash_module, "flash_attention", v_late):
+        fault_logits = moe_prefill_last(params, tokens, cfg,
+                                        kv_lengths=lens)[0]
+    logit_err = (logits["auto"] - logits["plain"]).abs().max().item()
+    fault_err = (fault_logits - logits["plain"]).abs().max().item()
+    finite = bool(torch.isfinite(logits["auto"]).all())
+    del logits, fault_logits
+
+    def logit_faults(err):
+        return [] if finite and err <= LOGITS_TOL else \
+            [f"logits diff {err} > {LOGITS_TOL} (finite {finite})"]
+
+    runs = {"slot": _moe_run(params, cfg, dev, smi_line, "slot",
+                             kv_layout="slot")}
+    runs["slot"].update(_moe_split(runs["slot"]["engine"], params, cfg, dev))
+    # (e)'s plant on the same engine: every dispatch re-uploads its state
+    engine = runs["slot"]["engine"]
+    dispatch = engine._decode_dispatch
+
+    def always_dirty():
+        engine._sched_dirty = True
+        dispatch()
+
+    engine._decode_dispatch = always_dirty
+    engine.waiting.reopen()
+    dirty = _moe_run(params, cfg, dev, smi_line, "planted_always_dirty",
+                     waves=MOE_WAVES[:1], engine=engine)
+    engine.stop()
+    del engine._decode_dispatch
+    # (f) on the same engine, then its plant: the caches reallocated
+    restart = [_moe_restart(engine, params, cfg, dev, smi_line, name)
+               for name in ("restart", "planted_caches_reallocated")]
+    runs["view_bf16"] = _moe_run(params, cfg, dev, smi_line, "view_bf16",
+                                 kv_layout="paged")
+    split = _view_split(runs["view_bf16"]["engine"], dev)
+    runs["view_int8"] = _moe_run(params, cfg, dev, smi_line, "view_int8",
+                                 kv_layout="paged", kv_dtype="int8",
+                                 decode_windows=MOE_WINDOWS)
+    runs["slot_windows"] = _moe_run(params, cfg, dev, smi_line,
+                                    "slot_windows", kv_layout="slot",
+                                    decode_windows=MOE_WINDOWS)
+    # (b)'s plant on the same engine: the narrowest window, always
+    engine = runs["slot_windows"]["engine"]
+    engine._pick_window = lambda needed: MOE_WINDOWS[0]
+    engine.waiting.reopen()
+    narrow = _moe_run(params, cfg, dev, smi_line, "planted_narrow_window",
+                      waves=MOE_WAVES[3:], engine=engine)
+    engine.stop()
+    for run in runs.values():
+        run.pop("engine")
+    narrow.pop("engine"), dirty.pop("engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a)'s plant: the view's write-back one row late, in a fresh engine
+    real_back = graph_module.scatter_decode_kv
+
+    def back_late(k_pool, v_pool, tables, k_view, v_view, lengths, steps):
+        return real_back(k_pool, v_pool, tables, k_view, v_view,
+                         lengths + 1, steps)
+
+    with mock.patch.object(graph_module, "scatter_decode_kv", back_late):
+        late = _moe_run(params, cfg, dev, smi_line, "planted_late_writeback",
+                        waves=MOE_WAVES[:1] + MOE_WAVES[3:],
+                        kv_layout="paged")
+    late.pop("engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    slot, view = runs["slot"], runs["view_bf16"]
+    # every run prefills through the flash kernel, and the bf16 view
+    # writes through the slab kernel's bf16 entry
+    launch_faults = [f"{name}: no flash launch" for name, run in runs.items()
+                     if run["launches"]["flash_attention"] < 1]
+    if view["launches"]["scatter_chunk_kv"] < 1:
+        launch_faults.append(f"view_bf16: slab launches {view['launches']}")
+    checks = {
+        "a_slot_equals_view": (_same_tokens(view, slot)
+                               + _complete_faults(slot)
+                               + _complete_faults(view) + launch_faults,
+                               _same_tokens(late, slot, [0, 1, 2, 3, 6])),
+        "b_windows": (_window_faults(runs["slot_windows"], slot)
+                      + _complete_faults(runs["slot_windows"]),
+                      _same_tokens(narrow, slot, [6])),
+        "c_int8": (_int8_faults(runs["view_int8"]), _int8_faults(view)),
+        "d_logits": (logit_faults(logit_err), logit_faults(fault_err)),
+        "e_graphs": ([f"{name}: {f}" for name, run in runs.items() for f in
+                      _graph_faults(run, len(run["config"].get(
+                          "decode_windows", ())),
+                          run["config"]["kv_layout"] == "paged")],
+                     _graph_faults(dirty, 0, False)),
+        "f_restart": tuple(restart),
+    }
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    launches = {key: sum(run["launches"][key] for run in runs.values())
+                for key in slot["launches"]}
+    summary = {
+        "phase": "serve_moe", "card": smi_line,
+        "config": "mixtral_8x7b, n_layers 8 of 32, bf16, random seed 0",
+        "weight_bytes": weight_bytes, "init_s": init_s,
+        "logits_max_abs_diff": logit_err, "tolerance": LOGITS_TOL,
+        "planted_fault_logits_diff": fault_err,
+        "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+        "decode_tokens_per_s": {k: r["decode_tokens_per_s"]
+                                for k, r in runs.items()},
+        "steady_passes": {k: r.get("steady_passes") for k, r in runs.items()},
+        **{k: slot[k] for k in ("decode_step_device_ms",
+                                "moe_mlp_device_ms", "rest_device_ms",
+                                "moe_mlp_share", "moe_mlp_kernels_ms",
+                                "decode_step_ms")},
+        **split, "launches": launches,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "phase_wall_s": time.perf_counter() - t_phase,
+        "failed_checks": failed, "planted": planted}
+    emit(summary)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_moe: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5319,6 +5979,12 @@ def main() -> int:
     rows += kernel_kv_write(dev, torch.Generator(device=dev).manual_seed(7))
     rows += kernel_kv_write_prefill(dev,
                                     torch.Generator(device=dev).manual_seed(9))
+    # head_dim 128 (Mixtral-8x7B): flash and the slab write's view
+    # write-back, whose launches come from serve_moe
+    rows += [kernel_flash(dev, torch.Generator(device=dev).manual_seed(15),
+                          d128=True)]
+    rows += kernel_kv_write_view(dev,
+                                 torch.Generator(device=dev).manual_seed(16))
     # the fused RoPE + K/V write at a decode step's and a verify's shape
     for seed, verify in ((13, False), (14, True)):
         rows += kernel_rope_kv_write(
@@ -5350,8 +6016,11 @@ def main() -> int:
                 **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
     phase_checkpoint(dev, smi_line)
+    moe_launches = phase_serve_moe(dev, smi_line)
     for row in rows:
-        row["launches"] = launches[row.get("wrapper", row["name"])]
+        source = moe_launches if row.get("launches_from") == "serve_moe" \
+            else launches
+        row["launches"] = source[row.get("wrapper", row["name"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")

@@ -3,9 +3,11 @@
 The input is the JAX pytree read as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``): ``{"embed", "layers": {...},
 "final_norm"[, "lm_head"]}`` with the stacked per-layer dict of
-``gofr_tpu/models/llama.py:llama_init``. The layout is kept as it is —
-matrices stay ``[in, out]`` — so the port's products read ``x @ w``
-exactly as the JAX ones do.
+``gofr_tpu/models/llama.py:llama_init``, or of
+``gofr_tpu/models/moe.py:moe_init`` (the router ``gate`` [L, D, E], the
+experts' ``w1`` / ``w3`` [L, E, D, F] and ``w2`` [L, E, F, D]). The
+layout is kept as it is — matrices stay ``[in, out]`` — so the port's
+products read ``x @ w`` exactly as the JAX ones do.
 
 A quantized tree (``quantize_llama_int8`` / ``_int4``) holds ``{"q",
 "s"}`` leaves; they stay quantized, in the port's ``[N, K]`` layout

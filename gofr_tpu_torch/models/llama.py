@@ -399,6 +399,19 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     return _logits(params, c, rows, implementation), k_pool, v_pool
 
 
+def make_empty_cache(config: LlamaConfig, batch: int,
+                     max_seq: int | None = None,
+                     device: str | torch.device = "cpu"):
+    """A zeroed dense K and V cache pair [L, batch, max_seq, Hkv, hd] in
+    the model's dtype (``max_seq`` defaults to the config's): the slot
+    layout, one contiguous run of rows per slot."""
+    c = config
+    shape = (c.n_layers, batch, max_seq or c.max_seq, c.n_kv_heads,
+             c.head_dim)
+    return tuple(torch.zeros(shape, dtype=c.dtype, device=device)
+                 for _ in range(2))
+
+
 def make_pool(config: LlamaConfig, n_pages: int, page: int,
               device: str | torch.device, kv_dtype: str = "bf16"):
     """A zeroed head-major K and V pool pair [L, Hkv, Np, pg, hd]: in

@@ -102,7 +102,8 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_lengths: torch.Tensor,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None,
+                     block: int | None = None) -> torch.Tensor:
     """Single-step decode: q [B,1,Hq,D] against cache [B,Smax,Hkv,D];
     every row at position < kv_lengths[b] participates.
 
@@ -110,7 +111,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     accumulation; this plain version contracts in float32 throughout,
     which is the same arithmetic on float32 inputs and the tighter
     reference on bf16 ones.
+
+    ``block``: attend ``block`` cache rows at a time with a running
+    (online) softmax, blocks in order. A block whose every row is masked
+    leaves the running max, sum and output bit for bit as they were
+    (its weights are exact zeros), so the result does not depend on how
+    many masked rows trail the cache: a decode window over the first
+    ``n * block`` rows gives the full cache's bits.
     """
+    if block is not None:
+        return _decode_attention_blocked(q, k_cache, v_cache, kv_lengths,
+                                         scale, block)
     b, sq, hq, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -122,6 +133,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.tensor(NEG_INF, device=q.device))
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v_cache.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _decode_attention_blocked(q, k_cache, v_cache, kv_lengths, scale,
+                              block: int) -> torch.Tensor:
+    b, sq, hq, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qr = q.float().reshape(b, sq, hkv, group, d)
+    m = total = acc = None
+    for start in range(0, smax, block):
+        stop = min(start + block, smax)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qr,
+                              k_cache[:, start:stop].float()) * scale
+        cols = torch.arange(start, stop, device=q.device)
+        masked = cols[None, :] >= kv_lengths[:, None]
+        # a scalar fill: nothing crosses from the host (the step is
+        # captured in a CUDA graph)
+        logits = logits.masked_fill(masked[:, None, None, None, :], NEG_INF)
+        peak = logits.amax(-1, keepdim=True)
+        m_new = peak if m is None else torch.maximum(m, peak)
+        p = torch.exp(logits - m_new)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p,
+                          v_cache[:, start:stop].float())
+        if m is None:
+            total, acc = p.sum(-1, keepdim=True), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            total = total * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+        m = m_new
+    out = (acc / total).permute(0, 3, 1, 2, 4)              # [B,Sq,Hkv,G,D]
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 

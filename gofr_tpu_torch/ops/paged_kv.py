@@ -37,6 +37,14 @@ done:
 
 CPU tensors take the plain versions below, which select the in-range
 rows first.
+
+The dense view of the pool, for model families that decode on dense
+caches (``gather_view``: every layer's pages gathered into [L, B,
+Mp*pg, H, d], an int8 pool dequantized to the model's dtype;
+``scatter_decode`` / ``scatter_decode_kv``: the rows a decode pass
+appended to the view written back through ``scatter_chunk`` /
+``scatter_chunk_kv``), ``scatter_prefill`` and ``pool_from_cache_shape``
+are JAX's functions of the same names.
 """
 
 from __future__ import annotations
@@ -551,6 +559,87 @@ def pool_move_rows(pool, tables: torch.Tensor, src_pos: torch.Tensor,
     for leaf in (pool.values() if is_quantized_pool(pool) else (pool,)):
         leaf[dst] = leaf[src]                      # the gather is a copy
     return pool
+
+
+def pool_from_cache_shape(k_cache: torch.Tensor) -> torch.Tensor:
+    """Re-lay a dense [L, Np, pg, H, d] allocation as the head-major
+    pool [L, H, Np, pg, d] (contiguous)."""
+    return k_cache.permute(0, 3, 1, 2, 4).contiguous()
+
+
+def _gather_all(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    n_layers, h, n_pages, pg, d = pool.shape
+    b, mp = tables.shape
+    safe = tables.clamp(max=n_pages - 1).long()
+    view = pool[:, :, safe]                          # [L, H, B, Mp, pg, d]
+    return view.permute(0, 2, 3, 4, 1, 5).reshape(n_layers, b, mp * pg, h, d)
+
+
+def gather_view(pool, tables: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Pool [L, H, Np, pg, d] + tables [B, Mp] -> the dense slot view [L,
+    B, Mp*pg, H, d] of every layer (a copy). Out-of-range table ids clamp
+    to the last page; the caller masks those rows by length. A quantized
+    pool dequantizes to ``dtype`` (default bf16: the model's dtype, not
+    :func:`slot_view`'s float32); a plain pool's view keeps the pool's
+    dtype and ignores ``dtype``."""
+    if is_quantized_pool(pool):
+        return dequantize_rows(_gather_all(pool["q"], tables),
+                               _gather_all(pool["s"], tables),
+                               torch.bfloat16 if dtype is None else dtype)
+    return _gather_all(pool, tables)
+
+
+def scatter_prefill(pool, tables: torch.Tensor, k_slab: torch.Tensor):
+    """Write a prompt K (or V) slab [L, P, S, H, d] into the pool through
+    per-row tables [P, Mp], in place: every slab position of every row
+    (pad rows past a prompt's length included), dropped only where the
+    table has no page. :func:`scatter_chunk` at offset 0 over the whole
+    width."""
+    p, s = k_slab.shape[1:3]
+    zeros = torch.zeros(p, dtype=torch.int32, device=k_slab.device)
+    return scatter_chunk(pool, tables, k_slab, zeros, zeros + s)
+
+
+def _appended(view: torch.Tensor, lengths: torch.Tensor, k_steps: int):
+    """(rows [L, B, K, H, d], chunk lengths [B]): the ``k_steps`` rows a
+    decode pass appended to ``view`` [L, B, S, H, d] at positions
+    ``lengths .. lengths + K - 1`` of each slot (read clamped to the
+    view), and how many of them lie inside the view: those past it drop
+    on write."""
+    b, s = view.shape[1:3]
+    ar = torch.arange(k_steps, device=view.device)
+    pos = (lengths.long()[:, None] + ar[None, :]).clamp(max=s - 1)
+    rows = view[:, torch.arange(b, device=view.device)[:, None], pos]
+    keep = (s - lengths).clamp(0, k_steps).to(torch.int32)
+    return rows, keep
+
+
+def scatter_decode(pool, tables: torch.Tensor, view: torch.Tensor,
+                   lengths: torch.Tensor, k_steps: int):
+    """Copy the ``k_steps`` rows a decode pass appended to ``view`` [L,
+    B, S, H, d] (at logical positions ``lengths .. lengths + K - 1`` per
+    slot) back into the pool through ``tables`` [B, Mp], in place.
+    Positions past the view (a slot at the cache ceiling, or parked at
+    ``max_seq``) drop, and so do unallocated pages. Rows are cast to the
+    pool dtype, or quantized. One pool, as JAX's ``scatter_decode``
+    (:func:`scatter_chunk`'s route); the engine writes K and V back
+    together through :func:`scatter_decode_kv`."""
+    rows, keep = _appended(view, lengths, k_steps)
+    return scatter_chunk(pool, tables, rows, lengths, keep)
+
+
+def scatter_decode_kv(k_pool, v_pool, tables: torch.Tensor,
+                      k_view: torch.Tensor, v_view: torch.Tensor,
+                      lengths: torch.Tensor, k_steps: int):
+    """:func:`scatter_decode` of the K and the V view into their pools,
+    in place, through :func:`scatter_chunk_kv`: on CUDA one launch of
+    the slab kernel for every layer, K and V together, with no host
+    sync; on the CPU the plain version. Returns (k_pool, v_pool)."""
+    k_rows, keep = _appended(k_view, lengths, k_steps)
+    v_rows, _ = _appended(v_view, lengths, k_steps)
+    return scatter_chunk_kv(k_pool, v_pool, tables, k_rows, v_rows, lengths,
+                            keep)
 
 
 def _gather(x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,24 @@ the JAX engine's ``_fused_decode`` / ``_decode_sample`` /
 ``_sync_decode_state`` / ``_tables_arg``:
 ``gofr_tpu/serving/engine.py:708-791``, ``:3199-3268``).
 
+Three layouts of the pass (``layout``), as the JAX engine builds its
+decode graphs (``:780-880``):
+
+- ``"paged"``: the native paged step writes each new row through the
+  block tables and attends with the paged decode kernel;
+- ``"slot"``: a dense step on the slot caches [L, B, S, Hkv, hd],
+  written in place;
+- ``"view"``: one gather of the pool into the dense slot view per pass
+  (``gather_view``), the T dense steps on the view, and the T new rows
+  of each slot written back into the pool (``scatter_decode_kv``, one
+  launch of the slab kernel on the card).
+
+``windows``: decode windows (dense layouts only). The pass for window w
+attends only the first w rows (``attn_window`` on the slot layout) or
+gathers and writes back only the table columns that cover them (the
+view); each window is a graph of its own, as JAX compiles one per
+window, and window 0 is the full pass.
+
 Row = slot: every buffer holds ``rows`` (the engine's ``max_batch``)
 rows, whether a slot decodes, walks its prompt or is idle, so the state
 stays on the device across admissions. The static buffers:
@@ -28,10 +46,10 @@ write the pool: the step forces their page ids out of range with
 ``active``, and the write kernel drops them.
 
 On CUDA, :meth:`DecodeGraph.launch` replays one ``torch.cuda.CUDAGraph``
-per value of ``all_greedy`` (an all-greedy batch skips the sampler's
-candidate search and draws no noise), captured at first use (or ahead of
-traffic by :meth:`DecodeGraph.warm`) after one warm-up run on a side
-stream, all graphs in one memory pool. There is no eager path on the
+per window and value of ``all_greedy`` (an all-greedy batch skips the
+sampler's candidate search and draws no noise), captured at first use
+(or ahead of traffic by :meth:`DecodeGraph.warm`) after one warm-up run
+on a side stream, all graphs in one memory pool. There is no eager path on the
 card: capture or replay raise, they do not fall back. The pools and the
 params are captured by address; a replay checks that they are still the
 tensors it captured. The sampled graph registers the engine's
@@ -55,6 +73,7 @@ replay does not do. The counts made during a capture are taken back off
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -65,13 +84,17 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention,
                                    paged_tree_attention)
-from ..ops.paged_kv import kv_write, rope_kv_write
+from ..ops.paged_kv import (gather_view, kv_write, rope_kv_write,
+                           scatter_chunk_kv, scatter_decode_kv)
 from ..ops.quant import wq_gemm
 from .sampling import sample_batch
 
 #: the kernel wrappers whose launch counters a replay carries on
 COUNTED = (flash_attention, paged_decode_attention, paged_chunk_attention,
-           paged_tree_attention, kv_write, rope_kv_write, wq_gemm)
+           paged_tree_attention, kv_write, rope_kv_write, scatter_chunk_kv,
+           wq_gemm)
+#: how a pass runs its steps (see the module docstring)
+LAYOUTS = ("paged", "slot", "view")
 _COUNTERS = ("launches", "launches_int8", "launches_int4")
 
 #: the buffers the host writes, with their dtypes
@@ -100,21 +123,39 @@ def _addresses(*trees) -> tuple:
 class DecodeGraph:
     """T decode steps over ``rows`` slots on static device buffers.
 
-    step_fn(params, tokens [rows] int64, k_pool, v_pool, tables [rows,
-        Mp], lengths [rows] int32, active=[rows] bool) -> (logits [rows,
-        V], k_pool, v_pool), updating the pools in place (e.g.
-        ``llama_decode_step_paged``).
+    step_fn, for ``layout="paged"``: (params, tokens [rows] int64,
+        k_pool, v_pool, tables [rows, Mp], lengths [rows] int32,
+        active=[rows] bool) -> (logits [rows, V], k_pool, v_pool),
+        updating the pools in place (e.g. ``llama_decode_step_paged``);
+        for ``"slot"`` and ``"view"``: (params, tokens, k_cache,
+        v_cache, lengths[, attn_window=w]) -> (logits, k_cache,
+        v_cache) on dense caches [L, rows, S, Hkv, hd], written in place
+        (e.g. ``moe_decode_step``); rows at or past S drop their write.
+    windows: the decode windows (dense layouts); page_size and
+        view_dtype: the view's table columns per window and the dtype a
+        quantized pool's view dequantizes to.
     """
 
     def __init__(self, step_fn: Callable, params, *, rows: int,
                  max_pages: int, n_pages: int, steps: int, max_seq: int,
                  device: str | torch.device,
                  generator: torch.Generator | None = None,
-                 ring: int = 2) -> None:
+                 ring: int = 2, layout: str = "paged",
+                 windows: tuple = (), page_size: int = 1,
+                 view_dtype: torch.dtype | None = None) -> None:
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got "
+                             f"{layout!r}")
+        if windows and layout == "paged":
+            raise ValueError("decode windows apply to the dense layouts")
         self.step_fn = step_fn
         self.params = params
         self.steps = steps
         self.max_seq = max_seq
+        self.layout = layout
+        self.windows = tuple(windows)
+        self.page_size = page_size
+        self.view_dtype = view_dtype
         self.device = torch.device(device)
         self.generator = generator
         dev, pin = self.device, self.device.type == "cuda"
@@ -140,12 +181,15 @@ class DecodeGraph:
         self._ring_busy = [False] * len(self._ring)
         self._ring_next = 0
         self._uploaded = torch.cuda.Event() if pin else None
-        self._graphs: dict[bool, torch.cuda.CUDAGraph] = {}
-        self._graph_launches: dict[bool, dict] = {}
+        #: (window, all_greedy) -> its graph, and the launches it holds
+        self._graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
+        self._graph_launches: dict[tuple, dict] = {}
         self._mempool = None
         self._captured = None           # addresses of params and pools
         self.captures = 0
         self.replays = 0
+        #: window -> passes run at it (replays on CUDA), 0 = the full pass
+        self.passes_by_window = {w: 0 for w in (0, *self.windows)}
         #: seconds spent capturing (warm-up run included)
         self.capture_s = 0.0
 
@@ -183,21 +227,38 @@ class DecodeGraph:
                 getattr(self, name).copy_(value)
 
     # ------------------------------------------------------------- pass
-    def body(self, k_pool, v_pool, all_greedy: bool) -> None:
+    def body(self, k_pool, v_pool, all_greedy: bool, window: int = 0) -> None:
         """The pass itself, on the static buffers: T steps, each feeding
-        its sampled tokens to the next, then the state advance. What a
-        graph holds; on the CPU, what :meth:`launch` calls."""
+        its sampled tokens to the next (on the view: one gather before
+        them, the new rows written back after them), then the state
+        advance. What a graph holds; on the CPU, what :meth:`launch`
+        calls."""
         toks = torch.where(self.use_prev, self.prev, self.tokens)
         lens = self.lengths
+        k_run, v_run, tables = k_pool, v_pool, self.tables
+        if self.layout == "view":
+            if window:
+                tables = tables[:, :-(-window // self.page_size)]
+            k_run = gather_view(k_pool, tables, self.view_dtype)
+            v_run = gather_view(v_pool, tables, self.view_dtype)
         sampled = []
         for _ in range(self.steps):
-            logits = self.step_fn(self.params, toks, k_pool, v_pool,
-                                  self.tables, lens, active=self.active)[0]
+            if self.layout == "paged":
+                logits = self.step_fn(self.params, toks, k_run, v_run,
+                                      tables, lens, active=self.active)[0]
+            else:
+                kw = {"attn_window": window} \
+                    if window and self.layout == "slot" else {}
+                logits = self.step_fn(self.params, toks, k_run, v_run, lens,
+                                      **kw)[0]
             toks = sample_batch(logits, self.temps, self.top_ps, self.top_ks,
                                 generator=self.generator,
                                 all_greedy=all_greedy).long()
             sampled.append(toks)
             lens = lens + 1
+        if self.layout == "view":
+            scatter_decode_kv(k_pool, v_pool, tables, k_run, v_run,
+                              self.lengths, self.steps)
         self.out.copy_(torch.stack(sampled))
         self.prev.copy_(toks)
         self.use_prev.copy_(self.active)
@@ -205,12 +266,17 @@ class DecodeGraph:
             self.active, (self.lengths + self.steps).clamp(max=self.max_seq),
             self.lengths))
 
-    def launch(self, k_pool, v_pool, all_greedy: bool) -> int:
-        """Start one dispatch and return its handle without waiting: the
-        captured graph's replay on CUDA (captured now if this is its
-        first use), the uncaptured pass on the CPU; either way ``out``
-        goes on to the next ring buffer. Raises if that buffer's last
-        dispatch was neither collected nor discarded."""
+    def launch(self, k_pool, v_pool, all_greedy: bool,
+               window: int = 0) -> int:
+        """Start one dispatch at ``window`` (0: the full pass) and return
+        its handle without waiting: the captured graph's replay on CUDA
+        (captured now if this is its first use), the uncaptured pass on
+        the CPU; either way ``out`` goes on to the next ring buffer.
+        Raises if that buffer's last dispatch was neither collected nor
+        discarded."""
+        if window not in self.passes_by_window:
+            raise ValueError(f"decode graph: no window {window}; the "
+                             f"windows are {self.windows}")
         handle = self._ring_next
         if self._ring_busy[handle]:
             raise RuntimeError(
@@ -218,23 +284,25 @@ class DecodeGraph:
                 f"still holds an uncollected dispatch; collect it before "
                 f"launching another")
         host = self._ring[handle]
+        key = (window, all_greedy)
         if self.device.type == "cpu":
-            self.body(k_pool, v_pool, all_greedy)
+            self.body(k_pool, v_pool, all_greedy, window)
             host.copy_(self.out)
         else:
-            graph = self._graphs.get(all_greedy)
+            graph = self._graphs.get(key)
             if graph is None:
-                graph = self._capture(k_pool, v_pool, all_greedy)
+                graph = self._capture(k_pool, v_pool, all_greedy, window)
             if _addresses(self.params, k_pool, v_pool) != self._captured:
                 raise RuntimeError("decode graph: the params or KV pools "
                                    "are not the tensors the graph captured "
                                    "(reallocated or reassigned since)")
             graph.replay()
             self.replays += 1
-            for (fn, attr), n in self._graph_launches[all_greedy].items():
+            for (fn, attr), n in self._graph_launches[key].items():
                 setattr(fn, attr, getattr(fn, attr) + n)
             host.copy_(self.out, non_blocking=True)
             self._ring_events[handle].record()
+        self.passes_by_window[window] += 1
         self._ring_busy[handle] = True
         self._ring_next = (handle + 1) % len(self._ring)
         return handle
@@ -262,25 +330,31 @@ class DecodeGraph:
         return self.collect(self.launch(k_pool, v_pool, all_greedy))
 
     def warm(self, k_pool, v_pool) -> None:
-        """Make both passes ready ahead of traffic with every row
-        inactive (so every K/V write drops): on CUDA capture the greedy
-        and the sampled graph, on the CPU run each pass once. The state
-        buffers and the generator are left as they were."""
+        """Make every pass ready ahead of traffic with every row
+        inactive (paged: every K/V write drops; dense: every row parked
+        at ``max_seq``, so every write drops too): on CUDA capture the
+        greedy and the sampled graph of each window, on the CPU run each
+        pass once. The state buffers and the generator are left as they
+        were."""
         saved = self.save()
         self.active.zero_()
-        for all_greedy in (True, False):
-            if self.device.type == "cpu":
-                self.body(k_pool, v_pool, all_greedy)
-            elif all_greedy not in self._graphs:
-                self._capture(k_pool, v_pool, all_greedy)
+        if self.layout != "paged":
+            self.lengths.fill_(self.max_seq)
+        for window in (0, *self.windows):
+            for all_greedy in (True, False):
+                if self.device.type == "cpu":
+                    self.body(k_pool, v_pool, all_greedy, window)
+                elif (window, all_greedy) not in self._graphs:
+                    self._capture(k_pool, v_pool, all_greedy, window)
         self.restore(saved)
 
-    def _capture(self, k_pool, v_pool, all_greedy: bool):
-        """Capture the pass for ``all_greedy``. One warm-up run on a side
-        stream first, so lazy set-up (library handles, kernel builds,
-        workspaces) happens outside the capture; its effect on the state
-        buffers and the generator is undone, and the KV rows it wrote are
-        written again by the pass before anything reads them."""
+    def _capture(self, k_pool, v_pool, all_greedy: bool, window: int = 0):
+        """Capture the pass for ``all_greedy`` at ``window``. One warm-up
+        run on a side stream first, so lazy set-up (library handles,
+        kernel builds, workspaces) happens outside the capture; its effect
+        on the state buffers and the generator is undone, and the KV rows
+        it wrote are written again by the pass before anything reads
+        them."""
         t0 = time.perf_counter()
         addresses = _addresses(self.params, k_pool, v_pool)
         if self._captured is None:
@@ -294,23 +368,34 @@ class DecodeGraph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self.body(k_pool, v_pool, all_greedy)
+            self.body(k_pool, v_pool, all_greedy, window)
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.restore(saved)
         graph = torch.cuda.CUDAGraph()
         if not all_greedy and self.generator is not None:
             graph.register_generator_state(self.generator)
         before = _counts()
-        with torch.cuda.graph(graph, pool=self._mempool,
-                              capture_error_mode="thread_local"):
-            self.body(k_pool, v_pool, all_greedy)
+        # the cycle collector must not run inside the capture: freeing a
+        # dead engine's graphs there is refused while a stream captures,
+        # which invalidates this capture. Dead cycles go now, and the
+        # collector waits until the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._mempool,
+                                  capture_error_mode="thread_local"):
+                self.body(k_pool, v_pool, all_greedy, window)
+        finally:
+            if collecting:
+                gc.enable()
         after = _counts()
         launched = {key: after[key] - before[key] for key in after
                     if after[key] != before[key]}
         for (fn, attr), n in launched.items():   # the capture ran nothing
             setattr(fn, attr, getattr(fn, attr) - n)
-        self._graph_launches[all_greedy] = launched
-        self._graphs[all_greedy] = graph
+        self._graph_launches[(window, all_greedy)] = launched
+        self._graphs[(window, all_greedy)] = graph
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return graph

@@ -1,7 +1,26 @@
-"""Continuous-batching inference engine on the paged KV pool
-(counterpart of ``gofr_tpu/serving/engine.py``, paged layout with the
-prefix cache, the chunk-with-history walk, speculative tree verify, lazy
-page growth with preemption-by-recompute and pipelined decode).
+"""Continuous-batching inference engine (counterpart of
+``gofr_tpu/serving/engine.py``: the paged layout with the prefix cache,
+the chunk-with-history walk, speculative tree verify, lazy page growth
+with preemption-by-recompute and pipelined decode, and the dense-cache
+paths of families with a dense decode step).
+
+- **KV layouts** (``kv_layout``): ``"paged"`` (the default here; the JAX
+  engine's default is ``"slot"``), a page pool with block tables, and
+  ``"slot"``, contiguous per-slot caches [L, max_batch, max_seq, Hkv,
+  hd]. A family with paged step functions (``paged_decode_fn``, Llama)
+  decodes natively on the pool; one with only a dense ``decode_fn``
+  (the MoE family) decodes on the slot caches, or on the paged layout
+  through the pool's dense view: one gather per T-step dispatch, the T
+  steps on the view, the T new rows written back
+  (``decode_graph.DecodeGraph``'s layouts). Without a chunk function
+  there is no chunk walk: a prompt is clamped to the widest bucket, a
+  preempted request's continuation too, and the prefix cache is off;
+  without a verify function ``speculative`` serves plain decode.
+- **Decode windows** (``decode_windows``, dense layouts): each listed
+  window is a decode graph of its own that attends (slot) or gathers
+  and writes back (view) only the first ``window`` rows; a dispatch
+  takes the smallest window covering every decoding slot's length + T,
+  else the full graph.
 
 - One **engine thread** owns every device call; ``submit()`` only
   queues, from any thread. Each loop iteration admits (requeued work
@@ -147,12 +166,11 @@ page growth with preemption-by-recompute and pipelined decode).
   ``engine.*`` spans through ``tracer`` at its end, exemplar trace ids
   on the latency histograms; the anomaly-triggered ``torch.profiler``
   capture (``autoprof``).
-
-Left out (see ROADMAP.md Queue A): decode windows.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import queue
 import threading
@@ -300,10 +318,26 @@ class DeviceLost(RuntimeError):
     sticky, so no restart can serve on this context."""
 
 
+#: ``EngineConfig.kv_layout`` values
+KV_LAYOUTS = ("paged", "slot")
+
+
 @dataclass
 class EngineConfig:
     max_batch: int = 8          # decode slots
     max_seq: int = 1024         # per-slot kv capacity
+    #: "paged": a page pool with block tables (capacity decoupled from
+    #: max_batch x max_seq, pages allocated lazily, preemption when the
+    #: pool runs dry); "slot": contiguous per-slot rows, max_batch x
+    #: max_seq, for families with a dense decode step. The JAX engine's
+    #: default is "slot"; the port's main path is "paged"
+    kv_layout: str = "paged"
+    #: dense layouts: extra decode graphs that attend (slot) or gather
+    #: and write back (paged view) only the first ``window`` rows; each
+    #: dispatch takes the smallest window covering every decoding slot's
+    #: length + T, else the full graph. () = off; the native paged step
+    #: ignores them (its kernel reads each slot's own pages)
+    decode_windows: tuple = ()
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024)
     #: waiting requests prefilled per device call (largest group)
     prefill_batch: int = 8
@@ -320,7 +354,7 @@ class EngineConfig:
     eos_id: int = -1            # -1: never stop on eos
     #: sampling seed; None draws one from os.urandom
     seed: int | None = None
-    #: rows per KV page
+    #: rows per KV page (paged layout)
     page_size: int = 64
     #: pool size in pages; None = max_batch x ceil(max_seq / page_size);
     #: fewer overcommit the pool, and the engine preempts when it runs dry
@@ -452,7 +486,9 @@ class EngineConfig:
 
 class Engine:
     """Continuous batching over (prefill_fn, paged_chunk_fn,
-    paged_decode_fn) and, for speculation, paged_verify_fn.
+    paged_decode_fn) and, for speculation, paged_verify_fn; or, for a
+    family with a dense decode step, over (prefill_fn, decode_fn) on the
+    slot layout or through the paged pool's dense view.
 
     prefill_fn(params, tokens [P, S], kv_lengths [P]) -> (logits [P, V],
         (k, v) each [L, P, S, Hkv, hd]) — e.g. ``llama_prefill_last``.
@@ -468,10 +504,18 @@ class Engine:
         offsets [B], chunk_lengths [B], tree_depths=[B, W],
         tree_masks=[B, W]) -> (logits [B, W, V], k_pool, v_pool) — e.g.
         ``llama_prefill_chunk_paged`` in tree mode with all logits;
-        needed only with ``speculative``.
+        without it ``speculative`` serves plain decode.
+    decode_fn(params, tokens [B], k_cache, v_cache, lengths [B][,
+        attn_window=w]) -> (logits [B, V], k_cache, v_cache) on dense
+        caches [L, B, S, Hkv, hd], written in place, a row at or past S
+        dropped — e.g. ``moe_decode_step``; used where there is no
+        ``paged_decode_fn`` (and on the slot layout, which needs it).
     make_cache(n_pages, page, kv_dtype) -> (k_pool, v_pool) [L, Hkv, Np,
         pg, hd], plain for "bf16", ``{q, s}`` dicts for "int8" (e.g.
-        ``make_pool``).
+        ``make_pool``); on the slot layout it is called as
+        ``make_cache(max_batch, max_seq, "bf16", head_major=False)`` for
+        the dense caches [L, max_batch, max_seq, Hkv, hd]
+        (``make_empty_cache``).
     vocab_size: prompts holding a token id outside [0, vocab_size) fail
         at submit (an out-of-range embedding index would fault on the
         device and take the engine thread down).
@@ -486,10 +530,12 @@ class Engine:
     """
 
     def __init__(self, params: Any, config: EngineConfig, *,
-                 prefill_fn: Callable, paged_decode_fn: Callable,
-                 paged_chunk_fn: Callable, make_cache: Callable,
+                 prefill_fn: Callable, make_cache: Callable,
                  device: str | torch.device, vocab_size: int,
+                 paged_decode_fn: Callable | None = None,
+                 paged_chunk_fn: Callable | None = None,
                  paged_verify_fn: Callable | None = None,
+                 decode_fn: Callable | None = None,
                  flops_per_token: Callable[[int], float] | None = None,
                  metrics: Any = None, logger: Any = None,
                  tracer: Any = None) -> None:
@@ -515,19 +561,47 @@ class Engine:
         if cfg.spec_probe_interval < 1:
             raise ValueError(f"spec_probe_interval must be >= 1, got "
                              f"{cfg.spec_probe_interval}")
-        if cfg.speculative and paged_verify_fn is None:
-            raise ValueError("speculative needs a paged_verify_fn")
+        if cfg.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be 'slot' or 'paged', got "
+                             f"{cfg.kv_layout!r}")
         if cfg.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                              f"{cfg.kv_dtype!r}")
+        if cfg.kv_dtype != "bf16" and cfg.kv_layout != "paged":
+            raise ValueError("kv_dtype='int8' requires kv_layout='paged' "
+                             "(the quantized pool is a page pool; the slot "
+                             "layout has no pages)")
+        if cfg.kv_pool_bytes is not None and cfg.kv_layout != "paged":
+            raise ValueError("kv_pool_bytes sizes the paged pool; set "
+                             "kv_layout='paged'")
+        #: the paged layout, and on it the native path: the family's
+        #: paged steps write through the block tables and attend with the
+        #: paged kernels; otherwise a dense decode_fn runs on the slot
+        #: caches or on the pool's dense view
+        self._paged = cfg.kv_layout == "paged"
+        self._native = self._paged and paged_decode_fn is not None
+        if not self._native and decode_fn is None:
+            raise ValueError("the slot layout, and the paged layout without "
+                             "a paged_decode_fn, need a dense decode_fn")
         self.params = params
         self.config = cfg
         self.device = torch.device(device)
         self.vocab_size = vocab_size
         self._prefill_fn = prefill_fn
-        self._decode_fn = paged_decode_fn
-        self._chunk_fn = paged_chunk_fn
-        self._verify_fn = paged_verify_fn
+        self._decode_fn = paged_decode_fn if self._native else decode_fn
+        self._chunk_fn = paged_chunk_fn if self._native else None
+        self._verify_fn = paged_verify_fn if self._native else None
+        #: speculation is served only with a verify function: without
+        #: one ``speculative`` decodes plainly, as in the JAX engine
+        self._spec_enabled = cfg.speculative and self._verify_fn is not None
+        #: a dispatch's window choices (dense layouts; the slot layout's
+        #: decode_fn must take ``attn_window``)
+        windows = tuple(sorted({int(w) for w in cfg.decode_windows or ()
+                                if 0 < w < cfg.max_seq}))
+        if self._native or (not self._paged
+                            and not _takes_window(decode_fn)):
+            windows = ()
+        self._decode_windows = windows
         #: mixed batches alternate verify and decode passes
         self._spec_toggle = True
         self._spec_ctrl = SpecController(
@@ -543,13 +617,24 @@ class Engine:
             or (cfg.max_seq,)
 
         pg = cfg.page_size
-        self._pages_per_slot = -(-cfg.max_seq // pg)
         self._make_cache = make_cache
-        self._n_pages = self._sized_pool_pages(
-            pg, cfg.kv_pages if cfg.kv_pages is not None
-            else cfg.max_batch * self._pages_per_slot)
-        self.k_cache, self.v_cache = make_cache(self._n_pages, pg,
-                                                cfg.kv_dtype)
+        #: the dtype a quantized pool's view dequantizes to: the model's
+        self._view_dtype = None
+        if self._paged:
+            self._pages_per_slot = -(-cfg.max_seq // pg)
+            self._n_pages = self._sized_pool_pages(
+                pg, cfg.kv_pages if cfg.kv_pages is not None
+                else cfg.max_batch * self._pages_per_slot)
+            self.k_cache, self.v_cache = make_cache(self._n_pages, pg,
+                                                    cfg.kv_dtype)
+            if not self._native:
+                self._view_dtype = make_cache(1, pg, "bf16")[0].dtype
+        else:
+            # no pool: the decode graph's table buffer is one unused
+            # column
+            self._pages_per_slot, self._n_pages = 1, 0
+            self.k_cache, self.v_cache = make_cache(
+                cfg.max_batch, cfg.max_seq, "bf16", head_major=False)
         self._free_pages = list(range(self._n_pages))
         #: per-slot ordered page ids; the OOB id n_pages = unallocated
         self._tables = np.full((cfg.max_batch, self._pages_per_slot),
@@ -557,6 +642,10 @@ class Engine:
         self._slot_pages = np.zeros(cfg.max_batch, np.int64)
         #: references per page: each slot and each cache entry holding it
         self._page_refs = np.zeros(self._n_pages, np.int32)
+        #: sharing prefixes needs page tables and the walk that attaches
+        #: them
+        self._prefix_enabled = (self._paged and cfg.prefix_cache
+                                and self._chunk_fn is not None)
         #: prompt prefix (token ids) -> its pages; insertion order is the
         #: LRU order (a hit re-inserts)
         self._prefix_cache: dict[tuple, list[int]] = {}
@@ -583,11 +672,15 @@ class Engine:
         depth = (cfg.pipeline_depth if cfg.pipeline_depth is not None
                  else 1)
         self._decode_graph = DecodeGraph(
-            paged_decode_fn, params, rows=cfg.max_batch,
+            self._decode_fn, params, rows=cfg.max_batch,
             max_pages=self._pages_per_slot, n_pages=self._n_pages,
             steps=self._tokens_per_pass, max_seq=cfg.max_seq,
             device=self.device, generator=self._generator,
-            ring=max(2, depth + 1))
+            ring=max(2, depth + 1),
+            layout=("paged" if self._native
+                    else "view" if self._paged else "slot"),
+            windows=self._decode_windows, page_size=pg,
+            view_dtype=self._view_dtype)
         #: the device copies of the scheduler arrays / tables are stale
         self._sched_dirty = True
         self._tables_dirty = True
@@ -833,18 +926,21 @@ class Engine:
                chunked: bool = False) -> float:
         """Run the serving shapes once ahead of traffic, before
         ``start()``: the group prefill at every group size of each bucket
-        covering ``prompt_lens``; with ``chunked`` the walk's chunk calls
-        at every bucket width for groups 1 and ``prefill_batch``; with
-        ``decode`` both decode graphs (greedy and sampled), captured on
-        CUDA with every row inactive, so no serving dispatch captures;
-        with speculation the verify pass at each power-of-two width.
-        Every table is all-OOB, so every K/V write drops: the pools, the
-        free list, ``lengths`` and the generator's state are as they
-        were. Every shape it runs is observed by the recompile sentinel,
-        which it seals; with ``decode`` it fixes the MFU basis: the
-        model's flops per token at the decode graph's context (a slot's
-        whole table, ``pages_per_slot x page_size`` rows) and the card's
-        peak. Returns the seconds it took."""
+        covering ``prompt_lens``; with ``chunked`` (and a chunk function)
+        the walk's chunk calls at every bucket width for groups 1 and
+        ``prefill_batch``; with ``decode`` both decode graphs (greedy and
+        sampled) of the full pass and of every decode window, captured
+        on CUDA with every row inactive, so no serving dispatch
+        captures; with speculation the verify pass at each power-of-two
+        width. Every table is all-OOB (every row of the slot layout a
+        dummy), so every K/V write drops: the caches, the free list,
+        ``lengths`` and the generator's state are as they were. Every
+        shape it runs is observed by the recompile sentinel, which it
+        seals; with ``decode`` it fixes the MFU basis: the model's flops
+        per token at the full decode graph's context (a slot's whole
+        table, ``pages_per_slot x page_size`` rows, or ``max_seq`` on the
+        slot layout) and the card's peak. Returns the seconds it
+        took."""
         if self._running:
             raise RuntimeError("warmup runs before start()")
         cfg = self.config
@@ -874,11 +970,11 @@ class Engine:
                         sample_batch(logits, *row_params(g),
                                      generator=self._generator,
                                      all_greedy=greedy)
-                    zeros = torch.zeros_like(kv_len)
-                    tables = oob(g)
-                    scatter_chunk_kv(self.k_cache, self.v_cache, tables, k,
-                                     v, zeros, kv_len)
-            if chunked:
+                    if self._paged:
+                        scatter_chunk_kv(self.k_cache, self.v_cache, oob(g),
+                                         k, v, torch.zeros_like(kv_len),
+                                         kv_len)
+            if chunked and self._chunk_fn is not None:
                 for width in self._usable_buckets:
                     for g in sorted({1, max(1, cfg.prefill_batch)}):
                         self.sentinel.observe(
@@ -889,14 +985,17 @@ class Engine:
                             self._upload(np.zeros((g, width), np.int64)),
                             self.k_cache, self.v_cache, oob(g), zeros, zeros)
             if decode:
-                self.sentinel.observe(self._sig("decode", 0))
+                for window in (0, *self._decode_windows):
+                    self.sentinel.observe(self._sig("decode", window))
                 self._decode_graph.warm(self.k_cache, self.v_cache)
                 if self._flops_fn is not None:
-                    # the decode graph attends over a slot's whole table
+                    # the full decode graph attends over a slot's whole
+                    # table (the slot layout: its whole cache)
                     self._flops_per_token = float(self._flops_fn(
-                        self._pages_per_slot * cfg.page_size))
+                        self._pages_per_slot * cfg.page_size if self._paged
+                        else cfg.max_seq))
                 self._peak_flops = device_peak_flops(self.device)
-            if cfg.speculative:
+            if self._spec_enabled:
                 b, width = cfg.max_batch, 2
                 while True:
                     self.sentinel.observe(self._sig("spec_verify", width))
@@ -1145,10 +1244,13 @@ class Engine:
     # -------------------------------------------------------------- submit
     def _clamp_prompt(self, tokens: list[int], max_new: int) -> list[int]:
         """Keep the tail of an over-long prompt, reserving room to
-        generate. The chunk walk takes prompts wider than every bucket,
-        so the cache is the only cap."""
+        generate. With a chunk function the walk takes prompts wider
+        than every bucket, so the cache is the only cap; without one the
+        widest prefill bucket caps admission too."""
         room = max(1, min(max_new, self.config.max_seq // 2))
         limit = max(1, self.config.max_seq - room - 1)
+        if self._chunk_fn is None:
+            limit = min(limit, self._usable_buckets[-1])
         return tokens[-limit:] if len(tokens) > limit else tokens
 
     def submit(self, prompt_tokens: list[int],
@@ -1544,7 +1646,12 @@ class Engine:
                 torch.cuda.synchronize(self.device)
             except Exception as exc:  # noqa: BLE001 — reported as lost
                 raise DeviceLost(f"CUDA context unusable: {exc}") from exc
-        self._reset_pages()
+        if self._paged:
+            self._reset_pages()
+        else:
+            # in place: the captured decode graphs hold their addresses
+            self.k_cache.zero_()
+            self.v_cache.zero_()
         self.lengths[:] = 0
         self._spec_ctrl_owner = [None] * self.config.max_batch
 
@@ -1587,7 +1694,8 @@ class Engine:
                 self._fail(other, f"kv cache lost to failed prefill: {exc}")
         self.lengths[:] = 0
         self._sched_dirty = True
-        self._reset_pages()
+        if self._paged:
+            self._reset_pages()
 
     # ------------------------------------------------------------- pages
     def _decref_page(self, page: int) -> None:
@@ -1636,6 +1744,8 @@ class Engine:
         return True
 
     def _release_pages(self, slot: int) -> None:
+        if not self._paged:
+            return             # the slot layout's rows are the slot's own
         n = int(self._slot_pages[slot])
         if n:
             self._tables_dirty = True
@@ -1686,12 +1796,15 @@ class Engine:
         # token emitted, each once (an earlier preemption folded some in
         # already; the JAX engine appends them all again, ROADMAP Queue C)
         # — at most max_seq rows, and the walk takes any width, so
-        # nothing is cut in practice
+        # nothing is cut in practice; without a walk the widest prefill
+        # bucket cuts it, as in the JAX engine
         req.prompt_tokens = (list(req.prompt_tokens)
                              + list(req.generated[req.folded:]))
         req.folded = len(req.generated)
-        if len(req.prompt_tokens) > self.config.max_seq:
-            req.prompt_tokens = req.prompt_tokens[-self.config.max_seq:]
+        limit = self.config.max_seq if self._chunk_fn is not None \
+            else self._usable_buckets[-1]
+        if len(req.prompt_tokens) > limit:
+            req.prompt_tokens = req.prompt_tokens[-limit:]
         # the chunks walked are gone with the pages: a cached prefix may
         # attach again at re-admission
         req.prefill_offset = 0
@@ -1710,7 +1823,7 @@ class Engine:
         """Rows covered by the longest cached prefix of ``prompt`` (0 =
         miss), leaving at least one token to compute: the first sample
         needs a position to come from."""
-        if not self.config.prefix_cache:
+        if not self._prefix_enabled:
             return 0
         limit = len(prompt) - 1
         for length in sorted(self._prefix_lens, reverse=True):
@@ -1738,7 +1851,7 @@ class Engine:
         last token out, as a probe does), or the longest aligned part
         of it that the budget still allows. Decode wrote only past the
         prompt, so these pages hold exactly the prefix's K/V."""
-        if not self.config.prefix_cache:
+        if not self._prefix_enabled:
             return
         pg = self.config.page_size
         prompt = req.prompt_tokens
@@ -1867,13 +1980,13 @@ class Engine:
         return self._upload(temps), self._upload(top_ps), self._upload(top_ks)
 
     def _prefill_group(self, bucket: int, chunk: list[GenRequest]) -> None:
-        """Place each request of ``chunk`` in a free slot with pages for
-        prompt + 1 rows (requeued when no slot or no pages are free;
-        failed when the prompt can never fit the pool) and launch one
-        ``[P, bucket]`` prefill for them: sample, write the K/V and send
-        the first tokens to pinned host memory behind an event. The
-        launch returns before the card is done; ``_collect_prefills``
-        emits the tokens."""
+        """Place each request of ``chunk`` in a free slot, on the paged
+        layout with pages for prompt + 1 rows (requeued when no slot or
+        no pages are free; failed when the prompt can never fit the
+        pool), and launch one ``[P, bucket]`` prefill for them: sample,
+        write the K/V (``_write_prompt``) and send the first tokens to
+        pinned host memory behind an event. The launch returns before the
+        card is done; ``_collect_prefills`` emits the tokens."""
         cfg = self.config
         placed: list[GenRequest] = []
         for req in chunk:
@@ -1881,13 +1994,14 @@ class Engine:
             if slot < 0:
                 self._requeue(req)
                 continue
-            if -(-(len(req.prompt_tokens) + 1) // cfg.page_size) \
-                    > self._n_pages:
-                self._fail(req, "prompt exceeds kv pool")
-                continue
-            if not self._alloc_pages(slot, len(req.prompt_tokens) + 1):
-                self._requeue(req)           # pool busy: wait for retires
-                continue
+            if self._paged:
+                if -(-(len(req.prompt_tokens) + 1) // cfg.page_size) \
+                        > self._n_pages:
+                    self._fail(req, "prompt exceeds kv pool")
+                    continue
+                if not self._alloc_pages(slot, len(req.prompt_tokens) + 1):
+                    self._requeue(req)       # pool busy: wait for retires
+                    continue
             if req.admit_order < 0:
                 req.admit_order = self._admit_seq
                 self._admit_seq += 1
@@ -1914,16 +2028,15 @@ class Engine:
         wall0 = time.time()
         try:
             kv_len_t = self._upload(kv_len)
-            tables_t = self._upload(tables)
+            tables_t = self._upload(tables) if self._paged else None
             temps, top_ps, top_ks = self._row_params(placed, p)
             logits, (k, v) = self._prefill_fn(
                 self.params, self._upload(tokens), kv_len_t)
             toks = sample_batch(logits, temps, top_ps, top_ks,
                                 generator=self._generator,
                                 all_greedy=_all_greedy(placed))
-            offsets = torch.zeros_like(kv_len_t)
-            scatter_chunk_kv(self.k_cache, self.v_cache, tables_t, k, v,
-                             offsets, kv_len_t)
+            self._write_prompt(k, v, kv_len_t, tables_t,
+                               [r.slot for r in placed])
             first, ready = self._to_host(toks)
         except Exception as exc:  # noqa: BLE001 — fail this group only
             for req in placed:
@@ -1944,6 +2057,25 @@ class Engine:
             "slots": [r.slot for r in placed],
             "epochs": [r.prefill_epoch for r in placed], "t0": t0,
             "wall0": wall0, "bucket": bucket, "group": p})
+
+    def _write_prompt(self, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, tables: torch.Tensor,
+                      slots: list[int]) -> None:
+        """A group prefill's K/V slabs [L, P, S, Hkv, hd] into the cache:
+        on the paged layout each row's first ``kv_len`` rows through its
+        table (dummy rows have all-OOB tables: dropped), in one launch of
+        the slab kernel on CUDA (``scatter_chunk_kv``); on the slot
+        layout the whole bucket width of each real row into its slot's
+        first S rows (``kc[:, slots, :S] = k``, the dummy rows past
+        ``len(slots)`` left out)."""
+        if self._paged:
+            scatter_chunk_kv(self.k_cache, self.v_cache, tables, k, v,
+                             torch.zeros_like(kv_len), kv_len)
+            return
+        n, width = len(slots), k.shape[2]
+        index = self._upload(np.asarray(slots, np.int64))
+        self.k_cache[:, index, :width] = k[:, :n].to(self.k_cache.dtype)
+        self.v_cache[:, index, :width] = v[:, :n].to(self.v_cache.dtype)
 
     def _to_host(self, tensor: torch.Tensor):
         """(host copy, event): on CUDA a copy into pinned memory queued
@@ -2313,7 +2445,13 @@ class Engine:
                   "top_ps": np.ones(b, np.float32),
                   "top_ks": np.zeros(b, np.int64)}
         for i, req in enumerate(self.active):
-            if req is None or req.pending_prefill:
+            if req is None:
+                continue
+            if req.pending_prefill:
+                if not self._native:
+                    # a dense step has no active mask: parked at max_seq,
+                    # the row's writes drop and its prompt rows stay
+                    arrays["lengths"][i] = cfg.max_seq
                 continue
             arrays["active"][i] = True
             arrays["lengths"][i] = self.lengths[i]
@@ -2349,18 +2487,19 @@ class Engine:
 
     def _decode_dispatch(self) -> None:
         """Launch one decode dispatch without waiting for it: sweep the
-        unservable slots, grow every decoding slot's table to ``len + T``
-        rows oldest request first (preempting the newest when the pool
-        runs dry), upload the state and tables if an event dirtied them,
-        advance the host's ``lengths`` by each row's valid steps, and
-        queue a record of the pass for ``_decode_collect``."""
+        unservable slots, on the paged layout grow every decoding slot's
+        table to ``len + T`` rows oldest request first (preempting the
+        newest when the pool runs dry), upload the state and tables if an
+        event dirtied them, pick the decode window, advance the host's
+        ``lengths`` by each row's valid steps, and queue a record of the
+        pass for ``_decode_collect``."""
         cfg = self.config
         steps = self._tokens_per_pass
         h2d0 = self.stats["h2d_transfers"]
         self._retire_unservable()
         order = sorted((i for i, r in enumerate(self.active) if r is not None),
                        key=lambda i: self.active[i].admit_order)
-        for i in order:
+        for i in order if self._paged else ():
             req = self.active[i]
             if req is None or req.pending_prefill:
                 continue       # preempted just now, or walking its prompt
@@ -2374,10 +2513,11 @@ class Engine:
             return
         if self._sched_dirty:
             self._sync_decode_state()
-        if self._tables_dirty:
+        if self._tables_dirty and self._paged:
             self._sync_tables()
         reqs = list(self.active)
-        self._note_dispatch_shape("decode", 0)
+        window = self._pick_window(int(self.lengths[mask].max()) + steps)
+        self._note_dispatch_shape("decode", window)
         # steps whose write would land at or past max_seq are garbage
         # (their K/V writes drop): only the valid prefix is emitted
         valid = np.where(mask, np.minimum(steps, cfg.max_seq - self.lengths),
@@ -2387,14 +2527,21 @@ class Engine:
         self.goodput.note_dispatch(start)
         handle = self._decode_graph.launch(
             self.k_cache, self.v_cache,
-            _all_greedy([r for r, m in zip(reqs, mask) if m]))
+            _all_greedy([r for r, m in zip(reqs, mask) if m]), window)
         self._note_graph_stats()
         self._dev_last_reqs = [r if m else None for r, m in zip(reqs, mask)]
         disp = time.perf_counter() - host0
         self._pending.append({"handle": handle, "reqs": reqs, "mask": mask,
                               "valid": valid, "t0": start, "disp": disp,
+                              "window": window,
                               "h2d": self.stats["h2d_transfers"] - h2d0})
         self.stats["dispatch_s"] += disp
+
+    def _pick_window(self, needed: int) -> int:
+        """The smallest decode window that covers ``needed`` rows (every
+        decoding slot's length + T; parked slots decode garbage either
+        way and bound nothing), else 0: the full graph."""
+        return next((w for w in self._decode_windows if needed <= w), 0)
 
     def _decode_collect(self) -> None:
         """Wait for the oldest dispatch in flight, emit its tokens and
@@ -2454,7 +2601,7 @@ class Engine:
         self.goodput.add_decode(busy, credited, self.config.max_batch)
         # the price an accepted draft token undercuts
         self._spec_ctrl.note_decode(busy, emitted)
-        sig = self._sig_str("decode", 0)
+        sig = self._sig_str("decode", rec["window"])
         self._note_pass_cost("decode", sig, busy, rows=credited,
                              tokens=emitted)
         if self.recorder.enabled:
@@ -2476,7 +2623,7 @@ class Engine:
         step."""
         proposals: dict[int, Any] = {}
         decoding = 0
-        if self.config.speculative:
+        if self._spec_enabled:
             for i, r in enumerate(self.active):
                 if r is None or r.pending_prefill or r.cancelled:
                     continue
@@ -2778,7 +2925,9 @@ class Engine:
         """The ``GET /debug/efficiency`` payload: goodput, watermarks,
         the recompile sentinel, speculation and the cost table."""
         self._update_watermarks()
-        cap_tokens = self._n_pages * self.config.page_size
+        cfg = self.config
+        cap_tokens = (self._n_pages * cfg.page_size if self._paged
+                      else cfg.max_batch * cfg.max_seq)
         return {"goodput": self.goodput.state(),
                 "watermarks": self.watermarks.state(),
                 "recompiles": self.sentinel.state(),
@@ -2934,6 +3083,12 @@ class Engine:
         wm = self.watermarks
         if not wm.enabled:
             return
+        if not self._paged:       # the slot layout: live rows
+            rows = float(self.lengths.sum())
+            wm.update("kv_rows", rows)
+            wm.update("kv_bytes", rows * self._kv_bytes_total
+                      / (self.config.max_batch * self.config.max_seq))
+            return
         used = self._n_pages - len(self._free_pages)
         wm.update("kv_pages", float(used))
         wm.update("prefix_pages", float(self._cached_pages))
@@ -2987,6 +3142,7 @@ class Engine:
         if wm.enabled:
             for mark, gauge in (
                     ("kv_pages", "app_engine_kv_pages_watermark"),
+                    ("kv_rows", "app_engine_kv_rows_watermark"),
                     ("kv_bytes", "app_engine_kv_bytes_watermark"),
                     ("prefix_pages", "app_engine_prefix_pages_watermark"),
                     ("host_rss_bytes",
@@ -2997,11 +3153,17 @@ class Engine:
         mfu = (tps * self._flops_per_token / self._peak_flops
                if self._flops_per_token and self._peak_flops else 0.0)
         m.set_gauge("app_engine_mfu", round(mfu, 6))
-        if self.config.speculative:
+        if self._spec_enabled:
             m.set_gauge("app_engine_spec_accept_rate",
                         round(self._spec_ctrl.accept_rate(), 6))
         self.waiting.publish_gauges(m)
         cfg = self.config
+        if not self._paged:
+            m.set_gauge("app_engine_kv_pool_utilization",
+                        round(float(self.lengths.sum())
+                              / (cfg.max_batch * cfg.max_seq), 4))
+            m.set_gauge("app_engine_kv_pool_fragmentation", 0.0)
+            return
         used = self._n_pages - len(self._free_pages)
         m.set_gauge("app_engine_kv_pool_utilization",
                     round(used / self._n_pages, 4))
@@ -3018,6 +3180,16 @@ class Engine:
                     float(len(self._prefix_cache)))
         m.set_gauge("app_engine_prefix_cache_pages",
                     float(self._cached_pages))
+
+
+def _takes_window(fn) -> bool:
+    """Whether a dense decode_fn takes ``attn_window`` (probed by
+    signature, as the JAX engine probes it)."""
+    try:
+        return fn is not None and "attn_window" in inspect.signature(
+            fn).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 def _all_greedy(reqs) -> bool:

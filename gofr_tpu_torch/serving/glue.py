@@ -1,5 +1,6 @@
 """Model -> Engine glue (counterpart of ``gofr_tpu/serving/glue.py``'s
-``llama_engine``, single device, native paged layout)."""
+``llama_engine``, single device, native paged layout, and its
+``moe_engine``, on the slot layout or through the paged pool's view)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ from ..device import resolve_device
 from ..models.llama import (LlamaConfig, llama_decode_flops,
                             llama_decode_step_paged,
                             llama_prefill_chunk_paged, llama_prefill_last,
-                            make_pool)
+                            make_empty_cache, make_pool)
+from ..models.moe import (MoEConfig, moe_decode_flops, moe_decode_step,
+                          moe_prefill_last)
 from ..ops.quant import (M_MAX, is_quantized, quantize_llama_int4,
                          quantize_llama_int8)
 from .engine import Engine, EngineConfig
@@ -44,13 +47,14 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     if quantize is not None and quantize not in ("int8", "int4"):
         raise ValueError(f"quantize must be None, 'int8' or "
                          f"'int4', got {quantize!r}")
-    dev = resolve_device(device)
-    embed = params["embed"]
-    where = (embed["q"] if is_quantized(embed) else embed).device
-    if where != dev:
-        raise ValueError(f"params live on {where}, the "
-                         f"engine was asked to run on {dev}")
+    dev = _device_of(params, device)
     engine_config = engine_config or EngineConfig()
+    if engine_config.kv_layout != "paged":
+        raise ValueError(
+            f"llama_engine serves the paged layout only, got kv_layout="
+            f"{engine_config.kv_layout!r}: Llama's slot path "
+            f"(llama_decode_step, llama_prefill_chunk) is not ported yet "
+            f"(ROADMAP Queue A9)")
     rows = kernel_rows(engine_config)
     if (quantize is not None or is_quantized(params["layers"]["wq"])) \
             and rows > M_MAX:
@@ -92,6 +96,57 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                   paged_verify_fn=paged_verify_fn, make_cache=make_cache,
                   device=dev, vocab_size=c.vocab_size,
                   flops_per_token=partial(llama_decode_flops, c))
+
+
+def moe_engine(params: Any, model_config: MoEConfig,
+               engine_config: EngineConfig | None = None, *,
+               device: str | torch.device | None = None) -> Engine:
+    """An engine serving the MoE family's ``params`` on ``device``
+    (default: CUDA, or raise): bucketed prefill through
+    ``moe_prefill_last`` (the flash kernel), decode through
+    ``moe_decode_step`` on dense caches — the slot layout's, or on the
+    paged layout the pool's dense view, gathered once a dispatch and
+    written back through the slab kernel (an int8 pool dequantized to the
+    model's dtype for the view and quantized again on the write) — T
+    steps a dispatch replayed as one CUDA graph per decode window. The
+    family has no chunk or verify function: prompts are clamped to the
+    widest bucket, the prefix cache is off and ``speculative`` serves
+    plain decode, as in the JAX engine."""
+    dev = _device_of(params, device)
+    engine_config = engine_config or EngineConfig()
+    c = model_config
+
+    def prefill_fn(params, tokens, kv_lengths):
+        logits, caches, _router = moe_prefill_last(params, tokens, c,
+                                                   kv_lengths=kv_lengths)
+        return logits, caches
+
+    def decode_fn(params, tokens, k_cache, v_cache, lengths,
+                  attn_window=None):
+        return moe_decode_step(params, tokens, k_cache, v_cache, lengths, c,
+                               attn_window=attn_window)
+
+    def make_cache(n, rows, kv_dtype="bf16", head_major=True):
+        if head_major:                   # a pool of n pages of rows each
+            return make_pool(c, n, rows, dev, kv_dtype)
+        return make_empty_cache(c, n, rows, dev)    # n slots of rows each
+
+    return Engine(params, engine_config, prefill_fn=prefill_fn,
+                  decode_fn=decode_fn, make_cache=make_cache, device=dev,
+                  vocab_size=c.vocab_size,
+                  flops_per_token=partial(moe_decode_flops, c))
+
+
+def _device_of(params: Any, device) -> torch.device:
+    """The engine's device (``resolve_device``), or raise when the
+    params live elsewhere."""
+    dev = resolve_device(device)
+    embed = params["embed"]
+    where = (embed["q"] if is_quantized(embed) else embed).device
+    if where != dev:
+        raise ValueError(f"params live on {where}, the "
+                         f"engine was asked to run on {dev}")
+    return dev
 
 
 def kernel_rows(config: EngineConfig) -> int:

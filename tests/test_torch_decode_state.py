@@ -292,3 +292,49 @@ def test_plain_writes_drop_out_of_range_rows_like_jax(form, shape):
     changed = (_leaves(got_v)[0].numpy() != np.asarray(_leaves(jv)[0])).any(
         axis=(0, 1, 4))
     assert 0 < changed.sum() <= (pids < n_pages).sum()
+
+
+def test_the_cycle_collector_waits_until_a_capture_ends(monkeypatch):
+    # a dead engine's CUDA graphs freed by the cycle collector inside
+    # another engine's capture: CUDA refuses the teardown while a
+    # stream captures, and the capture is invalidated. So _capture
+    # collects dead cycles first and holds the collector off until the
+    # capture ends (the capture machinery is faked here, on the CPU)
+    import contextlib
+    import gc
+    eng = _engine()
+    inside, collected = [], []
+
+    class FakeGraph:
+        def register_generator_state(self, generator):
+            pass
+
+    class FakeStream:
+        def __init__(self, *args):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def capture(graph, pool=None, capture_error_mode=None):
+        inside.append(gc.isenabled())
+        yield
+
+    real_collect = gc.collect
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *args: FakeStream())
+    monkeypatch.setattr(gc, "collect",
+                        lambda *args: collected.append(1) or real_collect())
+    assert gc.isenabled()
+    for greedy in (True, False):
+        eng._decode_graph._capture(eng.k_cache, eng.v_cache, greedy)
+    assert collected and inside == [False, False]
+    assert gc.isenabled()
+    assert eng._decode_graph.captures == 2

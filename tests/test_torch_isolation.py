@@ -71,7 +71,10 @@ def test_the_scan_sees_every_module_and_catches_a_bad_import():
             "_build.py", "spec.py", "quant.py", "hf_checkpoint.py",
             "tokenizer.py", "metrics.py", "faults.py", "events.py",
             "observability.py", "costmodel.py", "integrity.py",
-            "logger.py", "debug.py"} <= names
+            "logger.py", "debug.py", "moe.py"} <= names
+    # the MoE family's model and ops modules are both scanned
+    assert {p.relative_to(PKG).as_posix() for p in PKG.rglob("moe.py")} \
+        == {"models/moe.py", "ops/moe.py"}
     tree = ast.parse("try:\n    import triton\nexcept ImportError:\n"
                      "    pass\ndef f():\n    import triton.language\n")
     assert set(_module_level_imports(tree.body)) == {"triton"}
