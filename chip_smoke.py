@@ -73,7 +73,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              ``wq_gemm_route`` line: the kernel against the plain route
              at w1's shape over M = 16..2048, and which route each
              product of the serving path takes.
-4. model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
+4. moe_tie — the MoE router's tie order on the card: tied router logits
+             pick the lowest expert indices, as ``lax.top_k`` does (all
+             tied: [0, 1]; a tie for second: [5, 2]), and ``moe_layer``
+             under a zero gate mixes experts 0 and 1; a highest-index-
+             first order as the planted fault.
+   model   — Llama-3.2-1B shape (``llama3_1b``), random bf16 weights from
              seed 0: ``llama_prefill_last`` + 3 ``llama_decode_step_paged``
              steps through the kernels and through the plain versions
              (the prompt's and each step's K/V writes included) on the
@@ -203,6 +208,25 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              at Mixtral's heads, P 4, S 512, and the slab write of a
              decode dispatch's view write-back, both forms, each with its
              planted fault, among the kernel rows above).
+10. serve_llama8b — Llama-3-8B (``llama3_8b``: hd 128, 32 layers, 16.06
+             GB of bf16 weights) at full width and depth, random weights,
+             through the app on the native paged layout (bf16; int8 with
+             speculation), the slot layout, the view (``paged_attention=
+             "view"``, windows 512 / 1024), and speculative on the native
+             and the slot layout: serve's three waves and serve_spec's
+             prompts; checks (a)-(i) with their planted faults
+             (``phase_serve_llama8b``' docstring): slot and view agree,
+             speculative and plain agree, the 1801-token prompt walks
+             whole on the dense layouts, prefix hits on the view, kernel vs
+             plain logits on a decode step and a chunk, no capture while
+             serving, the weight bytes, every kernel launched. Also a
+             decode step's device ms natively and on the slot layout, by
+             kernel kind. Its launches are the D = 128 kernel rows'
+             (``paged_decode_attention_d128``, ``paged_chunk_attention_
+             d128``, ``paged_tree_attention_d128``, ``rope_kv_write_d128``,
+             each with ``_int8``, among the kernel rows above: the
+             kernels at Llama-3-8B's heads, the checks of the D = 64 rows
+             with their planted faults).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -502,13 +526,16 @@ def _int8_fields(quantized: bool, name: str, replaces: tuple, shape: str):
             shape + " int8 {q, s} = quantize_pool of the bf16 pools")
 
 
-def kernel_paged(dev, gen, lens_l: list, seed: int, shape: str) -> list:
+def kernel_paged(dev, gen, lens_l: list, seed: int, shape: str,
+                 d: int = 64) -> list:
     """The paged decode kernel, on a bf16 pool and on ``quantize_pool``
-    of the same pool: one row each. Llama-3.2-1B heads, 64-row pages,
-    256 pages, tables as wide as the longest slot (OOB-padded)."""
+    of the same pool: one row each. Llama-3.2-1B heads (``d`` 128:
+    Llama-3-8B's, the rows named ``_d128``, their launches read from
+    ``serve_llama8b``), 64-row pages, 256 pages, tables as wide as the
+    longest slot (OOB-padded)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
-    b, hq, hkv, d, pg, n_pages = len(lens_l), 32, 8, 64, 64, 256
+    b, hq, hkv, pg, n_pages = len(lens_l), 32, 8, 64, 256
     mp = -(-max(lens_l) // pg)
     tables = torch.full((b, mp), n_pages, dtype=torch.int32)
     perm = torch.randperm(n_pages,
@@ -528,6 +555,16 @@ def kernel_paged(dev, gen, lens_l: list, seed: int, shape: str) -> list:
                        pg, shape)]
 
 
+def _d128_fields(name: str, d: int) -> dict:
+    """A D = 128 row's name suffix and where its launches come from:
+    ``serve_llama8b``, the phase that serves Llama-3-8B's heads; the
+    wrapper's counter keeps the D = 64 row's key."""
+    if d == 64:
+        return {"name": name}
+    return {"name": f"{name}_d{d}", "wrapper": name,
+            "launches_from": "serve_llama8b"}
+
+
 def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
     import torch
     import torch.nn.functional as F
@@ -541,6 +578,8 @@ def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
         quantized, "paged_decode_attention",
         ("gofr_tpu/ops/paged_attention.py:134",
          "gofr_tpu/ops/paged_attention.py:138"), shape)
+    fields = _d128_fields(name, d)
+    name = fields["name"]
     out = paged_decode_attention(q, kp, vp, tables, lens)
     ref = paged_decode_attention_plain(q, kp, vp, tables, lens)
     err, ratios = check(out, ref)
@@ -600,7 +639,7 @@ def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
               + sum(-(-n // pg) for n in lens_l) * 4 + 4 * b)
     flops = sum(4.0 * n * hq * d for n in lens_l)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": name, "route": "cuda",
+    row = {**fields, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_decode.cu",
            "replaces": replaces,
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -615,11 +654,12 @@ def _paged_row(q, kp, vp, tables, lens, pg, shape) -> dict:
     return row
 
 
-def kernel_chunk(dev, gen, group3: bool = False) -> list:
+def kernel_chunk(dev, gen, group3: bool = False, d: int = 64) -> list:
     """The paged chunk kernel, on a bf16 pool and on ``quantize_pool``
     of the same pool: one row each; with ``group3`` one bf16 row at GQA
     group 3 (12 query heads over 4 KV heads: 21-position tiles of 63
-    live rows in the 64-row block)."""
+    live rows in the 64-row block); ``d`` 128: at Llama-3-8B's head
+    dimension (rows ``_d128``)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
     # the serve path's shapes: llama3_1b heads, 64-row pages, tables of
@@ -627,7 +667,7 @@ def kernel_chunk(dev, gen, group3: bool = False) -> list:
     # chunk (the widest bucket); (history, chunk) per slot: a fresh
     # prompt, the second chunk of an 1801-token walk, a prefix-cache
     # suffix of 6 rows after 896 cached rows, an empty pad row
-    sq, hq, hkv, d, pg, n_pages, mp = 1024, 32, 8, 64, 64, 128, 32
+    sq, hq, hkv, pg, n_pages, mp = 1024, 32, 8, 64, 128, 32
     if group3:
         hq, hkv = 12, 4
     hists, clens = [0, 1024, 896, 0], [1024, 777, 6, 0]
@@ -671,11 +711,13 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
         quantized, "paged_chunk_attention",
         ("gofr_tpu/ops/paged_attention.py:357",
          "gofr_tpu/ops/paged_attention.py:362"),
-        f"B=4 Sq=1024 Hq={hq} Hkv={hkv} hd=64 pg=64 Np=128 Mp=32, (history, "
+        f"B=4 Sq=1024 Hq={hq} Hkv={hkv} hd={d} pg=64 Np=128 Mp=32, (history, "
         "chunk) (0, 1024) (1024, 777) (896, 6) (0, 0), OOB-padded tables,")
-    wrapper = name
+    fields = _d128_fields(name, d)
+    fields["wrapper"] = name
     if hq // hkv != 4:
-        name = f"{name}_group{hq // hkv}"
+        fields["name"] = f"{name}_group{hq // hkv}"
+    name = fields["name"]
     args = (q, kp, vp, tables, hist, clen)
     out = paged_chunk_attention(*args)
     ref = paged_chunk_attention_plain(*args)
@@ -743,7 +785,7 @@ def _chunk_row(q, kp, vp, tables, bad, hist, clen, pg) -> dict:
               + sum(_kv_bytes(n, hkv, d, quantized) for n in kv_rows)
               + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": name, "wrapper": wrapper, "route": "cuda",
+    row = {**fields, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
            "replaces": replaces,
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -804,15 +846,16 @@ def _poison_fork(tree, clen):
 
 
 def kernel_tree(dev, gen, slots: list, seed: int, shape: str,
-                chain_slot: int | None) -> list:
+                chain_slot: int | None, d: int = 64) -> list:
     """The paged tree kernel, on a bf16 pool and on ``quantize_pool`` of
     the same pool: one row each. ``chain_slot``: a slot whose tree is a
-    chain, held bit for bit against the chunk kernel."""
+    chain, held bit for bit against the chunk kernel. ``d`` 128: at
+    Llama-3-8B's head dimension (rows ``_d128``)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import quantize_pool
     # the verify pass's shapes: width 16 (the pow-2 bucket of a 1 + 4 x 2
     # tree), llama3_1b heads, 64-row pages, tables of 32 pages
-    w, hq, hkv, d, pg, n_pages, mp = 16, 32, 8, 64, 64, 256, 32
+    w, hq, hkv, pg, n_pages, mp = 16, 32, 8, 64, 256, 32
     b = len(slots)
     hists = [h for h, _, _ in slots]
     clens = [c for _, _, c in slots]
@@ -875,6 +918,8 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots, pg,
         ("gofr_tpu/ops/paged_attention.py:614",
          "gofr_tpu/ops/paged_attention.py:619"),
         f"{shape}, chunks {clens}, OOB-padded tables,")
+    fields = _d128_fields(name, d)
+    name = fields["name"]
     args = (q, kp, vp, tables, hist, clen)
     out = paged_tree_attention(*args, masks)
     ref = paged_tree_attention_plain(*args, masks)
@@ -993,7 +1038,7 @@ def _tree_row(q, kp, vp, tables, hist, clen, masks, causal, slots, pg,
               + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b
               + sum(clens) * 4)
     bound_ms, bound_by = bound(flops, nbytes)
-    row = {"name": name, "route": "cuda",
+    row = {**fields, "route": "cuda",
            "source": "gofr_tpu_torch/csrc/paged_chunk.cu",
            "replaces": replaces,
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -1199,7 +1244,7 @@ def _verify_coords(dev, gen, n_pages, pg):
             (node % pg).int())
 
 
-def kernel_rope_kv_write(dev, gen, verify: bool) -> list:
+def kernel_rope_kv_write(dev, gen, verify: bool, d: int = 64) -> list:
     """The fused RoPE + K/V write entry (``rope_kv_write``) at the shape
     the main path gives it, on the serve pool (16 layers, Hkv 8, hd 64,
     256 pages of 64 rows, Hq 32), layer 7, one row per pool form: a
@@ -1217,13 +1262,16 @@ def kernel_rope_kv_write(dev, gen, verify: bool) -> list:
     version, the unfused path (``apply_rope`` x 2 + the ``kv_write``
     kernel, ``unfused_path_*``) and, as ``library_ms``, ``index_copy_`` of
     the rotated rows (RoPE, selection and quantize beforehand,
-    untimed)."""
+    untimed). ``d`` 128: the decode step's rows at Llama-3-8B's shape (32
+    layers, hd 128; rows ``_d128``, launches from ``serve_llama8b``)."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import (keep_index, kv_write,
                                              quantize_pool, rope_kv_write,
                                              rope_kv_write_plain)
     from gofr_tpu_torch.ops.rope import apply_rope, rope_frequencies
-    n_layers, hq, hkv, d, n_pages, pg, li = 16, 32, 8, 64, 256, 64, 7
+    n_layers, hq, hkv, n_pages, pg, li = 16, 32, 8, 256, 64, 7
+    if d == 128:
+        n_layers = 32
     shape = (n_layers, hkv, n_pages, pg, d)
     k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
     v_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -1259,7 +1307,9 @@ def kernel_rope_kv_write(dev, gen, verify: bool) -> list:
         kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
                   else (k_pool, v_pool))
         form = "_int8" if quantized else ""
-        name = "rope_kv_write" + ("_verify" if verify else "") + form
+        fields = _d128_fields(
+            "rope_kv_write" + ("_verify" if verify else "") + form, d)
+        name = fields["name"]
         want_q, want = run(rope_kv_write_plain, kp, vp)
         got_q, got = run(rope_kv_write, kp, vp)
         err, equal = _pools_diff(got, want)
@@ -1311,7 +1361,7 @@ def kernel_rope_kv_write(dev, gen, verify: bool) -> list:
                                                     quantized)
                   + 12 * n + 4 * d // 2)
         bound_ms, bound_by = bound(0.0, nbytes)
-        row = {"name": name, "wrapper": "rope_kv_write" + form,
+        row = {**fields, "wrapper": "rope_kv_write" + form,
                "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_write.cu",
                "replaces": "gofr_tpu/ops/paged_kv.py:124",
                "replaces_note": "apply_rope (gofr_tpu/ops/rope.py:37) on q "
@@ -1769,6 +1819,56 @@ def kernel_wq_gemm(dev, gen, smi_line: str) -> list:
           "w1_sweep": sweep, "routes": routes})
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_moe_tie(dev) -> None:
+    """The MoE router's tie order on the card: ``top_k_routing`` of
+    router logits that tie must pick the lowest expert indices, as
+    ``lax.top_k`` does (a stable descending sort, cut to k). Two cases
+    of 4 rows over 8 experts: every logit tied (a zero gate: experts
+    [0, 1]) and a tie for second place only (expert 5 first, 2, 3 and 6
+    tied: [5, 2]); and ``moe_layer`` under the zero gate must give the
+    even mix of experts 0 and 1. Planted fault: the tie broken toward the
+    highest index (the sort run on the logits reversed along E), which
+    must fail the same check. ``torch.topk``'s own order on the same
+    logits is printed (it promises none)."""
+    import torch
+    from gofr_tpu_torch.ops.moe import moe_layer, top_k_routing
+    e, want = 8, {"all": [0, 1], "second": [5, 2]}
+    scale = torch.tensor([0.125, 0.125, 0.5, 0.5, 0.125, 1.0, 0.5, 0.125],
+                         device=dev)
+    logits = {"all": torch.zeros(4, e, device=dev),
+              "second": torch.ones(4, 1, device=dev) * scale}
+
+    def flipped(x):
+        _, idx = top_k_routing(x.flip(-1), 2)
+        return e - 1 - idx
+
+    got = {k: top_k_routing(x, 2)[1].tolist() for k, x in logits.items()}
+    fault = {k: flipped(x).tolist() for k, x in logits.items()}
+    topk = {k: torch.topk(x, 2).indices.tolist() for k, x in logits.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    d, f = 16, 32
+    x = torch.randn(4, d, generator=gen, device=dev)
+    w1, w3 = (torch.randn(e, d, f, generator=gen, device=dev) * 0.1
+              for _ in range(2))
+    w2 = torch.randn(e, f, d, generator=gen, device=dev) * 0.1
+    out, _ = moe_layer(x, torch.zeros(d, e, device=dev), w1, w3, w2)
+    mix = sum(0.5 * (torch.nn.functional.silu(x @ w1[i]) * (x @ w3[i]))
+              @ w2[i] for i in (0, 1))
+    err = (out - mix).abs().max().item()
+    ok = {k: got[k] == [want[k]] * 4 for k in want}
+    fault_ok = {k: fault[k] == [want[k]] * 4 for k in want}
+    emit({"phase": "moe_tie", "picked": got, "want_each_row": want,
+          "torch_topk_order": topk, "moe_layer_vs_experts_0_1_abs": err,
+          "planted_fault_highest_index_first": fault})
+    if not all(ok.values()) or err > 1e-5:
+        raise AssertionError(f"moe_tie: the router picked {got} (want "
+                             f"{want} in every row), moe_layer vs experts "
+                             f"0 and 1: {err}")
+    if any(fault_ok.values()):
+        raise AssertionError(f"moe_tie check passed a planted fault: {fault}")
 
 
 def phase_model(dev) -> None:
@@ -2824,15 +2924,8 @@ def phase_serve(dev, smi_line: str, bf16: dict | None = None,
     engine.start()
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/chat"
-    words = ("the quick brown fox jumps over the lazy dog while a paged "
-             "cache keeps every token of the conversation in place ")
-    story = ("a long request walks through the chunk kernel one bucket at "
-             "a time and every page it writes stays in the pool ")
-    long_prompt = (story * 30)[:1800]
-    waves = [[(words * 20)[:n] for n in (20, 150, 400, 900)], [long_prompt],
-             [(words * 20)[:900] + " but the question at the end is new",
-              (words * 20)[:400] + " and this ending differs",
-              long_prompt[:1795] + " until a new ending"]]
+    waves = _serve_waves()
+    long_prompt = waves[1][0]
     # each hit's twin in `answers`: the 901-token, 401-token and long prompts
     twins = [3, 2, 4]
     answers: list = []
@@ -5007,10 +5100,7 @@ def phase_serve_spec(dev, smi_line: str) -> dict:
     from gofr_tpu_torch.serving.app import (build_engine, build_server,
                                             serve_config)
     cfg = LlamaConfig.llama3_1b()
-    cycles = ["the cat sat on the mat. ", "one two three four five six. ",
-              "abcd efgh abcd efgh ijkl ", "spec decode drafts from the "
-              "prompt; "]
-    prompts = [(c * 40)[:300] for c in cycles]
+    prompts = _spec_prompts()
     runs = {}
     spec = {"speculative": True, "spec_ngram": 2}
     for name, overrides in (("plain", {}), ("spec", spec),
@@ -5450,14 +5540,21 @@ MOE_NEW = 32
 MOE_WINDOWS = (512, 1024)
 
 
-def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
-             engine=None, **overrides) -> dict:
+def _serve_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
+               engine=None, *, build=None, phase: str = "serve_moe",
+               n_new=MOE_NEW, counters: dict | None = None,
+               **overrides) -> dict:
     """Serve ``waves`` (each one concurrent batch of greedy ``POST
-    /chat``, 32 new tokens) through the app over ``moe_engine`` on
-    ``serve_config`` + ``overrides``, warmed up first (its decode graphs
-    captured); or through ``engine`` when given (already warm, left
-    running for the caller to stop). Returns the answers, the
-    counters, the dispatch records of the run and its engine."""
+    /chat``, ``n_new`` new tokens each: one count, or one per wave)
+    through the app over ``build(params, cfg, engine_config,
+    device=dev)`` (default ``moe_engine``) on ``serve_config`` +
+    ``overrides``, warmed up first (its decode graphs captured); or
+    through ``engine`` when given (already warm, left running for the
+    caller to stop). ``counters``: name -> (kernel wrapper, counter
+    attribute), zeroed before the first wave and read after the last
+    (default: the flash kernel's and the slab write's). Returns the
+    answers, the counters, the engine's stats, the dispatch records of
+    the run and its engine; prints one ``phase`` line."""
     import torch
     from gofr_tpu_torch.ops.flash_attention import flash_attention
     from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv
@@ -5467,7 +5564,7 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
     own = engine is None
     warmup_s = None
     if own:
-        engine = moe_engine(params, cfg, serve_config(
+        engine = (build or moe_engine)(params, cfg, serve_config(
             cfg, autoprof=False, **overrides), device=dev)
         warmup_s = engine.warmup()
     captures_warm = engine.stats["graph_captures"]
@@ -5475,9 +5572,11 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
     seq0, requests0 = before["passes_recorded"], len(before["requests"])
     server = build_server(engine, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
-    counters = {"flash_attention": (flash_attention, "launches"),
-                "scatter_chunk_kv": (scatter_chunk_kv, "launches"),
-                "scatter_chunk_kv_int8": (scatter_chunk_kv, "launches_int8")}
+    counters = counters or {
+        "flash_attention": (flash_attention, "launches"),
+        "scatter_chunk_kv": (scatter_chunk_kv, "launches"),
+        "scatter_chunk_kv_int8": (scatter_chunk_kv, "launches_int8")}
+    news = n_new if isinstance(n_new, list) else [n_new] * len(waves)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     windows0 = dict(engine._decode_graph.passes_by_window)
@@ -5487,18 +5586,18 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
     answers: list = []
     walls = []
 
-    def ask(prompt, out, i):
+    def ask(prompt, out, i, new):
         try:
-            out[i] = _post(url, {"prompt": prompt, "max_tokens": MOE_NEW,
+            out[i] = _post(url, {"prompt": prompt, "max_tokens": new,
                                  "temperature": 0})
         except urllib.error.HTTPError as exc:     # a typed refusal
             out[i] = (exc.code, {})
 
     try:
-        for wave in waves:
+        for wave, new in zip(waves, news):
             got: list = [None] * len(wave)
             w0 = time.perf_counter()
-            workers = [threading.Thread(target=ask, args=(p, got, i))
+            workers = [threading.Thread(target=ask, args=(p, got, i, new))
                        for i, p in enumerate(wave)]
             for w in workers:
                 w.start()
@@ -5526,7 +5625,7 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
               for a, good in zip(answers, ok)]
     windows = {str(w): n - windows0.get(w, 0) for w, n in
                engine._decode_graph.passes_by_window.items()}
-    out = {"phase": "serve_moe", "run": name, "card": smi_line,
+    out = {"phase": phase, "run": name, "card": smi_line,
            "config": {k: overrides[k] for k in sorted(overrides)},
            "answers_201": sum(ok), "requests": len(answers),
            "prompt_tokens": [u and u["prompt_tokens"] for u in usage],
@@ -5537,6 +5636,9 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
            "decode_tokens_per_s": (stats["decode_tokens"]
                                    / max(stats["decode_s"], 1e-9)),
            "decode_passes": stats["decode_passes"],
+           **{k: stats[k] for k in ("prefix_hits", "prefill_calls",
+                                    "spec_passes", "spec_drafted",
+                                    "spec_accepted")},
            "passes_by_window": windows, "warmup_s": warmup_s,
            "graph_captures_after_warmup": captures_warm,
            "graph_captures": stats["graph_captures"],
@@ -5544,7 +5646,9 @@ def _moe_run(params, cfg, dev, smi_line, name, waves=MOE_WAVES,
            "h2d_transfers": stats["h2d_transfers"],
            "launches": launches, "run_wall_s": time.perf_counter() - t0}
     emit(out)
-    return {**out, "tokens": tokens, "passes": passes, "engine": engine}
+    return {**out, "tokens": tokens, "passes": passes, "engine": engine,
+            "prompts": [p for wave in waves for p in wave],
+            "n_new": [new for wave, new in zip(waves, news) for _ in wave]}
 
 
 def _same_tokens(run, ref, answers=None) -> list:
@@ -5665,7 +5769,7 @@ def _moe_restart(engine, params, cfg, dev, smi_line, name: str) -> list:
 
     before = state()
     engine.waiting.reopen()
-    run = _moe_run(params, cfg, dev, smi_line, name,
+    run = _serve_run(params, cfg, dev, smi_line, name,
                    waves=MOE_WAVES[2:3] * 2, engine=engine)
     engine.stop()
     after = state()
@@ -5834,7 +5938,7 @@ def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
         return [] if finite and err <= LOGITS_TOL else \
             [f"logits diff {err} > {LOGITS_TOL} (finite {finite})"]
 
-    runs = {"slot": _moe_run(params, cfg, dev, smi_line, "slot",
+    runs = {"slot": _serve_run(params, cfg, dev, smi_line, "slot",
                              kv_layout="slot")}
     runs["slot"].update(_moe_split(runs["slot"]["engine"], params, cfg, dev))
     # (e)'s plant on the same engine: every dispatch re-uploads its state
@@ -5847,27 +5951,27 @@ def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
 
     engine._decode_dispatch = always_dirty
     engine.waiting.reopen()
-    dirty = _moe_run(params, cfg, dev, smi_line, "planted_always_dirty",
+    dirty = _serve_run(params, cfg, dev, smi_line, "planted_always_dirty",
                      waves=MOE_WAVES[:1], engine=engine)
     engine.stop()
     del engine._decode_dispatch
     # (f) on the same engine, then its plant: the caches reallocated
     restart = [_moe_restart(engine, params, cfg, dev, smi_line, name)
                for name in ("restart", "planted_caches_reallocated")]
-    runs["view_bf16"] = _moe_run(params, cfg, dev, smi_line, "view_bf16",
+    runs["view_bf16"] = _serve_run(params, cfg, dev, smi_line, "view_bf16",
                                  kv_layout="paged")
     split = _view_split(runs["view_bf16"]["engine"], dev)
-    runs["view_int8"] = _moe_run(params, cfg, dev, smi_line, "view_int8",
+    runs["view_int8"] = _serve_run(params, cfg, dev, smi_line, "view_int8",
                                  kv_layout="paged", kv_dtype="int8",
                                  decode_windows=MOE_WINDOWS)
-    runs["slot_windows"] = _moe_run(params, cfg, dev, smi_line,
+    runs["slot_windows"] = _serve_run(params, cfg, dev, smi_line,
                                     "slot_windows", kv_layout="slot",
                                     decode_windows=MOE_WINDOWS)
     # (b)'s plant on the same engine: the narrowest window, always
     engine = runs["slot_windows"]["engine"]
     engine._pick_window = lambda needed: MOE_WINDOWS[0]
     engine.waiting.reopen()
-    narrow = _moe_run(params, cfg, dev, smi_line, "planted_narrow_window",
+    narrow = _serve_run(params, cfg, dev, smi_line, "planted_narrow_window",
                       waves=MOE_WAVES[3:], engine=engine)
     engine.stop()
     for run in runs.values():
@@ -5883,7 +5987,7 @@ def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
                          lengths + 1, steps)
 
     with mock.patch.object(graph_module, "scatter_decode_kv", back_late):
-        late = _moe_run(params, cfg, dev, smi_line, "planted_late_writeback",
+        late = _serve_run(params, cfg, dev, smi_line, "planted_late_writeback",
                         waves=MOE_WAVES[:1] + MOE_WAVES[3:],
                         kv_layout="paged")
     late.pop("engine")
@@ -5947,6 +6051,531 @@ def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
     return launches
 
 
+# -------------------------------------------------------- serve_llama8b
+def _serve_waves() -> list:
+    """serve's three waves: 4 prompts of 20 / 150 / 400 / 900 bytes, one
+    of 1800 (wider than every bucket: it walks), and three that share a
+    page-aligned prefix with a wave-1 prompt or the long one (prefix
+    hits on a layout with a prefix cache)."""
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+    long_prompt = (story * 30)[:1800]
+    return [[(words * 20)[:n] for n in (20, 150, 400, 900)], [long_prompt],
+            [(words * 20)[:900] + " but the question at the end is new",
+             (words * 20)[:400] + " and this ending differs",
+             long_prompt[:1795] + " until a new ending"]]
+
+
+def _spec_prompts() -> list:
+    """serve_spec's 4 prompts: 300 bytes each, a short cycle repeated."""
+    cycles = ["the cat sat on the mat. ", "one two three four five six. ",
+              "abcd efgh abcd efgh ijkl ", "spec decode drafts from the "
+              "prompt; "]
+    return [(c * 40)[:300] for c in cycles]
+
+
+LLAMA8B_NEW = 32
+LLAMA8B_SPEC_NEW = 64
+LLAMA8B_WINDOWS = (512, 1024)
+#: Llama-3-8B's weights in bf16: 8,030,261,248 parameters, 2 bytes each
+LLAMA8B_BYTES = 16_060_522_496
+#: the spec wave's answers in a run that serves all four waves
+SPEC_ANSWERS = [8, 9, 10, 11]
+
+
+def _llama8b_counters() -> dict:
+    """The launch counters of every kernel Llama's serving path runs:
+    flash, and in both pool forms the paged decode, chunk and tree
+    kernels, the fused RoPE + K/V write and the slab write."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention,
+                                                    paged_tree_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write, scatter_chunk_kv
+    out = {"flash_attention": (flash_attention, "launches")}
+    for fn in (paged_decode_attention, paged_chunk_attention,
+               paged_tree_attention, rope_kv_write, scatter_chunk_kv):
+        for form in ("", "_int8"):
+            out[fn.__name__ + form] = (fn, "launches" + form)
+    return out
+
+
+def _equal_faults(run, ref, answers) -> list:
+    """[] when ``run``'s answers are ``ref``'s at the indices ``answers``
+    bit for bit, else where not."""
+    bad = [i for i in answers if run["tokens"][i] != ref["tokens"][i]]
+    return [f"{run['run']} differs from {ref['run']} at answers {bad}"] \
+        if bad else []
+
+
+def _greedy_faults(run, params, cfg, dev) -> tuple[list, dict]:
+    """([] or the faults, a summary): each answer of ``run`` is a greedy
+    answer of the model as the flash prefill reads it: its prompt and
+    tokens through ``llama_prefill`` in one pass, every token's logit
+    within LOGITS_TOL of the largest at its position (the paths differ
+    by bf16 rounding inside attention, so a near-tie may go either way;
+    a fault moves logits further). The summary: per answer the worst
+    margin and the tokens that are the argmax."""
+    import torch
+    from gofr_tpu_torch.models.llama import llama_prefill
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    encode = ByteTokenizer().encode
+    faults, worst, argmax = [], [], []
+    for i, (prompt, tokens) in enumerate(zip(run["prompts"], run["tokens"])):
+        if not tokens:
+            faults.append(f"{run['run']} answer {i}: no tokens")
+            continue
+        ids = encode(prompt)
+        seq = torch.tensor([ids + tokens], device=dev)
+        logits, _ = llama_prefill(params, seq, cfg)
+        at = logits[0, len(ids) - 1:len(ids) - 1 + len(tokens)]
+        picked = at.gather(1, torch.tensor(tokens, device=dev)[:, None])
+        margin = (at.amax(1, keepdim=True) - picked)[:, 0]
+        worst.append(margin.max().item())
+        argmax.append(int((margin == 0).sum()))
+        del logits, at
+        if worst[-1] > LOGITS_TOL:
+            faults.append(f"{run['run']} answer {i}: token "
+                          f"{int(margin.argmax())} is {worst[-1]} below the "
+                          f"largest logit (> {LOGITS_TOL})")
+    return faults, {"worst_margin": worst, "argmax_tokens": argmax,
+                    "tokens": [len(t or ()) for t in run["tokens"]]}
+
+
+def _served_faults(run) -> list:
+    """Every answer 201 with its wave's count of new tokens."""
+    if run["answers_201"] != run["requests"]:
+        return [f"{run['run']}: {run['requests'] - run['answers_201']} "
+                f"answers not 201"]
+    if run["completion_tokens"] != run["n_new"]:
+        return [f"{run['run']}: completion tokens {run['completion_tokens']}"]
+    return []
+
+
+def _walk_faults(run) -> list:
+    """The 1801-token prompt (1800 bytes and bos) served whole: its
+    answer's usage and the engine's request log both count 1801."""
+    if 1801 in run["prompt_tokens"] and 1801 in run["engine_prompt_tokens"]:
+        return []
+    return [f"{run['run']}: prompts served as {run['engine_prompt_tokens']} "
+            f"tokens: the 1801-token one was not walked whole"]
+
+
+def _capture_faults(run) -> list:
+    """Graphs captured in warmup and none while serving."""
+    warm, total = run["graph_captures_after_warmup"], run["graph_captures"]
+    if warm and total == warm:
+        return []
+    return [f"{run['run']}: {warm} graphs in warmup, {total - warm} captured "
+            f"while serving"]
+
+
+def _kernel_split(step) -> dict:
+    """Device ms of one call of ``step`` by kernel kind, from one
+    ``torch.profiler`` trace: cuBLAS / CUTLASS GEMMs, the paged attention
+    kernels, the RoPE + K/V write kernel, and the rest; kernel counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kinds: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = ("gemm" if any(t in name for t in ("gemm", "gemv", "nvjet",
+                                                   "cutlass", "xmma"))
+                else "attention" if any(t in name for t in (
+                    "paged_decode", "paged_chunk", "flash_fwd"))
+                else "kv_write" if "kv_write" in name else "rest")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                       n + 1)
+    return {k: {"device_ms": ms, "kernels": n}
+            for k, (ms, n) in sorted(kinds.items())}
+
+
+def _llama8b_step(engine, params, cfg, dev, paged: bool) -> dict:
+    """One decode step's device ms (and ms by CUDA events) on the
+    engine's caches, 8 slots at lengths 21-1999: natively through the
+    pool (tables of 32 pages a slot) or on the slot caches; and its
+    device ms by kernel kind."""
+    import torch
+    from gofr_tpu_torch.models.llama import (llama_decode_step,
+                                             llama_decode_step_paged)
+    b = 8
+    tokens = torch.arange(1, b + 1, device=dev)
+    lengths = torch.tensor([21, 151, 401, 901, 1000, 1500, 1999, 64],
+                           dtype=torch.int32, device=dev)
+    if paged:
+        tables = torch.arange(b * 32, dtype=torch.int32,
+                              device=dev).reshape(b, 32) % engine._n_pages
+
+        def step():
+            llama_decode_step_paged(params, tokens, engine.k_cache,
+                                    engine.v_cache, tables, lengths, cfg)
+    else:
+        def step():
+            llama_decode_step(params, tokens, engine.k_cache,
+                              engine.v_cache, lengths, cfg)
+    return {"decode_step_device_ms": device_ms(step, warmup=1, iters=5),
+            "decode_step_ms": time_ms(step, warmup=1, iters=5),
+            "decode_step_by_kind": _kernel_split(step)}
+
+
+def _llama8b_logits(params, cfg, dev) -> dict:
+    """(e) one decode step and one chunk call at the model's width
+    through the kernels and through the plain versions (``implementation
+    ="plain"``), each on its own copy of one pool: 4 slots prefilled
+    through flash at 256 / 1024 / 1500 / 2000 rows, a decode step over
+    all four, and a chunk of 256 rows after the 256- and the 1500-row
+    histories. Planted faults: ``lengths - 1`` to the decode kernel and
+    ``history - 1`` to the chunk kernel (``phase_model``'s). Returns the
+    worst logit differences."""
+    from unittest import mock
+
+    import torch
+    from gofr_tpu_torch.models import llama as llama_module
+    from gofr_tpu_torch.models.llama import (llama_decode_step_paged,
+                                             llama_prefill_chunk_paged,
+                                             llama_prefill_last, make_pool)
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv
+
+    def short_by_one(q, k_pool, v_pool, tables, lengths):
+        return paged_decode_attention(q, k_pool, v_pool, tables, lengths - 1)
+
+    def history_short_by_one(q, k_pool, v_pool, tables, history, chunk):
+        return paged_chunk_attention(q, k_pool, v_pool, tables,
+                                     (history - 1).clamp(min=0), chunk)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    p, s, pg, mp = 4, 2048, 64, 32
+    lens = torch.tensor([256, 1024, 1500, 2000], dtype=torch.int32,
+                        device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (p, s), generator=gen,
+                           device=dev)
+    tables = torch.arange(p * mp, dtype=torch.int32,
+                          device=dev).reshape(p, mp)
+    _, (k, v) = llama_prefill_last(params, tokens, cfg, kv_lengths=lens)
+    kp, vp = make_pool(cfg, p * mp, pg, dev)
+    scatter_chunk_kv(kp, vp, tables, k, v, torch.zeros_like(lens), lens)
+    del k, v
+    step = torch.randint(0, cfg.vocab_size, (p,), generator=gen, device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                          device=dev)
+    rows = torch.tensor([0, 2], device=dev)
+    offsets = lens[rows].contiguous()
+    clen = torch.full((2,), 256, dtype=torch.int32, device=dev)
+    out: dict = {}
+    for run in ("auto", "plain", "fault"):
+        impl = "plain" if run == "plain" else "auto"
+        with mock.patch.object(llama_module, "paged_decode_attention",
+                               short_by_one if run == "fault"
+                               else paged_decode_attention), \
+                mock.patch.object(llama_module, "paged_chunk_attention",
+                                  history_short_by_one if run == "fault"
+                                  else paged_chunk_attention):
+            dec, _, _ = llama_decode_step_paged(
+                params, step, kp.clone(), vp.clone(), tables, lens, cfg,
+                implementation=impl)
+            chk, _, _ = llama_prefill_chunk_paged(
+                params, chunk, kp.clone(), vp.clone(), tables[rows], offsets,
+                clen, cfg, implementation=impl)
+        out[run] = (dec, chk)
+    torch.cuda.synchronize()
+
+    def diff(run, i):
+        return (out[run][i] - out["plain"][i]).abs().max().item()
+
+    finite = all(bool(torch.isfinite(t).all()) for pair in out.values()
+                 for t in pair)
+    return {"decode_logits_diff": diff("auto", 0),
+            "chunk_logits_diff": diff("auto", 1),
+            "planted_decode_logits_diff": diff("fault", 0),
+            "planted_chunk_logits_diff": diff("fault", 1),
+            "max_abs_logit": max(t.abs().max().item()
+                                 for t in out["plain"]),
+            "finite": finite}
+
+
+def phase_serve_llama8b(dev, smi_line: str, cfg=None) -> dict:
+    """Llama-3-8B (``LlamaConfig.llama3_8b()``: vocab 128256, dim 4096,
+    32 layers, 32 q / 8 KV heads, hd 128, ffn 14336, untied head) at full
+    width and depth, random bf16 weights drawn on the card from seed 0,
+    served by ``build_server(llama_engine(...))`` on ``serve_config``
+    (8 slots, max_seq 2048, 64-row pages, buckets 32-1024, prefix cache
+    on; the autoprofiler off), each engine warmed up first and freed
+    before the next. The waves: serve's three (4 prompts of 21 / 151 /
+    401 / 901 tokens; one of 1801, walked; three prefix hits), 32 new
+    tokens each, and serve_spec's 4 repetitive 301-token prompts, 64
+    new tokens. Runs: (a) native paged, bf16 pool, all four waves; (b)
+    native paged, int8 pool, speculative, all four; (c) the slot layout,
+    all four; (d) the view (``paged_attention="view"``, decode windows
+    512 / 1024), serve's three; (e) native, speculative
+    (``spec_ngram=2``, ``spec_adaptive=False``: full depth whenever the
+    prompt lookup proposes), the spec wave; (f) the slot layout,
+    speculative as (e), the spec wave. Checks, each with a planted fault that must fail it:
+
+    (a) slot and view give bit-equal tokens on wave 1, where both run
+        the same prefill and the same dense decode step (plant: a view
+        engine whose decode write-back lands one row late, wave 1);
+    (b) the speculative runs (e) and (f) answer greedily: every token of
+        every answer within LOGITS_TOL of the largest logit at its
+        position when the whole answer is read back through
+        ``llama_prefill`` (``_greedy_faults``), as plain decode's answers
+        must be; how many answers equal the plain run's bit for bit is
+        printed (plant: (f)'s engine sampling the bonus token at the
+        root, not at the deepest accepted node, the spec wave again);
+    (c) the walk ran on (c) and (d): the 1801-token prompt served whole
+        (plant: (c)'s engine without its chunk function, wave 2);
+    (d) ``spec_passes`` > 0 on (f) (plant: (c)'s, plain);
+    (e) the view's prefix hits > 0 (plant: (c)'s, no prefix cache);
+    (f) one decode step and one chunk call through the kernels within
+        LOGITS_TOL of the plain path (``_llama8b_logits``; plants: the
+        decode kernel's lengths and the chunk kernel's history one short);
+    (g) graphs captured in warmup and none while serving (plant: a
+        native engine never warmed up, wave 1);
+    (h) the weights are 16,060,522,496 bytes within 1 % (plant: the same
+        count without the LM head);
+    (i) every kernel of each run's path launched (plant: (c)'s counters,
+        where no paged kernel runs);
+    (j) the plain runs (a), (c) and (d) answer greedily, as in (b) (the
+        int8 pool's answers are printed, not gated; plant: (a)'s late
+        write-back run).
+
+    Prints TTFT per wave and decode tokens/s per run, one decode step's
+    device ms on (a) and (c) and its split by kernel kind,
+    ``max_memory_allocated`` and the phase's seconds. Returns the
+    launches of the D = 128 kernel rows over runs (a)-(f). ``cfg``
+    replaces the model (a CPU rehearsal: ``LlamaConfig.tiny().scaled(
+    vocab_size=260, max_seq=2048)``)."""
+    from unittest import mock
+
+    import torch
+    from gofr_tpu_torch.models.llama import (LlamaConfig, llama_init,
+                                             param_count)
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+    from gofr_tpu_torch.serving import decode_graph as graph_module
+    from gofr_tpu_torch.serving import engine as engine_module
+    from gofr_tpu_torch.serving.app import serve_config
+    from gofr_tpu_torch.serving.glue import llama_engine
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or LlamaConfig.llama3_8b()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    weight_bytes = quantized_bytes(params)
+    headless = weight_bytes - quantized_bytes({"h": params["lm_head"]})
+    want_bytes = LLAMA8B_BYTES if cfg == LlamaConfig.llama3_8b() \
+        else param_count(params) * params["embed"].element_size()
+    init_s = time.perf_counter() - t_phase
+    logit = _llama8b_logits(params, cfg, dev)
+
+    waves, spec_wave = _serve_waves(), [_spec_prompts()]
+    counters = _llama8b_counters()
+    spec = {"speculative": True, "spec_ngram": 2}
+    view = {"kv_layout": "paged", "paged_attention": "view",
+            "decode_windows": LLAMA8B_WINDOWS}
+
+    def serve(name, run_waves=None, n_new=None, engine=None, **overrides):
+        run_waves = run_waves or waves + spec_wave
+        n_new = n_new or [LLAMA8B_NEW] * len(waves) + [LLAMA8B_SPEC_NEW]
+        return _serve_run(params, cfg, dev, smi_line, name, run_waves,
+                          engine, build=llama_engine, phase="serve_llama8b",
+                          n_new=n_new, counters=counters, **overrides)
+
+    def again(engine, name, run_waves, n_new):
+        engine.waiting.reopen()
+        out = serve(name, run_waves, n_new, engine=engine)
+        engine.stop()
+        return out
+
+    def free(*done):
+        for run in done:
+            run.pop("engine", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    runs: dict = {}
+    plants: dict = {}
+    runs["native"] = serve("native")
+    runs["native"].update(_llama8b_step(runs["native"]["engine"], params,
+                                        cfg, dev, True))
+    free(runs["native"])
+    # (g)'s plant: an engine that was never warmed up captures its
+    # graphs while serving
+    engine = llama_engine(params, cfg, serve_config(cfg, autoprof=False),
+                          device=dev)
+    plants["g"] = again(engine, "planted_no_warmup", waves[:1],
+                        [LLAMA8B_NEW])
+    engine = None
+    free(plants["g"])
+    runs["native_int8"] = serve("native_int8", kv_dtype="int8", **spec)
+    free(runs["native_int8"])
+    runs["slot"] = serve("slot", kv_layout="slot")
+    engine = runs["slot"]["engine"]
+    runs["slot"].update(_llama8b_step(engine, params, cfg, dev, False))
+    # (c)'s plant: no chunk function, so the long prompt is clamped
+    engine._chunk_fn = None
+    plants["c"] = again(engine, "planted_no_walk", waves[1:2], [LLAMA8B_NEW])
+    engine = None
+    free(runs["slot"], plants["c"])
+    runs["view"] = serve("view", waves, [LLAMA8B_NEW] * len(waves), **view)
+    free(runs["view"])
+    # (a)'s plant: the view's decode write-back one row late
+    real_back = graph_module.scatter_decode_kv
+
+    def back_late(k_pool, v_pool, tables, k_view, v_view, lengths, steps):
+        return real_back(k_pool, v_pool, tables, k_view, v_view,
+                         lengths + 1, steps)
+
+    with mock.patch.object(graph_module, "scatter_decode_kv", back_late):
+        plants["a"] = serve("planted_late_writeback", waves[:1],
+                            [LLAMA8B_NEW], **view)
+    free(plants["a"])
+    # (e) and (f) draft at full depth whenever the prompt lookup proposes
+    runs["native_spec"] = serve("native_spec", spec_wave, [LLAMA8B_SPEC_NEW],
+                                spec_adaptive=False, **spec)
+    free(runs["native_spec"])
+    runs["slot_spec"] = serve("slot_spec", spec_wave, [LLAMA8B_SPEC_NEW],
+                              kv_layout="slot", spec_adaptive=False, **spec)
+    # (b)'s plant: the bonus token sampled at the root, not at the
+    # deepest accepted node
+    engine = runs["slot_spec"]["engine"]
+    real_resolve = engine_module.resolve_tree
+
+    def root_bonus(logits, tokens, *args, **kw):
+        n_acc, bonus, path = real_resolve(logits, tokens, *args, **kw)
+        return n_acc, logits[:, 0].argmax(-1).to(bonus.dtype), path
+
+    with mock.patch.object(engine_module, "resolve_tree", root_bonus):
+        plants["b"] = again(engine, "planted_root_bonus", spec_wave,
+                            [LLAMA8B_SPEC_NEW])
+    engine = None
+    free(runs["slot_spec"], plants["b"])
+
+    greedy = {name: _greedy_faults(run, params, cfg, dev)
+              for name, run in (*runs.items(), *plants.items())
+              if name not in ("c", "g")}
+    wave1 = list(range(4))
+    spec_equal = {name: sum(run["tokens"][i] == runs[ref]["tokens"][a]
+                            for i, a in enumerate(SPEC_ANSWERS))
+                  for name, ref in (("native_spec", "native"),
+                                    ("slot_spec", "slot"))
+                  for run in (runs[name],)}
+
+    def spec_faults(run):
+        return [] if run["spec_passes"] > 0 else \
+            [f"{run['run']}: no speculative pass"]
+
+    def prefix_faults(run):
+        return [] if run["prefix_hits"] > 0 else \
+            [f"{run['run']}: no prefix hit"]
+
+    def logit_faults(*errs):
+        return [f"logits diff {e} > {LOGITS_TOL}" for e in errs
+                if not logit["finite"] or e > LOGITS_TOL]
+
+    def bytes_faults(n):
+        return [] if abs(n - want_bytes) <= 0.01 * want_bytes else \
+            [f"weights {n} bytes, not {want_bytes} within 1 %"]
+
+    paths = {"native": ["flash_attention", "paged_decode_attention",
+                        "paged_chunk_attention", "rope_kv_write",
+                        "scatter_chunk_kv"],
+             "native_int8": ["flash_attention", "paged_decode_attention_int8",
+                             "paged_chunk_attention_int8",
+                             "paged_tree_attention_int8",
+                             "rope_kv_write_int8", "scatter_chunk_kv_int8"],
+             "slot": ["flash_attention"],
+             "view": ["flash_attention", "scatter_chunk_kv"],
+             "native_spec": ["paged_tree_attention", "rope_kv_write"],
+             "slot_spec": ["flash_attention"]}
+
+    def launch_faults(name, run):
+        return [f"{name}: {k} never launched" for k in paths[name]
+                if run["launches"][k] < 1]
+
+    served = [f for run in runs.values() for f in _served_faults(run)]
+    checks = {
+        "a_slot_equals_view": (_equal_faults(runs["view"], runs["slot"], wave1)
+                               + served,
+                               _equal_faults(plants["a"], runs["slot"],
+                                             wave1)),
+        "b_spec_greedy_as_plain": (greedy["native_spec"][0]
+                                   + greedy["slot_spec"][0],
+                                   greedy["b"][0]),
+        "c_walk": (_walk_faults(runs["slot"]) + _walk_faults(runs["view"]),
+                   _walk_faults(plants["c"])),
+        "d_spec_passes": (spec_faults(runs["slot_spec"]),
+                          spec_faults(runs["slot"])),
+        "e_prefix_hits": (prefix_faults(runs["view"]),
+                          prefix_faults(runs["slot"])),
+        "f_logits": (logit_faults(logit["decode_logits_diff"],
+                                  logit["chunk_logits_diff"]),
+                     logit_faults(logit["planted_decode_logits_diff"])
+                     and logit_faults(logit["planted_chunk_logits_diff"])),
+        "g_captures": ([f for run in runs.values()
+                        for f in _capture_faults(run)],
+                       _capture_faults(plants["g"])),
+        "h_weight_bytes": (bytes_faults(weight_bytes),
+                           bytes_faults(headless)),
+        "i_launches": ([f for name, run in runs.items()
+                        for f in launch_faults(name, run)],
+                       launch_faults("native", runs["slot"])),
+        "j_greedy": ([f for name in ("native", "slot", "view")
+                      for f in greedy[name][0]], greedy["a"][0]),
+    }
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    launches = {key: sum(run["launches"][key] for run in runs.values())
+                for key in counters}
+    summary = {
+        "phase": "serve_llama8b", "card": smi_line,
+        "config": "llama3_8b, 32 layers, bf16, random seed 0",
+        "weight_bytes": weight_bytes, "want_weight_bytes": want_bytes,
+        "init_s": init_s, **logit, "tolerance": LOGITS_TOL,
+        "greedy": {name: g[1] for name, g in greedy.items()},
+        "spec_answers_equal_to_plain": spec_equal,
+        "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+        "decode_tokens_per_s": {k: r["decode_tokens_per_s"]
+                                for k, r in runs.items()},
+        "spec": {k: {s_: r[s_] for s_ in ("spec_passes", "spec_drafted",
+                                         "spec_accepted")}
+                 for k, r in runs.items() if r["spec_passes"]},
+        "prefix_hits": {k: r["prefix_hits"] for k, r in runs.items()},
+        "run_wall_s": {k: r["run_wall_s"] for k, r in runs.items()},
+        "decode_step": {k: {s_: runs[k][s_] for s_ in (
+            "decode_step_device_ms", "decode_step_ms",
+            "decode_step_by_kind")} for k in ("native", "slot")},
+        "launches": launches,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "phase_wall_s": time.perf_counter() - t_phase,
+        "failed_checks": failed, "planted": planted}
+    emit(summary)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_llama8b: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5985,6 +6614,20 @@ def main() -> int:
                           d128=True)]
     rows += kernel_kv_write_view(dev,
                                  torch.Generator(device=dev).manual_seed(16))
+    # head_dim 128 (Llama-3-8B): the paged kernels, both forms, and the
+    # fused RoPE + K/V write, whose launches come from serve_llama8b
+    d128 = torch.Generator(device=dev).manual_seed(17)
+    paged128 = [
+        kernel_paged(dev, d128, [0, 1, 63, 64, 65, 2047, 300, 1000], 2,
+                     "B=8 Hq=32 Hkv=8 hd=128 pg=64 Np=256, lengths "
+                     "0/1/63/64/65/2047/300/1000, OOB-padded tables,", d=128),
+        kernel_chunk(dev, d128, d=128),
+        kernel_tree(dev, d128, _tree_slots(), 4,
+                    "B=8 W=16 Hq=32 Hkv=8 hd=128 pg=64 Np=256 Mp=32, "
+                    "histories 0/1/63/64/65/1500/300/1000", 3, d=128)]
+    rows += [r[0] for r in paged128] + [r[1] for r in paged128]
+    rows += kernel_rope_kv_write(
+        dev, torch.Generator(device=dev).manual_seed(18), False, d=128)
     # the fused RoPE + K/V write at a decode step's and a verify's shape
     for seed, verify in ((13, False), (14, True)):
         rows += kernel_rope_kv_write(
@@ -6000,6 +6643,7 @@ def main() -> int:
     # the weight-dequantizing GEMM at llama3_1b's products, both forms
     rows += kernel_wq_gemm(dev, torch.Generator(device=dev).manual_seed(11),
                            smi_line)
+    phase_moe_tie(dev)
     phase_model(dev)
     phase_model_chunk(dev)
     phase_model_spec(dev)
@@ -6016,10 +6660,10 @@ def main() -> int:
                 **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
     phase_checkpoint(dev, smi_line)
-    moe_launches = phase_serve_moe(dev, smi_line)
+    sources = {"serve_moe": phase_serve_moe(dev, smi_line),
+               "serve_llama8b": phase_serve_llama8b(dev, smi_line)}
     for row in rows:
-        source = moe_launches if row.get("launches_from") == "serve_moe" \
-            else launches
+        source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -27,7 +27,7 @@ from functools import lru_cache, partial
 
 import torch
 
-from ..ops.attention import attention
+from ..ops.attention import attention, decode_attention, tree_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_chunk_attention_plain,
@@ -38,8 +38,12 @@ from ..ops.paged_attention import (paged_chunk_attention,
 from ..ops.paged_kv import (KV_DTYPES, keep_index, pool_layer, pool_shape,
                             quantize_rows, rope_kv_write,
                             rope_kv_write_plain)
-from ..ops.quant import is_quantized, qgather, qmatmul, qmatmul_t
+from ..ops.quant import is_int4, is_quantized, qgather, qmatmul, qmatmul_t
 from ..ops.rope import apply_rope, rope_frequencies
+
+#: cache rows a dense decode step attends at a time: windows that are
+#: multiples of it give the full cache's bits (``decode_attention``)
+DECODE_BLOCK = 256
 
 
 @dataclass(frozen=True)
@@ -67,6 +71,17 @@ class LlamaConfig:
         return cls(vocab_size=256, dim=64, n_layers=2, n_heads=4,
                    n_kv_heads=2, ffn_dim=128, max_seq=128,
                    dtype=torch.float32)
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        """Llama-3-8B shape: the defaults."""
+        return cls()
+
+    @classmethod
+    def llama3_70b(cls) -> "LlamaConfig":
+        """Llama-3-70B shape."""
+        return cls(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                   ffn_dim=28672)
 
     @classmethod
     def llama3_1b(cls) -> "LlamaConfig":
@@ -118,6 +133,22 @@ def llama_init(config: LlamaConfig, generator: torch.Generator,
     if not c.tie_embeddings:
         params["lm_head"] = normal((c.dim, c.vocab_size), c.dim ** -0.5)
     return params
+
+
+def param_count(params: dict) -> int:
+    """Parameters in a tree, as the JAX ``param_count`` counts its
+    leaves: a quantized leaf counts its codes (int4 codes unpacked, two
+    a byte) and its scales."""
+    total = 0
+    for leaf in params.values():
+        if is_quantized(leaf):
+            total += leaf["q"].numel() * (2 if is_int4(leaf) else 1) \
+                + leaf["s"].numel()
+        elif isinstance(leaf, dict):
+            total += param_count(leaf)
+        else:
+            total += leaf.numel()
+    return total
 
 
 def _inv_freq(c: LlamaConfig, device: torch.device) -> torch.Tensor:
@@ -233,6 +264,16 @@ def llama_decode_flops(config: LlamaConfig, context: int) -> float:
                              + 3 * c.dim * c.ffn_dim) \
         + c.dim * c.vocab_size
     return float(2 * products + 4 * c.n_layers * c.n_heads * hd * context)
+
+
+def llama_prefill(params: dict, tokens: torch.Tensor, config: LlamaConfig,
+                  *, kv_lengths: torch.Tensor | None = None,
+                  implementation: str = "auto"):
+    """Full-sequence forward: tokens [B, S] -> (logits [B, S, V]
+    float32, (k, v) each [L, B, S, Hkv, hd]); ``kv_lengths`` [B] masks
+    right-padded rows."""
+    x, kv = _backbone(params, tokens, config, kv_lengths, implementation)
+    return _logits(params, config, x, implementation), kv
 
 
 def llama_prefill_last(params: dict, tokens: torch.Tensor,
@@ -397,6 +438,148 @@ def llama_prefill_chunk_paged(params: dict, tokens: torch.Tensor, k_pool,
     last = (chunk_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(b, device=x.device), last]
     return _logits(params, c, rows, implementation), k_pool, v_pool
+
+
+def _dense_write(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
+                 new: torch.Tensor, keep: torch.Tensor) -> None:
+    """Write ``new`` [B, S, Hkv, hd] at rows ``at`` [B, S] (``rows`` the
+    slot index [B, 1]) of one layer's dense cache [B, W, Hkv, hd], in
+    place, where ``keep`` [B, S] holds; elsewhere the row is dropped. No
+    host sync: the caller passes positions mod W, so a dropped row
+    writes back what it reads at a row no kept row of its slot lands on
+    while S <= W, and no two writes meet."""
+    cache[rows, at] = torch.where(keep[..., None, None], new.to(cache.dtype),
+                                  cache[rows, at])
+
+
+def _dense_decode(params: dict, tokens: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, lengths: torch.Tensor,
+                  c: LlamaConfig, attn_window: int | None, mlp):
+    """One decode step on dense caches with the family's ``mlp(x, lp)``
+    (``llama_decode_step``, ``models/moe.moe_decode_step``)."""
+    b = tokens.shape[0]
+    hd = c.head_dim
+    width = k_cache.shape[2]
+    inv_freq = _inv_freq(c, tokens.device)
+    positions = lengths[:, None]
+    keep = positions < width
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    at = positions.long() % width
+    attend = lengths + 1
+    window = attn_window if attn_window is not None \
+        and attn_window < width else width
+
+    x = qgather(params["embed"], tokens, c.dtype)[:, None, :]    # [B, 1, D]
+    for li in range(c.n_layers):
+        lp = _layer(params, li)
+        h = rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q = _mm(h, lp["wq"]).reshape(b, 1, c.n_heads, hd)
+        k = _mm(h, lp["wk"]).reshape(b, 1, c.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        _dense_write(k_cache[li], rows, at, k, keep)
+        _dense_write(v_cache[li], rows, at, v, keep)
+        out = decode_attention(q, k_cache[li, :, :window],
+                               v_cache[li, :, :window], attend,
+                               block=DECODE_BLOCK)
+        x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
+        x = x + mlp(x, lp)
+    return _logits(params, c, x)[:, 0], k_cache, v_cache
+
+
+def llama_decode_step(params: dict, tokens: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      lengths: torch.Tensor, config: LlamaConfig, *,
+                      attn_window: int | None = None):
+    """One decode step against the dense cache (the slot layout, or the
+    paged pool's dense view).
+
+    tokens [B]; caches [L, B, S, Hkv, hd]; lengths [B] int32 = rows
+    already cached (the new token lands at that position; a length at or
+    past S drops the write). Each layer writes its new K/V row in place,
+    then attends over ``lengths + 1`` rows of the cache's first
+    ``attn_window`` rows (all S when None) with the plain
+    ``decode_attention``, as the JAX step's XLA op, ``DECODE_BLOCK``
+    rows at a time: a window gives the full cache's bits. No host sync,
+    so the engine captures it in a CUDA graph. Returns (logits [B, V]
+    float32, k_cache, v_cache)."""
+    c = config
+    return _dense_decode(params, tokens, k_cache, v_cache, lengths, c,
+                         attn_window, lambda x, lp: _mlp_block(x, lp, c))
+
+
+def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        offsets: torch.Tensor, chunk_lengths: torch.Tensor,
+                        config: LlamaConfig, *,
+                        implementation: str = "auto",
+                        return_all_logits: bool = False,
+                        tree_depths: torch.Tensor | None = None,
+                        tree_masks: torch.Tensor | None = None):
+    """One chunk of a chunked prefill against the dense cache.
+
+    tokens [B, S] start at absolute positions ``offsets`` [B] int32;
+    caches [L, B, Smax, Hkv, hd]. Each layer writes the chunk's K/V at
+    ``[offsets, offsets + chunk_lengths)`` in place — padding rows and
+    rows at or past Smax are dropped — then attends causally over the
+    history and the chunk (the plain attention, as the JAX function's
+    ``q_offset`` call routes). Returns (logits of each row's last valid
+    position [B, V] float32 — or of every position [B, S, V] with
+    ``return_all_logits``, for speculative verify — k_cache, v_cache).
+
+    ``tree_depths`` / ``tree_masks`` [B, S] (both or neither) switch the
+    chunk into draft-tree verify mode: RoPE at ``offsets + tree_depths``,
+    K/V rows at the node index ``offsets + i``, attention through
+    ``tree_attention`` under each node's packed ancestor mask.
+    """
+    if implementation not in ("auto", "plain"):
+        raise ValueError(f"implementation must be 'auto' or 'plain', "
+                         f"got {implementation!r}")
+    if (tree_depths is None) != (tree_masks is None):
+        raise ValueError("tree_depths and tree_masks go together")
+    c = config
+    b, s = tokens.shape
+    smax = k_cache.shape[2]
+    if s > smax:
+        raise ValueError(f"a chunk of {s} rows exceeds the cache's {smax}")
+    hd = c.head_dim
+    inv_freq = _inv_freq(c, tokens.device)
+    ar = torch.arange(s, device=tokens.device)[None, :]
+    node_pos = offsets.long()[:, None] + ar                         # [B, S]
+    positions = node_pos if tree_depths is None \
+        else offsets.long()[:, None] + tree_depths.long()
+    keep = (ar < chunk_lengths[:, None]) & (node_pos < smax)
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    at = node_pos % smax
+
+    x = qgather(params["embed"], tokens, c.dtype)               # [B, S, D]
+    for li in range(c.n_layers):
+        lp = _layer(params, li)
+        h = rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
+        k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
+        v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        _dense_write(k_cache[li], rows, at, k, keep)
+        _dense_write(v_cache[li], rows, at, v, keep)
+        if tree_masks is None:
+            out = attention(q, k_cache[li], v_cache[li], causal=True,
+                            q_offset=offsets, implementation=implementation)
+        else:
+            out = tree_attention(q, k_cache[li], v_cache[li],
+                                 history_lens=offsets,
+                                 chunk_lens=chunk_lengths,
+                                 tree_masks=tree_masks)
+        x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"],
+                    implementation)
+        x = x + _mlp_block(x, lp, c, implementation)
+    if return_all_logits:
+        return _logits(params, c, x, implementation), k_cache, v_cache
+    last = (chunk_lengths.long() - 1).clamp(min=0)
+    rows = x[torch.arange(b, device=x.device), last]
+    return _logits(params, c, rows, implementation), k_cache, v_cache
 
 
 def make_empty_cache(config: LlamaConfig, batch: int,

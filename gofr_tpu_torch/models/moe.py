@@ -22,16 +22,11 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.attention import decode_attention
 from ..ops.moe import moe_layer
 from ..ops.norms import rms_norm
 from ..ops.quant import qgather
-from ..ops.rope import apply_rope
-from .llama import LlamaConfig, _attn_block, _inv_freq, _layer, _logits, _mm
-
-#: cache rows a decode step attends at a time: windows that are
-#: multiples of it give the full cache's bits (``decode_attention``)
-DECODE_BLOCK = 256
+from .llama import (LlamaConfig, _attn_block, _dense_decode, _inv_freq,
+                    _layer, _logits)
 
 
 @dataclass(frozen=True)
@@ -190,33 +185,5 @@ def moe_decode_step(params: dict, tokens: torch.Tensor,
     ``attn_window`` rows (all S when None). Returns (logits [B, V]
     float32, k_cache, v_cache)."""
     c = config
-    b = tokens.shape[0]
-    hd = c.head_dim
-    width = k_cache.shape[2]
-    inv_freq = _inv_freq(c, tokens.device)
-    positions = lengths[:, None]
-    rows = torch.arange(b, device=tokens.device)
-    at = lengths.long().clamp(max=width - 1)
-    keep = (lengths < width)[:, None, None]
-    attend = lengths + 1
-    window = attn_window if attn_window is not None \
-        and attn_window < width else width
-
-    x = qgather(params["embed"], tokens, c.dtype)[:, None, :]    # [B, 1, D]
-    for li in range(c.n_layers):
-        lp = _layer(params, li)
-        h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q = _mm(h, lp["wq"]).reshape(b, 1, c.n_heads, hd)
-        k = _mm(h, lp["wk"]).reshape(b, 1, c.n_kv_heads, hd)
-        v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
-        for cache, new in ((k_cache[li], k), (v_cache[li], v)):
-            cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                          cache[rows, at])
-        out = decode_attention(q, k_cache[li, :, :window],
-                               v_cache[li, :, :window], attend,
-                               block=DECODE_BLOCK)
-        x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
-        x = x + _moe_mlp(x, lp, c)[0]
-    return _logits(params, c, x)[:, 0], k_cache, v_cache
+    return _dense_decode(params, tokens, k_cache, v_cache, lengths, c,
+                         attn_window, lambda x, lp: _moe_mlp(x, lp, c)[0])

@@ -7,10 +7,6 @@ combine matrix is a ``scatter_`` of the weights into zeros (the top-k
 indices of a row are distinct, so it holds the same values as the
 reference's one-hot contraction), which keeps the step free of host
 syncs, so a decode step that runs it can be captured in a CUDA graph.
-
-``torch.topk`` promises no order between equal values, where
-``lax.top_k`` breaks ties toward the lowest index: the two agree on
-router logits without ties.
 """
 
 from __future__ import annotations
@@ -19,14 +15,25 @@ import torch
 import torch.nn.functional as F
 
 
+def _top_k(logits: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis,
+    in descending order, equal values toward the lowest index, as
+    ``lax.top_k`` breaks ties (``torch.topk`` promises no order between
+    equal values): a stable descending sort, cut to k."""
+    values, indices = torch.sort(logits, dim=-1, descending=True,
+                                 stable=True)
+    return values[..., :k], indices[..., :k]
+
+
 def top_k_routing(gate_logits: torch.Tensor, k: int,
                   renormalize: bool = True
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Route tokens: [T, E] logits -> (float32 weights [T, k], indices
     [T, k]), the k largest logits of each row in descending order; the
     weights are the softmax over those k (``renormalize``) or each
-    one's share of the softmax over all E."""
-    values, indices = torch.topk(gate_logits, k, dim=-1)
+    one's share of the softmax over all E. Ties go to the lowest
+    expert index."""
+    values, indices = _top_k(gate_logits, k)
     if renormalize:
         weights = torch.softmax(values.float(), dim=-1)
     else:
@@ -64,7 +71,7 @@ def load_balancing_loss(router_logits: torch.Tensor,
     axis of ``router_logits`` [..., E]."""
     n_experts = router_logits.shape[-1]
     probs = torch.softmax(router_logits.float(), dim=-1)
-    _, indices = torch.topk(router_logits, num_selected, dim=-1)
+    _, indices = _top_k(router_logits, num_selected)
     counts = F.one_hot(indices, n_experts).float()
     counts = counts.reshape(-1, num_selected, n_experts).sum(dim=(0, 1))
     fraction = counts / counts.sum().clamp(min=1.0)

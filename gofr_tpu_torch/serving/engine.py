@@ -8,14 +8,21 @@ paths of families with a dense decode step).
   engine's default is ``"slot"``), a page pool with block tables, and
   ``"slot"``, contiguous per-slot caches [L, max_batch, max_seq, Hkv,
   hd]. A family with paged step functions (``paged_decode_fn``, Llama)
-  decodes natively on the pool; one with only a dense ``decode_fn``
-  (the MoE family) decodes on the slot caches, or on the paged layout
-  through the pool's dense view: one gather per T-step dispatch, the T
-  steps on the view, the T new rows written back
-  (``decode_graph.DecodeGraph``'s layouts). Without a chunk function
-  there is no chunk walk: a prompt is clamped to the widest bucket, a
-  preempted request's continuation too, and the prefix cache is off;
-  without a verify function ``speculative`` serves plain decode.
+  decodes natively on the pool unless ``paged_attention="view"``; a
+  family with only a dense ``decode_fn`` (the MoE family), and any
+  family on the slot layout or under ``"view"``, decodes on the slot
+  caches, or on the paged layout through the pool's dense view: one
+  gather per T-step dispatch, the T steps on the view, the T new rows
+  written back (``decode_graph.DecodeGraph``'s layouts). The dense
+  layouts' chunk walk and tree verify run the family's dense
+  ``prefill_chunk_fn`` / ``spec_verify_fn`` on a copy of the rows'
+  caches (the slot layout: the slots' rows; the view: the pool gathered
+  through their tables), and write back what the call wrote (the view:
+  each row's chunk range, through the slab kernel). Without a chunk
+  function there is no chunk walk: a prompt is clamped to the widest
+  bucket, a preempted request's continuation too, and the prefix cache
+  is off; without a verify function ``speculative`` serves plain
+  decode. The slot layout keeps no prefix cache.
 - **Decode windows** (``decode_windows``, dense layouts): each listed
   window is a decode graph of its own that attends (slot) or gathers
   and writes back (view) only the first ``window`` rows; a dispatch
@@ -91,9 +98,11 @@ paths of families with a dense decode step).
   every decoding slot drafted — or, in a mixed batch, every other pass —
   the decode pipeline is drained and one verify pass feeds each slot's
   tree (a lone root for a slot that did not draft) through the paged
-  tree kernel at a pow-2 width, accepts the longest root-to-leaf path
-  whose tokens the model predicts greedily (``resolve_tree``), compacts
-  that path's K/V rows (``path_moves`` + ``pool_move_rows``) and emits
+  tree kernel (a dense layout: the dense verify function) at a pow-2
+  width, accepts the longest root-to-leaf path whose tokens the model
+  predicts greedily (``resolve_tree``), compacts that path's K/V rows
+  (``path_moves`` + ``pool_move_rows``; ``dense_move_rows`` in a dense
+  copy before its write-back) and emits
   the accepted tokens plus one bonus token sampled at the deepest
   accepted node. Every tree row lands in a page its slot owns: the
   pass grows each slot's table to cover its tree first.
@@ -182,8 +191,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..ops.paged_kv import (KV_DTYPES, pool_move_rows, pool_row_bytes,
-                            scatter_chunk_kv)
+from ..ops.paged_kv import (KV_DTYPES, gather_view, pool_move_rows,
+                            pool_row_bytes, scatter_chunk_kv,
+                            scatter_decode_kv)
 from ..tracing import _traceparent_sampled, extract_traceparent
 from .costmodel import AutoProfiler, CostModel
 from .decode_graph import DecodeGraph
@@ -320,6 +330,8 @@ class DeviceLost(RuntimeError):
 
 #: ``EngineConfig.kv_layout`` values
 KV_LAYOUTS = ("paged", "slot")
+#: ``EngineConfig.paged_attention`` values (the JAX engine's)
+PAGED_ATTENTION = ("auto", "kernel", "interpret", "xla", "view")
 
 
 @dataclass
@@ -338,6 +350,14 @@ class EngineConfig:
     #: length + T, else the full graph. () = off; the native paged step
     #: ignores them (its kernel reads each slot's own pages)
     decode_windows: tuple = ()
+    #: how the paged layout attends when the family supplies paged step
+    #: functions: "view" forces the dense view (gather, the dense steps,
+    #: write back); "auto", "kernel", "interpret" and "xla" take the
+    #: native path, whose wrappers launch the paged kernels for CUDA
+    #: tensors and run their plain versions for CPU ones. (The JAX
+    #: engine's "auto" goes native on a TPU only.) Ignored on the slot
+    #: layout and by a family with only a dense decode_fn
+    paged_attention: str = "auto"
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024)
     #: waiting requests prefilled per device call (largest group)
     prefill_batch: int = 8
@@ -505,6 +525,9 @@ class Engine:
         tree_masks=[B, W]) -> (logits [B, W, V], k_pool, v_pool) — e.g.
         ``llama_prefill_chunk_paged`` in tree mode with all logits;
         without it ``speculative`` serves plain decode.
+    prefill_chunk_fn / spec_verify_fn: the dense forms of the two, on
+        caches [L, G, S, Hkv, hd] in place of (pools, tables) — e.g.
+        ``llama_prefill_chunk`` — for the slot layout and the view.
     decode_fn(params, tokens [B], k_cache, v_cache, lengths [B][,
         attn_window=w]) -> (logits [B, V], k_cache, v_cache) on dense
         caches [L, B, S, Hkv, hd], written in place, a row at or past S
@@ -536,6 +559,8 @@ class Engine:
                  paged_chunk_fn: Callable | None = None,
                  paged_verify_fn: Callable | None = None,
                  decode_fn: Callable | None = None,
+                 prefill_chunk_fn: Callable | None = None,
+                 spec_verify_fn: Callable | None = None,
                  flops_per_token: Callable[[int], float] | None = None,
                  metrics: Any = None, logger: Any = None,
                  tracer: Any = None) -> None:
@@ -567,6 +592,10 @@ class Engine:
         if cfg.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                              f"{cfg.kv_dtype!r}")
+        if cfg.paged_attention not in PAGED_ATTENTION:
+            raise ValueError(f"paged_attention must be one of "
+                             f"{PAGED_ATTENTION}, got "
+                             f"{cfg.paged_attention!r}")
         if cfg.kv_dtype != "bf16" and cfg.kv_layout != "paged":
             raise ValueError("kv_dtype='int8' requires kv_layout='paged' "
                              "(the quantized pool is a page pool; the slot "
@@ -576,21 +605,23 @@ class Engine:
                              "kv_layout='paged'")
         #: the paged layout, and on it the native path: the family's
         #: paged steps write through the block tables and attend with the
-        #: paged kernels; otherwise a dense decode_fn runs on the slot
+        #: paged kernels; otherwise the dense functions run on the slot
         #: caches or on the pool's dense view
         self._paged = cfg.kv_layout == "paged"
-        self._native = self._paged and paged_decode_fn is not None
+        self._native = (self._paged and paged_decode_fn is not None
+                        and cfg.paged_attention != "view")
         if not self._native and decode_fn is None:
             raise ValueError("the slot layout, and the paged layout without "
-                             "a paged_decode_fn, need a dense decode_fn")
+                             "a paged_decode_fn or under paged_attention="
+                             "'view', need a dense decode_fn")
         self.params = params
         self.config = cfg
         self.device = torch.device(device)
         self.vocab_size = vocab_size
         self._prefill_fn = prefill_fn
         self._decode_fn = paged_decode_fn if self._native else decode_fn
-        self._chunk_fn = paged_chunk_fn if self._native else None
-        self._verify_fn = paged_verify_fn if self._native else None
+        self._chunk_fn = paged_chunk_fn if self._native else prefill_chunk_fn
+        self._verify_fn = paged_verify_fn if self._native else spec_verify_fn
         #: speculation is served only with a verify function: without
         #: one ``speculative`` decodes plainly, as in the JAX engine
         self._spec_enabled = cfg.speculative and self._verify_fn is not None
@@ -643,7 +674,7 @@ class Engine:
         #: references per page: each slot and each cache entry holding it
         self._page_refs = np.zeros(self._n_pages, np.int32)
         #: sharing prefixes needs page tables and the walk that attaches
-        #: them
+        #: them (native, or the view's dense walk)
         self._prefix_enabled = (self._paged and cfg.prefix_cache
                                 and self._chunk_fn is not None)
         #: prompt prefix (token ids) -> its pages; insertion order is the
@@ -975,15 +1006,19 @@ class Engine:
                                          k, v, torch.zeros_like(kv_len),
                                          kv_len)
             if chunked and self._chunk_fn is not None:
-                for width in self._usable_buckets:
-                    for g in sorted({1, max(1, cfg.prefill_batch)}):
-                        self.sentinel.observe(
-                            self._sig("chunk", width, g, None))
-                        zeros = self._upload(np.zeros(g, np.int32))
-                        self._chunk_fn(
-                            self.params,
-                            self._upload(np.zeros((g, width), np.int64)),
-                            self.k_cache, self.v_cache, oob(g), zeros, zeros)
+                # the view's walk may also take the widest decode window
+                largest = self._chunk_window(0, 0)
+                for window in (0, largest) if largest else (0,):
+                    for width in self._usable_buckets:
+                        if window and width > window:
+                            continue     # the walk never picks it then
+                        for g in sorted({1, max(1, cfg.prefill_batch)}):
+                            self.sentinel.observe(self._sig(
+                                "chunk", width, g, window or None))
+                            zeros = self._upload(np.zeros(g, np.int32))
+                            self._run_chunk(
+                                self._upload(np.zeros((g, width), np.int64)),
+                                [], oob(g), zeros, zeros, window)
             if decode:
                 for window in (0, *self._decode_windows):
                     self.sentinel.observe(self._sig("decode", window))
@@ -1004,17 +1039,10 @@ class Engine:
                     tables = oob(b)
                     offsets = self._upload(np.zeros(b, np.int32))
                     lens = self._upload(np.ones(b, np.int32))
-                    logits, _, _ = self._verify_fn(
-                        self.params, tokens, self.k_cache, self.v_cache,
-                        tables, offsets, lens, tree_depths=depths,
-                        tree_masks=self._upload(np.ones((b, width),
-                                                        np.int32)))
-                    n_acc, _, path = resolve_tree(
-                        logits, tokens, depths, depths, lens, *row_params(b),
-                        generator=self._generator)
-                    src, dst = path_moves(offsets, path, n_acc, cfg.max_seq)
-                    pool_move_rows(self.k_cache, tables, src, dst)
-                    pool_move_rows(self.v_cache, tables, src, dst)
+                    self._verify_and_compact(
+                        tokens, depths, depths,
+                        self._upload(np.ones((b, width), np.int32)), [],
+                        tables, offsets, lens, row_params(b))
                     if width >= 1 + cfg.spec_draft * cfg.spec_branches:
                         break
                     width *= 2
@@ -2208,8 +2236,8 @@ class Engine:
         if pairs:
             self._sched_dirty = True
         for req, slot in pairs:
-            if -(-(len(req.prompt_tokens) + 1) // cfg.page_size) \
-                    > self._n_pages:
+            if self._paged and -(-(len(req.prompt_tokens) + 1)
+                                 // cfg.page_size) > self._n_pages:
                 # an attached prefix must not stay in the slot's table
                 self._release_pages(slot)
                 if self.active[slot] is req:
@@ -2258,7 +2286,8 @@ class Engine:
                                         - r.prefill_offset)
                             rows = min(r.prefill_offset + chunk + 1,
                                        cfg.max_seq)
-                            if not self._ensure_headroom(r.slot, rows):
+                            if self._paged and not self._ensure_headroom(
+                                    r.slot, rows):
                                 # the pool cannot hold this walk even
                                 # after preempting younger requests:
                                 # restart it from scratch once pages free
@@ -2312,14 +2341,16 @@ class Engine:
             offsets[row] = req.prefill_offset
             lens[row] = len(chunk)
             tables[row] = self._tables[req.slot]
-        self._note_dispatch_shape("chunk", width, g, None)
+        window = self._chunk_window(int((offsets + lens).max()), width)
+        self._note_dispatch_shape("chunk", width, g, window or None)
         c0 = time.perf_counter()
         self.goodput.note_dispatch(c0)
         w0 = time.time()
         temps, top_ps, top_ks = self._row_params(group, g)
-        logits, self.k_cache, self.v_cache = self._chunk_fn(
-            self.params, self._upload(tokens), self.k_cache, self.v_cache,
-            self._upload(tables), self._upload(offsets), self._upload(lens))
+        logits = self._run_chunk(
+            self._upload(tokens), [r.slot for r in group],
+            self._upload(tables), self._upload(offsets), self._upload(lens),
+            window)
         toks = sample_batch(logits, temps, top_ps, top_ks,
                             generator=self._generator,
                             all_greedy=_all_greedy(group))
@@ -2327,7 +2358,7 @@ class Engine:
         # the host span of the launch, as the JAX engine bills a chunk
         # dispatch (its first tokens' readout below is not in it)
         c_dur = time.perf_counter() - c0
-        sig = self._sig_str("chunk", width, g, None)
+        sig = self._sig_str("chunk", width, g, window or None)
         if self.recorder.enabled:
             self.recorder.record_pass(
                 "prefill_chunk", rows=len(group), width=width, sig=sig,
@@ -2357,6 +2388,106 @@ class Engine:
                 if first is None:            # the walk's collect
                     first = toks.cpu().numpy()
                 self._first_token(req, int(first[row]))
+
+    def _chunk_window(self, needed: int, width: int) -> int:
+        """The view's chunk window (the JAX engine's rule): the largest
+        decode window when it covers ``needed`` rows and the chunk
+        ``width``, else 0, the full view. The native walk reads only
+        each row's own pages and the slot layout has no view: 0."""
+        if not self._paged or self._native or not self._decode_windows:
+            return 0
+        w = self._decode_windows[-1]
+        return w if needed <= w and width <= w else 0
+
+    def _dense_rows(self, slots: list[int], g: int, tables: torch.Tensor,
+                    window: int = 0):
+        """(k, v, tables): a copy of the dense caches [L, g, W, Hkv, hd]
+        that a chunk or verify call on a dense layout runs on. Slot
+        layout: the rows of ``slots``, pad rows past them reading the
+        first slot's (read only); the view: the pool gathered through
+        ``tables`` [g, Mp] (pad rows all out of range), only the columns
+        covering the first ``window`` rows when it is set, in the model's
+        dtype; the tables the view was gathered through come back."""
+        if self._paged:
+            if window:
+                tables = tables[:, :-(-window // self.config.page_size)]
+            return (gather_view(self.k_cache, tables, self._view_dtype),
+                    gather_view(self.v_cache, tables, self._view_dtype),
+                    tables)
+        index = self._upload(np.asarray(
+            slots + [slots[0] if slots else 0] * (g - len(slots)), np.int64))
+        return (self.k_cache.index_select(1, index),
+                self.v_cache.index_select(1, index), tables)
+
+    def _dense_write_back(self, k: torch.Tensor, v: torch.Tensor,
+                          slots: list[int], tables: torch.Tensor,
+                          offsets: torch.Tensor, width: int) -> None:
+        """Write back what a dense call wrote into its copy
+        (:meth:`_dense_rows`): on the view each row's rows ``[offsets,
+        offsets + width)`` through its table (``scatter_decode_kv``:
+        unallocated pages and pad rows drop); on the slot layout the
+        whole rows of ``slots`` (pad rows are left out)."""
+        if self._paged:
+            scatter_decode_kv(self.k_cache, self.v_cache, tables, k, v,
+                              offsets, width)
+            return
+        if slots:
+            index = self._upload(np.asarray(slots, np.int64))
+            n = len(slots)
+            self.k_cache.index_copy_(1, index, k[:, :n])
+            self.v_cache.index_copy_(1, index, v[:, :n])
+
+    def _run_chunk(self, tokens: torch.Tensor, slots: list[int],
+                   tables: torch.Tensor, offsets: torch.Tensor,
+                   lens: torch.Tensor, window: int = 0) -> torch.Tensor:
+        """One chunk call of the walk on the engine's layout -> logits
+        [G, V] of each row's last valid position: natively through the
+        tables, else the dense chunk function on the rows' copy, written
+        back."""
+        if self._native:
+            logits, self.k_cache, self.v_cache = self._chunk_fn(
+                self.params, tokens, self.k_cache, self.v_cache, tables,
+                offsets, lens)
+            return logits
+        k, v, tables = self._dense_rows(slots, tokens.shape[0], tables,
+                                        window)
+        logits, k, v = self._chunk_fn(self.params, tokens, k, v, offsets,
+                                      lens)
+        self._dense_write_back(k, v, slots, tables, offsets,
+                               tokens.shape[1])
+        return logits
+
+    def _verify_and_compact(self, tokens, parents, depths, masks,
+                            slots: list[int], tables, offsets, lens,
+                            row_params):
+        """One tree-verify call on the engine's layout, its resolution
+        (``resolve_tree``) and the compaction of each row's accepted
+        path: natively ``pool_move_rows`` through the tables, on a dense
+        layout ``dense_move_rows`` inside the rows' copy before its
+        write-back. Returns (accepted depth [B], bonus [B], path [B,
+        W])."""
+        width = tokens.shape[1]
+        if self._native:
+            logits, self.k_cache, self.v_cache = self._verify_fn(
+                self.params, tokens, self.k_cache, self.v_cache, tables,
+                offsets, lens, tree_depths=depths, tree_masks=masks)
+        else:
+            k, v, tables = self._dense_rows(slots, tokens.shape[0], tables)
+            logits, k, v = self._verify_fn(
+                self.params, tokens, k, v, offsets, lens,
+                tree_depths=depths, tree_masks=masks)
+        n_acc, bonus, path = resolve_tree(
+            logits, tokens, parents, depths, lens, *row_params,
+            generator=self._generator)
+        if self._native:
+            src, dst = path_moves(offsets, path, n_acc, self.config.max_seq)
+            pool_move_rows(self.k_cache, tables, src, dst)
+            pool_move_rows(self.v_cache, tables, src, dst)
+        else:
+            dense_move_rows(k, offsets, path, n_acc)
+            dense_move_rows(v, offsets, path, n_acc)
+            self._dense_write_back(k, v, slots, tables, offsets, width)
+        return n_acc, bonus, path
 
     # -------------------------------------------------------------- decode
     def _finished(self, req: GenRequest, token: int) -> bool:
@@ -2716,7 +2847,8 @@ class Engine:
             fed = min(int(self.lengths[i])
                       + (tree.n_nodes if tree is not None else 1),
                       cfg.max_seq)
-            if self.active[i] is req and not self._ensure_headroom(i, fed):
+            if self._paged and self.active[i] is req \
+                    and not self._ensure_headroom(i, fed):
                 self._preempt(i)
         rows = [i for i, r in enumerate(self.active)
                 if r is not None and not r.pending_prefill]
@@ -2752,15 +2884,9 @@ class Engine:
         depths_t = self._upload(depths)
         # the 32-bit ancestor masks travel as int32 bit patterns
         masks_t = self._upload(masks.astype(np.uint32).view(np.int32))
-        logits, self.k_cache, self.v_cache = self._verify_fn(
-            self.params, tokens_t, self.k_cache, self.v_cache, tables,
-            offsets, lens_t, tree_depths=depths_t, tree_masks=masks_t)
-        n_acc, bonus, path = resolve_tree(
-            logits, tokens_t, parents_t, depths_t, lens_t, temps, top_ps,
-            top_ks, generator=self._generator)
-        src, dst = path_moves(offsets, path, n_acc, cfg.max_seq)
-        pool_move_rows(self.k_cache, tables, src, dst)
-        pool_move_rows(self.v_cache, tables, src, dst)
+        n_acc, bonus, path = self._verify_and_compact(
+            tokens_t, parents_t, depths_t, masks_t, rows, tables, offsets,
+            lens_t, (temps, top_ps, top_ks))
         out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
                         1).cpu().numpy()
         dur = time.perf_counter() - t0
@@ -3253,3 +3379,22 @@ def path_moves(offsets: torch.Tensor, path: torch.Tensor,
     dst = torch.where(k <= n_acc[:, None], base + k,
                       torch.full_like(path, max_seq))
     return base + path, dst
+
+
+def dense_move_rows(cache: torch.Tensor, offsets: torch.Tensor,
+                    path: torch.Tensor, n_acc: torch.Tensor) -> None:
+    """:func:`path_moves`' plan on a dense cache [L, B, W, Hkv, hd], in
+    place: for each row, the node at depth k (row ``offsets + path[k]``)
+    moves to row ``offsets + k`` in every layer, for k <= ``n_acc``.
+    Every source is read before any row is written; the depths past the
+    accepted one write back what they read at ``offsets + k`` (mod W:
+    no two writes of a row meet). No host sync."""
+    w = cache.shape[2]
+    k = torch.arange(path.shape[1], device=path.device)[None, :]
+    base = offsets.long()[:, None]
+    at = (base + k) % w
+    src = (base + path.long()).clamp(max=w - 1)
+    rows = torch.arange(cache.shape[1], device=cache.device)[:, None]
+    keep = (k <= n_acc[:, None].long())[None, :, :, None, None]
+    cache[:, rows, at] = torch.where(keep, cache[:, rows, src],
+                                     cache[:, rows, at])

@@ -1,6 +1,7 @@
 """Model -> Engine glue (counterpart of ``gofr_tpu/serving/glue.py``'s
-``llama_engine``, single device, native paged layout, and its
-``moe_engine``, on the slot layout or through the paged pool's view)."""
+``llama_engine`` and ``demo_llama_engine``, single device, on every
+layout, and its ``moe_engine``, on the slot layout or through the paged
+pool's view)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, llama_decode_flops,
-                            llama_decode_step_paged,
+                            llama_decode_step, llama_decode_step_paged,
+                            llama_init, llama_prefill_chunk,
                             llama_prefill_chunk_paged, llama_prefill_last,
                             make_empty_cache, make_pool)
 from ..models.moe import (MoEConfig, moe_decode_flops, moe_decode_step,
@@ -26,15 +28,20 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                  device: str | torch.device | None = None,
                  quantize: str | None = None) -> Engine:
     """An engine serving ``params`` on ``device`` (default: CUDA, or
-    raise): bucketed prefill through ``llama_prefill_last`` (the flash
-    kernel), chunk walks — long prompts and prefix-cache suffixes —
-    through ``llama_prefill_chunk_paged`` (the paged chunk kernel),
-    speculative tree verify through the same function's tree mode (the
-    paged tree kernel), decode through ``llama_decode_step_paged`` (the
-    paged decode kernel and the KV write kernel, T steps a dispatch
-    replayed as one CUDA graph), on a head-major pool allocated on the same
-    device in the engine config's ``kv_dtype`` (int8 pools go through
-    the kernels' int8 branches).
+    raise), on every layout: bucketed prefill through
+    ``llama_prefill_last`` (the flash kernel); on the paged layout,
+    unless ``paged_attention="view"``, chunk walks — long prompts and
+    prefix-cache suffixes — through ``llama_prefill_chunk_paged`` (the
+    paged chunk kernel), speculative tree verify through the same
+    function's tree mode (the paged tree kernel), decode through
+    ``llama_decode_step_paged`` (the paged decode kernel and the KV
+    write kernel), on a head-major pool allocated on the same device in
+    the engine config's ``kv_dtype`` (int8 pools go through the kernels'
+    int8 branches); on the slot layout and the view, decode through
+    ``llama_decode_step`` and the walk and verify through
+    ``llama_prefill_chunk`` on dense caches (the view: the pool gathered
+    and written back through the slab kernel). T decode steps a dispatch
+    replay as one CUDA graph on every layout.
 
     ``quantize="int8"`` / ``"int4"``: weight-only quantization of
     ``params`` (``ops/quant.py``, on the engine's device) before
@@ -49,12 +56,6 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                          f"'int4', got {quantize!r}")
     dev = _device_of(params, device)
     engine_config = engine_config or EngineConfig()
-    if engine_config.kv_layout != "paged":
-        raise ValueError(
-            f"llama_engine serves the paged layout only, got kv_layout="
-            f"{engine_config.kv_layout!r}: Llama's slot path "
-            f"(llama_decode_step, llama_prefill_chunk) is not ported yet "
-            f"(ROADMAP Queue A9)")
     rows = kernel_rows(engine_config)
     if (quantize is not None or is_quantized(params["layers"]["wq"])) \
             and rows > M_MAX:
@@ -69,6 +70,23 @@ def llama_engine(params: Any, model_config: LlamaConfig,
 
     def prefill_fn(params, tokens, kv_lengths):
         return llama_prefill_last(params, tokens, c, kv_lengths=kv_lengths)
+
+    def decode_fn(params, tokens, k_cache, v_cache, lengths,
+                  attn_window=None):
+        return llama_decode_step(params, tokens, k_cache, v_cache, lengths,
+                                 c, attn_window=attn_window)
+
+    def prefill_chunk_fn(params, tokens, k_cache, v_cache, offsets,
+                         chunk_lengths):
+        return llama_prefill_chunk(params, tokens, k_cache, v_cache, offsets,
+                                   chunk_lengths, c)
+
+    def spec_verify_fn(params, tokens, k_cache, v_cache, offsets,
+                       chunk_lengths, tree_depths=None, tree_masks=None):
+        return llama_prefill_chunk(
+            params, tokens, k_cache, v_cache, offsets, chunk_lengths, c,
+            return_all_logits=True, tree_depths=tree_depths,
+            tree_masks=tree_masks)
 
     def paged_decode_fn(params, tokens, k_pool, v_pool, tables, lengths,
                         active=None):
@@ -87,15 +105,32 @@ def llama_engine(params: Any, model_config: LlamaConfig,
             c, return_all_logits=True, tree_depths=tree_depths,
             tree_masks=tree_masks)
 
-    def make_cache(n_pages, page, kv_dtype):
-        return make_pool(c, n_pages, page, dev, kv_dtype)
-
-    return Engine(params, engine_config,
-                  prefill_fn=prefill_fn, paged_decode_fn=paged_decode_fn,
+    return Engine(params, engine_config, prefill_fn=prefill_fn,
+                  decode_fn=decode_fn, prefill_chunk_fn=prefill_chunk_fn,
+                  spec_verify_fn=spec_verify_fn,
+                  paged_decode_fn=paged_decode_fn,
                   paged_chunk_fn=paged_chunk_fn,
-                  paged_verify_fn=paged_verify_fn, make_cache=make_cache,
-                  device=dev, vocab_size=c.vocab_size,
+                  paged_verify_fn=paged_verify_fn,
+                  make_cache=partial(_make_cache, c, dev), device=dev,
+                  vocab_size=c.vocab_size,
                   flops_per_token=partial(llama_decode_flops, c))
+
+
+def demo_llama_engine(engine_config: EngineConfig | None = None,
+                      seed: int = 0, *,
+                      device: str | torch.device | None = None,
+                      **kw) -> Engine:
+    """A tiny random-weight engine for tests and examples:
+    ``LlamaConfig.tiny()`` from ``seed``, ``EngineConfig(max_batch=4,
+    max_seq=128)`` unless given, on ``device`` (default: CUDA, or
+    raise)."""
+    c = LlamaConfig.tiny()
+    dev = resolve_device(device)
+    params = llama_init(c, torch.Generator().manual_seed(seed), dev)
+    return llama_engine(params, c,
+                        engine_config or EngineConfig(max_batch=4,
+                                                      max_seq=128),
+                        device=dev, **kw)
 
 
 def moe_engine(params: Any, model_config: MoEConfig,
@@ -126,15 +161,22 @@ def moe_engine(params: Any, model_config: MoEConfig,
         return moe_decode_step(params, tokens, k_cache, v_cache, lengths, c,
                                attn_window=attn_window)
 
-    def make_cache(n, rows, kv_dtype="bf16", head_major=True):
-        if head_major:                   # a pool of n pages of rows each
-            return make_pool(c, n, rows, dev, kv_dtype)
-        return make_empty_cache(c, n, rows, dev)    # n slots of rows each
-
     return Engine(params, engine_config, prefill_fn=prefill_fn,
-                  decode_fn=decode_fn, make_cache=make_cache, device=dev,
+                  decode_fn=decode_fn,
+                  make_cache=partial(_make_cache, c, dev), device=dev,
                   vocab_size=c.vocab_size,
                   flops_per_token=partial(moe_decode_flops, c))
+
+
+def _make_cache(c: LlamaConfig, dev: torch.device, n: int, rows: int,
+                kv_dtype: str = "bf16", head_major: bool = True):
+    """The engine's ``make_cache``: a head-major pool of ``n`` pages of
+    ``rows`` rows each in ``kv_dtype`` (``make_pool``), or with
+    ``head_major=False`` the slot layout's dense caches, ``n`` slots of
+    ``rows`` rows (``make_empty_cache``)."""
+    if head_major:
+        return make_pool(c, n, rows, dev, kv_dtype)
+    return make_empty_cache(c, n, rows, dev)
 
 
 def _device_of(params: Any, device) -> torch.device:

@@ -19,8 +19,8 @@ each engine's stamped digest must be equal:
   clean run's digests.
 
 Also: the config checks of the JAX engine (``kv_layout``, int8 and
-``kv_pool_bytes`` need the paged layout), ``llama_engine`` refusing the
-slot layout, a dry view pool preempting with its continuation cut to the
+``kv_pool_bytes`` need the paged layout), ``llama_engine`` refusing an
+int8 KV form on the slot layout, a dry view pool preempting with its continuation cut to the
 widest bucket, and the decode window a dispatch picks.
 """
 
@@ -261,11 +261,16 @@ def test_config_checks_match_jax(weights):
 
 
 def test_llama_engine_refuses_the_slot_layout():
+    # llama_engine serves the slot layout now; what it refuses there is
+    # a quantized KV form, which needs pages, as the JAX engine does
     c = LlamaConfig.tiny()
     params = llama_init(c, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="A9"):
-        llama_engine(params, c, EngineConfig(kv_layout="slot", **COMMON),
+    with pytest.raises(ValueError, match="int8"):
+        llama_engine(params, c, EngineConfig(kv_layout="slot",
+                                             kv_dtype="int8", **COMMON),
                      device="cpu")
+    assert not llama_engine(params, c, EngineConfig(
+        kv_layout="slot", **COMMON), device="cpu")._paged
 
 
 def test_moe_engine_runs_on_cuda_unless_asked(weights, monkeypatch):

@@ -102,6 +102,49 @@ def test_load_balancing_loss_matches_jax(shape):
     np.testing.assert_allclose(got.item(), float(want), atol=1e-5)
 
 
+def _tied_router(case):
+    """(x [4, 16], gate [16, 8]) whose router logits tie: "all" — a zero
+    gate, every expert tied; "second" — expert 5 first, experts 2, 3 and
+    6 tied for second (small integers times powers of two: every logit
+    is exact, whatever the product's order of summation)."""
+    rng = np.random.default_rng(0)
+    if case == "all":
+        return (rng.normal(size=(4, 16)).astype(np.float32),
+                np.zeros((16, 8), np.float32))
+    x = rng.integers(0, 4, size=(4, 16)).astype(np.float32)
+    x[:, 0] = 1.0                        # every row's logits nonzero
+    scale = np.array([0.125, 0.125, 0.5, 0.5, 0.125, 1.0, 0.5, 0.125],
+                     np.float32)
+    return x, np.ones((16, 1), np.float32) * scale[None, :]
+
+
+@pytest.mark.parametrize("case,want", [("all", [0, 1]), ("second", [5, 2])])
+def test_a_tied_router_breaks_ties_toward_the_lowest_expert(case, want):
+    x, gate = _tied_router(case)
+    rng = np.random.default_rng(0)
+    d, f, e = 16, 32, 8
+    w1, w3 = (rng.normal(size=(e, d, f)).astype(np.float32) * 0.1
+              for _ in range(2))
+    w2 = rng.normal(size=(e, f, d)).astype(np.float32) * 0.1
+    args = (x, gate, w1, w3, w2)
+    _, idx = tmoe_ops.top_k_routing(_t(x) @ _t(gate), 2)
+    assert idx.tolist() == [want] * 4
+    _, jidx = jmoe_ops.top_k_routing(jnp.asarray(x) @ jnp.asarray(gate), 2)
+    assert np.asarray(jidx).tolist() == [want] * 4
+    jout, _ = jmoe_ops.moe_layer(*map(jnp.asarray, args), num_selected=2)
+    tout, _ = tmoe_ops.moe_layer(*map(_t, args), num_selected=2)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["all", "second"])
+def test_load_balancing_loss_on_a_tied_router_matches_jax(case):
+    x, gate = _tied_router(case)
+    logits = x @ gate
+    want = jmoe_ops.load_balancing_loss(jnp.asarray(logits), 2)
+    got = tmoe_ops.load_balancing_loss(_t(logits), 2)
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-5)
+
+
 # ----------------------------------------------------------------- model
 @pytest.fixture(scope="module")
 def params():

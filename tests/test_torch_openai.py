@@ -320,16 +320,22 @@ def test_a_client_leaving_mid_stream_cancels_its_request(stacks):
             chunk = sock.recv(4096)
             assert chunk, got
             got += chunk
+        req, = made
         sock.close()
-        closed_at = time.time()
-        assert _wait(lambda: all(r is None for r in eng.active), 2.0)
-        assert time.time() - closed_at < 2.0
+        # what the close means is counted in tokens, not seconds: a
+        # wall-clock bound breaks under a loaded host
+        at_close = len(req.generated)
+        assert _wait(lambda: all(r is None for r in eng.active), 30.0)
     finally:
         eng._decode_dispatch = inner
         eng.submit = inner_submit
-    req, = made
     assert req.cancelled and req.done.is_set()
     assert len(req.generated) < 50, len(req.generated)
+    # the server sees the close at its next write or two, and the engine
+    # retires the slot at its next dispatch: a few passes at most
+    passes_after = (len(req.generated) - at_close) \
+        / eng.config.decode_steps_per_pass
+    assert passes_after <= 6, (at_close, len(req.generated))
     assert sorted(eng._free_pages) == list(range(eng._n_pages))
 
 
