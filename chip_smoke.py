@@ -162,6 +162,18 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              naming the kernels of replayed graphs, refused, auto-stopped
              and forced, tokens/s with the profiler armed and off. Every
              check rejects a planted fault.
+   serve_fleet — the fleet plane (``phase_serve_fleet``' docstring):
+             three ``llama3_1b`` workers joined to one leader with the
+             prefix-aware router, two families of requests led by
+             512-token system prompts; (a) the device registry, (f) the
+             integrity vote quarantining the worker whose canaries are
+             corrupted, (b) prefix digests reaching the leader, (c)
+             every wave-2 request on its family's owner with a prefix
+             hit (planted: a round-robin leader), (d) routed = direct
+             answers, SSE = unary, the router's added TTFT, (e) a drained
+             owner's typed 503s retried on the survivor while its stream
+             ends whole, (h) the federated metrics, (g) eviction after 3
+             missed heartbeats; every check rejects a planted fault.
 6. serve_spec — 4 concurrent greedy ``/chat`` requests with repetitive
              prompts, 64 new tokens each, through the plain engine, the
              speculative one (``serve_config(speculative=True,
@@ -3103,14 +3115,15 @@ def _open_post(port: int, path: str, body: dict):
 
 
 def _sse_call(port: int, path: str, body: dict,
-              close_after: int | None = None) -> dict:
+              close_after: int | None = None,
+              first_event: threading.Event | None = None) -> dict:
     """One POST read off a raw socket, chunk by chunk: status, headers,
     each SSE event with its arrival time (s after the request was sent),
     whether the terminating zero-length chunk came. With ``close_after``
     the client closes its socket once that many events carried text
     (``closed_at``: ``time.perf_counter()`` then); ``sent_at``: the wall
     clock when the request left, as ``GenRequest.submitted_at`` reads
-    it."""
+    it. ``first_event`` is set once the first event has arrived."""
     t0 = time.perf_counter()
     out = {"events": [], "terminal": False, "closed_at": None,
            "sent_at": time.time()}
@@ -3149,6 +3162,8 @@ def _sse_call(port: int, path: str, body: dict,
                 event = payload if payload == "[DONE]" else json.loads(payload)
                 out["events"].append((now, event))
                 texts += _content(event) is not None
+                if first_event is not None:
+                    first_event.set()
             if close_after is not None and texts >= close_after:
                 out["closed_at"] = time.perf_counter()
                 break
@@ -5062,6 +5077,737 @@ def phase_serve_recover(dev, smi_line: str, cfg=None) -> None:
                              f"check: {missed}")
 
 
+FLEET_HEARTBEAT_S = 0.2
+FLEET_NEW = 32
+#: wave 2's suffix lengths, each family's six requests (bytes = tokens)
+FLEET_SUFFIXES = (40, 48, 56, 72, 96, 120)
+#: the (d) and (e) requests' suffixes: at most 64 tokens, so a prompt
+#: pins no key past its family's 512 rows and a re-serve of it walks the
+#: same path
+FLEET_SOLO_SUFFIXES = (44, 52, 60)
+#: (e)'s stream: long enough to outlast the two retried requests
+FLEET_STREAM_NEW = 512
+
+
+def _fleet_families(tok) -> dict:
+    """Two families, each led by its own system prompt of 511 bytes (512
+    tokens with the byte tokenizer's BOS: 8 pages of 64 rows)."""
+    texts = {"A": "You are the billing assistant of a small utility. "
+                  "Answer questions about invoices, meter readings and "
+                  "payment plans politely and briefly. ",
+             "B": "You are the release engineer on call for a build farm. "
+                  "Explain failing jobs, flaky tests and cache misses "
+                  "step by step, quoting the log lines. "}
+    out = {}
+    for name, text in texts.items():
+        system = (text * 8)[:511]
+        assert len(tok.encode(system)) == 512
+        out[name] = system
+    return out
+
+
+def _suffix(family: str, tag: str, n: int) -> str:
+    """``n`` bytes whose first bytes differ per request, so no two
+    requests share a page past their family's prefix."""
+    head = f"[{family}{tag}] question: "
+    body = "how does the next step depend on the previous one and why? "
+    return (head + body * 4)[:n]
+
+
+def _fleet_chat(port: int, prompt: str, n_new: int = FLEET_NEW):
+    status, _, body = _http_json(port, "POST", "/chat",
+                                 {"prompt": prompt, "max_tokens": n_new,
+                                  "temperature": 0})
+    return status, body
+
+
+def _digest_of(tok, prompt: str, tokens: list, n_new: int = FLEET_NEW):
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.integrity import request_digest
+    return request_digest(tok.encode(prompt), SamplingParams(
+        temperature=0.0, top_p=1.0, top_k=0, max_new_tokens=n_new), tokens)
+
+
+def _sse_tokens(run: dict) -> tuple[list, float | None]:
+    """(token ids, seconds to the first) of an ``_sse_call`` record."""
+    hits = [(t, e["token"]) for t, e in run["events"]
+            if isinstance(e, dict) and "token" in e]
+    return [tk for _, tk in hits], (hits[0][0] if hits else None)
+
+
+def _registry_faults(docs: dict, kind: str, hbm_used: float,
+                     weight_bytes: int) -> list:
+    out = []
+    for name, doc in docs.items():
+        devices = ((doc.get("devices") or {}).get("details") or {}) \
+            .get("devices") or []
+        if [d.get("kind") for d in devices] != [kind]:
+            out.append(f"{name}: devices {[d.get('kind') for d in devices]}"
+                       f", not one {kind!r}")
+    if hbm_used < weight_bytes:
+        out.append(f"app_gpu_hbm_bytes_used {hbm_used} < the engines' "
+                   f"weights {weight_bytes}")
+    return out
+
+
+def _owner_faults(view: list, family_hashes: dict) -> list:
+    out = []
+    for fam, h in family_hashes.items():
+        holders = [m["host_id"] for m in view
+                   if h in ((m.get("summary") or {}).get("prefix_digest")
+                            or {}).get("hashes", [])]
+        if len(holders) != 1:
+            out.append(f"family {fam}'s 512-row hash in {holders}")
+    return out
+
+
+def _routing_faults(run: dict, owners: dict, per_family: int) -> list:
+    """Every request of a family routed to its owner, whose prefix hits
+    rose once per request; nothing routed elsewhere."""
+    want: dict = {}
+    for fam, host in owners.items():
+        want[host] = want.get(host, 0) + per_family
+    out = []
+    for host in sorted(set(want) | set(run["routed"])):
+        if run["routed"].get(host, 0) != want.get(host, 0):
+            out.append(f"{host}: routed {run['routed'].get(host, 0)}, "
+                       f"want {want.get(host, 0)}")
+        if run["hits"].get(host, 0) != want.get(host, 0):
+            out.append(f"{host}: prefix hits +{run['hits'].get(host, 0)}"
+                       f", want +{want.get(host, 0)}")
+    return out + [f"status {s}" for s in run["statuses"] if s != 201]
+
+
+def _same_answer_faults(answers: list) -> list:
+    """Each (prompt, [digest, ...]) must hold one digest."""
+    return [f"{p[-24:]!r}: {len(set(ds))} digests" for p, ds in answers
+            if len(set(ds)) != 1 or None in ds]
+
+
+def _quarantine_faults(vote: dict, divergences: list, bundles: list,
+                       bad: str, clean: tuple) -> list:
+    out = []
+    if sorted(vote.get("quarantined") or {}) != [bad]:
+        out.append(f"quarantined {sorted(vote.get('quarantined') or {})}, "
+                   f"not [{bad}]")
+    named = [e.get("attrs", {}).get("outlier") for e in divergences]
+    if named != [bad]:
+        out.append(f"divergence events name {named}")
+    if len(bundles) != 1:
+        out.append(f"{len(bundles)} integrity_divergence bundles")
+    for host in clean:
+        if host in named or host in (vote.get("quarantined") or {}):
+            out.append(f"clean host {host} named")
+    return out
+
+
+def _stream_faults(stream: dict, n_new: int, engine_digest: str | None,
+                   digest: str | None) -> list:
+    out = []
+    if not stream["terminal"] or stream["events"][-1][1] != "[DONE]":
+        out.append("no terminal [DONE]")
+    if len(stream["tokens"]) != n_new:
+        out.append(f"{len(stream['tokens'])} tokens streamed, not {n_new}")
+    if digest != engine_digest:
+        out.append("streamed tokens are not the engine's")
+    return out
+
+
+def _federation_faults(text: str, hosts: tuple) -> list:
+    out = []
+    for host in hosts:
+        for family in ("app_engine_", "app_gpu_"):
+            if not any(line.startswith(family) and f'host="{host}"' in line
+                       for line in text.splitlines()):
+                out.append(f"no {family}* series of {host}")
+    for family in ("app_fleet_", "app_router_"):
+        if not any(line.startswith(family) for line in text.splitlines()):
+            out.append(f"no {family}* series")
+    return out
+
+
+def _eviction_faults(topo: dict, gone: str, survivors: dict,
+                     evictions: dict, waited_s: float,
+                     floor_s: float) -> list:
+    out = []
+    if gone in topo["members"]:
+        out.append(f"{gone} still a member")
+    ranks = {h: m["rank"] for h, m in topo["members"].items()}
+    if sorted(ranks.values()) != list(range(len(ranks))):
+        out.append(f"ranks {ranks} not contiguous")
+    if survivors != {h: r for h, r in ranks.items()}:
+        out.append(f"survivors hold {survivors}, leader says {ranks}")
+    if evictions != {"heartbeat_timeout": 1.0}:
+        out.append(f"evictions {evictions}")
+    if waited_s < floor_s:
+        out.append(f"evicted after {waited_s:.3f} s of silence < "
+                   f"{floor_s} s")
+    return out
+
+
+def phase_serve_fleet(dev, smi_line: str) -> None:
+    """The fleet plane on the card: three ``llama3_1b`` workers (random
+    weights from seed 0, ``serve_config``, golden probes every 2 passes
+    from a corpus sealed here from a clean engine's greedy answer; the
+    third with ``logit_corrupt`` scoped to the probe tenant), each joined
+    with ``join_fleet`` at a 0.2 s heartbeat to one
+    ``serve_fleet_leader(router=RouterConfig())`` with ``eviction_misses``
+    3. Two request families, each led by its own 512-token system prompt
+    (8 pages), greedy, 32 new tokens, byte tokenizer. In order:
+
+    (a) each worker's health lists one device of ``nvidia-smi``'s name;
+        ``app_gpu_hbm_bytes_used`` >= the weight bytes of the three
+        engines. Planted: a registry asked for the CPU.
+    (f) direct requests to every worker until the leader's vote (quorum
+        3) quarantines the third: its local mismatch episode opened once,
+        exactly it named, one ``fleet.integrity_divergence`` event and
+        one incident bundle, the clean pair never named; it leaves the
+        routing view and its routed share stays 0 to the end. Planted:
+        an offline leader fed the three summaries with the second clean
+        host's probe digests swapped for the corrupt one's. The canaries
+        pause once the vote is in, so the latencies below are the
+        requests' own.
+    (b) wave 1, one request per family through the router: each family's
+        512-row hash reaches the leader's routing view in exactly one
+        worker's digest (seconds recorded). Planted: the 511-row hash, as
+        a router with the wrong page size would look for.
+    (c) wave 2, 6 requests per family all at once: every one on its
+        family's owner, whose prefix hits rise once per request. Planted:
+        the same wave through a fresh round-robin leader.
+    (d) per family, three prompts served one at a time: routed unary,
+        routed SSE and direct SSE on the owner give one digest each.
+        Router's added TTFT: the p50 of routed minus direct SSE TTFT,
+        the two SSE calls of a prompt in turns. Planted: a routed answer
+        with one token flipped.
+    (e) family A's owner drained with one 512-token stream in flight:
+        new family-A requests draw typed ``draining`` 503s and are retried
+        on the survivor, equal to the same prompts served there directly;
+        the stream ends with ``[DONE]``, its tokens the engine's own.
+        Planted: the stream with its last token repeated.
+    (h) ``/control/fleet/metrics``: every worker's ``app_engine_*`` and
+        ``app_gpu_*`` under its ``host`` label, the leader's
+        ``app_fleet_*`` and ``app_router_*``. Planted: one host's lines
+        dropped.
+    (g) the drained worker's agent stopped: evicted after 3 missed
+        intervals (``heartbeat_timeout``, the only eviction of the run),
+        the generation bumped once, the survivors re-ranked contiguously.
+        Planted: the topology before the eviction.
+    (i) the launches of the routed waves and (d): flash, chunk, decode,
+        ``rope_kv_write`` and the prefill's slab write, each > 0.
+        Planted: the counts before the waves."""
+    import tempfile
+
+    import torch
+    from gofr_tpu_torch.device import DeviceRegistry
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write, scatter_chunk_kv
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+    from gofr_tpu_torch.serving.app import (build_engine, build_server,
+                                            join_fleet, serve_config,
+                                            serve_fleet_leader)
+    from gofr_tpu_torch.serving.control_plane import ControlPlaneLeader
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.integrity import GoldenSet, request_digest
+    from gofr_tpu_torch.serving.logger import Logger
+    from gofr_tpu_torch.serving.router import RouterConfig, prefix_hash
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama3_1b()
+    tok = ByteTokenizer()
+    names = ("w0", "w1", "w2")
+    bad = "w2"
+    smi_name = smi_line.split(",")[0].strip()
+    tmp = tempfile.mkdtemp(prefix="gofr_fleet_")
+    log = open(Path(tmp) / "fleet.log", "w")
+    quiet = Logger(out=log)
+    counters = {"flash_attention": (flash_attention, "launches"),
+                "paged_decode_attention": (paged_decode_attention,
+                                           "launches"),
+                "paged_chunk_attention": (paged_chunk_attention, "launches"),
+                "rope_kv_write": (rope_kv_write, "launches"),
+                "scatter_chunk_kv": (scatter_chunk_kv, "launches")}
+    failed: dict = {}
+    planted: dict = {}
+    out: dict = {"phase": "serve_fleet", "card": smi_line}
+
+    def judge(name, faults, planted_faults):
+        failed[name], planted[name] = faults, planted_faults
+
+    # the golden corpus: one canary of 50 tokens (a bucket of 64 rows no
+    # client prompt uses), sealed from a clean engine's greedy answer
+    golden_prompt = tok.encode(("golden canary: count the pages of the "
+                                "pool and name them ") * 2)[:50]
+    golden_params = SamplingParams(temperature=0.0, max_new_tokens=16)
+    sealer = build_engine(cfg)
+    sealer.start()
+    try:
+        req = sealer.submit(golden_prompt, golden_params)
+        req.done.wait(120)
+        assert req.error is None and len(req.generated) == 16, req.error
+    finally:
+        sealer.stop()
+    golden_path = str(Path(tmp) / "golden.jsonl")
+    GoldenSet.seal([{"prompt_tokens": golden_prompt,
+                     "digest": request_digest(req.prompt_tokens, req.params,
+                                              req.generated),
+                     "params": {"temperature": 0.0, "top_p": 1.0,
+                                "top_k": 0, "max_new_tokens": 16}}]
+                   ).save(golden_path)
+    sealed_digest = GoldenSet.load(golden_path).entries[0].digest
+    del sealer, req
+    gc.collect()
+
+    leader_server = serve_fleet_leader(
+        router=RouterConfig(), heartbeat_interval_s=FLEET_HEARTBEAT_S,
+        eviction_misses=3, logger=quiet)
+    leader = leader_server.leader
+    router = leader.router
+    threads = [threading.Thread(target=leader_server.serve_forever,
+                                args=(0.05,), daemon=True)]
+    threads[0].start()
+    leader_url = f"http://127.0.0.1:{leader_server.port}"
+    lport = leader_server.port
+    workers: dict = {}
+    servers = [leader_server]
+    t_boot = time.perf_counter()
+    try:
+        for name in names:
+            faults = ("logit_corrupt:times=0,request=_integrity"
+                      if name == bad else None)
+            engine = build_engine(cfg, engine_config=serve_config(
+                cfg, integrity_golden_path=golden_path,
+                integrity_probe_passes=2, faults=faults))
+            engine.warmup(prompt_lens=(50, 100, 600), chunked=True)
+            server = build_server(engine, tok, port=0, name="llama3_1b",
+                                  logger=quiet)
+            servers.append(server)
+            t = threading.Thread(target=server.serve_forever, args=(0.05,),
+                                 daemon=True)
+            t.start()
+            threads.append(t)
+            engine.start()
+            workers[name] = {"engine": engine, "server": server,
+                             "port": server.port}
+        # joined once every engine is built and warm: a heartbeat thread
+        # starved by a neighbour's warmup would miss its beats
+        for name, w in workers.items():
+            w["agent"] = join_fleet(w["server"], leader_url, host_id=name,
+                                    heartbeat_interval_s=FLEET_HEARTBEAT_S,
+                                    logger=quiet)
+        deadline = time.time() + 60
+        while len(leader.routing_view()) < 3:
+            assert time.time() < deadline, "workers never joined"
+            time.sleep(0.01)
+        out["boot_s"] = time.perf_counter() - t_boot
+
+        # (a) the registry
+        docs = {n: _http_json(w["port"], "GET", "/.well-known/health")[2][
+            "data"] for n, w in workers.items()}
+        # a fresh probe: the registry caches for 10 s, since before the
+        # later engines were built
+        workers["w0"]["server"].devices.devices(refresh=True)
+        snap = workers["w0"]["server"].metrics_snapshot()
+        hbm = max((s["value"] for s in snap["metrics"][
+            "app_gpu_hbm_bytes_used"]["series"]), default=0.0)
+        weight_bytes = sum(quantized_bytes(w["engine"].params)
+                           for w in workers.values())
+        judge("a_registry",
+              _registry_faults(docs, smi_name, hbm, weight_bytes),
+              _registry_faults({"cpu": {"devices": DeviceRegistry(
+                  device="cpu").device_health()}}, smi_name, hbm,
+                  weight_bytes))
+        out["a"] = {"kinds": {n: [d["kind"] for d in
+                                  doc["devices"]["details"]["devices"]]
+                              for n, doc in docs.items()},
+                    "app_gpu_hbm_bytes_used": hbm,
+                    "weight_bytes_3_engines": weight_bytes,
+                    "device_count": torch.cuda.device_count()}
+
+        # (f) probes until the vote quarantines the corrupt worker
+        t_probe = time.perf_counter()
+        tick = 0
+        deadline = time.time() + 120
+
+        def probes_done():
+            w2 = workers[bad]["engine"].integrity
+            return (bad in leader.fleet_status()["integrity"]["quarantined"]
+                    and w2.probes.get("mismatch", 0) >= 2
+                    and all(workers[n]["engine"].integrity.probes.get(
+                        "run", 0) >= 1 for n in names))
+
+        while not probes_done():
+            assert time.time() < deadline, "no quarantine within 120 s"
+            for n in names:
+                # 32 tokens: a bucket of its own, and no page to pin
+                text = (f"tick {tick} on {n}: keep the passes flowing")[:31]
+                _fleet_chat(workers[n]["port"], text, 8)
+                tick += 1
+        rounds = leader.metrics.get("app_fleet_heartbeats").get(host=bad)
+        vote = leader.fleet_status()["integrity"]
+        divergences = leader.events.snapshot(
+            kind="fleet.integrity_divergence")
+        bundles = [b for b in leader.incidents.list()
+                   if b["reason"] == "integrity_divergence"]
+        status_of = {m["host_id"]: m["status"]
+                     for m in leader.routing_view()}
+        # planted: the same summaries with the second clean host's probe
+        # digests swapped for the corrupt one's (a corrupt majority)
+        offline = ControlPlaneLeader(host_id="offline")
+        sums = {n: workers[n]["agent"].summary_source() for n in names}
+        sums["w1"]["integrity"] = dict(sums[bad]["integrity"])
+        for n in names:
+            offline.join(n, "", 1)
+            offline.heartbeat(n, -1, {"status": "UP"}, sums[n])
+        integ = {n: workers[n]["engine"].integrity for n in names}
+        local = ([f"{n}: {integ[n].episodes} local episodes"
+                  for n in (bad,) if integ[n].episodes != 1]
+                 + [f"{n}: {integ[n].probes.get('mismatch', 0)} mismatches"
+                    for n in names if n != bad
+                    and integ[n].probes.get("mismatch", 0)]
+                 + ([] if status_of.get(bad) == "QUARANTINED" else
+                    [f"{bad} is {status_of.get(bad)} in the routing view"]))
+        clean = tuple(n for n in names if n != bad)
+        judge("f_quarantine",
+              _quarantine_faults(vote, divergences, bundles, bad, clean)
+              + local,
+              _quarantine_faults(
+                  offline._vote_integrity(),
+                  offline.events.snapshot(kind="fleet.integrity_divergence"),
+                  [b for b in offline.incidents.list()
+                   if b["reason"] == "integrity_divergence"], bad, clean))
+        out["f"] = {"probe_phase_s": time.perf_counter() - t_probe,
+                    "ticks": tick,
+                    "heartbeat_rounds_to_quarantine": rounds,
+                    "probes": {n: dict(integ[n].probes) for n in names},
+                    "local_episodes": {n: integ[n].episodes for n in names},
+                    "vote": {g: {"majority": v["majority"] == sealed_digest,
+                                 "tally": sorted(v["tally"].values()),
+                                 "voters": v["voters"]}
+                             for g, v in vote["votes"].items()},
+                    "routing_status": status_of}
+        hb_body = {"host_id": "w0", "generation": 1,
+                   "health": workers["w0"]["agent"].health_source(),
+                   "summary": workers["w0"]["agent"].summary_source(),
+                   "events": workers["w0"]["engine"].events.digest(),
+                   "metrics": workers["w0"]["agent"].metrics_source()}
+        out["heartbeat_body_bytes"] = len(json.dumps(hb_body))
+
+        # the vote is in: the canaries pause, so the latencies below are
+        # the requests' own
+        for w in workers.values():
+            w["engine"].integrity.probe_passes = 0
+        deadline = time.time() + 60
+        while any(w["engine"].integrity.inflight for w in workers.values()):
+            assert time.time() < deadline, "a probe never ended"
+            time.sleep(0.005)
+
+        families = _fleet_families(tok)
+        fam_hash = {f: prefix_hash(tok.encode(s)) for f, s in
+                    families.items()}
+        wrong_hash = {f: prefix_hash(tok.encode(s)[:511]) for f, s in
+                      families.items()}
+
+        def hits():
+            return {n: w["engine"].stats["prefix_hits"]
+                    for n, w in workers.items()}
+
+        def routed(r):
+            return dict(r.debug_state()["routed"])
+
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        # (b) wave 1, one request per family, one after the other
+        t_answer = {}
+        for fam, system in families.items():
+            status, _ = _fleet_chat(lport, system + _suffix(fam, "w1", 40))
+            assert status == 201, status
+            t_answer[fam] = time.perf_counter()
+        seen_at: dict = {}
+        deadline = time.time() + 30
+        while len(seen_at) < len(families) and time.time() < deadline:
+            view = leader.routing_view()
+            for fam, h in fam_hash.items():
+                if fam not in seen_at and any(
+                        h in ((m["summary"].get("prefix_digest") or {})
+                              .get("hashes") or []) for m in view):
+                    seen_at[fam] = time.perf_counter() - t_answer[fam]
+            time.sleep(0.005)
+        view = leader.routing_view()
+        owners = {}
+        for fam, h in fam_hash.items():
+            holders = [m["host_id"] for m in view if h in (
+                (m["summary"].get("prefix_digest") or {}).get("hashes")
+                or [])]
+            owners[fam] = holders[0] if holders else None
+        judge("b_digest", _owner_faults(view, fam_hash),
+              _owner_faults(view, wrong_hash))
+        out["b"] = {"digest_propagation_s": seen_at, "owners": owners}
+
+        # (c) wave 2 through the prefix router, then a round-robin one
+        wave2 = [(fam, families[fam] + _suffix(fam, f"w2.{i}", n))
+                 for fam in families for i, n in enumerate(FLEET_SUFFIXES)]
+
+        def run_wave(port, r):
+            h0, r0 = hits(), routed(r)
+            got: list = [None] * len(wave2)
+
+            def ask(i, prompt):
+                got[i] = _fleet_chat(port, prompt)
+
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=ask, args=(i, p))
+                  for i, (_, p) in enumerate(wave2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(600)
+            h1, r1 = hits(), routed(r)
+            return {"wall_s": time.perf_counter() - t0,
+                    "statuses": [g[0] for g in got],
+                    "ttft_ms": sorted(g[1]["data"]["usage"]["ttft_ms"]
+                                      for g in got if g[0] == 201),
+                    "routed": {h: r1.get(h, 0) - r0.get(h, 0)
+                               for h in r1 if r1.get(h, 0) - r0.get(h, 0)},
+                    "hits": {h: h1[h] - h0[h] for h in h1
+                             if h1[h] - h0[h]}}
+
+        prefix_run = run_wave(lport, router)
+        rr_server = serve_fleet_leader(
+            router=RouterConfig(policy="round_robin"), host_id="rr-leader",
+            heartbeat_interval_s=60.0, logger=quiet)
+        servers.append(rr_server)
+        t = threading.Thread(target=rr_server.serve_forever, args=(0.05,),
+                             daemon=True)
+        t.start()
+        threads.append(t)
+        for n in clean:
+            rr_server.leader.join(n, f"127.0.0.1:{workers[n]['port']}", 1)
+        rr_run = run_wave(rr_server.port, rr_server.leader.router)
+        judge("c_prefix_routing", _routing_faults(prefix_run, owners, 6),
+              _routing_faults(rr_run, owners, 6))
+        out["c"] = {"prefix": prefix_run, "round_robin": rr_run,
+                    "prefix_hits": {"prefix": sum(prefix_run["hits"].values()),
+                                    "round_robin": sum(rr_run["hits"]
+                                                       .values())}}
+        rr_server.shutdown()
+        rr_server.server_close()
+        servers.remove(rr_server)
+
+        # (d) one at a time: routed unary, routed SSE, direct SSE
+        answers, ttft = [], {"routed": [], "direct": []}
+        for fam, system in families.items():
+            owner = owners[fam]
+            for i, n in enumerate(FLEET_SOLO_SUFFIXES):
+                prompt = system + _suffix(fam, f"d{i}", n)
+                body = {"prompt": prompt, "max_tokens": FLEET_NEW,
+                        "temperature": 0}
+                status, unary = _fleet_chat(lport, prompt)
+                # the two SSE calls in turns, so neither always goes first
+                calls = [(lport, "routed"), (workers[owner]["port"],
+                                             "direct")]
+                if i % 2:
+                    calls.reverse()
+                sse = {key: _sse_call(port, "/chat", {**body,
+                                                      "stream": True})
+                       for port, key in calls}
+                routed_sse, direct_sse = sse["routed"], sse["direct"]
+                digests = [_digest_of(tok, prompt, unary["data"]["tokens"])
+                           if status == 201 else None]
+                for run, key in ((routed_sse, "routed"),
+                                 (direct_sse, "direct")):
+                    tokens, first = _sse_tokens(run)
+                    digests.append(_digest_of(tok, prompt, tokens)
+                                   if run["terminal"] else None)
+                    ttft[key].append(first * 1000.0 if first else None)
+                answers.append((prompt, digests))
+        flipped = [(p, [ds[0], _digest_of(tok, p, [1] * FLEET_NEW)]
+                    + ds[2:]) for p, ds in answers]
+        judge("d_answers", _same_answer_faults(answers),
+              _same_answer_faults(flipped))
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        judge("i_launches",
+              [f"{k} never launched" for k, v in launches.items() if v < 1],
+              [f"{k} never launched" for k in launches])
+        p50 = {k: statistics.median(v) for k, v in ttft.items()
+               if all(x is not None for x in v)}
+        added = [r - d for r, d in zip(ttft["routed"], ttft["direct"])
+                 if r is not None and d is not None]
+        out["d"] = {"requests": len(answers),
+                    "ttft_ms_p50": p50,
+                    "router_added_ttft_ms_p50":
+                    statistics.median(added) if added else None,
+                    "ttft_ms": ttft}
+        out["launches"] = launches
+
+        # (e) drain family A's owner with one stream in flight
+        owner = owners["A"]
+        survivors = [n for n in clean if n != owner]
+        survivor = survivors[0]
+        # the survivor holds family A's prefix from a request served
+        # alone, so a retried request and its direct reference walk the
+        # same pages; the sessions pin the stream and the new requests
+        # to the owner, which the survivor now ties on coverage
+        assert _fleet_chat(workers[survivor]["port"], families["A"]
+                           + _suffix("A", "w1", 40))[0] == 201
+        sessions = ("A-stream", "A-0", "A-1")
+        for session in sessions:
+            router.affinity.put(session, owner)
+        retries0 = router.debug_state()["retries"]
+        first = threading.Event()
+        stream: dict = {}
+        long_prompt = families["A"] + _suffix("A", "e.stream", 48)
+
+        def run_stream():
+            stream.update(_sse_call(lport, "/chat", {
+                "prompt": long_prompt, "max_tokens": FLEET_STREAM_NEW,
+                "temperature": 0, "stream": True, "session": sessions[0]},
+                first_event=first))
+
+        st = threading.Thread(target=run_stream)
+        st.start()
+        assert first.wait(120), "the stream never started"
+        drainer = threading.Thread(
+            target=workers[owner]["engine"].drain, kwargs={"timeout_s": 120})
+        drainer.start()
+        deadline = time.time() + 30
+        while not workers[owner]["engine"]._draining:
+            assert time.time() < deadline, "drain never began"
+            time.sleep(0.001)
+        retried = []
+        # one after the other: each walks alone on the survivor, as its
+        # direct reference will
+        for i, n in enumerate((44, 60)):
+            prompt = families["A"] + _suffix("A", f"e{i}", n)
+            status, _, body = _http_json(lport, "POST", "/chat", {
+                "prompt": prompt, "max_tokens": FLEET_NEW, "temperature": 0,
+                "session": sessions[1 + i]})
+            retried.append((prompt, status, body))
+        st.join(300)
+        drainer.join(300)
+        stream["tokens"], _ = _sse_tokens(stream)
+        engine_digest = next(
+            (r["digest"] for r in workers[owner]["engine"].recorder.snapshot()
+             ["requests"] if r["generated"] == FLEET_STREAM_NEW), None)
+        stream_digest = _digest_of(tok, long_prompt, stream["tokens"],
+                                   FLEET_STREAM_NEW)
+        repeated = dict(stream, tokens=stream["tokens"]
+                        + stream["tokens"][-1:])
+        retry_events = [(e["cause"], e["attrs"]["host"]) for e in
+                        leader.events.snapshot(kind="router.retry")]
+        direct = [_fleet_chat(workers[survivor]["port"], p)
+                  for p, _, _ in retried]
+        pairs = [(p, [_digest_of(tok, p, b["data"]["tokens"])
+                      if s == 201 else None,
+                      _digest_of(tok, p, d[1]["data"]["tokens"])
+                      if d[0] == 201 else None])
+                 for (p, s, b), d in zip(retried, direct)]
+        retry_faults = ([] if retry_events[-2:] == [("draining", owner)] * 2
+                        else [f"router.retry events {retry_events[-2:]}"]) \
+            + ([] if router.debug_state()["retries"] - retries0 == 2
+               else ["retries did not rise by 2"])
+        judge("e_failover",
+              _stream_faults(stream, FLEET_STREAM_NEW, engine_digest,
+                             stream_digest)
+              + _same_answer_faults(pairs) + retry_faults,
+              _stream_faults(repeated, FLEET_STREAM_NEW, engine_digest,
+                             _digest_of(tok, long_prompt,
+                                        repeated["tokens"],
+                                        FLEET_STREAM_NEW)))
+        out["e"] = {"drained": owner, "survivor": survivor,
+                    "retried_statuses": [s for _, s, _ in retried],
+                    "retry_events": retry_events[-2:],
+                    "stream_tokens": len(stream["tokens"]),
+                    "stream_terminal": stream.get("terminal"),
+                    "drain_health": workers[owner]["engine"]
+                    .health_check()["status"]}
+
+        # (h) federation
+        status, _, _ = _http_json(lport, "GET", "/debug/fleet")
+        conn_text = urllib.request.urlopen(
+            leader_url + "/control/fleet/metrics", timeout=60).read().decode()
+        dropped = "\n".join(line for line in conn_text.splitlines()
+                            if 'host="w1"' not in line)
+        judge("h_federation", _federation_faults(conn_text, names)
+              + ([] if status == 200 else [f"/debug/fleet {status}"]),
+              _federation_faults(dropped, names))
+        out["h"] = {"fleet_metrics_bytes": len(conn_text),
+                    "series": sum(1 for line in conn_text.splitlines()
+                                  if line and not line.startswith("#"))}
+
+        # (f)'s last word: the quarantined host was never routed to
+        share = router.debug_state()["routed"]
+        if share.get(bad, 0):
+            failed["f_quarantine"].append(f"{bad} routed {share[bad]} times")
+        out["routed"] = share
+
+        # (g) eviction: stop the drained worker's agent
+        generation = leader.generation
+        before = leader.topology()
+        workers[owner]["agent"].stop()
+        t_stop = time.perf_counter()
+        deadline = time.time() + 30
+        last_seen = before["members"][owner]["last_seen"]
+        while leader.generation == generation:
+            assert time.time() < deadline, "never evicted"
+            member = leader.topology()["members"].get(owner)
+            if member is not None:
+                last_seen = member["last_seen"]
+            time.sleep(0.002)
+        # the silence the sweeper saw: from the last heartbeat it got
+        silence = time.time() - last_seen
+        waited = time.perf_counter() - t_stop
+        rest = [n for n in names if n != owner]
+        deadline = time.time() + 30
+        while any(workers[n]["agent"].assignment is None
+                  or workers[n]["agent"].assignment.generation
+                  != leader.generation for n in rest):
+            assert time.time() < deadline, "survivors never re-ranked"
+            time.sleep(0.005)
+        topo = leader.topology()
+        held = {n: workers[n]["agent"].assignment.rank for n in rest}
+        evictions = {s["labels"].get("reason"): s["value"] for s in
+                     leader.metrics.snapshot()["metrics"][
+                         "app_fleet_evictions"]["series"]}
+        floor = FLEET_HEARTBEAT_S * 3
+        judge("g_eviction",
+              _eviction_faults(topo, owner, held, evictions, silence, floor)
+              + ([] if leader.generation == generation + 1 else
+                 [f"generation {generation} -> {leader.generation}"]),
+              _eviction_faults(before, owner, held, evictions, silence,
+                               floor))
+        t_epoch = time.time() - (time.perf_counter() - t_phase)
+        out["evict_events"] = [
+            (e["attrs"].get("evicted"), e.get("cause"),
+             round(e["ts"] - t_epoch, 3))
+            for e in leader.events.snapshot(kind="fleet.evict")]
+        out["g"] = {"evicted": owner, "seconds_to_eviction": waited,
+                    "silence_before_eviction_s": silence,
+                    "generation": [generation, leader.generation],
+                    "ranks": held, "evictions": evictions}
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        for w in workers.values():
+            w["engine"].stop()
+        log.close()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["failed_checks"] = failed
+    out["planted"] = planted
+    emit(out)
+    del workers
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(
+            f"serve_fleet: failed checks {failed}, planted faults that "
+            f"passed: {[k for k, v in planted.items() if not v]}")
+
+
 def _http_traced(port: int, prompt: str, traceparent: str):
     """``POST /chat`` with a ``traceparent`` header: (status, headers with
     lower-case names, JSON body)."""
@@ -6654,6 +7400,7 @@ def main() -> int:
     phase_serve_stream(dev, smi_line)
     phase_serve_obs(dev, smi_line)
     phase_serve_recover(dev, smi_line)
+    phase_serve_fleet(dev, smi_line)
     serve_int8 = phase_serve(dev, smi_line, bf16=serve)
     launches = {**serve_int8["launches"], **serve["launches"],
                 **phase_serve_spec(dev, smi_line),

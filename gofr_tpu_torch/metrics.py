@@ -9,10 +9,16 @@ rendered on scrape by :meth:`Manager.render_prometheus` (or
 on the app's metrics port. The same calls render the same bytes as the
 JAX package's manager.
 
-Left out: the fleet federation (``snapshot``, ``merge_snapshots``,
-``render_federated``). An exemplar's trace id comes from the caller
-(``exemplar_trace_id=``): the port has no request-scoped logging
-context to read one from.
+Fleet federation: :meth:`Manager.snapshot` is the JSON-safe dump a
+worker attaches to its control-plane heartbeat, :func:`merge_snapshots`
+folds per-host snapshots into one fleet view (counters summed, gauges
+kept per host, histograms merged when their buckets agree) and
+:func:`render_federated` renders them as one Prometheus exposition with
+``host`` / ``rank`` labels (the leader's ``GET /control/fleet/metrics``);
+both give the JAX package's bytes for the same writes.
+
+An exemplar's trace id comes from the caller (``exemplar_trace_id=``):
+the port has no request-scoped logging context to read one from.
 """
 
 from __future__ import annotations
@@ -75,6 +81,14 @@ class _Metric:
     def get(self, **labels: str) -> float:
         return self._values.get(_labels_key(labels), 0.0)
 
+    def snapshot(self) -> dict:
+        """JSON-safe dump: kind, help text, and every labeled series."""
+        with self._lock:
+            series = [{"labels": dict(k), "value": v}
+                      for k, v in self._values.items()]
+        return {"kind": self.kind, "help": self.description,
+                "series": series}
+
     def render(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.description}"
         yield f"# TYPE {self.name} {self.kind}"
@@ -90,6 +104,13 @@ class Counter(_Metric):
 
 class UpDownCounter(_Metric):
     kind = "gauge"  # prometheus has no updown type; exposed as gauge
+
+    def snapshot(self) -> dict:
+        out = super().snapshot()
+        # rendered as a gauge, but deltas add across hosts:
+        # merge_snapshots sums these instead of keeping them per host
+        out["updown"] = True
+        return out
 
 
 class Gauge(_Metric):
@@ -136,6 +157,14 @@ class Histogram(_Metric):
         with self._lock:
             entry = self._hist.get(_labels_key(labels))
             return entry[2] if entry else 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            series = [{"labels": dict(k), "counts": list(c),
+                       "sum": s, "count": n}
+                      for k, (c, s, n) in self._hist.items()]
+        return {"kind": "histogram", "help": self.description,
+                "buckets": list(self.buckets), "series": series}
 
     def render(self) -> Iterable[str]:
         yield from self._render(exemplars=False)
@@ -282,3 +311,115 @@ class Manager:
                 lines.extend(m.render())
         lines.append("# EOF")
         return "\n".join(lines) + "\n"
+
+    # -- federation
+    def snapshot(self) -> dict:
+        """Structured dump of every registered metric: the payload a
+        worker attaches to its control-plane heartbeat. Host-side reads
+        under each metric's lock; JSON-serializable as it is."""
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        return {"v": 1, "metrics": {m.name: m.snapshot() for m in metrics}}
+
+
+def merge_snapshots(per_host: Mapping[str, Mapping]) -> dict:
+    """Aggregate per-host ``Manager.snapshot()`` payloads into one fleet
+    view: counters (and up/down counters) SUM across hosts per identical
+    labelset, gauges KEEP per host (a ``host`` label is added),
+    histograms MERGE bucket counts and sums per labelset when the bucket
+    layouts agree (mismatched layouts stay per host under a ``host``
+    label, never mixed)."""
+    families: dict[str, dict] = {}
+    for host in sorted(per_host):
+        snap = per_host[host] or {}
+        for name, fam in (snap.get("metrics") or {}).items():
+            kind = fam.get("kind", "untyped")
+            tgt = families.setdefault(name, {
+                "kind": kind, "help": fam.get("help", ""),
+                "_sums": {}, "_hists": {}, "_per_host": [],
+                "buckets": fam.get("buckets")})
+            for s in fam.get("series", ()):
+                labels = dict(s.get("labels") or {})
+                key = _labels_key(labels)
+                if kind == "counter" or (kind == "gauge"
+                                         and "counts" not in s
+                                         and fam.get("updown")):
+                    tgt["_sums"][key] = (tgt["_sums"].get(key, 0.0)
+                                         + float(s.get("value", 0.0)))
+                elif kind == "histogram":
+                    if fam.get("buckets") != tgt["buckets"]:
+                        tgt["_per_host"].append(
+                            {**s, "labels": {**labels, "host": host}})
+                        continue
+                    counts, total, n = tgt["_hists"].get(
+                        key, ([0] * len(tgt["buckets"] or ()), 0.0, 0))
+                    merged = [a + b for a, b in
+                              zip(counts, s.get("counts", ()))]
+                    tgt["_hists"][key] = (merged,
+                                          total + float(s.get("sum", 0.0)),
+                                          n + int(s.get("count", 0)))
+                else:  # gauge / untyped: which host matters
+                    tgt["_per_host"].append(
+                        {**s, "labels": {**labels, "host": host}})
+    out: dict[str, dict] = {}
+    for name, fam in families.items():
+        series: list[dict] = []
+        series.extend({"labels": dict(k), "value": v}
+                      for k, v in fam["_sums"].items())
+        series.extend({"labels": dict(k), "counts": c, "sum": s,
+                       "count": n}
+                      for k, (c, s, n) in fam["_hists"].items())
+        series.extend(fam["_per_host"])
+        entry = {"kind": fam["kind"], "help": fam["help"],
+                 "series": series}
+        if fam["kind"] == "histogram":
+            entry["buckets"] = fam["buckets"]
+        out[name] = entry
+    return {"v": 1, "metrics": out}
+
+
+def render_federated(per_host: Mapping[str, Mapping],
+                     extra_labels: Mapping[str, Mapping[str, str]]
+                     | None = None) -> str:
+    """Render per-host snapshots as ONE Prometheus exposition: each
+    family's HELP / TYPE once, every sample with the caller's extra
+    labels for its host (``{"host": ..., "rank": ...}``). The leader's
+    ``GET /control/fleet/metrics``; summing a counter over its ``host``
+    label gives the fleet total."""
+    names: dict[str, dict] = {}
+    for host in per_host:
+        for name, fam in ((per_host[host] or {}).get("metrics")
+                          or {}).items():
+            names.setdefault(name, fam)
+    lines: list[str] = []
+    for name in sorted(names):
+        first = names[name]
+        kind = first.get("kind", "untyped")
+        lines.append(f"# HELP {name} {first.get('help', '')}")
+        lines.append(f"# TYPE {name} {kind}")
+        for host in sorted(per_host):
+            fam = ((per_host[host] or {}).get("metrics") or {}).get(name)
+            if fam is None:
+                continue
+            extra = dict((extra_labels or {}).get(host)
+                         or ({"host": host} if host else {}))
+            buckets = fam.get("buckets") or ()
+            for s in fam.get("series", ()):
+                key = _labels_key({**(s.get("labels") or {}), **extra})
+                if kind == "histogram":
+                    counts = s.get("counts", ())
+                    n = int(s.get("count", 0))
+                    for bucket, count in zip(buckets, counts):
+                        bkey = _labels_key(dict(
+                            key + (("le", _fmt_value(float(bucket))),)))
+                        lines.append(
+                            f"{name}_bucket{_fmt_labels(bkey)} {count}")
+                    ikey = _labels_key(dict(key + (("le", "+Inf"),)))
+                    lines.append(f"{name}_bucket{_fmt_labels(ikey)} {n}")
+                    lines.append(f"{name}_sum{_fmt_labels(key)} "
+                                 f"{_fmt_value(float(s.get('sum', 0.0)))}")
+                    lines.append(f"{name}_count{_fmt_labels(key)} {n}")
+                else:
+                    lines.append(f"{name}{_fmt_labels(key)} "
+                                 f"{_fmt_value(float(s.get('value', 0.0)))}")
+    return "\n".join(lines) + "\n" if lines else ""

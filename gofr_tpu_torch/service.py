@@ -1,0 +1,305 @@
+"""Inter-service HTTP client with decorator options (the port's copy of
+what the control plane uses from ``gofr_tpu/service/client.py``).
+
+``new_http_service(url, *options)`` builds a client whose options wrap
+the transport: :class:`Retry` (bounded retries with exponential backoff;
+a 429 / 503 carrying ``Retry-After`` waits what the server asked, capped)
+and :class:`CircuitBreaker` (opens after ``threshold`` consecutive
+failures; one trial request per ``interval_s`` is let through half-open
+and closes it on success). Every request carries the active span's
+``traceparent`` when the service has a tracer.
+
+The port's serving stack is threads, not an event loop, so the client is
+synchronous: one ``http.client`` connection per request, ``Connection:
+close``. The agent's heartbeat thread and the router's request threads
+call it directly. :func:`probe_leader` / :func:`resolve_leader` walk the
+ranked leader candidates' ``GET /control/leader``.
+
+Left out (not on the fleet path): the auth options (basic, API key,
+OAuth2 client credentials), custom headers, ``RateLimit``, the
+health-check option, and the ``app_http_service_response`` histogram
+and debug log of each call.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json as json_mod
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping
+from urllib.parse import urlencode, urlsplit
+
+
+@dataclass
+class Response:
+    status: int
+    headers: dict[str, str]
+    body: bytes
+
+    def json(self) -> Any:
+        return json_mod.loads(self.body) if self.body else None
+
+    @property
+    def ok(self) -> bool:
+        return 200 <= self.status < 300
+
+
+class ServiceError(Exception):
+    pass
+
+
+class CircuitOpenError(ServiceError):
+    def __init__(self, url: str) -> None:
+        super().__init__(f"circuit breaker open for {url}")
+
+
+def _raw_request(method: str, url: str, *, headers: Mapping[str, str],
+                 body: bytes, timeout: float) -> Response:
+    split = urlsplit(url)
+    conn = http.client.HTTPConnection(split.hostname or "localhost",
+                                      split.port or 80, timeout=timeout)
+    path = split.path or "/"
+    if split.query:
+        path += "?" + split.query
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Connection": "close", **headers})
+        resp = conn.getresponse()
+        data = resp.read()
+        return Response(status=resp.status,
+                        headers={k.lower(): v for k, v in resp.getheaders()},
+                        body=data)
+    finally:
+        conn.close()
+
+
+# ------------------------------------------------------------- options
+#: the transport's failures a retry may ride out
+_TRANSPORT_ERRORS = (OSError, http.client.HTTPException)
+
+Call = Callable[[str, str, dict, bytes], Response]
+
+
+class Option:
+    """A decorator around the request call; subclasses override
+    ``around``."""
+
+    def bind(self, service: "HTTPService") -> None:
+        self.service = service
+
+    def around(self, call: Call, method: str, path: str, headers: dict,
+               body: bytes) -> Response:
+        return call(method, path, headers, body)
+
+
+def parse_retry_after(value: str) -> float | None:
+    """RFC 9110 ``Retry-After``: delta-seconds or an HTTP-date -> the
+    wait in seconds (floored at 0), or None when absent or unparseable
+    (callers fall back to backoff)."""
+    if not value:
+        return None
+    value = value.strip()
+    try:
+        return max(0.0, float(value))
+    except ValueError:
+        pass
+    from email.utils import parsedate_to_datetime
+    try:
+        when = parsedate_to_datetime(value)
+    except (TypeError, ValueError):
+        return None
+    if when is None:
+        return None
+    return max(0.0, when.timestamp() - time.time())
+
+
+@dataclass
+class Retry(Option):
+    """Bounded retries with exponential backoff; 429 / 503 answers with
+    ``Retry-After`` wait what the server asked instead, capped at
+    ``max_retry_after_s`` (a plain 429 is the caller's quota, not a
+    transient: it is not retried)."""
+
+    max_retries: int = 3
+    backoff_s: float = 0.05
+    honor_retry_after: bool = True
+    max_retry_after_s: float = 30.0
+
+    def _server_wait(self, resp: Response) -> float | None:
+        if not self.honor_retry_after or resp.status not in (429, 503):
+            return None
+        wait = parse_retry_after(resp.headers.get("retry-after", ""))
+        if wait is None:
+            return None
+        return min(wait, self.max_retry_after_s)
+
+    def around(self, call, method, path, headers, body):
+        last_exc: Exception | None = None
+        for attempt in range(self.max_retries + 1):
+            try:
+                resp = call(method, path, headers, body)
+                if attempt < self.max_retries:
+                    wait = self._server_wait(resp)
+                    if wait is not None:
+                        time.sleep(wait)
+                        continue
+                    if resp.status >= 500:
+                        time.sleep(self.backoff_s * (2 ** attempt))
+                        continue
+                return resp
+            except _TRANSPORT_ERRORS as exc:
+                last_exc = exc
+                if attempt < self.max_retries:
+                    time.sleep(self.backoff_s * (2 ** attempt))
+        raise ServiceError(f"request failed after {self.max_retries + 1} "
+                           f"attempts: {last_exc!r}")
+
+
+@dataclass
+class CircuitBreaker(Option):
+    """Opens after ``threshold`` consecutive failures (a raise or a 5xx).
+    While open, requests fail fast with :class:`CircuitOpenError` except
+    one trial per ``interval_s`` (half-open), whose success closes it.
+    The JAX client also probes the health route from a background task;
+    a synchronous client has no loop to run one, so the trial request is
+    the whole recovery."""
+
+    threshold: int = 5
+    interval_s: float = 1.0
+
+    def __post_init__(self) -> None:
+        self._failures = 0
+        self._open = False
+        self._last_probe = 0.0
+
+    @property
+    def is_open(self) -> bool:
+        return self._open
+
+    def around(self, call, method, path, headers, body):
+        if self._open:
+            now = time.monotonic()
+            if now - self._last_probe < self.interval_s:
+                raise CircuitOpenError(self.service.base_url)
+            self._last_probe = now  # half-open: this request is the trial
+        try:
+            resp = call(method, path, headers, body)
+        except Exception:
+            self._record_failure()
+            raise
+        if resp.status >= 500:
+            self._record_failure()
+        else:
+            self._failures = 0
+            self._open = False
+        return resp
+
+    def _record_failure(self) -> None:
+        self._failures += 1
+        if self._failures >= self.threshold and not self._open:
+            self._open = True
+            self._last_probe = time.monotonic()
+
+
+# -------------------------------------------------------------- service
+class HTTPService:
+    """Requests to one base URL through its options, with the active
+    span's ``traceparent`` when it has a tracer."""
+
+    def __init__(self, base_url: str, *options: Option,
+                 timeout: float = 30.0, tracer: Any = None) -> None:
+        self.base_url = base_url.rstrip("/")
+        self.timeout = timeout
+        self.tracer = tracer
+        self.options = list(options)
+        for opt in self.options:
+            opt.bind(self)
+
+    def request(self, method: str, path: str, *,
+                params: Mapping[str, Any] | None = None,
+                json: Any = None, body: bytes | None = None,
+                headers: Mapping[str, str] | None = None) -> Response:
+        hdrs = {k: str(v) for k, v in (headers or {}).items()}
+        if json is not None:
+            body = json_mod.dumps(json).encode()
+            hdrs.setdefault("Content-Type", "application/json")
+        body = body or b""
+        if params:
+            path = path + ("&" if "?" in path else "?") + urlencode(params)
+        if self.tracer is not None:
+            self.tracer.inject_headers(hdrs)
+
+        def base_call(method, path, headers, body):
+            return _raw_request(method, self.base_url + path,
+                                headers=headers, body=body,
+                                timeout=self.timeout)
+
+        call: Call = base_call
+        for opt in reversed(self.options):
+            call = self._wrap(opt, call)
+        return call(method, path, hdrs, body)
+
+    @staticmethod
+    def _wrap(opt: Option, call: Call) -> Call:
+        def wrapped(method, path, headers, body):
+            return opt.around(call, method, path, headers, body)
+        return wrapped
+
+    def get(self, path: str, **kw) -> Response:
+        return self.request("GET", path, **kw)
+
+    def post(self, path: str, **kw) -> Response:
+        return self.request("POST", path, **kw)
+
+
+def new_http_service(base_url: str, *options: Option, **kw) -> HTTPService:
+    return HTTPService(base_url, *options, **kw)
+
+
+# --------------------------------------------------------------- leader
+def probe_leader(url: str, *, timeout_s: float = 2.0) -> dict | None:
+    """``GET {url}/control/leader`` -> the leadership document
+    (``active``, ``epoch``, ``rank``, ``host_id``, ``candidates``,
+    ``converging``), or None when the candidate is unreachable or
+    answers garbage. Never raises: an absent candidate is a normal input
+    to the election."""
+    parts = urlsplit(url if "//" in url else "http://" + url)
+    conn = http.client.HTTPConnection(parts.hostname or "", parts.port or 80,
+                                      timeout=timeout_s)
+    try:
+        conn.request("GET", "/control/leader")
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return None
+        doc = json_mod.loads(resp.read().decode("utf-8"))
+        data = doc.get("data", doc)
+        return data if isinstance(data, dict) else None
+    except (OSError, ValueError, http.client.HTTPException):
+        return None
+    finally:
+        conn.close()
+
+
+def resolve_leader(candidates, *, epoch_at_least: int = -1,
+                   timeout_s: float = 2.0) -> dict | None:
+    """Walk the ranked ``candidates`` and return the ACTIVE leader as
+    ``{"url", "rank", **leadership}``: the highest epoch wins, ties to
+    the lowest rank, and an active candidate below ``epoch_at_least`` (a
+    revived stale leader) is skipped. None when none is active."""
+    best = None
+    for rank, url in enumerate(candidates):
+        info = probe_leader(url, timeout_s=timeout_s)
+        if info is None or not info.get("active"):
+            continue
+        epoch = int(info.get("epoch", -1))
+        if epoch < epoch_at_least:
+            continue
+        if best is None or epoch > best["epoch"]:
+            best = dict(info, url=url, rank=rank, epoch=epoch)
+    return best
+
+
+__all__ = ["CircuitBreaker", "CircuitOpenError", "HTTPService", "Option",
+           "Response", "Retry", "ServiceError", "new_http_service",
+           "parse_retry_after", "probe_leader", "resolve_leader"]

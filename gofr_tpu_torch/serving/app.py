@@ -59,6 +59,15 @@ model chosen as ``examples/model-serving/main.py`` chooses it
 /debug/profile`` (``torch.profiler`` captures into ``PROFILER_DIR``,
 default ``gofr_tpu_profiles`` under the temporary directory).
 
+The health route also carries the ``DeviceRegistry``'s section
+(``devices``: the CUDA devices, their memory, DOWN with the error when
+the probe fails) and the ``app_gpu_*`` gauges. For a fleet (counterparts
+of ``App.serve_fleet_leader`` / ``App.join_fleet``):
+:func:`serve_fleet_leader` is a server without an engine holding the
+control plane (``serving/control_plane.py``) and, with ``router=``, the
+prefix-aware router (``serving/router.py``); :func:`join_fleet` joins a
+``build_server`` worker to a leader with a heartbeating ``WorkerAgent``.
+
 Prompts up to the widest bucket prefill through the flash kernel,
 longer ones and prefix-cache suffixes walk through the paged chunk
 kernel, and every token decodes through the paged decode kernel. The
@@ -83,7 +92,7 @@ from urllib.parse import parse_qs, urlsplit
 
 import torch
 
-from ..device import resolve_device
+from ..device import DeviceRegistry, resolve_device, worst_status
 from ..metrics import Manager
 from ..tracing import Tracer
 from ..models.hf_checkpoint import (load_llama_checkpoint,
@@ -96,7 +105,7 @@ from .handlers import make_chat_handler
 from .logger import Logger
 from .observability import SLOConfig, SLOTracker
 from .openai_compat import install_openai_routes
-from .responses import ClientGone, File, HTTPError, Raw, Stream
+from .responses import ClientGone, File, HTTPError, Raw, Reply, Stream
 from .tokenizer import BPETokenizer, ByteTokenizer
 
 #: a client's connection errors: it is gone
@@ -209,6 +218,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Transfer-Encoding", "chunked")
             self._trace_headers()
+            for key, value in stream.headers.items():
+                self.send_header(key, value)
             self.end_headers()
             for chunk in (chunks if first is _END
                           else itertools.chain([first], chunks)):
@@ -272,6 +283,10 @@ class _Handler(BaseHTTPRequestHandler):
         if isinstance(result, File):
             self._send_bytes(200, result.content, result.content_type)
             return
+        if isinstance(result, Reply):
+            self._send_bytes(result.status, result.body, result.content_type,
+                             result.headers)
+            return
         status = 201 if method == "POST" else 200
         self._send_json(status, result.data if isinstance(result, Raw)
                         else {"data": result})
@@ -287,7 +302,7 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if method == "GET" and \
                     urlsplit(self.path).path == "/.well-known/health":
-                health = self.server.engine.health_check()
+                health = self.server.health()
                 self._send_json(503 if health["status"] == "DOWN" else 200,
                                 {"data": health})
             else:
@@ -308,15 +323,23 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ChatServer(ThreadingHTTPServer):
-    """Threading HTTP server bound to an engine (its health route), with
-    a route table (``post`` / ``get``); ``tenant_of(headers)`` labels
-    each request (None: no tenant); ``tracer`` spans each request (None:
-    a tracer that exports nothing, so answers still carry
-    ``X-Trace-Id``)."""
+    """Threading HTTP server with a route table (``post`` / ``get``),
+    bound to an engine or, as a fleet leader, to none;
+    ``tenant_of(headers)`` labels each request (None: no tenant);
+    ``tracer`` spans each request (None: a tracer that exports nothing,
+    so answers still carry ``X-Trace-Id``).
+
+    ``GET /.well-known/health`` answers :meth:`health`: the engine's
+    health, the device registry's section under ``devices`` and every
+    registered check (``health_checks``, a fleet leader's
+    ``control_plane``) under ``checks``, with the worst status of them
+    (200 while UP or DEGRADED, 503 when DOWN). ``server_close`` runs the
+    ``on_close`` hooks first (a fleet agent's stop, a leader's
+    sweeper's)."""
 
     daemon_threads = True
 
-    def __init__(self, address: tuple, engine: Engine,
+    def __init__(self, address: tuple, engine: Engine | None = None,
                  request_timeout_s: float = 600.0,
                  tenant_of: Callable[[Any], str | None] | None = None,
                  tracer: Tracer | None = None) -> None:
@@ -330,12 +353,56 @@ class ChatServer(ThreadingHTTPServer):
         self.metrics: Manager | None = None
         #: the ``ProfilerCapture`` behind ``/debug/profile/*``, when on
         self.profiler = None
+        #: the ``DeviceRegistry`` ``build_server`` made, when any
+        self.devices: DeviceRegistry | None = None
+        #: name -> object with ``health_check()``, in the health route
+        self.health_checks: dict[str, Any] = {}
+        #: zero-arg callables run by ``server_close``
+        self.on_close: list[Callable[[], None]] = []
+        #: the ``ControlPlaneLeader`` of ``serve_fleet_leader``, if any
+        self.leader = None
 
     def post(self, path: str, fn: Callable) -> None:
         self.routes[("POST", path)] = fn
 
     def get(self, path: str, fn: Callable) -> None:
         self.routes[("GET", path)] = fn
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def health(self) -> dict:
+        """The health route's body (see the class docstring)."""
+        out = (self.engine.health_check() if self.engine is not None
+               else {"status": "UP"})
+        statuses = [out["status"]]
+        if self.devices is not None:
+            out["devices"] = self.devices.device_health()
+            statuses.append(out["devices"]["status"])
+        if self.health_checks:
+            out["checks"] = {name: check.health_check()
+                             for name, check in self.health_checks.items()}
+            statuses.extend(c.get("status", "UP")
+                            for c in out["checks"].values())
+        out["status"] = worst_status(*statuses)
+        return out
+
+    def metrics_snapshot(self) -> dict:
+        """``Manager.snapshot()`` with the device gauges fresh: what a
+        fleet agent attaches to its heartbeats."""
+        if self.devices is not None:
+            self.devices.publish_metrics()
+        return self.metrics.snapshot()
+
+    def server_close(self) -> None:
+        for hook in list(self.on_close):
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 — a hook must not block close
+                traceback.print_exc()
+        self.on_close.clear()
+        super().server_close()
 
 
 def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
@@ -435,7 +502,10 @@ def build_server(engine: Engine, tokenizer: Any = None,
     where the engine has none, and an SLO tracker (``slo`` or the
     default objectives) where the engine has none, on the engine's event
     ledger, whose fast burn arms the autoprofiler and opens a
-    ``fast_burn`` incident bundle."""
+    ``fast_burn`` incident bundle. A ``DeviceRegistry`` of the engine's
+    device (``server.devices``) registers the engine, adds its section
+    to the health route and sets ``app_gpu_device_count`` /
+    ``app_gpu_hbm_bytes_used`` on ``metrics``."""
     tokenizer = tokenizer or ByteTokenizer()
     metrics = metrics if metrics is not None else Manager()
     logger = logger if logger is not None else Logger()
@@ -463,11 +533,88 @@ def build_server(engine: Engine, tokenizer: Any = None,
                 attrs={"autoprof_dir": (capture or {}).get("dir")})
         engine.slo.on_fast_burn = on_fast_burn
     server.metrics = metrics
+    server.devices = DeviceRegistry(logger=logger, metrics=metrics,
+                                    device=engine.device)
+    server.devices.register_engine(name, engine)
+    server.devices.publish_metrics()
     server.post("/chat", make_chat_handler(engine, tokenizer))
     install_debug_routes(server, engine, name,
                          profiler=_env_bool(env, "PROFILER_ENABLED"),
                          profile_dir=env.get("PROFILER_DIR") or None)
     return server
+
+
+def serve_fleet_leader(host: str = "127.0.0.1", port: int = 0, *,
+                       coordinator: str = "", host_id: str = "leader",
+                       router: Any = None, tokenizer: Any = None,
+                       metrics: Manager | None = None,
+                       logger: Logger | None = None,
+                       tracer: Tracer | None = None,
+                       **leader_kw: Any) -> ChatServer:
+    """A fleet LEADER's server (counterpart of
+    ``App.serve_fleet_leader``): a route table without an engine, with
+    the control plane installed (join / heartbeat / leave / leader /
+    topology, the federated ``/control/fleet/metrics``, ``/debug/fleet``
+    and its events and incidents; its health is the leader's), the
+    sweeper running until ``server_close``. ``leader_kw`` go to
+    ``ControlPlaneLeader`` (``heartbeat_interval_s``,
+    ``eviction_misses``, ``fleet``, ``rank``, ``faults``, ``events``).
+
+    ``router=RouterConfig(...)`` (or True) also makes the leader the
+    fleet's front door: ``POST /chat`` and the OpenAI routes proxy to the
+    member whose prefix cache best covers the request
+    (``FleetRouter``, ``server.leader.router``); ``tokenizer`` is the
+    routing tokenizer (default: bytes, right whenever the workers serve
+    byte-tokenized models). Call ``serve_forever()`` on it; the leader
+    is ``server.leader``."""
+    from .control_plane import ControlPlaneLeader
+    from .router import FleetRouter, RouterConfig
+    metrics = metrics if metrics is not None else Manager()
+    logger = logger if logger is not None else Logger()
+    server = ChatServer((host, port), None, tracer=tracer)
+    server.metrics = metrics
+    leader = ControlPlaneLeader(coordinator=coordinator, host_id=host_id,
+                                metrics=metrics, logger=logger, **leader_kw)
+    leader.install(server)
+    leader.router = None
+    if router is not None and router is not False:
+        config = RouterConfig() if router is True else router
+        leader.router = FleetRouter(leader, config, tokenizer=tokenizer,
+                                    logger=logger, tracer=server.tracer)
+        leader.router.install(server)
+    server.leader = leader
+    return server
+
+
+def join_fleet(server: ChatServer, leader_url: str, *, host_id: str,
+               address: str = "", **agent_kw: Any):
+    """Join ``server`` (a ``build_server`` worker) to the fleet led at
+    ``leader_url`` (counterpart of ``App.join_fleet``): a started
+    ``WorkerAgent`` heartbeating the engine's gossip health, its flight
+    recorder's fleet summary (the prefix digest, goodput, costs, probe
+    digests), the server's ``Manager.snapshot`` (device gauges fresh) and
+    the engine's event digest, on the server's tracer and logger. An
+    empty ``address`` advertises ``ADVERTISE_HOST`` (default 127.0.0.1)
+    and the bound port. ``agent_kw`` go to ``WorkerAgent``
+    (``heartbeat_interval_s``, ``fleet``, ``faults``, ...). The agent
+    stops when the server closes; returns it."""
+    from .control_plane import WorkerAgent, engine_fleet_sources
+    engine = server.engine
+    if not address:
+        advertise = os.environ.get("ADVERTISE_HOST") or "127.0.0.1"
+        address = f"{advertise}:{server.port}"
+    health, summary, _ = engine_fleet_sources(engine)
+    agent_kw.setdefault("health_source", health)
+    agent_kw.setdefault("summary_source", summary)
+    agent_kw.setdefault("metrics_source", server.metrics_snapshot)
+    agent_kw.setdefault("metrics", server.metrics)
+    agent_kw.setdefault("events", engine.events)
+    agent_kw.setdefault("logger", engine.logger)
+    agent = WorkerAgent(leader_url, host_id=host_id, address=address,
+                        tracer=server.tracer, **agent_kw)
+    agent.start()
+    server.on_close.append(agent.stop)
+    return agent
 
 
 class _MetricsHandler(BaseHTTPRequestHandler):
@@ -483,6 +630,8 @@ class _MetricsHandler(BaseHTTPRequestHandler):
         if path == "/metrics":
             metrics.set_gauge("app_uptime_seconds",
                               round(time.time() - self.server.started_at, 1))
+            if self.server.devices is not None:
+                self.server.devices.publish_metrics()
             # a scraper that asks for OpenMetrics gets the exemplars
             if "application/openmetrics-text" in (
                     self.headers.get("Accept") or ""):
@@ -514,19 +663,25 @@ class MetricsServer(ThreadingHTTPServer):
 
     daemon_threads = True
 
-    def __init__(self, address: tuple, metrics: Manager) -> None:
+    def __init__(self, address: tuple, metrics: Manager,
+                 devices: DeviceRegistry | None = None) -> None:
         super().__init__(address, _MetricsHandler)
         self.metrics = metrics
+        #: a registry whose gauges are refreshed at every scrape
+        self.devices = devices
         self.started_at = time.time()
         if metrics.get("app_uptime_seconds") is None:
             metrics.new_gauge("app_uptime_seconds", "seconds since boot")
 
 
 def build_metrics_server(metrics: Manager, host: str = "127.0.0.1",
-                         port: int = 0) -> MetricsServer:
+                         port: int = 0,
+                         devices: DeviceRegistry | None = None
+                         ) -> MetricsServer:
     """Bind the metrics port (0 = any free port); call
-    ``serve_forever()`` on it."""
-    return MetricsServer((host, port), metrics)
+    ``serve_forever()`` on it. ``devices``' gauges are refreshed at every
+    scrape."""
+    return MetricsServer((host, port), metrics, devices)
 
 
 def main() -> None:
@@ -537,7 +692,8 @@ def main() -> None:
                           port=int(env.get("HTTP_PORT", "8000")), name=name)
     install_openai_routes(server, engine, tokenizer, model=name)
     metrics_server = build_metrics_server(
-        server.metrics, host=host, port=int(env.get("METRICS_PORT", "2121")))
+        server.metrics, host=host, port=int(env.get("METRICS_PORT", "2121")),
+        devices=server.devices)
     metrics_thread = threading.Thread(target=metrics_server.serve_forever,
                                       daemon=True)
     metrics_thread.start()

@@ -71,7 +71,14 @@ paths of families with a dense decode step).
   stays pinned under its token ids (at most ``prefix_cache_pages``
   pages). A later prompt that starts with a cached prefix (leaving at
   least one token to compute) attaches those pages to its table and
-  walks only the rest.
+  walks only the rest. Every change of the cache (an entry pinned,
+  evicted or touched, the cache emptied) marks the fleet **prefix
+  digest** dirty; the throttled gauge pass rebuilds it
+  (``_refresh_prefix_digest``: the newest ``prefix_digest_hashes`` keys,
+  each hashed by ``router.prefix_hash``) and publishes it by reference
+  swap (``prefix_digest()``), which the flight recorder's
+  ``fleet_summary`` hands to a heartbeat and the leader's router scores
+  hosts by.
 - **Decode dispatches** of T = ``decode_steps_per_pass`` (K) x
   ``decode_passes_per_dispatch`` (M) steps over every slot (row = slot,
   ``max_batch`` rows; ``decode_graph.DecodeGraph``): each step writes
@@ -205,6 +212,7 @@ from .observability import (FlightRecorder, GoodputMeter, ProfilerCapture,
                             WatermarkTracker, WorkloadRecorder,
                             device_peak_flops, emit_engine_spans,
                             request_summary)
+from .router import prefix_hash
 from .sampling import sample_batch
 from .scheduler import SchedReject, Scheduler, SchedulerConfig
 from .spec import (MAX_TREE_NODES, DraftTree, NgramIndex, SpecController,
@@ -400,6 +408,11 @@ class EngineConfig:
     prefix_cache: bool = True
     #: pages the prefix cache may pin; None = a quarter of the pool
     prefix_cache_pages: int | None = None
+    #: prefix-cache digest published to the fleet: the newest N cache
+    #: keys, hashed (``router.prefix_hash``) at the throttled gauge pass
+    #: and carried by heartbeat summaries, so the leader's router scores
+    #: hosts by longest resident prefix; 0 disables the digest
+    prefix_digest_hashes: int = 64
     #: speculative decoding: draft by prompt lookup and verify a draft
     #: tree in one pass; greedy outputs are those of plain decode, and
     #: sampled slots never accept drafts (their bonus token samples with
@@ -759,6 +772,22 @@ class Engine:
             cfg.integrity, golden=golden,
             probe_passes=cfg.integrity_probe_passes,
             rearm_probes=cfg.integrity_rearm_probes)
+        # the fleet summary's sources, as the JAX engine wires them: the
+        # cost table (straggler math on one signature), the probe
+        # digests (the leader's divergence vote), the waste digest and
+        # the prefix digest (the router's score)
+        if self.costs.enabled:
+            self.recorder.cost_source = self.costs.table
+        if self.integrity.enabled:
+            self.recorder.integrity_source = self.integrity.summary
+        if self.goodput.enabled:
+            self.recorder.goodput_source = self.goodput.summary
+        #: the published prefix digest (a reference swap, read by the
+        #: heartbeat thread) and whether the cache changed since
+        self._prefix_digest: dict | None = None
+        self._prefix_digest_dirty = True
+        if cfg.prefix_digest_hashes > 0:
+            self.recorder.prefix_digest_source = self.prefix_digest
         #: anomaly-triggered profiling: drift, fast burn and the goodput
         #: floor arm one bounded capture at a time
         capture = (ProfilerCapture(base_dir=cfg.autoprof_dir, logger=logger)
@@ -1693,6 +1722,7 @@ class Engine:
         self._prefix_cache.clear()
         self._prefix_lens.clear()
         self._cached_pages = 0
+        self._prefix_digest_dirty = True
         self._tables_dirty = True
 
     def _kv_lost(self) -> bool:
@@ -1747,6 +1777,7 @@ class Engine:
             else:
                 del self._prefix_lens[len(key)]
             self._cached_pages -= len(pages)
+            self._prefix_digest_dirty = True
             for page in pages:
                 self._decref_page(page)
 
@@ -1867,6 +1898,8 @@ class Engine:
         key = tuple(prompt[:covered])
         pages = self._prefix_cache.pop(key)
         self._prefix_cache[key] = pages
+        # the LRU order changed: the digest hashes the newest keys
+        self._prefix_digest_dirty = True
         for i, page in enumerate(pages):
             self._tables[slot, i] = page
             self._page_refs[page] += 1
@@ -1898,6 +1931,34 @@ class Engine:
         self._prefix_cache[key] = pages
         self._prefix_lens[n * pg] = self._prefix_lens.get(n * pg, 0) + 1
         self._cached_pages += n
+        self._prefix_digest_dirty = True
+
+    def _refresh_prefix_digest(self) -> None:
+        """Rebuild the fleet router's digest if the prefix cache changed
+        since the last gauge pass: one truncated content hash per
+        resident cache key (the newest ``prefix_digest_hashes``: the LRU
+        end the router should bet on), published by reference swap."""
+        if not self._prefix_digest_dirty:
+            return
+        self._prefix_digest_dirty = False
+        limit = max(0, int(self.config.prefix_digest_hashes))
+        if not self._prefix_enabled or not limit:
+            self._prefix_digest = None
+            return
+        keys = list(self._prefix_cache)
+        if len(keys) > limit:
+            keys = keys[-limit:]
+        self._prefix_digest = {
+            "page": int(self.config.page_size),
+            "entries": len(self._prefix_cache),
+            "pages": int(self._cached_pages),
+            "hashes": [prefix_hash(k) for k in keys],
+        }
+
+    def prefix_digest(self) -> dict | None:
+        """The latest published digest (a reference read, safe from the
+        heartbeat thread); None when disabled or without a cache."""
+        return self._prefix_digest
 
     # ----------------------------------------------------------- admission
     def _free_slot(self) -> int:
@@ -3240,6 +3301,7 @@ class Engine:
         if dt < 0.25:
             return
         self._update_watermarks()
+        self._refresh_prefix_digest()
         tps = (self.total_generated - self._gauge_tokens) / dt
         self._gauge_wall = now
         self._gauge_tokens = self.total_generated

@@ -32,8 +32,11 @@ mirrored to disk) and served at ``GET /debug/incidents``.
 :func:`event_timeline_diff` compares two timelines kind by kind for a
 workload replay.
 
-Left out: the fleet merger (``FleetEventMerger``, the heartbeat
-``digest``).
+Fleet federation rides the control-plane heartbeat: each worker attaches
+:meth:`EventLedger.digest` (its newest ``digest_size`` events and its
+wall clock ``now``), and the leader's :class:`FleetEventMerger` folds the
+digests into one timeline, each host's clock offset estimated from its
+last digest (``GET /debug/fleet/events``).
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ class EventLedgerConfig:
     #: fixed ring bound; beyond it the oldest event rotates out and is
     #: counted in the per-kind drop counter. 0 disables the ledger.
     capacity: int = 4096
+    #: newest events attached to each heartbeat digest
+    digest_size: int = 32
     #: incident bundles capture the timeline this far around the
     #: trigger (seconds)
     incident_window_s: float = 60.0
@@ -214,6 +219,18 @@ class EventLedger:
                      self.snapshot(kind=kind, since=since, n=n))
         return "\n".join(lines) + "\n"
 
+    def digest(self) -> dict:
+        """The heartbeat piggyback: the newest ``digest_size`` events and
+        this host's wall clock, from which the leader estimates the
+        host's clock offset."""
+        size = max(0, int(self.config.digest_size))
+        with self._lock:
+            events = list(self._ring.values())[-size:] if size else []
+            return {"now": self.clock(), "host": self.host,
+                    "seq": self._seq,
+                    "dropped": dict(self.dropped),
+                    "events": [dict(e) for e in events]}
+
     def state(self) -> dict:
         """The ``GET /debug/events`` sidecar state (ring accounting)."""
         with self._lock:
@@ -227,7 +244,7 @@ class EventLedger:
 #: The disabled ledger. Wiring compares identity (``is not NO_EVENTS``)
 #: where it matters; ``emit`` on it is a two-comparison no-op. Never
 #: mutate it.
-NO_EVENTS = EventLedger(EventLedgerConfig(capacity=0))
+NO_EVENTS = EventLedger(EventLedgerConfig(capacity=0, digest_size=0))
 
 
 def resolve_ledger(value, *, host: str = "", metrics=None,
@@ -280,6 +297,103 @@ def parse_events(text: str) -> tuple[dict, list[dict]]:
 
 
 # ------------------------------------------------------------- incidents
+# ---------------------------------------------------------------- merge
+class FleetEventMerger:
+    """The leader's accumulator of heartbeat event digests.
+
+    Each host's events are deduplicated by ``seq`` into a bounded store;
+    the host's clock offset is re-estimated at every ingest as
+    ``received_wall - digest["now"]`` (network latency rides inside the
+    estimate: enough for ordering). :meth:`timeline` merges every host
+    into one list ordered by ``(corrected ts, epoch, host, seq)``: the
+    epoch breaks ties, so a fence reject at epoch 1 sorts before the
+    takeover at epoch 2 under skew smaller than a heartbeat."""
+
+    def __init__(self, capacity_per_host: int = 1024,
+                 clock=time.time) -> None:
+        self.capacity_per_host = max(1, int(capacity_per_host))
+        self.clock = clock
+        self._lock = threading.Lock()
+        #: host -> {"events": OrderedDict[seq, event], "offset_s": ...}
+        self._hosts: dict[str, dict] = {}
+
+    def ingest(self, host_id: str, digest: dict,
+               received: float | None = None) -> None:
+        if not isinstance(digest, dict):
+            return
+        received = self.clock() if received is None else received
+        sent = digest.get("now")
+        offset = (received - float(sent)) \
+            if isinstance(sent, (int, float)) else 0.0
+        with self._lock:
+            entry = self._hosts.setdefault(
+                host_id, {"events": OrderedDict(), "offset_s": 0.0,
+                          "dropped": {}, "last_seen": 0.0})
+            entry["offset_s"] = offset
+            entry["last_seen"] = received
+            entry["dropped"] = dict(digest.get("dropped") or {})
+            store = entry["events"]
+            for ev in digest.get("events") or ():
+                if not isinstance(ev, dict) or "seq" not in ev:
+                    continue
+                store.setdefault(int(ev["seq"]), ev)
+            while len(store) > self.capacity_per_host:
+                store.popitem(last=False)
+
+    def forget(self, host_id: str) -> None:
+        with self._lock:
+            self._hosts.pop(host_id, None)
+
+    def timeline(self, *, kind: str | None = None,
+                 since: float | None = None,
+                 until: float | None = None,
+                 n: int | None = None) -> list[dict]:
+        """The merged, skew-corrected fleet timeline, oldest first;
+        ``since`` / ``until`` filter on the corrected timestamps."""
+        merged: list[dict] = []
+        with self._lock:
+            for host_id, entry in self._hosts.items():
+                offset = entry["offset_s"]
+                for ev in entry["events"].values():
+                    rec = dict(ev)
+                    if not rec.get("host"):
+                        rec["host"] = host_id
+                    rec["ts_corrected"] = round(
+                        float(rec.get("ts", 0.0)) + offset, 6)
+                    rec["skew_s"] = round(offset, 6)
+                    merged.append(rec)
+        if kind is not None:
+            merged = [e for e in merged if e.get("kind") == kind]
+        if since is not None:
+            merged = [e for e in merged if e["ts_corrected"] >= since]
+        if until is not None:
+            merged = [e for e in merged if e["ts_corrected"] <= until]
+        merged.sort(key=lambda e: (e["ts_corrected"],
+                                   e.get("epoch") or 0,
+                                   str(e.get("host") or ""),
+                                   e.get("seq") or 0))
+        if n is not None and n >= 0:
+            merged = merged[-n:] if n else []
+        return merged
+
+    def header(self) -> dict:
+        with self._lock:
+            return {"format": EVENTS_FORMAT,
+                    "version": EVENTS_VERSION, "merged": True,
+                    "hosts": {h: {"offset_s": round(e["offset_s"], 6),
+                                  "retained": len(e["events"]),
+                                  "dropped": e["dropped"]}
+                              for h, e in sorted(self._hosts.items())}}
+
+    def to_jsonl(self, *, kind: str | None = None,
+                 since: float | None = None,
+                 n: int | None = None) -> str:
+        lines = [json.dumps(self.header(), sort_keys=True)]
+        lines.extend(json.dumps(e, sort_keys=True) for e in
+                     self.timeline(kind=kind, since=since, n=n))
+        return "\n".join(lines) + "\n"
+
+
 def _git_digest(start: str | None = None) -> dict:
     """The checkout's identity for bundles, read straight from ``.git``
     (no subprocess) at the package's root or above it in ``start``, never
@@ -325,8 +439,8 @@ class IncidentDetector:
     (**cost_drift**; the trigger's attrs carry the autoprofiler's
     capture directory), or a golden probe whose digest departed its
     sealed one (**integrity**). ``failover`` and
-    ``integrity_divergence`` are the fleet's reasons: accepted, never
-    raised by the port.
+    ``integrity_divergence`` are the fleet leader's reasons (a takeover,
+    a divergence vote naming an outlier; ``serving/control_plane.py``).
 
     A bundle is assembled from zero-arg ``sources`` (a broken source
     contributes its error string, never aborts the capture) and the
@@ -544,6 +658,7 @@ def event_timeline_diff(recorded: list[dict],
 
 __all__ = [
     "EVENTS_FORMAT", "EVENTS_VERSION", "KINDS", "SEVERITIES",
-    "EventLedger", "EventLedgerConfig", "IncidentDetector", "NO_EVENTS",
+    "EventLedger", "EventLedgerConfig", "FleetEventMerger",
+    "IncidentDetector", "NO_EVENTS",
     "event_timeline_diff", "parse_events", "resolve_ledger",
 ]

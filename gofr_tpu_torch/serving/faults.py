@@ -66,11 +66,11 @@ one identity comparison and nothing else.
 
 The port's engine arms seven of these sites: ``pass_raise``,
 ``pass_stall``, ``pass_latency``, ``nan_logits``, ``page_exhaustion``,
-``logit_corrupt`` and ``cost_skew``. It has no restart supervisor yet,
-so a raise is terminal there (health DOWN, every request in flight
-failed), as in the JAX engine without a ``restart_policy``. The fleet
-sites are parsed and counted like the rest; nothing in the port trips
-them.
+``logit_corrupt`` and ``cost_skew``. The fleet plane
+(``serving/control_plane.py``) arms the rest: the ``WorkerAgent`` trips
+``heartbeat_drop``, ``join_refused`` and ``ack_drop``, the
+``ControlPlaneLeader`` ``leader_down``, ``leader_partition`` and
+``stale_epoch_replay``.
 
 Plan syntax (``EngineConfig.faults`` / ``GOFR_FAULTS``)::
 

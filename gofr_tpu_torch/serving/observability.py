@@ -54,6 +54,20 @@ class FlightRecorder:
         self._requests: deque = deque(maxlen=max(1, int(request_logs)))
         self._seq = 0
         self._by_kind: dict[str, int] = {}
+        #: optional () -> goodput summary (``GoodputMeter.summary``):
+        #: fleet_summary carries the waste breakdown, so the leader can
+        #: say why a host is slow
+        self.goodput_source: Any = None
+        #: optional () -> prefix-cache digest (``Engine.prefix_digest``):
+        #: the leader's router scores hosts by longest resident prefix
+        self.prefix_digest_source: Any = None
+        #: optional () -> per-signature cost table (``CostModel.table``):
+        #: the leader compares hosts on the same dispatch signature
+        self.cost_source: Any = None
+        #: optional () -> integrity digest block
+        #: (``IntegrityPlane.summary``): the leader majority-votes
+        #: golden-probe digests across hosts
+        self.integrity_source: Any = None
 
     # ------------------------------------------------------------ writers
     def record_pass(self, kind: str, **fields: Any) -> None:
@@ -84,6 +98,56 @@ class FlightRecorder:
         if last is not None:
             out["last_pass_kind"] = last["kind"]
             out["last_pass_age_s"] = round(time.time() - last["t"], 3)
+        return out
+
+    def fleet_summary(self) -> dict:
+        """The compact per-host digest a control-plane heartbeat carries
+        (``serving/control_plane.py``): p50 / p95 pass duration, mean
+        occupancy, last queue depth, tokens/s over the pass ring, and
+        the sources' blocks (goodput, prefix digest, costs, integrity).
+        The leader derives skew, stragglers, routing and the integrity
+        vote from these."""
+        passes = list(self._passes)
+        out: dict = {"passes_recorded": self._seq,
+                     "by_kind": dict(self._by_kind)}
+        durs = sorted(p["dur"] for p in passes
+                      if isinstance(p.get("dur"), (int, float)))
+        if durs:
+            out["pass_p50_s"] = round(durs[int(0.5 * (len(durs) - 1))], 6)
+            out["pass_p95_s"] = round(durs[int(0.95 * (len(durs) - 1))], 6)
+        occ = [p["occupancy"] for p in passes
+               if isinstance(p.get("occupancy"), (int, float))]
+        if occ:
+            out["occupancy_mean"] = round(sum(occ) / len(occ), 3)
+        depths = [p["queue_depth"] for p in passes
+                  if isinstance(p.get("queue_depth"), (int, float))]
+        if depths:
+            out["queue_depth"] = depths[-1]
+        timed = [p for p in passes if "tokens" in p]
+        if len(timed) >= 2:
+            span = timed[-1]["t"] - timed[0]["t"]
+            if span > 0:
+                out["tokens_per_s"] = round(
+                    sum(p["tokens"] for p in timed[1:]) / span, 2)
+        if self.goodput_source is not None:
+            try:
+                g = self.goodput_source() or {}
+            except Exception:
+                g = {}
+            for key in ("goodput_ratio", "busy_s", "useful_s", "waste_s"):
+                if g.get(key) is not None:
+                    out[key] = g[key]
+        for key, source in (("prefix_digest", self.prefix_digest_source),
+                            ("costs", self.cost_source),
+                            ("integrity", self.integrity_source)):
+            if source is None:
+                continue
+            try:
+                block = source()
+            except Exception:  # a broken source must not kill the beat
+                block = None
+            if block:
+                out[key] = block
         return out
 
     def dump(self, logger: Any, reason: str = "") -> None:

@@ -5,14 +5,16 @@
 A handler returns a plain value (enveloped as ``{"data": ...}``, 201
 for a POST, 200 for a GET), a :class:`Raw` (a bare JSON body, same
 statuses), a :class:`File` (bytes with their content type, same
-statuses) or a :class:`Stream` (an iterator of server-sent-event
-chunks, sent chunked); it raises an :class:`HTTPError`, which answers
-``{"error": {"message", "details"?}}`` with its status and headers.
+statuses), a :class:`Reply` (bytes with their own status, content type
+and headers: an answer proxied from another server) or a
+:class:`Stream` (an iterator of server-sent-event chunks, sent
+chunked); it raises an :class:`HTTPError`, which answers ``{"error":
+{"message", "details"?}}`` with its status and headers.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -79,6 +81,17 @@ class File:
 
 
 @dataclass
+class Reply:
+    """Bytes sent as they are, with their status, content type and extra
+    headers (the fleet router's mirror of a worker's answer)."""
+
+    status: int
+    body: bytes
+    content_type: str = "application/json"
+    headers: dict = field(default_factory=dict)
+
+
+@dataclass
 class Stream:
     """A streamed answer: ``iterator`` yields ``str`` or ``bytes``
     chunks, each sent as one chunk of a chunked body. An empty chunk is
@@ -87,6 +100,8 @@ class Stream:
 
     iterator: Any
     content_type: str = "text/event-stream"
+    #: extra response headers
+    headers: dict = field(default_factory=dict)
 
 
 class ClientGone(Exception):

@@ -10,8 +10,13 @@ active span rides a context variable, so a request's HTTP span is the
 parent of what the engine assembles for it at retire
 (:meth:`Tracer.emit_span`).
 
+Every span's attributes start from the process-wide fleet context
+(``host_id``, ``rank``, ``generation``, set at a control-plane join:
+``serving.logger.set_fleet_context``) under its own, so a cross-host
+trace names the host each span ran on.
+
 Left out: the logger's trace context (the port's logger stamps no trace
-ids) and the fleet resource attributes (the port has no control plane).
+ids).
 """
 
 from __future__ import annotations
@@ -145,6 +150,15 @@ class InMemoryExporter:
             self.spans.append(span)
 
 
+def _with_resource(attributes: dict[str, Any] | None) -> dict[str, Any]:
+    """A span's attributes: the fleet context under the explicit ones."""
+    # imported here: the serving package imports this module
+    from .serving.logger import current_fleet_context
+    fleet = current_fleet_context()
+    fleet.update(attributes or {})
+    return fleet
+
+
 class Tracer:
     """Creates spans, honours the sampling ratio, propagates context."""
 
@@ -180,7 +194,7 @@ class Tracer:
             sampled = self.ratio >= 1.0 or _sample_rng.random() < self.ratio
         span = Span(name=name, trace_id=trace_id, span_id=_rand_hex(8),
                     parent_id=parent_id, start_time=time.time(), tracer=self,
-                    sampled=sampled, attributes=dict(attributes or {}))
+                    sampled=sampled, attributes=_with_resource(attributes))
         span._ctx_token = _current_span.set(span)
         return span
 
@@ -194,7 +208,7 @@ class Tracer:
         sampled traces only)."""
         span = Span(name=name, trace_id=trace_id, span_id=_rand_hex(8),
                     parent_id=parent_id, start_time=start_time, tracer=self,
-                    sampled=True, attributes=dict(attributes or {}),
+                    sampled=True, attributes=_with_resource(attributes),
                     status=status)
         span.end_time = end_time
         self._export(span)
