@@ -5311,7 +5311,7 @@ def phase_serve_fleet(dev, smi_line: str) -> None:
     from gofr_tpu_torch.serving.control_plane import ControlPlaneLeader
     from gofr_tpu_torch.serving.engine import SamplingParams
     from gofr_tpu_torch.serving.integrity import GoldenSet, request_digest
-    from gofr_tpu_torch.serving.logger import Logger
+    from gofr_tpu_torch.serving.logger import Logger, clear_fleet_context
     from gofr_tpu_torch.serving.router import RouterConfig, prefix_hash
     from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
     t_phase = time.perf_counter()
@@ -5359,6 +5359,18 @@ def phase_serve_fleet(dev, smi_line: str) -> None:
     sealed_digest = GoldenSet.load(golden_path).entries[0].digest
     del sealer, req
     gc.collect()
+    # the process's own pauses, which silence every heartbeat at once:
+    # each collection's length, and the leader's sweeper stalls below
+    collections_s: list = []
+    gc_began = [0.0]
+
+    def gc_timer(when, info):
+        if when == "start":
+            gc_began[0] = time.perf_counter()
+        else:
+            collections_s.append(time.perf_counter() - gc_began[0])
+
+    gc.callbacks.append(gc_timer)
 
     leader_server = serve_fleet_leader(
         router=RouterConfig(), heartbeat_interval_s=FLEET_HEARTBEAT_S,
@@ -5795,6 +5807,14 @@ def phase_serve_fleet(dev, smi_line: str) -> None:
         for w in workers.values():
             w["engine"].stop()
         log.close()
+        gc.callbacks.remove(gc_timer)
+        # the agents stamped their fleet context on this process's log
+        # records: the phases after this one are no fleet member
+        clear_fleet_context()
+    out["pauses"] = {"gc_collections": len(collections_s),
+                     "gc_max_ms": max(collections_s, default=0.0) * 1e3,
+                     "sweeper_stalls": leader.stall_count,
+                     "sweeper_stall_max_s": leader.stall_max_s}
     out["phase_wall_s"] = time.perf_counter() - t_phase
     out["failed_checks"] = failed
     out["planted"] = planted

@@ -40,7 +40,12 @@ Protocol (JSON over HTTP, the ``{"data": ...}`` envelope):
   ``GET /debug/fleet/incidents``: the leader's incident bundles.
 
 Failure detection: the leader's sweeper evicts a host that missed
-``eviction_misses`` heartbeat intervals and bumps the generation. A
+``eviction_misses`` heartbeat intervals and bumps the generation. The
+leader's own pauses (a long garbage collection, a starved host) are not
+counted as the members' silence: the sweeper notes each time it woke
+late and credits that stall to every member that was silent across it.
+Workers beat at a fixed cadence, one interval after the previous beat
+began, so a slow beat does not add its own length to the silence. A
 heartbeat gossiping DEGRADED health (the stall watchdog fired) is
 evicted at once under ``FleetConfig.evict_degraded``; DOWN keeps
 gossiping, visible, unrouted.
@@ -329,6 +334,12 @@ class ControlPlaneLeader:
         self._lock = threading.Lock()
         self._sweeper: threading.Thread | None = None
         self._running = False
+        #: the sweeper's own stalls, (woke_at, seconds late): silence a
+        #: member owes to the leader's pause is not a missed heartbeat
+        self.stalls: list[tuple[float, float]] = []
+        #: every stall the sweeper noted, counted and the longest kept
+        self.stall_count = 0
+        self.stall_max_s = 0.0
         #: callbacks (host_id, reason) fired after a member leaves the
         #: group for any reason (leave, sweep, degraded, scale_down) —
         #: the fleet router drops its session-affinity entries here
@@ -1088,21 +1099,40 @@ class ControlPlaneLeader:
 
     # ---------------------------------------------------------- sweeper
     def _sweep_once(self) -> None:
-        deadline = time.time() - (self.heartbeat_interval_s
-                                  * self.eviction_misses)
+        now = time.time()
+        budget = self.heartbeat_interval_s * self.eviction_misses
         with self._lock:  # joins mutate _members concurrently
+            # stalls older than any member's silence can credit no one
+            oldest = min((m.last_seen for m in self._members.values()),
+                         default=now)
+            self.stalls = [s for s in self.stalls if s[0] > oldest]
             dead = [h for h, m in self._members.items()
-                    if m.last_seen < deadline]
+                    if now - m.last_seen - sum(
+                        late for woke, late in self.stalls
+                        if woke > m.last_seen) > budget]
         for host_id in dead:
             self.evict(host_id, reason="heartbeat_timeout")
 
+    def _note_stall(self, woke_at: float, late_s: float) -> None:
+        """The sweeper woke ``late_s`` after it was due: the whole
+        process (or host) paused, so a member's heartbeat may be waiting
+        behind the pause, not missing."""
+        if late_s > self.heartbeat_interval_s / 2:
+            with self._lock:
+                self.stalls.append((woke_at, late_s))
+                self.stall_count += 1
+                self.stall_max_s = max(self.stall_max_s, late_s)
+
     def start(self) -> None:
         self._running = True
+        nap = self.heartbeat_interval_s / 2
 
         def run() -> None:
             while self._running:
                 self._sweep_once()
-                time.sleep(self.heartbeat_interval_s / 2)
+                t0 = time.monotonic()
+                time.sleep(nap)
+                self._note_stall(time.time(), time.monotonic() - t0 - nap)
 
         self._sweeper = threading.Thread(target=run, daemon=True,
                                          name="control-plane-sweeper")
@@ -1733,9 +1763,12 @@ class WorkerAgent:
             # backoff; assigned heartbeats keep the fixed cadence.
             base = max(0.01, self.heartbeat_interval_s)
             backoff = base
+            last_beat = time.monotonic()
             while self._running:
                 if self.assignment is not None:
-                    delay = base
+                    # one interval after the last beat BEGAN: a slow
+                    # beat must not add its length to the silence
+                    delay = max(0.0, last_beat + base - time.monotonic())
                 else:
                     delay = backoff * (0.5 + random.random())
                 self._wake.wait(delay)
@@ -1765,6 +1798,7 @@ class WorkerAgent:
                                 f"attempt in <= {backoff * 1.5:.1f}s")
                 else:
                     backoff = base
+                    last_beat = time.monotonic()
                     self._heartbeat_once()
 
         self._thread = threading.Thread(target=run, daemon=True,

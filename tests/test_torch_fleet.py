@@ -680,6 +680,70 @@ def test_ranks_evictions_and_degraded_gossip_over_http():
     assert leader._running is False    # the sweeper stopped with it
 
 
+@pytest.mark.parametrize("stall, evicted", [
+    (None, True),             # 1.0 s of silence against a 0.6 s budget
+    ((-0.1, 0.8), False),     # the leader itself paused 0.8 s of it
+    ((-2.0, 0.8), True),      # a pause before the last beat credits none
+    ((-0.1, 0.05), True),     # lateness under half an interval: no stall
+])
+def test_sweeper_credits_its_own_stall(stall, evicted):
+    """A member is evicted for silence it owes to itself, not for the
+    time the leader's own sweeper was paused (a long collection, a
+    starved host)."""
+    leader = port_cp.ControlPlaneLeader(heartbeat_interval_s=0.2,
+                                        eviction_misses=3)
+    leader.join("h", "127.0.0.1:1", 1)
+    now = time.time()
+    leader._members["h"].last_seen = now - 1.0
+    if stall is not None:
+        leader._note_stall(now + stall[0], stall[1])
+    leader._sweep_once()
+    assert ("h" not in leader.topology()["members"]) is evicted
+    assert leader.stall_count == (stall is not None and stall[1] > 0.1)
+
+
+@pytest.mark.parametrize("beat_s, delays", [
+    (0.15, [0.2, 0.05, 0.05, 0.05]),   # the next beat: one interval on
+    (0.3, [0.2, 0.0, 0.0, 0.0]),       # from the last one's start
+])
+def test_agent_beats_at_a_fixed_cadence(monkeypatch, beat_s, delays):
+    """An assigned agent's beat is due one interval after the previous
+    beat began, so a slow beat does not add its own length to the
+    silence the leader sees."""
+    clock = [100.0]
+    fake_time = type("T", (), {"monotonic": staticmethod(lambda: clock[0]),
+                               "time": staticmethod(time.time),
+                               "sleep": staticmethod(time.sleep)})
+    monkeypatch.setattr(port_cp, "time", fake_time)
+    agent = port_cp.WorkerAgent("http://127.0.0.1:9", host_id="h",
+                                heartbeat_interval_s=0.2)
+    agent.join = lambda *a, **k: None
+    agent.assignment = port_cp.ShardAssignment("h", 0, 1, 1, 1, "")
+    waited = []
+
+    class Wake:
+        def wait(self, delay):
+            waited.append(round(delay, 6))
+            clock[0] += delay
+            if len(waited) == len(delays):
+                agent._running = False
+
+        def set(self):
+            pass
+
+        def clear(self):
+            pass
+
+    def beat():
+        clock[0] += beat_s
+
+    agent._wake = Wake()
+    agent._heartbeat_once = beat
+    agent.start()
+    agent._thread.join(30)
+    assert waited == delays
+
+
 def _get_json(port, path):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
                                 timeout=30) as resp:
