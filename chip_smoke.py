@@ -239,6 +239,35 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              each with ``_int8``, among the kernel rows above: the
              kernels at Llama-3-8B's heads, the checks of the D = 64 rows
              with their planted faults).
+11. serve_embed — BERT-base (``BertConfig.base()``, bf16, random
+             weights from seed 0) behind ``POST /embed`` of ``embed_app``:
+             (a) 32 texts of 20-500 bytes give 32 finite unit-norm
+             embeddings of dim 768, (b) each text alone equals its row of
+             the padded batch, (c) bf16 agrees with a float32 copy of the
+             weights on the card, and that copy's hidden states with the
+             host's; planted faults: no L2 normalisation, no attention
+             mask, the exact-erf gelu (``phase_serve_embed``' docstring).
+             p50 latency, sentences/s at batch 8 and 32, the encode's
+             device ms and bound, weight bytes, peak memory. No kernel of
+             the repository lies on this path (JAX's BERT calls XLA
+             attention).
+12. serve_asr — Whisper-large-v3 (bf16, random weights from seed 0)
+             through ``asr_app`` on synthetic 1 / 5 / 10 / 30 s PCM:
+             (a) the card's log-mel against float64 numpy, (b) the bf16
+             encoder against float32, (c) a batch of 8 transcripts read
+             back through the teacher-forced decoder, (d) ``POST
+             /transcribe`` = ``Transcriber.transcribe_batch``, (e) the
+             pub/sub worker: 10 messages, one poison, 3 device batches,
+             9 results, nothing uncommitted, (f) a ``whisper_tiny`` HF
+             checkpoint served through ``MODEL_PATH`` bit for bit; each
+             with its planted fault (``phase_serve_asr``' docstring).
+             Encode device ms at batch 1 / 4 / 8, a decode step's ms and
+             device ms, utterances/s, audio seconds per wall second,
+             weight bytes, peak memory. No kernel of the repository lies
+             on this path either.
+
+Each of the two prints its wall time (``phase_wall_s``), as the later
+serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -7342,6 +7371,717 @@ def phase_serve_llama8b(dev, smi_line: str, cfg=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- encoders
+#: serve_embed: |‖e‖ - 1| of a returned embedding; 1 - cosine between a
+#: text's embedding alone and its row of the padded batch, and between
+#: the bf16 and the float32 path (measured ≤ 4e-6 at BERT-base width on
+#: the host, 4 layers); float32 hidden states, card against host (float32
+#: summation order: ≤ 3e-6 on the host against float64 products, 4
+#: layers; a non-tanh gelu moves them 7.7e-4)
+EMBED_NORM_TOL = 1e-5
+EMBED_COS_TOL = 1e-3
+EMBED_F32_TOL = 1e-4
+#: serve_asr: the card's log-mel against a float64 numpy evaluation of
+#: the recipe (float32 FFT: ≤ 5e-5 on the host; a symmetric Hann window
+#: moves it 0.04-0.25); bf16 encoder states against the float32 path, the
+#: worst frame's relative L2 error (bf16 rounding: 0.007-0.009 on the
+#: host at 4-8 layers of 384; the stride-2 conv padded (1, 1) gives
+#: 0.05-0.12, at the frames where the audio changes)
+MEL_TOL = 1e-3
+ENC_FRAME_TOL = 0.03
+#: the utterances, seconds of 16 kHz PCM
+ASR_SECONDS = (1, 5, 10, 30)
+EMBED_BUCKETS = (16, 32, 64, 128, 256, 512)
+
+
+def _bound_faults(name: str, value: float, limit: float) -> list:
+    return [] if value <= limit else [f"{name} {value:.3g} > {limit:g}"]
+
+
+def _embed_texts(seed: int, n: int, lo: int, hi: int) -> list:
+    """``n`` texts of ``lo``-``hi`` bytes: lowercase words drawn from a
+    seeded generator."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    texts = []
+    for length in rng.integers(lo, hi + 1, n):
+        words = []
+        while sum(len(w) + 1 for w in words) < length:
+            words.append("".join(rng.choice(letters, rng.integers(2, 10))))
+        texts.append(" ".join(words)[:length])
+    return texts
+
+
+def _embed_ids(tok, texts: list):
+    """The padded ids and mask ``make_embed_handler`` builds for
+    ``texts`` (ids cut to 512, the least bucket holding the longest)."""
+    import numpy as np
+    lists = [tok.encode(t)[:512] for t in texts]
+    bucket = next((b for b in EMBED_BUCKETS
+                   if max(map(len, lists)) <= b), EMBED_BUCKETS[-1])
+    ids = np.zeros((len(texts), bucket), np.int64)
+    mask = np.zeros((len(texts), bucket), np.int32)
+    for i, ts in enumerate(lists):
+        ids[i, :len(ts)] = ts
+        mask[i, :len(ts)] = 1
+    return ids, mask
+
+
+def _cos_gap(a, b) -> list:
+    """1 - cosine of each row pair of two [N, D] arrays."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (1.0 - (a * b).sum(-1) / np.linalg.norm(a, axis=-1)
+            / np.linalg.norm(b, axis=-1)).tolist()
+
+
+def _tree_float(tree: dict, device=None) -> dict:
+    return {k: _tree_float(v, device) if isinstance(v, dict)
+            else v.float().to(device or v.device) for k, v in tree.items()}
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """A nested tree's leaves by path (``dec_layers/wq``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _tree_bytes(tree: dict) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def _top_kernels(fn, n: int = 6) -> dict:
+    """One ``torch.profiler`` trace of ``fn`` (after one untraced call):
+    the device ms and kernel count in all, and the ``n`` kernels that
+    took the most device time, each with its ms and count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, k = names.get(e.name, (0.0, 0))
+            names[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                             / 1e3, k + 1)
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:n]
+    return {"device_ms": sum(ms for ms, _ in names.values()),
+            "kernels": sum(k for _, k in names.values()),
+            "top": [{"name": name[:80], "ms": ms, "n": k}
+                    for name, (ms, k) in top]}
+
+
+def _serving(server):
+    thread = threading.Thread(target=server.serve_forever, args=(0.01,),
+                              daemon=True)
+    thread.start()
+    return thread
+
+
+def _stop(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(30)
+
+
+def phase_serve_embed(dev, smi_line: str, cfg=None) -> None:
+    """BERT-base (``BertConfig.base()``: 12 layers, dim 768, 12 heads, ffn
+    3072, vocab 30522, bf16), random weights from seed 0, behind ``POST
+    /embed`` of ``embed_app`` (an engine-less server, the byte
+    tokenizer). Checks, each with a planted fault that must fail it:
+
+    (a) 32 texts of 20-500 bytes in one request: 32 finite embeddings of
+        dim 768 of norm 1 within ``EMBED_NORM_TOL``; planted: the masked
+        mean of the same hidden states without its L2 normalisation;
+    (b) each text alone equals its row of the padded batch within
+        ``EMBED_COS_TOL`` (1 - cosine); planted: the batch encoded without
+        its attention mask, so the pads are attended;
+    (c) the bf16 path against a float32 copy of the weights on the card,
+        within ``EMBED_COS_TOL``, and that float32 copy's hidden states
+        against the same float32 weights on the host within
+        ``EMBED_F32_TOL`` (four texts); planted: the exact-erf gelu in
+        the card's float32 run. The erf gelu in the bf16 run is printed
+        too: bf16 rounding hides it there.
+
+    Also p50 latency of one text, sentences/s at batch 8 and 32 (100-byte
+    texts, bucket 128), the encode's device ms and bound at 32 x 128, the
+    weight bytes and the peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from gofr_tpu_torch.models import bert
+    from gofr_tpu_torch.serving.app import embed_app
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or bert.BertConfig.base()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = bert.bert_init(cfg, gen, dev)
+    tok = ByteTokenizer()
+    server = embed_app(params, cfg, tok, device=dev)
+    thread = _serving(server)
+    url = f"http://127.0.0.1:{server.port}/embed"
+    checks: dict = {}
+    out: dict = {"phase": "serve_embed", "card": smi_line,
+                 "config": f"BERT-base: {cfg.n_layers} layers, dim {cfg.dim},"
+                           f" {cfg.n_heads} heads, ffn {cfg.ffn_dim}, vocab "
+                           f"{cfg.vocab_size}, {str(cfg.dtype)[6:]}, seed 0",
+                 "params": bert.param_count(params),
+                 "weight_bytes": _tree_bytes(params)}
+
+    def encode(p, c, ids, mask, use_mask=True):
+        with torch.inference_mode():
+            m = torch.from_numpy(mask).to(dev)
+            hidden, _ = bert.bert_encode(p, torch.from_numpy(ids).to(dev), c,
+                                         attention_mask=m if use_mask
+                                         else None)
+            return hidden, bert.mean_pool_embed(hidden, m).cpu().numpy()
+
+    try:
+        texts = _embed_texts(18, 32, 20, 500)
+        ids, mask = _embed_ids(tok, texts)
+        # (a) the batch
+        status, body = _post(url, {"input": texts})
+        emb = np.asarray(body["embeddings"])
+        norms = np.linalg.norm(emb, axis=-1)
+        hidden, _ = encode(params, cfg, ids, mask)
+        m = torch.from_numpy(mask).to(dev)[..., None].float()
+        raw = ((hidden.float() * m).sum(1) / m.sum(1)).cpu().numpy()
+        a_faults = ([] if status == 201 and emb.shape == (32, cfg.dim)
+                    and body["dim"] == cfg.dim
+                    else [f"status {status}, shape {emb.shape}"])
+        a_faults += [] if np.isfinite(emb).all() else ["non-finite"]
+        a_faults += _bound_faults("|norm - 1|", float(np.abs(norms - 1).max()),
+                                  EMBED_NORM_TOL)
+        checks["a_batch"] = (a_faults, _bound_faults(
+            "|norm - 1|", float(np.abs(np.linalg.norm(raw, axis=-1)
+                                       - 1).max()), EMBED_NORM_TOL))
+        out["a"] = {"bucket": int(ids.shape[1]),
+                    "norm_err": float(np.abs(norms - 1).max())}
+        # (b) each text alone
+        alone = np.asarray([_post(url, {"input": t})[1]["embeddings"][0]
+                            for t in texts])
+        gap = max(_cos_gap(alone, emb))
+        _, unmasked = encode(params, cfg, ids, mask, use_mask=False)
+        gap_bad = max(_cos_gap(alone, unmasked))
+        checks["b_alone"] = (_bound_faults("1 - cos", gap, EMBED_COS_TOL),
+                             _bound_faults("1 - cos", gap_bad,
+                                           EMBED_COS_TOL))
+        out["b"] = {"max_1_minus_cos": gap,
+                    "planted_no_mask_max_1_minus_cos": gap_bad}
+        # (c) bf16 against float32, and float32 card against host
+        p32 = _tree_float(params)
+        _, e16 = encode(params, cfg, ids, mask)
+        _, e32 = encode(p32, cfg32, ids, mask)
+        real_gelu = bert._gelu
+        bert._gelu = F.gelu                      # the planted fault
+        try:
+            _, e16_erf = encode(params, cfg, ids, mask)
+            short = sorted(texts, key=len)[:4]
+            s_ids, s_mask = _embed_ids(tok, short)
+            h32_erf, _ = encode(p32, cfg32, s_ids, s_mask)
+        finally:
+            bert._gelu = real_gelu
+        h32, _ = encode(p32, cfg32, s_ids, s_mask)
+        host, _ = bert.bert_encode(_tree_float(params, "cpu"),
+                                   torch.from_numpy(s_ids), cfg32,
+                                   attention_mask=torch.from_numpy(s_mask))
+        valid = torch.from_numpy(s_mask).bool()
+        f32_err = float((h32.cpu() - host)[valid].abs().max())
+        f32_err_bad = float((h32_erf.cpu() - host)[valid].abs().max())
+        c_gap = max(_cos_gap(e16, e32))
+        checks["c_bf16_f32"] = (
+            _bound_faults("bf16 1 - cos", c_gap, EMBED_COS_TOL)
+            + _bound_faults("f32 card - host", f32_err, EMBED_F32_TOL),
+            _bound_faults("f32 card - host", f32_err_bad, EMBED_F32_TOL))
+        out["c"] = {"bf16_vs_f32_max_1_minus_cos": c_gap,
+                    "bf16_erf_gelu_max_1_minus_cos":
+                        max(_cos_gap(e16_erf, e32)),
+                    "f32_card_vs_host_hidden_max_abs": f32_err,
+                    "planted_erf_gelu_f32_hidden_max_abs": f32_err_bad,
+                    "host_bucket": int(s_ids.shape[1])}
+        del p32, e16, e32, h32, h32_erf, host
+        # timings: one text, then batches of 8 and 32 at bucket 128
+        one = _embed_texts(19, 1, 100, 100)
+        lat = []
+        for i in range(23):
+            t0 = time.perf_counter()
+            _post(url, {"input": one})
+            if i >= 3:
+                lat.append(time.perf_counter() - t0)
+        out["p50_latency_ms_batch1"] = statistics.median(lat) * 1e3
+        rates = {}
+        for b in (8, 32):
+            batch = _embed_texts(20 + b, b, 100, 100)
+            walls = []
+            for i in range(12):
+                t0 = time.perf_counter()
+                _post(url, {"input": batch})
+                if i >= 2:
+                    walls.append(time.perf_counter() - t0)
+            rates[str(b)] = b / statistics.median(walls)
+        out["sentences_per_s"] = rates
+        ids32, mask32 = _embed_ids(tok, _embed_texts(52, 32, 100, 100))
+        out["encode_device_ms_32x128"] = device_ms(
+            lambda: encode(params, cfg, ids32, mask32), warmup=2, iters=10)
+        out["encode_top_kernels_32x128"] = _top_kernels(
+            lambda: encode(params, cfg, ids32, mask32))
+        tokens = ids32.size
+        flops = tokens * cfg.n_layers * (
+            2 * (4 * cfg.dim ** 2 + 2 * cfg.dim * cfg.ffn_dim)
+            + 4 * ids32.shape[1] * cfg.dim)
+        out["encode_bound_ms_32x128"], out["encode_bound_by"] = bound(
+            flops, _tree_bytes(params["layers"]))
+        out["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        _stop(server, thread)
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"tolerances": {"norm": EMBED_NORM_TOL, "cos": EMBED_COS_TOL,
+                               "f32_hidden": EMBED_F32_TOL},
+                "phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_embed: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+
+
+def _pcm(seed: int, seconds: float):
+    """Synthetic 16 kHz PCM: three tones of seeded pitch, level and phase,
+    and white noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    x = sum(rng.uniform(0.05, 0.3) * np.sin(2 * np.pi * rng.uniform(80, 4000)
+                                             * t + rng.uniform(0, 6.3))
+            for _ in range(3))
+    return (x + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def _padded(audios: list, samples: int):
+    import numpy as np
+    out = np.zeros((len(audios), samples), np.float32)
+    for i, a in enumerate(audios):
+        out[i, :min(len(a), samples)] = a[:samples]
+    return out
+
+
+def _mel_f64(batch, n_mels: int, frames: int):
+    """The log-mel recipe in float64 numpy: reflect pad, periodic Hann,
+    |rfft|², the filterbank, the 8-decade clamp, (x + 4) / 4, zeros past
+    the audio's frames."""
+    import numpy as np
+    from gofr_tpu_torch.ops.audio import mel_filterbank
+    a = np.pad(batch.astype(np.float64), ((0, 0), (200, 200)),
+               mode="reflect")
+    n = 1 + (a.shape[1] - 400) // 160
+    idx = np.arange(n)[:, None] * 160 + np.arange(400)[None, :]
+    power = np.abs(np.fft.rfft(a[:, idx] * np.hanning(401)[:-1], axis=-1)) ** 2
+    mel = np.log10(np.maximum(power @ mel_filterbank(n_mels)
+                              .astype(np.float64), 1e-10))
+    mel = (np.maximum(mel, mel.max(axis=(-2, -1), keepdims=True) - 8.0)
+           + 4.0) / 4.0
+    out = np.zeros((a.shape[0], frames, n_mels))
+    out[:, :min(n, frames)] = mel[:, :frames]
+    return out
+
+
+def _readback_faults(params, cfg, mel, tokens, lengths) -> tuple:
+    """Each emitted token (up to and with a row's first end-of-text)
+    against the teacher-forced prefill of the same encoder states: within
+    ``LOGITS_TOL`` of its position's largest logit. Returns (faults, the
+    worst gap)."""
+    import torch
+    from gofr_tpu_torch.models import whisper as W
+    with torch.inference_mode():
+        enc = W.whisper_encode(params, mel, cfg)
+        ck, cv = W.precompute_cross_kv(params, enc, cfg)
+        b, t = tokens.shape
+        inputs = torch.cat([torch.full((b, 1), cfg.sot_token,
+                                       dtype=torch.int64, device=mel.device),
+                            tokens[:, :-1].long()], dim=1)
+        hidden, _ = W._decoder_prefill(params, inputs,
+                                       torch.arange(t, device=mel.device),
+                                       ck, cv, cfg)
+        logits = W._logits(params, hidden, cfg)
+        gap = logits.amax(-1) - logits.gather(-1, tokens.long()[..., None])[
+            ..., 0]
+    faults, worst = [], 0.0
+    for i, n in enumerate(lengths):
+        n = min(int(n) + 1, t)
+        row = gap[i, :n]
+        worst = max(worst, float(row.max()))
+        if float(row.max()) > LOGITS_TOL:
+            faults.append(f"row {i}: token {int(row.argmax())} is "
+                          f"{float(row.max()):.3g} under the top logit")
+    return faults, worst
+
+
+def _worker_faults(batches: int, executions: int, ids: list, want: list,
+                   redelivered: int) -> list:
+    faults = []
+    if (batches, executions) != (3, 3):
+        faults.append(f"{batches} drains, {executions} device batches, "
+                      f"not 3")
+    if sorted(ids) != sorted(want):
+        faults.append(f"request ids {sorted(ids)}")
+    if redelivered:
+        faults.append(f"{redelivered} uncommitted")
+    return faults
+
+
+def _asr_messages(n_good: int = 9, poison_at: int = 4) -> list:
+    """``n_good`` 1 s utterances with their ``request_id``s and, at
+    ``poison_at``, one message without audio."""
+    msgs = [{"request_id": f"utt-{i}", "audio": _pcm(100 + i, 1.0).tolist()}
+            for i in range(n_good)]
+    msgs.insert(poison_at, {"request_id": "poison", "garbage": True})
+    return msgs
+
+
+def phase_serve_asr(dev, smi_line: str, preset: str = "whisper_large_v3",
+                    ckpt_preset: str = "whisper_tiny") -> None:
+    """Whisper-large-v3 (``preset``: dim 1280, 20 heads, 32 + 32 layers,
+    128 mels, vocab 51866, bf16), random weights from seed 0, through
+    ``asr_app`` (``POST /transcribe`` and the pub/sub worker), on
+    synthetic PCM (tones and noise from a seed) of 1, 5, 10 and 30 s.
+    Checks, each with a planted fault that must fail it:
+
+    (a) ``log_mel_spectrogram`` on the card against ``_mel_f64`` within
+        ``MEL_TOL``; planted: a symmetric Hann window;
+    (b) ``whisper_encode`` in bf16 against the float32 path on the same
+        weights, the worst frame's relative error within
+        ``ENC_FRAME_TOL``; planted: the stride-2 conv padded (1, 1);
+    (c) a batch of 8 transcribed (``max_tokens`` 64), each emitted token
+        read back through the teacher-forced ``_decoder_prefill`` within
+        ``LOGITS_TOL`` of its position's top logit; planted: one token
+        replaced;
+    (d) one ``POST /transcribe`` equals ``Transcriber.transcribe_batch``
+        on the same audio; planted: the PCM sent as float64;
+    (e) the app's ``ASRWorker`` (``max_batch`` 4): 10 messages, one of
+        them poison, give 3 device batches, 9 results with the right
+        ``request_id``s, nothing uncommitted; planted: a worker draining
+        8 a batch;
+    (f) ``ckpt_preset`` weights saved with ``save_whisper_checkpoint``,
+        served by ``asr_app(MODEL_PATH=...)``: the loaded weights and the
+        transcript bit for bit the in-memory transcriber's; planted: a
+        checkpoint with decoder layers 0 and 1 swapped.
+
+    Also the encode's device ms at batch 1, 4 and 8 and its bound, a
+    decode step's ms and device ms at batch 8, utterances/s and audio
+    seconds per wall second at batch 8, weight bytes, peak memory."""
+    import asyncio
+    import base64
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.models import whisper as W
+    from gofr_tpu_torch.ops import audio
+    from gofr_tpu_torch.pubsub.inmemory import InMemoryBroker
+    from gofr_tpu_torch.serving.app import asr_app
+    from gofr_tpu_torch.serving.asr import ASRConfig, ASRWorker, Transcriber
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    checks: dict = {}
+    t0 = time.perf_counter()
+    server = asr_app({"MODEL_PRESET": preset}, device=dev)
+    thread = _serving(server)
+    worker = server.asr_worker
+    app_tr = worker.transcriber
+    params, cfg = app_tr.params, app_tr.config
+    torch.cuda.synchronize()
+    out: dict = {"phase": "serve_asr", "card": smi_line,
+                 "config": f"{preset}: dim {cfg.dim}, {cfg.n_heads} heads, "
+                           f"{cfg.n_audio_layers} + {cfg.n_text_layers} "
+                           f"layers, {cfg.n_mels} mels, vocab "
+                           f"{cfg.vocab_size}, {str(cfg.dtype)[6:]}, seed 0",
+                 "init_s": time.perf_counter() - t0,
+                 "params": W.param_count(params),
+                 "weight_bytes": _tree_bytes(params)}
+    url = f"http://127.0.0.1:{server.port}/transcribe"
+    utts = [_pcm(i, s) for i, s in enumerate(ASR_SECONDS)]
+    utts8 = utts + [_pcm(10 + i, s) for i, s in enumerate(ASR_SECONDS)]
+    try:
+        # (a) the mel frontend, 4 utterances in one 30 s batch
+        batch = _padded(utts, 16000 * 30)
+        mel = audio.log_mel_spectrogram(
+            torch.from_numpy(batch).to(dev), n_mels=cfg.n_mels,
+            pad_to_frames=cfg.audio_frames)
+        ref = _mel_f64(batch, cfg.n_mels, cfg.audio_frames)
+        mel_err = float(np.abs(mel.double().cpu().numpy() - ref).max())
+        real_window = audio._window
+        audio._window = lambda n, d: torch.hann_window(
+            n, periodic=False, dtype=torch.float64, device=d).float()
+        try:
+            bad = audio.log_mel_spectrogram(
+                torch.from_numpy(batch).to(dev), n_mels=cfg.n_mels,
+                pad_to_frames=cfg.audio_frames)
+        finally:
+            audio._window = real_window
+        mel_bad = float(np.abs(bad.double().cpu().numpy() - ref).max())
+        checks["a_mel"] = (_bound_faults("mel", mel_err, MEL_TOL),
+                           _bound_faults("mel", mel_bad, MEL_TOL))
+        out["a"] = {"max_abs_err": mel_err,
+                    "planted_symmetric_hann_max_abs_err": mel_bad}
+        # (b) bf16 encoder against float32
+        keys = ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "enc_pos",
+                "enc_layers", "enc_ln_w", "enc_ln_b")
+        p32 = _tree_float({k: params[k] for k in keys})
+        with torch.inference_mode():
+            enc32 = W.whisper_encode(p32, mel, cfg.scaled(
+                dtype=torch.float32))
+            del p32
+            enc16 = W.whisper_encode(params, mel, cfg).float()
+            real_pad = W._same_pad
+            W._same_pad = lambda length, kernel, stride: (1, 1)
+            try:
+                enc_bad = W.whisper_encode(params, mel, cfg).float()
+            finally:
+                W._same_pad = real_pad
+
+            def worst(a):
+                return ((a - enc32).norm(dim=-1) / enc32.norm(dim=-1)) \
+                    .amax(-1).tolist()
+            frame_err, frame_bad = worst(enc16), worst(enc_bad)
+        del enc32, enc16, enc_bad
+        checks["b_encode"] = (
+            _bound_faults("frame rel", max(frame_err), ENC_FRAME_TOL),
+            _bound_faults("frame rel", max(frame_bad), ENC_FRAME_TOL))
+        out["b"] = {"worst_frame_rel_err": frame_err,
+                    "planted_pad_1_1_worst_frame_rel_err": frame_bad}
+        # (c) a batch of 8, 64 tokens, read back
+        tr8 = Transcriber(params, cfg, ASRConfig(max_batch=8,
+                                                 max_tokens=64), device=dev)
+        first = tr8.transcribe_batch(utts8)           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = tr8.transcribe_batch(utts8)
+        wall = time.perf_counter() - t0
+        out["batch8"] = {
+            "wall_s": wall, "utterances_per_s": len(utts8) / wall,
+            "audio_s_per_wall_s": sum(len(a) for a in utts8) / 16000 / wall,
+            "samples_bucket": results[0]["samples"],
+            "n_tokens": [r["n_tokens"] for r in results],
+            "first_tokens": [r["tokens"][:8] for r in results],
+            "deterministic": [r["tokens"] for r in results]
+            == [r["tokens"] for r in first]}
+        eot = cfg.eot_token
+        tokens = torch.tensor([r["tokens"] + [eot] * (64 - r["n_tokens"])
+                               for r in results], device=dev)
+        lengths = [r["n_tokens"] for r in results]
+        mel8 = audio.log_mel_spectrogram(
+            torch.from_numpy(_padded(utts8, results[0]["samples"])).to(dev),
+            n_mels=cfg.n_mels, pad_to_frames=cfg.audio_frames)
+        c_faults, c_gap = _readback_faults(params, cfg, mel8, tokens,
+                                           lengths)
+        swapped = tokens.clone()
+        j = min(3, lengths[0])
+        swapped[0, j] = (swapped[0, j] + cfg.vocab_size // 2) \
+            % cfg.vocab_size
+        c_bad, c_gap_bad = _readback_faults(params, cfg, mel8, swapped,
+                                            lengths)
+        checks["c_readback"] = (c_faults, c_bad)
+        out["c"] = {"worst_gap": c_gap, "planted_worst_gap": c_gap_bad,
+                    "tolerance": LOGITS_TOL}
+        # timings: encode at 1, 4, 8; one decode step at 8
+        flops_utt = cfg.audio_ctx * cfg.n_audio_layers * (
+            24 * cfg.dim ** 2 + 4 * cfg.audio_ctx * cfg.dim) \
+            + cfg.audio_frames * 6 * cfg.n_mels * cfg.dim \
+            + cfg.audio_ctx * 6 * cfg.dim ** 2
+        enc_bytes = _tree_bytes(params["enc_layers"])
+        enc_ms = {}
+        for b in (1, 4, 8):
+            with torch.inference_mode():
+                ms = device_ms(lambda: W.whisper_encode(params, mel8[:b],
+                                                        cfg),
+                               warmup=1, iters=3)
+            enc_ms[str(b)] = {"device_ms": ms,
+                              "bound_ms": bound(b * flops_utt,
+                                                enc_bytes)[0]}
+        with torch.inference_mode():
+            enc_ms["top_kernels_b8"] = _top_kernels(
+                lambda: W.whisper_encode(params, mel8, cfg))
+        out["encode"] = enc_ms
+        with torch.inference_mode():
+            enc = W.whisper_encode(params, mel8, cfg)
+            ck, cv = W.precompute_cross_kv(params, enc, cfg)
+            shape = (cfg.n_text_layers, 8, 65, cfg.n_heads, cfg.head_dim)
+            cache_k = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            cache_v = torch.zeros_like(cache_k)
+            layers = W.unstack(params["dec_layers"], cfg.n_text_layers)
+            step_tok = tokens[:, 32].long()
+            step_len = torch.full((8,), 32, dtype=torch.int64, device=dev)
+
+            def step():
+                return W._decoder_step_kv(params, step_tok, 33, ck, cv, cfg,
+                                          cache_k, cache_v, step_len, layers)
+            step_ms = time_ms(step, warmup=2, iters=10)
+            step_dev = device_ms(step, warmup=1, iters=5)
+            step_top = _top_kernels(step)
+        dec_bytes = sum(params["dec_layers"][k].numel() * 2 for k in (
+            "wq", "wk", "wv", "wo", "xwq", "xwo", "fc1", "fc2")) \
+            + ck.numel() * 2 * 2 + params["embed"].numel() * 2
+        out["decode_step_b8"] = {
+            "ms": step_ms, "device_ms": step_dev,
+            "idle_share": max(0.0, 1 - step_dev / step_ms),
+            "bound_ms": bound(0.0, dec_bytes)[0], "top_kernels": step_top}
+        del enc, ck, cv, cache_k, cache_v
+        # (d) one POST /transcribe
+        one = utts[0]
+        status, body = _post(url, {"audio_b64": base64.b64encode(
+            one.tobytes()).decode()})
+        want = app_tr.transcribe_batch([one])[0]
+        _, body_bad = _post(url, {"audio_b64": base64.b64encode(
+            one.astype(np.float64).tobytes()).decode()})
+
+        def same(result):
+            keys = ("tokens", "n_tokens", "batch", "samples")
+            return [] if all(result.get(k) == want[k] for k in keys) \
+                else [f"answer {[result.get(k) for k in keys[1:]]} "
+                      f"against {[want[k] for k in keys[1:]]}"]
+        checks["d_http"] = (
+            ([] if status == 201 else [f"status {status}"])
+            + same(body["data"]), same(body_bad["data"]))
+        out["d"] = {"status": status, "tokens": body["data"]["tokens"],
+                    "execute_ms": body["data"]["execute_ms"]}
+        # (e) the app's worker: 10 messages, one poison
+        msgs = _asr_messages()
+        want_ids = [m["request_id"] for m in msgs if "audio" in m]
+        broker = worker.pubsub
+        before = (worker.batches, app_tr.executions)
+
+        async def publish_all(b):
+            for m in msgs:
+                await b.publish("asr.requests", m)
+
+        async def collect(b, n):
+            return [(await b.subscribe("asr.results", "smoke")).bind()
+                    for _ in range(n)]
+
+        async def redeliver(b):
+            return b.redeliver_uncommitted("asr.requests", "asr-workers")
+        t0 = time.perf_counter()
+        server.asr_loop.call(publish_all(broker), timeout=60)
+        got = server.asr_loop.call(collect(broker, 9), timeout=600)
+        e_wall = time.perf_counter() - t0
+        e_faults = _worker_faults(
+            worker.batches - before[0], app_tr.executions - before[1],
+            [r["request_id"] for r in got], want_ids,
+            server.asr_loop.call(redeliver(broker), timeout=60))
+
+        async def eight_a_batch():
+            b = InMemoryBroker()
+            tr = Transcriber(params, cfg, ASRConfig(
+                max_batch=8, max_tokens=16, sample_buckets=(16000, 80000)),
+                device=dev)
+            w = ASRWorker(tr, b)
+            await publish_all(b)
+            while w.processed < 9:
+                await w.run_once()
+            res = await collect(b, 9)
+            return _worker_faults(w.batches, tr.executions,
+                                  [r["request_id"] for r in res], want_ids,
+                                  await redeliver(b))
+        checks["e_worker"] = (e_faults, asyncio.run(eight_a_batch()))
+        out["e"] = {"wall_s": e_wall, "batches": worker.batches - before[0],
+                    "results": len(got)}
+        # (f) a checkpoint at ckpt_preset's width through MODEL_PATH
+        tmp = Path(tempfile.mkdtemp(prefix="gofr_whisper_"))
+        try:
+            out["f"], checks["f_checkpoint"] = _asr_checkpoint(
+                dev, ckpt_preset, tmp, utts[1])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        _stop(server, thread)
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"tolerances": {"mel": MEL_TOL, "encode_frame": ENC_FRAME_TOL,
+                               "readback": LOGITS_TOL},
+                "phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_asr: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+
+
+def _asr_checkpoint(dev, preset: str, tmp: Path, pcm) -> tuple:
+    """(f): the seed-0 ``preset`` weights written as an HF checkpoint and
+    served from it; a second checkpoint with decoder layers 0 and 1
+    swapped is the planted fault. Returns (numbers, (faults, planted))."""
+    import base64
+    import torch
+    from gofr_tpu_torch.models import whisper as W
+    from gofr_tpu_torch.models.hf_checkpoint import save_whisper_checkpoint
+    from gofr_tpu_torch.serving.app import asr_app
+    from gofr_tpu_torch.serving.asr import ASRConfig, Transcriber
+    cfg = getattr(W.WhisperConfig, preset)()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = W.whisper_init(cfg, gen, dev)
+    want = Transcriber(params, cfg, ASRConfig(
+        max_batch=4, max_tokens=16, sample_buckets=(16000, 80000)),
+        device=dev).transcribe_batch([pcm])[0]
+    swapped = dict(params)
+    swapped["dec_layers"] = {k: v[[1, 0] + list(range(2, v.shape[0]))]
+                             for k, v in params["dec_layers"].items()}
+    numbers: dict = {"preset": preset, "params": W.param_count(params)}
+    faults = {}
+    for name, tree in (("good", params), ("swapped", swapped)):
+        t0 = time.perf_counter()
+        save_whisper_checkpoint(tree, cfg, tmp / name)
+        numbers[f"{name}_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        app = asr_app({"MODEL_PATH": str(tmp / name)}, device=dev)
+        numbers[f"{name}_load_s"] = time.perf_counter() - t0
+        thread = _serving(app)
+        try:
+            loaded = _flat(app.asr_worker.transcriber.params)
+            unequal = [k for k, v in _flat(params).items()
+                       if not torch.equal(loaded[k], v)]
+            status, body = _post(
+                f"http://127.0.0.1:{app.port}/transcribe",
+                {"audio_b64": base64.b64encode(pcm.tobytes()).decode()})
+        finally:
+            _stop(app, thread)
+        f = [f"leaves differ: {unequal[:4]}"] if unequal else []
+        if status != 201 or body["data"]["tokens"] != want["tokens"]:
+            f.append(f"transcript {body['data']['tokens'][:8]} against "
+                     f"{want['tokens'][:8]}")
+        faults[name] = f
+        numbers[f"{name}_tokens_equal"] = body["data"]["tokens"] == \
+            want["tokens"]
+    return numbers, (faults["good"], faults["swapped"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7429,6 +8169,8 @@ def main() -> int:
     phase_checkpoint(dev, smi_line)
     sources = {"serve_moe": phase_serve_moe(dev, smi_line),
                "serve_llama8b": phase_serve_llama8b(dev, smi_line)}
+    phase_serve_embed(dev, smi_line)
+    phase_serve_asr(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

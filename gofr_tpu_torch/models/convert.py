@@ -1,4 +1,6 @@
-"""Convert the JAX package's Llama parameters to the port's tensors.
+"""Convert the JAX package's parameters to the port's tensors: Llama and
+MoE (:func:`params_from_jax`), BERT (:func:`bert_params_from_jax`) and
+Whisper (:func:`whisper_params_from_jax`).
 
 The input is the JAX pytree read as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``): ``{"embed", "layers": {...},
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 
 from ..ops.quant import is_quantized, pack_int4
+from .bert import BertConfig
 from .llama import LlamaConfig
+from .whisper import WhisperConfig
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -74,3 +78,21 @@ def params_from_jax(np_params: dict, config: LlamaConfig,
     """numpy JAX pytree -> the port's parameter dict on ``device``:
     float leaves in ``config.dtype``, quantized leaves kept quantized."""
     return _convert(np_params, config.dtype, device)
+
+
+def bert_params_from_jax(np_params: dict, config: BertConfig,
+                         device: str | torch.device) -> dict:
+    """numpy JAX ``bert_init`` tree -> the port's BERT parameters on
+    ``device`` in ``config.dtype``, layout unchanged."""
+    return _convert(np_params, config.dtype, device)
+
+
+def whisper_params_from_jax(np_params: dict, config: WhisperConfig,
+                            device: str | torch.device) -> dict:
+    """numpy JAX ``whisper_init`` tree -> the port's Whisper parameters
+    on ``device`` in ``config.dtype``: the convolutions' ``[k, in, out]``
+    transposed to ``[out, in, k]``, every other leaf as it is."""
+    out = _convert(np_params, config.dtype, device)
+    for key in ("conv1_w", "conv2_w"):
+        out[key] = out[key].permute(2, 1, 0).contiguous()
+    return out

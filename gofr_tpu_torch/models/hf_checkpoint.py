@@ -1,4 +1,4 @@
-"""Local Hugging Face Llama checkpoints (counterpart of the Llama half of
+"""Local Hugging Face Llama and Whisper checkpoints (counterpart of
 ``gofr_tpu/models/hf_checkpoint.py``).
 
 * :func:`read_safetensors` / :func:`write_safetensors` — the safetensors
@@ -16,7 +16,10 @@
   quantize-on-load (``ops/quant.py``);
 * :func:`save_llama_checkpoint` — the inverse (one file, or shards with
   their index), so a tree round-trips to a directory any HF-format
-  consumer reads, the JAX package's loader included.
+  consumer reads, the JAX package's loader included;
+* :func:`load_whisper_checkpoint` / :func:`save_whisper_checkpoint` —
+  the same for ``WhisperForConditionalGeneration`` directories and the
+  port's Whisper tree.
 
 Local files only: nothing here downloads.
 """
@@ -34,6 +37,7 @@ import torch
 from ..device import resolve_device
 from ..ops.quant import quantize_int4, quantize_int8
 from .llama import LlamaConfig
+from .whisper import WhisperConfig
 
 # safetensors dtype tag -> torch dtype; BF16 travels as 16-bit integers
 _DTYPES: dict[str, torch.dtype] = {
@@ -331,3 +335,160 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig,
     (directory / "model.safetensors.index.json").write_text(json.dumps(
         {"metadata": {"total_size": total}, "weight_map": weight_map},
         indent=1))
+
+
+# ---------------------------------------------------------- whisper map
+#
+# HF "WhisperForConditionalGeneration" layout. Linear layers are [out, in]
+# and transpose into the port's stacked [L, in, out]; the convolutions
+# are [out, in, k] on both sides (the JAX tree's are [k, in, out], so its
+# loader reverses their axes and this one does not). k_proj has no bias
+# in any Whisper size; proj_out is tied to the token embedding.
+
+_WHISPER_BLOCK = (
+    ("ln1_w", "self_attn_layer_norm.weight", False),
+    ("ln1_b", "self_attn_layer_norm.bias", False),
+    ("wq", "self_attn.q_proj.weight", True),
+    ("bq", "self_attn.q_proj.bias", False),
+    ("wk", "self_attn.k_proj.weight", True),
+    ("wv", "self_attn.v_proj.weight", True),
+    ("bv", "self_attn.v_proj.bias", False),
+    ("wo", "self_attn.out_proj.weight", True),
+    ("bo", "self_attn.out_proj.bias", False),
+    ("ln_mlp_w", "final_layer_norm.weight", False),
+    ("ln_mlp_b", "final_layer_norm.bias", False),
+    ("fc1", "fc1.weight", True),
+    ("fc1_b", "fc1.bias", False),
+    ("fc2", "fc2.weight", True),
+    ("fc2_b", "fc2.bias", False),
+)
+_WHISPER_CROSS = (
+    ("lnx_w", "encoder_attn_layer_norm.weight", False),
+    ("lnx_b", "encoder_attn_layer_norm.bias", False),
+    ("xwq", "encoder_attn.q_proj.weight", True),
+    ("xbq", "encoder_attn.q_proj.bias", False),
+    ("xwk", "encoder_attn.k_proj.weight", True),
+    ("xwv", "encoder_attn.v_proj.weight", True),
+    ("xbv", "encoder_attn.v_proj.bias", False),
+    ("xwo", "encoder_attn.out_proj.weight", True),
+    ("xbo", "encoder_attn.out_proj.bias", False),
+)
+#: tree key -> HF name of the leaves outside the layer stacks
+_WHISPER_TOP = (
+    ("conv1_w", "model.encoder.conv1.weight"),
+    ("conv1_b", "model.encoder.conv1.bias"),
+    ("conv2_w", "model.encoder.conv2.weight"),
+    ("conv2_b", "model.encoder.conv2.bias"),
+    ("enc_pos", "model.encoder.embed_positions.weight"),
+    ("enc_ln_w", "model.encoder.layer_norm.weight"),
+    ("enc_ln_b", "model.encoder.layer_norm.bias"),
+    ("embed", "model.decoder.embed_tokens.weight"),
+    ("dec_pos", "model.decoder.embed_positions.weight"),
+    ("dec_ln_w", "model.decoder.layer_norm.weight"),
+    ("dec_ln_b", "model.decoder.layer_norm.bias"),
+)
+
+
+def _whisper_stacks(config: WhisperConfig):
+    """(tree key, HF side, layer count, entries) of the two stacks."""
+    return (("enc_layers", "encoder", config.n_audio_layers, _WHISPER_BLOCK),
+            ("dec_layers", "decoder", config.n_text_layers,
+             _WHISPER_BLOCK + _WHISPER_CROSS))
+
+
+def whisper_config_from_hf(cfg: dict) -> WhisperConfig:
+    """config.json -> WhisperConfig; refuses a checkpoint whose encoder
+    and decoder head counts differ (the config models one count, true of
+    every released size; another would reshape q/k/v wrong silently)."""
+    enc_heads = cfg.get("encoder_attention_heads", 8)
+    dec_heads = cfg.get("decoder_attention_heads", enc_heads)
+    if dec_heads != enc_heads:
+        raise ValueError(
+            f"unsupported Whisper config: encoder_attention_heads="
+            f"{enc_heads} != decoder_attention_heads={dec_heads}")
+    return WhisperConfig(
+        vocab_size=cfg["vocab_size"],
+        n_mels=cfg.get("num_mel_bins", 80),
+        dim=cfg["d_model"],
+        n_heads=enc_heads,
+        n_audio_layers=cfg["encoder_layers"],
+        n_text_layers=cfg["decoder_layers"],
+        audio_ctx=cfg.get("max_source_positions", 1500),
+        audio_frames=2 * cfg.get("max_source_positions", 1500),
+        text_ctx=cfg.get("max_target_positions", 448),
+        sot_token=cfg.get("decoder_start_token_id", 50258),
+        eot_token=cfg.get("eos_token_id", 50257),
+    )
+
+
+def whisper_config_to_hf(c: WhisperConfig) -> dict:
+    return {
+        "architectures": ["WhisperForConditionalGeneration"],
+        "model_type": "whisper",
+        "vocab_size": c.vocab_size,
+        "num_mel_bins": c.n_mels,
+        "d_model": c.dim,
+        "encoder_attention_heads": c.n_heads,
+        "decoder_attention_heads": c.n_heads,
+        "encoder_layers": c.n_audio_layers,
+        "decoder_layers": c.n_text_layers,
+        "max_source_positions": c.audio_ctx,
+        "max_target_positions": c.text_ctx,
+        "decoder_start_token_id": c.sot_token,
+        "eos_token_id": c.eot_token,
+    }
+
+
+def load_whisper_checkpoint(directory: str | Path, *,
+                            dtype: torch.dtype | None = None,
+                            device: str | torch.device | None = None,
+                            ) -> tuple[dict, WhisperConfig]:
+    """Load an HF-format Whisper checkpoint directory into ``(params,
+    WhisperConfig)`` on ``device`` (default: CUDA, or raise), for
+    ``models/whisper.py``'s transcription. ``dtype`` overrides the
+    serving dtype (default: the config's, bfloat16)."""
+    dev = resolve_device(device)
+    directory = Path(directory)
+    config = whisper_config_from_hf(
+        json.loads((directory / "config.json").read_text()))
+    if dtype is not None:
+        config = config.scaled(dtype=dtype)
+    tensor = _tensor_reader(directory)
+
+    def on_device(name: str, transpose: bool = False) -> torch.Tensor:
+        t = tensor(name).to(dev).to(config.dtype)
+        return t.t().contiguous() if transpose else t
+
+    params: dict = {key: on_device(name) for key, name in _WHISPER_TOP}
+    for key, side, n_layers, entries in _whisper_stacks(config):
+        params[key] = {
+            k: torch.stack([on_device(f"model.{side}.layers.{i}.{suffix}",
+                                      transpose) for i in range(n_layers)])
+            for k, suffix, transpose in entries}
+    return params, config
+
+
+def save_whisper_checkpoint(params: dict, config: WhisperConfig,
+                            directory: str | Path) -> None:
+    """Export a Whisper tree as an HF-format checkpoint directory
+    (config.json and model.safetensors): the inverse of
+    :func:`load_whisper_checkpoint`."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "config.json").write_text(
+        json.dumps(whisper_config_to_hf(config), indent=1))
+
+    def host(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+        t = t.detach().to("cpu")
+        if t.dtype not in (torch.float32, torch.float16, torch.bfloat16):
+            t = t.float()
+        return t.t() if transpose else t
+
+    tensors = {name: host(params[key]) for key, name in _WHISPER_TOP}
+    for key, side, n_layers, entries in _whisper_stacks(config):
+        for k, suffix, transpose in entries:
+            for i in range(n_layers):
+                tensors[f"model.{side}.layers.{i}.{suffix}"] = host(
+                    params[key][k][i], transpose)
+    write_safetensors(directory / "model.safetensors", tensors,
+                      metadata={"format": "pt"})

@@ -57,8 +57,9 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = kv_pos[None, None, :] <= q_pos[:, :, None]
     if kv_lengths is not None:
         mask = mask & (kv_pos[None, None, :] < kv_lengths[:, None, None])
-    logits = torch.where(mask[:, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+    # a scalar fill: a tensor made from host data would be copied to the
+    # card, and that copy waits for every queued kernel
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
     return out.to(q.dtype)
@@ -91,8 +92,7 @@ def tree_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rel = kv_pos - history_lens[:, None, None].long()              # [B,1,Skv]
     bit = (tree_masks[:, :, None].long() >> rel.clamp(0, 31)) & 1  # [B,Sq,Skv]
     visible = (rel < 0) | ((rel < chunk_lens[:, None, None]) & (bit == 1))
-    logits = torch.where(visible[:, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+    logits = logits.masked_fill(~visible[:, None], NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
     out = torch.where(visible.any(-1)[:, :, None, None], out,
@@ -129,8 +129,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qr = q.float().reshape(b, sq, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qr, k_cache.float()) * scale
     mask = torch.arange(smax, device=q.device)[None, :] < kv_lengths[:, None]
-    logits = torch.where(mask[:, None, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+    logits = logits.masked_fill(~mask[:, None, None, None, :], NEG_INF)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v_cache.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)

@@ -55,6 +55,11 @@ model chosen as ``examples/model-serving/main.py`` chooses it
   load for a checkpoint): their decode products and every LM head then
   run through the weight-dequantizing GEMM kernel.
 
+The encoders serve from servers of their own, without an engine:
+:func:`embed_app` (``POST /embed``, BERT) and :func:`asr_app` (``POST
+/transcribe`` and a pub/sub batch worker, Whisper; the counterpart of
+``examples/asr-worker/main.py``).
+
 ``PROFILER_ENABLED=1`` adds ``/debug/profile/start|stop`` and ``GET
 /debug/profile`` (``torch.profiler`` captures into ``PROFILER_DIR``,
 default ``gofr_tpu_profiles`` under the temporary directory).
@@ -96,12 +101,17 @@ from ..device import DeviceRegistry, resolve_device, worst_status
 from ..metrics import Manager
 from ..tracing import Tracer
 from ..models.hf_checkpoint import (load_llama_checkpoint,
+                                    load_whisper_checkpoint,
                                     resolve_serving_dtype)
 from ..models.llama import LlamaConfig, llama_init
+from ..models.whisper import WhisperConfig, whisper_init
+from ..pubsub.inmemory import InMemoryBroker
+from .asr import ASRConfig, ASRWorker, LoopThread, Transcriber, \
+    make_asr_handler
 from .debug import install_debug_routes
 from .engine import Engine, EngineConfig
 from .glue import llama_engine
-from .handlers import make_chat_handler
+from .handlers import make_chat_handler, make_embed_handler
 from .logger import Logger
 from .observability import SLOConfig, SLOTracker
 from .openai_compat import install_openai_routes
@@ -541,6 +551,76 @@ def build_server(engine: Engine, tokenizer: Any = None,
     install_debug_routes(server, engine, name,
                          profiler=_env_bool(env, "PROFILER_ENABLED"),
                          profile_dir=env.get("PROFILER_DIR") or None)
+    return server
+
+
+def _tree_to(tree: dict, dev: torch.device) -> dict:
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def embed_app(params: dict, config: Any, tokenizer: Any = None,
+              host: str = "127.0.0.1", port: int = 0, *,
+              device: str | torch.device | None = None) -> ChatServer:
+    """A server without an engine that answers ``POST /embed``
+    (``handlers.make_embed_handler``) with the BERT tree ``params`` of
+    ``config``, moved to ``device`` (default: CUDA, or raise);
+    ``tokenizer`` defaults to bytes. Call ``serve_forever()`` on it."""
+    dev = resolve_device(device)
+    params = _tree_to(params, dev)
+    server = ChatServer((host, port), None)
+    server.post("/embed", make_embed_handler(
+        params, config, tokenizer or ByteTokenizer()))
+    return server
+
+
+
+def asr_app(env: Mapping[str, str] | None = None,
+            host: str = "127.0.0.1", port: int = 0, *,
+            device: str | torch.device | None = None) -> ChatServer:
+    """The ASR worker app (counterpart of ``examples/asr-worker/main.py:
+    build_app``) on ``device`` (default: CUDA, or raise): ``MODEL_PATH``,
+    a local HF Whisper directory, with ``MODEL_DTYPE`` overriding its
+    dtype; else ``MODEL_PRESET`` (default ``tiny_test``), random weights
+    from seed 0. One :class:`Transcriber` (``max_batch`` 4, ``max_tokens``
+    16, 1 s and 5 s sample buckets, as the example sets them) serves
+    ``POST /transcribe`` and an :class:`ASRWorker` that consumes
+    ``asr.requests`` from an :class:`InMemoryBroker` and publishes to
+    ``asr.results``; the worker runs on its own event loop
+    (``server.asr_loop``, a :class:`LoopThread`) from now until
+    ``server_close``. The health route lists the transcriber as
+    ``whisper`` and the broker as ``pubsub``; ``server.asr_worker`` is
+    the worker (its ``transcriber`` and ``pubsub``). Call
+    ``serve_forever()`` on it."""
+    env = os.environ if env is None else env
+    dev = resolve_device(device)
+    model_path = env.get("MODEL_PATH", "")
+    if model_path:
+        dtype_name = env.get("MODEL_DTYPE", "")
+        params, model_config = load_whisper_checkpoint(
+            model_path,
+            dtype=resolve_serving_dtype(dtype_name) if dtype_name else None,
+            device=dev)
+    else:
+        model_config = getattr(WhisperConfig,
+                               env.get("MODEL_PRESET", "tiny_test"))()
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        params = whisper_init(model_config, generator, dev)
+    transcriber = Transcriber(
+        params, model_config,
+        ASRConfig(max_batch=4, max_tokens=16, sample_buckets=(16000, 80000)),
+        device=dev)
+    broker = InMemoryBroker()
+    worker = ASRWorker(transcriber, broker)
+    server = ChatServer((host, port), None)
+    server.post("/transcribe", make_asr_handler(transcriber))
+    server.health_checks["whisper"] = transcriber
+    server.health_checks["pubsub"] = broker
+    server.asr_worker = worker
+    server.asr_loop = LoopThread()
+    server.asr_loop.start(worker.run())
+    server.on_close.append(server.asr_loop.stop)
     return server
 
 

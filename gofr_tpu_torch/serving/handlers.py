@@ -1,5 +1,6 @@
-"""``POST /chat`` of the port's app (counterpart of
-``gofr_tpu/serving/handlers.py:make_chat_handler``).
+"""``POST /chat`` and ``POST /embed`` of the port's app (counterparts of
+``gofr_tpu/serving/handlers.py``'s ``make_chat_handler`` and
+``make_embed_handler``).
 
 ``{"prompt": str, "max_tokens"?, "temperature"?, "top_p"?, "top_k"?,
 "stream"?: bool}``, or ``"messages": [{"content": ...}, ...]`` joined by
@@ -29,10 +30,14 @@ import time
 from contextlib import closing
 from typing import Any
 
+import numpy as np
+import torch
+
+from ..models.bert import bert_encode, mean_pool_embed
 from .engine import Engine, GenRequest, SamplingParams
 from .responses import (ClientGone, ErrorInvalidParam, ErrorMissingParam,
                         ErrorServiceUnavailable, ErrorTooManyRequests,
-                        HTTPError, Stream)
+                        HTTPError, Raw, Stream)
 from .scheduler import retry_after_header
 
 #: seconds a handler waits on a request's channel before it checks that
@@ -163,3 +168,46 @@ def make_chat_handler(engine: Engine, tokenizer: Any):
         }
 
     return chat_handler
+
+
+def make_embed_handler(params: dict, config: Any, tokenizer: Any, *,
+                       max_len: int = 512,
+                       buckets=(16, 32, 64, 128, 256, 512)):
+    """``POST /embed``: ``{"input": str | [str]}`` -> 201 ``{"embeddings":
+    [[...]], "dim", "latency_ms"}`` (a bare body, no ``data`` envelope).
+    Each text's ids are cut to ``max_len``; the batch is right-padded to
+    the least bucket that holds its longest text (the widest bucket cuts
+    longer ones); mean pooling over the mask, L2-normalised. The batch
+    runs on the device that holds ``params``. A body without ``input``
+    answers 400."""
+    device = params["word_embed"].device
+
+    def embed_handler(ctx: Any) -> Any:
+        body = ctx.bind() or {}
+        texts = body.get("input")
+        if isinstance(texts, str):
+            texts = [texts]
+        if not texts or not isinstance(texts, list):
+            raise ErrorMissingParam("input")
+        start = time.perf_counter()
+        token_lists = [tokenizer.encode(t)[:max_len] for t in texts]
+        longest = max(len(t) for t in token_lists)
+        bucket = next((b for b in buckets if longest <= b), buckets[-1])
+        batch = np.zeros((len(texts), bucket), np.int64)
+        mask = np.zeros((len(texts), bucket), np.int32)
+        for i, toks in enumerate(token_lists):
+            toks = toks[:bucket]
+            batch[i, :len(toks)] = toks
+            mask[i, :len(toks)] = 1
+        with torch.inference_mode():
+            mask_t = torch.from_numpy(mask).to(device)
+            hidden, _ = bert_encode(params, torch.from_numpy(batch).to(device),
+                                    config, attention_mask=mask_t)
+            emb = mean_pool_embed(hidden, mask_t).cpu().double().numpy()
+        return Raw({
+            "embeddings": [e.tolist() for e in emb],
+            "dim": int(emb.shape[-1]),
+            "latency_ms": round((time.perf_counter() - start) * 1000, 2),
+        })
+
+    return embed_handler

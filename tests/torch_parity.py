@@ -1,8 +1,10 @@
 """Helpers the port's parity tests share: a tolerance check across
-tensor kinds, and the request-level parity of two engines' runs."""
+tensor kinds, the request-level parity of two engines' runs, and a count
+of tensors made from host data."""
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gofr_tpu.serving.integrity import request_digest
 
@@ -59,3 +61,17 @@ def serve_waves(engine, waves: list, params, timeout_s: float = 120.0):
     finally:
         engine.stop()
     return reqs
+
+
+class HostTensors(TorchDispatchMode):
+    """Counts tensors made from host data (``aten.lift_fresh``): on the
+    card each is a copy that waits for every queued kernel."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.lift_fresh.default:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
