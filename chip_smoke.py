@@ -265,8 +265,21 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              device ms, utterances/s, audio seconds per wall second,
              weight bytes, peak memory. No kernel of the repository lies
              on this path either.
+13. serve_warm — checkpoint/resume at Llama-3-8B's full width (4 of its
+             32 layers, 3.85 GB of bf16, random from seed 0) and the C++
+             BPE merge loop (``phase_serve_warm``' docstring): (a)
+             ``Checkpointer.save`` / ``restore`` bit for bit, bf16 stored
+             as its bits; (b) ``warm_start`` behind the app: a streamed
+             and a unary greedy ``/chat`` bit for bit the in-memory
+             engine's; (c) a 2,048-merge ``tokenizer.json`` learned from
+             seeded text, the native loop live and equal to the Python
+             loop on 1 MB; each with its planted fault. Bytes, save /
+             restore s and GB/s, seconds from ``warm_start`` to the first
+             token, peak memory, native and Python encode MB/s. The
+             engine behind it runs the kernels as serve does; no
+             kernel's row takes its launches from it.
 
-Each of the two prints its wall time (``phase_wall_s``), as the later
+Each of the last three prints its wall time (``phase_wall_s``), as the later
 serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
@@ -8082,6 +8095,399 @@ def _asr_checkpoint(dev, preset: str, tmp: Path, pcm) -> tuple:
     return numbers, (faults["good"], faults["swapped"])
 
 
+#: serve_warm: the synthetic corpus the BPE merges are learned from and
+#: the text the native loop is held against
+WARM_MERGES = 2048
+WARM_TEXT_BYTES = 1 << 20
+
+
+def _warm_words(rng, n: int) -> list:
+    """``n`` distinct lowercase words of 1-4 syllables from ``rng``."""
+    onsets = ["", "b", "c", "d", "f", "g", "h", "k", "l", "m", "n", "p",
+              "r", "s", "t", "v", "w", "st", "tr", "ch", "sh", "th", "pl"]
+    nuclei = ["a", "e", "i", "o", "u", "ea", "ou", "ai", "io"]
+    codas = ["", "", "n", "r", "s", "t", "l", "m", "nd", "ng", "st"]
+    words: dict = {}
+    while len(words) < n:
+        word = "".join(onsets[rng.integers(len(onsets))]
+                       + nuclei[rng.integers(len(nuclei))]
+                       + codas[rng.integers(len(codas))]
+                       for _ in range(int(rng.integers(1, 5))))
+        words.setdefault(word, None)
+    return list(words)
+
+
+def _warm_text(rng, words: list, n_bytes: int) -> str:
+    """About ``n_bytes`` of text: Zipf-weighted words, commas, numbers,
+    capitals and line breaks, so the pre-tokenizer's every branch runs."""
+    import numpy as np
+    weights = 1.0 / np.arange(1, len(words) + 1)
+    picks = rng.choice(len(words), size=n_bytes // 5,
+                       p=weights / weights.sum())
+    out, size = [], 0
+    for i, w in enumerate(picks):
+        word = words[w]
+        r = rng.random()
+        if r < 0.03:
+            word = word.capitalize()
+        elif r < 0.05:
+            word = str(int(rng.integers(0, 100000)))
+        elif r < 0.08:
+            word += ","
+        elif r < 0.09:
+            word += ".\n"
+        out.append(word)
+        size += len(word) + 1
+        if size >= n_bytes:
+            break
+    return " ".join(out)
+
+
+def _learn_merges(text: str, n_merges: int) -> list:
+    """Byte-level BPE merges (GPT-2 alphabet, ``"Ġ t"`` form) learned
+    from the frequencies of ``text``'s space-led words: each round merges
+    the most frequent adjacent pair (ties: the least pair). Pair counts
+    are kept up to date word by word, so a round touches only the words
+    that hold its pair."""
+    import heapq
+    from collections import Counter, defaultdict
+    from gofr_tpu_torch.serving.tokenizer import _byte_level_table
+    chars = {b: ch for ch, b in _byte_level_table().items()}
+    freq = Counter(" " + w for w in text.split())
+    words = [[chars[b] for b in w.encode()] for w in freq]
+    counts = list(freq.values())
+    pairs: Counter = Counter()
+    where = defaultdict(set)
+
+    def account(i: int, sign: int) -> set:
+        syms = words[i]
+        touched = set(zip(syms, syms[1:]))
+        for pair in zip(syms, syms[1:]):
+            pairs[pair] += sign * counts[i]
+        for pair in touched:
+            (where[pair].add if sign > 0 else where[pair].discard)(i)
+        return touched
+
+    for i in range(len(words)):
+        account(i, 1)
+    heap = [(-n, pair) for pair, n in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while len(merges) < n_merges and heap:
+        neg, best = heapq.heappop(heap)
+        if pairs[best] != -neg or -neg <= 0:
+            continue                      # stale entry
+        merges.append(f"{best[0]} {best[1]}")
+        joined = best[0] + best[1]
+        touched = set()
+        for i in list(where[best]):
+            touched |= account(i, -1)
+            syms, j = words[i], 0
+            while j < len(syms) - 1:
+                if syms[j] == best[0] and syms[j + 1] == best[1]:
+                    syms[j:j + 2] = [joined]
+                j += 1
+            touched |= account(i, 1)
+        for pair in touched:
+            if pairs[pair] > 0:
+                heapq.heappush(heap, (-pairs[pair], pair))
+    return merges
+
+
+def _write_learned_tokenizer(path, merges: list) -> None:
+    """A byte-level ``tokenizer.json``: the 256 bytes, ``merges`` (their
+    tokens ids 256 on) and the Llama-3 specials."""
+    from gofr_tpu_torch.serving.tokenizer import _byte_level_table
+    chars = {b: ch for ch, b in _byte_level_table().items()}
+    vocab = {chars[b]: b for b in range(256)}
+    for pair in merges:
+        vocab.setdefault(pair.replace(" ", ""), len(vocab))
+    added = [{"id": 128000, "content": "<|begin_of_text|>"},
+             {"id": 128001, "content": "<|end_of_text|>"}]
+    Path(path).write_text(json.dumps({
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+        "added_tokens": added}))
+
+
+def _leaf_faults(got: dict, want: dict) -> list:
+    """Leaves of two flat trees that are not bit-equal (or differ in
+    dtype or key)."""
+    import torch
+    if sorted(got) != sorted(want):
+        return [f"keys {sorted(set(got) ^ set(want))[:4]}"]
+    return [k for k, v in want.items()
+            if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+
+
+def _warm_chat(port: int, prompt: str, n_new: int) -> dict:
+    """One streamed and one unary greedy ``POST /chat``: the streamed
+    tokens, the seconds to the first event, the unary tokens."""
+    sse = _sse_call(port, "/chat", {"prompt": prompt, "max_tokens": n_new,
+                                    "temperature": 0, "stream": True})
+    frames = [e for _, e in sse["events"] if isinstance(e, dict)
+              and "token" in e]
+    status, body = _post(f"http://127.0.0.1:{port}/chat",
+                         {"prompt": prompt, "max_tokens": n_new,
+                          "temperature": 0})
+    return {"status": sse["status"], "unary_status": status,
+            "first_event_s": sse["events"][0][0] if sse["events"] else None,
+            "terminal": sse["terminal"],
+            "tokens": [f["token"] for f in frames],
+            "unary_tokens": body["data"]["tokens"] if status == 201 else None}
+
+
+def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
+                     text_bytes: int = WARM_TEXT_BYTES,
+                     n_merges: int = WARM_MERGES) -> None:
+    """Checkpoint/resume and warm start at Llama-3-8B's full width
+    (``cfg``, default ``llama3_8b``: dim 4096, 32 / 8 heads, hd 128, ffn
+    14336, vocab 128256, untied head) cut to ``layers`` of its 32 layers,
+    random bf16 weights made on the card from seed 0, and the C++ BPE
+    merge loop that tokenizes its prompts. Checks, each with a planted
+    fault that must fail it:
+
+    (a) ``Checkpointer.save`` from the card into a temporary directory,
+        then ``restore(device=...)``: every leaf ``torch.equal`` to its
+        source, stored as bf16 bits (the manifest's dtypes, and
+        ``arrays.npz`` within 1 % of the weights' bytes: no float32
+        copy); planted: one bf16 leaf round-tripped through float16;
+    (b) ``warm_start`` builds the app's engine (``serve_config``) from
+        the latest step behind ``build_server``: one streamed, then one
+        unary greedy ``POST /chat`` of 32 tokens on the same prompt (the
+        second a prefix-cache hit), bit for bit an in-memory
+        ``llama_engine`` on the source tree with the same config serving
+        the same two requests in order; planted: an engine built from the
+        flat keystr-keyed dict (what the JAX package's hook passes),
+        which must not serve;
+    (c) a ``tokenizer.json`` with ``n_merges`` merges learned from a
+        seeded synthetic corpus, loaded by ``BPETokenizer.from_hf_json``:
+        the native loop must be live (a fallback fails), its ids on
+        ``text_bytes`` of seeded text equal the pure-Python loop's, and
+        ``decode(encode(t)) == t``; planted: two merge ranks swapped in
+        the native table alone. The same tokenizer serves (b)'s prompts.
+
+    Also the bytes, ``save_s``, ``restore_s`` and GB/s of each, the
+    seconds from ``warm_start`` to the first token, peak memory, and the
+    encode MB/s of the native and the pure-Python loop."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.checkpoint import (ARRAYS, MANIFEST, Checkpointer,
+                                           flatten, warm_start)
+    from gofr_tpu_torch.models.llama import (LlamaConfig, llama_init,
+                                             param_count)
+    from gofr_tpu_torch.native.bpe import NativeBPE
+    from gofr_tpu_torch.serving.app import build_server, serve_config
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    from gofr_tpu_torch.serving.tokenizer import (BPETokenizer,
+                                                  _byte_level_table)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="gofr_warm_"))
+    reduced = []
+    checks: dict = {}
+    out: dict = {"phase": "serve_warm", "card": smi_line}
+    try:
+        # (c) first: its tokenizer feeds (b)'s prompts
+        rng = np.random.default_rng(0)
+        words = _warm_words(rng, 3000)
+        t0 = time.perf_counter()
+        merges = _learn_merges(_warm_text(rng, words, 200_000), n_merges)
+        learn_s = time.perf_counter() - t0
+        _write_learned_tokenizer(tmp / "tokenizer.json", merges)
+        tok = BPETokenizer.from_hf_json(tmp / "tokenizer.json")
+        text = _warm_text(np.random.default_rng(1), words, text_bytes)
+        data_mb = len(text.encode()) / 1e6
+        py = copy.copy(tok)
+        py._native = None
+        c_faults = [] if tok.native else ["native loop not live"]
+        t0 = time.perf_counter()
+        ids = tok.encode(text, bos=False)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py_ids = py.encode(text, bos=False)
+        py_s = time.perf_counter() - t0
+        if ids != py_ids:
+            c_faults.append(f"ids differ at {_common_prefix(ids, py_ids)}")
+        if tok.decode(ids) != text:
+            c_faults.append("decode(encode(text)) != text")
+        swapped = dict(tok.merge_ranks)
+        first, last = merges[0].replace(" ", ""), merges[-1].replace(" ", "")
+        byte = _byte_level_table()
+        first_b = bytes(byte[c] for c in first)
+        last_b = bytes(byte[c] for c in last)
+        swapped[first_b], swapped[last_b] = swapped[last_b], swapped[first_b]
+        bad = copy.copy(tok)
+        bad._native = NativeBPE(tok.ranks, swapped) if tok.native else None
+        bad_ids = bad.encode(text, bos=False)
+        checks["c_native_bpe"] = (c_faults, [] if bad_ids == ids else [
+            f"ids differ at {_common_prefix(ids, bad_ids)}"])
+        out["c"] = {"merges": len(merges), "learn_s": learn_s,
+                    "text_mb": data_mb, "tokens": len(ids),
+                    "native": tok.native, "native_s": native_s,
+                    "python_s": py_s, "native_mb_s": data_mb / native_s,
+                    "python_mb_s": data_mb / py_s,
+                    "planted_first_diff": _common_prefix(ids, bad_ids)}
+
+        # (a) save and restore at full width
+        cfg = cfg or LlamaConfig.llama3_8b()
+        need = None
+        for n in (layers, 2):
+            c = cfg.scaled(n_layers=n)
+            need = 2 * (2 * c.vocab_size * c.dim + n * (
+                c.dim * (c.n_heads + 2 * c.n_kv_heads) * c.head_dim
+                + c.n_heads * c.head_dim * c.dim + 3 * c.dim * c.ffn_dim))
+            if shutil.disk_usage(tmp).free > 1.2 * need or n == 2:
+                break
+        if n != cfg.n_layers:
+            reduced.append(f"depth {n} of {cfg.n_layers} layers")
+            if n != layers:
+                reduced.append(f"{layers} layers do not fit the disk")
+        cfg = cfg.scaled(n_layers=n)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = llama_init(cfg, gen, dev)
+        nbytes = sum(v.numel() * v.element_size()
+                     for _, v in flatten(params))
+        ckpt = Checkpointer(tmp / "ckpt")
+        sync()
+        t0 = time.perf_counter()
+        ckpt.save(1, params, metadata={"config": "llama3_8b",
+                                       "n_layers": n})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ckpt.restore(device=dev)
+        sync()
+        restore_s = time.perf_counter() - t0
+        want = dict(flatten(params))
+        manifest = json.loads((tmp / "ckpt" / "step_1" / MANIFEST)
+                              .read_text())
+        stored = (tmp / "ckpt" / "step_1" / ARRAYS).stat().st_size
+        a_faults = _leaf_faults(restored, want)
+        a_faults += [e["key"] for e in manifest["leaves"]
+                     if e["dtype"] != "bfloat16"]
+        if not nbytes <= stored <= 1.01 * nbytes:
+            a_faults.append(f"arrays.npz {stored} B for {nbytes} B of bf16")
+        planted = dict(restored)
+        planted["['embed']"] = planted["['embed']"].to(
+            torch.float16).to(torch.bfloat16)
+        checks["a_roundtrip"] = (a_faults, _leaf_faults(planted, want))
+        del planted
+        out["config"] = (f"llama3_8b: dim {cfg.dim}, {cfg.n_heads} / "
+                         f"{cfg.n_kv_heads} heads, hd {cfg.head_dim}, ffn "
+                         f"{cfg.ffn_dim}, vocab {cfg.vocab_size}, "
+                         f"{cfg.n_layers} layers, {cfg.dtype}, seed 0")
+        out["a"] = {"params": param_count(params), "bytes": nbytes,
+                    "stored_bytes": stored, "save_s": save_s,
+                    "restore_s": restore_s,
+                    "save_gb_s": nbytes / save_s / 1e9,
+                    "restore_gb_s": nbytes / restore_s / 1e9}
+
+        # (b) warm start behind the app, against the in-memory engine
+        econf = serve_config(cfg)
+        prompt = text[:600]
+        n_new = 32
+        flat = restored
+        del restored
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = warm_start("llama3_8b", tmp / "ckpt",
+                            lambda p: llama_engine(p, cfg, econf,
+                                                   device=dev), device=dev)
+        server = build_server(engine, tok, port=0)
+        thread = _serving(server)
+        try:
+            started = time.perf_counter() - t0
+            chat = _warm_chat(server.port, prompt, n_new)
+        finally:
+            _stop(server, thread)
+            engine.stop()
+        first_token_s = started + (chat["first_event_s"] or float("nan"))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+        del engine, server
+        gc.collect()
+        # the same two requests in the same order: the second one hits
+        # the prefix cache, in the app and here
+        twin = llama_engine(params, cfg, econf, device=dev)
+        twin.start()
+        try:
+            reqs = [twin.submit_sync(tok.encode(prompt), SamplingParams(
+                temperature=0.0, max_new_tokens=n_new), 600)
+                for _ in range(2)]
+        finally:
+            twin.stop()
+        del twin
+        req = reqs[0]
+        b_faults = []
+        if chat["status"] != 200 or not chat["terminal"]:
+            b_faults.append(f"stream status {chat['status']}")
+        if any(r.error or len(r.generated) != n_new for r in reqs):
+            b_faults.append(f"in-memory engine: {[r.error for r in reqs]}")
+        if chat["tokens"] != list(req.generated):
+            b_faults.append("streamed tokens differ")
+        if chat["unary_tokens"] != list(reqs[1].generated):
+            b_faults.append("unary tokens differ")
+        # planted: the flat dict the JAX hook passes
+        try:
+            wrong = llama_engine(flat, cfg, econf, device=dev)
+            wrong.start()
+            try:
+                bad_req = wrong.submit_sync(tok.encode(prompt),
+                                            SamplingParams(
+                                                temperature=0.0,
+                                                max_new_tokens=n_new), 600)
+            finally:
+                wrong.stop()
+            served = bad_req.error is None and bool(bad_req.generated)
+            flat_error = bad_req.error
+            del wrong
+        except Exception as exc:  # noqa: BLE001 — refusing to build fails it
+            served, flat_error = False, repr(exc)[:200]
+        checks["b_warm_start"] = (b_faults, [] if served else [
+            f"the flat dict did not serve: {flat_error}"])
+        out["b"] = {"engine": f"serve_config: {econf.max_batch} slots, "
+                              f"max_seq {econf.max_seq}, page "
+                              f"{econf.page_size}",
+                    "prompt_tokens": len(tok.encode(prompt)),
+                    "warm_start_to_server_s": started,
+                    "warm_start_to_first_token_s": first_token_s,
+                    "tokens": chat["tokens"][:8],
+                    "in_memory_tokens": list(req.generated)[:8],
+                    "bit_equal": chat["tokens"] == list(req.generated)
+                    and chat["unary_tokens"] == list(reqs[1].generated),
+                    "prefix_hit_tokens_equal_first": list(
+                        reqs[1].generated) == list(req.generated),
+                    "max_memory_allocated_gb": peak,
+                    "planted_flat_error": flat_error}
+        del flat, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"reduced": reduced,
+                "phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_warm: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8171,6 +8577,7 @@ def main() -> int:
                "serve_llama8b": phase_serve_llama8b(dev, smi_line)}
     phase_serve_embed(dev, smi_line)
     phase_serve_asr(dev, smi_line)
+    phase_serve_warm(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

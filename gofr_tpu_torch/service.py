@@ -1,13 +1,27 @@
 """Inter-service HTTP client with decorator options (the port's copy of
-what the control plane uses from ``gofr_tpu/service/client.py``).
+``gofr_tpu/service/client.py``).
 
 ``new_http_service(url, *options)`` builds a client whose options wrap
-the transport: :class:`Retry` (bounded retries with exponential backoff;
-a 429 / 503 carrying ``Retry-After`` waits what the server asked, capped)
-and :class:`CircuitBreaker` (opens after ``threshold`` consecutive
-failures; one trial request per ``interval_s`` is let through half-open
-and closes it on success). Every request carries the active span's
-``traceparent`` when the service has a tracer.
+the transport, in JAX's order: every option's ``before`` edits the
+headers (first to last), then the ``around`` chain runs with the first
+option outermost. The options:
+
+- :class:`BasicAuth`, :class:`APIKeyAuth` (header ``X-Api-Key`` by
+  default), :class:`CustomHeaders`, :class:`OAuth2ClientCredentials`
+  (the token fetched with a form POST to ``token_url`` and cached until
+  30 s before its ``expires_in``);
+- :class:`Retry` (bounded retries with exponential backoff; a 429 / 503
+  carrying ``Retry-After`` waits what the server asked, capped);
+- :class:`RateLimit` (a token bucket of ``rate`` a second and ``burst``
+  capacity; an empty bucket raises :class:`RateLimitedError`);
+- :class:`CircuitBreaker` (opens after ``threshold`` consecutive
+  failures; one trial request per ``interval_s`` is let through
+  half-open and closes it on success);
+- :class:`HealthConfig`: the path and timeout of
+  :meth:`HTTPService.health_check` (``/.well-known/alive``, 5 s).
+
+Every request carries the active span's ``traceparent`` when the service
+has a tracer.
 
 The port's serving stack is threads, not an event loop, so the client is
 synchronous: one ``http.client`` connection per request, ``Connection:
@@ -15,18 +29,20 @@ close``. The agent's heartbeat thread and the router's request threads
 call it directly. :func:`probe_leader` / :func:`resolve_leader` walk the
 ranked leader candidates' ``GET /control/leader``.
 
-Left out (not on the fleet path): the auth options (basic, API key,
-OAuth2 client credentials), custom headers, ``RateLimit``, the
-health-check option, and the ``app_http_service_response`` histogram
-and debug log of each call.
+Left out: the ``app_http_service_response`` histogram and debug log of
+each call, and the circuit breaker's background health probe (a
+synchronous client has no loop to run it; the half-open trial request
+recovers the circuit).
 """
 
 from __future__ import annotations
 
+import base64
 import http.client
 import json as json_mod
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping
 from urllib.parse import urlencode, urlsplit
 
@@ -52,6 +68,11 @@ class ServiceError(Exception):
 class CircuitOpenError(ServiceError):
     def __init__(self, url: str) -> None:
         super().__init__(f"circuit breaker open for {url}")
+
+
+class RateLimitedError(ServiceError):
+    def __init__(self, url: str) -> None:
+        super().__init__(f"client-side rate limit exceeded for {url}")
 
 
 def _raw_request(method: str, url: str, *, headers: Mapping[str, str],
@@ -83,14 +104,80 @@ Call = Callable[[str, str, dict, bytes], Response]
 
 class Option:
     """A decorator around the request call; subclasses override
-    ``around``."""
+    ``before`` (edit the headers) or ``around`` (wrap the call)."""
 
     def bind(self, service: "HTTPService") -> None:
         self.service = service
 
+    def before(self, headers: dict[str, str]) -> None:
+        pass
+
     def around(self, call: Call, method: str, path: str, headers: dict,
                body: bytes) -> Response:
         return call(method, path, headers, body)
+
+
+@dataclass
+class BasicAuth(Option):
+    username: str
+    password: str
+
+    def before(self, headers: dict[str, str]) -> None:
+        token = base64.b64encode(
+            f"{self.username}:{self.password}".encode()).decode()
+        headers["Authorization"] = f"Basic {token}"
+
+
+@dataclass
+class APIKeyAuth(Option):
+    api_key: str
+    header: str = "X-Api-Key"
+
+    def before(self, headers: dict[str, str]) -> None:
+        headers[self.header] = self.api_key
+
+
+@dataclass
+class CustomHeaders(Option):
+    headers: dict[str, str] = field(default_factory=dict)
+
+    def before(self, headers: dict[str, str]) -> None:
+        headers.update(self.headers)
+
+
+@dataclass
+class OAuth2ClientCredentials(Option):
+    """The client-credentials grant: a form POST of ``grant_type``,
+    ``client_id``, ``client_secret`` (and ``scope`` when set) to
+    ``token_url``; the ``access_token`` is sent as a bearer token and
+    fetched again 30 s before its ``expires_in`` (default 300 s) runs
+    out. A failed fetch raises :class:`ServiceError`."""
+
+    token_url: str
+    client_id: str
+    client_secret: str
+    scopes: str = ""
+    _token: str | None = None
+    _expiry: float = 0.0
+
+    def before(self, headers: dict[str, str]) -> None:
+        if self._token is None or time.time() >= self._expiry - 30:
+            form = {"grant_type": "client_credentials",
+                    "client_id": self.client_id,
+                    "client_secret": self.client_secret}
+            if self.scopes:
+                form["scope"] = self.scopes
+            resp = _raw_request(
+                "POST", self.token_url,
+                headers={"Content-Type": "application/x-www-form-urlencoded"},
+                body=urlencode(form).encode(), timeout=10.0)
+            if not resp.ok:
+                raise ServiceError(
+                    f"oauth token fetch failed: {resp.status}")
+            payload = resp.json() or {}
+            self._token = payload.get("access_token", "")
+            self._expiry = time.time() + float(payload.get("expires_in", 300))
+        headers["Authorization"] = f"Bearer {self._token}"
 
 
 def parse_retry_after(value: str) -> float | None:
@@ -157,6 +244,31 @@ class Retry(Option):
 
 
 @dataclass
+class RateLimit(Option):
+    """Token bucket: ``rate`` requests a second, ``burst`` capacity; a
+    request that finds it empty raises :class:`RateLimitedError`."""
+
+    rate: float = 10.0
+    burst: int = 10
+
+    def __post_init__(self) -> None:
+        self._tokens = float(self.burst)
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def around(self, call, method, path, headers, body):
+        with self._lock:
+            now = time.monotonic()
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.rate)
+            self._last = now
+            if self._tokens < 1.0:
+                raise RateLimitedError(self.service.base_url)
+            self._tokens -= 1.0
+        return call(method, path, headers, body)
+
+
+@dataclass
 class CircuitBreaker(Option):
     """Opens after ``threshold`` consecutive failures (a raise or a 5xx).
     While open, requests fail fast with :class:`CircuitOpenError` except
@@ -202,6 +314,15 @@ class CircuitBreaker(Option):
             self._last_probe = time.monotonic()
 
 
+@dataclass
+class HealthConfig(Option):
+    """Where :meth:`HTTPService.health_check` asks, and how long it
+    waits."""
+
+    path: str = "/.well-known/alive"
+    timeout_s: float = 5.0
+
+
 # -------------------------------------------------------------- service
 class HTTPService:
     """Requests to one base URL through its options, with the active
@@ -213,6 +334,8 @@ class HTTPService:
         self.timeout = timeout
         self.tracer = tracer
         self.options = list(options)
+        self.health = next((o for o in self.options
+                            if isinstance(o, HealthConfig)), HealthConfig())
         for opt in self.options:
             opt.bind(self)
 
@@ -229,6 +352,8 @@ class HTTPService:
             path = path + ("&" if "?" in path else "?") + urlencode(params)
         if self.tracer is not None:
             self.tracer.inject_headers(hdrs)
+        for opt in self.options:
+            opt.before(hdrs)
 
         def base_call(method, path, headers, body):
             return _raw_request(method, self.base_url + path,
@@ -251,6 +376,29 @@ class HTTPService:
 
     def post(self, path: str, **kw) -> Response:
         return self.request("POST", path, **kw)
+
+    def put(self, path: str, **kw) -> Response:
+        return self.request("PUT", path, **kw)
+
+    def patch(self, path: str, **kw) -> Response:
+        return self.request("PATCH", path, **kw)
+
+    def delete(self, path: str, **kw) -> Response:
+        return self.request("DELETE", path, **kw)
+
+    def health_check(self) -> dict:
+        """``GET`` the :class:`HealthConfig` path, outside the options:
+        ``{"status": "UP"}`` on a 2xx, else ``DOWN`` with the ``code``
+        or the ``error``."""
+        try:
+            resp = _raw_request("GET", self.base_url + self.health.path,
+                                headers={}, body=b"",
+                                timeout=self.health.timeout_s)
+            if resp.ok:
+                return {"status": "UP"}
+            return {"status": "DOWN", "code": resp.status}
+        except Exception as exc:  # noqa: BLE001 — any failure is DOWN
+            return {"status": "DOWN", "error": str(exc)}
 
 
 def new_http_service(base_url: str, *options: Option, **kw) -> HTTPService:
@@ -300,6 +448,9 @@ def resolve_leader(candidates, *, epoch_at_least: int = -1,
     return best
 
 
-__all__ = ["CircuitBreaker", "CircuitOpenError", "HTTPService", "Option",
-           "Response", "Retry", "ServiceError", "new_http_service",
-           "parse_retry_after", "probe_leader", "resolve_leader"]
+__all__ = ["APIKeyAuth", "BasicAuth", "CircuitBreaker", "CircuitOpenError",
+           "CustomHeaders", "HTTPService", "HealthConfig",
+           "OAuth2ClientCredentials", "Option", "RateLimit",
+           "RateLimitedError", "Response", "Retry", "ServiceError",
+           "new_http_service", "parse_retry_after", "probe_leader",
+           "resolve_leader"]

@@ -55,6 +55,12 @@ model chosen as ``examples/model-serving/main.py`` chooses it
   load for a checkpoint): their decode products and every LM head then
   run through the weight-dequantizing GEMM kernel.
 
+:meth:`ChatServer.register_grpc_service` serves a gRPC service (the
+chat service of ``serving/grpc_chat.py``) beside the HTTP routes on
+``GRPC_PORT`` (default 9000); ``grpc`` is imported there only, and the
+module's ``main`` registers none. ``checkpoint.warm_start`` builds an
+engine from the latest checkpoint, for ``build_server``.
+
 The encoders serve from servers of their own, without an engine:
 :func:`embed_app` (``POST /embed``, BERT) and :func:`asr_app` (``POST
 /transcribe`` and a pub/sub batch worker, Whisper; the counterpart of
@@ -371,6 +377,13 @@ class ChatServer(ThreadingHTTPServer):
         self.on_close: list[Callable[[], None]] = []
         #: the ``ControlPlaneLeader`` of ``serve_fleet_leader``, if any
         self.leader = None
+        #: the logger ``build_server`` made (the gRPC server logs there)
+        self.logger: Logger | None = None
+        #: the environment the server reads (``GRPC_PORT``,
+        #: ``GRPC_ENABLE_REFLECTION``)
+        self.env: Mapping[str, str] = os.environ
+        #: the ``GRPCServer`` of :meth:`register_grpc_service`, if any
+        self.grpc_server = None
 
     def post(self, path: str, fn: Callable) -> None:
         self.routes[("POST", path)] = fn
@@ -405,7 +418,51 @@ class ChatServer(ThreadingHTTPServer):
             self.devices.publish_metrics()
         return self.metrics.snapshot()
 
+    def register_grpc_service(self, service: Any) -> None:
+        """Serve ``service`` (a ``gofr_tpu_torch.grpc.GRPCService``) over
+        gRPC beside this server (counterpart of the JAX app's
+        ``register_grpc_service``): the first call makes a ``GRPCServer``
+        on ``GRPC_PORT`` (default 9000; 0 = a free port, then
+        ``grpc_server.bound_port``) and this server's host, on a pool of
+        two threads per engine slot plus 8, at least 32 (each stream
+        holds one while it runs). A protogen module's
+        ``FILE_DESCRIPTOR_SET``, found on the service's class or a base's
+        module, feeds reflection. The gRPC server starts with
+        ``serve_forever`` (or :meth:`start_grpc`) and stops in
+        ``server_close``."""
+        import sys
+
+        from ..grpc.server import DEFAULT_GRPC_PORT, GRPCServer
+        if self.grpc_server is None:
+            slots = self.engine.config.max_batch \
+                if self.engine is not None else 0
+            self.grpc_server = GRPCServer(
+                self, port=int(self.env.get("GRPC_PORT", DEFAULT_GRPC_PORT)),
+                host=self.server_address[0], logger=self.logger,
+                max_workers=max(32, 2 * slots + 8))
+        self.grpc_server.register(service)
+        # the constant lives in the generated module, usually a base
+        # class's (users subclass <Service>Base in their own module)
+        for klass in type(service).__mro__:
+            fds = getattr(sys.modules.get(klass.__module__),
+                          "FILE_DESCRIPTOR_SET", None)
+            if fds:
+                self.grpc_server.register_descriptors(fds)
+                break
+
+    def start_grpc(self) -> None:
+        """Start the gRPC server, if a service is registered and it is
+        not running yet."""
+        if self.grpc_server is not None and not self.grpc_server.started:
+            self.grpc_server.start()
+
+    def serve_forever(self, poll_interval: float = 0.5) -> None:
+        self.start_grpc()
+        super().serve_forever(poll_interval)
+
     def server_close(self) -> None:
+        if self.grpc_server is not None:
+            self.grpc_server.shutdown()
         for hook in list(self.on_close):
             try:
                 hook()
@@ -527,6 +584,8 @@ def build_server(engine: Engine, tokenizer: Any = None,
         engine.waiting.logger = logger
     server = ChatServer((host, port), engine, tenant_of=tenant_of,
                         tracer=tracer or engine.tracer)
+    server.logger = logger
+    server.env = env
     if engine.tracer is None:
         engine.tracer = server.tracer
     if engine.slo is None:

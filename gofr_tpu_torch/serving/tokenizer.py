@@ -6,8 +6,10 @@ tokens, reversible for any text, vocab 260. ``BPETokenizer`` loads a
 byte-pair vocabulary from a tiktoken-format rank file
 (:meth:`BPETokenizer.from_files`) or a Hugging Face ``tokenizer.json``
 (:meth:`BPETokenizer.from_hf_json`), as a served checkpoint brings it.
-The merge loop is pure Python here (the JAX package's C++ fast path is
-not ported).
+Its merge loop runs in C++ (``gofr_tpu_torch/native/bpe.py``) whenever a
+compiler is present, one call for the whole text with the
+pre-tokenizer's piece bounds, and in pure Python otherwise
+(:attr:`BPETokenizer.native` says which).
 """
 
 from __future__ import annotations
@@ -106,6 +108,17 @@ class BPETokenizer:
         self._decode_table: dict[int, bytes] = {v: k for k, v in ranks.items()}
         for text, sid in self.specials.items():
             self._decode_table.setdefault(sid, text.encode())
+        self._native = None
+        try:
+            from ..native import bpe as native_bpe
+            self._native = native_bpe.load(ranks, merge_ranks)
+        except Exception:  # noqa: BLE001 — no compiler: pure Python
+            self._native = None
+
+    @property
+    def native(self) -> bool:
+        """True when the C++ merge loop is live."""
+        return self._native is not None
 
     @classmethod
     def from_files(cls, ranks_path: str | Path,
@@ -160,7 +173,7 @@ class BPETokenizer:
                    eos_token=eos_token)
 
     def _bpe_merge(self, piece: bytes) -> list[int]:
-        """Greedy lowest-rank merging."""
+        """Greedy lowest-rank merging (the pure-Python loop)."""
         priorities = self.merge_ranks if self.merge_ranks is not None \
             else self.ranks
         parts: list[bytes] = [piece[i:i + 1] for i in range(len(piece))]
@@ -186,9 +199,27 @@ class BPETokenizer:
 
     def encode(self, text: str, *, bos: bool = True) -> list[int]:
         if self._pretok is not None:
-            ids = []
-            for piece in self._pretok.findall(text):
-                ids.extend(self._bpe_merge(piece.encode("utf-8")))
+            str_pieces = self._pretok.findall(text)
+            pieces = [p.encode("utf-8") for p in str_pieces]
+            # findall returns ordered substrings, so equal character
+            # counts mean the pieces tile the text: a gap would let the
+            # whole-text native call see bytes the per-piece loop drops
+            if self._native is not None \
+                    and sum(map(len, str_pieces)) == len(text):
+                # one native call for the whole text, the pieces' starts
+                # as bounds that merges may not cross
+                bounds: list[int] = []
+                off = 0
+                for piece in pieces:
+                    bounds.append(off)
+                    off += len(piece)
+                ids = self._native.encode(b"".join(pieces), bounds)
+            else:
+                ids = []
+                for piece in pieces:
+                    ids.extend(self._bpe_merge(piece))
+        elif self._native is not None:
+            ids = self._native.encode(text.encode("utf-8"))
         else:
             ids = self._bpe_merge(text.encode("utf-8"))
         return ([self.bos_id] + ids) if bos else ids

@@ -64,6 +64,48 @@ def test_port_module_imports_nothing_forbidden(path):
                 if _banned(n, FORBIDDEN_AT_MODULE_LEVEL)]
 
 
+#: the card's machine has no grpcio and no protobuf: only the gRPC
+#: transport and the chat service over it may import them at module level
+GRPC_ROOTS = ("grpc", "google.protobuf")
+GRPC_MODULES = {PKG / "serving" / "grpc_chat.py", *(PKG / "grpc").glob("*.py")}
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_grpc_is_imported_only_by_the_grpc_modules(path):
+    tree = ast.parse(path.read_text())
+    if path.name == "chip_smoke.py":
+        names = {n for node in ast.walk(tree) for n in _imported(node)}
+    elif path in GRPC_MODULES:
+        return
+    else:
+        names = set(_module_level_imports(tree.body))
+    assert not [n for n in names if _banned(n, GRPC_ROOTS)]
+
+
+def test_the_port_imports_without_grpc():
+    """With ``grpc`` and ``google.protobuf`` unimportable, as on the card's
+    machine, the app, the checkpoint, the client and the native code
+    import; only the gRPC modules need them."""
+    import subprocess
+    import sys
+    script = (
+        "import sys\n"
+        "sys.modules['grpc'] = None\n"
+        "sys.modules['google.protobuf'] = None\n"
+        "import gofr_tpu_torch.serving.app, gofr_tpu_torch.checkpoint\n"
+        "import gofr_tpu_torch.service, gofr_tpu_torch.native.bpe\n"
+        "import gofr_tpu_torch.native.batch_queue\n"
+        "try:\n"
+        "    import gofr_tpu_torch.serving.grpc_chat\n"
+        "except ImportError:\n"
+        "    print('grpc_chat needs grpc')\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "grpc_chat needs grpc"
+
+
 def test_the_scan_sees_every_module_and_catches_a_bad_import():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "flash_attention.py", "paged_attention.py",
@@ -71,7 +113,13 @@ def test_the_scan_sees_every_module_and_catches_a_bad_import():
             "_build.py", "spec.py", "quant.py", "hf_checkpoint.py",
             "tokenizer.py", "metrics.py", "faults.py", "events.py",
             "observability.py", "costmodel.py", "integrity.py",
-            "logger.py", "debug.py", "moe.py"} <= names
+            "logger.py", "debug.py", "moe.py", "checkpoint.py",
+            "grpc_chat.py", "server.py", "protogen.py", "reflection.py",
+            "bpe.py", "batch_queue.py", "build.py"} <= names
+    assert {p.relative_to(PKG).as_posix() for p in GRPC_MODULES} == {
+        "serving/grpc_chat.py", "grpc/__init__.py", "grpc/client.py",
+        "grpc/health.py", "grpc/protogen.py", "grpc/reflection.py",
+        "grpc/server.py", "grpc/service.py"}
     # the MoE family's model and ops modules are both scanned
     assert {p.relative_to(PKG).as_posix() for p in PKG.rglob("moe.py")} \
         == {"models/moe.py", "ops/moe.py"}
