@@ -278,8 +278,26 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              token, peak memory, native and Python encode MB/s. The
              engine behind it runs the kernels as serve does; no
              kernel's row takes its launches from it.
+14. serve_app — the framework surface: ``serving/model_serving.
+             build_app`` (``App.serve_model`` + the OpenAI routes) with
+             ``MODEL_PRESET=llama3_1b``, API-key auth and the profiler
+             routes on, on an event loop in a thread, beside
+             ``build_server`` on the same engine (``phase_serve_app``'
+             docstring): (a) alive and health naming the engine and the
+             card; (b) a 9-request unary ``/chat`` wave (one prompt walked
+             through the chunk kernel), App / ChatServer / ChatServer /
+             App, tokens and digests equal; (c) the same through ``/chat``
+             and ``/v1/chat/completions`` streams, and a client that
+             leaves frees its slot; (d) a trace through the app's
+             ``/debug/profile`` routes names the flash, paged decode,
+             paged chunk and ``rope_kv_write`` kernels; (e) 401 without a
+             key, the tenant label with one; (f) the HTTP histogram by
+             route pattern, the engine gauges, ``app_gpu_device_count``;
+             (g) the SIGTERM drain with 4 requests in flight; each with
+             its planted fault. TTFT, SSE gaps and decode tokens/s
+             through both servers; the launch counters of the phase.
 
-Each of the last three prints its wall time (``phase_wall_s``), as the later
+Each of the last four prints its wall time (``phase_wall_s``), as the later
 serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
@@ -3114,14 +3132,17 @@ class _PrintableTokenizer:
         return "".join(chr(33 + int(i) % 94) for i in ids)
 
 
-def _http_json(port: int, method: str, path: str, body=None):
-    """(status, headers with lower-case names, JSON body) of one request."""
+def _http_json(port: int, method: str, path: str, body=None,
+               headers: dict | None = None):
+    """(status, headers with lower-case names, JSON body) of one request,
+    with ``headers`` beside its own."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         conn.request(method, path,
                      body=None if body is None else json.dumps(body),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
                 json.loads(resp.read()))
@@ -3145,31 +3166,37 @@ def _content(event) -> str | None:
     return choice.get("text") or None
 
 
-def _open_post(port: int, path: str, body: dict):
-    """A raw socket that has sent one POST (no reply read yet)."""
+def _open_post(port: int, path: str, body: dict,
+               headers: dict | None = None):
+    """A raw socket that has sent one POST (no reply read yet), with
+    ``headers`` beside its own."""
     import socket
     data = json.dumps(body).encode()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     sock = socket.create_connection(("127.0.0.1", port), timeout=600)
     sock.sendall(b"POST %s HTTP/1.1\r\nHost: localhost\r\nContent-Type: "
-                 b"application/json\r\nContent-Length: %d\r\nConnection: "
-                 b"close\r\n\r\n%s" % (path.encode(), len(data), data))
+                 b"application/json\r\nContent-Length: %d\r\n%sConnection: "
+                 b"close\r\n\r\n%s" % (path.encode(), len(data),
+                                         extra.encode(), data))
     return sock
 
 
 def _sse_call(port: int, path: str, body: dict,
               close_after: int | None = None,
-              first_event: threading.Event | None = None) -> dict:
+              first_event: threading.Event | None = None,
+              headers: dict | None = None) -> dict:
     """One POST read off a raw socket, chunk by chunk: status, headers,
     each SSE event with its arrival time (s after the request was sent),
     whether the terminating zero-length chunk came. With ``close_after``
     the client closes its socket once that many events carried text
     (``closed_at``: ``time.perf_counter()`` then); ``sent_at``: the wall
     clock when the request left, as ``GenRequest.submitted_at`` reads
-    it. ``first_event`` is set once the first event has arrived."""
+    it. ``first_event`` is set once the first event has arrived.
+    ``headers`` go with the request (an API key)."""
     t0 = time.perf_counter()
     out = {"events": [], "terminal": False, "closed_at": None,
            "sent_at": time.time()}
-    sock = _open_post(port, path, body)
+    sock = _open_post(port, path, body, headers)
     reader = sock.makefile("rb")
     try:
         out["status"] = int(reader.readline().split()[1])
@@ -8488,6 +8515,551 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
                              f"{[k for k, v in planted.items() if not v]}")
 
 
+APP_NEW = 64
+APP_DRAIN_NEW = 256
+APP_KEY = "smoke-key"
+APP_TENANT = "smoke-team"
+
+
+def _app_prompts(tag: str = "") -> list:
+    """``serve_app``'s wave: 8 prompts of 21 to 901 byte tokens and one
+    of 1501 (wider than the 1024 bucket: it walks through the chunk
+    kernel), each led by ``tag``, so waves with different tags share no
+    prefix-cache page."""
+    words = ("the quick brown fox jumps over the lazy dog while a paged "
+             "cache keeps every token of the conversation in place ")
+    story = ("a long request walks through the chunk kernel one bucket at "
+             "a time and every page it writes stays in the pool ")
+    return ([(tag + words * 20)[:n] for n in
+             (20, 45, 90, 150, 260, 400, 610, 900)]
+            + [(tag + story * 30)[:1500]])
+
+
+def _pcts(values: list) -> dict:
+    import numpy as np
+    if not values:
+        return {"p50": None, "p99": None}
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99))}
+
+
+def _sse_timing(runs: list) -> dict:
+    """Client TTFT (the first token event, s after the send) p50 / p99,
+    the gaps between the reads that brought token events p50 / p99 (ms;
+    the events of one read share its time: a pass's tokens arrive
+    together), and decode tokens/s: tokens after each stream's first,
+    over the span from the earliest first token to the latest last
+    one."""
+    ttft, gaps, firsts, lasts, after_first = [], [], [], [], 0
+    for run in runs:
+        times = [t for t, e in run["events"]
+                 if isinstance(e, dict) and "token" in e]
+        if not times:
+            continue
+        ttft.append(times[0])
+        reads = sorted(set(times))
+        gaps += [(b - a) * 1000.0 for a, b in zip(reads, reads[1:])]
+        firsts.append(times[0] + run["sent_at"])
+        lasts.append(times[-1] + run["sent_at"])
+        after_first += len(times) - 1
+    span = max(lasts) - min(firsts) if firsts else 0.0
+    return {"ttft_s": _pcts(ttft), "sse_gap_ms": _pcts(gaps),
+            "decode_tokens_per_s": after_first / span if span > 0 else None,
+            "streams": len(ttft)}
+
+
+def _alive_health_faults(alive: tuple, health: tuple, gpu: str) -> list:
+    """(a): alive 200 UP; health 200 UP naming the served engine (UP)
+    and the card among its devices."""
+    out = []
+    if alive[0] != 200 or alive[2] != {"data": {"status": "UP"}}:
+        out.append(f"alive {alive[0]}")
+    data = health[2].get("data") or {}
+    tpu = (data.get("checks") or {}).get("tpu") or {}
+    details = tpu.get("details") or {}
+    if health[0] != 200 or data.get("status") != "UP":
+        out.append(f"health {health[0]} {data.get('status')}")
+    if ((details.get("engines") or {}).get("llama") or {}).get(
+            "status") != "UP":
+        out.append("engine not named UP")
+    if gpu not in [d.get("kind") for d in details.get("devices") or []]:
+        out.append("card not named")
+    return out
+
+
+def _wave_faults(answers: list, reqs: list, ref: list, ref_reqs: list,
+                 n_new: int) -> list:
+    """(b): every unary answer 201 with ``n_new`` tokens, each equal to
+    the reference run's, and every request's digest the reference's."""
+    out = []
+    for i, (a, r) in enumerate(zip(answers, ref)):
+        if a[0] != 201 or len(a[2]["data"]["tokens"]) != n_new:
+            out.append(f"answer_{i}")
+        elif a[2]["data"]["tokens"] != r[2]["data"]["tokens"]:
+            out.append(f"tokens_{i}")
+    if len(reqs) != len(ref_reqs) or [r.digest for r in reqs] != [
+            r.digest for r in ref_reqs] or None in [r.digest for r in reqs]:
+        out.append("digests")
+    return out
+
+
+def _app_stream_faults(streams: list, unary: list) -> list:
+    """(c): each ``/chat`` stream's frame tokens are its prompt's unary
+    tokens, then ``[DONE]`` and the zero-length chunk."""
+    out = []
+    for i, (s, u) in enumerate(zip(streams, unary)):
+        frames = [e["token"] for _, e in s["events"]
+                  if isinstance(e, dict) and "token" in e]
+        if frames != u[2]["data"]["tokens"]:
+            out.append(f"frames_{i}")
+        if not s["events"] or s["events"][-1][1] != "[DONE]" \
+                or not s["terminal"]:
+            out.append(f"done_{i}")
+    return out
+
+
+def _v1_faults(streams: list, s_reqs: list, unary: list,
+               u_reqs: list) -> list:
+    """(c): the ``/v1/chat/completions`` streams generated the unary
+    completions' tokens (their requests' tokens and digests), well
+    formed, their deltas joined the unary text."""
+    out = []
+    for i, (s, u) in enumerate(zip(streams, unary)):
+        text = "".join(t for t in (_content(e) for _, e in s["events"])
+                       if t is not None)
+        if u[0] != 201 or text != u[2]["choices"][0]["message"]["content"]:
+            out.append(f"text_{i}")
+        out += [f"{f}_{i}" for f in _form_faults(s, chat=True)]
+    if [list(r.generated) for r in s_reqs] != [
+            list(r.generated) for r in u_reqs] \
+            or [r.digest for r in s_reqs] != [r.digest for r in u_reqs]:
+        out.append("tokens")
+    return out
+
+
+def _app_trace_faults(names: set) -> list:
+    """(d): the trace taken through the app names the flash, paged
+    decode, paged chunk and fused RoPE + K/V write kernels."""
+    return [f"no {k} kernel" for k in ("flash", "paged_decode",
+                                       "paged_chunk", "rope_kv_write")
+            if not any(k in n for n in names)]
+
+
+def _auth_faults(no_key: tuple, bad_key: tuple, good: list) -> list:
+    """(e): no key and a wrong key 401 ``ApiKey``; a good key 201 with
+    the resolver's tenant label in ``usage``."""
+    out = []
+    for name, a in (("no_key", no_key), ("bad_key", bad_key)):
+        if a[0] != 401 or a[1].get("www-authenticate") != "ApiKey":
+            out.append(name)
+    if any(a[0] != 201 or a[2]["data"]["usage"]["tenant"] != APP_TENANT
+           for a in good):
+        out.append("tenant")
+    return out
+
+
+def _app_metrics_faults(text: str) -> list:
+    """(f): the HTTP histogram labelled by route pattern (``/chat``; an
+    unmatched path as ``<unmatched>``, never its raw path), the engine
+    gauges and at least one GPU."""
+    out = []
+    lines = text.splitlines()
+    http = [ln for ln in lines if ln.startswith("app_http_response_count{")]
+    if not any('path="/chat"' in ln for ln in http):
+        out.append("no /chat label")
+    if not any('path="<unmatched>"' in ln for ln in http) \
+            or any('path="/nope/123"' in ln for ln in http):
+        out.append("raw path label")
+    for name in ("app_engine_active_slots", "app_engine_kv_pool_utilization",
+                 "app_engine_tokens_per_second"):
+        if not any(ln.startswith(name) for ln in lines):
+            out.append(f"no {name}")
+    count = [float(ln.split()[-1]) for ln in lines
+             if ln.startswith("app_gpu_device_count")]
+    if not count or count[0] < 1:
+        out.append("app_gpu_device_count")
+    return out
+
+
+def _drain_faults(run: dict) -> list:
+    """(g): the 4 requests in flight complete, the one sent during the
+    drain gets a 503 ``draining`` with ``Retry-After``, the engine and
+    the app stop."""
+    out = []
+    if any(a is None or a[0] != 201
+           or len(a[2]["data"]["tokens"]) != APP_DRAIN_NEW
+           for a in run["in_flight"]):
+        out.append("in_flight")
+    refused = run["refused"]
+    if refused is None or refused[0] != 503 \
+            or not refused[1].get("retry-after", "").isdigit() \
+            or ((refused[2].get("error") or {}).get("details") or {}).get(
+                "code") != "draining":
+        out.append("refused")
+    if run["engine_running"] or not run["app_stopped"]:
+        out.append("stopped")
+    return out
+
+
+def _launch_faults(launches: dict) -> list:
+    """The path's kernels each launched at least once."""
+    return [f"{k} not launched" for k, n in launches.items() if n < 1]
+
+
+def phase_serve_app(dev, smi_line: str) -> dict:
+    """The framework surface on the card: ``serving/model_serving.
+    build_app`` (``App.serve_model`` + ``install_openai_routes``) with
+    ``MODEL_PRESET=llama3_1b`` (full width and depth, random bf16 weights
+    from seed 0, ``serve_config``: 8 slots, prefix cache on),
+    ``PROFILER_ENABLED=1`` and API-key auth, on an event loop in a
+    thread; beside it ``build_server`` (the ``ChatServer``) on the same
+    engine. Greedy throughout; every request the handlers submit is
+    recorded. A gated wave stops the engine, queues its requests in order
+    and starts it, so both servers' waves are admitted alike on an empty
+    prefix cache. Checks, each also shown a planted fault it must reject:
+
+    (a) ``/.well-known/alive`` 200 UP; ``/.well-known/health`` 200 UP,
+        the engine ``llama`` UP and the card named among the devices;
+        planted: the device list emptied.
+    (b) the wave (8 prompts of 21-901 tokens and one of 1501, walked
+        through the chunk kernel; 64 new tokens) as unary ``/chat``,
+        gated, App / ChatServer / ChatServer / App: every answer's
+        tokens and every request's digest equal across the four;
+        planted: one token id changed.
+    (c) the wave streamed on ``/chat`` through the app: frame tokens =
+        (b)'s; ``/v1/chat/completions`` unary and streamed: the same
+        tokens and digests, well-formed streams, deltas = the text; a
+        ``/chat`` stream whose client closes after 3 tokens frees its
+        slot within 2 s (the slot's samples), fewer than 128 tokens
+        decoded; planted: a frame dropped.
+    (d) a ``/debug/profile/start`` .. ``stop`` capture through the app
+        around one ungated unary wave: the trace names the flash, paged
+        decode, paged chunk and ``rope_kv_write`` kernels; planted: an
+        idle capture.
+    (e) no key and a wrong key: 401 ``ApiKey``; the good key: 201 with
+        usage tenant ``smoke-team``; planted: the wrong key's answer
+        replaced by a 201.
+    (f) the metrics port: ``app_http_response`` labelled ``/chat`` and
+        ``<unmatched>`` (for ``/nope/123``), the ``app_engine_*`` gauges,
+        ``app_gpu_device_count`` >= 1; planted: the raw path label.
+    (g) ``App._graceful_stop`` with 4 requests of 256 tokens in flight:
+        all 4 complete, a request during the drain gets 503 ``draining``
+        with ``Retry-After``, the engine and the app stop; planted: one
+        of the 4 cut short.
+
+    Also, ungated (unique prompts, engine running), 8 ``/chat`` streams
+    at once, App / ChatServer / ChatServer / App: client TTFT p50 / p99
+    beside the engine's, the gaps between token events p50 / p99, decode
+    tokens/s; and the
+    launch counters, zeroed before the first wave and read after (g):
+    flash, paged decode, paged chunk and ``rope_kv_write`` must rise."""
+    import asyncio
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.serving import model_serving
+    from gofr_tpu_torch.serving.app import build_server
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    gpu = torch.cuda.get_device_name(0) if cuda else "cpu"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+    checks: dict = {}
+    out: dict = {"phase": "serve_app", "card": smi_line}
+    key = {"X-Api-Key": APP_KEY}
+    greedy = {"max_tokens": APP_NEW, "temperature": 0}
+    tmp = tempfile.mkdtemp(prefix="serve_app_")
+    app = model_serving.build_app(DictConfig({
+        "MODEL_PRESET": "llama3_1b", "HTTP_HOST": "127.0.0.1",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "PROFILER_ENABLED": "1",
+        "PROFILER_DIR": tmp, "APP_NAME": "serve-app"}), device=dev)
+    app.enable_api_key_auth(APP_KEY, key_names={APP_KEY: APP_TENANT})
+    engine = app.container.get_model(model_serving.MODEL_NAME)
+    made: list = []
+    inner_submit = engine.submit
+
+    def submit(*args, **kwargs):
+        made.append(inner_submit(*args, **kwargs))
+        return made[-1]
+
+    engine.submit = submit
+    loop = asyncio.new_event_loop()
+    booted, boot_error = threading.Event(), []
+
+    def run_loop():
+        asyncio.set_event_loop(loop)
+
+        async def main():
+            try:
+                await app.start()
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                boot_error.append(exc)
+                raise
+            finally:
+                booted.set()
+            await app._stop_event.wait()
+
+        try:
+            loop.run_until_complete(main())
+        except BaseException:  # noqa: BLE001 — boot_error holds it
+            pass
+
+    loop_thread = threading.Thread(target=run_loop, daemon=True)
+    loop_thread.start()
+    if not booted.wait(600) or boot_error:
+        raise AssertionError(f"serve_app: the app did not boot {boot_error}")
+    aport = app.port
+    # one metrics manager, logger and tracer for both servers: the
+    # engine's series stay on the app's metrics port
+    server = build_server(engine, ByteTokenizer(), port=0, name="llama",
+                          env={}, metrics=app.container.metrics,
+                          logger=app.logger, tracer=app.container.tracer)
+    server_thread = threading.Thread(target=server.serve_forever,
+                                     daemon=True)
+    server_thread.start()
+    sport = server.server_address[1]
+
+    def gated(port, asks, headers=None):
+        """``asks`` ((path, body, stream) each) queued in order on the
+        stopped engine, then the engine started: (answers, requests)."""
+        engine.stop()
+        engine.waiting.reopen()
+        base = len(made)
+        got: list = [None] * len(asks)
+
+        def call(i, path, body, stream):
+            got[i] = (_sse_call(port, path, body, headers=headers) if stream
+                      else _http_json(port, "POST", path, body, headers))
+
+        workers = []
+        for i, ask in enumerate(asks):
+            workers.append(threading.Thread(target=call, args=(i, *ask)))
+            workers[-1].start()
+            deadline = time.time() + 60
+            while len(made) < base + i + 1 and time.time() < deadline:
+                time.sleep(0.001)
+        engine.start()
+        for w in workers:
+            w.join(timeout=600)
+        return got, made[base:]
+
+    def at_once(port, asks, headers=None):
+        """``asks`` sent together to the running engine."""
+        got: list = [None] * len(asks)
+
+        def call(i, path, body, stream):
+            got[i] = (_sse_call(port, path, body, headers=headers) if stream
+                      else _http_json(port, "POST", path, body, headers))
+
+        workers = [threading.Thread(target=call, args=(i, *a))
+                   for i, a in enumerate(asks)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        return got
+
+    try:
+        # (a) before any traffic
+        alive = _http_json(aport, "GET", "/.well-known/alive")
+        health = _http_json(aport, "GET", "/.well-known/health")
+        bare = copy.deepcopy(health)
+        bare[2]["data"]["checks"]["tpu"]["details"]["devices"] = []
+        checks["a_alive_health"] = (_alive_health_faults(alive, health, gpu),
+                                    _alive_health_faults(alive, bare, gpu))
+        out["a"] = {"health_status": health[2]["data"]["status"],
+                    "devices": [d.get("kind") for d in health[2]["data"][
+                        "checks"]["tpu"]["details"]["devices"]]}
+        for fn in counters.values():
+            fn.launches = 0
+        prompts = _app_prompts()
+        chat = [("/chat", {"prompt": p, **greedy}, False) for p in prompts]
+        # (b) App / ChatServer / ChatServer / App, gated
+        runs = []
+        for side in ("app", "server", "server", "app"):
+            runs.append(gated(aport if side == "app" else sport, chat,
+                              key if side == "app" else None))
+        ref, ref_reqs = runs[0]
+        b_faults = []
+        for i, (answers, reqs) in enumerate(runs[1:], 1):
+            b_faults += [f"run{i}_{f}" for f in
+                         _wave_faults(answers, reqs, ref, ref_reqs, APP_NEW)]
+        bent = copy.deepcopy(runs[1][0])
+        bent[0][2]["data"]["tokens"][5] ^= 1
+        checks["b_unary_wave"] = (
+            _wave_faults(ref, ref_reqs, ref, ref_reqs, APP_NEW) + b_faults,
+            _wave_faults(bent, runs[1][1], ref, ref_reqs, APP_NEW))
+        out["b"] = {"prompt_tokens": [len(r.prompt_tokens) for r in ref_reqs],
+                    "tokens_0": ref[0][2]["data"]["tokens"][:8],
+                    "digests_equal": not b_faults}
+        # (c) streams through the app, gated
+        streams, _ = gated(aport, [(p, {**b, "stream": True}, True)
+                                   for p, b, _ in chat], key)
+        cut = copy.deepcopy(streams)
+        del cut[0]["events"][3]
+        v1 = [("/v1/chat/completions",
+               {"messages": [{"role": "user", "content": p}], **greedy},
+               False) for p in prompts[:4]]
+        v1_unary, v1_u_reqs = gated(aport, v1, key)
+        v1_sse, v1_s_reqs = gated(aport, [(p, {**b, "stream": True}, True)
+                                          for p, b, _ in v1], key)
+        # a client that leaves: the slot's samples after its close
+        since = len(made)
+        closer = _sse_call(aport, "/chat", {"prompt": prompts[2],
+                                            "max_tokens": 1024,
+                                            "temperature": 0,
+                                            "stream": True},
+                           close_after=3, headers=key)
+        samples = _watch_slots(engine, 5.0, closer["closed_at"])
+        left = made[since]
+        leave_faults = _freed_faults(samples, 2.0) + (
+            [] if left.cancelled and len(left.generated) < 128
+            else ["not cancelled"])
+        checks["c_streams"] = (
+            _app_stream_faults(streams, ref) + _v1_faults(
+                v1_sse, v1_s_reqs, v1_unary, v1_u_reqs) + leave_faults,
+            _app_stream_faults(cut, ref))
+        out["c"] = {"left_tokens": len(left.generated),
+                    "left_freed_s": next((t for t, b in samples if b == 0),
+                                         None)}
+        # ungated timing, unique prompts: App / ChatServer / ChatServer / App
+        timing = {"app": [], "server": []}
+        for i, side in enumerate(("app", "server", "server", "app")):
+            asks = [("/chat", {"prompt": p, **greedy, "stream": True}, True)
+                    for p in _app_prompts(f"t{i} ")[:8]]
+            base = len(made)
+            run = _sse_timing(at_once(aport if side == "app" else sport,
+                                      asks, key if side == "app" else None))
+            # the engine's own TTFT (submit to first token): what the
+            # client's adds to it is the server's
+            run["engine_ttft_s"] = _pcts([r.ttft_ms / 1000.0
+                                          for r in made[base:]
+                                          if r.ttft_ms is not None])
+            timing[side].append(run)
+        out["timing"] = {**timing, "card": smi_line,
+                         "definition": "8 /chat streams sent at once, 64 "
+                         "tokens each, prompts 21-901 tokens; TTFT from the "
+                         "send to the first token event"}
+        # (d) a capture through the app's own routes around one wave
+        started = _http_json(aport, "POST", "/debug/profile/start", {}, key)
+        profiled = at_once(aport, [("/chat", {"prompt": p, **greedy}, False)
+                                   for p in _app_prompts("p ")], key)
+        stopped = _http_json(aport, "POST", "/debug/profile/stop", {}, key)
+        trace = Path((stopped[2].get("data") or {}).get("dir") or "") \
+            / "trace.json"
+        names = {n for n in _trace_kernel_names(str(trace))
+                 if any(k in n for k in ("paged", "rope_kv", "flash"))}
+        _http_json(aport, "POST", "/debug/profile/start", {}, key)
+        time.sleep(0.3)
+        idle = _http_json(aport, "POST", "/debug/profile/stop", {}, key)
+        idle_names = _trace_kernel_names(str(Path(
+            (idle[2].get("data") or {}).get("dir") or "") / "trace.json"))
+        checks["d_trace"] = (
+            _app_trace_faults(names) + [
+                f"profiled {i}" for i, a in enumerate(profiled)
+                if a[0] != 201] + ([] if started[0] == 201 else ["start"]),
+            _app_trace_faults(idle_names))
+        out["d"] = {"kernel_names": sorted(names),
+                    "trace_mb": (trace.stat().st_size / 2 ** 20
+                                 if trace.exists() else None)}
+        # (e) auth
+        body = {"prompt": prompts[0], **greedy}
+        no_key = _http_json(aport, "POST", "/chat", body)
+        bad_key = _http_json(aport, "POST", "/chat", body,
+                             {"X-Api-Key": "not-the-key"})
+        accepted = (201, {}, ref[0][2])
+        checks["e_auth"] = (_auth_faults(no_key, bad_key, ref),
+                            _auth_faults(no_key, accepted, ref))
+        out["e"] = {"no_key": no_key[0], "bad_key": bad_key[0],
+                    "tenant": ref[0][2]["data"]["usage"]["tenant"]}
+        # (f) metrics
+        _http_json(aport, "GET", "/nope/123", None, key)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{app.metrics_server.bound_port}/metrics",
+                timeout=60) as resp:
+            text = resp.read().decode()
+        checks["f_metrics"] = (_app_metrics_faults(text), _app_metrics_faults(
+            text.replace('path="<unmatched>"', 'path="/nope/123"')))
+        # (g) the drain, with 4 requests in flight
+        server.shutdown()
+        server.server_close()
+        since = len(made)
+        drain_asks = [("/chat", {"prompt": p, "max_tokens": APP_DRAIN_NEW,
+                                 "temperature": 0}, False)
+                      for p in _app_prompts("g ")[:4]]
+        in_flight: list = [None] * 4
+
+        def flight(i, path, body, stream):
+            in_flight[i] = _http_json(aport, "POST", path, body, key)
+
+        flights = [threading.Thread(target=flight, args=(i, *a))
+                   for i, a in enumerate(drain_asks)]
+        for f in flights:
+            f.start()
+        deadline = time.time() + 120
+        while time.time() < deadline and not (
+                len(made) >= since + 4
+                and all(r.generated for r in made[since:since + 4])):
+            time.sleep(0.002)
+        stopping = asyncio.run_coroutine_threadsafe(app._graceful_stop(),
+                                                    loop)
+        deadline = time.time() + 30
+        while not engine._draining and time.time() < deadline:
+            time.sleep(0.001)
+        refused = _http_json(aport, "POST", "/chat", body, key) \
+            if engine._draining else None
+        stopping.result(timeout=120)
+        for f in flights:
+            f.join(timeout=120)
+        loop_thread.join(timeout=30)
+        drain = {"in_flight": in_flight, "refused": refused,
+                 "engine_running": engine._running,
+                 "app_stopped": app._stop_event.is_set()}
+        cut_short = copy.deepcopy(drain)
+        cut_short["in_flight"][1] = refused
+        checks["g_drain"] = (_drain_faults(drain), _drain_faults(cut_short))
+        out["g"] = {"in_flight_status": [a[0] if a else None
+                                         for a in in_flight],
+                    "refused": None if refused is None else refused[0],
+                    "retry_after": None if refused is None
+                    else refused[1].get("retry-after")}
+        launches = {name: int(fn.launches) for name, fn in counters.items()}
+        checks["launches"] = (_launch_faults(launches),
+                              _launch_faults(dict.fromkeys(launches, 0)))
+        out["launches"] = launches
+    finally:
+        engine.submit = inner_submit
+        if loop.is_running():
+            asyncio.run_coroutine_threadsafe(app.stop(), loop).result(60)
+        loop_thread.join(timeout=30)
+        if not loop.is_running():
+            loop.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del app, engine, server
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_app: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8578,6 +9150,7 @@ def main() -> int:
     phase_serve_embed(dev, smi_line)
     phase_serve_asr(dev, smi_line)
     phase_serve_warm(dev, smi_line)
+    phase_serve_app(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

@@ -1,7 +1,9 @@
 """gofr_tpu_torch — the PyTorch + CUDA port of gofr_tpu's serving path.
 
 Mirrors the layout of ``gofr_tpu/`` (``ops/``, ``models/``,
-``serving/``) so each function's counterpart is found by name. The
+``serving/``, and the framework: ``app.py``, ``http/``, ``handler.py``,
+``context.py``, ``container/``, ``config/``, ``logging/``) so each
+function's counterpart is found by name. The
 package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``gofr_tpu``: what it needs from there it keeps as its own copy.
 

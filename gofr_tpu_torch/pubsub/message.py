@@ -4,8 +4,8 @@ the request protocol's reads (``param``, ``params``, ``path_param``,
 an HTTP request, and commits once its work is done (at-least-once).
 
 ``bind`` returns the decoded JSON body (the raw bytes when it is not
-JSON); the JAX class's dataclass target is left out, since nothing in
-the port binds a message to one.
+JSON), or, given a dataclass, the body bound to it (``http.request.
+bind_dataclass``), as ``ctx.bind(target)`` does for a request.
 """
 
 from __future__ import annotations
@@ -43,11 +43,22 @@ class Message:
             return self.topic
         return str(self.metadata.get(key, ""))
 
-    def bind(self) -> Any:
+    def bind(self, target: Any = None) -> Any:
         try:
-            return json.loads(self.value)
+            data = json.loads(self.value)
         except (json.JSONDecodeError, UnicodeDecodeError):
-            return self.value
+            data = self.value
+        if target is None:
+            return data
+        import dataclasses
+
+        from ..http.request import BindError, bind_dataclass
+        if dataclasses.is_dataclass(target) and isinstance(target, type):
+            if not isinstance(data, dict):
+                raise BindError(
+                    f"cannot bind message to {target.__name__}")
+            return bind_dataclass(data, target)
+        return data
 
     def host_name(self) -> str:
         return self.topic

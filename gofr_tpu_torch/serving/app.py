@@ -1,6 +1,7 @@
-"""HTTP front end of the port on the standard library's threading HTTP
-server (counterpart of ``gofr_tpu/app.py:serve_model`` with the
-framework's router and responder): ``POST /chat``
+"""The port's standard-library HTTP front end, :class:`ChatServer`, beside
+the framework's ``App`` (``gofr_tpu_torch/app.py``, which
+``serving/model_serving.py`` serves a model through); both wire an
+engine with :func:`wire_engine`. :func:`build_server` gives ``POST /chat``
 (``handlers.make_chat_handler``), the OpenAI routes
 (``openai_compat.install_openai_routes``: ``POST /v1/chat/completions``,
 ``POST /v1/completions``, ``GET /v1/models``), ``GET
@@ -8,7 +9,7 @@ framework's router and responder): ``POST /chat``
 JAX app's engine health reads), the ``/debug/*`` routes
 (:mod:`.debug`), and ``GET /metrics`` on a server of its own
 (:func:`build_metrics_server`, ``METRICS_PORT``, default 2121).
-:func:`build_server` wires the engine as ``serve_model`` does: the
+:func:`wire_engine` wires the engine as ``App.serve_model`` does: the
 metrics manager (``attach_metrics``: the engine's series, the usage
 ledger's, the scheduler's, the event ledger's), a default
 ``SLOTracker(SLOConfig())`` on the engine's event ledger (the
@@ -118,10 +119,11 @@ from .debug import install_debug_routes
 from .engine import Engine, EngineConfig
 from .glue import llama_engine
 from .handlers import make_chat_handler, make_embed_handler
-from .logger import Logger
+from ..logging.logger import Logger
 from .observability import SLOConfig, SLOTracker
 from .openai_compat import install_openai_routes
-from .responses import ClientGone, File, HTTPError, Raw, Reply, Stream
+from ..http.errors import ClientGone, HTTPError
+from ..http.response import File, Raw, Reply, Stream
 from .tokenizer import BPETokenizer, ByteTokenizer
 
 #: a client's connection errors: it is gone
@@ -547,6 +549,49 @@ def _env_bool(env: Mapping[str, str], key: str) -> bool:
     return env.get(key, "").strip().lower() in ("1", "true", "yes", "on")
 
 
+def wire_engine(engine: Engine, name: str, *, metrics: Manager,
+                logger: Logger, tracer: Tracer, devices: DeviceRegistry,
+                slo: SLOConfig | None = None,
+                scheduler: Any = None) -> None:
+    """Wire ``engine``, served as model ``name``, into a server's planes:
+    the one function behind :func:`build_server` and ``App.serve_model``.
+
+    ``attach_metrics(metrics)`` (the engine's series, the usage
+    ledger's, the scheduler's, the event ledger's); ``logger`` where the
+    engine and its scheduler have none; ``tracer`` where the engine has
+    none (its ``engine.*`` spans join each request's trace); an SLO
+    tracker (``slo`` or the default objectives) where the engine has
+    none, on the engine's event ledger, whose fast burn arms the
+    autoprofiler and opens a ``fast_burn`` incident bundle; the
+    scheduler policy ``scheduler`` (a ``SchedulerConfig``) when given;
+    and ``devices.register_engine(name, engine)``, its gauges published
+    once."""
+    engine.attach_metrics(metrics)
+    if engine.logger is None:
+        engine.logger = logger
+    if scheduler is not None:
+        engine.waiting.reconfigure(scheduler)
+    if engine.waiting.logger is None:
+        engine.waiting.logger = logger
+    if engine.tracer is None:
+        engine.tracer = tracer
+    if engine.slo is None:
+        engine.slo = SLOTracker(slo or SLOConfig(), metrics=metrics,
+                                logger=logger)
+        engine.slo.events = engine.events
+    if engine.slo.on_fast_burn is None:
+        def on_fast_burn() -> None:
+            # armed before the bundle opens, so it names the capture
+            capture = engine.autoprof.arm("fast_burn",
+                                          "SLO error-budget fast burn")
+            engine.incidents.trigger(
+                "fast_burn", cause="SLO error-budget fast burn",
+                attrs={"autoprof_dir": (capture or {}).get("dir")})
+        engine.slo.on_fast_burn = on_fast_burn
+    devices.register_engine(name, engine)
+    devices.publish_metrics()
+
+
 def build_server(engine: Engine, tokenizer: Any = None,
                  host: str = "127.0.0.1", port: int = 0, *,
                  tenant_of: Callable[[Any], str | None] | None = None,
@@ -562,50 +607,25 @@ def build_server(engine: Engine, tokenizer: Any = None,
     ``env`` (default ``os.environ``): ``PROFILER_ENABLED`` adds the
     profile routes, capturing into ``PROFILER_DIR``.
 
-    The engine is wired as ``serve_model`` wires it: ``attach_metrics``
-    on ``metrics`` (a new manager when None; ``server.metrics``, for
-    :func:`build_metrics_server`), the logger (a JSON-lines one when
-    None) where the engine and scheduler have none, the server's tracer
-    where the engine has none, and an SLO tracker (``slo`` or the
-    default objectives) where the engine has none, on the engine's event
-    ledger, whose fast burn arms the autoprofiler and opens a
-    ``fast_burn`` incident bundle. A ``DeviceRegistry`` of the engine's
-    device (``server.devices``) registers the engine, adds its section
-    to the health route and sets ``app_gpu_device_count`` /
-    ``app_gpu_hbm_bytes_used`` on ``metrics``."""
+    The engine is wired by :func:`wire_engine`, as ``App.serve_model``
+    wires it: on ``metrics`` (a new manager when None;
+    ``server.metrics``, for :func:`build_metrics_server`), the logger (a
+    JSON-lines one when None), the server's tracer and a
+    ``DeviceRegistry`` of the engine's device (``server.devices``),
+    whose section joins the health route."""
     tokenizer = tokenizer or ByteTokenizer()
     metrics = metrics if metrics is not None else Manager()
     logger = logger if logger is not None else Logger()
     env = os.environ if env is None else env
-    engine.attach_metrics(metrics)
-    if engine.logger is None:
-        engine.logger = logger
-    if engine.waiting.logger is None:
-        engine.waiting.logger = logger
     server = ChatServer((host, port), engine, tenant_of=tenant_of,
                         tracer=tracer or engine.tracer)
     server.logger = logger
     server.env = env
-    if engine.tracer is None:
-        engine.tracer = server.tracer
-    if engine.slo is None:
-        engine.slo = SLOTracker(slo or SLOConfig(), metrics=metrics,
-                                logger=logger)
-        engine.slo.events = engine.events
-    if engine.slo.on_fast_burn is None:
-        def on_fast_burn() -> None:
-            # armed before the bundle opens, so it names the capture
-            capture = engine.autoprof.arm("fast_burn",
-                                          "SLO error-budget fast burn")
-            engine.incidents.trigger(
-                "fast_burn", cause="SLO error-budget fast burn",
-                attrs={"autoprof_dir": (capture or {}).get("dir")})
-        engine.slo.on_fast_burn = on_fast_burn
     server.metrics = metrics
     server.devices = DeviceRegistry(logger=logger, metrics=metrics,
                                     device=engine.device)
-    server.devices.register_engine(name, engine)
-    server.devices.publish_metrics()
+    wire_engine(engine, name, metrics=metrics, logger=logger,
+                tracer=server.tracer, devices=server.devices, slo=slo)
     server.post("/chat", make_chat_handler(engine, tokenizer))
     install_debug_routes(server, engine, name,
                          profiler=_env_bool(env, "PROFILER_ENABLED"),

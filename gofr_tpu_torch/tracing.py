@@ -5,18 +5,18 @@ header parser and formatter, sampling rule and exporters).
 Spans carry 128-bit trace ids and 64-bit span ids, propagate over the
 ``traceparent`` header, sample by ``ratio`` (an inbound header's sampled
 flag wins) and export through a pluggable exporter (``export(span)``):
-:class:`InMemoryExporter` keeps the newest spans in a bounded ring. The
-active span rides a context variable, so a request's HTTP span is the
-parent of what the engine assembles for it at retire
-(:meth:`Tracer.emit_span`).
+:class:`InMemoryExporter` keeps the newest spans in a bounded ring,
+:class:`ConsoleExporter` logs each at DEBUG. The active span rides a
+context variable, so a request's HTTP span is the parent of what the
+engine assembles for it at retire (:meth:`Tracer.emit_span`), and its
+ids ride the logger's trace context
+(``logging.logger.set_trace_context``), so every log line inside the
+span carries ``trace_id`` / ``span_id``.
 
 Every span's attributes start from the process-wide fleet context
 (``host_id``, ``rank``, ``generation``, set at a control-plane join:
-``serving.logger.set_fleet_context``) under its own, so a cross-host
+``logging.logger.set_fleet_context``) under its own, so a cross-host
 trace names the host each span ran on.
-
-Left out: the logger's trace context (the port's logger stamps no trace
-ids).
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ import time
 from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Any, Protocol
+
+from .logging.logger import (current_fleet_context, reset_trace_context,
+                             set_trace_context)
 
 _current_span: ContextVar["Span | None"] = ContextVar("gofr_current_span",
                                                       default=None)
@@ -92,6 +95,7 @@ class Span:
     attributes: dict[str, Any] = field(default_factory=dict)
     status: str = "OK"
     _ctx_token: Any = None
+    _log_token: Any = None
 
     def set_attribute(self, key: str, value: Any) -> None:
         self.attributes[key] = value
@@ -111,6 +115,12 @@ class Span:
             except ValueError:
                 pass
             self._ctx_token = None
+        if self._log_token is not None:
+            try:
+                reset_trace_context(self._log_token)
+            except ValueError:
+                pass
+            self._log_token = None
         if self.sampled:
             self.tracer._export(self)
 
@@ -150,10 +160,22 @@ class InMemoryExporter:
             self.spans.append(span)
 
 
+class ConsoleExporter:
+    """Logs each finished span at DEBUG on ``logger``
+    (``TRACE_EXPORTER=console``)."""
+
+    def __init__(self, logger) -> None:
+        self._logger = logger
+
+    def export(self, span: Span) -> None:
+        self._logger.debug(
+            f"span {span.name} {span.duration_ms:.2f}ms",
+            trace=span.trace_id, span=span.span_id, status=span.status,
+        )
+
+
 def _with_resource(attributes: dict[str, Any] | None) -> dict[str, Any]:
     """A span's attributes: the fleet context under the explicit ones."""
-    # imported here: the serving package imports this module
-    from .serving.logger import current_fleet_context
     fleet = current_fleet_context()
     fleet.update(attributes or {})
     return fleet
@@ -196,6 +218,7 @@ class Tracer:
                     parent_id=parent_id, start_time=time.time(), tracer=self,
                     sampled=sampled, attributes=_with_resource(attributes))
         span._ctx_token = _current_span.set(span)
+        span._log_token = set_trace_context(span.trace_id, span.span_id)
         return span
 
     def emit_span(self, name: str, *, trace_id: str,
@@ -222,5 +245,6 @@ class Tracer:
         return headers
 
 
-__all__ = ["InMemoryExporter", "Span", "SpanExporter", "Tracer",
-           "current_span", "extract_traceparent", "format_traceparent"]
+__all__ = ["ConsoleExporter", "InMemoryExporter", "Span", "SpanExporter",
+           "Tracer", "current_span", "extract_traceparent",
+           "format_traceparent"]

@@ -75,3 +75,98 @@ class HostTensors(TorchDispatchMode):
         if func is torch.ops.aten.lift_fresh.default:
             self.count += 1
         return func(*args, **(kwargs or {}))
+
+
+def time_limit(seconds: float):
+    """Fail a test that runs past ``seconds``: its body runs on a daemon
+    thread the test waits for with that deadline (a server the body
+    booted is stopped by the body's own ``finally``)."""
+    import functools
+    import threading
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            outcome: list = []
+
+            def body():
+                try:
+                    fn(*args, **kwargs)
+                    outcome.append(None)
+                except BaseException as exc:  # noqa: BLE001 — re-raised
+                    outcome.append(exc)
+
+            worker = threading.Thread(target=body, daemon=True)
+            worker.start()
+            worker.join(seconds)
+            if worker.is_alive():
+                raise AssertionError(f"{fn.__name__} ran past {seconds} s")
+            if outcome[0] is not None:
+                raise outcome[0]
+        return run
+    return wrap
+
+
+class AppThread:
+    """An ``App`` of either package started on an event loop of its own,
+    in a thread: ``with AppThread(app) as t: ... t.port`` (the app's
+    ``HTTP_PORT`` / ``METRICS_PORT`` should be 0). Boot waits with a
+    deadline; exit stops the app (``stop()``, or ``call(coro)`` to run
+    another coroutine such as ``_graceful_stop()`` on the loop first)."""
+
+    def __init__(self, app, boot_s: float = 30.0) -> None:
+        import asyncio
+        import threading
+        self.app = app
+        self.loop = asyncio.new_event_loop()
+        self._booted = threading.Event()
+        self._error: list = []
+        self._boot_s = boot_s
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import asyncio
+        asyncio.set_event_loop(self.loop)
+
+        async def main():
+            try:
+                await self.app.start()
+            except BaseException as exc:  # noqa: BLE001 — raised by enter
+                self._error.append(exc)
+                return
+            finally:
+                self._booted.set()
+            await self.app._stop_event.wait()
+
+        try:
+            self.loop.run_until_complete(main())
+        finally:
+            self.loop.close()
+
+    def __enter__(self) -> "AppThread":
+        self._thread.start()
+        if not self._booted.wait(self._boot_s):
+            raise TimeoutError("the app did not boot")
+        if self._error:
+            raise self._error[0]
+        return self
+
+    @property
+    def port(self) -> int:
+        return self.app.http_server.bound_port
+
+    @property
+    def metrics_port(self) -> int:
+        return self.app.metrics_server.bound_port
+
+    def call(self, coro, timeout_s: float = 60.0):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout_s)
+
+    def __exit__(self, *exc) -> None:
+        stopped = self.app._stop_event is None \
+            or self.app._stop_event.is_set()
+        if self._thread.is_alive() and not stopped:
+            self.call(self.app.stop(), 30.0)
+        self._thread.join(30.0)
