@@ -296,6 +296,21 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              (g) the SIGTERM drain with 4 requests in flight; each with
              its planted fault. TTFT, SSE gaps and decode tokens/s
              through both servers; the launch counters of the phase.
+15. serve_ws — the framework's batteries on the card: the same app with
+             ``DB_DIALECT=sqlite`` and the embedded ``REDIS_HOST``, two
+             migrations, auto-CRUD over a ``conversation`` table and a
+             chat handler over ``/ws/chat`` (user code in this script,
+             ``phase_serve_ws``' docstring): (a) migrations applied once,
+             a failing version rolled back, health UP with sql, redis and
+             the engine; (b) 16 sockets on the 8 slots, gated, tokens and
+             digests equal to unary ``/chat``; (c) every socket's row read
+             back through ``GET /conversation/{id}``, its text in redis;
+             (d) a socket closed after 3 frames frees its slot; (e) a
+             malformed frame answered with an error and the socket served
+             on, ``GET /ws/chat`` 426; (f) the kernels' launches rise over
+             the wave, and ``App.stop`` closes every socket; each with its
+             planted fault. TTFT and frame gaps over the sockets beside
+             ``/chat`` streams, decode tokens/s.
 
 Each of the last four prints its wall time (``phase_wall_s``), as the later
 serve phases do.
@@ -307,6 +322,7 @@ result when CUDA is absent or the package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -9060,6 +9076,658 @@ def phase_serve_app(dev, smi_line: str) -> dict:
     return out["launches"]
 
 
+WS_NEW = 64
+WS_MORE = ("every socket carries one conversation while the engine batches "
+           "them into one decode pass a step ")
+
+
+def _ws_prompts(tag: str = "") -> list:
+    """``serve_ws``'s wave: ``serve_app``'s nine prompts (eight of 21-901
+    byte tokens, one of 1501 walked through the chunk kernel) and seven
+    more of 26-761 tokens, each led by ``tag``."""
+    return _app_prompts(tag) + [(tag + WS_MORE * 20)[:n] for n in
+                                (25, 60, 110, 190, 320, 500, 760)]
+
+
+@dataclasses.dataclass
+class Conversation:
+    """``serve_ws``'s CRUD entity: one row per answered socket message."""
+    id: int
+    socket: str
+    prompt_tokens: int
+    n_generated: int
+    digest: str
+
+
+def _ws_migrations(planted: bool = False) -> dict:
+    """Version 1 makes the ``conversation`` table, version 2 sets a redis
+    key; with ``planted`` a version 3 makes a table, reads it back inside
+    its transaction and raises."""
+    from gofr_tpu_torch.migrations import Migrate
+
+    def v1(ds):
+        ds.sql.exec("CREATE TABLE conversation (id INTEGER PRIMARY KEY, "
+                    "socket TEXT, prompt_tokens INTEGER, n_generated "
+                    "INTEGER, digest TEXT)")
+
+    def v2(ds):
+        ds.redis.set("ws_chat:schema", "2")
+
+    out = {1: Migrate(up=v1), 2: Migrate(up=v2)}
+    if planted:
+        def v3(ds):
+            ds.sql.exec("CREATE TABLE archive (id INTEGER)")
+            _WS_INSIDE.update(_sql_state(ds.sql))
+            raise RuntimeError("planted: version 3 fails")
+        out[3] = Migrate(up=v3)
+    return out
+
+
+#: what version 3 saw inside its transaction, before it raised
+_WS_INSIDE: dict = {}
+
+
+def _sql_state(sql) -> dict:
+    """The tables and the migration ledger the SQL handle sees."""
+    return {"tables": sorted(r["name"] for r in sql.query(
+                "SELECT name FROM sqlite_master WHERE type = 'table'")),
+            "ledger": [r["version"] for r in sql.query(
+                "SELECT version FROM gofr_migrations ORDER BY version")]}
+
+
+def _migrate_faults(run: dict) -> list:
+    """(a): versions 1 and 2 applied once, none the second time, version
+    3's raise rolled back (no ``archive`` table, no ledger row 3, in SQL
+    or redis), the schema key in redis."""
+    out = []
+    if run["first"] != [1, 2] or run["again"] != []:
+        out.append(f"applied {run['first']} then {run['again']}")
+    if not run["v3_raised"]:
+        out.append("v3 did not raise")
+    state = run["after"]
+    if "conversation" not in state["tables"] or "archive" in state["tables"]:
+        out.append(f"tables {state['tables']}")
+    if state["ledger"] != [1, 2] or run["redis_ledger"] != [
+            "gofr_migrations:1", "gofr_migrations:2"]:
+        out.append(f"ledger {state['ledger']} {run['redis_ledger']}")
+    if run["schema_key"] != "2":
+        out.append("redis schema key")
+    return out
+
+
+def _ws_health_faults(health: tuple) -> list:
+    """(a): health 200 UP with ``sql``, ``redis`` and the engine ``llama``
+    UP."""
+    data = health[2].get("data") or {}
+    checks = data.get("checks") or {}
+    out = [] if health[0] == 200 and data.get("status") == "UP" \
+        else [f"health {health[0]} {data.get('status')}"]
+    for name in ("sql", "redis"):
+        if (checks.get(name) or {}).get("status") != "UP":
+            out.append(f"{name} not UP")
+    engines = ((checks.get("tpu") or {}).get("details") or {}).get(
+        "engines") or {}
+    if (engines.get("llama") or {}).get("status") != "UP":
+        out.append("engine not UP")
+    return out
+
+
+async def _ws_ask(port: int, body, close_after: int | None = None,
+                  sent=None, hold: bool = False) -> dict:
+    """One message over a fresh socket to ``/ws/chat``: the frames with
+    their arrival times (s after the send) until the closing frame, which
+    is ``done``. With ``close_after`` the client closes once that many
+    token frames came (``closed_at``: ``time.perf_counter()`` then), or
+    with ``hold`` stops reading and keeps the socket open (``conn``).
+    ``sent`` is set once the message is out."""
+    from gofr_tpu_torch.websocket import connect
+    conn = await connect(f"ws://127.0.0.1:{port}/ws/chat", timeout=60)
+    out = {"frames": [], "done": None, "closed_at": None, "conn": None}
+    await conn.send(body)
+    t0 = time.perf_counter()
+    out["sent_at"] = time.time()
+    if sent is not None:
+        sent.set()
+    try:
+        while True:
+            message = await conn.recv()
+            if message is None:
+                break
+            frame = json.loads(message.text())
+            if "token" not in frame:
+                out["done"] = frame
+                break
+            out["frames"].append((time.perf_counter() - t0, frame))
+            if close_after is not None and len(out["frames"]) >= close_after:
+                if hold:
+                    out["conn"] = conn
+                    return out
+                out["closed_at"] = time.perf_counter()
+                break
+    finally:
+        if out["conn"] is None:
+            await conn.close()
+    return out
+
+
+def _ws_tokens(run: dict) -> list:
+    return [f["token"] for _, f in run["frames"]]
+
+
+def _ws_wave_faults(socks: list, ws_reqs: list, unary: list,
+                    u_reqs: list) -> list:
+    """(b): every socket's token frames are its prompt's unary ``/chat``
+    tokens (``WS_NEW`` of them), its closing frame counts them and names
+    its request's digest, and every request digest equals the unary
+    wave's."""
+    out = []
+    for i, (s, u) in enumerate(zip(socks, unary)):
+        tokens = _ws_tokens(s)
+        if u[0] != 201 or len(u[2]["data"]["tokens"]) != WS_NEW:
+            out.append(f"unary_{i}")
+        elif tokens != u[2]["data"]["tokens"]:
+            out.append(f"frames_{i}")
+        done = s["done"] or {}
+        if done.get("done") != len(tokens) or (
+                i < len(ws_reqs) and done.get("digest") != ws_reqs[i].digest):
+            out.append(f"done_{i}")
+    if len(socks) != len(unary) or len(ws_reqs) != len(u_reqs) or None in [
+            r.digest for r in ws_reqs] or [r.digest for r in ws_reqs] != [
+            r.digest for r in u_reqs]:
+        out.append("digests")
+    return out
+
+
+def _ws_store_faults(socks: list, rows: dict, texts: dict, decode) -> list:
+    """(c): each socket's ``conversation`` row, read back through
+    ``GET /conversation/{id}``, holds its digest, its token count and the
+    key of its socket; redis holds its text."""
+    out = []
+    for i, s in enumerate(socks):
+        done = s["done"] or {}
+        got = rows.get(done.get("id"))
+        if got is None or got[0] != 200:
+            out.append(f"row_{i} missing")
+            continue
+        row = got[2]["data"]
+        if row["digest"] != done.get("digest") \
+                or row["n_generated"] != len(_ws_tokens(s)) \
+                or not row["socket"]:
+            out.append(f"row_{i}")
+        if texts.get(done.get("id")) != decode(_ws_tokens(s)):
+            out.append(f"text_{i}")
+    return out
+
+
+def _ws_leave_faults(left, samples: list) -> list:
+    """(d): the request of a socket closed after 3 frames is cancelled
+    with fewer than ``WS_NEW`` tokens decoded, its slot free within 2 s."""
+    return _freed_faults(samples, 2.0) + (
+        [] if left is not None and left.cancelled
+        and len(left.generated) < WS_NEW else ["not cancelled"])
+
+
+def _ws_error_faults(bad: dict | None, after: dict, plain: tuple) -> list:
+    """(e): a malformed frame gets ``{"error": ...}`` and the socket's
+    next frame is served; a plain ``GET /ws/chat`` answers 426."""
+    out = []
+    if not isinstance(bad, dict) or "error" not in bad:
+        out.append("no error frame")
+    if (after.get("done") or {}).get("done") != len(after["frames"]) \
+            or not after["frames"]:
+        out.append("next frame not served")
+    if plain[0] != 426:
+        out.append(f"plain GET {plain[0]}")
+    return out
+
+
+def _ws_stop_faults(run: dict) -> list:
+    """(f): ``App.stop`` closed every socket (close code 1001, the
+    manager empty) and stopped the engine."""
+    out = []
+    if run["close_codes"] != [1001] * len(run["close_codes"]) \
+            or not run["close_codes"]:
+        out.append(f"close codes {run['close_codes']}")
+    if run["sockets_left"] != 0:
+        out.append(f"{run['sockets_left']} sockets left")
+    if run["engine_running"] or not run["app_stopped"]:
+        out.append("not stopped")
+    return out
+
+
+def _ws_timing(runs: list) -> dict:
+    """Client TTFT over the socket (the first token frame, s after the
+    send) p50 / p99, the gaps between a socket's token frames p50 / p99
+    (ms), and decode tokens/s: tokens after each socket's first over the
+    span from the earliest first frame to the latest last one."""
+    ttft, gaps, firsts, lasts, after_first = [], [], [], [], 0
+    for run in runs:
+        times = [t for t, _ in run["frames"]]
+        if not times:
+            continue
+        ttft.append(times[0])
+        gaps += [(b - a) * 1000.0 for a, b in zip(times, times[1:])]
+        firsts.append(times[0] + run["sent_at"])
+        lasts.append(times[-1] + run["sent_at"])
+        after_first += len(times) - 1
+    span = max(lasts) - min(firsts) if firsts else 0.0
+    return {"ttft_s": _pcts(ttft), "frame_gap_ms": _pcts(gaps),
+            "decode_tokens_per_s": after_first / span if span > 0 else None,
+            "sockets": len(ttft)}
+
+
+def phase_serve_ws(dev, smi_line: str) -> dict:
+    """The framework's batteries on the card: ``serving/model_serving.
+    build_app`` with ``MODEL_PRESET=llama3_1b`` (full width and depth,
+    random bf16 weights from seed 0, ``serve_config``: 8 slots, prefix
+    cache on), ``DB_DIALECT=sqlite`` on a file in a temporary directory
+    and ``REDIS_HOST=localhost`` (the embedded store), on an event loop in
+    a thread. ``app.migrate`` applies two versions (the ``conversation``
+    table; a redis key), ``app.add_rest_handlers(Conversation)`` serves
+    the table, and ``/ws/chat`` is a chat handler written here, as a user
+    would: ``async``, it binds ``{"prompt", "max_tokens"}``, submits
+    through the engine behind ``/chat`` (greedy), sends each token as a
+    frame with ``ctx.write_message_to_socket``, writes one
+    ``conversation`` row through ``ctx.sql``, caches the text in
+    ``ctx.redis`` and answers ``{"done", "digest", "id"}``. The client is
+    the port's ``websocket.connect``. Checks, each also shown a planted
+    fault it must reject:
+
+    (a) versions 1-2 applied once, a second ``migrate`` applies none, a
+        version 3 that raises leaves no table and no ledger row; health
+        200 with ``sql``, ``redis`` and the engine ``llama`` UP; planted:
+        the state version 3 saw inside its transaction.
+    (b) 16 sockets at once on the 8 slots (``_ws_prompts``: 21-1501
+        tokens, 64 new), gated as ``serve_app``'s waves, then the same 16
+        as unary ``/chat``, gated: every socket's frame tokens equal its
+        ``/chat`` tokens, every request digest equal; planted: a frame
+        dropped.
+    (c) every socket's row through ``GET /conversation/{id}`` with its
+        digest and token count, its text in redis; planted: a row
+        written through ``POST /conversation`` with a changed digest.
+    (d) a socket closed after 3 token frames frees its slot within 2 s
+        (the slot's samples), fewer than 64 tokens decoded; planted: the
+        socket left open.
+    (e) a malformed frame answers ``{"error": ...}`` and the same
+        socket's next frame is served; ``GET /ws/chat`` answers 426;
+        planted: the error frame replaced by a close.
+    (f) the launch counters, zeroed before (b) and read after it: flash,
+        paged decode, paged chunk and ``rope_kv_write`` rise; then, with
+        3 sockets open, ``App.stop`` closes them (1001), empties the
+        manager and stops the engine; planted: the counters read before
+        the wave.
+
+    Also, ungated (unique prompts, engine running), the 16 prompts over
+    16 sockets at once and as 16 ``/chat`` streams at once, socket /
+    stream / stream / socket: client TTFT p50 / p99 beside the engine's,
+    the gaps between token frames (SSE reads) p50 / p99, decode
+    tokens/s."""
+    import asyncio
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.handler import ThreadPump
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.serving import model_serving
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.handlers import POLL_S
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+    checks: dict = {}
+    out: dict = {"phase": "serve_ws", "card": smi_line}
+    greedy = {"max_tokens": WS_NEW, "temperature": 0}
+    tmp = tempfile.mkdtemp(prefix="serve_ws_")
+    app = model_serving.build_app(DictConfig({
+        "MODEL_PRESET": "llama3_1b", "HTTP_HOST": "127.0.0.1",
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "serve-ws",
+        "DB_DIALECT": "sqlite", "DB_NAME": str(Path(tmp) / "ws.db"),
+        "REDIS_HOST": "localhost"}), device=dev)
+    engine = app.container.get_model(model_serving.MODEL_NAME)
+    tok = ByteTokenizer()
+    made: list = []
+    inner_submit = engine.submit
+
+    def submit(*args, **kwargs):
+        made.append(inner_submit(*args, **kwargs))
+        return made[-1]
+
+    engine.submit = submit
+
+    # (a) the migrations, before the app starts
+    _WS_INSIDE.clear()
+    first = app.migrate(_ws_migrations())
+    again = app.migrate(_ws_migrations())
+    try:
+        app.migrate(_ws_migrations(planted=True))
+        v3_raised = False
+    except RuntimeError:
+        v3_raised = True
+    sql, redis = app.container.sql, app.container.redis
+    migrated = {"first": first, "again": again, "v3_raised": v3_raised,
+                "after": _sql_state(sql),
+                "redis_ledger": sorted(redis.keys("gofr_migrations:*")),
+                "schema_key": redis.get("ws_chat:schema")}
+    inside = {**migrated, "after": dict(_WS_INSIDE)}
+    app.add_rest_handlers(Conversation)
+
+    @app.websocket("/ws/chat")
+    async def ws_chat(ctx):
+        body = ctx.bind()
+        prompt, max_tokens = body["prompt"], int(body["max_tokens"])
+        loop = asyncio.get_running_loop()
+
+        def submit_it():
+            prompt_tokens = tok.encode(prompt)
+            return engine.submit(prompt_tokens, SamplingParams(
+                temperature=0.0, max_new_tokens=max_tokens),
+                tenant=ctx.tenant), len(prompt_tokens)
+
+        req, n_prompt = await loop.run_in_executor(app.executor, submit_it)
+        if req.error:
+            raise RuntimeError(f"refused: {req.error}")
+        pump = ThreadPump(engine.stream_request(req, timeout_s=POLL_S),
+                          ctx.client_gone, ctx.mark_gone, app.executor, loop)
+        tokens: list = []
+        try:
+            async for token in pump:
+                if token is None:
+                    continue
+                tokens.append(token)
+                await ctx.write_message_to_socket(
+                    {"token": token, "text": tok.decode([token])})
+        finally:
+            await pump.aclose()
+        if req.error:
+            raise RuntimeError(f"generation failed: {req.error}")
+
+        def store() -> int:
+            cur = ctx.sql.exec(
+                "INSERT INTO conversation (socket, prompt_tokens, "
+                "n_generated, digest) VALUES (?, ?, ?, ?)",
+                ctx.header("sec-websocket-key"), n_prompt, len(tokens),
+                req.digest)
+            ctx.redis.set(f"ws_chat:{cur.lastrowid}", tok.decode(tokens))
+            return cur.lastrowid
+
+        row_id = await loop.run_in_executor(app.executor, store)
+        return {"done": len(tokens), "digest": req.digest, "id": row_id}
+
+    loop = asyncio.new_event_loop()
+    booted, boot_error = threading.Event(), []
+
+    def run_loop():
+        asyncio.set_event_loop(loop)
+
+        async def main():
+            try:
+                await app.start()
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                boot_error.append(exc)
+                raise
+            finally:
+                booted.set()
+            await app._stop_event.wait()
+
+        try:
+            loop.run_until_complete(main())
+        except BaseException:  # noqa: BLE001 — boot_error holds it
+            pass
+
+    loop_thread = threading.Thread(target=run_loop, daemon=True)
+    loop_thread.start()
+    if not booted.wait(600) or boot_error:
+        raise AssertionError(f"serve_ws: the app did not boot {boot_error}")
+    aport = app.port
+
+    def wait_made(n: int) -> None:
+        deadline = time.time() + 60
+        while len(made) < n and time.time() < deadline:
+            time.sleep(0.001)
+
+    #: requests in flight when a gated socket wave's engine starts
+    queued: list = []
+
+    def gated_sockets(bodies: list) -> tuple:
+        """Each body over a socket of its own, queued in order on the
+        stopped engine, then the engine started: (runs, requests)."""
+        engine.stop()
+        engine.waiting.reopen()
+        base = len(made)
+
+        async def wave():
+            tasks = []
+            for i, body in enumerate(bodies):
+                sent = asyncio.Event()
+                tasks.append(asyncio.ensure_future(
+                    _ws_ask(aport, body, sent=sent)))
+                await sent.wait()
+                await asyncio.to_thread(wait_made, base + i + 1)
+            queued.append(sum(r.finished_at is None for r in made[base:]))
+            await asyncio.to_thread(engine.start)
+            return await asyncio.gather(*tasks)
+
+        runs = asyncio.run(asyncio.wait_for(wave(), 600))
+        return list(runs), made[base:]
+
+    def gated_unary(bodies: list) -> tuple:
+        engine.stop()
+        engine.waiting.reopen()
+        base = len(made)
+        got: list = [None] * len(bodies)
+
+        def call(i, body):
+            got[i] = _http_json(aport, "POST", "/chat", body)
+
+        workers = []
+        for i, body in enumerate(bodies):
+            workers.append(threading.Thread(target=call, args=(i, body)))
+            workers[-1].start()
+            wait_made(base + i + 1)
+        engine.start()
+        for w in workers:
+            w.join(timeout=600)
+        return got, made[base:]
+
+    try:
+        # (a) health, before any traffic
+        health = _http_json(aport, "GET", "/.well-known/health")
+        checks["a_migrations"] = (
+            _migrate_faults(migrated) + _ws_health_faults(health),
+            _migrate_faults(inside))
+        out["a"] = {"applied": first, "again": again,
+                    "v3_rolled_back": not _migrate_faults(migrated),
+                    "inside_v3": _WS_INSIDE,
+                    "health": {k: v.get("status") for k, v in
+                               (health[2]["data"].get("checks") or {})
+                               .items()}}
+        # (b) the wave over sockets, then as unary /chat, both gated
+        for fn in counters.values():
+            fn.launches = 0
+        prompts = _ws_prompts()
+        bodies = [{"prompt": p, **greedy} for p in prompts]
+        socks, ws_reqs = gated_sockets(bodies)
+        launches = {name: int(fn.launches) for name, fn in counters.items()}
+        unary, u_reqs = gated_unary(bodies)
+        dropped = copy.deepcopy(socks)
+        del dropped[2]["frames"][5]
+        checks["b_socket_wave"] = (
+            _ws_wave_faults(socks, ws_reqs, unary, u_reqs),
+            _ws_wave_faults(dropped, ws_reqs, unary, u_reqs))
+        out["b"] = {"sockets": len(socks),
+                    "prompt_tokens": [len(r.prompt_tokens) for r in ws_reqs],
+                    "in_flight_at_start": queued[-1],
+                    "slots": engine.config.max_batch,
+                    "tokens_0": _ws_tokens(socks[0])[:8]}
+        # (c) the stores: each socket's row and text
+        rows = {(s["done"] or {}).get("id"): _http_json(
+            aport, "GET", f"/conversation/{(s['done'] or {}).get('id')}")
+            for s in socks}
+        texts = {i: redis.get(f"ws_chat:{i}") for i in rows}
+        bent = dict(socks[0]["done"] or {})
+        posted = _http_json(aport, "POST", "/conversation", {
+            "id": 100000, "socket": "planted",
+            "prompt_tokens": len(ws_reqs[0].prompt_tokens),
+            "n_generated": bent.get("done"),
+            "digest": "0" * len(bent.get("digest") or "x")})
+        planted_socks = [{**socks[0], "done": {**bent, "id": 100000}}]
+        planted_rows = {100000: _http_json(aport, "GET",
+                                           "/conversation/100000")}
+        planted_texts = {100000: texts.get(bent.get("id"))}
+        checks["c_stores"] = (
+            _ws_store_faults(socks, rows, texts, tok.decode)
+            + ([] if posted[0] == 201 else [f"planted POST {posted[0]}"]),
+            _ws_store_faults(planted_socks, planted_rows, planted_texts,
+                             tok.decode))
+        out["c"] = {"rows": len(rows), "row_0": rows.get(bent.get("id"),
+                                                         (None, {}, {}))[2]}
+        # (d) an early close, and the planted socket left open
+        since = len(made)
+        closer = asyncio.run(_ws_ask(aport, {"prompt": prompts[2],
+                                             "max_tokens": 1024},
+                                     close_after=3))
+        samples = _watch_slots(engine, 5.0, closer["closed_at"])
+        left = made[since] if len(made) > since else None
+        since = len(made)
+
+        async def held():
+            run = await _ws_ask(aport, {"prompt": prompts[3],
+                                        "max_tokens": 1024},
+                                close_after=3, hold=True)
+            at = time.perf_counter()
+            kept = await asyncio.to_thread(_watch_slots, engine, 2.5, at)
+            await run["conn"].close()
+            return kept
+        kept_samples = asyncio.run(held())
+        kept = made[since] if len(made) > since else None
+        _watch_slots(engine, 30.0, time.perf_counter())
+        checks["d_early_close"] = (_ws_leave_faults(left, samples),
+                                   _ws_leave_faults(kept, kept_samples))
+        out["d"] = {"left_tokens": None if left is None
+                    else len(left.generated),
+                    "left_freed_s": next((t for t, b in samples if b == 0),
+                                         None),
+                    "kept_tokens_at_2_5s": None if kept is None
+                    else len(kept.generated)}
+
+        # (e) a handler error on a socket that serves on
+        async def errors():
+            from gofr_tpu_torch.websocket import connect
+            conn = await connect(f"ws://127.0.0.1:{aport}/ws/chat")
+            await conn.send("not json {")
+            message = await conn.recv()
+            bad = json.loads(message.text()) if message is not None else None
+            await conn.send({"prompt": prompts[0], "max_tokens": 4})
+            after = {"frames": [], "done": None}
+            while True:
+                message = await conn.recv()
+                if message is None:
+                    break
+                frame = json.loads(message.text())
+                if "token" not in frame:
+                    after["done"] = frame
+                    break
+                after["frames"].append((0.0, frame))
+            await conn.close()
+            return bad, after
+        bad, after = asyncio.run(asyncio.wait_for(errors(), 120))
+        plain = _http_json(aport, "GET", "/ws/chat")
+        checks["e_errors"] = (_ws_error_faults(bad, after, plain),
+                              _ws_error_faults(None, after, plain))
+        out["e"] = {"error_frame": bad, "next_tokens": len(after["frames"]),
+                    "plain_get": plain[0]}
+        # ungated timing, unique prompts: sockets / streams / streams /
+        # sockets
+        timing: dict = {"ws": [], "chat": []}
+        for i, side in enumerate(("ws", "chat", "chat", "ws")):
+            asks = [{"prompt": p, **greedy} for p in _ws_prompts(f"t{i} ")]
+            base = len(made)
+            if side == "ws":
+                async def at_once(asks=asks):
+                    return await asyncio.gather(*(_ws_ask(aport, b)
+                                                  for b in asks))
+                run = _ws_timing(asyncio.run(asyncio.wait_for(at_once(),
+                                                              600)))
+            else:
+                got: list = [None] * len(asks)
+
+                def call(j, body, got=got):
+                    got[j] = _sse_call(aport, "/chat",
+                                       {**body, "stream": True})
+                workers = [threading.Thread(target=call, args=(j, b))
+                           for j, b in enumerate(asks)]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(timeout=600)
+                run = _sse_timing(got)
+            run["engine_ttft_s"] = _pcts([r.ttft_ms / 1000.0
+                                          for r in made[base:]
+                                          if r.ttft_ms is not None])
+            timing[side].append(run)
+        out["timing"] = {**timing, "card": smi_line,
+                         "definition": "16 sockets (16 /chat streams) at "
+                         "once on 8 slots, 64 tokens each, prompts "
+                         "21-1501 tokens; TTFT from the send to the first "
+                         "token frame (event)"}
+        # (f) the kernels of the wave, then the stop with sockets open
+        checks["f_launches"] = (_launch_faults(launches),
+                                _launch_faults(dict.fromkeys(launches, 0)))
+        out["launches"] = launches
+
+        async def stop_with_open():
+            from gofr_tpu_torch.websocket import connect
+            conns = [await connect(f"ws://127.0.0.1:{aport}/ws/chat")
+                     for _ in range(3)]
+            for _ in range(500):
+                if len(app.container.ws_manager) >= 3:
+                    break
+                await asyncio.sleep(0.01)
+            await asyncio.wrap_future(
+                asyncio.run_coroutine_threadsafe(app.stop(), loop))
+            return [(await c.recv(), c.close_code)[1] for c in conns]
+        codes = asyncio.run(asyncio.wait_for(stop_with_open(), 120))
+        loop_thread.join(timeout=30)
+        stopped = {"close_codes": codes,
+                   "sockets_left": len(app.container.ws_manager),
+                   "engine_running": engine._running,
+                   "app_stopped": app._stop_event.is_set()}
+        checks["f_stop"] = (_ws_stop_faults(stopped), _ws_stop_faults(
+            {**stopped, "close_codes": [None] * len(codes)}))
+        out["f"] = stopped
+    finally:
+        engine.submit = inner_submit
+        if loop.is_running():
+            asyncio.run_coroutine_threadsafe(app.stop(), loop).result(60)
+        loop_thread.join(timeout=30)
+        if not loop.is_running():
+            loop.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del app, engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_ws: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9151,6 +9819,7 @@ def main() -> int:
     phase_serve_asr(dev, smi_line)
     phase_serve_warm(dev, smi_line)
     phase_serve_app(dev, smi_line)
+    phase_serve_ws(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

@@ -2,7 +2,8 @@
 
 Mirrors the layout of ``gofr_tpu/`` (``ops/``, ``models/``,
 ``serving/``, and the framework: ``app.py``, ``http/``, ``handler.py``,
-``context.py``, ``container/``, ``config/``, ``logging/``) so each
+``context.py``, ``container/``, ``config/``, ``logging/``,
+``websocket/``, ``datasource/``, ``crud.py``, ``migrations/``) so each
 function's counterpart is found by name. The
 package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``gofr_tpu``: what it needs from there it keeps as its own copy.

@@ -8,13 +8,16 @@ verbs and their decorator form (rest.go:9-31); ``run()`` installs
 signal-driven graceful shutdown and starts every server concurrently
 (run.go:15-95, shutdown.go:14-48); ``on_start`` / ``on_shutdown`` hooks
 (gofr.go:54-88); ``subscribe`` (gofr.go:249); ``add_cron_job``
-(gofr.go:287). ``serve_model`` serves an engine of the port; it is
-wired by ``serving.app.wire_engine``, the same function
+(gofr.go:287); ``websocket`` / ``add_ws_service`` (websocket.go:30-98),
+``add_rest_handlers`` (rest.go:53) and ``migrate`` (migration.go:29).
+``serve_model`` serves an engine of the port; it is wired by
+``serving.app.wire_engine``, the same function
 ``serving.app.build_server`` uses.
 
 How the port runs it:
 
-- plain handlers (every serving handler of the port) and plain
+- plain handlers (every serving handler of the port, the CRUD handlers,
+  plain websocket handlers) and plain
   ``Stream`` iterators run on :attr:`App.executor`, a pool of the app's
   own with no cap (``handler.handler_pool``): a generation holds its
   thread to the end, and every other request still gets one and reaches
@@ -38,9 +41,13 @@ How the port runs it:
   :meth:`start` on a loop in a thread and call :meth:`stop` or
   :meth:`_graceful_stop` on that loop.
 
-Left for later ports, with their modules: ``websocket`` /
-``add_ws_service``, ``migrate``, ``add_rest_handlers``, the CLI
-(``new_cmd``), remote log levels and usage telemetry.
+- the websocket upgrade is the innermost middleware, as in JAX; ``stop``
+  closes every socket (``ws_manager.close_all()``) before the servers
+  shut down, which cancels the engine request of a handler still
+  streaming to one.
+
+Left for later ports, with their modules: the CLI (``new_cmd``), remote
+log levels and usage telemetry.
 """
 
 from __future__ import annotations
@@ -70,8 +77,6 @@ from .http.server import HTTPServer, chain
 DEFAULT_HTTP_PORT = 8000
 DEFAULT_METRICS_PORT = 2121
 DEFAULT_SHUTDOWN_GRACE = 30.0
-#: the gRPC pool's floor
-MIN_GRPC_THREADS = 32
 #: threads of the probes' own pool (health, the metrics refresh)
 PROBE_THREADS = 2
 
@@ -91,6 +96,7 @@ class App:
         self._cron = None  # created on first add_cron_job
         self._middlewares: list[Callable] = []
         self._user_middlewares: list[Callable] = []
+        self._ws_router: Router | None = None
         self._stop_event: asyncio.Event | None = None
         self._servers: list[HTTPServer] = []
         self._tasks: list[asyncio.Task] = []
@@ -208,9 +214,55 @@ class App:
     def add_static_files(self, url_prefix: str, directory: str) -> None:
         self.router.add_static(url_prefix, directory)
 
+    def add_rest_handlers(self, entity_cls: type, **kwargs):
+        """Auto-CRUD for a dataclass entity (reference rest.go:53)."""
+        from .crud import add_rest_handlers
+        return add_rest_handlers(self, entity_cls, **kwargs)
+
     def use_middleware(self, middleware: Callable) -> None:
         """Append a user middleware (runs innermost, after the chain)."""
         self._user_middlewares.append(middleware)
+
+    # -------------------------------------------------------- websockets
+    def websocket(self, pattern: str, handler: Callable | None = None):
+        """Register a websocket endpoint: the handler runs once per
+        inbound message, ``ctx.bind()`` reads the frame (reference
+        websocket.go:30-49); a plain handler runs on :attr:`executor`, a
+        coroutine on the loop. A plain ``GET`` of the path answers 426."""
+        if handler is None:
+            def decorator(fn: Callable) -> Callable:
+                self.websocket(pattern, fn)
+                return fn
+            return decorator
+
+        if self._ws_router is None:
+            from .websocket.manager import WSManager
+            self._ws_router = Router()
+            if self.container.ws_manager is None:
+                self.container.ws_manager = WSManager()
+        self._ws_router.add("WS", pattern, handler)
+
+        async def reject_plain_http(ctx) -> Any:
+            from .http.errors import HTTPError
+            raise HTTPError("websocket endpoint: upgrade required",
+                            status_code=426)
+        self.router.add("GET", pattern, reject_plain_http)
+        return handler
+
+    def add_ws_service(self, name: str, url: str, *,
+                       headers: dict[str, str] | None = None,
+                       retry_interval: float = 5.0,
+                       on_message: Callable | None = None):
+        """Maintain a named outbound websocket connection with
+        reconnection (reference websocket.go:52-98)."""
+        from .websocket.service import WSService
+        service = WSService(name, url, headers=headers,
+                            retry_interval=retry_interval,
+                            logger=self.logger, on_message=on_message)
+        self.container.register_ws_service(name, service)
+        self.on_start(service.start)
+        self.on_shutdown(service.stop)
+        return service
 
     # ------------------------------------------------------------- auth
     def _install_auth(self, provider, scheme: str) -> None:
@@ -253,8 +305,8 @@ class App:
     # --------------------------------------------------------------- gRPC
     def register_grpc_service(self, service) -> None:
         """Queue a ``gofr_tpu_torch.grpc.GRPCService``; the gRPC server
-        (``GRPC_PORT``, default 9000; 0 = a free port) boots with the app
-        on a pool of the handler pool's size (reference grpc.go:200
+        (``GRPC_PORT``, default 9000; 0 = a free port; ``grpc.aio`` on a
+        loop thread of its own) boots with the app (reference grpc.go:200
         RegisterService). A protogen module's ``FILE_DESCRIPTOR_SET``,
         found on the service's class or a base's module, feeds
         reflection."""
@@ -263,8 +315,7 @@ class App:
             from .grpc.server import DEFAULT_GRPC_PORT, GRPCServer
             port = self.config.get_int("GRPC_PORT", DEFAULT_GRPC_PORT) \
                 if hasattr(self.config, "get_int") else DEFAULT_GRPC_PORT
-            self.grpc_server = GRPCServer(self, port=port, logger=self.logger,
-                                          max_workers=self._grpc_pool_size())
+            self.grpc_server = GRPCServer(self, port=port, logger=self.logger)
         self.grpc_server.register(service)
         for klass in type(service).__mro__:
             module = _sys.modules.get(klass.__module__)
@@ -296,6 +347,13 @@ class App:
         if self._cron is None:
             self._cron = Cron(self.container)
         self._cron.add(schedule, name, job)
+
+    def migrate(self, migrations: dict) -> list[int]:
+        """Apply the pending versions of ``{version: Migrate(up=fn)}``
+        over every configured store (reference migration.go:29); returns
+        the versions applied."""
+        from .migrations.runner import run as run_migrations
+        return run_migrations(self.container, migrations)
 
     def serve_model(self, name: str, engine, tokenizer=None, *,
                     chat_path: str | None = "/chat",
@@ -419,11 +477,6 @@ class App:
         return self.container.metrics.snapshot()
 
     # ---------------------------------------------------------- lifecycle
-    def _grpc_pool_size(self) -> int:
-        slots = sum(getattr(getattr(e, "config", None), "max_batch", 0)
-                    for e in self._engines)
-        return max(MIN_GRPC_THREADS, 2 * slots + 8)
-
     def _build_http_handler(self):
         core = build_core_handler(self.router, self.container,
                                   self.request_timeout, self.executor)
@@ -437,6 +490,12 @@ class App:
         ]
         middlewares.extend(self._middlewares)
         middlewares.extend(self._user_middlewares)
+        if self._ws_router is not None:
+            # innermost, after auth + user middleware (reference
+            # http_server.go:36-41 ordering)
+            from .websocket.runtime import make_ws_middleware
+            middlewares.append(make_ws_middleware(
+                self._ws_router, self.container, self.logger, self.executor))
         return chain(middlewares, core)
 
     def _build_metrics_handler(self):
@@ -607,6 +666,8 @@ class App:
         self.on_close.clear()
         for task in self._tasks:
             task.cancel()
+        if self.container.ws_manager is not None:
+            await self.container.ws_manager.close_all()
         if self.grpc_server is not None and self.grpc_server.started:
             await asyncio.get_running_loop().run_in_executor(
                 self.executor, self.grpc_server.shutdown)

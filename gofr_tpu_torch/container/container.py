@@ -3,20 +3,24 @@ copy of ``gofr_tpu/container/container.py``).
 
 One object holding the logger, config, metrics manager, tracer, tenant
 resolver, registered inter-service HTTP clients, the pub/sub client,
-the device registry (``tpu``, the JAX name; the port's registry lists
-CUDA devices) and the model engines served by this process.
-``Container.create`` wires everything from config the same way
-``container.Create`` does (env-driven, reference container.go:92-177).
+the datasources (``sql``, ``redis``, ``kv``, ``file`` and the breadth
+slots, each with its ``add_*``), the websocket registry (``ws_manager``,
+``ws_services``), the device registry (``tpu``, the JAX name; the port's
+registry lists CUDA devices) and the model engines served by this
+process. ``Container.create`` wires everything from config the same way
+``container.Create`` does (env-driven, reference container.go:92-177):
+``DB_DIALECT=sqlite`` (``DB_NAME``) builds ``sql``, ``REDIS_HOST`` the
+embedded ``redis``.
 
 What the port does not have yet, a config cannot ask for: a key that
-names a datasource, a broker or an exporter whose module is not ported
-(``DB_DIALECT``, ``REDIS_HOST``, ``PUBSUB_BACKEND`` other than
-``MEMORY`` / ``INMEMORY``, ``TRACE_EXPORTER`` ``otlp`` / ``jaeger`` /
-``zipkin``, ``REMOTE_LOG_URL``) makes ``create`` raise
+names a network client, a broker or an exporter whose module is not
+ported (``DB_DIALECT`` ``mysql`` / ``postgres`` / ``cockroachdb`` /
+``supabase`` / ``oracle``, ``REDIS_MODE=network``, ``PUBSUB_BACKEND``
+other than ``MEMORY`` / ``INMEMORY``, ``TRACE_EXPORTER`` ``otlp`` /
+``jaeger`` / ``zipkin``, ``REMOTE_LOG_URL``) makes ``create`` raise
 :class:`NotPortedError`, which names the key and the module. It never
-skips one silently. The datasource slots (``sql``, ``redis``, ``kv``,
-``file`` and the breadth stores) and the websocket registry come with
-their modules.
+skips one silently. The breadth adders (``add_mongo``, ...) take the
+caller's store object, as JAX's do, and need no module of the port.
 """
 
 from __future__ import annotations
@@ -39,8 +43,21 @@ STATUS_DEGRADED = "DEGRADED"
 _DATASOURCE_BUCKETS = (0.00005, 0.0001, 0.0005, 0.001, 0.005, 0.01,
                        0.05, 0.1, 0.5, 1, 5, 30)
 
+# stores beyond the core set, each with a generated add_<slot> method
+_BREADTH_SLOTS = ("mongo", "elasticsearch", "solr", "couchbase",
+                  "cassandra", "scylladb", "clickhouse", "oracle",
+                  "dgraph", "arangodb", "surrealdb", "opentsdb",
+                  "influxdb", "dbresolver")
+
 # every slot health() aggregates over and close() tears down
-_SLOTS = ("pubsub", "tpu")
+_SLOTS = ("sql", "redis", "kv", "file", "pubsub", "tpu") + _BREADTH_SLOTS
+
+# DB_DIALECT values whose network client module is not ported yet
+_SQL_WIRE_MODULES = {"mysql": "datasource/mysql_wire.py",
+                     "postgres": "datasource/postgres_wire.py",
+                     "cockroachdb": "datasource/postgres_wire.py",
+                     "supabase": "datasource/postgres_wire.py",
+                     "oracle": "datasource/oracle_wire.py"}
 
 # PUBSUB_BACKEND values whose client module is not ported yet
 _BROKER_MODULES = {"GOOGLE": "pubsub/google.py",
@@ -64,12 +81,16 @@ class NotPortedError(RuntimeError):
 def _refuse_unported(config) -> None:
     """Raise :class:`NotPortedError` for the first key that names a
     module the port lacks."""
-    for key, module in (("DB_DIALECT", "datasource/sql.py"),
-                        ("REDIS_HOST", "datasource/redis.py"),
-                        ("REMOTE_LOG_URL", "logging/remote.py")):
-        value = config.get(key)
-        if value:
-            raise NotPortedError(key, value, module)
+    dialect = (config.get("DB_DIALECT") or "").lower()
+    if dialect in _SQL_WIRE_MODULES:
+        raise NotPortedError("DB_DIALECT", dialect,
+                             _SQL_WIRE_MODULES[dialect])
+    mode = config.get_or_default("REDIS_MODE", "embedded").lower()
+    if config.get("REDIS_HOST") and mode == "network":
+        raise NotPortedError("REDIS_MODE", mode, "datasource/redis_wire.py")
+    url = config.get("REMOTE_LOG_URL")
+    if url:
+        raise NotPortedError("REMOTE_LOG_URL", url, "logging/remote.py")
     exporter = config.get_or_default("TRACE_EXPORTER", "none").lower()
     if exporter in ("otlp", "jaeger", "zipkin"):
         raise NotPortedError("TRACE_EXPORTER", exporter, "tracing/export.py")
@@ -93,7 +114,17 @@ class Container:
         self.tenant_resolver = TenantResolver()
         self.services: dict[str, Any] = {}   # name -> service client
         self.pubsub: Any = None              # pubsub client
+        self.sql: Any = None                 # SQL datasource
+        self.redis: Any = None               # redis-shaped store
+        self.kv: Any = None                  # key-value store
+        self.file: Any = None                # file store
+        self.ws_manager: Any = None          # websocket connection manager
+        self.ws_services: dict[str, Any] = {}  # name -> outbound WSService
         self.extra_health: dict[str, Any] = {}  # name -> health_check()able
+        # breadth datasource slots: _BREADTH_SLOTS is the single
+        # definition site (the add_* methods, health() and close())
+        for slot in _BREADTH_SLOTS:
+            setattr(self, slot, None)
         self.tpu: Any = None                 # the device registry
         self.models: dict[str, Any] = {}     # name -> serving engine
         # stores with async connect wait here until an event loop
@@ -122,6 +153,14 @@ class Container:
         elif exporter_kind == "memory":
             exporter = InMemoryExporter()
         c.tracer = Tracer(service_name=c.app_name, exporter=exporter, ratio=ratio)
+
+        # env-driven datasources (reference container.go:128-174);
+        # anything not configured stays None and can be attached later
+        # via add_*
+        from ..datasource.redis import new_redis
+        from ..datasource.sql import new_sql
+        c.sql = new_sql(config, logger, c.metrics, c.tracer)
+        c.redis = new_redis(config, logger, c.metrics, c.tracer)
 
         backend = config.get_or_default("PUBSUB_BACKEND", "").upper()
         if backend in ("MEMORY", "INMEMORY"):
@@ -394,6 +433,22 @@ class Container:
                 self.logger.error(
                     f"connect {type(store).__name__} failed: {exc!r}")
 
+    def add_sql(self, store: Any) -> Any:
+        self.sql = self._provide(store)
+        return self.sql
+
+    def add_redis(self, store: Any) -> Any:
+        self.redis = self._provide(store)
+        return self.redis
+
+    def add_kv_store(self, store: Any) -> Any:
+        self.kv = self._provide(store)
+        return self.kv
+
+    def add_file_store(self, store: Any) -> Any:
+        self.file = self._provide(store)
+        return self.file
+
     def add_pubsub(self, client: Any) -> Any:
         self.pubsub = self._provide(client)
         return self.pubsub
@@ -405,6 +460,12 @@ class Container:
         """Attach any extra ``health_check()``-bearing component (e.g.
         the serving control plane) to the aggregate health surface."""
         self.extra_health[name] = source
+
+    def register_ws_service(self, name: str, service: Any) -> None:
+        self.ws_services[name] = service
+
+    def get_ws_service(self, name: str) -> Any:
+        return self.ws_services.get(name)
 
     def get_http_service(self, name: str) -> Any:
         return self.services.get(name)
@@ -437,3 +498,17 @@ class Container:
             except Exception as exc:
                 self.logger.warn(f"closing trace exporter: {exc}")
 
+
+def _make_adder(slot: str):
+    def add(self: Container, store: Any) -> Any:
+        setattr(self, slot, self._provide(store))
+        return getattr(self, slot)
+    add.__name__ = f"add_{slot}"
+    add.__doc__ = (f"Attach a {slot} store: use_logger → use_metrics → "
+                   f"use_tracer → connect (reference external_db.go).")
+    return add
+
+
+for _slot in _BREADTH_SLOTS:
+    setattr(Container, f"add_{_slot}", _make_adder(_slot))
+del _slot

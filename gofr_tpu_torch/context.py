@@ -19,9 +19,11 @@ handler with ``REQUEST_TIMEOUT`` itself, answering 408, and marks the
 request gone so its engine request is cancelled). ``headers`` and
 ``body`` are the request's.
 
-Left out until their modules are ported: the datasource accessors
-(``sql``, ``redis``, ``kv``, ``file`` and the breadth stores), the
-websocket surface and the CLI terminal.
+The datasources (``sql``, ``redis``, ``kv``, ``file``; the breadth
+stores through the ``__getattr__`` passthrough to the container) and
+the websocket surface (``write_message_to_socket``, a coroutine, and
+``ws_manager``) are JAX's. Left out until its module is ported: the CLI
+terminal.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class Context:
         self.container = container
         self.logger = ContextLogger(container.logger)
         self._auth_info: dict[str, Any] = {}
+        self._ws_conn: Any = None  # set by the websocket message loop
 
     # -- request surface (reference context delegates to Request)
     def bind(self, target: Any = None) -> Any:
@@ -98,12 +101,39 @@ class Context:
         return self.container.metrics
 
     @property
+    def sql(self):
+        return self.container.sql
+
+    @property
+    def redis(self):
+        return self.container.redis
+
+    @property
+    def kv(self):
+        return self.container.kv
+
+    @property
+    def file(self):
+        return self.container.file
+
+    @property
     def pubsub(self):
         return self.container.pubsub
 
     @property
     def tpu(self):
         return self.container.tpu
+
+    def __getattr__(self, name: str):
+        # breadth datasource slots (mongo, cassandra, dgraph, influxdb,
+        # ...) resolve straight off the container, as the reference
+        # Context embeds *Container (context.go:18-38)
+        if name.startswith("_"):
+            raise AttributeError(name)
+        container = self.__dict__.get("container")
+        if container is not None and hasattr(container, name):
+            return getattr(container, name)
+        raise AttributeError(name)
 
     def model(self, name: str) -> Any:
         return self.container.get_model(name)
@@ -126,6 +156,16 @@ class Context:
 
     def set_auth_info(self, info: dict[str, Any]) -> None:
         self._auth_info = dict(info)
+
+    # -- websocket (reference context.go:81 WriteMessageToSocket)
+    async def write_message_to_socket(self, data: Any) -> None:
+        if self._ws_conn is None:
+            raise RuntimeError("not a websocket context")
+        await self._ws_conn.send(data)
+
+    @property
+    def ws_manager(self):
+        return self.container.ws_manager
 
     # -- publish convenience
     async def publish(self, topic: str, message: bytes | str | dict) -> None:

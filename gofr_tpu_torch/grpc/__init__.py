@@ -1,5 +1,5 @@
 """gRPC transport of the port (the counterpart of ``gofr_tpu/grpc/``):
-a thread-pool server with the observability chain, decorator-based
+a ``grpc.aio`` server with the observability chain, decorator-based
 services, standard health, reflection, a client and the ``.proto``
 skeleton generator. Importing it needs ``grpcio``; the rest of the port
 does not."""

@@ -13,28 +13,36 @@ only when the host's environment sets ``GRPC_ENABLE_REFLECTION`` to
 ``"true"``.
 
 The port has no container: the server reads what it needs from the host
-it serves beside (a ``ChatServer``): ``tracer``, ``metrics`` (a new
-manager when it has none), ``logger``, ``health()``, ``env`` and
-``tenant_of``. The port's engine is thread-based, so the server is
-grpc's synchronous one on a thread pool (``max_workers``): plain handler
-functions and generators run on its threads as they are; a coroutine or
-an async generator (the JAX package's style, and :mod:`.protogen`'s
-skeletons) runs on an event loop of its own call.
+it serves beside (a ``ChatServer`` or an ``App``): ``tracer``,
+``metrics`` (a new manager when it has none), ``logger``, ``health()``,
+``env`` and ``tenant_of``.
+
+The server is ``grpc.aio``, as JAX's is, on an event loop of its own
+thread (so ``start`` and ``shutdown`` are plain calls from any thread):
+an RPC holds no thread while it waits. Coroutines and async generators
+(the JAX package's style, :mod:`.protogen`'s skeletons, the chat
+service) run on that loop; a plain handler function runs on
+:attr:`GRPCServer.executor`, a pool with no cap (``handler.handler_pool``),
+and a plain generator is pumped there by ``handler.ThreadPump``, which
+stops and closes it once the RPC ends. Health ``Check`` reads the host's
+health on that pool too, so it never waits behind a generation.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import inspect
 import os
+import threading
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Iterator, Mapping
+from typing import Any, AsyncIterator, Mapping
 
 import grpc
 
+from ..handler import ThreadPump, handler_pool
 from ..metrics import Manager
 from ..serving.logger import Logger
 from .health import (
@@ -77,16 +85,20 @@ def bind_dataclass(data: Mapping[str, Any], cls: type) -> Any:
 class RPCContext:
     """One RPC as a handler sees it: the decoded request (``bind``), the
     invocation metadata (``param`` / ``header``, lower-case keys), the
-    host (``container``), its tenant, and grpc's own servicer context
-    (``grpc_context``: ``is_active``, ``add_callback``)."""
+    host (``container``), its tenant, grpc's own servicer context
+    (``grpc_context``, a ``grpc.aio.ServicerContext``: ``cancelled``,
+    ``done``, ``add_done_callback``) and the server's pool
+    (``executor``) for blocking work."""
 
     def __init__(self, payload: Any, metadata: Mapping[str, str],
-                 method: str, container: Any, grpc_context: Any) -> None:
+                 method: str, container: Any, grpc_context: Any,
+                 executor: Any = None) -> None:
         self.payload = payload
         self.metadata = dict(metadata)
         self.method = method
         self.container = container
         self.grpc_context = grpc_context
+        self.executor = executor
 
     def bind(self, target: Any = None) -> Any:
         if isinstance(target, type) and dataclasses.is_dataclass(target) \
@@ -115,49 +127,34 @@ class RPCContext:
         return tenant_of(self.metadata) if tenant_of is not None else None
 
 
-def _run_coroutine(result: Any) -> Any:
-    return asyncio.run(result) if inspect.isawaitable(result) else result
+class _Requests:
+    """grpc.aio's request stream for a client-stream or bidi handler:
+    ``async for`` on the loop, or plain ``for`` from a plain handler on
+    a pool thread (each item fetched through the loop)."""
 
+    def __init__(self, requests: Any, loop: asyncio.AbstractEventLoop) -> None:
+        self._requests = requests
+        self._loop = loop
 
-def _iterate(result: Any) -> Iterator[Any]:
-    """The items of a handler's stream: a plain iterator as it is, an
-    async generator on an event loop of this call's own."""
-    if not hasattr(result, "__anext__"):
-        yield from result
-        return
-    loop = asyncio.new_event_loop()
-    try:
-        while True:
-            try:
-                item = loop.run_until_complete(result.__anext__())
-            except StopAsyncIteration:
-                return
-            yield item
-    finally:
-        try:
-            loop.run_until_complete(result.aclose())
-        finally:
-            loop.close()
-
-
-class _AsyncRequests:
-    """A blocking request iterator as an async one, for async
-    client-stream and bidi handlers (each on a loop of its own)."""
-
-    def __init__(self, requests: Any) -> None:
-        self._requests = iter(requests)
-
-    def __aiter__(self) -> "_AsyncRequests":
-        return self
-
-    async def __anext__(self) -> Any:
-        try:
-            return next(self._requests)
-        except StopIteration:
-            raise StopAsyncIteration from None
+    def __aiter__(self):
+        return self._requests.__aiter__()
 
     def __iter__(self):
-        return self._requests
+        items = self._requests.__aiter__()
+        while True:
+            try:
+                yield asyncio.run_coroutine_threadsafe(
+                    items.__anext__(), self._loop).result()
+            except StopAsyncIteration:
+                return
+
+
+async def _off_loop(executor: Any, fn: Any, *args: Any) -> Any:
+    """``fn(*args)`` on ``executor``, with this task's context (the RPC's
+    span)."""
+    ctx = contextvars.copy_context()
+    return await asyncio.get_running_loop().run_in_executor(
+        executor, ctx.run, fn, *args)
 
 
 class GRPCServer:
@@ -165,12 +162,10 @@ class GRPCServer:
     free port, read back as ``bound_port``) and ``shutdown``."""
 
     def __init__(self, host_server: Any, *, port: int = DEFAULT_GRPC_PORT,
-                 host: str = "0.0.0.0", logger: Any = None,
-                 max_workers: int = 32) -> None:
+                 host: str = "0.0.0.0", logger: Any = None) -> None:
         self.host_server = host_server
         self.host = host
         self.port = port
-        self.max_workers = max_workers
         self.logger = logger or getattr(host_server, "logger", None) \
             or Logger()
         if getattr(host_server, "metrics", None) is None:
@@ -182,9 +177,13 @@ class GRPCServer:
                 "gRPC server handle time in seconds", buckets=_GRPC_BUCKETS)
         self.health = HealthState()
         self.bound_port: int = port
+        #: plain handlers, plain streams and health reads run here
+        self.executor = None
         self._services: list[GRPCService] = []
         self._descriptors = DescriptorRegistry()
-        self._server: grpc.Server | None = None
+        self._server: grpc.aio.Server | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._thread: threading.Thread | None = None
 
     # ------------------------------------------------------- registration
     def register(self, service: GRPCService) -> None:
@@ -210,6 +209,7 @@ class GRPCServer:
         host = self.host_server
         logger = self.logger
         metrics = self.metrics
+        fn = spec.fn
 
         def observe(start: float, status: str) -> None:
             duration = time.perf_counter() - start
@@ -222,46 +222,77 @@ class GRPCServer:
         def begin(payload: Any, grpc_ctx):
             metadata = {k: v for k, v in
                         (grpc_ctx.invocation_metadata() or ())}
-            ctx = RPCContext(payload, metadata, full_method, host, grpc_ctx)
+            if spec.kind not in (UNARY, SERVER_STREAM):
+                payload = _Requests(payload, asyncio.get_running_loop())
+            ctx = RPCContext(payload, metadata, full_method, host, grpc_ctx,
+                             self.executor)
             span = host.tracer.start_span(
                 full_method, traceparent=metadata.get("traceparent"))
             return ctx, span
 
-        def recover(exc: Exception, start: float, grpc_ctx, span) -> None:
+        async def recover(exc: Exception, start: float, grpc_ctx,
+                          span) -> None:
             code = getattr(exc, "grpc_status", grpc.StatusCode.INTERNAL)
             logger.error(f"grpc panic in {full_method}: {exc!r}",
                          stack=traceback.format_exc())
             span.set_status(f"ERROR: {code.name}")
             observe(start, code.name)
-            grpc_ctx.abort(code, str(exc) or "internal error")
+            await grpc_ctx.abort(code, str(exc) or "internal error")
 
-        def finished(start: float, grpc_ctx) -> None:
-            observe(start, "OK" if grpc_ctx.is_active() else "CANCELLED")
-
-        def call_unary(request, grpc_ctx):
+        async def call_unary(request, grpc_ctx):
             start = time.perf_counter()
-            if spec.kind == CLIENT_STREAM:
-                request = _AsyncRequests(request)
             ctx, span = begin(request, grpc_ctx)
             try:
-                result = _run_coroutine(spec.fn(service, ctx, request))
-                finished(start, grpc_ctx)
+                if inspect.iscoroutinefunction(fn):
+                    result = await fn(service, ctx, ctx.payload)
+                else:
+                    result = await _off_loop(self.executor, fn, service, ctx,
+                                             ctx.payload)
+                    if inspect.isawaitable(result):
+                        result = await result
+                observe(start, "OK")
                 return result
+            except asyncio.CancelledError:
+                observe(start, "CANCELLED")
+                raise
             except Exception as exc:  # noqa: BLE001 — recovery
-                recover(exc, start, grpc_ctx, span)
+                await recover(exc, start, grpc_ctx, span)
             finally:
                 span.end()
 
-        def call_stream(request, grpc_ctx):
+        async def items(ctx) -> AsyncIterator[Any]:
+            """The handler's stream: an async generator on the loop, a
+            plain one pumped on the pool until the RPC ends."""
+            if inspect.isasyncgenfunction(fn) or inspect.isgeneratorfunction(fn):
+                result = fn(service, ctx, ctx.payload)
+            else:
+                result = await _off_loop(self.executor, fn, service, ctx,
+                                         ctx.payload)
+            if hasattr(result, "__anext__"):
+                async for item in result:
+                    yield item
+                return
+            gone = threading.Event()
+            pump = ThreadPump(result, gone.is_set, gone.set, self.executor,
+                              asyncio.get_running_loop())
+            try:
+                async for item in pump:
+                    yield item
+            finally:
+                await pump.aclose()
+
+        async def call_stream(request, grpc_ctx):
             start = time.perf_counter()
-            if spec.kind != SERVER_STREAM:
-                request = _AsyncRequests(request)
             ctx, span = begin(request, grpc_ctx)
             try:
-                yield from _iterate(spec.fn(service, ctx, request))
-                finished(start, grpc_ctx)
+                async for item in items(ctx):
+                    yield item
+                observe(start, "OK")
+            except asyncio.CancelledError:
+                observe(start, "CANCELLED")
+                raise
             except Exception as exc:  # noqa: BLE001 — recovery
-                recover(exc, start, grpc_ctx, span)
+                await recover(exc, start, grpc_ctx, span)
             finally:
                 span.end()
 
@@ -285,21 +316,25 @@ class GRPCServer:
         state = self.health
         host = self.host_server
 
-        def check(service_name: str, grpc_ctx) -> int:
+        def overall() -> int:
+            try:
+                return SERVING if host.health()["status"] != "DOWN" \
+                    else NOT_SERVING
+            except Exception:  # noqa: BLE001 — no health: not serving
+                return NOT_SERVING
+
+        async def check(service_name: str, grpc_ctx) -> int:
             if service_name == "":
-                try:
-                    return SERVING if host.health()["status"] != "DOWN" \
-                        else NOT_SERVING
-                except Exception:  # noqa: BLE001 — no health: not serving
-                    return NOT_SERVING
+                # the host's health may read the card: off the loop
+                return await _off_loop(self.executor, overall)
             return state.check(service_name)
 
-        def watch(service_name: str, grpc_ctx) -> Iterator[int]:
-            yield check(service_name, grpc_ctx)
+        async def watch(service_name: str, grpc_ctx) -> AsyncIterator[int]:
+            yield await check(service_name, grpc_ctx)
             # polled, not pushed: the status again every interval
-            while grpc_ctx.is_active():
-                time.sleep(WATCH_INTERVAL_S)
-                yield check(service_name, grpc_ctx)
+            while not grpc_ctx.done():
+                await asyncio.sleep(WATCH_INTERVAL_S)
+                yield await check(service_name, grpc_ctx)
 
         kw = {"request_deserializer": decode_check_request,
               "response_serializer": encode_check_response}
@@ -313,12 +348,31 @@ class GRPCServer:
     def started(self) -> bool:
         return self._server is not None
 
+    def _call(self, coro, timeout: float | None = None) -> Any:
+        assert self._loop is not None
+        return asyncio.run_coroutine_threadsafe(coro, self._loop) \
+            .result(timeout)
+
     def start(self) -> None:
         """Bind and serve every registered service, health, and (when
-        ``GRPC_ENABLE_REFLECTION`` is ``"true"``) reflection. A failed
-        bind raises ``RuntimeError`` naming ``GRPC_PORT``."""
-        server = grpc.server(ThreadPoolExecutor(
-            max_workers=self.max_workers, thread_name_prefix="grpc"))
+        ``GRPC_ENABLE_REFLECTION`` is ``"true"``) reflection, on a loop
+        thread of the server's own. A failed bind raises
+        ``RuntimeError`` naming ``GRPC_PORT``."""
+        self.executor = handler_pool()
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self._loop.run_forever,
+                                        name="grpc-loop", daemon=True)
+        self._thread.start()
+        try:
+            self._server = self._call(self._serve())
+        except BaseException:
+            self._end_loop()
+            raise
+        self.logger.info(
+            f"gRPC server listening on {self.host}:{self.bound_port}")
+
+    async def _serve(self) -> grpc.aio.Server:
+        server = grpc.aio.server()
         for service in self._services:
             handlers = {spec.name: self._handler_for(service, spec)
                         for spec in service.rpc_specs()}
@@ -346,12 +400,28 @@ class GRPCServer:
             self.logger.error(message)
             raise RuntimeError(message)
         self.bound_port = bound
-        server.start()
-        self._server = server
-        self.logger.info(
-            f"gRPC server listening on {self.host}:{self.bound_port}")
+        await server.start()
+        return server
+
+    def _end_loop(self) -> None:
+        if self._loop is not None:
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            if self._thread is not None:
+                self._thread.join(10)
+            if not self._loop.is_running():
+                self._loop.close()
+            self._loop = self._thread = None
+        if self.executor is not None:
+            # pumps still in flight end on their own
+            self.executor.shutdown(wait=False)
+            self.executor = None
 
     def shutdown(self, grace: float = 5.0) -> None:
+        """Stop: RPCs in flight get ``grace`` seconds, then are
+        cancelled (a cancelled chat RPC cancels its engine request)."""
         if self._server is not None:
-            self._server.stop(grace).wait()
-            self._server = None
+            try:
+                self._call(self._server.stop(grace), grace + 10)
+            finally:
+                self._server = None
+                self._end_loop()

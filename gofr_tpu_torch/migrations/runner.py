@@ -1,0 +1,285 @@
+"""Versioned migrations over every initialized datasource (the port's
+copy of ``gofr_tpu/migrations/runner.py``).
+
+Mirrors reference pkg/gofr/migration/: user supplies
+``{version: Migrate(up=fn)}`` (migration.go:14-18); ``run`` sorts
+versions, builds a migrator chain over whichever datasources are
+initialized (migration.go:118-235), ensures the ``gofr_migrations``
+ledger in each store, and applies every version newer than the last
+recorded one — SQL transactionally with rollback on failure
+(migration.go:59-98). Each migration's ``up`` receives a ``Datasource``
+facade so one migration can touch SQL, Redis, KV, and pub/sub topics.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+
+@dataclass
+class Migrate:
+    up: Callable[["Datasource"], None]
+
+
+class Datasource:
+    """What a migration's ``up`` sees (reference migration/datasource.go):
+    the initialized stores plus the logger. Inside ``run`` the SQL
+    handle is the open transaction."""
+
+    def __init__(self, *, sql: Any = None, redis: Any = None, kv: Any = None,
+                 pubsub: Any = None, cassandra: Any = None,
+                 mongo: Any = None, clickhouse: Any = None,
+                 oracle: Any = None, scylladb: Any = None,
+                 logger: Any = None) -> None:
+        self.sql = sql
+        self.redis = redis
+        self.kv = kv
+        self.pubsub = pubsub
+        self.cassandra = cassandra
+        self.mongo = mongo
+        self.clickhouse = clickhouse
+        self.oracle = oracle
+        self.scylladb = scylladb
+        self.logger = logger
+
+
+class MigrationError(Exception):
+    pass
+
+
+LEDGER_TABLE = "gofr_migrations"
+LEDGER_PREFIX = "gofr_migrations:"
+
+
+class _SQLMigrator:
+    def __init__(self, sql: Any) -> None:
+        self.sql = sql
+
+    def ensure_ledger(self) -> None:
+        self.sql.exec(
+            f"CREATE TABLE IF NOT EXISTS {LEDGER_TABLE} ("
+            "version INTEGER PRIMARY KEY, method TEXT NOT NULL, "
+            "start_time TEXT NOT NULL, duration_ms INTEGER)")
+
+    def last_version(self) -> int:
+        row = self.sql.query_row(
+            f"SELECT MAX(version) AS v FROM {LEDGER_TABLE}")
+        return int(row["v"]) if row is not None and row["v"] is not None else 0
+
+    def record(self, tx: Any, version: int, started: float) -> None:
+        tx.exec(
+            f"INSERT INTO {LEDGER_TABLE} "
+            "(version, method, start_time, duration_ms) VALUES "
+            f"({self.sql.ph(1)}, {self.sql.ph(2)}, {self.sql.ph(3)}, "
+            f"{self.sql.ph(4)})",
+            version, "UP",
+            time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(started)),
+            int((time.time() - started) * 1000))
+
+
+class _KVStyleMigrator:
+    """Redis- and KV-backed ledger: one key per version."""
+
+    def __init__(self, store: Any) -> None:
+        self.store = store
+
+    def ensure_ledger(self) -> None:
+        pass  # key space needs no DDL
+
+    def last_version(self) -> int:
+        try:
+            keys = self.store.keys()
+        except TypeError:  # redis-style keys(pattern)
+            keys = self.store.keys(LEDGER_PREFIX + "*")
+        versions = []
+        for key in keys:
+            if key.startswith(LEDGER_PREFIX):
+                try:
+                    versions.append(int(key[len(LEDGER_PREFIX):]))
+                except ValueError:
+                    continue
+        return max(versions, default=0)
+
+    def record(self, version: int, started: float) -> None:
+        self.store.set(f"{LEDGER_PREFIX}{version}", json.dumps({
+            "method": "UP",
+            "start_time": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                        time.gmtime(started)),
+            "duration_ms": int((time.time() - started) * 1000)}))
+
+
+class _StatementMigrator:
+    """Ledger for stores speaking ``exec(stmt, *args)`` /
+    ``query(stmt, *args)`` with qmark placeholders — cassandra,
+    scylladb, clickhouse, oracle (reference builds one migrator per
+    initialized datasource, each with its own ledger:
+    migration/cassandra.go, clickhouse.go, migration.go:137-235).
+
+    ``ddls`` is tried in order: the store's native dialect first
+    (e.g. ClickHouse's MergeTree engine clause), then a generic
+    fallback for embedded/mini engines."""
+
+    def __init__(self, store: Any, ddls: tuple[str, ...]) -> None:
+        self.store = store
+        self.ddls = ddls
+
+    def ensure_ledger(self) -> None:
+        try:  # already there?
+            self.store.query(
+                f"SELECT version FROM {LEDGER_TABLE} WHERE version < 0")
+            return
+        except Exception:
+            pass
+        last_exc: Exception | None = None
+        for ddl in self.ddls:
+            try:
+                self.store.exec(ddl)
+                return
+            except Exception as exc:  # try the next dialect
+                last_exc = exc
+        raise MigrationError(
+            f"cannot create migration ledger: {last_exc}")
+
+    def last_version(self) -> int:
+        rows = self.store.query(f"SELECT version FROM {LEDGER_TABLE}")
+        versions = []
+        for row in rows:
+            value = row.get("version") if hasattr(row, "get") else None
+            if value is None and hasattr(row, "get"):
+                value = row.get("VERSION")
+            if value is not None:
+                versions.append(int(value))
+        return max(versions, default=0)
+
+    def record(self, version: int, started: float) -> None:
+        self.store.exec(
+            f"INSERT INTO {LEDGER_TABLE} "
+            "(version, method, start_time, duration_ms) "
+            "VALUES (?, ?, ?, ?)",
+            version, "UP",
+            time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(started)),
+            int((time.time() - started) * 1000))
+
+
+_CQL_LEDGER_DDLS = (
+    f"CREATE TABLE IF NOT EXISTS {LEDGER_TABLE} ("
+    "version BIGINT PRIMARY KEY, method TEXT, "
+    "start_time TEXT, duration_ms BIGINT)",
+)
+_CLICKHOUSE_LEDGER_DDLS = (
+    f"CREATE TABLE IF NOT EXISTS {LEDGER_TABLE} ("
+    "version Int64, method String, start_time String, "
+    "duration_ms Int64) ENGINE = MergeTree ORDER BY version",
+    # embedded/mini engines reject the ENGINE clause
+    f"CREATE TABLE IF NOT EXISTS {LEDGER_TABLE} ("
+    "version BIGINT PRIMARY KEY, method TEXT, "
+    "start_time TEXT, duration_ms BIGINT)",
+)
+_ORACLE_LEDGER_DDLS = (
+    # oracle has no IF NOT EXISTS; ensure_ledger probes first, and an
+    # 'already exists' race still lands in the generic fallback's error
+    f"CREATE TABLE {LEDGER_TABLE} ("
+    "version NUMBER PRIMARY KEY, method VARCHAR2(8), "
+    "start_time VARCHAR2(32), duration_ms NUMBER)",
+    f"CREATE TABLE IF NOT EXISTS {LEDGER_TABLE} ("
+    "version BIGINT PRIMARY KEY, method TEXT, "
+    "start_time TEXT, duration_ms BIGINT)",
+)
+
+
+class _MongoMigrator:
+    """Document ledger: one doc per version in a ``gofr_migrations``
+    collection (reference migration/mongo.go)."""
+
+    def __init__(self, store: Any) -> None:
+        self.store = store
+
+    def ensure_ledger(self) -> None:
+        pass  # collections need no DDL
+
+    def last_version(self) -> int:
+        docs = self.store.find(LEDGER_TABLE)
+        return max((int(d["version"]) for d in docs if "version" in d),
+                   default=0)
+
+    def record(self, version: int, started: float) -> None:
+        self.store.insert_one(LEDGER_TABLE, {
+            "version": version, "method": "UP",
+            "start_time": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                        time.gmtime(started)),
+            "duration_ms": int((time.time() - started) * 1000)})
+
+
+def run(container: Any, migrations: dict[int, Any]) -> list[int]:
+    """Apply pending migrations; returns the versions that ran
+    (reference migration.Run, migration.go:29-99)."""
+    logger = container.logger
+    if not migrations:
+        return []
+    for version, migration in migrations.items():
+        if not isinstance(version, int) or version <= 0:
+            raise MigrationError(f"invalid migration version {version!r}")
+        if not callable(getattr(migration, "up", None)):
+            raise MigrationError(f"migration {version} has no callable 'up'")
+
+    sql_migrator = _SQLMigrator(container.sql) if container.sql else None
+    side_migrators: list[Any] = [
+        _KVStyleMigrator(store)
+        for store in (container.redis, container.kv) if store]
+    for slot, ddls in (("cassandra", _CQL_LEDGER_DDLS),
+                       ("scylladb", _CQL_LEDGER_DDLS),
+                       ("clickhouse", _CLICKHOUSE_LEDGER_DDLS),
+                       ("oracle", _ORACLE_LEDGER_DDLS)):
+        store = getattr(container, slot, None)
+        if store is not None:
+            side_migrators.append(_StatementMigrator(store, ddls))
+    if getattr(container, "mongo", None) is not None:
+        side_migrators.append(_MongoMigrator(container.mongo))
+    if sql_migrator is None and not side_migrators:
+        raise MigrationError(
+            "no datasource initialized to track migrations against")
+
+    if sql_migrator:
+        sql_migrator.ensure_ledger()
+    for migrator in side_migrators:
+        migrator.ensure_ledger()
+    lasts = ([sql_migrator.last_version()] if sql_migrator else []) + \
+        [m.last_version() for m in side_migrators]
+    last = max(lasts)
+
+    def facade(sql_handle: Any) -> Datasource:
+        return Datasource(sql=sql_handle, redis=container.redis,
+                          kv=container.kv, pubsub=container.pubsub,
+                          cassandra=getattr(container, "cassandra", None),
+                          mongo=getattr(container, "mongo", None),
+                          clickhouse=getattr(container, "clickhouse", None),
+                          oracle=getattr(container, "oracle", None),
+                          scylladb=getattr(container, "scylladb", None),
+                          logger=logger)
+
+    applied: list[int] = []
+    for version in sorted(migrations):
+        if version <= last:
+            continue
+        started = time.time()
+        migration = migrations[version]
+        if sql_migrator is not None:
+            # transactional: the migration's SQL rides the tx and rolls
+            # back with the ledger row on failure (migration.go:68-97);
+            # the other stores have no cross-statement transactions —
+            # their ledger records only land after up() succeeds
+            with container.sql.begin() as tx:
+                ds = facade(tx)
+                migration.up(ds)
+                sql_migrator.record(tx, version, started)
+        else:
+            migration.up(facade(None))
+        for migrator in side_migrators:
+            migrator.record(version, started)
+        applied.append(version)
+        logger.info(f"migration {version} applied in "
+                    f"{int((time.time() - started) * 1000)}ms")
+    return applied

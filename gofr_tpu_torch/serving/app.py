@@ -425,9 +425,9 @@ class ChatServer(ThreadingHTTPServer):
         gRPC beside this server (counterpart of the JAX app's
         ``register_grpc_service``): the first call makes a ``GRPCServer``
         on ``GRPC_PORT`` (default 9000; 0 = a free port, then
-        ``grpc_server.bound_port``) and this server's host, on a pool of
-        two threads per engine slot plus 8, at least 32 (each stream
-        holds one while it runs). A protogen module's
+        ``grpc_server.bound_port``) and this server's host (``grpc.aio``
+        on a loop thread of its own: an RPC waiting for tokens holds no
+        thread). A protogen module's
         ``FILE_DESCRIPTOR_SET``, found on the service's class or a base's
         module, feeds reflection. The gRPC server starts with
         ``serve_forever`` (or :meth:`start_grpc`) and stops in
@@ -436,12 +436,9 @@ class ChatServer(ThreadingHTTPServer):
 
         from ..grpc.server import DEFAULT_GRPC_PORT, GRPCServer
         if self.grpc_server is None:
-            slots = self.engine.config.max_batch \
-                if self.engine is not None else 0
             self.grpc_server = GRPCServer(
                 self, port=int(self.env.get("GRPC_PORT", DEFAULT_GRPC_PORT)),
-                host=self.server_address[0], logger=self.logger,
-                max_workers=max(32, 2 * slots + 8))
+                host=self.server_address[0], logger=self.logger)
         self.grpc_server.register(service)
         # the constant lives in the generated module, usually a base
         # class's (users subclass <Service>Base in their own module)

@@ -19,24 +19,30 @@ refused admission answers ``RESOURCE_EXHAUSTED``; a failure
 mid-generation raises ``generation failed: ...`` after the last token,
 so a truncated stream never reads as a complete one.
 
-The handlers are plain functions and generators on the server's thread
-pool (the JAX package's are coroutines on ``grpc.aio``). A client that
-cancels cancels the engine request: grpc's termination callback sets the
-flag at once, and the handler, which checks ``is_active()`` while it
-waits for tokens, stops. The tenant is the host's ``tenant_of`` applied
-to the invocation metadata; the ``traceparent`` metadata reaches
-``engine.submit``.
+The handlers are coroutines on the server's ``grpc.aio`` loop, as JAX's
+are: an RPC waiting for tokens holds no thread of its own. The submit
+(tokenizing included) runs on the server's pool, and the engine's
+per-token iterator (``engine.stream_request``) is read there by
+``handler.ThreadPump``. A client that cancels, or a deadline that
+passes, cancels the engine request: the RPC's done callback sets the
+flag at once, and the pump, which looks at the RPC between tokens,
+stops and closes the iterator. The tenant is the host's ``tenant_of``
+applied to the invocation metadata; the ``traceparent`` metadata
+reaches ``engine.submit``.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextvars
+import threading
 import time
-from contextlib import closing
-from typing import Any, Iterator
+from typing import Any, AsyncIterator
 
 import grpc
 
 from ..grpc.service import GRPCService, rpc, server_stream_rpc
+from ..handler import ThreadPump
 from .engine import Engine, GenRequest, SamplingParams
 from .handlers import POLL_S
 
@@ -68,42 +74,57 @@ def _refused(req: GenRequest) -> RuntimeError:
 def make_chat_service(engine: Engine, tokenizer: Any) -> GRPCService:
     """The service instance for ``ChatServer.register_grpc_service``."""
 
-    def submit(ctx, request) -> tuple[GenRequest, list[int], str | None]:
+    async def submit(ctx, request) -> tuple[GenRequest, list[int],
+                                            str | None]:
         prompt, params = _params_from(request or {})
-        prompt_tokens = tokenizer.encode(prompt)
-        tenant = ctx.tenant
-        # the RPC's span is active on this thread, so the engine takes
-        # its parent from there; the raw metadata is the fallback
-        req = engine.submit(prompt_tokens, params,
-                            traceparent=ctx.header("traceparent") or None,
-                            tenant=tenant)
+
+        def on_pool() -> tuple[GenRequest, list[int], str | None]:
+            prompt_tokens = tokenizer.encode(prompt)
+            tenant = ctx.tenant
+            # the RPC's span is active in this context, so the engine
+            # takes its parent from there; the raw metadata is the
+            # fallback
+            return engine.submit(
+                prompt_tokens, params,
+                traceparent=ctx.header("traceparent") or None,
+                tenant=tenant), prompt_tokens, tenant
+
+        req, prompt_tokens, tenant = await asyncio.get_running_loop() \
+            .run_in_executor(ctx.executor, contextvars.copy_context().run,
+                             on_pool)
         if req.error:
             raise _refused(req)
         # the RPC's end, for any reason: a request still running is
         # abandoned (its client cancelled or the deadline passed)
-        ctx.grpc_context.add_callback(
-            lambda: req.finished_at is None and engine.cancel(req))
+        ctx.grpc_context.add_done_callback(
+            lambda _: req.finished_at is None and engine.cancel(req))
         return req, prompt_tokens, tenant
 
-    def tokens_of(ctx, req: GenRequest) -> Iterator[int]:
+    async def tokens_of(ctx, req: GenRequest) -> AsyncIterator[int]:
         """``req``'s tokens as the engine emits them, until the request
-        ends or the RPC does (closing the stream cancels the request)."""
-        with closing(engine.stream_request(req, timeout_s=POLL_S)) as stream:
-            for token in stream:
-                if not ctx.grpc_context.is_active():
-                    return
+        ends or the RPC does (the pump then closes the stream, which
+        cancels the request)."""
+        gone = threading.Event()
+        ctx.grpc_context.add_done_callback(lambda _: gone.set())
+        pump = ThreadPump(engine.stream_request(req, timeout_s=POLL_S),
+                          gone.is_set, gone.set, ctx.executor,
+                          asyncio.get_running_loop())
+        try:
+            async for token in pump:
                 if token is not None:
                     yield token
+        finally:
+            await pump.aclose()
 
     class ChatService(GRPCService):
         name = "gofr.serving.Chat"
 
         @server_stream_rpc
-        def Stream(self, ctx, request) -> Iterator[dict]:
+        async def Stream(self, ctx, request) -> AsyncIterator[dict]:
             start = time.perf_counter()
-            req, prompt_tokens, tenant = submit(ctx, request)
+            req, prompt_tokens, tenant = await submit(ctx, request)
             n = 0
-            for token in tokens_of(ctx, req):
+            async for token in tokens_of(ctx, req):
                 n += 1
                 yield {"token": token, "text": tokenizer.decode([token])}
             if req.error:
@@ -124,9 +145,9 @@ def make_chat_service(engine: Engine, tokenizer: Any) -> GRPCService:
                                  (time.perf_counter() - start) * 1e3, 2)}}
 
         @rpc
-        def Complete(self, ctx, request) -> dict:
-            req, prompt_tokens, tenant = submit(ctx, request)
-            tokens = list(tokens_of(ctx, req))
+        async def Complete(self, ctx, request) -> dict:
+            req, prompt_tokens, tenant = await submit(ctx, request)
+            tokens = [token async for token in tokens_of(ctx, req)]
             if req.error:
                 raise RuntimeError(f"generation failed: {req.error}")
             return {"text": tokenizer.decode(tokens), "tokens": tokens,

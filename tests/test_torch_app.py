@@ -16,11 +16,13 @@ SSE; tokens and ``usage`` equal) and every request's
 with one; the ``app_http_response`` label sets (route patterns); a
 ``subscribe`` handler over the in-memory broker; ``on_start`` /
 ``on_shutdown`` order; the typed 503 of a request sent during the
-SIGTERM drain, with the requests in flight completing alike. On the port
-alone: ``REQUEST_TIMEOUT`` answers 408 and frees the slot, a client that
-leaves mid-stream cancels its request, a plain stream is never iterated
-on the loop's thread, and ``model_serving.build_app`` needs CUDA unless
-asked for the CPU.
+SIGTERM drain, with the requests in flight completing alike; a chat
+handler over a websocket (``/ws/chat``, user code written once for each
+package's engine) streaming the same tokens with equal digests. On the
+port alone: ``REQUEST_TIMEOUT`` answers 408 and frees the slot, a client
+that leaves mid-stream (over HTTP or a websocket) cancels its request, a
+plain stream or websocket handler is never run on the loop's thread, and
+``model_serving.build_app`` needs CUDA unless asked for the CPU.
 """
 
 import asyncio
@@ -40,19 +42,23 @@ from gofr_tpu.config.env import DictConfig as JaxDictConfig
 from gofr_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from gofr_tpu.models.llama import llama_init as jax_llama_init
 from gofr_tpu.serving.engine import EngineConfig as JaxEngineConfig
+from gofr_tpu.serving.engine import SamplingParams as JaxSamplingParams
 from gofr_tpu.serving.glue import llama_engine as jax_llama_engine
 from gofr_tpu.serving.openai_compat import \
     install_openai_routes as jax_install_openai
 from gofr_tpu.serving.tokenizer import ByteTokenizer as JaxByteTokenizer
 from gofr_tpu_torch.app import App
 from gofr_tpu_torch.config.env import DictConfig
+from gofr_tpu_torch.handler import ThreadPump
 from gofr_tpu_torch.http.response import Stream
 from gofr_tpu_torch.models.convert import params_from_jax
 from gofr_tpu_torch.models.llama import LlamaConfig
-from gofr_tpu_torch.serving.engine import EngineConfig
+from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
+from gofr_tpu_torch.serving.handlers import POLL_S
 from gofr_tpu_torch.serving.glue import llama_engine
 from gofr_tpu_torch.serving.openai_compat import install_openai_routes
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+from gofr_tpu_torch.websocket import connect as ws_connect
 
 from .test_torch_openai import CASES, MODEL, _events, _norm
 from .torch_parity import AppThread, time_limit
@@ -91,6 +97,52 @@ def _capture(engine):
 def _port_engine(tparams, **overrides):
     return llama_engine(tparams, LlamaConfig.tiny().scaled(vocab_size=260),
                         EngineConfig(**{**COMMON, **overrides}), device="cpu")
+
+
+def _jax_ws_chat(engine, tok):
+    """A websocket chat handler on JAX's engine: one frame per token,
+    then ``{"done", "digest"}``."""
+    async def ws_chat(ctx):
+        body = ctx.bind()
+        req = engine.submit(tok.encode(body["prompt"]), JaxSamplingParams(
+            temperature=0.0, max_new_tokens=int(body["max_tokens"])))
+        n = 0
+        gen = engine.stream_request(req)
+        try:
+            async for token in gen:
+                n += 1
+                await ctx.write_message_to_socket(
+                    {"token": token, "text": tok.decode([token])})
+        finally:
+            await gen.aclose()
+        return {"done": n, "digest": req.digest}
+    return ws_chat
+
+
+def _port_ws_chat(app, engine, tok):
+    """The same handler on the port's engine: the submit and the token
+    iterator on the app's pool (``ThreadPump``), which closes the
+    iterator, cancelling the request, once the socket is gone."""
+    async def ws_chat(ctx):
+        body = ctx.bind()
+        loop = asyncio.get_running_loop()
+        req = await loop.run_in_executor(app.executor, lambda: engine.submit(
+            tok.encode(body["prompt"]), SamplingParams(
+                temperature=0.0, max_new_tokens=int(body["max_tokens"]))))
+        pump = ThreadPump(engine.stream_request(req, timeout_s=POLL_S),
+                          ctx.client_gone, ctx.mark_gone, app.executor, loop)
+        n = 0
+        try:
+            async for token in pump:
+                if token is None:
+                    continue
+                n += 1
+                await ctx.write_message_to_socket(
+                    {"token": token, "text": tok.decode([token])})
+        finally:
+            await pump.aclose()
+        return {"done": n, "digest": req.digest}
+    return ws_chat
 
 
 class _Side:
@@ -136,10 +188,12 @@ class _Pair:
         japp = JaxApp(config=JaxDictConfig(CONFIG))
         japp.serve_model("llama", jeng, JaxByteTokenizer())
         jax_install_openai(japp, jeng, JaxByteTokenizer(), model=MODEL)
+        japp.websocket("/ws/chat", _jax_ws_chat(jeng, JaxByteTokenizer()))
         teng = _port_engine(weights[1])
         tapp = App(config=DictConfig(CONFIG))
         tapp.serve_model("llama", teng, ByteTokenizer())
         install_openai_routes(tapp, teng, ByteTokenizer(), model=MODEL)
+        tapp.websocket("/ws/chat", _port_ws_chat(tapp, teng, ByteTokenizer()))
         self.keyed = keyed
         self.jax = _Side(japp, jeng, keyed)
         self.port = _Side(tapp, teng, keyed)
@@ -388,6 +442,67 @@ def test_plain_handlers_and_streams_stay_off_the_loop_thread(pair):
     assert threads["stream"].startswith("app-handler")
 
 
+async def _ws_chat(port, headers, prompt, max_tokens, close_after=None):
+    """Token frames and the closing frame of one ``/ws/chat`` message
+    (none with ``close_after``: the client closes after that many)."""
+    conn = await ws_connect(f"ws://127.0.0.1:{port}/ws/chat",
+                            headers=headers)
+    await conn.send({"prompt": prompt, "max_tokens": max_tokens})
+    frames = []
+    try:
+        while True:
+            msg = json.loads((await conn.recv()).text())
+            if "token" not in msg:
+                return frames, msg
+            frames.append(msg)
+            if close_after is not None and len(frames) >= close_after:
+                return frames, None
+    finally:
+        await conn.close()
+
+
+WS_PROMPTS = ["hello over a socket", "the paged cache keeps every token",
+              "x"]
+
+
+@time_limit(120)
+def test_websocket_chat_streams_like_jax(pair):
+    """The same prompts over each app's ``/ws/chat``: the same token
+    frames, a closing frame counting them, equal request digests (the
+    engine's ``integrity.request_digest``)."""
+    for prompt in WS_PROMPTS:
+        got = asyncio.run(_ws_chat(pair.port.port, pair.headers, prompt, 12))
+        want = asyncio.run(_ws_chat(pair.jax.port, pair.headers, prompt, 12))
+        assert got == want
+        frames, done = got
+        assert done["done"] == len(frames) == 12 and done["digest"]
+        assert pair.port.made[-1].digest == pair.jax.made[-1].digest \
+            == done["digest"]
+
+
+@time_limit(90)
+def test_a_socket_closed_mid_generation_cancels_its_request(pair):
+    eng = pair.port.engine
+    inner = _slowed(eng, 0.03)
+    try:
+        before = len(pair.port.made)
+        frames, _ = asyncio.run(_ws_chat(pair.port.port, pair.headers,
+                                         "leave early", 100, close_after=3))
+        assert len(frames) == 3
+        req, = pair.port.made[before:]
+        at_close = len(req.generated)
+        assert _wait(lambda: all(r is None for r in eng.active), 30.0)
+    finally:
+        eng._decode_dispatch = inner
+    assert req.cancelled and req.done.is_set()
+    passes_after = (len(req.generated) - at_close) \
+        / eng.config.decode_steps_per_pass
+    assert passes_after <= 6, (at_close, len(req.generated))
+    assert len(req.generated) < 100
+    assert sorted(eng._free_pages) == list(range(eng._n_pages))
+    assert _wait(lambda: len(pair.port.app.container.ws_manager) == 0, 10)
+
+
 @time_limit(120)
 def test_the_drain_refuses_alike_and_finishes_in_flight_work(pair):
     """Last for each pair: the drain stops both apps."""
@@ -447,6 +562,53 @@ def test_request_timeout_answers_408_and_frees_the_slot(weights):
     finally:
         eng._decode_dispatch = inner
         eng.stop()
+
+
+@time_limit(60)
+def test_plain_websocket_handlers_run_off_the_loop_thread():
+    """A plain websocket handler runs on the app's pool: while one waits,
+    ``/.well-known/alive`` (on the loop) and another socket's coroutine
+    handler answer."""
+    app = App(config=DictConfig({"HTTP_PORT": "0", "METRICS_PORT": "0"}))
+    release, seen = threading.Event(), {}
+
+    @app.websocket("/ws/wait")
+    def wait(ctx):
+        seen["plain"] = threading.current_thread().name
+        release.wait(20)
+        return {"released": True}
+
+    @app.websocket("/ws/quick")
+    async def quick(ctx):
+        seen["async"] = threading.current_thread().name
+        return {"quick": True}
+
+    async def go(port):
+        slow = await ws_connect(f"ws://127.0.0.1:{port}/ws/wait")
+        await slow.send("x")
+        for _ in range(500):
+            if "plain" in seen:
+                break
+            await asyncio.sleep(0.01)
+        alive = await asyncio.to_thread(_call, port, "GET",
+                                        "/.well-known/alive")
+        fast = await ws_connect(f"ws://127.0.0.1:{port}/ws/quick")
+        await fast.send("y")
+        quick_reply = json.loads((await fast.recv()).text())
+        release.set()
+        slow_reply = json.loads((await slow.recv()).text())
+        await fast.close()
+        await slow.close()
+        return alive, quick_reply, slow_reply
+
+    with AppThread(app) as runner:
+        alive, quick_reply, slow_reply = asyncio.run(
+            asyncio.wait_for(go(runner.port), 30))
+        loop_thread = runner._thread.name
+    assert alive[0] == 200 and quick_reply == {"quick": True}
+    assert slow_reply == {"released": True}
+    assert seen["plain"].startswith("app-handler")
+    assert seen["async"] == loop_thread != seen["plain"]
 
 
 HELD = 40  # requests in flight: more than any fixed pool of 32 threads

@@ -15,6 +15,7 @@ import json
 import sys
 import textwrap
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass
 
@@ -333,6 +334,70 @@ def test_typed_status_and_bind_failure():
                 unbound.start()
         finally:
             host.server_close()
+
+
+def test_rpcs_past_32_reach_admission_while_health_answers():
+    """More chat RPCs than the old fixed pool's 32 threads, held on a
+    stopped engine (queued, never decoded): every one reaches
+    ``engine.submit`` (queued, or the scheduler's typed refusal), and
+    ``Health.Check("")`` answers within 3 s while they wait."""
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.serving.app import build_engine, build_server
+    from gofr_tpu_torch.serving.engine import EngineConfig
+    from gofr_tpu_torch.serving.grpc_chat import make_chat_service
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    n = 40
+    engine = build_engine(
+        LlamaConfig.tiny().scaled(vocab_size=260), device="cpu",
+        engine_config=EngineConfig(max_batch=2, max_seq=256, page_size=16,
+                                   seed=0, prefix_cache=False))
+    engine.waiting.reopen()          # queue, but never start decoding
+    submitted = []
+    inner = engine.submit
+
+    def submit(*args, **kwargs):
+        submitted.append(inner(*args, **kwargs))
+        return submitted[-1]
+
+    engine.submit = submit
+    server = build_server(engine, ByteTokenizer(), env={"GRPC_PORT": "0"},
+                          tenant_of=lambda md: "anonymous")
+    server.register_grpc_service(make_chat_service(engine, ByteTokenizer()))
+    server.start_grpc()
+    calls = []
+    try:
+        with channel(server.grpc_server.bound_port) as chan:
+            stream = _json_method(chan, "unary_stream",
+                                  "/gofr.serving.Chat/Stream")
+            calls = [stream({"prompt": f"held {i}", "max_tokens": 8},
+                            timeout=60) for i in range(n)]
+            deadline = time.time() + 30
+            while len(submitted) < n and time.time() < deadline:
+                time.sleep(0.01)
+            assert len(submitted) == n, len(submitted)
+            assert all(r.error is None or r.reject is not None
+                       for r in submitted)
+            client = port_grpc.GRPCClient(
+                f"127.0.0.1:{server.grpc_server.bound_port}",
+                options=LOCAL_POOL)
+            try:
+                t0 = time.perf_counter()
+                status = client.health_check("", timeout=3)
+                assert time.perf_counter() - t0 < 3.0
+            finally:
+                client.close()
+            assert status in ("SERVING", "NOT_SERVING")
+            for call in calls:
+                call.cancel()
+            deadline = time.time() + 10
+            while time.time() < deadline and not all(
+                    r.cancelled or r.error for r in submitted):
+                time.sleep(0.01)
+            assert all(r.cancelled or r.error for r in submitted)
+    finally:
+        server.server_close()
+        engine.close()
 
 
 # ---------------------------------------------------------------- reflection

@@ -510,15 +510,18 @@ class _Down:
 
 
 @pytest.mark.parametrize("key,value,module", [
-    ("DB_DIALECT", "postgres", "datasource/sql.py"),
-    ("REDIS_HOST", "localhost", "datasource/redis.py"),
+    ("DB_DIALECT", "postgres", "datasource/postgres_wire.py"),
+    ("REDIS_MODE", "network", "datasource/redis_wire.py"),
     ("REMOTE_LOG_URL", "http://127.0.0.1:1/level", "logging/remote.py"),
     ("TRACE_EXPORTER", "zipkin", "tracing/export.py"),
     ("PUBSUB_BACKEND", "kafka", "pubsub/kafka.py"),
     ("PUBSUB_BACKEND", "NATS", "pubsub/nats.py")])
 def test_container_refuses_what_is_not_ported(key, value, module):
+    env = {key: value}
+    if key == "REDIS_MODE":   # the mode is read only with a host
+        env["REDIS_HOST"] = "localhost"
     with pytest.raises(NotPortedError) as info:
-        Container.create(DictConfig({key: value}))
+        Container.create(DictConfig(env))
     assert info.value.key == key and info.value.module == module
     assert key in str(info.value) and module in str(info.value)
 
