@@ -312,7 +312,24 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              planted fault. TTFT and frame gaps over the sockets beside
              ``/chat`` streams, decode tokens/s.
 
-Each of the last four prints its wall time (``phase_wall_s``), as the later
+16. serve_wire — every backend the container reads from config: the
+             same app booted through config keys alone against the port's
+             Mini servers (``DB_DIALECT=postgres``, ``REDIS_MODE=network``,
+             ``PUBSUB_BACKEND=KAFKA``, ``TRACE_EXPORTER=otlp``,
+             ``REMOTE_LOG_URL``; ``phase_serve_wire``' docstring), a job
+             handler on four Kafka topics (user code in this script): (a)
+             the migration over the wire, health UP with sql, redis, pubsub
+             and the engine; (b) 16 jobs beside 8 ``/chat`` streams,
+             answers equal to unary ``/chat``; (c) rows and texts read back
+             over the wire; (d) committed offsets; (e) the jobs' spans at
+             the collector with their SQL and redis children, and the
+             remote log level; (f) the kernels' launches rise, ``App.stop``
+             closes every client; (g) mysql, oracle, EventHub, NATS,
+             JetStream, MQTT and Google each carry a job; each with its
+             planted fault. Job latency beside ``/chat``'s, decode
+             tokens/s, the wire ops' times.
+
+Each of the last five prints its wall time (``phase_wall_s``), as the later
 serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
@@ -9728,7 +9745,1091 @@ def phase_serve_ws(dev, smi_line: str) -> dict:
     return out["launches"]
 
 
+WIRE_TOPICS = ("jobs-0", "jobs-1", "jobs-2", "jobs-3")
+WIRE_GROUP = "jobs"
+WIRE_USER, WIRE_PW, WIRE_DB = "gofr", "wire-secret", "gofr"
+#: the remote-level poll interval (s): ``logging/remote.py``'s floor
+WIRE_POLL_S = 1.0
+
+
+class _WireEndpoint:
+    """``serve_wire``'s collector and remote-level endpoint: a stdlib HTTP
+    server on a thread. Each ``POST`` (an OTLP/HTTP JSON batch) is kept
+    decoded; ``GET`` answers ``{"level": self.level}``."""
+
+    def __init__(self, level: str = "INFO") -> None:
+        import http.server
+        self.level = level
+        self.batches: list = []
+        self.gets = 0
+        endpoint = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                size = int(self.headers.get("Content-Length", 0))
+                endpoint.batches.append(json.loads(self.rfile.read(size)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_GET(self):
+                endpoint.gets += 1
+                body = json.dumps({"level": endpoint.level}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.port = self.httpd.server_address[1]
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True, name="wire-endpoint")
+        self._thread.start()
+
+    def spans(self) -> list:
+        return [span for batch in list(self.batches)
+                for rs in batch.get("resourceSpans", [])
+                for ss in rs.get("scopeSpans", [])
+                for span in ss.get("spans", [])]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+class _LoopThread:
+    """An event loop on a daemon thread: the Mini brokers and the
+    phase's own broker clients live there."""
+
+    def __init__(self) -> None:
+        import asyncio
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever,
+                                        daemon=True, name="wire-brokers")
+        self._thread.start()
+
+    def run(self, coro, timeout: float = 60.0):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def spawn(self, coro):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(10)
+        self.loop.close()
+
+
+def _open_connections(port: int) -> int:
+    """ESTABLISHED TCP connections with ``port`` at either end, from the
+    kernel's table (both ends of a loopback connection count)."""
+    count = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            rows = Path(table).read_text().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            fields = row.split()
+            if fields[3] != "01":
+                continue
+            if port in (int(fields[1].rsplit(":", 1)[1], 16),
+                        int(fields[2].rsplit(":", 1)[1], 16)):
+                count += 1
+    return count
+
+
+def _boot_app(app, name: str) -> tuple:
+    """``app.start()`` on a new event loop in a thread: (loop, thread),
+    once it has booted."""
+    import asyncio
+    loop = asyncio.new_event_loop()
+    booted, boot_error = threading.Event(), []
+
+    def run_loop():
+        asyncio.set_event_loop(loop)
+
+        async def main():
+            try:
+                await app.start()
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                boot_error.append(exc)
+                raise
+            finally:
+                booted.set()
+            await app._stop_event.wait()
+
+        try:
+            loop.run_until_complete(main())
+        except BaseException:  # noqa: BLE001 — boot_error holds it
+            pass
+
+    thread = threading.Thread(target=run_loop, daemon=True)
+    thread.start()
+    if not booted.wait(600) or boot_error:
+        raise AssertionError(f"{name}: the app did not boot {boot_error}")
+    return loop, thread
+
+
+def _stop_app(app, loop, thread) -> None:
+    import asyncio
+    if loop.is_running():
+        asyncio.run_coroutine_threadsafe(app.stop(), loop).result(60)
+    thread.join(timeout=30)
+    if not loop.is_running():
+        loop.close()
+
+
+def _wire_migrations() -> dict:
+    """Version 1: the ``conversation`` table, one row per answered job."""
+    from gofr_tpu_torch.migrations import Migrate
+
+    def v1(ds):
+        ds.sql.exec("CREATE TABLE conversation (job TEXT PRIMARY KEY, "
+                    "topic TEXT, prompt_tokens INTEGER, n_generated "
+                    "INTEGER, digest TEXT)")
+    return {1: Migrate(up=v1)}
+
+
+def _job_handler(engine, tok, app_loop: dict, op_ms: dict):
+    """The subscriber's handler, as a user writes it: plain (it runs on
+    the app's handler pool), it binds ``{"id", "prompt", "max_tokens"}``,
+    submits greedy to the engine behind ``/chat`` and waits, writes one
+    ``conversation`` row through ``ctx.sql``, sets the text in
+    ``ctx.redis`` and publishes ``{"id", "tokens", "digest"}`` to
+    ``answers`` on the app's loop (``app_loop["loop"]``). Its own span
+    (``job <id>``) is the parent of the SQL client's span and of a
+    ``redis SET`` span around the RESP call (neither JAX's subscriber nor
+    its RESP client makes a span). ``op_ms`` collects each SQL and redis
+    call's wall time."""
+    import asyncio
+    from gofr_tpu_torch.serving.engine import SamplingParams
+
+    def job(ctx):
+        body = ctx.bind()
+        with ctx.trace(f"job {body['id']}"):
+            prompt_tokens = tok.encode(body["prompt"])
+            req = engine.submit(prompt_tokens, SamplingParams(
+                temperature=0.0, max_new_tokens=int(body["max_tokens"])))
+            if not req.done.wait(600) or req.error:
+                raise RuntimeError(f"job {body['id']}: "
+                                   f"{req.error or 'timed out'}")
+            tokens = list(req.generated)
+            sql = ctx.sql
+            t0 = time.perf_counter()
+            sql.exec("INSERT INTO conversation (job, topic, prompt_tokens, "
+                     "n_generated, digest) VALUES "
+                     f"({', '.join(sql.ph(i) for i in range(1, 6))})",
+                     body["id"], ctx.request.topic, len(prompt_tokens),
+                     len(tokens), req.digest)
+            t1 = time.perf_counter()
+            with ctx.trace("redis SET"):
+                ctx.redis.set(f"job:{body['id']}", tok.decode(tokens))
+            t2 = time.perf_counter()
+            op_ms["sql"].append((t1 - t0) * 1000.0)
+            op_ms["redis"].append((t2 - t1) * 1000.0)
+            asyncio.run_coroutine_threadsafe(ctx.publish("answers", {
+                "id": body["id"], "tokens": tokens,
+                "digest": req.digest}), app_loop["loop"]).result(60)
+    return job
+
+
+class _Answers:
+    """The phase's side of a broker: a producer client and a consumer
+    client of the backend (the port's), on the broker loop. The consumer
+    reads ``answers`` into ``got`` (id -> (receive time, answer))."""
+
+    def __init__(self, brokers: _LoopThread, make_client, group: str):
+        self.brokers = brokers
+        self.producer = make_client("smoke-producer")
+        self.consumer = make_client("smoke-consumer")
+        self.got: dict = {}
+        self.sent: dict = {}
+        for client in (self.producer, self.consumer):
+            if hasattr(client, "connect"):    # the REST client has none
+                brokers.run(client.connect())
+
+        async def consume():
+            while True:
+                msg = await self.consumer.subscribe("answers", group)
+                answer = json.loads(msg.value)
+                self.got[answer["id"]] = (time.perf_counter(), answer)
+                msg.commit()
+        self._task = brokers.spawn(consume())
+
+    def publish(self, topic: str, jobs: list) -> None:
+        """``jobs`` ({"id", "prompt", "max_tokens"} each) to ``topic``,
+        each stamped with its publish time."""
+        for job in jobs:
+            self.sent[job["id"]] = time.perf_counter()
+            self.brokers.run(self.producer.publish(topic, job))
+
+    def wait(self, ids: list, timeout_s: float = 600.0) -> bool:
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            if all(i in self.got for i in ids):
+                return True
+            time.sleep(0.01)
+        return False
+
+    def close(self) -> None:
+        self._task.cancel()
+        for client in (self.producer, self.consumer):
+            try:
+                self.brokers.run(client.close(), timeout=10)
+            except Exception:  # noqa: BLE001 — best effort at teardown
+                pass
+
+
+def _near_tie_judge(params: dict, cfg) -> "callable":
+    """A judge of greedy divergences: ``judge(prompt, common, a, b)``
+    takes the tokens two runs of one prompt share (``common``) and the
+    tokens they then chose (``a``, ``b``), and runs the model's plain
+    path on ``prompt + common`` in float32 and in bf16. The divergence
+    is a near tie when ``a`` and ``b`` both lie within twice the bf16
+    forward's error (on its top eight logits) of the float32 forward's
+    top logit: a bf16 run (another prefill pass or kernel, another
+    rounding) off by up to that much picks only such a token, so two
+    runs can part between them. The float32 weights are made at the
+    first call."""
+    import torch
+    from gofr_tpu_torch.models.llama import llama_prefill_last
+    held: dict = {}
+
+    def judge(prompt: list, common: list, a: int, b: int) -> dict:
+        t0 = time.perf_counter()
+        try:
+            return verdict(prompt, common, a, b)
+        finally:
+            held["seconds"] = held.get("seconds", 0.0) \
+                + time.perf_counter() - t0
+
+    def verdict(prompt: list, common: list, a: int, b: int) -> dict:
+        if "p32" not in held:
+            held["p32"] = _tree_float(params)
+            held["c32"] = cfg.scaled(dtype=torch.float32)
+        dev = params["embed"].device
+        seq = torch.tensor([list(prompt) + list(common)], device=dev)
+        lens = torch.tensor([seq.shape[1]], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            l16 = llama_prefill_last(params, seq, cfg, kv_lengths=lens,
+                                     implementation="plain")[0][0]
+            l32 = llama_prefill_last(held["p32"], seq, held["c32"],
+                                     kv_lengths=lens,
+                                     implementation="plain")[0][0]
+        top = l32.topk(8)
+        err = float((l16[top.indices] - top.values).abs().max())
+        below = [float(top.values[0] - l32[t]) for t in (a, b)]
+        return {"below_top": below, "bf16_err": err,
+                "top2": [int(i) for i in top.indices[:2]],
+                "near_tie": max(below) <= 2 * err}
+    judge.release = held.clear
+    judge.seconds = lambda: held.get("seconds", 0.0)
+    return judge
+
+
+def _tie_or_fault(label: str, tokens: list, ref: list, prompt: list,
+                  judge, ties: dict) -> list:
+    """``tokens`` equal ``ref``, or first differ at a near tie
+    (``judge``; recorded in ``ties``); else a fault."""
+    if tokens == ref:
+        return []
+    if len(tokens) != len(ref):
+        return [f"{label} {len(tokens)} tokens"]
+    at = next(i for i, (x, y) in enumerate(zip(tokens, ref)) if x != y)
+    verdict = judge(prompt, ref[:at], tokens[at], ref[at])
+    ties[label] = {"at": at, **verdict}
+    return [] if verdict["near_tie"] else [f"{label} tokens at {at}"]
+
+
+def _wire_answer_faults(answers: dict, ids: list, unary: list,
+                        u_reqs: list, judge, ties: dict) -> list:
+    """(b): each job's answer carries ``WS_NEW`` tokens equal to its
+    prompt's unary ``/chat`` tokens and that request's digest, or first
+    differs from them at a near tie (``_near_tie_judge``)."""
+    out = []
+    for i, (job_id, u) in enumerate(zip(ids, unary)):
+        got = answers.get(job_id)
+        if got is None:
+            out.append(f"{job_id} missing")
+            continue
+        if u[0] != 201 or len(u[2]["data"]["tokens"]) != WS_NEW \
+                or i >= len(u_reqs) or u_reqs[i].digest is None:
+            out.append(f"unary_{i}")
+            continue
+        ref = u[2]["data"]["tokens"]
+        out += _tie_or_fault(job_id, got["tokens"], ref,
+                             u_reqs[i].prompt_tokens, judge, ties)
+        if got["tokens"] == ref and got["digest"] != u_reqs[i].digest:
+            out.append(f"{job_id} digest")
+    return out
+
+
+def _wire_divergence(answers: dict, ids: list, u_reqs: list,
+                     job_reqs: dict) -> dict:
+    """For each job whose tokens differ from its prompt's unary ``/chat``
+    answer: the first differing position and both requests' prefill
+    passes (bucket, rows in the pass, or the walk's offset)."""
+    out = {}
+    for job_id, ref in zip(ids, u_reqs):
+        tokens = answers.get(job_id, {}).get("tokens") or []
+        if tokens == ref.generated:
+            continue
+        at = next((i for i, (a, b) in enumerate(zip(tokens, ref.generated))
+                   if a != b), min(len(tokens), len(ref.generated)))
+        job = job_reqs.get(tuple(ref.prompt_tokens))
+        out[job_id] = {
+            "at": at,
+            "job_prefill": [a for n, _, _, a in (job.events if job else [])
+                            if n == "prefill"],
+            "ref_prefill": [a for n, _, _, a in ref.events
+                            if n == "prefill"]}
+    return out
+
+
+def _wire_store_faults(answers: dict, rows: dict, texts: dict,
+                       decode) -> list:
+    """(c), (g): each job's row, read back over the SQL wire, holds its
+    answer's digest and token count; its text, read back over RESP, is
+    the decoded answer."""
+    out = []
+    for job_id, answer in answers.items():
+        row = rows.get(job_id)
+        if row is None:
+            out.append(f"{job_id} row missing")
+            continue
+        if row["digest"] != answer["digest"] or \
+                row["n_generated"] != len(answer["tokens"]):
+            out.append(f"{job_id} row")
+        if texts.get(job_id) != decode(answer["tokens"]):
+            out.append(f"{job_id} text")
+    return out
+
+
+def _wire_span_faults(spans: list, ids: list, chat_streams: int) -> list:
+    """(e): each job's span (``job <id>``) reached the collector with the
+    SQL client's ``sql INSERT`` span and the ``redis SET`` span as its
+    children, and the ``/chat`` streams' request spans did."""
+    out = []
+    by_parent: dict = {}
+    for span in spans:
+        by_parent.setdefault(span.get("parentSpanId"), []).append(
+            span["name"])
+    jobs = {span["name"]: span for span in spans
+            if span["name"].startswith("job ")}
+    for job_id in ids:
+        span = jobs.get(f"job {job_id}")
+        if span is None:
+            out.append(f"{job_id} span missing")
+            continue
+        children = by_parent.get(span["spanId"], [])
+        if "sql INSERT" not in children or "redis SET" not in children:
+            out.append(f"{job_id} children {children}")
+    chats = sum(span["name"] == "POST /chat" for span in spans)
+    if chats < chat_streams:
+        out.append(f"{chats} /chat spans")
+    return out
+
+
+def _wire_level_faults(level: dict) -> list:
+    """(e): the app logger at DEBUG within two poll intervals of the
+    endpoint's switch."""
+    if level["after"] != "DEBUG" or level["switched_s"] is None or \
+            level["switched_s"] > 2 * WIRE_POLL_S:
+        return [f"level {level}"]
+    return []
+
+
+def _wire_offset_faults(offsets: dict, per_topic: int) -> list:
+    """(d): the group's committed offset on each job topic."""
+    return [f"{t} at {offsets.get(t)}" for t in WIRE_TOPICS
+            if offsets.get(t) != per_topic]
+
+
+def _wire_health_faults(health: tuple, sql_details: dict,
+                        want: dict) -> list:
+    """(a): health 200 UP with ``sql``, ``redis``, ``pubsub`` and the
+    engine ``llama`` UP, ``sql``'s details those of the postgres wire
+    client on the Mini server (``want``)."""
+    data = health[2].get("data") or {}
+    checks = data.get("checks") or {}
+    out = [] if health[0] == 200 and data.get("status") == "UP" \
+        else [f"health {health[0]} {data.get('status')}"]
+    for name in ("sql", "redis", "pubsub"):
+        if (checks.get(name) or {}).get("status") != "UP":
+            out.append(f"{name} not UP")
+    engines = ((checks.get("tpu") or {}).get("details") or {}).get(
+        "engines") or {}
+    if (engines.get("llama") or {}).get("status") != "UP":
+        out.append("engine not UP")
+    if sql_details != want:
+        out.append(f"sql details {sql_details}")
+    return out
+
+
+def _wire_stop_faults(stopped: dict) -> list:
+    """(f): after ``App.stop`` no connection is open to the Kafka,
+    Postgres and redis Mini servers, and the engine is stopped."""
+    out = [f"{name}: {n} open" for name, n in stopped["open"].items() if n]
+    if stopped["engine_running"]:
+        out.append("engine running")
+    return out
+
+
+def _hist_p50_ms(metrics, name: str) -> float | None:
+    """The median of a histogram's samples (ms), interpolated within its
+    bucket as Prometheus' ``histogram_quantile`` does (the counts are
+    cumulative)."""
+    hist = metrics.get(name)
+    if hist is None:
+        return None
+    snap = hist.snapshot()
+    cum = [0] * len(snap["buckets"])
+    total = 0
+    for series in snap["series"]:
+        total += series["count"]
+        for i, c in enumerate(series["counts"]):
+            cum[i] += c
+    if not total:
+        return None
+    rank, prev, lower = total / 2.0, 0, 0.0
+    for bound, c in zip(snap["buckets"], cum):
+        if c >= rank:
+            return (lower + (bound - lower) * (rank - prev)
+                    / max(c - prev, 1)) * 1000.0
+        prev, lower = c, bound
+    return snap["buckets"][-1] * 1000.0
+
+
+def _engine_rate(reqs: list) -> float | None:
+    """Decode tokens/s over ``reqs``: tokens after each request's first,
+    over the span from the earliest first token to the latest finish."""
+    done = [r for r in reqs if r.first_token_at and r.finished_at]
+    if not done:
+        return None
+    span = max(r.finished_at for r in done) - min(r.first_token_at
+                                                  for r in done)
+    return sum(len(r.generated) - 1 for r in done) / span if span > 0 \
+        else None
+
+
+def _g_answer_faults(name: str, answers: dict, want: dict, encode,
+                     judge, ties: dict) -> list:
+    """(g): each prompt's answer (tokens, digest) equals ``want``'s, the
+    same prompt's answer in (b), or first differs from it at a near
+    tie."""
+    out = []
+    for prompt, ref in want.items():
+        got = answers.get(prompt)
+        label = f"{name}: {prompt[:12]!r}"
+        if got is None:
+            out.append(f"{label} missing")
+            continue
+        out += _tie_or_fault(label, got["tokens"], ref["tokens"],
+                             encode(prompt), judge, ties)
+        if got["tokens"] == ref["tokens"] and \
+                got["digest"] != ref["digest"]:
+            out.append(f"{label} digest")
+    return out
+
+
+def _wire_backend(name: str, brokers: _LoopThread, servers: dict) -> tuple:
+    """(g): the config of one other backend, the Mini servers it needs
+    (started; the broker's on the broker loop) and a factory of the
+    phase's own client of its broker."""
+    from gofr_tpu_torch.datasource.mysql_wire import MiniMySQLServer
+    from gofr_tpu_torch.datasource.oracle_wire import MiniOracleServer
+    from gofr_tpu_torch.datasource.redis_wire import MiniRedisServer
+    from gofr_tpu_torch.pubsub import (eventhub, google, jetstream, kafka,
+                                       mqtt, nats)
+    host = "127.0.0.1"
+    # a redis of its own: the migration ledger is kept in every store, and
+    # (b)'s redis already records version 1
+    cache = MiniRedisServer()
+    cache.start()
+    started: list = [cache]
+    env = {"DB_DIALECT": "postgres", "DB_HOST": host,
+           "DB_PORT": str(servers["postgres"].port), "DB_USER": WIRE_USER,
+           "DB_PASSWORD": WIRE_PW, "DB_NAME": WIRE_DB, "REDIS_HOST": host,
+           "REDIS_PORT": str(cache.port), "REDIS_MODE": "network"}
+    if name in ("mysql", "oracle"):
+        sql = MiniMySQLServer(user=WIRE_USER, password=WIRE_PW) \
+            if name == "mysql" else MiniOracleServer(
+                users={WIRE_USER: WIRE_PW})
+        sql.start()
+        started.append(sql)
+        env.update({"DB_DIALECT": name, "DB_PORT": str(sql.port)})
+        if name == "oracle":
+            del env["DB_NAME"]          # the service name: FREEPDB1
+    broker_cls = {"mysql": kafka.MiniKafkaBroker,
+                  "oracle": kafka.MiniKafkaBroker,
+                  "EVENTHUB": kafka.MiniKafkaBroker,
+                  "NATS": nats.MiniNATSServer,
+                  "JETSTREAM": jetstream.MiniJetStreamServer,
+                  "MQTT": mqtt.MiniMQTTBroker,
+                  "GOOGLE": google.MiniPubSubEmulator}[name]
+    broker = broker_cls()
+    brokers.run(broker.start())
+    addr = f"{host}:{broker.port}"
+    backend = {"mysql": "KAFKA", "oracle": "KAFKA"}.get(name, name)
+    env.update({"PUBSUB_BACKEND": backend, "PUBSUB_BROKER": addr,
+                "KAFKA_CONSUMER_GROUP": WIRE_GROUP, "EVENTHUB_NAME": "hub",
+                "GOOGLE_PROJECT_ID": "gofr", "MQTT_HOST": host,
+                "MQTT_PORT": str(broker.port)})
+    clients = {
+        "KAFKA": lambda cid: kafka.KafkaClient(addr, group_id=cid,
+                                               client_id=cid),
+        "EVENTHUB": lambda cid: eventhub.EventHubClient(
+            addr, eventhub="hub", consumer_group=cid),
+        "NATS": lambda cid: nats.NATSClient(host, broker.port, name=cid),
+        "JETSTREAM": lambda cid: jetstream.JetStreamClient(
+            host, broker.port, name=cid),
+        "MQTT": lambda cid: mqtt.MQTTClient(host=host, port=broker.port,
+                                            client_id=cid, qos=1),
+        "GOOGLE": lambda cid: google.GooglePubSubClient(addr, "gofr")}
+    return env, broker, started, clients[backend]
+
+
+def _wire_subscribed(broker, topic: str) -> bool:
+    """Whether ``broker`` (a Mini server) holds a subscription to
+    ``topic``: core NATS, MQTT and the emulator drop what is published
+    before one exists; the Kafka logs and JetStream streams keep it."""
+    if type(broker).__name__ == "MiniJetStreamServer":
+        return True                                # streams keep it
+    subs = getattr(broker, "_subs", None)
+    if isinstance(subs, list):                     # core NATS
+        return any(pattern == topic for _, _, pattern, _ in subs)
+    sessions = getattr(broker, "_sessions", None)
+    if sessions is not None:                       # MQTT
+        return any(f == topic for s in sessions.values() for f, _ in s.subs)
+    emulated = getattr(broker, "subs", None)
+    if isinstance(emulated, dict):                 # Google emulator
+        return any(s["topic"] == topic for s in emulated.values())
+    return True
+
+
+def phase_serve_wire(dev, smi_line: str, cfg=None) -> dict:
+    """Every backend the container reads from config, on the card:
+    ``serving/model_serving.build_app`` with ``MODEL_PRESET=llama3_1b``
+    (full width and depth, random bf16 weights from seed 0,
+    ``serve_config``: 8 slots, prefix cache on), booted only through
+    config keys against the port's own servers started here:
+    ``DB_DIALECT=postgres`` on ``MiniPostgresServer`` (SCRAM-SHA-256),
+    ``REDIS_MODE=network`` on ``MiniRedisServer``, ``PUBSUB_BACKEND=
+    KAFKA`` on ``MiniKafkaBroker``, ``TRACE_EXPORTER=otlp`` and
+    ``REMOTE_LOG_URL`` on a stdlib endpoint (``_WireEndpoint``).
+    ``app.migrate`` makes the ``conversation`` table over the wire, and
+    ``app.subscribe`` puts ``_job_handler`` (user code: bind, submit
+    greedy, wait, a row through ``ctx.sql``, the text through
+    ``ctx.redis``, the answer to ``answers``) on ``jobs-0`` ... ``jobs-3``.
+    Checks, each also shown a planted fault it must reject:
+
+    (a) the migration applied once over the wire, none the second time;
+        health 200 with ``sql``, ``redis``, ``pubsub`` and the engine
+        ``llama`` UP, ``sql``'s details the postgres client's; planted:
+        the details of ``serve_ws``' sqlite store.
+    (b) 16 jobs published, 4 per topic (``_ws_prompts``: 21-1501 tokens,
+        64 new), while 8 ``/chat`` SSE streams run with other prompts:
+        every job's answer tokens and digest equal its prompt's unary
+        ``/chat`` answer, run gated afterwards; planted: an answer with a
+        token dropped.
+    (c) every job's row read back over the Postgres wire with its digest
+        and token count, its text over RESP; planted: a row rewritten
+        with a changed digest.
+    (d) the group's committed offset on each topic is 4 after the wave;
+        planted: the offsets read before it.
+    (e) the collector got each job's span with the SQL and redis spans as
+        its children, and the ``/chat`` streams' spans; the endpoint's
+        switch to DEBUG reaches the app logger within two poll
+        intervals; planted: the spans with one job's removed, and the
+        level read before the switch.
+    (f) the launch counters, zeroed before (b) and read after it: flash,
+        paged decode, paged chunk and ``rope_kv_write`` rise; ``App.stop``
+        leaves no connection open to the Kafka, Postgres and redis Mini
+        servers within 2 s and stops the engine; planted: the counters
+        read before the wave, the connections counted before the stop.
+    (g) ``DB_DIALECT=mysql``, ``DB_DIALECT=oracle`` and ``PUBSUB_BACKEND=
+        EVENTHUB|NATS|JETSTREAM|MQTT|GOOGLE``, each an app of its own on
+        the same engine (``App.serve_model``) against its Mini server,
+        carry a job to an answer and a row whose digest equals (b)'s for
+        its prompt; planted: (b)'s answer to another prompt.
+
+    Two greedy runs of one prompt in bf16 may part where the model's top
+    tokens are within rounding of each other: a job's prefill can take
+    a prefix hit and the chunk kernel where its reference took a batched
+    flash prefill. (b) and (g) take a differing answer when it first
+    differs at such a near tie (``_near_tie_judge``: float32 and bf16
+    forwards of the model's plain path, ``cfg``, by default
+    ``LlamaConfig.llama3_1b()``), and list each; (b)'s plants are a token
+    dropped and a token replaced by its neighbour id.
+
+    Also, ungated (unique prompts, engine running), job / stream / stream
+    / job waves of the 16 prompts: a job's latency from publish to answer
+    received p50 / p99 beside the ``/chat`` streams' (send to last event)
+    and TTFT, the engine's TTFT, decode tokens/s, and the SQL and redis
+    calls' wall time over the wire (the handler's own timing, the
+    ``app_sql_stats`` / ``app_redis_stats`` medians, and 200 calls of each
+    with no traffic, ``idle_ms``, then with the engine stopped)."""
+    import copy
+    import torch
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.datasource.postgres_wire import (MiniPostgresServer,
+                                                         PostgresWire)
+    from gofr_tpu_torch.datasource.redis_wire import (MiniRedisServer,
+                                                      RedisWire)
+    from gofr_tpu_torch.datasource.sql import SQL
+    from gofr_tpu_torch.logging.logger import DEBUG
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.pubsub.kafka import KafkaClient, MiniKafkaBroker
+    from gofr_tpu_torch.serving import model_serving
+    from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+    checks: dict = {}
+    out: dict = {"phase": "serve_wire", "card": smi_line}
+    greedy = {"max_tokens": WS_NEW, "temperature": 0}
+    host = "127.0.0.1"
+    pg = MiniPostgresServer(user=WIRE_USER, password=WIRE_PW,
+                            auth="scram-sha-256")
+    rd = MiniRedisServer()
+    pg.start()
+    rd.start()
+    brokers = _LoopThread()
+    kafka = MiniKafkaBroker()
+    brokers.run(kafka.start())
+    endpoint = _WireEndpoint()
+    teardown: list = []
+    app = model_serving.build_app(DictConfig({
+        "MODEL_PRESET": "llama3_1b", "HTTP_HOST": host, "HTTP_PORT": "0",
+        "METRICS_PORT": "0", "APP_NAME": "serve-wire",
+        "DB_DIALECT": "postgres", "DB_HOST": host, "DB_PORT": str(pg.port),
+        "DB_USER": WIRE_USER, "DB_PASSWORD": WIRE_PW, "DB_NAME": WIRE_DB,
+        "REDIS_HOST": host, "REDIS_PORT": str(rd.port),
+        "REDIS_MODE": "network", "PUBSUB_BACKEND": "KAFKA",
+        "PUBSUB_BROKER": f"{host}:{kafka.port}",
+        "KAFKA_CONSUMER_GROUP": WIRE_GROUP, "TRACE_EXPORTER": "otlp",
+        "TRACER_URL": f"http://{host}:{endpoint.port}",
+        "REMOTE_LOG_URL": f"http://{host}:{endpoint.port}/level",
+        "REMOTE_LOG_FETCH_INTERVAL": str(WIRE_POLL_S)}), device=dev)
+    engine = app.container.get_model(model_serving.MODEL_NAME)
+    tok = ByteTokenizer()
+    cfg = cfg or LlamaConfig.llama3_1b()
+    judge = _near_tie_judge(engine.params, cfg)
+    made: list = []
+    inner_submit = engine.submit
+
+    def submit(*args, **kwargs):
+        made.append(inner_submit(*args, **kwargs))
+        return made[-1]
+
+    engine.submit = submit
+    op_ms: dict = {"sql": [], "redis": []}
+    app_loop: dict = {}
+    loop = thread = None
+    try:
+        # (a) the migration over the wire, before the app starts
+        first = app.migrate(_wire_migrations())
+        again = app.migrate(_wire_migrations())
+        for topic in WIRE_TOPICS:
+            app.subscribe(topic, _job_handler(engine, tok, app_loop, op_ms))
+        loop, thread = _boot_app(app, "serve_wire")
+        app_loop["loop"] = loop
+        aport = app.port
+        answers = _Answers(brokers, lambda cid: KafkaClient(
+            f"{host}:{kafka.port}", group_id=cid, client_id=cid), "smoke")
+        teardown.append(answers.close)
+        health = _http_json(aport, "GET", "/.well-known/health")
+        sql_details = (health[2]["data"]["checks"].get("sql") or {}).get(
+            "details")
+        want = {"host": host, "port": pg.port, "database": WIRE_DB}
+        sqlite = SQL(dialect="sqlite", database=":memory:")
+        sqlite.connect()
+        planted_details = sqlite.health_check().get("details")
+        sqlite.close()
+        checks["a_boot"] = (
+            ([] if (first, again) == ([1], []) else
+             [f"applied {first} then {again}"])
+            + _wire_health_faults(health, sql_details, want),
+            _wire_health_faults(health, planted_details, want))
+        out["a"] = {"applied": first, "again": again,
+                    "sql_client": type(app.container.sql).__name__,
+                    "sql_details": sql_details,
+                    "health": {k: v.get("status") for k, v in
+                               health[2]["data"]["checks"].items()}}
+
+        # (b) the job wave beside 8 /chat streams, then unary /chat gated
+        before_offsets = {t: kafka.groups.get(WIRE_GROUP) and kafka.groups[
+            WIRE_GROUP].offsets.get((t, 0)) for t in WIRE_TOPICS}
+        for fn in counters.values():
+            fn.launches = 0
+        wave_base = len(made)
+        prompts = _ws_prompts()
+        jobs = [{"id": f"job-{i}", "prompt": p, **greedy}
+                for i, p in enumerate(prompts)]
+        ids = [j["id"] for j in jobs]
+        streams: list = [None] * 8
+
+        def stream(i, prompt):
+            streams[i] = _sse_call(aport, "/chat", {
+                "prompt": prompt, **greedy, "stream": True})
+        workers = [threading.Thread(target=stream, args=(i, p)) for i, p in
+                   enumerate(_ws_prompts("stream ")[:8])]
+        for w in workers:
+            w.start()
+        for i, topic in enumerate(WIRE_TOPICS):
+            answers.publish(topic, jobs[i::len(WIRE_TOPICS)])
+        if not answers.wait(ids):
+            raise AssertionError(f"serve_wire: answers {sorted(answers.got)}")
+        for w in workers:
+            w.join(timeout=600)
+        launches = {name: int(fn.launches) for name, fn in counters.items()}
+        got = {i: answers.got[i][1] for i in ids}
+
+        engine.stop()
+        engine.waiting.reopen()
+        base = len(made)
+        unary: list = [None] * len(prompts)
+
+        def call(i, prompt):
+            unary[i] = _http_json(aport, "POST", "/chat",
+                                  {"prompt": prompt, **greedy})
+        callers = []
+        for i, p in enumerate(prompts):
+            callers.append(threading.Thread(target=call, args=(i, p)))
+            callers[-1].start()
+            deadline = time.time() + 60
+            while len(made) < base + i + 1 and time.time() < deadline:
+                time.sleep(0.001)
+        engine.start()
+        for c in callers:
+            c.join(timeout=600)
+        u_reqs = made[base:]
+        dropped = copy.deepcopy(got)
+        del dropped[ids[2]]["tokens"][5]
+        # a token replaced by its neighbour id: the near-tie rule must
+        # not pass an arbitrary divergence
+        changed = copy.deepcopy(got)
+        changed[ids[2]]["tokens"][5] = (changed[ids[2]]["tokens"][5] + 1) \
+            % cfg.vocab_size
+        stream_faults = [f"stream_{i}" for i, s in enumerate(streams)
+                         if s is None or s.get("status") != 200
+                         or not s.get("terminal")]
+        ties: dict = {}
+        plants = [_wire_answer_faults(bad, ids, unary, u_reqs, judge, {})
+                  for bad in (dropped, changed)]
+        checks["b_job_wave"] = (
+            _wire_answer_faults(got, ids, unary, u_reqs, judge, ties)
+            + stream_faults, sum(plants, []) if all(plants) else [])
+        by_prompt_req = {tuple(r.prompt_tokens): r
+                         for r in made[wave_base:base]}
+        out["b"] = {"jobs": len(got), "streams": len(streams),
+                    "prompt_tokens": [len(r.prompt_tokens) for r in u_reqs],
+                    "tokens_0": got[ids[0]]["tokens"][:8],
+                    "diverged": _wire_divergence(got, ids, u_reqs,
+                                                 by_prompt_req),
+                    "near_ties": ties}
+
+        # (c) read back over the wire, with clients of the phase's own
+        reader = PostgresWire(host=host, port=pg.port, user=WIRE_USER,
+                              password=WIRE_PW, database=WIRE_DB)
+        reader.connect()
+        cache = RedisWire(host=host, port=rd.port)
+        cache.connect()
+
+        def read_back(job_ids):
+            rows = {r["job"]: r for r in reader.query(
+                "SELECT job, prompt_tokens, n_generated, digest FROM "
+                "conversation")}
+            return ({i: rows.get(i) for i in job_ids},
+                    {i: cache.get(f"job:{i}") for i in job_ids})
+        rows, texts = read_back(ids)
+        reader.exec("INSERT INTO conversation (job, topic, prompt_tokens, "
+                    "n_generated, digest) VALUES ($1, $2, $3, $4, $5)",
+                    "planted", "none", 0, WS_NEW, "0" * 16)
+        planted_rows, _ = read_back(["planted"])
+        checks["c_read_back"] = (
+            _wire_store_faults(got, rows, texts, tok.decode),
+            _wire_store_faults({"planted": got[ids[0]]}, planted_rows,
+                               {"planted": texts[ids[0]]}, tok.decode))
+        out["c"] = {"rows": sum(r is not None for r in rows.values()),
+                    "row_0": rows.get(ids[0])}
+
+        # (d) the group's commits (fire-and-forget after each success)
+        def committed():
+            group = kafka.groups.get(WIRE_GROUP)
+            return {t: group.offsets.get((t, 0)) if group else None
+                    for t in WIRE_TOPICS}
+        deadline = time.time() + 5
+        while _wire_offset_faults(committed(), 4) and time.time() < deadline:
+            time.sleep(0.01)
+        offsets = committed()
+        checks["d_commits"] = (_wire_offset_faults(offsets, 4),
+                               _wire_offset_faults(before_offsets, 4))
+        out["d"] = {"offsets": offsets, "before": before_offsets}
+
+        # ungated timing, unique prompts: jobs / streams / streams / jobs
+        timing: dict = {"jobs": [], "chat": []}
+        for i, side in enumerate(("jobs", "chat", "chat", "jobs")):
+            asks = _ws_prompts(f"t{i} ")
+            base = len(made)
+            if side == "jobs":
+                wave = [{"id": f"t{i}-{j}", "prompt": p, **greedy}
+                        for j, p in enumerate(asks)]
+                for k, topic in enumerate(WIRE_TOPICS):
+                    answers.publish(topic, wave[k::len(WIRE_TOPICS)])
+                wave_ids = [j["id"] for j in wave]
+                if not answers.wait(wave_ids):
+                    raise AssertionError("serve_wire: a timing wave's "
+                                         "answers did not come")
+                run = {"latency_s": _pcts([answers.got[j][0]
+                                           - answers.sent[j]
+                                           for j in wave_ids])}
+            else:
+                runs: list = [None] * len(asks)
+
+                def ask(j, prompt, runs=runs):
+                    runs[j] = _sse_call(aport, "/chat", {
+                        "prompt": prompt, **greedy, "stream": True})
+                askers = [threading.Thread(target=ask, args=(j, p))
+                          for j, p in enumerate(asks)]
+                for w in askers:
+                    w.start()
+                for w in askers:
+                    w.join(timeout=600)
+                run = _sse_timing(runs)
+                run["latency_s"] = _pcts([r["events"][-1][0] for r in runs
+                                          if r and r["events"]])
+            run["engine_ttft_s"] = _pcts([r.ttft_ms / 1000.0
+                                          for r in made[base:]
+                                          if r.ttft_ms is not None])
+            run["engine_decode_tokens_per_s"] = _engine_rate(made[base:])
+            timing[side].append(run)
+        metrics = app.container.metrics
+        out["timing"] = {
+            **timing, "card": smi_line,
+            "sql_insert_ms": _pcts(op_ms["sql"]),
+            "redis_set_ms": _pcts(op_ms["redis"]),
+            "app_sql_stats_p50_ms": _hist_p50_ms(metrics, "app_sql_stats"),
+            "app_redis_stats_p50_ms": _hist_p50_ms(metrics,
+                                                   "app_redis_stats"),
+            "definition": "16 jobs published at once, 4 per topic (one in "
+            "flight per topic), beside 16 /chat streams at once, on 8 "
+            "slots, 64 tokens each, prompts 21-1501 tokens; job latency "
+            "from the publish call to the answer's arrival at the phase's "
+            "consumer, stream latency from the send to the last event"}
+
+        # the same wire calls with no traffic: 200 of each from this
+        # thread, to part the protocol's cost from the wait for the GIL
+        # under a wave (the Mini servers live in this process)
+        def op_ms_idle(fn) -> dict:
+            times = []
+            for i in range(200):
+                t0 = time.perf_counter()
+                fn(i)
+                times.append((time.perf_counter() - t0) * 1000.0)
+            return _pcts(times)
+        sql_c, redis_c = app.container.sql, app.container.redis
+
+        def idle_ops(tag: str) -> dict:
+            return {
+                "sql_select": op_ms_idle(lambda i: sql_c.query(
+                    "SELECT 1 AS one")),
+                "sql_insert": op_ms_idle(lambda i: sql_c.exec(
+                    "INSERT INTO conversation (job, topic, prompt_tokens, "
+                    "n_generated, digest) VALUES ($1, $2, $3, $4, $5)",
+                    f"{tag}-{i}", tag, 0, 0, "")),
+                "redis_set": op_ms_idle(lambda i: redis_c.set(
+                    f"{tag}:{i}", "x")),
+                "redis_get": op_ms_idle(lambda i: redis_c.get(
+                    f"{tag}:{i}"))}
+        out["timing"]["idle_ms"] = idle_ops("idle")
+        # and with the engine's thread stopped too
+        engine.stop()
+        out["timing"]["idle_ms_engine_stopped"] = idle_ops("stopped")
+        engine.start()
+
+        # (e) the spans at the collector, and the remote log level
+        def span_faults():
+            return _wire_span_faults(endpoint.spans(), ids, len(streams))
+        deadline = time.time() + 15
+        while span_faults() and time.time() < deadline:
+            time.sleep(0.1)
+        spans = endpoint.spans()
+        job_3 = next((s for s in spans if s["name"] == f"job {ids[3]}"),
+                     {})
+        planted_spans = [s for s in spans
+                         if s.get("traceId") != job_3.get("traceId")]
+        checks["e_spans"] = (_wire_span_faults(spans, ids, len(streams)),
+                             _wire_span_faults(planted_spans, ids,
+                                               len(streams)))
+        before = {"after": "DEBUG" if app.logger.level == DEBUG else "INFO",
+                  "switched_s": None}
+        endpoint.level = "DEBUG"
+        t0 = time.perf_counter()
+        switched = None
+        while time.perf_counter() - t0 < 3 * WIRE_POLL_S:
+            if app.logger.level == DEBUG:
+                switched = time.perf_counter() - t0
+                break
+            time.sleep(0.005)
+        level = {"after": "DEBUG" if app.logger.level == DEBUG else "INFO",
+                 "switched_s": switched}
+        checks["e_level"] = (_wire_level_faults(level),
+                             _wire_level_faults(before))
+        out["e"] = {"spans": len(spans), "exported": getattr(
+            app.container.tracer.exporter, "sent", None),
+            "job_0_children": sorted(
+                s["name"] for s in spans
+                if s.get("parentSpanId") == next(
+                    (j["spanId"] for j in spans
+                     if j["name"] == f"job {ids[0]}"), None)),
+            "level": level, "level_polls": endpoint.gets}
+
+        # (f) the kernels of the wave, then the stop
+        checks["f_launches"] = (_launch_faults(launches),
+                                _launch_faults(dict.fromkeys(launches, 0)))
+        out["launches"] = launches
+        teardown.remove(answers.close)
+        answers.close()
+        reader.close()
+        cache.close()
+        ports = {"kafka": kafka.port, "postgres": pg.port, "redis": rd.port}
+        open_before = {k: _open_connections(p) for k, p in ports.items()}
+        _stop_app(app, loop, thread)
+        t_stop = time.perf_counter()
+        while any(_open_connections(p) for p in ports.values()) and \
+                time.perf_counter() - t_stop < 2.0:
+            time.sleep(0.01)
+        stopped = {"open": {k: _open_connections(p) for k, p in
+                            ports.items()},
+                   "engine_running": engine._running}
+        checks["f_stop"] = (_wire_stop_faults(stopped), _wire_stop_faults(
+            {**stopped, "open": open_before}))
+        out["f"] = {**stopped, "open_before": open_before}
+
+        # (g) the other backends, each an app of its own on this engine
+        engine.submit = inner_submit
+        # one job a backend keeps the whole script near its time before
+        # this phase; its plant is (b)'s answer to another prompt
+        g_prompts = prompts[:1]
+        by_prompt = {g_prompts[0]: got[ids[0]]}
+        wrong = {g_prompts[0]: got[ids[1]]}
+        g_faults, g_planted, g_out, g_ties = [], [], {}, {}
+        for name in ("mysql", "oracle", "EVENTHUB", "NATS", "JETSTREAM",
+                     "MQTT", "GOOGLE"):
+            t_g = time.perf_counter()
+            env, broker, started, client = _wire_backend(
+                name, brokers, {"postgres": pg})
+            g_app = App(config=DictConfig({
+                **env, "HTTP_HOST": host, "HTTP_PORT": "0",
+                "METRICS_PORT": "0", "APP_NAME": f"serve-wire-{name}"}))
+            g_app.serve_model(model_serving.MODEL_NAME, engine, tok)
+            g_app.migrate(_wire_migrations())
+            g_loop: dict = {}
+            g_app.subscribe("g-jobs", _job_handler(engine, tok, g_loop,
+                                                   {"sql": [], "redis": []}))
+            g_answers = g_thread = None
+            try:
+                g_answers = _Answers(brokers, client, "smoke")
+                g_loop["loop"], g_thread = _boot_app(g_app, name)
+                deadline = time.time() + 30
+                while not (_wire_subscribed(broker, "g-jobs") and
+                           _wire_subscribed(broker, "answers")) and \
+                        time.time() < deadline:
+                    time.sleep(0.01)
+                g_jobs = [{"id": f"{name}-{i}", "prompt": p, **greedy}
+                          for i, p in enumerate(g_prompts)]
+                g_answers.publish("g-jobs", g_jobs)
+                g_ids = [j["id"] for j in g_jobs]
+                g_answers.wait(g_ids, timeout_s=120)
+                g_got = {p: (g_answers.got.get(i) or (None, None))[1]
+                         for i, p in zip(g_ids, g_prompts)}
+                sql = g_app.container.sql
+                # oracle names columns in upper case and sends text
+                g_rows = {}
+                for r in sql.query("SELECT job, n_generated, digest FROM "
+                                   "conversation"):
+                    r = {k.lower(): v for k, v in r.items()}
+                    g_rows[r["job"]] = {**r, "n_generated": int(
+                        r["n_generated"])}
+                g_texts = {i: g_app.container.redis.get(f"job:{i}")
+                           for i in g_ids}
+                mine = {i: g_got[p] for i, p in zip(g_ids, g_prompts)
+                        if g_got[p] is not None}
+                g_faults += _g_answer_faults(name, g_got, by_prompt,
+                                             tok.encode, judge, g_ties)
+                g_faults += [f"{name}: {f}" for f in (
+                    _wire_store_faults(mine, g_rows, g_texts, tok.decode)
+                    + ([] if len(mine) == len(g_prompts)
+                       else ["answers missing"]))]
+                g_planted += _g_answer_faults(name, g_got, wrong,
+                                              tok.encode, judge, {})
+                g_out[name] = {"client": type(g_app.container.pubsub
+                                              ).__name__,
+                               "sql": type(sql).__name__,
+                               "answers": len(mine),
+                               "wall_s": time.perf_counter() - t_g}
+            finally:
+                if g_answers is not None:
+                    g_answers.close()
+                if g_thread is not None:
+                    _stop_app(g_app, g_loop["loop"], g_thread)
+                brokers.run(broker.close())
+                for server in started:
+                    server.close()
+        checks["g_backends"] = (g_faults, g_planted)
+        out["g"] = {**g_out, "near_ties": g_ties}
+        out["near_tie_judge_s"] = judge.seconds()
+    finally:
+        engine.submit = inner_submit
+        for fn in teardown:
+            fn()
+        if loop is not None and loop.is_running():
+            _stop_app(app, loop, thread)
+        brokers.run(kafka.close())
+        brokers.close()
+        endpoint.close()
+        pg.close()
+        rd.close()
+        judge.release()
+    del app, engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_wire: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
+
 def main() -> int:
+    import os
+    # telemetry pings a public host at every app's start and stop: off for
+    # the whole run, which has no network (``telemetry.enabled``)
+    os.environ["GOFR_TELEMETRY"] = "false"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -9820,6 +10921,7 @@ def main() -> int:
     phase_serve_warm(dev, smi_line)
     phase_serve_app(dev, smi_line)
     phase_serve_ws(dev, smi_line)
+    phase_serve_wire(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

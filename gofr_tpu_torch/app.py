@@ -46,8 +46,12 @@ How the port runs it:
   shut down, which cancels the engine request of a handler still
   streaming to one.
 
-Left for later ports, with their modules: the CLI (``new_cmd``), remote
-log levels and usage telemetry.
+- ``start`` runs the remote log-level poller when ``REMOTE_LOG_URL`` is
+  set (``logging/remote.py``) and, unless ``GOFR_TELEMETRY=false``, the
+  usage telemetry pings of start and stop (``telemetry.py``), as JAX's
+  app does.
+
+Left for a later port: the CLI (``new_cmd``).
 """
 
 from __future__ import annotations
@@ -653,11 +657,30 @@ class App:
             self._cron.executor = self.executor
             self._tasks.append(asyncio.ensure_future(self._cron.run()))
 
+        # remote log-level polling (reference container.go:107)
+        from .logging.remote import from_config as remote_level_from_config
+        updater = remote_level_from_config(self.config, self.logger)
+        if updater is not None:
+            self._tasks.append(asyncio.ensure_future(updater.run()))
+
+        # usage telemetry, opt-out (reference telemetry.go:13-38)
+        from . import telemetry
+        if telemetry.enabled(self.config):
+            self._tasks.append(asyncio.ensure_future(
+                telemetry.ping(self.container, "start")))
+
         self.logger.info(
             f"{self.container.app_name} up: http={self.http_server.bound_port} "
             f"metrics={self.metrics_server.bound_port}")
 
     async def stop(self) -> None:
+        from . import telemetry
+        ping_task: asyncio.Task | None = None
+        if telemetry.enabled(self.config):
+            # fire-and-forget: the ping gets the duration of the rest of
+            # shutdown to complete, never delaying it (telemetry.py)
+            ping_task = asyncio.ensure_future(
+                telemetry.ping(self.container, "shutdown"))
         for hook in list(self._on_shutdown) + list(self.on_close):
             try:
                 await self._call_hook(hook)
@@ -675,6 +698,8 @@ class App:
             await server.shutdown()
         self._servers.clear()
         await self.container.close()
+        if ping_task is not None and not ping_task.done():
+            ping_task.cancel()
         if self.executor is not None:
             # handler threads still in flight end on their own; nothing
             # waits for them here

@@ -1,3 +1,3 @@
-from .container import Container, NotPortedError
+from .container import Container
 
-__all__ = ["Container", "NotPortedError"]
+__all__ = ["Container"]

@@ -9,18 +9,16 @@ slots, each with its ``add_*``), the websocket registry (``ws_manager``,
 registry lists CUDA devices) and the model engines served by this
 process. ``Container.create`` wires everything from config the same way
 ``container.Create`` does (env-driven, reference container.go:92-177):
-``DB_DIALECT=sqlite`` (``DB_NAME``) builds ``sql``, ``REDIS_HOST`` the
-embedded ``redis``.
-
-What the port does not have yet, a config cannot ask for: a key that
-names a network client, a broker or an exporter whose module is not
-ported (``DB_DIALECT`` ``mysql`` / ``postgres`` / ``cockroachdb`` /
-``supabase`` / ``oracle``, ``REDIS_MODE=network``, ``PUBSUB_BACKEND``
-other than ``MEMORY`` / ``INMEMORY``, ``TRACE_EXPORTER`` ``otlp`` /
-``jaeger`` / ``zipkin``, ``REMOTE_LOG_URL``) makes ``create`` raise
-:class:`NotPortedError`, which names the key and the module. It never
-skips one silently. The breadth adders (``add_mongo``, ...) take the
-caller's store object, as JAX's do, and need no module of the port.
+``DB_DIALECT`` builds ``sql`` (sqlite, or the postgres / mysql / oracle
+wire client with ``DB_HOST``), ``REDIS_HOST`` the embedded ``redis`` or,
+with ``REDIS_MODE=network``, the RESP2 client, ``TRACE_EXPORTER`` the
+console, memory, OTLP (``otlp``, ``jaeger``) or Zipkin exporter, and
+``PUBSUB_BACKEND`` the broker client (``KAFKA``, ``GOOGLE``,
+``EVENTHUB``, ``NATS``, ``JETSTREAM``, ``MQTT``, ``MEMORY``). A network
+store that cannot connect is logged and left ``None``, as in JAX; a
+broker client's asynchronous connect waits for ``App.start``
+(:meth:`Container.connect_async`). The breadth adders (``add_mongo``,
+...) take the caller's store object, as JAX's do.
 """
 
 from __future__ import annotations
@@ -52,54 +50,6 @@ _BREADTH_SLOTS = ("mongo", "elasticsearch", "solr", "couchbase",
 # every slot health() aggregates over and close() tears down
 _SLOTS = ("sql", "redis", "kv", "file", "pubsub", "tpu") + _BREADTH_SLOTS
 
-# DB_DIALECT values whose network client module is not ported yet
-_SQL_WIRE_MODULES = {"mysql": "datasource/mysql_wire.py",
-                     "postgres": "datasource/postgres_wire.py",
-                     "cockroachdb": "datasource/postgres_wire.py",
-                     "supabase": "datasource/postgres_wire.py",
-                     "oracle": "datasource/oracle_wire.py"}
-
-# PUBSUB_BACKEND values whose client module is not ported yet
-_BROKER_MODULES = {"GOOGLE": "pubsub/google.py",
-                   "EVENTHUB": "pubsub/eventhub.py",
-                   "KAFKA": "pubsub/kafka.py", "NATS": "pubsub/nats.py",
-                   "JETSTREAM": "pubsub/jetstream.py",
-                   "MQTT": "pubsub/mqtt.py"}
-
-
-class NotPortedError(RuntimeError):
-    """A config key asks for a module the port does not have yet."""
-
-    def __init__(self, key: str, value: str, module: str) -> None:
-        super().__init__(
-            f"{key}={value!r} needs gofr_tpu_torch/{module}, which is not "
-            f"ported yet; unset {key} to serve without it")
-        self.key = key
-        self.module = module
-
-
-def _refuse_unported(config) -> None:
-    """Raise :class:`NotPortedError` for the first key that names a
-    module the port lacks."""
-    dialect = (config.get("DB_DIALECT") or "").lower()
-    if dialect in _SQL_WIRE_MODULES:
-        raise NotPortedError("DB_DIALECT", dialect,
-                             _SQL_WIRE_MODULES[dialect])
-    mode = config.get_or_default("REDIS_MODE", "embedded").lower()
-    if config.get("REDIS_HOST") and mode == "network":
-        raise NotPortedError("REDIS_MODE", mode, "datasource/redis_wire.py")
-    url = config.get("REMOTE_LOG_URL")
-    if url:
-        raise NotPortedError("REMOTE_LOG_URL", url, "logging/remote.py")
-    exporter = config.get_or_default("TRACE_EXPORTER", "none").lower()
-    if exporter in ("otlp", "jaeger", "zipkin"):
-        raise NotPortedError("TRACE_EXPORTER", exporter, "tracing/export.py")
-    backend = config.get_or_default("PUBSUB_BACKEND", "").upper()
-    if backend in _BROKER_MODULES:
-        raise NotPortedError("PUBSUB_BACKEND", backend,
-                             _BROKER_MODULES[backend])
-
-
 class Container:
     def __init__(self, config=None, logger: Logger | None = None) -> None:
         self.config = config if config is not None else DictConfig()
@@ -127,15 +77,14 @@ class Container:
             setattr(self, slot, None)
         self.tpu: Any = None                 # the device registry
         self.models: dict[str, Any] = {}     # name -> serving engine
-        # stores with async connect wait here until an event loop
-        # exists; App.start awaits connect_async()
+        # stores with async connect (network brokers) wait here until
+        # an event loop exists; App.start awaits connect_async()
         self._deferred_connects: list[Any] = []
         self._start_time = time.time()
 
     # ------------------------------------------------------------ factory
     @classmethod
     def create(cls, config) -> "Container":
-        _refuse_unported(config)
         log_level = level_from_string(config.get_or_default("LOG_LEVEL", "INFO"))
         logger = new_logger(level=log_level)
         c = cls(config=config, logger=logger)
@@ -152,6 +101,22 @@ class Container:
             exporter = ConsoleExporter(logger)
         elif exporter_kind == "memory":
             exporter = InMemoryExporter()
+        elif exporter_kind in ("otlp", "jaeger", "zipkin"):
+            # network exporters to a real collector by URL (reference
+            # otel.go:131-151; jaeger accepts both protocols — use OTLP)
+            url = config.get_or_default(
+                "TRACER_URL", config.get_or_default(
+                    "TRACER_HOST", "localhost"))
+            if "://" not in url:
+                port = config.get_or_default(
+                    "TRACER_PORT", "9411" if exporter_kind == "zipkin"
+                    else "4318")
+                url = f"http://{url}:{port}"
+            from ..tracing.export import OTLPHTTPExporter, ZipkinExporter
+            exporter_cls = ZipkinExporter if exporter_kind == "zipkin" \
+                else OTLPHTTPExporter
+            exporter = exporter_cls(url, service_name=c.app_name,
+                                    logger=logger)
         c.tracer = Tracer(service_name=c.app_name, exporter=exporter, ratio=ratio)
 
         # env-driven datasources (reference container.go:128-174);
@@ -162,8 +127,71 @@ class Container:
         c.sql = new_sql(config, logger, c.metrics, c.tracer)
         c.redis = new_redis(config, logger, c.metrics, c.tracer)
 
+        # pub/sub backend switch (reference container.go:132-172 selects
+        # KAFKA/GOOGLE/MQTT from PUBSUB_BACKEND; ours: KAFKA/GOOGLE/
+        # EVENTHUB/NATS/JETSTREAM/MQTT/MEMORY)
         backend = config.get_or_default("PUBSUB_BACKEND", "").upper()
-        if backend in ("MEMORY", "INMEMORY"):
+        if backend == "GOOGLE":
+            from ..pubsub.google import GooglePubSubClient
+            c.add_pubsub(GooglePubSubClient(
+                endpoint=config.get_or_default("PUBSUB_BROKER",
+                                               "127.0.0.1:8085"),
+                project=config.get_or_default("GOOGLE_PROJECT_ID", "gofr")))
+        elif backend == "EVENTHUB":
+            from ..pubsub.eventhub import EventHubClient
+            c.add_pubsub(EventHubClient(
+                namespace=config.get_or_default("PUBSUB_BROKER",
+                                                "127.0.0.1:9092"),
+                eventhub=config.get_or_default("EVENTHUB_NAME", ""),
+                consumer_group=config.get_or_default(
+                    "KAFKA_CONSUMER_GROUP", "$Default")))
+        elif backend == "KAFKA":
+            from ..pubsub.kafka import KafkaClient
+            c.add_pubsub(KafkaClient(
+                brokers=config.get_or_default("PUBSUB_BROKER",
+                                              "127.0.0.1:9092"),
+                group_id=config.get_or_default("KAFKA_CONSUMER_GROUP",
+                                               c.app_name),
+                client_id=c.app_name,
+                auto_offset=config.get_or_default(
+                    "KAFKA_AUTO_OFFSET", "earliest").lower()))
+        elif backend in ("NATS", "JETSTREAM"):
+            addr = config.get_or_default("PUBSUB_BROKER", "127.0.0.1:4222")
+            addr = addr.split("://", 1)[-1]  # tolerate nats:// scheme
+            host, _, port_s = addr.rpartition(":")
+            try:
+                port = int(port_s)
+            except ValueError:
+                host, port = addr, 4222  # bare hostname, default port
+            if backend == "JETSTREAM":
+                from ..pubsub.jetstream import JetStreamClient
+                c.add_pubsub(JetStreamClient(host or "127.0.0.1", port,
+                                             name=c.app_name))
+            else:
+                from ..pubsub.nats import NATSClient
+                c.add_pubsub(NATSClient(host or "127.0.0.1", port,
+                                        name=c.app_name))
+        elif backend == "MQTT":
+            from ..pubsub.mqtt import MQTTClient
+            try:
+                qos = int(config.get_or_default("MQTT_QOS", "1"))
+            except ValueError:
+                qos = 1
+            # the client implements QoS 0/1 (QoS 2 would wait for a
+            # PUBACK that spec brokers answer with PUBREC)
+            qos = min(max(qos, 0), 1)
+            try:
+                mqtt_port = int(config.get_or_default("MQTT_PORT",
+                                                      "1883").strip())
+            except ValueError:
+                logger.error("invalid MQTT_PORT; using 1883")
+                mqtt_port = 1883
+            c.add_pubsub(MQTTClient(
+                host=config.get_or_default("MQTT_HOST", "127.0.0.1"),
+                port=mqtt_port,
+                client_id=config.get_or_default("MQTT_CLIENT_ID", c.app_name),
+                qos=qos))
+        elif backend in ("MEMORY", "INMEMORY"):
             from ..pubsub.inmemory import InMemoryBroker
             c.add_pubsub(InMemoryBroker(logger=logger, metrics=c.metrics))
         return c

@@ -19,11 +19,16 @@ Ported backends:
 - :mod:`.dbresolver` — SQL primary/replica router with per-replica
   circuit breakers.
 
-Not ported yet: the network wire clients (``*_wire.py``: a config that
-asks for one makes ``Container.create`` raise ``NotPortedError``) and
-the breadth families (document, columnar, graph, time series). The
-container's breadth adders (``add_mongo``, ...) take the caller's store
-object as it is.
+Network wire clients (each speaks its store's real protocol and ships
+a protocol-faithful mini server for hermetic tests; ``new_sql`` /
+``new_redis`` pick them from config): :mod:`.redis_wire` (RESP2),
+:mod:`.postgres_wire` (v3 protocol + SCRAM-SHA-256), :mod:`.mysql_wire`
+(v10 handshake + native-password auth + COM_QUERY) and
+:mod:`.oracle_wire` (TNS transport + O5LOGON-style auth).
+
+Not ported yet: the other wire clients and the breadth families
+(document, columnar, graph, time series). The container's breadth
+adders (``add_mongo``, ...) take the caller's store object as it is.
 """
 
 import time

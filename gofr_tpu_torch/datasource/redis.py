@@ -1,6 +1,6 @@
 """Redis-shaped datasource with an in-process backend (the port's copy
-of ``gofr_tpu/datasource/redis.py``; the RESP2 network client,
-``redis_wire.py``, is not ported yet).
+of ``gofr_tpu/datasource/redis.py``; ``REDIS_MODE=network`` selects the
+RESP2 client, ``redis_wire.py``).
 
 The analog of reference ``datasource/redis`` (redis.go:43, hook.go:17):
 a Redis-command surface whose every operation is logged + timed into
@@ -329,18 +329,33 @@ class Redis(ProviderMixin):
 def new_redis(config: Any, logger: Any = None, metrics: Any = None,
               tracer: Any = None):
     """Env-driven constructor (reference redis/redis.go:43): None when
-    REDIS_HOST unset, else the embedded engine (``Container.create``
-    refuses ``REDIS_MODE=network`` before this runs)."""
+    REDIS_HOST unset. ``REDIS_MODE=network`` selects the RESP2 wire
+    client (:class:`~gofr_tpu_torch.datasource.redis_wire.RedisWire`) — the
+    promised constructor swap; the default stays the embedded engine so
+    apps run hermetically without a server."""
     host = config.get("REDIS_HOST") if config else None
     if not host:
         return None
-    r = Redis(host=host,
-              port=int(config.get_or_default("REDIS_PORT", "6379")))
+    mode = config.get_or_default("REDIS_MODE", "embedded").lower()
+    if mode == "network":
+        from .redis_wire import RedisWire
+        r: Any = RedisWire(host=host,
+                           port=int(config.get_or_default("REDIS_PORT",
+                                                          "6379")))
+    else:
+        r = Redis(host=host,
+                  port=int(config.get_or_default("REDIS_PORT", "6379")))
     if logger is not None:
         r.use_logger(logger)
     if metrics is not None:
         r.use_metrics(metrics)
     if tracer is not None:
         r.use_tracer(tracer)
-    r.connect()
+    try:
+        r.connect()
+    except OSError as exc:
+        # a briefly-down server must not crash app boot: health reports
+        # DOWN and the wire client redials lazily on first use
+        if logger is not None:
+            logger.error(f"redis connect failed (will retry on use): {exc}")
     return r

@@ -7,12 +7,15 @@ structured ``QueryLog`` and an ``app_sql_stats`` histogram sample
 (db.go:47-60), plus an ORM-lite ``select`` that maps rows into
 dataclasses (db.go:214) and a transaction wrapper (db.go:124).
 
-The backend is sqlite (stdlib, always available). Every dialect shares
-the query builder and auto-CRUD (placeholder style, AUTOINCREMENT
-spelling); the network clients of the other dialects
-(``postgres_wire.py``, ``mysql_wire.py``, ``oracle_wire.py``) are not
-ported yet, and ``Container.create`` refuses a config that names them.
-One ``RLock`` serializes every use of the connection: statements,
+Backends: sqlite (stdlib, always available), network postgres-family
+servers via :class:`~gofr_tpu_torch.datasource.postgres_wire.PostgresWire`
+(the v3 wire protocol, ``DB_DIALECT=postgres`` + ``DB_HOST``), network
+mysql servers via :class:`~gofr_tpu_torch.datasource.mysql_wire.MySQLWire`
+(``DB_DIALECT=mysql`` + ``DB_HOST``) and oracle via
+:class:`~gofr_tpu_torch.datasource.oracle_wire.OracleWire` (TNS,
+``DB_DIALECT=oracle`` + ``DB_HOST``). All dialects share the query
+builder and auto-CRUD (placeholder style, AUTOINCREMENT spelling).
+One ``RLock`` serializes every use of the sqlite connection: statements,
 whole transactions, the health probe and ``close``, since the port's
 plain handlers each run on a thread of their own.
 """
@@ -41,7 +44,7 @@ DIALECT_MYSQL = "mysql"
 DIALECT_POSTGRES = "postgres"
 DIALECT_COCKROACH = "cockroachdb"
 DIALECT_SUPABASE = "supabase"
-DIALECT_ORACLE = "oracle"  # placeholders only: a network dialect
+DIALECT_ORACLE = "oracle"  # network wire client only (oracle_wire)
 
 _DIALECTS = (DIALECT_SQLITE, DIALECT_MYSQL, DIALECT_POSTGRES,
              DIALECT_COCKROACH, DIALECT_SUPABASE)
@@ -274,12 +277,63 @@ def new_sql(config: Any, logger: Any = None, metrics: Any = None,
     """Env-driven constructor (reference sql/sql.go:74): returns None
     when DB_DIALECT is unset. A configured-but-unconnectable database
     logs and degrades instead of failing the whole boot, matching the
-    reference's log-and-retry connect loop. Only the embedded sqlite
-    backend is built here (``Container.create`` refuses the network
-    dialects before this runs)."""
+    reference's log-and-retry connect loop."""
     dialect = config.get("DB_DIALECT") if config else None
     if not dialect:
         return None
+    host = config.get("DB_HOST")
+    if dialect == DIALECT_ORACLE and not host:
+        # the embedded engine has no oracle mode — surface the actual
+        # misconfiguration, not an "unsupported dialect" red herring
+        if logger is not None:
+            logger.error("SQL disabled: DB_DIALECT=oracle requires "
+                         "DB_HOST (the TNS wire client)")
+        return None
+    if host and (dialect in _DOLLAR_PLACEHOLDER
+                 or dialect in (DIALECT_MYSQL, DIALECT_ORACLE)):
+        # a network server: dial it over the real wire protocol
+        # (reference sql.go:74 does this via lib/pq / go-sql-driver;
+        # oracle rides its own wire module, TNS + O5LOGON)
+        default_port = {DIALECT_MYSQL: "3306",
+                        DIALECT_ORACLE: "1521"}.get(dialect, "5432")
+        try:
+            port = int(config.get_or_default("DB_PORT",
+                                             default_port).strip())
+        except ValueError:
+            if logger is not None:
+                logger.error("SQL disabled: DB_PORT is not an integer")
+            return None
+        user = config.get_or_default(
+            "DB_USER", {DIALECT_MYSQL: "root",
+                        DIALECT_ORACLE: "system"}.get(dialect, "postgres"))
+        password = config.get_or_default("DB_PASSWORD", "")
+        name = config.get_or_default(
+            "DB_NAME", {DIALECT_MYSQL: "",
+                        DIALECT_ORACLE: "FREEPDB1"}.get(dialect,
+                                                        "postgres"))
+        if dialect == DIALECT_MYSQL:
+            from .mysql_wire import MySQLWire
+            db: Any = MySQLWire(host=host, port=port, user=user,
+                                password=password, database=name)
+        elif dialect == DIALECT_ORACLE:
+            from .oracle_wire import OracleWire
+            db = OracleWire(host=host, port=port, username=user,
+                            password=password, service_name=name)
+        else:
+            from .postgres_wire import PostgresWire
+            db = PostgresWire(host=host, port=port, user=user,
+                              password=password, database=name)
+        for use, obj in (("use_logger", logger), ("use_metrics", metrics),
+                         ("use_tracer", tracer)):
+            if obj is not None:
+                getattr(db, use)(obj)
+        try:
+            db.connect()
+        except Exception as exc:
+            if logger is not None:
+                logger.error(f"SQL connect failed: {exc}")
+            return None
+        return db
     try:
         db = SQL(dialect=dialect,
                  database=config.get_or_default("DB_NAME", ":memory:"))

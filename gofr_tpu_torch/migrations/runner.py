@@ -67,7 +67,10 @@ class _SQLMigrator:
     def last_version(self) -> int:
         row = self.sql.query_row(
             f"SELECT MAX(version) AS v FROM {LEDGER_TABLE}")
-        return int(row["v"]) if row is not None and row["v"] is not None else 0
+        # case-blind: oracle names the column V (JAX's row["v"] raises)
+        value = next((v for k, v in dict(row or {}).items()
+                      if k.lower() == "v"), None)
+        return int(value) if value is not None else 0
 
     def record(self, tx: Any, version: int, started: float) -> None:
         tx.exec(

@@ -29,7 +29,7 @@ from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Any, Protocol
 
-from .logging.logger import (current_fleet_context, reset_trace_context,
+from ..logging.logger import (current_fleet_context, reset_trace_context,
                              set_trace_context)
 
 _current_span: ContextVar["Span | None"] = ContextVar("gofr_current_span",

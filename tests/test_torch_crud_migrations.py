@@ -10,6 +10,7 @@ module it still lacks for a network dialect or ``REDIS_MODE=network``.
 
 from __future__ import annotations
 
+import asyncio
 import json
 from dataclasses import dataclass
 
@@ -20,7 +21,7 @@ from gofr_tpu.container.container import Container as JaxContainer
 from gofr_tpu.datasource.kv import InMemoryKV as JaxKV
 from gofr_tpu.migrations import Migrate as JaxMigrate
 from gofr_tpu_torch.config import DictConfig
-from gofr_tpu_torch.container.container import Container, NotPortedError
+from gofr_tpu_torch.container.container import Container
 from gofr_tpu_torch.datasource.kv import InMemoryKV
 from gofr_tpu_torch.migrations import Migrate, MigrationError
 
@@ -205,18 +206,51 @@ def test_env_datasources_up_in_both_packages(tmp_path):
     ("supabase", "datasource/postgres_wire.py"),
     ("oracle", "datasource/oracle_wire.py")])
 def test_network_dialects_name_their_wire_module(dialect, module):
-    with pytest.raises(NotPortedError) as err:
-        Container.create(DictConfig({"DB_DIALECT": dialect,
-                                     "DB_HOST": "db.internal"}))
-    assert err.value.key == "DB_DIALECT" and err.value.module == module
-    assert module in str(err.value)
+    """``DB_DIALECT`` with ``DB_HOST`` builds the client of the wire
+    module the dialect names, connected to its Mini server, and the
+    auto-CRUD placeholder style follows the dialect."""
+    from gofr_tpu_torch.datasource import mysql_wire, oracle_wire, \
+        postgres_wire
+    server = {"mysql": lambda: mysql_wire.MiniMySQLServer(
+                  user="app", password="pw"),
+              "oracle": lambda: oracle_wire.MiniOracleServer(
+                  users={"app": "pw"})}.get(
+        dialect, lambda: postgres_wire.MiniPostgresServer(
+            user="app", password="pw"))()
+    server.start()
+    try:
+        c = Container.create(DictConfig({
+            "DB_DIALECT": dialect, "DB_HOST": "127.0.0.1",
+            "DB_PORT": str(server.port), "DB_USER": "app",
+            "DB_PASSWORD": "pw"}))
+        assert type(c.sql).__module__ == \
+            "gofr_tpu_torch." + module[:-3].replace("/", ".")
+        assert c.sql.dialect == ("postgres" if module.startswith(
+            "datasource/postgres") else dialect)
+        assert c.health()["checks"]["sql"]["status"] == "UP"
+        asyncio.run(c.close())
+    finally:
+        server.close()
 
 
 def test_network_redis_names_its_wire_module():
-    with pytest.raises(NotPortedError) as err:
-        Container.create(DictConfig({"REDIS_HOST": "cache.internal",
-                                     "REDIS_MODE": "network"}))
-    assert err.value.module == "datasource/redis_wire.py"
+    """``REDIS_MODE=network`` builds the RESP2 client of
+    ``datasource/redis_wire.py``, which round-trips through its Mini
+    server."""
+    from gofr_tpu_torch.datasource.redis_wire import MiniRedisServer
+    server = MiniRedisServer()
+    server.start()
+    try:
+        c = Container.create(DictConfig({"REDIS_HOST": "127.0.0.1",
+                                         "REDIS_PORT": str(server.port),
+                                         "REDIS_MODE": "network"}))
+        assert type(c.redis).__module__ == \
+            "gofr_tpu_torch.datasource.redis_wire"
+        c.redis.set("k", "v")
+        assert c.redis.get("k") == "v"
+        asyncio.run(c.close())
+    finally:
+        server.close()
 
 
 def test_breadth_adders_take_the_callers_store():

@@ -15,6 +15,7 @@ port's ``app_gpu_*``) and the shape of ``health()``.
 """
 
 import asyncio
+import importlib
 import io
 import json
 import os
@@ -35,7 +36,7 @@ from gofr_tpu.http import server as jserver
 from gofr_tpu.logging import logger as jlog
 from gofr_tpu.tracing.tracer import Tracer as JaxTracer
 from gofr_tpu_torch.config.env import DictConfig, EnvConfig
-from gofr_tpu_torch.container.container import Container, NotPortedError
+from gofr_tpu_torch.container.container import Container
 from gofr_tpu_torch.http import errors as terr
 from gofr_tpu_torch.http import middleware as tmw
 from gofr_tpu_torch.http import request as treq
@@ -47,6 +48,7 @@ from gofr_tpu_torch.logging import logger as tlog
 from gofr_tpu_torch.tracing import Tracer
 
 from .torch_parity import time_limit
+from .torch_wire import LoopThread, dead_port, side_module
 
 SIDES = {"jax": dict(router=jrouter, req=jreq, resp=jresp, err=jerr,
                      responder=jresponder, server=jserver, mw=jmw, log=jlog),
@@ -509,21 +511,222 @@ class _Down:
         return {"status": "DOWN", "error": "planted"}
 
 
-@pytest.mark.parametrize("key,value,module", [
-    ("DB_DIALECT", "postgres", "datasource/postgres_wire.py"),
-    ("REDIS_MODE", "network", "datasource/redis_wire.py"),
-    ("REMOTE_LOG_URL", "http://127.0.0.1:1/level", "logging/remote.py"),
-    ("TRACE_EXPORTER", "zipkin", "tracing/export.py"),
-    ("PUBSUB_BACKEND", "kafka", "pubsub/kafka.py"),
-    ("PUBSUB_BACKEND", "NATS", "pubsub/nats.py")])
-def test_container_refuses_what_is_not_ported(key, value, module):
-    env = {key: value}
-    if key == "REDIS_MODE":   # the mode is read only with a host
-        env["REDIS_HOST"] = "localhost"
-    with pytest.raises(NotPortedError) as info:
-        Container.create(DictConfig(env))
-    assert info.value.key == key and info.value.module == module
-    assert key in str(info.value) and module in str(info.value)
+class _Collector:
+    """A stdlib HTTP endpoint on a thread: counts the POSTs it takes (an
+    exporter's span batches) and answers a GET with ``{"level": ...}``
+    (a remote log-level endpoint)."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+        collector = self
+        self.posts: list[bytes] = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                size = int(self.headers.get("Content-Length", 0))
+                collector.posts.append(self.rfile.read(size))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_GET(self):
+                body = b'{"level": "DEBUG"}'
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.port = self.httpd.server_address[1]
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+@pytest.fixture(scope="module")
+def live_backends():
+    """One Mini server of the port for each backend a config key can
+    name, the brokers on a loop thread, and a collector endpoint."""
+    pg = side_module("port", "postgres").MiniPostgresServer(
+        user="app", password="s3cr3t")
+    my = side_module("port", "mysql").MiniMySQLServer(user="app",
+                                                      password="s3cr3t")
+    ora = side_module("port", "oracle").MiniOracleServer(
+        users={"app": "s3cr3t"})
+    rd = side_module("port", "redis").MiniRedisServer()
+    for srv in (pg, my, ora, rd):
+        srv.start()
+    loop = LoopThread()
+    brokers = {"kafka": side_module("port", "kafka").MiniKafkaBroker(),
+               "nats": side_module("port", "nats").MiniNATSServer(),
+               "jetstream":
+                   side_module("port", "jetstream").MiniJetStreamServer(),
+               "mqtt": side_module("port", "mqtt").MiniMQTTBroker(),
+               "google": side_module("port", "google").MiniPubSubEmulator()}
+    for broker in brokers.values():
+        loop.run(broker.start())
+    collector = _Collector()
+    ports = {"postgres": pg.port, "mysql": my.port, "oracle": ora.port,
+             "redis": rd.port, "collector": collector.port,
+             **{k: b.port for k, b in brokers.items()}}
+    yield ports
+    for broker in brokers.values():
+        loop.run(broker.close())
+    loop.close()
+    for srv in (pg, my, ora, rd, collector):
+        srv.close()
+
+
+def _backend_env(key: str, value: str, port: int) -> dict:
+    """The config a user writes for ``key=value`` with its server on
+    ``port``."""
+    host = "127.0.0.1"
+    if key == "DB_DIALECT":
+        return {"DB_DIALECT": value, "DB_HOST": host, "DB_PORT": str(port),
+                "DB_USER": "app", "DB_PASSWORD": "s3cr3t",
+                **({"DB_NAME": "appdb"} if value != "oracle" else {})}
+    if key == "REDIS_MODE":
+        return {"REDIS_HOST": host, "REDIS_PORT": str(port),
+                "REDIS_MODE": value}
+    if key == "TRACE_EXPORTER":
+        return {"TRACE_EXPORTER": value,
+                "TRACER_URL": f"http://{host}:{port}"}
+    if key == "REMOTE_LOG_URL":
+        return {"REMOTE_LOG_URL": f"http://{host}:{port}/level"}
+    if value == "MQTT":
+        return {"PUBSUB_BACKEND": value, "MQTT_HOST": host,
+                "MQTT_PORT": str(port)}
+    return {"PUBSUB_BACKEND": value, "PUBSUB_BROKER": f"{host}:{port}",
+            "EVENTHUB_NAME": "hub"}
+
+
+def _slot_of(side: str, key: str, env: dict):
+    """What ``side``'s container builds for ``key``: the slot's class
+    name (None for an empty slot) and what a use of it shows: the
+    store's health, the broker's health after ``connect_async``, the
+    span batches a collector got, the remote level applied."""
+    from gofr_tpu.config.env import DictConfig as JaxDict
+    container_cls = Container if side == "port" else JaxContainer
+    config = (DictConfig if side == "port" else JaxDict)(env)
+    c = container_cls.create(config)
+    try:
+        if key == "DB_DIALECT":
+            slot = c.sql
+            use = None if slot is None else slot.health_check()["status"]
+        elif key == "REDIS_MODE":
+            slot = c.redis
+            use = slot.health_check()["status"]
+        elif key == "TRACE_EXPORTER":
+            slot = c.tracer.exporter
+            c.tracer.start_span("probe").end()
+            slot.close()
+            use = None
+        elif key == "REMOTE_LOG_URL":
+            package = "gofr_tpu_torch" if side == "port" else "gofr_tpu"
+            remote = importlib.import_module(f"{package}.logging.remote")
+            slot = remote.from_config(config, c.logger)
+            use = asyncio.run(slot.poll_once())
+        else:
+            slot = c.pubsub
+
+            async def connect_and_check():
+                await c.connect_async()
+                status = slot.health_check()["status"]
+                await slot.close()
+                return status
+            use = asyncio.run(connect_and_check())
+        return (None if slot is None else type(slot).__name__), use
+    finally:
+        if key in ("DB_DIALECT", "REDIS_MODE"):
+            asyncio.run(c.close())
+
+
+BACKEND_KEYS = [("DB_DIALECT", v) for v in
+                ("postgres", "cockroachdb", "supabase", "mysql", "oracle")] \
+    + [("REDIS_MODE", "network")] \
+    + [("TRACE_EXPORTER", v) for v in ("otlp", "jaeger", "zipkin")] \
+    + [("REMOTE_LOG_URL", "level")] \
+    + [("PUBSUB_BACKEND", v) for v in
+       ("KAFKA", "EVENTHUB", "GOOGLE", "NATS", "JETSTREAM", "MQTT")]
+
+_SERVER_OF = {"postgres": "postgres", "cockroachdb": "postgres",
+              "supabase": "postgres", "mysql": "mysql", "oracle": "oracle",
+              "network": "redis", "otlp": "collector",
+              "jaeger": "collector", "zipkin": "collector",
+              "level": "collector", "KAFKA": "kafka", "EVENTHUB": "kafka",
+              "GOOGLE": "google", "NATS": "nats", "JETSTREAM": "jetstream",
+              "MQTT": "mqtt"}
+
+
+@pytest.mark.parametrize("live", [True, False], ids=["live", "dead"])
+@pytest.mark.parametrize("key,value", BACKEND_KEYS,
+                         ids=[v for _, v in BACKEND_KEYS])
+@time_limit(60)
+def test_container_builds_what_jax_builds(live_backends, key, value, live):
+    """Every backend key JAX's ``Container.create`` honours builds the
+    same kind of slot in the port's, and a use of it shows the same
+    outcome: against the port's Mini server, and against a dead port
+    (a SQL dialect is logged and left ``None``, the RESP client is kept
+    to redial on use, a broker's health is DOWN, a remote-level poll
+    applies nothing)."""
+    port = live_backends[_SERVER_OF[value]] if live else dead_port()
+    env = _backend_env(key, value, port)
+    port_slot = _slot_of("port", key, env)
+    jax_slot = _slot_of("jax", key, env)
+    assert port_slot == jax_slot
+    if key == "DB_DIALECT":
+        assert (port_slot[0] is not None) == live
+    elif key == "TRACE_EXPORTER":
+        assert port_slot[0] in ("OTLPHTTPExporter", "ZipkinExporter")
+    else:
+        assert port_slot[0] is not None
+
+
+@pytest.mark.parametrize("env,slot", [
+    ({"PUBSUB_BACKEND": "MEMORY"}, "pubsub"),
+    ({"PUBSUB_BACKEND": "inmemory"}, "pubsub"),
+    ({"PUBSUB_BACKEND": "SQS"}, "pubsub"),
+    ({"TRACE_EXPORTER": "console"}, "exporter"),
+    ({"TRACE_EXPORTER": "gofr"}, "exporter"),
+    ({"TRACE_EXPORTER": "memory"}, "exporter"),
+    ({"TRACE_EXPORTER": "datadog"}, "exporter"),
+    ({"DB_DIALECT": "sqlite"}, "sql"),
+    ({"DB_DIALECT": "oracle"}, "sql"),
+    ({"DB_DIALECT": "postgres"}, "sql"),
+    ({"DB_DIALECT": "mysql", "DB_HOST": "127.0.0.1", "DB_PORT": "x"}, "sql"),
+    ({"REDIS_HOST": "localhost"}, "redis"),
+    ({"REDIS_HOST": "localhost", "REDIS_MODE": "embedded"}, "redis"),
+    ({"MQTT_QOS": "2", "PUBSUB_BACKEND": "MQTT"}, "pubsub")],
+    ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items())
+    if isinstance(v, dict) else v)
+def test_container_builds_the_in_process_slots_jax_builds(env, slot):
+    """The keys that need no server (the in-memory broker, the console
+    and memory exporters, sqlite, the embedded Redis) and the values JAX
+    does not honour (an unknown broker or exporter, a network dialect
+    without ``DB_HOST``, a port that is not a number) give the slot
+    JAX's container gives: the same class, or none."""
+    def kind(c):
+        value = c.tracer.exporter if slot == "exporter" \
+            else getattr(c, slot)
+        return None if value is None else type(value).__name__
+    port = Container.create(DictConfig(env))
+    jax = JaxContainer.create(JaxDictConfig(env))
+    try:
+        assert kind(port) == kind(jax)
+        if slot == "pubsub" and env.get("PUBSUB_BACKEND") == "MQTT":
+            assert port.pubsub.qos == jax.pubsub.qos == 1
+    finally:
+        asyncio.run(port.close())
+        asyncio.run(jax.close())
 
 
 def test_tracer_stamps_the_log_lines_of_its_span():

@@ -1,4 +1,4 @@
-"""The port's tracer (``gofr_tpu_torch/tracing.py``) and request spans
+"""The port's tracer (``gofr_tpu_torch/tracing/tracer.py``) and request spans
 against the JAX package's, on the CPU.
 
 The ``traceparent`` parser, sampled-flag reader and formatter answer as
