@@ -328,8 +328,24 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              JetStream, MQTT and Google each carry a job; each with its
              planted fault. Job latency beside ``/chat``'s, decode
              tokens/s, the wire ops' times.
+17. train_llama — the trainer (``gofr_tpu_torch/parallel/``) at
+             ``llama3_1b``'s full width and depth, bf16, random weights
+             from seed 0, on a ``{dp: 1, tp: 1}`` mesh over a one-rank
+             ``nccl`` group, one fixed 4 x 512 batch
+             (``phase_train_llama``' docstring): (a) the first loss
+             against the serving forward's (the flash kernel) and every
+             token's; (b) bf16 gradients against a float32 copy's, per
+             layer and matrix; (c) 8 steps: the loss falls, finite
+             gradient norms; (d) save at step 2, restore, steps 3-4 bit
+             for bit, deterministic; (e) ring attention at sp = 1 and a pp
+             = 1 GPipe step with M = 2 against the plain and the dense
+             paths; each with its planted fault. Step ms, tokens/s, MFU,
+             peak memory, the optimizer's bytes, save / restore seconds.
+             The trainer runs no kernel of the repository (plain
+             attention, as JAX's trainer runs XLA's); the kernel line is
+             unchanged by it.
 
-Each of the last five prints its wall time (``phase_wall_s``), as the later
+Each of the last six prints its wall time (``phase_wall_s``), as the later
 serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
@@ -342,6 +358,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -10825,6 +10842,377 @@ def phase_serve_wire(dev, smi_line: str, cfg=None) -> dict:
     return out["launches"]
 
 
+# ---------------------------------------------------------------- trainer
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+# (a) the trainer's first loss (plain float32 attention, bf16 products)
+# against the serving forward's (the flash kernel) on the same weights
+# and batch: the bf16 roundings of two forwards of 16 layers part them
+# by about 1e-3 in the mean and a few 1e-2 per token; a target shifted
+# one position moves a token's loss by about the spread of the logits
+# (0.9 at this initialisation), the mean by a few 1e-2
+TRAIN_LOSS_TOL = 0.01
+TRAIN_TOKEN_TOL = 0.25
+# (b) bf16 gradients against a float32 copy's, per layer and matrix
+TRAIN_GRAD_COS = 0.99
+# (c) the loss must fall by more than this over the 8 steps
+TRAIN_FALL = 1e-3
+# (e) ring attention at sp = 1 against plain causal attention (float32)
+TRAIN_RING_TOL = 1e-5
+
+
+def _train_batch(cfg, dev, b: int, s: int):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev)
+    return (toks[:, :-1].contiguous(), toks[:, 1:].contiguous(),
+            torch.ones((b, s), dtype=torch.int32, device=dev))
+
+
+def _train_first_loss_faults(loss, nll, ref_loss, ref_nll) -> list:
+    faults = []
+    if not abs(loss - ref_loss) <= TRAIN_LOSS_TOL:
+        faults.append(f"loss {loss} vs serving {ref_loss}")
+    worst = (nll - ref_nll).abs().max().item()
+    if not worst <= TRAIN_TOKEN_TOL:
+        faults.append(f"a token's loss {worst} from the serving forward's")
+    return faults
+
+
+def _grad_groups(grads: dict) -> dict:
+    """Per layer and matrix (``wq[3]``), the embedding and the final
+    norm: the gradient groups (b) compares."""
+    out = {k: grads[k] for k in grads if k != "layers"}
+    for name, g in grads["layers"].items():
+        for li in range(g.shape[0]):
+            out[f"{name}[{li}]"] = g[li]
+    return out
+
+
+def _grad_cos(grads: dict, ref: dict) -> dict:
+    cos = {}
+    for key, g in _grad_groups(grads).items():
+        a = g.float().flatten()
+        b = _grad_groups(ref)[key].float().flatten()
+        den = (a.norm() * b.norm()).item()
+        cos[key] = (a @ b).item() / den if den > 0 else 0.0
+    return cos
+
+
+def _cos_faults(cos: dict) -> list:
+    return [f"{k} cos {v:.5f}" for k, v in cos.items()
+            if not v >= TRAIN_GRAD_COS]
+
+
+def _fall_faults(losses: list, norms: list) -> list:
+    faults = [f"gradient norm {n} at step {i + 1}"
+              for i, n in enumerate(norms) if not math.isfinite(n)]
+    if not losses[-1] < losses[0] - TRAIN_FALL:
+        faults.append(f"loss {losses[0]} -> {losses[-1]} did not fall")
+    return faults
+
+
+def _state_faults(a, b) -> list:
+    """The leaves of two train states that are not bit for bit equal (the
+    first three keys and the count)."""
+    import torch
+    from gofr_tpu_torch.checkpoint import flatten
+    keys = [key for (key, x), (_, y) in zip(flatten(a), flatten(b))
+            if x.shape != y.shape or not torch.equal(x, y)]
+    return [f"{len(keys)} leaves differ: {keys[:3]}"] if keys else []
+
+
+def phase_train_llama(dev, smi_line: str, cfg=None) -> dict:
+    """The trainer (``gofr_tpu_torch/parallel/``) on the card:
+    ``llama3_1b`` at full width and depth (vocab 128256, dim 2048, 16
+    layers, 32 q / 8 KV heads, ffn 8192, tied embeddings), bf16, random
+    weights from seed 0, ``make_train_state`` / ``make_train_step`` on a
+    ``{dp: 1, tp: 1}`` mesh over a one-rank ``nccl`` process group
+    (``file://`` rendezvous in a temporary directory: every collective of
+    the step runs through NCCL), the default optimizer (clip 1.0, AdamW
+    3e-4, b2 0.95, weight decay 0.1), one fixed batch of 4 x 512 tokens
+    from a seeded generator. Checks, each also shown a planted fault it
+    must reject:
+
+    (a) the step's first loss within ``TRAIN_LOSS_TOL`` of the
+        cross-entropy of ``llama_prefill`` through the serving route (the
+        flash kernel) on the same weights and batch, and every token's
+        loss within ``TRAIN_TOKEN_TOL``; planted: targets shifted by one
+        position. The trainer itself launches no kernel of the
+        repository (it runs ``implementation="plain"``, as JAX's runs
+        ``"xla"``): the counters are read over its steps.
+    (b) step 1's bf16 gradient against a float32 copy's on the card,
+        cosine >= ``TRAIN_GRAD_COS`` for every layer's every matrix and
+        norm, the embedding and the final norm; planted: one layer's
+        ``wo`` gradient zeroed.
+    (c) 8 steps on the fixed batch: the loss falls, every gradient norm
+        is finite; planted: learning rate 0.
+    (d) under ``torch.use_deterministic_algorithms(True)`` (with
+        ``CUBLAS_WORKSPACE_CONFIG``): save at step 2 through
+        ``Checkpointer``, restore (``sharding_fn``: each leaf read
+        through its memory map), run steps 3-4: parameters, moments,
+        ``count``, ``step`` and losses bit for bit an uninterrupted
+        run's; planted: one moment leaf perturbed.
+    (e) the distributed paths at world size 1: ``make_ring_attention`` at
+        sp = 1 equals plain causal attention (float32, within
+        ``TRAIN_RING_TOL``), and a pp = 1 GPipe step with M = 2 gives the
+        dense step's first two losses within ``TRAIN_LOSS_TOL``; planted:
+        the ring's diagonal block run as a full block.
+
+    Figures: step ms (median of steps 3-8) and tokens/s, MFU as (6 N T +
+    12 L H hd S T) / step time / 989 TFLOP/s, peak memory over the run,
+    the optimizer's bytes, save / restore seconds, the phase's wall."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from gofr_tpu_torch.checkpoint import Checkpointer, flatten
+    from gofr_tpu_torch.models.llama import (LlamaConfig, llama_prefill,
+                                             param_count)
+    from gofr_tpu_torch.ops.attention import xla_attention
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention,
+                                                    paged_tree_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write, scatter_chunk_kv
+    from gofr_tpu_torch.ops.quant import wq_gemm
+    from gofr_tpu_torch.parallel import ring_attention as ring_mod
+    from gofr_tpu_torch.parallel.mesh import create_mesh, init_process_group
+    from gofr_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from gofr_tpu_torch.parallel.sharding import Sharding
+    from gofr_tpu_torch.parallel.train import (_nll, default_optimizer,
+                                               make_train_state,
+                                               make_train_step,
+                                               optimizer_bytes)
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    cfg = cfg or LlamaConfig.llama3_1b()
+    b, s = (TRAIN_B, TRAIN_S) if cfg.vocab_size > 1024 else (2, 16)
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "paged_tree_attention": paged_tree_attention,
+                "rope_kv_write": rope_kv_write,
+                "scatter_chunk_kv": scatter_chunk_kv, "wq_gemm": wq_gemm}
+    checks: dict = {}
+    out: dict = {"phase": "train_llama", "nvidia_smi": smi_line,
+                 "batch": [b, s], "dtype": str(cfg.dtype)}
+    tmp = tempfile.TemporaryDirectory(prefix="gofr_train_")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    init_process_group(dev, f"file://{tmp.name}/rendezvous")
+    try:
+        out["backend"] = dist.get_backend()
+        mesh = create_mesh({"dp": 1, "tp": 1})
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state0, _ = make_train_state(gen, cfg, mesh)
+        n_params = param_count(state0.params)
+        tokens, targets, mask = _train_batch(cfg, dev, b, s)
+        step = make_train_step(cfg, mesh, donate=False)
+
+        # (a) the serving forward's loss, through the flash kernel
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.no_grad():
+            ref_logits, _ = llama_prefill(state0.params, tokens, cfg)
+            ref_nll = _nll(ref_logits, targets)
+            shifted_nll = _nll(ref_logits, targets.roll(-1, dims=1))
+            del ref_logits
+            out["a_serving_flash_launches"] = flash_attention.launches
+            tr_nll = _nll(step.forward(state0.params, tokens), targets)
+        for fn in counters.values():
+            fn.launches = 0
+
+        # (c) the training run, timed; its first loss is (a)'s
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state, losses, norms, step_s = state0, [], [], []
+        for _ in range(TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens, targets, mask)
+            losses.append(float(loss))
+            norms.append(float(step.grad_norm))
+            step_s.append(time.perf_counter() - t0)
+        out["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if cuda else None)
+        out["train_launches"] = {k: fn.launches
+                                 for k, fn in counters.items()}
+        out["optimizer_bytes"] = optimizer_bytes(state.opt_state)
+        del state
+        ref_loss = ref_nll.mean().item()
+        checks["a_first_loss"] = (
+            _train_first_loss_faults(losses[0], tr_nll, ref_loss, ref_nll),
+            _train_first_loss_faults(losses[0], tr_nll,
+                                     shifted_nll.mean().item(), shifted_nll))
+        if any(out["train_launches"].values()):
+            checks["a_first_loss"][0].append(
+                f"the trainer launched {out['train_launches']}")
+        out["a"] = {"loss": losses[0], "serving_loss": ref_loss,
+                    "max_token_diff": (tr_nll - ref_nll).abs().max().item(),
+                    "shifted_serving_loss": shifted_nll.mean().item()}
+        del tr_nll, ref_nll, shifted_nll
+        flat = step_s[2:]
+        step_ms = statistics.median(flat) * 1e3
+        tokens_per_step = b * s
+        flops = (6 * n_params * tokens_per_step
+                 + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s
+                 * tokens_per_step)
+        out["c"] = {"losses": losses, "grad_norms": norms,
+                    "step_ms": [x * 1e3 for x in step_s]}
+        out.update({"step_ms_median_3_8": step_ms,
+                    "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+                    "flops_per_step": flops,
+                    "mfu": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                    "params": n_params})
+        planted_state, planted_losses = state0, []
+        lr0 = make_train_step(cfg, mesh, donate=False,
+                              optimizer=default_optimizer(0.0))
+        for _ in range(3):
+            planted_state, loss = lr0(planted_state, tokens, targets, mask)
+            planted_losses.append(float(loss))
+        del planted_state
+        checks["c_loss_falls"] = (_fall_faults(losses, norms),
+                                  _fall_faults(planted_losses, norms))
+
+        # (b) step 1's gradient against a float32 copy's
+        _, grads = step.loss_and_grads(state0.params, tokens, targets, mask)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = {k: ({n: w.float() for n, w in v.items()}
+                        if isinstance(v, dict) else v.float())
+                    for k, v in state0.params.items()}
+        step32 = make_train_step(cfg32, mesh, donate=False)
+        _, grads32 = step32.loss_and_grads(params32, tokens, targets, mask)
+        del params32
+        cos = _grad_cos(grads, grads32)
+        grads["layers"]["wo"][cfg.n_layers // 2].zero_()
+        checks["b_grad_cos"] = (_cos_faults(cos),
+                                _cos_faults(_grad_cos(grads, grads32)))
+        out["b"] = {"min_cos": min(cos.values()),
+                    "min_cos_group": min(cos, key=cos.get),
+                    "groups": len(cos)}
+        del grads, grads32
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (d) resume, bit for bit, deterministic
+        env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            ckpt = Checkpointer(Path(tmp.name) / "ckpt", keep=1)
+            ref, ref_losses = state0, []
+            for i in range(4):
+                ref, loss = step(ref, tokens, targets, mask)
+                ref_losses.append(float(loss))
+                if i == 1:
+                    sync()
+                    t0 = time.perf_counter()
+                    ckpt.save(2, ref)
+                    save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = ckpt.restore(2, like=state0,
+                                   sharding_fn=lambda key: Sharding(mesh, ()))
+            sync()
+            restore_s = time.perf_counter() - t0
+            adam = resumed.opt_state[1][0]
+            mu = {**adam.mu, "final_norm": adam.mu["final_norm"] + 1e-3}
+            bent = dataclasses.replace(resumed, opt_state=(
+                resumed.opt_state[0],
+                (adam._replace(mu=mu), *resumed.opt_state[1][1:])))
+            del adam, mu
+            runs = []
+            for start in (resumed, bent):
+                st, ls = start, []
+                for _ in range(2):
+                    st, loss = step(st, tokens, targets, mask)
+                    ls.append(float(loss))
+                runs.append(_state_faults(st, ref) + (
+                    [] if ls == ref_losses[2:] else [f"losses {ls}"]))
+                del st
+            del resumed, bent, ref
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if env_before is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+        state_bytes = sum(t.numel() * t.element_size()
+                          for _, t in flatten(state0))
+        checks["d_resume"] = (runs[0], runs[1])
+        out["d"] = {"losses_3_4": ref_losses[2:], "save_s": save_s,
+                    "restore_s": restore_s, "state_gb": state_bytes / 1e9}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (e) ring attention at sp = 1, and a pp = 1 pipeline with M = 2
+        rmesh = create_mesh({"sp": 1})
+        rgen = torch.Generator(device=dev)
+        rgen.manual_seed(2)
+        q, k, v = (torch.randn(b, s, cfg.n_heads, cfg.head_dim,
+                               generator=rgen, device=dev)
+                   for _ in range(3))
+        ring = ring_mod.make_ring_attention(rmesh, "sp")
+        want = xla_attention(q, k, v, causal=True)
+        ring_err = (ring(q, k, v) - want).abs().max().item()
+        mode = ring_mod._block_mode
+        ring_mod._block_mode = lambda src, rank: ring_mod.FULL
+        try:
+            bent_err = (ring(q, k, v) - want).abs().max().item()
+        finally:
+            ring_mod._block_mode = mode
+        del q, k, v, want
+        pmesh = create_mesh({"dp": 1, "pp": 1})
+        pipe = make_pipeline_train_step(cfg, pmesh, num_microbatches=2,
+                                        donate=False)
+        micro = [t.reshape(2, b // 2, s) for t in (tokens, targets, mask)]
+        pstate, pipe_losses = state0, []
+        for _ in range(2):
+            pstate, loss = pipe(pstate, *micro)
+            pipe_losses.append(float(loss))
+        del pstate
+
+        def e_faults(err):
+            faults = [] if err <= TRAIN_RING_TOL else [f"ring max err {err}"]
+            return faults + [
+                f"pipeline loss {p} vs dense {d}" for p, d in
+                zip(pipe_losses, losses[:2]) if not abs(p - d) <=
+                TRAIN_LOSS_TOL]
+
+        checks["e_distributed"] = (e_faults(ring_err), e_faults(bent_err))
+        out["e"] = {"ring_max_err": ring_err, "planted_ring_err": bent_err,
+                    "pipeline_losses": pipe_losses}
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    del state0
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"tolerances": {"loss": TRAIN_LOSS_TOL,
+                               "token": TRAIN_TOKEN_TOL,
+                               "grad_cos": TRAIN_GRAD_COS,
+                               "fall": TRAIN_FALL, "ring": TRAIN_RING_TOL},
+                "phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"train_llama: failed checks {failed}, planted "
+                             f"faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out
+
+
 def main() -> int:
     import os
     # telemetry pings a public host at every app's start and stop: off for
@@ -10922,6 +11310,7 @@ def main() -> int:
     phase_serve_app(dev, smi_line)
     phase_serve_ws(dev, smi_line)
     phase_serve_wire(dev, smi_line)
+    phase_train_llama(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

@@ -1,7 +1,7 @@
 """gofr_tpu_torch — the PyTorch + CUDA port of gofr_tpu's serving path.
 
 Mirrors the layout of ``gofr_tpu/`` (``ops/``, ``models/``,
-``serving/``, and the framework: ``app.py``, ``http/``, ``handler.py``,
+``parallel/``, ``serving/``, and the framework: ``app.py``, ``http/``, ``handler.py``,
 ``context.py``, ``container/``, ``config/``, ``logging/``,
 ``websocket/``, ``datasource/``, ``crud.py``, ``migrations/``) so each
 function's counterpart is found by name. The

@@ -32,8 +32,10 @@ import json
 import os
 import re
 import shutil
+import struct
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 from typing import Any, Callable
 
@@ -56,11 +58,24 @@ class CheckpointError(Exception):
 
 def flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     """``(keystr, leaf)`` pairs in JAX's order: dict keys sorted, lists
-    and tuples in order, ``None`` an empty subtree."""
+    and tuples in order, named tuples (optax's states) by field
+    (``.mu``), a train state's three children as JAX keys a pytree node
+    registered without keys (``[<flat index i>]``), ``None`` an empty
+    subtree."""
     if isinstance(tree, dict):
         out = []
         for key in sorted(tree):
             out += flatten(tree[key], f"{prefix}[{key!r}]")
+        return out
+    if hasattr(tree, "tree_children"):
+        out = []
+        for i, item in enumerate(tree.tree_children()):
+            out += flatten(item, f"{prefix}[<flat index {i}>]")
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for name in tree._fields:
+            out += flatten(getattr(tree, name), f"{prefix}.{name}")
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -78,6 +93,11 @@ def _rebuild(like: Any, leaves: list) -> Any:
     if isinstance(like, dict):
         out = {key: _rebuild(like[key], leaves) for key in sorted(like)}
         return {key: out[key] for key in like}
+    if hasattr(like, "tree_children"):
+        return type(like).from_children(
+            [_rebuild(item, leaves) for item in like.tree_children()])
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(item, leaves) for item in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_rebuild(item, leaves) for item in like)
     if like is None:
@@ -124,13 +144,43 @@ def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
     return array, array.dtype.name
 
 
+def _member(path: Path, name: str):
+    """A memory map of the ``.npy`` member ``name`` of an uncompressed
+    ``.npz`` (``np.savez``, both packages), or None if it is
+    compressed: slicing it reads only the slice's pages."""
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(f"{name}.npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+        if local[:4] != b"PK\x03\x04":
+            return None
+        name_len, extra_len = struct.unpack("<HH", local[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        if version not in ((1, 0), (2, 0)):
+            return None
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if fortran or dtype.hasobject:
+        return None
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                     shape=shape)
+
+
 def _from_numpy(array: np.ndarray, dtype: str,
                 device: torch.device | None) -> torch.Tensor:
     if dtype == "bfloat16":
-        tensor = torch.from_numpy(np.ascontiguousarray(array).view(
+        tensor = torch.from_numpy(np.asarray(array, order="C").view(
             np.int16)).view(torch.bfloat16)
     else:
-        tensor = torch.from_numpy(np.ascontiguousarray(array))
+        # order="C" keeps a 0-d leaf (a step, optax's count) 0-d, where
+        # ascontiguousarray would make it 1-d
+        tensor = torch.from_numpy(np.asarray(array, order="C"))
     return tensor.to(device) if device is not None else tensor
 
 
@@ -214,25 +264,43 @@ class Checkpointer:
 
     # ----------------------------------------------------------- restore
     def restore(self, step: int | None = None, *, like: Any = None,
-                device: str | torch.device | None = None) -> Any:
+                device: str | torch.device | None = None,
+                sharding_fn: Callable[[str], Any] | None = None) -> Any:
         """Load step ``step`` (default: the latest) as tensors.
 
         ``like``: a tree of the same structure (a freshly initialised
-        one); the leaves are rebuilt into it. Without it, a flat dict
-        keyed by the leaves' keystr keys is returned, as the JAX
-        package's ``restore`` returns (:func:`nest` makes it a tree).
-        ``device``: each leaf is placed there as it is read (default:
-        the host).
+        one, a :class:`~gofr_tpu_torch.parallel.train.TrainState`); the
+        leaves are rebuilt into it. Without it, a flat dict keyed by the
+        leaves' keystr keys is returned, as the JAX package's
+        ``restore`` returns (:func:`nest` makes it a tree). ``device``:
+        each leaf is placed there as it is read (default: the host).
+        ``sharding_fn(key) -> placement | None``: a leaf with a
+        placement (``parallel.sharding.Sharding``: ``index(shape)`` and
+        ``device``) is read as this rank's block only, through a memory
+        map of its member, and placed on the placement's device.
         """
         step, manifest = self._manifest(step)
         dev = torch.device(device) if device is not None else None
         keys: list[str] = []
         leaves: list[torch.Tensor] = []
-        with np.load(self.directory / f"step_{step}" / ARRAYS) as data:
+        path = self.directory / f"step_{step}" / ARRAYS
+        with np.load(path) as data:
             for entry in manifest["leaves"]:
                 keys.append(entry["key"])
-                leaves.append(_from_numpy(data[entry["name"]],
-                                          entry["dtype"], dev))
+                placement = (sharding_fn(entry["key"]) if sharding_fn
+                             else None)
+                if placement is None:
+                    leaves.append(_from_numpy(data[entry["name"]],
+                                              entry["dtype"], dev))
+                    continue
+                array = _member(path, entry["name"])
+                if array is None:
+                    array = data[entry["name"]]
+                # a copy: the block must not stay a view of the map
+                block = np.array(array[placement.index(array.shape)],
+                                 order="C")
+                leaves.append(_from_numpy(block, entry["dtype"],
+                                          placement.device))
         if like is None:
             return dict(zip(keys, leaves))
         n_like = len(flatten(like))

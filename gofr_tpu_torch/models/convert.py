@@ -80,6 +80,45 @@ def params_from_jax(np_params: dict, config: LlamaConfig,
     return _convert(np_params, config.dtype, device)
 
 
+def _opt_state_from_jax(node, config: LlamaConfig, device):
+    """optax's state tree -> the port's (``parallel/train.py``): tuples
+    stay tuples, ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) and
+    the empty states become the port's named tuples of the same
+    fields."""
+    from ..parallel.train import EmptyState, ScaleByAdamState
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        if not fields:
+            return EmptyState()
+        if tuple(fields) == ScaleByAdamState._fields:
+            return ScaleByAdamState(
+                count=torch.tensor(int(np.asarray(node.count)),
+                                   dtype=torch.int32, device=device),
+                mu=params_from_jax(node.mu, config, device),
+                nu=params_from_jax(node.nu, config, device))
+        raise TypeError(f"train_state_from_jax: no port counterpart of "
+                        f"optimizer state {type(node).__name__}{fields}")
+    if isinstance(node, (tuple, list)):
+        return tuple(_opt_state_from_jax(n, config, device) for n in node)
+    raise TypeError(f"train_state_from_jax: unexpected optimizer state "
+                    f"node {type(node).__name__}")
+
+
+def train_state_from_jax(np_state, config: LlamaConfig,
+                         device: str | torch.device):
+    """A JAX ``TrainState`` read as numpy (``jax.tree.map(np.asarray,
+    state)``: its parameters, optax's ``count`` / ``mu`` / ``nu`` and
+    ``step``) -> the port's ``parallel.train.TrainState`` on ``device``:
+    parameters and moments through :func:`params_from_jax` (moments in
+    ``config.dtype``, as the parameters), ``count`` and ``step`` int32."""
+    from ..parallel.train import TrainState
+    return TrainState(
+        params=params_from_jax(np_state.params, config, device),
+        opt_state=_opt_state_from_jax(np_state.opt_state, config, device),
+        step=torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32,
+                          device=device))
+
+
 def bert_params_from_jax(np_params: dict, config: BertConfig,
                          device: str | torch.device) -> dict:
     """numpy JAX ``bert_init`` tree -> the port's BERT parameters on

@@ -192,15 +192,16 @@ def _attn_block(x, lp, c: LlamaConfig, inv_freq, positions, kv_lengths,
     b, s, _ = x.shape
     hd = c.head_dim
     h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-    q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
-    k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
-    v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
+    # heads from the weights' widths: a tensor-parallel rank's column
+    # shards hold its own heads, and its ``wo`` rows give a partial sum
+    q = _mm(h, lp["wq"], implementation).reshape(b, s, -1, hd)
+    k = _mm(h, lp["wk"], implementation).reshape(b, s, -1, hd)
+    v = _mm(h, lp["wv"], implementation).reshape(b, s, -1, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     out = attention(q, k, v, causal=True, kv_lengths=kv_lengths,
                     implementation=implementation)
-    return (_mm(out.reshape(b, s, c.n_heads * hd), lp["wo"], implementation),
-            k, v)
+    return (_mm(out.reshape(b, s, -1), lp["wo"], implementation), k, v)
 
 
 def _mlp_block(x, lp, c: LlamaConfig, implementation: str = "auto"):
@@ -225,13 +226,16 @@ def _logits(params, c: LlamaConfig, x, implementation: str = "auto"):
 
 
 def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
-              kv_lengths, implementation):
+              kv_lengths, implementation, constrain=None):
     """Embedding + every block -> (hidden [B, S, D], (k, v) each
-    [L, B, S, Hkv, hd])."""
+    [L, B, S, Hkv, hd]). ``constrain`` (optional) is applied to the
+    residual activations after the embedding and after each block."""
     b, s = tokens.shape
     inv_freq = _inv_freq(c, tokens.device)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = qgather(params["embed"], tokens, c.dtype)
+    if constrain is not None:
+        x = constrain(x)
     ks, vs = [], []
     for li in range(c.n_layers):
         lp = _layer(params, li)
@@ -239,6 +243,8 @@ def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
                                      kv_lengths, implementation)
         x = x + attn_out
         x = x + _mlp_block(x, lp, c, implementation)
+        if constrain is not None:
+            x = constrain(x)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
@@ -268,23 +274,29 @@ def llama_decode_flops(config: LlamaConfig, context: int) -> float:
 
 def llama_prefill(params: dict, tokens: torch.Tensor, config: LlamaConfig,
                   *, kv_lengths: torch.Tensor | None = None,
-                  implementation: str = "auto"):
+                  implementation: str = "auto", constrain=None):
     """Full-sequence forward: tokens [B, S] -> (logits [B, S, V]
     float32, (k, v) each [L, B, S, Hkv, hd]); ``kv_lengths`` [B] masks
-    right-padded rows."""
-    x, kv = _backbone(params, tokens, config, kv_lengths, implementation)
+    right-padded rows. ``constrain``: an optional function of the
+    residual activations, applied after the embedding and after each
+    block (JAX's hook, where the parallel layer pins its layouts);
+    without it the forward is unchanged."""
+    x, kv = _backbone(params, tokens, config, kv_lengths, implementation,
+                      constrain)
     return _logits(params, config, x, implementation), kv
 
 
 def llama_prefill_last(params: dict, tokens: torch.Tensor,
                        config: LlamaConfig, *, kv_lengths: torch.Tensor,
-                       implementation: str = "auto"):
+                       implementation: str = "auto", constrain=None):
     """Prefill for serving: logits only at each row's last prompt token.
 
     tokens [B, S], kv_lengths [B] int32 -> (last_logits [B, V] float32,
-    (k, v) each [L, B, S, Hkv, hd]).
+    (k, v) each [L, B, S, Hkv, hd]); ``constrain`` as in
+    :func:`llama_prefill`.
     """
-    x, kv = _backbone(params, tokens, config, kv_lengths, implementation)
+    x, kv = _backbone(params, tokens, config, kv_lengths, implementation,
+                      constrain)
     last = (kv_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(x.shape[0], device=x.device), last]
     return _logits(params, config, rows, implementation), kv

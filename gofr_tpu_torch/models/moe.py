@@ -22,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.moe import moe_layer
+from ..ops.moe import ExpertShard, moe_layer
 from ..ops.norms import rms_norm
 from ..ops.quant import qgather
 from .llama import (LlamaConfig, _attn_block, _dense_decode, _inv_freq,
@@ -119,17 +119,40 @@ def moe_decode_flops(config: MoEConfig, context: int) -> float:
     return float(2 * products + 4 * c.n_layers * c.n_heads * hd * context)
 
 
-def _moe_mlp(x: torch.Tensor, lp: dict, c: MoEConfig):
+def _moe_mlp(x: torch.Tensor, lp: dict, c: MoEConfig, shard=None):
     """x [B, S, D] -> (MLP output [B, S, D], router logits [B, S, E])."""
     b, s, d = x.shape
     h = rms_norm(x, lp["ffn_norm"], c.norm_eps)
     out, router = moe_layer(h.reshape(b * s, d), lp["gate"], lp["w1"],
-                            lp["w3"], lp["w2"], num_selected=c.top_k)
+                            lp["w3"], lp["w2"], num_selected=c.top_k,
+                            shard=shard)
     return out.reshape(b, s, d), router.reshape(b, s, -1)
 
 
+def _expert_shard(mesh, c: MoEConfig):
+    """The ``ExpertShard`` of this rank on ``mesh``'s expert axis (``ep``,
+    else ``tp``, as ``moe_param_specs`` shards the experts), or None on a
+    mesh without one. Attention stays replicated, as in JAX on a
+    ``{dp, ep}`` mesh."""
+    if mesh is None:
+        return None
+    from ..parallel import comm
+    axis = "ep" if "ep" in mesh.axis_names else "tp"
+    if axis not in mesh.axis_names:
+        return None
+    if mesh.size("tp") > 1:
+        raise ValueError("moe_prefill(mesh=) shards the experts only; a "
+                         "tensor-parallel attention is not supported")
+    n = mesh.size(axis)
+    if c.n_experts % n:
+        raise ValueError(f"{c.n_experts} experts over {axis}={n}")
+    return ExpertShard(first=mesh.coord(axis) * (c.n_experts // n),
+                       copy=lambda t: comm.copy_to(t, mesh, axis),
+                       reduce=lambda t: comm.reduce_from(t, mesh, axis))
+
+
 def _moe_backbone(params: dict, tokens: torch.Tensor, c: MoEConfig,
-                  kv_lengths, implementation: str):
+                  kv_lengths, implementation: str, shard=None):
     """Embedding + every block -> (hidden [B, S, D], (k, v) each
     [L, B, S, Hkv, hd], router logits [L, B, S, E])."""
     b, s = tokens.shape
@@ -142,7 +165,7 @@ def _moe_backbone(params: dict, tokens: torch.Tensor, c: MoEConfig,
         attn_out, k, v = _attn_block(x, lp, c, inv_freq, positions,
                                      kv_lengths, implementation)
         x = x + attn_out
-        mlp_out, router = _moe_mlp(x, lp, c)
+        mlp_out, router = _moe_mlp(x, lp, c, shard)
         x = x + mlp_out
         ks.append(k)
         vs.append(v)
@@ -152,11 +175,15 @@ def _moe_backbone(params: dict, tokens: torch.Tensor, c: MoEConfig,
 
 def moe_prefill(params: dict, tokens: torch.Tensor, config: MoEConfig, *,
                 kv_lengths: torch.Tensor | None = None,
-                implementation: str = "auto"):
+                implementation: str = "auto", mesh=None):
     """tokens [B, S] -> (logits [B, S, V] float32, (k, v) each [L, B, S,
-    Hkv, hd], router logits [L, B, S, E])."""
+    Hkv, hd], router logits [L, B, S, E]). ``mesh``: the expert-parallel
+    step's (``parallel/``): ``params`` hold this rank's experts
+    (``moe_param_specs``) and each layer's combine is summed over the
+    expert axis with a differentiable all-reduce."""
     x, caches, router = _moe_backbone(params, tokens, config, kv_lengths,
-                                      implementation)
+                                      implementation,
+                                      _expert_shard(mesh, config))
     return _logits(params, config, x, implementation), caches, router
 
 

@@ -11,6 +11,8 @@ syncs, so a decode step that runs it can be captured in a CUDA graph.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -42,25 +44,46 @@ def top_k_routing(gate_logits: torch.Tensor, k: int,
     return weights, indices
 
 
+class ExpertShard(NamedTuple):
+    """An expert-parallel rank's part of :func:`moe_layer`: its experts
+    start at ``first``; ``copy`` (identity forward, gradient summed over
+    the expert ranks backward) takes the replicated router weights and
+    expert input into per-rank work, ``reduce`` sums the partial
+    combine over the expert ranks (``parallel/comm.py``)."""
+    first: int
+    copy: Callable
+    reduce: Callable
+
+
 def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
-              w3: torch.Tensor, w2: torch.Tensor, *, num_selected: int = 2
+              w3: torch.Tensor, w2: torch.Tensor, *, num_selected: int = 2,
+              shard: ExpertShard | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mixtral-style sparse MLP, computed densely over all E experts.
 
     x [T, D]; gate_w [D, E]; w1, w3 [E, D, F]; w2 [E, F, D]. Returns
     (output [T, D] in x's dtype, router logits [T, E] float32 for the
-    load-balancing loss)."""
+    load-balancing loss). With ``shard`` the expert weights are this
+    rank's ``E / ep`` experts: the router still scores all E, the rank
+    computes its own experts' products and combine, and the float32
+    combine is summed over the expert ranks before the cast."""
     xf = x.float()
     gate_logits = xf @ gate_w.float()                          # [T, E]
     weights, indices = top_k_routing(gate_logits, num_selected)
     # combine[t, e]: the routing weight of expert e for token t, 0 if
     # the token is not routed there
     combine = torch.zeros_like(gate_logits).scatter_(-1, indices, weights)
+    if shard is not None:
+        combine = shard.copy(combine)[:, shard.first:shard.first
+                                      + w1.shape[0]]
+        xf = shard.copy(xf)
     hidden = F.silu(torch.einsum("td,edf->tef", xf, w1.float()))
     hidden *= torch.einsum("td,edf->tef", xf, w3.float())
     expert_out = torch.einsum("tef,efd->ted", hidden, w2.float())
     del hidden
     out = torch.einsum("te,ted->td", combine, expert_out)
+    if shard is not None:
+        out = shard.reduce(out)
     return out.to(x.dtype), gate_logits
 
 

@@ -129,20 +129,42 @@ def codes_of(w: dict) -> torch.Tensor:
     return unpack_int4(w["q"]) if is_int4(w) else w["q"]
 
 
+class HeadProduct(torch.autograd.Function):
+    """x [M, K] @ w [K, N] -> float32 [M, N] for bf16 operands: on CUDA
+    one GEMM in the operands' dtype with a float32 output (``torch.mm``'s
+    ``out_dtype``, float32 accumulation, as the JAX head's
+    ``preferred_element_type``), on the CPU the float32 product of the
+    widened operands (exact widening, the same sums). ``torch.mm`` with
+    ``out_dtype`` has no derivative, so the backward is written here:
+    the float32 gradient rounded to the operands' dtype, then the two
+    GEMMs of the gradient in that dtype (float32 accumulation inside
+    each), ``g @ w.T`` and ``x.T @ g``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return torch.matmul(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = grad.to(w.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with a float32 output: a float32 product for float32
-    weights; on CUDA a GEMM in the weights' dtype with a float32 output
-    (float32 accumulation, as the JAX head's ``preferred_element_type``);
-    on the CPU the float32 product of the widened operands (exact
-    widening, the same sums)."""
+    weights, else :class:`HeadProduct` (differentiable)."""
     x = x.to(w.dtype)
     if w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda:
-        lead = x.shape[:-1]
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*lead, -1)
-    return torch.matmul(x.float(), w.float())
+    lead = x.shape[:-1]
+    return HeadProduct.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+        *lead, -1)
 
 
 def _scaled_product(x: torch.Tensor, codes: torch.Tensor, s: torch.Tensor,
