@@ -220,8 +220,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              at Mixtral's heads, P 4, S 512, and the slab write of a
              decode dispatch's view write-back, both forms, each with its
              planted fault, among the kernel rows above).
-10. serve_llama8b — Llama-3-8B (``llama3_8b``: hd 128, 32 layers, 16.06
-             GB of bf16 weights) at full width and depth, random weights,
+10. serve_llama8b — Llama-3-8B (``llama3_8b``: hd 128) at full width,
+             16 of its 32 layers (the full 32, 16.06 GB, until serve_tp
+             joined the script; ``phase_serve_llama8b`` takes any
+             depth), random weights,
              through the app on the native paged layout (bf16; int8 with
              speculation), the slot layout, the view (``paged_attention=
              "view"``, windows 512 / 1024), and speculative on the native
@@ -344,9 +346,24 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              The trainer runs no kernel of the repository (plain
              attention, as JAX's trainer runs XLA's); the kernel line is
              unchanged by it.
+18. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
+             (``llama3_70b``: dim 8192, 64 q / 8 KV heads, hd 128, ffn
+             28672, vocab 128256), 8 of its 80 layers, bf16, random
+             weights from seed 0 (17.9 GB; ``phase_serve_tp``'
+             docstring): the unsharded engine as the reference; (c) tp = 1
+             over a one-rank ``nccl`` group with the decode graph captured
+             (tokens bit-equal); (b) tp = 2 as two rank processes sharing
+             the card over ``gloo`` (tokens equal or parting at a near
+             tie, each rank's weight and pool bytes half, flash and slab
+             launches); each with its planted fault. TTFT and decode
+             tokens/s of each, the host-staged all-reduce. Its launches
+             are the kernel rows ``flash_attention_tp2`` and
+             ``kv_write_prefill_tp2`` (flash at Hq 32 / Hkv 4 / D 128 and
+             the slab write at Hkv 4, one rank's shapes, each with its
+             planted fault, among the kernel rows above).
 
-Each of the last six prints its wall time (``phase_wall_s``), as the later
-serve phases do.
+Each of the last seven prints its wall time (``phase_wall_s``), as the
+later serve phases do.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -510,9 +527,9 @@ def phase_build() -> None:
           "per_kernel_s": secs, "ptxas": _build.build_logs})
 
 
-def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512), d=64):
+def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512), d=64,
+                hq=32, hkv=8):
     import torch
-    hq, hkv = 32, 8
     q = torch.randn(p, s, hq, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(p, s, hkv, d, generator=gen, device=dev).bfloat16()
@@ -520,12 +537,15 @@ def _flash_case(dev, gen, p=4, s=512, lens=(1, 200, 511, 512), d=64):
     return q, k, v, lens
 
 
-def kernel_flash(dev, gen, wide: bool = False, d128: bool = False) -> dict:
+def kernel_flash(dev, gen, wide: bool = False, d128: bool = False,
+                 tp2: bool = False) -> dict:
     """The flash kernel at the smoke's P = 4, S = 512 case, or (``wide``)
     at wave 1's widest bucket: one prompt, S = 1024, kv_lengths 901; or
     (``d128``) the P = 4, S = 512 case at Mixtral's head_dim 128, the
     kernel's D = 128 instantiation that ``serve_moe`` launches (its
-    launches are read from that phase)."""
+    launches are read from that phase); or (``tp2``) that case at one
+    rank's heads of Llama-3-70B at tp = 2, Hq 32 / Hkv 4 (a GQA group of
+    8), which ``serve_tp``'s ranks launch."""
     import torch
     import torch.nn.functional as F
     from gofr_tpu_torch.ops.flash_attention import (flash_attention,
@@ -535,6 +555,11 @@ def kernel_flash(dev, gen, wide: bool = False, d128: bool = False) -> dict:
         name, shape = ("flash_attention_s1024",
                        "P=1 S=1024 Hq=32 Hkv=8 D=64 bf16, kv_lengths 901 "
                        "(wave 1's widest bucket)")
+    elif tp2:
+        q, k, v, lens = _flash_case(dev, gen, d=128, hkv=4)
+        name, shape = ("flash_attention_tp2",
+                       "P=4 S=512 Hq=32 Hkv=4 D=128 bf16, kv_lengths "
+                       "1/200/511/512 (one rank of Llama-3-70B at tp = 2)")
     elif d128:
         q, k, v, lens = _flash_case(dev, gen, d=128)
         name, shape = ("flash_attention_d128",
@@ -603,6 +628,7 @@ def kernel_flash(dev, gen, wide: bool = False, d128: bool = False) -> dict:
            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
            "replaces": "gofr_tpu/ops/flash_attention.py:33",
            **({"launches_from": "serve_moe"} if d128 else {}),
+           **({"launches_from": "serve_tp"} if tp2 else {}),
            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
@@ -1521,7 +1547,7 @@ def kernel_rope_kv_write(dev, gen, verify: bool, d: int = 64) -> list:
     return rows
 
 
-def kernel_kv_write_prefill(dev, gen) -> list:
+def kernel_kv_write_prefill(dev, gen, tp2: bool = False) -> list:
     """The slab entry of the KV write kernel at the group prefill's
     shape, through the wrapper the engine calls there
     (``scatter_chunk_kv``: one launch for every layer, K and V together):
@@ -1534,12 +1560,15 @@ def kernel_kv_write_prefill(dev, gen) -> list:
     too); planted fault: the kernel's rows written one offset late, which
     must fail the same check. ``library_ms``: the nearest library path,
     ``index_copy_`` of every layer's in-range rows into each pool leaf
-    (selection and quantize beforehand, untimed)."""
+    (selection and quantize beforehand, untimed). ``tp2``: the bf16 form
+    at one rank of ``serve_tp`` (Llama-3-70B at 8 layers, tp = 2: Hkv 4,
+    head_dim 128), launched by its ranks."""
     import torch
     from gofr_tpu_torch.ops.paged_kv import (_chunk_coords, quantize_pool,
                                              scatter_chunk_kv,
                                              scatter_chunk_kv_plain)
-    n_layers, hkv, d, n_pages, pg = 16, 8, 64, 256, 64
+    n_layers, hkv, d, n_pages, pg = ((TP_LAYERS, 4, 128, 256, 64) if tp2
+                                     else (16, 8, 64, 256, 64))
     p, bucket, n_prompt, n_real = 8, 512, 301, 6
     shape = (n_layers, hkv, n_pages, pg, d)
     k_pool = torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -1559,11 +1588,12 @@ def kernel_kv_write_prefill(dev, gen) -> list:
     pids, offs = _chunk_coords(k_pool, tables, zeros, lens, bucket)
 
     rows = []
-    for quantized in (False, True):
+    for quantized in (False,) if tp2 else (False, True):
         kp, vp = ((quantize_pool(k_pool), quantize_pool(v_pool)) if quantized
                   else (k_pool, v_pool))
         wrapper = "scatter_chunk_kv" + ("_int8" if quantized else "")
-        name = "kv_write_prefill" + ("_int8" if quantized else "")
+        name = "kv_write_prefill" + ("_int8" if quantized else "") \
+            + ("_tp2" if tp2 else "")
         args = (tables, k_slab, v_slab)
         want = scatter_chunk_kv_plain(_clone_pool(kp), _clone_pool(vp), *args,
                                       zeros, lens)
@@ -1607,6 +1637,7 @@ def kernel_kv_write_prefill(dev, gen) -> list:
         row = {"name": name, "wrapper": wrapper, "route": "cuda",
                "source": "gofr_tpu_torch/csrc/kv_write.cu",
                "replaces": "gofr_tpu/ops/paged_kv.py:191",
+               **({"launches_from": "serve_tp"} if tp2 else {}),
                "replaces_note": "scatter_chunk: XLA's scatter (.at[].set, "
                                 "mode='drop', quantize_rows for int8), "
                                 "not a pallas_call",
@@ -11213,6 +11244,497 @@ def phase_train_llama(dev, smi_line: str, cfg=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serve_tp
+
+#: Llama-3-70B's width cut to this many of its 80 layers
+TP_LAYERS = 8
+#: the collectives' timeout in serve_tp's rank processes
+TP_TIMEOUT_S = 120.0
+#: one transfer size of the host-staged all-reduce timing
+TP_AR_ROWS = 8
+
+
+def _tp_config(layers: int = TP_LAYERS):
+    """Llama-3-70B at full width (dim 8192, 64 q / 8 KV heads, head_dim
+    128, ffn 28672, vocabulary 128256), ``layers`` of its 80, bf16."""
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.llama3_70b().scaled(n_layers=layers)
+
+
+def _tp_engine_config(cfg):
+    """serve_tp's engine: ``serve_config`` on the paged layout read
+    through its dense view (the mesh path's layout, run by the reference
+    too), speculation on with 1-gram drafts at full depth whenever the
+    lookup proposes (``spec_adaptive=False``: the adaptive controller
+    prices drafts by wall-clock time, so two runs would draft
+    differently)."""
+    from gofr_tpu_torch.serving.app import serve_config
+    return serve_config(cfg, paged_attention="view", speculative=True,
+                        spec_ngram=1, spec_adaptive=False)
+
+
+def _tp_workload(vocab: int) -> list:
+    """serve_tp's waves, each served once the one before it ended: four
+    200-token prompts at once (TTFT and decode tokens/s at batch 4); a
+    320-token shared prefix (five pages) with two suffixes, one after the
+    other (the second is a prefix hit); a 1100-token prompt (wider than
+    the 1024 bucket: it walks); two prompts of a short cycle repeated
+    (1-gram drafts: speculative passes). Token ids from a fixed seed."""
+    import numpy as np
+    rng = np.random.default_rng(24)
+
+    def ids(n):
+        return rng.integers(min(1000, vocab // 4), vocab, size=n).tolist()
+
+    shared = ids(320)
+    cycle_a, cycle_b = ids(6), ids(9)
+    return [[(ids(200), 32) for _ in range(4)],
+            [(shared + ids(24), 32)], [(shared + ids(40), 32)],
+            [(ids(1100), 16)],
+            [((cycle_a * 50)[:300], 32), ((cycle_b * 40)[:300], 32)]]
+
+
+def _tp_planted_wave(workload: list) -> list:
+    """The planted runs' wave: the batch of four, 4 new tokens each (a
+    wrong model parts from the reference at once)."""
+    return [[(prompt, 4) for prompt, _ in workload[0]]]
+
+
+def _tp_serve(engine, workload: list) -> dict:
+    """Serve ``workload`` (greedy) on an engine, warmed up here (its
+    decode graphs and verify widths; the prefills stay lazy): every
+    request's tokens and TTFT, the batch-4 wave's decode tokens/s, the
+    counters. A wave's requests are queued under the scheduler's lock,
+    so the engine admits the wave whole in every run: the same groups,
+    the same products."""
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    warm_s = engine.warmup()
+    engine.start()
+    reqs, waves = [], []
+    t0 = time.perf_counter()
+    for wave in workload:
+        with engine.waiting._lock:
+            batch = [engine.submit(list(prompt), SamplingParams(
+                temperature=0.0, max_new_tokens=n)) for prompt, n in wave]
+        end = time.time() + 300
+        while time.time() < end and any(
+                r.finished_at is None and r.error is None for r in batch):
+            time.sleep(0.002)
+        reqs += batch
+        decoded = sum(max(0, len(r.generated) - 1) for r in batch)
+        first = min((r.first_token_at for r in batch
+                     if r.first_token_at is not None), default=None)
+        last = max((r.finished_at for r in batch
+                    if r.finished_at is not None), default=None)
+        waves.append(decoded / (last - first)
+                     if first is not None and last and last > first
+                     else None)
+    return {"tokens": [list(r.generated) for r in reqs],
+            "prompts": [list(r.prompt_tokens) for r in reqs],
+            "errors": [r.error for r in reqs],
+            "ttft_ms": [r.ttft_ms for r in reqs],
+            "decode_tok_s_batch4": waves[0],
+            "ttft_ms_batch4_p50": float(sorted(
+                r.ttft_ms or 0.0 for r in reqs[:4])[1]),
+            "ttft_ms_walk": reqs[6].ttft_ms if len(reqs) > 6 else None,
+            "wall_s": time.perf_counter() - t0, "warmup_s": warm_s,
+            "stats": {k: engine.stats[k] for k in (
+                "prefix_hits", "spec_passes", "graph_captures",
+                "graph_replays", "prefill_calls", "decode_passes")}}
+
+
+def _tp_counts() -> dict:
+    """The launch counters of the kernels serve_tp's path runs: flash
+    (prefill) and the slab write (the prompt's K/V, the view's
+    write-backs)."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv
+    return {"flash_attention": flash_attention.launches,
+            "scatter_chunk_kv": scatter_chunk_kv.launches}
+
+
+def _tp_zero_counts() -> None:
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_kv import scatter_chunk_kv
+    flash_attention.launches = 0
+    scatter_chunk_kv.launches = 0
+
+
+def _tp_params(cfg, dev, planted: bool = False):
+    """The model's weights from seed 0 on ``dev``; ``planted``: the K and
+    V projections' second half of columns (the KV heads rank 1 holds at
+    tp = 2) replaced by the first half, so rank 1 holds rank 0's KV
+    heads."""
+    import torch
+    from gofr_tpu_torch.models.llama import llama_init
+    params = llama_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if planted:
+        half = cfg.n_kv_heads // 2 * cfg.head_dim
+        for name in ("wk", "wv"):
+            w = params["layers"][name]
+            w[..., half:] = w[..., :half]
+    return params
+
+
+def _tp_rank(rank: int, world: int, root: str, rendezvous: str,
+             out_dir: str, device: str, cfg) -> None:
+    """One rank process of serve_tp (b): ``gloo`` on the card, the
+    kernels ``phase_build`` made (none rebuilt), the tp engine of
+    Llama-3-70B width on this rank's shards; the leader serves the
+    workload, the follower follows. Then the same with the planted
+    fault. Writes its results, or its traceback, into ``out_dir``."""
+    import gc
+    import json
+    import os
+    import traceback
+    out = Path(out_dir) / f"rank{rank}.json"
+    try:
+        sys.path.insert(0, root)
+        import torch
+        import torch.distributed as dist
+        from gofr_tpu_torch.ops import _build
+        missing = [n for n in _build.SOURCES
+                   if not _build.library_path(n).exists()]
+        if missing and torch.device(device).type == "cuda":
+            raise RuntimeError(f"kernels not built by phase_build: "
+                               f"{missing}")
+        from gofr_tpu_torch.parallel.mesh import (create_mesh,
+                                                  init_process_group)
+        from gofr_tpu_torch.serving.glue import llama_engine
+        from gofr_tpu_torch.serving.lockstep import follow
+        dev = init_process_group(device, f"file://{rendezvous}", rank=rank,
+                                 world_size=world, backend="gloo",
+                                 timeout_s=TP_TIMEOUT_S)
+        cuda = dev.type == "cuda"
+        mesh = create_mesh({"tp": world})
+        ec = _tp_engine_config(cfg)
+        workload = _tp_workload(cfg.vocab_size)
+        result = {"rank": rank, "backend": mesh.backend,
+                  "device": str(mesh.device)}
+
+        def free():
+            # an engine's reference cycles (its planes' callbacks) hold
+            # its shards and pools until the collector runs
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
+        def build(planted: bool):
+            # one rank at a time holds the whole tree (17.9 GB) while
+            # it cuts its shards
+            engine = None
+            for turn in range(world):
+                if turn == rank:
+                    params = _tp_params(cfg, dev, planted)
+                    engine = llama_engine(params, cfg, ec, mesh=mesh)
+                    del params
+                    free()
+                dist.barrier(group=mesh.control)
+            return engine
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        engine = build(False)
+        result["weight_bytes"] = _tree_bytes(engine.params)
+        result["pool_bytes"] = engine._kv_bytes_total
+        result["kv_heads"] = int(engine.k_cache.shape[1])
+        dist.barrier(group=mesh.control)
+        _tp_zero_counts()
+        if rank == mesh.leader:
+            try:
+                result["run"] = _tp_serve(engine, workload)
+            finally:
+                engine.stop()
+        else:
+            result["follower_ops"] = follow(engine)
+        result["launches"] = _tp_counts()
+        result["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if cuda else None)
+        del engine
+        free()
+        # planted: rank 1 holds rank 0's KV heads
+        engine = build(True)
+        if rank == mesh.leader:
+            try:
+                result["planted"] = _tp_serve(engine,
+                                              _tp_planted_wave(workload))
+            finally:
+                engine.stop()
+        else:
+            follow(engine)
+        del engine
+        free()
+        # the host-staged all-reduce against gloo's own CUDA path, at a
+        # decode step's [8, 8192] bf16 partial sum
+        x = torch.randn(TP_AR_ROWS, cfg.dim, device=dev).bfloat16()
+        y = torch.empty_like(x)
+        group = mesh.group("tp")
+
+        def host_staged():
+            host = x.cpu()
+            dist.all_reduce(host, group=group)
+            y.copy_(host)
+
+        def gloo_cuda():
+            y.copy_(x)
+            dist.all_reduce(y, group=group)
+
+        staged, native = [], []
+        for _ in range(3):
+            for times, fn in ((staged, host_staged), (native, gloo_cuda)):
+                dist.barrier(group=mesh.control)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) / 20 * 1e3)
+        result["allreduce_ms"] = {"host_staged": min(staged),
+                                  "gloo_cuda": min(native)}
+        dist.barrier(group=mesh.control)
+        dist.destroy_process_group()
+        out.write_text(json.dumps(result))
+    except BaseException:
+        (Path(out_dir) / f"rank{rank}.err").write_text(
+            traceback.format_exc())
+        os._exit(1)
+
+
+def _tp_token_faults(label: str, run: dict, ref: dict, judge,
+                     ties: dict) -> list:
+    """Every request's tokens equal the reference's, or first differ at
+    a near tie (``_near_tie_judge`` through a teacher-forced prefill)."""
+    faults = []
+    if any(run["errors"]):
+        return [f"{label} errors {run['errors']}"]
+    for i, (got, want, prompt) in enumerate(zip(run["tokens"],
+                                                ref["tokens"],
+                                                ref["prompts"])):
+        faults += _tie_or_fault(f"{label} request {i}", got, want, prompt,
+                                judge, ties)
+    return faults
+
+
+def phase_serve_tp(dev, smi_line: str, cfg=None) -> dict:
+    """Serving on a tensor-parallel mesh at Llama-3-70B's width (8 of its
+    80 layers, random bf16 weights from seed 0, 17.9 GB; about 9 GB a
+    rank at tp = 2), the last phase.
+
+    (a) flash at Hq 32 / Hkv 4 / D 128 and the slab write at Hkv 4 (one
+    rank's shapes) against their plain versions with their planted
+    faults: kernel rows ``flash_attention_tp2`` and
+    ``kv_write_prefill_tp2`` (checked in ``main`` beside the others),
+    their launches counted in (b)'s ranks.
+
+    The reference: the unsharded port engine on the same weights
+    (``_tp_engine_config``: the paged layout through its view, as the
+    mesh path serves) on the workload (``_tp_workload``: a batch of four,
+    a prefix hit, a prompt walked past the widest bucket, speculative
+    passes).
+
+    (c) tp = 1 over a one-rank ``nccl`` group: ``llama_engine(mesh=)``
+    with its decode dispatch captured (the graph holds the all-reduces):
+    tokens bit-equal to the reference's and graph captures; planted: the
+    embedding's vocabulary shard read at rank 1's offset.
+
+    (b) tp = 2 as two rank processes on the card over ``gloo``
+    (collectives staged through the host): the leader serves the
+    workload, the follower follows; tokens equal to the reference's or
+    parting at a near tie; each rank's weight and pool bytes about half
+    the reference's; launches of flash and the slab write; planted:
+    rank 1 holding rank 0's KV heads must be rejected. Timing: TTFT and
+    decode tokens/s, labelled "gloo, host-staged collectives, one card",
+    beside the reference's; the host-staged all-reduce beside gloo's own
+    CUDA path. ``cfg``: another model (a CPU rehearsal at a small one:
+    (c) then runs ``gloo`` and captures nothing, and no kernel
+    launches)."""
+    import gc
+    import json
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from gofr_tpu_torch.parallel.mesh import create_mesh, init_process_group
+    from gofr_tpu_torch.serving.glue import llama_engine
+    t_phase = time.perf_counter()
+    cfg = cfg or _tp_config()
+    cuda = torch.device(dev).type == "cuda"
+    ec = _tp_engine_config(cfg)
+    workload = _tp_workload(cfg.vocab_size)
+    failed: dict = {}
+    planted: dict = {}
+    steps_s: dict = {}
+
+    def step_done(name: str) -> None:
+        steps_s[name] = time.perf_counter() - t_phase
+        emit({"phase": "serve_tp_step", "step": name, "s": steps_s[name]})
+
+    # the reference: one engine, unsharded
+    params = _tp_params(cfg, dev)
+    weight_bytes = _tree_bytes(params)
+    ref_engine = llama_engine(params, cfg, ec, device=dev)
+    pool_bytes = ref_engine._kv_bytes_total
+    try:
+        ref = _tp_serve(ref_engine, workload)
+    finally:
+        ref_engine.stop()
+    del ref_engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    step_done("reference")
+    failed["reference"] = ([f"reference errors {ref['errors']}"]
+                           if any(ref["errors"]) else []) \
+        + ([] if ref["stats"]["prefix_hits"] >= 1 else ["no prefix hit"]) \
+        + ([] if ref["stats"]["spec_passes"] >= 1 else
+           ["no speculative pass"])
+
+    # (c) tp = 1 over a one-rank nccl group, the decode graph captured
+    tmp = tempfile.TemporaryDirectory()
+    init_process_group(dev, f"file://{tmp.name}/rendezvous",
+                       backend="nccl" if cuda else "gloo",
+                       timeout_s=TP_TIMEOUT_S)
+    try:
+        mesh = create_mesh({"tp": 1})
+        one = llama_engine(params, cfg, ec, mesh=mesh)
+        try:
+            tp1 = _tp_serve(one, workload)
+        finally:
+            one.stop()
+        del one
+        bad = llama_engine(params, cfg, ec, mesh=mesh)
+        bad.tp.index = 1            # planted: rank 1's vocabulary offset
+        try:
+            tp1_planted = _tp_serve(bad, _tp_planted_wave(workload))
+        finally:
+            bad.stop()
+        del bad
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    step_done("tp1_nccl")
+    failed["c"] = ([] if tp1["tokens"] == ref["tokens"] else
+                   ["tp = 1 tokens differ from the reference's"]) \
+        + ([] if tp1["stats"]["graph_captures"] >= 1 else
+           ["no decode graph captured"])
+    planted["c"] = ([] if tp1_planted["tokens"]
+                    == [t[:4] for t in ref["tokens"][:4]] else
+                    ["tp = 1 planted: tokens differ"])
+
+    # (b) tp = 2: two rank processes sharing the card over gloo
+    ranks_dir = tempfile.TemporaryDirectory()
+    rendezvous = Path(ranks_dir.name) / "rendezvous"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank,
+                         args=(r, 2, str(ROOT), str(rendezvous),
+                               ranks_dir.name, str(dev), cfg))
+             for r in range(2)]
+    t_ranks = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks_s = time.perf_counter() - t_ranks
+    errors = {r: (Path(ranks_dir.name) / f"rank{r}.err").read_text()
+              for r in range(2)
+              if (Path(ranks_dir.name) / f"rank{r}.err").exists()}
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"serve_tp: a rank failed (exit codes "
+                             f"{[p.exitcode for p in procs]}):\n"
+                             + "\n".join(errors.values()))
+    results = [json.loads((Path(ranks_dir.name) / f"rank{r}.json")
+                          .read_text()) for r in range(2)]
+    step_done("tp2_gloo")
+    ranks_dir.cleanup()
+    lead, follower = results
+    tp2 = lead["run"]
+    # the near-tie judge reads the model in float32: the weights again
+    params = _tp_params(cfg, dev)
+    judge = _near_tie_judge(params, cfg)
+    ties: dict = {}
+    failed["b"] = _tp_token_faults("tp = 2", tp2, ref, judge, ties) \
+        + ([] if tp2["stats"]["prefix_hits"] >= 1 else ["no prefix hit"]) \
+        + ([] if tp2["stats"]["spec_passes"] >= 1 else
+           ["no speculative pass"]) \
+        + ([] if tp2["stats"]["graph_captures"] == 0 else
+           ["a gloo mesh captured a graph"])
+    for r in results:
+        for key, full in (("weight_bytes", weight_bytes),
+                          ("pool_bytes", pool_bytes)):
+            if not 0.45 <= r[key] / full <= 0.55:
+                failed["b"].append(f"rank {r['rank']} {key} {r[key]} of "
+                                   f"{full}")
+        if r["kv_heads"] != cfg.n_kv_heads // 2:
+            failed["b"].append(f"rank {r['rank']} holds {r['kv_heads']} "
+                               f"KV heads")
+    launches = {k: lead["launches"][k] + follower["launches"][k]
+                for k in lead["launches"]}
+    failed["b"] += [f"{k}: no launch on the tp path" for k, n in
+                    launches.items() if n == 0]
+    planted_ties: dict = {}
+    planted["b"] = _tp_token_faults(
+        "tp = 2 planted", lead["planted"],
+        {"prompts": ref["prompts"][:4],
+         "tokens": [t[:4] for t in ref["tokens"][:4]]}, judge, planted_ties)
+    judge.release()
+    del params, judge
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    label = "gloo, host-staged collectives, one card"
+    timing = {
+        "card": smi_line,
+        "tp2": {"label": label, "ttft_ms_batch4_p50":
+                tp2["ttft_ms_batch4_p50"], "ttft_ms_walk": tp2["ttft_ms_walk"],
+                "decode_tok_s_batch4": tp2["decode_tok_s_batch4"],
+                "wall_s": tp2["wall_s"]},
+        "unsharded": {"ttft_ms_batch4_p50": ref["ttft_ms_batch4_p50"],
+                      "ttft_ms_walk": ref["ttft_ms_walk"],
+                      "decode_tok_s_batch4": ref["decode_tok_s_batch4"],
+                      "wall_s": ref["wall_s"]},
+        "tp1_nccl_graph": {"ttft_ms_batch4_p50": tp1["ttft_ms_batch4_p50"],
+                           "ttft_ms_walk": tp1["ttft_ms_walk"],
+                           "decode_tok_s_batch4": tp1["decode_tok_s_batch4"],
+                           "wall_s": tp1["wall_s"]},
+        "allreduce_8x8192_bf16_ms": lead["allreduce_ms"]}
+    line = {"phase": "serve_tp", "model": "llama3_70b width, "
+            f"{TP_LAYERS} of 80 layers, bf16, seed 0",
+            "weight_bytes": weight_bytes, "pool_bytes": pool_bytes,
+            "rank_bytes": [{k: r[k] for k in ("rank", "weight_bytes",
+                                               "pool_bytes", "peak_bytes",
+                                               "kv_heads", "backend")}
+                           for r in results],
+            "follower_ops": follower["follower_ops"],
+            "stats": {"reference": ref["stats"], "tp2": tp2["stats"],
+                      "tp1": tp1["stats"]},
+            "launches": launches,
+            "per_rank_launches": [r["launches"] for r in results],
+            "near_ties": ties, "planted_near_ties": planted_ties,
+            "timing": timing, "failed_checks": failed, "planted": planted,
+            "ranks_s": ranks_s, "steps_s": steps_s,
+            "phase_wall_s": time.perf_counter() - t_phase}
+    emit(line)
+    bad = {k: v for k, v in failed.items() if v}
+    if bad:
+        raise AssertionError(f"serve_tp: {bad}")
+    missed = [k for k, v in planted.items() if not v]
+    if missed:
+        raise AssertionError(f"serve_tp: planted faults passed in {missed}")
+    return launches
+
+
 def main() -> int:
     import os
     # telemetry pings a public host at every app's start and stop: off for
@@ -11255,6 +11777,12 @@ def main() -> int:
                           d128=True)]
     rows += kernel_kv_write_view(dev,
                                  torch.Generator(device=dev).manual_seed(16))
+    # one rank's shapes of Llama-3-70B at tp = 2 (GQA group 8, head_dim
+    # 128, Hkv 4), whose launches come from serve_tp's ranks
+    rows += [kernel_flash(dev, torch.Generator(device=dev).manual_seed(24),
+                          tp2=True)]
+    rows += kernel_kv_write_prefill(
+        dev, torch.Generator(device=dev).manual_seed(25), tp2=True)
     # head_dim 128 (Llama-3-8B): the paged kernels, both forms, and the
     # fused RoPE + K/V write, whose launches come from serve_llama8b
     d128 = torch.Generator(device=dev).manual_seed(17)
@@ -11302,8 +11830,13 @@ def main() -> int:
                 **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
     phase_checkpoint(dev, smi_line)
+    # Llama-3-8B at 16 of its 32 layers since serve_tp joined the script,
+    # to keep the whole run well inside its time limit
+    from gofr_tpu_torch.models.llama import LlamaConfig
     sources = {"serve_moe": phase_serve_moe(dev, smi_line),
-               "serve_llama8b": phase_serve_llama8b(dev, smi_line)}
+               "serve_llama8b": phase_serve_llama8b(
+                   dev, smi_line,
+                   cfg=LlamaConfig.llama3_8b().scaled(n_layers=16))}
     phase_serve_embed(dev, smi_line)
     phase_serve_asr(dev, smi_line)
     phase_serve_warm(dev, smi_line)
@@ -11311,6 +11844,7 @@ def main() -> int:
     phase_serve_ws(dev, smi_line)
     phase_serve_wire(dev, smi_line)
     phase_train_llama(dev, smi_line)
+    sources["serve_tp"] = phase_serve_tp(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         row["launches"] = source[row.get("wrapper", row["name"])]

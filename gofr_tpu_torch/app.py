@@ -371,13 +371,24 @@ class App:
         routes, capturing into ``PROFILER_DIR``), lifecycle (started
         with the app, drained by SIGTERM, closed at shutdown) and, unless
         ``chat_path`` is None, ``POST <chat_path>``
-        (``serving.handlers.make_chat_handler``)."""
+        (``serving.handlers.make_chat_handler``). A tensor-parallel
+        engine (``llama_engine(mesh=)``) is served by its mesh's leader
+        rank, whose registry lists that rank's device; a follower rank
+        serves no HTTP (it runs ``serving.lockstep.follow``) and is
+        refused here."""
         from .device import DeviceRegistry
         from .serving.app import wire_engine
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.rank != mesh.leader:
+            raise ValueError(
+                f"rank {mesh.rank} follows the mesh's leader (rank "
+                f"{mesh.leader}): it serves no HTTP; run "
+                f"serving.lockstep.follow(engine) there")
         if self.container.tpu is None:
             self.container.tpu = DeviceRegistry(
                 logger=self.logger, metrics=self.container.metrics,
-                device=engine.device)
+                device=engine.device,
+                rank=mesh.rank if mesh is not None else None)
         wire_engine(engine, name, metrics=self.container.metrics,
                     logger=self.logger, tracer=self.container.tracer,
                     devices=self.container.tpu, slo=slo,

@@ -67,17 +67,23 @@ class DeviceRegistry:
 
     ``publish_metrics`` sets ``app_gpu_device_count`` and
     ``app_gpu_hbm_bytes_used{device}`` (the JAX names' ``tpu`` as
-    ``gpu``), registering them where absent."""
+    ``gpu``), registering them where absent.
+
+    ``rank``: a rank of a tensor-parallel mesh (``llama_engine(mesh=)``)
+    lists its own ``device`` alone, with ``process_index`` the rank, as
+    a JAX process lists its addressable devices."""
 
     def __init__(self, logger: Any = None, metrics: Any = None,
                  probe_timeout_s: float = PROBE_TIMEOUT_S,
                  cache_ttl_s: float = CACHE_TTL_S,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None,
+                 rank: int | None = None) -> None:
         self.logger = logger
         self.metrics = metrics
         self.probe_timeout_s = probe_timeout_s
         self.cache_ttl_s = cache_ttl_s
         self.device = torch.device("cuda" if device is None else device)
+        self.rank = rank
         self.engines: dict[str, Any] = {}
         self._lock = threading.Lock()
         self._cache: list[dict] | None = None
@@ -92,18 +98,21 @@ class DeviceRegistry:
     def _probe(self) -> list[dict]:
         """Runs on a worker thread: enumerate the devices and their
         memory."""
+        process = self.rank or 0
         if self.device.type == "cpu":
             return [{"id": 0, "platform": "cpu", "kind": "cpu",
-                     "process_index": 0}]
+                     "process_index": process}]
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA requested but torch.cuda.is_available()"
                                " is False")
         out = []
-        for i in range(torch.cuda.device_count()):
+        ids = (range(torch.cuda.device_count()) if self.rank is None
+               else [self.device.index or 0])
+        for i in ids:
             out.append({
                 "id": i, "platform": "gpu",
                 "kind": torch.cuda.get_device_name(i),
-                "process_index": 0,
+                "process_index": process,
                 "hbm_bytes_in_use": int(torch.cuda.memory_allocated(i)),
                 "hbm_bytes_limit": int(
                     torch.cuda.get_device_properties(i).total_memory)})

@@ -13,6 +13,16 @@ through ``ops/quant.py``
 functions: on CUDA its decode-sized products and every LM head through
 the weight-dequantizing GEMM kernel ``csrc/wq_gemm.cu``.
 
+Tensor parallel (``tp=``, a ``parallel.comm.TensorParallel``):
+``llama_prefill_last``, ``llama_decode_step`` and ``llama_prefill_chunk``
+run on one rank's shards (``parallel/sharding.llama_param_specs``): its
+q / k / v and ``w1`` / ``w3`` columns give its own heads and hidden
+columns (the head counts come from the weights' widths), its ``wo`` /
+``w2`` rows a partial sum that ``tp.reduce`` all-reduces; the embedding
+is vocabulary-sharded (``tp.embed``) and the head's vocabulary columns
+are all-gathered (``tp.logits``), so the logits come back whole on every
+rank. Caches hold this rank's KV heads.
+
 ``implementation``: ``"auto"`` routes attention through the kernel
 wrappers (the CUDA kernels for CUDA tensors, their plain versions for
 CPU tensors); ``"plain"`` forces the plain PyTorch versions of the
@@ -225,15 +235,36 @@ def _logits(params, c: LlamaConfig, x, implementation: str = "auto"):
     return qmatmul(x, head, out_dtype=torch.float32)
 
 
+def _embed(params, tokens: torch.Tensor, c: LlamaConfig, tp=None):
+    """The embedding rows of ``tokens``; on a tp rank the sum of every
+    rank's vocabulary shard (``tp.embed``)."""
+    if tp is None:
+        return qgather(params["embed"], tokens, c.dtype)
+    return tp.embed(params["embed"], tokens, c.dtype)
+
+
+def _reduce(x: torch.Tensor, tp, name: str) -> torch.Tensor:
+    """A row-parallel product's partial summed over the tp ranks, in
+    place (``name``: ``"wo"`` or ``"w2"``); the identity without tp."""
+    return x if tp is None else tp.reduce(x, name)
+
+
+def _head(params, c: LlamaConfig, x, implementation: str = "auto", tp=None):
+    """:func:`_logits`, whole on every tp rank (``tp.logits``)."""
+    logits = _logits(params, c, x, implementation)
+    return logits if tp is None else tp.logits(logits)
+
+
 def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
-              kv_lengths, implementation, constrain=None):
+              kv_lengths, implementation, constrain=None, tp=None):
     """Embedding + every block -> (hidden [B, S, D], (k, v) each
     [L, B, S, Hkv, hd]). ``constrain`` (optional) is applied to the
-    residual activations after the embedding and after each block."""
+    residual activations after the embedding and after each block; ``tp``
+    as in the module docstring."""
     b, s = tokens.shape
     inv_freq = _inv_freq(c, tokens.device)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = qgather(params["embed"], tokens, c.dtype)
+    x = _embed(params, tokens, c, tp)
     if constrain is not None:
         x = constrain(x)
     ks, vs = [], []
@@ -241,8 +272,8 @@ def _backbone(params: dict, tokens: torch.Tensor, c: LlamaConfig,
         lp = _layer(params, li)
         attn_out, k, v = _attn_block(x, lp, c, inv_freq, positions,
                                      kv_lengths, implementation)
-        x = x + attn_out
-        x = x + _mlp_block(x, lp, c, implementation)
+        x = x + _reduce(attn_out, tp, "wo")
+        x = x + _reduce(_mlp_block(x, lp, c, implementation), tp, "w2")
         if constrain is not None:
             x = constrain(x)
         ks.append(k)
@@ -288,18 +319,19 @@ def llama_prefill(params: dict, tokens: torch.Tensor, config: LlamaConfig,
 
 def llama_prefill_last(params: dict, tokens: torch.Tensor,
                        config: LlamaConfig, *, kv_lengths: torch.Tensor,
-                       implementation: str = "auto", constrain=None):
+                       implementation: str = "auto", constrain=None,
+                       tp=None):
     """Prefill for serving: logits only at each row's last prompt token.
 
     tokens [B, S], kv_lengths [B] int32 -> (last_logits [B, V] float32,
     (k, v) each [L, B, S, Hkv, hd]); ``constrain`` as in
-    :func:`llama_prefill`.
+    :func:`llama_prefill`; with ``tp`` the K/V hold this rank's heads.
     """
     x, kv = _backbone(params, tokens, config, kv_lengths, implementation,
-                      constrain)
+                      constrain, tp)
     last = (kv_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(params, config, rows, implementation), kv
+    return _head(params, config, rows, implementation, tp), kv
 
 
 def _writer(implementation: str, tokens: torch.Tensor, pids: torch.Tensor,
@@ -466,9 +498,10 @@ def _dense_write(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
 
 def _dense_decode(params: dict, tokens: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, lengths: torch.Tensor,
-                  c: LlamaConfig, attn_window: int | None, mlp):
+                  c: LlamaConfig, attn_window: int | None, mlp, tp=None):
     """One decode step on dense caches with the family's ``mlp(x, lp)``
-    (``llama_decode_step``, ``models/moe.moe_decode_step``)."""
+    (``llama_decode_step``, ``models/moe.moe_decode_step``); heads from
+    the weights' widths, ``tp`` as in the module docstring."""
     b = tokens.shape[0]
     hd = c.head_dim
     width = k_cache.shape[2]
@@ -481,13 +514,13 @@ def _dense_decode(params: dict, tokens: torch.Tensor, k_cache: torch.Tensor,
     window = attn_window if attn_window is not None \
         and attn_window < width else width
 
-    x = qgather(params["embed"], tokens, c.dtype)[:, None, :]    # [B, 1, D]
+    x = _embed(params, tokens, c, tp)[:, None, :]                # [B, 1, D]
     for li in range(c.n_layers):
         lp = _layer(params, li)
         h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q = _mm(h, lp["wq"]).reshape(b, 1, c.n_heads, hd)
-        k = _mm(h, lp["wk"]).reshape(b, 1, c.n_kv_heads, hd)
-        v = _mm(h, lp["wv"]).reshape(b, 1, c.n_kv_heads, hd)
+        q = _mm(h, lp["wq"]).reshape(b, 1, -1, hd)
+        k = _mm(h, lp["wk"]).reshape(b, 1, -1, hd)
+        v = _mm(h, lp["wv"]).reshape(b, 1, -1, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         _dense_write(k_cache[li], rows, at, k, keep)
@@ -495,15 +528,15 @@ def _dense_decode(params: dict, tokens: torch.Tensor, k_cache: torch.Tensor,
         out = decode_attention(q, k_cache[li, :, :window],
                                v_cache[li, :, :window], attend,
                                block=DECODE_BLOCK)
-        x = x + _mm(out.reshape(b, 1, c.n_heads * hd), lp["wo"])
+        x = x + _reduce(_mm(out.reshape(b, 1, -1), lp["wo"]), tp, "wo")
         x = x + mlp(x, lp)
-    return _logits(params, c, x)[:, 0], k_cache, v_cache
+    return _head(params, c, x, tp=tp)[:, 0], k_cache, v_cache
 
 
 def llama_decode_step(params: dict, tokens: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       lengths: torch.Tensor, config: LlamaConfig, *,
-                      attn_window: int | None = None):
+                      attn_window: int | None = None, tp=None):
     """One decode step against the dense cache (the slot layout, or the
     paged pool's dense view).
 
@@ -515,10 +548,12 @@ def llama_decode_step(params: dict, tokens: torch.Tensor,
     ``decode_attention``, as the JAX step's XLA op, ``DECODE_BLOCK``
     rows at a time: a window gives the full cache's bits. No host sync,
     so the engine captures it in a CUDA graph. Returns (logits [B, V]
-    float32, k_cache, v_cache)."""
+    float32, k_cache, v_cache). ``tp``: as in the module docstring (the
+    caches hold this rank's KV heads)."""
     c = config
-    return _dense_decode(params, tokens, k_cache, v_cache, lengths, c,
-                         attn_window, lambda x, lp: _mlp_block(x, lp, c))
+    return _dense_decode(
+        params, tokens, k_cache, v_cache, lengths, c, attn_window,
+        lambda x, lp: _reduce(_mlp_block(x, lp, c), tp, "w2"), tp)
 
 
 def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
@@ -528,7 +563,7 @@ def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
                         implementation: str = "auto",
                         return_all_logits: bool = False,
                         tree_depths: torch.Tensor | None = None,
-                        tree_masks: torch.Tensor | None = None):
+                        tree_masks: torch.Tensor | None = None, tp=None):
     """One chunk of a chunked prefill against the dense cache.
 
     tokens [B, S] start at absolute positions ``offsets`` [B] int32;
@@ -543,7 +578,8 @@ def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
     ``tree_depths`` / ``tree_masks`` [B, S] (both or neither) switch the
     chunk into draft-tree verify mode: RoPE at ``offsets + tree_depths``,
     K/V rows at the node index ``offsets + i``, attention through
-    ``tree_attention`` under each node's packed ancestor mask.
+    ``tree_attention`` under each node's packed ancestor mask. ``tp``: as
+    in the module docstring.
     """
     if implementation not in ("auto", "plain"):
         raise ValueError(f"implementation must be 'auto' or 'plain', "
@@ -565,13 +601,13 @@ def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
     rows = torch.arange(b, device=tokens.device)[:, None]
     at = node_pos % smax
 
-    x = qgather(params["embed"], tokens, c.dtype)               # [B, S, D]
+    x = _embed(params, tokens, c, tp)                           # [B, S, D]
     for li in range(c.n_layers):
         lp = _layer(params, li)
         h = rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q = _mm(h, lp["wq"], implementation).reshape(b, s, c.n_heads, hd)
-        k = _mm(h, lp["wk"], implementation).reshape(b, s, c.n_kv_heads, hd)
-        v = _mm(h, lp["wv"], implementation).reshape(b, s, c.n_kv_heads, hd)
+        q = _mm(h, lp["wq"], implementation).reshape(b, s, -1, hd)
+        k = _mm(h, lp["wk"], implementation).reshape(b, s, -1, hd)
+        v = _mm(h, lp["wv"], implementation).reshape(b, s, -1, hd)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         _dense_write(k_cache[li], rows, at, k, keep)
@@ -584,14 +620,14 @@ def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
                                  history_lens=offsets,
                                  chunk_lens=chunk_lengths,
                                  tree_masks=tree_masks)
-        x = x + _mm(out.reshape(b, s, c.n_heads * hd), lp["wo"],
-                    implementation)
-        x = x + _mlp_block(x, lp, c, implementation)
+        x = x + _reduce(_mm(out.reshape(b, s, -1), lp["wo"],
+                            implementation), tp, "wo")
+        x = x + _reduce(_mlp_block(x, lp, c, implementation), tp, "w2")
     if return_all_logits:
-        return _logits(params, c, x, implementation), k_cache, v_cache
+        return _head(params, c, x, implementation, tp), k_cache, v_cache
     last = (chunk_lengths.long() - 1).clamp(min=0)
     rows = x[torch.arange(b, device=x.device), last]
-    return _logits(params, c, rows, implementation), k_cache, v_cache
+    return _head(params, c, rows, implementation, tp), k_cache, v_cache
 
 
 def make_empty_cache(config: LlamaConfig, batch: int,

@@ -26,6 +26,18 @@ rank (the card's smoke run: the collectives go through ``nccl``); an
 axis with no group (no process group, or an axis the mesh lacks) is of
 size 1 and every function is the identity. :func:`all_reduce_` is the
 plain in-place sum, for gradients and reported losses.
+
+On a ``gloo`` group (ranks sharing one card) a CUDA tensor's
+collectives are staged through host memory: the tensor is copied to the
+host, the CPU collective runs there, and the result is copied back.
+``gloo``'s own CUDA path takes only ``all_reduce`` and ``broadcast`` in
+older releases; on the card the two take about as long
+(``chip_smoke.py``'s ``serve_tp`` times both). Sums run in the tensor's own dtype on
+both backends: ``gloo`` reduces bf16 on the host, ``nccl`` on the card,
+and at two ranks either's sum is the one rounding of ``a + b``.
+
+:class:`TensorParallel` holds a serving rank's tp collectives: plain
+calls, no autograd (``models/llama.py``'s tp steps).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..ops.quant import qgather
 from .mesh import Mesh
 
 # newer torch renames the single-tensor collectives (the old names warn)
@@ -53,13 +66,23 @@ def _axis(mesh: Mesh, axis: str):
     return group, size, mesh.coord(axis)
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a ``gloo`` group: its collective runs on a host
+    copy."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if _staged(x, group):
+        return _all_reduce(x.cpu(), group).to(x.device)
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
 
 
 def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    if _staged(x, group):
+        return _all_gather(x.cpu(), dim, group, size).to(x.device)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((size * xt.shape[0],) + tuple(xt.shape[1:]),
                       dtype=xt.dtype, device=xt.device)
@@ -69,6 +92,8 @@ def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group,
                     size: int) -> torch.Tensor:
+    if _staged(x, group):
+        return _reduce_scatter(x.cpu(), dim, group, size).to(x.device)
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % size:
         raise ValueError(f"reduce-scatter of {xt.shape[0]} rows over "
@@ -246,3 +271,53 @@ def recv(like: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
     out = torch.empty_like(like)
     dist.recv(out, mesh.line(axis)[src], group=group)
     return out
+
+
+class TensorParallel:
+    """A serving rank's collectives along ``axis`` (plain calls, no
+    autograd), for the tp forms of ``models/llama.py``'s steps:
+
+    - :meth:`embed`: this rank's rows of the vocabulary-sharded
+      embedding (zeros for tokens outside them), summed over the axis;
+    - :meth:`reduce`: the in-place sum of a row-parallel product's
+      partial (after ``wo`` and after ``w2``);
+    - :meth:`logits`: this rank's vocabulary columns of the head,
+      all-gathered along the last dim: whole on every rank, so each
+      rank's sampler draws the same token from the same generator.
+
+    An axis of size 1 without a group makes every call the identity.
+    """
+
+    def __init__(self, mesh: Mesh, axis: str = "tp") -> None:
+        self.group, self.size, self.index = _axis(mesh, axis)
+
+    def embed(self, embed, tokens: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        if self.group is None:
+            return qgather(embed, tokens, dtype)
+        rows = (embed["q"] if isinstance(embed, dict) else embed).shape[0]
+        idx = tokens - self.index * rows
+        keep = (idx >= 0) & (idx < rows)
+        x = qgather(embed, idx.clamp(0, rows - 1), dtype)
+        x = x * keep[..., None].to(dtype)
+        return self._sum(x)
+
+    def reduce(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        if self.group is not None:
+            self._sum(x)
+        return x
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """In-place all-reduce (staged through the host on ``gloo``)."""
+        if _staged(x, self.group):
+            host = x.cpu()
+            dist.all_reduce(host, group=self.group)
+            return x.copy_(host)
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return x
+        return _all_gather(x, x.ndim - 1, self.group,
+                           self.size).contiguous()

@@ -25,7 +25,7 @@ from typing import Any
 
 import torch
 
-from ..ops.quant import is_quantized
+from ..ops.quant import is_int4, is_quantized
 from .mesh import Mesh
 
 
@@ -69,6 +69,18 @@ def llama_param_specs(mesh: Mesh) -> dict:
     }
     specs["lm_head"] = P(None, tp)
     return specs
+
+
+def kv_cache_spec(mesh: Mesh) -> P:
+    """Dense caches and prompt-KV slabs ``[L, B, S, Hkv, hd]``: KV heads
+    over ``tp``, the rest replicated (JAX's ``_kv_sharding``)."""
+    return P(None, None, None, _axis(mesh.axis_names, "tp"), None)
+
+
+def kv_pool_spec(mesh: Mesh) -> P:
+    """Head-major page pools ``[L, Hkv, Np, pg, hd]`` (and an int8 pool's
+    scales ``[L, Hkv, Np, pg, 1]``): KV heads over ``tp``."""
+    return P(None, _axis(mesh.axis_names, "tp"))
 
 
 def moe_param_specs(mesh: Mesh) -> dict:
@@ -162,10 +174,19 @@ class Sharding:
 
 def shard_params(params: Any, mesh: Mesh, specs: Any) -> Any:
     """This rank's shard of a param tree per the spec tree, on the mesh's
-    device (a leaf's block copied out, so the full leaf can be freed)."""
+    device (a leaf's block copied out, so the full leaf can be freed).
+    Int4 codes are packed two per byte along K: a split of K must leave
+    each rank whole bytes."""
     specs = _match_specs(params, specs)
 
     def place(p, s):
+        if is_quantized(p) and is_int4(p):
+            try:
+                return {k: place(v, s[k]) for k, v in p.items()}
+            except ValueError as exc:
+                raise ValueError(f"int4 codes are packed two per byte "
+                                 f"along K, and a rank's block must be "
+                                 f"whole bytes: {exc}") from None
         if isinstance(p, dict):
             return {k: place(v, s[k]) for k, v in p.items()}
         return Sharding(mesh, s).shard(p)

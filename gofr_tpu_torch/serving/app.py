@@ -487,22 +487,24 @@ def serve_config(model_config: LlamaConfig, **overrides) -> EngineConfig:
 def build_engine(model_config: LlamaConfig, *,
                  device: str | torch.device | None = None, seed: int = 0,
                  engine_config: EngineConfig | None = None,
-                 quantize: str | None = None) -> Engine:
+                 quantize: str | None = None, mesh: Any = None) -> Engine:
     """An engine for ``model_config`` with random weights drawn from
-    ``seed`` on ``device`` (default: CUDA, or raise), quantized with
-    ``quantize`` (None, "int8", "int4"); ``engine_config`` defaults to
-    ``serve_config(model_config)``."""
-    dev = resolve_device(device)
+    ``seed`` on ``device`` (default: CUDA, or raise; with ``mesh`` the
+    mesh's device, every rank drawing the same weights before it keeps
+    its shards), quantized with ``quantize`` (None, "int8", "int4");
+    ``engine_config`` defaults to ``serve_config(model_config)``."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     params = llama_init(model_config, generator, dev)
     engine_config = engine_config or serve_config(model_config)
-    return llama_engine(params, model_config, engine_config, device=dev,
-                        quantize=quantize)
+    return llama_engine(params, model_config, engine_config,
+                        device=None if mesh is not None else dev,
+                        quantize=quantize, mesh=mesh)
 
 
 def app_engine(env: Mapping[str, str], *,
-               device: str | torch.device | None = None
+               device: str | torch.device | None = None, mesh: Any = None
                ) -> tuple[Engine, Any, str]:
     """(engine, tokenizer, model name) from the environment surface of
     ``examples/model-serving/main.py``, on ``device`` (default: CUDA, or
@@ -515,11 +517,13 @@ def app_engine(env: Mapping[str, str], *,
     tokenizer serves and nothing stops early: its eos id would alias an
     ordinary vocabulary id). Else ``MODEL_PRESET`` (default
     ``llama3_1b``), random weights from seed 0, the byte tokenizer,
-    ``MODEL_QUANT`` honoured the same way."""
+    ``MODEL_QUANT`` honoured the same way. ``mesh``: every rank of a
+    tensor-parallel mesh calls this alike and gets its rank's engine
+    (``llama_engine(mesh=)``); the leader's is the one to serve."""
     quantize = env.get("MODEL_QUANT", "") or None
     model_path = env.get("MODEL_PATH", "")
     if model_path:
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh.device
         dtype_name = env.get("MODEL_DTYPE", "")
         params, model_config = load_llama_checkpoint(
             model_path, quantize=quantize,
@@ -534,11 +538,13 @@ def app_engine(env: Mapping[str, str], *,
             eos_id = tokenizer.eos_id
         config = serve_config(model_config, max_seq=model_config.max_seq,
                               eos_id=eos_id)
-        return (llama_engine(params, model_config, config, device=dev),
+        return (llama_engine(params, model_config, config,
+                             device=None if mesh is not None else dev,
+                             mesh=mesh),
                 tokenizer, Path(model_path).name)
     preset = env.get("MODEL_PRESET", "llama3_1b")
     engine = build_engine(getattr(LlamaConfig, preset)(), device=device,
-                          quantize=quantize)
+                          quantize=quantize, mesh=mesh)
     return engine, ByteTokenizer(), preset
 
 
@@ -609,7 +615,13 @@ def build_server(engine: Engine, tokenizer: Any = None,
     ``server.metrics``, for :func:`build_metrics_server`), the logger (a
     JSON-lines one when None), the server's tracer and a
     ``DeviceRegistry`` of the engine's device (``server.devices``),
-    whose section joins the health route."""
+    whose section joins the health route. A tensor-parallel engine is
+    served by its mesh's leader rank (a follower's is refused: it serves
+    no HTTP), and the registry lists that rank's device."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.rank != mesh.leader:
+        raise ValueError(f"rank {mesh.rank} follows the mesh's leader "
+                         f"(rank {mesh.leader}): it serves no HTTP")
     tokenizer = tokenizer or ByteTokenizer()
     metrics = metrics if metrics is not None else Manager()
     logger = logger if logger is not None else Logger()
@@ -619,8 +631,9 @@ def build_server(engine: Engine, tokenizer: Any = None,
     server.logger = logger
     server.env = env
     server.metrics = metrics
-    server.devices = DeviceRegistry(logger=logger, metrics=metrics,
-                                    device=engine.device)
+    server.devices = DeviceRegistry(
+        logger=logger, metrics=metrics, device=engine.device,
+        rank=mesh.rank if mesh is not None else None)
     wire_engine(engine, name, metrics=metrics, logger=logger,
                 tracer=server.tracer, devices=server.devices, slo=slo)
     server.post("/chat", make_chat_handler(engine, tokenizer))

@@ -11,7 +11,10 @@ circuit breaker) from a heartbeat thread (:class:`WorkerAgent`).
 ``app.serve_fleet_leader`` and ``app.join_fleet`` wire both to a server.
 The data plane a rank feeds is ``torch.distributed``: an assignment's
 :meth:`ShardAssignment.dist_init_args` are the arguments of its
-``init_process_group``.
+``init_process_group``, and :func:`tp_engine` hands off from there to a
+``{"tp": world_size}`` mesh and the tensor-parallel engine on it (the
+JAX package's ``jax.distributed.initialize`` hand-off and its one SPMD
+program over both processes).
 
 Protocol (JSON over HTTP, the ``{"data": ...}`` envelope):
 
@@ -227,6 +230,28 @@ class ShardAssignment:
                 "n_devices": self.n_devices,
                 "generation": self.generation,
                 "coordinator": self.coordinator}
+
+
+def tp_engine(assignment: ShardAssignment, params: Any, model_config: Any,
+              engine_config: Any = None, *, device: Any = None,
+              backend: str | None = None, timeout_s: float = 600.0,
+              quantize: str | None = None):
+    """The hand-off from the control plane to tensor-parallel serving:
+    ``init_process_group(**assignment.dist_init_args())`` on ``device``
+    (``backend``: ``nccl`` for CUDA by default, ``gloo`` where ranks
+    share a card or run on the CPU; ``timeout_s`` bounds every
+    collective), a ``{"tp": world_size}`` mesh over the ranks, and
+    ``llama_engine(params, ..., mesh=)`` on it. Every rank calls this
+    with the same ``params``; rank 0 gets the engine to start and
+    serve, every other rank the one to pass to
+    ``serving.lockstep.follow``."""
+    from ..parallel.mesh import create_mesh, init_process_group
+    from .glue import llama_engine
+    init_process_group(device, timeout_s=timeout_s, backend=backend,
+                       **assignment.dist_init_args())
+    mesh = create_mesh({"tp": assignment.world_size})
+    return llama_engine(params, model_config, engine_config, mesh=mesh,
+                        quantize=quantize)
 
 
 @dataclass

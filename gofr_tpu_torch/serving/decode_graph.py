@@ -54,7 +54,11 @@ card: capture or replay raise, they do not fall back. The pools and the
 params are captured by address; a replay checks that they are still the
 tensors it captured. The sampled graph registers the engine's
 generator, so each replay draws fresh noise from it. On the CPU the same
-pass runs on the same buffers, uncaptured.
+pass runs on the same buffers, uncaptured; so it does on the card with
+``capture=False``, which a mesh whose device groups run ``gloo`` asks
+for (a ``gloo`` collective cannot be captured): the engine decides it
+from the mesh's backend, not from a failed capture. On ``nccl`` the
+captured pass holds the tp all-reduces.
 
 Dispatch and collect are split, so the host can schedule while a pass
 runs: ``launch`` replays and queues ``out`` into the next buffer of a
@@ -134,6 +138,8 @@ class DecodeGraph:
     windows: the decode windows (dense layouts); page_size and
         view_dtype: the view's table columns per window and the dtype a
         quantized pool's view dequantizes to.
+    capture: on CUDA, replay captured graphs (False: run the pass
+        uncaptured, as on the CPU).
     """
 
     def __init__(self, step_fn: Callable, params, *, rows: int,
@@ -142,7 +148,8 @@ class DecodeGraph:
                  generator: torch.Generator | None = None,
                  ring: int = 2, layout: str = "paged",
                  windows: tuple = (), page_size: int = 1,
-                 view_dtype: torch.dtype | None = None) -> None:
+                 view_dtype: torch.dtype | None = None,
+                 capture: bool = True) -> None:
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got "
                              f"{layout!r}")
@@ -158,6 +165,8 @@ class DecodeGraph:
         self.view_dtype = view_dtype
         self.device = torch.device(device)
         self.generator = generator
+        #: replay captured graphs (CUDA only); else run the pass as is
+        self.capture = capture and self.device.type == "cuda"
         dev, pin = self.device, self.device.type == "cuda"
         shapes = {"tables": (rows, max_pages)}
         fills = {"top_ps": 1, "tables": n_pages}
@@ -285,9 +294,12 @@ class DecodeGraph:
                 f"launching another")
         host = self._ring[handle]
         key = (window, all_greedy)
-        if self.device.type == "cpu":
+        if not self.capture:
             self.body(k_pool, v_pool, all_greedy, window)
-            host.copy_(self.out)
+            cuda = self.device.type == "cuda"
+            host.copy_(self.out, non_blocking=cuda)
+            if cuda:
+                self._ring_events[handle].record()
         else:
             graph = self._graphs.get(key)
             if graph is None:
@@ -333,8 +345,8 @@ class DecodeGraph:
         """Make every pass ready ahead of traffic with every row
         inactive (paged: every K/V write drops; dense: every row parked
         at ``max_seq``, so every write drops too): on CUDA capture the
-        greedy and the sampled graph of each window, on the CPU run each
-        pass once. The state buffers and the generator are left as they
+        greedy and the sampled graph of each window, on the CPU (or
+        uncaptured) run each pass once. The state buffers and the generator are left as they
         were."""
         saved = self.save()
         self.active.zero_()
@@ -342,7 +354,7 @@ class DecodeGraph:
             self.lengths.fill_(self.max_seq)
         for window in (0, *self.windows):
             for all_greedy in (True, False):
-                if self.device.type == "cpu":
+                if not self.capture:
                     self.body(k_pool, v_pool, all_greedy, window)
                 elif (window, all_greedy) not in self._graphs:
                     self._capture(k_pool, v_pool, all_greedy, window)

@@ -197,6 +197,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.paged_kv import (KV_DTYPES, gather_view, pool_move_rows,
                             pool_row_bytes, scatter_chunk_kv,
@@ -207,6 +208,7 @@ from .decode_graph import DecodeGraph
 from .events import IncidentDetector, resolve_ledger
 from .faults import NO_FAULTS, resolve_plan
 from .integrity import GoldenSet, IntegrityPlane
+from .lockstep import Lockstep
 from .observability import (FlightRecorder, GoodputMeter, ProfilerCapture,
                             RecompileSentinel, StallWatchdog, UsageLedger,
                             WatermarkTracker, WorkloadRecorder,
@@ -563,6 +565,16 @@ class Engine:
         ``logger.Logger`` for the WARNs and the flight recorder's dumps;
         tracer: a ``tracing.Tracer`` for the requests' ``engine.*`` spans
         and the watchdog's ``engine.stall`` span (None: no spans).
+    mesh: a tensor-parallel ``parallel.mesh.Mesh`` whose ranks each run
+        this engine on their shards (``glue.llama_engine(mesh=)``). With
+        more than one rank the mesh's leader broadcasts every device
+        operation (an ``_op_<code>`` method) before it runs it
+        (``serving/lockstep.py``) and the other ranks' engines are driven
+        by ``lockstep.follow``, never started; on ``gloo`` device groups,
+        which a graph cannot hold, the decode dispatch runs uncaptured;
+        a page's bytes in the ``kv_pool_bytes`` budget are this rank's
+        page times ``tp``, so every rank sizes the pool as the unsharded
+        engine does. None: one device.
     """
 
     def __init__(self, params: Any, config: EngineConfig, *,
@@ -576,7 +588,7 @@ class Engine:
                  spec_verify_fn: Callable | None = None,
                  flops_per_token: Callable[[int], float] | None = None,
                  metrics: Any = None, logger: Any = None,
-                 tracer: Any = None) -> None:
+                 tracer: Any = None, mesh: Any = None) -> None:
         cfg = config
         if cfg.page_size < 1 or cfg.max_batch < 1 or cfg.max_seq < 2:
             raise ValueError("page_size, max_batch >= 1 and max_seq >= 2 "
@@ -632,6 +644,14 @@ class Engine:
         self.device = torch.device(device)
         self.vocab_size = vocab_size
         self._prefill_fn = prefill_fn
+        self.mesh = mesh
+        #: this rank's tp collectives (``glue.llama_engine(mesh=)``)
+        self.tp = None
+        self._lockstep = (Lockstep(mesh) if mesh is not None
+                          and mesh.control is not None
+                          and dist.get_world_size(mesh.control) > 1
+                          else None)
+        self._kv_shards = mesh.size("tp") if mesh is not None else 1
         self._decode_fn = paged_decode_fn if self._native else decode_fn
         self._chunk_fn = paged_chunk_fn if self._native else prefill_chunk_fn
         self._verify_fn = paged_verify_fn if self._native else spec_verify_fn
@@ -724,7 +744,8 @@ class Engine:
             layout=("paged" if self._native
                     else "view" if self._paged else "slot"),
             windows=self._decode_windows, page_size=pg,
-            view_dtype=self._view_dtype)
+            view_dtype=self._view_dtype,
+            capture=mesh is None or mesh.backend != "gloo")
         #: the device copies of the scheduler arrays / tables are stale
         self._sched_dirty = True
         self._tables_dirty = True
@@ -900,7 +921,7 @@ class Engine:
 
         def page_bytes(kv_dtype):
             k_probe, _ = self._make_cache(1, page, kv_dtype)
-            return 2 * page * pool_row_bytes(k_probe)
+            return 2 * page * pool_row_bytes(k_probe) * self._kv_shards
 
         budget = (cfg.kv_pool_bytes if cfg.kv_pool_bytes is not None
                   else base_pages * page_bytes("bf16"))
@@ -911,9 +932,18 @@ class Engine:
         """Start (or restart) the engine thread, and the stall watchdog.
         After a stop or a terminal crash the runtime state is rebuilt
         first (``_reset_runtime_state``) on the resident weights, pools
-        and captured graphs, and the queue reopens."""
+        and captured graphs, and the queue reopens. A mesh engine starts
+        on its leader rank only, and once: its followers were released
+        at the stop."""
         if self._running:
             return
+        if self._lockstep is not None:
+            if not self._lockstep.leader:
+                raise RuntimeError("a follower rank of a mesh engine runs "
+                                   "lockstep.follow(engine), not start()")
+            if self._lockstep.released:
+                raise RuntimeError("a mesh engine does not restart: its "
+                                   "followers were released at the stop")
         if self._cleaned:
             self._reset_runtime_state()
             self._cleaned = False
@@ -932,7 +962,8 @@ class Engine:
     def stop(self, join_timeout_s: float = 30.0) -> None:
         """Stop the watchdog, then the thread once its iteration ends (a
         pass in flight is collected and its tokens emitted first);
-        queued and active requests fail with "engine stopped"."""
+        queued and active requests fail with "engine stopped". A mesh
+        engine then releases its followers."""
         watchdog, self._watchdog = self._watchdog, None
         if watchdog is not None:
             watchdog.stop()
@@ -945,6 +976,8 @@ class Engine:
                                    f"{join_timeout_s} s")
         if not self._cleaned:
             self._shutdown_cleanup("engine stopped")
+        if self._lockstep is not None:
+            self._lockstep.release()
 
     def close(self) -> None:
         """The app's shutdown: stop without waiting long for a pass."""
@@ -982,6 +1015,16 @@ class Engine:
         dispatch and its tokens in flight are discarded."""
         req.cancelled = True
 
+    def _op(self, code: str, *args):
+        """Run the device operation ``_op_<code>(*args)``; on a mesh's
+        leader broadcast it to the followers first (``lockstep.py``)."""
+        if self._lockstep is not None:
+            if not self._lockstep.leader:
+                raise RuntimeError("a follower rank runs its operations "
+                                   "through lockstep.follow(engine)")
+            self._lockstep.send(code, args)
+        return getattr(self, f"_op_{code}")(*args)
+
     def warmup(self, prompt_lens: tuple = (1,), decode: bool = True,
                chunked: bool = False) -> float:
         """Run the serving shapes once ahead of traffic, before
@@ -1000,9 +1043,14 @@ class Engine:
         per token at the full decode graph's context (a slot's whole
         table, ``pages_per_slot x page_size`` rows, or ``max_seq`` on the
         slot layout) and the card's peak. Returns the seconds it
-        took."""
+        took. On a mesh every rank runs it (one operation)."""
         if self._running:
             raise RuntimeError("warmup runs before start()")
+        return self._op("warmup", tuple(int(n) for n in prompt_lens),
+                        bool(decode), bool(chunked))
+
+    def _op_warmup(self, prompt_lens: tuple, decode: bool,
+                   chunked: bool) -> float:
         cfg = self.config
         t0 = time.perf_counter()
         generator = self._generator.get_state()
@@ -1454,7 +1502,8 @@ class Engine:
         ``engine_restart`` reject (503 + Retry-After); a cancelled one
         closes."""
         policy = self.config.restart_policy
-        if policy is None or not self._running:
+        if policy is None or not self._running or self._lockstep is not None:
+            # a mesh rank's state cannot be rebuilt alone
             return False
         if self._restarts >= policy.max_restarts:
             self.incidents.trigger(
@@ -1544,6 +1593,8 @@ class Engine:
             self.logger.error(f"engine loop crashed: {exc!r}")
             self.recorder.dump(self.logger, reason=self._failed)
         self._shutdown_cleanup(f"engine crashed: {self._failed}")
+        if self._lockstep is not None:
+            self._lockstep.release("abort")
 
     def _admit(self) -> None:
         """One admission round: the requeued lane goes first (mid-walk
@@ -2058,7 +2109,9 @@ class Engine:
             return tensor
         return tensor.pin_memory().to(self.device, non_blocking=True)
 
-    def _row_params(self, reqs: list, n: int):
+    def _row_arrays(self, reqs: list, n: int) -> tuple:
+        """The sampling parameters of ``n`` rows (pad rows greedy) as host
+        arrays: (temps, top_ps, top_ks)."""
         temps = np.zeros(n, np.float32)
         top_ps = np.ones(n, np.float32)
         top_ks = np.zeros(n, np.int64)
@@ -2066,7 +2119,7 @@ class Engine:
             temps[row] = req.params.temperature
             top_ps[row] = req.params.top_p
             top_ks[row] = req.params.top_k
-        return self._upload(temps), self._upload(top_ps), self._upload(top_ks)
+        return temps, top_ps, top_ks
 
     def _prefill_group(self, bucket: int, chunk: list[GenRequest]) -> None:
         """Place each request of ``chunk`` in a free slot, on the paged
@@ -2116,18 +2169,12 @@ class Engine:
         self.goodput.note_dispatch(t0)
         wall0 = time.time()
         try:
-            kv_len_t = self._upload(kv_len)
-            tables_t = self._upload(tables) if self._paged else None
-            temps, top_ps, top_ks = self._row_params(placed, p)
-            logits, (k, v) = self._prefill_fn(
-                self.params, self._upload(tokens), kv_len_t)
-            toks = sample_batch(logits, temps, top_ps, top_ks,
-                                generator=self._generator,
-                                all_greedy=_all_greedy(placed))
-            self._write_prompt(k, v, kv_len_t, tables_t,
-                               [r.slot for r in placed])
-            first, ready = self._to_host(toks)
+            first, ready = self._op(
+                "prefill", tokens, kv_len, tables, [r.slot for r in placed],
+                self._row_arrays(placed, p), _all_greedy(placed))
         except Exception as exc:  # noqa: BLE001 — fail this group only
+            if self._lockstep is not None:
+                raise                        # the ranks are out of step
             for req in placed:
                 self.active[req.slot] = None
                 self._release_pages(req.slot)
@@ -2146,6 +2193,23 @@ class Engine:
             "slots": [r.slot for r in placed],
             "epochs": [r.prefill_epoch for r in placed], "t0": t0,
             "wall0": wall0, "bucket": bucket, "group": p})
+
+    def _op_prefill(self, tokens: np.ndarray, kv_len: np.ndarray,
+                    tables: np.ndarray, slots: list[int], row_arrays: tuple,
+                    all_greedy: bool):
+        """A group prefill on the device: the ``[P, S]`` prefill, its
+        first tokens' sampling, the prompt's K/V written
+        (``_write_prompt``) and the tokens queued to pinned host memory
+        behind an event -> (host tokens, event)."""
+        kv_len_t = self._upload(kv_len)
+        tables_t = self._upload(tables) if self._paged else None
+        temps, top_ps, top_ks = (self._upload(a) for a in row_arrays)
+        logits, (k, v) = self._prefill_fn(self.params, self._upload(tokens),
+                                          kv_len_t)
+        toks = sample_batch(logits, temps, top_ps, top_ks,
+                            generator=self._generator, all_greedy=all_greedy)
+        self._write_prompt(k, v, kv_len_t, tables_t, slots)
+        return self._to_host(toks)
 
     def _write_prompt(self, k: torch.Tensor, v: torch.Tensor,
                       kv_len: torch.Tensor, tables: torch.Tensor,
@@ -2365,6 +2429,8 @@ class Engine:
                             self._chunk_call(width, ready)
                             dispatched = []
         except Exception as exc:  # noqa: BLE001 — fail this call only
+            if self._lockstep is not None:
+                raise                        # the ranks are out of step
             # the rows of the failing call fail; walkers outside it keep
             # their state and requeue below
             for r in (dispatched or [w for w in walkers if owns_slot(w)
@@ -2407,14 +2473,9 @@ class Engine:
         c0 = time.perf_counter()
         self.goodput.note_dispatch(c0)
         w0 = time.time()
-        temps, top_ps, top_ks = self._row_params(group, g)
-        logits = self._run_chunk(
-            self._upload(tokens), [r.slot for r in group],
-            self._upload(tables), self._upload(offsets), self._upload(lens),
-            window)
-        toks = sample_batch(logits, temps, top_ps, top_ks,
-                            generator=self._generator,
-                            all_greedy=_all_greedy(group))
+        toks = self._op("chunk", tokens, [r.slot for r in group], tables,
+                        offsets, lens, window, self._row_arrays(group, g),
+                        _all_greedy(group))
         self.stats["prefill_calls"] += 1
         # the host span of the launch, as the JAX engine bills a chunk
         # dispatch (its first tokens' readout below is not in it)
@@ -2449,6 +2510,19 @@ class Engine:
                 if first is None:            # the walk's collect
                     first = toks.cpu().numpy()
                 self._first_token(req, int(first[row]))
+
+    def _op_chunk(self, tokens: np.ndarray, slots: list[int],
+                  tables: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
+                  window: int, row_arrays: tuple,
+                  all_greedy: bool) -> torch.Tensor:
+        """One chunk call on the device (``_run_chunk``) and the sampling
+        of its rows -> the sampled tokens [G] on the device."""
+        temps, top_ps, top_ks = (self._upload(a) for a in row_arrays)
+        logits = self._run_chunk(
+            self._upload(tokens), slots, self._upload(tables),
+            self._upload(offsets), self._upload(lens), window)
+        return sample_batch(logits, temps, top_ps, top_ks,
+                            generator=self._generator, all_greedy=all_greedy)
 
     def _chunk_window(self, needed: int, width: int) -> int:
         """The view's chunk window (the JAX engine's rule): the largest
@@ -2549,6 +2623,24 @@ class Engine:
             dense_move_rows(v, offsets, path, n_acc)
             self._dense_write_back(k, v, slots, tables, offsets, width)
         return n_acc, bonus, path
+
+    def _op_verify(self, tokens: np.ndarray, parents: np.ndarray,
+                   depths: np.ndarray, masks: np.ndarray, slots: list[int],
+                   tables: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
+                   row_arrays: tuple) -> np.ndarray:
+        """A speculative pass on the device (``_verify_and_compact``) ->
+        its host result [B, 2 + W]: accepted depth, bonus token, path
+        (checked across the ranks of a mesh)."""
+        up = self._upload
+        n_acc, bonus, path = self._verify_and_compact(
+            up(tokens), up(parents), up(depths), up(masks), slots,
+            up(tables), up(offsets), up(lens),
+            tuple(up(a) for a in row_arrays))
+        out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
+                        1).cpu().numpy()
+        if self._lockstep is not None:
+            self._lockstep.check(out)
+        return out
 
     # -------------------------------------------------------------- decode
     def _finished(self, req: GenRequest, token: int) -> bool:
@@ -2654,15 +2746,19 @@ class Engine:
             arrays["temps"][i] = req.params.temperature
             arrays["top_ps"][i] = req.params.top_p
             arrays["top_ks"][i] = req.params.top_k
-        self._note_uploads(self._decode_graph.upload(**arrays))
+        self._note_uploads(self._op("upload", arrays))
         self.stats["sched_syncs"] += 1
         self._sched_dirty = False
 
     def _sync_tables(self) -> None:
         """Upload the block tables, only when a page was allocated,
         released or attached since the last upload."""
-        self._note_uploads(self._decode_graph.upload(tables=self._tables))
+        self._note_uploads(self._op("upload", {"tables": self._tables}))
         self._tables_dirty = False
+
+    def _op_upload(self, arrays: dict) -> int:
+        """Host arrays into the decode graph's buffers (``upload``)."""
+        return self._decode_graph.upload(**arrays)
 
     def _note_uploads(self, n: int) -> None:
         """Host-to-device uploads by the decode path (event-driven: none
@@ -2717,9 +2813,9 @@ class Engine:
         self.lengths += valid
         start = time.perf_counter()
         self.goodput.note_dispatch(start)
-        handle = self._decode_graph.launch(
-            self.k_cache, self.v_cache,
-            _all_greedy([r for r, m in zip(reqs, mask) if m]), window)
+        handle = self._op("launch",
+                          _all_greedy([r for r, m in zip(reqs, mask) if m]),
+                          window)
         self._note_graph_stats()
         self._dev_last_reqs = [r if m else None for r, m in zip(reqs, mask)]
         disp = time.perf_counter() - host0
@@ -2728,6 +2824,19 @@ class Engine:
                               "window": window,
                               "h2d": self.stats["h2d_transfers"] - h2d0})
         self.stats["dispatch_s"] += disp
+
+    def _op_launch(self, all_greedy: bool, window: int) -> int:
+        """Start one decode dispatch (``DecodeGraph.launch``)."""
+        return self._decode_graph.launch(self.k_cache, self.v_cache,
+                                         all_greedy, window)
+
+    def _op_collect(self, handle: int) -> np.ndarray:
+        """Wait for a dispatch's tokens [T, rows] (``DecodeGraph.collect``),
+        checked across the ranks of a mesh."""
+        out = self._decode_graph.collect(handle)
+        if self._lockstep is not None:
+            self._lockstep.check(out)
+        return out
 
     def _pick_window(self, needed: int) -> int:
         """The smallest decode window that covers ``needed`` rows (every
@@ -2745,7 +2854,7 @@ class Engine:
             # a pass is in flight: its tokens are lost with the engine
             self.faults.trip("nan_logits")
         rec = self._pending.popleft()
-        out = self._decode_graph.collect(rec["handle"])
+        out = self._op("collect", rec["handle"])
         end = time.perf_counter()
         busy = end - max(rec["t0"], self._decode_busy_until)
         self._decode_busy_until = end
@@ -2923,7 +3032,6 @@ class Engine:
         masks = np.ones((n, width), np.int64)
         chunk_lens = np.ones(n, np.int32)
         for j, (slot, req) in enumerate(zip(rows, reqs)):
-            tokens[j, 0] = req.generated[-1]
             tree = trees.get(slot)
             if tree is not None:
                 m = tree.n_nodes
@@ -2932,24 +3040,21 @@ class Engine:
                 depths[j, :m] = tree.depths
                 masks[j, :m] = tree.masks
                 chunk_lens[j] = m
+            # the root is the stream's last token as it stands after the
+            # drain: a tree drafted while a decode dispatch was in flight
+            # was rooted at an older one, which the verify pass would
+            # write at this row's position (its drafts stay: the verify
+            # accepts only what the model would have decoded)
+            tokens[j, 0] = req.generated[-1]
         self._note_dispatch_shape("spec_verify", width)
         t0 = time.perf_counter()
         self.goodput.note_dispatch(t0)
         w0 = time.time()
-        temps, top_ps, top_ks = self._row_params(reqs, n)
-        tables = self._upload(self._tables[rows])
-        offsets = self._upload(self.lengths[rows].copy())
-        lens_t = self._upload(chunk_lens)
-        tokens_t = self._upload(tokens)
-        parents_t = self._upload(parents)
-        depths_t = self._upload(depths)
         # the 32-bit ancestor masks travel as int32 bit patterns
-        masks_t = self._upload(masks.astype(np.uint32).view(np.int32))
-        n_acc, bonus, path = self._verify_and_compact(
-            tokens_t, parents_t, depths_t, masks_t, rows, tables, offsets,
-            lens_t, (temps, top_ps, top_ks))
-        out = torch.cat([n_acc[:, None], bonus[:, None].long(), path],
-                        1).cpu().numpy()
+        out = self._op("verify", tokens, parents, depths,
+                       masks.astype(np.uint32).view(np.int32), rows,
+                       self._tables[rows], self.lengths[rows].copy(),
+                       chunk_lens, self._row_arrays(reqs, n))
         dur = time.perf_counter() - t0
         w1 = time.time()
         self.stats["spec_passes"] += 1

@@ -1,14 +1,16 @@
 """Model -> Engine glue (counterpart of ``gofr_tpu/serving/glue.py``'s
-``llama_engine`` and ``demo_llama_engine``, single device, on every
-layout, and its ``moe_engine``, on the slot layout or through the paged
-pool's view)."""
+``llama_engine`` and ``demo_llama_engine``, on one device or, with
+``mesh=``, on a tensor-parallel mesh of ranks, on every layout, and its
+``moe_engine``, on the slot layout or through the paged pool's view)."""
 
 from __future__ import annotations
 
+from dataclasses import replace
 from functools import partial
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, llama_decode_flops,
@@ -20,13 +22,16 @@ from ..models.moe import (MoEConfig, moe_decode_flops, moe_decode_step,
                           moe_prefill_last)
 from ..ops.quant import (M_MAX, is_quantized, quantize_llama_int4,
                          quantize_llama_int8)
+from ..parallel.comm import TensorParallel
+from ..parallel.sharding import (Sharding, kv_cache_spec, kv_pool_spec,
+                                 llama_param_specs, shard_params)
 from .engine import Engine, EngineConfig
 
 
 def llama_engine(params: Any, model_config: LlamaConfig,
                  engine_config: EngineConfig | None = None, *,
                  device: str | torch.device | None = None,
-                 quantize: str | None = None) -> Engine:
+                 quantize: str | None = None, mesh: Any = None) -> Engine:
     """An engine serving ``params`` on ``device`` (default: CUDA, or
     raise), on every layout: bucketed prefill through
     ``llama_prefill_last`` (the flash kernel); on the paged layout,
@@ -50,11 +55,33 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     quantize=)``) serves with ``quantize=None``. With quantized weights
     the decode step's and the tree verify's products must fit the
     weight-dequantizing kernel (:func:`kernel_rows` <= ``M_MAX``), or
-    this raises."""
+    this raises.
+
+    ``mesh=`` (``parallel.mesh.create_mesh``): serve on a tensor-parallel
+    mesh, as JAX's ``llama_engine(mesh=)``. Every rank of the mesh calls
+    this with the same whole ``params`` (on the CPU or on its device)
+    and arguments: the tree is quantized first when asked, then cut to
+    this rank's shards (``shard_params(llama_param_specs(mesh))``) on
+    the mesh's device; the caches hold this rank's ``Hkv / tp`` KV heads
+    (dense caches ``[L, B, S, Hkv/tp, hd]``, pools ``[L, Hkv/tp, Np, pg,
+    hd]``); the steps run their tp forms (``models/llama.py``), with the
+    all-reduces after ``wo`` and ``w2`` and the logits whole on every
+    rank. As in JAX no native paged function is passed on a mesh, so the
+    paged layout serves through the pool's dense view. ``dp`` ranks hold
+    replicas of their ``tp`` line and run the same operations; ``pp``
+    and ``sp`` above 1 are refused. The mesh's leader rank returns the
+    serving engine (``start()``, ``submit``); every other rank's engine
+    runs ``serving.lockstep.follow(engine)``. On an ``nccl`` mesh the
+    decode dispatch is a captured CUDA graph holding the all-reduces; on
+    ``gloo`` (ranks sharing one card) it runs uncaptured."""
     if quantize is not None and quantize not in ("int8", "int4"):
         raise ValueError(f"quantize must be None, 'int8' or "
                          f"'int4', got {quantize!r}")
-    dev = _device_of(params, device)
+    tp = None
+    if mesh is None:
+        dev = _device_of(params, device)
+    else:
+        dev, tp = _mesh_device(mesh, model_config, device)
     engine_config = engine_config or EngineConfig()
     rows = kernel_rows(engine_config)
     if (quantize is not None or is_quantized(params["layers"]["wq"])) \
@@ -67,6 +94,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
         params = (quantize_llama_int8(params) if quantize == "int8"
                   else quantize_llama_int4(params))
     c = model_config
+    if mesh is not None:
+        return _mesh_engine(params, c, engine_config, mesh, dev, tp)
 
     def prefill_fn(params, tokens, kv_lengths):
         return llama_prefill_last(params, tokens, c, kv_lengths=kv_lengths)
@@ -114,6 +143,71 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                   make_cache=partial(_make_cache, c, dev), device=dev,
                   vocab_size=c.vocab_size,
                   flops_per_token=partial(llama_decode_flops, c))
+
+
+def _mesh_device(mesh: Any, c: LlamaConfig, device) -> tuple:
+    """(this rank's device, its ``TensorParallel``) for a serving mesh,
+    or raise: a rank outside the mesh, ``pp`` / ``sp`` above 1, KV heads
+    that do not split over ``tp``, a ``device`` other than the mesh's."""
+    for axis in ("pp", "sp"):
+        if mesh.size(axis) > 1:
+            raise ValueError(
+                f"llama_engine(mesh=): serving runs tp (and dp replicas); "
+                f"{axis} = {mesh.size(axis)} is not served (pipeline and "
+                f"sequence-parallel serving are not implemented)")
+    if mesh.rank is None:
+        raise ValueError(f"this rank is outside the mesh {mesh.shape}")
+    tp = mesh.size("tp")
+    if c.n_kv_heads % tp or c.n_heads % tp:
+        raise ValueError(f"{c.n_heads} query / {c.n_kv_heads} KV heads do "
+                         f"not split over tp = {tp}")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"the mesh's device is {mesh.device}, the engine "
+                         f"was asked to run on {device}")
+    return mesh.device, TensorParallel(mesh)
+
+
+def _mesh_engine(params: Any, c: LlamaConfig, engine_config: EngineConfig,
+                 mesh: Any, dev: torch.device, tp: TensorParallel) -> Engine:
+    """The tp engine of ``llama_engine(mesh=)`` on this rank's shards."""
+    params = shard_params(params, mesh, llama_param_specs(mesh))
+    size = mesh.size("tp")
+    if tp.group is not None and mesh.backend == "nccl":
+        # NCCL makes its communicator at the first collective, which must
+        # not be inside a graph capture
+        dist.all_reduce(torch.zeros(1, device=dev), group=tp.group)
+
+    def prefill_fn(params, tokens, kv_lengths):
+        return llama_prefill_last(params, tokens, c, kv_lengths=kv_lengths,
+                                  tp=tp)
+
+    def decode_fn(params, tokens, k_cache, v_cache, lengths,
+                  attn_window=None):
+        return llama_decode_step(params, tokens, k_cache, v_cache, lengths,
+                                 c, attn_window=attn_window, tp=tp)
+
+    def prefill_chunk_fn(params, tokens, k_cache, v_cache, offsets,
+                         chunk_lengths):
+        return llama_prefill_chunk(params, tokens, k_cache, v_cache, offsets,
+                                   chunk_lengths, c, tp=tp)
+
+    def spec_verify_fn(params, tokens, k_cache, v_cache, offsets,
+                       chunk_lengths, tree_depths=None, tree_masks=None):
+        return llama_prefill_chunk(
+            params, tokens, k_cache, v_cache, offsets, chunk_lengths, c,
+            return_all_logits=True, tree_depths=tree_depths,
+            tree_masks=tree_masks, tp=tp)
+
+    engine = Engine(params, engine_config, prefill_fn=prefill_fn,
+                    decode_fn=decode_fn, prefill_chunk_fn=prefill_chunk_fn,
+                    spec_verify_fn=spec_verify_fn,
+                    make_cache=partial(_make_cache, c, dev, mesh=mesh),
+                    device=dev,
+                    vocab_size=c.vocab_size,
+                    flops_per_token=lambda n: llama_decode_flops(c, n) / size,
+                    mesh=mesh)
+    engine.tp = tp
+    return engine
 
 
 def demo_llama_engine(engine_config: EngineConfig | None = None,
@@ -169,11 +263,21 @@ def moe_engine(params: Any, model_config: MoEConfig,
 
 
 def _make_cache(c: LlamaConfig, dev: torch.device, n: int, rows: int,
-                kv_dtype: str = "bf16", head_major: bool = True):
+                kv_dtype: str = "bf16", head_major: bool = True, *,
+                mesh: Any = None):
     """The engine's ``make_cache``: a head-major pool of ``n`` pages of
     ``rows`` rows each in ``kv_dtype`` (``make_pool``), or with
     ``head_major=False`` the slot layout's dense caches, ``n`` slots of
-    ``rows`` rows (``make_empty_cache``)."""
+    ``rows`` rows (``make_empty_cache``). On a ``mesh``: this rank's
+    block of the KV heads, as ``kv_pool_spec`` / ``kv_cache_spec`` place
+    them (each rank allocates its own block; no whole cache exists)."""
+    if mesh is not None:
+        spec, dim = ((kv_pool_spec(mesh), 1) if head_major
+                     else (kv_cache_spec(mesh), 3))
+        shape = [1] * 5
+        shape[dim] = c.n_kv_heads
+        heads = Sharding(mesh, spec).index(shape)[dim]
+        c = replace(c, n_kv_heads=heads.stop - heads.start)
     if head_major:
         return make_pool(c, n, rows, dev, kv_dtype)
     return make_empty_cache(c, n, rows, dev)

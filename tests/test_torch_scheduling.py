@@ -53,6 +53,7 @@ from gofr_tpu_torch.ops.paged_kv import pool_row_bytes
 from gofr_tpu_torch.serving.app import build_engine
 from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
 from gofr_tpu_torch.serving.glue import llama_engine
+from .torch_parity import root_trees_at_the_current_token
 
 torch.set_num_threads(2)
 
@@ -141,11 +142,11 @@ def _against_jax(prompts, n_new, *, jax_attention="xla", **common):
     digests, preemptions, requeues and the port's books."""
     jparams, tparams = _converted_tiny()
     common = dict(seed=0, page_size=PAGE, **common)
-    jeng = _fold_once(jax_llama_engine(
+    jeng = root_trees_at_the_current_token(_fold_once(jax_llama_engine(
         jparams, JaxLlamaConfig.tiny(),
         JaxEngineConfig(kv_layout="paged", paged_attention=jax_attention,
                         compile_cache_dir=None, **common),
-        implementation="xla"))
+        implementation="xla")))
     teng = llama_engine(tparams, LlamaConfig.tiny(), EngineConfig(**common),
                         device="cpu")
     assert teng._n_pages == jeng._n_pages
@@ -257,6 +258,21 @@ def test_speculative_dry_pool_matches_the_jax_engine(depth):
     for key in ("spec_passes", "spec_drafted", "spec_accepted"):
         assert teng.stats[key] == jeng.stats[key], key
     assert teng.stats["spec_drafted"] > 0
+    # greedy speculation reproduces plain greedy decoding: the wrapped
+    # reference's tokens are those of the unwrapped JAX engine without
+    # speculation, on a pool that never preempts
+    jparams, _ = _converted_tiny()
+    plain = _serve_queued(jax_llama_engine(
+        jparams, JaxLlamaConfig.tiny(),
+        JaxEngineConfig(kv_layout="paged", paged_attention="xla",
+                        compile_cache_dir=None, seed=0, page_size=PAGE,
+                        max_batch=4, max_seq=128, decode_steps_per_pass=4,
+                        prefix_cache=False, kv_pages=64,
+                        pipeline_depth=depth),
+        implementation="xla"), prompts, JaxSamplingParams(
+            temperature=0.0, max_new_tokens=24))
+    assert jeng.stats["preemptions"] > 0
+    assert [r.generated for r in want] == [r.generated for r in plain]
 
 
 def test_repeated_preemption_keeps_the_unpreempted_tokens():

@@ -170,3 +170,27 @@ class AppThread:
         if self._thread.is_alive() and not stopped:
             self.call(self.app.stop(), 30.0)
         self._thread.join(30.0)
+
+
+def root_trees_at_the_current_token(jeng):
+    """Wrap the JAX engine's ``_spec_pass`` so that each draft tree is
+    rooted at its stream's last token as it stands once the decode
+    dispatches in flight are collected. The JAX engine drafts while a
+    dispatch is in flight and drains only inside ``_spec_pass``, so
+    with ``pipeline_depth`` 1 it roots a tree at the token from before
+    that dispatch and feeds it at the row's current position: its greedy
+    tokens then leave the model's (ROADMAP Queue C, "Reference-side
+    failures"). The port roots the tree after the drain; parity runs
+    hold it to the repaired reference. Drafts stay as drafted."""
+    inner = jeng._spec_pass
+
+    def spec_pass(proposals):
+        jeng._drain_pending()
+        for i, tree in proposals.items():
+            req = jeng.active[i]
+            if req is not None and hasattr(tree, "tokens"):
+                tree.tokens[0] = req.generated[-1]
+        return inner(proposals)
+
+    jeng._spec_pass = spec_pass
+    return jeng
