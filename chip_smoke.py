@@ -10224,8 +10224,9 @@ def _wire_health_faults(health: tuple, sql_details: dict,
 
 
 def _wire_stop_faults(stopped: dict) -> list:
-    """(f): after ``App.stop`` no connection is open to the Kafka,
-    Postgres and redis Mini servers, and the engine is stopped."""
+    """After ``App.stop`` no connection is open to a Mini server
+    (``stopped["open"]``: serve_wire's (f), serve_stores' (e)), and the
+    engine is stopped."""
     out = [f"{name}: {n} open" for name, n in stopped["open"].items() if n]
     if stopped["engine_running"]:
         out.append("engine running")
@@ -10871,6 +10872,836 @@ def phase_serve_wire(dev, smi_line: str, cfg=None) -> dict:
                              f"faults that passed: "
                              f"{[k for k, v in planted.items() if not v]}")
     return out["launches"]
+
+
+# ----------------------------------------------------------- serve_stores
+STORES_USERS = ("ada", "grace", "alan", "edsger")
+STORES_USER, STORES_PW = "gofr", "store-secret"
+#: the object stores' credentials (S3's SigV4 pair, GCS's bearer token,
+#: Azure's SharedKey account key, base64)
+STORES_AK, STORES_SK = "smoke-access", "smoke-secret"
+STORES_TOKEN = "smoke-token"
+STORES_AZ_KEY = "c21va2UtYWNjb3VudC1rZXk="
+#: the stores a handler writes each answer to, in order
+STORES_MAIN = ("mongo", "cassandra", "clickhouse", "elasticsearch", "s3",
+               "influxdb", "dgraph")
+#: the other wire clients, each given one answer to keep
+STORES_OTHER = ("solr", "couchbase", "scylladb", "arangodb", "surrealdb",
+                "opentsdb", "gcs", "azure_blob", "dynamo")
+
+
+class _S3Engine:
+    """The object engine an ``S3FileSystem`` reads and writes through
+    (``put``, ``get``, ``delete``, ``list``, ``exists``, ``stats``), over
+    an ``S3Wire``: ``ctx.file`` keeps its objects in S3 over SigV4. The
+    file system's bucket is the wire client's."""
+
+    def __init__(self, wire) -> None:
+        self.wire = wire
+
+    def put(self, bucket: str, key: str, data: bytes) -> None:
+        self.wire.put_object(key, data)
+
+    def get(self, bucket: str, key: str) -> bytes:
+        return self.wire.get_object(key)
+
+    def delete(self, bucket: str, key: str) -> bool:
+        if not self.wire.exists(key):
+            return False
+        self.wire.delete_object(key)
+        return True
+
+    def list(self, bucket: str, prefix: str = "") -> list:
+        return [(o["Key"], o["Size"], 0.0)
+                for o in self.wire.list_objects(prefix)]
+
+    def exists(self, bucket: str, key: str) -> bool:
+        return self.wire.exists(key)
+
+    def stats(self) -> dict:
+        return {"objects": len(self.wire.list_objects())}
+
+
+def _stores_migrations(fail: bool = False) -> dict:
+    """Version 1 makes the ``answers`` tables in Cassandra and ClickHouse
+    and a schema document in Mongo, version 2 bumps the document; with
+    ``fail`` a version 3 raises before it writes."""
+    from gofr_tpu_torch.migrations import Migrate
+
+    def v1(ds):
+        ds.cassandra.exec("CREATE TABLE answers (id TEXT PRIMARY KEY, "
+                          "user TEXT, n_generated INTEGER, digest TEXT, "
+                          "text TEXT)")
+        ds.clickhouse.exec("CREATE TABLE answers (id TEXT, prompt_tokens "
+                           "INTEGER, n_generated INTEGER, digest TEXT)")
+        ds.mongo.insert_one("schema", {"_id": "answers", "version": 1})
+
+    def v2(ds):
+        ds.mongo.update_many("schema", {"_id": "answers"},
+                             {"$set": {"version": 2}})
+
+    out = {1: Migrate(up=v1), 2: Migrate(up=v2)}
+    if fail:
+        def v3(ds):
+            raise RuntimeError("planted: version 3 fails")
+        out[3] = Migrate(up=v3)
+    return out
+
+
+def _stores_ledgers(c) -> dict:
+    """Each wire store's migration ledger, and Mongo's schema version."""
+    q = "SELECT version FROM gofr_migrations ORDER BY version"
+    schema = c.mongo.find_one("schema", {"_id": "answers"}) or {}
+    return {"cassandra": [int(r["version"]) for r in c.cassandra.query(q)],
+            "clickhouse": [int(r["version"]) for r in c.clickhouse.select(q)],
+            "mongo": sorted(int(d["version"]) for d in
+                            c.mongo.find("gofr_migrations")),
+            "schema": schema.get("version")}
+
+
+def _stores_migrate_faults(run: dict) -> list:
+    """(a): versions 1-2 applied once over the wires, none the second
+    time, version 3's raise recorded in no ledger; schema version 2."""
+    out = []
+    if (run["first"], run["again"]) != ([1, 2], []):
+        out.append(f"applied {run['first']} then {run['again']}")
+    if not run["v3_raised"]:
+        out.append("v3 did not raise")
+    for store in ("cassandra", "clickhouse", "mongo"):
+        if run["ledgers"][store] != [1, 2]:
+            out.append(f"{store} ledger {run['ledgers'][store]}")
+    if run["ledgers"]["schema"] != 2:
+        out.append(f"schema {run['ledgers']['schema']}")
+    return out
+
+
+def _stores_health_faults(health: tuple, names: tuple) -> list:
+    """(a): health 200 UP, every store of ``names`` and the engine
+    ``llama`` UP."""
+    data = health[2].get("data") or {}
+    checks = data.get("checks") or {}
+    out = [] if health[0] == 200 and data.get("status") == "UP" \
+        else [f"health {health[0]} {data.get('status')}"]
+    out += [f"{n} not UP" for n in names
+            if (checks.get(n) or {}).get("status") != "UP"]
+    engines = ((checks.get("tpu") or {}).get("details") or {}).get(
+        "engines") or {}
+    if (engines.get("llama") or {}).get("status") != "UP":
+        out.append("engine not UP")
+    return out
+
+
+def _answer_handler(engine, tok, op_ms: dict):
+    """The user's ``POST /answer``, plain (it runs on the app's handler
+    pool): it binds ``{"id", "user", "seq", "prompt", "max_tokens"}``,
+    submits greedy to the engine behind ``/chat`` and waits, then keeps
+    the answer in every store the app holds, each write timed into
+    ``op_ms``: the document in Mongo, a row in Cassandra and in
+    ClickHouse, the text in Elasticsearch and as an object in S3
+    (``ctx.file``), its token count as a point in InfluxDB (time
+    ``seq``), an edge user -> conversation in Dgraph."""
+    from gofr_tpu_torch.serving.engine import SamplingParams
+
+    def answer(ctx):
+        body = ctx.bind()
+        aid, user = body["id"], body["user"]
+        prompt_tokens = tok.encode(body["prompt"])
+        req = engine.submit(prompt_tokens, SamplingParams(
+            temperature=0.0, max_new_tokens=int(body["max_tokens"])))
+        if not req.done.wait(600) or req.error:
+            raise RuntimeError(f"{aid}: {req.error or 'timed out'}")
+        tokens, digest = list(req.generated), req.digest
+        text = tok.decode(tokens)
+        writes = {
+            "mongo": lambda: ctx.mongo.insert_one("answers", {
+                "_id": aid, "user": user, "tokens": tokens,
+                "digest": digest, "text": text}),
+            "cassandra": lambda: ctx.cassandra.exec(
+                "INSERT INTO answers (id, user, n_generated, digest, text) "
+                "VALUES (?, ?, ?, ?, ?)", aid, user, len(tokens), digest,
+                text),
+            "clickhouse": lambda: ctx.clickhouse.exec(
+                "INSERT INTO answers VALUES (?, ?, ?, ?)", aid,
+                len(prompt_tokens), len(tokens), digest),
+            "elasticsearch": lambda: ctx.elasticsearch.index(
+                "answers", aid, {"user": user, "text": text}),
+            "s3": lambda: ctx.file.create(f"answers/{aid}.txt", text),
+            "influxdb": lambda: ctx.influxdb.write_point(
+                "tokens", "generated", float(body["seq"]),
+                {"n": float(len(tokens))}, {"id": aid, "user": user}),
+            "dgraph": lambda: ctx.dgraph.mutate({
+                "uid": "_:u", "name": user,
+                "asked": [{"name": aid, "digest": digest}]})}
+        ms = {}
+        for name in STORES_MAIN:
+            t0 = time.perf_counter()
+            writes[name]()
+            ms[name] = (time.perf_counter() - t0) * 1000.0
+            op_ms.setdefault(name, []).append(ms[name])
+        return {"id": aid, "user": user, "tokens": tokens, "digest": digest,
+                "prompt_tokens": len(prompt_tokens), "store_ms": ms}
+    return answer
+
+
+def _es_word(text: str) -> str:
+    """The longest word of ``text`` as the Elasticsearch analyzer splits
+    it (lower-cased runs of letters and digits)."""
+    words = "".join(c.lower() if c.isalnum() else " " for c in text).split()
+    return max(words, key=len) if words else ""
+
+
+def _stores_read_back(c, s3, ids: list) -> dict:
+    """Each answer as the app's stores give it back over their wires:
+    Mongo's document by id, Cassandra's and ClickHouse's rows by
+    ``SELECT``, the ids Elasticsearch finds for the longest word of the
+    stored text, S3's object, InfluxDB's points of the answer and the sum
+    over all, Dgraph's conversations of each user."""
+    rows = {r["id"]: r for r in c.cassandra.query(
+        "SELECT id, user, n_generated, digest, text FROM answers")}
+    ch = {r["id"]: r for r in c.clickhouse.select(
+        "SELECT id, prompt_tokens, n_generated, digest FROM answers")}
+    out: dict = {"answers": {}, "influx_sum": c.influxdb.aggregate(
+        "tokens", "generated", "n", "sum"), "dgraph": {}}
+    for user in STORES_USERS:
+        out["dgraph"][user] = sorted(
+            a["name"] for node in c.dgraph.query({"name": user},
+                                                 expand="asked")
+            for a in node.get("asked") or [])
+    for aid in ids:
+        doc = c.mongo.find_one("answers", {"_id": aid})
+        text = (doc or {}).get("text", "")
+        hits = c.elasticsearch.search("answers", {"match": {
+            "text": _es_word(text)}}, size=64)["hits"]["hits"]
+        try:
+            obj = s3.get_object(f"answers/{aid}.txt")
+        except Exception as exc:  # noqa: BLE001 — a missing object
+            obj = repr(exc)
+        out["answers"][aid] = {
+            "mongo": doc, "cassandra": rows.get(aid),
+            "clickhouse": ch.get(aid), "es_hits": [h["_id"] for h in hits],
+            "s3": obj, "influx": c.influxdb.query(
+                "tokens", "generated", "n", tags={"id": aid})}
+    return out
+
+
+def _stores_read_faults(answers: dict, got: dict, decode) -> list:
+    """(c): every answer read back from every store: Mongo's document
+    holds its tokens, digest and text; Cassandra's and ClickHouse's rows
+    its token count and digest (Cassandra's its text too); Elasticsearch
+    finds it by a word of its text; S3's object is its text; its InfluxDB
+    point is its token count and the points sum to the tokens generated;
+    Dgraph holds the edge from its user to it."""
+    out = []
+    for aid, ans in answers.items():
+        back = got["answers"].get(aid) or {}
+        text = decode(ans["tokens"])
+        n, digest = len(ans["tokens"]), ans["digest"]
+        doc = back.get("mongo") or {}
+        if doc.get("tokens") != ans["tokens"] or doc.get("digest") != \
+                digest or doc.get("text") != text:
+            out.append(f"{aid} mongo")
+        row = back.get("cassandra") or {}
+        if (row.get("n_generated"), row.get("digest"), row.get("text")) \
+                != (n, digest, text):
+            out.append(f"{aid} cassandra")
+        row = back.get("clickhouse") or {}
+        if (row.get("n_generated"), row.get("digest")) != (n, digest):
+            out.append(f"{aid} clickhouse")
+        if aid not in back.get("es_hits", []):
+            out.append(f"{aid} elasticsearch")
+        if back.get("s3") != text.encode():
+            out.append(f"{aid} s3")
+        if [v for _, v in back.get("influx") or []] != [float(n)]:
+            out.append(f"{aid} influxdb")
+        if aid not in got["dgraph"].get(ans["user"], []):
+            out.append(f"{aid} dgraph")
+    total = float(sum(len(a["tokens"]) for a in answers.values()))
+    if got["influx_sum"] != total:
+        out.append(f"influxdb sum {got['influx_sum']} != {total}")
+    return out
+
+
+def _keep_one(clients: dict, answer: dict, decode) -> dict:
+    """(d): one answer kept by each other wire client and read back: what
+    each gave back, or its typed error."""
+    aid, n = answer["id"], len(answer["tokens"])
+    text = decode(answer["tokens"])
+    c = clients
+
+    def scylla():
+        c["scylladb"].exec("CREATE TABLE IF NOT EXISTS kept (id TEXT "
+                           "PRIMARY KEY, text TEXT)")
+        c["scylladb"].exec("INSERT INTO kept (id, text) VALUES (?, ?)",
+                           aid, text)
+        return c["scylladb"].query("SELECT text FROM kept WHERE id = ?",
+                                   aid)[0]["text"]
+
+    def arango():
+        key = c["arangodb"].create_document("answers", {"id": aid,
+                                                        "text": text})
+        return c["arangodb"].get_document("answers", key)["text"]
+
+    def tsdb():
+        c["opentsdb"].put_data_points([{"metric": "answer.tokens",
+                                        "timestamp": 1, "value": float(n),
+                                        "tags": {"id": aid}}])
+        return int(c["opentsdb"].query("answer.tokens", aggregator="sum",
+                                       tags={"id": aid})["value"])
+
+    steps = {
+        "solr": lambda: (c["solr"].add("answers", [{"id": aid,
+                                                    "text": text}]),
+                         c["solr"].search("answers", f"id:{aid}")[
+                             "response"]["docs"][0]["text"])[1],
+        "couchbase": lambda: (c["couchbase"].upsert("answers", aid, {
+            "text": text}), c["couchbase"].get("answers", aid)["text"])[1],
+        "scylladb": scylla, "arangodb": arango,
+        "surrealdb": lambda: (c["surrealdb"].create(f"answer:{aid}", {
+            "text": text}), c["surrealdb"].select(f"answer:{aid}")[0][
+            "text"])[1],
+        "opentsdb": tsdb,
+        "gcs": lambda: (c["gcs"].upload(f"answers/{aid}.txt",
+                                        text.encode()),
+                        c["gcs"].download(f"answers/{aid}.txt").decode())[1],
+        "azure_blob": lambda: (c["azure_blob"].upload_blob(
+            f"answers/{aid}.txt", text.encode()), c["azure_blob"]
+            .download_blob(f"answers/{aid}.txt").decode())[1],
+        "dynamo": lambda: (c["dynamo"].set(f"answer:{aid}", text),
+                           c["dynamo"].get(f"answer:{aid}"))[1]}
+    out = {}
+    for name in STORES_OTHER:
+        try:
+            out[name] = steps[name]()
+        except Exception as exc:  # noqa: BLE001 — the typed error is kept
+            out[name] = {"error": type(exc).__name__,
+                         "message": str(exc)[:160]}
+    return out
+
+
+def _keep_faults(kept: dict, answer: dict, decode) -> list:
+    """(d): each other client gave back the answer's text (OpenTSDB its
+    token count)."""
+    text = decode(answer["tokens"])
+    want = {name: text for name in STORES_OTHER}
+    want["opentsdb"] = len(answer["tokens"])
+    return [f"{name}: {kept.get(name)!r:.120}" for name in STORES_OTHER
+            if kept.get(name) != want[name]]
+
+
+def _server_ports(server) -> list:
+    return [getattr(server, name) for name in ("port", "kv_port",
+                                               "query_port")
+            if isinstance(getattr(server, name, None), int)]
+
+
+def phase_serve_stores(dev, smi_line: str, cfg=None) -> dict:
+    """The breadth stores on the card: ``llama3_1b`` (full width and
+    depth, random bf16 weights from seed 0; ``cfg`` another config)
+    through ``App.serve_model`` with ``serve_config`` (8 slots, prefix
+    cache on), and the port's Mini servers on loopback, attached as a
+    user attaches them: ``add_mongo(MongoWire)``, ``add_cassandra``,
+    ``add_clickhouse``, ``add_elasticsearch``, ``add_influxdb``,
+    ``add_dgraph`` and ``add_file_store`` of an ``S3FileSystem`` over
+    ``S3Wire`` (``_S3Engine``); then Solr, Couchbase, ``ScyllaWire``,
+    Arango, Surreal, OpenTSDB and ``DynamoKV`` in their slots, GCS and
+    Azure Blob held by the phase. ``POST /answer`` is the user's handler
+    (``_answer_handler``): it generates an answer and keeps it in the
+    seven stores. Checks, each also shown a planted fault it must reject:
+
+    (a) migrations over the Cassandra, ClickHouse and Mongo wires:
+        versions 1-2 once, none the second time, a version 3 that raises
+        recorded in no ledger (these stores have no cross-statement
+        transaction: the ledger row is what a failing version leaves
+        out); health 200 UP listing every store and the engine; planted:
+        a ledger row 3 written into Mongo behind the runner, and a
+        Mongo client on a dead port in the health.
+    (b) 16 ``/answer`` requests in flight on the 8 slots, gated
+        (``_ws_prompts``, the last replaced by a prompt that extends the
+        900-token one: a prefix hit; the 1501-token one walks in
+        chunks), then the same prompts as unary ``/chat``, gated: each
+        answer's tokens and digest equal ``/chat``'s, or first differ at
+        a near tie (``_near_tie_judge``); prefix hits rise; planted: an
+        answer with a token dropped, and one with another's digest.
+    (c) every answer read back over the wire from every store
+        (``_stores_read_faults``); planted: Mongo's document and
+        Cassandra's row of one answer rewritten behind the app's clients
+        by clients of the phase's own.
+    (d) the other nine wire clients each keep one answer and give it
+        back; planted: the same through a GCS client with a wrong token,
+        an Azure one with a wrong SharedKey and a Dynamo one with a wrong
+        SigV4 secret, which answer with their typed errors.
+    (e) the launch counters, zeroed before (b)'s wave and read after it:
+        flash, paged decode, paged chunk and ``rope_kv_write`` rise;
+        ``App.stop`` closes every client: no Mini server holds an open
+        connection within 2 s, and the engine stops; planted: the
+        counters read before the wave, the connections counted before
+        the stop.
+
+    Also, ungated (unique prompts, engine running), ``/answer`` /
+    ``/chat`` stream / stream / ``/answer`` waves of 16: client latency,
+    the engine's TTFT and decode tokens/s; each store's write time in a
+    handler under load (p50 / p99), each store's ``app_<store>_stats``
+    p50, and 50 writes and reads of each store with no traffic."""
+    import copy
+    import torch
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.datasource import (arango_wire, azure_blob_wire,
+                                           cassandra_wire, clickhouse_wire,
+                                           couchbase_wire, dgraph_wire,
+                                           dynamo_wire, es_wire, gcs_wire,
+                                           influx_wire, mongo_wire,
+                                           opentsdb_wire, s3_wire, solr_wire,
+                                           surreal_wire)
+    from gofr_tpu_torch.datasource.object_store import S3FileSystem
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.serving.app import build_engine
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+    checks: dict = {}
+    out: dict = {"phase": "serve_stores", "card": smi_line}
+    greedy = {"max_tokens": WS_NEW, "temperature": 0}
+    host = "127.0.0.1"
+    servers = {
+        "mongo": mongo_wire.MiniMongoServer(),
+        "cassandra": cassandra_wire.MiniCassandraServer(
+            keyspace="gofr", user=STORES_USER, password=STORES_PW),
+        "clickhouse": clickhouse_wire.MiniClickhouseServer(),
+        "elasticsearch": es_wire.MiniESServer(),
+        "s3": s3_wire.MiniS3Server(access_key=STORES_AK,
+                                   secret_key=STORES_SK),
+        "influxdb": influx_wire.MiniInfluxServer(),
+        "dgraph": dgraph_wire.MiniDgraphServer(),
+        "solr": solr_wire.MiniSolrServer(),
+        "couchbase": couchbase_wire.MiniCouchbaseServer(
+            username=STORES_USER, password=STORES_PW),
+        "scylladb": cassandra_wire.MiniCassandraServer(keyspace="gofr"),
+        "arangodb": arango_wire.MiniArangoServer(username=STORES_USER,
+                                                 password=STORES_PW),
+        "surrealdb": surreal_wire.MiniSurrealServer(username=STORES_USER,
+                                                    password=STORES_PW),
+        "opentsdb": opentsdb_wire.MiniOpenTSDBServer(),
+        "gcs": gcs_wire.MiniGCSServer(token=STORES_TOKEN),
+        "azure_blob": azure_blob_wire.MiniAzureBlobServer(
+            account="gofr", key_b64=STORES_AZ_KEY),
+        "dynamo": dynamo_wire.MiniDynamoServer(access_key=STORES_AK,
+                                               secret_key=STORES_SK)}
+    started: list = []
+    cfg = cfg or LlamaConfig.llama3_1b()
+    engine = build_engine(cfg, device=dev)
+    tok = _PrintableTokenizer()
+    judge = _near_tie_judge(engine.params, cfg)
+    made: list = []
+    inner_submit = engine.submit
+
+    def submit(*args, **kwargs):
+        made.append(inner_submit(*args, **kwargs))
+        return made[-1]
+
+    engine.submit = submit
+    op_ms: dict = {}
+    own: list = []          # the phase's own clients, closed before (e)
+    loop = thread = None
+    app = None
+    try:
+        for server in servers.values():
+            server.start()
+            started.append(server)
+        p = {name: s.port for name, s in servers.items()
+             if name != "couchbase"}
+
+        def at(name: str) -> str:
+            return f"{host}:{p[name]}"
+        app = App(config=DictConfig({
+            "HTTP_HOST": host, "HTTP_PORT": "0", "METRICS_PORT": "0",
+            "APP_NAME": "serve-stores"}))
+        app.serve_model("llama", engine, tok)
+        c = app.container
+        c.add_mongo(mongo_wire.MongoWire(host=host, port=p["mongo"],
+                                         database="gofr"))
+        c.add_cassandra(cassandra_wire.CassandraWire(
+            host=host, port=p["cassandra"], keyspace="gofr",
+            username=STORES_USER, password=STORES_PW))
+        c.add_clickhouse(clickhouse_wire.ClickhouseWire(
+            endpoint=at("clickhouse")))
+        c.add_elasticsearch(es_wire.ElasticsearchWire(
+            endpoint=at("elasticsearch")))
+        c.add_influxdb(influx_wire.InfluxWire(url=at("influxdb")))
+        c.add_dgraph(dgraph_wire.DgraphWire(endpoint=at("dgraph")))
+
+        def s3_client(secret: str = STORES_SK):
+            return s3_wire.S3Wire(endpoint=at("s3"), bucket="answers",
+                                  access_key=STORES_AK, secret_key=secret)
+        s3 = s3_client()
+        s3.use_metrics(c.metrics)
+        s3.create_bucket()
+        c.add_file_store(S3FileSystem("answers", engine=_S3Engine(s3)))
+        c.influxdb.create_bucket("tokens")
+        c.dgraph.alter("name: string @index(term) .")
+
+        # (a) the migrations over the wires, before the app starts
+        first = app.migrate(_stores_migrations())
+        again = app.migrate(_stores_migrations())
+        try:
+            app.migrate(_stores_migrations(fail=True))
+            v3_raised = False
+        except RuntimeError:
+            v3_raised = True
+        migrated = {"first": first, "again": again, "v3_raised": v3_raised,
+                    "ledgers": _stores_ledgers(c)}
+        behind = mongo_wire.MongoWire(host=host, port=p["mongo"],
+                                      database="gofr")
+        behind.connect()
+        own.append(behind)
+        behind.insert_one("gofr_migrations", {"_id": "planted",
+                                              "version": 3})
+        planted_run = {**migrated, "ledgers": _stores_ledgers(c)}
+        behind.delete_many("gofr_migrations", {"_id": "planted"})
+
+        # the other wire clients: in their slots, GCS and Azure held here
+        c.add_solr(solr_wire.SolrWire(endpoint=at("solr")))
+        cb = servers["couchbase"]
+        c.add_couchbase(couchbase_wire.CouchbaseWire(
+            host=host, kv_port=cb.kv_port,
+            query_endpoint=f"{host}:{cb.query_port}", username=STORES_USER,
+            password=STORES_PW))
+        c.add_scylladb(cassandra_wire.ScyllaWire(
+            host=host, port=p["scylladb"], keyspace="gofr"))
+        c.add_arangodb(arango_wire.ArangoWire(
+            endpoint=at("arangodb"), username=STORES_USER,
+            password=STORES_PW))
+        c.add_surrealdb(surreal_wire.SurrealWire(
+            endpoint=f"ws://{at('surrealdb')}/rpc", username=STORES_USER,
+            password=STORES_PW))
+        c.add_opentsdb(opentsdb_wire.OpenTSDBWire(endpoint=at("opentsdb")))
+
+        def gcs_client(token: str = STORES_TOKEN):
+            return gcs_wire.GCSWire(endpoint=at("gcs"), bucket="answers",
+                                    token=token)
+
+        def azure_client(key: str = STORES_AZ_KEY):
+            return azure_blob_wire.AzureBlobWire(
+                endpoint=at("azure_blob"), account="gofr", key_b64=key,
+                container="answers")
+
+        def dynamo_client(secret: str = STORES_SK):
+            return dynamo_wire.DynamoKV(endpoint=at("dynamo"),
+                                        table="answers",
+                                        access_key=STORES_AK,
+                                        secret_key=secret)
+        c.add_kv_store(dynamo_client())
+        held = {"gcs": gcs_client(), "azure_blob": azure_client()}
+        for name, client in held.items():
+            client.use_metrics(c.metrics)
+            client.connect()
+            c.register_health_check(name, client)
+
+        app.post("/answer", _answer_handler(engine, tok, op_ms))
+        loop, thread = _boot_app(app, "serve_stores")
+        aport = app.port
+        health = _http_json(aport, "GET", "/.well-known/health")
+        names = ("mongo", "cassandra", "clickhouse", "elasticsearch",
+                 "influxdb", "dgraph", "file", "solr", "couchbase",
+                 "scylladb", "arangodb", "surrealdb", "opentsdb", "kv",
+                 "gcs", "azure_blob")
+        down = copy.deepcopy(health)
+        down[2]["data"]["checks"]["mongo"] = mongo_wire.MongoWire(
+            host=host, port=1).health_check()
+        checks["a_migrations"] = (
+            _stores_migrate_faults(migrated)
+            + _stores_health_faults(health, names),
+            _stores_migrate_faults(planted_run)
+            + _stores_health_faults(down, names))
+        out["a"] = {**migrated, "health": {
+            k: v.get("status") for k, v in
+            (health[2]["data"].get("checks") or {}).items()}}
+
+        # (b) 16 answers gated on the 8 slots, then unary /chat gated
+        prompts = _ws_prompts()
+        prompts[-1] = prompts[7] + " and one more turn of it"
+        bodies = [{"id": f"a{i:02d}", "user": STORES_USERS[i % 4],
+                   "seq": i, "prompt": prompt, **greedy}
+                  for i, prompt in enumerate(prompts)]
+        ids = [b["id"] for b in bodies]
+
+        def gated(path: str, wave: list) -> tuple:
+            engine.stop()
+            engine.waiting.reopen()
+            base = len(made)
+            got: list = [None] * len(wave)
+
+            def call(i, body):
+                got[i] = _http_json(aport, "POST", path, body)
+            workers = []
+            for i, body in enumerate(wave):
+                workers.append(threading.Thread(target=call,
+                                                args=(i, body)))
+                workers[-1].start()
+                deadline = time.time() + 60
+                while len(made) < base + i + 1 and time.time() < deadline:
+                    time.sleep(0.001)
+            engine.start()
+            for w in workers:
+                w.join(timeout=600)
+            return got, made[base:]
+
+        for fn in counters.values():
+            fn.launches = 0
+        hits_before = engine.stats["prefix_hits"]
+        posted, a_reqs = gated("/answer", bodies)
+        launches = {name: int(fn.launches) for name, fn in counters.items()}
+        prefix_hits = engine.stats["prefix_hits"] - hits_before
+        unary, u_reqs = gated("/chat", [{"prompt": b["prompt"], **greedy}
+                                        for b in bodies])
+        answers = {b["id"]: (a[2].get("data") if a and a[0] == 201
+                             else None) for b, a in zip(bodies, posted)}
+
+        def answer_faults(got: dict, ties: dict) -> list:
+            faults = []
+            for i, aid in enumerate(ids):
+                ans, u = got.get(aid), unary[i]
+                if ans is None:
+                    faults.append(f"{aid} missing")
+                    continue
+                if u is None or u[0] != 201 or i >= len(u_reqs) \
+                        or len(u[2]["data"]["tokens"]) != WS_NEW:
+                    faults.append(f"unary {aid}")
+                    continue
+                ref = u[2]["data"]["tokens"]
+                faults += _tie_or_fault(aid, ans["tokens"], ref,
+                                        u_reqs[i].prompt_tokens, judge, ties)
+                if ans["tokens"] == ref and ans["digest"] != \
+                        u_reqs[i].digest:
+                    faults.append(f"{aid} digest")
+            return faults
+        ties: dict = {}
+        b_faults = answer_faults(answers, ties) + (
+            [] if prefix_hits >= 1 else ["no prefix hit"])
+        dropped = copy.deepcopy(answers)
+        del dropped[ids[2]]["tokens"][5]
+        swapped = copy.deepcopy(answers)
+        swapped[ids[3]]["digest"] = answers[ids[4]]["digest"]
+        plants = [answer_faults(dropped, {}), answer_faults(swapped, {})]
+        checks["b_answers"] = (b_faults,
+                               sum(plants, []) if all(plants) else [])
+        out["b"] = {"answers": sum(a is not None for a in answers.values()),
+                    "prompt_tokens": [len(r.prompt_tokens) for r in a_reqs],
+                    "prefix_hits": prefix_hits,
+                    "slots": engine.config.max_batch,
+                    "tokens_0": (answers[ids[0]] or {}).get("tokens",
+                                                            [])[:8],
+                    "near_ties": ties}
+
+        # (c) read back over every wire
+        back = _stores_read_back(c, s3, ids)
+        ok = {aid: a for aid, a in answers.items() if a is not None}
+        c_faults = _stores_read_faults(ok, back, tok.decode)
+        writer = cassandra_wire.CassandraWire(
+            host=host, port=p["cassandra"], keyspace="gofr",
+            username=STORES_USER, password=STORES_PW)
+        writer.connect()
+        own.append(writer)
+        behind.update_many("answers", {"_id": ids[0]},
+                           {"$set": {"digest": "0" * 16}})
+        writer.exec("UPDATE answers SET text = ? WHERE id = ?", "planted",
+                    ids[1])
+        altered = _stores_read_back(c, s3, ids[:2])
+        checks["c_read_back"] = (c_faults, _stores_read_faults(
+            {aid: ok[aid] for aid in ids[:2] if aid in ok}, {
+                **altered, "influx_sum": float(sum(
+                    len(ok[aid]["tokens"]) for aid in ids[:2]
+                    if aid in ok))}, tok.decode))
+        out["c"] = {"read": len(back["answers"]),
+                    "influx_sum": back["influx_sum"],
+                    "dgraph": {u: len(v) for u, v in back["dgraph"].items()},
+                    "es_word_0": _es_word(tok.decode(
+                        (ok.get(ids[0]) or {"tokens": []})["tokens"]))}
+
+        # (d) the other wire clients
+        others = {"solr": c.solr, "couchbase": c.couchbase,
+                  "scylladb": c.scylladb, "arangodb": c.arangodb,
+                  "surrealdb": c.surrealdb, "opentsdb": c.opentsdb,
+                  "dynamo": c.kv, **held}
+        first_answer = ok[ids[0]]
+        kept = _keep_one(others, first_answer, tok.decode)
+        wrong = {**others, "gcs": gcs_client("wrong-token"),
+                 "azure_blob": azure_client(
+                     "d3Jvbmcta2V5LWZvci1hbi1hY2NvdW50"),
+                 "dynamo": dynamo_client("wrong-secret")}
+        planted_kept = _keep_one(wrong, ok[ids[1]], tok.decode)
+        checks["d_other_clients"] = (
+            _keep_faults(kept, first_answer, tok.decode),
+            _keep_faults(planted_kept, ok[ids[1]], tok.decode))
+        out["d"] = {"kept": {k: (v if isinstance(v, dict) else
+                                 type(v).__name__) for k, v in kept.items()},
+                    "planted_errors": {k: v["error"] for k, v in
+                                       planted_kept.items()
+                                       if isinstance(v, dict)}}
+
+        # ungated timing, unique prompts: answers / streams / streams /
+        # answers
+        timing: dict = {"answer": [], "chat": []}
+        seq = len(bodies)
+        for i, side in enumerate(("answer", "chat", "chat", "answer")):
+            asks = _ws_prompts(f"t{i} ")
+            base = len(made)
+            runs: list = [None] * len(asks)
+
+            def ask(j, prompt, runs=runs, side=side, i=i):
+                t0 = time.perf_counter()
+                if side == "answer":
+                    got = _http_json(aport, "POST", "/answer", {
+                        "id": f"t{i}-{j:02d}", "user": STORES_USERS[j % 4],
+                        "seq": seq + 100 * i + j, "prompt": prompt,
+                        **greedy})
+                    runs[j] = {"status": got[0],
+                               "latency_s": time.perf_counter() - t0}
+                else:
+                    runs[j] = _sse_call(aport, "/chat", {
+                        "prompt": prompt, **greedy, "stream": True})
+            askers = [threading.Thread(target=ask, args=(j, q))
+                      for j, q in enumerate(asks)]
+            for w in askers:
+                w.start()
+            for w in askers:
+                w.join(timeout=600)
+            if side == "answer":
+                run = {"latency_s": _pcts([r["latency_s"] for r in runs
+                                           if r and r["status"] == 201]),
+                       "answered": sum(bool(r) and r["status"] == 201
+                                       for r in runs)}
+            else:
+                run = _sse_timing(runs)
+            run["engine_ttft_s"] = _pcts([r.ttft_ms / 1000.0
+                                          for r in made[base:]
+                                          if r.ttft_ms is not None])
+            run["engine_decode_tokens_per_s"] = _engine_rate(made[base:])
+            timing[side].append(run)
+
+        def idle(fn, n: int = 50) -> dict:
+            times = []
+            for k in range(n):
+                t0 = time.perf_counter()
+                fn(k)
+                times.append((time.perf_counter() - t0) * 1000.0)
+            return _pcts(times)
+        idle_ms = {
+            "mongo": {"write": idle(lambda k: c.mongo.insert_one(
+                "idle", {"_id": f"i{k}", "v": k})),
+                "read": idle(lambda k: c.mongo.find_one(
+                    "idle", {"_id": f"i{k}"}))},
+            "cassandra": {"write": idle(lambda k: c.cassandra.exec(
+                "INSERT INTO answers (id, user) VALUES (?, ?)", f"i{k}",
+                "idle")), "read": idle(lambda k: c.cassandra.query(
+                    "SELECT id FROM answers WHERE id = ?", f"i{k}"))},
+            "clickhouse": {"write": idle(lambda k: c.clickhouse.exec(
+                "INSERT INTO answers VALUES (?, ?, ?, ?)", f"i{k}", 0, 0,
+                "")), "read": idle(lambda k: c.clickhouse.select(
+                    "SELECT id FROM answers WHERE id = ?", f"i{k}"))},
+            "elasticsearch": {"write": idle(lambda k: c.elasticsearch.index(
+                "idle", f"i{k}", {"text": "idle"})),
+                "read": idle(lambda k: c.elasticsearch.get("idle",
+                                                           f"i{k}"))},
+            "s3": {"write": idle(lambda k: c.file.create(f"idle/{k}",
+                                                         b"x")),
+                   "read": idle(lambda k: c.file.read(f"idle/{k}"))},
+            "influxdb": {"write": idle(lambda k: c.influxdb.write_point(
+                "tokens", "idle", float(k), {"n": 1.0})),
+                "read": idle(lambda k: c.influxdb.query(
+                    "tokens", "idle", "n", start=float(k)))},
+            "dgraph": {"write": idle(lambda k: c.dgraph.mutate(
+                {"name": f"idle-{k}"})), "read": idle(
+                lambda k: c.dgraph.query({"name": f"idle-{k}"}))}}
+        metrics = c.metrics
+        stats_names = {"mongo": "app_mongo_stats",
+                       "cassandra": "app_cassandra_stats",
+                       "clickhouse": "app_clickhouse_stats",
+                       "elasticsearch": "app_elasticsearch_stats",
+                       "s3": "app_s3_stats", "file": "app_file_stats",
+                       "influxdb": "app_influxdb_stats",
+                       "dgraph": "app_dgraph_stats",
+                       "solr": "app_solr_stats",
+                       "couchbase": "app_couchbase_stats",
+                       "scylladb": "app_scylladb_stats",
+                       "arangodb": "app_arangodb_stats",
+                       "surrealdb": "app_surrealdb_stats",
+                       "opentsdb": "app_opentsdb_stats",
+                       "gcs": "app_gcs_stats",
+                       "azure_blob": "app_azure_blob_stats",
+                       "dynamo": "app_kv_stats"}
+        out["timing"] = {
+            **timing, "card": smi_line,
+            "store_write_ms_under_load": {k: _pcts(v)
+                                          for k, v in op_ms.items()},
+            "store_ms_idle": idle_ms,
+            "stats_p50_ms": {k: _hist_p50_ms(metrics, v)
+                             for k, v in stats_names.items()},
+            "definition": "16 /answer requests (16 /chat streams) at "
+            "once on 8 slots, 64 tokens each, prompts 21-1501 tokens; an "
+            "answer's latency from the send to its reply, after its "
+            "seven store writes; store times are the handler's own wall "
+            "time of each call (under load: the (b) wave and the two "
+            "/answer timing waves) and 50 calls of each with no traffic"}
+
+        # (e) the kernels of the wave, then the stop
+        checks["e_launches_stop"] = (
+            _launch_faults(launches),
+            _launch_faults(dict.fromkeys(launches, 0)))
+        out["launches"] = launches
+        for client in own:
+            client.close()
+        ports = {name: _server_ports(s) for name, s in servers.items()}
+
+        def open_now() -> dict:
+            return {name: sum(_open_connections(q) for q in qs)
+                    for name, qs in ports.items()}
+        open_before = open_now()
+        _stop_app(app, loop, thread)
+        loop = None
+        t_stop = time.perf_counter()
+        while any(open_now().values()) and \
+                time.perf_counter() - t_stop < 2.0:
+            time.sleep(0.01)
+        stopped = {"open": open_now(), "engine_running": engine._running}
+        checks["e_launches_stop"] = (
+            checks["e_launches_stop"][0] + _wire_stop_faults(stopped),
+            checks["e_launches_stop"][1] + _wire_stop_faults(
+                {**stopped, "open": open_before}))
+        out["e"] = {**stopped, "open_before": open_before,
+                    "stop_s": time.perf_counter() - t_stop}
+        out["near_tie_judge_s"] = judge.seconds()
+    finally:
+        engine.submit = inner_submit
+        for client in own:
+            client.close()
+        if loop is not None and loop.is_running():
+            _stop_app(app, loop, thread)
+        for server in started:
+            server.close()
+        judge.release()
+    del app, engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_stores: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
 
 
 # ---------------------------------------------------------------- trainer
@@ -11843,6 +12674,7 @@ def main() -> int:
     phase_serve_app(dev, smi_line)
     phase_serve_ws(dev, smi_line)
     phase_serve_wire(dev, smi_line)
+    phase_serve_stores(dev, smi_line)
     phase_train_llama(dev, smi_line)
     sources["serve_tp"] = phase_serve_tp(dev, smi_line)
     for row in rows:

@@ -19,16 +19,36 @@ Ported backends:
 - :mod:`.dbresolver` — SQL primary/replica router with per-replica
   circuit breakers.
 
+- :mod:`.document` — document-store family (Mongo/Elasticsearch/Solr/
+  Couchbase-shaped) over one embedded engine.
+- :mod:`.columnar` — CQL/columnar family (Cassandra/ScyllaDB/
+  Clickhouse/Oracle-shaped) over sqlite.
+- :mod:`.graph` — graph family (Dgraph/ArangoDB/SurrealDB-shaped).
+- :mod:`.timeseries` — time-series family (OpenTSDB/InfluxDB-shaped).
+- :mod:`.object_store` — S3/GCS/Azure-Blob-shaped file stores over one
+  embedded object engine.
+
 Network wire clients (each speaks its store's real protocol and ships
 a protocol-faithful mini server for hermetic tests; ``new_sql`` /
-``new_redis`` pick them from config): :mod:`.redis_wire` (RESP2),
+``new_redis`` pick the SQL and Redis ones from config, the others are
+attached with the container's ``add_*``): :mod:`.redis_wire` (RESP2),
 :mod:`.postgres_wire` (v3 protocol + SCRAM-SHA-256), :mod:`.mysql_wire`
-(v10 handshake + native-password auth + COM_QUERY) and
-:mod:`.oracle_wire` (TNS transport + O5LOGON-style auth).
+(v10 handshake + native-password auth + COM_QUERY),
+:mod:`.oracle_wire` (TNS transport + O5LOGON-style auth),
+:mod:`.cassandra_wire` (CQL native protocol v4, incl. ``ScyllaWire``),
+:mod:`.couchbase_wire` (memcached binary KV + N1QL HTTP),
+:mod:`.mongo_wire` (OP_MSG), :mod:`.s3_wire` (SigV4),
+:mod:`.gcs_wire` (JSON API), :mod:`.azure_blob_wire` (SharedKey),
+:mod:`.es_wire`, :mod:`.solr_wire`, :mod:`.clickhouse_wire` (HTTP
+interface), :mod:`.influx_wire`, :mod:`.opentsdb_wire`,
+:mod:`.arango_wire`, :mod:`.dgraph_wire` (generated DQL),
+:mod:`.surreal_wire` (WebSocket JSON-RPC over the port's websocket
+layer) and :mod:`.dynamo_wire` (DynamoDB JSON 1.0 + SigV4). The HTTP
+Mini servers run the port's HTTP server on a thread of their own
+(:mod:`.miniserver`); the JSON clients share :mod:`._http`.
 
-Not ported yet: the other wire clients and the breadth families
-(document, columnar, graph, time series). The container's breadth
-adders (``add_mongo``, ...) take the caller's store object as it is.
+Not ported yet: ``nats_kv``, ``ftp`` and ``sftp_wire`` with its SSH2
+transport.
 """
 
 import time

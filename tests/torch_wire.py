@@ -1,10 +1,12 @@
 """Shared helpers of the port's wire-backend tests: a background event loop
 for the asyncio Mini servers, a port nothing listens on, the count of open
-TCP connections to a port, and the two sides' modules by protocol."""
+TCP connections to a port or to a Mini server, a Mini server started for
+the length of a ``with`` block, and the two sides' modules by protocol."""
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import importlib
 import socket
 import threading
@@ -22,6 +24,21 @@ MODULES = {
     "jetstream": "pubsub.jetstream",
     "mqtt": "pubsub.mqtt",
     "google": "pubsub.google",
+    "mongo": "datasource.mongo_wire",
+    "cassandra": "datasource.cassandra_wire",
+    "clickhouse": "datasource.clickhouse_wire",
+    "es": "datasource.es_wire",
+    "solr": "datasource.solr_wire",
+    "couchbase": "datasource.couchbase_wire",
+    "s3": "datasource.s3_wire",
+    "dynamo": "datasource.dynamo_wire",
+    "gcs": "datasource.gcs_wire",
+    "azure_blob": "datasource.azure_blob_wire",
+    "influx": "datasource.influx_wire",
+    "opentsdb": "datasource.opentsdb_wire",
+    "dgraph": "datasource.dgraph_wire",
+    "arango": "datasource.arango_wire",
+    "surreal": "datasource.surreal_wire",
 }
 
 #: (client side, server side): the port against itself, then the two
@@ -84,6 +101,31 @@ def open_connections(port: int) -> int:
     return count
 
 
+def server_ports(server) -> list:
+    """Every port a started Mini server listens on (Couchbase's KV and
+    query ports, the others' one)."""
+    return [getattr(server, name) for name in ("port", "kv_port",
+                                               "query_port")
+            if isinstance(getattr(server, name, None), int)]
+
+
+def server_connections(server) -> int:
+    """Open TCP connections to any port of a started Mini server."""
+    return sum(open_connections(port) for port in server_ports(server))
+
+
+@contextlib.contextmanager
+def started(server):
+    """A Mini server with a synchronous ``start`` / ``close`` (the HTTP
+    ones serve from an event loop on a thread of their own), started for
+    the ``with`` block and closed after it, also on a raise."""
+    server.start()
+    try:
+        yield server
+    finally:
+        server.close()
+
+
 def wait_until(predicate, timeout: float = 10.0, step: float = 0.02) -> bool:
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -106,6 +148,11 @@ class Pair:
     def __getattr__(self, name: str):
         module = self._srv if name.startswith("Mini") else self._cli
         return getattr(module, name)
+
+    def srv(self, name: str):
+        """``name`` on the server side's module (a decoder, say, held
+        against the client side's encoder)."""
+        return getattr(self._srv, name)
 
     def side(self, module: str):
         """``module`` (dotted, under the package) of the client's side."""
