@@ -330,7 +330,31 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              JetStream, MQTT and Google each carry a job; each with its
              planted fault. Job latency beside ``/chat``'s, decode
              tokens/s, the wire ops' times.
-17. train_llama — the trainer (``gofr_tpu_torch/parallel/``) at
+17. serve_stores — the breadth stores: the same app with the port's
+             Mini servers of 16 stores on loopback in the container's
+             slots (``phase_serve_stores``' docstring): (a) migrations
+             over the Cassandra, ClickHouse and Mongo wires; (b) 16
+             ``/answer`` requests on 8 slots, each answer kept in seven
+             stores, equal to unary ``/chat``; (c) every answer read back
+             over every wire; (d) the other nine wire clients; (e) the
+             kernels' launches rise, ``App.stop`` closes every client;
+             each with its planted fault. A store write's time under load
+             and idle, ``app_<store>_stats`` p50s.
+18. serve_cli — the CLI (``app.new_cmd``, ``cli/cmd.CMDApp``): the
+             engine by ``add_model``, an ``FTPFileSystem`` and a ``NATSKV``
+             on the port's Mini FTP and JetStream servers; user
+             subcommands ``generate``, ``batch``, ``answers get`` / ``rm``
+             (``phase_serve_cli``' docstring): (a) ``generate``'s tokens
+             and ``request_digest`` equal a direct submit's; (b) ``batch
+             --n=8`` (one prompt walked, one a prefix hit) equal to single
+             runs; (c) every answer read back over FTP and NATS-KV,
+             ``answers rm`` then ``get`` exits 1; (d) ``help`` / ``-h`` /
+             an unknown subcommand's exit codes, also through a
+             subprocess; (e) the kernels' launches rise over ``batch``;
+             each with its planted fault. ``generate``'s wall and TTFT,
+             ``batch``'s decode tokens/s, the stores' times idle and
+             under ``batch``.
+19. train_llama — the trainer (``gofr_tpu_torch/parallel/``) at
              ``llama3_1b``'s full width and depth, bf16, random weights
              from seed 0, on a ``{dp: 1, tp: 1}`` mesh over a one-rank
              ``nccl`` group, one fixed 4 x 512 batch
@@ -346,7 +370,7 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              The trainer runs no kernel of the repository (plain
              attention, as JAX's trainer runs XLA's); the kernel line is
              unchanged by it.
-18. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
+20. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
              (``llama3_70b``: dim 8192, 64 q / 8 KV heads, hd 128, ffn
              28672, vocab 128256), 8 of its 80 layers, bf16, random
              weights from seed 0 (17.9 GB; ``phase_serve_tp``'
@@ -362,8 +386,7 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the slab write at Hkv 4, one rank's shapes, each with its
              planted fault, among the kernel rows above).
 
-Each of the last seven prints its wall time (``phase_wall_s``), as the
-later serve phases do.
+Phases 9-20 each print their wall time (``phase_wall_s``).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -11704,6 +11727,461 @@ def phase_serve_stores(dev, smi_line: str, cfg=None) -> dict:
 
 
 
+# ---------------------------------------------------------------- CLI
+CLI_NEW = 32
+CLI_GEN_RUNS = 5
+CLI_SUBCOMMANDS = ("generate", "batch", "answers get", "answers rm")
+
+
+def _cli_prompts(generate_prompt: str) -> list:
+    """``batch``'s eight prompts (21-1501 byte tokens): six of
+    ``_app_prompts``' (fresh, tag ``cli``), its 1501-token one (wider
+    than the 1024 bucket: it walks through the chunk kernel), and
+    ``generate_prompt`` extended (a prefix hit on the pages ``generate``
+    left in the cache)."""
+    fresh = _app_prompts("cli ")
+    return ([fresh[i] for i in (0, 2, 3, 4, 5, 7)] + [fresh[8]]
+            + [generate_prompt + " and one more question about it"])
+
+
+def _cli_wait(req, timeout_s: float = 600.0):
+    if not req.done.wait(timeout_s):
+        raise TimeoutError(f"no answer within {timeout_s} s")
+    if req.error is not None:
+        raise RuntimeError(req.error)
+    return req
+
+
+def _cli_answer(aid: str, req, tok) -> dict:
+    from gofr_tpu_torch.serving.integrity import request_digest
+    return {"id": aid, "tokens": list(req.generated),
+            "text": tok.decode(req.generated),
+            "request_digest": request_digest(req.prompt_tokens, req.params,
+                                             req.generated),
+            "prompt_tokens": len(req.prompt_tokens), "ttft_ms": req.ttft_ms}
+
+
+def _cli_keep(ctx, answer: dict) -> None:
+    """Keep an answer's text over FTP (``answer-<id>.txt``) and in the
+    NATS-KV bucket (key ``<id>``)."""
+    ctx.file.create(f"answer-{answer['id']}.txt", answer["text"])
+    ctx.kv.set(answer["id"], answer["text"])
+
+
+def _cli_register(app, tok, prompts=None, made=None) -> None:
+    """The CLI's subcommands, as a user writes them: the engine from
+    ``ctx.model("llama")``, the stores from ``ctx.file`` and ``ctx.kv``.
+    ``prompts`` are ``batch``'s; ``made`` collects every request the
+    handlers submit."""
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    made = made if made is not None else []
+
+    def params(ctx):
+        return SamplingParams(temperature=0.0, max_new_tokens=int(
+            ctx.param("max_tokens") or CLI_NEW))
+
+    @app.sub_command("generate", description="answer one prompt",
+                     help="--prompt=<text> --max_tokens=<n> --id=<id>")
+    def generate(ctx):
+        engine = ctx.model("llama")
+        made.append(engine.submit(tok.encode(ctx.param("prompt")),
+                                  params(ctx)))
+        answer = _cli_answer(ctx.param("id") or "g", _cli_wait(made[-1]),
+                             tok)
+        _cli_keep(ctx, answer)
+        return answer
+
+    @app.sub_command("batch", description="answer n prompts together",
+                     help="--n=<count> --max_tokens=<n>")
+    def batch(ctx):
+        engine = ctx.model("llama")
+        n = int(ctx.param("n") or len(prompts))
+        reqs = [engine.submit(tok.encode(p), params(ctx))
+                for p in prompts[:n]]
+        made.extend(reqs)
+        answers = [_cli_answer(f"b{i}", _cli_wait(r), tok)
+                   for i, r in enumerate(reqs)]
+        for answer in answers:
+            _cli_keep(ctx, answer)
+        return {"answers": answers}
+
+    @app.sub_command("answers get", description="read a kept answer back",
+                     help="--id=<id>")
+    def answers_get(ctx):
+        aid = ctx.param("id")
+        return {"id": aid, "ftp": ctx.file.read_text(f"answer-{aid}.txt"),
+                "kv": ctx.kv.get(aid)}
+
+    @app.sub_command("answers rm", description="remove a kept answer",
+                     help="--id=<id>")
+    def answers_rm(ctx):
+        aid = ctx.param("id")
+        ctx.file.remove(f"answer-{aid}.txt")
+        ctx.kv.delete(aid)
+        return {"removed": aid}
+
+
+def _cli_run(app, argv: list) -> tuple:
+    """(exit code, stdout, stderr) of one ``CMDApp.run``."""
+    import io
+    from gofr_tpu_torch.cli import Out
+    out, err = io.StringIO(), io.StringIO()
+    app.out = Out(stream=out, force_tty=False)
+    app.err_out = Out(stream=err, force_tty=False)
+    code = app.run(argv)
+    return code, out.getvalue(), err.getvalue()
+
+
+def _cli_help_app():
+    """The CLI with its subcommands and no model or store (the help
+    subprocess builds it)."""
+    from gofr_tpu_torch.app import new_cmd
+    from gofr_tpu_torch.config import DictConfig
+    app = new_cmd(config=DictConfig({"APP_NAME": "serve-cli"}))
+    _cli_register(app, None)
+    return app
+
+
+def _cli_help_faults(runs: dict) -> list:
+    """``help`` / ``-h`` exit 0 listing every subcommand; an unknown
+    subcommand exits 2."""
+    faults = []
+    for label, (code, out, _err) in runs.items():
+        want = 2 if label.startswith("unknown") else 0
+        if code != want:
+            faults.append(f"{label} exit {code}")
+        if not all(s in out for s in CLI_SUBCOMMANDS):
+            faults.append(f"{label} lists {out!r}")
+    return faults
+
+
+def _cli_read_faults(answers: dict, back: dict) -> list:
+    """Each answer's text read back over FTP and NATS-KV as printed."""
+    faults = []
+    for aid, answer in answers.items():
+        got = back.get(aid)
+        if got is None or got[0] != 0:
+            faults.append(f"{aid} not read back")
+            continue
+        doc = json.loads(got[1])
+        for store in ("ftp", "kv"):
+            if doc.get(store) != answer["text"]:
+                faults.append(f"{aid} {store}")
+    return faults
+
+
+def phase_serve_cli(dev, smi_line: str, cfg=None) -> dict:
+    """The CLI on the card: ``new_cmd`` (``cli/cmd.CMDApp``) with
+    ``llama3_1b`` (full width and depth, random bf16 weights from seed 0,
+    ``serve_config``: 8 slots, prefix cache on; ``cfg`` another config)
+    registered by ``add_model("llama", ...)``, an ``FTPFileSystem`` on
+    the port's ``MiniFTPServer`` by ``add_file_store`` and a ``NATSKV``
+    on its ``MiniJetStreamServer`` by ``add_kv_store``, both on loopback.
+    The subcommands are the user's (``_cli_register``): ``generate``,
+    ``batch``, ``answers get``, ``answers rm``. Greedy. Checks, each also
+    shown a planted fault it must reject:
+
+    (a) ``generate --prompt= --max_tokens=32`` exits 0 (five runs of one
+        prompt); its printed tokens and ``request_digest`` equal the
+        engine's answer to the same prompt submitted directly, or first
+        differ at a near tie (``_near_tie_judge``); planted: a token
+        changed.
+    (b) ``batch --n=8``: eight prompts of 21-1501 tokens in flight
+        together on the 8 slots, one walked in chunks, one a prefix hit
+        on ``generate``'s pages: each answer equals its single run
+        (submitted alone afterwards), or parts at a near tie; planted:
+        answers swapped between ids.
+    (c) every answer reads back over FTP and NATS-KV (``answers get``)
+        as printed; after ``answers rm`` an ``answers get`` exits 1 with
+        ``error:`` on stderr; planted: one stored byte changed over FTP
+        behind the app.
+    (d) ``help`` and ``-h`` exit 0 and list every subcommand, an unknown
+        subcommand exits 2: in process, and ``help`` once through a
+        subprocess with a real ``sys.argv`` (no model loaded); planted:
+        an exit code flipped.
+    (e) the launch counters of the flash, paged decode, paged chunk and
+        ``rope_kv_write`` wrappers, zeroed before ``batch`` and read
+        after it, all rise; planted: the same over a subcommand that
+        answers a canned string and never touches the engine.
+
+    Also: ``generate``'s wall p50 over its five runs and the engine's
+    TTFT p50; ``batch``'s decode tokens/s; FTP write / read and NATS-KV
+    set / get p50, idle and while ``batch`` runs."""
+    import copy
+    import torch
+    from gofr_tpu_torch.app import new_cmd
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.datasource.ftp import FTPFileSystem, MiniFTPServer
+    from gofr_tpu_torch.datasource.nats_kv import NATSKV
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.pubsub.jetstream import MiniJetStreamServer
+    from gofr_tpu_torch.serving.app import build_engine
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+    checks: dict = {}
+    out: dict = {"phase": "serve_cli", "card": smi_line}
+    cfg = cfg or LlamaConfig.llama3_1b()
+    engine = build_engine(cfg, device=dev)
+    tok = _PrintableTokenizer()
+    judge = _near_tie_judge(engine.params, cfg)
+    ftp_server = MiniFTPServer()
+    ftp_server.start()
+    brokers = _LoopThread()
+    js = MiniJetStreamServer()
+    brokers.run(js.start())
+    own: list = []
+    app = None
+    try:
+        app = new_cmd(config=DictConfig({"APP_NAME": "serve-cli"}))
+        c = app.container
+        c.add_model("llama", engine)
+        c.add_file_store(FTPFileSystem(port=ftp_server.port))
+        c.add_kv_store(NATSKV(port=js.port, bucket="answers"))
+        gen_prompt = _app_prompts("gen ")[6]
+        prompts = _cli_prompts(gen_prompt)
+        made: list = []
+        _cli_register(app, tok, prompts, made)
+        engine.start()
+
+        # (a) generate, five runs, then the same prompt submitted directly
+        gen_runs, gen_wall = [], []
+        for i in range(CLI_GEN_RUNS):
+            t0 = time.perf_counter()
+            code, text, err = _cli_run(app, [
+                "generate", f"--prompt={gen_prompt}",
+                f"--max_tokens={CLI_NEW}", f"--id=g{i}"])
+            gen_wall.append(time.perf_counter() - t0)
+            gen_runs.append((code, json.loads(text) if code == 0 else None,
+                             err))
+        direct = _cli_answer("direct", _cli_wait(engine.submit(
+            tok.encode(gen_prompt), SamplingParams(
+                temperature=0.0, max_new_tokens=CLI_NEW))), tok)
+        ties: dict = {}
+
+        def generate_faults(runs: list) -> list:
+            faults = []
+            for i, (code, doc, err) in enumerate(runs):
+                if code != 0 or doc is None:
+                    faults.append(f"generate {i} exit {code} {err!r}")
+                    continue
+                faults += _tie_or_fault(
+                    f"g{i}", doc["tokens"], direct["tokens"],
+                    tok.encode(gen_prompt), judge, ties)
+                if doc["tokens"] == direct["tokens"] and \
+                        doc["request_digest"] != direct["request_digest"]:
+                    faults.append(f"g{i} digest")
+                if len(doc["tokens"]) != CLI_NEW:
+                    faults.append(f"g{i} {len(doc['tokens'])} tokens")
+            return faults
+        changed = copy.deepcopy(gen_runs)
+        changed[-1][1]["tokens"][3] = (changed[-1][1]["tokens"][3] + 1) \
+            % cfg.vocab_size
+        checks["a_generate"] = (generate_faults(gen_runs),
+                                generate_faults(changed))
+        out["a"] = {"exit_codes": [r[0] for r in gen_runs],
+                    "tokens_0": direct["tokens"][:8],
+                    "digest": direct["request_digest"],
+                    "prompt_tokens": direct["prompt_tokens"],
+                    "near_ties": dict(ties)}
+
+        # (b) batch: eight in flight together, the stores timed meanwhile
+        load_ms: dict = {"ftp_write": [], "ftp_read": [], "kv_set": [],
+                         "kv_get": []}
+        running = threading.Event()
+        running.set()
+
+        def store_load():
+            k = 0
+            while running.is_set():
+                for name, call in (
+                        ("ftp_write", lambda: c.file.create(
+                            f"load-{k % 8}.txt", "x" * 64)),
+                        ("ftp_read", lambda: c.file.read(
+                            f"load-{k % 8}.txt")),
+                        ("kv_set", lambda: c.kv.set(f"load{k % 8}",
+                                                    "x" * 64)),
+                        ("kv_get", lambda: c.kv.get(f"load{k % 8}"))):
+                    t0 = time.perf_counter()
+                    call()
+                    load_ms[name].append(
+                        (time.perf_counter() - t0) * 1000.0)
+                k += 1
+        for fn in counters.values():
+            fn.launches = 0
+        hits_before = engine.stats["prefix_hits"]
+        base = len(made)
+        loader = threading.Thread(target=store_load, daemon=True)
+        loader.start()
+        code, text, err = _cli_run(app, ["batch", "--n=8",
+                                         f"--max_tokens={CLI_NEW}"])
+        running.clear()
+        loader.join(timeout=60)
+        launches = {name: int(fn.launches) for name, fn in counters.items()}
+        b_reqs = made[base:]
+        prefix_hits = engine.stats["prefix_hits"] - hits_before
+        batch = json.loads(text)["answers"] if code == 0 else []
+        singles = [_cli_answer(f"s{i}", _cli_wait(engine.submit(
+            tok.encode(p), SamplingParams(temperature=0.0,
+                                          max_new_tokens=CLI_NEW))), tok)
+                   for i, p in enumerate(prompts)]
+        b_ties: dict = {}
+
+        def batch_faults(answers: list) -> list:
+            if code != 0 or len(answers) != len(prompts):
+                return [f"batch exit {code} {err!r}"]
+            faults = []
+            for i, (answer, single) in enumerate(zip(answers, singles)):
+                if answer["id"] != f"b{i}":
+                    faults.append(f"b{i} id {answer['id']}")
+                faults += _tie_or_fault(f"b{i}", answer["tokens"],
+                                        single["tokens"],
+                                        tok.encode(prompts[i]), judge,
+                                        b_ties)
+            return faults + ([] if prefix_hits >= 1 else ["no prefix hit"])
+        swapped = copy.deepcopy(batch)
+        if len(swapped) > 2:
+            swapped[1]["tokens"], swapped[2]["tokens"] = \
+                swapped[2]["tokens"], swapped[1]["tokens"]
+        checks["b_batch"] = (batch_faults(batch), batch_faults(swapped))
+        out["b"] = {"exit_code": code,
+                    "prompt_tokens": [len(r.prompt_tokens) for r in b_reqs],
+                    "prefix_hits": prefix_hits,
+                    "prefill_calls": engine.stats.get("prefill_calls"),
+                    "near_ties": dict(b_ties)}
+
+        # (c) every answer read back over both wires, then removed
+        printed = {a["id"]: a for a in batch}
+        printed.update({f"g{i}": r[1] for i, r in enumerate(gen_runs)
+                        if r[1] is not None})
+        back = {aid: _cli_run(app, ["answers", "get", f"--id={aid}"])
+                for aid in printed}
+        behind = FTPFileSystem(port=ftp_server.port)
+        behind.connect()
+        own.append(behind)
+        victim = "b0"
+        text0 = printed[victim]["text"]
+        behind.create(f"answer-{victim}.txt",
+                      chr(33 + (ord(text0[0]) - 32) % 94) + text0[1:])
+        altered = {victim: _cli_run(app, ["answers", "get",
+                                          f"--id={victim}"])}
+        behind.create(f"answer-{victim}.txt", text0)
+        rm = _cli_run(app, ["answers", "rm", "--id=g0"])
+        gone = _cli_run(app, ["answers", "get", "--id=g0"])
+
+        def rm_faults(rm, gone) -> list:
+            faults = [] if rm[0] == 0 else [f"rm exit {rm[0]}"]
+            if gone[0] != 1 or "error:" not in gone[2]:
+                faults.append(f"get after rm: exit {gone[0]} {gone[2]!r}")
+            return faults
+        checks["c_read_back"] = (
+            _cli_read_faults(printed, back) + rm_faults(rm, gone),
+            _cli_read_faults({victim: printed[victim]}, altered))
+        out["c"] = {"read_back": sum(v[0] == 0 for v in back.values()),
+                    "answers": len(printed), "rm_exit": rm[0],
+                    "get_after_rm": [gone[0], gone[2].strip()[:120]]}
+
+        # (d) help, -h, an unknown subcommand; help in a subprocess
+        helps = {"help": _cli_run(app, ["help"]),
+                 "-h": _cli_run(app, ["-h"]),
+                 "unknown": _cli_run(app, ["no-such-command"])}
+        script = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+                  "import chip_smoke; "
+                  "sys.exit(chip_smoke._cli_help_app().run())")
+        proc = subprocess.run([sys.executable, "-c", script, str(ROOT),
+                               "help"], capture_output=True, text=True,
+                              timeout=300)
+        helps["help (subprocess)"] = (proc.returncode, proc.stdout,
+                                      proc.stderr)
+        flipped = dict(helps)
+        flipped["-h"] = (2,) + helps["-h"][1:]
+        checks["d_help"] = (_cli_help_faults(helps),
+                            _cli_help_faults(flipped))
+        out["d"] = {k: v[0] for k, v in helps.items()}
+
+        # (e) the kernels of the batch; a canned handler touches none
+        @app.sub_command("canned", description="a canned answer")
+        def canned(ctx):
+            return {"answers": [{"id": "b0", "text": "canned"}]}
+        for fn in counters.values():
+            fn.launches = 0
+        _cli_run(app, ["canned"])
+        canned_launches = {name: int(fn.launches)
+                           for name, fn in counters.items()}
+        checks["e_launches"] = (_launch_faults(launches),
+                                _launch_faults(canned_launches))
+        out["launches"] = launches
+
+        def idle(fn, n: int = 30) -> dict:
+            times = []
+            for k in range(n):
+                t0 = time.perf_counter()
+                fn(k)
+                times.append((time.perf_counter() - t0) * 1000.0)
+            return _pcts(times)
+        out["timing"] = {
+            "card": smi_line,
+            "generate_wall_s": _pcts(gen_wall),
+            "generate_engine_ttft_s": _pcts([
+                r[1]["ttft_ms"] / 1000.0 for r in gen_runs
+                if r[1] is not None and r[1]["ttft_ms"] is not None]),
+            "batch_decode_tokens_per_s": _engine_rate(b_reqs),
+            "batch_engine_ttft_s": _pcts([r.ttft_ms / 1000.0 for r in b_reqs
+                                          if r.ttft_ms is not None]),
+            "store_ms_during_batch": {k: _pcts(v)
+                                      for k, v in load_ms.items()},
+            "store_ops_during_batch": {k: len(v)
+                                       for k, v in load_ms.items()},
+            "store_ms_idle": {
+                "ftp_write": idle(lambda k: c.file.create(
+                    f"idle-{k}.txt", "x" * 64)),
+                "ftp_read": idle(lambda k: c.file.read(f"idle-{k}.txt")),
+                "kv_set": idle(lambda k: c.kv.set(f"idle{k}", "x" * 64)),
+                "kv_get": idle(lambda k: c.kv.get(f"idle{k}"))},
+            "definition": f"generate: {CLI_GEN_RUNS} runs of one "
+            f"{direct['prompt_tokens']}-token prompt, {CLI_NEW} tokens, "
+            "wall of CMDApp.run; batch: 8 prompts of 21-1501 tokens in "
+            "flight on 8 slots; store times: one call's wall time, 30 "
+            "calls of each idle, and a thread calling them in turn "
+            "while batch runs"}
+        out["near_tie_judge_s"] = judge.seconds()
+    finally:
+        engine.stop()
+        for client in own:
+            client.close()
+        if app is not None:
+            for store in (app.container.file, app.container.kv):
+                close = getattr(store, "close", None)
+                if close is not None:
+                    close()
+        ftp_server.close()
+        brokers.run(js.close())
+        brokers.close()
+        judge.release()
+    del app, engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_cli: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
+
 # ---------------------------------------------------------------- trainer
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
 # (a) the trainer's first loss (plain float32 attention, bf16 products)
@@ -12675,6 +13153,7 @@ def main() -> int:
     phase_serve_ws(dev, smi_line)
     phase_serve_wire(dev, smi_line)
     phase_serve_stores(dev, smi_line)
+    phase_serve_cli(dev, smi_line)
     phase_train_llama(dev, smi_line)
     sources["serve_tp"] = phase_serve_tp(dev, smi_line)
     for row in rows:

@@ -3,7 +3,9 @@
 Mirrors the layout of ``gofr_tpu/`` (``ops/``, ``models/``,
 ``parallel/``, ``serving/``, and the framework: ``app.py``, ``http/``, ``handler.py``,
 ``context.py``, ``container/``, ``config/``, ``logging/``,
-``websocket/``, ``datasource/``, ``crud.py``, ``migrations/``) so each
+``websocket/``, ``datasource/``, ``crud.py``, ``migrations/``, ``cli/``,
+``analysis/``; every module of ``gofr_tpu/`` has its counterpart, JAX's
+``metrics/`` and ``service/`` packages as one module each) so each
 function's counterpart is found by name. The
 package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``gofr_tpu``: what it needs from there it keeps as its own copy.

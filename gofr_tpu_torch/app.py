@@ -51,7 +51,8 @@ How the port runs it:
   usage telemetry pings of start and stop (``telemetry.py``), as JAX's
   app does.
 
-Left for a later port: the CLI (``new_cmd``).
+``new_cmd`` builds the CLI application (``cli/cmd.CMDApp``): no servers,
+the same container, context and handlers, argv in place of HTTP.
 """
 
 from __future__ import annotations
@@ -670,7 +671,8 @@ class App:
 
         # remote log-level polling (reference container.go:107)
         from .logging.remote import from_config as remote_level_from_config
-        updater = remote_level_from_config(self.config, self.logger)
+        updater = remote_level_from_config(self.config, self.logger,
+                                           self.container.metrics)
         if updater is not None:
             self._tasks.append(asyncio.ensure_future(updater.run()))
 
@@ -798,4 +800,10 @@ def new_app(config_dir: str = "configs", config=None) -> App:
     return App(config_dir=config_dir, config=config)
 
 
-__all__ = ["App", "new_app"]
+def new_cmd(config_dir: str = "configs", config=None):
+    """CLI application factory (reference factory.go:81)."""
+    from .cli.cmd import CMDApp
+    return CMDApp(config_dir=config_dir, config=config)
+
+
+__all__ = ["App", "new_app", "new_cmd"]

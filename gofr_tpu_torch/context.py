@@ -22,8 +22,9 @@ request gone so its engine request is cancelled). ``headers`` and
 The datasources (``sql``, ``redis``, ``kv``, ``file``; the breadth
 stores through the ``__getattr__`` passthrough to the container) and
 the websocket surface (``write_message_to_socket``, a coroutine, and
-``ws_manager``) are JAX's. Left out until its module is ported: the CLI
-terminal.
+``ws_manager``) are JAX's. ``responder`` and ``terminal`` are JAX's too:
+under ``CMDApp`` (``cli/cmd.py``) they are the subcommand's
+``CMDResponder`` and the CLI's ``Out``; under ``App`` both are None.
 """
 
 from __future__ import annotations
@@ -35,9 +36,12 @@ from .logging.logger import ContextLogger
 
 
 class Context:
-    def __init__(self, request: Any, container: Container) -> None:
+    def __init__(self, request: Any, container: Container,
+                 responder: Any = None, terminal: Any = None) -> None:
         self.request = request
         self.container = container
+        self.responder = responder
+        self.terminal = terminal
         self.logger = ContextLogger(container.logger)
         self._auth_info: dict[str, Any] = {}
         self._ws_conn: Any = None  # set by the websocket message loop

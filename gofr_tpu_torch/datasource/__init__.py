@@ -47,8 +47,12 @@ layer) and :mod:`.dynamo_wire` (DynamoDB JSON 1.0 + SigV4). The HTTP
 Mini servers run the port's HTTP server on a thread of their own
 (:mod:`.miniserver`); the JSON clients share :mod:`._http`.
 
-Not ported yet: ``nats_kv``, ``ftp`` and ``sftp_wire`` with its SSH2
-transport.
+File and KV stores over the wire: :mod:`.ftp` (``FTPFileSystem`` on
+stdlib ``ftplib``, the ``SFTPFileSystem`` shim over an injected client,
+``MiniFTPServer``), :mod:`.nats_kv` (``NATSKV`` on JetStream buckets
+through :mod:`..pubsub.jetstream`) and :mod:`.sftp_wire` (SFTP v3 over
+the SSH2 transport of :mod:`.ssh_transport`, which needs
+``cryptography``; ``MiniSFTPServer``).
 """
 
 import time

@@ -145,10 +145,11 @@ class SQL(ProviderMixin):
         # explicit BEGIN so DDL rides the transaction too (sqlite's
         # legacy implicit-BEGIN mode auto-commits DDL, which would make
         # "transactional migrations" silently non-transactional)
-        self._conn = sqlite3.connect(self.database,
-                                     check_same_thread=False,
-                                     isolation_level=None)
-        self._conn.row_factory = sqlite3.Row
+        conn = sqlite3.connect(self.database, check_same_thread=False,
+                               isolation_level=None)
+        conn.row_factory = sqlite3.Row
+        with self._lock:
+            self._conn = conn
         if self.logger is not None:
             self.logger.info("connected to SQL",
                              dialect=self.dialect, database=self.database)

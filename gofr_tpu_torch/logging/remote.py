@@ -90,7 +90,8 @@ class RemoteLevelUpdater:
             await asyncio.sleep(self.interval_s)
 
 
-def from_config(config: Any, logger: Any) -> RemoteLevelUpdater | None:
+def from_config(config: Any, logger: Any,
+                metrics: Any = None) -> RemoteLevelUpdater | None:
     """Build the updater when REMOTE_LOG_URL is configured (reference
     container.go:107 wires remotelogger.New the same way)."""
     url = config.get_or_default("REMOTE_LOG_URL", "")
@@ -109,6 +110,7 @@ def from_config(config: Any, logger: Any) -> RemoteLevelUpdater | None:
     parts = urlsplit(url)
     base = f"{parts.scheme}://{parts.netloc}"
     path = parts.path + (f"?{parts.query}" if parts.query else "")
-    service = HTTPService(base, timeout=10.0)
+    service = HTTPService(base, logger=logger, metrics=metrics,
+                          timeout=10.0, service_name="remote-logger")
     return RemoteLevelUpdater(logger, service, path=path,
                               interval_s=interval)

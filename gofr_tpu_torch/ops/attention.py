@@ -127,11 +127,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qr = q.float().reshape(b, sq, hkv, group, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qr, k_cache.float()) * scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qr, k_cache.float()) * scale  # gofrlint: allow(kv-quant-boundary) -- torch.einsum has no preferred_element_type: the float32 operand is JAX's preferred_element_type=float32 product (gofr_tpu/ops/attention.py:138), exact for bf16 rows; plain path
     mask = torch.arange(smax, device=q.device)[None, :] < kv_lengths[:, None]
     logits = logits.masked_fill(~mask[:, None, None, None, :], NEG_INF)
     weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v_cache.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v_cache.float())  # gofrlint: allow(kv-quant-boundary) -- torch.einsum has no preferred_element_type: the float32 operand is JAX's preferred_element_type=float32 product (gofr_tpu/ops/attention.py:143); plain path
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
@@ -146,7 +146,7 @@ def _decode_attention_blocked(q, k_cache, v_cache, kv_lengths, scale,
     for start in range(0, smax, block):
         stop = min(start + block, smax)
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qr,
-                              k_cache[:, start:stop].float()) * scale
+                              k_cache[:, start:stop].float()) * scale  # gofrlint: allow(kv-quant-boundary) -- one block's float32 operand, as JAX's preferred_element_type=float32 (gofr_tpu/ops/attention.py:138); plain path
         cols = torch.arange(start, stop, device=q.device)
         masked = cols[None, :] >= kv_lengths[:, None]
         # a scalar fill: nothing crosses from the host (the step is
@@ -156,7 +156,7 @@ def _decode_attention_blocked(q, k_cache, v_cache, kv_lengths, scale,
         m_new = peak if m is None else torch.maximum(m, peak)
         p = torch.exp(logits - m_new)
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p,
-                          v_cache[:, start:stop].float())
+                          v_cache[:, start:stop].float())  # gofrlint: allow(kv-quant-boundary) -- one block's float32 operand, as JAX's preferred_element_type=float32 (gofr_tpu/ops/attention.py:143); plain path
         if m is None:
             total, acc = p.sum(-1, keepdim=True), pv
         else:

@@ -81,7 +81,10 @@ class GooglePubSubClient:
     def _service(self):
         if self._http is None:
             from ..service import HTTPService
-            self._http = HTTPService(self.endpoint, timeout=self.timeout)
+            self._http = HTTPService(self.endpoint, timeout=self.timeout,
+                                     logger=self.logger,
+                                     metrics=self.metrics,
+                                     service_name="google-pubsub")
         return self._http
 
     async def _call(self, method: str, path: str, payload: dict | None,

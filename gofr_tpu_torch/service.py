@@ -29,10 +29,12 @@ close``. The agent's heartbeat thread and the router's request threads
 call it directly. :func:`probe_leader` / :func:`resolve_leader` walk the
 ranked leader candidates' ``GET /control/leader``.
 
-Left out: the ``app_http_service_response`` histogram and debug log of
-each call, and the circuit breaker's background health probe (a
-synchronous client has no loop to run it; the half-open trial request
-recovers the circuit).
+Each call records its seconds (``time.perf_counter``) in the
+``app_http_service_response`` histogram under its ``service`` and
+``method`` when the service has metrics, and a debug line when it has a
+logger, as JAX's client does. Left out: the circuit breaker's background
+health probe (a synchronous client has no loop to run it; the half-open
+trial request recovers the circuit).
 """
 
 from __future__ import annotations
@@ -329,10 +331,15 @@ class HTTPService:
     span's ``traceparent`` when it has a tracer."""
 
     def __init__(self, base_url: str, *options: Option,
-                 timeout: float = 30.0, tracer: Any = None) -> None:
+                 timeout: float = 30.0, logger: Any = None,
+                 metrics: Any = None, tracer: Any = None,
+                 service_name: str = "") -> None:
         self.base_url = base_url.rstrip("/")
         self.timeout = timeout
+        self.logger = logger
+        self.metrics = metrics
         self.tracer = tracer
+        self.service_name = service_name or urlsplit(base_url).netloc
         self.options = list(options)
         self.health = next((o for o in self.options
                             if isinstance(o, HealthConfig)), HealthConfig())
@@ -363,7 +370,20 @@ class HTTPService:
         call: Call = base_call
         for opt in reversed(self.options):
             call = self._wrap(opt, call)
-        return call(method, path, hdrs, body)
+        start = time.perf_counter()
+        try:
+            resp = call(method, path, hdrs, body)
+        finally:
+            elapsed = time.perf_counter() - start
+            if self.metrics is not None:
+                self.metrics.record_histogram(
+                    "app_http_service_response", elapsed,
+                    service=self.service_name, method=method)
+        if self.logger is not None:
+            self.logger.debug(
+                f"{method} {self.service_name}{path} -> {resp.status} "
+                f"({elapsed * 1000:.1f}ms)")
+        return resp
 
     @staticmethod
     def _wrap(opt: Option, call: Call) -> Call:

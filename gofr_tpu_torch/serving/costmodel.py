@@ -38,6 +38,8 @@ import threading
 import time
 from typing import Any
 
+from ..analysis.annotations import hot_path_boundary
+
 #: bounded per-signature table — the shape space is tiny by design
 #: (compiled buckets/windows), so hitting this means a recompile storm
 #: the RecompileSentinel is already screaming about; overflow durations
@@ -97,6 +99,12 @@ class CostModel:
         self.overflow = 0
 
     # ------------------------------------------------------------ writer
+    @hot_path_boundary(
+        "cost-model fold at the collect boundary: a handful of host "
+        "float updates (EWMA/variance/running totals) over the pass "
+        "duration the collect already measured; drift decisions are "
+        "pure count-driven compares — no clocks, no RNG, no device "
+        "reads")
     def observe(self, kind: str, sig: str, dur_s: float, *,
                 rows: int = 0, tokens: int = 0,
                 skew_s: float = 0.0) -> dict | None:

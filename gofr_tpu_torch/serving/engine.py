@@ -199,6 +199,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis.annotations import hot_path, hot_path_boundary
 from ..ops.paged_kv import (KV_DTYPES, gather_view, pool_move_rows,
                             pool_row_bytes, scatter_chunk_kv,
                             scatter_decode_kv)
@@ -1654,6 +1655,9 @@ class Engine:
             self._admitting = True
         return popped
 
+    @hot_path_boundary(
+        "starvation-triggered preemption decision at the admission "
+        "boundary; rate-capped by the scheduler, not steady-state")
     def _sched_starvation_preempt(self) -> bool:
         """With the batch full: when the scheduler reports an
         interactive request starving (``starvation_s``, rate-capped by
@@ -1681,12 +1685,16 @@ class Engine:
         sched.note_preempted()
         return True
 
+    @hot_path_boundary(
+        "terminal error path; observability assembly mirrors _retire")
     def _fail(self, req: GenRequest, error: str) -> None:
         req.error = error
         req.finished_at = time.time()
         self._finalize_obs(req)
         req._end()
 
+    @hot_path_boundary(
+        "lifecycle refusal path (drain/crash window), not steady-state")
     def _refuse(self, req: GenRequest, code: str, detail: str, *,
                 retry_after_s: float = 1.0) -> None:
         """Fail ``req`` with a typed reject, the scheduler's
@@ -1790,6 +1798,9 @@ class Engine:
         except Exception:  # noqa: BLE001 — the answer is "lost"
             return True
 
+    @hot_path_boundary(
+        "device-loss recovery path: the engine is already off the fast "
+        "path when this runs")
     def _recover_lost_cache(self, exc: BaseException) -> None:
         """After a failed prefill: if the cache went with it
         (``_kv_lost``), fail every active stream honestly and reset the
@@ -1813,6 +1824,9 @@ class Engine:
             self._page_refs[page] = 0
             self._free_pages.append(page)
 
+    @hot_path_boundary(
+        "pool-pressure eviction event; runs only after an allocation "
+        "already missed")
     def _evict_prefix_entries(self, pages_needed: int) -> None:
         """Drop cache entries, least recently used first, until the free
         list holds ``pages_needed`` pages or the cache is empty."""
@@ -1881,6 +1895,9 @@ class Engine:
                               key=lambda i: self.active[i].admit_order))
         return True
 
+    @hot_path_boundary(
+        "event-driven eviction; its host work is amortized over the "
+        "recompute prefill it schedules, not paid per pass")
     def _preempt(self, slot: int) -> None:
         """Evict ``slot``'s request and keep it alive: its pages go back
         now, and it re-enters the requeued lane with its original prompt
@@ -1920,6 +1937,9 @@ class Engine:
         req.prefill_offset = 0
         self._requeue(req)
 
+    @hot_path_boundary(
+        "event-driven backpressure bookkeeping (admission races, pool "
+        "pressure), not steady-state")
     def _requeue(self, req: GenRequest) -> None:
         if id(req) not in self._requeued_set:
             self._requeued_set.add(id(req))
@@ -1984,6 +2004,11 @@ class Engine:
         self._cached_pages += n
         self._prefix_digest_dirty = True
 
+    @hot_path_boundary(
+        "prefix-digest assembly at the throttled gauge cadence: host-"
+        "side hashing over cache keys already resident, skipped "
+        "entirely unless a cache mutation set the dirty flag, published"
+        " by atomic reference swap for the heartbeat thread")
     def _refresh_prefix_digest(self) -> None:
         """Rebuild the fleet router's digest if the prefix cache changed
         since the last gauge pass: one truncated content hash per
@@ -2121,6 +2146,7 @@ class Engine:
             top_ks[row] = req.params.top_k
         return temps, top_ps, top_ks
 
+    @hot_path
     def _prefill_group(self, bucket: int, chunk: list[GenRequest]) -> None:
         """Place each request of ``chunk`` in a free slot, on the paged
         layout with pages for prompt + 1 rows (requeued when no slot or
@@ -2167,7 +2193,7 @@ class Engine:
             tables[row] = self._tables[req.slot]
         t0 = time.perf_counter()
         self.goodput.note_dispatch(t0)
-        wall0 = time.time()
+        wall0 = time.time()  # gofrlint: allow(hot-path-purity) -- span timestamps use wall clock; once per prefill dispatch, never per decode pass
         try:
             first, ready = self._op(
                 "prefill", tokens, kv_len, tables, [r.slot for r in placed],
@@ -2180,7 +2206,7 @@ class Engine:
                 self._release_pages(req.slot)
                 self._fail(req, str(exc))
             if self.logger is not None:
-                self.logger.error(f"prefill failed: {exc!r}")
+                self.logger.error(f"prefill failed: {exc!r}")  # gofrlint: allow(hot-path-purity) -- failure path: the prefill already raised; the engine is off the fast path
             self._recover_lost_cache(exc)
             return
         self.stats["prefill_calls"] += 1
@@ -2194,6 +2220,7 @@ class Engine:
             "epochs": [r.prefill_epoch for r in placed], "t0": t0,
             "wall0": wall0, "bucket": bucket, "group": p})
 
+    @hot_path
     def _op_prefill(self, tokens: np.ndarray, kv_len: np.ndarray,
                     tables: np.ndarray, slots: list[int], row_arrays: tuple,
                     all_greedy: bool):
@@ -2226,7 +2253,7 @@ class Engine:
                              torch.zeros_like(kv_len), kv_len)
             return
         n, width = len(slots), k.shape[2]
-        index = self._upload(np.asarray(slots, np.int64))
+        index = self._upload(np.fromiter(slots, np.int64, n))
         self.k_cache[:, index, :width] = k[:, :n].to(self.k_cache.dtype)
         self.v_cache[:, index, :width] = v[:, :n].to(self.v_cache.dtype)
 
@@ -2243,6 +2270,7 @@ class Engine:
         ready.record()
         return host, ready
 
+    @hot_path
     def _collect_prefills(self) -> None:
         """Emit the first tokens of the batch prefills in flight and open
         their slots for decode. A row whose request was preempted,
@@ -2254,8 +2282,8 @@ class Engine:
             rec = self._pending_prefills.popleft()
             try:
                 if rec["ready"] is not None:
-                    rec["ready"].synchronize()
-                first = rec["toks"].numpy()
+                    rec["ready"].synchronize()  # gofrlint: allow(hot-path-purity) -- this sync IS the prefill collect: first tokens cross to host here by design
+                first = rec["toks"].numpy()  # gofrlint: allow(hot-path-purity) -- this sync IS the prefill collect: first tokens cross to host here by design
             except Exception as exc:  # noqa: BLE001 — fail this group only
                 for req, slot, epoch in zip(rec["placed"], rec["slots"],
                                             rec["epochs"]):
@@ -2268,11 +2296,11 @@ class Engine:
                     if req.finished_at is None:
                         self._fail(req, str(exc))
                 if self.logger is not None:
-                    self.logger.error(f"prefill failed: {exc!r}")
+                    self.logger.error(f"prefill failed: {exc!r}")  # gofrlint: allow(hot-path-purity) -- failure path: device collect raised; slots are being failed, not served
                 self._recover_lost_cache(exc)
                 continue
             self._note_prefill_span(rec["t0"])
-            now = time.time()
+            now = time.time()  # gofrlint: allow(hot-path-purity) -- wall-clock span assembly at the prefill collect boundary, once per batch
             pass_dur = time.perf_counter() - rec["t0"]
             pass_share = pass_dur / len(rec["placed"])
             group, bucket = rec["group"], rec["bucket"]
@@ -2330,10 +2358,10 @@ class Engine:
                 self.faults.trip("logit_corrupt", req.tenant):
             token = self._corrupt_token(token)
         if req.first_token_at is None:
-            now = time.time()
+            now = time.time()  # gofrlint: allow(hot-path-purity) -- first-token boundary of a finished walk: once per request lifetime
             req.first_token_at = now
             if self.metrics is not None:
-                self.metrics.record_histogram(
+                self.metrics.record_histogram(  # gofrlint: allow(hot-path-purity) -- TTFT observation at the walk's collect boundary, once per request lifetime
                     "app_chat_ttft_seconds", now - req.submitted_at,
                     exemplar_trace_id=req.trace[0] if req.trace else None)
         req.generated.append(token)
@@ -2344,6 +2372,7 @@ class Engine:
             self._retire(req.slot)
 
     # ---------------------------------------------------------- chunk walk
+    @hot_path
     def _walk_chunks(self, pairs: list) -> None:
         """Walk the prompts of ``pairs`` (request, slot) chunk by chunk:
         up to ``prefill_chunks_per_pass`` rounds, each grouping the live
@@ -2441,7 +2470,7 @@ class Engine:
                 r.pending_prefill = False
                 self._fail(r, str(exc))
             if self.logger is not None:
-                self.logger.error(f"chunked prefill failed: {exc!r}")
+                self.logger.error(f"chunked prefill failed: {exc!r}")  # gofrlint: allow(hot-path-purity) -- failure path: the chunk dispatch raised; rows are being failed, not served
             self._recover_lost_cache(exc)
         self._note_prefill_span(start)
         self._update_kv_watermarks()
@@ -2472,7 +2501,7 @@ class Engine:
         self._note_dispatch_shape("chunk", width, g, window or None)
         c0 = time.perf_counter()
         self.goodput.note_dispatch(c0)
-        w0 = time.time()
+        w0 = time.time()  # gofrlint: allow(hot-path-purity) -- span timestamps use wall clock; once per chunk dispatch (the walk is synchronous by design)
         toks = self._op("chunk", tokens, [r.slot for r in group], tables,
                         offsets, lens, window, self._row_arrays(group, g),
                         _all_greedy(group))
@@ -2494,7 +2523,7 @@ class Engine:
                                  len(group) - recomp, recomp)
         self._note_pass_cost("chunk", sig, c_dur, rows=len(group),
                              tokens=g * width)
-        w1 = time.time()
+        w1 = time.time()  # gofrlint: allow(hot-path-purity) -- span timestamps use wall clock; once per chunk dispatch
         share = c_dur / len(group)
         for row, req in enumerate(group):
             req.device_s += share
@@ -2508,9 +2537,10 @@ class Engine:
             req.prefill_offset += int(lens[row])
             if req.prefill_offset >= len(req.prompt_tokens):
                 if first is None:            # the walk's collect
-                    first = toks.cpu().numpy()
+                    first = toks.cpu().numpy()  # gofrlint: allow(hot-path-purity) -- this sync IS the walk's collect: finished walkers' first tokens cross to host here
                 self._first_token(req, int(first[row]))
 
+    @hot_path
     def _op_chunk(self, tokens: np.ndarray, slots: list[int],
                   tables: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
                   window: int, row_arrays: tuple,
@@ -2549,8 +2579,8 @@ class Engine:
             return (gather_view(self.k_cache, tables, self._view_dtype),
                     gather_view(self.v_cache, tables, self._view_dtype),
                     tables)
-        index = self._upload(np.asarray(
-            slots + [slots[0] if slots else 0] * (g - len(slots)), np.int64))
+        rows = slots + [slots[0] if slots else 0] * (g - len(slots))
+        index = self._upload(np.fromiter(rows, np.int64, g))
         return (self.k_cache.index_select(1, index),
                 self.v_cache.index_select(1, index), tables)
 
@@ -2567,8 +2597,8 @@ class Engine:
                               offsets, width)
             return
         if slots:
-            index = self._upload(np.asarray(slots, np.int64))
             n = len(slots)
+            index = self._upload(np.fromiter(slots, np.int64, n))
             self.k_cache.index_copy_(1, index, k[:, :n])
             self.v_cache.index_copy_(1, index, v[:, :n])
 
@@ -2624,6 +2654,11 @@ class Engine:
             self._dense_write_back(k, v, slots, tables, offsets, width)
         return n_acc, bonus, path
 
+    @hot_path_boundary(
+        "speculative verify collect: the accept/path/bonus download IS "
+        "the pass's sanctioned device sync, and the controller/ledger "
+        "bookkeeping is priced against the multi-token verify pass it "
+        "rides, not per decode pass")
     def _op_verify(self, tokens: np.ndarray, parents: np.ndarray,
                    depths: np.ndarray, masks: np.ndarray, slots: list[int],
                    tables: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
@@ -2648,6 +2683,10 @@ class Engine:
             return True
         return len(req.generated) >= req.params.max_new_tokens
 
+    @hot_path_boundary(
+        "terminal per-request path: host-side span/metric/ledger "
+        "assembly at retire is the architecture; runs once per request, "
+        "never per pass")
     def _retire(self, slot: int) -> None:
         req = self.active[slot]
         if req is None:
@@ -2694,6 +2733,7 @@ class Engine:
                        if r is not None and not r.pending_prefill)
         return 1 if decoding >= cfg.pipeline_min_slots else 0
 
+    @hot_path
     def _decode_step(self) -> None:
         """Dispatch one decode pass, then collect until at most the
         pipeline depth stays in flight; with nothing to dispatch (every
@@ -2707,10 +2747,12 @@ class Engine:
             while len(self._pending) > depth:
                 self._decode_collect()
 
+    @hot_path
     def _drain_pending(self) -> None:
         while self._pending:
             self._decode_collect()
 
+    @hot_path
     def _sync_decode_state(self) -> None:
         """Rebuild and upload the per-slot arrays the decode dispatch
         reads, row = slot. Called only when an event set
@@ -2750,12 +2792,14 @@ class Engine:
         self.stats["sched_syncs"] += 1
         self._sched_dirty = False
 
+    @hot_path
     def _sync_tables(self) -> None:
         """Upload the block tables, only when a page was allocated,
         released or attached since the last upload."""
         self._note_uploads(self._op("upload", {"tables": self._tables}))
         self._tables_dirty = False
 
+    @hot_path
     def _op_upload(self, arrays: dict) -> int:
         """Host arrays into the decode graph's buffers (``upload``)."""
         return self._decode_graph.upload(**arrays)
@@ -2765,7 +2809,7 @@ class Engine:
         in a steady-state pass)."""
         self.stats["h2d_transfers"] += n
         if self.metrics is not None and n:
-            self.metrics.add_counter("app_engine_h2d_transfers", float(n))
+            self.metrics.add_counter("app_engine_h2d_transfers", float(n))  # gofrlint: allow(hot-path-purity) -- event-driven upload (sched sync, page growth): this write records the h2d-invariant counter (zero per steady-state pass)
 
     def _note_graph_stats(self) -> None:
         graph = self._decode_graph
@@ -2773,6 +2817,7 @@ class Engine:
         self.stats["graph_replays"] = graph.replays
         self.stats["graph_capture_s"] = graph.capture_s
 
+    @hot_path
     def _decode_dispatch(self) -> None:
         """Launch one decode dispatch without waiting for it: sweep the
         unservable slots, on the paged layout grow every decoding slot's
@@ -2795,8 +2840,8 @@ class Engine:
             if not self._ensure_headroom(i, rows):
                 self._preempt(i)     # the pool cannot hold even this one
         host0 = time.perf_counter()
-        mask = np.array([r is not None and not r.pending_prefill
-                         for r in self.active])
+        mask = np.fromiter((r is not None and not r.pending_prefill
+                            for r in self.active), bool, len(self.active))
         if not mask.any():
             return
         if self._sched_dirty:
@@ -2825,11 +2870,13 @@ class Engine:
                               "h2d": self.stats["h2d_transfers"] - h2d0})
         self.stats["dispatch_s"] += disp
 
+    @hot_path
     def _op_launch(self, all_greedy: bool, window: int) -> int:
         """Start one decode dispatch (``DecodeGraph.launch``)."""
         return self._decode_graph.launch(self.k_cache, self.v_cache,
                                          all_greedy, window)
 
+    @hot_path
     def _op_collect(self, handle: int) -> np.ndarray:
         """Wait for a dispatch's tokens [T, rows] (``DecodeGraph.collect``),
         checked across the ranks of a mesh."""
@@ -2844,6 +2891,7 @@ class Engine:
         way and bound nothing), else 0: the full graph."""
         return next((w for w in self._decode_windows if needed <= w), 0)
 
+    @hot_path
     def _decode_collect(self) -> None:
         """Wait for the oldest dispatch in flight, emit its tokens and
         retire the slots it finished. A row whose request was retired or
@@ -2862,8 +2910,8 @@ class Engine:
         self.stats["decode_s"] += busy
         occupancy = int(rec["mask"].sum())
         if self.metrics is not None:
-            self.metrics.record_histogram("app_gpu_execute_seconds", busy)
-            self.metrics.record_histogram("app_engine_batch_occupancy",
+            self.metrics.record_histogram("app_gpu_execute_seconds", busy)  # gofrlint: allow(hot-path-purity) -- per-pass observation at the collect sync point, host floats already paid for
+            self.metrics.record_histogram("app_engine_batch_occupancy",  # gofrlint: allow(hot-path-purity) -- per-pass observation at the collect sync point, host floats already paid for
                                           float(occupancy))
         self._step_count += 1
         # the pass's peak, before its retires free pages
@@ -2940,6 +2988,10 @@ class Engine:
             self._spec_toggle = True
             self._decode_step()
 
+    @hot_path_boundary(
+        "drafting policy: O(1)-amortized n-gram index maintenance plus "
+        "controller pricing, host work that runs only for greedy slots "
+        "on a speculation pass — never inside the plain decode pass")
     def _draft_proposals(self, req: GenRequest):
         """Prompt-lookup drafting on the request's incremental n-gram
         index: the stream's final n-gram proposes up to
@@ -2985,6 +3037,11 @@ class Engine:
             max_nodes=min(1 + cfg.spec_draft * cfg.spec_branches, room))
         return tree if tree.n_draft else []
 
+    @hot_path_boundary(
+        "speculative verify collect: the accept/path/bonus download IS "
+        "the pass's sanctioned device sync, and the controller/ledger "
+        "bookkeeping is priced against the multi-token verify pass it "
+        "rides, not per decode pass")
     def _spec_pass(self, proposals: dict[int, DraftTree]) -> None:
         """One tree-verify pass over every decoding slot (``proposals``:
         slot -> its draft tree); a slot without a tree rides along as a
@@ -3147,6 +3204,9 @@ class Engine:
         ``chunk/1024/1/None``, ``spec_verify/8``."""
         return "/".join(str(p) for p in self._sig(*parts))
 
+    @hot_path_boundary(
+        "O(1) host set probe per dispatch; the metric/log fire only on "
+        "an anomalous post-warmup recompile")
     def _note_dispatch_shape(self, *parts: Any) -> None:
         """The recompile sentinel at every dispatch: a shape the sealed
         warmup never ran is counted and WARNed once."""
@@ -3162,6 +3222,11 @@ class Engine:
                              "warmup never ran it", signature=text)
         self.events.emit("obs.recompile", severity="warn", signature=text)
 
+    @hot_path_boundary(
+        "cost-model fold at the collect boundary: host float EWMA "
+        "updates over the pass duration the collect already measured; "
+        "the event/metric/WARN/incident and the profiler arm fire only "
+        "on a rare drift-episode entry")
     def _note_pass_cost(self, kind: str, sig: str, dur: float, *,
                         rows: int = 0, tokens: int = 0) -> None:
         """Feed one collected pass to the cost model with the duration
@@ -3246,6 +3311,12 @@ class Engine:
         if self._draining or not self.waiting.put(req):
             self.integrity.probe_aborted()
 
+    @hot_path_boundary(
+        "integrity fold at the retire boundary: one blake2b over token "
+        "ids the collects already emitted plus host dict bookkeeping "
+        "for probe results; the WARN/event/metric/incident fire only on"
+        " a rare probe-mismatch episode entry — runs once per request, "
+        "never per pass")
     def _note_integrity(self, req: GenRequest) -> None:
         """Stamp the request's digest; for a golden probe, re-price its
         device time to ``integrity_probe`` waste and record its result
@@ -3304,6 +3375,9 @@ class Engine:
         if len(req.events) < 64:
             req.events.append((name, t0, t1, attrs or {}))
 
+    @hot_path_boundary(
+        "admission boundary: closes the queue-wait span exactly once "
+        "per request")
     def _note_admitted(self, req: GenRequest) -> None:
         """The first slot assignment ends the queue wait (a recompute
         keeps the first one)."""

@@ -48,6 +48,8 @@ import time
 from collections import Counter, OrderedDict
 from dataclasses import dataclass
 
+from ..analysis.annotations import hot_path_boundary
+
 #: header contract, mirroring WORKLOAD_FORMAT/WORKLOAD_VERSION
 EVENTS_FORMAT = "gofr-events"
 EVENTS_VERSION = 1
@@ -139,6 +141,12 @@ class EventLedger:
             return len(self._ring)
 
     # ------------------------------------------------------------- emit
+    @hot_path_boundary(
+        "event emission: only invoked from sites that already declared "
+        "a boundary (admission, preemption, recovery, fault trips, "
+        "fleet transitions) — the dict build and ring rotation here are"
+        " host-side; the disabled NO_EVENTS singleton returns before "
+        "the lock")
     def emit(self, kind: str, *, severity: str = "info",
              request_id=None, tenant=None, trace_id=None, epoch=None,
              cause=None, t: float | None = None, **attrs):

@@ -92,6 +92,7 @@ import os
 import time
 from dataclasses import dataclass, field
 
+from ..analysis.annotations import hot_path_boundary
 from .events import NO_EVENTS
 
 SITES = frozenset({
@@ -175,6 +176,11 @@ class FaultPlan:
                  "seen": s.seen} for s in self.specs]
 
     # ----------------------------------------------------------- firing
+    @hot_path_boundary(
+        "fault injection: when a plan is armed, the raise/sleep/counter"
+        " work here IS the injected fault — sites guard with 'plan is "
+        "not NO_FAULTS' so the disabled default pays one identity "
+        "comparison")
     def trip(self, site: str, request_id=None) -> bool:
         """Count one invocation of ``site`` and fire if a spec's window
         covers it. Raises :class:`InjectedFault` for the raise sites,

@@ -33,6 +33,8 @@ import json
 import struct
 from typing import Any
 
+from ..analysis.annotations import hot_path_boundary
+
 #: digest recipe version — bumped when the fold's byte layout changes,
 #: so a fleet mid-rollout never votes v1 digests against v2 digests
 DIGEST_VERSION = 1
@@ -247,6 +249,11 @@ class IntegrityPlane:
         self.probe_device_s = 0.0
 
     # ------------------------------------------------------------ folds
+    @hot_path_boundary(
+        "digest fold at the retire boundary: one blake2b over token ids"
+        " the collects already emitted plus a handful of host dict "
+        "updates for probe results — runs once per request, never per "
+        "pass; the purity walk stops here by design")
     def fold(self, req: Any) -> str:
         """Fingerprint one retired request (stamps ``req.digest``) and,
         when the request is a golden probe, compare against the sealed

@@ -1323,19 +1323,21 @@ class ProfilerCapture:
                             "error": f"{type(exc).__name__}: {exc}"}
                 if self.logger is not None:
                     self.logger.warn(f"profiler force-stop swallowed: {exc!r}")
-                self._release(path)
+                self._release_locked(path)
                 return {"ok": True, "recovered": True, "dir": path,
                         "error": f"{type(exc).__name__}: {exc}"}
             # running until the trace is written
             self._active_dir = self._started_at = None
-            self._release(path)
+            self._release_locked(path)
             if self.logger is not None:
                 self.logger.info(f"profiler capture stopped: {path}")
             return {"ok": True, "dir": path,
                     "duration_s": round(time.time() - started, 3)
                     if started else None}
 
-    def _release(self, path: str) -> None:
+    def _release_locked(self, path: str) -> None:
+        """Drop the held profile and the process-wide claim on ``path``;
+        the caller holds ``self._lock`` (``stop``)."""
         self._profile = None
         with _ACTIVE_LOCK:
             if _ACTIVE_CAPTURE["dir"] == path:

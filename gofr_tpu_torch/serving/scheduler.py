@@ -40,6 +40,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..analysis.annotations import hot_path_boundary
 from .events import NO_EVENTS
 
 
@@ -452,6 +453,9 @@ class Scheduler:
                          retry_after_s=round(retry_after_s, 3))
         return False
 
+    @hot_path_boundary(
+        "admission boundary: runs on submitter threads before any work "
+        "reaches the engine loop")
     def put(self, item: Any) -> bool:
         """Admit or refuse one request. False = refused; a typed
         :class:`SchedReject` is stamped on the request for every
@@ -627,6 +631,9 @@ class Scheduler:
                          cause="starvation")
 
     # ----------------------------------------------------------- retire
+    @hot_path_boundary(
+        "retire boundary: per-tenant burn bookkeeping fed from "
+        "_finalize_obs, off the decode loop")
     def note_retire(self, tenant: str | None, good: bool,
                     t: float | None = None) -> None:
         """Record one retired request's SLO verdict against its

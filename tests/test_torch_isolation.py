@@ -23,7 +23,8 @@ PKG = Path(gofr_tpu_torch.__file__).parent
 REPO = PKG.parent
 #: the port's modules plus the scripts that drive it on the card
 PORT_FILES = sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py",
+    REPO / "scripts" / "torch_lint.py"]
 #: ml_dtypes: the card's machine has none, and the port reads bf16 bytes
 #: without it
 FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "gofr_tpu", "ml_dtypes")
@@ -198,3 +199,26 @@ def test_build_hash_covers_the_headers_a_kernel_includes(tmp_path,
     assert after["paged_decode"] == before["paged_decode"]   # no include
     assert after["kv_write"] == before["kv_write"]           # no include
     assert after["wq_gemm"] != before["wq_gemm"]   # its wgmma helpers
+
+
+#: JAX packages the port keeps as one module each
+PACKAGE_AS_MODULE = {"metrics": "metrics.py", "service": "service.py"}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each ``gofr_tpu/**/*.py`` has a file of the same path in the port,
+    or its package is one module there (``PACKAGE_AS_MODULE``); a JAX
+    module added without a counterpart fails this."""
+    jax_pkg = REPO / "gofr_tpu"
+    missing = []
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg)
+        if (PKG / rel).exists():
+            continue
+        if PACKAGE_AS_MODULE.get(rel.parts[0]) and \
+                (PKG / PACKAGE_AS_MODULE[rel.parts[0]]).exists():
+            continue
+        missing.append(rel.as_posix())
+    assert missing == []
+    assert all((jax_pkg / name).is_dir() and not (PKG / name).is_dir()
+               for name in PACKAGE_AS_MODULE)

@@ -282,3 +282,45 @@ def test_verbs_equal_jax(server, verb):
         assert json.loads(seen[0]["body"]) == {"v": 1}
         assert seen[0]["headers"]["content-type"] == "application/json"
     assert p_res[0].json() == j_res[0].json() == {"ok": True}
+
+
+@pytest.mark.parametrize("path", ["/ok", "/fail"])
+def test_each_call_records_service_response_like_jax(server, path):
+    """Every call, answered or failed with a status, records one sample
+    of ``app_http_service_response`` under the service and the method,
+    and one debug line, on both packages."""
+    from gofr_tpu.container.container import Container as JaxContainer
+    from gofr_tpu.logging.logger import DEBUG as JAX_DEBUG
+    from gofr_tpu.logging.logger import MockLogger as JaxMockLogger
+    from gofr_tpu_torch.container.container import Container
+    from gofr_tpu_torch.logging.logger import DEBUG, MockLogger
+
+    got = {}
+    for side, cont_cls, mod, logger in (
+            ("jax", JaxContainer, jax_client, JaxMockLogger(level=JAX_DEBUG)),
+            ("port", Container, port_client, MockLogger(level=DEBUG))):
+        c = cont_cls(logger=logger)
+        c.register_framework_metrics()
+        svc = mod.HTTPService(server.url, metrics=c.metrics, logger=logger,
+                              service_name="billing")
+        resp = svc.post(path, json={"n": 1})
+        if side == "jax":
+            resp = asyncio.run(resp)
+        got[side] = (
+            resp.status,
+            c.metrics.get_histogram_count("app_http_service_response",
+                                          service="billing", method="POST"),
+            c.metrics.get_histogram_count("app_http_service_response",
+                                          service="billing", method="GET"),
+            [line["message"].split(" (")[0] for line in logger.lines
+             if line["level"] == "DEBUG"])
+    assert got["port"] == got["jax"]
+    assert got["port"][1:3] == (1, 0)
+    assert got["port"][3] == [f"POST billing{path} -> {got['port'][0]}"]
+
+
+def test_service_name_defaults_to_the_host_and_port(server):
+    svc = port_client.HTTPService(server.url)
+    jax_svc = jax_client.HTTPService(server.url)
+    assert svc.service_name == jax_svc.service_name == \
+        server.url.split("//")[1]

@@ -8,10 +8,10 @@ then seeded sessions of random operations on each family give the same
 outcomes on both.
 """
 
-import importlib
-
 import numpy as np
 import pytest
+
+from .torch_wire import Side as _Side
 
 SIDES = ["port", "jax"]
 #: the modules a side's names resolve from, in order
@@ -21,25 +21,8 @@ _MODULES = ("datasource.document", "datasource.columnar", "datasource.graph",
             "config.env", "datasource.sql", "pubsub.inmemory", "context")
 
 
-class Side:
-    """One package's names: ``S.Mongo``, ``S.Container``, ``S.run`` ...
-    resolve on the first of ``_MODULES`` that has them."""
-
-    def __init__(self, side: str) -> None:
-        self.name = side
-        self.package = "gofr_tpu_torch" if side == "port" else "gofr_tpu"
-
-    def module(self, dotted: str):
-        return importlib.import_module(f"{self.package}.{dotted}")
-
-    def __getattr__(self, name: str):
-        if name.startswith("_"):
-            raise AttributeError(name)
-        for dotted in _MODULES:
-            module = self.module(dotted)
-            if hasattr(module, name):
-                return getattr(module, name)
-        raise AttributeError(name)
+def Side(side: str) -> _Side:
+    return _Side(side, _MODULES)
 
 
 @pytest.fixture(params=SIDES)

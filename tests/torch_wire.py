@@ -39,6 +39,9 @@ MODULES = {
     "dgraph": "datasource.dgraph_wire",
     "arango": "datasource.arango_wire",
     "surreal": "datasource.surreal_wire",
+    "ftp": "datasource.ftp",
+    "nats_kv": "datasource.nats_kv",
+    "sftp": "datasource.sftp_wire",
 }
 
 #: (client side, server side): the port against itself, then the two
@@ -50,6 +53,29 @@ PAIR_IDS = ["port-port", "port-client-jax-server", "jax-client-port-server"]
 def side_module(side: str, protocol: str):
     package = "gofr_tpu_torch" if side == "port" else "gofr_tpu"
     return importlib.import_module(f"{package}.{MODULES[protocol]}")
+
+
+class Side:
+    """One package's names for the in-process parity tests: ``S.Mongo``,
+    ``S.Container`` ... resolve on the first of ``modules`` (dotted, under
+    the package) that has them."""
+
+    def __init__(self, side: str, modules: tuple) -> None:
+        self.name = side
+        self.package = "gofr_tpu_torch" if side == "port" else "gofr_tpu"
+        self._modules = modules
+
+    def module(self, dotted: str):
+        return importlib.import_module(f"{self.package}.{dotted}")
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        for dotted in self._modules:
+            module = self.module(dotted)
+            if hasattr(module, name):
+                return getattr(module, name)
+        raise AttributeError(name)
 
 
 class LoopThread:
