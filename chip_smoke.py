@@ -354,7 +354,24 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              each with its planted fault. ``generate``'s wall and TTFT,
              ``batch``'s decode tokens/s, the stores' times idle and
              under ``batch``.
-19. train_llama — the trainer (``gofr_tpu_torch/parallel/``) at
+19. serve_examples — the apps of ``examples_torch/`` and the operator
+             tools (``phase_serve_examples``' docstring): the
+             ``model-serving`` example's own ``build_app`` at
+             ``llama3_1b`` (4 slots, ``max_seq`` 8192): (a) 8 ``/chat``
+             requests on the 4 slots (one walked, two prefix hits), 2
+             ``/v1/completions`` and a streamed ``/v1/chat/completions``
+             equal to single runs, health UP; (b) the same with
+             ``MODEL_QUANT=int8``; (c) ``scripts/bundle.py`` against it;
+             (d) the bundle's workload replayed on a fresh engine of the
+             example; (e) ``scripts/torch_capacity.py``'s sweep over it
+             and its setpoint read by the router; (f)
+             ``scripts/torch_replay.py`` on a workload captured from the
+             demo engine (exit 0, and 2 on a changed token); (g) the
+             ``asr-worker`` example at ``whisper_large_v3``; (h) the
+             kernels' launches rise under (a) and (b); each with its
+             planted fault. TTFT, decode tokens/s, the replay's and the
+             capacity curve's rates, the bundle's size, utterances/s.
+20. train_llama — the trainer (``gofr_tpu_torch/parallel/``) at
              ``llama3_1b``'s full width and depth, bf16, random weights
              from seed 0, on a ``{dp: 1, tp: 1}`` mesh over a one-rank
              ``nccl`` group, one fixed 4 x 512 batch
@@ -370,7 +387,7 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              The trainer runs no kernel of the repository (plain
              attention, as JAX's trainer runs XLA's); the kernel line is
              unchanged by it.
-20. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
+21. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
              (``llama3_70b``: dim 8192, 64 q / 8 KV heads, hd 128, ffn
              28672, vocab 128256), 8 of its 80 layers, bf16, random
              weights from seed 0 (17.9 GB; ``phase_serve_tp``'
@@ -386,7 +403,7 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the slab write at Hkv 4, one rank's shapes, each with its
              planted fault, among the kernel rows above).
 
-Phases 9-20 each print their wall time (``phase_wall_s``).
+Phases 9-21 each print their wall time (``phase_wall_s``).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -10060,7 +10077,7 @@ class _Answers:
                 pass
 
 
-def _near_tie_judge(params: dict, cfg) -> "callable":
+def _near_tie_judge(params: dict, cfg, float32=None) -> "callable":
     """A judge of greedy divergences: ``judge(prompt, common, a, b)``
     takes the tokens two runs of one prompt share (``common``) and the
     tokens they then chose (``a``, ``b``), and runs the model's plain
@@ -10070,7 +10087,8 @@ def _near_tie_judge(params: dict, cfg) -> "callable":
     top logit: a bf16 run (another prefill pass or kernel, another
     rounding) off by up to that much picks only such a token, so two
     runs can part between them. The float32 weights are made at the
-    first call."""
+    first call (``float32()`` makes them where given: a quantized tree's
+    dequantized weights)."""
     import torch
     from gofr_tpu_torch.models.llama import llama_prefill_last
     held: dict = {}
@@ -10085,9 +10103,10 @@ def _near_tie_judge(params: dict, cfg) -> "callable":
 
     def verdict(prompt: list, common: list, a: int, b: int) -> dict:
         if "p32" not in held:
-            held["p32"] = _tree_float(params)
+            held["p32"] = float32() if float32 is not None \
+                else _tree_float(params)
             held["c32"] = cfg.scaled(dtype=torch.float32)
-        dev = params["embed"].device
+        dev = params["final_norm"].device
         seq = torch.tensor([list(prompt) + list(common)], device=dev)
         lens = torch.tensor([seq.shape[1]], dtype=torch.int32, device=dev)
         with torch.no_grad():
@@ -12182,6 +12201,650 @@ def phase_serve_cli(dev, smi_line: str, cfg=None) -> dict:
     return out["launches"]
 
 
+# ---------------------------------------------------------- the examples
+EX_NEW = 32
+#: (e)'s concurrency ladder and SLO: ``scripts/torch_capacity.py``'s
+#: defaults (TTFT 2 s, TPOT 0.5 s, end to end 30 s, availability 0.999)
+EX_LEVELS = (1, 2, 4, 8)
+EX_SLO = {"ttft_s": 2.0, "tpot_s": 0.5, "e2e_s": 30.0, "availability": 0.999}
+#: (g)'s utterances: seconds each, published to the worker together
+EX_UTTERANCES = (1.0, 2.5, 4.0, 5.0)
+#: the surfaces a host that leads no fleet does not serve
+EX_FLEET = ("fleet", "fleet_events", "fleet_incidents")
+
+
+def _ex_module(path: Path, name: str):
+    """The file at ``path`` as a module of its own, ``name``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _ex_app(example: str, dev, **keys):
+    """``examples_torch/<example>``'s ``build_app`` with ``keys`` over
+    the app's own (loopback, free ports), on ``dev``."""
+    from gofr_tpu_torch.config import DictConfig
+    mod = _ex_module(ROOT / "examples_torch" / example / "main.py",
+                     "smoke_example_" + example.replace("-", "_"))
+    return mod.build_app(DictConfig({
+        "HTTP_HOST": "127.0.0.1", "HTTP_PORT": "0", "METRICS_PORT": "0",
+        "APP_NAME": "serve-examples", **keys}), device=dev)
+
+
+def _ex_prompts() -> list:
+    """(a)'s eight ``/chat`` prompts in the order they are sent (21 to
+    1501 byte tokens): four that take the four slots at once (611, the
+    1501-token walk, 901 and 21 tokens), two that repeat the first 600
+    and 700 characters of the 611- and 901-token ones (prefix hits on the
+    pages those pinned when they retired), and two fresh ones."""
+    fresh = _app_prompts("ex ")
+    return [fresh[6], fresh[8], fresh[7], fresh[0],
+            fresh[6][:600] + " and one more question about the pages",
+            fresh[7][:700] + " and what the cache keeps of it",
+            fresh[3], fresh[4]]
+
+
+def _ex_dequantized(params: dict) -> dict:
+    """A quantized Llama tree (``ops/quant.quantize_llama_*``: ``[N, K]``
+    codes, per-output scales) as float32 weights in the model's own
+    layout."""
+    from gofr_tpu_torch.ops.quant import codes_of, is_quantized
+
+    def deq(w):
+        return codes_of(w).float() * w["s"].float() if is_quantized(w) \
+            else w.float()
+    out = {"final_norm": params["final_norm"].float(),
+           "embed": deq(params["embed"]),
+           "layers": {name: deq(w) if name.endswith("_norm")
+                      else deq(w).transpose(1, 2).contiguous()
+                      for name, w in params["layers"].items()}}
+    if "lm_head" in params:
+        out["lm_head"] = deq(params["lm_head"]).t().contiguous()
+    return out
+
+
+def _ex_made(engine) -> list:
+    """The requests ``engine`` is given from here on, in order."""
+    made, inner = [], engine.submit
+
+    def submit(*args, **kwargs):
+        made.append(inner(*args, **kwargs))
+        return made[-1]
+
+    engine.submit = submit
+    return made
+
+
+def _ex_in_order(port: int, asks: list, made: list) -> list:
+    """``asks`` ((path, body, stream) each) sent from threads, each once
+    the one before it reached the engine, so ``made`` holds them in order;
+    the answers once all are in."""
+    got: list = [None] * len(asks)
+
+    def call(i, path, body, stream):
+        got[i] = (_sse_call(port, path, body) if stream
+                  else _http_json(port, "POST", path, body))
+
+    workers = []
+    for i, ask in enumerate(asks):
+        base = len(made)
+        workers.append(threading.Thread(target=call, args=(i, *ask)))
+        workers[-1].start()
+        deadline = time.time() + 60
+        while len(made) <= base and time.time() < deadline:
+            time.sleep(0.001)
+    for w in workers:
+        w.join(timeout=600)
+    return got
+
+
+def _ex_singles(engine, reqs: list) -> list:
+    """Each request's prompt submitted alone, greedy, ``EX_NEW`` tokens:
+    its tokens."""
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    out = []
+    for r in reqs:
+        single = engine.submit(list(r.prompt_tokens), SamplingParams(
+            temperature=0.0, max_new_tokens=EX_NEW))
+        out.append(list(_cli_wait(single).generated))
+    return out
+
+
+def _ex_answer_faults(answers: list, reqs: list) -> list:
+    """Every answer served: ``/chat`` 201 with its request's tokens, a
+    ``/v1/completions`` 201, a stream 200 ending in ``[DONE]``."""
+    faults = []
+    for i, (a, r) in enumerate(zip(answers, reqs)):
+        if isinstance(a, dict):
+            events = [e for _, e in a["events"]]
+            if a["status"] != 200 or not events or events[-1] != "[DONE]":
+                faults.append(f"stream {i}: {a['status']}")
+        elif a[0] != 201:
+            faults.append(f"answer {i}: {a[0]}")
+        elif "data" in a[2] and a[2]["data"].get("tokens") \
+                != list(r.generated):
+            faults.append(f"answer {i}: not its request's tokens")
+        elif "data" not in a[2] and not a[2].get("choices"):
+            faults.append(f"answer {i}: no choices")
+    return faults + ([] if len(answers) == len(reqs)
+                     else [f"{len(reqs)} requests, {len(answers)} answers"])
+
+
+def _ex_token_faults(label: str, tokens: list, singles: list, reqs: list,
+                     judge, ties: dict) -> list:
+    """Each request's tokens equal its single run's, or part at a near
+    tie."""
+    faults = []
+    for i, (got, want, r) in enumerate(zip(tokens, singles, reqs)):
+        faults += _tie_or_fault(f"{label}{i}", got, want,
+                                list(r.prompt_tokens), judge, ties)
+    return faults
+
+
+def _ex_bundle_faults(code: int, bundle: dict, surfaces: tuple,
+                      prompts: list) -> list:
+    """``bundle.py`` exits 0; every surface but the fleet's present,
+    ``errors`` naming only those; its workload holds ``prompts``."""
+    from gofr_tpu_torch.serving.replay import parse_workload
+    faults = [] if code == 0 else [f"exit {code}"]
+    missing = [key for key, *_ in surfaces
+               if key not in EX_FLEET and bundle.get(key) is None]
+    if missing:
+        faults.append(f"missing {missing}")
+    if sorted(bundle.get("errors") or {}) != sorted(EX_FLEET):
+        faults.append(f"errors {sorted(bundle.get('errors') or {})}")
+    records = parse_workload(bundle["workload"])["records"] \
+        if bundle.get("workload") else []
+    if sorted(r.get("prompt_tokens") or [] for r in records) \
+            != sorted(prompts):
+        faults.append(f"workload holds {len(records)} records")
+    return faults
+
+
+def _ex_replay_faults(records: list, reqs: list, judge, ties: dict) -> list:
+    """Each replayed request's tokens equal its recorded completion's, or
+    part at a near tie."""
+    faults = [] if len(reqs) == len(records) else [
+        f"{len(reqs)} replayed of {len(records)}"]
+    for i, (rec, req) in enumerate(zip(records, reqs)):
+        faults += _tie_or_fault(f"replay{i}", list(req.generated),
+                                list(rec.get("completion_tokens") or []),
+                                list(rec["prompt_tokens"]), judge, ties)
+    return faults
+
+
+def _ex_capacity_faults(levels: list, result: dict, setpoint: int,
+                        pick) -> list:
+    """Every level answered (qps > 0, goodput in (0, 1]); level 4 beats
+    level 1; the sweep's max sustainable level is ``pick``'s over the
+    curve and the router's setpoint."""
+    faults = []
+    for e in levels:
+        g = e.get("goodput_ratio")
+        if not e.get("qps") or g is None or not 0.0 < g <= 1.0:
+            faults.append(f"level {e['concurrency']}: qps {e.get('qps')} "
+                          f"goodput {g}")
+    qps = {e["concurrency"]: e["qps"] for e in levels}
+    if not qps.get(4, 0) > qps.get(1, float("inf")):
+        faults.append(f"qps at 4 {qps.get(4)} vs at 1 {qps.get(1)}")
+    best = pick(levels)
+    best = best["concurrency"] if best else 0
+    if not best == result["max_sustainable_concurrency"] == setpoint:
+        faults.append(f"curve picks {best}, the sweep "
+                      f"{result['max_sustainable_concurrency']}, the "
+                      f"router {setpoint}")
+    return faults
+
+
+def _ex_tool_faults(good: tuple, bad: tuple) -> list:
+    """``torch_replay.py`` exits 0 on its capture and 2, saying so, on
+    the capture with a token changed."""
+    faults = [] if good[0] == 0 else [f"capture: exit {good[0]} "
+                                      f"{good[1][-300:]!r}"]
+    if bad[0] != 2 or "# DIVERGED" not in bad[1]:
+        faults.append(f"changed: exit {bad[0]}")
+    return faults
+
+
+def _ex_changed(text: str, at: int = 3) -> str:
+    """A workload JSONL with the first record's token ``at`` changed."""
+    lines = text.splitlines()
+    rec = json.loads(lines[1])
+    toks = rec["completion_tokens"]
+    toks[at] = (toks[at] + 1) % 256
+    lines[1] = json.dumps(rec)
+    return "\n".join(lines) + "\n"
+
+
+def phase_serve_examples(dev, smi_line: str) -> dict:
+    """The apps of ``examples_torch/`` and the operator tools on the
+    card. The ``model-serving`` example's own ``build_app`` (its config
+    keys, ``EngineConfig(max_batch=4, max_seq=8192)``, ``serve_model`` +
+    ``install_openai_routes``) with ``MODEL_PRESET=llama3_1b`` (full
+    width and depth, random bf16 weights from seed 0), booted as a user
+    boots it; the ``asr-worker`` example's with ``whisper_large_v3``. The
+    four apps' weights are made together on worker threads as the phase
+    starts. Greedy throughout. Checks, each also shown a planted fault it
+    must reject:
+
+    (a) after ``POST /debug/workload/start``, 8 ``/chat`` requests (21 to
+        1501 tokens, ``_ex_prompts``: one walked, two prefix hits) in
+        flight on the 4 slots, then 2 ``/v1/completions`` and a streamed
+        ``/v1/chat/completions``, 32 new tokens each: every answer
+        served and every request's tokens equal to its single run
+        (submitted alone afterwards) or parting at a near tie
+        (``_near_tie_judge``); health UP naming the engine and the card;
+        planted: two answers swapped.
+    (b) the same 8 ``/chat`` requests on the example with
+        ``MODEL_QUANT=int8`` against that engine's single runs; planted:
+        as in (a).
+    (c) ``python scripts/bundle.py`` against (a)'s app as a subprocess:
+        exit 0, every surface a host without a fleet serves present,
+        ``errors`` only the fleet's, the workload (a)'s 11 requests;
+        planted: a surface nulled.
+    (d) the bundle's workload replayed (``replay_workload``,
+        ``closed_loop=4``) on a fresh engine of the example, same preset
+        and seed: each request's tokens equal its recorded ones or part
+        at a near tie; planted: a recorded token changed.
+    (e) ``scripts/torch_capacity.py``'s ``sweep`` over that workload on
+        that engine at levels 1, 2, 4, 8 with the tool's default SLO:
+        qps > 0 and goodput in (0, 1] at every level, level 4's qps over
+        level 1's, the setpoint file read by ``RouterConfig
+        (setpoint_file=)`` giving the router the sweep's max sustainable
+        concurrency; planted: the curve with level 2 tripped (1).
+    (f) a workload captured from the demo engine on the card
+        (``demo_llama_engine(workload_capture=True)``, one request at a
+        time): ``python scripts/torch_replay.py <file> --closed-loop 1``
+        exits 0, and 2 on the file with a token changed; planted: the
+        changed file's exit in place of the capture's.
+    (g) 4 utterances of 1-5 s published to the ``asr-worker`` example's
+        worker and one ``POST /transcribe``: every answer's tokens read
+        back through the teacher-forced decoder (``_readback_faults``);
+        planted: a token changed.
+    (h) the launch counters of the flash, paged decode, paged chunk and
+        ``rope_kv_write`` wrappers over (a)'s requests and over (b)'s,
+        ``wq_gemm``'s over (b)'s: all rise; planted: the same counters
+        over routes that never touch the engine.
+
+    Also: ``/chat`` TTFT p50 / p99 and decode tokens/s in (a) and (b),
+    the replay's wall and qps, the capacity curve and its setpoint, the
+    bundle's seconds and bytes, the worker's utterances/s."""
+    import asyncio
+    import copy
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops import audio
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write
+    from gofr_tpu_torch.ops.quant import wq_gemm
+    from gofr_tpu_torch.serving.engine import EngineConfig, SamplingParams
+    from gofr_tpu_torch.serving.glue import demo_llama_engine
+    from gofr_tpu_torch.serving.observability import SLOConfig
+    from gofr_tpu_torch.serving.replay import parse_workload, replay_workload
+    from gofr_tpu_torch.serving.router import FleetRouter, RouterConfig
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    gpu = torch.cuda.get_device_name(0) if cuda else "cpu"
+    counters = {"flash_attention": flash_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "paged_chunk_attention": paged_chunk_attention,
+                "rope_kv_write": rope_kv_write}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        wq_gemm.launches = 0
+
+    def read(wq: bool = False) -> dict:
+        got = {name: int(fn.launches) for name, fn in counters.items()}
+        return {**got, "wq_gemm": int(wq_gemm.launches)} if wq else got
+
+    capacity = _ex_module(ROOT / "scripts" / "torch_capacity.py",
+                          "smoke_torch_capacity")
+    bundle_mod = _ex_module(ROOT / "scripts" / "bundle.py", "smoke_bundle")
+    checks: dict = {}
+    out: dict = {"phase": "serve_examples", "card": smi_line}
+    tmp = Path(tempfile.mkdtemp(prefix="serve_examples_"))
+    llama = {"MODEL_PRESET": "llama3_1b"}
+    # the four apps' random weights are drawn on the CPU (the examples'
+    # torch.Generator), one thread each
+    pool = ThreadPoolExecutor(max_workers=4)
+    t0 = time.perf_counter()
+    pending = {
+        "a": pool.submit(_ex_app, "model-serving", dev, **llama),
+        "b": pool.submit(_ex_app, "model-serving", dev, MODEL_QUANT="int8",
+                         **llama),
+        "d": pool.submit(_ex_app, "model-serving", dev, **llama),
+        "g": pool.submit(_ex_app, "asr-worker", dev,
+                         MODEL_PRESET="whisper_large_v3")}
+    apps: dict = {}
+    booted: dict = {}
+    judges: list = []
+    procs: list = []
+    try:
+        apps = {k: f.result() for k, f in pending.items()}
+        out["apps_built_s"] = time.perf_counter() - t0
+        cfg = LlamaConfig.llama3_1b()
+        engines = {k: apps[k].container.get_model("llama")
+                   for k in ("a", "b", "d")}
+        made = {k: _ex_made(e) for k, e in engines.items()}
+        for k in ("a", "b", "g"):
+            booted[k] = _boot_app(apps[k], f"serve_examples ({k})")
+        port = apps["a"].port
+
+        # (a) the wave, captured
+        start = _http_json(port, "POST", "/debug/workload/start", {})
+        prompts = _ex_prompts()
+        chat = [("/chat", {"prompt": p, "max_tokens": EX_NEW,
+                           "temperature": 0}, False) for p in prompts]
+        v1 = [("/v1/completions", {"model": "llama3_1b", "prompt": p,
+                                   "max_tokens": EX_NEW, "temperature": 0},
+               False) for p in _app_prompts("v1 ")[1:3]] + [
+            ("/v1/chat/completions", {
+                "model": "llama3_1b", "max_tokens": EX_NEW,
+                "temperature": 0, "stream": True,
+                "messages": [{"role": "user",
+                              "content": _app_prompts("v1 ")[5]}]}, True)]
+        hits0 = engines["a"].stats["prefix_hits"]
+        zero()
+        t0 = time.perf_counter()
+        a_answers = _ex_in_order(port, chat, made["a"])
+        a_wave_s = time.perf_counter() - t0
+        a_answers += _ex_in_order(port, v1, made["a"])
+        launches_a = read()
+        hits = engines["a"].stats["prefix_hits"] - hits0
+        stop = _http_json(port, "POST", "/debug/workload/stop", {})
+        a_reqs = list(made["a"])
+        alive = _http_json(port, "GET", "/.well-known/alive")
+        health = _http_json(port, "GET", "/.well-known/health")
+        a_singles = _ex_singles(engines["a"], a_reqs)
+        judges.append(_near_tie_judge(engines["a"].params, cfg))
+        a_ties: dict = {}
+        a_tokens = [list(r.generated) for r in a_reqs]
+
+        def a_faults(tokens, ties):
+            return (_ex_answer_faults(a_answers, a_reqs)
+                    + _ex_token_faults("a", tokens, a_singles, a_reqs,
+                                       judges[-1], ties)
+                    + _alive_health_faults(alive, health, gpu)
+                    + ([] if hits >= 2 else [f"{hits} prefix hits"])
+                    + ([] if start[0] == 201 and stop[0] == 201
+                       else ["workload capture not armed"]))
+        swapped = copy.deepcopy(a_tokens)
+        swapped[1], swapped[2] = swapped[2], swapped[1]
+        checks["a_wave"] = (a_faults(a_tokens, a_ties), a_faults(swapped, {}))
+        a_chat = a_reqs[:len(chat)]
+        out["a"] = {"prompt_tokens": [len(r.prompt_tokens) for r in a_reqs],
+                    "prefix_hits": hits, "near_ties": dict(a_ties),
+                    "health": health[2]["data"]["status"],
+                    "tokens_0": a_tokens[0][:8]}
+        judges.pop().release()
+
+        # (b) the int8 example
+        zero()
+        b_answers = _ex_in_order(apps["b"].port, chat, made["b"])
+        launches_b = read(wq=True)
+        b_reqs = list(made["b"])
+        b_singles = _ex_singles(engines["b"], b_reqs)
+        judges.append(_near_tie_judge(
+            engines["b"].params, cfg,
+            float32=lambda: _ex_dequantized(engines["b"].params)))
+        b_ties: dict = {}
+        b_tokens = [list(r.generated) for r in b_reqs]
+
+        def b_faults(tokens, ties):
+            return (_ex_answer_faults(b_answers, b_reqs)
+                    + _ex_token_faults("b", tokens, b_singles, b_reqs,
+                                       judges[-1], ties))
+        swapped = copy.deepcopy(b_tokens)
+        swapped[1], swapped[2] = swapped[2], swapped[1]
+        checks["b_int8"] = (b_faults(b_tokens, b_ties), b_faults(swapped, {}))
+        out["b"] = {"near_ties": dict(b_ties), "tokens_0": b_tokens[0][:8]}
+        judges.pop().release()
+        _stop_app(apps["b"], *booted.pop("b"))
+
+        # (f) started now, read after (g): a capture from the demo engine
+        demo = demo_llama_engine(EngineConfig(
+            max_batch=4, max_seq=128, seed=4, workload_capture=True),
+            device=dev)
+        demo.start()
+        try:
+            for p in ([5, 9, 2, 31], [7, 7, 1, 3, 200, 17], [64] * 9):
+                _cli_wait(demo.submit(p, SamplingParams(
+                    temperature=0.0, max_new_tokens=8)))
+        finally:
+            demo.stop()
+        capture = demo.workload.to_jsonl()
+        del demo
+        files = {"capture": tmp / "demo.jsonl",
+                 "changed": tmp / "demo-changed.jsonl"}
+        files["capture"].write_text(capture)
+        files["changed"].write_text(_ex_changed(capture))
+        t_tool = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "torch_replay.py"),
+             str(path), "--closed-loop", "1",
+             "--device", torch.device(dev).type], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for path in files.values()]
+
+        # (c) the bundle, from (a)'s app
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "bundle.py"),
+             f"http://127.0.0.1:{port}", "--out", str(tmp / "bundle.json")],
+            capture_output=True, text=True, timeout=300)
+        bundle_s = time.perf_counter() - t0
+        bundle = json.loads((tmp / "bundle.json").read_text()) \
+            if proc.returncode == 0 else {}
+        a_prompts = [list(r.prompt_tokens) for r in a_reqs]
+        nulled = dict(bundle, slo=None)
+        checks["c_bundle"] = (
+            _ex_bundle_faults(proc.returncode, bundle, bundle_mod.SURFACES,
+                              a_prompts),
+            _ex_bundle_faults(proc.returncode, nulled, bundle_mod.SURFACES,
+                              a_prompts))
+        out["c"] = {"exit": proc.returncode, "seconds": bundle_s,
+                    "bytes": (tmp / "bundle.json").stat().st_size
+                    if proc.returncode == 0 else None,
+                    "errors": sorted(bundle.get("errors") or {})}
+        _stop_app(apps["a"], *booted.pop("a"))
+
+        # (d) the bundle's workload on a fresh engine of the example
+        workload = parse_workload(bundle.get("workload") or "")
+        records = sorted(workload["records"], key=lambda r: r.get("t", 0.0))
+        engine = engines["d"]
+        report = replay_workload(engine, workload, closed_loop=4,
+                                 timeout_s=300)
+        d_reqs = list(made["d"])
+        judges.append(_near_tie_judge(engine.params, cfg))
+        d_ties: dict = {}
+        changed = copy.deepcopy(records)
+        if changed:
+            toks = changed[0]["completion_tokens"]
+            toks[5] = (toks[5] + 1) % cfg.vocab_size
+        checks["d_replay"] = (
+            _ex_replay_faults(records, d_reqs, judges[-1], d_ties)
+            + ([] if report["compared"] == len(records) == 11
+               else [f"compared {report['compared']} of {len(records)}"]),
+            _ex_replay_faults(changed, d_reqs, judges[-1], {}))
+        out["d"] = {"divergent": report["divergent"],
+                    "compared": report["compared"],
+                    "near_ties": dict(d_ties), "wall_s": report["wall_s"],
+                    "qps": report["compared"] / report["wall_s"]
+                    if report["wall_s"] else None}
+        judges.pop().release()
+
+        # (e) the capacity sweep on that engine, its setpoint to a router
+        result = capacity.sweep(engine, workload, list(EX_LEVELS),
+                                SLOConfig(**EX_SLO), timeout_s=300,
+                                log=lambda _msg: None)
+        engine.stop()
+        path = tmp / "setpoint.json"
+        path.write_text(json.dumps(capacity.setpoint_doc(result)))
+        router = FleetRouter(object(), RouterConfig(
+            autoscale=True, setpoint_file=str(path)))
+        router.install(App(config=DictConfig({"APP_NAME": "router"})))
+        setpoint = router.autoscaler.setpoint
+        tripped = copy.deepcopy(result["levels"])
+        if len(tripped) > 1:
+            tripped[1]["tripped"] = True
+        planted_pick = capacity.pick_max_sustainable(tripped)
+        checks["e_capacity"] = (
+            _ex_capacity_faults(result["levels"], result, setpoint,
+                                capacity.pick_max_sustainable)
+            + ([] if [e["concurrency"] for e in result["levels"]]
+               == list(EX_LEVELS) else ["the sweep stopped early"]),
+            _ex_capacity_faults(tripped, result, setpoint,
+                                capacity.pick_max_sustainable)
+            + ([] if planted_pick and planted_pick["concurrency"] == 1
+               else [f"planted curve picks {planted_pick}"]))
+        out["e"] = {"levels": [{k: e.get(k) for k in (
+            "concurrency", "qps", "goodput_ratio", "burn_rate", "tripped",
+            "wall_s")} for e in result["levels"]],
+            "max_sustainable_concurrency":
+                result["max_sustainable_concurrency"],
+            "router_setpoint": setpoint, "slo": EX_SLO}
+
+        # (g) the ASR worker example
+        app = apps["g"]
+        loop = booted["g"][0]
+        transcriber = app.container.get_model("whisper")
+        wcfg = transcriber.config
+        utts = [_pcm(300 + i, s) for i, s in enumerate(EX_UTTERANCES)]
+        broker = app.container.pubsub
+
+        async def publish_all():
+            for i, a in enumerate(utts):
+                await broker.publish("asr.requests", {
+                    "request_id": f"ex-{i}", "audio": a.tolist()})
+
+        async def collect(n):
+            return [(await broker.subscribe("asr.results", "smoke")).bind()
+                    for _ in range(n)]
+        t0 = time.perf_counter()
+        asyncio.run_coroutine_threadsafe(publish_all(), loop).result(120)
+        results = asyncio.run_coroutine_threadsafe(
+            collect(len(utts)), loop).result(600)
+        g_wall = time.perf_counter() - t0
+        status, _, body = _http_json(app.port, "POST", "/transcribe",
+                                     {"audio": utts[1].tolist()})
+        by_id = {r["request_id"]: r for r in results}
+        answers = [by_id.get(f"ex-{i}") for i in range(len(utts))] \
+            + [body.get("data")]
+        answered = [(u, a) for u, a in zip(utts + [utts[1]], answers) if a]
+        width = transcriber.asr.max_tokens
+        eot = wcfg.eot_token
+
+        def readback(rows):
+            faults, worst = [], 0.0
+            for i, (u, a, toks) in enumerate(rows):
+                mel = audio.log_mel_spectrogram(
+                    torch.from_numpy(_padded([u], a["samples"])).to(dev),
+                    n_mels=wcfg.n_mels, pad_to_frames=wcfg.audio_frames)
+                t = torch.tensor([toks + [eot] * (width - len(toks))],
+                                 device=dev)
+                f, w = _readback_faults(transcriber.params, wcfg, mel, t,
+                                        [a["n_tokens"]])
+                faults += [f"answer {i}: {x}" for x in f]
+                worst = max(worst, w)
+            return faults, worst
+        rows = [(u, a, list(a["tokens"])) for u, a in answered]
+        g_faults, g_gap = readback(rows)
+        g_faults += [] if len(answered) == len(utts) + 1 and status == 201 \
+            else [f"{len(answered)} answers, /transcribe {status}"]
+        bent = copy.deepcopy(rows)
+        if bent:
+            u, a, toks = bent[0]
+            j = min(3, max(len(toks) - 1, 0))
+            if toks:
+                toks[j] = (toks[j] + wcfg.vocab_size // 2) % wcfg.vocab_size
+        g_bad, g_gap_bad = readback(bent)
+        checks["g_asr"] = (g_faults, g_bad)
+        out["g"] = {"answers": len(answered), "worst_gap": g_gap,
+                    "planted_worst_gap": g_gap_bad,
+                    "n_tokens": [a["n_tokens"] for _, a in answered],
+                    "utterances_per_s": len(utts) / g_wall,
+                    "worker_wall_s": g_wall, "tolerance": LOGITS_TOL}
+
+        # (f) the replay tool's two runs
+        ran = [p.communicate(timeout=600) for p in procs]
+        codes = [(p.returncode, err) for p, (_o, err) in zip(procs, ran)]
+        procs = []
+        tool_s = time.perf_counter() - t_tool
+        checks["f_replay_tool"] = (_ex_tool_faults(codes[0], codes[1]),
+                                   _ex_tool_faults(codes[1], codes[1]))
+        out["f"] = {"exit_codes": [c for c, _ in codes],
+                    "records": len(capture.splitlines()) - 1,
+                    "seconds_both": tool_s}
+
+        # (h) the kernels under (a) and (b); routes that never reach them
+        zero()
+        _http_json(apps["g"].port, "GET", "/.well-known/alive")
+        _http_json(apps["g"].port, "GET", "/.well-known/health")
+        idle = read(wq=True)
+        launches = {"a": launches_a, "b": launches_b}
+        checks["h_launches"] = (
+            _launch_faults(launches_a) + _launch_faults(launches_b),
+            _launch_faults(idle))
+        out["launches"] = launches
+
+        out["timing"] = {
+            "card": smi_line,
+            "a_chat_engine_ttft_s": _pcts([r.ttft_ms / 1000.0 for r in a_chat
+                                           if r.ttft_ms is not None]),
+            "a_chat_decode_tokens_per_s": _engine_rate(a_chat),
+            "a_chat_wave_wall_s": a_wave_s,
+            "b_chat_engine_ttft_s": _pcts([r.ttft_ms / 1000.0 for r in b_reqs
+                                           if r.ttft_ms is not None]),
+            "b_chat_decode_tokens_per_s": _engine_rate(b_reqs),
+            "replay_wall_s": out["d"]["wall_s"], "replay_qps": out["d"]["qps"],
+            "capacity": out["e"]["levels"],
+            "setpoint": setpoint,
+            "bundle_s": bundle_s, "bundle_bytes": out["c"]["bytes"],
+            "asr_utterances_per_s": out["g"]["utterances_per_s"],
+            "definition": "TTFT: the engine's, of the 8 /chat requests; "
+            "decode tokens/s: tokens after each request's first over the "
+            "span from the first first token to the last finish; replay: "
+            "11 requests, closed loop 4; capacity: the same 11 at each "
+            "level; bundle: the subprocess's wall; ASR: 4 utterances of "
+            "1-5 s from publish to the last result"}
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for key, (loop, thread) in list(booted.items()):
+            _stop_app(apps[key], loop, thread)
+        for key in ("a", "b", "d"):
+            if key in apps:
+                apps[key].container.get_model("llama").stop()
+        for judge in judges:
+            judge.release()
+        pool.shutdown(wait=True)
+    del apps, engines
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items()}
+    out.update({"phase_wall_s": time.perf_counter() - t_phase,
+                "failed_checks": failed, "planted": planted})
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_examples: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return out["launches"]
+
+
 # ---------------------------------------------------------------- trainer
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
 # (a) the trainer's first loss (plain float32 attention, bf16 products)
@@ -13154,18 +13817,27 @@ def main() -> int:
     phase_serve_wire(dev, smi_line)
     phase_serve_stores(dev, smi_line)
     phase_serve_cli(dev, smi_line)
+    examples = phase_serve_examples(dev, smi_line)
     phase_train_llama(dev, smi_line)
     sources["serve_tp"] = phase_serve_tp(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
-        row["launches"] = source[row.get("wrapper", row["name"])]
+        wrapper = row.get("wrapper", row["name"])
+        row["launches"] = source[wrapper]
+        # the same wrapper's launches under the model-serving example,
+        # bf16 (a) and int8 weights (b), where the row's shapes are its
+        if "launches_from" not in row and wrapper in examples["b"]:
+            row["serve_examples_launches"] = {
+                k: examples[k][wrapper] for k in ("a", "b")
+                if wrapper in examples[k]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")
     # where a row has them: the kernel's own device time beside its
-    # call's, the unfused path, whether the main path runs it
+    # call's, the unfused path, whether the main path runs it, its
+    # launches under the model-serving example
     extra = ("kernel_device_ms", "unfused_path_ms", "unfused_path_device_ms",
-             "main_path")
+             "main_path", "serve_examples_launches")
     emit({"kernels": [{k: row[k] for k in keys + extra if k in row}
                       for row in rows]})
     print(smi_line, flush=True)

@@ -21,7 +21,11 @@ How the port runs it:
   ``Stream`` iterators run on :attr:`App.executor`, a pool of the app's
   own with no cap (``handler.handler_pool``): a generation holds its
   thread to the end, and every other request still gets one and reaches
-  the engine's admission. Plain hooks run there too. The probes stand
+  the engine's admission. Plain ``on_shutdown`` hooks run there too;
+  plain ``on_start`` hooks run on the loop before the servers listen, as
+  JAX's do, so a hook may schedule the app's tasks
+  (``asyncio.ensure_future``), and the framework's own start hooks
+  (the engine's, the agent's) hand their work to the pool. The probes stand
   apart from it: ``/.well-known/alive`` answers on the loop, and health
   and the metrics scrape's device refresh run on a small pool of their
   own (:attr:`App.probe_pool`). The event loop's thread never touches
@@ -334,6 +338,14 @@ class App:
         self._on_start.append(hook)
         return hook
 
+    def _on_start_off_loop(self, fn: Callable[[], Any]) -> None:
+        """An ``on_start`` hook of the framework's own that runs ``fn``
+        on a worker thread (the loop's thread never touches the card)."""
+        async def hook() -> None:
+            await asyncio.get_running_loop().run_in_executor(
+                self.executor, fn)
+        self.on_start(hook)
+
     def on_shutdown(self, hook: Callable) -> Callable:
         self._on_shutdown.append(hook)
         return hook
@@ -401,7 +413,7 @@ class App:
             from .serving.tokenizer import ByteTokenizer
             self.post(chat_path,
                       make_chat_handler(engine, tokenizer or ByteTokenizer()))
-        self.on_start(lambda c: engine.start())
+        self._on_start_off_loop(engine.start)
         self.on_shutdown(engine.close)
         self._engines.append(engine)
 
@@ -482,7 +494,7 @@ class App:
                             address=addr_source,
                             tracer=self.container.tracer,
                             logger=self.logger, **{**sources, **kw})
-        self.on_start(lambda c: agent.start())
+        self._on_start_off_loop(agent.start)
         self.on_shutdown(agent.stop)
         self._agents.append(agent)
         return agent
@@ -555,14 +567,21 @@ class App:
                                 content_type="text/plain")
         return metrics_handler
 
-    async def _call_hook(self, hook: Callable, *args: Any) -> None:
-        """A hook: a coroutine function on the loop, a plain one on a
-        worker thread (it may touch the card)."""
+    async def _call_hook(self, hook: Callable, *args: Any,
+                         on_loop: bool = False) -> None:
+        """A hook: a coroutine function on the loop; a plain one on a
+        worker thread (it may touch the card while requests are served),
+        or with ``on_loop`` on the loop, as JAX calls it: an ``on_start``
+        hook runs before the servers listen, so nothing waits behind it,
+        and it may schedule the app's tasks (``asyncio.ensure_future``)."""
         if inspect.iscoroutinefunction(hook):
             await hook(*args)
             return
-        result = await asyncio.get_running_loop().run_in_executor(
-            self.executor, lambda: hook(*args))
+        if on_loop:
+            result = hook(*args)
+        else:
+            result = await asyncio.get_running_loop().run_in_executor(
+                self.executor, lambda: hook(*args))
         if hasattr(result, "__await__"):
             await result
 
@@ -575,7 +594,8 @@ class App:
                 except (TypeError, ValueError):
                     takes_container = False
                 await self._call_hook(
-                    hook, *((self.container,) if takes_container else ()))
+                    hook, *((self.container,) if takes_container else ()),
+                    on_loop=True)
             except Exception as exc:
                 self.logger.error(f"on_start hook failed: {exc!r}")
                 return False

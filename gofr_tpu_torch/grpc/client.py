@@ -1,15 +1,22 @@
 """gRPC client helpers (the port's counterpart of
 ``gofr_tpu/grpc/client.py``): JSON-codec calls against ``GRPCService``
-servers, and the standard health check. Synchronous, as the port's HTTP
-client is: one channel per target, unary calls return the decoded reply,
-streams are iterators."""
+servers, and the standard health check. One channel per target, as the
+port's HTTP client is: unary calls return the decoded reply, streams are
+iterators. Called from a thread that runs an event loop (an ``async
+def`` handler), ``call``, ``health_check`` and ``close`` return
+awaitables and ``stream`` an async iterator, each running the same call
+on a worker thread, so a handler written for JAX's ``grpc.aio`` client
+(``await client.call(...)``, ``async for m in client.stream(...)``) runs
+unchanged and leaves the loop free."""
 
 from __future__ import annotations
 
-from typing import Any, Iterator
+import asyncio
+from typing import Any, AsyncIterator, Iterator
 
 import grpc
 
+from ..service import awaitable_on_loop
 from .health import decode_check_response, encode_check_request, status_name
 from .service import _json_deserialize, _json_serialize
 
@@ -42,6 +49,12 @@ class GRPCClient:
 
     def call(self, service: str, method: str, payload: Any = None, *,
              timeout: float | None = None) -> Any:
+        """The decoded reply; on a loop's thread, an awaitable of it."""
+        return awaitable_on_loop(self._call, service, method, payload,
+                                 timeout)
+
+    def _call(self, service: str, method: str, payload: Any,
+              timeout: float | None) -> Any:
         rpc = self._chan().unary_unary(
             f"/{service}/{method}",
             request_serializer=_json_serialize,
@@ -50,23 +63,55 @@ class GRPCClient:
                    timeout=timeout, metadata=self._metadata())
 
     def stream(self, service: str, method: str, payload: Any = None, *,
-               timeout: float | None = None) -> Iterator[Any]:
+               timeout: float | None = None) -> Any:
+        """An iterator of the decoded messages; on a loop's thread, an
+        async iterator whose every step waits on a worker thread."""
         rpc = self._chan().unary_stream(
             f"/{service}/{method}",
             request_serializer=_json_serialize,
             response_deserializer=_json_deserialize)
-        yield from rpc(payload if payload is not None else {},
+        messages = rpc(payload if payload is not None else {},
                        timeout=timeout, metadata=self._metadata())
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            return iter(messages)
+        return _pumped(messages)
 
     def health_check(self, service: str = "", *,
-                     timeout: float | None = None) -> str:
+                     timeout: float | None = None) -> Any:
+        """The status's name; on a loop's thread, an awaitable of it."""
+        return awaitable_on_loop(self._health_check, service, timeout)
+
+    def _health_check(self, service: str, timeout: float | None) -> str:
         rpc = self._chan().unary_unary(
             "/grpc.health.v1.Health/Check",
             request_serializer=encode_check_request,
             response_deserializer=decode_check_response)
         return status_name(rpc(service, timeout=timeout))
 
-    def close(self) -> None:
+    def close(self) -> Any:
+        """Close the channel; on a loop's thread, an awaitable that
+        does."""
+        return awaitable_on_loop(self._close)
+
+    def _close(self) -> None:
         if self._channel is not None:
             self._channel.close()
             self._channel = None
+
+
+async def _pumped(messages: Iterator[Any]) -> AsyncIterator[Any]:
+    """``messages`` as an async iterator: each ``next`` on a worker
+    thread; the stream is cancelled when the iteration stops early."""
+    done = object()
+    try:
+        while True:
+            item = await asyncio.to_thread(next, messages, done)
+            if item is done:
+                return
+            yield item
+    finally:
+        cancel = getattr(messages, "cancel", None)
+        if cancel is not None:
+            cancel()

@@ -12,10 +12,11 @@ health (DOWN answers ``NOT_SERVING``), a registered service
 only when the host's environment sets ``GRPC_ENABLE_REFLECTION`` to
 ``"true"``.
 
-The port has no container: the server reads what it needs from the host
-it serves beside (a ``ChatServer`` or an ``App``): ``tracer``,
-``metrics`` (a new manager when it has none), ``logger``, ``health()``,
-``env`` and ``tenant_of``.
+The server reads what it needs from the host it serves beside (a
+``ChatServer`` or an ``App``): ``tracer``, ``metrics`` (a new manager
+when it has none), ``logger``, ``health()``, ``env`` and ``tenant_of``.
+Services and handlers see the host's container as ``container``, as in
+JAX, where the host has one (an ``App``), else the host.
 
 The server is ``grpc.aio``, as JAX's is, on an event loop of its own
 thread (so ``start`` and ``shutdown`` are plain calls from any thread):
@@ -85,20 +86,23 @@ def bind_dataclass(data: Mapping[str, Any], cls: type) -> Any:
 class RPCContext:
     """One RPC as a handler sees it: the decoded request (``bind``), the
     invocation metadata (``param`` / ``header``, lower-case keys), the
-    host (``container``), its tenant, grpc's own servicer context
+    container (``container``: ``GRPCServer.injected``) and its slots
+    (``ctx.logger``, ``ctx.sql``, ``ctx.model(name)``, ... as on JAX's
+    context), its tenant, grpc's own servicer context
     (``grpc_context``, a ``grpc.aio.ServicerContext``: ``cancelled``,
     ``done``, ``add_done_callback``) and the server's pool
     (``executor``) for blocking work."""
 
     def __init__(self, payload: Any, metadata: Mapping[str, str],
                  method: str, container: Any, grpc_context: Any,
-                 executor: Any = None) -> None:
+                 executor: Any = None, tenant_of: Any = None) -> None:
         self.payload = payload
         self.metadata = dict(metadata)
         self.method = method
         self.container = container
         self.grpc_context = grpc_context
         self.executor = executor
+        self._tenant_of = tenant_of
 
     def bind(self, target: Any = None) -> Any:
         if isinstance(target, type) and dataclasses.is_dataclass(target) \
@@ -119,11 +123,25 @@ class RPCContext:
     def host_name(self) -> str:
         return self.metadata.get(":authority", "")
 
+    def __getattr__(self, name: str) -> Any:
+        # the container's slots (logger, metrics, sql, redis, kv, file,
+        # pubsub, ...) read straight off it, as JAX's handler context
+        # (the framework ``Context``) reads them
+        if name.startswith("_"):
+            raise AttributeError(name)
+        container = self.__dict__.get("container")
+        if container is not None and hasattr(container, name):
+            return getattr(container, name)
+        raise AttributeError(name)
+
+    def model(self, name: str) -> Any:
+        return self.container.get_model(name)
+
     @property
     def tenant(self) -> str | None:
         """The host's ``tenant_of`` applied to the metadata (None without
         one)."""
-        tenant_of = getattr(self.container, "tenant_of", None)
+        tenant_of = self._tenant_of
         return tenant_of(self.metadata) if tenant_of is not None else None
 
 
@@ -164,6 +182,11 @@ class GRPCServer:
     def __init__(self, host_server: Any, *, port: int = DEFAULT_GRPC_PORT,
                  host: str = "0.0.0.0", logger: Any = None) -> None:
         self.host_server = host_server
+        #: what a service's ``container`` and an RPC's ``ctx.container``
+        #: are: the host's container where it has one (an ``App``'s, as
+        #: JAX injects its app's), else the host itself (a ``ChatServer``)
+        self.injected = getattr(host_server, "container", None) \
+            or host_server
         self.host = host
         self.port = port
         self.logger = logger or getattr(host_server, "logger", None) \
@@ -187,13 +210,13 @@ class GRPCServer:
 
     # ------------------------------------------------------- registration
     def register(self, service: GRPCService) -> None:
-        """Inject the host as ``service.container`` and queue the
-        service; it serves from the next ``start``."""
+        """Inject :attr:`injected` as ``service.container`` and queue
+        the service; it serves from the next ``start``."""
         if not service.name:
             raise ValueError(
                 f"{type(service).__name__}.name must be the fully-qualified "
                 "gRPC service name")
-        service.container = self.host_server
+        service.container = self.injected
         self._services.append(service)
         self.health.set(service.name, SERVING)
 
@@ -224,8 +247,9 @@ class GRPCServer:
                         (grpc_ctx.invocation_metadata() or ())}
             if spec.kind not in (UNARY, SERVER_STREAM):
                 payload = _Requests(payload, asyncio.get_running_loop())
-            ctx = RPCContext(payload, metadata, full_method, host, grpc_ctx,
-                             self.executor)
+            ctx = RPCContext(payload, metadata, full_method, self.injected,
+                             grpc_ctx, self.executor,
+                             getattr(host, "tenant_of", None))
             span = host.tracer.start_span(
                 full_method, traceparent=metadata.get("traceparent"))
             return ctx, span

@@ -26,9 +26,9 @@ hermetic test stand-in for gcloud's emulator.
 Against real GCP, inject an OAuth bearer token via ``auth_headers``
 (zero-egress CI never exercises that path).
 
-The port's copy of ``gofr_tpu/pubsub/google.py``. The client calls the port's synchronous
-``service.HTTPService`` on a worker thread; the emulator runs on the
-port's ``http.server.HTTPServer``.
+The port's copy of ``gofr_tpu/pubsub/google.py``. The client awaits the
+port's ``service.HTTPService``, which makes each call on a worker
+thread; the emulator runs on the port's ``http.server.HTTPServer``.
 """
 
 from __future__ import annotations
@@ -89,11 +89,8 @@ class GooglePubSubClient:
 
     async def _call(self, method: str, path: str, payload: dict | None,
                     ok_conflict: bool = False) -> dict:
-        # the port's service client is synchronous: each call runs on a
-        # worker thread, off the loop
-        resp = await asyncio.to_thread(
-            self._service().request, method, path, json=payload,
-            headers=self.auth_headers)
+        resp = await self._service().request(
+            method, path, json=payload, headers=self.auth_headers)
         if resp.status == 409 and ok_conflict:
             return {}
         if resp.status >= 400:

@@ -23,10 +23,17 @@ option outermost. The options:
 Every request carries the active span's ``traceparent`` when the service
 has a tracer.
 
-The port's serving stack is threads, not an event loop, so the client is
-synchronous: one ``http.client`` connection per request, ``Connection:
-close``. The agent's heartbeat thread and the router's request threads
-call it directly. :func:`probe_leader` / :func:`resolve_leader` walk the
+Each call is one ``http.client`` connection, ``Connection: close``, made
+synchronously. Called from a thread that runs an event loop (an ``async
+def`` handler), :meth:`HTTPService.request`, the verbs and
+:meth:`HTTPService.health_check` return an awaitable instead, which
+makes the same call on a worker thread (:func:`awaitable_on_loop`), so a
+handler written for JAX's coroutine client (``resp = await
+svc.get(...)``) runs unchanged and the loop serves other requests while
+the call is in flight. Anywhere else they return the :class:`Response`
+(the health dict): the agent's heartbeat thread, the router's request
+threads and the port's callers on worker threads call it directly.
+:func:`probe_leader` / :func:`resolve_leader` walk the
 ranked leader candidates' ``GET /control/leader``.
 
 Each call records its seconds (``time.perf_counter``) in the
@@ -39,6 +46,7 @@ trial request recovers the circuit).
 
 from __future__ import annotations
 
+import asyncio
 import base64
 import http.client
 import json as json_mod
@@ -346,10 +354,17 @@ class HTTPService:
         for opt in self.options:
             opt.bind(self)
 
-    def request(self, method: str, path: str, *,
-                params: Mapping[str, Any] | None = None,
-                json: Any = None, body: bytes | None = None,
-                headers: Mapping[str, str] | None = None) -> Response:
+    def request(self, method: str, path: str, **kw) -> Any:
+        """The :class:`Response` to one request through the options; on
+        a thread that runs an event loop, an awaitable of it
+        (:func:`awaitable_on_loop`). ``params``, ``json``, ``body``,
+        ``headers`` as JAX's."""
+        return awaitable_on_loop(self._request, method, path, **kw)
+
+    def _request(self, method: str, path: str, *,
+                 params: Mapping[str, Any] | None = None,
+                 json: Any = None, body: bytes | None = None,
+                 headers: Mapping[str, str] | None = None) -> Response:
         hdrs = {k: str(v) for k, v in (headers or {}).items()}
         if json is not None:
             body = json_mod.dumps(json).encode()
@@ -391,25 +406,29 @@ class HTTPService:
             return opt.around(call, method, path, headers, body)
         return wrapped
 
-    def get(self, path: str, **kw) -> Response:
+    def get(self, path: str, **kw) -> Any:
         return self.request("GET", path, **kw)
 
-    def post(self, path: str, **kw) -> Response:
+    def post(self, path: str, **kw) -> Any:
         return self.request("POST", path, **kw)
 
-    def put(self, path: str, **kw) -> Response:
+    def put(self, path: str, **kw) -> Any:
         return self.request("PUT", path, **kw)
 
-    def patch(self, path: str, **kw) -> Response:
+    def patch(self, path: str, **kw) -> Any:
         return self.request("PATCH", path, **kw)
 
-    def delete(self, path: str, **kw) -> Response:
+    def delete(self, path: str, **kw) -> Any:
         return self.request("DELETE", path, **kw)
 
-    def health_check(self) -> dict:
+    def health_check(self) -> Any:
         """``GET`` the :class:`HealthConfig` path, outside the options:
         ``{"status": "UP"}`` on a 2xx, else ``DOWN`` with the ``code``
-        or the ``error``."""
+        or the ``error``; on a thread that runs an event loop, an
+        awaitable of it."""
+        return awaitable_on_loop(self._health_check)
+
+    def _health_check(self) -> dict:
         try:
             resp = _raw_request("GET", self.base_url + self.health.path,
                                 headers={}, body=b"",
@@ -419,6 +438,17 @@ class HTTPService:
             return {"status": "DOWN", "code": resp.status}
         except Exception as exc:  # noqa: BLE001 — any failure is DOWN
             return {"status": "DOWN", "error": str(exc)}
+
+
+def awaitable_on_loop(fn: Callable, *args, **kw) -> Any:
+    """``fn(*args, **kw)`` here; on a thread that runs an event loop,
+    a coroutine that runs it on a worker thread (the caller's context
+    vars, and so its span, go with it), as JAX's clients are awaited."""
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return fn(*args, **kw)
+    return asyncio.to_thread(fn, *args, **kw)
 
 
 def new_http_service(base_url: str, *options: Option, **kw) -> HTTPService:

@@ -210,16 +210,30 @@ def _mesh_engine(params: Any, c: LlamaConfig, engine_config: EngineConfig,
     return engine
 
 
+def demo_config(device: str | torch.device) -> LlamaConfig:
+    """The demo engine's model on ``device``: ``LlamaConfig.tiny()``
+    (JAX's demo model: float32, head_dim 16) on the CPU; on CUDA its
+    twin at the kernels' shapes (bf16, head_dim 64: 8 query and 2 KV
+    heads over dim 512, ffn 1024), since the CUDA kernels take no
+    other."""
+    c = LlamaConfig.tiny()
+    if torch.device(device).type == "cpu":
+        return c
+    return c.scaled(dim=512, n_heads=8, n_kv_heads=2, ffn_dim=1024,
+                    dtype=torch.bfloat16)
+
+
 def demo_llama_engine(engine_config: EngineConfig | None = None,
                       seed: int = 0, *,
                       device: str | torch.device | None = None,
                       **kw) -> Engine:
-    """A tiny random-weight engine for tests and examples:
-    ``LlamaConfig.tiny()`` from ``seed``, ``EngineConfig(max_batch=4,
-    max_seq=128)`` unless given, on ``device`` (default: CUDA, or
-    raise)."""
-    c = LlamaConfig.tiny()
+    """A tiny random-weight engine for tests, examples and the operator
+    tools (``scripts/torch_replay.py``, ``torch_capacity.py``): the
+    model of :func:`demo_config` from ``seed``,
+    ``EngineConfig(max_batch=4, max_seq=128)`` unless given, on
+    ``device`` (default: CUDA, or raise)."""
     dev = resolve_device(device)
+    c = demo_config(dev)
     params = llama_init(c, torch.Generator().manual_seed(seed), dev)
     return llama_engine(params, c,
                         engine_config or EngineConfig(max_batch=4,

@@ -612,7 +612,7 @@ class TestCLI:
     def test_repo_lints_clean(self):
         scripts = sorted(str(p.relative_to(REPO))
                          for p in (REPO / "scripts").glob("torch_*.py"))
-        r = self.run_cli("gofr_tpu_torch/", *scripts)
+        r = self.run_cli("gofr_tpu_torch/", "examples_torch/", *scripts)
         assert r.returncode == 0, r.stdout + r.stderr
 
     def test_allows_carry_reasons(self):

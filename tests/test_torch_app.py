@@ -398,7 +398,12 @@ def test_a_client_leaving_mid_stream_cancels_its_request(pair):
         req, = pair.port.made[before:]
         sock.close()
         at_close = len(req.generated)
-        assert _wait(lambda: all(r is None for r in eng.active), 30.0)
+        # the engine frees the slot before it ends the request and gives
+        # its pages back: wait for all three
+        assert _wait(lambda: all(r is None for r in eng.active)
+                     and req.done.is_set()
+                     and sorted(eng._free_pages) == list(range(eng._n_pages)),
+                     30.0)
     finally:
         eng._decode_dispatch = inner
     assert req.cancelled and req.done.is_set()

@@ -21,10 +21,11 @@ torch.set_num_threads(2)
 
 PKG = Path(gofr_tpu_torch.__file__).parent
 REPO = PKG.parent
-#: the port's modules plus the scripts that drive it on the card
-PORT_FILES = sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "torch_decode_profile.py",
-    REPO / "scripts" / "torch_lint.py"]
+#: the port's modules, the scripts that drive it (on the card and as an
+#: operator's tools) and the apps built on it
+PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] \
+    + sorted((REPO / "scripts").glob("torch_*.py")) \
+    + sorted((REPO / "examples_torch").rglob("*.py"))
 #: ml_dtypes: the card's machine has none, and the port reads bf16 bytes
 #: without it
 FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "gofr_tpu", "ml_dtypes")
