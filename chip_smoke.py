@@ -203,7 +203,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              bit for bit the in-memory int8 engine's, its prompt counted
              by the BPE tokenizer.
 9. serve_moe — the Mixtral-style MoE family (``moe_engine``) at
-             Mixtral-8x7B width, 8 of its 32 layers, random bf16 weights,
+             Mixtral-8x7B width, 4 of its 32 layers (8 until train_mesh
+             joined the script), random bf16 weights,
              through the app on the slot layout, the paged layout's dense
              view (bf16, and int8 with decode windows 512 / 1024) and the
              slot layout with those windows: four waves (serve's wave 1,
@@ -221,9 +222,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              decode dispatch's view write-back, both forms, each with its
              planted fault, among the kernel rows above).
 10. serve_llama8b — Llama-3-8B (``llama3_8b``: hd 128) at full width,
-             16 of its 32 layers (the full 32, 16.06 GB, until serve_tp
-             joined the script; ``phase_serve_llama8b`` takes any
-             depth), random weights,
+             8 of its 32 layers (the full 32, 16.06 GB, until serve_tp
+             joined the script, then 16 until train_mesh did;
+             ``phase_serve_llama8b`` takes any depth), random weights,
              through the app on the native paged layout (bf16; int8 with
              speculation), the slot layout, the view (``paged_attention=
              "view"``, windows 512 / 1024), and speculative on the native
@@ -389,8 +390,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              unchanged by it.
 21. serve_tp — serving on a tensor-parallel mesh at Llama-3-70B's width
              (``llama3_70b``: dim 8192, 64 q / 8 KV heads, hd 128, ffn
-             28672, vocab 128256), 8 of its 80 layers, bf16, random
-             weights from seed 0 (17.9 GB; ``phase_serve_tp``'
+             28672, vocab 128256), 4 of its 80 layers (8 until
+             train_mesh joined the script), bf16, random
+             weights from seed 0 (11.0 GB; ``phase_serve_tp``'
              docstring): the unsharded engine as the reference; (c) tp = 1
              over a one-rank ``nccl`` group with the decode graph captured
              (tokens bit-equal); (b) tp = 2 as two rank processes sharing
@@ -403,7 +405,19 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              the slab write at Hkv 4, one rank's shapes, each with its
              planted fault, among the kernel rows above).
 
-Phases 9-21 each print their wall time (``phase_wall_s``).
+22. train_mesh — the trainer on a mesh on the card: four ``gloo`` rank
+             processes sharing it (``phase_train_mesh``' docstring), each
+             job against the port's one-rank step: (a) ``llama3_1b``
+             uncut at ``{dp: 2, tp: 2}``, (b) GPipe at ``{dp: 2, pp:
+             2}``, M = 4, (c) Mixtral-8x7B width, 1 layer, at ``{dp: 2,
+             ep: 2}``, (d) ring attention at sp = 4 (q / k / v [1, 8192,
+             32, 64], float32), (e) (a)'s state saved whole after step 2
+             and restored slice by slice, steps 3-4 bit for bit; each
+             with its planted fault. Step ms, tokens/s, the collectives'
+             ms a step, each rank's peak memory. No kernel of the
+             repository lies on this path.
+
+Phases 9-22 each print their wall time (``phase_wall_s``).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Exits non-zero with no
@@ -6980,7 +6994,8 @@ def phase_serve_moe(dev, smi_line: str, cfg=None) -> dict:
                 for key in slot["launches"]}
     summary = {
         "phase": "serve_moe", "card": smi_line,
-        "config": "mixtral_8x7b, n_layers 8 of 32, bf16, random seed 0",
+        "config": f"mixtral_8x7b, n_layers {cfg.n_layers} of 32, bf16, "
+                  "random seed 0",
         "weight_bytes": weight_bytes, "init_s": init_s,
         "logits_max_abs_diff": logit_err, "tolerance": LOGITS_TOL,
         "planted_fault_logits_diff": fault_err,
@@ -13219,7 +13234,7 @@ def phase_train_llama(dev, smi_line: str, cfg=None) -> dict:
 # ------------------------------------------------------------ serve_tp
 
 #: Llama-3-70B's width cut to this many of its 80 layers
-TP_LAYERS = 8
+TP_LAYERS = 4
 #: the collectives' timeout in serve_tp's rank processes
 TP_TIMEOUT_S = 120.0
 #: one transfer size of the host-staged all-reduce timing
@@ -13392,7 +13407,7 @@ def _tp_rank(rank: int, world: int, root: str, rendezvous: str,
                 torch.cuda.empty_cache()
 
         def build(planted: bool):
-            # one rank at a time holds the whole tree (17.9 GB) while
+            # one rank at a time holds the whole tree (11.0 GB) while
             # it cuts its shards
             engine = None
             for turn in range(world):
@@ -13490,9 +13505,9 @@ def _tp_token_faults(label: str, run: dict, ref: dict, judge,
 
 
 def phase_serve_tp(dev, smi_line: str, cfg=None) -> dict:
-    """Serving on a tensor-parallel mesh at Llama-3-70B's width (8 of its
-    80 layers, random bf16 weights from seed 0, 17.9 GB; about 9 GB a
-    rank at tp = 2), the last phase.
+    """Serving on a tensor-parallel mesh at Llama-3-70B's width
+    (``TP_LAYERS`` of its 80 layers, random bf16 weights from seed 0, 11.0
+    GB at 4; about 5.5 GB a rank at tp = 2), before train_mesh.
 
     (a) flash at Hq 32 / Hkv 4 / D 128 and the slab write at Hkv 4 (one
     rank's shapes) against their plain versions with their planted
@@ -13707,6 +13722,1285 @@ def phase_serve_tp(dev, smi_line: str, cfg=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- train_mesh
+
+#: the rank processes of train_mesh (four, sharing the one card over gloo)
+MESH_WORLD = 4
+#: their collectives' timeout: a staged all-reduce of a step's 1.24 GB of
+#: gradients takes seconds, a checkpoint's gather of 7.4 GB tens
+MESH_TIMEOUT_S = 300.0
+#: how long a rank waits for the parent's plan (the one-rank references)
+MESH_PLAN_WAIT_S = 600.0
+#: (a) steps (the checkpoint of (e) after the second); (b) GPipe steps and
+#: microbatches; (c) MoE steps and its batch
+MESH_STEPS, MESH_PIPE_STEPS, MESH_PIPE_M = 4, 3, 4
+MESH_MOE_STEPS, MESH_MOE_B, MESH_MOE_S = 3, 4, 256
+#: (d)'s q / k / v: [1, 8192, 32, 64], llama3_1b's 32 heads of 64
+MESH_RING_SHAPE = (1, 8192, 32, 64)
+#: (d) ring attention at sp = 4 against plain causal attention on one rank,
+#: both float32 (no TF32: torch's default for matmuls), per tensor:
+#: max |ring - plain| <= MESH_RING_TOL * max |plain|. The two sum the same
+#: products in other orders (four key blocks merged by the running
+#: softmax against one softmax over 8192 keys): float32's unit roundoff
+#: 2^-24 times the few hundred terms an element's sums chain gives errors
+#: near 1e-6 of the largest value; a block run in the wrong mode or from
+#: the wrong rank moves the output and gradients by a large part of it
+MESH_RING_TOL = 1e-4
+#: (c): a step's loss may part from the one-rank step's by this many times
+#: the distance between the one-rank step and the same step with the
+#: mesh's dp roundings (``_moe_loss_tols``), where that is above
+#: TRAIN_LOSS_TOL; the mesh's losses must also lie within TRAIN_LOSS_TOL
+#: of that step's
+MESH_MOE_SPREAD = 2.0
+#: (a) the step's global gradient norm against the one-rank step's,
+#: relative: both are float32 sums of squares of bf16 gradients that
+#: differ by bf16 rounding (about 2^-8 an element, random in sign); a
+#: norm over one rank's shards alone is about 1 / sqrt(tp) of it
+MESH_NORM_RTOL = 0.01
+#: the comm.py functions that move tensors between ranks (timed, train_mesh)
+MESH_COLLECTIVES = ("_all_reduce", "_all_gather", "_reduce_scatter",
+                    "_exchange", "_sum_", "send", "recv")
+
+
+class _CommTimer:
+    """Host ms spent in ``comm.py``'s collectives while active: every
+    function of ``MESH_COLLECTIVES`` is wrapped, the card synchronised
+    before and after each outermost call (queued compute is not counted
+    in it; a collective on a ``gloo`` group blocks the host anyway)."""
+
+    def __init__(self, dev) -> None:
+        from gofr_tpu_torch.parallel import comm
+        self.comm, self.dev = comm, dev
+        self.ms, self.calls, self._depth, self._saved = 0.0, 0, 0, {}
+
+    def _sync(self) -> None:
+        import torch
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            if self._depth:
+                return fn(*args, **kwargs)
+            self._sync()
+            t0 = time.perf_counter()
+            self._depth += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                self._sync()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.calls += 1
+        return timed
+
+    def __enter__(self):
+        for name in MESH_COLLECTIVES:
+            self._saved[name] = getattr(self.comm, name)
+            setattr(self.comm, name, self._wrap(self._saved[name]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self._saved.items():
+            setattr(self.comm, name, fn)
+
+
+def _capturing(optimizer):
+    """``optimizer`` that keeps the gradients of its first update (the
+    first step's, summed over dp, before clipping) in ``seen``."""
+    from gofr_tpu_torch.parallel.train import GradientTransformation
+    seen: list = []
+
+    def update(updates, state, params=None, **extra):
+        if not seen:
+            seen.append(updates)
+        held = [updates]        # handed over, as ``train.chain`` does
+        del updates
+        return optimizer.update(held.pop(), state, params, **extra)
+
+    return GradientTransformation(optimizer.init, update), seen
+
+
+def _spec_items(specs, prefix: str = ""):
+    """``(key, spec)`` of a spec tree, keyed as ``checkpoint.flatten``
+    keys the parameter tree."""
+    if isinstance(specs, dict):
+        for key in sorted(specs):
+            yield from _spec_items(specs[key], f"{prefix}[{key!r}]")
+    else:
+        yield prefix, tuple(specs)
+
+
+def _leaf_specs(state, specs) -> dict:
+    """Per leaf key of ``state`` (a train state or a parameter tree), its
+    placement spec: a parameter's, which its gradient and Adam moments
+    take too, else () (optax's ``count``, the step)."""
+    from gofr_tpu_torch.checkpoint import flatten
+    from gofr_tpu_torch.parallel.sharding import _match_specs
+    params = state.params if hasattr(state, "params") else state
+    by_param = dict(_spec_items(_match_specs(params, specs)))
+    out = {}
+    for key, _ in flatten(state):
+        out[key] = next((spec for pkey, spec in by_param.items()
+                         if key.endswith(pkey)), ())
+    return out
+
+
+def _digest(t) -> str:
+    """sha1 of a tensor's bytes (on the host)."""
+    import hashlib
+    import torch
+    host = t.detach().contiguous().cpu()
+    return hashlib.sha1(host.view(torch.uint8).numpy().data).hexdigest()
+
+
+class _HostBlock:
+    """A placement for ``Checkpointer.restore(sharding_fn=)``: this rank's
+    block of a leaf (``sharding.index``), kept on the host."""
+
+    def __init__(self, sharding) -> None:
+        import torch
+        self.index = sharding.index
+        self.device = torch.device("cpu")
+
+
+def _grad_record(grads: dict, ref: dict, specs, mesh) -> dict:
+    """A gradient tree of this rank's shards against the reference's
+    blocks (``ref``, the same keys, on the host): per group — a layer of
+    a stacked leaf, an expert of an expert-sharded one, a whole leaf
+    otherwise — the float64 dot product and both squared norms, and
+    whether every rank holds the group whole (else the parent sums the
+    parts over the ranks that hold one); per leaf a digest, to hold dp
+    replicas equal."""
+    import torch
+    from gofr_tpu_torch.checkpoint import flatten
+    specs = _leaf_specs(grads, specs)
+    refs = dict(flatten(ref))
+    parts, digests = {}, {}
+    for key, g in flatten(grads):
+        digests[key] = _digest(g)
+        spec = specs[key]
+        whole = not any(spec)
+        r = refs[key]
+        name = key.rsplit("[", 1)[-1].strip("]'")
+        if "['layers']" not in key:
+            groups = [(name, (), ())]
+        elif len(spec) > 1 and spec[1] is not None and g.ndim == 4:
+            # experts: dim 1 is this rank's slice of the expert axis
+            first = mesh.coord(spec[1]) * g.shape[1]
+            groups = [(f"{name}[{li},{first + e}]", (li, e), (li, e))
+                      for li in range(g.shape[0]) for e in range(g.shape[1])]
+            whole = False
+        else:
+            groups = [(f"{name}[{li}]", (li,), (li,))
+                      for li in range(g.shape[0])]
+        for label, gi, ri in groups:
+            a = g[gi].double()
+            b = r[ri].to(g.device).double()
+            parts[label] = [float((a * b).sum()), float((a * a).sum()),
+                            float((b * b).sum()), whole]
+            del a, b
+    return {"parts": parts, "digests": digests}
+
+
+def _ref_blocks(directory, mesh, specs, like) -> dict:
+    """This rank's blocks of the reference gradients saved in
+    ``directory`` (step 1), on the host, as a tree like ``like``."""
+    from gofr_tpu_torch.checkpoint import Checkpointer
+    from gofr_tpu_torch.parallel.sharding import Sharding
+    spec = _leaf_specs(like, specs)
+    return Checkpointer(directory).restore(
+        1, like=like,
+        sharding_fn=lambda key: _HostBlock(Sharding(mesh, spec[key])))
+
+
+def _free(dev) -> None:
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _timed_steps(step, held: dict, batch, n: int, dev,
+                 norms: bool = False):
+    """``n`` steps from ``held["state"]``, which each step replaces (no
+    other reference may keep an old state alive: a state is a third of
+    a rank's memory): (losses, step ms, comm ms a step, gradient norms),
+    each step on the host clock with the card synchronised."""
+    import torch
+    losses, step_ms, comm_ms, grad_norms = [], [], [], []
+    for _ in range(n):
+        with _CommTimer(dev) as timer:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            held["state"], loss = step(held.pop("state"), *batch)
+            losses.append(float(loss))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        comm_ms.append(timer.ms)
+        if norms:
+            grad_norms.append(float(step.grad_norm))
+    return losses, step_ms, comm_ms, grad_norms
+
+
+def _gathered_host(leaf, spec, mesh):
+    """A leaf whole on the host: its shards gathered over the mesh axes
+    its spec names (CPU tensors over the mesh's groups), each axis's
+    blocks concatenated along its dim (rows of whole runs, where a
+    gather into the first dim and a move back would transpose the leaf
+    twice)."""
+    import torch
+    import torch.distributed as dist
+    host = leaf.detach().cpu().contiguous()
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            parts = [torch.empty_like(host) for _ in range(mesh.size(axis))]
+            dist.all_gather(parts, host, group=mesh.group(axis))
+            host = torch.cat(parts, dim)
+    return host
+
+
+def _save_whole(ckpt, step_no: int, state, mesh, specs) -> dict:
+    """Save ``state`` whole as step ``step_no``: the dp = 0 ranks gather
+    every leaf onto the host, the first rank of the grid writes;
+    every rank waits for the write. Seconds: the gather, the write, in
+    all."""
+    import torch.distributed as dist
+    from gofr_tpu_torch.checkpoint import _rebuild, flatten
+    t0 = time.perf_counter()
+    spec = _leaf_specs(state, specs)
+    out = {}
+    if mesh.coord("dp") == 0:
+        leaves = [_gathered_host(leaf, spec[key], mesh)
+                  for key, leaf in flatten(state)]
+        out["gather_s"] = time.perf_counter() - t0
+        if mesh.rank == mesh.leader:
+            t1 = time.perf_counter()
+            ckpt.save(step_no, _rebuild(state, iter(leaves)))
+            out["write_s"] = time.perf_counter() - t1
+        del leaves
+    dist.barrier(group=mesh.control)
+    return {**out, "s": time.perf_counter() - t0}
+
+
+def _restore_slices(ckpt, step_no: int, like, mesh, specs,
+                    wrong: str | None = None) -> tuple:
+    """Each rank's slice of every leaf of step ``step_no`` on its device
+    (``sharding_fn``), and the seconds taken; ``wrong``: the key of a
+    leaf read at the tp peer's block instead (a planted fault)."""
+    from gofr_tpu_torch.parallel.mesh import Mesh
+    from gofr_tpu_torch.parallel.sharding import Sharding
+    spec = _leaf_specs(like, specs)
+    peer = next(r for r in mesh.line("tp") if r != mesh.rank) \
+        if wrong else None
+
+    def place(key):
+        at = mesh if key != wrong else Mesh(
+            mesh.ranks, mesh.axis_names, peer, mesh.device)
+        return Sharding(at, spec[key])
+
+    t0 = time.perf_counter()
+    restored = ckpt.restore(step_no, like=like, sharding_fn=place)
+    return restored, time.perf_counter() - t0
+
+
+def _mesh_job_dense(plan: dict, dev) -> dict:
+    """(a) ``llama3_1b`` at ``{dp: 2, tp: 2}``: the planted runs, then
+    ``MESH_STEPS`` steps under deterministic algorithms, step 1's
+    gradients against the reference's, the state saved after step 2;
+    (e) that checkpoint restored, every rank its slices, steps 3-4
+    again, and once more with one moment leaf read at the tp peer's
+    block."""
+    import torch
+    from gofr_tpu_torch.checkpoint import Checkpointer, _rebuild, flatten
+    from gofr_tpu_torch.models.llama import llama_init
+    from gofr_tpu_torch.parallel import comm
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    from gofr_tpu_torch.parallel.sharding import (llama_param_specs,
+                                                  shard_params)
+    from gofr_tpu_torch.parallel.train import (default_optimizer,
+                                               make_train_state,
+                                               make_train_step)
+    cfg = plan["cfg"]
+    mesh = create_mesh(plan["axes"]["a"])
+    specs = llama_param_specs(mesh)
+    batch = [torch.from_numpy(x) for x in plan["batch"]]
+    planted = mesh.rank == plan["planted_rank"]
+    out: dict = {"coords": mesh.coords(), "marks": {}}
+    t_job = time.perf_counter()
+
+    def mark(name):
+        out["marks"][name] = time.perf_counter() - t_job
+
+    def seeded():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return gen
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        opt, seen = _capturing(default_optimizer())
+        state, _ = make_train_state(seeded(), cfg, mesh, optimizer=opt)
+        out["shapes"] = {key: [list(x.shape), list(spec)]
+                         for (key, x), spec in zip(
+                             flatten(state.params),
+                             _leaf_specs(state.params, specs).values())}
+        ref = _ref_blocks(plan["dir"] / "dense_grads", mesh, specs,
+                          state.params)
+        step = make_train_step(cfg, mesh, optimizer=opt, donate=False)
+        mark("init")
+
+        # planted: the dp gradient sum skipped on one rank (it joins the
+        # sums, and keeps its own gradients)
+        reduce = comm.all_reduce_
+        if planted:
+            comm.all_reduce_ = lambda x, mesh, axis: (
+                reduce(x.clone(), mesh, axis), x)[1] if x.ndim else \
+                reduce(x, mesh, axis)
+        try:
+            loss, grads = step.loss_and_grads(state.params, *batch)
+        finally:
+            comm.all_reduce_ = reduce
+        mark("planted_dp_step")
+        out["planted_dp"] = {"loss": float(loss),
+                             **_grad_record(grads, ref, specs, mesh)}
+        del grads
+        mark("planted_dp_record")
+        # planted: one rank holds its tp peer's block of wo
+        def swapped(c, g, d):
+            p = llama_init(c, g, d)
+            wo = p["layers"]["wo"]
+            half = wo.shape[1] // 2
+            p["layers"]["wo"] = torch.cat([wo[:, half:], wo[:, :half]], 1)
+            return p
+
+        bent = shard_params((swapped if planted else llama_init)(
+            cfg, seeded(), dev), mesh, specs)
+        loss, grads = step.loss_and_grads(bent, *batch)
+        out["planted_wo"] = {"loss": float(loss),
+                             **_grad_record(grads, ref, specs, mesh)}
+        del grads, bent
+        _free(dev)
+        mark("planted_wo")
+
+        _reset_peak(dev)
+        ckpt = Checkpointer(plan["dir"] / "mesh_ckpt", keep=2)
+        held = {"state": state}
+        del state
+        losses, step_ms, comm_ms, norms = [], [], [], []
+        for i in range(MESH_STEPS):
+            run = _timed_steps(step, held, batch, 1, dev, True)
+            for acc, got in zip((losses, step_ms, comm_ms, norms), run):
+                acc += got
+            mark(f"step{i + 1}")
+            if i == 0:
+                out["grads"] = _grad_record(seen[0], ref, specs, mesh)
+                seen[0] = None
+                mark("grads_record")
+            if i == 1 and plan["resume"]:
+                out["save"] = _save_whole(ckpt, 2, held["state"], mesh,
+                                          specs)
+                mark("save")
+        out.update({"losses": losses, "step_ms": step_ms,
+                    "comm_ms": comm_ms, "grad_norms": norms,
+                    "peak_bytes": _peak(dev),
+                    "param_digests": {k: _digest(x) for k, x in
+                                      flatten(held["state"].params)}})
+        del ref
+        if not plan["resume"]:
+            return out
+        # (e) the uninterrupted state on the host, then two resumed runs
+        mark("param_digests")
+        final = [x.detach().cpu() for _, x in flatten(held["state"])]
+        like = _rebuild(held.pop("state"), iter(final))
+        _free(dev)
+        mark("final_to_host")
+        moment = next(key for key in _leaf_specs(like, specs)
+                      if ".mu['layers']['wo']" in key)
+        for label, wrong in (("e", None), ("e_planted", moment)):
+            held["state"], restore_s = _restore_slices(
+                ckpt, 2, like, mesh, specs, wrong if planted else None)
+            got = _timed_steps(step, held, batch, 2, dev)[0]
+            differ = [key for (key, x), y in
+                      zip(flatten(held.pop("state")), final)
+                      if not torch.equal(x.detach().cpu(), y)]
+            out[label] = {"losses": got, "differ": differ[:4],
+                          "n_differ": len(differ), "restore_s": restore_s}
+            _free(dev)
+            mark(label)
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _mesh_job_pipe(plan: dict, dev) -> dict:
+    """(b) GPipe at ``{dp: 2, pp: 2}``, M = ``MESH_PIPE_M``: one planted
+    step (a stage sends the previous microbatch's activation), then
+    ``MESH_PIPE_STEPS`` steps."""
+    import torch
+    from gofr_tpu_torch.parallel import comm
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    from gofr_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from gofr_tpu_torch.parallel.train import make_train_state
+    cfg = plan["cfg"]
+    mesh = create_mesh(plan["axes"]["b"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state, _ = make_train_state(gen, cfg, mesh)
+    step = make_pipeline_train_step(cfg, mesh, num_microbatches=MESH_PIPE_M,
+                                    donate=False)
+    batch = [torch.from_numpy(x).reshape(MESH_PIPE_M, -1, x.shape[-1])
+             for x in plan["pipe_batch"]]
+    out: dict = {"coords": mesh.coords(),
+                 "layers": int(state.params["layers"]["wq"].shape[0])}
+    send, sent = comm.send, []
+
+    def late_send(x, mesh, axis, to):
+        sent.append(x)
+        return send(sent[-2] if len(sent) > 1 else x, mesh, axis, to)
+
+    if mesh.rank == plan["planted_rank"]:
+        comm.send = late_send
+    try:
+        loss = step(state, *batch)[1]
+    finally:
+        comm.send = send
+    out["planted"] = {"loss": float(loss)}
+    del sent[:]
+    held = {"state": state}
+    del state
+    _free(dev)
+    _reset_peak(dev)
+    losses, step_ms, comm_ms, _ = _timed_steps(step, held, batch,
+                                               MESH_PIPE_STEPS, dev)
+    out.update({"losses": losses, "step_ms": step_ms, "comm_ms": comm_ms,
+                "peak_bytes": _peak(dev)})
+    return out
+
+
+def _mesh_job_moe(plan: dict, dev) -> dict:
+    """(c) the MoE model at ``{dp: 2, ep: 2}``: a planted forward and
+    backward (``ExpertShard.first`` one expert off on one rank), then
+    ``MESH_MOE_STEPS`` steps, step 1's gradients against the
+    reference's."""
+    import torch
+    from gofr_tpu_torch.models import moe as moe_mod
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    from gofr_tpu_torch.parallel.sharding import moe_param_specs
+    from gofr_tpu_torch.parallel.train import (default_optimizer,
+                                               make_train_state,
+                                               make_train_step)
+    c = plan["moe_cfg"]
+    mesh = create_mesh(plan["axes"]["c"])
+    specs = moe_param_specs(mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    opt, seen = _capturing(default_optimizer())
+    state, _ = make_train_state(gen, c, mesh, optimizer=opt,
+                                init_fn=moe_mod.moe_init,
+                                specs_fn=moe_param_specs)
+    ref = _ref_blocks(plan["dir"] / "moe_grads", mesh, specs, state.params)
+
+    def fwd(params, tokens):
+        return moe_mod.moe_prefill(params, tokens, c, implementation="plain",
+                                   mesh=mesh)[0]
+
+    step = make_train_step(c, mesh, forward_fn=fwd, optimizer=opt,
+                           donate=False)
+    batch = [torch.from_numpy(x) for x in plan["moe_batch"]]
+    out: dict = {"coords": mesh.coords(),
+                 "experts": int(state.params["layers"]["w1"].shape[1])}
+    shard = moe_mod._expert_shard
+
+    def off_by_one(m, cfg):
+        s = shard(m, cfg)
+        return s if s is None else s._replace(first=s.first + 1)
+
+    if mesh.rank == plan["planted_rank"]:
+        moe_mod._expert_shard = off_by_one
+    try:
+        loss, grads = step.loss_and_grads(state.params, *batch)
+    finally:
+        moe_mod._expert_shard = shard
+    out["planted"] = {"loss": float(loss),
+                      **_grad_record(grads, ref, specs, mesh)}
+    del grads
+    held = {"state": state}
+    del state
+    _free(dev)
+    _reset_peak(dev)
+    losses, step_ms, comm_ms, _ = _timed_steps(step, held, batch, 1, dev)
+    out["grads"] = _grad_record(seen[0], ref, specs, mesh)
+    seen[0] = None
+    del ref
+    rest = _timed_steps(step, held, batch, MESH_MOE_STEPS - 1, dev)
+    out.update({"losses": losses + rest[0], "step_ms": step_ms + rest[1],
+                "comm_ms": comm_ms + rest[2], "peak_bytes": _peak(dev)})
+    return out
+
+
+def _mesh_job_ring(plan: dict, dev) -> dict:
+    """(d) ``make_ring_attention`` at sp = world: the output and the
+    input gradients of the saved q / k / v and output gradient against
+    the reference's (error over the reference's largest magnitude), with
+    the diagonal block run as a full block, and with the first hop
+    rotated the wrong way, as planted faults."""
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.parallel import comm
+    from gofr_tpu_torch.parallel import ring_attention as ring_mod
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(plan["axes"]["d"])
+    ring = ring_mod.make_ring_attention(mesh, "sp")
+    with np.load(plan["dir"] / "ring.npz") as data:
+        arrays = {k: data[k] for k in data.files}
+    q, k, v = (torch.from_numpy(arrays[n]).to(dev).requires_grad_()
+               for n in "qkv")
+    do = torch.from_numpy(arrays["do"]).to(dev)
+    want = {n: torch.from_numpy(arrays[n]).to(dev)
+            for n in ("out", "dq", "dk", "dv")}
+    scale = {n: w.abs().max().item() for n, w in want.items()}
+
+    def run():
+        out = ring(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        return {n: ((got - want[n]).abs().max().item() / scale[n])
+                for n, got in zip(("out", "dq", "dk", "dv"),
+                                  (out, *grads))}
+
+    result: dict = {"coords": mesh.coords()}
+    _reset_peak(dev)
+    times, comm_ms = [], []
+    for _ in range(2):
+        with _CommTimer(dev) as timer:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            result["err"] = run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        comm_ms.append(timer.ms)
+    result.update({"ms": times, "comm_ms": comm_ms,
+                   "peak_bytes": _peak(dev)})
+    mode = ring_mod._block_mode
+    ring_mod._block_mode = lambda src, rank: (
+        ring_mod.FULL if src == rank else mode(src, rank))
+    try:
+        result["planted_diagonal"] = run()
+    finally:
+        ring_mod._block_mode = mode
+    ppermute, hops = comm.ppermute, []
+
+    def backward_hop(x, mesh, axis, perm):
+        hops.append(axis)
+        if len(hops) <= 2:          # k and v of the first hop
+            perm = [(d, s) for s, d in perm]
+        return ppermute(x, mesh, axis, perm)
+
+    comm.ppermute = backward_hop
+    try:
+        result["planted_hop"] = run()
+    finally:
+        comm.ppermute = ppermute
+    return result
+
+
+_MESH_JOBS = {"a": _mesh_job_dense, "b": _mesh_job_pipe,
+              "c": _mesh_job_moe, "d": _mesh_job_ring}
+
+
+def _kernel_counters() -> dict:
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+                                                    paged_decode_attention,
+                                                    paged_tree_attention)
+    from gofr_tpu_torch.ops.paged_kv import rope_kv_write, scatter_chunk_kv
+    from gofr_tpu_torch.ops.quant import wq_gemm
+    return {"flash_attention": flash_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "paged_chunk_attention": paged_chunk_attention,
+            "paged_tree_attention": paged_tree_attention,
+            "rope_kv_write": rope_kv_write,
+            "scatter_chunk_kv": scatter_chunk_kv, "wq_gemm": wq_gemm}
+
+
+def _mesh_rank(rank: int, world: int, root: str, out_dir: str) -> None:
+    """One rank process of train_mesh: waits for the parent's plan
+    (``plan.pkl`` in ``out_dir``), joins the world on ``plan["device"]``
+    (``{rank}`` in it: the rank's own card) over ``plan["backend"]``
+    (rendezvous ``out_dir/rendezvous``), runs every job of
+    ``plan["jobs"]`` on a mesh of its own, writes its results (or its
+    traceback) into ``out_dir``. The parent kills a rank it gave up on."""
+    import json
+    import os
+    import pickle
+    import traceback
+    entered_at = time.time()
+    # cuBLAS reads it at its first handle: (e)'s deterministic steps;
+    # the allocator at its first allocation: four ranks share the card,
+    # and a rank's free blocks must be of use to it at any size
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        sys.path.insert(0, root)
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        from gofr_tpu_torch.ops import _build
+        from gofr_tpu_torch.parallel.mesh import init_process_group
+        imported_at = time.time()
+        plan_path = Path(out_dir, "plan.pkl")
+        give_up = time.monotonic() + MESH_PLAN_WAIT_S
+        while not plan_path.exists():
+            if time.monotonic() > give_up:
+                raise TimeoutError(f"no plan after {MESH_PLAN_WAIT_S} s")
+            time.sleep(0.05)
+        plan = pickle.loads(plan_path.read_bytes())
+        planned_at = time.time()
+        device = plan["device"].format(rank=rank)
+        if torch.device(device).type == "cuda":
+            missing = [n for n in _build.SOURCES
+                       if not _build.library_path(n).exists()]
+            if missing:
+                raise RuntimeError(f"kernels not built by phase_build: "
+                                   f"{missing}")
+        dev = init_process_group(device, f"file://{out_dir}/rendezvous",
+                                 rank=rank,
+                                 world_size=world, backend=plan["backend"],
+                                 timeout_s=plan["timeout_s"])
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        result = {"rank": rank, "device": str(dev),
+                  "backend": dist.get_backend(),
+                  "entered_at": entered_at, "imported_at": imported_at,
+                  "planned_at": planned_at, "joined_at": time.time()}
+        for job in plan["jobs"]:
+            t0 = time.perf_counter()
+            result[job] = _MESH_JOBS[job](plan, dev)
+            result[job]["job_s"] = time.perf_counter() - t0
+            # on stderr as each job ends: what a later job's failure hides
+            print(json.dumps({"train_mesh_rank": rank, "job": job,
+                              **{k: result[job].get(k) for k in (
+                                  "job_s", "peak_bytes", "marks", "save",
+                                  "step_ms", "comm_ms")}}),
+                  file=sys.stderr, flush=True)
+            _free(dev)
+            dist.barrier()
+        result["launches"] = {k: fn.launches for k, fn in counters.items()}
+        result["jobs_done_at"] = time.time()
+        dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+
+def _mesh_axes(world: int) -> dict:
+    """The jobs' meshes: at four ranks ``{dp: 2, tp: 2}``, ``{dp: 2, pp:
+    2}``, ``{dp: 2, ep: 2}`` and sp = 4; at two, the same without dp."""
+    dp = {"dp": world // 2} if world > 2 else {}
+    return {"a": {**dp, "tp": 2}, "b": {**dp, "pp": 2},
+            "c": {**dp, "ep": 2}, "d": {"sp": world}}
+
+
+def _mesh_reference(dev, cfg, moe_cfg, ring_shape, batch_shape, moe_shape,
+                    directory: Path) -> dict:
+    """The one-rank references on ``dev``, without a process group (every
+    collective the identity), from the weights of seed 0 and JAX's
+    default optimizer: (a) ``MESH_STEPS`` steps on the ``batch_shape``
+    batch (``_train_batch``), their gradient norms and step 1's
+    gradients (saved in ``directory``); (b) ``MESH_PIPE_STEPS`` steps on
+    twice its rows ((a)'s and as many more: M microbatches over dp = 2
+    need 2 M rows); (c) the MoE model's steps and step 1's gradients;
+    (d) plain causal attention over the whole sequence in float32, a
+    chunk of heads at a time: its output and the input gradients of a
+    random output gradient (``ring.npz``). Returns the losses, norms,
+    step ms and the batches (numpy) for the ranks."""
+    import numpy as np
+    import torch
+    from gofr_tpu_torch.checkpoint import Checkpointer, flatten
+    from gofr_tpu_torch.models.moe import moe_init, moe_prefill
+    from gofr_tpu_torch.ops.attention import xla_attention
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    from gofr_tpu_torch.parallel.sharding import moe_param_specs
+    from gofr_tpu_torch.parallel.train import (default_optimizer,
+                                               make_train_state,
+                                               make_train_step)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def run(config, steps, batch, grads_dir=None, moe=False):
+        mesh = create_mesh({"dp": 1}, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        opt, seen = _capturing(default_optimizer())
+        kw = {"init_fn": moe_init, "specs_fn": moe_param_specs} if moe \
+            else {}
+        state, _ = make_train_state(gen, config, mesh, optimizer=opt, **kw)
+        shapes = {key: list(x.shape) for key, x in flatten(state.params)}
+        fwd = (lambda p, t: moe_prefill(p, t, config,
+                                        implementation="plain")[0]) \
+            if moe else None
+        step = make_train_step(config, mesh, optimizer=opt, forward_fn=fwd,
+                               donate=False)
+        losses, norms, ms = [], [], []
+        for i in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            state, loss = step(state, *batch)
+            losses.append(float(loss))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(step.grad_norm))
+            if i == 0 and grads_dir is not None:
+                t1 = time.perf_counter()
+                Checkpointer(grads_dir).save(1, seen[0])
+                save_s = time.perf_counter() - t1
+            seen[0] = None
+        del state, step
+        _free(dev)
+        return {"losses": losses, "grad_norms": norms, "step_ms": ms,
+                "shapes": shapes, "grads_save_s": save_s if grads_dir
+                else None}
+
+    out: dict = {}
+    batch = _train_batch(cfg, dev, *batch_shape)
+    out["a"] = run(cfg, MESH_STEPS, batch, directory / "dense_grads")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rows, seq = batch_shape
+    more = torch.randint(0, cfg.vocab_size, (rows, seq + 1), generator=gen,
+                         device=dev)
+    pipe = [torch.cat([batch[0], more[:, :-1]]),
+            torch.cat([batch[1], more[:, 1:]]),
+            torch.cat([batch[2], torch.ones_like(batch[2])])]
+    out["b"] = run(cfg, MESH_PIPE_STEPS, pipe)
+    moe_batch = _train_batch(moe_cfg, dev, *moe_shape)
+    out["c"] = run(moe_cfg, MESH_MOE_STEPS, moe_batch,
+                   directory / "moe_grads", moe=True)
+    out["c"]["halves_losses"] = _dp_halves_losses(dev, moe_cfg, moe_batch)
+    out["batch"], out["pipe_batch"], out["moe_batch"] = (
+        [x.cpu().numpy() for x in b] for b in (batch, pipe, moe_batch))
+    del batch, pipe, more, moe_batch
+    _free(dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q, k, v, do = (torch.randn(ring_shape, generator=gen, device=dev)
+                   for _ in range(4))
+    want = {n: torch.empty_like(q) for n in ("out", "dq", "dk", "dv")}
+    chunk = min(8, ring_shape[2])
+    sync()
+    t0 = time.perf_counter()
+    for h in range(0, ring_shape[2], chunk):
+        heads = slice(h, h + chunk)
+        qc, kc, vc = (t[:, :, heads].clone().requires_grad_()
+                      for t in (q, k, v))
+        oc = xla_attention(qc, kc, vc, causal=True)
+        grads = torch.autograd.grad(oc, (qc, kc, vc), do[:, :, heads])
+        for n, t in zip(("out", "dq", "dk", "dv"), (oc.detach(), *grads)):
+            want[n][:, :, heads] = t
+        del qc, kc, vc, oc, grads
+    sync()
+    out["d"] = {"plain_ms": (time.perf_counter() - t0) * 1e3}
+    np.savez(directory / "ring.npz", q=q.cpu().numpy(), k=k.cpu().numpy(),
+             v=v.cpu().numpy(), do=do.cpu().numpy(),
+             **{n: t.cpu().numpy() for n, t in want.items()})
+    del q, k, v, do, want
+    _free(dev)
+    return out
+
+
+def _dp_halves_losses(dev, c, batch) -> list:
+    """The MoE model's one-rank steps with the gradient summed in bf16
+    from the batch's two halves, each half's taken over the whole
+    batch's count (half of its own, exactly: a power of two), as two
+    dp ranks sum theirs: the one-rank step with the mesh's dp
+    roundings, and no collective. The losses of ``MESH_MOE_STEPS``
+    steps."""
+    import torch
+    from gofr_tpu_torch.models.moe import moe_init, moe_prefill
+    from gofr_tpu_torch.parallel.mesh import create_mesh
+    from gofr_tpu_torch.parallel.sharding import moe_param_specs
+    from gofr_tpu_torch.parallel.train import (TrainState, _map,
+                                               apply_updates,
+                                               default_optimizer,
+                                               global_norm, make_train_state,
+                                               make_train_step)
+    mesh = create_mesh({"dp": 1}, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state, opt = make_train_state(gen, c, mesh, init_fn=moe_init,
+                                  specs_fn=moe_param_specs)
+    step = make_train_step(c, mesh, donate=False, forward_fn=lambda p, t:
+                           moe_prefill(p, t, c, implementation="plain")[0])
+    rows = batch[0].shape[0] // 2
+    halves = [[x[:rows] for x in batch], [x[rows:] for x in batch]]
+    losses = []
+    for _ in range(MESH_MOE_STEPS):
+        (la, ga), (lb, gb) = (step.loss_and_grads(state.params, *h)
+                              for h in halves)
+        losses.append((float(la) + float(lb)) / 2)
+        grads = _map(lambda a, b: a / 2 + b / 2, ga, gb)
+        del ga, gb
+        updates, opt_state = opt.update(grads, state.opt_state, state.params,
+                                        g_norm=global_norm(grads))
+        del grads
+        state = TrainState(params=apply_updates(state.params, updates),
+                           opt_state=opt_state, step=state.step + 1)
+        del updates, opt_state
+    del state
+    _free(dev)
+    return losses
+
+
+def _by_dp(ranks: list) -> dict:
+    """The ranks of each dp replica (ranks whose ``coords`` share dp)."""
+    out: dict = {}
+    for r in ranks:
+        out.setdefault(r["coords"].get("dp", 0), []).append(r)
+    return out
+
+
+def _cos_faults_of(records: list) -> tuple[list, float]:
+    """From the ``_grad_record`` of every rank of a job (each with its
+    ``coords``): per dp replica, each group's cosine against the
+    reference, its parts summed over the ranks that hold one (a group
+    every rank holds whole taken once); faults below ``TRAIN_GRAD_COS``,
+    and the least cosine."""
+    faults, least = [], 1.0
+    for d, group in _by_dp(records).items():
+        sums: dict = {}
+        for r in group:
+            for label, (dot, na, nb, whole) in r["parts"].items():
+                if whole and label in sums:
+                    continue
+                acc = sums.setdefault(label, [0.0, 0.0, 0.0])
+                for i, x in enumerate((dot, na, nb)):
+                    acc[i] += x
+        for label, (dot, na, nb) in sums.items():
+            cos = (1.0 if na == nb == 0.0 else
+                   dot / math.sqrt(na * nb) if na * nb > 0 else 0.0)
+            least = min(least, cos)
+            if not cos >= TRAIN_GRAD_COS:
+                faults.append(f"dp {d} {label} cos {cos:.5f}")
+    return faults, least
+
+
+def _replica_faults(label: str, ranks: list, digests) -> list:
+    """Ranks of different dp replicas at one place on the other axes
+    must hold bit-equal leaves (``digests(rank) -> {key: sha1}``)."""
+    seen: dict = {}
+    faults = []
+    for r in ranks:
+        place = tuple(sorted((k, v) for k, v in r["coords"].items()
+                             if k != "dp"))
+        got = digests(r)
+        if place in seen and seen[place] != got:
+            differ = [k for k in got if got[k] != seen[place].get(k)]
+            faults.append(f"{label}: dp replicas at {dict(place)} differ "
+                          f"in {len(differ)} leaves, {differ[:2]}")
+        seen.setdefault(place, got)
+    return faults
+
+
+def _loss_faults(label: str, got: list, want: list,
+                 tols: list | None = None) -> list:
+    """Each step's loss within ``TRAIN_LOSS_TOL`` of the reference's (or
+    within that step's tolerance of ``tols``)."""
+    if len(got) != len(want):
+        return [f"{label}: {len(got)} losses for {len(want)}"]
+    tols = tols or [TRAIN_LOSS_TOL] * len(want)
+    return [f"{label} step {i + 1} loss {g} vs {w} (tolerance {t})"
+            for i, (g, w, t) in enumerate(zip(got, want, tols))
+            if not abs(g - w) <= t]
+
+
+def _moe_loss_tols(ref: dict) -> list:
+    """(c)'s tolerance at each step against the one-rank step:
+    ``TRAIN_LOSS_TOL``, or ``MESH_MOE_SPREAD`` times the distance between
+    the one-rank step and the same step with the mesh's dp roundings
+    (``_dp_halves_losses``), where that is wider. The dp sum adds two
+    bf16 gradients, each rounded once already; after the first update a
+    router weight whose gradient sign those roundings turn sends a token
+    near a tie of its top two to the other expert, and the loss moves by
+    a discrete step."""
+    return [max(TRAIN_LOSS_TOL, MESH_MOE_SPREAD * abs(a - b))
+            for a, b in zip(ref["losses"], ref["halves_losses"])]
+
+
+def _step1_faults(label: str, runs: list, want_loss: float) -> list:
+    """Step 1's loss, gradients against the reference's and dp replicas
+    bit-equal, over every rank's record of one run (``loss``, ``parts``,
+    ``digests``, ``coords``)."""
+    faults = []
+    for r in runs:
+        faults += _loss_faults(f"{label} rank {r['coords']}", [r["loss"]],
+                               [want_loss])
+    faults += _cos_faults_of(runs)[0]
+    return faults + _replica_faults(label, runs, lambda r: r["digests"])
+
+
+def _shape_faults(ranks: list, shapes: dict, axes: dict) -> list:
+    """Each rank holds one part of every leaf per mesh axis its spec
+    names (``shard_params``), the whole leaf along the others."""
+    faults = []
+    for r in ranks:
+        for key, (local, spec) in r["a"]["shapes"].items():
+            want = [n // (axes.get(a, 1) if a else 1)
+                    for n, a in zip(shapes[key], list(spec) + [None] * 8)]
+            if local != want:
+                faults.append(f"rank {r['rank']} {key} {local}, "
+                              f"want {want}")
+    return faults
+
+
+def _mesh_checks(ranks: list, ref: dict, plan: dict) -> tuple[dict, dict]:
+    """(failed, planted): per check, the faults of the run; per planted
+    fault, the faults the same checks found in its run (each must find
+    one)."""
+    failed: dict = {}
+    planted: dict = {}
+    jobs = plan["jobs"]
+    axes = plan["axes"]
+    if "a" in jobs:
+        a = [dict(r["a"], rank=r["rank"]) for r in ranks]
+        want = ref["a"]
+        f = []
+        for r in a:
+            f += _loss_faults(f"rank {r['rank']}", r["losses"],
+                              want["losses"])
+            f += [f"rank {r['rank']} step {i + 1} gradient norm {g} vs {w}"
+                  for i, (g, w) in enumerate(zip(r["grad_norms"],
+                                                 want["grad_norms"]))
+                  if not abs(g - w) <= MESH_NORM_RTOL * w]
+        f += _step1_faults("a", [dict(r["grads"], coords=r["coords"],
+                                      loss=r["losses"][0]) for r in a],
+                           want["losses"][0])
+        f += _replica_faults("a params", a, lambda r: r["param_digests"])
+        f += _shape_faults(ranks, want["shapes"], axes["a"])
+        f += _fall_faults(a[0]["losses"], a[0]["grad_norms"])
+        launched = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        if any(launched.values()):
+            f.append(f"the trainer launched {launched}")
+        failed["a"] = f
+        plants = [("a_wo_swapped", "planted_wo")]
+        if axes["a"].get("dp", 1) > 1:      # without dp there is no sum
+            plants.append(("a_dp_sum_skipped", "planted_dp"))
+        for name, key in plants:
+            planted[name] = _step1_faults(
+                name, [dict(r[key], coords=r["coords"]) for r in a],
+                want["losses"][0])
+        if plan["resume"]:
+            for name, key in (("e", "e"), ("e_wrong_moment", "e_planted")):
+                f = []
+                for r in a:
+                    run = r[key]
+                    if run["n_differ"]:
+                        f.append(f"rank {r['rank']}: {run['n_differ']} "
+                                 f"leaves differ, {run['differ']}")
+                    if run["losses"] != r["losses"][2:4]:
+                        f.append(f"rank {r['rank']}: losses {run['losses']}"
+                                 f" vs {r['losses'][2:4]}")
+                (failed if name == "e" else planted)[name] = f
+    if "b" in jobs:
+        b = [r["b"] for r in ranks]
+        f = []
+        for r in b:
+            f += _loss_faults(f"b {r['coords']}", r["losses"],
+                              ref["b"]["losses"])
+            if r["layers"] != plan["cfg"].n_layers // axes["b"]["pp"]:
+                f.append(f"b {r['coords']} holds {r['layers']} layers")
+        failed["b"] = f
+        planted["b_previous_activation"] = sum(
+            (_loss_faults(f"b {r['coords']}", [r["planted"]["loss"]],
+                          ref["b"]["losses"][:1]) for r in b), [])
+    if "c" in jobs:
+        c = [r["c"] for r in ranks]
+        f = []
+        tols = _moe_loss_tols(ref["c"])
+        for r in c:
+            f += _loss_faults(f"c {r['coords']}", r["losses"],
+                              ref["c"]["losses"], tols)
+            f += _loss_faults(f"c {r['coords']} (the dp-halves step)",
+                              r["losses"], ref["c"]["halves_losses"])
+            if r["experts"] != plan["moe_cfg"].n_experts // axes["c"]["ep"]:
+                f.append(f"c {r['coords']} holds {r['experts']} experts")
+        f += _step1_faults("c", [dict(r["grads"], coords=r["coords"],
+                                      loss=r["losses"][0]) for r in c],
+                           ref["c"]["losses"][0])
+        failed["c"] = f
+        planted["c_first_expert_off"] = _step1_faults(
+            "c planted", [dict(r["planted"], coords=r["coords"])
+                          for r in c], ref["c"]["losses"][0])
+    if "d" in jobs:
+        def ring_faults(key):
+            return [f"d {r['d']['coords']} {n} error {e:.3g} of the "
+                    f"largest |value|" for r in ranks
+                    for n, e in r["d"][key].items()
+                    if not e <= MESH_RING_TOL]
+
+        failed["d"] = ring_faults("err")
+        planted["d_diagonal_full"] = ring_faults("planted_diagonal")
+        if axes["d"]["sp"] > 2:     # at two ranks either way is one swap
+            planted["d_hop_reversed"] = ring_faults("planted_hop")
+    return failed, planted
+
+
+def _run_ranks(world: int, make_plan, deadline_s: float) -> tuple:
+    """Spawn ``world`` rank processes of ``_mesh_rank``, then call
+    ``make_plan()`` (the parent's reference work: the ranks start up
+    meanwhile, ~14 s beside the H100) and hand its plan to them;
+    join them against one deadline. (every rank's results, the plan, the
+    spawn's wall time), or an error naming the ranks that failed (each
+    rank still alive is killed, also when ``make_plan`` raises)."""
+    import json
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.TemporaryDirectory(prefix="gofr_mesh_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, world, str(ROOT), out_dir.name))
+                 for r in range(world)]
+        spawned_at = time.time()
+        for p in procs:
+            p.start()
+        try:
+            plan = make_plan()
+            staged = Path(out_dir.name, "plan.tmp")
+            staged.write_bytes(pickle.dumps(plan))
+            staged.rename(Path(out_dir.name, "plan.pkl"))
+            end = time.monotonic() + deadline_s
+            for p in procs:
+                p.join(max(0.0, end - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        errors = {r: Path(out_dir.name, f"rank{r}.err").read_text()
+                  for r in range(world)
+                  if Path(out_dir.name, f"rank{r}.err").exists()}
+        if errors or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(
+                f"train_mesh: a rank failed (exit codes "
+                f"{[p.exitcode for p in procs]}):\n"
+                + "\n".join(f"--- rank {r}\n{e}"
+                            for r, e in sorted(errors.items())))
+        return ([json.loads(Path(out_dir.name, f"rank{r}.json").read_text())
+                 for r in range(world)], plan, spawned_at)
+    finally:
+        out_dir.cleanup()
+
+
+def _median(xs: list):
+    return statistics.median(xs) if xs else None
+
+
+def _mesh_figures(ranks: list, ref: dict, plan: dict, tokens: dict) -> dict:
+    """Per job: step ms (median of every step but the first) and
+    tokens/s, rank 0's collective ms a step, each rank's peak GB, the
+    one-rank reference's step ms; (e)'s save and restore seconds; the
+    ring's fwd + bwd ms."""
+    figs: dict = {}
+    for job in ("a", "b", "c"):
+        if job not in plan["jobs"]:
+            continue
+        lead = ranks[0][job]
+        step_ms = _median(lead["step_ms"][1:])
+        figs[job] = {
+            "step_ms": lead["step_ms"], "step_ms_median": step_ms,
+            "tokens_per_s": tokens[job] / (step_ms / 1e3),
+            "comm_ms": lead["comm_ms"],
+            "comm_ms_median": _median(lead["comm_ms"][1:]),
+            "one_rank_dp_halves_losses": ref[job].get("halves_losses"),
+            "peak_gb": [r[job]["peak_bytes"] / 2 ** 30
+                        if r[job]["peak_bytes"] is not None else None
+                        for r in ranks],
+            "job_s": [r[job]["job_s"] for r in ranks],
+            "one_rank_step_ms": ref[job]["step_ms"],
+            "one_rank_step_ms_median": _median(ref[job]["step_ms"][1:]),
+            "losses": lead["losses"], "one_rank_losses": ref[job]["losses"]}
+    if "a" in plan["jobs"]:
+        figs["a"]["grad_norms"] = ranks[0]["a"]["grad_norms"]
+        figs["a"]["one_rank_grad_norms"] = ref["a"]["grad_norms"]
+        if plan["resume"]:
+            figs["e"] = {"save": ranks[0]["a"]["save"],
+                         "restore_s": [r["a"]["e"]["restore_s"]
+                                       for r in ranks]}
+    if "d" in plan["jobs"]:
+        lead = ranks[0]["d"]
+        figs["d"] = {"ms": lead["ms"], "comm_ms": lead["comm_ms"],
+                     "err": lead["err"], "plain_one_rank_ms":
+                         ref["d"]["plain_ms"],
+                     "peak_gb": [r["d"]["peak_bytes"] / 2 ** 30
+                                 if r["d"]["peak_bytes"] is not None
+                                 else None for r in ranks],
+                     "job_s": [r["d"]["job_s"] for r in ranks]}
+    return figs
+
+
+def phase_train_mesh(dev, smi_line: str, **kw) -> dict:
+    """``train_mesh_run`` (its docstring), raising when a check failed or
+    a planted fault passed."""
+    out = train_mesh_run(dev, smi_line, **kw)
+    bad = {k: v for k, v in out["failed_checks"].items() if v}
+    missed = [k for k, v in out["planted"].items() if not v]
+    if bad or missed:
+        raise AssertionError(f"train_mesh: failed checks {bad}, planted "
+                             f"faults that passed: {missed}")
+    return out
+
+
+def train_mesh_run(dev, smi_line: str, cfg=None, moe_cfg=None,
+                   ring_shape=MESH_RING_SHAPE,
+                   batch_shape=(TRAIN_B, TRAIN_S),
+                   moe_shape=(MESH_MOE_B, MESH_MOE_S),
+                   deadline_s: float = 900.0) -> dict:
+    """The trainer on a mesh (``gofr_tpu_torch/parallel/``): four rank
+    processes sharing the card over ``gloo`` (every collective of a CUDA
+    tensor staged through the host, ``comm.py``), each job on a mesh of
+    its own and held against the port's one-rank step on the card (the
+    same weights from seed 0, the same batch, JAX's default optimizer),
+    which this process computes first (``_mesh_reference``) and hands
+    to the ranks as numpy before it frees the card:
+
+    (a) ``llama3_1b`` uncut, bf16, ``{dp: 2, tp: 2}``, train_llama's
+        fixed 4 x 512 batch, ``MESH_STEPS`` steps under deterministic
+        algorithms: every step's loss within ``TRAIN_LOSS_TOL`` and
+        gradient norm within ``MESH_NORM_RTOL`` of the reference's; step
+        1's gradients, gathered from the tp shards, at cosine >=
+        ``TRAIN_GRAD_COS`` for every layer's matrices and norms, the
+        embedding and the final norm; dp replicas bit-equal; each rank
+        one tp-th of every sharded leaf; the loss falls; no kernel of the
+        repository launched. Planted: one rank's ``wo`` block its tp
+        peer's; the dp gradient sum skipped on one rank.
+    (b) the same model, GPipe at ``{dp: 2, pp: 2}``, M = ``MESH_PIPE_M``,
+        8 layers a stage, on 8 x 512 rows ((a)'s 4 and 4 more: M
+        microbatches over dp = 2 need 2 M rows), ``MESH_PIPE_STEPS``
+        steps: losses within ``TRAIN_LOSS_TOL`` of the reference's on
+        those rows. Planted: stage 0 of one replica sends the previous
+        microbatch's activation.
+    (c) ``MoEConfig.mixtral_8x7b()`` width, 1 of its 32 layers, bf16,
+        ``{dp: 2, ep: 2}``, 4 x 256 tokens, ``MESH_MOE_STEPS`` steps:
+        losses within ``TRAIN_LOSS_TOL``, or within ``MESH_MOE_SPREAD``
+        times the distance between the one-rank step and the same step
+        with the mesh's dp roundings where that is wider
+        (``_moe_loss_tols``), and within ``TRAIN_LOSS_TOL`` of that
+        step's (``_dp_halves_losses``); step 1's
+        gradients (every expert, gathered over ep) at cosine >=
+        ``TRAIN_GRAD_COS``; dp replicas bit-equal. Planted:
+        ``ExpertShard.first`` one expert off on one rank.
+    (d) ``make_ring_attention`` at sp = 4, q / k / v
+        ``MESH_RING_SHAPE`` float32: the output and the three input
+        gradients (of a random output gradient) against plain causal
+        attention on one rank, within ``MESH_RING_TOL`` of each tensor's
+        largest magnitude. Planted: the diagonal block run as a full
+        block; the first hop rotated the wrong way.
+    (e) (a)'s ranks: the state saved whole after step 2 through
+        ``Checkpointer`` (the dp = 0 ranks gather it onto the host, rank
+        0 writes), each rank's slices restored with ``sharding_fn``,
+        steps 3-4 again: parameters, moments, ``count``, ``step`` and
+        losses bit for bit the uninterrupted run's. Planted: one rank's
+        restored ``wo`` first moment its tp peer's block.
+
+    Figures (one line per job before the summary): step ms (median of
+    every step but the first), tokens/s, the ms a step spends in
+    ``comm.py``'s collectives on rank 0 (``_CommTimer``), each rank's
+    peak memory, the one-rank step's ms; (e)'s save / restore seconds;
+    the phase's wall. ``cfg`` and the shapes: a CPU rehearsal at a small
+    size (``tests/test_torch_train_mesh.py``). Returns the summary line
+    (its check lists whole) and the figures."""
+    import tempfile
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.models.moe import MoEConfig
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg = cfg or LlamaConfig.llama3_1b()
+    moe_cfg = moe_cfg or MoEConfig.mixtral_8x7b().scaled(n_layers=1)
+    tmp = tempfile.TemporaryDirectory(prefix="gofr_mesh_")
+    ref: dict = {}
+
+    def make_plan() -> dict:
+        t0 = time.perf_counter()
+        ref.update(_mesh_reference(dev, cfg, moe_cfg, ring_shape,
+                                   batch_shape, moe_shape, Path(tmp.name)))
+        _free(dev)
+        ref["reference_s"] = time.perf_counter() - t0
+        ref["parent_gb"] = (torch.cuda.memory_reserved(dev) / 2 ** 30
+                            if dev.type == "cuda" else None)
+        return {"cfg": cfg, "moe_cfg": moe_cfg, "dir": Path(tmp.name),
+                "device": str(dev), "backend": "gloo",
+                "timeout_s": MESH_TIMEOUT_S, "jobs": ["c", "a", "b", "d"],
+                "resume": True, "planted_rank": 0,
+                "axes": _mesh_axes(MESH_WORLD),
+                "batch": ref.pop("batch"), "pipe_batch": ref.pop("pipe_batch"),
+                "moe_batch": ref.pop("moe_batch")}
+
+    try:
+        t0 = time.perf_counter()
+        ranks, plan, spawned_at = _run_ranks(MESH_WORLD, make_plan,
+                                             deadline_s)
+        ranks_s = time.perf_counter() - t0
+        ended_at = time.time()
+    finally:
+        tmp.cleanup()
+    failed, planted = _mesh_checks(ranks, ref, plan)
+    rows, seq = batch_shape
+    figs = _mesh_figures(ranks, ref, plan,
+                         {"a": rows * seq, "b": 2 * rows * seq,
+                          "c": moe_shape[0] * moe_shape[1]})
+    for job, fig in figs.items():
+        emit({"phase": "train_mesh_job", "job": job, "card": smi_line,
+              "mesh": plan["axes"].get(job, plan["axes"]["a"]), **fig})
+    out = {"phase": "train_mesh", "card": smi_line,
+           "model": f"llama3_1b ({cfg.n_layers} layers), "
+                    f"mixtral_8x7b width ({moe_cfg.n_layers} layer), "
+                    f"ring {list(ring_shape)}",
+           "world": MESH_WORLD, "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks],
+           "launches": ranks[0]["launches"],
+           "tolerances": {"loss": TRAIN_LOSS_TOL, "grad_cos": TRAIN_GRAD_COS,
+                          "c_loss": _moe_loss_tols(ref["c"]),
+                          "grad_norm_rel": MESH_NORM_RTOL,
+                          "fall": TRAIN_FALL, "ring_rel": MESH_RING_TOL},
+           "reference_s": ref["reference_s"], "ranks_s": ranks_s,
+           "rank_start_s": {k: max(r[f"{k}_at"] for r in ranks) - spawned_at
+                            for k in ("entered", "imported", "planned",
+                                      "joined")},
+           "rank_exit_s": ended_at - max(r["jobs_done_at"] for r in ranks),
+           "reference_grads_save_s": [ref[j]["grads_save_s"]
+                                      for j in ("a", "c")],
+           "parent_reserved_gb": ref["parent_gb"],
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "failed_checks": failed, "planted": planted}
+    emit({**out, **{key: {k: v[:4] + [f"... {len(v) - 4} more"] * (len(v) > 4)
+                          for k, v in out[key].items()}
+                    for key in ("failed_checks", "planted")}})
+    return {**out, "figures": figs}
+
+
 def main() -> int:
     import os
     # telemetry pings a public host at every app's start and stop: off for
@@ -13802,13 +15096,17 @@ def main() -> int:
                 **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
     phase_checkpoint(dev, smi_line)
-    # Llama-3-8B at 16 of its 32 layers since serve_tp joined the script,
-    # to keep the whole run well inside its time limit
+    # Llama-3-8B at 8 of its 32 layers and Mixtral-8x7B at 4 since
+    # train_mesh joined the script (16 and 8 before), to keep the whole
+    # run well inside its time limit
     from gofr_tpu_torch.models.llama import LlamaConfig
-    sources = {"serve_moe": phase_serve_moe(dev, smi_line),
+    from gofr_tpu_torch.models.moe import MoEConfig
+    sources = {"serve_moe": phase_serve_moe(
+                   dev, smi_line,
+                   cfg=MoEConfig.mixtral_8x7b().scaled(n_layers=4)),
                "serve_llama8b": phase_serve_llama8b(
                    dev, smi_line,
-                   cfg=LlamaConfig.llama3_8b().scaled(n_layers=16))}
+                   cfg=LlamaConfig.llama3_8b().scaled(n_layers=8))}
     phase_serve_embed(dev, smi_line)
     phase_serve_asr(dev, smi_line)
     phase_serve_warm(dev, smi_line)
@@ -13820,6 +15118,7 @@ def main() -> int:
     examples = phase_serve_examples(dev, smi_line)
     phase_train_llama(dev, smi_line)
     sources["serve_tp"] = phase_serve_tp(dev, smi_line)
+    phase_train_mesh(dev, smi_line)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         wrapper = row.get("wrapper", row["name"])

@@ -27,14 +27,17 @@ axis with no group (no process group, or an axis the mesh lacks) is of
 size 1 and every function is the identity. :func:`all_reduce_` is the
 plain in-place sum, for gradients and reported losses.
 
-On a ``gloo`` group (ranks sharing one card) a CUDA tensor's
-collectives are staged through host memory: the tensor is copied to the
+On a ``gloo`` group (ranks sharing one card) every collective of a
+CUDA tensor is staged through host memory: the tensor is copied to the
 host, the CPU collective runs there, and the result is copied back.
-``gloo``'s own CUDA path takes only ``all_reduce`` and ``broadcast`` in
-older releases; on the card the two take about as long
-(``chip_smoke.py``'s ``serve_tp`` times both). Sums run in the tensor's own dtype on
-both backends: ``gloo`` reduces bf16 on the host, ``nccl`` on the card,
-and at two ranks either's sum is the one rounding of ``a + b``.
+``gloo`` hands a CUDA tensor's device address to its TCP transport in
+``send`` / ``recv`` (and so in :func:`ppermute`'s exchange): the write
+fails with "Bad address" and the sender aborts. Its own CUDA path takes
+``all_reduce``, ``broadcast``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor`` in torch 2.11; one route serves every
+collective. Sums run in the tensor's own dtype on both backends:
+``gloo`` reduces bf16 on the host, ``nccl`` on the card, and at two
+ranks either's sum is the one rounding of ``a + b``.
 
 :class:`TensorParallel` holds a serving rank's tp collectives: plain
 calls, no autograd (``models/llama.py``'s tp steps).
@@ -213,6 +216,8 @@ def _exchange(x: torch.Tensor, peers_to: list, peers_from: list,
               group) -> torch.Tensor:
     """Send ``x`` to every global rank in ``peers_to``, receive one
     tensor like ``x`` from ``peers_from`` (empty: zeros)."""
+    if _staged(x, group):
+        return _exchange(x.cpu(), peers_to, peers_from, group).to(x.device)
     x = x.contiguous()
     out = torch.zeros_like(x)
     ops = [dist.P2POp(dist.isend, x, p, group=group) for p in peers_to]
@@ -250,17 +255,24 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
     return _Permute.apply(x, mesh.line(axis), list(perm), index, group)
 
 
+def _sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place all-reduce of ``x`` over ``group``."""
+    if _staged(x, group):
+        return x.copy_(_sum_(x.cpu(), group))
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def all_reduce_(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """In-place sum over ``axis`` (not differentiable)."""
     group, _, _ = _axis(mesh, axis)
-    if group is not None:
-        dist.all_reduce(x, group=group)
-    return x
+    return x if group is None else _sum_(x, group)
 
 
 def send(x: torch.Tensor, mesh: Mesh, axis: str, to: int) -> None:
     """Blocking send of ``x`` to index ``to`` along ``axis``."""
     group, _, _ = _axis(mesh, axis)
+    x = x.cpu() if _staged(x, group) else x
     dist.send(x.contiguous(), mesh.line(axis)[to], group=group)
 
 
@@ -268,6 +280,8 @@ def recv(like: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
     """Blocking receive of a tensor shaped like ``like`` from index
     ``src`` along ``axis``."""
     group, _, _ = _axis(mesh, axis)
+    if _staged(like, group):
+        return recv(like.cpu(), mesh, axis, src).to(like.device)
     out = torch.empty_like(like)
     dist.recv(out, mesh.line(axis)[src], group=group)
     return out
@@ -300,20 +314,11 @@ class TensorParallel:
         keep = (idx >= 0) & (idx < rows)
         x = qgather(embed, idx.clamp(0, rows - 1), dtype)
         x = x * keep[..., None].to(dtype)
-        return self._sum(x)
+        return _sum_(x, self.group)
 
     def reduce(self, x: torch.Tensor, name: str) -> torch.Tensor:
         if self.group is not None:
-            self._sum(x)
-        return x
-
-    def _sum(self, x: torch.Tensor) -> torch.Tensor:
-        """In-place all-reduce (staged through the host on ``gloo``)."""
-        if _staged(x, self.group):
-            host = x.cpu()
-            dist.all_reduce(host, group=self.group)
-            return x.copy_(host)
-        dist.all_reduce(x, group=self.group)
+            _sum_(x, self.group)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ loss, the others from the output gradient received from ``s + 1``, in
 reverse microbatch order, each sending its input's gradient to
 ``s - 1``. The loss is the global masked mean (summed over ``pp`` and
 ``dp``); the gradients of the leaves every stage holds (embedding, final
-norm, head) are summed over ``pp``, all of them over ``dp``.
+norm, head) are summed over ``pp``, all of them over ``dp``; the clip
+takes the norm of the whole gradient, every stage's layers in it.
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ from ..models.llama import (LlamaConfig, _attn_block, _inv_freq, _logits,
 from ..ops.quant import qgather
 from . import comm
 from .mesh import Mesh, mesh_axes
+from .sharding import llama_param_specs
 from .train import (GradientTransformation, TrainState, _layers, _leaves,
                     _map, _nll, _rows, _trainable, apply_updates,
-                    default_optimizer)
+                    default_optimizer, sharded_global_norm)
 
 
 def _stage_forward(x, layers_local: dict, c: LlamaConfig, inv_freq,
@@ -66,6 +68,7 @@ def make_pipeline_train_step(config: LlamaConfig, mesh: Mesh, *,
     if M < pp:
         raise ValueError(f"need at least {pp} microbatches to fill the pipe")
     optimizer = optimizer or default_optimizer()
+    specs = llama_param_specs(mesh)
     c = config
 
     def train_step(state: TrainState, tokens, targets, mask):
@@ -114,7 +117,12 @@ def make_pipeline_train_step(config: LlamaConfig, mesh: Mesh, *,
         loss = comm.all_reduce_(comm.all_reduce_(loss_sum, mesh, "pp"),
                                 mesh, "dp")
         params = _map(torch.Tensor.detach, params)
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
+        g_norm = sharded_global_norm(grads, mesh, specs)
+        # handed over, not kept: the clip's output replaces the gradients
+        held = [grads]
+        del grads
+        updates, opt_state = optimizer.update(held.pop(), state.opt_state,
+                                              params, g_norm=g_norm)
         return TrainState(params=apply_updates(params, updates),
                           opt_state=opt_state, step=state.step + 1), loss
 

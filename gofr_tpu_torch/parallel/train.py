@@ -28,7 +28,10 @@ has a backward). Pipeline (``pp``) meshes route through ``pipeline.py``
 (``make_train_step`` dispatches).
 
 The optimizer is optax's arithmetic written over the parameter dict:
-:func:`clip_by_global_norm` (``where(norm < max, g, g / norm * max)``),
+:func:`clip_by_global_norm` (``where(norm < max, g, g / norm * max)``,
+the norm of the whole gradient: a sharded step hands it in as
+``g_norm``, :func:`sharded_global_norm` over its shards, since a rank's
+own shards give only part of it),
 :func:`scale_by_adam` (moments in the parameters' dtype, an int32
 ``count``), :func:`add_decayed_weights`, :func:`scale_by_learning_rate`,
 composed by :func:`chain`; the state has optax's structure, so a JAX
@@ -46,10 +49,12 @@ import torch
 
 from ..models.llama import (LlamaConfig, _attn_block, _inv_freq, _logits,
                             _mlp_block, llama_init)
+from ..models.moe import MoEConfig
 from ..ops.quant import qgather
 from . import comm
 from .mesh import Mesh, mesh_axes
-from .sharding import Sharding, batch_spec, llama_param_specs, shard_params
+from .sharding import (Sharding, _match_specs, batch_spec, llama_param_specs,
+                       moe_param_specs, shard_params)
 
 
 @dataclass
@@ -99,15 +104,24 @@ def _leaves(tree) -> list:
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """The transforms in order; keyword arguments of ``update`` (optax's
+    extra args) reach every one. The chain keeps no reference to a
+    transform's input once it is handed on (``held``), so each tree is
+    freed as soon as the transform that reads it returns: at a step's
+    peak every tree of the model's size counts."""
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
+        held = [updates]
+        del updates
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
+            out, s = t.update(held.pop(), s, params, **extra)
+            held.append(out)
+            del out
             new_state.append(s)
-        return updates, tuple(new_state)
+        return held.pop(), tuple(new_state)
 
     return GradientTransformation(init, update)
 
@@ -118,12 +132,37 @@ def global_norm(tree) -> torch.Tensor:
                           _leaves(tree)))
 
 
+def sharded_global_norm(tree, mesh: Mesh, specs) -> torch.Tensor:
+    """The global norm of a tree of this rank's shards placed by
+    ``specs``: each leaf's float32 sum of squares summed over the mesh
+    axes its spec shards it over (a replicated leaf counted once), so
+    every rank gets the norm of the whole tree."""
+    groups: dict = {}
+    specs = _match_specs(tree, specs)
+    for x, spec in zip(_leaves(tree), _leaves(specs)):
+        axes = tuple(a for entry in spec if entry is not None
+                     for a in (entry if isinstance(entry, tuple)
+                               else (entry,)))
+        square = (x.float() * x.float()).sum()
+        groups[axes] = groups[axes] + square if axes in groups else square
+    total = torch.zeros((), dtype=torch.float32,
+                        device=_leaves(tree)[0].device)
+    for axes, square in groups.items():
+        for axis in axes:
+            square = comm.all_reduce_(square, mesh, axis)
+        total = total + square
+    return torch.sqrt(total)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax's rule: leaves pass unchanged while the global norm is
     below ``max_norm``, else ``g / norm * max_norm`` (no host sync: both
-    branches are computed and selected on the device)."""
-    def update(updates, state, params=None):
-        g_norm = global_norm(updates)
+    branches are computed and selected on the device). ``g_norm``: the
+    norm of the whole gradient when ``updates`` holds one rank's shards
+    (:func:`sharded_global_norm`); else the norm of ``updates``."""
+    def update(updates, state, params=None, g_norm=None, **extra):
+        if g_norm is None:
+            g_norm = global_norm(updates)
         trigger = g_norm < max_norm
         return _map(lambda t: torch.where(
             trigger, t, (t / g_norm.to(t.dtype)) * max_norm),
@@ -141,10 +180,11 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
             mu=_map(torch.zeros_like, params),
             nu=_map(torch.zeros_like, params))
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
         mu = _map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
         nu = _map(lambda g, t: (1 - b2) * (g * g) + b2 * t, updates,
                   state.nu)
+        del updates             # a tree less while ``out`` is built
         count = torch.where(state.count < torch.iinfo(torch.int32).max,
                             state.count + 1, state.count)
         # bias corrections in float32, cast to each moment's dtype
@@ -158,7 +198,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
 
 
 def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
         return _map(lambda g, p: g + weight_decay * p, updates,
                     params), state
 
@@ -166,7 +206,7 @@ def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
 
 
 def scale_by_learning_rate(learning_rate: float) -> GradientTransformation:
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, **extra):
         return _map(lambda g: g * -learning_rate, updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
@@ -302,18 +342,16 @@ def _rows(x: torch.Tensor, mesh: Mesh, axis_index: int = 0) -> torch.Tensor:
 
 
 def _grads(loss: torch.Tensor, params: dict) -> dict:
+    """The gradient tree of ``params``. No reference cycle may hold the
+    gradients: a tree kept until the collector runs is a tree more at
+    the update's peak."""
     leaves = _leaves(params)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
-    def fill(p):
-        if isinstance(p, dict):
-            return {k: fill(v) for k, v in p.items()}
-        g = next(grads)
-        # a transposed product (the tied head's) can leave a leaf's
-        # gradient strided; the collectives take contiguous tensors
-        return torch.zeros_like(p) if g is None else g.contiguous()
-
-    return fill(params)
+    # a transposed product (the tied head's) can leave a leaf's gradient
+    # strided; the collectives take contiguous tensors
+    grads = iter([torch.zeros_like(p) if g is None else g.contiguous()
+                  for p, g in zip(leaves, torch.autograd.grad(
+                      loss, leaves, allow_unused=True))])
+    return _map(lambda p: next(grads), params)
 
 
 def _trainable(params: dict) -> dict:
@@ -338,7 +376,11 @@ def make_train_step(config: LlamaConfig, mesh: Mesh, *,
     state. ``step.forward`` is the forward it runs,
     ``step.loss_and_grads(params, tokens, targets, mask)`` its loss and
     dp-summed gradients without the update, and ``step.grad_norm`` the
-    last step's gradient norm before clipping (a device scalar)."""
+    last step's gradient norm before clipping (a device scalar): the
+    whole gradient's, from the shards of every rank, placed as
+    ``make_train_state`` placed the parameters (``moe_param_specs`` for a
+    :class:`~gofr_tpu_torch.models.moe.MoEConfig`, else
+    ``llama_param_specs``)."""
     axes = mesh_axes(mesh)
     if axes.get("pp", 1) > 1:
         if forward_fn is not None:
@@ -352,6 +394,8 @@ def make_train_step(config: LlamaConfig, mesh: Mesh, *,
     optimizer = optimizer or default_optimizer()
     fwd = forward_fn or (lambda params, tokens: sharded_forward(
         params, tokens, config, mesh))
+    specs = (moe_param_specs if isinstance(config, MoEConfig)
+             else llama_param_specs)(mesh)
 
     def loss_and_grads(params, tokens, targets, mask):
         tokens, targets, mask = (_rows(t, mesh) for t in
@@ -368,9 +412,13 @@ def make_train_step(config: LlamaConfig, mesh: Mesh, *,
 
     def train_step(state: TrainState, tokens, targets, mask):
         loss, grads = loss_and_grads(state.params, tokens, targets, mask)
-        train_step.grad_norm = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
+        g_norm = sharded_global_norm(grads, mesh, specs)
+        train_step.grad_norm = g_norm
+        # handed over, not kept: the clip's output replaces the gradients
+        held = [grads]
+        del grads
+        updates, opt_state = optimizer.update(held.pop(), state.opt_state,
+                                              state.params, g_norm=g_norm)
         new = TrainState(params=apply_updates(state.params, updates),
                          opt_state=opt_state, step=state.step + 1)
         return new, loss

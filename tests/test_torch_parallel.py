@@ -8,12 +8,15 @@ the dense step at ``{dp: 2, tp: 2}``, the GPipe step at ``{dp: 2, pp:
 2}`` (M = 4), the expert-parallel MoE step at ``{dp: 2, ep: 2}`` and
 ring attention at ``sp`` = 4. Every case is float32 at
 ``tests/test_parallel.py``'s sizes and starts from the same JAX
-initialisation through ``params_from_jax``.
+initialisation through ``params_from_jax``. The dense and GPipe steps
+run again under optax's global-norm clip and plain SGD, where a rank
+that clips by the norm of its own shards parts from JAX.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -43,6 +46,13 @@ MOE = dict(vocab_size=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=4,
 JTINY = JLlamaConfig(**TINY, dtype=jnp.float32)
 JMOE = JMoEConfig(**MOE, dtype=jnp.float32)
 DENSE_STEPS, PIPE_STEPS, MOE_STEPS = 5, 3, 3
+#: the clipped runs: SGD at this rate after the clip at norm 1.0 (the
+#: tiny model's gradient norm is about 11: the clip is active)
+SGD_LR = 1.0
+
+
+def _sgd_clip():
+    return optax.chain(optax.clip_by_global_norm(1.0), optax.sgd(SGD_LR))
 
 
 def _np(tree):
@@ -89,6 +99,14 @@ def refs():
                     "step": int(state.step)}
     payload["dense"] = {"config": TINY, "axes": {"dp": 2, "tp": 2},
                         "params": params, "steps": DENSE_STEPS, **batch}
+    state, _ = jstate(jax.random.key(0), JTINY, mesh, optimizer=_sgd_clip())
+    state, losses = _losses(jstep(JTINY, mesh, optimizer=_sgd_clip(),
+                                  donate=False), state,
+                            (tokens, targets, mask), 2)
+    out["dense_clip"] = {"losses": losses, "params": _np(state.params),
+                         "step": 2}
+    payload["dense_clip"] = {**payload["dense"], "steps": 2,
+                             "sgd_clip_lr": SGD_LR}
 
     # GPipe at {dp: 2, pp: 2}, M = 4
     pmesh = jmesh.create_mesh({"dp": 2, "pp": 2})
@@ -100,6 +118,13 @@ def refs():
     payload["pipeline"] = {"config": TINY, "axes": {"dp": 2, "pp": 2},
                            "params": params, "steps": PIPE_STEPS,
                            "micro": 4, **micro}
+    state, _ = jstate(jax.random.key(0), JTINY, pmesh, optimizer=_sgd_clip())
+    _, out["pipeline_clip"] = _losses(
+        jpipe(JTINY, pmesh, num_microbatches=4, optimizer=_sgd_clip(),
+              donate=False), state,
+        tuple(micro[k] for k in ("tokens", "targets", "mask")), PIPE_STEPS)
+    payload["pipeline_clip"] = {**payload["pipeline"],
+                                "sgd_clip_lr": SGD_LR}
 
     # expert-parallel MoE at {dp: 2, ep: 2}
     emesh = jmesh.create_mesh({"dp": 2, "ep": 2})
@@ -133,7 +158,8 @@ def refs():
 @pytest.fixture(scope="module")
 def ranks(refs, tmp_path_factory):
     _, payload = refs
-    return run_ranks(["forward", "dense", "pipeline", "moe", "ring"], 4,
+    return run_ranks(["forward", "dense", "pipeline", "moe", "ring",
+                      "dense_clip", "pipeline_clip"], 4,
                      tmp_path_factory.mktemp("ranks"), payload)
 
 
@@ -210,12 +236,22 @@ def test_sharded_forward_matches_jax(refs, ranks):
 
 
 def test_dense_step_matches_jax(refs, ranks):
-    want = refs[0]["dense"]
+    _dense_matches(refs, ranks, "dense", DENSE_STEPS)
+
+
+def test_dense_step_clips_by_the_whole_gradient_norm(refs, ranks):
+    """The clip at {dp: 2, tp: 2} takes the norm of the whole gradient,
+    as optax does over JAX's global arrays, not of a rank's shards."""
+    _dense_matches(refs, ranks, "dense_clip", 2)
+
+
+def _dense_matches(refs, ranks, job, steps):
+    want = refs[0][job]
     for r in ranks:
-        got = r["dense"]
+        got = r[job]
         _close(got["losses"], want["losses"], 1e-4)
         assert got["losses"][-1] < got["losses"][0]
-        assert got["step"] == want["step"] == DENSE_STEPS
+        assert got["step"] == want["step"] == steps
 
         def check(g, w, idx):
             if isinstance(g, dict):
@@ -229,9 +265,18 @@ def test_dense_step_matches_jax(refs, ranks):
 
 
 def test_pipeline_step_matches_jax(refs, ranks):
-    want = refs[0]["pipeline"]
+    _pipeline_matches(refs, ranks, "pipeline")
+
+
+def test_pipeline_step_clips_by_the_whole_gradient_norm(refs, ranks):
+    """GPipe's clip takes the norm over every stage's layers."""
+    _pipeline_matches(refs, ranks, "pipeline_clip")
+
+
+def _pipeline_matches(refs, ranks, job):
+    want = refs[0][job]
     for r in ranks:
-        got = r["pipeline"]
+        got = r[job]
         _close(got["losses"], want, 1e-4)
         assert got["losses"][-1] < got["losses"][0]
         assert got["layers"][0] == TINY["n_layers"] // 2   # this stage's

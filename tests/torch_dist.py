@@ -117,6 +117,17 @@ def job_forward(p: dict):
             "wq_shape": tuple(state.params["layers"]["wq"].shape)}
 
 
+def _optimizer(p: dict):
+    """The job's optimizer: the default, or with ``p["sgd_clip_lr"]``
+    the global-norm clip at 1.0 then plain SGD at that rate."""
+    from gofr_tpu_torch.parallel.train import (chain, clip_by_global_norm,
+                                               scale_by_learning_rate)
+    if "sgd_clip_lr" not in p:
+        return None
+    return chain(clip_by_global_norm(1.0),
+                 scale_by_learning_rate(p["sgd_clip_lr"]))
+
+
 def job_dense(p: dict):
     """``p["steps"]`` dense steps at ``p["axes"]``: the losses and this
     rank's final shards (with the spec tree to place them)."""
@@ -127,7 +138,7 @@ def job_dense(p: dict):
     c = _llama_config(p["config"])
     mesh = create_mesh(p["axes"])
     state = _state_for(p, mesh, c)
-    step = make_train_step(c, mesh, donate=False)
+    step = make_train_step(c, mesh, donate=False, optimizer=_optimizer(p))
     batch = [torch.from_numpy(p[k]) for k in ("tokens", "targets", "mask")]
     losses = []
     for _ in range(p["steps"]):
@@ -161,7 +172,7 @@ def job_pipeline(p: dict):
     mesh = create_mesh(p["axes"])
     state = _state_for(p, mesh, c)
     step = make_pipeline_train_step(c, mesh, num_microbatches=p["micro"],
-                                    donate=False)
+                                    donate=False, optimizer=_optimizer(p))
     batch = [torch.from_numpy(p[k]) for k in ("tokens", "targets", "mask")]
     losses = []
     for _ in range(p["steps"]):
@@ -427,6 +438,9 @@ def job_tp_faults(p: dict):
 
 #: the engine cases again, at a mesh with dp replicas
 job_tp_engines_dp = job_tp_engines
+#: the dense and GPipe steps again, under the global-norm clip and SGD
+job_dense_clip = job_dense
+job_pipeline_clip = job_pipeline
 
 
 def _boot_app(app):
