@@ -272,15 +272,21 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              32 layers, 3.85 GB of bf16, random from seed 0) and the C++
              BPE merge loop (``phase_serve_warm``' docstring): (a)
              ``Checkpointer.save`` / ``restore`` bit for bit, bf16 stored
-             as its bits; (b) ``warm_start`` behind the app: a streamed
-             and a unary greedy ``/chat`` bit for bit the in-memory
-             engine's; (c) a 2,048-merge ``tokenizer.json`` learned from
-             seeded text, the native loop live and equal to the Python
-             loop on 1 MB; each with its planted fault. Bytes, save /
-             restore s and GB/s, seconds from ``warm_start`` to the first
-             token, peak memory, native and Python encode MB/s. The
-             engine behind it runs the kernels as serve does; no
-             kernel's row takes its launches from it.
+             as its bits; (b) ``restore_engine`` behind ``build_server``:
+             a streamed and a unary greedy ``/chat`` bit for bit the
+             in-memory engine's; (c) a 2,048-merge ``tokenizer.json``
+             learned from seeded text, the native loop live and equal to
+             the Python loop on 1 MB; (d) JAX's text on a port ``App``
+             (``warm_start(app, ...)`` as an on-start hook, ``llama_engine(
+             metrics=, logger=, tracer=)``, ``install_openai_routes(app=)``):
+             ``/chat`` streamed and unary and ``/v1/chat/completions`` bit
+             for bit the in-memory engine's, flash and paged decode
+             launches > 0; each with its planted fault (an empty
+             directory's start must fail naming the model). Bytes, save /
+             restore s and GB/s, seconds from ``restore_engine`` and from
+             the ``App``'s start to the first token, peak memory, native
+             and Python encode MB/s. The engine behind it runs the kernels
+             as serve does; no kernel's row takes its launches from it.
 14. serve_app — the framework surface: ``serving/model_serving.
              build_app`` (``App.serve_model`` + the OpenAI routes) with
              ``MODEL_PRESET=llama3_1b``, API-key auth and the profiler
@@ -8399,6 +8405,114 @@ def _warm_chat(port: int, prompt: str, n_new: int) -> dict:
             "unary_tokens": body["data"]["tokens"] if status == 201 else None}
 
 
+class _DecodeRecorder:
+    """A tokenizer that keeps the ids of its last ``decode``: the unary
+    OpenAI answer carries text, and this gives its token ids."""
+
+    def __init__(self, tok) -> None:
+        self.tok, self.decoded = tok, None
+
+    def encode(self, text: str, **kw) -> list:
+        return self.tok.encode(text, **kw)
+
+    def decode(self, ids) -> str:
+        self.decoded = list(ids)
+        return self.tok.decode(ids)
+
+    def __getattr__(self, name: str):
+        return getattr(self.tok, name)
+
+
+def _warm_jax_form(dev, tmp: Path, cfg, econf, prompt: str, n_new: int,
+                   tok, want: list) -> tuple:
+    """``phase_serve_warm`` (d): a port ``App`` booted by JAX's text,
+    ``warm_start(app, "llama3_8b", dir, build)``, on (a)'s checkpoint.
+    ``want``: the in-memory engine's tokens for (b)'s BPE-encoded prompt
+    (cold, then a prefix hit) and for the byte-encoded one (the same).
+    On the card the text is JAX's to the letter; a CPU rehearsal
+    (``dev`` the CPU) adds ``device=``. Returns (faults, planted faults
+    caught, numbers)."""
+    import asyncio
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.checkpoint import CheckpointError, warm_start
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.ops.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.paged_attention import paged_decode_attention
+    from gofr_tpu_torch.serving.glue import llama_engine
+    from gofr_tpu_torch.serving.openai_compat import install_openai_routes
+
+    ports = {"HTTP_PORT": "0", "METRICS_PORT": "0"}
+    app = App(config=DictConfig({**ports, "APP_NAME": "warm-jax-form"}))
+    recorder = _DecodeRecorder(tok)
+    on_cpu = {"device": dev} if dev.type == "cpu" else {}
+
+    def build(p):
+        engine = llama_engine(p, cfg, econf,
+                              metrics=app.container.metrics,
+                              logger=app.logger, tracer=app.container.tracer,
+                              **on_cpu)
+        install_openai_routes(app=app, engine=engine, tokenizer=recorder,
+                              model="llama3_8b",
+                              render=lambda messages: messages[-1]["content"])
+        return engine
+
+    warm_start(app, "llama3_8b", tmp / "ckpt", build, **on_cpu)
+    counters = (flash_attention, paged_decode_attention)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loop, thread = _boot_app(app, "serve_warm (d)")
+    boot_s = time.perf_counter() - t0
+    faults = []
+    try:
+        port = app.http_server.bound_port
+        chat = _warm_chat(port, prompt, n_new)
+        status, body = _post(
+            f"http://127.0.0.1:{port}/v1/chat/completions",
+            {"messages": [{"role": "user", "content": prompt}],
+             "max_tokens": n_new, "temperature": 0})
+        launches = {fn.__name__: int(fn.launches) for fn in counters}
+        engine = app.container.models.get("llama3_8b")
+    finally:
+        _stop_app(app, loop, thread)
+    if chat["status"] != 200 or not chat["terminal"]:
+        faults.append(f"stream status {chat['status']}")
+    if chat["tokens"] != want[2]:
+        faults.append("streamed /chat tokens differ")
+    if chat["unary_tokens"] != want[3]:
+        faults.append("unary /chat tokens differ")
+    if status not in (200, 201) or recorder.decoded != want[0]:
+        faults.append(f"/v1/chat/completions: status {status}, tokens "
+                      f"differ at {_common_prefix(recorder.decoded or [], want[0])}")
+    bit_equal = not faults
+    faults += [f"{name}: no launch" for name, n in launches.items() if n <= 0]
+    if engine is None or engine.metrics is not app.container.metrics:
+        faults.append("the engine is not on the app's metrics")
+
+    # planted: an empty directory; the app's start must fail, naming it
+    empty = App(config=DictConfig({**ports, "APP_NAME": "warm-empty"}))
+    warm_start(empty, "llama3_8b", tmp / "empty", build, **on_cpu)
+
+    async def boot_empty():
+        try:
+            await empty.start()
+            cause = None
+        except RuntimeError as exc:
+            cause = exc.__cause__
+        await empty.stop()
+        return cause
+
+    cause = asyncio.run(boot_empty())
+    caught = isinstance(cause, CheckpointError) and "'llama3_8b'" in str(cause)
+    first_token_s = boot_s + (chat["first_event_s"] or float("nan"))
+    return faults, [repr(cause)[:200]] if caught else [], {
+        "app_boot_s": boot_s, "app_start_to_first_token_s": first_token_s,
+        "launches": launches, "stream_tokens": chat["tokens"][:8],
+        "v1_completion_tokens": (body.get("usage") or {}).get(
+            "completion_tokens"),
+        "bit_equal": bit_equal, "planted_empty_dir": repr(cause)[:200]}
+
+
 def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
                      text_bytes: int = WARM_TEXT_BYTES,
                      n_merges: int = WARM_MERGES) -> None:
@@ -8422,6 +8536,19 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
         the same two requests in order; planted: an engine built from the
         flat keystr-keyed dict (what the JAX package's hook passes),
         which must not serve;
+    (d) JAX's call text on a port ``App``: ``warm_start(app,
+        "llama3_8b", dir, build)``, ``build`` calling ``llama_engine(p,
+        cfg, serve_config(cfg), metrics=app.container.metrics,
+        logger=app.logger, tracer=app.container.tracer)`` and
+        ``install_openai_routes(app=app, ...)``; the app's on-start hook
+        restores (a)'s step and serves the engine. A streamed and a unary
+        ``/chat`` (the byte tokenizer, which JAX's ``serve_model`` wires
+        when given none) bit for bit the in-memory engine's on the
+        byte-encoded prompt, a unary ``/v1/chat/completions`` on (b)'s
+        BPE-encoded prompt bit for bit (b)'s first request; the flash
+        and paged decode kernels' launches over (d) both > 0; planted:
+        an ``App`` warm-started from an empty directory, whose start must
+        fail with ``CheckpointError`` naming ``llama3_8b``;
     (c) a ``tokenizer.json`` with ``n_merges`` merges learned from a
         seeded synthetic corpus, loaded by ``BPETokenizer.from_hf_json``:
         the native loop must be live (a fallback fails), its ids on
@@ -8430,15 +8557,16 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
         the native table alone. The same tokenizer serves (b)'s prompts.
 
     Also the bytes, ``save_s``, ``restore_s`` and GB/s of each, the
-    seconds from ``warm_start`` to the first token, peak memory, and the
-    encode MB/s of the native and the pure-Python loop."""
+    seconds from ``restore_engine`` (b) and from the ``App``'s start (d)
+    to the first token, peak memory, and the encode MB/s of the native
+    and the pure-Python loop."""
     import copy
     import shutil
     import tempfile
     import numpy as np
     import torch
     from gofr_tpu_torch.checkpoint import (ARRAYS, MANIFEST, Checkpointer,
-                                           flatten, warm_start)
+                                           flatten, restore_engine)
     from gofr_tpu_torch.models.llama import (LlamaConfig, llama_init,
                                              param_count)
     from gofr_tpu_torch.native.bpe import NativeBPE
@@ -8446,6 +8574,7 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
     from gofr_tpu_torch.serving.engine import SamplingParams
     from gofr_tpu_torch.serving.glue import llama_engine
     from gofr_tpu_torch.serving.tokenizer import (BPETokenizer,
+                                                  ByteTokenizer,
                                                   _byte_level_table)
     cuda = dev.type == "cuda"
 
@@ -8565,9 +8694,10 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        engine = warm_start("llama3_8b", tmp / "ckpt",
-                            lambda p: llama_engine(p, cfg, econf,
-                                                   device=dev), device=dev)
+        engine = restore_engine("llama3_8b", tmp / "ckpt",
+                                lambda p: llama_engine(p, cfg, econf,
+                                                       device=dev),
+                                device=dev)
         server = build_server(engine, tok, port=0)
         thread = _serving(server)
         try:
@@ -8581,13 +8711,15 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
         del engine, server
         gc.collect()
         # the same two requests in the same order: the second one hits
-        # the prefix cache, in the app and here
+        # the prefix cache, in the app and here; then (d)'s pair on the
+        # byte-encoded prompt (no page in common with the first two)
+        byte_ids = ByteTokenizer().encode(prompt)
         twin = llama_engine(params, cfg, econf, device=dev)
         twin.start()
         try:
-            reqs = [twin.submit_sync(tok.encode(prompt), SamplingParams(
+            reqs = [twin.submit_sync(ids, SamplingParams(
                 temperature=0.0, max_new_tokens=n_new), 600)
-                for _ in range(2)]
+                for ids in [tok.encode(prompt)] * 2 + [byte_ids] * 2]
         finally:
             twin.stop()
         del twin
@@ -8619,6 +8751,13 @@ def phase_serve_warm(dev, smi_line: str, cfg=None, layers: int = 4,
             served, flat_error = False, repr(exc)[:200]
         checks["b_warm_start"] = (b_faults, [] if served else [
             f"the flat dict did not serve: {flat_error}"])
+        # (d) JAX's call text on the port's App
+        t_d = time.perf_counter()
+        d_faults, d_planted, out["d"] = _warm_jax_form(
+            dev, tmp, cfg, econf, prompt, n_new, tok,
+            [list(r.generated) for r in reqs])
+        out["d"]["d_wall_s"] = time.perf_counter() - t_d
+        checks["d_jax_warm_start"] = (d_faults, d_planted)
         out["b"] = {"engine": f"serve_config: {econf.max_batch} slots, "
                               f"max_seq {econf.max_seq}, page "
                               f"{econf.page_size}",

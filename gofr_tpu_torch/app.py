@@ -585,8 +585,9 @@ class App:
         if hasattr(result, "__await__"):
             await result
 
-    async def _run_start_hooks(self) -> bool:
-        """Sequential, abort on error (reference gofr.go:54-88)."""
+    async def _run_start_hooks(self) -> Exception | None:
+        """Sequential, abort on error (reference gofr.go:54-88); returns
+        the error a hook raised, or None."""
         for hook in self._on_start:
             try:
                 try:
@@ -598,8 +599,8 @@ class App:
                     on_loop=True)
             except Exception as exc:
                 self.logger.error(f"on_start hook failed: {exc!r}")
-                return False
-        return True
+                return exc
+        return None
 
     async def _start_server(self, server, env_key: str,
                             port: int) -> None:
@@ -627,8 +628,11 @@ class App:
             self.probe_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=PROBE_THREADS, thread_name_prefix="app-probe")
         await self.container.connect_async()
-        if not await self._run_start_hooks():
-            raise RuntimeError("on_start hook failed")
+        failed = await self._run_start_hooks()
+        if failed is not None:
+            # the hook's error rides as the cause (a warm start's
+            # CheckpointError names the model)
+            raise RuntimeError("on_start hook failed") from failed
         try:
             await self._start_servers()
         except BaseException:

@@ -20,9 +20,12 @@ Quantized trees (the port's ``[N, K]`` codes, packed int4, float32
 scales) round-trip within the port; only unquantized trees are
 interchangeable with the JAX package's, whose quantized layout differs.
 
-:func:`warm_start` is the counterpart of the JAX package's ``on_start``
-hook: restore the latest step, build the engine from the nested tree and
-start it, before the server takes traffic.
+:func:`warm_start` is the JAX package's ``on_start`` hook, called as JAX
+calls it (``warm_start(app, name, directory, build_engine)``): restore the
+latest step, build the engine from the nested tree, serve it on the app
+and start it, before the server takes traffic. :func:`restore_engine` is
+the same restore and build without an app, returning the started engine
+(for ``serving.app.build_server``).
 """
 
 from __future__ import annotations
@@ -193,9 +196,9 @@ class Checkpointer:
         self.directory.mkdir(parents=True, exist_ok=True)
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree: Any,
+    def save(self, step: int, pytree: Any,
              metadata: dict | None = None) -> Path:
-        """Write ``tree`` (nested dicts / lists of tensors, arrays or
+        """Write ``pytree`` (nested dicts / lists of tensors, arrays or
         scalars, on any device) as step ``step``; a step already saved
         raises."""
         target = self.directory / f"step_{step}"
@@ -209,7 +212,7 @@ class Checkpointer:
             "treedef": TREEDEF,
             "leaves": [],
         }
-        for i, (key, leaf) in enumerate(flatten(tree)):
+        for i, (key, leaf) in enumerate(flatten(pytree)):
             name = f"leaf_{i}"
             arrays[name], dtype = _to_numpy(leaf)
             manifest["leaves"].append(
@@ -314,15 +317,15 @@ class Checkpointer:
         return self._manifest(step)[1].get("metadata", {})
 
 
-def warm_start(name: str, directory: str | Path,
-               build_engine: Callable[[Any], Any], *,
-               device: str | torch.device | None = None,
-               logger: Any = None) -> Any:
+def restore_engine(name: str, directory: str | Path,
+                   build_engine: Callable[[Any], Any], *,
+                   device: str | torch.device | None = None,
+                   logger: Any = None) -> Any:
     """Restore the latest checkpoint in ``directory`` onto ``device``
     (default: CUDA, or raise), build model ``name``'s engine from it with
     ``build_engine(params)`` and start it; returns the engine, for
-    ``build_server``. Run it before the server takes traffic. No
-    checkpoint raises :class:`CheckpointError` naming the model.
+    ``build_server``. No checkpoint raises :class:`CheckpointError`
+    naming the model.
 
     ``build_engine`` gets the nested tree (``{"embed": ..., "layers":
     {...}}``), which ``llama_engine`` takes. The JAX package's hook hands
@@ -341,5 +344,24 @@ def warm_start(name: str, directory: str | Path,
     return engine
 
 
+def warm_start(app: Any, name: str, directory: str | Path,
+               build_engine: Callable[[Any], Any], *,
+               device: str | torch.device | None = None) -> None:
+    """JAX's ``warm_start``: register an ``on_start`` hook on ``app``
+    that, before the servers take traffic, restores the latest
+    checkpoint onto ``device`` (default: CUDA, or raise), builds the
+    engine (:func:`restore_engine`), serves it as model ``name``
+    (``app.serve_model``) and starts it. The hook runs on the app's
+    worker pool, off the event loop. With no checkpoint it raises
+    :class:`CheckpointError` naming the model, and ``app.start()``
+    fails with that error as its cause."""
+    def load() -> None:
+        engine = restore_engine(name, directory, build_engine,
+                                device=device, logger=app.logger)
+        app.serve_model(name, engine)
+
+    app._on_start_off_loop(load)
+
+
 __all__ = ["ARRAYS", "MANIFEST", "CheckpointError", "Checkpointer",
-           "flatten", "nest", "warm_start"]
+           "flatten", "nest", "restore_engine", "warm_start"]

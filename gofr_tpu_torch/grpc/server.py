@@ -117,6 +117,10 @@ class RPCContext:
         value = self.param(key)
         return value.split(",") if value else []
 
+    def path_param(self, key: str) -> str:
+        """An RPC has no path parameters: always ``""``, as on JAX's."""
+        return ""
+
     def header(self, key: str) -> str:
         return self.param(key)
 

@@ -158,6 +158,11 @@ class Histogram(_Metric):
             entry = self._hist.get(_labels_key(labels))
             return entry[2] if entry else 0
 
+    def get_sum(self, **labels: str) -> float:
+        with self._lock:
+            entry = self._hist.get(_labels_key(labels))
+            return entry[1] if entry else 0.0
+
     def snapshot(self) -> dict:
         with self._lock:
             series = [{"labels": dict(k), "counts": list(c),

@@ -37,6 +37,7 @@ from functools import lru_cache, partial
 
 import torch
 
+from ..device import resolve_device
 from ..ops.attention import attention, decode_attention, tree_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_chunk_attention,
@@ -632,14 +633,16 @@ def llama_prefill_chunk(params: dict, tokens: torch.Tensor,
 
 def make_empty_cache(config: LlamaConfig, batch: int,
                      max_seq: int | None = None,
-                     device: str | torch.device = "cpu"):
+                     device: str | torch.device | None = None):
     """A zeroed dense K and V cache pair [L, batch, max_seq, Hkv, hd] in
-    the model's dtype (``max_seq`` defaults to the config's): the slot
-    layout, one contiguous run of rows per slot."""
+    the model's dtype (``max_seq`` defaults to the config's) on
+    ``device`` (default: CUDA, or raise): the slot layout, one
+    contiguous run of rows per slot."""
     c = config
     shape = (c.n_layers, batch, max_seq or c.max_seq, c.n_kv_heads,
              c.head_dim)
-    return tuple(torch.zeros(shape, dtype=c.dtype, device=device)
+    dev = resolve_device(device)
+    return tuple(torch.zeros(shape, dtype=c.dtype, device=dev)
                  for _ in range(2))
 
 

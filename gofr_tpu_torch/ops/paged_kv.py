@@ -83,10 +83,11 @@ def quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
-def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor,
+def dequantize_rows(q: torch.Tensor, s: torch.Tensor,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Codes [..., d] * scales [..., 1] -> values [..., d] in ``dtype``."""
-    return (codes.float() * scales).to(dtype)
+    """Codes ``q`` [..., d] * scales ``s`` [..., 1] -> values [..., d] in
+    ``dtype`` (JAX's parameter names)."""
+    return (q.float() * s).to(dtype)
 
 
 def quantize_pool(pool: torch.Tensor) -> dict:

@@ -15,8 +15,10 @@ option outermost. The options:
 - :class:`RateLimit` (a token bucket of ``rate`` a second and ``burst``
   capacity; an empty bucket raises :class:`RateLimitedError`);
 - :class:`CircuitBreaker` (opens after ``threshold`` consecutive
-  failures; one trial request per ``interval_s`` is let through
-  half-open and closes it on success);
+  failures; when it opens under a call made on an event loop, a task on
+  that loop probes the health route every ``interval_s`` and closes it
+  on success; besides, one trial request per ``interval_s`` is let
+  through half-open and closes it on success);
 - :class:`HealthConfig`: the path and timeout of
   :meth:`HTTPService.health_check` (``/.well-known/alive``, 5 s).
 
@@ -39,15 +41,14 @@ ranked leader candidates' ``GET /control/leader``.
 Each call records its seconds (``time.perf_counter``) in the
 ``app_http_service_response`` histogram under its ``service`` and
 ``method`` when the service has metrics, and a debug line when it has a
-logger, as JAX's client does. Left out: the circuit breaker's background
-health probe (a synchronous client has no loop to run it; the half-open
-trial request recovers the circuit).
+logger, as JAX's client does.
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import contextvars
 import http.client
 import json as json_mod
 import threading
@@ -283,9 +284,12 @@ class CircuitBreaker(Option):
     """Opens after ``threshold`` consecutive failures (a raise or a 5xx).
     While open, requests fail fast with :class:`CircuitOpenError` except
     one trial per ``interval_s`` (half-open), whose success closes it.
-    The JAX client also probes the health route from a background task;
-    a synchronous client has no loop to run one, so the trial request is
-    the whole recovery."""
+
+    Recovery is two-pronged, as in JAX's client: when the breaker opens
+    under a call made on an event loop, a task on that loop probes
+    :meth:`HTTPService.health_check` every ``interval_s`` and closes it
+    on ``UP``, with no request made; a call made off any loop (a worker
+    thread, or a loop that has ended) has only the half-open trial."""
 
     threshold: int = 5
     interval_s: float = 1.0
@@ -294,6 +298,8 @@ class CircuitBreaker(Option):
         self._failures = 0
         self._open = False
         self._last_probe = 0.0
+        #: the running probe: (its loop, its concurrent future)
+        self._probe_task: tuple | None = None
 
     @property
     def is_open(self) -> bool:
@@ -322,6 +328,30 @@ class CircuitBreaker(Option):
         if self._failures >= self.threshold and not self._open:
             self._open = True
             self._last_probe = time.monotonic()
+            self._start_probe()
+
+    def _start_probe(self) -> None:
+        loop = _caller_loop()
+        running = self._probe_task
+        if loop is None or (running is not None and not running[1].done()
+                            and running[0].is_running()):
+            return  # no loop (the half-open trial only), or one runs
+        try:
+            self._probe_task = (loop, asyncio.run_coroutine_threadsafe(
+                self._probe(), loop))
+        except RuntimeError:  # the loop has closed
+            self._probe_task = None
+
+    async def _probe(self) -> None:
+        while self._open:
+            await asyncio.sleep(self.interval_s)
+            try:
+                resp = await self.service.health_check()
+                if resp.get("status") == "UP":
+                    self._open = False
+                    self._failures = 0
+            except Exception:  # noqa: BLE001 — a failed probe retries
+                continue
 
 
 @dataclass
@@ -354,12 +384,16 @@ class HTTPService:
         for opt in self.options:
             opt.bind(self)
 
-    def request(self, method: str, path: str, **kw) -> Any:
+    def request(self, method: str, path: str, *,
+                params: Mapping[str, Any] | None = None,
+                json: Any = None, body: bytes | None = None,
+                headers: Mapping[str, str] | None = None) -> Any:
         """The :class:`Response` to one request through the options; on
         a thread that runs an event loop, an awaitable of it
         (:func:`awaitable_on_loop`). ``params``, ``json``, ``body``,
         ``headers`` as JAX's."""
-        return awaitable_on_loop(self._request, method, path, **kw)
+        return awaitable_on_loop(self._request, method, path, params=params,
+                                 json=json, body=body, headers=headers)
 
     def _request(self, method: str, path: str, *,
                  params: Mapping[str, Any] | None = None,
@@ -440,15 +474,39 @@ class HTTPService:
             return {"status": "DOWN", "error": str(exc)}
 
 
+#: the event loop a call was made on, as the worker thread that runs it
+#: sees it (``asyncio.to_thread`` runs it in a copy of the caller's
+#: context)
+_CALLER_LOOP: contextvars.ContextVar = contextvars.ContextVar(
+    "gofr_caller_loop", default=None)
+
+
+def _caller_loop() -> asyncio.AbstractEventLoop | None:
+    """The loop running on this thread, else the loop of the call this
+    worker thread runs for (:func:`awaitable_on_loop`), else None."""
+    try:
+        return asyncio.get_running_loop()
+    except RuntimeError:
+        return _CALLER_LOOP.get()
+
+
+def _for_loop(loop: asyncio.AbstractEventLoop, fn: Callable, args: tuple,
+              kw: dict) -> Any:
+    _CALLER_LOOP.set(loop)
+    return fn(*args, **kw)
+
+
 def awaitable_on_loop(fn: Callable, *args, **kw) -> Any:
     """``fn(*args, **kw)`` here; on a thread that runs an event loop,
     a coroutine that runs it on a worker thread (the caller's context
-    vars, and so its span, go with it), as JAX's clients are awaited."""
+    vars, and so its span, go with it, and the loop it was called on:
+    the circuit breaker's probe runs there), as JAX's clients are
+    awaited."""
     try:
-        asyncio.get_running_loop()
+        loop = asyncio.get_running_loop()
     except RuntimeError:
         return fn(*args, **kw)
-    return asyncio.to_thread(fn, *args, **kw)
+    return asyncio.to_thread(_for_loop, loop, fn, args, kw)
 
 
 def new_http_service(base_url: str, *options: Option, **kw) -> HTTPService:

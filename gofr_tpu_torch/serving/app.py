@@ -59,8 +59,9 @@ model chosen as ``examples/model-serving/main.py`` chooses it
 :meth:`ChatServer.register_grpc_service` serves a gRPC service (the
 chat service of ``serving/grpc_chat.py``) beside the HTTP routes on
 ``GRPC_PORT`` (default 9000); ``grpc`` is imported there only, and the
-module's ``main`` registers none. ``checkpoint.warm_start`` builds an
-engine from the latest checkpoint, for ``build_server``.
+module's ``main`` registers none. ``checkpoint.restore_engine`` builds
+an engine from the latest checkpoint, for ``build_server``
+(``checkpoint.warm_start`` does the same as an ``App``'s on-start hook).
 
 The encoders serve from servers of their own, without an engine:
 :func:`embed_app` (``POST /embed``, BERT) and :func:`asr_app` (``POST

@@ -1184,14 +1184,14 @@ class ControlPlaneLeader:
                 details={"code": "leader_partition"})
 
     # ------------------------------------------------------------ routes
-    def install(self, server: Any) -> None:
-        """Register the control routes on a port server (a
+    def install(self, app: Any) -> None:
+        """Register the control routes on ``app`` (an ``App`` or a
         ``ChatServer``: ``post`` / ``get``), adopt its metrics manager
         (registering the ``app_fleet_*`` families where absent), add the
-        leader's health to the server's health route, start the sweeper
-        and stop it when the server closes."""
+        leader's health to the app's health route, start the sweeper
+        and stop it when the app closes."""
         if self.metrics is None:
-            self.metrics = server.metrics
+            self.metrics = app.metrics
             if self.metrics is not None:
                 self._register_metrics(self.metrics)
         self._set_membership_gauges()  # the epoch visible from boot
@@ -1312,17 +1312,17 @@ class ControlPlaneLeader:
         for path, fn in (("/control/join", join),
                          ("/control/heartbeat", heartbeat),
                          ("/control/leave", leave)):
-            server.post(path, fn)
+            app.post(path, fn)
         for path, fn in (("/control/leader", leader_info),
                          ("/control/topology", topology),
                          ("/control/fleet/metrics", fleet_metrics),
                          ("/debug/fleet", debug_fleet),
                          ("/debug/fleet/events", debug_fleet_events),
                          ("/debug/fleet/incidents", debug_fleet_incidents)):
-            server.get(path, fn)
-        server.health_checks["control_plane"] = self
+            app.get(path, fn)
+        app.health_checks["control_plane"] = self
         self.start()
-        server.on_close.append(self.stop)
+        app.on_close.append(self.stop)
 
 
 def _body_int(body: Mapping[str, Any], key: str, default: int) -> int:

@@ -31,7 +31,9 @@ from .engine import Engine, EngineConfig
 def llama_engine(params: Any, model_config: LlamaConfig,
                  engine_config: EngineConfig | None = None, *,
                  device: str | torch.device | None = None,
-                 quantize: str | None = None, mesh: Any = None) -> Engine:
+                 quantize: str | None = None, mesh: Any = None,
+                 metrics: Any = None, logger: Any = None,
+                 tracer: Any = None) -> Engine:
     """An engine serving ``params`` on ``device`` (default: CUDA, or
     raise), on every layout: bucketed prefill through
     ``llama_prefill_last`` (the flash kernel); on the paged layout,
@@ -73,7 +75,12 @@ def llama_engine(params: Any, model_config: LlamaConfig,
     serving engine (``start()``, ``submit``); every other rank's engine
     runs ``serving.lockstep.follow(engine)``. On an ``nccl`` mesh the
     decode dispatch is a captured CUDA graph holding the all-reduces; on
-    ``gloo`` (ranks sharing one card) it runs uncaptured."""
+    ``gloo`` (ranks sharing one card) it runs uncaptured.
+
+    ``metrics`` (a ``metrics.Manager``: the engine's series are
+    registered on it), ``logger`` and ``tracer`` are set on the engine,
+    as JAX's ``llama_engine`` sets them; ``App.serve_model`` adopts
+    what is set and fills in the rest."""
     if quantize is not None and quantize not in ("int8", "int4"):
         raise ValueError(f"quantize must be None, 'int8' or "
                          f"'int4', got {quantize!r}")
@@ -95,7 +102,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                   else quantize_llama_int4(params))
     c = model_config
     if mesh is not None:
-        return _mesh_engine(params, c, engine_config, mesh, dev, tp)
+        return _mesh_engine(params, c, engine_config, mesh, dev, tp,
+                            metrics=metrics, logger=logger, tracer=tracer)
 
     def prefill_fn(params, tokens, kv_lengths):
         return llama_prefill_last(params, tokens, c, kv_lengths=kv_lengths)
@@ -142,7 +150,8 @@ def llama_engine(params: Any, model_config: LlamaConfig,
                   paged_verify_fn=paged_verify_fn,
                   make_cache=partial(_make_cache, c, dev), device=dev,
                   vocab_size=c.vocab_size,
-                  flops_per_token=partial(llama_decode_flops, c))
+                  flops_per_token=partial(llama_decode_flops, c),
+                  metrics=metrics, logger=logger, tracer=tracer)
 
 
 def _mesh_device(mesh: Any, c: LlamaConfig, device) -> tuple:
@@ -168,7 +177,8 @@ def _mesh_device(mesh: Any, c: LlamaConfig, device) -> tuple:
 
 
 def _mesh_engine(params: Any, c: LlamaConfig, engine_config: EngineConfig,
-                 mesh: Any, dev: torch.device, tp: TensorParallel) -> Engine:
+                 mesh: Any, dev: torch.device, tp: TensorParallel,
+                 **wiring: Any) -> Engine:
     """The tp engine of ``llama_engine(mesh=)`` on this rank's shards."""
     params = shard_params(params, mesh, llama_param_specs(mesh))
     size = mesh.size("tp")
@@ -205,7 +215,7 @@ def _mesh_engine(params: Any, c: LlamaConfig, engine_config: EngineConfig,
                     device=dev,
                     vocab_size=c.vocab_size,
                     flops_per_token=lambda n: llama_decode_flops(c, n) / size,
-                    mesh=mesh)
+                    mesh=mesh, **wiring)
     engine.tp = tp
     return engine
 
@@ -243,7 +253,9 @@ def demo_llama_engine(engine_config: EngineConfig | None = None,
 
 def moe_engine(params: Any, model_config: MoEConfig,
                engine_config: EngineConfig | None = None, *,
-               device: str | torch.device | None = None) -> Engine:
+               device: str | torch.device | None = None,
+               metrics: Any = None, logger: Any = None,
+               tracer: Any = None) -> Engine:
     """An engine serving the MoE family's ``params`` on ``device``
     (default: CUDA, or raise): bucketed prefill through
     ``moe_prefill_last`` (the flash kernel), decode through
@@ -254,7 +266,8 @@ def moe_engine(params: Any, model_config: MoEConfig,
     steps a dispatch replayed as one CUDA graph per decode window. The
     family has no chunk or verify function: prompts are clamped to the
     widest bucket, the prefix cache is off and ``speculative`` serves
-    plain decode, as in the JAX engine."""
+    plain decode, as in the JAX engine. ``metrics``, ``logger`` and
+    ``tracer``: as :func:`llama_engine`'s."""
     dev = _device_of(params, device)
     engine_config = engine_config or EngineConfig()
     c = model_config
@@ -273,7 +286,8 @@ def moe_engine(params: Any, model_config: MoEConfig,
                   decode_fn=decode_fn,
                   make_cache=partial(_make_cache, c, dev), device=dev,
                   vocab_size=c.vocab_size,
-                  flops_per_token=partial(moe_decode_flops, c))
+                  flops_per_token=partial(moe_decode_flops, c),
+                  metrics=metrics, logger=logger, tracer=tracer)
 
 
 def _make_cache(c: LlamaConfig, dev: torch.device, n: int, rows: int,

@@ -287,13 +287,13 @@ class OpenAIRoutes:
             yield "data: [DONE]\n\n"
 
 
-def install_openai_routes(server: Any, engine: Engine, tokenizer: Any, *,
+def install_openai_routes(app: Any, engine: Engine, tokenizer: Any, *,
                           model: str = "gofr-tpu", render=None
                           ) -> OpenAIRoutes:
-    """Register the three routes on ``server`` (``app.ChatServer``, or
+    """Register the three routes on ``app`` (an ``App``, a ``ChatServer``, or
     anything with ``post(path, fn)`` / ``get(path, fn)``)."""
     routes = OpenAIRoutes(engine, tokenizer, model=model, render=render)
-    server.post("/v1/chat/completions", routes.chat_completions)
-    server.post("/v1/completions", routes.completions)
-    server.get("/v1/models", routes.models)
+    app.post("/v1/chat/completions", routes.chat_completions)
+    app.post("/v1/completions", routes.completions)
+    app.get("/v1/models", routes.models)
     return routes

@@ -768,17 +768,18 @@ class FleetRouter:
             out["autoscale"] = self.autoscaler.state()
         return out
 
-    def install(self, server: Any,
+    def install(self, app: Any,
                 paths: tuple = ("/chat", "/v1/chat/completions",
                                 "/v1/completions")) -> None:
-        """Register the proxy routes on the leader's server and adopt its
+        """Register the proxy routes on ``app``, the leader's ``App`` or
+        ``ChatServer``, and adopt its
         metrics manager and tracer."""
         if self.metrics is None:
-            self.metrics = server.metrics
+            self.metrics = app.metrics
             if self.autoscaler is not None:
                 self.autoscaler.metrics = self.metrics
         if self.tracer is None:
-            self.tracer = getattr(server, "tracer", None)
+            self.tracer = getattr(app, "tracer", None)
         if self.metrics is not None:
             for name, desc in _ROUTER_GAUGES:
                 if self.metrics.get(name) is None:
@@ -789,9 +790,9 @@ class FleetRouter:
         if self.autoscaler is not None and self.config.setpoint_file:
             self.autoscaler.load_setpoint_file(self.config.setpoint_file)
         for path in paths:
-            server.post(path, self.make_proxy(path))
+            app.post(path, self.make_proxy(path))
         if any(p.startswith("/v1/") for p in paths):
-            server.get("/v1/models", self.models_proxy)
+            app.get("/v1/models", self.models_proxy)
         if hasattr(self.leader, "status_sources"):
             self.leader.status_sources["router"] = self.debug_state
 

@@ -1,5 +1,6 @@
 """Tokenizers for the serving path (copies of ``gofr_tpu/serving/
-tokenizer.py``'s ``ByteTokenizer`` and ``BPETokenizer``).
+tokenizer.py``'s ``Tokenizer`` protocol, ``ByteTokenizer`` and
+``BPETokenizer``).
 
 ``ByteTokenizer`` is the dependency-free default: UTF-8 bytes + special
 tokens, reversible for any text, vocab 260. ``BPETokenizer`` loads a
@@ -17,6 +18,19 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
+from typing import Protocol
+
+
+class Tokenizer(Protocol):
+    """What the serving path reads of a tokenizer: its special ids, its
+    vocabulary size, ``encode`` and ``decode``."""
+    bos_id: int
+    eos_id: int
+    pad_id: int
+    vocab_size: int
+
+    def encode(self, text: str) -> list[int]: ...
+    def decode(self, ids: list[int]) -> str: ...
 
 
 class ByteTokenizer:

@@ -3,10 +3,13 @@ the JAX package's (``gofr_tpu/checkpoint.py``): one on-disk format, so a
 checkpoint written by either package restores in the other, flat and
 with ``like=``, every leaf bit-equal (bf16 included); the leaf order and
 keys are JAX's; atomic publish, GC, a repeated step, no checkpoint;
-quantized trees round-trip within the port; the port's ``warm_start``
+quantized trees round-trip within the port; the port's ``restore_engine``
 serves the in-memory engine's tokens (from its own checkpoint and from
 one the JAX package wrote), and the JAX package's hook, which hands its
-engine the flat dict, fails the first request with ``'embed'``.
+engine the flat dict, fails the first request with ``'embed'``; JAX's
+call ``warm_start(app, name, directory, build_engine)`` runs against the
+port's ``App`` as an on-start hook and serves the in-memory engine's
+tokens, and with no checkpoint the app's start fails naming the model.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from gofr_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from gofr_tpu.models.llama import llama_init as jax_llama_init
 from gofr_tpu_torch.checkpoint import (ARRAYS, MANIFEST, CheckpointError,
                                        Checkpointer, flatten, nest,
-                                       warm_start)
+                                       restore_engine, warm_start)
 from gofr_tpu_torch.models.convert import params_from_jax
 from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
 from gofr_tpu_torch.ops.quant import quantize_llama_int4, quantize_llama_int8
@@ -247,7 +250,7 @@ def test_warm_start_serves_the_in_memory_engines_tokens(tmp_path):
         built.append(tree)
         return llama_engine(tree, cfg, EngineConfig(**ENGINE), device="cpu")
 
-    engine = warm_start("llama", tmp_path, build, device="cpu")
+    engine = restore_engine("llama", tmp_path, build, device="cpu")
     try:
         assert engine._running
         assert set(built[0]) == {"embed", "layers", "final_norm", "lm_head"}
@@ -277,11 +280,11 @@ def test_warm_start_serves_the_in_memory_engines_tokens(tmp_path):
 
 def test_warm_start_without_a_checkpoint_names_the_model(tmp_path):
     with pytest.raises(CheckpointError, match="'llama'.*no checkpoint"):
-        warm_start("llama", tmp_path, lambda p: None, device="cpu")
+        restore_engine("llama", tmp_path, lambda p: None, device="cpu")
 
 
 def test_port_warm_starts_from_jax_and_jax_hook_fails_on_embed(tmp_path):
-    """One JAX-written checkpoint: the port's ``warm_start`` serves the
+    """One JAX-written checkpoint: the port's ``restore_engine`` serves the
     JAX engine's greedy tokens (the engine built with ``like=``); the JAX
     package's own hook hands ``build_engine`` the flat dict, and that
     engine's first request fails with ``'embed'``, generating nothing."""
@@ -299,10 +302,14 @@ def test_port_warm_starts_from_jax_and_jax_hook_fails_on_embed(tmp_path):
     JaxCheckpointer(tmp_path).save(7, jparams)
 
     def jax_engine(params):
+        # the hook's failing request burns the SLO budget, which would arm
+        # JAX's autoprofiler: a capture that outlives this test refuses
+        # every later jax.profiler start in the process
         return jax_llama_engine(
             params, jcfg,
             JaxEngineConfig(kv_layout="paged", paged_attention="xla",
-                            compile_cache_dir=None, **ENGINE),
+                            compile_cache_dir=None, autoprof=False,
+                            **ENGINE),
             implementation="xla")
 
     good = jax_engine(JaxCheckpointer(tmp_path).restore(like=jparams))
@@ -314,7 +321,7 @@ def test_port_warm_starts_from_jax_and_jax_hook_fails_on_embed(tmp_path):
     assert want.error is None and len(want.generated) == 5
 
     cfg = LlamaConfig.tiny()
-    engine = warm_start(
+    engine = restore_engine(
         "llama", tmp_path,
         lambda p: llama_engine(p, cfg, EngineConfig(**ENGINE), device="cpu"),
         device="cpu")
@@ -341,3 +348,72 @@ def test_port_warm_starts_from_jax_and_jax_hook_fails_on_embed(tmp_path):
         bad = built["engine"].submit_sync(PROMPT, JaxSamplingParams(**GREEDY))
     assert built["keys"][0] == "['embed']"        # the flat keystr dict
     assert bad.error == "'embed'" and bad.generated == []
+
+
+def _app_chat(runner) -> dict:
+    status, _, data = runner.request(
+        "POST", "/chat", {"prompt": "warm", "max_tokens": 5,
+                          "temperature": 0})
+    assert status == 201, data             # a POST answers 201, as in JAX
+    return json.loads(data)["data"]
+
+
+def test_jax_warm_start_call_serves_through_the_ports_app(tmp_path):
+    """JAX's text, ``warm_start(app, name, directory, build_engine)``
+    with ``build`` calling ``llama_engine(..., metrics=, logger=,
+    tracer=)`` on the app's planes, run against the port's ``App`` (the
+    CPU asked for): the on-start hook restores the latest step, builds
+    the engine from the nested tree, serves it as ``/chat`` and starts
+    it; its greedy tokens are an in-memory engine's on the same tree."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+
+    from .torch_apputil import AppRunner
+
+    cfg = LlamaConfig.tiny().scaled(vocab_size=260)
+    params = llama_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    Checkpointer(tmp_path).save(1, {"stale": torch.zeros(1)})
+    Checkpointer(tmp_path).save(2, params)
+    app = App(config=DictConfig({"HTTP_PORT": "0", "METRICS_PORT": "0"}))
+    built = []
+
+    def build(params):
+        built.append(llama_engine(
+            params, cfg, EngineConfig(**ENGINE), device="cpu",
+            metrics=app.container.metrics, logger=app.logger,
+            tracer=app.container.tracer))
+        return built[-1]
+
+    assert warm_start(app, "llama", tmp_path, build, device="cpu") is None
+    assert built == []                     # nothing runs before start
+    with AppRunner(app=app) as runner:
+        engine = built[0]
+        assert engine._running and app.container.models["llama"] is engine
+        assert engine.metrics is app.container.metrics
+        served = _app_chat(runner)
+    twin = llama_engine(params, cfg, EngineConfig(**ENGINE), device="cpu")
+    twin.start()
+    try:
+        want = twin.submit_sync([257] + list(b"warm"),
+                                SamplingParams(**GREEDY), 120)
+    finally:
+        twin.stop()
+    assert served["tokens"] == list(want.generated)
+    assert not engine._running             # stopped with the app
+
+
+def test_jax_warm_start_without_a_checkpoint_fails_the_apps_start(tmp_path):
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+
+    from .torch_apputil import AppRunner
+
+    app = App(config=DictConfig({"HTTP_PORT": "0", "METRICS_PORT": "0"}))
+    warm_start(app, "llama", tmp_path, lambda p: pytest.fail("built"),
+               device="cpu")
+    with pytest.raises(RuntimeError, match="on_start hook failed") as info:
+        with AppRunner(app=app):
+            pytest.fail("the app started")
+    assert isinstance(info.value.__cause__, CheckpointError)
+    assert "'llama'" in str(info.value.__cause__)
+    assert app.http_server is None

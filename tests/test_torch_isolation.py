@@ -1,7 +1,15 @@
 """The port stands alone: no JAX, no gofr_tpu, no import-time triton,
-and its entry points never run on the CPU unless asked to."""
+and its entry points never run on the CPU unless asked to. And it does
+all that the JAX package does: every JAX module has a counterpart file;
+every public name (top-level functions and classes, their public
+methods and ``__init__``) has a counterpart of the same qualified name,
+or is listed in ``RENAMED`` / ``JAX_ONLY`` with a reason; and every
+parameter of a JAX function is taken by its counterpart, or is listed in
+``PARAM_RENAMED`` / ``PARAM_JAX_ONLY`` with a reason. A listed entry
+with no reason, or no longer needed, fails as a gap does."""
 
 import ast
+import inspect
 from pathlib import Path
 
 import pytest
@@ -223,3 +231,280 @@ def test_every_jax_module_has_a_port_counterpart():
     assert missing == []
     assert all((jax_pkg / name).is_dir() and not (PKG / name).is_dir()
                for name in PACKAGE_AS_MODULE)
+
+
+# ------------------------------------------------ names and parameters
+#: Public JAX names whose port counterpart has another name:
+#: "module:qualified name" -> (the port's qualified name, reason). A
+#: renamed class carries its methods with it.
+RENAMED = {
+    "grpc/server.py:GRPCRequest": (
+        "RPCContext",
+        "the handler's view of one RPC: the port's also carries the "
+        "container's slots, the tenant, grpc's servicer context and the "
+        "server's pool, so it is the RPC's context, not its request"),
+    "serving/control_plane.py:ShardAssignment.jax_initialize_args": (
+        "ShardAssignment.dist_init_args",
+        "the arguments of torch.distributed.init_process_group where JAX "
+        "hands jax.distributed.initialize its own"),
+}
+
+CACHE = ("XLA's persistent compile cache; the port's kernels are built "
+         "by nvcc into a content-hashed library (ops/_build.py) and its "
+         "decode dispatch is a CUDA graph captured at run time")
+ROUTE = ("a Pallas or XLA route of the paged op, chosen by the caller in "
+         "JAX; the port routes by the tensors' device (the CUDA kernel, "
+         "or its plain version for CPU tensors), so a plain path chosen "
+         "by the caller cannot hide the kernel")
+#: Public JAX names with no port counterpart, and why none is needed
+JAX_ONLY = {
+    "config/env.py:default_compile_cache_dir": CACHE,
+    "config/env.py:resolve_compile_cache_dir": CACHE,
+    "config/env.py:enable_compile_cache": CACHE,
+    "device.py:DeviceRegistry.metrics_loop": (
+        "a deviation kept on purpose: the port refreshes the device "
+        "gauges on every metrics scrape (App's metrics handler), where "
+        "JAX runs this loop every 15 s"),
+    "ops/paged_attention.py:paged_decode_attention_pallas": ROUTE,
+    "ops/paged_attention.py:paged_decode_attention_xla": ROUTE,
+    "ops/paged_attention.py:paged_chunk_attention_pallas": ROUTE,
+    "ops/paged_attention.py:paged_chunk_attention_xla": ROUTE,
+    "ops/paged_attention.py:paged_tree_attention_pallas": ROUTE,
+    "ops/paged_attention.py:paged_tree_attention_xla": ROUTE,
+    "parallel/mesh.py:shard_map_compat": (
+        "jax.experimental.shard_map across JAX versions; the port's "
+        "ranks run their shards' code directly over torch.distributed "
+        "(parallel/comm.py)"),
+    "parallel/mesh.py:named": (
+        "a NamedSharding of a PartitionSpec on a jax Mesh; the port "
+        "places shards with parallel/sharding.Sharding"),
+    "serving/observability.py:jit_cost_flops": (
+        "XLA's cost analysis of a jitted function; the port counts a "
+        "step's FLOPs with llama_decode_flops (held against "
+        "torch.utils.flop_counter in the tests)"),
+}
+
+GENERATOR = ("a jax.random key is a torch.Generator in the port (the "
+             "randomness of a seeded init or sample)")
+TILING = ("Pallas's block sizes: the CUDA kernels pick their tiles from "
+          "the shapes")
+IMPLEMENTATION = ROUTE
+#: JAX parameters the port's counterpart takes under another name:
+#: "module:qualified name:parameter" -> (the port's name, reason)
+PARAM_RENAMED = {
+    "models/llama.py:llama_init:key": ("generator", GENERATOR),
+    "models/moe.py:moe_init:key": ("generator", GENERATOR),
+    "models/bert.py:bert_init:key": ("generator", GENERATOR),
+    "models/whisper.py:whisper_init:key": ("generator", GENERATOR),
+    "ops/sampling.py:sample_tokens:key": ("generator", GENERATOR),
+    "parallel/train.py:make_train_state:key": ("generator", GENERATOR),
+    "grpc/server.py:GRPCServer.__init__:container": (
+        "host_server",
+        "C14: the port's gRPC server is hosted by an App or a ChatServer "
+        "(its container, logger, metrics and tenant rule)"),
+}
+#: JAX parameters the port's counterpart does not take, and why
+PARAM_JAX_ONLY = {
+    "ops/attention.py:attention:block_q": TILING,
+    "ops/attention.py:attention:block_k": TILING,
+    "ops/flash_attention.py:flash_attention:block_q": TILING,
+    "ops/flash_attention.py:flash_attention:block_k": TILING,
+    "ops/flash_attention.py:flash_attention:interpret": (
+        "Pallas's interpret mode; a CUDA kernel has none, and a CPU "
+        "tensor takes the plain version"),
+    "ops/paged_attention.py:paged_decode_attention:implementation":
+        IMPLEMENTATION,
+    "ops/paged_attention.py:paged_chunk_attention:implementation":
+        IMPLEMENTATION,
+    "ops/paged_attention.py:paged_tree_attention:implementation":
+        IMPLEMENTATION,
+    "serving/glue.py:llama_engine:implementation": IMPLEMENTATION,
+    "serving/glue.py:moe_engine:implementation": IMPLEMENTATION,
+}
+
+
+def _public(name: str) -> bool:
+    return not name.startswith("_")
+
+
+def _params(fn) -> list:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _is_property(fn) -> bool:
+    return any(isinstance(d, ast.Name) and d.id == "property"
+               or isinstance(d, ast.Attribute) and d.attr in ("setter",
+                                                              "getter")
+               for d in fn.decorator_list)
+
+
+def _jax_surface() -> dict:
+    """"module:qualified name" -> its parameters (None for a class or a
+    property) for every public top-level function and class of
+    ``gofr_tpu/**/*.py``, their public methods and ``__init__``."""
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for path in sorted((REPO / "gofr_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "gofr_tpu").as_posix()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, funcs) and _public(node.name):
+                out[f"{rel}:{node.name}"] = _params(node)
+            elif isinstance(node, ast.ClassDef) and _public(node.name):
+                out[f"{rel}:{node.name}"] = None
+                for item in node.body:
+                    if isinstance(item, funcs) and (
+                            _public(item.name) or item.name == "__init__"):
+                        out[f"{rel}:{node.name}.{item.name}"] = (
+                            None if _is_property(item) else _params(item))
+    return out
+
+
+def _port_module(rel: str):
+    import importlib
+    parts = Path(rel).with_suffix("").parts
+    if parts[0] in PACKAGE_AS_MODULE and not (PKG / rel).exists():
+        parts = parts[:1]
+    elif parts[-1] == "__init__":
+        parts = parts[:-1]
+    return importlib.import_module(".".join(("gofr_tpu_torch",) + parts))
+
+
+def _port_name(key: str, renames: dict = RENAMED) -> str:
+    """The port's qualified name for ``key``: its own rename, else its
+    class's, else the JAX name."""
+    rel, qual = key.split(":")
+    if key in renames:
+        return renames[key][0]
+    head, dot, rest = qual.partition(".")
+    if dot and f"{rel}:{head}" in renames:
+        return f"{renames[f'{rel}:{head}'][0]}.{rest}"
+    return qual
+
+
+def _port_object(key: str, renames: dict = RENAMED):
+    """The port's counterpart of JAX's ``key``, or None."""
+    rel = key.split(":")[0]
+    obj = _port_module(rel)
+    for part in _port_name(key, renames).split("."):
+        try:
+            obj = (inspect.getattr_static(obj, part)
+                   if isinstance(obj, type) else getattr(obj, part))
+        except AttributeError:
+            return None
+    return obj
+
+
+def _port_params(obj) -> set:
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    return set(inspect.signature(obj).parameters)
+
+
+def _name_findings(surface: dict, renamed: dict, jax_only: dict) -> dict:
+    """What the name test finds: JAX names with no counterpart, listed
+    entries with no reason, and entries no longer needed."""
+    found = {"missing": [], "no_reason": [], "not_needed": []}
+    found["no_reason"] = sorted(
+        [k for k, (_, why) in renamed.items() if not why.strip()]
+        + [k for k, why in jax_only.items() if not why.strip()])
+    for key in sorted(set(renamed) | set(jax_only)):
+        if key not in surface or _port_object(key, {}) is not None:
+            found["not_needed"].append(key)
+    for key in surface:
+        if key in jax_only:
+            continue
+        if _port_object(key, renamed) is None:
+            found["missing"].append(key)
+    return found
+
+
+def _param_findings(surface: dict, renamed: dict, jax_only: dict) -> dict:
+    """What the parameter test finds: JAX parameters the port's
+    counterpart does not take, listed entries with no reason, and
+    entries no longer needed (the port takes JAX's name, JAX has no such
+    parameter, or the port does not take the name a rename gives)."""
+    found = {"missing": [], "no_reason": [], "not_needed": []}
+    found["no_reason"] = sorted(
+        [k for k, (_, why) in renamed.items() if not why.strip()]
+        + [k for k, why in jax_only.items() if not why.strip()])
+    seen = set()
+    for key, params in surface.items():
+        if params is None or key in JAX_ONLY:
+            continue
+        obj = _port_object(key)
+        if obj is None or isinstance(obj, property):
+            continue
+        taken = _port_params(obj)
+        for name in params:
+            entry = f"{key}:{name}"
+            if entry in renamed:
+                seen.add(entry)
+                if name in taken or renamed[entry][0] not in taken:
+                    found["not_needed"].append(entry)
+            elif entry in jax_only:
+                seen.add(entry)
+                if name in taken:
+                    found["not_needed"].append(entry)
+            elif name not in taken:
+                found["missing"].append(entry)
+    found["not_needed"] += sorted((set(renamed) | set(jax_only)) - seen)
+    return found
+
+
+def test_every_jax_public_name_has_a_port_counterpart():
+    """Each public top-level function and class of ``gofr_tpu/**/*.py``,
+    each public method and ``__init__`` of those classes, has a
+    counterpart of the same qualified name in the port's counterpart
+    module (``PACKAGE_AS_MODULE``), or is listed with a reason in
+    ``RENAMED`` or ``JAX_ONLY``. A listed entry that is no longer needed
+    fails, and so does a JAX name added without a counterpart."""
+    surface = _jax_surface()
+    assert len(surface) > 1500       # the scan sees the whole package
+    assert _name_findings(surface, RENAMED, JAX_ONLY) == {
+        "missing": [], "no_reason": [], "not_needed": []}
+
+
+def test_every_jax_parameter_is_taken_by_the_port():
+    """For each matched pair, every parameter of JAX's function or method
+    is a parameter of the port's counterpart, or is listed with a reason
+    in ``PARAM_RENAMED`` (whose name the port must take) or
+    ``PARAM_JAX_ONLY``."""
+    surface = _jax_surface()
+    assert _param_findings(surface, PARAM_RENAMED, PARAM_JAX_ONLY) == {
+        "missing": [], "no_reason": [], "not_needed": []}
+
+
+@pytest.mark.parametrize("table", ["RENAMED", "JAX_ONLY", "PARAM_RENAMED",
+                                   "PARAM_JAX_ONLY"])
+def test_the_parity_tests_fail_on_a_removed_a_bare_or_a_stale_entry(table):
+    """Each table's first entry taken out is reported missing, its
+    reason emptied is reported, and an entry for a name JAX does not
+    have is reported as no longer needed."""
+    surface = _jax_surface()
+    tables = {"RENAMED": dict(RENAMED), "JAX_ONLY": dict(JAX_ONLY),
+              "PARAM_RENAMED": dict(PARAM_RENAMED),
+              "PARAM_JAX_ONLY": dict(PARAM_JAX_ONLY)}
+    names = table in ("RENAMED", "JAX_ONLY")
+    findings = _name_findings if names else _param_findings
+
+    def run():
+        if names:
+            return findings(surface, tables["RENAMED"], tables["JAX_ONLY"])
+        return findings(surface, tables["PARAM_RENAMED"],
+                        tables["PARAM_JAX_ONLY"])
+
+    edited = tables[table]
+    first, value = next(iter(edited.items()))
+    del edited[first]
+    assert first in run()["missing"]
+    edited[first] = (value[0], " ") if isinstance(value, tuple) else " "
+    assert run()["no_reason"] == [first]
+    edited[first] = value
+    stale = ("ops/rope.py:no_such_name" if names
+             else "ops/rope.py:apply_rope:no_such_parameter")
+    edited[stale] = ("x", "a reason") if isinstance(value, tuple) \
+        else "a reason"
+    assert run() == {"missing": [], "no_reason": [], "not_needed": [stale]}

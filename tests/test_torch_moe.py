@@ -214,7 +214,7 @@ def test_moe_decode_step_matches_jax(params, window):
         implementation="xla")
     jk, jv = jax_make_empty_cache(jc, 2, max_seq=64)
     jk, jv = jk.at[:, :, :16].set(k), jv.at[:, :, :16].set(v)
-    tk, tv = make_empty_cache(tc, 2, 64)
+    tk, tv = make_empty_cache(tc, 2, 64, "cpu")
     tk[:, :, :16] = _t(np.asarray(k))
     tv[:, :, :16] = _t(np.asarray(v))
     jlen, tlen = jnp.asarray(lens), _t(lens)
@@ -253,7 +253,7 @@ def test_moe_decode_flops_formula_matches_the_flop_counter(params):
     c = tmoe.MoEConfig.tiny()
     _, tparams = params
     width = 64
-    k, v = make_empty_cache(c, 3, width)
+    k, v = make_empty_cache(c, 3, width, "cpu")
     with FlopCounterMode(display=False) as counter:
         tmoe.moe_decode_step(tparams, torch.tensor([1, 2, 3]), k, v,
                              torch.tensor([3, 40, 60], dtype=torch.int32), c)

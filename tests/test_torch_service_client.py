@@ -4,9 +4,11 @@ at one local stdlib server that records what it receives: basic and
 API-key auth, custom headers, OAuth2 client credentials against a token
 endpoint the test serves (form, bearer, cache, refresh, failure), the
 token-bucket rate limit, the health check and its ``HealthConfig``, the
-``put`` / ``patch`` / ``delete`` verbs, and the order of ``before`` and
-``around`` across options. The port's client is synchronous; the JAX
-client's calls run in ``asyncio.run``.
+``put`` / ``patch`` / ``delete`` verbs, the order of ``before`` and
+``around`` across options, and the circuit breaker's recovery: by its
+background health probe when it opened under a call made on an event
+loop, by the half-open trial request off a loop. The port's client is
+synchronous off a loop; the JAX client's calls run in ``asyncio.run``.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ class _Recorder(BaseHTTPRequestHandler):
             status = 500
         elif self.path == "/sick":
             status = 503
+        elif srv.down and self.path in ("/flaky", "/.well-known/alive"):
+            status = 503
         data = json.dumps(payload).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
@@ -69,6 +73,7 @@ def server():
     srv.lock = threading.Lock()
     srv.seen, srv.token_forms = [], []
     srv.token_status, srv.expires_in = 200, 300
+    srv.down = False            # /flaky and the health route answer 503
     srv.url = f"http://127.0.0.1:{srv.server_address[1]}"
     thread = threading.Thread(target=srv.serve_forever, args=(0.05,),
                               daemon=True)
@@ -324,3 +329,72 @@ def test_service_name_defaults_to_the_host_and_port(server):
     jax_svc = jax_client.HTTPService(server.url)
     assert svc.service_name == jax_svc.service_name == \
         server.url.split("//")[1]
+
+
+def test_breaker_closes_from_its_probe_alone_with_jaxs(server):
+    """Both breakers open under calls made on one event loop while the
+    upstream is down; it stays down through the first probe and then
+    comes back. With no request made, each breaker's probe of the health
+    route closes it, the port's at the same probe tick as JAX's."""
+    interval = 0.2
+    breakers = {"port": port_client.CircuitBreaker(threshold=2,
+                                                   interval_s=interval),
+                "jax": jax_client.CircuitBreaker(threshold=2,
+                                                 interval_s=interval)}
+    services = {"port": port_client.HTTPService(server.url, breakers["port"]),
+                "jax": jax_client.HTTPService(server.url, breakers["jax"])}
+
+    async def flow():
+        server.down = True
+        opened, closed = {}, {}
+        for _ in range(2):
+            for name, svc in services.items():
+                assert (await svc.get("/flaky")).status == 503
+                if breakers[name].is_open:
+                    opened[name] = time.monotonic()
+        assert opened.keys() == {"port", "jax"}
+        with pytest.raises(port_client.CircuitOpenError):
+            await services["port"].get("/flaky")
+        requests = len(server.seen)
+        await asyncio.sleep(1.5 * interval)   # the first probes see 503
+        server.down = False
+        deadline = time.monotonic() + 10 * interval
+        while len(closed) < 2 and time.monotonic() < deadline:
+            for name, cb in breakers.items():
+                if name not in closed and not cb.is_open:
+                    closed[name] = time.monotonic()
+            await asyncio.sleep(0.005)
+        return opened, closed, server.seen[requests:]
+
+    opened, closed, after = asyncio.run(flow())
+    assert closed.keys() == {"port", "jax"}
+    # only probes reached the upstream once the breakers were open:
+    # the first (503) and the one that closed each breaker
+    assert {r["path"] for r in after} == {"/.well-known/alive"}
+    assert len(after) >= 4
+    took = {name: closed[name] - opened[name] for name in closed}
+    assert took["port"] > 1.5 * interval and took["jax"] > 1.5 * interval
+    assert abs(took["port"] - took["jax"]) < interval / 2, took
+
+
+def test_breaker_off_a_loop_recovers_by_its_trial_as_jaxs(server):
+    """Calls made off any loop (the port's synchronous calls; JAX's, an
+    ``asyncio.run`` each) start no probe: the circuit stays open until
+    the half-open trial request after ``interval_s`` closes it."""
+    interval = 0.05
+    for pkg in (port_client, jax_client):
+        cb = pkg.CircuitBreaker(threshold=2, interval_s=interval)
+        svc = pkg.HTTPService(server.url, cb)
+
+        def call(path):
+            r = svc.get(path)
+            return asyncio.run(r) if asyncio.iscoroutine(r) else r
+
+        server.down = True
+        for _ in range(2):
+            assert call("/flaky").status == 503
+        assert cb.is_open
+        server.down = False
+        time.sleep(4 * interval)
+        assert cb.is_open                  # no probe closed it
+        assert call("/flaky").ok and not cb.is_open
