@@ -1838,6 +1838,389 @@ def kernel_kv_write_view(dev, gen) -> list:
     return rows
 
 
+# ------------------------------------- every head dim and float type
+#: float32 outside the tensor cores (NVIDIA data sheet, H100 SXM, 700 W):
+#: the bound of a float32 row's operations
+PEAK_F32_FLOPS = 67e12
+#: (head dim, type, Hq, Hkv, pool layers, the phase whose run gives the
+#: rows' launches, tree rows too): OpenLLaMA-3B v2's heads in float16;
+#: JAX's demo model (``LlamaConfig.tiny()``) in float32; bf16 at head dim
+#: 256 and float16 at Llama-3.2-1B's 64, each served by a small model in
+#: ``serve_shapes``
+SHAPE_CASES = (
+    (100, "float16", 32, 32, 26, "serve_openllama", True),
+    (16, "float32", 4, 2, 2, "serve_shapes_tiny", False),
+    (256, "bfloat16", 8, 2, 2, "serve_shapes_d256", False),
+    (64, "float16", 32, 8, 2, "serve_shapes_d64", False),
+)
+
+
+def _tols(dtype) -> dict:
+    """The per-element limit of a row against its plain version: a
+    float32 output differs by summation order only (ATOL_F32, RTOL_F32);
+    a 16-bit output is rounded on both sides (ATOL, RTOL). The float32
+    kernel keeps P in float32: no P-rounding term."""
+    import torch
+    if dtype == torch.float32:
+        return {"atol": ATOL_F32, "rtol": RTOL_F32}
+    return {"atol": ATOL, "rtol": RTOL}
+
+
+def _shape_row(fields: dict, shape: str, dtype, check_out: dict, call,
+               plain, library, flops: float, nbytes: float,
+               library_note: str | None = None) -> dict:
+    """Time a new-shape row (the kernel's call, its plain version, the
+    library call; device times of the kernel and the library call),
+    bound it (operations over the peak of the inputs' type: the tensor
+    cores' for 16-bit types, float32's otherwise), print its line."""
+    import torch
+    ms, plain_ms = time_ms(call), time_ms(plain)
+    dev_ms = device_ms(call)
+    lib_ms = time_ms(library) if library is not None else None
+    lib_dev_ms = device_ms(library) if library is not None else None
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    row = {**fields, "route": "cuda", "max_abs_err": check_out["err"],
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
+    if library_note:
+        row["library_note"] = library_note
+    emit({"phase": "kernel", "shape": shape, "kernel_ms": ms, **row})
+    return row
+
+
+def _attn_check(name: str, out, ref, faults: dict, dtype) -> dict:
+    """The kernel within its limit of the plain version, and every
+    planted fault outside it; prints the check line."""
+    tol = _tols(dtype)
+    err, ratios = check(out, ref, **tol)
+    fault_ratios = {k: check(v, ref, **tol)[1] for k, v in faults.items()}
+    emit({"phase": "kernel_check", "name": name, "max_abs_err": err, **tol,
+          "worst_ratio_per_row": ratios,
+          **{f"planted_fault_{k}_worst_ratio": max(v)
+             for k, v in fault_ratios.items()}})
+    if max(ratios) > 1.0:
+        raise AssertionError(f"{name} kernel vs plain: worst err/limit "
+                             f"{max(ratios)} > 1")
+    passed = [k for k, v in fault_ratios.items() if max(v) <= 1.0]
+    if passed:
+        raise AssertionError(f"{name} check passed planted faults {passed}")
+    return {"err": err}
+
+
+def _sdpa(q4, k4, v4, group, mask):
+    """The library yardstick: SDPA on [B, S, H, D] tensors with GQA
+    expanded and a boolean mask, all laid out outside the timed call."""
+    import torch.nn.functional as F
+    qt = q4.transpose(1, 2).contiguous()
+    kt = k4.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vt = v4.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
+                  n_layers: int, launches_from: str, tree: bool) -> list:
+    """The four kernels at head dim ``d`` in ``dtype_name``, at the
+    serving shapes of the model whose heads they are (Hq, Hkv), each
+    against its plain version with a planted fault: flash (P 4, S 512,
+    kv_lengths 1 / 200 / 511 / 512; fault: every length one short);
+    paged decode over both pool forms (B 8, lengths 0-1500 on 64-row
+    pages; fault: each slot's partial last page dropped, and for int8 the
+    V scales shifted one row); paged chunk over both forms (a 1024-row
+    chunk, the second chunk of an 1801-token walk, a 6-row prefix-hit
+    suffix, an empty slot; fault: a history page swapped); with ``tree``
+    the tree kernel over both forms (the smoke's 8 trees; fault: causal
+    masks in place of the trees'); and the fused RoPE + K/V write at a
+    decode step's 8 rows into a pool of ``n_layers`` layers, both forms,
+    bit for bit (faults: positions one late, the rotate-half sign
+    flipped). Rows are named ``<kernel>_d<d>_<type>``; their launches
+    come from ``launches_from``."""
+    import torch
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_plain)
+    from gofr_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_chunk_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_tree_attention, paged_tree_attention_plain)
+    from gofr_tpu_torch.ops.paged_kv import (quantize_pool, rope_kv_write,
+                                             rope_kv_write_plain, slot_view)
+    from gofr_tpu_torch.ops.rope import rope_frequencies
+    dtype = getattr(torch, dtype_name)
+    es = torch.finfo(dtype).bits // 8
+    gen = torch.Generator(device=dev).manual_seed(d + hq)
+    group = hq // hkv
+    tag = f"_d{d}_{dtype_name}"
+    shape_tag = f"Hq={hq} Hkv={hkv} hd={d} {dtype_name}"
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def fields(kernel, form, source, replaces):
+        return {"name": kernel + form + tag, "wrapper": kernel + form,
+                "launches_from": launches_from, "source": source,
+                "replaces": replaces}
+
+    def kv_bytes(rows, quantized):
+        return 2 * rows * hkv * ((d + 4) if quantized else es * d)
+
+    rows = []
+    # flash
+    p, s, lens_l = 4, 512, [1, 200, 511, 512]
+    q, k, v = randn(p, s, hq, d), randn(p, s, hkv, d), randn(p, s, hkv, d)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    name = "flash_attention" + tag
+    out = flash_attention(q, k, v, kv_lengths=lens)
+    ref = flash_attention_plain(q, k, v, kv_lengths=lens)
+    checked = _attn_check(name, out, ref, {"kv_len_short": flash_attention(
+        q, k, v, kv_lengths=(lens - 1).clamp(min=1))}, dtype)
+    r = torch.arange(s, device=dev)
+    mask = ((r[None, :] <= r[:, None])[None]
+            & (r[None, None, :] < lens[:, None, None]))[:, None]
+    visible = sum(min(i + 1, n) for n in lens_l for i in range(s))
+    rows.append(_shape_row(
+        fields("flash_attention", "", "gofr_tpu_torch/csrc/attn_simt.cuh",
+               "gofr_tpu/ops/flash_attention.py:33"),
+        f"P={p} S={s} {shape_tag}, kv_lengths 1/200/511/512", dtype, checked,
+        lambda: flash_attention(q, k, v, kv_lengths=lens),
+        lambda: flash_attention_plain(q, k, v, kv_lengths=lens),
+        _sdpa(q, k, v, group, mask), 4.0 * d * hq * visible,
+        2 * p * s * hq * d * es + kv_bytes(sum(lens_l), False) + 4 * p))
+
+    # the paged pools: 256 pages of 64 rows, random distinct pages a slot
+    pg, n_pages = 64, 256
+    kp, vp = randn(hkv, n_pages, pg, d), randn(hkv, n_pages, pg, d)
+    forms = (("", kp, vp), ("_int8", quantize_pool(kp), quantize_pool(vp)))
+
+    def tables_for(need_rows, mp, seed):
+        t = torch.full((len(need_rows), mp), n_pages, dtype=torch.int32)
+        perm = torch.randperm(n_pages,
+                              generator=torch.Generator().manual_seed(seed))
+        used = 0
+        for i, n in enumerate(need_rows):
+            need = -(-n // pg)
+            t[i, :need] = perm[used:used + need].to(torch.int32)
+            used += need
+        return t.to(dev), perm, used
+
+    def view(pool, tables):
+        return slot_view(pool, tables).to(dtype)
+
+    # decode
+    lens_l = [0, 1, 63, 64, 65, 1500, 300, 1000]
+    b = len(lens_l)
+    tables, _, _ = tables_for(lens_l, -(-max(lens_l) // pg), 2)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    qd = randn(b, hq, d)
+    cut = torch.where(lens > pg, lens - lens % pg, lens)
+    mp = tables.shape[1]
+    for form, kpool, vpool in forms:
+        args = (qd, kpool, vpool, tables, lens)
+        faults = {"tail_page": paged_decode_attention(qd, kpool, vpool,
+                                                      tables, cut)}
+        if form:
+            faults["v_scales_shifted"] = paged_decode_attention(
+                qd, kpool, _shift_v_scales(vpool), tables, lens)
+        name = "paged_decode_attention" + form + tag
+        out = paged_decode_attention(*args)
+        checked = _attn_check(name, out, paged_decode_attention_plain(*args),
+                              faults, dtype)
+        if any(out[i].abs().max().item() != 0.0
+               for i, n in enumerate(lens_l) if n == 0):
+            raise AssertionError(f"{name}: a zero-length slot is not zero")
+        dmask = (torch.arange(mp * pg, device=dev)[None, :]
+                 < lens[:, None])[:, None, None, :]
+        rows.append(_shape_row(
+            fields("paged_decode_attention", form,
+                   "gofr_tpu_torch/csrc/attn_simt.cuh",
+                   "gofr_tpu/ops/paged_attention.py:"
+                   + ("138" if form else "134")),
+            f"B={b} {shape_tag} pg={pg} Np={n_pages}, lengths "
+            f"0/1/63/64/65/1500/300/1000, " + ("int8 {q, s}" if form
+                                               else "plain pool"),
+            dtype, checked, lambda args=args: paged_decode_attention(*args),
+            lambda args=args: paged_decode_attention_plain(*args),
+            _sdpa(qd[:, None], view(kpool, tables), view(vpool, tables),
+                  group, dmask),
+            sum(4.0 * n * hq * d for n in lens_l),
+            sum(kv_bytes(n, bool(form)) for n in lens_l) + 2 * b * hq * d * es
+            + sum(-(-n // pg) for n in lens_l) * 4 + 4 * b,
+            "SDPA on the gathered view (an int8 pool dequantized to the "
+            "activation type beforehand, untimed)"))
+
+    # chunk
+    sq, hists, clens = 1024, [0, 1024, 896, 0], [1024, 777, 6, 0]
+    b = len(hists)
+    tables, perm, used = tables_for([h + c for h, c in zip(hists, clens)],
+                                    32, 3)
+    bad = tables.clone()
+    for i, h in enumerate(hists):
+        if h:
+            bad[i, (h - 1) // pg] = int(perm[used + i])
+    hist = torch.tensor(hists, dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    qc = randn(b, sq, hq, d)
+    mp = tables.shape[1]
+    pos = torch.arange(mp * pg, device=dev)[None, None, :]
+    q_pos = (hist[:, None] + torch.arange(sq, device=dev)[None, :])[:, :, None]
+    cmask = ((pos <= q_pos) & (pos < (hist + clen)[:, None, None]))[:, None]
+    visible = sum(min(h + i + 1, mp * pg) for h, c in zip(hists, clens)
+                  for i in range(c))
+    kv_rows = [h + c for h, c in zip(hists, clens)]
+    for form, kpool, vpool in forms:
+        args = (qc, kpool, vpool, tables, hist, clen)
+        faults = {"history_page": paged_chunk_attention(qc, kpool, vpool,
+                                                        bad, hist, clen)}
+        name = "paged_chunk_attention" + form + tag
+        out = paged_chunk_attention(*args)
+        checked = _attn_check(name, out, paged_chunk_attention_plain(*args),
+                              faults, dtype)
+        rows.append(_shape_row(
+            fields("paged_chunk_attention", form,
+                   "gofr_tpu_torch/csrc/attn_simt.cuh",
+                   "gofr_tpu/ops/paged_attention.py:"
+                   + ("362" if form else "357")),
+            f"B={b} Sq={sq} {shape_tag} pg={pg} Np={n_pages} Mp={mp}, "
+            f"(history, chunk) (0, 1024) (1024, 777) (896, 6) (0, 0), "
+            + ("int8 {q, s}" if form else "plain pool"), dtype, checked,
+            lambda args=args: paged_chunk_attention(*args),
+            lambda args=args: paged_chunk_attention_plain(*args),
+            _sdpa(qc, view(kpool, tables), view(vpool, tables), group,
+                  cmask),
+            4.0 * d * hq * visible,
+            sum(clens) * hq * d * es + b * sq * hq * d * es
+            + sum(kv_bytes(n, bool(form)) for n in kv_rows)
+            + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b,
+            "SDPA on the gathered view (an int8 pool dequantized to the "
+            "activation type beforehand, untimed)"))
+
+    # tree
+    if tree:
+        slots = _tree_slots()
+        width = 16
+        b = len(slots)
+        hists = [h for h, _, _ in slots]
+        clens = [c for _, _, c in slots]
+        masks = torch.zeros(b, width, dtype=torch.int32)
+        for i, (_, t, _) in enumerate(slots):
+            if t is not None:
+                masks[i, :t.n_nodes] = torch.tensor(t.masks).to(torch.int32)
+        masks = masks.to(dev)
+        causal = torch.cumsum(1 << torch.arange(width, device=dev), 0)
+        causal = causal.to(torch.int32)[None].expand(b, width).contiguous()
+        tables, _, _ = tables_for([h + width for h in hists], 32, 4)
+        hist = torch.tensor(hists, dtype=torch.int32, device=dev)
+        clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+        qt = randn(b, width, hq, d)
+        mp = tables.shape[1]
+        pos = torch.arange(mp * pg, device=dev)[None, None, :]
+        rel = pos - hist[:, None, None]
+        bit = (masks[:, :, None].long() >> rel.clamp(0, 31)) & 1
+        tmask = ((rel < 0) | ((rel < clen[:, None, None]) & (bit == 1)))
+        tmask = (tmask & (torch.arange(width, device=dev)[None, :, None]
+                          < clen[:, None, None]))[:, None]
+        visible = int(tmask.sum())
+        kv_rows = [h + c for h, c in zip(hists, clens)]
+        for form, kpool, vpool in forms:
+            args = (qt, kpool, vpool, tables, hist, clen, masks)
+            faults = {"causal_masks": paged_tree_attention(
+                qt, kpool, vpool, tables, hist, clen, causal)}
+            name = "paged_tree_attention" + form + tag
+            out = paged_tree_attention(*args)
+            checked = _attn_check(name, out,
+                                  paged_tree_attention_plain(*args), faults,
+                                  dtype)
+            rows.append(_shape_row(
+                # the slice's serving path runs no speculation
+                {**fields("paged_tree_attention", form,
+                          "gofr_tpu_torch/csrc/attn_simt.cuh",
+                          "gofr_tpu/ops/paged_attention.py:"
+                          + ("619" if form else "614")),
+                 "main_path": False},
+                f"B={b} W={width} {shape_tag} pg={pg} Np={n_pages} Mp={mp}, "
+                f"histories 0/1/63/64/65/1500/300/1000, "
+                + ("int8 {q, s}" if form else "plain pool"), dtype, checked,
+                lambda args=args: paged_tree_attention(*args),
+                lambda args=args: paged_tree_attention_plain(*args),
+                _sdpa(qt, view(kpool, tables), view(vpool, tables), group,
+                      tmask),
+                4.0 * d * hq * visible,
+                sum(clens) * hq * d * es * 2
+                + sum(kv_bytes(n, bool(form)) for n in kv_rows)
+                + sum(-(-n // pg) for n in kv_rows) * 4 + 8 * b
+                + 4 * b * width,
+                "SDPA on the gathered view with the trees' visibility as a "
+                "boolean mask (an int8 pool dequantized beforehand)"))
+
+    # the fused RoPE + K/V write at a decode step's 8 rows
+    li = n_layers // 2
+    wshape = (n_layers, hkv, n_pages, pg, d)
+    k_pool, v_pool = randn(*wshape), randn(*wshape)
+    positions = torch.tensor([0, 2047, 1500, 63, 64, 901, 7, 1024],
+                             dtype=torch.int32, device=dev)
+    pids = torch.tensor([17, 3, n_pages, 200, -1, 64, n_pages, 9],
+                        dtype=torch.int32, device=dev)
+    offs = positions % pg
+    inv_freq = rope_frequencies(d, 10000.0, device=dev)
+    n = pids.numel()
+    live = int(((pids >= 0) & (pids < n_pages)).sum())
+    qw, kw, vw = randn(n, hq, d), randn(n, hkv, d), randn(n, hkv, d)
+    for form in ("", "_int8"):
+        kpool, vpool = ((quantize_pool(k_pool), quantize_pool(v_pool))
+                        if form else (k_pool, v_pool))
+
+        def run(fn, pos=positions, inv=inv_freq, kpool=kpool, vpool=vpool):
+            pools = (_clone_pool(kpool), _clone_pool(vpool))
+            q_rot = fn(qw, kw, vw, pos, inv, *pools, li, pids, offs)
+            torch.cuda.synchronize()
+            return q_rot, pools
+
+        name = "rope_kv_write" + form + tag
+        want_q, want = run(rope_kv_write_plain)
+        got_q, got = run(rope_kv_write)
+        err, equal = _pools_diff(got, want)
+        err = max(err, (got_q.float() - want_q.float()).abs().max().item())
+        equal = equal and torch.equal(got_q, want_q)
+        fault_equal = {}
+        for fault, (pos, inv) in {
+                "positions_one_late": (positions + 1, inv_freq),
+                "rotate_half_sign_flipped": (positions, -inv_freq)}.items():
+            fq, fp = run(rope_kv_write, pos, inv)
+            fault_equal[fault] = torch.equal(fq, want_q) and \
+                _pools_diff(fp, want)[1]
+        emit({"phase": "kernel_check", "name": name, "max_abs_err": err,
+              "bit_equal": equal, "planted_faults_bit_equal": fault_equal})
+        if not equal or any(fault_equal.values()):
+            raise AssertionError(f"{name}: bit equal {equal}, planted faults "
+                                 f"that passed {fault_equal}")
+        dst = (_clone_pool(kpool), _clone_pool(vpool))
+        args = (qw, kw, vw, positions, inv_freq, *dst, li, pids, offs)
+        from gofr_tpu_torch.ops.rope import apply_rope
+        library = _library_write(*dst, pids, offs,
+                                 apply_rope(kw, positions, inv_freq), vw, li)
+        row_bytes = hkv * ((d + 4) if form else es * d)
+        rows.append(_shape_row(
+            {**fields("rope_kv_write", form, "gofr_tpu_torch/csrc/kv_write.cu",
+                      "gofr_tpu/ops/paged_kv.py:124"),
+             "replaces_note": "apply_rope (gofr_tpu/ops/rope.py:37) on q and "
+                              "k and pool_write of K and V, fused by XLA "
+                              "into the jitted step at "
+                              "gofr_tpu/models/llama.py:336-339; not a "
+                              "pallas_call"},
+            f"decode: N={n} rows ({live} in range), positions 0-2047, "
+            f"{shape_tag} L={n_layers} Np={n_pages} pg={pg}, layer {li}, "
+            + ("int8 {q, s}" if form else "plain pool"), dtype,
+            {"err": err}, lambda args=args: rope_kv_write(*args),
+            lambda args=args: rope_kv_write_plain(*args), library, 0.0,
+            2 * n * hq * d * es + 2 * live * (hkv * d * es + row_bytes)
+            + 12 * n + 4 * d // 2,
+            "no single library call; nearest path: index_copy_ of the "
+            "rotated in-range K and V rows (RoPE, selection"
+            + (", quantize" if form else "") + " beforehand, untimed)"))
+    return rows
+
+
 #: llama3_1b's quantized products, every matrix stored [N, K]: (name,
 #: K, N, head); the tied head reads the [V, D] embedding codes
 WQ_PRODUCTS = (("wq", 2048, 2048, False), ("wk", 2048, 512, False),
@@ -7087,14 +7470,17 @@ def _equal_faults(run, ref, answers) -> list:
         if bad else []
 
 
-def _greedy_faults(run, params, cfg, dev) -> tuple[list, dict]:
+def _greedy_faults(run, params, cfg, dev,
+                   implementation: str = "auto") -> tuple[list, dict]:
     """([] or the faults, a summary): each answer of ``run`` is a greedy
-    answer of the model as the flash prefill reads it: its prompt and
-    tokens through ``llama_prefill`` in one pass, every token's logit
-    within LOGITS_TOL of the largest at its position (the paths differ
-    by bf16 rounding inside attention, so a near-tie may go either way;
-    a fault moves logits further). The summary: per answer the worst
-    margin and the tokens that are the argmax."""
+    answer of the model as the flash prefill reads it (or, with
+    ``implementation="plain"``, as the plain path reads it): its prompt
+    (text, or token ids) and tokens through ``llama_prefill`` in one
+    pass, every token's logit within LOGITS_TOL of the largest at its
+    position (the paths differ by rounding inside attention, so a
+    near-tie may go either way; a fault moves logits further). The
+    summary: per answer the worst margin and the tokens that are the
+    argmax."""
     import torch
     from gofr_tpu_torch.models.llama import llama_prefill
     from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -7104,9 +7490,10 @@ def _greedy_faults(run, params, cfg, dev) -> tuple[list, dict]:
         if not tokens:
             faults.append(f"{run['run']} answer {i}: no tokens")
             continue
-        ids = encode(prompt)
+        ids = list(prompt) if isinstance(prompt, list) else encode(prompt)
         seq = torch.tensor([ids + tokens], device=dev)
-        logits, _ = llama_prefill(params, seq, cfg)
+        logits, _ = llama_prefill(params, seq, cfg,
+                                  implementation=implementation)
         at = logits[0, len(ids) - 1:len(ids) - 1 + len(tokens)]
         picked = at.gather(1, torch.tensor(tokens, device=dev)[:, None])
         margin = (at.amax(1, keepdim=True) - picked)[:, 0]
@@ -7551,6 +7938,505 @@ def phase_serve_llama8b(dev, smi_line: str, cfg=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------- every head dim and type
+#: openlm-research/open_llama_3b_v2's config.json as published on the
+#: Hugging Face hub, with ``rope_theta`` written out: 10000.0 is
+#: transformers' ``LlamaConfig`` default, and the published file names
+#: no such key (``llama_config_from_hf`` reads an absent key as 500000,
+#: as JAX's loader does)
+OPENLLAMA_3B_V2 = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 0,
+    "hidden_act": "silu", "hidden_size": 3200, "initializer_range": 0.02,
+    "intermediate_size": 8640, "max_position_embeddings": 2048,
+    "num_attention_heads": 32, "num_hidden_layers": 26,
+    "num_key_value_heads": 32, "rms_norm_eps": 1e-06,
+    "tie_word_embeddings": False, "torch_dtype": "float16",
+    "use_cache": True, "vocab_size": 32000, "rope_theta": 10000.0}
+#: its parameters: the 32000 x 3200 embedding and head, 26 layers of 4 x
+#: 3200² + 3 x 3200 x 8640 + 2 x 3200, the final norm
+OPENLLAMA_PARAMS = 3_426_473_600
+OPENLLAMA_NEW = 32
+#: serve_shapes' new tokens an answer
+SHAPES_NEW = 16
+
+
+def _shape_launch_faults(name: str, run: dict, quantized: bool,
+                         kernels=("flash_attention", "paged_decode_attention",
+                                  "paged_chunk_attention", "rope_kv_write",
+                                  "scatter_chunk_kv")) -> list:
+    """The kernels of a native paged run, in its pool's form, each
+    launched at least once (flash has one form)."""
+    form = "_int8" if quantized else ""
+    want = [k if k == "flash_attention" else k + form for k in kernels]
+    return [f"{name}: {k} never launched" for k in want
+            if run["launches"].get(k, 0) < 1]
+
+
+def _pool_faults(name: str, pages: int, nbytes: int, ref: dict) -> list:
+    """An int8 pool at the plain pool's bytes: at least 1.8x its pages
+    in no more bytes."""
+    if pages >= 1.8 * ref["pool_pages"] and nbytes <= ref["pool_bytes"]:
+        return []
+    return [f"{name}: {pages} pages in {nbytes} bytes against the plain "
+            f"pool's {ref['pool_pages']} in {ref['pool_bytes']}"]
+
+
+def _rotated(run: dict) -> dict:
+    """A planted fault: ``run`` with each answer's tokens rotated by one
+    place (every token at another position)."""
+    return {**run, "run": run["run"] + "_rotated",
+            "tokens": [t[1:] + t[:1] if t else t for t in run["tokens"]]}
+
+
+def _serve_pools(params, cfg, dev, smi_line: str, phase: str, n_new: int,
+                 counters: dict) -> dict:
+    """serve's three waves through ``_serve_run`` on a ``llama_engine``,
+    once on the plain pool (the model's dtype) and once on the int8 pool
+    at the same bytes, each engine freed before the next; the runs by
+    pool, each with its pool's pages and bytes."""
+    import torch
+    from gofr_tpu_torch.serving.glue import llama_engine
+    runs = {}
+    for name, kv_dtype in (("plain_pool", "bf16"), ("int8_pool", "int8")):
+        run = _serve_run(params, cfg, dev, smi_line, name, _serve_waves(),
+                         build=llama_engine, phase=phase, n_new=n_new,
+                         counters=counters, kv_dtype=kv_dtype)
+        engine = run.pop("engine")
+        run.update(pool_pages=engine._n_pages, pool_bytes=_pool_bytes(engine))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = run
+    return runs
+
+
+def phase_serve_openllama(dev, smi_line: str, hf: dict | None = None
+                          ) -> dict:
+    """OpenLLaMA-3B v2 (``OPENLLAMA_3B_V2`` through
+    ``llama_config_from_hf``, its ``torch_dtype`` through
+    ``resolve_serving_dtype``: vocab 32000, dim 3200, 26 layers, 32 q /
+    32 KV heads, head_dim 100, ffn 8640, untied, float16) at full width
+    and depth, random float16 weights drawn on the card from seed 0 (no
+    weights are read), served by ``build_server(llama_engine(...))`` on
+    ``serve_config`` (8 slots, max_seq 2048, 64-row pages, 256 of them,
+    buckets 32-1024, prefix cache on; the autoprofiler off), warmed up
+    first: serve's three waves (4 prompts of 21 / 151 / 401 / 901
+    tokens; one of 1801, walked through the chunk kernel; three prefix
+    hits), 32 new tokens each, greedy, on the float16 pool and again on
+    the int8 pool at the same bytes. Checks, each with a planted fault
+    it must reject where one is named:
+
+    (a) every answer 201 with its 32 tokens, the 1801-token prompt served
+        whole, prefix hits, graphs captured in warmup and none while
+        serving, on both pools;
+    (b) the float16 pool's answers are the plain path's greedy answers:
+        each answer's prompt and tokens through ``llama_prefill(...,
+        implementation="plain")`` in one pass, every token the largest
+        logit at its position or within LOGITS_TOL of it (a near tie;
+        the int8 pool's answers are printed, not gated: its rounding
+        moves logits by more than a random model's gaps) (plant: the
+        answers with their tokens rotated one place);
+    (c) one decode step and one chunk call through the kernels within
+        LOGITS_TOL of the plain path (``_llama8b_logits``; plants: the
+        decode kernel's lengths and the chunk kernel's history one
+        short);
+    (d) flash, and in each run's pool form paged decode, paged chunk,
+        ``rope_kv_write`` and the slab write, launched (plant: the
+        float16 run's counters read for the int8 kernels);
+    (e) the int8 pool holds at least 1.8x the pages in no more bytes
+        (plant: the float16 pool against itself);
+    (f) 3,426,473,600 parameters, two bytes each (plant: the count
+        without the LM head).
+
+    Prints TTFT per wave and decode tokens/s per run, pool pages and
+    bytes, ``max_memory_allocated`` and the phase's seconds. Returns the
+    launches over both runs. ``hf`` replaces the config (a CPU
+    rehearsal)."""
+    import torch
+    from gofr_tpu_torch.models.hf_checkpoint import (llama_config_from_hf,
+                                                     resolve_serving_dtype)
+    from gofr_tpu_torch.models.llama import llama_init, param_count
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hf = hf or OPENLLAMA_3B_V2
+    cfg = llama_config_from_hf(hf).scaled(
+        dtype=resolve_serving_dtype(hf["torch_dtype"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama_init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    weight_bytes = quantized_bytes(params)
+    headless = n_params - params["lm_head"].numel()
+    want_params = OPENLLAMA_PARAMS if hf is OPENLLAMA_3B_V2 else n_params
+    init_s = time.perf_counter() - t_phase
+    logit = _llama8b_logits(params, cfg, dev)
+    counters = _llama8b_counters()
+    runs = _serve_pools(params, cfg, dev, smi_line, "serve_openllama",
+                        OPENLLAMA_NEW, counters)
+    plain, int8 = runs["plain_pool"], runs["int8_pool"]
+    greedy = {name: _greedy_faults(run, params, cfg, dev,
+                                   implementation="plain")
+              for name, run in (*runs.items(),
+                                ("rotated", _rotated(plain)))}
+
+    def served(run):
+        faults = _served_faults(run) + _walk_faults(run) \
+            + _capture_faults(run)
+        return faults + ([] if run["prefix_hits"] > 0 else
+                         [f"{run['run']}: no prefix hit"])
+
+    def logit_faults(*errs):
+        return [f"logits diff {e} > {LOGITS_TOL}" for e in errs
+                if not logit["finite"] or e > LOGITS_TOL]
+
+    def count_faults(n, nbytes):
+        return [] if n == want_params and nbytes == 2 * n else \
+            [f"{n} parameters in {nbytes} bytes, not {want_params} in "
+             f"{2 * want_params}"]
+
+    checks = {
+        "a_served": (served(plain) + served(int8), None),
+        "b_greedy_as_plain": (greedy["plain_pool"][0], greedy["rotated"][0]),
+        "c_logits": (logit_faults(logit["decode_logits_diff"],
+                                  logit["chunk_logits_diff"]),
+                     logit_faults(logit["planted_decode_logits_diff"])
+                     and logit_faults(logit["planted_chunk_logits_diff"])),
+        "d_launches": (_shape_launch_faults("plain_pool", plain, False)
+                       + _shape_launch_faults("int8_pool", int8, True),
+                       _shape_launch_faults("plain_pool", plain, True)),
+        "e_int8_pool": (_pool_faults("int8_pool", int8["pool_pages"],
+                                     int8["pool_bytes"], plain),
+                        _pool_faults("plain_pool", plain["pool_pages"],
+                                     plain["pool_bytes"], plain)),
+        "f_parameters": (count_faults(n_params, weight_bytes),
+                         count_faults(headless, 2 * headless)),
+    }
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items() if v[1] is not None}
+    launches = {key: sum(run["launches"][key] for run in runs.values())
+                for key in counters}
+    emit({"phase": "serve_openllama", "card": smi_line,
+          "config": {k: hf[k] for k in (
+              "vocab_size", "hidden_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads",
+              "intermediate_size", "rope_theta", "torch_dtype")},
+          "head_dim": cfg.head_dim, "parameters": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s, **logit,
+          "tolerance": LOGITS_TOL,
+          "greedy": {name: g[1] for name, g in greedy.items()},
+          "pool_pages": {k: r["pool_pages"] for k, r in runs.items()},
+          "pool_bytes": {k: r["pool_bytes"] for k, r in runs.items()},
+          "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+          "wall_s_per_wave": {k: r["wall_s_per_wave"]
+                              for k, r in runs.items()},
+          "decode_tokens_per_s": {k: r["decode_tokens_per_s"]
+                                  for k, r in runs.items()},
+          "prefix_hits": {k: r["prefix_hits"] for k, r in runs.items()},
+          "run_wall_s": {k: r["run_wall_s"] for k, r in runs.items()},
+          "warmup_s": {k: r["warmup_s"] for k, r in runs.items()},
+          "launches": launches,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+          / 2 ** 30,
+          "phase_wall_s": time.perf_counter() - t_phase,
+          "failed_checks": failed, "planted": planted})
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_openllama: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _shape_models() -> dict:
+    """serve_shapes' small models, 2 layers each, at the other kernel
+    rows' head dims and types: 8 q / 2 KV heads of 256 in bf16 (dim
+    2048), and Llama-3.2-1B's heads (32 q / 8 KV of 64, dim 2048) in
+    float16; vocabulary 512 (the byte tokenizer's ids fit)."""
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    return {
+        "serve_shapes_d256": LlamaConfig(
+            vocab_size=512, dim=2048, n_layers=2, n_heads=8, n_kv_heads=2,
+            ffn_dim=4096, max_seq=2048, dtype=torch.bfloat16),
+        "serve_shapes_d64": LlamaConfig.llama3_1b().scaled(
+            vocab_size=512, n_layers=2, dtype=torch.float16)}
+
+
+def _demo_run(engine, name: str, prompts: list, n_new: int) -> dict:
+    """``prompts`` (token ids) submitted to a started ``engine`` at once,
+    greedy, then, once all are done, ``prompts[0]``'s first 64 ids and a
+    new tail (a prefix hit: its suffix walks through the chunk kernel);
+    the run's prompts, tokens and the engine's stats."""
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=n_new)
+    waves = [prompts, [prompts[0][:64] + [7, 11, 13, 17, 19, 23, 29, 31]]]
+    reqs = []
+    for wave in waves:
+        got = [engine.submit(p, greedy) for p in wave]
+        for r in got:
+            if not r.done.wait(600):
+                raise AssertionError(f"{name}: a request did not finish")
+        reqs += got
+    return {"run": name, "prompts": [r.prompt_tokens for r in reqs],
+            "tokens": [list(r.generated) for r in reqs],
+            "errors": [r.error for r in reqs if r.error],
+            "prefix_hits": engine.stats["prefix_hits"],
+            "prefill_calls": engine.stats["prefill_calls"]}
+
+
+def _model_dtype_run(params, cfg, dev) -> dict:
+    """``params`` (float16) written as an HF checkpoint in a temporary
+    directory and served as ``python -m gofr_tpu_torch.serving.app``
+    serves it with ``MODEL_DTYPE=float16`` (``app_engine``: the config
+    read back, its dtype from ``resolve_serving_dtype``), one greedy
+    request of byte-tokenizer ids; and the same ids through an in-memory
+    ``llama_engine`` on ``params`` and the same engine config. Returns
+    both answers and the served engine's weight and pool dtypes."""
+    import tempfile
+
+    from gofr_tpu_torch.models.hf_checkpoint import save_llama_checkpoint
+    from gofr_tpu_torch.serving.app import app_engine, serve_config
+    from gofr_tpu_torch.serving.engine import SamplingParams
+    from gofr_tpu_torch.serving.glue import llama_engine
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=SHAPES_NEW)
+    answers, dtypes = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        save_llama_checkpoint(params, cfg, tmp)
+        served, tokenizer, _ = app_engine(
+            {"MODEL_PATH": tmp, "MODEL_DTYPE": "float16",
+             "MODEL_MAX_SEQ": str(cfg.max_seq)}, device=dev)
+    ids = tokenizer.encode("a float16 checkpoint served as its own dtype")
+    twin = llama_engine(params, cfg, serve_config(cfg, max_seq=cfg.max_seq,
+                                                  eos_id=-1), device=dev)
+    for engine in (served, twin):
+        engine.start()
+        try:
+            req = engine.submit_sync(ids, greedy, 600)
+        finally:
+            engine.stop()
+        answers.append(list(req.generated) if not req.error else req.error)
+        dtypes.append([str(engine.params["layers"]["wq"].dtype),
+                       str(engine.k_cache.dtype)])
+    return {"tokens": answers[0], "in_memory_tokens": answers[1],
+            "dtypes": dtypes[0]}
+
+
+def phase_serve_shapes(dev, smi_line: str, models: dict | None = None
+                       ) -> dict:
+    """The kernels at the other head dims and types, on the main path:
+
+    (a) ``demo_llama_engine()`` on the card serves JAX's demo model
+        itself (``LlamaConfig.tiny()``: float32, head_dim 16; the bf16
+        twin it once served on CUDA is gone), on its default
+        ``EngineConfig(max_batch=4, max_seq=128)`` and again with
+        ``kv_dtype="int8"``: three prompts of 70 / 20 / 100 token ids at
+        once, then a prefix hit on the first one's 64-row page, 16 new
+        tokens each;
+    (b) ``examples_torch/model-serving``'s ``build_app`` at its default
+        preset (``tiny``, vocabulary 260) answers ``/chat`` and
+        ``/v1/chat/completions``, 16 new tokens each;
+    (c) two small models at the kernel rows' other shapes
+        (``_shape_models``: head_dim 256 in bf16, head_dim 64 in
+        float16) served as ``serve_openllama`` serves its model, on both
+        pools, 16 new tokens an answer;
+    (d) the float16 model as an HF checkpoint, served by ``app_engine``
+        with ``MODEL_DTYPE=float16`` (``_model_dtype_run``): float16
+        weights and pool, the in-memory engine's tokens bit for bit.
+
+    Checks, each with a planted fault it must reject where one is named:
+    every answer complete (in (c) also the walk, prefix hits and
+    captures); each plain-pool answer the plain path's greedy answer or
+    parting at a near tie (``_greedy_faults(implementation="plain")``;
+    plant: (a)'s answers rotated one place); flash, paged decode and
+    ``rope_kv_write`` launched in every run (paged chunk and the slab
+    write too in (a) and (c)) in the run's pool form (plant: (a)'s
+    float16 counters read for the int8 kernels); (a)'s model is
+    ``LlamaConfig.tiny()``, float32 at head_dim 16 (plant: the bf16
+    twin's shapes). Returns the launches by source: ``serve_shapes_tiny``
+    ((a) and (b)), ``serve_shapes_d256``, ``serve_shapes_d64``.
+    ``models`` replaces (c)'s models (a CPU rehearsal)."""
+    import torch
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serving.engine import EngineConfig
+    from gofr_tpu_torch.serving.glue import demo_config, demo_llama_engine
+    t_phase = time.perf_counter()
+    counters = _llama8b_counters()
+    checks: dict = {}
+    out: dict = {"phase": "serve_shapes", "card": smi_line}
+    sources: dict = {}
+
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    # (a) the demo engine, both pools
+    tiny = demo_config(dev)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, tiny.vocab_size, (n,), generator=gen)
+               .tolist() for n in (70, 20, 100)]
+    demo: dict = {}
+    for name, kv_dtype in (("demo_plain_pool", "bf16"),
+                           ("demo_int8_pool", "int8")):
+        engine = demo_llama_engine(EngineConfig(max_batch=4, max_seq=128,
+                                                kv_dtype=kv_dtype),
+                                   device=dev)
+        wq = engine.params["layers"]["wq"]
+        zero()
+        engine.start()
+        try:
+            run = _demo_run(engine, name, prompts, SHAPES_NEW)
+        finally:
+            engine.stop()
+        run.update(launches=read(), dtype=str(wq.dtype),
+                   head_dim=wq.shape[-1] // tiny.n_heads,
+                   params=engine.params)
+        demo[name] = run
+        del engine
+    twin = LlamaConfig.tiny().scaled(dim=512, n_heads=8, n_kv_heads=2,
+                                     ffn_dim=1024, dtype=torch.bfloat16)
+
+    def tiny_faults(c):
+        return [] if (c == LlamaConfig.tiny() and all(
+            (r["dtype"], r["head_dim"]) == ("torch.float32", 16)
+            for r in demo.values())) else [f"demo model {c}"]
+
+    def complete(run, n_new):
+        return [f"{run['run']}: {run['errors'] or 'short answers'}"
+                for _ in [0] if run["errors"] or any(
+                    len(t) != n_new for t in run["tokens"])]
+
+    plain_demo = demo["demo_plain_pool"]
+    greedy = {k: _greedy_faults(r, r["params"], tiny, dev,
+                                implementation="plain")
+              for k, r in (*demo.items(),
+                           ("rotated", _rotated(plain_demo)))}
+    checks["a_demo_model"] = (tiny_faults(tiny), tiny_faults(twin))
+    checks["a_demo_served"] = (
+        [f for r in demo.values() for f in complete(r, SHAPES_NEW)]
+        + [f"{r['run']}: no prefix hit" for r in demo.values()
+           if r["prefix_hits"] < 1], None)
+    checks["a_demo_greedy"] = (greedy["demo_plain_pool"][0],
+                               greedy["rotated"][0])
+    checks["a_demo_launches"] = (
+        _shape_launch_faults("demo_plain_pool", plain_demo, False)
+        + _shape_launch_faults("demo_int8_pool", demo["demo_int8_pool"],
+                               True),
+        _shape_launch_faults("demo_plain_pool", plain_demo, True))
+    out["demo"] = {k: {"launches": r["launches"],
+                       "prefix_hits": r["prefix_hits"],
+                       "greedy": greedy[k][1]} for k, r in demo.items()}
+
+    # (b) the model-serving example at its default preset
+    app = _ex_app("model-serving", dev)
+    engine = app.container.get_model("llama")
+    made = _ex_made(engine)
+    ex_cfg = LlamaConfig.tiny().scaled(vocab_size=260)
+    zero()
+    loop, thread = _boot_app(app, "serve_shapes (b)")
+    try:
+        port = app.port
+        chat = _http_json(port, "POST", "/chat", {
+            "prompt": "the demo model answers on the card now",
+            "max_tokens": SHAPES_NEW, "temperature": 0})
+        v1 = _http_json(port, "POST", "/v1/chat/completions", {
+            "model": "tiny", "max_tokens": SHAPES_NEW, "temperature": 0,
+            "messages": [{"role": "user",
+                          "content": "and through the OpenAI route too"}]})
+        ex_launches = read()
+    finally:
+        _stop_app(app, loop, thread)
+    ex_run = {"run": "example_tiny",
+              "prompts": [r.prompt_tokens for r in made],
+              "tokens": [list(r.generated) for r in made]}
+    ex_greedy = _greedy_faults(ex_run, engine.params, ex_cfg, dev,
+                               implementation="plain")
+    statuses = [chat[0], v1[0]]
+    checks["b_example"] = (
+        ([] if all(c in (200, 201) for c in statuses) else
+         [f"example answers {statuses}"])
+        + ([] if len(made) == 2 and all(len(t) == SHAPES_NEW
+                                        for t in ex_run["tokens"])
+           else [f"example tokens {[len(t) for t in ex_run['tokens']]}"])
+        + ex_greedy[0]
+        + [f"example: {k} never launched" for k in (
+            "flash_attention", "paged_decode_attention", "rope_kv_write")
+           if ex_launches[k] < 1], None)
+    out["example"] = {"statuses": statuses, "launches": ex_launches,
+                      "greedy": ex_greedy[1],
+                      "chat_text": chat[2].get("data", {}).get("text")}
+    sources["serve_shapes_tiny"] = {
+        k: plain_demo["launches"][k] + demo["demo_int8_pool"]["launches"][k]
+        + ex_launches[k] for k in counters}
+    for run in demo.values():
+        run.pop("params")
+    del app, engine, made
+    gc.collect()
+
+    # (c) the small models at head_dim 256 (bf16) and 64 (float16)
+    for source, cfg in (models or _shape_models()).items():
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = llama_init(cfg, g, dev)
+        runs = _serve_pools(params, cfg, dev, smi_line, "serve_shapes",
+                            SHAPES_NEW, counters)
+        plain, int8 = runs["plain_pool"], runs["int8_pool"]
+        greedy = _greedy_faults(plain, params, cfg, dev,
+                                implementation="plain")
+        tag = source[len("serve_shapes_"):]
+
+        def served(run):
+            return _served_faults(run) + _walk_faults(run) \
+                + _capture_faults(run) \
+                + ([] if run["prefix_hits"] > 0 else
+                   [f"{run['run']}: no prefix hit"])
+
+        checks[f"c_{tag}_served"] = (served(plain) + served(int8), None)
+        checks[f"c_{tag}_greedy"] = (greedy[0], None)
+        checks[f"c_{tag}_launches"] = (
+            _shape_launch_faults(f"{tag} plain_pool", plain, False)
+            + _shape_launch_faults(f"{tag} int8_pool", int8, True), None)
+        sources[source] = {k: plain["launches"][k] + int8["launches"][k]
+                           for k in counters}
+        if cfg.dtype == torch.float16:
+            ckpt = _model_dtype_run(params, cfg, dev)
+            checks["d_model_dtype"] = (
+                [] if ckpt["tokens"] == ckpt["in_memory_tokens"]
+                and ckpt["dtypes"] == ["torch.float16"] * 2
+                else [f"MODEL_DTYPE=float16: {ckpt}"], None)
+            out["model_dtype"] = ckpt
+        out[tag] = {"head_dim": cfg.head_dim, "dtype": str(cfg.dtype),
+                    "greedy": greedy[1],
+                    "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+                    "decode_tokens_per_s": {
+                        k: r["decode_tokens_per_s"] for k, r in runs.items()},
+                    "pool_pages": {k: r["pool_pages"]
+                                   for k, r in runs.items()},
+                    "launches": sources[source]}
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    failed = {k: v[0] for k, v in checks.items()}
+    planted = {k: v[1] for k, v in checks.items() if v[1] is not None}
+    out.update(phase_wall_s=time.perf_counter() - t_phase,
+               failed_checks=failed, planted=planted)
+    emit(out)
+    if any(failed.values()) or not all(planted.values()):
+        raise AssertionError(f"serve_shapes: failed checks {failed}, "
+                             f"planted faults that passed: "
+                             f"{[k for k, v in planted.items() if not v]}")
+    return sources
 
 
 # ---------------------------------------------------------------- encoders
@@ -15217,6 +16103,10 @@ def main() -> int:
     # the weight-dequantizing GEMM at llama3_1b's products, both forms
     rows += kernel_wq_gemm(dev, torch.Generator(device=dev).manual_seed(11),
                            smi_line)
+    # the head dims and types beside bf16 at 64 / 128, whose launches
+    # come from serve_openllama and serve_shapes
+    for case in SHAPE_CASES:
+        rows += kernel_shapes(dev, *case)
     phase_moe_tie(dev)
     phase_model(dev)
     phase_model_chunk(dev)
@@ -15246,6 +16136,8 @@ def main() -> int:
                "serve_llama8b": phase_serve_llama8b(
                    dev, smi_line,
                    cfg=LlamaConfig.llama3_8b().scaled(n_layers=8))}
+    sources["serve_openllama"] = phase_serve_openllama(dev, smi_line)
+    sources.update(phase_serve_shapes(dev, smi_line))
     phase_serve_embed(dev, smi_line)
     phase_serve_asr(dev, smi_line)
     phase_serve_warm(dev, smi_line)

@@ -1,4 +1,6 @@
-// Causal flash prefill attention for Hopper (sm_90a), bf16 in and out.
+// Causal flash prefill attention for Hopper (sm_90a): the bf16 wgmma
+// kernel at head dims 64 and 128 below, and attn_simt.cuh's float32
+// kernel for every other head dim and for float16 and float32.
 //
 // Replaces the Pallas TPU kernel gofr_tpu/ops/flash_attention.py
 // `_flash_kernel` (wrapper `flash_attention`). It computes the same
@@ -51,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_simt.cuh"
 #include "paged_common.cuh"
 #include "wgmma_attn.cuh"
 
@@ -212,21 +215,39 @@ int launch(const void* q, const void* k, const void* v, const int* kv_lengths,
 
 }  // namespace
 
-// C interface (bound with ctypes). All tensors contiguous, bf16 except
-// kv_lengths (int32 [B]); `stream` is a cudaStream_t. Returns the
-// launch's cudaError_t (0 = launched), or cudaErrorInvalidValue for a
-// shape the kernel does not take.
+// C interface (bound with ctypes). All tensors contiguous, of the
+// activation type `dtype` (0 bf16, 1 float16, 2 float32) except
+// kv_lengths (int32 [B]); `stream` is a cudaStream_t. bf16 at D = 64 or
+// 128 runs the wgmma kernel above; every other type and head dim (a
+// multiple of 4 from 16 to 256) the float32 kernel of attn_simt.cuh.
+// Returns the launch's cudaError_t (0 = launched), or
+// cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
                                     const int* kv_lengths, void* out,
                                     int B, int Sq, int Skv, int Hq, int Hkv,
-                                    int D, float scale, void* stream) {
+                                    int D, int dtype, float scale,
+                                    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       B > 65535 || (Sq + ROWS - 1) / ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
+  if (dtype == simt::BF16 && D == 64)
     return launch<64>(q, k, v, kv_lengths, out, B, Sq, Skv, Hq, Hkv, scale, s);
-  if (D == 128)
+  if (dtype == simt::BF16 && D == 128)
     return launch<128>(q, k, v, kv_lengths, out, B, Sq, Skv, Hq, Hkv, scale, s);
-  return (int)cudaErrorInvalidValue;
+  simt::Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.len_a = kv_lengths;
+  a.out = out;
+  a.B = B;
+  a.Sq = Sq;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.Skv = Skv;
+  a.mode = simt::FLASH;
+  a.scale = scale;
+  return simt::run<false>(a, dtype, s);
 }

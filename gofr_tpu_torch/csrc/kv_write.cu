@@ -1,5 +1,6 @@
-// KV row writes for Hopper (sm_90a) into the head-major page pool, bf16
-// or int8 codes with a float32 scale per row. Three entries:
+// KV row writes for Hopper (sm_90a) into the head-major page pool, in
+// the activation type (bf16, float16 or float32, the `dtype` argument of
+// each entry) or int8 codes with a float32 scale per row. Three entries:
 //
 // - gofr_kv_write / _i8: one layer's new K and V rows as they are
 //   (`pool_write` and the K-only `scatter_chunk` write through it);
@@ -15,7 +16,7 @@
 // gofr_tpu/ops/paged_kv.py `pool_write`, `pool.at[li, :, pids,
 // offs].set(rows, mode="drop")`, and `scatter_chunk` for the prefill,
 // with `quantize_rows` in front for the int8 pool. Row n (K and V, each
-// [Hkv, hd] bf16) lands at page pids[n], offset offs[n] of every KV head
+// [Hkv, hd] in the activation type) lands at page pids[n], offset offs[n] of every KV head
 // of the layer [Hkv, Np, pg, hd]; a row whose page id is outside [0, Np)
 // (or whose offset is outside [0, pg)) is dropped, here on the card, so
 // the caller needs no host sync to select the rows in range (what the
@@ -52,12 +53,38 @@
 // dropped row costs a warp two index loads and no block exists only to
 // exit; a unit's K and V head rows move as 16-byte vectors (8 lanes a
 // head row at hd 64), int8 rows reducing their amax over those lanes.
+//
+// Other head dims and types. The kernels above hold bf16 at their
+// widths (the fused write at hd 64 and 128, the slab at powers of two);
+// every other case -- float16 and float32 at any head dim, bf16 at a
+// head dim such as 100 (OpenLLaMA-3B) -- runs a kernel of the same
+// arithmetic written for any D (a multiple of 4 up to 256): the fused
+// write with a lane looping over its pairs (rounding the rotated K row
+// to the activation type before the int8 amax), the slab write one head
+// row at a time with 4-element vectors, the per-layer write templated on
+// the type. A float32 row is written as it is: nothing rounds.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_types.cuh"
+
 namespace {
+
+using act::BF16;
+using act::F16;
+using act::F32;
+using act::from_f;
+using act::to_f;
+
+// x rounded to T (round to nearest even) and back: the value a tensor of
+// type T holds
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
 
 // --------------------------------------------------- quantize, shared
 
@@ -74,9 +101,9 @@ __device__ __forceinline__ int8_t code_of(float x, float scale) {
 
 // ------------------------------------------------------ per-layer write
 
-template <bool QUANT>
-__global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ k_rows,
-                                const __nv_bfloat16* __restrict__ v_rows,
+template <typename T, bool QUANT>
+__global__ void kv_write_kernel(const T* __restrict__ k_rows,
+                                const T* __restrict__ v_rows,
                                 const int* __restrict__ pids,
                                 const int* __restrict__ offs, void* k_dst,
                                 void* v_dst, float* k_scales,
@@ -86,44 +113,66 @@ __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ k_rows,
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* src = warp == 0 ? k_rows : v_rows;
+  const T* src = warp == 0 ? k_rows : v_rows;
   if (src == nullptr) return;  // a K-only write
   const int pid = pids[n];
   const int off = offs[n];
   if (pid < 0 || pid >= n_pages || off < 0 || off >= page) return;
-  const __nv_bfloat16* row = src + ((size_t)n * Hkv + h) * D;
+  const T* row = src + ((size_t)n * Hkv + h) * D;
   const size_t dst_row = ((size_t)h * n_pages + pid) * page + off;
   void* dst = warp == 0 ? k_dst : v_dst;
   if constexpr (!QUANT) {
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dst) + dst_row * D;
+    T* out = static_cast<T*>(dst) + dst_row * D;
     for (int i = lane; i < D; i += 32) out[i] = row[i];
   } else {
     float amax = 0.0f;
     for (int i = lane; i < D; i += 32)
-      amax = fmaxf(amax, fabsf(__bfloat162float(row[i])));
+      amax = fmaxf(amax, fabsf(to_f(row[i])));
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     const float scale = row_scale(amax);
     int8_t* out = static_cast<int8_t*>(dst) + dst_row * D;
     for (int i = lane; i < D; i += 32)
-      out[i] = code_of(__bfloat162float(row[i]), scale);
+      out[i] = code_of(to_f(row[i]), scale);
     if (lane == 0) (warp == 0 ? k_scales : v_scales)[dst_row] = scale;
   }
+}
+
+template <typename T, bool QUANT>
+int launch_t(const void* k_rows, const void* v_rows, const int* pids,
+             const int* offs, void* k_dst, void* v_dst, float* k_scales,
+             float* v_scales, int N, int Hkv, int n_pages, int page, int D,
+             void* stream) {
+  kv_write_kernel<T, QUANT><<<dim3(N, Hkv), 64, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(k_rows), static_cast<const T*>(v_rows), pids,
+      offs, k_dst, v_dst, k_scales, v_scales, Hkv, n_pages, page, D);
+  return (int)cudaGetLastError();
 }
 
 template <bool QUANT>
 int launch(const void* k_rows, const void* v_rows, const int* pids,
            const int* offs, void* k_dst, void* v_dst, float* k_scales,
            float* v_scales, int N, int Hkv, int n_pages, int page, int D,
-           void* stream) {
+           int dtype, void* stream) {
   if (N <= 0) return 0;
-  kv_write_kernel<QUANT><<<dim3(N, Hkv), 64, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(k_rows),
-      static_cast<const __nv_bfloat16*>(v_rows), pids, offs, k_dst, v_dst,
-      k_scales, v_scales, Hkv, n_pages, page, D);
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case BF16:
+      return launch_t<__nv_bfloat16, QUANT>(k_rows, v_rows, pids, offs, k_dst,
+                                            v_dst, k_scales, v_scales, N, Hkv,
+                                            n_pages, page, D, stream);
+    case F16:
+      return launch_t<__half, QUANT>(k_rows, v_rows, pids, offs, k_dst, v_dst,
+                                     k_scales, v_scales, N, Hkv, n_pages, page,
+                                     D, stream);
+    case F32:
+      return launch_t<float, QUANT>(k_rows, v_rows, pids, offs, k_dst, v_dst,
+                                    k_scales, v_scales, N, Hkv, n_pages, page,
+                                    D, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // --------------------------------------------------- fused RoPE + write
@@ -234,31 +283,158 @@ __global__ void __launch_bounds__(kRopeWarps * 32)
   }
 }
 
+// The same function at any even head dim D up to 256 (the wrappers take
+// multiples of 4 from 16) and any activation type T: lane l holds the
+// pairs (i, i + D/2) for i = l + 32 p, i < D/2, and the rotated K row is
+// rounded to T before its amax is taken. The arithmetic is the bf16
+// kernel's, operation for operation, so it matches the plain version
+// bit for bit in every type (float32 rounds nothing).
+constexpr int kRopeMaxPairs = 4;   // (D/2) / 32 at D = 256
+
+template <typename T, bool QUANT>
+__global__ void __launch_bounds__(kRopeWarps * 32)
+    rope_kv_write_any(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ positions,
+                      const float* __restrict__ inv_freq,
+                      const int* __restrict__ pids,
+                      const int* __restrict__ offs, T* __restrict__ q_out,
+                      void* k_dst, void* v_dst, float* k_scales,
+                      float* v_scales, int Hq, int Hkv, int n_pages, int page,
+                      int D) {
+  __shared__ float s_cos[kRopeMaxPairs * 32], s_sin[kRopeMaxPairs * 32];
+  const int half = D / 2;
+  const int n = blockIdx.x;
+  const int first = blockIdx.y * kRopeWarps;
+  const int pid = pids[n];
+  const int off = offs[n];
+  const bool keep = pid >= 0 && pid < n_pages && off >= 0 && off < page;
+  if (!keep && first >= Hq) return;  // only K/V heads of a dropped row
+  for (int i = threadIdx.x; i < half; i += blockDim.x) {
+    const float angle = __fmul_rn(static_cast<float>(positions[n]), inv_freq[i]);
+    s_cos[i] = cosf(angle);
+    s_sin[i] = sinf(angle);
+  }
+  __syncthreads();
+  const int j = first + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (j >= Hq + 2 * Hkv) return;
+  if (j < Hq) {  // q: rotated, out in T
+    const size_t base = ((size_t)n * Hq + j) * D;
+    for (int i = lane; i < half; i += 32) {
+      float o1, o2;
+      rotate(to_f(q[base + i]), to_f(q[base + i + half]), s_cos[i], s_sin[i],
+             o1, o2);
+      q_out[base + i] = from_f<T>(o1);
+      q_out[base + i + half] = from_f<T>(o2);
+    }
+    return;
+  }
+  if (!keep) return;
+  const bool is_k = j < Hq + Hkv;
+  const int h = j - Hq - (is_k ? 0 : Hkv);
+  const T* row = (is_k ? k : v) + ((size_t)n * Hkv + h) * D;
+  float x[2 * kRopeMaxPairs];  // the row's values as the pool gets them
+#pragma unroll
+  for (int p = 0; p < kRopeMaxPairs; ++p) {
+    const int i = 32 * p + lane;
+    x[2 * p] = x[2 * p + 1] = 0.0f;
+    if (i < half) {
+      x[2 * p] = to_f(row[i]);
+      x[2 * p + 1] = to_f(row[i + half]);
+      if (is_k) {
+        float o1, o2;
+        rotate(x[2 * p], x[2 * p + 1], s_cos[i], s_sin[i], o1, o2);
+        x[2 * p] = round_to<T>(o1);
+        x[2 * p + 1] = round_to<T>(o2);
+      }
+    }
+  }
+  const size_t dst_row = ((size_t)h * n_pages + pid) * page + off;
+  if constexpr (!QUANT) {
+    T* out = static_cast<T*>(is_k ? k_dst : v_dst) + dst_row * D;
+#pragma unroll
+    for (int p = 0; p < kRopeMaxPairs; ++p) {
+      const int i = 32 * p + lane;
+      if (i < half) {
+        out[i] = from_f<T>(x[2 * p]);
+        out[i + half] = from_f<T>(x[2 * p + 1]);
+      }
+    }
+  } else {
+    float amax = 0.0f;   // lanes past the row hold zeros
+#pragma unroll
+    for (int e = 0; e < 2 * kRopeMaxPairs; ++e) amax = fmaxf(amax, fabsf(x[e]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = row_scale(amax);
+    int8_t* out = static_cast<int8_t*>(is_k ? k_dst : v_dst) + dst_row * D;
+#pragma unroll
+    for (int p = 0; p < kRopeMaxPairs; ++p) {
+      const int i = 32 * p + lane;
+      if (i < half) {
+        out[i] = code_of(x[2 * p], scale);
+        out[i + half] = code_of(x[2 * p + 1], scale);
+      }
+    }
+    if (lane == 0) (is_k ? k_scales : v_scales)[dst_row] = scale;
+  }
+}
+
+template <typename T, bool QUANT>
+int launch_rope_any(const void* q, const void* k, const void* v,
+                    const int* positions, const float* inv_freq,
+                    const int* pids, const int* offs, void* q_out, void* k_dst,
+                    void* v_dst, float* k_scales, float* v_scales, dim3 grid,
+                    int Hq, int Hkv, int n_pages, int page, int D,
+                    cudaStream_t s) {
+  rope_kv_write_any<T, QUANT><<<grid, kRopeWarps * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), positions, inv_freq, pids, offs,
+      static_cast<T*>(q_out), k_dst, v_dst, k_scales, v_scales, Hq, Hkv,
+      n_pages, page, D);
+  return (int)cudaGetLastError();
+}
+
 template <bool QUANT>
 int launch_rope(const void* q, const void* k, const void* v,
                 const int* positions, const float* inv_freq, const int* pids,
                 const int* offs, void* q_out, void* k_dst, void* v_dst,
                 float* k_scales, float* v_scales, int N, int Hq, int Hkv,
-                int n_pages, int page, int D, void* stream) {
+                int n_pages, int page, int D, int dtype, void* stream) {
   if (N <= 0) return 0;
-  const dim3 grid(N, (Hq + 2 * Hkv + kRopeWarps - 1) / kRopeWarps);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(q_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    rope_kv_write_kernel<QUANT, 64><<<grid, kRopeWarps * 32, 0, s>>>(
-        qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
-        k_scales, v_scales, Hq, Hkv, n_pages, page);
-  } else if (D == 128) {
-    rope_kv_write_kernel<QUANT, 128><<<grid, kRopeWarps * 32, 0, s>>>(
-        qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
-        k_scales, v_scales, Hq, Hkv, n_pages, page);
-  } else {
+  if (D < 2 || D % 2 || D / 2 > kRopeMaxPairs * 32)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(N, (Hq + 2 * Hkv + kRopeWarps - 1) / kRopeWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == BF16 && (D == 64 || D == 128)) {
+    const auto* qb = static_cast<const __nv_bfloat16*>(q);
+    const auto* kb = static_cast<const __nv_bfloat16*>(k);
+    const auto* vb = static_cast<const __nv_bfloat16*>(v);
+    auto* ob = static_cast<__nv_bfloat16*>(q_out);
+    if (D == 64) {
+      rope_kv_write_kernel<QUANT, 64><<<grid, kRopeWarps * 32, 0, s>>>(
+          qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
+          k_scales, v_scales, Hq, Hkv, n_pages, page);
+    } else {
+      rope_kv_write_kernel<QUANT, 128><<<grid, kRopeWarps * 32, 0, s>>>(
+          qb, kb, vb, positions, inv_freq, pids, offs, ob, k_dst, v_dst,
+          k_scales, v_scales, Hq, Hkv, n_pages, page);
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+#define GOFR_ROPE_ANY(T)                                                    \
+  launch_rope_any<T, QUANT>(q, k, v, positions, inv_freq, pids, offs, q_out, \
+                            k_dst, v_dst, k_scales, v_scales, grid, Hq, Hkv, \
+                            n_pages, page, D, s)
+  switch (dtype) {
+    case BF16: return GOFR_ROPE_ANY(__nv_bfloat16);
+    case F16: return GOFR_ROPE_ANY(__half);
+    case F32: return GOFR_ROPE_ANY(float);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GOFR_ROPE_ANY
 }
 
 // ------------------------------------------------- prefill slab, all layers
@@ -346,11 +522,88 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
   }
 }
 
+// The same write at any head dim D that is a multiple of 4 (up to 256)
+// and any activation type T: a warp takes one head row of its unit at a
+// time, each lane moving whole 4-element vectors (8 bytes of a 16-bit
+// type, 16 of float32; int8 codes 4 bytes), an int8 row reducing its
+// amax over the whole warp.
+constexpr int kSlabMaxVecs = 2;   // 4-element vectors a lane holds: D <= 256
+
+template <typename T>
+struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<__half> { using type = uint2; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+
+template <typename T, bool QUANT>
+__global__ void __launch_bounds__(kSlabWarps * 32)
+    kv_write_slab_any(const T* __restrict__ k_slab,
+                      const T* __restrict__ v_slab,
+                      const int* __restrict__ pids,
+                      const int* __restrict__ offs, void* k_dst, void* v_dst,
+                      float* k_scales, float* v_scales, int L, int R, int Hkv,
+                      int n_pages, int page, int D) {
+  using V = typename Vec4<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int nv = D / 4;                // vectors of a head row
+  const long long units = (long long)R * L;
+  const long long stride = (long long)gridDim.x * kSlabWarps;
+  for (long long u = (long long)blockIdx.x * kSlabWarps + (threadIdx.x >> 5);
+       u < units; u += stride) {
+    const int r = (int)(u / L);
+    const int l = (int)(u - (long long)r * L);
+    const int pid = __ldg(pids + r);
+    const int off = __ldg(offs + r);
+    if (pid < 0 || pid >= n_pages || off < 0 || off >= page) continue;
+    for (int hr = 0; hr < 2 * Hkv; ++hr) {
+      const bool is_k = hr < Hkv;
+      const int h = is_k ? hr : hr - Hkv;
+      const T* src = (is_k ? k_slab : v_slab) + (((size_t)l * R + r) * Hkv + h) * D;
+      const size_t dst_row = (((size_t)l * Hkv + h) * n_pages + pid) * page + off;
+      if constexpr (!QUANT) {
+        V* dst = reinterpret_cast<V*>(static_cast<T*>(is_k ? k_dst : v_dst) +
+                                      dst_row * D);
+        for (int c = lane; c < nv; c += 32)
+          dst[c] = reinterpret_cast<const V*>(src)[c];
+      } else {
+        float x[kSlabMaxVecs][4];
+        float amax = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kSlabMaxVecs; ++t) {
+          const int c = lane + 32 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[t][e] = c < nv ? to_f(src[4 * c + e]) : 0.0f;
+            amax = fmaxf(amax, fabsf(x[t][e]));
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+        const float scale = row_scale(amax);
+        int8_t* dst = static_cast<int8_t*>(is_k ? k_dst : v_dst) + dst_row * D;
+#pragma unroll
+        for (int t = 0; t < kSlabMaxVecs; ++t) {
+          const int c = lane + 32 * t;
+          if (c < nv) {
+            uint32_t packed = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              packed |= (uint32_t)(uint8_t)code_of(x[t][e], scale) << (8 * e);
+            reinterpret_cast<uint32_t*>(dst)[c] = packed;
+          }
+        }
+        if (lane == 0) (is_k ? k_scales : v_scales)[dst_row] = scale;
+      }
+    }
+  }
+}
+
 template <bool QUANT>
 int launch_slab(const void* k_slab, const void* v_slab, const int* pids,
                 const int* offs, void* k_dst, void* v_dst, float* k_scales,
                 float* v_scales, int L, int R, int Hkv, int n_pages,
-                int page, int D, void* stream) {
+                int page, int D, int dtype, void* stream) {
   if (L <= 0 || R <= 0) return 0;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -364,9 +617,27 @@ int launch_slab(const void* k_slab, const void* v_slab, const int* pids,
       (int)(want < (long long)sms * kSlabBlocksPerSM
                 ? want
                 : (long long)sms * kSlabBlocksPerSM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pow2 = D >= 8 && D <= 256 && (D & (D - 1)) == 0;
+  if (dtype != BF16 || !pow2) {
+    // every other type and head dim: a multiple of 4 up to 256
+    if (D < 4 || D % 4 || D > 4 * 32 * kSlabMaxVecs)
+      return (int)cudaErrorInvalidValue;
+#define GOFR_SLAB_ANY(T)                                                   \
+  kv_write_slab_any<T, QUANT><<<blocks, kSlabWarps * 32, 0, s>>>(          \
+      static_cast<const T*>(k_slab), static_cast<const T*>(v_slab), pids,  \
+      offs, k_dst, v_dst, k_scales, v_scales, L, R, Hkv, n_pages, page, D)
+    switch (dtype) {
+      case BF16: GOFR_SLAB_ANY(__nv_bfloat16); break;
+      case F16: GOFR_SLAB_ANY(__half); break;
+      case F32: GOFR_SLAB_ANY(float); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef GOFR_SLAB_ANY
+    return (int)cudaGetLastError();
+  }
   const auto* kb = static_cast<const __nv_bfloat16*>(k_slab);
   const auto* vb = static_cast<const __nv_bfloat16*>(v_slab);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GOFR_SLAB(LPR)                                                   \
   kv_write_slab_kernel<QUANT, LPR><<<blocks, kSlabWarps * 32, 0, s>>>(   \
       kb, vb, pids, offs, k_dst, v_dst, k_scales, v_scales, L, R, Hkv,   \
@@ -386,15 +657,16 @@ int launch_slab(const void* k_slab, const void* v_slab, const int* pids,
 
 }  // namespace
 
-// One layer's K and V rows, each bf16 [N, Hkv, D] (v_rows may be null:
-// K only), into bf16 pools [Hkv, n_pages, page, D] at (pids[n],
+// One layer's K and V rows, each [N, Hkv, D] of the activation type
+// `dtype` (0 bf16, 1 float16, 2 float32; v_rows may be null: K only),
+// into pools [Hkv, n_pages, page, D] of the same type at (pids[n],
 // offs[n]), int32 [N]. Returns the launch's cudaError_t (0 = launched).
 extern "C" int gofr_kv_write(const void* k_rows, const void* v_rows,
                              const int* pids, const int* offs, void* k_pool,
                              void* v_pool, int N, int Hkv, int n_pages,
-                             int page, int D, void* stream) {
+                             int page, int D, int dtype, void* stream) {
   return launch<false>(k_rows, v_rows, pids, offs, k_pool, v_pool, nullptr,
-                       nullptr, N, Hkv, n_pages, page, D, stream);
+                       nullptr, N, Hkv, n_pages, page, D, dtype, stream);
 }
 
 // The same into an int8 pool: codes int8 [Hkv, n_pages, page, D], scales
@@ -403,52 +675,56 @@ extern "C" int gofr_kv_write_i8(const void* k_rows, const void* v_rows,
                                 const int* pids, const int* offs,
                                 void* k_codes, void* v_codes, float* k_scales,
                                 float* v_scales, int N, int Hkv, int n_pages,
-                                int page, int D, void* stream) {
+                                int page, int D, int dtype, void* stream) {
   return launch<true>(k_rows, v_rows, pids, offs, k_codes, v_codes, k_scales,
-                      v_scales, N, Hkv, n_pages, page, D, stream);
+                      v_scales, N, Hkv, n_pages, page, D, dtype, stream);
 }
 
 // RoPE at positions[n] (int32 [N]) with inv_freq (float32 [D/2]) on q
-// (bf16 [N, Hq, D]) into q_out (bf16 [N, Hq, D]) and on k (bf16 [N, Hkv,
-// D]), then the rotated k and v (bf16 [N, Hkv, D]) into one layer's bf16
-// pools [Hkv, n_pages, page, D] at (pids[n], offs[n]), int32 [N]; D is 64
-// or 128. Returns the launch's cudaError_t (0 = launched).
+// ([N, Hq, D]) into q_out ([N, Hq, D]) and on k ([N, Hkv, D]), then the
+// rotated k and v ([N, Hkv, D]) into one layer's pools [Hkv, n_pages,
+// page, D] at (pids[n], offs[n]), int32 [N]; q, k, v, q_out and the
+// pools of the activation type `dtype` (0 bf16, 1 float16, 2 float32), D
+// even and at most 256 (bf16 at 64 or 128: the kernel above it).
+// Returns the launch's cudaError_t (0 = launched).
 extern "C" int gofr_rope_kv_write(const void* q, const void* k, const void* v,
                                   const int* positions, const float* inv_freq,
                                   const int* pids, const int* offs,
                                   void* q_out, void* k_pool, void* v_pool,
                                   int N, int Hq, int Hkv, int n_pages,
-                                  int page, int D, void* stream) {
+                                  int page, int D, int dtype, void* stream) {
   return launch_rope<false>(q, k, v, positions, inv_freq, pids, offs, q_out,
                             k_pool, v_pool, nullptr, nullptr, N, Hq, Hkv,
-                            n_pages, page, D, stream);
+                            n_pages, page, D, dtype, stream);
 }
 
 // The same into an int8 layer: codes int8 [Hkv, n_pages, page, D], scales
-// float32 [Hkv, n_pages, page, 1]; the rotated K row is rounded to bf16
-// before its amax is taken, as the plain version quantizes it.
+// float32 [Hkv, n_pages, page, 1]; the rotated K row is rounded to the
+// activation type before its amax is taken, as the plain version
+// quantizes it.
 extern "C" int gofr_rope_kv_write_i8(
     const void* q, const void* k, const void* v, const int* positions,
     const float* inv_freq, const int* pids, const int* offs, void* q_out,
     void* k_codes, void* v_codes, float* k_scales, float* v_scales, int N,
-    int Hq, int Hkv, int n_pages, int page, int D, void* stream) {
+    int Hq, int Hkv, int n_pages, int page, int D, int dtype, void* stream) {
   return launch_rope<true>(q, k, v, positions, inv_freq, pids, offs, q_out,
                            k_codes, v_codes, k_scales, v_scales, N, Hq, Hkv,
-                           n_pages, page, D, stream);
+                           n_pages, page, D, dtype, stream);
 }
 
-// A prefill's K and V slabs, bf16 [L, R, Hkv, D] (R = P x S rows, row r
-// at (pids[r], offs[r]), int32 [R]), into the whole bf16 pools [L, Hkv,
-// n_pages, page, D], every layer in one launch; D is 8 to 256, a power of
-// two, and every pointer 16-byte aligned.
+// A prefill's K and V slabs, [L, R, Hkv, D] of the activation type
+// `dtype` (R = P x S rows, row r at (pids[r], offs[r]), int32 [R]), into
+// the whole pools [L, Hkv, n_pages, page, D] of that type, every layer
+// in one launch; D a multiple of 4 up to 256 (bf16 also 8), and every
+// pointer 16-byte aligned.
 extern "C" int gofr_kv_write_slab(const void* k_slab, const void* v_slab,
                                   const int* pids, const int* offs,
                                   void* k_pool, void* v_pool, int L, int R,
                                   int Hkv, int n_pages, int page, int D,
-                                  void* stream) {
+                                  int dtype, void* stream) {
   return launch_slab<false>(k_slab, v_slab, pids, offs, k_pool, v_pool,
                             nullptr, nullptr, L, R, Hkv, n_pages, page, D,
-                            stream);
+                            dtype, stream);
 }
 
 // The same into int8 pools: codes [L, Hkv, n_pages, page, D], scales
@@ -458,8 +734,8 @@ extern "C" int gofr_kv_write_slab_i8(const void* k_slab, const void* v_slab,
                                      void* k_codes, void* v_codes,
                                      float* k_scales, float* v_scales, int L,
                                      int R, int Hkv, int n_pages, int page,
-                                     int D, void* stream) {
+                                     int D, int dtype, void* stream) {
   return launch_slab<true>(k_slab, v_slab, pids, offs, k_codes, v_codes,
                            k_scales, v_scales, L, R, Hkv, n_pages, page, D,
-                           stream);
+                           dtype, stream);
 }

@@ -1,5 +1,7 @@
-// Paged chunk and draft-tree verify attention for Hopper (sm_90a), bf16
-// and int8 pools.
+// Paged chunk and draft-tree verify attention for Hopper (sm_90a), plain
+// and int8 pools: the bf16 wgmma kernel at head dims 64 and 128 below,
+// and attn_simt.cuh's float32 kernel for every other head dim and for
+// float16 and float32.
 //
 // Replaces the Pallas TPU kernels gofr_tpu/ops/paged_attention.py
 // `_paged_chunk_kernel` (wrapper `paged_chunk_attention_pallas`) and
@@ -134,6 +136,7 @@
 
 #include <type_traits>
 
+#include "attn_simt.cuh"
 #include "paged_common.cuh"
 #include "wgmma_attn.cuh"
 
@@ -565,7 +568,8 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const float* k_scales, const float* v_scales, const int* tables,
              const int* history, const int* chunk, const int* tree_masks,
              void* out, int B, int Sq, int Hq, int Hkv, int n_pages, int page,
-             int max_pages, int D, int n_splits, float scale, void* stream) {
+             int max_pages, int D, int dtype, int n_splits, float scale,
+             void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 ||
       Hq / Hkv > MAX_GROUP || n_pages <= 0 || page <= 0 ||
       (page & (page - 1)) != 0 || max_pages <= 0 ||
@@ -573,38 +577,67 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
       (TREE && Sq > 32) || n_splits < 1 || n_splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype != simt::BF16 || (D != 64 && D != 128)) {
+    // every other type and head dim: one block walks a q tile's
+    // positions alone (n_splits is not read)
+    simt::Args a = {};
+    a.q = q;
+    a.k = k_pool;
+    a.v = v_pool;
+    a.k_scales = Q8 ? k_scales : nullptr;
+    a.v_scales = Q8 ? v_scales : nullptr;
+    a.tables = tables;
+    a.len_a = history;
+    a.len_b = chunk;
+    a.tree_masks = tree_masks;
+    a.out = out;
+    a.B = B;
+    a.Sq = Sq;
+    a.Hq = Hq;
+    a.Hkv = Hkv;
+    a.D = D;
+    a.n_pages = n_pages;
+    a.page = page;
+    a.max_pages = max_pages;
+    a.mode = TREE ? simt::TREE : simt::CHUNK;
+    a.scale = scale;
+    return simt::run<true>(a, dtype, s);
+  }
   const int page_shift = __builtin_ctz((unsigned)page);   // page = 2^shift
   if (D == 64)
     return launch<64, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
                                 history, chunk, tree_masks, out, B, Sq, Hq,
                                 Hkv, n_pages, page_shift, max_pages, n_splits,
                                 scale, s);
-  if (D == 128)
-    return launch<128, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
-                                 history, chunk, tree_masks, out, B, Sq, Hq,
-                                 Hkv, n_pages, page_shift, max_pages, n_splits,
-                                 scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<128, TREE, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
+                               history, chunk, tree_masks, out, B, Sq, Hq,
+                               Hkv, n_pages, page_shift, max_pages, n_splits,
+                               scale, s);
 }
 
 }  // namespace
 
-// C interface (bound with ctypes). q [B, Sq, Hq, D], pools [Hkv, Np, page,
-// D] (one layer, contiguous), tables int32 [B, max_pages], history and
-// chunk int32 [B], out [B, Sq, Hq, D]; all 16-byte aligned; n_splits
-// (1-8) blocks share each q tile's walk. Returns the launch's
-// cudaError_t (0 = launched), or cudaErrorInvalidValue for a shape the
-// kernel does not take.
+// C interface (bound with ctypes). q [B, Sq, Hq, D] and out [B, Sq, Hq, D]
+// of the activation type `dtype` (0 bf16, 1 float16, 2 float32), pools
+// [Hkv, Np, page, D] of the same type (one layer, contiguous), tables
+// int32 [B, max_pages], history and chunk int32 [B]; all aligned as the
+// kernels read them; n_splits (1-8) blocks share each q tile's walk. bf16
+// at D = 64 or 128 runs the wgmma kernel above; every other type and
+// head dim (a multiple of 4 from 16 to 256) the float32 kernel of
+// attn_simt.cuh, unsplit. Returns the launch's cudaError_t (0 =
+// launched), or cudaErrorInvalidValue for a shape the kernels do not
+// take.
 extern "C" int gofr_paged_chunk(const void* q, const void* k_pool,
                                 const void* v_pool, const int* tables,
                                 const int* history, const int* chunk,
                                 void* out, int B, int Sq, int Hq, int Hkv,
                                 int n_pages, int page, int max_pages, int D,
-                                int n_splits, float scale, void* stream) {
+                                int dtype, int n_splits, float scale,
+                                void* stream) {
   return dispatch<false, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
                                 history, chunk, nullptr, out, B, Sq, Hq, Hkv,
-                                n_pages, page, max_pages, D, n_splits, scale,
-                                stream);
+                                n_pages, page, max_pages, D, dtype, n_splits,
+                                scale, stream);
 }
 
 // The same, for draft-tree verify: tree_masks int32 [B, Sq] packs each
@@ -614,28 +647,28 @@ extern "C" int gofr_paged_tree(const void* q, const void* k_pool,
                                const int* history, const int* chunk,
                                const int* tree_masks, void* out, int B,
                                int Sq, int Hq, int Hkv, int n_pages, int page,
-                               int max_pages, int D, int n_splits, float scale,
-                               void* stream) {
+                               int max_pages, int D, int dtype, int n_splits,
+                               float scale, void* stream) {
   return dispatch<true, false>(q, k_pool, v_pool, nullptr, nullptr, tables,
                                history, chunk, tree_masks, out, B, Sq, Hq,
-                               Hkv, n_pages, page, max_pages, D, n_splits,
-                               scale, stream);
+                               Hkv, n_pages, page, max_pages, D, dtype,
+                               n_splits, scale, stream);
 }
 
 // The chunk and tree entries over an int8 pool: k_codes / v_codes int8
-// [Hkv, Np, page, D] (16-byte aligned), k_scales / v_scales float32
-// [Hkv, Np, page, 1].
+// [Hkv, Np, page, D], k_scales / v_scales float32 [Hkv, Np, page, 1].
 extern "C" int gofr_paged_chunk_i8(const void* q, const void* k_codes,
                                    const void* v_codes, const float* k_scales,
                                    const float* v_scales, const int* tables,
                                    const int* history, const int* chunk,
                                    void* out, int B, int Sq, int Hq, int Hkv,
                                    int n_pages, int page, int max_pages, int D,
-                                   int n_splits, float scale, void* stream) {
+                                   int dtype, int n_splits, float scale,
+                                   void* stream) {
   return dispatch<false, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
                                history, chunk, nullptr, out, B, Sq, Hq, Hkv,
-                               n_pages, page, max_pages, D, n_splits, scale,
-                               stream);
+                               n_pages, page, max_pages, D, dtype, n_splits,
+                               scale, stream);
 }
 
 extern "C" int gofr_paged_tree_i8(const void* q, const void* k_codes,
@@ -644,10 +677,10 @@ extern "C" int gofr_paged_tree_i8(const void* q, const void* k_codes,
                                   const int* history, const int* chunk,
                                   const int* tree_masks, void* out, int B,
                                   int Sq, int Hq, int Hkv, int n_pages,
-                                  int page, int max_pages, int D,
+                                  int page, int max_pages, int D, int dtype,
                                   int n_splits, float scale, void* stream) {
   return dispatch<true, true>(q, k_codes, v_codes, k_scales, v_scales, tables,
                               history, chunk, tree_masks, out, B, Sq, Hq, Hkv,
-                              n_pages, page, max_pages, D, n_splits, scale,
-                              stream);
+                              n_pages, page, max_pages, D, dtype, n_splits,
+                              scale, stream);
 }

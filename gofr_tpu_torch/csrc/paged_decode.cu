@@ -1,4 +1,6 @@
-// Paged decode attention for Hopper (sm_90a), bf16 and int8 pools.
+// Paged decode attention for Hopper (sm_90a), plain and int8 pools: the
+// bf16 kernel at head dims 64 and 128 below, and attn_simt.cuh's float32
+// kernel for every other head dim and for float16 and float32.
 //
 // Replaces the Pallas TPU kernel gofr_tpu/ops/paged_attention.py
 // `_paged_decode_kernel` (wrapper `paged_decode_attention_pallas`), both
@@ -71,6 +73,7 @@
 
 #include <type_traits>
 
+#include "attn_simt.cuh"
 #include "paged_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -466,53 +469,80 @@ template <bool Q8>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const float* k_scales, const float* v_scales, const int* tables,
              const int* lengths, void* out, int B, int Hq, int Hkv, int n_pages,
-             int page, int max_pages, int D, int n_splits, float scale,
-             void* stream) {
+             int page, int max_pages, int D, int dtype, int n_splits,
+             float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_GROUP ||
-      n_pages <= 0 || page <= 0 || (page * D) % 16 != 0 || max_pages <= 0 ||
-      Hkv > 65535 || B > 65535 || n_splits < 1 || n_splits > MAX_SPLITS)
+      n_pages <= 0 || page <= 0 || max_pages <= 0 || Hkv > 65535 ||
+      B > 65535 || n_splits < 1 || n_splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_group<64, Q8>(q, k_pool, v_pool, k_scales, v_scales, tables,
-                                lengths, out, B, Hq, Hkv, n_pages, page,
-                                max_pages, n_splits, scale, s);
-  if (D == 128)
+  if (dtype == simt::BF16 && (D == 64 || D == 128)) {
+    if ((page * D) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_group<64, Q8>(q, k_pool, v_pool, k_scales, v_scales,
+                                  tables, lengths, out, B, Hq, Hkv, n_pages,
+                                  page, max_pages, n_splits, scale, s);
     return launch_group<128, Q8>(q, k_pool, v_pool, k_scales, v_scales,
                                  tables, lengths, out, B, Hq, Hkv, n_pages,
                                  page, max_pages, n_splits, scale, s);
-  return (int)cudaErrorInvalidValue;
+  }
+  // every other type and head dim: one block walks a slot's pages alone
+  // (n_splits is not read)
+  simt::Args a = {};
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.k_scales = Q8 ? k_scales : nullptr;
+  a.v_scales = Q8 ? v_scales : nullptr;
+  a.tables = tables;
+  a.len_a = lengths;
+  a.out = out;
+  a.B = B;
+  a.Sq = 1;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.n_pages = n_pages;
+  a.page = page;
+  a.max_pages = max_pages;
+  a.mode = simt::DECODE;
+  a.scale = scale;
+  return simt::run<true>(a, dtype, s);
 }
 
 }  // namespace
 
-// C interface (bound with ctypes). q [B, Hq, D], pools [Hkv, Np, page, D]
-// (one layer, contiguous), tables int32 [B, max_pages], lengths int32
-// [B] (rows valid AFTER this step's write), out [B, Hq, D]; n_splits
-// (1-8) blocks share each slot's walk. Returns the launch's cudaError_t
-// (0 = launched), or cudaErrorInvalidValue for a shape the kernel does
-// not take.
+// C interface (bound with ctypes). q [B, Hq, D] and out [B, Hq, D] of the
+// activation type `dtype` (0 bf16, 1 float16, 2 float32), pools [Hkv, Np,
+// page, D] of the same type (one layer, contiguous), tables int32 [B,
+// max_pages], lengths int32 [B] (rows valid AFTER this step's write);
+// n_splits (1-8) blocks share each slot's walk. bf16 at D = 64 or 128
+// runs the kernel above; every other type and head dim (a multiple of 4
+// from 16 to 256) the float32 kernel of attn_simt.cuh, unsplit. Returns
+// the launch's cudaError_t (0 = launched), or cudaErrorInvalidValue for
+// a shape the kernels do not take.
 extern "C" int gofr_paged_decode(const void* q, const void* k_pool,
                                  const void* v_pool, const int* tables,
                                  const int* lengths, void* out, int B, int Hq,
                                  int Hkv, int n_pages, int page, int max_pages,
-                                 int D, int n_splits, float scale,
+                                 int D, int dtype, int n_splits, float scale,
                                  void* stream) {
   return dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, tables, lengths,
-                         out, B, Hq, Hkv, n_pages, page, max_pages, D,
+                         out, B, Hq, Hkv, n_pages, page, max_pages, D, dtype,
                          n_splits, scale, stream);
 }
 
 // The same over an int8 pool: k_codes / v_codes int8 [Hkv, Np, page, D]
-// (16-byte aligned), k_scales / v_scales float32 [Hkv, Np, page, 1].
+// (aligned as the kernel reads them), k_scales / v_scales float32 [Hkv,
+// Np, page, 1]; q and out of the activation type `dtype`.
 extern "C" int gofr_paged_decode_i8(const void* q, const void* k_codes,
                                     const void* v_codes, const float* k_scales,
                                     const float* v_scales, const int* tables,
                                     const int* lengths, void* out, int B,
                                     int Hq, int Hkv, int n_pages, int page,
-                                    int max_pages, int D, int n_splits,
-                                    float scale, void* stream) {
+                                    int max_pages, int D, int dtype,
+                                    int n_splits, float scale, void* stream) {
   return dispatch<true>(q, k_codes, v_codes, k_scales, v_scales, tables,
                         lengths, out, B, Hq, Hkv, n_pages, page, max_pages, D,
-                        n_splits, scale, stream);
+                        dtype, n_splits, scale, stream);
 }

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (``-gencode arch=compute_90a,code=sm_90a``: Hopper, with the ``a``
 features), then loaded with ctypes. The file name carries a hash of
 the source, the ``csrc/`` headers it includes (``wgmma_attn.cuh``,
-``paged_common.cuh``) and the flags, so an edited kernel or header
+``paged_common.cuh``, ``attn_simt.cuh``, ``act_types.cuh``) and the
+flags, so an edited kernel or header
 rebuilds and an unchanged one is reused. Nothing here runs at import: the first call
 of a kernel's wrapper builds and loads it, and :func:`build_all`
 builds every kernel at once (one ``nvcc`` per source, all started
@@ -29,6 +30,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: git-ignored build directory at the repository root
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gofr_tpu_torch"
@@ -41,6 +44,38 @@ SOURCES = {
     "kv_write": "kv_write.cu",
     "wq_gemm": "wq_gemm.cu",
 }
+
+#: the activation types the kernels take, by the code their C entries
+#: read as ``dtype``
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def check_head_dim(name: str, d: int) -> None:
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: the
+    bf16 tensor-core kernels hold 64 and 128, ``csrc/attn_simt.cuh`` and
+    ``kv_write.cu``'s general kernels every other multiple of 4 from 16
+    to 256."""
+    if not (16 <= d <= 256 and d % 4 == 0):
+        raise ValueError(f"{name}: head_dim {d}; the kernels take a "
+                         f"multiple of 4 from 16 to 256")
+
+
+def dtype_code(name: str, what: str, dtype: torch.dtype) -> int:
+    """The C entries' ``dtype`` code of an activation type, or raise
+    ``TypeError``."""
+    code = KERNEL_DTYPES.get(dtype)
+    if code is None:
+        raise TypeError(f"{name}: {what} must be bfloat16, float16 or "
+                        f"float32, got {dtype}")
+    return code
+
+
+def wgmma_route(dtype: torch.dtype, d: int) -> bool:
+    """True where the attention C entries launch the bf16 tensor-core
+    (``wgmma``) kernels, which alone split a walk over a cluster: bf16 at
+    head dim 64 or 128. Every other case runs ``csrc/attn_simt.cuh``."""
+    return dtype == torch.bfloat16 and d in (64, 128)
+
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -3,7 +3,10 @@ plain PyTorch version (counterpart of ``gofr_tpu/ops/flash_attention.py``).
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``gofr_tpu/ops/flash_attention.py:_flash_kernel``; its source says what
-bounds it on the H100 and what the design does about it.
+bounds it on the H100 and what the design does about it. It takes what
+the TPU kernel takes: bf16, float16 or float32, any head dim that is a
+multiple of 4 from 16 to 256 (bf16 at 64 and 128 on the tensor cores,
+every other case in float32 FMAs, ``csrc/attn_simt.cuh``).
 """
 
 from __future__ import annotations
@@ -15,9 +18,6 @@ import torch
 from . import _build
 from .attention import xla_attention
 
-#: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
-
 _fn = None
 
 
@@ -25,7 +25,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("flash_attention").gofr_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -41,7 +41,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale=scale)
 
 
-def _check(q, k, v, kv_lengths):
+def _check(q, k, v, kv_lengths) -> int:
+    """What the kernels take (raise on anything else): q [B, Sq, Hq, D]
+    and k, v [B, Skv, Hkv, D] of one type, bf16, float16 or float32, with
+    D a multiple of 4 from 16 to 256; contiguous, on one device, aligned
+    to four elements (the kernels read four at a time); int32 [B]
+    kv_lengths. Returns the type's ``dtype`` code."""
     b, sq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d:
@@ -51,23 +56,26 @@ def _check(q, k, v, kv_lengths):
     if hq % k.shape[2]:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+    _build.check_head_dim("flash_attention", d)
+    code = _build.dtype_code("flash_attention", "q", q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} must be bfloat16, "
-                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} must be {q.dtype} "
+                            f"(q's type), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "
                              f"q on {q.device}")
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"flash_attention: {name} must be aligned to "
+                             f"4 elements")
     if kv_lengths.dtype != torch.int32 or kv_lengths.shape != (b,) \
             or kv_lengths.device != q.device \
             or not kv_lengths.is_contiguous():
         raise ValueError("flash_attention: kv_lengths must be a contiguous "
                          f"int32 [B] tensor on {q.device}")
+    return code
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,7 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal flash attention. q [B,Sq,Hq,D]; k,v [B,Skv,Hkv,D].
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    (bf16, contiguous, D in {64, 128}) or raise — there is no fallback.
+    (bf16, float16 or float32; contiguous; D a multiple of 4 from 16 to
+    256) or raise — there is no fallback.
     A ``kv_lengths[b] == 0`` row gives zeros here and the uniform
     average of V in the plain version; the engine never prefills one.
     """
@@ -89,13 +98,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_lengths is None:
         kv_lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
                                 device=q.device)
-    _check(q, k, v, kv_lengths)
+    code = _check(q, k, v, kv_lengths)
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    kv_lengths.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
-                   hq, k.shape[2], d, scale, stream)
+                   hq, k.shape[2], d, code, scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")

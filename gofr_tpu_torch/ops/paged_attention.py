@@ -31,7 +31,13 @@ the H100 and what the design does about it. The plain versions compute
 over the dequantizing ``paged_kv.slot_view`` (float32 ``codes *
 scales``), as the JAX package's ``_slot_view`` does.
 
-Split-KV: each kernel spreads a work item's walk (a slot's pages for
+Types and head dims: q in bf16, float16 or float32, a plain pool in q's
+type, any head dim that is a multiple of 4 from 16 to 256, as the TPU
+kernels take any. bf16 at head dims 64 and 128 runs the tensor-core
+kernels; every other case the float32 kernel of ``csrc/attn_simt.cuh``
+(one C entry point per kernel and form either way: the entry picks).
+
+Split-KV: each bf16 tensor-core kernel spreads a work item's walk (a slot's pages for
 decode, a q tile's 64-row K/V tiles for chunk and tree) over S blocks
 that form one thread-block cluster and merge their partial softmax
 states on the card. :func:`kv_splits` picks S from the shapes alone, so
@@ -50,8 +56,6 @@ from .paged_kv import is_quantized_pool, slot_view
 
 #: nodes a draft tree may hold: the ancestor masks are 32-bit
 MAX_TREE_WIDTH = 32
-#: head dims the kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
 #: query heads per KV head the kernels hold (decode: 4 warps x 4 heads;
 #: chunk: 64 block rows = BQ positions x group, BQ >= 4)
 KERNEL_MAX_GROUP = 16
@@ -69,19 +73,19 @@ CHUNK_KV_TILE = 64
 
 #: kernel (wrapper name, ``_int8`` for a quantized pool) -> (library, C
 #: symbol, pointer arguments, int arguments); every C entry point ends
-#: with (int n_splits, float scale, void* stream) — n_splits counted in
-#: the ints —, and an ``_i8`` one takes the K and V scale pointers right
-#: after the K and V codes
+#: with (int dtype, int n_splits, float scale, void* stream) — dtype and
+#: n_splits counted in the ints —, and an ``_i8`` one takes the K and V
+#: scale pointers right after the K and V codes
 _KERNELS = {
-    "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 8),
+    "paged_decode_attention": ("paged_decode", "gofr_paged_decode", 6, 9),
     "paged_decode_attention_int8": ("paged_decode", "gofr_paged_decode_i8",
-                                    8, 8),
-    "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 9),
+                                    8, 9),
+    "paged_chunk_attention": ("paged_chunk", "gofr_paged_chunk", 7, 10),
     "paged_chunk_attention_int8": ("paged_chunk", "gofr_paged_chunk_i8",
-                                   9, 9),
-    "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 9),
+                                   9, 10),
+    "paged_tree_attention": ("paged_chunk", "gofr_paged_tree", 8, 10),
     "paged_tree_attention_int8": ("paged_chunk", "gofr_paged_tree_i8",
-                                  10, 9),
+                                  10, 10),
 }
 _fns: dict = {}
 
@@ -192,26 +196,29 @@ def _check_placed(fn: str, name: str, t, q) -> None:
 
 
 def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
-    """What the kernels take: bf16 q; pools [Hkv, Np, pg, hd], both
-    bf16, or both quantized (int8 codes and float32 [Hkv, Np, pg, 1]
-    scales), with hd in KERNEL_HEAD_DIMS and a group of at most
-    KERNEL_MAX_GROUP query heads per KV head; int32 [B, Mp] tables and
-    [B] lengths; all contiguous and on q's device. q, out and pool rows
-    move in 16-byte words, so q and the pages (bf16 or codes) must be
-    16-byte aligned (float32 scales are 4-byte aligned by construction).
-    Returns the pool tensors in the kernel's argument order: (K, V), or
-    (K codes, V codes, K scales, V scales)."""
+    """What the kernels take: q in bf16, float16 or float32; pools [Hkv,
+    Np, pg, hd], both in q's type, or both quantized (int8 codes and
+    float32 [Hkv, Np, pg, 1] scales), with hd a multiple of 4 from 16 to
+    256 and a group of at most KERNEL_MAX_GROUP query heads per KV head;
+    int32 [B, Mp] tables and [B] lengths; all contiguous and on q's
+    device. The bf16 tensor-core kernels move q, out and pool rows in
+    16-byte words, so there q and the pages (bf16 or codes) must be
+    16-byte aligned; the float32 kernel reads four elements at a time
+    (float32 scales are 4-byte aligned by construction). Returns the pool
+    tensors in the kernel's argument order: (K, V), or (K codes, V codes,
+    K scales, V scales)."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     quantized = is_quantized_pool(k_pool)
     if quantized != is_quantized_pool(v_pool):
         raise ValueError(f"{fn}: k_pool and v_pool must both be plain or "
                          f"both quantized")
+    _build.dtype_code(fn, "q", q.dtype)
     if quantized:
         pools = [k_pool["q"], v_pool["q"], k_pool["s"], v_pool["s"]]
         page_dtype, page_names = torch.int8, ("k_pool codes", "v_pool codes")
     else:
         pools = [k_pool, v_pool]
-        page_dtype, page_names = torch.bfloat16, ("k_pool", "v_pool")
+        page_dtype, page_names = q.dtype, ("k_pool", "v_pool")
     kp, vp = pools[:2]
     if kp.ndim != 4 or kp.shape != vp.shape or kp.shape[3] != d:
         raise ValueError(f"{fn}: pools must be [Hkv, Np, pg, {d}], got "
@@ -220,10 +227,10 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     if hq % hkv or hq // hkv > KERNEL_MAX_GROUP:
         raise ValueError(f"{fn}: Hq={hq}, Hkv={hkv}: the group must divide "
                          f"and be <= {KERNEL_MAX_GROUP}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{fn}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    named = [("q", q, torch.bfloat16, 16), (page_names[0], kp, page_dtype, 16),
-             (page_names[1], vp, page_dtype, 16)]
+    _build.check_head_dim(fn, d)
+    wide = _build.wgmma_route(q.dtype, d)
+    named = [("q", q, q.dtype), (page_names[0], kp, page_dtype),
+             (page_names[1], vp, page_dtype)]
     if quantized:
         want = (*kp.shape[:3], 1)
         for name, t in (("k_pool scales", pools[2]),
@@ -231,11 +238,13 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
             if t.shape != want:
                 raise ValueError(f"{fn}: {name} must be [Hkv, Np, pg, 1], "
                                  f"got {tuple(t.shape)}")
-            # a float32 tensor is 4-byte aligned by construction
-            named.append((name, t, torch.float32, None))
-    for name, t, dtype, align in named:
+            named.append((name, t, torch.float32))
+    for name, t, dtype in named:
         if t.dtype != dtype:
             raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        # a float32 scale tensor is 4-byte aligned by construction
+        align = None if "scales" in name else \
+            16 if wide else 4 * t.element_size()
         if align and t.data_ptr() % align:
             raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
         _check_placed(fn, name, t, q)
@@ -248,6 +257,14 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
             raise ValueError(f"{fn}: lengths must be int32 [B]")
         _check_placed(fn, "lengths", n, q)
     return pools
+
+
+def _splits(mode: str, q, b, sq, hq, hkv, mp, pg) -> int:
+    """The split count the launch takes: :func:`kv_splits` on the bf16
+    tensor-core route, 1 on the float32 kernel's (which walks unsplit)."""
+    if not _build.wgmma_route(q.dtype, q.shape[-1]):
+        return 1
+    return kv_splits(mode, b, sq, hq, hkv, mp, pg)
 
 
 def _check_page(wrapper, page: int) -> None:
@@ -280,8 +297,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool, v_pool,
     """One decode step's attention against one layer's paged pool.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
-    contiguous; hd in {64, 128}) or raise — there is no fallback. A slot
+    for the pools' form (q in bf16, float16 or float32; pools in q's type
+    or int8 ``{q, s}``; contiguous; hd a multiple of 4 from 16 to 256) or raise — there is no fallback. A slot
     walks at most ``Mp`` pages, as the plain version's ``[Mp*pg]`` view
     does.
     """
@@ -300,7 +317,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool, v_pool,
     mp = tables.shape[1]
     _launch(paged_decode_attention, pools, q, tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), b, hq, hkv, n_pages, pg,
-            mp, d, kv_splits("decode", b, 1, hq, hkv, mp, pg), scale)
+            mp, d, _build.KERNEL_DTYPES[q.dtype],
+            _splits("decode", q, b, 1, hq, hkv, mp, pg), scale)
     return out
 
 
@@ -314,8 +332,9 @@ def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
     prefix. Rows past ``chunk_lens[b]`` come back as zeros.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
-    contiguous; hd in {64, 128}; a power-of-two page size) or raise —
+    for the pools' form (q in bf16, float16 or float32; pools in q's type
+    or int8 ``{q, s}``; contiguous; hd a multiple of 4 from 16 to 256; a
+    power-of-two page size) or raise —
     there is no fallback. A slot walks at most ``Mp`` pages, as the plain
     version's ``[Mp*pg]`` view does.
     """
@@ -336,8 +355,8 @@ def paged_chunk_attention(q: torch.Tensor, k_pool, v_pool,
     mp = tables.shape[1]
     _launch(paged_chunk_attention, pools, q, tables.data_ptr(),
             history_lens.data_ptr(), chunk_lens.data_ptr(), out.data_ptr(),
-            b, sq, hq, hkv, n_pages, pg, mp, d,
-            kv_splits("chunk", b, sq, hq, hkv, mp, pg), scale)
+            b, sq, hq, hkv, n_pages, pg, mp, d, _build.KERNEL_DTYPES[q.dtype],
+            _splits("chunk", q, b, sq, hq, hkv, mp, pg), scale)
     return out
 
 
@@ -353,9 +372,9 @@ def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
     Rows past ``chunk_lens[b]`` come back as zeros.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
-    for the pools' form (bf16 q; bf16 or int8 ``{q, s}`` pools;
-    contiguous; hd in {64, 128}; a power-of-two page size; Sq <= 32; int32
-    masks) or raise — there is no fallback. A slot walks at most ``Mp``
+    for the pools' form (q in bf16, float16 or float32; pools in q's type
+    or int8 ``{q, s}``; contiguous; hd a multiple of 4 from 16 to 256; a
+    power-of-two page size; Sq <= 32; int32 masks) or raise — there is no fallback. A slot walks at most ``Mp``
     pages, as the plain version's ``[Mp*pg]`` view does.
     """
     if q.device.type == "cpu":
@@ -384,7 +403,8 @@ def paged_tree_attention(q: torch.Tensor, k_pool, v_pool,
     _launch(paged_tree_attention, pools, q, tables.data_ptr(),
             history_lens.data_ptr(), chunk_lens.data_ptr(),
             tree_masks.data_ptr(), out.data_ptr(), b, sq, hq, hkv, n_pages,
-            pg, mp, d, kv_splits("tree", b, sq, hq, hkv, mp, pg), scale)
+            pg, mp, d, _build.KERNEL_DTYPES[q.dtype],
+            _splits("tree", q, b, sq, hq, hkv, mp, pg), scale)
     return out
 
 

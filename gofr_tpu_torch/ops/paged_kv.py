@@ -156,9 +156,10 @@ def pool_write(pool, li: int, pids: torch.Tensor, offs: torch.Tensor,
     ``rows`` is [*pids.shape, H, d]. Entries whose page id is out of
     range are dropped. Rows are cast to the pool dtype, or quantized.
 
-    CUDA tensors launch the ``kv_write`` kernel (K only; bf16 rows) or
-    raise. CPU tensors run the plain version: the in-range rows are
-    selected (``keep``, computed here unless given) and written."""
+    CUDA tensors launch the ``kv_write`` kernel (K only; rows in the
+    pool's type) or raise. CPU tensors run the plain version: the
+    in-range rows are selected (``keep``, computed here unless given) and
+    written."""
     if rows.device.type != "cpu":
         _kv_write_kernel(pool, None, li, pids, offs, rows, None)
         return pool
@@ -202,8 +203,9 @@ def kv_write(k_pool, v_pool, li: int, pids: torch.Tensor,
     ``[0, Np)`` (or whose offset is outside ``[0, pg)``) is dropped.
     Returns (k_pool, v_pool).
 
-    CUDA tensors launch the kernel for the pools' form (bf16 rows; bf16
-    pools, or int8 ``{q, s}`` pools quantized on the card bit for bit as
+    CUDA tensors launch the kernel for the pools' form (pools in bf16,
+    float16 or float32 and rows of their type, or int8 ``{q, s}`` pools
+    and rows of any of the three, quantized on the card bit for bit as
     :func:`quantize_rows` does) — one launch, no host sync — or raise:
     there is no fallback. CPU tensors run :func:`kv_write_plain`
     (``keep``, the in-range indices, may be passed in to share one
@@ -216,10 +218,10 @@ def kv_write(k_pool, v_pool, li: int, pids: torch.Tensor,
 
 
 #: C entries of ``csrc/kv_write.cu``: symbol -> (pointer arguments,
-#: int arguments) before the stream
-_ENTRIES = {"gofr_kv_write": (6, 5), "gofr_kv_write_i8": (8, 5),
-            "gofr_rope_kv_write": (10, 6), "gofr_rope_kv_write_i8": (12, 6),
-            "gofr_kv_write_slab": (6, 6), "gofr_kv_write_slab_i8": (8, 6)}
+#: int arguments, the last the activation type's code) before the stream
+_ENTRIES = {"gofr_kv_write": (6, 6), "gofr_kv_write_i8": (8, 6),
+            "gofr_rope_kv_write": (10, 7), "gofr_rope_kv_write_i8": (12, 7),
+            "gofr_kv_write_slab": (6, 7), "gofr_kv_write_slab_i8": (8, 7)}
 _kv_fns: dict = {}
 
 
@@ -245,7 +247,9 @@ def _launch(name: str, symbol: str, tensors: list, ints: tuple,
 def _check_pools(name: str, k_pool, v_pool, device: torch.device):
     """(quantized, [L, Hkv, Np, pg, hd], the leaves in the C entries'
     order: (k, v) or (k codes, v codes, k scales, v scales), None for an
-    absent V pool), or raise on what the kernels do not take."""
+    absent V pool), or raise on what the kernels do not take: a plain
+    pool in bf16, float16 or float32 (the model's dtype), or int8 codes
+    with float32 scales."""
     quantized = is_quantized_pool(k_pool)
     pools = [k_pool] if v_pool is None else [k_pool, v_pool]
     if any(is_quantized_pool(p) != quantized for p in pools):
@@ -260,9 +264,10 @@ def _check_pools(name: str, k_pool, v_pool, device: torch.device):
                     torch.float32 or pool["s"].shape != (*shape[:4], 1):
                 raise TypeError(f"{name}: a quantized pool is int8 codes "
                                 f"and float32 [L, Hkv, Np, pg, 1] scales")
-        elif pool.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: pools must be bfloat16, got "
-                            f"{pool.dtype}")
+        else:
+            _build.dtype_code(name, "pools", pool.dtype)
+            if pool.dtype != k_pool.dtype:
+                raise TypeError(f"{name}: pools must share one dtype")
     if quantized:
         leaves = [k_pool["q"], None if v_pool is None else v_pool["q"],
                   k_pool["s"], None if v_pool is None else v_pool["s"]]
@@ -277,13 +282,21 @@ def _check_pools(name: str, k_pool, v_pool, device: torch.device):
     return quantized, shape, leaves
 
 
+def _rows_dtype(name: str, k_pool, rows: torch.Tensor):
+    """(the type the rows must have, its C code): a plain pool's own (the
+    rows are written as they are), or for a quantized pool the rows' own,
+    any kernel type (the rows are quantized from it)."""
+    dtype = rows.dtype if is_quantized_pool(k_pool) else k_pool.dtype
+    return dtype, _build.dtype_code(name, "rows", dtype)
+
+
 def _check_rows(name: str, rows: torch.Tensor, n: int, heads: int, d: int,
-                device: torch.device) -> torch.Tensor:
-    """``rows`` [*pids.shape, heads, d] bf16 on ``device`` as a contiguous
-    [n, heads, d], or raise."""
-    if rows.dtype != torch.bfloat16 or tuple(rows.shape[-2:]) != (heads, d) \
+                device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``rows`` [*pids.shape, heads, d] of ``dtype`` on ``device`` as a
+    contiguous [n, heads, d], or raise."""
+    if rows.dtype != dtype or tuple(rows.shape[-2:]) != (heads, d) \
             or rows.numel() != n * heads * d:
-        raise ValueError(f"{name}: rows must be bfloat16 [*pids.shape, "
+        raise ValueError(f"{name}: rows must be {dtype} [*pids.shape, "
                          f"{heads}, {d}], got {rows.dtype} "
                          f"{tuple(rows.shape)}")
     if rows.device != device:
@@ -322,13 +335,15 @@ def _kv_write_kernel(k_pool, v_pool, li, pids, offs, k_rows, v_rows) -> None:
     if not 0 <= li < n_layers:
         raise ValueError(f"kv_write: layer {li} outside [0, {n_layers})")
     n = pids.numel()
-    rows = [None if r is None else _check_rows("kv_write", r, n, hkv, d, dev)
+    dtype, code = _rows_dtype("kv_write", k_pool, k_rows)
+    rows = [None if r is None
+            else _check_rows("kv_write", r, n, hkv, d, dev, dtype)
             for r in (k_rows, v_rows)]
     idx = [_index("kv_write", t, n, dev) for t in (pids, offs)]
     layer = [None if t is None else t[li] for t in leaves]
     _launch("kv_write" + ("_int8" if quantized else ""),
             "gofr_kv_write" + ("_i8" if quantized else ""),
-            rows + idx + layer, (n, hkv, n_pages, pg, d), dev)
+            rows + idx + layer, (n, hkv, n_pages, pg, d, code), dev)
     if n:
         _count(kv_write, quantized)
 
@@ -367,8 +382,9 @@ def rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The RoPE position and the write coordinates are separate: a tree
     verify rotates node i at its depth and writes it at row i.
 
-    CUDA tensors launch the fused kernel for the pools' form (bf16 q, k,
-    v; hd 64 or 128; one launch, no host sync), bit for bit
+    CUDA tensors launch the fused kernel for the pools' form (q, k, v in
+    bf16, float16 or float32, a plain pool of their type; hd a multiple
+    of 4 from 16 to 256; one launch, no host sync), bit for bit
     :func:`rope_kv_write_plain`, or raise: there is no fallback. CPU
     tensors run :func:`rope_kv_write_plain` (``keep``, the in-range
     indices, may be passed in to share one selection across layers)."""
@@ -378,29 +394,39 @@ def rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "rope_kv_write"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
-    dev = q.device
+    quantized, tensors, ints = _rope_args(q, k, v, positions, inv_freq,
+                                          k_pool, v_pool, li, pids, offs)
+    _launch(name + ("_int8" if quantized else ""),
+            "gofr_rope_kv_write" + ("_i8" if quantized else ""), tensors,
+            ints, q.device)
+    if ints[0]:
+        _count(rope_kv_write, quantized)
+    return tensors[7].reshape(q.shape)
+
+
+def _rope_args(q, k, v, positions, inv_freq, k_pool, v_pool, li, pids,
+               offs) -> tuple:
+    """What the fused kernel takes, checked on ``q``'s device (raise on
+    anything else): (quantized, the C entry's tensors — the rotated q's
+    new buffer eighth —, its ints)."""
+    name, dev = "rope_kv_write", q.device
     quantized, (n_layers, hkv, n_pages, pg, d), leaves = _check_pools(
         name, k_pool, v_pool, dev)
     if not 0 <= li < n_layers:
         raise ValueError(f"{name}: layer {li} outside [0, {n_layers})")
-    if d not in (64, 128):
-        raise ValueError(f"{name}: head_dim {d}; the kernel takes 64 or 128")
+    _build.check_head_dim(name, d)
+    dtype, code = _rows_dtype(name, k_pool, q)
     n, hq = pids.numel(), q.shape[-2]
-    rows = [_check_rows(name, t, n, heads, d, dev)
+    rows = [_check_rows(name, t, n, heads, d, dev, dtype)
             for t, heads in ((q, hq), (k, hkv), (v, hkv))]
     idx = [_index(name, t, n, dev) for t in (positions, pids, offs)]
     if inv_freq.dtype != torch.float32 or tuple(inv_freq.shape) != (d // 2,) \
             or inv_freq.device != dev:
         raise ValueError(f"{name}: inv_freq must be float32 [{d // 2}] on "
                          f"{dev}")
-    q_rot = torch.empty_like(rows[0])
-    _launch(name + ("_int8" if quantized else ""),
-            "gofr_rope_kv_write" + ("_i8" if quantized else ""),
-            rows + [idx[0], inv_freq.contiguous(), idx[1], idx[2], q_rot]
-            + [t[li] for t in leaves], (n, hq, hkv, n_pages, pg, d), dev)
-    if n:
-        _count(rope_kv_write, quantized)
-    return q_rot.reshape(q.shape)
+    tensors = rows + [idx[0], inv_freq.contiguous(), idx[1], idx[2],
+                      torch.empty_like(rows[0])] + [t[li] for t in leaves]
+    return quantized, tensors, (n, hq, hkv, n_pages, pg, d, code)
 
 
 #: fused kernel launches since the last reset, per pool form
@@ -456,7 +482,7 @@ def scatter_chunk(pool, tables: torch.Tensor, slab: torch.Tensor,
     K and V together through :func:`scatter_chunk_kv`.
 
     CUDA tensors launch the ``kv_write`` kernel once per layer (K only,
-    bf16 rows). CPU tensors run :func:`scatter_chunk_plain`."""
+    rows in the pool's type). CPU tensors run :func:`scatter_chunk_plain`."""
     if slab.device.type == "cpu":
         return scatter_chunk_plain(pool, tables, slab, offsets, chunk_lens)
     pids, offs = _chunk_coords(pool, tables, offsets, chunk_lens,
@@ -486,7 +512,8 @@ def scatter_chunk_kv(k_pool, v_pool, tables: torch.Tensor,
     into their pools, in place. Returns (k_pool, v_pool).
 
     CUDA tensors launch the slab kernel once for every layer, K and V
-    together (bf16 slabs; counted in ``scatter_chunk_kv.launches`` /
+    together (slabs in the plain pools' type, or in bf16, float16 or
+    float32 for int8 pools; counted in ``scatter_chunk_kv.launches`` /
     ``launches_int8``): the page ids and offsets are derived once on the
     device and the kernel drops the out-of-range rows, so the call holds
     no host sync and returns before the card has written. CPU tensors
@@ -497,31 +524,41 @@ def scatter_chunk_kv(k_pool, v_pool, tables: torch.Tensor,
     name = "scatter_chunk_kv"
     if k_slab.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {k_slab.device}")
-    dev = k_slab.device
+    quantized, tensors, ints = _slab_args(k_pool, v_pool, tables, k_slab,
+                                          v_slab, offsets, chunk_lens)
+    _launch(name + ("_int8" if quantized else ""),
+            "gofr_kv_write_slab" + ("_i8" if quantized else ""), tensors,
+            ints, k_slab.device)
+    if ints[0] and ints[1]:
+        _count(scatter_chunk_kv, quantized)
+    return k_pool, v_pool
+
+
+def _slab_args(k_pool, v_pool, tables, k_slab, v_slab, offsets,
+               chunk_lens) -> tuple:
+    """What the slab kernel takes, checked on the slabs' device (raise on
+    anything else): (quantized, the C entry's tensors, its ints)."""
+    name, dev = "scatter_chunk_kv", k_slab.device
     quantized, (n_layers, hkv, n_pages, pg, d), leaves = _check_pools(
         name, k_pool, v_pool, dev)
-    if not 8 <= d <= 256 or d & (d - 1):
-        raise ValueError(f"{name}: head_dim {d}; the kernel takes a power "
-                         f"of two from 8 to 256")
+    dtype, code = _rows_dtype(name, k_pool, k_slab)
+    if not (d == 8 and dtype == torch.bfloat16):   # bf16 also takes 8
+        _build.check_head_dim(name, d)
     if k_slab.dim() != 5 or k_slab.shape[0] != n_layers:
         raise ValueError(f"{name}: slabs must be [{n_layers}, P, S, {hkv}, "
                          f"{d}], got {tuple(k_slab.shape)}")
     n = k_slab.shape[1] * k_slab.shape[2]
     pids, offs = _chunk_coords(k_pool, tables, offsets, chunk_lens,
                                k_slab.shape[2])
-    slabs = [_check_rows(name, t, n_layers * n, hkv, d, dev)
+    slabs = [_check_rows(name, t, n_layers * n, hkv, d, dev, dtype)
              for t in (k_slab, v_slab)]
     if tuple(v_slab.shape) != tuple(k_slab.shape):
         raise ValueError(f"{name}: K and V slabs differ in shape")
     if any(t.data_ptr() % 16 for t in slabs + leaves):
         raise ValueError(f"{name}: slabs and pools must be 16-byte aligned")
-    _launch(name + ("_int8" if quantized else ""),
-            "gofr_kv_write_slab" + ("_i8" if quantized else ""),
+    return (quantized,
             slabs + [_index(name, t, n, dev) for t in (pids, offs)] + leaves,
-            (n_layers, n, hkv, n_pages, pg, d), dev)
-    if n and n_layers:
-        _count(scatter_chunk_kv, quantized)
-    return k_pool, v_pool
+            (n_layers, n, hkv, n_pages, pg, d, code))
 
 
 #: slab kernel launches since the last reset, per pool form

@@ -221,16 +221,11 @@ def _mesh_engine(params: Any, c: LlamaConfig, engine_config: EngineConfig,
 
 
 def demo_config(device: str | torch.device) -> LlamaConfig:
-    """The demo engine's model on ``device``: ``LlamaConfig.tiny()``
-    (JAX's demo model: float32, head_dim 16) on the CPU; on CUDA its
-    twin at the kernels' shapes (bf16, head_dim 64: 8 query and 2 KV
-    heads over dim 512, ffn 1024), since the CUDA kernels take no
-    other."""
-    c = LlamaConfig.tiny()
-    if torch.device(device).type == "cpu":
-        return c
-    return c.scaled(dim=512, n_heads=8, n_kv_heads=2, ffn_dim=1024,
-                    dtype=torch.bfloat16)
+    """The demo engine's model: ``LlamaConfig.tiny()``, JAX's demo model
+    (float32, head_dim 16), on every device: the CUDA kernels take its
+    type and head dim as they take any other."""
+    del device
+    return LlamaConfig.tiny()
 
 
 def demo_llama_engine(engine_config: EngineConfig | None = None,

@@ -9,8 +9,13 @@ it does to their times:
     python scripts/torch_kernel_digest.py --time
 
 Shapes: the smoke's (``chip_smoke.py``) flash, paged decode, paged chunk
-and paged tree cases, with seeded random inputs; the paged kernels on a
-bf16 pool and on ``quantize_pool`` of it (``_int8``). Prints one JSON
+and paged tree cases, with seeded random inputs, at head dim 64 and
+again at 128 (``_d128``); the paged kernels on a bf16 pool and on
+``quantize_pool`` of it (``_int8``); and the KV write kernel's three
+entries, both pool forms (the written pools hashed, and the rotated q):
+every bf16 kernel that runs on the tensor-core route. A head dim or type
+that route does not hold is left out, so a change that adds other cases
+hashes the same calls as its parent. Prints one JSON
 line, kernel name -> digest; with ``--time`` a second one, kernel name
 -> median device ms per call (``chip_smoke.device_ms``: ``torch.profiler``
 over 25 calls after warm-up, host time left out), headed by the card's
@@ -36,6 +41,8 @@ def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   HERE / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
+    # registered first: a dataclass of the module looks itself up there
+    sys.modules[spec.name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -77,40 +84,16 @@ def main() -> int:
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
     calls = {}      # kernel name -> a call of it on its inputs
-    q, k, v = randn(4, 512, 32, 64), randn(4, 512, 8, 64), randn(4, 512, 8, 64)
-    lens = ints([1, 200, 511, 512])
-    calls["flash_attention"] = lambda: flash_attention(q, k, v,
-                                                       kv_lengths=lens)
-    kp, vp = randn(8, 256, 64, 64), randn(8, 256, 64, 64)
-    pools = {"": (kp, vp), "_int8": (quantize_pool(kp), quantize_pool(vp))}
-    d_lens = [0, 1, 63, 64, 65, 1500, 300, 1000]
-    d_q, d_tab, d_len = randn(8, 32, 64), table(d_lens, 64, 256, 24), \
-        ints(d_lens)
-    hists, clens = [0, 1024, 896, 0], [1024, 777, 6, 0]
-    c_q = randn(4, 1024, 32, 64)
-    c_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
-              ints(hists), ints(clens))
-    hists, clens = [0, 1, 63, 64, 65, 1500, 300, 1000], [0, 7, 9, 5, 6, 9, 1, 8]
-    masks = torch.randint(0, 2 ** 31 - 1, (8, 16), generator=gen, device=dev,
-                          dtype=torch.int32) | 1
-    t_q = randn(8, 16, 32, 64)
-    t_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
-              ints(hists), ints(clens), masks)
-    for suffix, (kpool, vpool) in pools.items():
-        calls["paged_decode_attention" + suffix] = \
-            lambda kpool=kpool, vpool=vpool: paged_decode_attention(
-                d_q, kpool, vpool, d_tab, d_len)
-        calls["paged_chunk_attention" + suffix] = \
-            lambda kpool=kpool, vpool=vpool: paged_chunk_attention(
-                c_q, kpool, vpool, *c_args)
-        calls["paged_tree_attention" + suffix] = \
-            lambda kpool=kpool, vpool=vpool: paged_tree_attention(
-                t_q, kpool, vpool, *t_args)
+    for d, tag in ((64, ""), (128, "_d128")):
+        _attention_calls(calls, tag, d, randn, table, ints, gen, dev,
+                         quantize_pool, flash_attention,
+                         paged_decode_attention, paged_chunk_attention,
+                         paged_tree_attention)
+        _write_calls(calls, tag, d, randn, ints, dev, quantize_pool)
     outs = {name: call() for name, call in calls.items()}
     torch.cuda.synchronize()
     print(json.dumps({"root": str(root), **{
-        name: hashlib.sha256(out.cpu().view(torch.int16).numpy().tobytes())
-        .hexdigest() for name, out in outs.items()}}), flush=True)
+        name: _digest(out) for name, out in outs.items()}}), flush=True)
     if device_ms is not None:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -121,6 +104,99 @@ def main() -> int:
                                         for name, call in calls.items()}}),
               flush=True)
     return 0
+
+
+def _digest(out) -> str:
+    """SHA-256 of a tensor's bytes (a bf16 tensor as int16, as before the
+    write kernels joined), or of a tuple's or a quantized pool's leaves
+    in order."""
+    import torch
+    h = hashlib.sha256()
+    leaves = [out] if isinstance(out, torch.Tensor) else [
+        t for part in out for t in (
+            part.values() if isinstance(part, dict) else [part])]
+    for t in leaves:
+        t = t.contiguous().cpu()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 \
+            else t.view(torch.uint8)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _attention_calls(calls, tag, d, randn, table, ints, gen, dev,
+                     quantize_pool, flash_attention, paged_decode_attention,
+                     paged_chunk_attention, paged_tree_attention) -> None:
+    """The four attention kernels at head dim ``d``, named with ``tag``."""
+    import torch
+    q, k, v = randn(4, 512, 32, d), randn(4, 512, 8, d), randn(4, 512, 8, d)
+    lens = ints([1, 200, 511, 512])
+    calls["flash_attention" + tag] = lambda: flash_attention(
+        q, k, v, kv_lengths=lens)
+    kp, vp = randn(8, 256, 64, d), randn(8, 256, 64, d)
+    pools = {"": (kp, vp), "_int8": (quantize_pool(kp), quantize_pool(vp))}
+    d_lens = [0, 1, 63, 64, 65, 1500, 300, 1000]
+    d_q, d_tab, d_len = randn(8, 32, d), table(d_lens, 64, 256, 24), \
+        ints(d_lens)
+    hists, clens = [0, 1024, 896, 0], [1024, 777, 6, 0]
+    c_q = randn(4, 1024, 32, d)
+    c_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
+              ints(hists), ints(clens))
+    hists, clens = [0, 1, 63, 64, 65, 1500, 300, 1000], [0, 7, 9, 5, 6, 9, 1, 8]
+    masks = torch.randint(0, 2 ** 31 - 1, (8, 16), generator=gen, device=dev,
+                          dtype=torch.int32) | 1
+    t_q = randn(8, 16, 32, d)
+    t_args = (table([h + c for h, c in zip(hists, clens)], 64, 256, 32),
+              ints(hists), ints(clens), masks)
+    for suffix, (kpool, vpool) in pools.items():
+        calls["paged_decode_attention" + suffix + tag] = \
+            lambda kpool=kpool, vpool=vpool: paged_decode_attention(
+                d_q, kpool, vpool, d_tab, d_len)
+        calls["paged_chunk_attention" + suffix + tag] = \
+            lambda kpool=kpool, vpool=vpool: paged_chunk_attention(
+                c_q, kpool, vpool, *c_args)
+        calls["paged_tree_attention" + suffix + tag] = \
+            lambda kpool=kpool, vpool=vpool: paged_tree_attention(
+                t_q, kpool, vpool, *t_args)
+
+
+def _write_calls(calls, tag, d, randn, ints, dev, quantize_pool) -> None:
+    """The KV write kernel's entries at head dim ``d``, both pool forms:
+    each call writes a fresh copy of its pools and returns them (and the
+    fused entry's rotated q)."""
+    import torch
+    from gofr_tpu_torch.ops.paged_kv import (kv_write, rope_kv_write,
+                                             scatter_chunk_kv)
+    from gofr_tpu_torch.ops.rope import rope_frequencies
+    n_layers, hkv, n_pages, pg = 2, 8, 32, 64
+    base = [randn(n_layers, hkv, n_pages, pg, d) for _ in range(2)]
+    n = 8
+    pids = ints([3, 7, n_pages, 0, 31, -1, 12, 5])
+    offs = ints([0, 63, 5, 17, 1, 2, 64, 40])
+    positions = ints([0, 1, 63, 64, 500, 1000, 2047, 8191])
+    q, k, v = randn(n, 32, d), randn(n, hkv, d), randn(n, hkv, d)
+    inv = rope_frequencies(d, device=dev)
+    slabs = [randn(n_layers, 3, 96, hkv, d) for _ in range(2)]
+    tables = ints([[4, 1], [0, 9], [n_pages, n_pages]])
+    offsets, chunk = ints([5, 0, 0]), ints([90, 21, 1])
+    for suffix, quant in (("", False), ("_int8", True)):
+        def fresh(quant=quant):
+            pools = [t.clone() for t in base]
+            return [quantize_pool(t) for t in pools] if quant else pools
+
+        def rope(fresh=fresh):
+            kp, vp = fresh()
+            return rope_kv_write(q, k, v, positions, inv, kp, vp, 1, pids,
+                                 offs), kp, vp
+
+        def slab(fresh=fresh):
+            return scatter_chunk_kv(*fresh(), tables, *slabs, offsets, chunk)
+
+        def rows(fresh=fresh):
+            return kv_write(*fresh(), 0, pids, offs, k, v)
+
+        calls["rope_kv_write" + suffix + tag] = rope
+        calls["scatter_chunk_kv" + suffix + tag] = slab
+        calls["kv_write" + suffix + tag] = rows
 
 
 if __name__ == "__main__":

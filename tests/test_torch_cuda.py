@@ -422,10 +422,10 @@ def test_tree_on_causal_masks_is_the_chunk_kernel_at_a_split_shape(dev,
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 4, 64, device=dev)                  # float32
+    q = torch.zeros(1, 8, 4, 64, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q, q[:, :, :2], q[:, :, :2])
-    qb = torch.zeros(1, 8, 4, 96, device=dev, dtype=torch.bfloat16)
+    qb = torch.zeros(1, 8, 4, 98, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(qb, qb[:, :, :2].contiguous(),
                         qb[:, :, :2].contiguous())
@@ -558,7 +558,7 @@ def test_kv_write_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="layer"):
         kv_write(pool, pool, 2, pids, pids, rows, rows)
     with pytest.raises(TypeError, match="bfloat16"):
-        kv_write(pool.float(), pool.float(), 0, pids, pids, rows, rows)
+        kv_write(pool.double(), pool.double(), 0, pids, pids, rows, rows)
 
 
 
@@ -717,8 +717,8 @@ def test_rope_kv_write_raises_on_what_the_kernel_does_not_take(dev):
     inv = rope_frequencies(64, device=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         rope_kv_write(q.float(), kv, kv, ids, inv, pool, pool, 0, ids, ids)
-    with pytest.raises(ValueError, match="64 or 128"):
-        wide = torch.zeros(2, 2, 4, 8, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        wide = torch.zeros(2, 2, 4, 8, 98, device=dev, dtype=torch.bfloat16)
         rope_kv_write(q, kv, kv, ids, inv, wide, wide, 0, ids, ids)
     with pytest.raises(ValueError, match="inv_freq"):
         rope_kv_write(q, kv, kv, ids, inv[:16], pool, pool, 0, ids, ids)
@@ -944,3 +944,164 @@ def test_wq_gemm_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match=r"\[N, K\]"):
         quant.qmatmul(x, quant.quantize_int8(_randn(gen, dev, 64, 32),
                                              axis=0))
+
+
+# ------------------------------------- every head dim and float type
+#: (head dim, activation type): OpenLLaMA-3B's 100 in float16, JAX's demo
+#: width 16 in float32, 256 in bf16, float16 at 64 (beside the bf16
+#: kernels' width), and 80 / 96 between them
+SHAPES = [(100, torch.float16), (16, torch.float32), (256, torch.bfloat16),
+          (64, torch.float16), (80, torch.float32), (96, torch.bfloat16)]
+SHAPE_IDS = [f"d{d}-{str(t)[6:]}" for d, t in SHAPES]
+
+
+def _randn_t(gen, dev, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+def _within(out, ref, dtype):
+    """Per element |out - ref| <= atol + rtol |ref|: float32 against the
+    float32 plain version differs by summation order only (ATOL_F32,
+    RTOL_F32); a 16-bit output is rounded on both sides (ATOL, RTOL).
+    The float32 kernel keeps P in float32: no P-rounding term."""
+    atol, rtol = (ATOL_F32, RTOL_F32) if dtype == torch.float32 \
+        else (ATOL, RTOL)
+    ref = ref.float()
+    excess = ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max()
+    assert out.dtype == dtype and excess.item() <= 1.0, \
+        f"worst err / limit {excess.item()}"
+
+
+def _cast_pools(kp, vp, dtype, form):
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    return (kp, vp) if form == "plain" else (quantize_pool(kp),
+                                              quantize_pool(vp))
+
+
+@pytest.mark.parametrize("d,dtype", SHAPES, ids=SHAPE_IDS)
+def test_flash_kernel_matches_plain_at_every_shape(dev, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for p, s, hq, hkv, lens in ((3, 200, 8, 2, [1, 130, 200]),
+                                (2, 33, 4, 4, [33, 0]),
+                                (1, 300, 12, 4, [290])):
+        q = _randn_t(gen, dev, dtype, p, s, hq, d)
+        k, v = (_randn_t(gen, dev, dtype, p, s, hkv, d) for _ in range(2))
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, kv_lengths=kv_len)
+        assert flash_attention.launches == before + 1
+        live = kv_len > 0     # a kv_len 0 row: zeros here, uniform in plain
+        _within(out[live], flash_attention_plain(
+            q, k, v, kv_lengths=kv_len)[live], dtype)
+        if (~live).any():
+            assert out[~live].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("d,dtype", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("form", ["plain", "int8"])
+def test_paged_kernels_match_plain_at_every_shape(dev, d, dtype, form):
+    """Decode, chunk and tree, over groups 1, 3 and 4, pages of 16 and 64
+    rows, lengths 0 to 1500, padding rows zero."""
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+    attr = "launches_int8" if form == "int8" else "launches"
+    for b, hq, hkv, pg, n_pages, lens in (
+            (4, 32, 8, 64, 64, [0, 1, 65, 1500]),
+            (3, 12, 4, 16, 40, [0, 33, 300]),
+            (2, 8, 8, 16, 24, [17, 200])):
+        q, kp, vp, tables, lengths = _paged_case(gen, dev, b, hq, hkv, d, pg,
+                                                 n_pages, lens)
+        q = q.to(dtype)
+        kp, vp = _cast_pools(kp, vp, dtype, form)
+        before = getattr(paged_decode_attention, attr)
+        out = paged_decode_attention(q, kp, vp, tables, lengths)
+        assert getattr(paged_decode_attention, attr) == before + 1
+        _within(out, paged_decode_attention_plain(q, kp, vp, tables,
+                                                  lengths), dtype)
+        if (lengths == 0).any():
+            assert out[lengths == 0].abs().max().item() == 0.0
+    for case in ((70, 32, 8, d, 64, 32, [0, 130, 64, 0], [70, 37, 1, 0]),
+                 (30, 12, 4, d, 16, 60, [100, 0], [30, 21]),
+                 (40, 4, 4, d, 16, 64, [37, 5], [40, 19])):
+        q, kp, vp, tables, hist, clen = _chunk_case(dev, *case)
+        q = q.to(dtype)
+        kp, vp = _cast_pools(kp, vp, dtype, form)
+        before = getattr(paged_chunk_attention, attr)
+        out = paged_chunk_attention(q, kp, vp, tables, hist, clen)
+        assert getattr(paged_chunk_attention, attr) == before + 1
+        _within(out, paged_chunk_attention_plain(q, kp, vp, tables, hist,
+                                                 clen), dtype)
+        pad = torch.arange(q.shape[1], device=dev)[None, :] >= clen[:, None]
+        if pad.any():
+            assert out[pad].abs().max().item() == 0.0
+    for width, hq, hkv, pg, branches, hists in (
+            (16, 32, 8, 64, 2, [0, 1, 63, 1000]),
+            (32, 12, 4, 16, 4, [17, 0, 300])):
+        q, kp, vp, tables, hist, clen, masks = _tree_case(
+            dev, width, hq, hkv, d, pg, branches, hists)
+        q = q.to(dtype)
+        kp, vp = _cast_pools(kp, vp, dtype, form)
+        before = getattr(paged_tree_attention, attr)
+        out = paged_tree_attention(q, kp, vp, tables, hist, clen, masks)
+        assert getattr(paged_tree_attention, attr) == before + 1
+        _within(out, paged_tree_attention_plain(q, kp, vp, tables, hist,
+                                                clen, masks), dtype)
+        causal = torch.cumsum(1 << torch.arange(width, device=dev), 0)
+        causal = causal.to(torch.int32)[None].expand(len(hists), width)
+        chain = paged_tree_attention(q, kp, vp, tables, hist, clen,
+                                     causal.contiguous())
+        # the float32 kernel walks a tree on causal masks as a chunk
+        assert torch.equal(chain, paged_chunk_attention(q, kp, vp, tables,
+                                                        hist, clen))
+
+
+@pytest.mark.parametrize("d,dtype", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("form", ["plain", "int8"])
+def test_kv_writes_match_plain_at_every_shape(dev, d, dtype, form):
+    """The fused RoPE write (decode and tree positions), the slab write
+    and the per-layer write give their plain versions' bits."""
+    gen = torch.Generator(device=dev).manual_seed(d + 2)
+    n_layers, hkv, n_pages, pg, li = 2, 4, 12, 16, 1
+    shape = (n_layers, hkv, n_pages, pg, d)
+    k_pool, v_pool = _cast_pools(_randn(gen, dev, *shape),
+                                 _randn(gen, dev, *shape), dtype, form)
+    inv_freq = rope_frequencies(d, 10000.0, device=dev)
+    for mode in ("decode", "tree"):
+        q, k, v, positions, pids, offs = (
+            t.to(dtype) if t.is_floating_point() else t
+            for t in _rope_case(dev, gen, mode, 12, hkv, d, n_pages, pg))
+
+        def run(fn, pos=positions, inv=inv_freq):
+            kp, vp = _clone(k_pool), _clone(v_pool)
+            q_rot = fn(q, k, v, pos, inv, kp, vp, li, pids, offs)
+            torch.cuda.synchronize()
+            return q_rot, kp, vp
+
+        want = run(rope_kv_write_plain)
+        got = run(rope_kv_write)
+        assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+        _assert_pools_equal(got[1], want[1])
+        _assert_pools_equal(got[2], want[2])
+        for pos, inv in ((positions + 1, inv_freq), (positions, -inv_freq)):
+            fault = run(rope_kv_write, pos, inv)
+            assert not torch.equal(fault[0], want[0])
+    tables = torch.tensor([[4, 1, 7], [0, 9, n_pages], [n_pages] * 3],
+                          dtype=torch.int32, device=dev)
+    offsets = torch.tensor([5, 0, 0], dtype=torch.int32, device=dev)
+    lens = torch.tensor([40, 21, 1], dtype=torch.int32, device=dev)
+    slabs = [_randn_t(gen, dev, dtype, n_layers, 3, 48, hkv, d) * 4
+             for _ in range(2)]
+    args = (tables, *slabs, offsets, lens)
+    want = scatter_chunk_kv_plain(_clone(k_pool), _clone(v_pool), *args)
+    got = scatter_chunk_kv(_clone(k_pool), _clone(v_pool), *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_pools_equal(g, w)
+    pids = torch.tensor([3, n_pages, 5, -1, 0], dtype=torch.int32, device=dev)
+    offs = torch.tensor([0, 1, 15, 2, 7], dtype=torch.int32, device=dev)
+    rows = [_randn_t(gen, dev, dtype, 5, hkv, d) for _ in range(2)]
+    want = kv_write_plain(_clone(k_pool), _clone(v_pool), li, pids, offs,
+                          *rows)
+    got = kv_write(_clone(k_pool), _clone(v_pool), li, pids, offs, *rows)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_pools_equal(g, w)

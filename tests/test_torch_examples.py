@@ -909,23 +909,25 @@ def test_jax_async_handler_awaits_the_port_client_with_the_loop_live():
     assert body["data"]["data"] == {"id": "slow", "price": 9.5}
 
 
-# ------------------------------- C19: the demo engine on the card
+# ------------------------------- C19 / C32: the demo engine on the card
 def test_demo_engine_models_jax_on_the_cpu_and_the_kernels_on_cuda():
     """``demo_llama_engine`` (the replay and capacity tools' engine)
-    serves JAX's demo model (``LlamaConfig.tiny()``) on the CPU, and on
-    CUDA a twin at the kernels' shapes: JAX's float32, head_dim 16 model
-    would be refused by every kernel wrapper there."""
+    serves JAX's demo model (``LlamaConfig.tiny()``: float32, head_dim
+    16) on the CPU and on CUDA alike: the kernels take its type and head
+    dim, so the bf16 head_dim-64 twin the card once needed is gone."""
     import torch
 
     from gofr_tpu_torch.models.llama import LlamaConfig
-    from gofr_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+    from gofr_tpu_torch.ops.flash_attention import _check
     from gofr_tpu_torch.serving.glue import demo_config
     assert demo_config("cpu") == LlamaConfig.tiny()
     card = demo_config("cuda")
-    assert card.head_dim in KERNEL_HEAD_DIMS
-    assert card.dtype == torch.bfloat16
-    assert card.n_heads % card.n_kv_heads == 0
-    assert (card.vocab_size, card.max_seq, card.n_layers) == (256, 128, 2)
+    assert card == LlamaConfig.tiny()
+    assert (card.dtype, card.head_dim) == (torch.float32, 16)
+    # the flash kernel's checks take its shapes (nothing is launched)
+    q = torch.zeros(1, 8, card.n_heads, card.head_dim)
+    kv = torch.zeros(1, 8, card.n_kv_heads, card.head_dim)
+    _check(q, kv, kv, torch.full((1,), 8, dtype=torch.int32))
 
 
 @pytest.mark.cuda
