@@ -203,8 +203,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              bit for bit the in-memory int8 engine's, its prompt counted
              by the BPE tokenizer.
 9. serve_moe — the Mixtral-style MoE family (``moe_engine``) at
-             Mixtral-8x7B width, 4 of its 32 layers (8 until train_mesh
-             joined the script), random bf16 weights,
+             Mixtral-8x7B width, 2 of its 32 layers (4 until the
+             attention kernels took every head dim and type, 8 until
+             train_mesh joined the script), random bf16 weights,
              through the app on the slot layout, the paged layout's dense
              view (bf16, and int8 with decode windows 512 / 1024) and the
              slot layout with those windows: four waves (serve's wave 1,
@@ -222,8 +223,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              decode dispatch's view write-back, both forms, each with its
              planted fault, among the kernel rows above).
 10. serve_llama8b — Llama-3-8B (``llama3_8b``: hd 128) at full width,
-             8 of its 32 layers (the full 32, 16.06 GB, until serve_tp
-             joined the script, then 16 until train_mesh did;
+             4 of its 32 layers (the full 32, 16.06 GB, until serve_tp
+             joined the script, 16 until train_mesh did, 8 until the
+             attention kernels took every head dim and type;
              ``phase_serve_llama8b`` takes any depth), random weights,
              through the app on the native paged layout (bf16; int8 with
              speculation), the slot layout, the view (``paged_attention=
@@ -423,6 +425,15 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
              ms a step, each rank's peak memory. No kernel of the
              repository lies on this path.
 
+Kernel rows at the other head dims, types and groups (``kernel_shapes``
+for ``SHAPE_CASES`` and ``WIDE_GROUP_CASES``): each attention row names
+its route (``kernel_route``, ``_build.attention_route``: the split-KV
+decode kernel in every type, the ``wgmma`` kernels for 16-bit flash,
+chunk and tree, the float32 FMA kernel for float32) and its source, and
+is held to its plain version within ``_tols`` (a P-rounding term on the
+``wgmma`` route: 2^-8 in bf16, 2^-11 in float16), with its planted
+fault; GQA groups 32 and 48 run on sub-groups of 16 heads.
+
 Phases 9-22 each print their wall time (``phase_wall_s``).
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line and, as
@@ -432,6 +443,7 @@ result when CUDA is absent or the package is not beside this script.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -469,6 +481,8 @@ ATOL = 1e-3
 RTOL_F32 = 2.0 ** -12
 ATOL_F32 = 1e-4
 LOGITS_TOL = 0.1    # see phase_model and phase_model_spec
+#: traces ``device_ms`` takes before it gives up on one with device time
+PROFILER_TRIES = 8
 
 
 def emit(obj: dict) -> None:
@@ -501,8 +515,9 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
     kernels (and copies) it ran on the card, from ``torch.profiler`` over
     ``iters`` calls after warm-up — the median per call when every call
     ran the same number of them, else the mean. Host time is left out.
-    A trace that holds no device event at all (the profiler drops one now
-    and then) is taken again, up to three times. ``cold``: a 64 MiB
+    A trace that holds no device event of the call (the profiler drops
+    one now and then, three in a row in one run) is taken again after a
+    pause, up to PROFILER_TRIES times. ``cold``: a 64 MiB
     buffer is zeroed before each call, so the call finds the 50 MB L2
     cache holding none of its inputs, as a decode step finds each
     layer's weights; the zeroing kernel is left out of the sum. Its name
@@ -517,7 +532,9 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             if cold:
@@ -538,7 +555,7 @@ def device_ms(fn, warmup: int = 3, iters: int = 25,
             break
     else:
         raise AssertionError("torch.profiler recorded no device time in "
-                             "three traces")
+                             f"{PROFILER_TRIES} traces")
     if len(spans) % iters:
         return sum(end - start for start, end in spans) / iters / 1e3
     k = len(spans) // iters
@@ -1853,17 +1870,50 @@ SHAPE_CASES = (
     (256, "bfloat16", 8, 2, 2, "serve_shapes_d256", False),
     (64, "float16", 32, 8, 2, "serve_shapes_d64", False),
 )
+#: GQA groups above the 16 heads a block holds (the kernels cut them into
+#: sub-groups of one KV head): group 32 (Hq 64 / Hkv 2) on the wgmma and
+#: split-KV routes, group 48 (Hq 48 / Hkv 1) on the float32 and split-KV
+#: routes; no served model has them, so their rows launch nothing on the
+#: main path
+WIDE_GROUP_CASES = (
+    (64, "bfloat16", 64, 2, 2, None, True),
+    (16, "float32", 48, 1, 2, None, True),
+)
+#: the file of each attention route (``_build.attention_route``); the
+#: wgmma route's is the kernel's own source
+ROUTE_SOURCES = {"split_kv": "gofr_tpu_torch/csrc/paged_decode.cu",
+                 "simt": "gofr_tpu_torch/csrc/attn_simt.cuh",
+                 "wgmma": {"flash": "gofr_tpu_torch/csrc/flash_attention.cu",
+                           "chunk": "gofr_tpu_torch/csrc/paged_chunk.cu",
+                           "tree": "gofr_tpu_torch/csrc/paged_chunk.cu"}}
 
 
-def _tols(dtype) -> dict:
-    """The per-element limit of a row against its plain version: a
-    float32 output differs by summation order only (ATOL_F32, RTOL_F32);
-    a 16-bit output is rounded on both sides (ATOL, RTOL). The float32
-    kernel keeps P in float32: no P-rounding term."""
+def _route(kernel: str, dtype, d: int) -> dict:
+    """The route an attention call takes and its source file."""
+    from gofr_tpu_torch.ops._build import attention_route
+    route = attention_route(kernel, dtype, d)
+    source = ROUTE_SOURCES[route]
+    return {"kernel_route": route,
+            "source": source[kernel] if isinstance(source, dict) else source}
+
+
+def _tols(dtype, route: str) -> dict:
+    """The per-element limit of a row against its plain version, |out -
+    ref| <= atol + rtol |ref| + p_round · (the attention average of |V|):
+    a float32 output differs by summation order only (ATOL_F32, RTOL_F32);
+    a 16-bit output is rounded on both sides (ATOL, RTOL). The wgmma
+    route rounds each softmax weight p to the 16-bit type before P·V
+    while l sums the float32 weights, as JAX's kernel rounds P to its
+    input type: 2^-8 relative in bf16, 2^-11 in float16, which moves the
+    output by at most that share of the attention average of |V|. The
+    split-KV decode and the float32 kernel keep P in float32: no
+    P-rounding term."""
     import torch
     if dtype == torch.float32:
-        return {"atol": ATOL_F32, "rtol": RTOL_F32}
-    return {"atol": ATOL, "rtol": RTOL}
+        return {"atol": ATOL_F32, "rtol": RTOL_F32, "p_round": 0.0}
+    p_round = 0.0 if route != "wgmma" else \
+        P_ROUND if dtype == torch.bfloat16 else 2.0 ** -11
+    return {"atol": ATOL, "rtol": RTOL, "p_round": p_round}
 
 
 def _shape_row(fields: dict, shape: str, dtype, check_out: dict, call,
@@ -1891,12 +1941,17 @@ def _shape_row(fields: dict, shape: str, dtype, check_out: dict, call,
     return row
 
 
-def _attn_check(name: str, out, ref, faults: dict, dtype) -> dict:
+def _attn_check(name: str, out, ref, faults: dict, dtype, route: str,
+                abs_v_ref=None) -> dict:
     """The kernel within its limit of the plain version, and every
-    planted fault outside it; prints the check line."""
-    tol = _tols(dtype)
-    err, ratios = check(out, ref, **tol)
-    fault_ratios = {k: check(v, ref, **tol)[1] for k, v in faults.items()}
+    planted fault outside it; prints the check line. ``abs_v_ref``: the
+    plain version over |V| (the attention average of |V|), which the
+    P-rounding term of ``_tols`` scales."""
+    tol = _tols(dtype, route)
+    extra = tol["p_round"] * abs_v_ref.float() if tol["p_round"] else 0.0
+    limits = {"atol": tol["atol"], "rtol": tol["rtol"], "extra": extra}
+    err, ratios = check(out, ref, **limits)
+    fault_ratios = {k: check(v, ref, **limits)[1] for k, v in faults.items()}
     emit({"phase": "kernel_check", "name": name, "max_abs_err": err, **tol,
           "worst_ratio_per_row": ratios,
           **{f"planted_fault_{k}_worst_ratio": max(v)
@@ -1921,7 +1976,8 @@ def _sdpa(q4, k4, v4, group, mask):
 
 
 def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
-                  n_layers: int, launches_from: str, tree: bool) -> list:
+                  n_layers: int, launches_from: str | None, tree: bool,
+                  writes: bool = True) -> list:
     """The four kernels at head dim ``d`` in ``dtype_name``, at the
     serving shapes of the model whose heads they are (Hq, Hkv), each
     against its plain version with a planted fault: flash (P 4, S 512,
@@ -1935,8 +1991,11 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
     masks in place of the trees'); and the fused RoPE + K/V write at a
     decode step's 8 rows into a pool of ``n_layers`` layers, both forms,
     bit for bit (faults: positions one late, the rotate-half sign
-    flipped). Rows are named ``<kernel>_d<d>_<type>``; their launches
-    come from ``launches_from``."""
+    flipped); ``writes=False`` leaves the write out. Each attention row
+    runs its route (``_route``) and is held to ``_tols``. Rows are named
+    ``<kernel>_d<d>_<type>`` (``_g<group>`` after it for a group above
+    16); their launches come from ``launches_from``, or with None from no
+    main-path phase (``main_path`` false, launches 0)."""
     import torch
     from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_plain)
@@ -1951,16 +2010,19 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
     es = torch.finfo(dtype).bits // 8
     gen = torch.Generator(device=dev).manual_seed(d + hq)
     group = hq // hkv
-    tag = f"_d{d}_{dtype_name}"
+    tag = f"_d{d}_{dtype_name}" + (f"_g{group}" if group > 16 else "")
     shape_tag = f"Hq={hq} Hkv={hkv} hd={d} {dtype_name}"
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def fields(kernel, form, source, replaces):
-        return {"name": kernel + form + tag, "wrapper": kernel + form,
-                "launches_from": launches_from, "source": source,
-                "replaces": replaces}
+        row = {"name": kernel + form + tag, "wrapper": kernel + form,
+               "launches_from": launches_from or "none", "source": source,
+               "replaces": replaces}
+        if launches_from is None:
+            row["main_path"] = False
+        return row
 
     def kv_bytes(rows, quantized):
         return 2 * rows * hkv * ((d + 4) if quantized else es * d)
@@ -1971,17 +2033,21 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
     q, k, v = randn(p, s, hq, d), randn(p, s, hkv, d), randn(p, s, hkv, d)
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     name = "flash_attention" + tag
+    route = _route("flash", dtype, d)
     out = flash_attention(q, k, v, kv_lengths=lens)
     ref = flash_attention_plain(q, k, v, kv_lengths=lens)
     checked = _attn_check(name, out, ref, {"kv_len_short": flash_attention(
-        q, k, v, kv_lengths=(lens - 1).clamp(min=1))}, dtype)
+        q, k, v, kv_lengths=(lens - 1).clamp(min=1))}, dtype,
+        route["kernel_route"],
+        flash_attention_plain(q, k, v.abs(), kv_lengths=lens))
     r = torch.arange(s, device=dev)
     mask = ((r[None, :] <= r[:, None])[None]
             & (r[None, None, :] < lens[:, None, None]))[:, None]
     visible = sum(min(i + 1, n) for n in lens_l for i in range(s))
     rows.append(_shape_row(
-        fields("flash_attention", "", "gofr_tpu_torch/csrc/attn_simt.cuh",
-               "gofr_tpu/ops/flash_attention.py:33"),
+        {**fields("flash_attention", "", route["source"],
+                  "gofr_tpu/ops/flash_attention.py:33"),
+         "kernel_route": route["kernel_route"]},
         f"P={p} S={s} {shape_tag}, kv_lengths 1/200/511/512", dtype, checked,
         lambda: flash_attention(q, k, v, kv_lengths=lens),
         lambda: flash_attention_plain(q, k, v, kv_lengths=lens),
@@ -2015,6 +2081,7 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
     qd = randn(b, hq, d)
     cut = torch.where(lens > pg, lens - lens % pg, lens)
     mp = tables.shape[1]
+    route = _route("decode", dtype, d)
     for form, kpool, vpool in forms:
         args = (qd, kpool, vpool, tables, lens)
         faults = {"tail_page": paged_decode_attention(qd, kpool, vpool,
@@ -2025,17 +2092,17 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
         name = "paged_decode_attention" + form + tag
         out = paged_decode_attention(*args)
         checked = _attn_check(name, out, paged_decode_attention_plain(*args),
-                              faults, dtype)
+                              faults, dtype, route["kernel_route"])
         if any(out[i].abs().max().item() != 0.0
                for i, n in enumerate(lens_l) if n == 0):
             raise AssertionError(f"{name}: a zero-length slot is not zero")
         dmask = (torch.arange(mp * pg, device=dev)[None, :]
                  < lens[:, None])[:, None, None, :]
         rows.append(_shape_row(
-            fields("paged_decode_attention", form,
-                   "gofr_tpu_torch/csrc/attn_simt.cuh",
-                   "gofr_tpu/ops/paged_attention.py:"
-                   + ("138" if form else "134")),
+            {**fields("paged_decode_attention", form, route["source"],
+                      "gofr_tpu/ops/paged_attention.py:"
+                      + ("138" if form else "134")),
+             "kernel_route": route["kernel_route"]},
             f"B={b} {shape_tag} pg={pg} Np={n_pages}, lengths "
             f"0/1/63/64/65/1500/300/1000, " + ("int8 {q, s}" if form
                                                else "plain pool"),
@@ -2068,19 +2135,22 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
     visible = sum(min(h + i + 1, mp * pg) for h, c in zip(hists, clens)
                   for i in range(c))
     kv_rows = [h + c for h, c in zip(hists, clens)]
+    route = _route("chunk", dtype, d)
     for form, kpool, vpool in forms:
         args = (qc, kpool, vpool, tables, hist, clen)
         faults = {"history_page": paged_chunk_attention(qc, kpool, vpool,
                                                         bad, hist, clen)}
         name = "paged_chunk_attention" + form + tag
         out = paged_chunk_attention(*args)
-        checked = _attn_check(name, out, paged_chunk_attention_plain(*args),
-                              faults, dtype)
+        checked = _attn_check(
+            name, out, paged_chunk_attention_plain(*args), faults, dtype,
+            route["kernel_route"], paged_chunk_attention_plain(
+                qc, kpool, _abs_pool(vpool), tables, hist, clen))
         rows.append(_shape_row(
-            fields("paged_chunk_attention", form,
-                   "gofr_tpu_torch/csrc/attn_simt.cuh",
-                   "gofr_tpu/ops/paged_attention.py:"
-                   + ("362" if form else "357")),
+            {**fields("paged_chunk_attention", form, route["source"],
+                      "gofr_tpu/ops/paged_attention.py:"
+                      + ("362" if form else "357")),
+             "kernel_route": route["kernel_route"]},
             f"B={b} Sq={sq} {shape_tag} pg={pg} Np={n_pages} Mp={mp}, "
             f"(history, chunk) (0, 1024) (1024, 777) (896, 6) (0, 0), "
             + ("int8 {q, s}" if form else "plain pool"), dtype, checked,
@@ -2122,22 +2192,23 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
                           < clen[:, None, None]))[:, None]
         visible = int(tmask.sum())
         kv_rows = [h + c for h, c in zip(hists, clens)]
+        route = _route("tree", dtype, d)
         for form, kpool, vpool in forms:
             args = (qt, kpool, vpool, tables, hist, clen, masks)
             faults = {"causal_masks": paged_tree_attention(
                 qt, kpool, vpool, tables, hist, clen, causal)}
             name = "paged_tree_attention" + form + tag
             out = paged_tree_attention(*args)
-            checked = _attn_check(name, out,
-                                  paged_tree_attention_plain(*args), faults,
-                                  dtype)
+            checked = _attn_check(
+                name, out, paged_tree_attention_plain(*args), faults, dtype,
+                route["kernel_route"], paged_tree_attention_plain(
+                    qt, kpool, _abs_pool(vpool), tables, hist, clen, masks))
             rows.append(_shape_row(
                 # the slice's serving path runs no speculation
-                {**fields("paged_tree_attention", form,
-                          "gofr_tpu_torch/csrc/attn_simt.cuh",
+                {**fields("paged_tree_attention", form, route["source"],
                           "gofr_tpu/ops/paged_attention.py:"
                           + ("619" if form else "614")),
-                 "main_path": False},
+                 "kernel_route": route["kernel_route"], "main_path": False},
                 f"B={b} W={width} {shape_tag} pg={pg} Np={n_pages} Mp={mp}, "
                 f"histories 0/1/63/64/65/1500/300/1000, "
                 + ("int8 {q, s}" if form else "plain pool"), dtype, checked,
@@ -2153,6 +2224,8 @@ def kernel_shapes(dev, d: int, dtype_name: str, hq: int, hkv: int,
                 "SDPA on the gathered view with the trees' visibility as a "
                 "boolean mask (an int8 pool dequantized beforehand)"))
 
+    if not writes:
+        return rows
     # the fused RoPE + K/V write at a decode step's 8 rows
     li = n_layers // 2
     wshape = (n_layers, hkv, n_pages, pg, d)
@@ -16107,6 +16180,9 @@ def main() -> int:
     # come from serve_openllama and serve_shapes
     for case in SHAPE_CASES:
         rows += kernel_shapes(dev, *case)
+    # GQA groups 32 and 48, cut into sub-groups of 16 heads on the card
+    for case in WIDE_GROUP_CASES:
+        rows += kernel_shapes(dev, *case, writes=False)
     phase_moe_tie(dev)
     phase_model(dev)
     phase_model_chunk(dev)
@@ -16125,17 +16201,18 @@ def main() -> int:
                 **phase_serve_wq(dev, smi_line)}
     phase_serve_preempt(dev, smi_line)
     phase_checkpoint(dev, smi_line)
-    # Llama-3-8B at 8 of its 32 layers and Mixtral-8x7B at 4 since
-    # train_mesh joined the script (16 and 8 before), to keep the whole
+    # Llama-3-8B at 4 of its 32 layers and Mixtral-8x7B at 2 since the
+    # attention kernels came in every type and head dim (8 and 4 before,
+    # 16 and 8 before train_mesh joined the script), to keep the whole
     # run well inside its time limit
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.models.moe import MoEConfig
     sources = {"serve_moe": phase_serve_moe(
                    dev, smi_line,
-                   cfg=MoEConfig.mixtral_8x7b().scaled(n_layers=4)),
+                   cfg=MoEConfig.mixtral_8x7b().scaled(n_layers=2)),
                "serve_llama8b": phase_serve_llama8b(
                    dev, smi_line,
-                   cfg=LlamaConfig.llama3_8b().scaled(n_layers=8))}
+                   cfg=LlamaConfig.llama3_8b().scaled(n_layers=4))}
     sources["serve_openllama"] = phase_serve_openllama(dev, smi_line)
     sources.update(phase_serve_shapes(dev, smi_line))
     phase_serve_embed(dev, smi_line)
@@ -16150,6 +16227,8 @@ def main() -> int:
     phase_train_llama(dev, smi_line)
     sources["serve_tp"] = phase_serve_tp(dev, smi_line)
     phase_train_mesh(dev, smi_line)
+    # rows of shapes no phase serves (main_path false) launch nothing there
+    sources["none"] = collections.defaultdict(int)
     for row in rows:
         source = sources.get(row.get("launches_from"), launches)
         wrapper = row.get("wrapper", row["name"])
@@ -16167,7 +16246,7 @@ def main() -> int:
     # call's, the unfused path, whether the main path runs it, its
     # launches under the model-serving example
     extra = ("kernel_device_ms", "unfused_path_ms", "unfused_path_device_ms",
-             "main_path", "serve_examples_launches")
+             "main_path", "serve_examples_launches", "kernel_route")
     emit({"kernels": [{k: row[k] for k in keys + extra if k in row}
                       for row in rows]})
     print(smi_line, flush=True)

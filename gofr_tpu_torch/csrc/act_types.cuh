@@ -1,7 +1,7 @@
 // The activation types the C entries take, by the code each reads as its
 // `dtype` argument, and their exact conversions to float32 and back
-// (round to nearest even), shared by the attention kernel of every
-// shape (attn_simt.cuh) and the K/V writers (kv_write.cu).
+// (round to nearest even), shared by the attention kernels and the K/V
+// writers (kv_write.cu).
 
 #pragma once
 
@@ -28,6 +28,18 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// Two neighbouring outputs (p aligned to two elements), each rounded to
+// nearest even.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace act

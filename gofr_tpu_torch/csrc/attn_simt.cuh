@@ -1,41 +1,37 @@
-// The attention kernel of every shape the tensor-core kernels do not
-// hold: any head dim D that is a multiple of 4 from 16 to 256, and
-// bf16, float16 or float32 activations (with bf16 at D = 64 / 128 the
-// wgmma kernels run, and this one never does). One kernel body serves
-// the four functions of the Pallas kernels it stands in for, as the
-// mode in its arguments says:
+// The float32 attention kernel: flash prefill and paged chunk / tree at
+// any head dim D that is a multiple of 4 from 16 to 256, for float32
+// activations (bf16 and float16 run the wgmma kernels, float32 decode the
+// split-KV kernel of paged_decode.cu). Kept in float32 FMAs: the tensor
+// cores' TF32 keeps about three decimal digits, and JAX's float32 kernel
+// computes in full float32. One kernel body serves the three functions
+// of the Pallas kernels it stands in for, as the mode in its arguments
+// says:
 //   FLASH  gofr_tpu/ops/flash_attention.py `_flash_kernel`: q [B, Sq,
 //          Hq, D] against dense k/v [B, Skv, Hkv, D], row i sees column
 //          c iff c <= i and c < kv_lengths[b];
-//   DECODE `_paged_decode_kernel`: q [B, Hq, D] (Sq = 1) against one
-//          layer's head-major pool [Hkv, Np, pg, D] through the slot's
-//          table, positions < lengths[b];
-//   CHUNK  `_paged_chunk_kernel`: q [B, Sq, Hq, D], row i sees p <=
-//          history + i and p < history + chunk;
+//   CHUNK  `_paged_chunk_kernel`: q [B, Sq, Hq, D] against one layer's
+//          head-major pool [Hkv, Np, pg, D] through the slot's table, row
+//          i sees p <= history + i and p < history + chunk;
 //   TREE   `_paged_tree_kernel`: the chunk layout, node i sees the
 //          history and the in-chunk rows its ancestor mask names.
-// The pool is in the activations' type, or int8 codes with a float32
-// scale per row (value = code * scale in float32, as the plain
-// version's slot_view dequantizes it). Table ids clamp to Np - 1, a
-// slot walks at most max_pages pages, masked positions weigh exactly
-// 0, and a row divides by max(l, 1e-30): a row that sees nothing, and
-// every padding row (i >= chunk), writes zeros. (The JAX kernels pad
-// the head dim to their 128-lane tiles and run the same masks; the
-// Pallas kernels compute in float32 whatever the input type, and so
-// does this one.)
+// The pool is float32, or int8 codes with a float32 scale per row (value
+// = code * scale in float32, as the plain version's slot_view
+// dequantizes it). Table ids clamp to Np - 1, a slot walks at most
+// max_pages pages, masked positions weigh exactly 0, and a row divides
+// by max(l, 1e-30): a row that sees nothing, and every padding row (i >=
+// chunk), writes zeros. (The JAX kernels pad the head dim to their
+// 128-lane tiles and run the same masks.)
 //
-// What bounds it on the H100: as its wgmma siblings, HBM bytes at
-// decode and short chunks, and the products at long prefills. This is
-// the simple form: every product in float32 FMAs on the CUDA cores
-// (full float32, never TF32, whatever the input type), 67 TFLOP/s at
-// best against the 989 of the bf16 tensor cores, with shared-memory
-// reads feeding each FMA. The design:
+// What bounds it on the H100: as its wgmma siblings, HBM bytes at short
+// chunks, and the products at long prefills: here float32 FMAs on the
+// CUDA cores, 67 TFLOP/s at best, with shared-memory reads feeding each
+// FMA. The design:
 //   - one block per (q tile, KV head, slot): the tile's bq positions x
 //     group query heads (at most ROWS = 16 rows) share every K/V tile
-//     staged, so the group's heads read K/V once; a warp holds RW = 4
-//     rows, and a block has 4 warps whatever its rows (a decode step of
-//     an MHA model has one): a walk waits on its loads, not its math,
-//     and every warp stages;
+//     staged, so the group's heads read K/V once; a group above 16 heads
+//     is cut into sub-groups of the same KV head, one block each
+//     (paged_common.cuh `sub_groups`); a warp holds RW = 4 rows, and a
+//     block has 4 warps whatever its rows: every warp stages;
 //   - K and V tiles of BK = 32 positions are staged in float32 (int8
 //     codes dequantized on the way), a thread issuing LD = 4 vectors'
 //     loads before it stores any, K at an odd row stride D + 1 so
@@ -53,12 +49,10 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "act_types.cuh"
+#include "paged_common.cuh"
 
 namespace simt {
 
@@ -72,13 +66,7 @@ constexpr int NC = MAX_D / 32;         // output columns a lane holds at most
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-enum Mode { FLASH = 0, DECODE = 1, CHUNK = 2, TREE = 3 };
-
-using act::BF16;
-using act::F16;
-using act::F32;
-using act::from_f;
-using act::to_f;
+enum Mode { FLASH = 0, CHUNK = 2, TREE = 3 };
 
 struct Args {
   const void* q;
@@ -87,7 +75,7 @@ struct Args {
   const float* k_scales;    // int8 pools: [Hkv, Np, pg, 1]
   const float* v_scales;
   const int* tables;        // paged: [B, max_pages]
-  const int* len_a;         // flash: kv_lengths; decode: lengths; else history
+  const int* len_a;         // flash: kv_lengths; else history
   const int* len_b;         // chunk / tree: chunk lengths
   const int* tree_masks;    // tree: [B, Sq]
   void* out;                // q's layout and type
@@ -96,27 +84,15 @@ struct Args {
   int n_pages, page, max_pages;   // paged
   int mode;
   int bq;                   // query positions a block holds
+  int n_sub;                // sub-groups of a group (one block each)
   float scale;
 };
 
-// Four neighbouring elements as floats (exact): 16 bytes of float32, 8
-// of a 16-bit type, 4 of int8 codes; p is aligned to four elements.
+// Four neighbouring elements as floats (exact): 16 bytes of float32, 4
+// of int8 codes; p is aligned to four elements.
 __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   const float4 w = *reinterpret_cast<const float4*>(p);
   f[0] = w.x; f[1] = w.y; f[2] = w.z; f[3] = w.w;
-}
-__device__ __forceinline__ void load4(const __half* p, float (&f)[4]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  f[0] = __uint_as_float(w.x << 16);
-  f[1] = __uint_as_float(w.x & 0xffff0000u);
-  f[2] = __uint_as_float(w.y << 16);
-  f[3] = __uint_as_float(w.y & 0xffff0000u);
 }
 __device__ __forceinline__ void load4(const int8_t* p, float (&f)[4]) {
   const char4 c = *reinterpret_cast<const char4*>(p);
@@ -130,9 +106,10 @@ __host__ __device__ inline size_t smem_floats(int D) {
   return (size_t)ROWS * D + (size_t)BK * (D + 1) + (size_t)BK * dv;
 }
 
-// T: q / out (and a plain pool's) type; PT: the pool's element type (T,
-// or int8 codes); PAGED: K/V through block tables, else dense (flash).
-template <typename T, typename PT, bool PAGED>
+// q / out (and a plain pool) are float32; PT: the pool's element type
+// (float, or int8 codes); PAGED: K/V through block tables, else dense
+// (flash).
+template <typename PT, bool PAGED>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 attn(const Args a) {
   extern __shared__ __align__(16) float sm[];
@@ -142,11 +119,14 @@ attn(const Args a) {
   float* const vs = ks + (size_t)BK * (D + 1);         // [BK][dv]
 
   const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;   // longest first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y / a.n_sub, b = blockIdx.z;
   const int group = a.Hq / a.Hkv;
+  const SubGroups sg = sub_groups(group, ROWS);
+  const int head0 = blockIdx.y % a.n_sub * sg.size;
+  const int gs = min(sg.size, group - head0);   // this block's query heads
   const int i0 = qt * a.bq;
-  const int rows = a.bq * group;   // block row r: position i0 + r / group,
-                                   // head hk * group + r % group
+  const int rows = a.bq * sg.size;   // block row r: position i0 + r / size,
+                                     // head head0 + r % size (if < gs)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = blockDim.x;
 
@@ -155,26 +135,27 @@ attn(const Args a) {
   int base = 0, n_live = a.Sq, kv_end;
   if (a.mode == FLASH) {
     kv_end = min(max(a.len_a[b], 0), a.Skv);
-  } else if (a.mode == DECODE) {
-    kv_end = min(max(a.len_a[b], 0), a.max_pages * a.page);
   } else {
     base = max(a.len_a[b], 0);
     n_live = min(max(a.len_b[b], 0), a.Sq);
     kv_end = min(base + n_live, a.max_pages * a.page);
   }
   // the last position any row of the tile can see, plus one
-  const int lim = a.mode == DECODE
-      ? kv_end : min(base + min(i0 + a.bq, n_live), kv_end);
+  const int lim = min(base + min(i0 + a.bq, n_live), kv_end);
+  // block row r holds a query row of this block's heads below `bound`
+  auto holds = [&](int r, int bound) {
+    return r < rows && r % sg.size < gs && i0 + r / sg.size < bound;
+  };
 
   const size_t q_rs = (size_t)a.Hq * D;   // row stride of q / out
-  const size_t head0 = (size_t)b * a.Sq * q_rs + (size_t)hk * group * D;
-  const T* qb = static_cast<const T*>(a.q) + head0;
-  T* ob = static_cast<T*>(a.out) + head0;
+  const size_t qo0 = (size_t)b * a.Sq * q_rs + ((size_t)hk * group + head0) * D;
+  const float* qb = static_cast<const float*>(a.q) + qo0;
+  float* ob = static_cast<float*>(a.out) + qo0;
 
   if (i0 >= n_live) {   // the whole tile is padding: zeros
     for (int e = tid; e < rows * D; e += nthreads) {
-      const int r = e / D, i = i0 + r / group;
-      if (i < a.Sq) ob[(size_t)i * q_rs + (r % group) * D + e % D] = from_f<T>(0.f);
+      const int r = e / D, i = i0 + r / sg.size;
+      if (holds(r, a.Sq)) ob[(size_t)i * q_rs + (r % sg.size) * D + e % D] = 0.f;
     }
     return;
   }
@@ -183,10 +164,10 @@ attn(const Args a) {
   // slot's live rows are zeros
   const float qscale = a.scale * LOG2E;
   for (int e = tid; e < ROWS * (D / 4); e += nthreads) {
-    const int r = e / (D / 4), d = 4 * (e % (D / 4)), i = i0 + r / group;
+    const int r = e / (D / 4), d = 4 * (e % (D / 4)), i = i0 + r / sg.size;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r < rows && i < n_live)
-      load4(qb + (size_t)i * q_rs + (r % group) * D + d, f);
+    if (holds(r, n_live))
+      load4(qb + (size_t)i * q_rs + (r % sg.size) * D + d, f);
     *reinterpret_cast<float4*>(qs + (size_t)r * D + d) =
         make_float4(f[0] * qscale, f[1] * qscale, f[2] * qscale, f[3] * qscale);
   }
@@ -197,8 +178,8 @@ attn(const Args a) {
   bool any = false;
 #pragma unroll
   for (int t = 0; t < RW; ++t) {
-    const int r = warp * RW + t, i = i0 + r / group;
-    live[t] = r < rows && i < n_live;
+    const int r = warp * RW + t, i = i0 + r / sg.size;
+    live[t] = holds(r, n_live);
     any |= live[t];
     qpos[t] = a.mode == FLASH ? i : a.mode == CHUNK ? base + i : 0x7fffffff;
     mask[t] = a.mode == TREE && live[t] ? a.tree_masks[(size_t)b * a.Sq + i] : 0;
@@ -329,69 +310,56 @@ attn(const Args a) {
   // out = o / max(l, 1e-30); rows past the live ones write zeros
 #pragma unroll
   for (int t = 0; t < RW; ++t) {
-    const int r = warp * RW + t, i = i0 + r / group;
+    const int r = warp * RW + t, i = i0 + r / sg.size;
     float lt = l[t];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, o);
-    if (r >= rows || i >= a.Sq) continue;
+    if (!holds(r, a.Sq)) continue;
     const float inv = live[t] ? 1.f / fmaxf(lt, 1e-30f) : 0.f;
-    T* orow = ob + (size_t)i * q_rs + (r % group) * D;
+    float* orow = ob + (size_t)i * q_rs + (r % sg.size) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (c < nc && d < D) orow[d] = from_f<T>(acc[t][c] * inv);
+      if (c < nc && d < D) orow[d] = acc[t][c] * inv;
     }
   }
 }
 
 // Launch the kernel for the arguments' shapes on `stream`: bq = ROWS /
-// group query positions a block (at most Sq), MAX_WARPS warps.
+// (sub-)group query positions a block (at most Sq), MAX_WARPS warps.
 // Returns the cudaError_t of the attribute call or the launch.
-template <typename T, typename PT, bool PAGED>
+template <typename PT, bool PAGED>
 int launch(Args a, cudaStream_t stream) {
-  const int group = a.Hq / a.Hkv;
-  a.bq = max(1, min(ROWS / group, a.Sq));
-  const dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
+  const SubGroups sg = sub_groups(a.Hq / a.Hkv, ROWS);
+  a.n_sub = sg.n;
+  a.bq = max(1, min(ROWS / sg.size, a.Sq));
+  if ((long)a.Hkv * sg.n > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv * sg.n, a.B);
   const size_t smem = smem_floats(a.D) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn<T, PT, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn<PT, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  attn<T, PT, PAGED><<<grid, MAX_WARPS * 32, smem, stream>>>(a);
+  attn<PT, PAGED><<<grid, MAX_WARPS * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The head dims and shapes this kernel takes.
 inline bool takes(const Args& a) {
   return a.D >= 16 && a.D <= MAX_D && a.D % 4 == 0 && a.B > 0 && a.Sq > 0 &&
-         a.Hkv > 0 && a.Hq % a.Hkv == 0 && a.Hq / a.Hkv <= ROWS &&
-         a.Hkv <= 65535 && a.B <= 65535;
+         a.Hkv > 0 && a.Hq > 0 && a.Hq % a.Hkv == 0 && a.B <= 65535;
 }
 
-// Dispatch on the activation type (and, paged, on the pool's form:
-// k_scales set for int8 codes; a dense K/V is always in q's type).
+// Launch for float32 activations (paged: on the pool's form, k_scales
+// set for int8 codes; a dense K/V is always float32).
 template <bool PAGED>
-int run(const Args& a, int dtype, cudaStream_t stream) {
+int run(const Args& a, cudaStream_t stream) {
   if (!takes(a)) return (int)cudaErrorInvalidValue;
-  const bool q8 = PAGED && a.k_scales != nullptr;
-  switch (dtype) {
-    case BF16:
-      if constexpr (PAGED)
-        if (q8) return launch<__nv_bfloat16, int8_t, true>(a, stream);
-      return launch<__nv_bfloat16, __nv_bfloat16, PAGED>(a, stream);
-    case F16:
-      if constexpr (PAGED)
-        if (q8) return launch<__half, int8_t, true>(a, stream);
-      return launch<__half, __half, PAGED>(a, stream);
-    case F32:
-      if constexpr (PAGED)
-        if (q8) return launch<float, int8_t, true>(a, stream);
-      return launch<float, float, PAGED>(a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if constexpr (PAGED)
+    if (a.k_scales != nullptr) return launch<int8_t, true>(a, stream);
+  return launch<float, PAGED>(a, stream);
 }
 
 }  // namespace simt

@@ -1,6 +1,7 @@
 // Helpers the paged decode and chunk/tree kernels share (the flash
 // kernel takes its cp.async and launch helpers too): an int8 code's
-// value, asynchronous global -> shared copies (cp.async), and the launch
+// value, asynchronous global -> shared copies (cp.async) and the widest
+// copy a row takes, the sub-groups of a wide GQA group, and the launch
 // of a split-KV grid whose splits of one work item form a thread-block
 // cluster.
 //
@@ -15,6 +16,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 // the portable thread-block cluster size: the most splits a walk takes
 constexpr int MAX_SPLITS = 8;
@@ -57,6 +60,45 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// `vec` bytes (16, 8 or 4, the same across the warp), as above.
+__device__ __forceinline__ void cp_async_vec(void* dst, const void* src,
+                                             int vec, int src_bytes) {
+  if (vec == 16)
+    cp_async16(dst, src, src_bytes);
+  else if (vec == 8)
+    cp_async8(dst, src, src_bytes);
+  else
+    cp_async4(dst, src, src_bytes);
+}
+
+// The widest copy, 16, 8 or 4 bytes, that divides a row of `row_bytes`
+// and the address of every pointer given (0: not even 4 does). A row
+// whose bytes are not a multiple of 16 (head dim 100 in float16: 200
+// bytes) is staged in 8- or 4-byte copies, so the card reads only the
+// row's own bytes.
+inline int copy_width(int row_bytes, std::initializer_list<const void*> ptrs) {
+  for (int vec = 16; vec >= 4; vec /= 2) {
+    bool ok = row_bytes % vec == 0;
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(p) % vec == 0;
+    if (ok) return vec;
+  }
+  return 0;
+}
+
+// A GQA group of more query heads than a block holds (`cap`) is cut into
+// `n` sub-groups of the same KV head, `size` = ceil(group / n) heads each
+// (the last one fewer where n does not divide the group), one block each;
+// a group of at most `cap` heads is one sub-group.
+struct SubGroups {
+  int n, size;
+};
+__host__ __device__ inline SubGroups sub_groups(int group, int cap) {
+  if (group <= cap) return {1, group};
+  const int n = (group + cap - 1) / cap;
+  return {n, (group + n - 1) / n};
 }
 
 // Launch `kernel` on `grid` x `threads` with `smem` dynamic shared bytes.

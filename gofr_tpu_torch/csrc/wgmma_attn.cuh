@@ -1,15 +1,20 @@
 // The warpgroup tensor-core core that the flash prefill and the paged
-// chunk/tree kernels share: one block is one warpgroup (4 warps, 128
-// threads) that owns a 64-row tile of query rows, walks 64-row K/V
-// tiles staged in shared memory, and runs both products of a tile on
-// wgmma (Hopper's asynchronous warpgroup MMA, sm_90a only):
+// chunk/tree kernels share, for bf16 and float16 operands (T): one block
+// is one warpgroup (4 warps, 128 threads) that owns a 64-row tile of
+// query rows, walks 64-row K/V tiles staged in shared memory, and runs
+// both products of a tile on wgmma (Hopper's asynchronous warpgroup MMA,
+// sm_90a only):
 //   S = Q K^T  wgmma.mma_async m64n64k16, A (Q) and B (K) from shared
-//              memory, D/16 k-steps, f32 accumulate;
+//              memory, DP/16 k-steps, f32 accumulate;
 //   O += P V   wgmma.mma_async m64n64k16 per 64 output columns, A (P)
 //              from registers, B (V) from the row-major V tile read
 //              MN-major (the transpose bit), 4 k-steps.
+// DP is the staged head dim: the call's D rounded up to a whole swizzle
+// atom (64 columns). Columns D .. DP of Q and K are staged as zeros, so S
+// is exactly the D-column product; V's columns past D give output
+// columns that are never stored.
 //
-// Shared-memory tiles. A [64 rows][D] bf16 tile is stored as D / 64
+// Shared-memory tiles. A [64 rows][DP] 16-bit tile is stored as DP / 64
 // swizzle atoms of [64 rows][64 columns] (8 KiB each, 1024-byte
 // aligned): row r of an atom is 128 bytes at r * 128, and its 16-byte
 // chunk c sits at chunk c ^ (r & 7) — the 128-byte swizzle wgmma reads.
@@ -25,8 +30,10 @@
 // lane / 4, tig = lane % 4 its accumulator element d[n][e] is row
 // 16 w + gid + 8 (e >> 1), column 8 n + 2 tig + (e & 1) — the layout of
 // mma.sync's C fragment, n-tile by n-tile. A register A operand of
-// m64nNk16 (bf16) is, per warp, mma.sync's m16k16 A fragment, so the
-// S accumulator re-packs into P V's A operand without leaving registers.
+// m64nNk16 (16-bit) is, per warp, mma.sync's m16k16 A fragment, so the
+// S accumulator re-packs into P V's A operand without leaving registers
+// (P rounded to T: 2^-8 relative for bf16, 2^-11 for float16, as JAX's
+// kernel rounds P to its input type before P V).
 //
 // Synchronisation: wgmma reads shared memory through the async proxy,
 // so threads that wrote a tile (cp.async or plain stores) fence the
@@ -38,7 +45,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace wgattn {
 
@@ -46,12 +56,12 @@ constexpr int ROWS = 64;       // query rows per block: the wgmma M
 constexpr int BK = 64;         // K/V rows per tile
 constexpr int NTHREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;      // K/V tiles in the ring: double buffered
-constexpr int ATOM = 64 * 128; // bytes of one [64][64] bf16 swizzle atom
+constexpr int ATOM = 64 * 128; // bytes of one [64][64] 16-bit swizzle atom
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Byte offset of 16-byte chunk c (8 bf16 columns, c < D / 8) of row r
-// (< 64) in a swizzled [64][D] tile.
+// Byte offset of 16-byte chunk c (8 columns, c < DP / 8) of row r (< 64)
+// in a swizzled [64][DP] tile.
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 3) * ATOM + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
@@ -123,45 +133,63 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
   "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
 
 // d (64 x 64, f32) = A (64 x 16, K-major in shared memory) B (16 x 64,
-// K-major in shared memory), plus d when acc != 0.
+// K-major in shared memory), plus d when acc != 0; A and B of type T.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a,
                                          uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGATTN_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WGATTN_D32_OPS(d)
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WGATTN_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WGATTN_D32_OPS(d)
+        : "l"(a), "l"(b), "r"(acc));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGATTN_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WGATTN_D32_OPS(d)
+        : "l"(a), "l"(b), "r"(acc));
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64,
+// d (64 x 64, f32) += A (64 x 16, pairs of T in registers) B (16 x 64,
 // MN-major in shared memory: the transpose bit).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGATTN_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WGATTN_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WGATTN_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WGATTN_D32_OPS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGATTN_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WGATTN_D32_OPS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #undef WGATTN_D32
 #undef WGATTN_D32_OPS
 
 // s = Q K^T for the block's 64 rows x the tile's 64 K/V rows: q and k
-// are the swizzled [64][D] tiles; returns with the product complete.
-template <int D>
+// are the swizzled [64][DP] tiles; returns with the product complete.
+template <typename T, int DP>
 __device__ __forceinline__ void qk(float (&s)[8][4], const void* q,
                                    const void* k) {
   const uint64_t dq = desc(saddr(q)), dk = desc(saddr(k));
   pin(s);
   wg_fence();
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
+  for (int kc = 0; kc < DP / 16; ++kc) {
     // k-step kc: atom kc / 4, 32 bytes per step inside its rows
     const uint32_t off = (kc >> 2) * (ATOM >> 4) + (kc & 3) * 2;
-    wgmma_ss(s, dq + off, dk + off, kc > 0);
+    wgmma_ss<T>(s, dq + off, dk + off, kc > 0);
   }
   wg_commit();
   wg_wait0();
@@ -169,24 +197,24 @@ __device__ __forceinline__ void qk(float (&s)[8][4], const void* q,
 }
 
 // o += P V: pa holds P's four 16-column A operands, v is the swizzled
-// [64][D] V tile, o the D / 64 column blocks of the output.
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 64][8][4],
+// [64][DP] V tile, o the DP / 64 column blocks of the output.
+template <typename T, int DP>
+__device__ __forceinline__ void pv(float (&o)[DP / 64][8][4],
                                    uint32_t (&pa)[4][4], const void* v) {
   const uint64_t dv = desc(saddr(v));
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h) pin(o[h]);
+  for (int h = 0; h < DP / 64; ++h) pin(o[h]);
   pin(pa);
   wg_fence();
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
+  for (int h = 0; h < DP / 64; ++h)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)   // 16 K/V rows = 2048 bytes
-      wgmma_rs(o[h], pa[kk], dv + (h * ATOM + kk * 2048) / 16);
+      wgmma_rs<T>(o[h], pa[kk], dv + (h * ATOM + kk * 2048) / 16);
   wg_commit();
   wg_wait0();
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h) pin(o[h]);
+  for (int h = 0; h < DP / 64; ++h) pin(o[h]);
   pin(pa);
 }
 
@@ -196,9 +224,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats as one register of two T, each rounded to nearest even
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // One tile's online-softmax update for this thread's two rows (e >> 1),
@@ -212,8 +247,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // where exp2(0) would be 1. m is the running max, l a per-thread partial
 // sum of the unweighted p (the quad shares m, so the quad reduction
 // waits for the end of the walk), o is rescaled, and pa receives the
-// bf16 A operands of P V.
-template <bool FULL, int NH, typename Lg, typename Pw>
+// A operands of P V in T.
+template <typename T, bool FULL, int NH, typename Lg, typename Pw>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4], uint32_t vis,
                                              Lg lg, Pw pw, float (&m)[2],
                                              float (&l)[2],
@@ -263,10 +298,26 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], uint32_t vis,
   // 2 kk + 1, each row's column pair packed into one register
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    pa[kk][0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// f(0) .. f(N - 1): the copies (or conversions) of one tile, unrolled
+// where UNROLL (up to DP 128: a few offsets a thread, which the compiler
+// keeps in registers across the walk), one at a time otherwise (at DP
+// 192 / 256 O takes DP / 2 registers a thread, and offsets hoisted out
+// of the walk would spill).
+template <int N, bool UNROLL, typename F>
+__device__ __forceinline__ void for_each(F&& f) {
+  if constexpr (UNROLL) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) f(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) f(k);
   }
 }
 

@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/gofr_tpu_torch/<name>-<hash>.so``
 (``-gencode arch=compute_90a,code=sm_90a``: Hopper, with the ``a``
-features), then loaded with ctypes. The file name carries a hash of
+features), then loaded with ctypes. A source whose kernels come in every
+type and pool form (``PARTS``) is compiled in parts, one ``nvcc`` each,
+all started together, and the parts' objects are linked into its one
+library. The file name carries a hash of
 the source, the ``csrc/`` headers it includes (``wgmma_attn.cuh``,
 ``paged_common.cuh``, ``attn_simt.cuh``, ``act_types.cuh``) and the
 flags, so an edited kernel or header
@@ -45,16 +48,20 @@ SOURCES = {
     "wq_gemm": "wq_gemm.cu",
 }
 
+#: sources compiled in parts: part i (``-DGOFR_PART=i``) instantiates
+#: one (activation type, pool form)'s kernels, part 0 also the C entries;
+#: nvcc compiles one translation unit's kernels one after another
+PARTS = {"paged_decode": 6, "paged_chunk": 4}
+
 #: the activation types the kernels take, by the code their C entries
 #: read as ``dtype``
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def check_head_dim(name: str, d: int) -> None:
-    """Raise ``ValueError`` unless the kernels take head dim ``d``: the
-    bf16 tensor-core kernels hold 64 and 128, ``csrc/attn_simt.cuh`` and
-    ``kv_write.cu``'s general kernels every other multiple of 4 from 16
-    to 256."""
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: a
+    multiple of 4 from 16 to 256 (the attention kernels stage it padded
+    to their head-dim class, ``kv_write.cu`` writes it as it is)."""
     if not (16 <= d <= 256 and d % 4 == 0):
         raise ValueError(f"{name}: head_dim {d}; the kernels take a "
                          f"multiple of 4 from 16 to 256")
@@ -70,15 +77,39 @@ def dtype_code(name: str, what: str, dtype: torch.dtype) -> int:
     return code
 
 
-def wgmma_route(dtype: torch.dtype, d: int) -> bool:
-    """True where the attention C entries launch the bf16 tensor-core
-    (``wgmma``) kernels, which alone split a walk over a cluster: bf16 at
-    head dim 64 or 128. Every other case runs ``csrc/attn_simt.cuh``."""
-    return dtype == torch.bfloat16 and d in (64, 128)
+#: the attention kernels, by the name :func:`attention_route` takes
+ATTENTION_KERNELS = ("flash", "decode", "chunk", "tree")
+
+
+def attention_route(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The hand-written kernel an attention call of ``kernel`` (one of
+    ATTENTION_KERNELS) runs for activations of ``dtype`` at head dim
+    ``d``, as the C entries pick it:
+
+    - ``"split_kv"``: ``csrc/paged_decode.cu``, every decode, in every
+      type (S blocks share a walk, merged in a thread-block cluster);
+    - ``"wgmma"``: ``csrc/flash_attention.cu`` and ``csrc/paged_chunk.cu``
+      on the tensor-core core of ``csrc/wgmma_attn.cuh``, bf16 and
+      float16 flash, chunk and tree (chunk and tree split too);
+    - ``"simt"``: ``csrc/attn_simt.cuh``, float32 flash, chunk and tree
+      in float32 FMAs (TF32 is not JAX's float32), unsplit.
+
+    Every head dim the kernels take runs the same route (a head dim that
+    is not the kernel's class is staged padded to it). Raises on a kernel
+    name, type or head dim the kernels do not take."""
+    if kernel not in ATTENTION_KERNELS:
+        raise ValueError(f"attention_route: unknown kernel {kernel!r}")
+    dtype_code(kernel, "q", dtype)
+    check_head_dim(kernel, d)
+    if kernel == "decode":
+        return "split_kv"
+    return "simt" if dtype == torch.float32 else "wgmma"
 
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: one part's compile: the same flags, an object instead of a library
+PART_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -126,27 +157,50 @@ def library_path(name: str) -> Path:
     files: dict[Path, bytes] = {}
     _sources_of((CSRC / SOURCES[name]).resolve(), files)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(f"parts {PARTS.get(name, 1)}".encode())
     for path in sorted(files):
         h.update(path.name.encode() + b"\0" + files[path])
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _run_nvcc(name: str, args: list) -> str:
+    """One ``nvcc`` run; its stderr (the ptxas report), or raise."""
+    proc = subprocess.run([nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    return proc.stderr
+
+
 def build(name: str) -> Path:
-    """Compile kernel ``name`` unless its hashed library exists; the
-    output is written under a temporary name and renamed, so a
-    concurrent loader never sees half a file."""
+    """Compile kernel ``name`` unless its hashed library exists (a source
+    in ``PARTS``: its parts at once, then one link); the output is written
+    under a temporary name and renamed, so a concurrent loader never sees
+    half a file."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    src = str(CSRC / SOURCES[name])
+    parts = PARTS.get(name, 1)
+    objs = [tmp.with_suffix(f".{i}.o") for i in range(parts)]
+    try:
+        if parts == 1:
+            logs = [_run_nvcc(name, [*NVCC_FLAGS, "-o", str(tmp), src])]
+        else:
+            with ThreadPoolExecutor(max_workers=parts) as pool:
+                logs = list(pool.map(lambda i: _run_nvcc(name, [
+                    *PART_FLAGS, f"-DGOFR_PART={i}", "-o", str(objs[i]),
+                    src]), range(parts)))
+            _run_nvcc(name, ["-shared", "-o", str(tmp), *map(str, objs)])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name} (exit "
-                           f"{proc.returncode}):\n{proc.stderr}")
-    build_logs[name] = proc.stderr
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_logs[name] = "".join(logs)
     os.replace(tmp, out)
     return out
 

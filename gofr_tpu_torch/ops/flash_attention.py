@@ -5,8 +5,10 @@ The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``gofr_tpu/ops/flash_attention.py:_flash_kernel``; its source says what
 bounds it on the H100 and what the design does about it. It takes what
 the TPU kernel takes: bf16, float16 or float32, any head dim that is a
-multiple of 4 from 16 to 256 (bf16 at 64 and 128 on the tensor cores,
-every other case in float32 FMAs, ``csrc/attn_simt.cuh``).
+multiple of 4 from 16 to 256, any GQA group. The routes
+(``_build.attention_route``): bf16 and float16 on the tensor cores
+(``wgmma``, the head dim staged padded to a multiple of 64), float32 in
+float32 FMAs (``csrc/attn_simt.cuh``: TF32 is not JAX's float32).
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ def _check(q, k, v, kv_lengths) -> int:
     """What the kernels take (raise on anything else): q [B, Sq, Hq, D]
     and k, v [B, Skv, Hkv, D] of one type, bf16, float16 or float32, with
     D a multiple of 4 from 16 to 256; contiguous, on one device, aligned
-    to four elements (the kernels read four at a time); int32 [B]
-    kv_lengths. Returns the type's ``dtype`` code."""
+    to four elements (the kernels stage rows in copies of at least four
+    elements); int32 [B] kv_lengths. Returns the type's ``dtype``
+    code."""
     b, sq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d:

@@ -23,25 +23,32 @@ Layouts:
 The kernels (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``) replace
 the TPU kernels ``gofr_tpu/ops/paged_attention.py:_paged_decode_kernel``,
 ``_paged_chunk_kernel`` and ``_paged_tree_kernel``, both of their
-branches: each source instantiates its kernel for bf16 pages and for
-int8 pages with their row scales, with one C entry point per kernel and
-form (``_i8`` for int8). The chunk and tree kernels are one kernel body
-templated on its visibility rule. Each source says what bounds it on
-the H100 and what the design does about it. The plain versions compute
+branches: each source instantiates its kernel for pages in the
+activation type and for int8 pages with their row scales, with one C
+entry point per kernel and form (``_i8`` for int8). The chunk and tree
+kernels are one kernel body templated on its visibility rule. Each
+source says what bounds it on the H100 and what the design does about
+it. The plain versions compute
 over the dequantizing ``paged_kv.slot_view`` (float32 ``codes *
 scales``), as the JAX package's ``_slot_view`` does.
 
-Types and head dims: q in bf16, float16 or float32, a plain pool in q's
-type, any head dim that is a multiple of 4 from 16 to 256, as the TPU
-kernels take any. bf16 at head dims 64 and 128 runs the tensor-core
-kernels; every other case the float32 kernel of ``csrc/attn_simt.cuh``
-(one C entry point per kernel and form either way: the entry picks).
+Types, head dims and groups: q in bf16, float16 or float32, a plain
+pool in q's type, any head dim that is a multiple of 4 from 16 to 256
+and any GQA group that divides Hq, as the TPU kernels take any. The
+routes (``_build.attention_route``; one C entry point per kernel and
+form, which picks): decode runs the split-KV kernel of
+``csrc/paged_decode.cu`` in every type; chunk and tree run the
+``wgmma`` kernel of ``csrc/paged_chunk.cu`` for bf16 and float16 and
+the float32 kernel of ``csrc/attn_simt.cuh`` for float32. A group of
+more query heads than a block holds (SUB_GROUP; 8 in decode at head dims
+above 128) is cut into sub-groups of the same KV head, one block each.
 
-Split-KV: each bf16 tensor-core kernel spreads a work item's walk (a slot's pages for
-decode, a q tile's 64-row K/V tiles for chunk and tree) over S blocks
-that form one thread-block cluster and merge their partial softmax
-states on the card. :func:`kv_splits` picks S from the shapes alone, so
-no length is read on the host.
+Split-KV: the decode kernel and the ``wgmma`` chunk and tree kernel
+spread a work item's walk (a slot's pages for decode, a q tile's 64-row
+K/V tiles for chunk and tree) over S blocks that form one thread-block
+cluster and merge their partial softmax states on the card.
+:func:`kv_splits` picks S from the shapes alone, so no length is read
+on the host.
 """
 
 from __future__ import annotations
@@ -56,9 +63,12 @@ from .paged_kv import is_quantized_pool, slot_view
 
 #: nodes a draft tree may hold: the ancestor masks are 32-bit
 MAX_TREE_WIDTH = 32
-#: query heads per KV head the kernels hold (decode: 4 warps x 4 heads;
-#: chunk: 64 block rows = BQ positions x group, BQ >= 4)
-KERNEL_MAX_GROUP = 16
+#: query heads of one KV head a block holds (decode: the warps' register
+#: arrays, 8 at head dims above 128; chunk: 64 block rows = BQ positions
+#: x heads, BQ >= 4); a wider group is cut into sub-groups (csrc/
+#: paged_common.cuh ``sub_groups``)
+SUB_GROUP = 16
+DECODE_SUB_GROUP_WIDE = 8
 
 #: split-KV sizing: the grid should fill about SPLIT_WAVES waves of
 #: blocks on the H100's SPLIT_SMS SMs; a cluster holds at most
@@ -104,25 +114,38 @@ def _kernel(name: str):
     return fn
 
 
+def sub_groups(group: int, cap: int) -> tuple[int, int]:
+    """(n, size): a group of query heads cut into n sub-groups of at most
+    ``cap`` heads, ``size`` = ceil(group / n) each (the kernels' rule,
+    csrc/paged_common.cuh ``sub_groups``); (1, group) when it fits."""
+    n = -(-group // cap)
+    return n, -(-group // n)
+
+
 def kv_splits(mode: str, batch: int, sq: int, hq: int, hkv: int,
-              max_pages: int, page: int) -> int:
+              max_pages: int, page: int, head_dim: int = 64) -> int:
     """S, the number of blocks that share each work item's K/V walk, from
     the launch's shapes alone (the lengths stay on the card).
 
-    ``mode`` is ``"decode"`` (work items: B x Hkv, walked in pages) or
-    ``"chunk"`` / ``"tree"`` (one rule: B x Hkv x the q tiles of
-    ``CHUNK_ROWS // group`` positions, walked in ``CHUNK_KV_TILE``-row
-    tiles), ``max_pages`` the tables' width. S is the largest power of
-    two up to MAX_SPLITS that keeps the grid within SPLIT_WAVES waves on
-    SPLIT_SMS SMs and S no larger than the units a walk can have: 1 when
-    the grid already fills that (a 1024-row chunk), 4 for decode or a
-    tree verify at 8 slots of Llama-3.2-1B's 8 KV heads, 8 at 1 slot.
+    ``mode`` is ``"decode"`` (work items: B x Hkv x the group's
+    sub-groups, walked in pages) or ``"chunk"`` / ``"tree"`` (one rule:
+    B x Hkv x sub-groups x the q tiles of ``CHUNK_ROWS // heads``
+    positions, walked in ``CHUNK_KV_TILE``-row tiles), ``max_pages`` the
+    tables' width; ``head_dim`` sets decode's sub-group size. S is the
+    largest power of two up to MAX_SPLITS that keeps the grid within
+    SPLIT_WAVES waves on SPLIT_SMS SMs and S no larger than the units a
+    walk can have: 1 when the grid already fills that (a 1024-row chunk),
+    4 for decode or a tree verify at 8 slots of Llama-3.2-1B's 8 KV
+    heads, 8 at 1 slot.
     """
+    group = hq // hkv
     if mode == "decode":
-        blocks, units = batch * hkv, max_pages
+        cap = DECODE_SUB_GROUP_WIDE if head_dim > 128 else SUB_GROUP
+        blocks, units = batch * hkv * sub_groups(group, cap)[0], max_pages
     elif mode in ("chunk", "tree"):
-        q_tiles = -(-sq // (CHUNK_ROWS // (hq // hkv)))
-        blocks = batch * hkv * q_tiles
+        n_sub, size = sub_groups(group, SUB_GROUP)
+        q_tiles = -(-sq // (CHUNK_ROWS // size))
+        blocks = batch * hkv * n_sub * q_tiles
         units = -(-max_pages * page // CHUNK_KV_TILE)
     else:
         raise ValueError(f"kv_splits: unknown mode {mode!r}")
@@ -199,14 +222,13 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
     """What the kernels take: q in bf16, float16 or float32; pools [Hkv,
     Np, pg, hd], both in q's type, or both quantized (int8 codes and
     float32 [Hkv, Np, pg, 1] scales), with hd a multiple of 4 from 16 to
-    256 and a group of at most KERNEL_MAX_GROUP query heads per KV head;
-    int32 [B, Mp] tables and [B] lengths; all contiguous and on q's
-    device. The bf16 tensor-core kernels move q, out and pool rows in
-    16-byte words, so there q and the pages (bf16 or codes) must be
-    16-byte aligned; the float32 kernel reads four elements at a time
-    (float32 scales are 4-byte aligned by construction). Returns the pool
-    tensors in the kernel's argument order: (K, V), or (K codes, V codes,
-    K scales, V scales)."""
+    256 and Hkv dividing Hq (any group); int32 [B, Mp] tables and [B]
+    lengths; all contiguous and on q's device. The kernels stage rows in
+    copies of up to 16 bytes, at least four elements, so q and the pages
+    (or codes) must be aligned to four elements (float32 scales are
+    4-byte aligned by construction). Returns the pool tensors in the
+    kernel's argument order: (K, V), or (K codes, V codes, K scales, V
+    scales)."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     quantized = is_quantized_pool(k_pool)
     if quantized != is_quantized_pool(v_pool):
@@ -224,11 +246,9 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
         raise ValueError(f"{fn}: pools must be [Hkv, Np, pg, {d}], got "
                          f"{tuple(kp.shape)} / {tuple(vp.shape)}")
     hkv = kp.shape[0]
-    if hq % hkv or hq // hkv > KERNEL_MAX_GROUP:
-        raise ValueError(f"{fn}: Hq={hq}, Hkv={hkv}: the group must divide "
-                         f"and be <= {KERNEL_MAX_GROUP}")
+    if hq % hkv:
+        raise ValueError(f"{fn}: Hq={hq}, Hkv={hkv}: the group must divide")
     _build.check_head_dim(fn, d)
-    wide = _build.wgmma_route(q.dtype, d)
     named = [("q", q, q.dtype), (page_names[0], kp, page_dtype),
              (page_names[1], vp, page_dtype)]
     if quantized:
@@ -243,8 +263,7 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
         if t.dtype != dtype:
             raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
         # a float32 scale tensor is 4-byte aligned by construction
-        align = None if "scales" in name else \
-            16 if wide else 4 * t.element_size()
+        align = None if "scales" in name else 4 * t.element_size()
         if align and t.data_ptr() % align:
             raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
         _check_placed(fn, name, t, q)
@@ -260,11 +279,10 @@ def _check(fn: str, q, k_pool, v_pool, tables, *lengths) -> list:
 
 
 def _splits(mode: str, q, b, sq, hq, hkv, mp, pg) -> int:
-    """The split count the launch takes: :func:`kv_splits` on the bf16
-    tensor-core route, 1 on the float32 kernel's (which walks unsplit)."""
-    if not _build.wgmma_route(q.dtype, q.shape[-1]):
-        return 1
-    return kv_splits(mode, b, sq, hq, hkv, mp, pg)
+    """The split count the launch takes: :func:`kv_splits` of its shapes,
+    in every type (the float32 chunk and tree kernel walks unsplit and
+    does not read it)."""
+    return kv_splits(mode, b, sq, hq, hkv, mp, pg, q.shape[-1])
 
 
 def _check_page(wrapper, page: int) -> None:
@@ -298,7 +316,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool, v_pool,
 
     CPU tensors run the plain version. CUDA tensors launch the kernel
     for the pools' form (q in bf16, float16 or float32; pools in q's type
-    or int8 ``{q, s}``; contiguous; hd a multiple of 4 from 16 to 256) or raise — there is no fallback. A slot
+    or int8 ``{q, s}``; contiguous; hd a multiple of 4 from 16 to 256;
+    any group) or raise — there is no fallback. A slot
     walks at most ``Mp`` pages, as the plain version's ``[Mp*pg]`` view
     does.
     """

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes beyond the serving path's: head_dim 128, GQA groups 1 to
-16 (3 among them: 63 live rows in a 64-row tile), page sizes 16 to 64, lengths that are not a multiple of a tile or a
-page, zero-length slots and OOB-padded tables.
+16 (3 among them: 63 live rows in a 64-row tile) and 32 / 48 (cut into
+sub-groups on the card), page sizes 16 to 64, lengths that are not a
+multiple of a tile or a page, zero-length slots and OOB-padded tables;
+and every head dim and type (``SHAPES``) on its route, the 16-bit
+flash / chunk / tree rows with the P-rounding term of their type.
 
 These tests need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one. On the card, from the repository root (``--noconftest``:
@@ -442,10 +445,11 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="lengths"):
         paged_chunk_attention(qc, pool, pool, tables.int(), lengths,
                               lengths.long())
+    pool2 = torch.zeros(2, 3, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="group"):
         paged_chunk_attention(torch.zeros(2, 5, 17, 64, device=dev,
                                           dtype=torch.bfloat16),
-                              pool, pool, tables.int(), lengths, lengths)
+                              pool2, pool2, tables.int(), lengths, lengths)
     odd = torch.zeros(1, 3, 24, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="power of two"):
         paged_chunk_attention(qc, odd, odd, tables.int(), lengths, lengths)
@@ -949,9 +953,12 @@ def test_wq_gemm_raises_on_what_the_kernel_does_not_take(dev):
 # ------------------------------------- every head dim and float type
 #: (head dim, activation type): OpenLLaMA-3B's 100 in float16, JAX's demo
 #: width 16 in float32, 256 in bf16, float16 at 64 (beside the bf16
-#: kernels' width), and 80 / 96 between them
+#: kernels' width), 80 / 96 between them, and 132 / 160 in the wgmma
+#: kernels' 192-column class (132: 8-byte copies of 16-bit rows, 4-byte
+#: copies of int8 rows)
 SHAPES = [(100, torch.float16), (16, torch.float32), (256, torch.bfloat16),
-          (64, torch.float16), (80, torch.float32), (96, torch.bfloat16)]
+          (64, torch.float16), (80, torch.float32), (96, torch.bfloat16),
+          (132, torch.bfloat16), (160, torch.float16)]
 SHAPE_IDS = [f"d{d}-{str(t)[6:]}" for d, t in SHAPES]
 
 
@@ -959,15 +966,23 @@ def _randn_t(gen, dev, dtype, *shape):
     return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
 
-def _within(out, ref, dtype):
-    """Per element |out - ref| <= atol + rtol |ref|: float32 against the
-    float32 plain version differs by summation order only (ATOL_F32,
-    RTOL_F32); a 16-bit output is rounded on both sides (ATOL, RTOL).
-    The float32 kernel keeps P in float32: no P-rounding term."""
+def _within(out, ref, dtype, abs_v_ref=None):
+    """Per element |out - ref| <= atol + rtol |ref| (+ the P-rounding
+    term): float32 against the float32 plain version differs by summation
+    order only (ATOL_F32, RTOL_F32); a 16-bit output is rounded on both
+    sides (ATOL, RTOL). The wgmma kernels (16-bit flash, chunk and tree)
+    round P to the 16-bit type before P·V, 2^-8 relative in bf16 and
+    2^-11 in float16, which moves the output by at most that share of
+    the attention average of |V| (``abs_v_ref``: the plain version over
+    |V|); the split-KV decode and the float32 kernel keep P in float32."""
     atol, rtol = (ATOL_F32, RTOL_F32) if dtype == torch.float32 \
         else (ATOL, RTOL)
     ref = ref.float()
-    excess = ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max()
+    limit = atol + rtol * ref.abs()
+    if abs_v_ref is not None and dtype != torch.float32:
+        p_round = P_ROUND if dtype == torch.bfloat16 else 2.0 ** -11
+        limit = limit + p_round * abs_v_ref.float()
+    excess = ((out.float() - ref).abs() / limit).max()
     assert out.dtype == dtype and excess.item() <= 1.0, \
         f"worst err / limit {excess.item()}"
 
@@ -992,7 +1007,8 @@ def test_flash_kernel_matches_plain_at_every_shape(dev, d, dtype):
         assert flash_attention.launches == before + 1
         live = kv_len > 0     # a kv_len 0 row: zeros here, uniform in plain
         _within(out[live], flash_attention_plain(
-            q, k, v, kv_lengths=kv_len)[live], dtype)
+            q, k, v, kv_lengths=kv_len)[live], dtype,
+            flash_attention_plain(q, k, v.abs(), kv_lengths=kv_len)[live])
         if (~live).any():
             assert out[~live].abs().max().item() == 0.0
 
@@ -1029,7 +1045,9 @@ def test_paged_kernels_match_plain_at_every_shape(dev, d, dtype, form):
         out = paged_chunk_attention(q, kp, vp, tables, hist, clen)
         assert getattr(paged_chunk_attention, attr) == before + 1
         _within(out, paged_chunk_attention_plain(q, kp, vp, tables, hist,
-                                                 clen), dtype)
+                                                 clen), dtype,
+                paged_chunk_attention_plain(q, kp, _abs_pool(vp), tables,
+                                            hist, clen))
         pad = torch.arange(q.shape[1], device=dev)[None, :] >= clen[:, None]
         if pad.any():
             assert out[pad].abs().max().item() == 0.0
@@ -1044,14 +1062,59 @@ def test_paged_kernels_match_plain_at_every_shape(dev, d, dtype, form):
         out = paged_tree_attention(q, kp, vp, tables, hist, clen, masks)
         assert getattr(paged_tree_attention, attr) == before + 1
         _within(out, paged_tree_attention_plain(q, kp, vp, tables, hist,
-                                                clen, masks), dtype)
+                                                clen, masks), dtype,
+                paged_tree_attention_plain(q, kp, _abs_pool(vp), tables,
+                                           hist, clen, masks))
         causal = torch.cumsum(1 << torch.arange(width, device=dev), 0)
         causal = causal.to(torch.int32)[None].expand(len(hists), width)
         chain = paged_tree_attention(q, kp, vp, tables, hist, clen,
                                      causal.contiguous())
-        # the float32 kernel walks a tree on causal masks as a chunk
+        # a tree on causal masks walks as a chunk, on every route
         assert torch.equal(chain, paged_chunk_attention(q, kp, vp, tables,
                                                         hist, clen))
+
+
+#: (head dim, type) at GQA groups 32 and 48 (sub-groups of 16 heads a
+#: block; 8 in decode at head dims above 128)
+WIDE = [(64, torch.bfloat16), (16, torch.float32), (256, torch.float16)]
+
+
+@pytest.mark.parametrize("d,dtype", WIDE,
+                         ids=[f"d{d}-{str(t)[6:]}" for d, t in WIDE])
+@pytest.mark.parametrize("hq,hkv", [(64, 2), (48, 1)], ids=["g32", "g48"])
+@pytest.mark.parametrize("form", ["plain", "int8"])
+def test_kernels_match_plain_at_wide_groups(dev, d, dtype, hq, hkv, form):
+    gen = torch.Generator(device=dev).manual_seed(hq + d)
+    q = _randn_t(gen, dev, dtype, 2, 150, hq, d)
+    k, v = (_randn_t(gen, dev, dtype, 2, 150, hkv, d) for _ in range(2))
+    kv_len = torch.tensor([150, 77], dtype=torch.int32, device=dev)
+    _within(flash_attention(q, k, v, kv_lengths=kv_len),
+            flash_attention_plain(q, k, v, kv_lengths=kv_len), dtype,
+            flash_attention_plain(q, k, v.abs(), kv_lengths=kv_len))
+    q, kp, vp, tables, lengths = _paged_case(gen, dev, 3, hq, hkv, d, 16, 40,
+                                             [0, 33, 300])
+    kp, vp = _cast_pools(kp, vp, dtype, form)
+    q = q.to(dtype)
+    out = paged_decode_attention(q, kp, vp, tables, lengths)
+    _within(out, paged_decode_attention_plain(q, kp, vp, tables, lengths),
+            dtype)
+    assert out[0].abs().max().item() == 0.0
+    q, kp, vp, tables, hist, clen = _chunk_case(dev, 30, hq, hkv, d, 16, 60,
+                                                [100, 0], [30, 21])
+    q = q.to(dtype)
+    kp, vp = _cast_pools(kp, vp, dtype, form)
+    _within(paged_chunk_attention(q, kp, vp, tables, hist, clen),
+            paged_chunk_attention_plain(q, kp, vp, tables, hist, clen), dtype,
+            paged_chunk_attention_plain(q, kp, _abs_pool(vp), tables, hist,
+                                        clen))
+    q, kp, vp, tables, hist, clen, masks = _tree_case(dev, 16, hq, hkv, d, 64,
+                                                      2, [0, 700])
+    q = q.to(dtype)
+    kp, vp = _cast_pools(kp, vp, dtype, form)
+    _within(paged_tree_attention(q, kp, vp, tables, hist, clen, masks),
+            paged_tree_attention_plain(q, kp, vp, tables, hist, clen, masks),
+            dtype, paged_tree_attention_plain(q, kp, _abs_pool(vp), tables,
+                                              hist, clen, masks))
 
 
 @pytest.mark.parametrize("d,dtype", SHAPES, ids=SHAPE_IDS)

@@ -9,12 +9,18 @@ model's dtype, int8 ``{q, s}`` pools dequantized to it). Here:
 - the wrappers' checks (flash, paged decode / chunk / tree, the fused
   RoPE + K/V write, the prefill slab write) take D in {16, 80, 96, 100,
   256} in float16 and float32 and refuse D = 98 and D = 260 with a
-  ``ValueError`` that names the rule; the checks run on CPU tensors and
-  launch nothing;
+  ``ValueError`` that names the rule, and the paged checks take any GQA
+  group that divides Hq (32 and 48 among them, where the kernels cut the
+  group into sub-groups of 16); the checks run on CPU tensors and launch
+  nothing;
+- the route each attention call takes (``_build.attention_route``) for
+  every type, head dim and kernel, and the split count the paged
+  wrappers launch with, ``kv_splits`` of their shapes in every type;
 - each plain version (what a CPU tensor runs, and what the card's kernel
   is held against) against JAX's Pallas kernel in interpret mode, at
   (D 100, float16), (D 16, float32) and (D 256, bfloat16), both pool
-  forms, on the same seeded numpy inputs. Per element ``|port - jax| <=
+  forms, on the same seeded numpy inputs, and the paged ones at GQA
+  groups 32 and 48 (D 16 float32, D 64 bfloat16). Per element ``|port - jax| <=
   atol + rtol |jax|``: float16 atol 1e-3, rtol 2^-9 (each side rounds
   its output to float16, 2^-11 relative, and the JAX kernel rounds P
   to float16 before P·V); float32 atol 1e-5, rtol 0 (summation order);
@@ -46,11 +52,13 @@ from gofr_tpu.serving.engine import SamplingParams as JaxSamplingParams
 from gofr_tpu.serving.glue import llama_engine as jax_llama_engine
 from gofr_tpu_torch.models.convert import params_from_jax
 from gofr_tpu_torch.models.llama import LlamaConfig
+from gofr_tpu_torch.ops import _build
 from gofr_tpu_torch.ops import flash_attention as flash_mod
 from gofr_tpu_torch.ops import paged_attention as paged_mod
 from gofr_tpu_torch.ops import paged_kv
 from gofr_tpu_torch.ops.flash_attention import flash_attention
-from gofr_tpu_torch.ops.paged_attention import (paged_chunk_attention,
+from gofr_tpu_torch.ops.paged_attention import (kv_splits,
+                                                paged_chunk_attention,
                                                 paged_decode_attention,
                                                 paged_tree_attention)
 from gofr_tpu_torch.ops.paged_kv import quantize_pool
@@ -138,6 +146,83 @@ def test_wrapper_checks_refuse_other_head_dims(d):
     for call in calls:
         with pytest.raises(ValueError, match="a multiple of 4 from 16 to 256"):
             call()
+
+
+# (Hq, Hkv): GQA groups 32 and 48, above the 16 heads a block holds
+WIDE_GROUPS = [(64, 2), (48, 1)]
+
+
+@pytest.mark.parametrize("hq,hkv", WIDE_GROUPS + [(12, 8)],
+                         ids=["g32", "g48", "g1.5"])
+def test_paged_checks_take_any_group_that_divides(hq, hkv):
+    d, pg, b = 64, 16, 2
+    q = torch.zeros(b, 8, hq, d, dtype=torch.bfloat16)
+    q1 = q[:, 0].contiguous()
+    lens = torch.full((b,), 8, dtype=torch.int32)
+    pool = torch.zeros(hkv, 6, pg, d, dtype=torch.bfloat16)
+    tables = torch.zeros(b, 3, dtype=torch.int32)
+    calls = [
+        lambda pools: paged_mod._check("paged_decode_attention", q1, *pools,
+                                       tables, lens),
+        lambda pools: paged_mod._check("paged_chunk_attention", q, *pools,
+                                       tables, lens, lens),
+        lambda pools: paged_mod._check("paged_tree_attention", q, *pools,
+                                       tables, lens, lens)]
+    for pools in ((pool, pool), (quantize_pool(pool), quantize_pool(pool))):
+        for call in calls:
+            if hq % hkv:
+                with pytest.raises(ValueError, match="group must divide"):
+                    call(pools)
+            else:   # (K, V), or codes and scales
+                assert len(call(pools)) == (4 if isinstance(pools[0], dict)
+                                            else 2)
+
+
+# ------------------------------------------------------------- the routes
+def _route_want(kernel: str, dtype: str) -> str:
+    if kernel == "decode":
+        return "split_kv"
+    return "simt" if dtype == "float32" else "wgmma"
+
+
+@pytest.mark.parametrize("kernel", _build.ATTENTION_KERNELS)
+@pytest.mark.parametrize("d", TAKEN + [64, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_route_of_every_type_head_dim_and_kernel(kernel, d, dtype):
+    """Decode runs the split-KV kernel in every type; flash, chunk and
+    tree run the wgmma kernels in bf16 and float16 and the float32 FMA
+    kernel in float32, at every head dim (16-bit never reaches
+    attn_simt.cuh)."""
+    assert _build.attention_route(kernel, DTYPES[dtype], d) \
+        == _route_want(kernel, dtype)
+
+
+def test_attention_route_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="a multiple of 4 from 16 to 256"):
+        _build.attention_route("decode", torch.float16, 98)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        _build.attention_route("flash", torch.float64, 64)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        _build.attention_route("prefill", torch.float16, 64)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_wrappers_split_in_every_type(dtype):
+    """The split count a launch takes is kv_splits of its shapes in every
+    type (before, 1 off the bf16 64 / 128 route)."""
+    for mode, b, sq, hq, hkv, mp, pg, d in (
+            ("decode", 8, 1, 32, 32, 24, 64, 100),
+            ("decode", 1, 1, 64, 2, 40, 16, 256),
+            ("decode", 2, 1, 4, 2, 8, 64, 16),
+            ("chunk", 4, 1024, 32, 32, 32, 64, 100),
+            ("chunk", 1, 16, 48, 1, 32, 64, 64),
+            ("tree", 8, 16, 8, 2, 32, 64, 256)):
+        q = torch.zeros(b, sq, hq, d, dtype=DTYPES[dtype])
+        got = paged_mod._splits(mode, q, b, sq, hq, hkv, mp, pg)
+        assert got == kv_splits(mode, b, sq, hq, hkv, mp, pg, head_dim=d)
+        # a one-slot decode walk and a one-slot tree verify do split
+        if b == 1 and mode == "decode":
+            assert got == 8
 
 
 # ------------------------------------- the plain versions against JAX's kernels
@@ -265,6 +350,64 @@ def test_paged_plain_versions_match_jax_pallas_interpret(d, dtype, form):
     want = paged_tree_attention_pallas(
         jq, jkp, jvp, jnp.asarray(tables), jnp.asarray(hists, jnp.int32),
         jnp.asarray(clens, jnp.int32), jnp.asarray(masks), interpret=True)
+    _assert_close(got, want, dtype)
+
+
+GROUP_SHAPES = [(16, "float32"), (64, "bfloat16")]
+
+
+@pytest.mark.parametrize("form", ["plain", "int8"])
+@pytest.mark.parametrize("d,dtype", GROUP_SHAPES,
+                         ids=[f"d{d}-{t}" for d, t in GROUP_SHAPES])
+@pytest.mark.parametrize("hq,hkv", WIDE_GROUPS, ids=["g32", "g48"])
+def test_paged_plain_versions_at_wide_groups_match_jax_pallas_interpret(
+        hq, hkv, d, dtype, form):
+    """Decode, chunk and tree at GQA groups 32 and 48 (the kernels cut
+    them into sub-groups of 16 heads; JAX's kernels pad the group): a
+    mid-page end, a zero-length slot, a tree over a history."""
+    rng = np.random.default_rng(hq + d)
+    pg, n_pages, mp = 16, 12, 4
+    kp, jkp = _pools(rng, (hkv, n_pages, pg, d), dtype, form)
+    vp, jvp = _pools(rng, (hkv, n_pages, pg, d), dtype, form)
+
+    lens = [21, 0]
+    tables = _tables(rng, lens, pg, n_pages, mp)
+    q, jq = _pair(rng.standard_normal((2, hq, d)).astype(np.float32), dtype)
+    got = paged_decode_attention(q, kp, vp, torch.from_numpy(tables),
+                                 torch.tensor(lens, dtype=torch.int32))
+    want = paged_decode_attention_pallas(jq, jkp, jvp, jnp.asarray(tables),
+                                         jnp.asarray(lens, jnp.int32),
+                                         interpret=True)
+    _assert_close(got, want, dtype, rows=np.asarray(lens) > 0)
+    assert not got[1].float().abs().sum()
+
+    hists, clens, sq = [9, 0], [5, 0], 6
+    tables = _tables(rng, [h + c for h, c in zip(hists, clens)], pg,
+                     n_pages, mp)
+    q, jq = _pair(rng.standard_normal((2, sq, hq, d)).astype(np.float32),
+                  dtype)
+    args = (torch.from_numpy(tables), torch.tensor(hists, dtype=torch.int32),
+            torch.tensor(clens, dtype=torch.int32))
+    jargs = (jnp.asarray(tables), jnp.asarray(hists, jnp.int32),
+             jnp.asarray(clens, jnp.int32))
+    got = paged_chunk_attention(q, kp, vp, *args)
+    want = paged_chunk_attention_pallas(jq, jkp, jvp, *jargs, interpret=True)
+    live = np.arange(sq)[None, :] < np.asarray(clens)[:, None]
+    _assert_close(got, want, dtype, rows=live)
+    assert not got[torch.from_numpy(~live)].float().abs().sum()
+
+    hists, width = [13], 4
+    tables = _tables(rng, [h + width for h in hists], pg, n_pages, mp)
+    masks = _tree_masks(rng, 1, width)
+    q, jq = _pair(rng.standard_normal((1, width, hq, d)).astype(np.float32),
+                  dtype)
+    got = paged_tree_attention(q, kp, vp, torch.from_numpy(tables),
+                               torch.tensor(hists, dtype=torch.int32),
+                               torch.tensor([width], dtype=torch.int32),
+                               torch.from_numpy(masks))
+    want = paged_tree_attention_pallas(
+        jq, jkp, jvp, jnp.asarray(tables), jnp.asarray(hists, jnp.int32),
+        jnp.asarray([width], jnp.int32), jnp.asarray(masks), interpret=True)
     _assert_close(got, want, dtype)
 
 

@@ -51,8 +51,13 @@ class AppRunner:
             asyncio.set_event_loop(self._loop)
 
             async def main():
+                # a failed start is recorded before __enter__ is woken,
+                # so it can never read "no error" and return
                 try:
                     await self.app.start()
+                except Exception as exc:
+                    self._error = exc
+                    raise
                 finally:
                     self._started.set()
                 await self.app._stop_event.wait()
@@ -60,7 +65,8 @@ class AppRunner:
             try:
                 self._loop.run_until_complete(main())
             except Exception as exc:
-                self._error = exc
+                if self._error is None:
+                    self._error = exc
                 self._started.set()
             finally:
                 self._loop.close()
